@@ -14,8 +14,12 @@ Phases, each fatal on failure:
    (GraphSAGE 3x256, khop3 fanout (15, 10, 5), batch 8000, direct extract,
    pipelined, capacities (8000, 133376, 1007360, 2449152)).
 4. Kernels against their plain PyTorch versions at the shapes of one
-   sampled batch: K1 (row gather) on the direct-extract dst ids, as drawn
-   and with 30% of them EMPTY, exact; K4
+   sampled batch: K2 (khop sampler) at the three layers' frontiers and K3
+   (seeded dedup) at the two dedup calls, walked layer by layer as the
+   sampler walks them, exact; the whole batch sampled through K2 and K3
+   equal, block by block, to the same batch sampled through their plain
+   versions from the same generator seed; K1 (row gather) on the
+   direct-extract dst ids, as drawn and with 30% of them EMPTY, exact; K4
    forward at the layer-0 and layer-1 shapes and K4 backward at the
    layer-1 shape, rtol 1e-5 / atol 1e-5.  TF32 is off throughout.
 5. Small reference: on a small graph the kernels' forward logits and loss
@@ -93,7 +97,7 @@ def main() -> int:
     from xgnn_tpu_torch.engine import Engine
     from xgnn_tpu_torch.engine.shuffler import Shuffler
     from xgnn_tpu_torch.models import build_model
-    from xgnn_tpu_torch.ops import _build
+    from xgnn_tpu_torch.ops import _build, sampling, unique
     from xgnn_tpu_torch.ops.fanout import (
         fanout_backward,
         fanout_backward_plain,
@@ -101,6 +105,8 @@ def main() -> int:
         fanout_reduce_plain,
     )
     from xgnn_tpu_torch.ops.gather import gather_rows, gather_rows_plain
+    from xgnn_tpu_torch.ops.sampling import sample_khop0, sample_khop0_plain
+    from xgnn_tpu_torch.ops.unique import unique_seeded, unique_seeded_plain
     from xgnn_tpu_torch.train import loss_fn
 
     # plain versions are compared in full float32
@@ -141,8 +147,8 @@ def main() -> int:
 
     # ---- 4. kernels against their plain versions ---------------------------
     seeds, n = next(Shuffler(ds.train_set, BATCH, seed=7).epoch_batches(0))
-    batch = engine.sampler.sample(torch.from_numpy(seeds).to(dev), n,
-                                  generator(dev, 7))
+    seeds = torch.from_numpy(seeds).to(dev)
+    batch = engine.sampler.sample(seeds, n, generator(dev, 7))
     b0, b1 = batch.blocks[0], batch.blocks[1]
     feat = engine.feature_source.feat
     gen = generator(dev, 11)
@@ -151,7 +157,7 @@ def main() -> int:
     kernels = []
 
     def record(name, source, replaces, shape, err, tol, fn, plain, library,
-               nbytes, flops, per_step):
+               library_call, nbytes, flops, per_step):
         ms, plain_ms = time_ms(torch, fn), time_ms(torch, plain)
         lib_ms = None if library is None else time_ms(torch, library)
         b_ms, b_by = bound_ms(nbytes, flops)
@@ -161,6 +167,7 @@ def main() -> int:
             "launches_per_step": per_step, "max_abs_err": err,
             "tolerance": tol, "ms": ms, "kernel_ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+            "library_call": library_call,
         })
         print(f"{tag} {name} {shape}: max_abs_err {err:.3e} ({tol}); "
               f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
@@ -177,6 +184,89 @@ def main() -> int:
         if not ok:
             raise AssertionError(f"{name}: kernel disagrees with its plain "
                                  f"version (max abs err {max_err(a, b)})")
+
+    # K2 at each layer's frontier and K3 at each dedup, one batch walked
+    # layer by layer as sampler._sample_minibatch walks it
+    empty = torch.iinfo(torch.int32).max
+    graph = engine.sampler.graph
+    frontier = seeds
+    num = torch.full((), n, dtype=torch.int32, device=dev)
+    for layer, k in enumerate(FANOUT):
+        u = torch.rand((frontier.shape[0], k), generator=gen, device=dev)
+        nbr = sample_khop0(graph.indptr, graph.indices, frontier, k, u=u)
+        ref = sample_khop0_plain(graph.indptr, graph.indices, frontier, k,
+                                 u=u)
+        torch.cuda.synchronize()
+        assert_close("sample_khop", nbr, ref, exact=True)
+        rows = int((frontier != empty).sum())
+        picks = int((nbr != empty).sum())
+        record("sample_khop", "xgnn_tpu_torch/csrc/sampling.cu",
+               "xgnn_tpu/ops/sampling.py:144",
+               f"layer {layer}: frontier {frontier.shape[0]} ({rows} valid) "
+               f"x K={k}, {picks} picks", max_err(nbr, ref), "exact",
+               lambda: sample_khop0(graph.indptr, graph.indices, frontier, k,
+                                    u=u),
+               lambda: sample_khop0_plain(graph.indptr, graph.indices,
+                                          frontier, k, u=u),
+               None, None,
+               # frontier, two indptr entries per valid row, u, one index
+               # per pick, the output
+               nbytes=frontier.numel() * 4 + rows * 8 + u.numel() * 4
+               + picks * 4 + nbr.numel() * 4,
+               flops=0, per_step=3)
+        if layer == len(FANOUT) - 1:
+            break
+        ids = torch.cat([frontier, nbr.reshape(-1)])
+        cap = CAPS[layer + 1]
+        out = unique_seeded(ids, num, frontier.shape[0], cap,
+                            num_node=graph.num_node)
+        ref = unique_seeded_plain(ids, num, frontier.shape[0], cap)
+        torch.cuda.synchronize()
+        for o, r in zip(out, ref):
+            assert_close("unique_seeded", o, r, exact=True)
+        record("unique_seeded", "xgnn_tpu_torch/csrc/unique.cu",
+               "xgnn_tpu/ops/unique.py:178",
+               f"layer {layer}: {ids.shape[0]} ids (prefix "
+               f"{frontier.shape[0]}), out_cap {cap}, {int(out[1])} unique",
+               max(max_err(o, r) for o, r in zip(out, ref)), "exact",
+               lambda: unique_seeded(ids, num, frontier.shape[0], cap,
+                                     num_node=graph.num_node),
+               lambda: unique_seeded_plain(ids, num, frontier.shape[0], cap),
+               lambda: torch.unique(ids, sorted=True, return_inverse=True),
+               "torch.unique(sorted=True, return_inverse=True); its id "
+               "order differs (no seeded prefix)",
+               # ids in, local ids and unique ids out (the table's own
+               # traffic is the design's cost, not the function's)
+               nbytes=ids.numel() * 8 + cap * 4 + 8,
+               flops=0, per_step=2)
+        frontier, num = out[0], torch.clamp(out[1], max=cap)
+    del u, nbr, ref, ids, out, frontier
+
+    # the whole batch through the plain versions, from the same seed
+    kernels_fns = sampling.sample_khop0, unique.unique_seeded
+    sampling.sample_khop0 = sample_khop0_plain
+    unique.unique_seeded = (
+        lambda ids, num_prev, prev_cap, out_cap, num_node=None:
+        unique_seeded_plain(ids, num_prev, prev_cap, out_cap))
+    try:
+        plain_batch = engine.sampler.sample(seeds, n, generator(dev, 7))
+    finally:
+        sampling.sample_khop0, unique.unique_seeded = kernels_fns
+    pairs = [(f"block {i} {f}", getattr(kb, f), getattr(pb, f))
+             for i, (kb, pb) in enumerate(zip(batch.blocks,
+                                              plain_batch.blocks))
+             for f in ("neigh", "num_dst", "num_src", "dst_ids")]
+    pairs += [(f, getattr(batch, f), getattr(plain_batch, f))
+              for f in ("input_nodes", "num_input", "overflow")]
+    for what, a, b in pairs:
+        if (a is None) != (b is None) or (a is not None
+                                          and not torch.equal(a, b)):
+            raise AssertionError(f"sampled batch: {what} through the kernels "
+                                 "differs from the plain path")
+    print(f"{tag} sampled batch: {len(pairs)} fields of "
+          f"{len(batch.blocks)} blocks through K2/K3 equal the plain path's",
+          flush=True)
+    del plain_batch
 
     # K1 on the direct-extract layer's dst ids, and on the same ids with
     # 30% of them EMPTY (a frontier further below its capacity)
@@ -197,6 +287,7 @@ def main() -> int:
                lambda: gather_rows(feat, ids),
                lambda: gather_rows_plain(feat, ids),
                lambda: torch.index_select(feat, 0, safe),
+               "torch.index_select on the ids clamped into the table",
                nbytes=n_valid * width * 4 + ids.shape[0] * (width * 4 + 4),
                flops=0, per_step=2)
         del out, ref
@@ -225,6 +316,7 @@ def main() -> int:
                    lambda: fanout_reduce_plain(h, nb),
                    lambda: F.embedding_bag(clamped, h, mode="sum",
                                            per_sample_weights=msk),
+                   "F.embedding_bag(mode='sum', per_sample_weights=mask)",
                    nbytes=picks * f * 4 + nb.numel() * 4
                    + nb.shape[0] * (f + 1) * 4,
                    flops=picks * f, per_step=per_step)
@@ -252,6 +344,7 @@ def main() -> int:
            lambda: fanout_backward(g1, nb, None, h1.shape[0]),
            lambda: fanout_backward_plain(g1, nb, None, h1.shape[0]),
            lambda: torch.autograd.grad(lib_out, hl, g1, retain_graph=True),
+           "the autograd backward of F.embedding_bag",
            nbytes=g1.numel() * 4 + nb.numel() * 4 + h1.numel() * 4,
            flops=picks * f, per_step=2)
     del gh, gh_ref, hl, lib_out, h1, g1, batch, b0, b1
@@ -288,7 +381,8 @@ def main() -> int:
     # ---- 6. main path ------------------------------------------------------
     steps = Shuffler(ds.train_set, BATCH).num_local_step
     expected = {"gather_rows": 2 * steps, "fanout_fwd": 3 * steps,
-                "fanout_bwd": 2 * steps}
+                "fanout_bwd": 2 * steps, "sample_khop": 3 * steps,
+                "unique_seeded": 2 * steps}
     results = []
     for epoch in (0, 1):
         _build.LAUNCHES.reset()

@@ -94,6 +94,120 @@ def test_no_backward_launch_for_a_table_without_grad(dev):
     assert _build.LAUNCHES.snapshot() == {"fanout_fwd": 1}
 
 
+def _hub_csr(dev, fanout, seed):
+    """A CSR whose rows have degree 0, below, at and above ``fanout``, and
+    hubs past 2^16, with random neighbour ids."""
+    rng = np.random.default_rng(seed)
+    small = [0, 1, max(fanout - 1, 0), fanout, fanout + 1, 2 * fanout, 37]
+    degrees = np.concatenate([rng.choice(small, size=400),
+                              [65_535, 65_536, 65_537, 200_003, 1 << 18]])
+    indptr = np.concatenate([[0], np.cumsum(degrees)]).astype(np.int32)
+    indices = rng.integers(0, len(degrees), int(indptr[-1])).astype(np.int32)
+    return (torch.from_numpy(indptr).to(dev),
+            torch.from_numpy(indices).to(dev), len(degrees))
+
+
+@pytest.mark.parametrize("fanout", [1, 3, 5, 10, 15])
+def test_khop_kernel_equals_plain(dev, fanout):
+    from xgnn_tpu_torch.ops import _build
+    from xgnn_tpu_torch.ops.sampling import sample_khop0, sample_khop0_plain
+
+    indptr, indices, num_node = _hub_csr(dev, fanout, fanout)
+    g = _gen(dev, fanout)
+    b = 3 * 256 + 77  # not a multiple of the block
+    frontier = torch.randint(0, num_node, (b,), generator=g, device=dev,
+                             dtype=torch.int32)
+    frontier[-5:] = torch.arange(num_node - 5, num_node, device=dev,
+                                 dtype=torch.int32)  # the hubs
+    frontier[::9] = EMPTY
+    _build.LAUNCHES.reset()
+    for seed in range(40):
+        u = torch.rand((b, fanout), generator=_gen(dev, 1000 + seed),
+                       device=dev)
+        out = sample_khop0(indptr, indices, frontier, fanout, u=u)
+        ref = sample_khop0_plain(indptr, indices, frontier, fanout, u=u)
+        assert torch.equal(out, ref), f"seed {seed}"
+    # drawn from a generator, the kernel's uniforms are the plain version's
+    out = sample_khop0(indptr, indices, frontier, fanout, _gen(dev, 5))
+    ref = sample_khop0_plain(indptr, indices, frontier, fanout, _gen(dev, 5))
+    assert torch.equal(out, ref)
+    assert _build.LAUNCHES.snapshot() == {"sample_khop": 41}
+    assert sample_khop0(indptr, indices, frontier[:0], fanout).shape == (
+        0, fanout)
+
+
+@pytest.mark.parametrize("case", ["dups", "num_prev_0", "all_empty",
+                                  "overflow", "tiny_cap"])
+def test_unique_kernel_equals_plain(dev, case):
+    from xgnn_tpu_torch.ops.unique import unique_seeded, unique_seeded_plain
+
+    rng = np.random.default_rng(len(case))
+    num_node, prev_cap, num_prev = 5000, 700, 613
+    if case == "num_prev_0":
+        num_prev = 0
+    prev = np.full(prev_cap, EMPTY, np.int32)
+    prev[:num_prev] = rng.choice(num_node, num_prev, replace=False)
+    # duplicates among the picks (a narrow id range) and picks that repeat
+    # prefix ids
+    picks = rng.integers(0, num_node // 3, 7000).astype(np.int32)
+    picks[::5] = EMPTY
+    if num_prev:
+        picks[1::7] = prev[rng.integers(0, num_prev, len(picks[1::7]))]
+    ids = np.concatenate([prev, picks])
+    if case == "all_empty":
+        ids[:] = EMPTY
+        num_prev = 0
+    out_cap = {"overflow": 1200, "tiny_cap": 10}.get(case, 4096)
+    ids_t = torch.from_numpy(ids).to(dev)
+    n_prev = torch.tensor(num_prev, dtype=torch.int32).to(dev)
+    out = unique_seeded(ids_t, n_prev, prev_cap, out_cap, num_node=num_node)
+    ref = unique_seeded_plain(ids_t, n_prev, prev_cap, out_cap)
+    for o, r in zip(out, ref):
+        assert o.dtype == r.dtype and torch.equal(o, r)
+    assert (int(out[1]) > out_cap) == (case in ("overflow", "tiny_cap"))
+    with pytest.raises(ValueError, match="num_node"):
+        unique_seeded(ids_t, n_prev, prev_cap, out_cap)
+
+
+def test_sampler_kernels_equal_the_plain_path(dev, monkeypatch):
+    """A whole ``Sampler.sample`` through K2 and K3 equals the same batch
+    sampled through their plain versions from the same generator seed."""
+    from xgnn_tpu_torch import RunConfig, make_device_dataset
+    from xgnn_tpu_torch.ops import _build, sampling, unique
+    from xgnn_tpu_torch.sampler import Sampler
+
+    ds = make_device_dataset(20_000, 100_000, 8, 5, seed=3, device=dev)
+    for direct in (True, False):
+        sampler = Sampler(ds.graph, RunConfig(batch_size=480,
+                                              fanout=(15, 10, 5)),
+                          direct_extract=direct)
+        seeds = torch.full((sampler.capacities[0],), EMPTY,
+                           dtype=torch.int32, device=dev)
+        seeds[:480] = torch.from_numpy(ds.train_set[:480]).to(dev)
+        _build.LAUNCHES.reset()
+        got = sampler.sample(seeds, 480, _gen(dev, 9))
+        assert _build.LAUNCHES.snapshot() == {
+            "sample_khop": 3, "unique_seeded": 2 if direct else 3}
+        with monkeypatch.context() as m:
+            m.setattr(sampling, "sample_khop0", sampling.sample_khop0_plain)
+            m.setattr(unique, "unique_seeded",
+                      lambda ids, num_prev, prev_cap, out_cap, num_node=None:
+                      unique.unique_seeded_plain(ids, num_prev, prev_cap,
+                                                 out_cap))
+            ref = sampler.sample(seeds, 480, _gen(dev, 9))
+        assert len(got.blocks) == len(ref.blocks) == 3
+        for gb, rb in zip(got.blocks, ref.blocks):
+            assert torch.equal(gb.neigh, rb.neigh)
+            assert torch.equal(gb.num_src, rb.num_src)
+            assert torch.equal(gb.num_dst, rb.num_dst)
+            assert (gb.dst_ids is None) == (rb.dst_ids is None)
+            if gb.dst_ids is not None:
+                assert torch.equal(gb.dst_ids, rb.dst_ids)
+        assert torch.equal(got.input_nodes, ref.input_nodes)
+        assert torch.equal(got.num_input, ref.num_input)
+        assert torch.equal(got.overflow, ref.overflow)
+
+
 def test_pipelined_engine_matches_serial_on_the_card(dev):
     from xgnn_tpu_torch import Engine, RunConfig, make_device_dataset
 

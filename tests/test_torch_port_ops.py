@@ -112,26 +112,92 @@ def test_khop_draws_its_own_uniforms_from_a_generator():
     assert torch.equal(a, b)
 
 
-# ------------------------------------------------------------------- unique
-@pytest.mark.parametrize("out_cap", [400, 60, 9])  # ample, overflow, tiny
-def test_unique_seeded_matches_jax(out_cap):
-    from xgnn_tpu.ops.unique import unique_seeded as jax_unique
-    from xgnn_tpu_torch.ops.unique import unique_seeded
+def test_khop_refuses_what_it_cannot_take():
+    from xgnn_tpu_torch.ops.sampling import sample_khop0, sample_khop0_plain
 
-    rng = np.random.default_rng(out_cap)
+    rng = np.random.default_rng(1)
+    indptr, indices = (_t(a) for a in _csr(rng, rng.integers(0, 9, 20)))
+    frontier = _t(np.arange(20, dtype=np.int32))
+    u = torch.rand((20, 4), generator=torch.Generator().manual_seed(0))
+    # on the CPU the wrapper is the plain version
+    assert torch.equal(sample_khop0(indptr, indices, frontier, 4, u=u),
+                       sample_khop0_plain(indptr, indices, frontier, 4, u=u))
+    bad = [
+        (indptr.long(), indices, frontier, 4, u),  # 2^31 edges or more
+        (indptr, indices.long(), frontier, 4, u),
+        (indptr, indices, frontier.long(), 4, u),
+        (indptr, indices, frontier, 4, u[:, :3]),  # u not (B, K)
+        (indptr, indices, frontier, 4, u[:19]),
+        (indptr, indices, frontier, 4, u.double()),
+        (indptr, indices, frontier, 4, u.t().contiguous().t()),
+        (indptr, indices, frontier, 0, None),
+        (indptr, indices, frontier, 65, None),  # more records than it keeps
+    ]
+    for ip, ix, fr, k, uu in bad:
+        with pytest.raises(ValueError):
+            sample_khop0(ip, ix, fr, k, u=uu)
+
+
+# ------------------------------------------------------------------- unique
+def _seeded_ids(seed):
+    """``concat(prev_frontier, picks)`` with 25 valid of 32 prefix slots,
+    EMPTY picks and picks that repeat prefix ids."""
+    rng = np.random.default_rng(seed)
     prev_cap, num_prev = 32, 25
     prev = np.full(prev_cap, EMPTY_KEY, np.int32)
     prev[:num_prev] = rng.choice(500, num_prev, replace=False)
     picks = rng.integers(0, 120, 200).astype(np.int32)
     picks[::4] = EMPTY_KEY
     picks[1::9] = prev[rng.integers(0, num_prev, len(picks[1::9]))]
-    ids = np.concatenate([prev, picks])
+    return np.concatenate([prev, picks]), num_prev, prev_cap
+
+
+@pytest.mark.parametrize("out_cap", [400, 60, 9])  # ample, overflow, tiny
+def test_unique_seeded_matches_jax(out_cap):
+    from xgnn_tpu.ops.unique import unique_seeded as jax_unique
+    from xgnn_tpu_torch.ops.unique import unique_seeded
+
+    ids, num_prev, prev_cap = _seeded_ids(out_cap)
     ref = jax_unique(jnp.asarray(ids), jnp.int32(num_prev), prev_cap, out_cap)
     out = unique_seeded(_t(ids), torch.tensor(num_prev, dtype=torch.int32),
                         prev_cap, out_cap)
     for o, r in zip(out, ref):
         np.testing.assert_array_equal(o.numpy(), np.asarray(r))
     assert (int(out[1]) > out_cap) == (out_cap != 400)  # overflow flagged
+
+
+@pytest.mark.parametrize("out_cap", [400, 60, 9])
+def test_unique_seeded_num_node_leaves_the_plain_result(out_cap):
+    from xgnn_tpu_torch.ops.unique import unique_seeded, unique_seeded_plain
+
+    ids, num_prev, prev_cap = _seeded_ids(out_cap)
+    n_prev = torch.tensor(num_prev, dtype=torch.int32)
+    ref = unique_seeded_plain(_t(ids), n_prev, prev_cap, out_cap)
+    for kwargs in ({}, {"num_node": 500}):
+        out = unique_seeded(_t(ids), n_prev, prev_cap, out_cap, **kwargs)
+        for o, r in zip(out, ref):
+            assert o.dtype == r.dtype and torch.equal(o, r)
+
+
+def test_unique_seeded_refuses_what_it_cannot_take():
+    from xgnn_tpu_torch.ops.unique import unique_seeded
+
+    ids = torch.arange(10, dtype=torch.int32)
+    n_prev = torch.tensor(2, dtype=torch.int32)
+    assert int(unique_seeded(ids, n_prev, 4, 8, num_node=10)[1]) == 10
+    bad = [
+        ((ids.long(), n_prev, 4, 8), {}),
+        ((ids[::2], n_prev, 4, 8), {}),
+        ((ids, n_prev.long(), 4, 8), {}),
+        ((ids, torch.tensor([2, 3], dtype=torch.int32), 4, 8), {}),
+        ((ids, n_prev, 11, 8), {}),  # a prefix longer than the ids
+        ((ids, n_prev, 4, -1), {}),
+        ((ids, n_prev, 4, 8), {"num_node": -1}),
+        ((ids, 2, 4, 8), {}),  # num_prev stays on the device
+    ]
+    for args, kwargs in bad:
+        with pytest.raises(ValueError):
+            unique_seeded(*args, **kwargs)
 
 
 # ---------------------------------------------------------- K4 fanout reduce

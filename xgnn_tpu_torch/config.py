@@ -93,9 +93,10 @@ class RunConfig:
         if self.agg_impl != "loop":
             todo.append(f"agg_impl={self.agg_impl!r}: ROADMAP kernel K14")
         if self.compute_dtype != "float32" or self.feat_dtype != "float32":
-            todo.append("bfloat16 compute or features: ROADMAP open item 5")
+            todo.append("bfloat16 compute or features: ROADMAP open item 6 "
+                        "(train.py)")
         if self.remat:
-            todo.append("remat: ROADMAP open item 12 (tooling)")
+            todo.append("remat: ROADMAP open item 5 (models/gnn.py)")
         if todo:
             raise NotImplementedError(
                 "not ported to xgnn_tpu_torch yet: " + "; ".join(todo)

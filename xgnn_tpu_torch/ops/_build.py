@@ -43,6 +43,13 @@ SIGNATURES = {
         "xg_fanout_fwd": [_P, _P, _P, _P, _P, _LL, _LL, _I, _LL, _P],
         "xg_fanout_bwd": [_P, _P, _P, _P, _LL, _LL, _I, _LL, _P],
     },
+    "sampling": {
+        "xg_sample_khop": [_P, _P, _P, _P, _P, _LL, _LL, _I, _P],
+    },
+    "unique": {
+        "xg_unique_seeded": [_P, _LL, _LL, _P, _LL, _LL, _P, _LL, _P, _P, _P,
+                             _P],
+    },
 }
 
 

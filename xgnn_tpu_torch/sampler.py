@@ -121,7 +121,8 @@ def _sample_minibatch(graph: Graph, seeds: torch.Tensor, num_seed, *,
         ids = torch.cat([frontier, nbr.reshape(-1)])
         out_cap = capacities[layer + 1]
         uids, num_unique, local = unique.unique_seeded(
-            ids, num_frontier, frontier.shape[0], out_cap
+            ids, num_frontier, frontier.shape[0], out_cap,
+            num_node=graph.num_node,
         )
         blocks.append(Block(
             neigh=local[frontier.shape[0]:].reshape(nbr.shape),
