@@ -19,9 +19,12 @@ Phases, each fatal on failure:
    sampler walks them, exact; the whole batch sampled through K2 and K3
    equal, block by block, to the same batch sampled through their plain
    versions from the same generator seed; K1 (row gather) on the
-   direct-extract dst ids, as drawn and with 30% of them EMPTY, exact; K4
-   forward at the layer-0 and layer-1 shapes and K4 backward at the
-   layer-1 shape, rtol 1e-5 / atol 1e-5.  TF32 is off throughout.
+   direct-extract dst ids, as drawn and with 30% of them EMPTY, and on the
+   label column at the seeds, exact; K4 forward at the three layers'
+   shapes and K4 backward (with the dst prefix's gradient) at the layer-1
+   and layer-2 shapes, rtol 1e-5 / atol 1e-5, the backward also equal bit
+   for bit across two launches, with its longest segment (the most picks
+   of one src row) printed.  TF32 is off throughout.
 5. Small reference: on a small graph the kernels' forward logits and loss
    agree with the plain path on the CPU for the same blocks and weights.
 6. Main path: one warm-up epoch, then one counted epoch (25 steps) with the
@@ -149,11 +152,12 @@ def main() -> int:
     seeds, n = next(Shuffler(ds.train_set, BATCH, seed=7).epoch_batches(0))
     seeds = torch.from_numpy(seeds).to(dev)
     batch = engine.sampler.sample(seeds, n, generator(dev, 7))
-    b0, b1 = batch.blocks[0], batch.blocks[1]
+    b0, b1, b2 = batch.blocks
     feat = engine.feature_source.feat
     gen = generator(dev, 11)
+    # the inputs of layers 1 and 2: (1,007,360, 256) and (133,376, 256)
     h1 = torch.randn((b0.dst_cap, cfg.num_hidden), generator=gen, device=dev)
-    g1 = torch.randn((b1.dst_cap, cfg.num_hidden), generator=gen, device=dev)
+    h2 = torch.randn((b1.dst_cap, cfg.num_hidden), generator=gen, device=dev)
     kernels = []
 
     def record(name, source, replaces, shape, err, tol, fn, plain, library,
@@ -292,6 +296,24 @@ def main() -> int:
                flops=0, per_step=2)
         del out, ref
 
+    # K1 on the label column at the seeds (LabelSource.extract)
+    lab = engine.label_source.label[:, None]
+    out, ref = gather_rows(lab, seeds), gather_rows_plain(lab, seeds)
+    torch.cuda.synchronize()
+    assert_close("gather_rows", out, ref, exact=True)
+    n_valid = int(((seeds >= 0) & (seeds < lab.shape[0])).sum())
+    safe = torch.where((seeds >= 0) & (seeds < lab.shape[0]), seeds, 0)
+    record("gather_rows", "xgnn_tpu_torch/csrc/gather.cu",
+           "xgnn_tpu/ops/pallas_gather.py:85",
+           f"labels: {seeds.shape[0]} ids ({n_valid} valid) x "
+           f"{tuple(lab.shape)} int32", max_err(out, ref), "exact",
+           lambda: gather_rows(lab, seeds),
+           lambda: gather_rows_plain(lab, seeds),
+           lambda: torch.index_select(lab, 0, safe),
+           "torch.index_select on the ids clamped into the table",
+           nbytes=n_valid * 4 + seeds.shape[0] * 8, flops=0, per_step=2)
+    del out, ref
+
     def fwd_case(name, h, blk, per_step):
         nb = blk.neigh
         with torch.no_grad():
@@ -323,31 +345,52 @@ def main() -> int:
 
     fwd_case("fanout_fwd", feat, b0, 3)
     fwd_case("fanout_fwd", h1, b1, 3)
+    fwd_case("fanout_fwd", h2, b2, 3)
 
-    # K4 backward at the layer-1 shape
-    nb = b1.neigh
-    gh = fanout_backward(g1, nb, None, h1.shape[0])
-    gh_ref = fanout_backward_plain(g1, nb, None, h1.shape[0])
-    torch.cuda.synchronize()
-    assert_close("fanout_bwd", gh, gh_ref, exact=False)
-    valid = (nb >= 0) & (nb < h1.shape[0])
-    picks = int(valid.sum())
-    hl = h1.clone().requires_grad_(True)
-    lib_out = F.embedding_bag(torch.where(valid, nb, 0).long(), hl,
-                              mode="sum", per_sample_weights=valid.float())
-    f = h1.shape[1]
-    record("fanout_bwd", "xgnn_tpu_torch/csrc/fanout.cu",
-           "xgnn_tpu/models/gnn.py:62",
-           f"{tuple(nb.shape)} picks ({picks} valid) into "
-           f"{tuple(h1.shape)} f32",
-           max_err(gh, gh_ref), f"rtol {RTOL}, atol {ATOL}",
-           lambda: fanout_backward(g1, nb, None, h1.shape[0]),
-           lambda: fanout_backward_plain(g1, nb, None, h1.shape[0]),
-           lambda: torch.autograd.grad(lib_out, hl, g1, retain_graph=True),
-           "the autograd backward of F.embedding_bag",
-           nbytes=g1.numel() * 4 + nb.numel() * 4 + h1.numel() * 4,
-           flops=picks * f, per_step=2)
-    del gh, gh_ref, hl, lib_out, h1, g1, batch, b0, b1
+    def bwd_case(h, blk):
+        """K4 backward of a local-id block: the gradient w.r.t. h of the
+        dst prefix h[:D] and the fanout sum, given both their gradients."""
+        nb = blk.neigh
+        d, (rows, f) = nb.shape[0], h.shape
+        g_sum = torch.randn((d, f), generator=gen, device=dev)
+        g_dst = torch.randn((d, f), generator=gen, device=dev)
+        gh = fanout_backward(g_sum, nb, None, rows, g_dst)
+        again = fanout_backward(g_sum, nb, None, rows, g_dst)
+        ref = fanout_backward_plain(g_sum, nb, None, rows, g_dst)
+        torch.cuda.synchronize()
+        assert_close("fanout_bwd", gh, ref, exact=False)
+        if not torch.equal(gh, again):
+            raise AssertionError("fanout_bwd: two launches on the same "
+                                 "inputs differ")
+        valid = (nb >= 0) & (nb < rows)
+        picks = int(valid.sum())
+        longest = int(torch.bincount(nb[valid].long(), minlength=rows).max())
+        print(f"{tag} fanout_bwd {tuple(nb.shape)} into ({rows}, {f}): "
+              f"longest segment {longest} picks of one src row; two launches "
+              "equal bit for bit", flush=True)
+        hl = h.clone().requires_grad_(True)
+        lib_sum = F.embedding_bag(torch.where(valid, nb, 0).long(), hl,
+                                  mode="sum", per_sample_weights=valid.float())
+        record("fanout_bwd", "xgnn_tpu_torch/csrc/fanout.cu",
+               "xgnn_tpu/models/gnn.py:62",
+               f"{tuple(nb.shape)} picks ({picks} valid) into ({rows}, {f}) "
+               f"f32 with the prefix gradient; longest segment {longest}",
+               max_err(gh, ref),
+               f"rtol {RTOL}, atol {ATOL}; bit-equal across launches",
+               lambda: fanout_backward(g_sum, nb, None, rows, g_dst),
+               lambda: fanout_backward_plain(g_sum, nb, None, rows, g_dst),
+               lambda: torch.autograd.grad((hl[:d], lib_sum), hl,
+                                           (g_dst, g_sum), retain_graph=True),
+               "torch.autograd.grad of (h[:D], F.embedding_bag(mode='sum', "
+               "per_sample_weights=mask)) w.r.t. h",
+               # grad_sum, grad_dst and neigh in, every grad_h row out
+               nbytes=2 * d * f * 4 + nb.numel() * 4 + rows * f * 4,
+               flops=picks * f + d * f, per_step=2)
+        kernels[-1]["longest_segment"] = longest
+
+    bwd_case(h1, b1)
+    bwd_case(h2, b2)
+    del h1, h2, batch, b0, b1, b2
 
     # ---- 5. small reference: kernels on the card vs plain on the CPU -------
     small = make_device_dataset(3000, 12000, 32, 6, seed=1, device=dev)
@@ -447,8 +490,13 @@ def main() -> int:
               f"wall, device busy {busy_us / 1e3:.1f} ms, busy share "
               f"{busy_us / wall_us:.3f}, {len(spans)} device events; device "
               "ms per step by kernel:", flush=True)
-        for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
-            print(f"{tag}   {us / 1e3 / steps:9.3f}  {name[:100]}", flush=True)
+        for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:16]:
+            print(f"{tag}   {us / 1e3 / steps:9.3f}  {name[:120]}", flush=True)
+        for what, key in (("fill", "fill"), ("add", "add"),
+                          ("K4 backward", "bwd_")):
+            us = sum(t for name, t in by_name.items() if key in name.lower())
+            print(f"{tag}   device ms per step in kernels named *{key}* "
+                  f"({what}): {us / 1e3 / steps:.3f}", flush=True)
     else:
         print(f"{tag} device busy share: not measured (the profiler "
               "recorded no device events)", flush=True)

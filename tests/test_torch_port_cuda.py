@@ -79,6 +79,110 @@ def test_fanout_kernels_equal_plain(dev, width, fanout, weighted):
                                rtol=1e-5, atol=1e-5)
 
 
+def _bwd_case(dev, n, d, width, fanout, weighted, seed):
+    g = _gen(dev, seed)
+    neigh = torch.randint(-2, n + 2, (d, fanout), generator=g, device=dev,
+                          dtype=torch.int32)
+    neigh[torch.rand((d, fanout), generator=g, device=dev) < 0.2] = EMPTY
+    w = (torch.rand((d, fanout), generator=g, device=dev) + 0.5
+         if weighted else None)
+    gs = torch.randn((d, width), generator=g, device=dev)
+    gd = torch.randn((d, width), generator=g, device=dev)
+    return neigh, w, gs, gd
+
+
+def _within_sum_bound(got, row, neigh, w, gs, gd):
+    """Row ``row`` of a backward against its float64 sum, to the bound of
+    any float32 summation order: ``n * 2^-24 * sum |terms|`` for n terms
+    (one more for the rounded weighted products)."""
+    i, k = torch.nonzero(neigh == row, as_tuple=True)
+    terms = gs.double()[i]
+    if w is not None:
+        terms = terms * w.double()[i, k][:, None]
+    if gd is not None and row < gd.shape[0]:
+        terms = torch.cat([terms, gd.double()[row][None]])
+    bound = (terms.shape[0] + 1) * 2.0 ** -24 * terms.abs().sum(0)
+    assert torch.all((got[row].double() - terms.sum(0)).abs() <= bound)
+
+
+@pytest.mark.parametrize("width,fanout", [(128, 5), (256, 10), (7, 3),
+                                          (64, 40)])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_fanout_backward_kernel_equals_plain(dev, width, fanout, weighted):
+    """The segmented backward against the plain version (index_add_, whose
+    atomics order the sum freely on the card), rtol/atol 1e-5, with a hub
+    picked 10,000 times (sorted in device memory) and a row of 100 picks
+    (sorted in shared memory) held to the float32 summation bound instead,
+    and rows no pick lands on; two launches equal bit for bit."""
+    from xgnn_tpu_torch.ops import _build
+    from xgnn_tpu_torch.ops.fanout import (
+        fanout_backward,
+        fanout_backward_plain,
+    )
+
+    n, d, hubs = 7000, 5000, (17, 4321)
+    neigh, w, gs, gd = _bwd_case(dev, n, d, width, fanout, weighted,
+                                 width + fanout)
+    neigh[(neigh >= 6500) & (neigh < n)] = EMPTY  # rows no pick lands on
+    neigh.view(-1)[:10_000] = hubs[0]
+    neigh.view(-1)[10_000:10_100] = hubs[1]
+    rest = torch.ones(n, dtype=torch.bool, device=dev)
+    rest[list(hubs)] = False
+    _build.LAUNCHES.reset()
+    for grad_dst in (gd, None):
+        gh = fanout_backward(gs, neigh, w, n, grad_dst)
+        assert torch.equal(gh, fanout_backward(gs, neigh, w, n, grad_dst))
+        ref = fanout_backward_plain(gs, neigh, w, n, grad_dst)
+        torch.testing.assert_close(gh[rest], ref[rest], rtol=1e-5, atol=1e-5)
+        for row in hubs:
+            _within_sum_bound(gh, row, neigh, w, gs, grad_dst)
+    assert _build.LAUNCHES.snapshot() == {"fanout_bwd": 4}
+    assert torch.all(gh[6500:] == 0)
+
+
+@pytest.mark.parametrize("width", [7, 128])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_fanout_backward_kernel_is_the_cpu_plain_version(dev, width,
+                                                         weighted):
+    """At a small shape (no row past 32 picks) the kernel sums each row in
+    the CPU plain version's order: the two agree bit for bit, and so does
+    an empty block (D = 0)."""
+    from xgnn_tpu_torch.ops.fanout import (
+        fanout_backward,
+        fanout_backward_plain,
+    )
+
+    n, d, fanout = 400, 300, 5
+    neigh, w, gs, gd = _bwd_case(dev, n, d, width, fanout, weighted, width)
+    cpu = [None if t is None else t.cpu() for t in (neigh, w, gs, gd)]
+    ref = fanout_backward_plain(cpu[2], cpu[0], cpu[1], n, cpu[3])
+    assert torch.equal(fanout_backward(gs, neigh, w, n, gd).cpu(), ref)
+    out = fanout_backward(gs[:0], neigh[:0], None if w is None else w[:0],
+                          n, gd[:0])
+    assert torch.equal(out, torch.zeros((n, width), device=dev))
+
+
+def test_prefix_fanout_reduce_is_one_backward_launch(dev):
+    from xgnn_tpu_torch.ops import _build
+    from xgnn_tpu_torch.ops.fanout import (
+        fanout_backward_plain,
+        prefix_fanout_reduce,
+    )
+
+    n, d, width = 3000, 1000, 64
+    neigh, _, gs, gd = _bwd_case(dev, n, d, width, 10, False, 1)
+    h = torch.randn((n, width), generator=_gen(dev, 2), device=dev,
+                    requires_grad=True)
+    _build.LAUNCHES.reset()
+    h_dst, s, _ = prefix_fanout_reduce(h, neigh)
+    (gh,) = torch.autograd.grad((h_dst, s), h, (gd, gs))
+    assert _build.LAUNCHES.snapshot() == {"fanout_fwd": 1, "fanout_bwd": 1}
+    assert torch.equal(h_dst, h[:d])
+    torch.testing.assert_close(gh, fanout_backward_plain(gs, neigh, None, n,
+                                                         gd),
+                               rtol=1e-5, atol=1e-5)
+
+
 def test_no_backward_launch_for_a_table_without_grad(dev):
     from xgnn_tpu_torch.ops import _build
     from xgnn_tpu_torch.ops.fanout import fanout_reduce
@@ -134,6 +238,28 @@ def test_khop_kernel_equals_plain(dev, fanout):
     assert _build.LAUNCHES.snapshot() == {"sample_khop": 41}
     assert sample_khop0(indptr, indices, frontier[:0], fanout).shape == (
         0, fanout)
+
+
+@pytest.mark.parametrize("fanout", [5, 10, 15])
+@pytest.mark.parametrize("rows", [1, 256, 5 * 256 + 1])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_khop_staged_tiles_equal_plain(dev, fanout, rows, aligned):
+    """The fixed-K sampler stages u and out through shared memory by blocks
+    of 256 rows: one partial block, one full block, several blocks with a
+    ragged last one, and a u off 16-byte alignment (word copies)."""
+    from xgnn_tpu_torch.ops.sampling import sample_khop0, sample_khop0_plain
+
+    indptr, indices, num_node = _hub_csr(dev, fanout, rows)
+    g = _gen(dev, rows)
+    frontier = torch.randint(0, num_node, (rows,), generator=g, device=dev,
+                             dtype=torch.int32)
+    frontier[::7] = EMPTY
+    flat = torch.rand((rows * fanout + 1,), generator=g, device=dev)
+    u = (flat[:-1] if aligned else flat[1:]).view(rows, fanout)
+    assert (u.data_ptr() % 16 == 0) == aligned
+    ref = sample_khop0_plain(indptr, indices, frontier, fanout, u=u)
+    assert torch.equal(sample_khop0(indptr, indices, frontier, fanout, u=u),
+                       ref)
 
 
 @pytest.mark.parametrize("case", ["dups", "num_prev_0", "all_empty",
@@ -220,7 +346,7 @@ def test_pipelined_engine_matches_serial_on_the_card(dev):
         assert engine.device.type == "cuda"
         losses.append([engine.train_epoch(e)["loss"] for e in range(2)])
     assert np.all(np.isfinite(losses))
-    # the backward's atomics order sums differently from run to run
+    # the two loops need not round alike (cuBLAS promises no fixed order)
     np.testing.assert_allclose(losses[0], losses[1], rtol=1e-4, atol=1e-5)
 
 

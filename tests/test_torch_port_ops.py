@@ -233,6 +233,114 @@ def test_fanout_reduce_and_grad_match_jax(weighted):
     assert not den.requires_grad
 
 
+def _prefix_case(weighted, seed):
+    """A local-id block over ``n`` src rows: EMPTY, negative and too-large
+    picks, repeated ids, and row 3 picked 520 times."""
+    rng = np.random.default_rng(seed)
+    n, f, d, k = 150, 8, 120, 6
+    h = rng.standard_normal((n, f)).astype(np.float32)
+    neigh = rng.integers(0, 40, (d, k)).astype(np.int32)  # many repeats
+    bad = rng.random((d, k))
+    neigh[bad < 0.1] = EMPTY_KEY
+    neigh[(bad >= 0.1) & (bad < 0.15)] = -7
+    neigh[(bad >= 0.15) & (bad < 0.2)] = n + 11
+    neigh.reshape(-1)[100:620] = 3
+    neigh[5] = EMPTY_KEY  # a dst row with no valid pick
+    w = (rng.random((d, k)).astype(np.float32) + 0.5) if weighted else None
+    g_dst = rng.standard_normal((d, f)).astype(np.float32)
+    g_sum = rng.standard_normal((d, f)).astype(np.float32)
+    return h, neigh, w, g_dst, g_sum
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+def test_prefix_fanout_grad_matches_jax(weighted):
+    """The gradient w.r.t. ``h_src`` of a local-id block's dst prefix and
+    fanout sum, one Function in the port, against ``jax.grad`` of
+    ``_take_dst`` plus ``fanout_reduce``."""
+    from xgnn_tpu.models.gnn import _take_dst
+    from xgnn_tpu.models.gnn import fanout_reduce as jax_fanout
+    from xgnn_tpu.types import Block as JBlock
+    from xgnn_tpu_torch.ops.fanout import prefix_fanout_reduce
+
+    h, neigh, w, g_dst, g_sum = _prefix_case(weighted, 3 + int(weighted))
+    n, d = h.shape[0], neigh.shape[0]
+    assert (neigh == 3).sum() >= 500
+    # the port skips every pick outside [0, N); the JAX loop skips only
+    # EMPTY and clips the rest (ROADMAP section 3), so it sees them as EMPTY
+    jneigh = np.where((neigh >= 0) & (neigh < n), neigh, EMPTY_KEY)
+    blk = JBlock(neigh=jnp.asarray(jneigh), num_dst=jnp.int32(d),
+                 num_src=jnp.int32(n))
+    jw = None if w is None else jnp.asarray(w)
+
+    def jloss(x):
+        s, _ = jax_fanout(x, blk, jw, impl="loop")
+        return jnp.sum(_take_dst(blk, x) * g_dst) + jnp.sum(s * g_sum)
+
+    gh_ref = jax.grad(jloss)(jnp.asarray(h))
+
+    ht = _t(h).requires_grad_(True)
+    h_dst, s, den = prefix_fanout_reduce(ht, _t(neigh),
+                                         None if w is None else _t(w))
+    assert h_dst.shape == (d, h.shape[1]) and torch.equal(h_dst, ht[:d])
+    (gh,) = torch.autograd.grad((h_dst, s), ht, (_t(g_dst), _t(g_sum)))
+    np.testing.assert_allclose(gh.numpy(), np.asarray(gh_ref), rtol=1e-5,
+                               atol=1e-6)
+    assert not den.requires_grad
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+def test_prefix_backward_is_the_old_route_bit_for_bit(weighted):
+    """On the CPU the new backward is ``fanout_backward_plain`` plus the
+    prefix gradient, and equals autograd through a slice and
+    ``fanout_reduce`` bit for bit."""
+    from xgnn_tpu_torch.ops.fanout import (
+        fanout_backward,
+        fanout_backward_plain,
+        fanout_reduce,
+        prefix_fanout_reduce,
+    )
+
+    h, neigh, w, g_dst, g_sum = (
+        None if a is None else _t(a) for a in _prefix_case(weighted, 9))
+    n, d = h.shape[0], neigh.shape[0]
+    ref = fanout_backward_plain(g_sum, neigh, w, n)
+    ref[:d] += g_dst
+    assert torch.equal(fanout_backward_plain(g_sum, neigh, w, n, g_dst), ref)
+    assert torch.equal(fanout_backward(g_sum, neigh, w, n, g_dst), ref)
+
+    ht = h.clone().requires_grad_(True)
+    h_dst, s, _ = prefix_fanout_reduce(ht, neigh, w)
+    (gh,) = torch.autograd.grad((h_dst, s), ht, (g_dst, g_sum))
+    assert torch.equal(gh, ref)
+    old = h.clone().requires_grad_(True)
+    s_old, _ = fanout_reduce(old, neigh, w)
+    (g_old,) = torch.autograd.grad((old[:d], s_old), old, (g_dst, g_sum))
+    assert torch.equal(gh, g_old)
+
+
+def test_fanout_backward_refuses_what_it_cannot_take():
+    from xgnn_tpu_torch.ops.fanout import (
+        fanout_backward,
+        prefix_fanout_reduce,
+    )
+
+    gs = torch.zeros((3, 4))
+    neigh = torch.zeros((3, 2), dtype=torch.int32)
+    assert fanout_backward(gs, neigh, None, 5, torch.ones((3, 4)))[:3].eq(
+        1).all()
+    bad = [
+        ((gs[:2], neigh, None, 5), {}),  # grad_sum rows != dst rows
+        ((gs, neigh, None, 5), {"grad_dst": torch.zeros((2, 4))}),
+        ((gs, neigh, None, 5), {"grad_dst": torch.zeros((3, 4)).double()}),
+        ((gs, neigh, None, 2), {"grad_dst": torch.zeros((3, 4))}),  # D > N
+    ]
+    for args, kwargs in bad:
+        with pytest.raises(ValueError):
+            fanout_backward(*args, **kwargs)
+    with pytest.raises(ValueError):
+        prefix_fanout_reduce(torch.zeros((2, 4)), neigh)  # D > N
+
+
 def test_fanout_reduce_refuses_weight_gradients_and_bad_input():
     from xgnn_tpu_torch.ops.fanout import fanout_reduce
 

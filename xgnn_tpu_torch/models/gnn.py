@@ -1,11 +1,12 @@
 """GraphSAGE over dense-fanout sampled blocks.
 
 The port of the GraphSAGE path of ``xgnn_tpu/models/gnn.py``:
-``masked_mean_stream``, ``_take_dst``, ``SAGEConv`` and ``GNN`` (dropout
-before every layer but the first, ReLU between layers, float32 logits).
-The fanout reduce is kernel K4 (``ops/fanout.py``) and the direct-extract
-dst gather is kernel K1 (``ops/gather.py``).  The other convolutions of the
-zoo are ROADMAP open item 9.
+``masked_mean_stream`` and ``_take_dst`` (together in :func:`_dst_and_mean`),
+``SAGEConv`` and ``GNN`` (dropout before every layer but the first, ReLU
+between layers, float32 logits).  The fanout reduce is kernel K4
+(``ops/fanout.py``) and the direct-extract dst gather is kernel K1
+(``ops/gather.py``).  The other convolutions of the zoo are ROADMAP open
+item 9.
 """
 
 from __future__ import annotations
@@ -16,23 +17,23 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
-from ..ops.fanout import fanout_reduce
+from ..ops.fanout import fanout_reduce, prefix_fanout_reduce
 from ..ops.gather import gather_rows
 from ..types import Block
 
 
-def masked_mean_stream(h_src: torch.Tensor, block: Block, weights=None):
-    s, denom = fanout_reduce(h_src, block.neigh, weights)
-    return s / torch.clamp(denom, min=1e-9)
-
-
-def _take_dst(block: Block, h_src: torch.Tensor) -> torch.Tensor:
-    """The dst rows of a block: a prefix of ``h_src`` (local-id blocks), or
-    a gather by global id with zero rows for EMPTY (direct-extract blocks,
-    ``Block.dst_ids``)."""
+def _dst_and_mean(block: Block, h_src: torch.Tensor, weights=None):
+    """``(h_dst, h_neigh)``: the dst rows of a block and the masked mean of
+    its picks.  A local-id block's dst rows are the prefix
+    ``h_src[:dst_cap]``, which K4 returns with the sum so that the gradient
+    w.r.t. ``h_src`` is one backward launch; a direct-extract block gathers
+    them by global id with zero rows for EMPTY (``Block.dst_ids``, K1)."""
     if block.dst_ids is None:
-        return h_src[: block.dst_cap]
-    return gather_rows(h_src, block.dst_ids)
+        h_dst, s, denom = prefix_fanout_reduce(h_src, block.neigh, weights)
+    else:
+        h_dst = gather_rows(h_src, block.dst_ids)
+        s, denom = fanout_reduce(h_src, block.neigh, weights)
+    return h_dst, s / torch.clamp(denom, min=1e-9)
 
 
 def _lecun_normal_(w: torch.Tensor, fan_in: int, generator: torch.Generator):
@@ -74,8 +75,7 @@ class SAGEConv(nn.Module):
             self.fc_neigh.bias.zero_()
 
     def forward(self, block: Block, h_src: torch.Tensor) -> torch.Tensor:
-        h_dst = _take_dst(block, h_src)
-        h_neigh = masked_mean_stream(h_src, block)
+        h_dst, h_neigh = _dst_and_mean(block, h_src)
         return self.fc_self(h_dst) + self.fc_neigh(h_neigh)
 
 
