@@ -15,9 +15,11 @@ Phases, each fatal on failure:
    pipelined, capacities (8000, 133376, 1007360, 2449152)).
 4. Kernels against their plain PyTorch versions at the shapes of one
    sampled batch: K2 (khop sampler) at the three layers' frontiers and K3
-   (seeded dedup) at the two dedup calls, walked layer by layer as the
-   sampler walks them, exact; the whole batch sampled through K2 and K3
-   equal, block by block, to the same batch sampled through their plain
+   (seeded dedup, its split form) at the two dedup calls, walked layer by
+   layer as the sampler walks them, exact, each dedup followed by two more
+   with other picks (K3 keeps state across calls) and its kernel launches
+   per call counted by the profiler; the whole batch sampled through K2
+   and K3 equal, block by block, to the same batch sampled through their plain
    versions from the same generator seed; K1 (row gather) on the
    direct-extract dst ids, as drawn and with 30% of them EMPTY, and on the
    label column at the seeds, exact; K4 forward at the three layers'
@@ -33,6 +35,10 @@ Phases, each fatal on failure:
    unpipelined epoch gives per-stage device-inclusive times, and one
    profiled pipelined epoch gives the device's busy share and its time by
    kernel.
+
+Each kernel is timed twice: ``ms`` back to back (the wrapper's host time
+included, where the host is the slower) and ``device_ms`` with the host
+ahead of the card (the card's time alone).
 
 Prints the kernels' JSON line, then the card's line (nvidia-smi's name and
 power limit), then the result line.
@@ -66,18 +72,31 @@ def card_line() -> str:
     ).stdout.strip().splitlines()[0]
 
 
-def time_ms(torch, fn, reps: int = 10) -> float:
-    """Mean device time of ``fn`` over ``reps`` launches, after one warm-up,
-    by CUDA events."""
+def time_ms(torch, fn, reps: int = 10, host_ahead: bool = False) -> float:
+    """Mean time of ``fn`` over ``reps`` launches, after one warm-up, by CUDA
+    events.  Back to back, the events read the host's enqueue where the
+    host is slower than the card.  With ``host_ahead`` the card first sleeps
+    until the host has queued every launch, so they read the card's time
+    alone; the sleep grows until the host was ahead."""
     fn()
     torch.cuda.synchronize()
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    cycles = 20_000_000  # about 10 ms at the H100's clock
+    while True:
+        if host_ahead:
+            torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        # the card already past the start: the host was not ahead
+        behind = host_ahead and start.query()
+        torch.cuda.synchronize()
+        if not behind:
+            return start.elapsed_time(end) / reps
+        if cycles > 2**34:
+            raise RuntimeError("time_ms: the host never got ahead of the card")
+        cycles *= 4
 
 
 def bound_ms(nbytes: float, flops: float):
@@ -93,7 +112,9 @@ def main() -> int:
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from torch.autograd import DeviceType
     from torch.nn import functional as F
+    from torch.profiler import ProfilerActivity, profile
 
     from xgnn_tpu_torch import RunConfig, make_device_dataset
     from xgnn_tpu_torch.device import generator
@@ -109,7 +130,10 @@ def main() -> int:
     )
     from xgnn_tpu_torch.ops.gather import gather_rows, gather_rows_plain
     from xgnn_tpu_torch.ops.sampling import sample_khop0, sample_khop0_plain
-    from xgnn_tpu_torch.ops.unique import unique_seeded, unique_seeded_plain
+    from xgnn_tpu_torch.ops.unique import (
+        unique_seeded_split,
+        unique_seeded_split_plain,
+    )
     from xgnn_tpu_torch.train import loss_fn
 
     # plain versions are compared in full float32
@@ -163,18 +187,21 @@ def main() -> int:
     def record(name, source, replaces, shape, err, tol, fn, plain, library,
                library_call, nbytes, flops, per_step):
         ms, plain_ms = time_ms(torch, fn), time_ms(torch, plain)
+        device_ms = time_ms(torch, fn, host_ahead=True)
         lib_ms = None if library is None else time_ms(torch, library)
         b_ms, b_by = bound_ms(nbytes, flops)
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "shape": shape, "launches": None,
             "launches_per_step": per_step, "max_abs_err": err,
-            "tolerance": tol, "ms": ms, "kernel_ms": ms, "plain_ms": plain_ms,
+            "tolerance": tol, "ms": ms, "kernel_ms": ms,
+            "device_ms": device_ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
             "library_call": library_call,
         })
         print(f"{tag} {name} {shape}: max_abs_err {err:.3e} ({tol}); "
-              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+              f"kernel {ms:.4f} ms ({device_ms:.4f} ms on the card alone), "
+              f"plain {plain_ms:.4f} ms, library "
               f"{lib_ms if lib_ms is None else round(lib_ms, 4)} ms, bound "
               f"{b_ms:.4f} ms ({b_by})", flush=True)
 
@@ -220,42 +247,69 @@ def main() -> int:
                flops=0, per_step=3)
         if layer == len(FANOUT) - 1:
             break
-        ids = torch.cat([frontier, nbr.reshape(-1)])
         cap = CAPS[layer + 1]
-        out = unique_seeded(ids, num, frontier.shape[0], cap,
-                            num_node=graph.num_node)
-        ref = unique_seeded_plain(ids, num, frontier.shape[0], cap)
+        picks = nbr.reshape(-1)
+
+        def dedup(p):
+            return unique_seeded_split(frontier, p, num, cap,
+                                       num_node=graph.num_node)
+
+        def dedup_plain(p):
+            return unique_seeded_split_plain(frontier, p, num, cap)
+
+        out, ref = dedup(picks), dedup_plain(picks)
         torch.cuda.synchronize()
+        err = max(max_err(o, r) for o, r in zip(out, ref))
         for o, r in zip(out, ref):
             assert_close("unique_seeded", o, r, exact=True)
+        # K3's table and bitmaps persist across calls: two more with other
+        # picks of the same frontier
+        for _ in range(2):
+            other = sample_khop0(graph.indptr, graph.indices, frontier, k,
+                                 generator=gen).reshape(-1)
+            for o, r in zip(dedup(other), dedup_plain(other)):
+                assert_close("unique_seeded (a later call)", o, r,
+                             exact=True)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            dedup(picks)
+            torch.cuda.synchronize()
+        per_call = sum(1 for e in prof.events()
+                       if e.device_type == DeviceType.CUDA)
+        state_bytes = unique.state(dev, graph.num_node).buf.numel() * 8
+        print(f"{tag} unique_seeded layer {layer}: equal to the plain version "
+              f"on three calls; {per_call} kernel launches per call "
+              f"(profiler); state {state_bytes} bytes per stream", flush=True)
+        ids = torch.cat([frontier, picks])  # the library call's input
         record("unique_seeded", "xgnn_tpu_torch/csrc/unique.cu",
                "xgnn_tpu/ops/unique.py:178",
                f"layer {layer}: {ids.shape[0]} ids (prefix "
                f"{frontier.shape[0]}), out_cap {cap}, {int(out[1])} unique",
-               max(max_err(o, r) for o, r in zip(out, ref)), "exact",
-               lambda: unique_seeded(ids, num, frontier.shape[0], cap,
-                                     num_node=graph.num_node),
-               lambda: unique_seeded_plain(ids, num, frontier.shape[0], cap),
+               err, "exact",
+               lambda: dedup(picks), lambda: dedup_plain(picks),
                lambda: torch.unique(ids, sorted=True, return_inverse=True),
-               "torch.unique(sorted=True, return_inverse=True); its id "
-               "order differs (no seeded prefix)",
-               # ids in, local ids and unique ids out (the table's own
-               # traffic is the design's cost, not the function's)
-               nbytes=ids.numel() * 8 + cap * 4 + 8,
+               "torch.unique(sorted=True, return_inverse=True) on the "
+               "concatenated ids; its id order differs (no seeded prefix)",
+               # prefix and picks in, the picks' local ids and the unique
+               # ids out (the state's own traffic is the design's cost, not
+               # the function's)
+               nbytes=ids.numel() * 4 + picks.numel() * 4 + cap * 4 + 8,
                flops=0, per_step=2)
+        kernels[-1]["launches_per_call"] = per_call
+        kernels[-1]["state_bytes"] = state_bytes
         frontier, num = out[0], torch.clamp(out[1], max=cap)
-    del u, nbr, ref, ids, out, frontier
+    del u, nbr, ref, ids, out, frontier, picks, other
 
     # the whole batch through the plain versions, from the same seed
-    kernels_fns = sampling.sample_khop0, unique.unique_seeded
+    kernels_fns = sampling.sample_khop0, unique.unique_seeded_split
     sampling.sample_khop0 = sample_khop0_plain
-    unique.unique_seeded = (
-        lambda ids, num_prev, prev_cap, out_cap, num_node=None:
-        unique_seeded_plain(ids, num_prev, prev_cap, out_cap))
+    unique.unique_seeded_split = (
+        lambda prefix, picks, num_prev, out_cap, num_node=None:
+        unique_seeded_split_plain(prefix, picks, num_prev, out_cap))
     try:
         plain_batch = engine.sampler.sample(seeds, n, generator(dev, 7))
     finally:
-        sampling.sample_khop0, unique.unique_seeded = kernels_fns
+        sampling.sample_khop0, unique.unique_seeded_split = kernels_fns
     pairs = [(f"block {i} {f}", getattr(kb, f), getattr(pb, f))
              for i, (kb, pb) in enumerate(zip(batch.blocks,
                                               plain_batch.blocks))
@@ -467,9 +521,6 @@ def main() -> int:
     # device busy share over one more pipelined epoch, from the profiler's
     # device events (the union of their intervals over the epoch's wall time)
     engine.config.pipeline = True
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()

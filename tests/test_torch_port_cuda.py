@@ -295,9 +295,235 @@ def test_unique_kernel_equals_plain(dev, case):
         unique_seeded(ids_t, n_prev, prev_cap, out_cap)
 
 
+def _dedup_inputs(rng, num_node, prev_cap, num_prev, m, lo=0, hi=None):
+    """A prefix of ``num_prev`` distinct ids (EMPTY after) and ``m`` picks
+    from ``[lo, hi)``, a fifth EMPTY and some repeating prefix ids."""
+    hi = num_node if hi is None else hi
+    prev = np.full(prev_cap, EMPTY, np.int32)
+    prev[:num_prev] = rng.choice(num_node, num_prev, replace=False)
+    picks = rng.integers(lo, hi, m).astype(np.int32)
+    picks[rng.random(m) < 0.2] = EMPTY
+    if num_prev:
+        picks[1::7] = prev[rng.integers(0, num_prev, len(picks[1::7]))]
+    return prev, picks, num_prev
+
+
+def _on_card(dev, case):
+    prev, picks, num_prev = case
+    return (torch.from_numpy(prev).to(dev), torch.from_numpy(picks).to(dev),
+            torch.tensor(num_prev, dtype=torch.int32).to(dev))
+
+
+def _dedup(dev, case, out_cap, num_node):
+    """K3's split form on ``case`` (numpy prefix, picks, num_prev), queued
+    on the current stream: its outputs and its inputs on the card."""
+    from xgnn_tpu_torch.ops.unique import unique_seeded_split
+
+    args = _on_card(dev, case)
+    return unique_seeded_split(*args, out_cap, num_node=num_node), args
+
+
+def _assert_plain(out, args, out_cap):
+    from xgnn_tpu_torch.ops.unique import unique_seeded_split_plain
+
+    ref = unique_seeded_split_plain(*args, out_cap)
+    for o, r in zip(out, ref):
+        assert o.dtype == r.dtype and torch.equal(o, r)
+
+
+@pytest.mark.parametrize("overlap", [True, False])
+def test_unique_state_holds_across_calls(dev, overlap):
+    """Calls back to back on one stream, with no sync between them, on ids
+    that overlap (one range) or are disjoint (a range each)."""
+    rng = np.random.default_rng(int(overlap))
+    num_node, calls = 60_000, 6
+    outs = []
+    for c in range(calls):
+        lo, hi = (0, 20_000) if overlap else (c * 10_000, (c + 1) * 10_000)
+        case = _dedup_inputs(rng, num_node, 900, 800, 9000, lo, hi)
+        outs.append(_dedup(dev, case, 8192, num_node))
+    for out, args in outs:
+        _assert_plain(out, args, 8192)
+
+
+def test_unique_after_an_overflowed_call(dev):
+    rng = np.random.default_rng(3)
+    case = _dedup_inputs(rng, 5000, 700, 613, 7000, 0, 5000 // 3)
+    tiny = _dedup(dev, case, 10, 5000)
+    assert int(tiny[0][1]) > 10
+    for cap in (10, 4096):
+        _assert_plain(*_dedup(dev, case, cap, 5000), cap)
+    other = _dedup_inputs(rng, 5000, 700, 613, 7000)
+    _assert_plain(*_dedup(dev, other, 4096, 5000), 4096)
+    _assert_plain(*tiny, 10)
+
+
+def test_unique_num_node_changing_between_calls(dev):
+    rng = np.random.default_rng(4)
+    outs = []
+    for num_node in (5000, 70_001, 5000, 123, 70_001, 1):
+        case = _dedup_inputs(rng, num_node, 64, min(50, num_node), 3000)
+        outs.append((_dedup(dev, case, 2048, num_node), 2048))
+    for (out, args), cap in outs:
+        _assert_plain(out, args, cap)
+
+
+def test_unique_two_streams_interleaved(dev):
+    """Two streams with no ordering between them each keep a state of their
+    own."""
+    from xgnn_tpu_torch.ops import unique
+
+    rng = np.random.default_rng(5)
+    num_node = 200_000
+    streams = [torch.cuda.Stream(dev), torch.cuda.Stream(dev)]
+    # copied to the card before either stream starts
+    inputs = [[_on_card(dev, _dedup_inputs(rng, num_node, 4000, 3500, 60_000,
+                                           0, 80_000))
+               for _ in range(5)] for _ in streams]
+    torch.cuda.synchronize()
+    outs = [[], []]
+    for i in range(5):
+        for s, stream in enumerate(streams):
+            with torch.cuda.stream(stream):
+                args = inputs[s][i]
+                outs[s].append(unique.unique_seeded_split(
+                    *args, 40_000, num_node=num_node))
+    states = []
+    for stream in streams:
+        with torch.cuda.stream(stream):
+            states.append(unique.state(dev, num_node))
+    assert states[0] is not states[1]
+    torch.cuda.synchronize()
+    for s in range(2):
+        for out, args in zip(outs[s], inputs[s]):
+            _assert_plain(out, args, 40_000)
+
+
+def test_unique_threads_sharing_a_stream(dev):
+    """Threads that queue K3 on one stream share its state: each call's
+    generation is drawn and launched under one lock, so the card sees
+    them in order."""
+    import sys
+    import threading
+
+    rng = np.random.default_rng(10)
+    num_node, cap = 40_000, 8192
+    inputs = [[_on_card(dev, _dedup_inputs(rng, num_node, 600, 500, 6000))
+               for _ in range(8)] for _ in range(6)]
+    torch.cuda.synchronize()
+    outs = [[] for _ in inputs]
+
+    def work(t):
+        from xgnn_tpu_torch.ops.unique import unique_seeded_split
+
+        for args in inputs[t]:
+            outs[t].append(unique_seeded_split(*args, cap,
+                                               num_node=num_node))
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=work, args=(t,))
+                   for t in range(len(inputs))]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=120)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(th.is_alive() for th in threads)
+    torch.cuda.synchronize()
+    for per_thread, got in zip(inputs, outs):
+        assert len(got) == len(per_thread)
+        for out, args in zip(got, per_thread):
+            _assert_plain(out, args, cap)
+
+
+def test_unique_generation_wrap(dev):
+    """The stamp wraps after 2^32 - 1 calls; the wrapper clears the state
+    once and starts again at 1."""
+    from xgnn_tpu_torch.ops import unique
+
+    rng = np.random.default_rng(6)
+    num_node = 30_000
+    _assert_plain(*_dedup(dev, _dedup_inputs(rng, num_node, 500, 400, 5000),
+                          4096, num_node), 4096)
+    st = unique.state(dev, num_node)
+    st.gen = unique._MAX_GEN - 2
+    for _ in range(4):
+        case = _dedup_inputs(rng, num_node, 500, 400, 5000)
+        _assert_plain(*_dedup(dev, case, 4096, num_node), 4096)
+    assert st.gen == 2
+
+
+def test_unique_look_back_across_many_tiles(dev):
+    """About 3M nodes: 367 scan tiles of 8,192 ids, every one with new ids;
+    once with room for them all and once overflowed."""
+    rng = np.random.default_rng(7)
+    num_node = 3_000_017
+    case = _dedup_inputs(rng, num_node, 60_000, 59_000, 2_000_000)
+    for cap in (2_600_000, 1_000_000):
+        out, args = _dedup(dev, case, cap, num_node)
+        _assert_plain(out, args, cap)
+        assert (int(out[1]) > cap) == (cap == 1_000_000)
+
+
+def test_unique_hub_repeated_among_the_picks(dev):
+    rng = np.random.default_rng(8)
+    num_node = 100_000
+    prev, picks, num_prev = _dedup_inputs(rng, num_node, 2000, 1900, 40_000)
+    picks[::8] = 31_337  # a hub no prefix holds (5,000 times)
+    picks[3::9] = prev[17]  # a prefix id picked thousands of times
+    prev[prev == 31_337] = EMPTY
+    _assert_plain(*_dedup(dev, (prev, picks, num_prev), 50_000, num_node),
+                  50_000)
+
+
+@pytest.mark.parametrize("out_cap", [4096, 1200, 10])
+def test_unique_split_equals_unique_seeded(dev, out_cap):
+    from xgnn_tpu_torch.ops.unique import unique_seeded, unique_seeded_plain
+
+    rng = np.random.default_rng(out_cap)
+    case = _dedup_inputs(rng, 5000, 700, 613, 7000, 0, 5000 // 3)
+    split, (prefix, picks, n_prev) = _dedup(dev, case, out_cap, 5000)
+    ids = torch.cat([prefix, picks])
+    full = unique_seeded(ids, n_prev, 700, out_cap, num_node=5000)
+    assert torch.equal(split[0], full[0]) and torch.equal(split[1], full[1])
+    assert torch.equal(split[2], full[2][700:])
+    for o, r in zip(full, unique_seeded_plain(ids, n_prev, 700, out_cap)):
+        assert torch.equal(o, r)
+
+
+def test_unique_is_three_launches_and_allocates_only_its_outputs(dev):
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from xgnn_tpu_torch.ops import unique
+
+    rng = np.random.default_rng(9)
+    num_node, cap = 2_449_029, 1_007_360
+    case = _dedup_inputs(rng, num_node, 133_376, 123_000, 1_333_760)
+    args = _on_card(dev, case)
+    _assert_plain(*_dedup(dev, case, cap, num_node), cap)  # state made
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(dev)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = unique.unique_seeded_split(*args, cap, num_node=num_node)
+        torch.cuda.synchronize()
+    grown = torch.cuda.memory_allocated(dev) - before
+    kernels = [e.name for e in prof.events()
+               if e.device_type == DeviceType.CUDA]
+    assert len(kernels) == 3, kernels
+    sizes = [t.numel() * t.element_size() for t in out]
+    assert sum(sizes) <= grown <= sum(-(-b // 512) * 512 for b in sizes)
+    assert unique.state(dev, num_node).buf.numel() * 8 < 25 * 2**20
+
+
 def test_sampler_kernels_equal_the_plain_path(dev, monkeypatch):
-    """A whole ``Sampler.sample`` through K2 and K3 equals the same batch
-    sampled through their plain versions from the same generator seed."""
+    """Two batches of ``Sampler.sample`` in a row through K2 and K3 equal
+    the same batches sampled through their plain versions from the same
+    generator seeds."""
     from xgnn_tpu_torch import RunConfig, make_device_dataset
     from xgnn_tpu_torch.ops import _build, sampling, unique
     from xgnn_tpu_torch.sampler import Sampler
@@ -307,31 +533,34 @@ def test_sampler_kernels_equal_the_plain_path(dev, monkeypatch):
         sampler = Sampler(ds.graph, RunConfig(batch_size=480,
                                               fanout=(15, 10, 5)),
                           direct_extract=direct)
-        seeds = torch.full((sampler.capacities[0],), EMPTY,
-                           dtype=torch.int32, device=dev)
-        seeds[:480] = torch.from_numpy(ds.train_set[:480]).to(dev)
-        _build.LAUNCHES.reset()
-        got = sampler.sample(seeds, 480, _gen(dev, 9))
-        assert _build.LAUNCHES.snapshot() == {
-            "sample_khop": 3, "unique_seeded": 2 if direct else 3}
-        with monkeypatch.context() as m:
-            m.setattr(sampling, "sample_khop0", sampling.sample_khop0_plain)
-            m.setattr(unique, "unique_seeded",
-                      lambda ids, num_prev, prev_cap, out_cap, num_node=None:
-                      unique.unique_seeded_plain(ids, num_prev, prev_cap,
-                                                 out_cap))
-            ref = sampler.sample(seeds, 480, _gen(dev, 9))
-        assert len(got.blocks) == len(ref.blocks) == 3
-        for gb, rb in zip(got.blocks, ref.blocks):
-            assert torch.equal(gb.neigh, rb.neigh)
-            assert torch.equal(gb.num_src, rb.num_src)
-            assert torch.equal(gb.num_dst, rb.num_dst)
-            assert (gb.dst_ids is None) == (rb.dst_ids is None)
-            if gb.dst_ids is not None:
-                assert torch.equal(gb.dst_ids, rb.dst_ids)
-        assert torch.equal(got.input_nodes, ref.input_nodes)
-        assert torch.equal(got.num_input, ref.num_input)
-        assert torch.equal(got.overflow, ref.overflow)
+        for batch in range(2):
+            seeds = torch.full((sampler.capacities[0],), EMPTY,
+                               dtype=torch.int32, device=dev)
+            seeds[:480] = torch.from_numpy(
+                ds.train_set[480 * batch:480 * (batch + 1)]).to(dev)
+            _build.LAUNCHES.reset()
+            got = sampler.sample(seeds, 480, _gen(dev, 9 + batch))
+            assert _build.LAUNCHES.snapshot() == {
+                "sample_khop": 3, "unique_seeded": 2 if direct else 3}
+            with monkeypatch.context() as m:
+                m.setattr(sampling, "sample_khop0",
+                          sampling.sample_khop0_plain)
+                m.setattr(unique, "unique_seeded_split",
+                          lambda prefix, picks, num_prev, out_cap,
+                          num_node=None: unique.unique_seeded_split_plain(
+                              prefix, picks, num_prev, out_cap))
+                ref = sampler.sample(seeds, 480, _gen(dev, 9 + batch))
+            assert len(got.blocks) == len(ref.blocks) == 3
+            for gb, rb in zip(got.blocks, ref.blocks):
+                assert torch.equal(gb.neigh, rb.neigh)
+                assert torch.equal(gb.num_src, rb.num_src)
+                assert torch.equal(gb.num_dst, rb.num_dst)
+                assert (gb.dst_ids is None) == (rb.dst_ids is None)
+                if gb.dst_ids is not None:
+                    assert torch.equal(gb.dst_ids, rb.dst_ids)
+            assert torch.equal(got.input_nodes, ref.input_nodes)
+            assert torch.equal(got.num_input, ref.num_input)
+            assert torch.equal(got.overflow, ref.overflow)
 
 
 def test_pipelined_engine_matches_serial_on_the_card(dev):

@@ -200,6 +200,90 @@ def test_unique_seeded_refuses_what_it_cannot_take():
             unique_seeded(*args, **kwargs)
 
 
+@pytest.mark.parametrize("out_cap", [400, 60, 9])
+def test_unique_seeded_split_matches_jax(out_cap):
+    from xgnn_tpu.ops.unique import unique_seeded as jax_unique
+    from xgnn_tpu_torch.ops.unique import unique_seeded_split
+
+    ids, num_prev, prev_cap = _seeded_ids(out_cap)
+    ref = jax_unique(jnp.asarray(ids), jnp.int32(num_prev), prev_cap, out_cap)
+    out = unique_seeded_split(_t(ids[:prev_cap]), _t(ids[prev_cap:]),
+                              torch.tensor(num_prev, dtype=torch.int32),
+                              out_cap, num_node=500)
+    np.testing.assert_array_equal(out[0].numpy(), np.asarray(ref[0]))
+    assert int(out[1]) == int(ref[1])
+    np.testing.assert_array_equal(out[2].numpy(),
+                                  np.asarray(ref[2])[prev_cap:])
+
+
+def test_unique_seeded_split_refuses_what_it_cannot_take():
+    from xgnn_tpu_torch.ops.unique import unique_seeded_split
+
+    prefix = torch.arange(4, dtype=torch.int32)
+    picks = torch.arange(2, 10, dtype=torch.int32)
+    n_prev = torch.tensor(2, dtype=torch.int32)
+    out = unique_seeded_split(prefix, picks, n_prev, 8, num_node=10)
+    assert int(out[1]) == 10 and out[2].shape == (8,)
+    bad = [
+        ((prefix.long(), picks, n_prev, 8), {}),
+        ((prefix, picks.long(), n_prev, 8), {}),
+        ((prefix, picks[::2], n_prev, 8), {}),
+        ((prefix[None], picks, n_prev, 8), {}),
+        ((prefix, picks, n_prev.long(), 8), {}),
+        ((prefix, picks, 2, 8), {}),
+        ((prefix, picks, n_prev, -1), {}),
+        ((prefix, picks, n_prev, 8), {"num_node": EMPTY_KEY + 1}),
+    ]
+    for args, kwargs in bad:
+        with pytest.raises(ValueError):
+            unique_seeded_split(*args, **kwargs)
+
+
+@pytest.mark.parametrize("direct,caps", [
+    (True, None),
+    (False, None),
+    (True, (48, 160, 512, 1024)),  # layer 1 overflows its capacity
+])
+def test_sampler_blocks_unchanged_by_the_split_dedup(small_ds, monkeypatch,
+                                                     direct, caps):
+    """The sampler dedups the prefix and the picks as two tensors; its
+    blocks equal those of a dedup of their concatenation."""
+    from xgnn_tpu_torch import RunConfig
+    from xgnn_tpu_torch.ops import unique
+    from xgnn_tpu_torch.sampler import Sampler
+    from xgnn_tpu_torch.types import Graph
+
+    fanout = (5, 4, 3)
+    sampler = Sampler(Graph.from_dataset(small_ds, "cpu"),
+                      RunConfig(batch_size=48, fanout=fanout,
+                                frontier_capacities=caps),
+                      direct_extract=direct)
+    rng = np.random.default_rng(int(direct) + 2 * (caps is not None))
+    seeds = np.full(48, EMPTY_KEY, np.int32)
+    seeds[:40] = small_ds.train_set[:40]
+    us = [_t(rng.random((b, k)).astype(np.float32))
+          for b, k in zip([48] + sampler.capacities[1:-1], fanout)]
+    got = sampler.sample(_t(seeds), 40, u=us)
+
+    def concatenated(prefix, picks, num_prev, out_cap, num_node=None):
+        uids, num_unique, local = unique.unique_seeded(
+            torch.cat([prefix, picks]), num_prev, prefix.shape[0], out_cap,
+            num_node=num_node)
+        return uids, num_unique, local[prefix.shape[0]:]
+
+    monkeypatch.setattr(unique, "unique_seeded_split", concatenated)
+    ref = sampler.sample(_t(seeds), 40, u=us)
+    assert len(got.blocks) == len(ref.blocks) == 3
+    for gb, rb in zip(got.blocks, ref.blocks):
+        for f in ("neigh", "num_dst", "num_src", "dst_ids"):
+            a, b = getattr(gb, f), getattr(rb, f)
+            assert (a is None) == (b is None)
+            assert a is None or torch.equal(a, b)
+    for f in ("input_nodes", "num_input", "overflow"):
+        assert torch.equal(getattr(got, f), getattr(ref, f))
+    assert bool(got.overflow) == (caps is not None)
+
+
 # ---------------------------------------------------------- K4 fanout reduce
 @pytest.mark.parametrize("weighted", [False, True])
 def test_fanout_reduce_and_grad_match_jax(weighted):

@@ -48,8 +48,8 @@ SIGNATURES = {
         "xg_sample_khop": [_P, _P, _P, _P, _P, _LL, _LL, _I, _P],
     },
     "unique": {
-        "xg_unique_seeded": [_P, _LL, _LL, _P, _LL, _LL, _P, _LL, _P, _P, _P,
-                             _P],
+        "xg_unique_seeded": [_P, _LL, _P, _LL, _P, _LL, _LL, _P, _LL, _LL,
+                             _P, _P, _P, _P, _P],
     },
 }
 

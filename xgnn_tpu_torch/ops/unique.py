@@ -6,15 +6,21 @@ prefix of its src rows); new ids follow in ascending id order.  Static
 shapes, no host sync.
 
 The CUDA kernel is ``csrc/unique.cu``: a direct-address table over the node
-ids, so it needs ``num_node``.  :func:`unique_seeded_plain` is its plain
-PyTorch version (one stable sort, a ``cummax`` forward fill and two
+ids and a bitmap of the ids present, so it needs ``num_node``.  Its table
+and bitmaps are state kept across calls, one per (device, stream,
+``num_node``), made at first use (:func:`state`); a call allocates only its
+outputs and makes three launches.  :func:`unique_seeded_split` takes the
+prefix and the picks as two tensors, as the sampler holds them, and returns
+the picks' local ids only.  :func:`unique_seeded_plain` is the kernel's
+plain PyTorch version (one stable sort, a ``cummax`` forward fill and two
 scatters; the JAX package's three sorts and log-doubling fill are TPU
-workarounds with the same result): the wrapper takes it only for tensors
+workarounds with the same result): the wrappers take it only for tensors
 on the CPU.
 """
 
 from __future__ import annotations
 
+import threading
 from typing import Optional
 
 import torch
@@ -24,7 +30,8 @@ from . import _build
 
 EMPTY = C.EMPTY_KEY
 _NAME = "unique_seeded"
-_SEGMENT = 1024  # node ids per scan segment (kSeg in csrc/unique.cu)
+_TILE_WORDS = 256  # bitmap words per scan tile (kTileWords in csrc/unique.cu)
+_MAX_GEN = 2**32 - 1  # the last generation before the stamp wraps
 
 
 def unique_seeded_plain(
@@ -73,31 +80,113 @@ def unique_seeded_plain(
     return unique_ids[:out_cap], num_unique, local_ids
 
 
-def _check(ids, num_prev, prev_cap, out_cap, num_node):
-    if ids.dim() != 1 or ids.dtype != torch.int32:
-        raise ValueError(
-            f"unique_seeded: ids must be 1-D int32, got {ids.dtype} "
-            f"{tuple(ids.shape)}"
-        )
-    if not ids.is_contiguous():
-        raise ValueError("unique_seeded: ids must be contiguous")
+def unique_seeded_split_plain(prefix: torch.Tensor, picks: torch.Tensor,
+                              num_prev: torch.Tensor, out_cap: int):
+    """:func:`unique_seeded_plain` of ``concat(prefix, picks)``, with the
+    local ids of the picks only."""
+    uids, num_unique, local = unique_seeded_plain(
+        torch.cat([prefix, picks]), num_prev, prefix.shape[0], out_cap)
+    return uids, num_unique, local[prefix.shape[0]:]
+
+
+class _State:
+    """K3's table, tile words, rank records and bitmaps for one stream
+    (``csrc/unique.cu`` gives the layout), and the generation of its last
+    call."""
+
+    def __init__(self, device: torch.device, num_node: int):
+        words = -(-num_node // 32)
+        tiles = max(1, -(-words // _TILE_WORDS))
+        self.num_node = num_node
+        self.buf = torch.empty(num_node + tiles + 2 * words + 1,
+                               dtype=torch.int64, device=device)
+        self.lock = threading.Lock()
+        self.clear()
+
+    def clear(self):
+        """Every table entry older than any stamp, every tile word
+        unpublished, the bitmaps and the ticket 0."""
+        self.buf[:self.num_node].fill_(-1)
+        self.buf[self.num_node:].zero_()
+        self.gen = 0
+
+    def next_generation(self) -> int:
+        if self.gen >= _MAX_GEN:
+            self.clear()
+        self.gen += 1
+        return self.gen
+
+
+_states: dict = {}
+_states_lock = threading.Lock()
+
+
+def state(device: torch.device, num_node: int) -> _State:
+    """K3's state for ``num_node`` on the current stream of ``device``, made
+    there at first use.  Calls on one stream run in order, so they share it;
+    calls on two streams never do."""
+    stream = torch.cuda.current_stream(device)
+    key = (stream.device.index, stream.cuda_stream, num_node)
+    with _states_lock:
+        st = _states.get(key)
+        if st is None:
+            st = _states[key] = _State(stream.device, num_node)
+        return st
+
+
+def _check(prefix, picks, num_prev, out_cap, num_node):
+    for what, t in (("prefix", prefix), ("picks", picks)):
+        if t.dim() != 1 or t.dtype != torch.int32:
+            raise ValueError(
+                f"unique_seeded: {what} must be 1-D int32, got {t.dtype} "
+                f"{tuple(t.shape)}"
+            )
+        if not t.is_contiguous():
+            raise ValueError(f"unique_seeded: {what} must be contiguous")
+    if prefix.device != picks.device:
+        raise ValueError("unique_seeded: prefix and picks on two devices")
     if not isinstance(num_prev, torch.Tensor) or (
         num_prev.dtype != torch.int32 or num_prev.numel() != 1
-        or num_prev.device != ids.device
+        or num_prev.device != picks.device
     ):
         raise ValueError(
             f"unique_seeded: num_prev must be a tensor of one int32 on "
-            f"{ids.device}"
+            f"{picks.device}"
         )
-    if not 0 <= prev_cap <= ids.shape[0] or out_cap < 0:
-        raise ValueError(
-            f"unique_seeded: prev_cap {prev_cap} and out_cap {out_cap} for "
-            f"{ids.shape[0]} ids"
-        )
+    if out_cap < 0:
+        raise ValueError(f"unique_seeded: out_cap {out_cap}")
     if num_node is not None and not 0 <= num_node <= EMPTY:
         raise ValueError(f"unique_seeded: num_node {num_node} out of range")
-    if ids.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"unique_seeded: no kernel for {ids.device}")
+    if picks.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unique_seeded: no kernel for {picks.device}")
+
+
+def _launch(prefix, picks, num_prev, out_cap, num_node, local_prefix,
+            local_picks):
+    """The kernel on CUDA tensors: returns ``(unique_ids, num_unique)`` and
+    writes the local ids into ``local_prefix`` (or not, if None) and
+    ``local_picks``."""
+    if num_node is None:
+        raise ValueError("unique_seeded: the CUDA kernel needs num_node")
+    dev = picks.device
+    lib = _build.load("unique")
+    st = state(dev, num_node)
+    unique_ids = torch.empty(out_cap, dtype=torch.int32, device=dev)
+    num_unique = torch.empty((), dtype=torch.int32, device=dev)
+    # the generation and the launch under one lock: the calls of a stream
+    # must reach it in the order of their generations
+    with st.lock:
+        rc = lib.xg_unique_seeded(
+            prefix.data_ptr(), prefix.shape[0], picks.data_ptr(),
+            picks.shape[0], num_prev.data_ptr(), num_node, out_cap,
+            st.buf.data_ptr(), st.buf.numel(), st.next_generation(),
+            unique_ids.data_ptr(), num_unique.data_ptr(),
+            None if local_prefix is None else local_prefix.data_ptr(),
+            local_picks.data_ptr(), _build.stream_handle(dev),
+        )
+    _build.check(rc, _NAME)
+    _build.LAUNCHES.add(_NAME)
+    return unique_ids, num_unique
 
 
 def unique_seeded(
@@ -112,28 +201,44 @@ def unique_seeded(
     ``[0, num_node)`` or are EMPTY; the kernel needs it (the size of its
     table) and treats any other id as EMPTY.  The plain version ignores it.
     """
-    _check(ids, num_prev, prev_cap, out_cap, num_node)
+    if ids.dim() != 1 or ids.dtype != torch.int32:
+        raise ValueError(
+            f"unique_seeded: ids must be 1-D int32, got {ids.dtype} "
+            f"{tuple(ids.shape)}"
+        )
+    if not ids.is_contiguous():
+        raise ValueError("unique_seeded: ids must be contiguous")
+    if not 0 <= prev_cap <= ids.shape[0]:
+        raise ValueError(
+            f"unique_seeded: prev_cap {prev_cap} for {ids.shape[0]} ids"
+        )
+    _check(ids[:prev_cap], ids[prev_cap:], num_prev, out_cap, num_node)
     if ids.device.type == "cpu":
         return unique_seeded_plain(ids, num_prev, prev_cap, out_cap)
-    if num_node is None:
-        raise ValueError("unique_seeded: the CUDA kernel needs num_node")
-    dev = ids.device
-    n = ids.shape[0]
-    num_seg = -(-num_node // _SEGMENT)
-    # per call, from the caching allocator on the current stream: the
-    # producer thread samples on its own stream
-    scratch = torch.empty(num_node + 2 * num_seg, dtype=torch.int32,
-                          device=dev)
-    unique_ids = torch.empty(out_cap, dtype=torch.int32, device=dev)
-    num_unique = torch.empty((), dtype=torch.int32, device=dev)
-    local_ids = torch.empty(n, dtype=torch.int32, device=dev)
-    lib = _build.load("unique")
-    rc = lib.xg_unique_seeded(
-        ids.data_ptr(), n, prev_cap, num_prev.data_ptr(), num_node, out_cap,
-        scratch.data_ptr(), scratch.numel(), unique_ids.data_ptr(),
-        num_unique.data_ptr(), local_ids.data_ptr(),
-        _build.stream_handle(dev),
-    )
-    _build.check(rc, _NAME)
-    _build.LAUNCHES.add(_NAME)
+    local_ids = torch.empty(ids.shape[0], dtype=torch.int32,
+                            device=ids.device)
+    unique_ids, num_unique = _launch(
+        ids[:prev_cap], ids[prev_cap:], num_prev, out_cap, num_node,
+        local_ids[:prev_cap], local_ids[prev_cap:])
     return unique_ids, num_unique, local_ids
+
+
+def unique_seeded_split(
+    prefix: torch.Tensor,
+    picks: torch.Tensor,
+    num_prev: torch.Tensor,
+    out_cap: int,
+    *,
+    num_node: Optional[int] = None,
+):
+    """:func:`unique_seeded` of ``concat(prefix, picks)`` (``prev_cap`` is
+    ``len(prefix)``) without the concatenation, returning ``(unique_ids,
+    num_unique, local_ids of the picks)``."""
+    _check(prefix, picks, num_prev, out_cap, num_node)
+    if picks.device.type == "cpu":
+        return unique_seeded_split_plain(prefix, picks, num_prev, out_cap)
+    local_picks = torch.empty(picks.shape[0], dtype=torch.int32,
+                              device=picks.device)
+    unique_ids, num_unique = _launch(prefix, picks, num_prev, out_cap,
+                                     num_node, None, local_picks)
+    return unique_ids, num_unique, local_picks

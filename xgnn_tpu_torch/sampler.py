@@ -118,14 +118,13 @@ def _sample_minibatch(graph: Graph, seeds: torch.Tensor, num_seed, *,
                 dst_ids=frontier,
             ))
             break
-        ids = torch.cat([frontier, nbr.reshape(-1)])
         out_cap = capacities[layer + 1]
-        uids, num_unique, local = unique.unique_seeded(
-            ids, num_frontier, frontier.shape[0], out_cap,
+        uids, num_unique, local = unique.unique_seeded_split(
+            frontier, nbr.reshape(-1), num_frontier, out_cap,
             num_node=graph.num_node,
         )
         blocks.append(Block(
-            neigh=local[frontier.shape[0]:].reshape(nbr.shape),
+            neigh=local.reshape(nbr.shape),
             num_dst=num_frontier,
             num_src=num_unique,
         ))
