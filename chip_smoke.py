@@ -26,25 +26,44 @@ Phases, each fatal on failure:
    shapes and K4 backward (with the dst prefix's gradient) at the layer-1
    and layer-2 shapes, rtol 1e-5 / atol 1e-5, the backward also equal bit
    for bit across two launches, with its longest segment (the most picks
-   of one src row) printed.  TF32 is off throughout.
+   of one src row) printed; K7 (pick multiplicity) at the three layers,
+   exact; K4 as GCN runs it, with K7's per-pick weights rsqrt(max(cnt,
+   1)): forward at the three layers (layer 2 over the 47-wide transformed
+   table) and backward without the prefix gradient at layers 1 and 2, at
+   the same tolerances and bit-equal across two launches; K5 (GAT edge
+   softmax) forward in shared mode at one head at
+   layers 0 and 1 and at 8 heads at layers 0 and 1, and per head on the
+   47-wide transformed table at layer 2, rtol/atol 1e-5; K5 backward at
+   layer 0 (no table gradient) and layer 1 (1 and 8 heads each) and at
+   layer 2,
+   g_table and g_el_dst at rtol/atol 1e-4, g_proj by relative norm 1e-5,
+   bit-equal across two launches.  TF32 is off throughout.
 5. Small reference: on a small graph the kernels' forward logits and loss
-   agree with the plain path on the CPU for the same blocks and weights.
-6. Main path: one warm-up epoch, then one counted epoch (25 steps) with the
-   launch counters set to 0 before it; every kernel must have launched its
-   expected count per step, and every loss must be finite.  Then one
-   unpipelined epoch gives per-stage device-inclusive times, and one
-   profiled pipelined epoch gives the device's busy share and its time by
-   kernel.
+   agree with the plain path on the CPU for the same blocks and weights,
+   for GraphSAGE, GCN and GAT at 1 and 8 heads.
+6. Main path: GraphSAGE, then GCN 3x256 and GAT 3x256 at 1 and at 8 heads
+   on the same configuration.  Each runs one warm-up epoch, then one
+   counted epoch (25 steps) with the launch counters set to 0 just before
+   it; every kernel of the path must have launched its expected count per
+   step, and every loss must be finite.  Each path prints its edges
+   aggregated per second and its peak device memory.  GraphSAGE then runs
+   one unpipelined epoch (per-stage device-inclusive times); every path
+   runs one profiled pipelined epoch (the device's busy time per step and
+   its time by kernel).
 
 Each kernel is timed twice: ``ms`` back to back (the wrapper's host time
 included, where the host is the slower) and ``device_ms`` with the host
-ahead of the card (the card's time alone).
+ahead of the card (the card's time alone).  ``bound_ms`` reads each input
+once: a gather over picks (K4 forward, K5) counts each distinct table row
+of this batch once, and ``per_pick_bound_ms`` beside it a row per valid
+pick.
 
 Prints the kernels' JSON line, then the card's line (nvidia-smi's name and
 power limit), then the result line.
 Exits non-zero with no result line when there is no CUDA device.
 """
 
+import dataclasses
 import json
 import math
 import os
@@ -62,6 +81,7 @@ CAPS = (BATCH, 133376, 1007360, 2449152)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 RTOL = ATOL = 1e-5
+K5_BWD_TOL = 1e-4  # rtol and atol of K5's g_table and g_el_dst
 
 
 def card_line() -> str:
@@ -122,6 +142,18 @@ def main() -> int:
     from xgnn_tpu_torch.engine.shuffler import Shuffler
     from xgnn_tpu_torch.models import build_model
     from xgnn_tpu_torch.ops import _build, sampling, unique
+    from xgnn_tpu_torch.ops.attend import (
+        PER_HEAD,
+        SHARED,
+        attend_backward,
+        attend_backward_plain,
+        attend_forward,
+        attend_forward_plain,
+    )
+    from xgnn_tpu_torch.ops.degree import (
+        pick_multiplicity,
+        pick_multiplicity_plain,
+    )
     from xgnn_tpu_torch.ops.fanout import (
         fanout_backward,
         fanout_backward_plain,
@@ -185,7 +217,12 @@ def main() -> int:
     kernels = []
 
     def record(name, source, replaces, shape, err, tol, fn, plain, library,
-               library_call, nbytes, flops, per_step):
+               library_call, nbytes, flops, per_step, path="graphsage",
+               pick_nbytes=None):
+        """``nbytes`` reads each distinct table row once; ``pick_nbytes``,
+        where given, is the same traffic with a table row per valid pick,
+        what a gather that keeps no row between picks moves
+        (``per_pick_bound_ms``)."""
         ms, plain_ms = time_ms(torch, fn), time_ms(torch, plain)
         device_ms = time_ms(torch, fn, host_ahead=True)
         lib_ms = None if library is None else time_ms(torch, library)
@@ -197,8 +234,10 @@ def main() -> int:
             "tolerance": tol, "ms": ms, "kernel_ms": ms,
             "device_ms": device_ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
-            "library_call": library_call,
+            "library_call": library_call, "path": path,
         })
+        if pick_nbytes is not None:
+            kernels[-1]["per_pick_bound_ms"] = bound_ms(pick_nbytes, flops)[0]
         print(f"{tag} {name} {shape}: max_abs_err {err:.3e} ({tol}); "
               f"kernel {ms:.4f} ms ({device_ms:.4f} ms on the card alone), "
               f"plain {plain_ms:.4f} ms, library "
@@ -368,49 +407,60 @@ def main() -> int:
            nbytes=n_valid * 4 + seeds.shape[0] * 8, flops=0, per_step=2)
     del out, ref
 
-    def fwd_case(name, h, blk, per_step):
+    def distinct_rows(nb, valid):
+        """the table rows the valid picks read, each counted once"""
+        return int(torch.unique(nb[valid]).numel())
+
+    def fwd_case(name, h, blk, per_step, weights=None, path="graphsage"):
         nb = blk.neigh
         with torch.no_grad():
-            s, d = fanout_reduce(h, nb)
-            s_ref, d_ref = fanout_reduce_plain(h, nb)
+            s, d = fanout_reduce(h, nb, weights)
+            s_ref, d_ref = fanout_reduce_plain(h, nb, weights)
         torch.cuda.synchronize()
         assert_close(name + " sum", s, s_ref, exact=False)
         assert_close(name + " denom", d, d_ref, exact=False)
         valid = (nb >= 0) & (nb < h.shape[0])
-        picks = int(valid.sum())
+        picks, rows_read = int(valid.sum()), distinct_rows(nb, valid)
         clamped = torch.where(valid, nb, 0).long()
-        msk = valid.float()
+        msk = valid.float() if weights is None else valid.float() * weights
         f = h.shape[1]
+        # the ids (and weights) in, the sum and the denominator out
+        other = (nb.numel() * (4 if weights is None else 8)
+                 + nb.shape[0] * (f + 1) * 4)
         with torch.no_grad():
             record(name, "xgnn_tpu_torch/csrc/fanout.cu",
                    "xgnn_tpu/models/gnn.py:62",
-                   f"{tuple(nb.shape)} picks ({picks} valid) over "
-                   f"{tuple(h.shape)} f32",
+                   f"{tuple(nb.shape)} picks ({picks} valid, {rows_read} "
+                   f"distinct rows) over {tuple(h.shape)} f32"
+                   + ("" if weights is None else ", GCN weights"),
                    max(max_err(s, s_ref), max_err(d, d_ref)),
                    f"rtol {RTOL}, atol {ATOL}",
-                   lambda: fanout_reduce(h, nb),
-                   lambda: fanout_reduce_plain(h, nb),
+                   lambda: fanout_reduce(h, nb, weights),
+                   lambda: fanout_reduce_plain(h, nb, weights),
                    lambda: F.embedding_bag(clamped, h, mode="sum",
                                            per_sample_weights=msk),
-                   "F.embedding_bag(mode='sum', per_sample_weights=mask)",
-                   nbytes=picks * f * 4 + nb.numel() * 4
-                   + nb.shape[0] * (f + 1) * 4,
-                   flops=picks * f, per_step=per_step)
+                   "F.embedding_bag(mode='sum', per_sample_weights=mask"
+                   + ("" if weights is None else " * weights") + ")",
+                   nbytes=rows_read * f * 4 + other,
+                   pick_nbytes=picks * f * 4 + other,
+                   flops=picks * f, per_step=per_step, path=path)
 
     fwd_case("fanout_fwd", feat, b0, 3)
     fwd_case("fanout_fwd", h1, b1, 3)
     fwd_case("fanout_fwd", h2, b2, 3)
 
-    def bwd_case(h, blk):
-        """K4 backward of a local-id block: the gradient w.r.t. h of the
-        dst prefix h[:D] and the fanout sum, given both their gradients."""
+    def bwd_case(h, blk, weights=None, with_dst=True, path="graphsage"):
+        """K4 backward: the gradient w.r.t. h of the fanout sum, and of the
+        dst prefix h[:D] where ``with_dst`` (SAGE's local-id blocks; GCN's
+        weighted sum has no prefix term)."""
         nb = blk.neigh
         d, (rows, f) = nb.shape[0], h.shape
         g_sum = torch.randn((d, f), generator=gen, device=dev)
-        g_dst = torch.randn((d, f), generator=gen, device=dev)
-        gh = fanout_backward(g_sum, nb, None, rows, g_dst)
-        again = fanout_backward(g_sum, nb, None, rows, g_dst)
-        ref = fanout_backward_plain(g_sum, nb, None, rows, g_dst)
+        g_dst = (torch.randn((d, f), generator=gen, device=dev) if with_dst
+                 else None)
+        gh = fanout_backward(g_sum, nb, weights, rows, g_dst)
+        again = fanout_backward(g_sum, nb, weights, rows, g_dst)
+        ref = fanout_backward_plain(g_sum, nb, weights, rows, g_dst)
         torch.cuda.synchronize()
         assert_close("fanout_bwd", gh, ref, exact=False)
         if not torch.equal(gh, again):
@@ -419,31 +469,266 @@ def main() -> int:
         valid = (nb >= 0) & (nb < rows)
         picks = int(valid.sum())
         longest = int(torch.bincount(nb[valid].long(), minlength=rows).max())
-        print(f"{tag} fanout_bwd {tuple(nb.shape)} into ({rows}, {f}): "
-              f"longest segment {longest} picks of one src row; two launches "
-              "equal bit for bit", flush=True)
+        print(f"{tag} fanout_bwd {tuple(nb.shape)} into ({rows}, {f})"
+              f"{'' if weights is None else ' with GCN weights'}: longest "
+              f"segment {longest} picks of one src row; two launches equal "
+              "bit for bit", flush=True)
         hl = h.clone().requires_grad_(True)
+        msk = valid.float() if weights is None else valid.float() * weights
         lib_sum = F.embedding_bag(torch.where(valid, nb, 0).long(), hl,
-                                  mode="sum", per_sample_weights=valid.float())
+                                  mode="sum", per_sample_weights=msk)
+        if with_dst:
+            lib_outs, lib_grads = (hl[:d], lib_sum), (g_dst, g_sum)
+        else:
+            lib_outs, lib_grads = (lib_sum,), (g_sum,)
         record("fanout_bwd", "xgnn_tpu_torch/csrc/fanout.cu",
                "xgnn_tpu/models/gnn.py:62",
                f"{tuple(nb.shape)} picks ({picks} valid) into ({rows}, {f}) "
-               f"f32 with the prefix gradient; longest segment {longest}",
+               "f32 " + ("with the prefix gradient" if with_dst
+                         else "with GCN weights, no prefix")
+               + f"; longest segment {longest}",
                max_err(gh, ref),
                f"rtol {RTOL}, atol {ATOL}; bit-equal across launches",
-               lambda: fanout_backward(g_sum, nb, None, rows, g_dst),
-               lambda: fanout_backward_plain(g_sum, nb, None, rows, g_dst),
-               lambda: torch.autograd.grad((hl[:d], lib_sum), hl,
-                                           (g_dst, g_sum), retain_graph=True),
-               "torch.autograd.grad of (h[:D], F.embedding_bag(mode='sum', "
-               "per_sample_weights=mask)) w.r.t. h",
-               # grad_sum, grad_dst and neigh in, every grad_h row out
-               nbytes=2 * d * f * 4 + nb.numel() * 4 + rows * f * 4,
-               flops=picks * f + d * f, per_step=2)
+               lambda: fanout_backward(g_sum, nb, weights, rows, g_dst),
+               lambda: fanout_backward_plain(g_sum, nb, weights, rows, g_dst),
+               lambda: torch.autograd.grad(lib_outs, hl, lib_grads,
+                                           retain_graph=True),
+               "torch.autograd.grad of "
+               + ("(h[:D], " if with_dst else "(")
+               + "F.embedding_bag(mode='sum', per_sample_weights=mask"
+               + ("" if weights is None else " * weights") + ")) w.r.t. h",
+               # grad_sum (and grad_dst), neigh (and weights) in, every
+               # grad_h row out
+               nbytes=(2 if with_dst else 1) * d * f * 4
+               + nb.numel() * (4 if weights is None else 8) + rows * f * 4,
+               flops=picks * f + (d * f if with_dst else 0),
+               per_step=2, path=path)
         kernels[-1]["longest_segment"] = longest
 
     bwd_case(h1, b1)
     bwd_case(h2, b2)
+
+    # K7 at each layer: the multiplicity of every pick over the block
+    for layer, (blk, rows) in enumerate(((b0, feat.shape[0]),
+                                         (b1, b0.dst_cap),
+                                         (b2, b1.dst_cap))):
+        nb = blk.neigh
+        out, ref = pick_multiplicity(nb, rows), pick_multiplicity_plain(nb,
+                                                                        rows)
+        torch.cuda.synchronize()
+        assert_close("pick_multiplicity", out, ref, exact=True)
+        valid = (nb >= 0) & (nb < rows)
+        spare = torch.where(valid, nb, rows).reshape(-1).long()
+        record("pick_multiplicity", "xgnn_tpu_torch/csrc/degree.cu",
+               "xgnn_tpu/ops/degree.py:31",
+               f"layer {layer}: {tuple(nb.shape)} picks ({int(valid.sum())} "
+               f"valid) over {rows} rows", max_err(out, ref), "exact",
+               lambda: pick_multiplicity(nb, rows),
+               lambda: pick_multiplicity_plain(nb, rows),
+               lambda: torch.bincount(spare, minlength=rows + 1)[spare],
+               "torch.bincount(ids, minlength=N + 1)[ids] on the ids with "
+               "the invalid ones moved to bin N",
+               # the ids in, the counts out
+               nbytes=nb.numel() * 8, flops=0, per_step=3, path="gcn")
+        del out, ref, spare
+
+    # K4 as GCNConv runs it: per-pick weights rsqrt(max(cnt, 1)) from K7;
+    # forward aggregate first at layers 0 and 1 and transform first at
+    # layer 2 (over the 47-wide transformed table: float lanes), backward
+    # at layers 1 and 2 without a prefix gradient
+    h2t = torch.randn((b1.dst_cap, NUM_CLASS), generator=gen, device=dev)
+    for layer, (h, blk) in enumerate(((feat, b0), (h1, b1), (h2t, b2))):
+        cnt = pick_multiplicity(blk.neigh, h.shape[0])
+        w = torch.rsqrt(torch.clamp(cnt.to(torch.float32), min=1.0))
+        fwd_case("fanout_fwd", h, blk, 3, weights=w, path="gcn")
+        if layer:
+            bwd_case(h, blk, weights=w, with_dst=False, path="gcn")
+        del cnt, w
+
+    def attend_library(table, nb, el, proj, mode):
+        """index_select -> masked softmax -> bmm over the materialised
+        picks: stock PyTorch ops for the same function"""
+        d, k = nb.shape
+        heads = el.shape[1]
+        valid = (nb >= 0) & (nb < table.shape[0])
+        rows = torch.index_select(table, 0, torch.where(valid, nb, 0)
+                                  .reshape(-1)).view(d, k, -1)
+        if mode == SHARED:
+            score = rows @ proj
+        else:
+            rows = rows.view(d, k, heads, -1)
+            score = (rows * proj).sum(-1)
+        e = F.leaky_relu(el[:, None, :] + score, 0.2)
+        a = torch.softmax(e.masked_fill(~valid[:, :, None], -math.inf), 1)
+        a = torch.nan_to_num(a)
+        if mode == SHARED:
+            return torch.bmm(a.transpose(1, 2), rows)
+        return torch.einsum("bkh,bkhd->bhd", a, rows)
+
+    def attend_inputs(table, blk, heads, mode):
+        """el_dst and proj for K5, with el_dst moved off leaky_relu's kink:
+        where a pick's pre-activation lies within 1e-4 of 0, the kernel's
+        and the plain version's float32 scores may fall on two sides of it,
+        and their gradients then differ by the jump of the derivative (1
+        against 0.2), as two correct subgradients."""
+        nb = blk.neigh
+        d, k = nb.shape
+        el = torch.randn((d, heads), generator=gen, device=dev)
+        if mode == SHARED:
+            proj = 0.1 * torch.randn((table.shape[1], heads), generator=gen,
+                                     device=dev)
+        else:
+            proj = 0.1 * torch.randn((heads, table.shape[1] // heads),
+                                     generator=gen, device=dev)
+        valid = (nb >= 0) & (nb < table.shape[0])
+        rows = table[torch.where(valid, nb, 0).reshape(-1)]
+        if mode == SHARED:
+            score = rows @ proj
+        else:
+            score = (rows.view(d * k, heads, -1) * proj).sum(-1)
+        score = score.view(d, k, heads)
+        del rows
+        for _ in range(3):
+            near = (((el[:, None, :] + score).abs() < 1e-4)
+                    & valid[:, :, None]).any(1)
+            if not bool(near.any()):
+                break
+            el = el + 1e-3 * near
+        return el, proj
+
+    def attend_cost(table, nb, heads, mode):
+        """valid picks, their mask, and multiply-adds per pick of one pass
+        (a score or a payload): H * W shared, W per head"""
+        valid = (nb >= 0) & (nb < table.shape[0])
+        width = table.shape[1]
+        return int(valid.sum()), valid, heads * width if mode == SHARED \
+            else width
+
+    k5_tol = f"rtol {RTOL}, atol {ATOL}"
+
+    def attend_fwd_case(layer, table, blk, heads, mode, path):
+        nb = blk.neigh
+        el, proj = attend_inputs(table, blk, heads, mode)
+        got = attend_forward(table, nb, el, proj, mode)
+        ref = attend_forward_plain(table, nb, el, proj, mode)
+        torch.cuda.synchronize()
+        for what, a, b in zip(("out", "m", "s"), got, ref):
+            assert_close(f"attend_fwd {what}", a, b, exact=False)
+        picks, valid, per_pick = attend_cost(table, nb, heads, mode)
+        rows_read = distinct_rows(nb, valid)
+        out_numel = got[0].numel()
+        # the ids, el_dst and proj in; out, m and s out
+        other = (nb.numel() * 4 + el.numel() * 4 + proj.numel() * 4
+                 + out_numel * 4 + 2 * el.numel() * 4)
+        record("attend_fwd", "xgnn_tpu_torch/csrc/attend.cu",
+               "xgnn_tpu/models/gnn.py:486",
+               f"layer {layer}: {tuple(nb.shape)} picks ({picks} valid, "
+               f"{rows_read} distinct rows) over {tuple(table.shape)} f32, "
+               f"{heads} head(s), {mode}",
+               max(max_err(a, b) for a, b in zip(got, ref)), k5_tol,
+               lambda: attend_forward(table, nb, el, proj, mode),
+               lambda: attend_forward_plain(table, nb, el, proj, mode),
+               lambda: attend_library(table, nb, el, proj, mode),
+               "index_select -> masked softmax -> bmm (stock PyTorch ops)",
+               # each distinct row read once besides the rest; the score
+               # and the payload: 2 flops per element of each
+               nbytes=rows_read * table.shape[1] * 4 + other,
+               pick_nbytes=picks * table.shape[1] * 4 + other,
+               flops=4 * picks * per_pick, per_step=3, path=path)
+        return el, proj, got
+
+    def attend_bwd_case(layer, table, blk, heads, mode, need_table, path,
+                        fwd):
+        nb = blk.neigh
+        el, proj, (out, m, s_) = fwd
+        g_out = torch.randn(out.shape, generator=gen, device=dev)
+        args = (g_out, table, nb, el, proj, out, m, s_, mode, need_table)
+        got = attend_backward(*args)
+        again = attend_backward(*args)
+        ref = attend_backward_plain(*args)
+        torch.cuda.synchronize()
+        if any(a is not None and not torch.equal(a, b)
+               for a, b in zip(got, again)):
+            raise AssertionError("attend_bwd: two launches on the same "
+                                 "inputs differ")
+        # g_e is a difference of two W-term dot products: its float32
+        # rounding (about 1e-5 at W = 256) survives the cancellation, and
+        # g_table sums a src row's picks in another order
+        for what, a, b in (("g_table", got[0], ref[0]),
+                           ("g_el_dst", got[1], ref[1])):
+            if a is not None and not torch.allclose(a, b, rtol=K5_BWD_TOL,
+                                                    atol=K5_BWD_TOL):
+                raise AssertionError(f"attend_bwd {what}: kernel disagrees "
+                                     "with its plain version (max abs err "
+                                     f"{max_err(a, b)})")
+        rel = float((got[2].double() - ref[2].double()).norm()
+                    / ref[2].double().norm())
+        if not rel < 1e-5:
+            raise AssertionError(f"attend_bwd g_proj: relative norm error "
+                                 f"{rel} (tolerance 1e-5)")
+        picks, valid, per_pick = attend_cost(table, nb, heads, mode)
+        rows_read = distinct_rows(nb, valid)
+        out_numel = out.numel()
+        rows_n, width = table.shape
+        # g_out, out, the ids, el_dst, m, s and proj in; g_el_dst, g_proj
+        # and every g_table row out
+        other = (2 * out_numel * 4 + nb.numel() * 4 + 3 * el.numel() * 4
+                 + 2 * proj.numel() * 4 + el.numel() * 4
+                 + (rows_n * width * 4 if need_table else 0))
+        longest = int(torch.bincount(nb[valid].long(), minlength=rows_n)
+                      .max())
+        print(f"{tag} attend_bwd layer {layer}: g_proj relative norm error "
+              f"{rel:.3e}; longest segment {longest} picks of one src row; "
+              "two launches equal bit for bit", flush=True)
+        leaves = [el.clone().requires_grad_(True),
+                  proj.clone().requires_grad_(True)]
+        tab = table.clone().requires_grad_(True) if need_table else table
+        lib_out = attend_library(tab, nb, leaves[0], leaves[1], mode)
+        wrt = ([tab] if need_table else []) + leaves
+        record("attend_bwd", "xgnn_tpu_torch/csrc/attend.cu (with "
+               "csrc/fanout.cu's segmented sum)",
+               "xgnn_tpu/models/gnn.py:486",
+               f"layer {layer}: {tuple(nb.shape)} picks ({picks} valid, "
+               f"{rows_read} distinct rows) over {tuple(table.shape)} f32, "
+               f"{heads} head(s), {mode}, "
+               f"{'with' if need_table else 'without'} g_table; longest "
+               f"segment {longest}",
+               max(max_err(a, b) for a, b in zip(got[:2], ref[:2])
+                   if a is not None),
+               f"g_table and g_el_dst rtol/atol {K5_BWD_TOL} (the max abs "
+               "err is theirs); g_proj relative norm 1e-5; bit-equal across "
+               "launches",
+               lambda: attend_backward(*args),
+               lambda: attend_backward_plain(*args),
+               lambda: torch.autograd.grad(lib_out, wrt, g_out,
+                                           retain_graph=True),
+               "torch.autograd.grad of index_select -> masked softmax -> "
+               "bmm",
+               # each distinct row read once besides the rest
+               nbytes=rows_read * width * 4 + other,
+               pick_nbytes=picks * width * 4 + other,
+               # the score, g_out . payload, g_proj and the two terms of
+               # the per-pick row: 5 multiply-adds per element
+               flops=10 * picks * per_pick, per_step=3, path=path)
+        kernels[-1]["longest_segment"] = longest
+        kernels[-1]["g_proj_rel_err"] = rel
+
+    # K5: layers 0 and 1 in shared mode at one head, layer 1 also at 8
+    # heads, layer 2 per head on the 47-wide transformed table
+    fwd0 = attend_fwd_case(0, feat, b0, 1, SHARED, "gat1")
+    attend_bwd_case(0, feat, b0, 1, SHARED, False, "gat1", fwd0)
+    del fwd0
+    fwd0 = attend_fwd_case(0, feat, b0, 8, SHARED, "gat8")
+    attend_bwd_case(0, feat, b0, 8, SHARED, False, "gat8", fwd0)
+    del fwd0
+    fwd1 = attend_fwd_case(1, h1, b1, 1, SHARED, "gat1")
+    attend_bwd_case(1, h1, b1, 1, SHARED, True, "gat1", fwd1)
+    fwd1 = attend_fwd_case(1, h1, b1, 8, SHARED, "gat8")
+    attend_bwd_case(1, h1, b1, 8, SHARED, True, "gat8", fwd1)
+    fwd2 = attend_fwd_case(2, h2t, b2, 1, PER_HEAD, "gat1")
+    attend_bwd_case(2, h2t, b2, 1, PER_HEAD, True, "gat1", fwd2)
+    del fwd1, fwd2, h2t
+    torch.cuda.empty_cache()
     del h1, h2, batch, b0, b1, b2
 
     # ---- 5. small reference: kernels on the card vs plain on the CPU -------
@@ -454,105 +739,128 @@ def main() -> int:
 
     sb = Sampler(small.graph, scfg, direct_extract=True).sample(
         torch.from_numpy(small.train_set[:64]).to(dev), 64, generator(dev, 3))
-    model = build_model(scfg, 32, 6)
-    cpu_model = build_model(scfg, 32, 6)
-    model.to(dev)
-    logits = model(sb.blocks, small.feat)
     to_cpu = lambda blk: type(blk)(**{
         k: (v.cpu() if isinstance(v, torch.Tensor) else v)
         for k, v in vars(blk).items()
     })
-    ref_logits = cpu_model([to_cpu(b) for b in sb.blocks], small.feat.cpu())
     labels = small.label[sb.output_nodes]
-    loss, _ = loss_fn(logits, labels, sb.num_output)
-    ref_loss, _ = loss_fn(ref_logits, labels.cpu(), sb.num_output.cpu())
-    if not (torch.allclose(logits.cpu(), ref_logits, rtol=1e-4, atol=1e-5)
-            and torch.allclose(loss.cpu(), ref_loss, rtol=1e-5)):
-        raise AssertionError("small reference: card logits disagree with "
-                             "the CPU plain path")
-    print(f"{tag} small reference: logits {tuple(logits.shape)} max abs "
-          f"diff {max_err(logits.cpu(), ref_logits):.3e}, loss "
-          f"{loss.item():.6f} vs {ref_loss.item():.6f}", flush=True)
+    # GraphSAGE, then GCN and GAT (1 and 8 heads: per-head and shared K5)
+    for model_name, heads in (("graphsage", 1), ("gcn", 1), ("gat", 1),
+                              ("gat", 8)):
+        scfg.model, scfg.num_head = model_name, heads
+        model = build_model(scfg, 32, 6)
+        cpu_model = build_model(scfg, 32, 6)
+        model.to(dev)
+        logits = model(sb.blocks, small.feat)
+        ref_logits = cpu_model([to_cpu(b) for b in sb.blocks],
+                               small.feat.cpu())
+        loss, _ = loss_fn(logits, labels, sb.num_output)
+        ref_loss, _ = loss_fn(ref_logits, labels.cpu(), sb.num_output.cpu())
+        if not (torch.allclose(logits.cpu(), ref_logits, rtol=1e-4,
+                               atol=1e-5)
+                and torch.allclose(loss.cpu(), ref_loss, rtol=1e-5)):
+            raise AssertionError(f"small reference ({model_name}, {heads} "
+                                 "head(s)): card logits disagree with the "
+                                 "CPU plain path")
+        print(f"{tag} small reference {model_name} ({heads} head(s)): "
+              f"logits {tuple(logits.shape)} max abs diff "
+              f"{max_err(logits.cpu(), ref_logits):.3e}, loss "
+              f"{loss.item():.6f} vs {ref_loss.item():.6f}", flush=True)
     del small, sb, model, logits
 
     # ---- 6. main path ------------------------------------------------------
     steps = Shuffler(ds.train_set, BATCH).num_local_step
-    expected = {"gather_rows": 2 * steps, "fanout_fwd": 3 * steps,
-                "fanout_bwd": 2 * steps, "sample_khop": 3 * steps,
-                "unique_seeded": 2 * steps}
-    results = []
-    for epoch in (0, 1):
-        _build.LAUNCHES.reset()
-        r = engine.train_epoch(epoch)
-        torch.cuda.synchronize()
-        counts = _build.LAUNCHES.snapshot()
-        results.append(r)
-        print(f"{tag} epoch {epoch} ({'warm-up' if epoch == 0 else 'counted'}"
-              f", pipelined): {r['time']:.3f} s, {steps} steps, loss "
-              f"{r['loss']:.4f}, acc {r['train_acc']:.4f}, launches {counts}",
-              flush=True)
-        if counts != expected:
-            raise AssertionError(f"launch counts {counts} != {expected}")
-        losses = engine.history[epoch]["loss"]
-        if not all(math.isfinite(v) for v in losses):
-            raise AssertionError(f"epoch {epoch}: a step loss is not finite: "
-                                 f"{list(losses)}")
-    for k in kernels:
-        k["launches"] = counts[k["name"]]
-    stage = engine.history[1]["stages"]
+    sampled = {"sample_khop": 3 * steps, "unique_seeded": 2 * steps}
+    gat = {"gather_rows": 2 * steps, "attend_fwd": 3 * steps,
+           "attend_bwd": 3 * steps, **sampled}
+    expected = {
+        "graphsage": {"gather_rows": 2 * steps, "fanout_fwd": 3 * steps,
+                      "fanout_bwd": 2 * steps, **sampled},
+        # labels only; layer 0's feature table needs no gradient
+        "gcn": {"gather_rows": steps, "pick_multiplicity": 3 * steps,
+                "fanout_fwd": 3 * steps, "fanout_bwd": 2 * steps, **sampled},
+        # labels and layer 0's el_dst rows; K5's backward at every layer
+        "gat1": gat, "gat8": gat,
+    }
+    counts_by_path = {}
     mean = lambda v: sum(v) / max(len(v), 1)
-    print(f"{tag} epoch 1 host enqueue per step: sample "
-          f"{mean(stage['sample']) * 1e3:.3f} ms, extract "
-          f"{mean(stage['extract']) * 1e3:.3f} ms, train "
-          f"{mean(stage['train']) * 1e3:.3f} ms", flush=True)
 
-    engine.config.pipeline = False
-    r2 = engine.train_epoch(2)
-    stage = engine.history[2]["stages"]
-    print(f"{tag} epoch 2 (unpipelined, synchronised per stage): "
-          f"{r2['time']:.3f} s; per step sample "
-          f"{mean(stage['sample']) * 1e3:.3f} ms, extract "
-          f"{mean(stage['extract']) * 1e3:.3f} ms, train "
-          f"{mean(stage['train']) * 1e3:.3f} ms; loss {r2['loss']:.4f}",
-          flush=True)
-    if not all(math.isfinite(v) for v in engine.history[2]["loss"]):
-        raise AssertionError("epoch 2: a step loss is not finite")
+    def run_epochs(path, eng):
+        """A warm-up epoch, then a counted one with the launch counters set
+        to 0 just before it and read just after it."""
+        for epoch in (0, 1):
+            _build.LAUNCHES.reset()
+            r = eng.train_epoch(epoch)
+            torch.cuda.synchronize()
+            counts = _build.LAUNCHES.snapshot()
+            print(f"{tag} {path} epoch {epoch} "
+                  f"({'warm-up' if epoch == 0 else 'counted'}, pipelined): "
+                  f"{r['time']:.3f} s, {steps} steps, loss {r['loss']:.4f}, "
+                  f"acc {r['train_acc']:.4f}, launches {counts}", flush=True)
+            if counts != expected[path]:
+                raise AssertionError(f"{path}: launch counts {counts} != "
+                                     f"{expected[path]}")
+            losses = eng.history[epoch]["loss"]
+            if not all(math.isfinite(v) for v in losses):
+                raise AssertionError(f"{path} epoch {epoch}: a step loss is "
+                                     f"not finite: {list(losses)}")
+        counts_by_path[path] = counts
+        stage = eng.history[1]["stages"]
+        print(f"{tag} {path} epoch 1 host enqueue per step: sample "
+              f"{mean(stage['sample']) * 1e3:.3f} ms, extract "
+              f"{mean(stage['extract']) * 1e3:.3f} ms, train "
+              f"{mean(stage['train']) * 1e3:.3f} ms", flush=True)
+        return r
 
-    # device busy share over one more pipelined epoch, from the profiler's
-    # device events (the union of their intervals over the epoch's wall time)
-    engine.config.pipeline = True
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        engine.train_epoch(3)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    if not all(math.isfinite(v) for v in engine.history[3]["loss"]):
-        raise AssertionError("epoch 3: a step loss is not finite")
-    spans = sorted((e.time_range.start, e.time_range.end, e.name)
-                   for e in prof.events() if e.device_type == DeviceType.CUDA)
-    busy_us, reach, by_name = 0.0, -math.inf, {}
-    for start, end, name in spans:
-        busy_us += max(0.0, end - max(start, reach))
-        reach = max(reach, end)
-        by_name[name] = by_name.get(name, 0.0) + (end - start)
-    if spans:
-        print(f"{tag} epoch 3 (profiled, pipelined): {wall_us / 1e3:.1f} ms "
-              f"wall, device busy {busy_us / 1e3:.1f} ms, busy share "
-              f"{busy_us / wall_us:.3f}, {len(spans)} device events; device "
-              "ms per step by kernel:", flush=True)
+    def profiled_epoch(path, eng, epoch):
+        """Device busy share over one more pipelined epoch, from the
+        profiler's device events (the union of their intervals over the
+        epoch's wall time), and device ms per step by kernel."""
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            eng.train_epoch(epoch)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        if not all(math.isfinite(v) for v in eng.history[epoch]["loss"]):
+            raise AssertionError(f"{path} epoch {epoch}: a step loss is not "
+                                 "finite")
+        spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                       for e in prof.events()
+                       if e.device_type == DeviceType.CUDA)
+        if not spans:
+            print(f"{tag} {path} device busy share: not measured (the "
+                  "profiler recorded no device events)", flush=True)
+            return
+        busy_us, reach, by_name = 0.0, -math.inf, {}
+        for start, end, name in spans:
+            busy_us += max(0.0, end - max(start, reach))
+            reach = max(reach, end)
+            by_name[name] = by_name.get(name, 0.0) + (end - start)
+        print(f"{tag} {path} epoch {epoch} (profiled, pipelined): "
+              f"{wall_us / 1e3:.1f} ms wall, device busy "
+              f"{busy_us / 1e3:.1f} ms ({busy_us / 1e3 / steps:.3f} ms per "
+              f"step), busy share {busy_us / wall_us:.3f}, {len(spans)} "
+              "device events; device ms per step by kernel:", flush=True)
         for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:16]:
             print(f"{tag}   {us / 1e3 / steps:9.3f}  {name[:120]}", flush=True)
-        for what, key in (("fill", "fill"), ("add", "add"),
-                          ("K4 backward", "bwd_")):
-            us = sum(t for name, t in by_name.items() if key in name.lower())
-            print(f"{tag}   device ms per step in kernels named *{key}* "
-                  f"({what}): {us / 1e3 / steps:.3f}", flush=True)
-    else:
-        print(f"{tag} device busy share: not measured (the profiler "
-              "recorded no device events)", flush=True)
+        groups = (
+            ("*fill*", lambda n: "fill" in n),
+            ("*add*", lambda n: "add" in n),
+            ("K4's segmented backward, *bwd_* but not *attend* (GAT: K5's "
+             "g_table sum)", lambda n: "bwd_" in n and "attend" not in n),
+            ("K5, *attend* and *proj_reduce*",
+             lambda n: "attend" in n or "proj_reduce" in n),
+            ("K7, *hist_kernel* and *gather_kernel*",
+             lambda n: "hist_kernel" in n or "gather_kernel" in n),
+        )
+        for what, match in groups:
+            us = sum(t for name, t in by_name.items() if match(name.lower()))
+            print(f"{tag}   device ms per step in {what}: "
+                  f"{us / 1e3 / steps:.3f}", flush=True)
 
-    # edges aggregated per second, counted from the block masks (bench.py)
+    # edges aggregated per step, counted from the block masks (bench.py);
+    # every path samples with the same configuration
     counts_e = []
     for i, (seeds, n) in enumerate(Shuffler(ds.train_set, BATCH, seed=43)
                                    .epoch_batches(1)):
@@ -562,13 +870,48 @@ def main() -> int:
                                   generator(dev, 900 + i))
         counts_e.append(sum(int(blk.mask.sum()) for blk in b.blocks))
     edges_per_step = sum(counts_e) / len(counts_e)
-    print(f"{tag} edges aggregated per step {edges_per_step:.1f}; "
-          f"edges/s over the counted epoch "
-          f"{edges_per_step * steps / results[1]['time']:.1f}; "
-          f"peak device memory "
-          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB",
+    print(f"{tag} edges aggregated per step {edges_per_step:.1f}",
           flush=True)
 
+    def rate_and_memory(path, r):
+        print(f"{tag} {path}: edges/s over the counted epoch "
+              f"{edges_per_step * steps / r['time']:.1f}; peak device "
+              f"memory {torch.cuda.max_memory_allocated(dev) / 2**30:.3f} "
+              "GiB", flush=True)
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    r1 = run_epochs("graphsage", engine)
+    rate_and_memory("graphsage", r1)
+    engine.config.pipeline = False
+    r2 = engine.train_epoch(2)
+    stage = engine.history[2]["stages"]
+    print(f"{tag} graphsage epoch 2 (unpipelined, synchronised per stage): "
+          f"{r2['time']:.3f} s; per step sample "
+          f"{mean(stage['sample']) * 1e3:.3f} ms, extract "
+          f"{mean(stage['extract']) * 1e3:.3f} ms, train "
+          f"{mean(stage['train']) * 1e3:.3f} ms; loss {r2['loss']:.4f}",
+          flush=True)
+    if not all(math.isfinite(v) for v in engine.history[2]["loss"]):
+        raise AssertionError("epoch 2: a step loss is not finite")
+    engine.config.pipeline = True
+    profiled_epoch("graphsage", engine, 3)
+    del engine
+
+    # GCN 3x256 and GAT 3x256 at 1 and at 8 heads, the same configuration
+    for path, model_name, heads in (("gcn", "gcn", 1), ("gat1", "gat", 1),
+                                    ("gat8", "gat", 8)):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        eng = Engine(ds, dataclasses.replace(cfg, model=model_name,
+                                             num_head=heads)).init()
+        r1 = run_epochs(path, eng)
+        rate_and_memory(path, r1)
+        profiled_epoch(path, eng, 2)
+        del eng
+
+    for k in kernels:
+        k["launches"] = counts_by_path[k["path"]].get(k["name"], 0)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

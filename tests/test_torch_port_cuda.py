@@ -607,3 +607,232 @@ def test_a_step_never_waits_on_the_card(dev):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert np.isfinite(float(metrics["loss"]))
+
+
+# ---------------------------------------------------- K7 pick multiplicity
+@pytest.mark.parametrize("shape,num_rows", [((1007, 5), 3000),
+                                            ((133, 10), 50),
+                                            ((8, 15), 2_449_029),
+                                            ((3, 1), 7)])
+def test_pick_multiplicity_kernel_equals_plain(dev, shape, num_rows):
+    """Exact, with EMPTY and out-of-range picks, on aligned ids (16-byte
+    loads and a ragged tail) and on an unaligned view (4-byte loads)."""
+    from xgnn_tpu_torch.ops import _build
+    from xgnn_tpu_torch.ops.degree import (
+        pick_multiplicity,
+        pick_multiplicity_plain,
+    )
+
+    g = _gen(dev, num_rows)
+    ids = torch.randint(-3, min(num_rows, 400) + 3, shape, generator=g,
+                        device=dev, dtype=torch.int32)
+    ids[torch.rand(shape, generator=g, device=dev) < 0.3] = EMPTY
+    _build.LAUNCHES.reset()
+    out = pick_multiplicity(ids, num_rows)
+    assert out.dtype == torch.int32
+    assert torch.equal(out, pick_multiplicity_plain(ids, num_rows))
+    flat = ids.reshape(-1)[1:]
+    assert torch.equal(pick_multiplicity(flat, num_rows),
+                       pick_multiplicity_plain(flat, num_rows))
+    assert _build.LAUNCHES.snapshot() == {"pick_multiplicity": 2}
+    empty = torch.full(shape, EMPTY, dtype=torch.int32, device=dev)
+    assert int(pick_multiplicity(empty, num_rows).abs().sum()) == 0
+
+
+# ------------------------------------------------- K5 edge-softmax attend
+def _attend_inputs(dev, mode, heads, width, seed, n=3000, d=1500, k=10):
+    """Picks with repeats, EMPTY and out-of-range ids, three all-EMPTY dst
+    rows and a src row picked 500 times (past one warp's 32)."""
+    g = _gen(dev, seed)
+    table = torch.randn((n, width), generator=g, device=dev)
+    neigh = torch.randint(-2, n + 2, (d, k), generator=g, device=dev,
+                          dtype=torch.int32)
+    neigh[torch.rand((d, k), generator=g, device=dev) < 0.2] = EMPTY
+    neigh[7:10] = EMPTY
+    neigh.view(-1)[100:600] = 11
+    el = torch.randn((d, heads), generator=g, device=dev)
+    if mode == "shared":
+        proj = 0.1 * torch.randn((width, heads), generator=g, device=dev)
+    else:
+        proj = 0.1 * torch.randn((heads, width // heads), generator=g,
+                                 device=dev)
+    # el_dst off leaky_relu's kink: a pre-activation within 1e-4 of 0 may
+    # fall on two sides of it in the kernel's and the plain version's
+    # float32 scores, and their gradients then differ by the derivative's
+    # jump (1 against 0.2), two correct subgradients
+    valid = (neigh >= 0) & (neigh < n)
+    rows = table[torch.where(valid, neigh, 0).reshape(-1)]
+    if mode == "shared":
+        score = (rows @ proj).view(d, k, heads)
+    else:
+        score = (rows.view(d * k, heads, -1) * proj).sum(-1).view(d, k,
+                                                                   heads)
+    near = (((el[:, None, :] + score).abs() < 1e-4)
+            & valid[:, :, None]).any(1)
+    return table, neigh, el + 1e-3 * near, proj
+
+
+def _rel_norm(a, b):
+    return float((a.double() - b.double()).norm() / b.double().norm())
+
+
+_ATTEND_CASES = [("shared", h, w) for h in (1, 2, 8) for w in (47, 128, 256)]
+_ATTEND_CASES += [("per_head", h, w) for h in (1, 2, 8) for w in (128, 256)]
+_ATTEND_CASES += [("per_head", 1, 47)]
+
+
+@pytest.mark.parametrize("mode,heads,width", _ATTEND_CASES)
+def test_attend_kernels_equal_plain(dev, mode, heads, width):
+    """Forward (out, m, s) against the plain version at rtol/atol 1e-5;
+    backward g_table and g_el_dst at rtol/atol 1e-4, g_proj by its relative
+    norm, 1e-5.  The backward's looser bound: each pick's g_e is a
+    difference of two W-term dot products (g_out . payload - g_out . out),
+    whose float32 rounding (2^-24 times the sum of the terms' magnitudes,
+    about 1e-5 at W = 256) the difference keeps while the values cancel,
+    and g_table sums up to 500 such rows of one src row in another order
+    than the plain version's index_add_.  Two backward launches equal bit
+    for bit (no float atomics)."""
+    from xgnn_tpu_torch.ops import _build
+    from xgnn_tpu_torch.ops.attend import (
+        attend_backward,
+        attend_backward_plain,
+        attend_forward,
+        attend_forward_plain,
+    )
+
+    table, neigh, el, proj = _attend_inputs(dev, mode, heads, width,
+                                            heads * 1000 + width)
+    _build.LAUNCHES.reset()
+    out, m, s = attend_forward(table, neigh, el, proj, mode)
+    ref = attend_forward_plain(table, neigh, el, proj, mode)
+    for name, a, b in zip(("out", "m", "s"), (out, m, s), ref):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5,
+                                   msg=f"forward {name}")
+    assert torch.all(out[7:10] == 0)
+    g_out = torch.randn(out.shape, generator=_gen(dev, 1), device=dev)
+    for need_table in (True, False):
+        got = attend_backward(g_out, table, neigh, el, proj, out, m, s, mode,
+                              need_table)
+        again = attend_backward(g_out, table, neigh, el, proj, out, m, s,
+                                mode, need_table)
+        want = attend_backward_plain(g_out, table, neigh, el, proj, out, m,
+                                     s, mode, need_table)
+        assert (got[0] is None) == (not need_table)
+        for a, b in zip(got, again):
+            assert a is None or torch.equal(a, b)
+        if need_table:
+            torch.testing.assert_close(got[0], want[0], rtol=1e-4, atol=1e-4)
+        torch.testing.assert_close(got[1], want[1], rtol=1e-4, atol=1e-4)
+        assert _rel_norm(got[2], want[2]) < 1e-5
+    assert _build.LAUNCHES.snapshot() == {"attend_fwd": 1, "attend_bwd": 4}
+
+
+def test_attend_autograd_on_the_card_equals_the_cpu(dev):
+    """The Function on the card against the same Function on the CPU (the
+    plain versions), every gradient."""
+    from xgnn_tpu_torch.ops.attend import gat_attend
+
+    for mode, heads, width in (("shared", 2, 64), ("per_head", 2, 48)):
+        inputs = _attend_inputs(dev, mode, heads, width, 3, n=500, d=300)
+        table, neigh, el, proj = inputs
+        g_out = None
+        grads = []
+        for where in (dev, torch.device("cpu")):
+            leaves = [t.to(where).requires_grad_(True)
+                      for t in (table, el, proj)]
+            out = gat_attend(leaves[0], neigh.to(where), leaves[1],
+                             leaves[2], mode)
+            if g_out is None:
+                g_out = torch.randn(out.shape, generator=_gen(dev, 2),
+                                    device=dev)
+            grads.append([out] + list(torch.autograd.grad(
+                out, leaves, g_out.to(where))))
+        for a, b in zip(*grads):
+            torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-5)
+
+
+def test_attend_refuses_past_its_registers_and_across_devices(dev):
+    from xgnn_tpu_torch.ops.attend import gat_attend
+
+    neigh = torch.zeros((3, 2), dtype=torch.int32, device=dev)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        gat_attend(torch.zeros((10, 512), device=dev), neigh,
+                   torch.zeros((3, 8), device=dev),
+                   torch.zeros((512, 8), device=dev), "shared")
+    with pytest.raises(ValueError, match="different devices"):
+        gat_attend(torch.zeros((10, 8), device=dev), neigh.cpu(),
+                   torch.zeros((3, 1), device=dev),
+                   torch.zeros((8, 1), device=dev), "shared")
+    with pytest.raises(ValueError, match="different devices"):
+        gat_attend(torch.zeros((10, 8)), neigh, torch.zeros((3, 1)),
+                   torch.zeros((8, 1)), "shared")
+
+
+# ------------------------------------------------------- GCN and GAT steps
+@pytest.mark.parametrize("model,heads", [("gcn", 1), ("gat", 1), ("gat", 8)])
+def test_zoo_step_on_the_card_equals_the_cpu(dev, model, heads):
+    """One forward and backward of the GNN on a sampled batch: logits and
+    every gradient on the card against the CPU plain path, and the
+    kernels' launches."""
+    from xgnn_tpu_torch import RunConfig, make_device_dataset
+    from xgnn_tpu_torch.device import generator
+    from xgnn_tpu_torch.models import build_model
+    from xgnn_tpu_torch.ops import _build
+    from xgnn_tpu_torch.sampler import Sampler
+
+    ds = make_device_dataset(5000, 30_000, 32, 6, seed=2, device=dev)
+    cfg = RunConfig(batch_size=128, fanout=(6, 4, 3), num_hidden=32,
+                    model=model, num_head=heads, dropout=0.0,
+                    frontier_capacities=(128, 896, 3584, 5000))
+    batch = Sampler(ds.graph, cfg, direct_extract=True).sample(
+        torch.from_numpy(ds.train_set[:128]).to(dev), 128, generator(dev, 1))
+    cpu_blocks = [type(b)(**{k: (v.cpu() if isinstance(v, torch.Tensor)
+                                 else v) for k, v in vars(b).items()})
+                  for b in batch.blocks]
+    results = []
+    for blocks, x, where in ((batch.blocks, ds.feat, dev),
+                             (cpu_blocks, ds.feat.cpu(), None)):
+        net = build_model(cfg, 32, 6)
+        if where is not None:
+            net.to(where)
+        _build.LAUNCHES.reset()
+        out = net(blocks, x)
+        out.square().sum().backward()
+        results.append([out.detach().cpu()]
+                       + [p.grad.cpu() for p in net.parameters()])
+        if where is not None:
+            counts = _build.LAUNCHES.snapshot()
+    for a, b in zip(*results):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+    if model == "gcn":
+        assert counts == {"pick_multiplicity": 3, "fanout_fwd": 3,
+                          "fanout_bwd": 2}
+    else:
+        assert counts == {"attend_fwd": 3, "attend_bwd": 3, "gather_rows": 1}
+
+
+@pytest.mark.parametrize("model", ["gcn", "gat"])
+def test_a_zoo_step_never_waits_on_the_card(dev, model):
+    from xgnn_tpu_torch import Engine, RunConfig, make_device_dataset
+    from xgnn_tpu_torch.device import generator
+    from xgnn_tpu_torch.engine.shuffler import Shuffler
+    from xgnn_tpu_torch.train import train_step
+
+    ds = make_device_dataset(20_000, 100_000, 32, 7, seed=5, device=dev)
+    cfg = RunConfig(batch_size=256, fanout=(10, 5, 3), num_hidden=32,
+                    calibration_batches=0, model=model, num_head=2)
+    engine = Engine(ds, cfg).init()
+    item = next(Shuffler(ds.train_set, cfg.batch_size).epoch_batches(0))
+    batch, x, labels, _, _ = engine._produce((item, 1, (0, 0)))
+    train_step(engine.model, engine.opt, batch.blocks, x, labels,
+               batch.num_output, generator(dev, 2), batch.overflow)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        batch, x, labels, _, _ = engine._produce((item, 3, (0, 1)))
+        metrics = train_step(engine.model, engine.opt, batch.blocks, x,
+                             labels, batch.num_output, generator(dev, 4),
+                             batch.overflow)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert np.isfinite(float(metrics["loss"]))

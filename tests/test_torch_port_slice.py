@@ -79,10 +79,15 @@ def test_sample_minibatch_matches_jax(small_ds, direct, caps):
     assert bool(port.overflow) == (caps is not None)
 
 
-def test_training_trajectory_matches_jax_engine(learn_ds):
+@pytest.mark.parametrize("model,heads", [
+    ("graphsage", 1), ("gcn", 1), ("gat", 1), ("gat", 2),
+])
+def test_training_trajectory_matches_jax_engine(learn_ds, model, heads):
     """>= 20 steps of the JAX Engine (direct extract, pipeline off) against
     the port's sampler (same uniforms), model (converted initial weights),
-    loss and Adam: blocks equal every step, losses close step by step."""
+    loss and Adam: blocks equal every step, losses close step by step
+    (rtol/atol 2e-3: float32 sums in other orders, compounded over the
+    steps' updates)."""
     from xgnn_tpu import RunConfig as JConfig
     from xgnn_tpu.engine import Engine as JEngine
     from xgnn_tpu.engine.shuffler import Shuffler as JShuffler
@@ -97,7 +102,8 @@ def test_training_trajectory_matches_jax_engine(learn_ds):
     ds = learn_ds
     fanout = (5, 4, 3)
     common = dict(batch_size=len(ds.train_set) // 21, fanout=fanout,
-                  num_layer=3, num_hidden=16, model="graphsage", dropout=0.0,
+                  num_layer=3, num_hidden=16, model=model, num_head=heads,
+                  dropout=0.0,
                   lr=0.01, pipeline=False, gpu_extract=True,
                   cache_percentage=0.0)
     engine = JEngine(ds, JConfig(**common, num_epoch=1)).init()
@@ -206,7 +212,8 @@ def test_entry_points_need_cuda_unless_told(learn_ds, monkeypatch):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("model", "gcn"),
+    ("model", "pinsage"),
+    ("model", "mlp"),
     ("sample_type", "weighted_khop"),
     ("sample_type", "random_walk"),
     ("cache_percentage", 0.5),

@@ -30,6 +30,9 @@ class SampleType(Enum):
 # replacement) and share one sampler
 UNIFORM_KHOP = (SampleType.KHOP0, SampleType.KHOP2, SampleType.KHOP3)
 
+# the convolutions of the JAX model zoo that the port has
+PORTED_MODELS = ("graphsage", "gcn", "gat")
+
 
 @dataclasses.dataclass
 class RunConfig:
@@ -42,8 +45,9 @@ class RunConfig:
     device_loop: bool = False
 
     # --- model -------------------------------------------------------------
-    model: str = "graphsage"
+    model: str = "graphsage"  # graphsage, gcn or gat
     num_hidden: int = 256
+    num_head: int = 1  # GAT heads on the hidden layers
     num_layer: int = 3
     lr: float = 0.003
     dropout: float = 0.5
@@ -72,7 +76,7 @@ class RunConfig:
 
     def _check_supported(self):
         todo = []
-        if self.model != "graphsage":
+        if self.model not in PORTED_MODELS:
             todo.append(
                 f"model={self.model!r}: ROADMAP open item 9 (model zoo)"
             )

@@ -3,7 +3,10 @@
 Flax ``Dense`` kernels are ``(in, out)`` and PyTorch weights ``(out, in)``,
 so kernels are transposed.  In each ``SAGEConv_{i}`` flax names the self
 transform ``Dense_0`` (no bias) and the neighbour transform ``Dense_1``
-(with bias), in the order ``SAGEConv.__call__`` creates them.
+(with bias), in the order ``SAGEConv.__call__`` creates them.  A
+``GCNConv_{i}`` holds ``Dense_0`` (no bias) and its own ``bias``; a
+``GATConv_{i}`` holds ``kernel`` ``(in, H, d)``, ``attn_l`` and ``attn_r``
+``(H, d)``, which the port keeps in the same layout.
 """
 
 from __future__ import annotations
@@ -12,22 +15,45 @@ import numpy as np
 import torch
 
 
+def _t(a):
+    return torch.from_numpy(np.array(a, dtype=np.float32))
+
+
+def _sage(p, pre):
+    return {
+        pre + "fc_self.weight": _t(p["Dense_0"]["kernel"]).T.contiguous(),
+        pre + "fc_neigh.weight": _t(p["Dense_1"]["kernel"]).T.contiguous(),
+        pre + "fc_neigh.bias": _t(p["Dense_1"]["bias"]),
+    }
+
+
+def _gcn(p, pre):
+    return {
+        pre + "fc.weight": _t(p["Dense_0"]["kernel"]).T.contiguous(),
+        pre + "bias": _t(p["bias"]),
+    }
+
+
+def _gat(p, pre):
+    return {pre + name: _t(p[name]) for name in ("kernel", "attn_l",
+                                                 "attn_r")}
+
+
+_LAYERS = {"SAGEConv": _sage, "GCNConv": _gcn, "GATConv": _gat}
+
+
 def params_from_flax(params_np) -> dict:
     """``params_np``: the flax params tree (``{"SAGEConv_0": {"Dense_0":
     {"kernel": ...}, ...}}``) as numpy arrays."""
-    def t(a):
-        return torch.from_numpy(np.array(a, dtype=np.float32))
-
+    for name, convert in _LAYERS.items():
+        if f"{name}_0" in params_np:
+            break
+    else:
+        raise ValueError("no SAGEConv_{i}, GCNConv_{i} or GATConv_{i} layers "
+                         "in the flax params")
     state = {}
     i = 0
-    while f"SAGEConv_{i}" in params_np:
-        dense_self = params_np[f"SAGEConv_{i}"]["Dense_0"]
-        dense_neigh = params_np[f"SAGEConv_{i}"]["Dense_1"]
-        pre = f"layers.{i}."
-        state[pre + "fc_self.weight"] = t(dense_self["kernel"]).T.contiguous()
-        state[pre + "fc_neigh.weight"] = t(dense_neigh["kernel"]).T.contiguous()
-        state[pre + "fc_neigh.bias"] = t(dense_neigh["bias"])
+    while f"{name}_{i}" in params_np:
+        state.update(convert(params_np[f"{name}_{i}"], f"layers.{i}."))
         i += 1
-    if i == 0:
-        raise ValueError("no SAGEConv_{i} layers in the flax params")
     return state

@@ -1,1 +1,1 @@
-from .gnn import GNN, SAGEConv, build_model  # noqa: F401
+from .gnn import GNN, GATConv, GCNConv, SAGEConv, build_model  # noqa: F401

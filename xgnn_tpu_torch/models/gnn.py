@@ -1,12 +1,15 @@
-"""GraphSAGE over dense-fanout sampled blocks.
+"""GraphSAGE, GCN and GAT over dense-fanout sampled blocks.
 
-The port of the GraphSAGE path of ``xgnn_tpu/models/gnn.py``:
-``masked_mean_stream`` and ``_take_dst`` (together in :func:`_dst_and_mean`),
-``SAGEConv`` and ``GNN`` (dropout before every layer but the first, ReLU
-between layers, float32 logits).  The fanout reduce is kernel K4
-(``ops/fanout.py``) and the direct-extract dst gather is kernel K1
-(``ops/gather.py``).  The other convolutions of the zoo are ROADMAP open
-item 9.
+The port of ``xgnn_tpu/models/gnn.py``'s ``_take_dst``,
+``masked_mean_stream`` (with the dst rows in :func:`_dst_and_mean`),
+``SAGEConv``,
+``GCNConv``, ``GATConv`` and ``GNN`` (dropout before every layer but the
+first, ELU between GAT layers and ReLU between the others, float32
+logits).  The fanout reduce is kernel K4 (``ops/fanout.py``), the
+direct-extract dst gather kernel K1 (``ops/gather.py``), GCN's pick
+multiplicity kernel K7 (``ops/degree.py``) and GAT's edge-softmax
+aggregate kernel K5 (``ops/attend.py``).  ``PinSAGEConv`` and ``MLPConv``
+are ROADMAP open item 9.
 """
 
 from __future__ import annotations
@@ -17,9 +20,20 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
+from ..ops.attend import PER_HEAD, SHARED, gat_attend
+from ..ops.degree import pick_multiplicity
 from ..ops.fanout import fanout_reduce, prefix_fanout_reduce
 from ..ops.gather import gather_rows
 from ..types import Block
+
+
+def _take_dst(block: Block, h_src: torch.Tensor) -> torch.Tensor:
+    """The dst rows of a block: the prefix of ``h_src`` (a local-id block)
+    or a gather by global id with zero rows for EMPTY (a direct-extract
+    block, K1)."""
+    if block.dst_ids is None:
+        return h_src[: block.dst_cap]
+    return gather_rows(h_src, block.dst_ids)
 
 
 def _dst_and_mean(block: Block, h_src: torch.Tensor, weights=None):
@@ -31,18 +45,26 @@ def _dst_and_mean(block: Block, h_src: torch.Tensor, weights=None):
     if block.dst_ids is None:
         h_dst, s, denom = prefix_fanout_reduce(h_src, block.neigh, weights)
     else:
-        h_dst = gather_rows(h_src, block.dst_ids)
+        h_dst = _take_dst(block, h_src)
         s, denom = fanout_reduce(h_src, block.neigh, weights)
     return h_dst, s / torch.clamp(denom, min=1e-9)
 
 
 def _lecun_normal_(w: torch.Tensor, fan_in: int, generator: torch.Generator):
-    """flax's default Dense kernel init: variance_scaling(1, fan_in,
+    """flax's ``lecun_normal``: variance_scaling(1, fan_in,
     truncated_normal), a normal truncated at two standard deviations whose
     spread is corrected back to ``1/sqrt(fan_in)``."""
     std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
     nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std,
                           generator=generator)
+
+
+def _glorot_uniform_(w: torch.Tensor, fan_in: int, fan_out: int,
+                     generator: torch.Generator):
+    """flax's ``glorot_uniform``: uniform in ``+-sqrt(6 / (fan_in +
+    fan_out))``."""
+    limit = math.sqrt(6.0 / (fan_in + fan_out))
+    nn.init.uniform_(w, -limit, limit, generator=generator)
 
 
 class Dense(nn.Module):
@@ -79,6 +101,81 @@ class SAGEConv(nn.Module):
         return self.fc_self(h_dst) + self.fc_neigh(h_neigh)
 
 
+class GCNConv(nn.Module):
+    """Graph convolution with the symmetric norm over the sampled block
+    (DGL ``GraphConv(norm='both')``): ``b + deg_dst^-1/2 sum_k
+    cnt_k^-1/2 h_k W``, where ``cnt_k`` is the multiplicity of pick k's id
+    in the block (K7) and rides K4's per-pick weights.  The transform runs
+    first when it narrows the rows (``in > out``, the logits), else after
+    the aggregate.  No activation inside: ``GNN`` applies it."""
+
+    def __init__(self, in_dim: int, out_dim: int):
+        super().__init__()
+        self.fc = Dense(in_dim, out_dim, bias=False)
+        self.bias = nn.Parameter(torch.zeros(out_dim))
+
+    def reset_parameters(self, generator: torch.Generator):
+        with torch.no_grad():
+            _lecun_normal_(self.fc.weight, self.fc.in_features, generator)
+            self.bias.zero_()
+
+    def forward(self, block: Block, h_src: torch.Tensor) -> torch.Tensor:
+        neigh, n = block.neigh, h_src.shape[0]
+        cnt = pick_multiplicity(neigh, n)
+        w = torch.rsqrt(torch.clamp(cnt.to(torch.float32), min=1.0))
+        in_deg = ((neigh >= 0) & (neigh < n)).sum(1).to(torch.float32)
+        if h_src.shape[1] > self.bias.shape[0]:
+            agg, _ = fanout_reduce(self.fc(h_src), neigh, w)
+        else:
+            agg, _ = fanout_reduce(h_src, neigh, w)
+            agg = self.fc(agg)
+        agg = agg * (1.0 / torch.sqrt(torch.clamp(in_deg, min=1.0)))[:, None]
+        return agg + self.bias
+
+
+class GATConv(nn.Module):
+    """Graph attention (DGL ``GATConv``) over a block's picks.  The score
+    projections fold into the kernel (``wl = kernel . attn_l`` per head, so
+    ``el_dst = h_dst @ wl``), and the edge softmax and weighted sum are one
+    pass of K5.  When ``in > H*d`` the table is transformed first and K5
+    attends per head over its slices; otherwise K5 aggregates the
+    input-width rows for every head (shared mode) and the transform runs
+    over the dst rows only.  The JAX package's contraction and per-pick
+    forms of that second case, and ``gat_select_path`` choosing among
+    them, shape the same function for the TPU; the port has K5's one form
+    (ROADMAP section 3).  Output ``(D, H*d)``, head-major."""
+
+    def __init__(self, in_dim: int, out_dim: int, num_heads: int = 1):
+        super().__init__()
+        self.num_heads, self.out_dim = num_heads, out_dim
+        self.kernel = nn.Parameter(torch.empty(in_dim, num_heads, out_dim))
+        self.attn_l = nn.Parameter(torch.empty(num_heads, out_dim))
+        self.attn_r = nn.Parameter(torch.empty(num_heads, out_dim))
+
+    def reset_parameters(self, generator: torch.Generator):
+        in_dim, h, d = self.kernel.shape
+        with torch.no_grad():
+            # flax's lecun_normal over (in, H, d) takes fan_in = H * in
+            _lecun_normal_(self.kernel, h * in_dim, generator)
+            _glorot_uniform_(self.attn_l, h, d, generator)
+            _glorot_uniform_(self.attn_r, h, d, generator)
+
+    def forward(self, block: Block, h_src: torch.Tensor) -> torch.Tensor:
+        h, d = self.num_heads, self.out_dim
+        in_dim = h_src.shape[1]
+        wl = torch.einsum("ihd,hd->ih", self.kernel, self.attn_l)
+        el_dst = _take_dst(block, h_src) @ wl
+        if in_dim > h * d:
+            feat = h_src @ self.kernel.reshape(in_dim, h * d)
+            out = gat_attend(feat, block.neigh, el_dst,
+                             self.attn_r.contiguous(), PER_HEAD)
+            return out.reshape(block.dst_cap, h * d)
+        wr = torch.einsum("ihd,hd->ih", self.kernel, self.attn_r)
+        agg = gat_attend(h_src, block.neigh, el_dst, wr.contiguous(), SHARED)
+        out = torch.einsum("bhi,ihd->bhd", agg, self.kernel)
+        return out.reshape(block.dst_cap, h * d)
+
+
 def apply_dropout(h: torch.Tensor, p: float, generator: torch.Generator):
     """flax ``nn.Dropout``: keep with probability ``1 - p`` and scale by
     ``1 / (1 - p)``; the mask comes from ``generator``."""
@@ -90,17 +187,34 @@ def apply_dropout(h: torch.Tensor, p: float, generator: torch.Generator):
     return torch.where(keep, h / (1.0 - p), torch.zeros((), device=h.device))
 
 
+_CONVS = {"graphsage": SAGEConv, "gcn": GCNConv, "gat": GATConv}
+
+
 class GNN(nn.Module):
-    """Multi-layer GraphSAGE over blocks ordered outermost first."""
+    """A multi-layer GNN of one convolution over blocks ordered outermost
+    first.  GAT puts ``num_heads`` heads of ``hidden_dim // num_heads`` on
+    the hidden layers and one head on the logits."""
 
     def __init__(self, in_dim: int, hidden_dim: int, out_dim: int,
-                 num_layers: int, dropout: float = 0.5):
+                 num_layers: int, dropout: float = 0.5,
+                 conv: str = "graphsage", num_heads: int = 1):
         super().__init__()
-        dims = [in_dim] + [hidden_dim] * (num_layers - 1) + [out_dim]
-        self.layers = nn.ModuleList(
-            SAGEConv(dims[i], dims[i + 1]) for i in range(num_layers)
-        )
+        layers, width = [], in_dim
+        for i in range(num_layers):
+            last = i == num_layers - 1
+            if conv == "gat":
+                heads = 1 if last else num_heads
+                dim = out_dim if last else hidden_dim // max(num_heads, 1)
+                layers.append(GATConv(width, dim, heads))
+                width = heads * dim
+            else:
+                dim = out_dim if last else hidden_dim
+                layers.append(_CONVS[conv](width, dim))
+                width = dim
+        self.layers = nn.ModuleList(layers)
         self.dropout = dropout
+        self.activation = (nn.functional.elu if conv == "gat"
+                           else torch.relu)
 
     def reset_parameters(self, generator: torch.Generator):
         for layer in self.layers:
@@ -116,7 +230,7 @@ class GNN(nn.Module):
                 h = apply_dropout(h, self.dropout, generator)
             h = layer(blocks[i], h)
             if i != last:
-                h = torch.relu(h)
+                h = self.activation(h)
         return h.float()
 
 
@@ -124,12 +238,13 @@ def build_model(config, feat_dim: int, num_class: int,
                 generator: Optional[torch.Generator] = None) -> GNN:
     """The config's model with flax-style initial weights drawn from
     ``generator`` (a CPU generator; move the model to its device after)."""
-    if config.model != "graphsage":
+    if config.model not in _CONVS:
         raise NotImplementedError(
             f"model {config.model!r}: ROADMAP open item 9 (model zoo)"
         )
     model = GNN(feat_dim, config.num_hidden, num_class, config.num_layer,
-                dropout=config.dropout)
+                dropout=config.dropout, conv=config.model,
+                num_heads=config.num_head)
     if generator is None:
         generator = torch.Generator().manual_seed(config.seed)
     model.reset_parameters(generator)

@@ -34,6 +34,7 @@ NVCC_FLAGS = [
 ]
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_F = ctypes.c_float
 # the C entry points of each source, with their argument types
 SIGNATURES = {
     "gather": {
@@ -50,6 +51,13 @@ SIGNATURES = {
     "unique": {
         "xg_unique_seeded": [_P, _LL, _P, _LL, _P, _LL, _LL, _P, _LL, _LL,
                              _P, _P, _P, _P, _P],
+    },
+    "degree": {
+        "xg_pick_multiplicity": [_P, _P, _P, _LL, _LL, _P],
+    },
+    "attend": {
+        "xg_attend_fwd": [_P] * 7 + [_LL, _LL, _I, _I, _I, _I, _F, _P],
+        "xg_attend_bwd": [_P] * 12 + [_I, _LL, _LL, _I, _I, _I, _I, _F, _P],
     },
 }
 

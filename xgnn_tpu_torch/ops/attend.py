@@ -1,0 +1,327 @@
+"""K5: GAT's edge-softmax aggregate over a block's picks, with its gradient.
+
+The port of ``GATConv._online_attend`` of ``xgnn_tpu/models/gnn.py``
+(with the score and payload functions of its aggregate-first and
+transform-first paths).  For dst row ``b``, head ``h`` and its valid picks
+``k`` (a pick is valid when it lies in ``[0, N)``; EMPTY is not):
+
+- ``pre_k = el_dst[b, h] + score_h(table[neigh[b, k]])`` and ``e_k =
+  leaky_relu(pre_k, 0.2)``;
+- ``out[b, h] = sum_k exp(e_k - m) payload_h(row_k) / max(s, 1e-9)`` with
+  ``m = max_k e_k`` and ``s = sum_k exp(e_k - m)``: the exact softmax over
+  the valid picks; a row with no valid pick gives zeros.
+
+Two modes, as the JAX paths shape the table:
+
+- ``"shared"`` (aggregate first): ``proj`` is ``wr`` ``(W, H)``; ``score_h
+  = row . wr[:, h]`` and every head's payload is the whole W-wide row, so
+  ``out`` is ``(D, H, W)``.
+- ``"per_head"`` (transform first): the table is ``h_src @ kernel``, ``(N,
+  H*d)``, and ``proj`` is ``attn_r`` ``(H, d)``; head ``h`` scores its slice
+  ``row[h*d:(h+1)*d] . attn_r[h]`` and its payload is that slice, so ``out``
+  is ``(D, H, d)``.
+
+The gradient is the exact softmax gradient (the running max carries none,
+as in the JAX package): with ``a_k = exp(e_k - m) / s``, ``g_e_k = a_k
+(g_out . payload_k - g_out . out)`` and ``g_pre_k = g_e_k leaky'(pre_k)``;
+``g_el_dst`` sums ``g_pre_k`` over the picks, ``g_proj`` sums ``g_pre_k
+row_k`` over every pick of the block, and the table's row ``r`` gets, over
+its picks, ``a_k g_out[b, h]`` on the payload and ``g_pre_k proj[:, h]``
+through the score.
+
+The CUDA kernels are ``csrc/attend.cu``; the table's gradient is summed by
+src row with ``csrc/fanout.cu``'s segmented backward (K4's), over one
+gradient row per pick.  :func:`attend_forward_plain` and
+:func:`attend_backward_plain` are the plain PyTorch versions, which the
+wrappers take only for tensors on the CPU.  Launches are counted as
+``attend_fwd`` and ``attend_bwd``, one each per call of the forward and of
+the backward.  The backward also runs when the table needs no gradient
+(the feature table at layer 0), for ``g_el_dst`` and ``g_proj``.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from . import _build
+from .fanout import _ptr, _scratch_len
+
+SHARED, PER_HEAD = "shared", "per_head"
+NEGATIVE_SLOPE = 0.2
+# the kernels' limits, a mirror of fits() in csrc/attend.cu (the source),
+# kept here so that the CPU path refuses the same shapes: at most MAX_HEADS
+# heads, a table at most MAX_WIDTH wide and, in shared mode, at most
+# MAX_ROW floats of an output row with H rounded up to a power of two
+MAX_HEADS = 8
+MAX_ROW = 2048
+MAX_WIDTH = 512
+# blocks of the backward's row pass (fixed for a given D, so its sums of
+# g_proj run in the same order on every call)
+_BWD_WARPS, _BWD_MAX_BLOCKS = 8, 132 * 8
+
+_FWD, _BWD = "attend_fwd", "attend_bwd"
+
+
+def _geometry(table, proj, mode):
+    """``(H, W')``: heads and payload width."""
+    if mode == SHARED:
+        return proj.shape[1], table.shape[1]
+    h = proj.shape[0]
+    return h, table.shape[1] // max(h, 1)
+
+
+def _score(rows, proj, mode, h):
+    if mode == SHARED:
+        return rows @ proj
+    return (rows.reshape(rows.shape[0], h, -1) * proj).sum(-1)
+
+
+def _payload(rows, mode, h):
+    if mode == SHARED:
+        return rows[:, None, :]
+    return rows.reshape(rows.shape[0], h, -1)
+
+
+def _leaky(x):
+    return torch.where(x >= 0, x, NEGATIVE_SLOPE * x)
+
+
+def _pick_rows(table, col):
+    valid = (col >= 0) & (col < table.shape[0])
+    return valid, table[torch.where(valid, col, 0)]
+
+
+def attend_forward_plain(table, neigh, el_dst, proj, mode):
+    """K passes of the JAX online softmax.  Returns ``(out (D, H, W'), m,
+    s)``, with ``m`` 0 for a row without a valid pick."""
+    h, wp = _geometry(table, proj, mode)
+    d, fanout = neigh.shape
+    dev = table.device
+    m = torch.full((d, h), -torch.inf, dtype=torch.float32, device=dev)
+    s = torch.zeros((d, h), dtype=torch.float32, device=dev)
+    acc = torch.zeros((d, h, wp), dtype=torch.float32, device=dev)
+    for k in range(fanout):
+        valid, rows = _pick_rows(table, neigh[:, k])
+        e = _leaky(el_dst + _score(rows, proj, mode, h))
+        e = torch.where(valid[:, None], e, -torch.inf)
+        m_new = torch.maximum(m, e)
+        m_safe = torch.where(torch.isfinite(m_new), m_new, 0.0)
+        scale = torch.exp(m - m_safe)
+        w = torch.exp(e - m_safe)
+        s = s * scale + w
+        acc = acc * scale[:, :, None] + _payload(rows, mode, h) * w[:, :, None]
+        m = m_new
+    out = acc / torch.clamp(s, min=1e-9)[:, :, None]
+    return out, torch.where(torch.isfinite(m), m, 0.0), s
+
+
+def attend_backward_plain(g_out, table, neigh, el_dst, proj, out, m, s, mode,
+                          need_table: bool):
+    """``(g_table or None, g_el_dst, g_proj)`` pass by pass over the picks,
+    and the table's gradient rows added by ``index_add_`` in pick order."""
+    h, _ = _geometry(table, proj, mode)
+    d, fanout = neigh.shape
+    dot = (g_out * out).sum(-1)
+    den = torch.clamp(s, min=1e-9)
+    g_el = torch.zeros_like(el_dst)
+    g_proj = torch.zeros_like(proj)
+    per_pick = []
+    for k in range(fanout):
+        valid, rows = _pick_rows(table, neigh[:, k])
+        pre = el_dst + _score(rows, proj, mode, h)
+        a = torch.where(valid[:, None], torch.exp(_leaky(pre) - m) / den, 0.0)
+        g_a = (g_out * _payload(rows, mode, h)).sum(-1)
+        g_e = a * (g_a - dot)
+        g_pre = torch.where(pre >= 0, g_e, NEGATIVE_SLOPE * g_e)
+        g_el = g_el + g_pre
+        if mode == SHARED:
+            g_proj = g_proj + rows.T @ g_pre
+        else:
+            g_proj = g_proj + (g_pre[:, :, None]
+                               * rows.reshape(d, h, -1)).sum(0)
+        if need_table:
+            if mode == SHARED:
+                v = (a[:, :, None] * g_out).sum(1) + g_pre @ proj.T
+            else:
+                v = (a[:, :, None] * g_out
+                     + g_pre[:, :, None] * proj).reshape(d, -1)
+            per_pick.append(torch.where(valid[:, None], v, 0.0))
+    g_table = None
+    if need_table:
+        flat = neigh.reshape(-1)
+        valid = (flat >= 0) & (flat < table.shape[0])
+        rows_v = torch.stack(per_pick, 1).reshape(d * fanout, -1)
+        g_table = torch.zeros_like(table)
+        g_table.index_add_(0, torch.where(valid, flat, 0), rows_v)
+    return g_table, g_el, g_proj
+
+
+def _check(table, neigh, el_dst, proj, mode):
+    if mode not in (SHARED, PER_HEAD):
+        raise ValueError(f"gat_attend: mode must be {SHARED!r} or "
+                         f"{PER_HEAD!r}, got {mode!r}")
+    for name, t, dim in (("table", table, 2), ("el_dst", el_dst, 2),
+                         ("proj", proj, 2)):
+        if t.dim() != dim or t.dtype != torch.float32:
+            raise ValueError(f"gat_attend: {name} must be {dim}-D float32, "
+                             f"got {t.dtype} {tuple(t.shape)}")
+    if neigh.dim() != 2 or neigh.dtype != torch.int32:
+        raise ValueError(f"gat_attend: neigh must be 2-D int32, got "
+                         f"{neigh.dtype} {tuple(neigh.shape)}")
+    n, width = table.shape
+    d = neigh.shape[0]
+    h, wp = _geometry(table, proj, mode)
+    if el_dst.shape != (d, h):
+        raise ValueError(f"gat_attend: el_dst {tuple(el_dst.shape)} for "
+                         f"{d} dst rows and {h} heads")
+    want = (width, h) if mode == SHARED else (h, wp)
+    if h < 1 or proj.shape != want or (mode == PER_HEAD and h * wp != width):
+        raise ValueError(f"gat_attend: proj {tuple(proj.shape)} does not fit "
+                         f"a table {width} wide in mode {mode!r}")
+    tensors = (table, neigh, el_dst, proj)
+    if any(t.device != table.device for t in tensors):
+        raise ValueError("gat_attend: tensors on different devices")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("gat_attend: tensors must be contiguous")
+    if table.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"gat_attend: no kernel for {table.device}")
+    h_pow2 = 1 << max(h - 1, 0).bit_length()
+    if (h > MAX_HEADS or width > MAX_WIDTH
+            or (mode == SHARED and h_pow2 * wp > MAX_ROW)):
+        raise NotImplementedError(
+            f"gat_attend: {h} heads of {wp} floats from a table {width} "
+            f"wide; the kernel keeps at most {MAX_HEADS} heads, a table "
+            f"{MAX_WIDTH} wide and, in shared mode, {MAX_ROW} floats of an "
+            "output row with the heads rounded up to a power of two "
+            "(ROADMAP K5 wide rows)")
+    if n >= 2**31 - 1 or d * neigh.shape[1] >= 2**31 - 1:
+        raise ValueError("gat_attend: sizes past int32")
+
+
+def attend_forward(table: torch.Tensor, neigh: torch.Tensor,
+                   el_dst: torch.Tensor, proj: torch.Tensor, mode: str):
+    """``(out (D, H, W'), m, s)`` of :func:`gat_attend` without its
+    autograd node: the kernel's forward, with the max and sum per row and
+    head that the backward takes."""
+    _check(table, neigh, el_dst, proj, mode)
+    return _forward(table, neigh, el_dst, proj, mode)
+
+
+def _forward(table, neigh, el_dst, proj, mode):
+    if table.device.type == "cpu":
+        return attend_forward_plain(table, neigh, el_dst, proj, mode)
+    lib = _build.load("attend")
+    h, wp = _geometry(table, proj, mode)
+    d, fanout = neigh.shape
+    dev = table.device
+    out = torch.empty((d, h, wp), dtype=torch.float32, device=dev)
+    m = torch.empty((d, h), dtype=torch.float32, device=dev)
+    s = torch.empty((d, h), dtype=torch.float32, device=dev)
+    if d:
+        rc = lib.xg_attend_fwd(
+            table.data_ptr(), neigh.data_ptr(), el_dst.data_ptr(),
+            proj.data_ptr(), out.data_ptr(), m.data_ptr(), s.data_ptr(),
+            table.shape[0], d, fanout, table.shape[1], h,
+            int(mode == SHARED), NEGATIVE_SLOPE, _build.stream_handle(dev),
+        )
+        _build.check(rc, _FWD)
+        _build.LAUNCHES.add(_FWD)
+    return out, m, s
+
+
+def _bwd_blocks(num_dst: int) -> int:
+    """Blocks of the backward's row pass: one partial of ``g_proj`` each."""
+    return max(1, min(-(-num_dst // _BWD_WARPS), _BWD_MAX_BLOCKS))
+
+
+def attend_backward(g_out: torch.Tensor, table: torch.Tensor,
+                    neigh: torch.Tensor, el_dst: torch.Tensor,
+                    proj: torch.Tensor, out: torch.Tensor, m: torch.Tensor,
+                    s: torch.Tensor, mode: str, need_table: bool):
+    """``(g_table or None, g_el_dst, g_proj)`` of :func:`gat_attend`, given
+    ``g_out`` and the forward's ``out``, ``m`` and ``s``."""
+    _check(table, neigh, el_dst, proj, mode)
+    h, wp = _geometry(table, proj, mode)
+    d, fanout = neigh.shape
+    for name, t, shape in (("g_out", g_out, (d, h, wp)),
+                           ("out", out, (d, h, wp)), ("m", m, (d, h)),
+                           ("s", s, (d, h))):
+        if (t.shape != shape or t.dtype != torch.float32
+                or t.device != table.device or not t.is_contiguous()):
+            raise ValueError(f"attend_backward: {name} must be contiguous "
+                             f"float32 {shape} on {table.device}")
+    if table.device.type == "cpu":
+        return attend_backward_plain(g_out, table, neigh, el_dst, proj, out,
+                                     m, s, mode, need_table)
+    lib = _build.load("attend")
+    dev = table.device
+    n, width = table.shape
+    g_el = torch.empty_like(el_dst)
+    g_proj = torch.empty_like(proj)
+    blocks = _bwd_blocks(d)
+    partials = torch.empty((blocks, proj.numel()), dtype=torch.float32,
+                           device=dev)
+    per_pick: Optional[torch.Tensor] = None
+    if need_table:
+        per_pick = torch.empty((d * fanout, width), dtype=torch.float32,
+                               device=dev)
+    stream = _build.stream_handle(dev)
+    rc = lib.xg_attend_bwd(
+        table.data_ptr(), neigh.data_ptr(), el_dst.data_ptr(),
+        proj.data_ptr(), out.data_ptr(), m.data_ptr(), s.data_ptr(),
+        g_out.data_ptr(), g_el.data_ptr(), g_proj.data_ptr(),
+        partials.data_ptr(), _ptr(per_pick), blocks, n, d, fanout, width, h,
+        int(mode == SHARED), NEGATIVE_SLOPE, stream,
+    )
+    _build.check(rc, _BWD)
+    g_table = None
+    if need_table:
+        # the per-pick rows summed by src row: K4's segmented backward over
+        # the picks as (D * K) dst rows of one pick each
+        g_table = torch.empty_like(table)
+        num_picks = d * fanout
+        n_scratch = _scratch_len(n, num_picks)
+        scratch = torch.empty((n_scratch,), dtype=torch.int32, device=dev)
+        rc = _build.load("fanout").xg_fanout_bwd(
+            per_pick.data_ptr(), neigh.data_ptr(), None, None,
+            g_table.data_ptr(), scratch.data_ptr(), n_scratch, n, num_picks,
+            1, width, stream,
+        )
+        _build.check(rc, _BWD)
+    _build.LAUNCHES.add(_BWD)
+    return g_table, g_el, g_proj
+
+
+class _Attend(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, table, neigh, el_dst, proj, mode):
+        out, m, s = _forward(table, neigh, el_dst, proj, mode)
+        ctx.save_for_backward(table, neigh, el_dst, proj, out, m, s)
+        ctx.mode = mode
+        return out
+
+    @staticmethod
+    def backward(ctx, g_out):
+        need_table, _, need_el, need_proj, _ = ctx.needs_input_grad
+        if not (need_table or need_el or need_proj):
+            return None, None, None, None, None
+        table, neigh, el_dst, proj, out, m, s = ctx.saved_tensors
+        g_table, g_el, g_proj = attend_backward(
+            g_out.contiguous(), table, neigh, el_dst, proj, out, m, s,
+            ctx.mode, need_table)
+        return (g_table, None, g_el if need_el else None,
+                g_proj if need_proj else None, None)
+
+
+def gat_attend(table: torch.Tensor, neigh: torch.Tensor,
+               el_dst: torch.Tensor, proj: torch.Tensor,
+               mode: str) -> torch.Tensor:
+    """The normalised edge-softmax aggregate ``(D, H, W')`` of ``neigh``
+    ``(D, K)``'s picks over ``table`` ``(N, W)``, in mode ``"shared"``
+    (``proj`` is ``wr`` ``(W, H)``, ``W' = W``) or ``"per_head"`` (``proj``
+    is ``attn_r`` ``(H, d)``, ``W = H * d``, ``W' = d``)."""
+    _check(table, neigh, el_dst, proj, mode)
+    return _Attend.apply(table, neigh, el_dst, proj, mode)
