@@ -37,19 +37,30 @@ Phases, each fatal on failure:
    layer 0 (no table gradient) and layer 1 (1 and 8 heads each) and at
    layer 2,
    g_table and g_el_dst at rtol/atol 1e-4, g_proj by relative norm 1e-5,
-   bit-equal across two launches.  TF32 is off throughout.
+   bit-equal across two launches.  K8a (with-replacement draws) at the
+   three layers' frontiers, uniform_wr and khop1, exact.  Then PinSAGE's
+   engine is set up (walk W=4, L=3, restart 0.5, 5 neighbours, 2 layers,
+   capacities calibrated from 2 batches): K9 (restart random walk with
+   top-K visit counts) at its two layers' frontiers, exact, with its byte
+   bound and its 32-byte-sector floor; a whole PinSAGE batch through K9
+   and K3 equal to the plain path's; K4 as PinSAGE runs it, with the
+   walk's counts as weights: forward at both layers and backward with the
+   prefix gradient at layer 1, at the same tolerances and bit-equal across
+   two launches.  TF32 is off throughout.
 5. Small reference: on a small graph the kernels' forward logits and loss
    agree with the plain path on the CPU for the same blocks and weights,
-   for GraphSAGE, GCN and GAT at 1 and 8 heads.
+   for GraphSAGE, GCN, GAT at 1 and 8 heads, PinSAGE (its own walk
+   blocks) and MLP.
 6. Main path: GraphSAGE, then GCN 3x256 and GAT 3x256 at 1 and at 8 heads
-   on the same configuration.  Each runs one warm-up epoch, then one
-   counted epoch (25 steps) with the launch counters set to 0 just before
-   it; every kernel of the path must have launched its expected count per
+   on the same configuration, then PinSAGE 2x256 on the walk above, MLP
+   3x256 on the main configuration and GraphSAGE on khop1 sampling.  Each
+   runs one warm-up epoch, then one counted epoch (25 steps) with the
+   launch counters set to 0 just before it; every kernel of the path must have launched its expected count per
    step, and every loss must be finite.  Each path prints its edges
    aggregated per second and its peak device memory.  GraphSAGE then runs
    one unpipelined epoch (per-stage device-inclusive times); every path
-   runs one profiled pipelined epoch (the device's busy time per step and
-   its time by kernel).
+   but graphsage_khop1 runs one profiled pipelined epoch (the device's busy
+   time per step and its time by kernel).
 
 Each kernel is timed twice: ``ms`` back to back (the wrapper's host time
 included, where the host is the slower) and ``device_ms`` with the host
@@ -77,6 +88,9 @@ FEAT_DIM = 128
 NUM_CLASS = 47
 BATCH = 8000
 FANOUT = (15, 10, 5)
+# bench.py's PinSAGE sampling (xgnn_tpu/config.py's walk defaults)
+WALK = dict(num_random_walk=4, random_walk_length=3, restart_prob=0.5)
+NUM_NEIGHBOR = 5
 CAPS = (BATCH, 133376, 1007360, 2449152)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
@@ -141,7 +155,7 @@ def main() -> int:
     from xgnn_tpu_torch.engine import Engine
     from xgnn_tpu_torch.engine.shuffler import Shuffler
     from xgnn_tpu_torch.models import build_model
-    from xgnn_tpu_torch.ops import _build, sampling, unique
+    from xgnn_tpu_torch.ops import _build, random_walk, sampling, unique
     from xgnn_tpu_torch.ops.attend import (
         PER_HEAD,
         SHARED,
@@ -161,7 +175,18 @@ def main() -> int:
         fanout_reduce_plain,
     )
     from xgnn_tpu_torch.ops.gather import gather_rows, gather_rows_plain
-    from xgnn_tpu_torch.ops.sampling import sample_khop0, sample_khop0_plain
+    from xgnn_tpu_torch.ops.random_walk import (
+        sample_random_walk,
+        sample_random_walk_plain,
+    )
+    from xgnn_tpu_torch.ops.sampling import (
+        sample_khop0,
+        sample_khop0_plain,
+        sample_khop1,
+        sample_khop1_plain,
+        sample_uniform_wr,
+        sample_uniform_wr_plain,
+    )
     from xgnn_tpu_torch.ops.unique import (
         unique_seeded_split,
         unique_seeded_split_plain,
@@ -284,6 +309,38 @@ def main() -> int:
                nbytes=frontier.numel() * 4 + rows * 8 + u.numel() * 4
                + picks * 4 + nbr.numel() * 4,
                flops=0, per_step=3)
+        # K8a on the same frontier and uniforms: graphsage_khop1's draw
+        wr = sample_uniform_wr(graph.indptr, graph.indices, frontier, k, u=u)
+        wr_ref = sample_uniform_wr_plain(graph.indptr, graph.indices,
+                                         frontier, k, u=u)
+        k1 = sample_khop1(graph.indptr, graph.indices, frontier, k, u=u)
+        k1_ref = sample_khop1_plain(graph.indptr, graph.indices, frontier, k,
+                                    u=u)
+        torch.cuda.synchronize()
+        assert_close("sample_wr (uniform_wr)", wr, wr_ref, exact=True)
+        assert_close("sample_wr (khop1)", k1, k1_ref, exact=True)
+        live = int((wr != empty).sum())  # k index loads per row of degree > 0
+        for form, fn, plain, out, ref in (
+                ("uniform_wr", sample_uniform_wr, sample_uniform_wr_plain,
+                 wr, wr_ref),
+                ("khop1", sample_khop1, sample_khop1_plain, k1, k1_ref)):
+            record("sample_wr", "xgnn_tpu_torch/csrc/sampling.cu",
+                   "xgnn_tpu/ops/sampling.py:"
+                   + ("98" if form == "uniform_wr" else "130"),
+                   f"{form}, layer {layer}: frontier {frontier.shape[0]} "
+                   f"({rows} valid) x K={k}, {live} draws, "
+                   f"{int((out != empty).sum())} picks kept",
+                   max_err(out, ref), "exact",
+                   lambda: fn(graph.indptr, graph.indices, frontier, k, u=u),
+                   lambda: plain(graph.indptr, graph.indices, frontier, k,
+                                 u=u),
+                   None, None,
+                   # as K2: frontier, indptr pairs, u, one index per draw,
+                   # the output
+                   nbytes=frontier.numel() * 4 + rows * 8 + u.numel() * 4
+                   + live * 4 + out.numel() * 4,
+                   flops=0, per_step=3, path="graphsage_khop1")
+        del wr, wr_ref, k1, k1_ref
         if layer == len(FANOUT) - 1:
             break
         cap = CAPS[layer + 1]
@@ -339,31 +396,38 @@ def main() -> int:
         frontier, num = out[0], torch.clamp(out[1], max=cap)
     del u, nbr, ref, ids, out, frontier, picks, other
 
-    # the whole batch through the plain versions, from the same seed
-    kernels_fns = sampling.sample_khop0, unique.unique_seeded_split
-    sampling.sample_khop0 = sample_khop0_plain
-    unique.unique_seeded_split = (
-        lambda prefix, picks, num_prev, out_cap, num_node=None:
-        unique_seeded_split_plain(prefix, picks, num_prev, out_cap))
-    try:
-        plain_batch = engine.sampler.sample(seeds, n, generator(dev, 7))
-    finally:
-        sampling.sample_khop0, unique.unique_seeded_split = kernels_fns
-    pairs = [(f"block {i} {f}", getattr(kb, f), getattr(pb, f))
-             for i, (kb, pb) in enumerate(zip(batch.blocks,
-                                              plain_batch.blocks))
-             for f in ("neigh", "num_dst", "num_src", "dst_ids")]
-    pairs += [(f, getattr(batch, f), getattr(plain_batch, f))
-              for f in ("input_nodes", "num_input", "overflow")]
-    for what, a, b in pairs:
-        if (a is None) != (b is None) or (a is not None
-                                          and not torch.equal(a, b)):
-            raise AssertionError(f"sampled batch: {what} through the kernels "
-                                 "differs from the plain path")
-    print(f"{tag} sampled batch: {len(pairs)} fields of "
-          f"{len(batch.blocks)} blocks through K2/K3 equal the plain path's",
-          flush=True)
-    del plain_batch
+    def assert_plain_batch(sampler, batch, module, name, plain, kernels_named):
+        """The whole batch sampled again with ``module.name`` and K3 swapped
+        for their plain versions, from the same generator seed, equal to
+        ``batch`` field by field."""
+        kernel_fns = getattr(module, name), unique.unique_seeded_split
+        setattr(module, name, plain)
+        unique.unique_seeded_split = (
+            lambda prefix, picks, num_prev, out_cap, num_node=None:
+            unique_seeded_split_plain(prefix, picks, num_prev, out_cap))
+        try:
+            plain_batch = sampler.sample(seeds, n, generator(dev, 7))
+        finally:
+            setattr(module, name, kernel_fns[0])
+            unique.unique_seeded_split = kernel_fns[1]
+        pairs = [(f"block {i} {f}", getattr(kb, f), getattr(pb, f))
+                 for i, (kb, pb) in enumerate(zip(batch.blocks,
+                                                  plain_batch.blocks))
+                 for f in ("neigh", "weights", "num_dst", "num_src",
+                           "dst_ids")]
+        pairs += [(f, getattr(batch, f), getattr(plain_batch, f))
+                  for f in ("input_nodes", "num_input", "overflow")]
+        for what, a, b in pairs:
+            if (a is None) != (b is None) or (a is not None
+                                              and not torch.equal(a, b)):
+                raise AssertionError(f"sampled batch: {what} through the "
+                                     "kernels differs from the plain path")
+        print(f"{tag} sampled batch: {len(pairs)} fields of "
+              f"{len(batch.blocks)} blocks through {kernels_named} equal the "
+              "plain path's", flush=True)
+
+    assert_plain_batch(engine.sampler, batch, sampling, "sample_khop0",
+                       sample_khop0_plain, "K2/K3")
 
     # K1 on the direct-extract layer's dst ids, and on the same ids with
     # 30% of them EMPTY (a frontier further below its capacity)
@@ -411,7 +475,8 @@ def main() -> int:
         """the table rows the valid picks read, each counted once"""
         return int(torch.unique(nb[valid]).numel())
 
-    def fwd_case(name, h, blk, per_step, weights=None, path="graphsage"):
+    def fwd_case(name, h, blk, per_step, weights=None, path="graphsage",
+                 wname="GCN weights"):
         nb = blk.neigh
         with torch.no_grad():
             s, d = fanout_reduce(h, nb, weights)
@@ -432,7 +497,7 @@ def main() -> int:
                    "xgnn_tpu/models/gnn.py:62",
                    f"{tuple(nb.shape)} picks ({picks} valid, {rows_read} "
                    f"distinct rows) over {tuple(h.shape)} f32"
-                   + ("" if weights is None else ", GCN weights"),
+                   + ("" if weights is None else f", {wname}"),
                    max(max_err(s, s_ref), max_err(d, d_ref)),
                    f"rtol {RTOL}, atol {ATOL}",
                    lambda: fanout_reduce(h, nb, weights),
@@ -449,10 +514,11 @@ def main() -> int:
     fwd_case("fanout_fwd", h1, b1, 3)
     fwd_case("fanout_fwd", h2, b2, 3)
 
-    def bwd_case(h, blk, weights=None, with_dst=True, path="graphsage"):
+    def bwd_case(h, blk, weights=None, with_dst=True, path="graphsage",
+                 wname="GCN weights", per_step=2):
         """K4 backward: the gradient w.r.t. h of the fanout sum, and of the
-        dst prefix h[:D] where ``with_dst`` (SAGE's local-id blocks; GCN's
-        weighted sum has no prefix term)."""
+        dst prefix h[:D] where ``with_dst`` (SAGE's and PinSAGE's local-id
+        blocks; GCN's weighted sum has no prefix term)."""
         nb = blk.neigh
         d, (rows, f) = nb.shape[0], h.shape
         g_sum = torch.randn((d, f), generator=gen, device=dev)
@@ -470,7 +536,7 @@ def main() -> int:
         picks = int(valid.sum())
         longest = int(torch.bincount(nb[valid].long(), minlength=rows).max())
         print(f"{tag} fanout_bwd {tuple(nb.shape)} into ({rows}, {f})"
-              f"{'' if weights is None else ' with GCN weights'}: longest "
+              f"{'' if weights is None else ' with ' + wname}: longest "
               f"segment {longest} picks of one src row; two launches equal "
               "bit for bit", flush=True)
         hl = h.clone().requires_grad_(True)
@@ -484,8 +550,8 @@ def main() -> int:
         record("fanout_bwd", "xgnn_tpu_torch/csrc/fanout.cu",
                "xgnn_tpu/models/gnn.py:62",
                f"{tuple(nb.shape)} picks ({picks} valid) into ({rows}, {f}) "
-               "f32 " + ("with the prefix gradient" if with_dst
-                         else "with GCN weights, no prefix")
+               "f32 " + ("" if weights is None else f"with {wname}, ")
+               + ("with the prefix gradient" if with_dst else "no prefix")
                + f"; longest segment {longest}",
                max_err(gh, ref),
                f"rtol {RTOL}, atol {ATOL}; bit-equal across launches",
@@ -502,7 +568,7 @@ def main() -> int:
                nbytes=(2 if with_dst else 1) * d * f * 4
                + nb.numel() * (4 if weights is None else 8) + rows * f * 4,
                flops=picks * f + (d * f if with_dst else 0),
-               per_step=2, path=path)
+               per_step=per_step, path=path)
         kernels[-1]["longest_segment"] = longest
 
     bwd_case(h1, b1)
@@ -731,31 +797,156 @@ def main() -> int:
     torch.cuda.empty_cache()
     del h1, h2, batch, b0, b1, b2
 
+    # PinSAGE: bench.py's walk, capacities calibrated from 2 batches
+    pin_cfg = dataclasses.replace(
+        cfg, model="pinsage", sample_type="random_walk",
+        num_neighbor=NUM_NEIGHBOR, num_layer_pinsage=2,
+        num_random_walk=WALK["num_random_walk"],
+        random_walk_length=WALK["random_walk_length"],
+        random_walk_restart_prob=WALK["restart_prob"],
+        frontier_capacities=None, calibration_batches=2,
+    )
+    t0 = time.perf_counter()
+    pin_engine = Engine(ds, pin_cfg).init()
+    torch.cuda.synchronize()
+    pin_caps = pin_engine.sampler.capacities
+    print(f"{tag} pinsage engine init (2 calibration batches): "
+          f"{time.perf_counter() - t0:.3f} s; capacities {pin_caps}",
+          flush=True)
+    num_walk, walk_len = WALK["num_random_walk"], WALK["random_walk_length"]
+    restart = torch.tensor(WALK["restart_prob"], dtype=torch.float32)
+
+    def walk_traffic(frontier, u):
+        """What K9 must move for this frontier and these uniforms: the
+        frontier, the uniforms it reads (not u_restart[0]), an indptr pair
+        for each walker-step from a node and an index for each step from a
+        node of degree > 0, and the output.  Returns those bytes, the same
+        with each random read a 32-byte sector (an indptr pair spans two
+        when v % 8 == 7), and the two step counts."""
+        u_step, u_restart = u
+        ip, ix = graph.indptr, graph.indices
+        seed = frontier[:, None].expand(-1, num_walk)
+        cur, on, live, straddle = seed, 0, 0, 0
+        for step in range(walk_len):
+            if step:
+                cur = torch.where(u_restart[step] < restart, seed, cur)
+            ok = (cur >= 0) & (cur < graph.num_node)
+            node = torch.where(ok, cur, 0)
+            start = ip[node]
+            deg = torch.where(ok, ip[node + 1] - start, 0)
+            off = torch.minimum(torch.floor(u_step[step] * deg).int(),
+                                torch.clamp(deg - 1, min=0))
+            nxt = torch.where(deg > 0, ix[torch.where(deg > 0, start + off,
+                                                      0)], empty)
+            on += int(ok.sum())
+            live += int((deg > 0).sum())
+            straddle += int((ok & (node % 8 == 7)).sum())
+            cur = torch.where(nxt == empty, seed, nxt)
+        b = frontier.numel()
+        fixed = (b * 4 + (2 * walk_len - 1) * b * num_walk * 4
+                 + b * NUM_NEIGHBOR * 8)
+        return (fixed + on * 8 + live * 4,
+                fixed + 32 * (on + straddle + live), on, live)
+
+    def walk_case(layer, frontier):
+        b = frontier.shape[0]
+        u = random_walk.draw_uniforms(num_walk, walk_len, b, gen, dev)
+        got = sample_random_walk(graph.indptr, graph.indices, frontier,
+                                 NUM_NEIGHBOR, u=u, **WALK)
+        ref = sample_random_walk_plain(graph.indptr, graph.indices, frontier,
+                                       NUM_NEIGHBOR, u=u, **WALK)
+        torch.cuda.synchronize()
+        assert_close("random_walk neigh", got[0], ref[0], exact=True)
+        assert_close("random_walk weights", got[1], ref[1], exact=True)
+        nbytes, sector_bytes, on, live = walk_traffic(frontier, u)
+        rows, m = int((frontier != empty).sum()), num_walk * walk_len
+        record("random_walk", "xgnn_tpu_torch/csrc/random_walk.cu",
+               "xgnn_tpu/ops/random_walk.py:38",
+               f"layer {layer}: frontier {b} ({rows} valid), W={num_walk} "
+               f"L={walk_len} p={WALK['restart_prob']} K={NUM_NEIGHBOR}; "
+               f"{on} walker-steps from a node, {live} index reads, "
+               f"{int((got[0] != empty).sum())} picks kept",
+               max(max_err(a, r) for a, r in zip(got, ref)), "exact",
+               lambda: sample_random_walk(graph.indptr, graph.indices,
+                                          frontier, NUM_NEIGHBOR, u=u,
+                                          **WALK),
+               lambda: sample_random_walk_plain(graph.indptr, graph.indices,
+                                                frontier, NUM_NEIGHBOR, u=u,
+                                                **WALK),
+               None, None, nbytes=nbytes,
+               # the count and the rank: 2 M^2 integer compares a seed
+               flops=2 * m * m * rows, per_step=2, path="pinsage")
+        kernels[-1]["sector_bound_ms"] = bound_ms(sector_bytes, 0)[0]
+        return got
+
+    # K9 at layer 0 (the seeds), then at the calibrated layer-1 frontier
+    # that K3 makes of its picks, as the sampler walks them
+    nb0, _ = walk_case(0, seeds)
+    f1, n1 = unique_seeded_split(seeds, nb0.reshape(-1),
+                                 torch.full((), n, dtype=torch.int32,
+                                            device=dev),
+                                 pin_caps[1], num_node=graph.num_node)[:2]
+    print(f"{tag} pinsage layer-1 frontier: {int(n1)} unique of capacity "
+          f"{pin_caps[1]}", flush=True)
+    walk_case(1, f1)
+    del nb0, f1, n1
+    pbatch = pin_engine.sampler.sample(seeds, n, generator(dev, 7))
+    assert_plain_batch(pin_engine.sampler, pbatch, random_walk,
+                       "sample_random_walk", sample_random_walk_plain,
+                       "K9/K3")
+    # K4 as PinSAGEConv runs it: the walk's counts as per-pick weights;
+    # forward at both layers, backward with the prefix gradient at layer 1
+    # (layer 0's feature table needs no gradient)
+    pb0, pb1 = pbatch.blocks
+    h_pin = torch.randn((pb0.dst_cap, cfg.num_hidden), generator=gen,
+                        device=dev)
+    fwd_case("fanout_fwd", feat, pb0, 2, weights=pb0.weights, path="pinsage",
+             wname="walk counts")
+    fwd_case("fanout_fwd", h_pin, pb1, 2, weights=pb1.weights,
+             path="pinsage", wname="walk counts")
+    bwd_case(h_pin, pb1, weights=pb1.weights, with_dst=True, path="pinsage",
+             wname="walk counts", per_step=1)
+    del pbatch, pb0, pb1, h_pin
+
     # ---- 5. small reference: kernels on the card vs plain on the CPU -------
     small = make_device_dataset(3000, 12000, 32, 6, seed=1, device=dev)
     scfg = RunConfig(batch_size=64, fanout=(5, 4, 3), num_hidden=16,
                      frontier_capacities=(64, 512, 2048, 3072))
     from xgnn_tpu_torch.sampler import Sampler
 
+    small_seeds = torch.from_numpy(small.train_set[:64]).to(dev)
     sb = Sampler(small.graph, scfg, direct_extract=True).sample(
-        torch.from_numpy(small.train_set[:64]).to(dev), 64, generator(dev, 3))
+        small_seeds, 64, generator(dev, 3))
+    # PinSAGE on its own two walk layers (bench.py's walk)
+    pcfg = RunConfig(batch_size=64, num_hidden=16, model="pinsage",
+                     sample_type="random_walk", num_neighbor=NUM_NEIGHBOR,
+                     num_random_walk=WALK["num_random_walk"],
+                     random_walk_length=WALK["random_walk_length"],
+                     random_walk_restart_prob=WALK["restart_prob"])
+    sbp = Sampler(small.graph, pcfg, direct_extract=True).sample(
+        small_seeds, 64, generator(dev, 3))
     to_cpu = lambda blk: type(blk)(**{
         k: (v.cpu() if isinstance(v, torch.Tensor) else v)
         for k, v in vars(blk).items()
     })
     labels = small.label[sb.output_nodes]
-    # GraphSAGE, then GCN and GAT (1 and 8 heads: per-head and shared K5)
+    # GraphSAGE, then GCN and GAT (1 and 8 heads: per-head and shared K5),
+    # PinSAGE and MLP
     for model_name, heads in (("graphsage", 1), ("gcn", 1), ("gat", 1),
-                              ("gat", 8)):
-        scfg.model, scfg.num_head = model_name, heads
-        model = build_model(scfg, 32, 6)
-        cpu_model = build_model(scfg, 32, 6)
+                              ("gat", 8), ("pinsage", 1), ("mlp", 1)):
+        if model_name == "pinsage":
+            mcfg, mb = pcfg, sbp
+        else:
+            scfg.model, scfg.num_head = model_name, heads
+            mcfg, mb = scfg, sb
+        model = build_model(mcfg, 32, 6)
+        cpu_model = build_model(mcfg, 32, 6)
         model.to(dev)
-        logits = model(sb.blocks, small.feat)
-        ref_logits = cpu_model([to_cpu(b) for b in sb.blocks],
+        logits = model(mb.blocks, small.feat)
+        ref_logits = cpu_model([to_cpu(b) for b in mb.blocks],
                                small.feat.cpu())
-        loss, _ = loss_fn(logits, labels, sb.num_output)
-        ref_loss, _ = loss_fn(ref_logits, labels.cpu(), sb.num_output.cpu())
+        loss, _ = loss_fn(logits, labels, mb.num_output)
+        ref_loss, _ = loss_fn(ref_logits, labels.cpu(), mb.num_output.cpu())
         if not (torch.allclose(logits.cpu(), ref_logits, rtol=1e-4,
                                atol=1e-5)
                 and torch.allclose(loss.cpu(), ref_loss, rtol=1e-5)):
@@ -766,7 +957,7 @@ def main() -> int:
               f"logits {tuple(logits.shape)} max abs diff "
               f"{max_err(logits.cpu(), ref_logits):.3e}, loss "
               f"{loss.item():.6f} vs {ref_loss.item():.6f}", flush=True)
-    del small, sb, model, logits
+    del small, sb, sbp, model, logits
 
     # ---- 6. main path ------------------------------------------------------
     steps = Shuffler(ds.train_set, BATCH).num_local_step
@@ -781,6 +972,17 @@ def main() -> int:
                 "fanout_fwd": 3 * steps, "fanout_bwd": 2 * steps, **sampled},
         # labels and layer 0's el_dst rows; K5's backward at every layer
         "gat1": gat, "gat8": gat,
+        # a walk a layer, one dedup; labels and layer 0's dst rows; the
+        # weighted sum at both layers, the prefix form's backward at layer 1
+        "pinsage": {"random_walk": 2 * steps, "unique_seeded": steps,
+                    "gather_rows": 2 * steps, "fanout_fwd": 2 * steps,
+                    "fanout_bwd": steps},
+        # labels and layer 0's dst rows; no aggregate
+        "mlp": {"gather_rows": 2 * steps, **sampled},
+        "graphsage_khop1": {"sample_wr": 3 * steps,
+                            "unique_seeded": 2 * steps,
+                            "gather_rows": 2 * steps, "fanout_fwd": 3 * steps,
+                            "fanout_bwd": 2 * steps},
     }
     counts_by_path = {}
     mean = lambda v: sum(v) / max(len(v), 1)
@@ -853,29 +1055,35 @@ def main() -> int:
              lambda n: "attend" in n or "proj_reduce" in n),
             ("K7, *hist_kernel* and *gather_kernel*",
              lambda n: "hist_kernel" in n or "gather_kernel" in n),
+            ("K9, *random_walk*", lambda n: "random_walk" in n),
         )
         for what, match in groups:
             us = sum(t for name, t in by_name.items() if match(name.lower()))
             print(f"{tag}   device ms per step in {what}: "
                   f"{us / 1e3 / steps:.3f}", flush=True)
 
-    # edges aggregated per step, counted from the block masks (bench.py);
-    # every path samples with the same configuration
-    counts_e = []
-    for i, (seeds, n) in enumerate(Shuffler(ds.train_set, BATCH, seed=43)
-                                   .epoch_batches(1)):
-        if i >= 5:
-            break
-        b = engine.sampler.sample(torch.from_numpy(seeds).to(dev), n,
-                                  generator(dev, 900 + i))
-        counts_e.append(sum(int(blk.mask.sum()) for blk in b.blocks))
-    edges_per_step = sum(counts_e) / len(counts_e)
+    def edges_of(sampler):
+        """edges aggregated per step, counted from the block masks
+        (bench.py), the mean of 5 batches"""
+        counts_e = []
+        for i, (s_ids, s_n) in enumerate(Shuffler(ds.train_set, BATCH,
+                                                  seed=43).epoch_batches(1)):
+            if i >= 5:
+                break
+            b = sampler.sample(torch.from_numpy(s_ids).to(dev), s_n,
+                               generator(dev, 900 + i))
+            counts_e.append(sum(int(blk.mask.sum()) for blk in b.blocks))
+        return sum(counts_e) / len(counts_e)
+
+    # graphsage, gcn, gat1, gat8 and mlp sample with the same configuration
+    edges_per_step = edges_of(engine.sampler)
     print(f"{tag} edges aggregated per step {edges_per_step:.1f}",
           flush=True)
 
-    def rate_and_memory(path, r):
+    def rate_and_memory(path, r, per_step=None):
+        per_step = edges_per_step if per_step is None else per_step
         print(f"{tag} {path}: edges/s over the counted epoch "
-              f"{edges_per_step * steps / r['time']:.1f}; peak device "
+              f"{per_step * steps / r['time']:.1f}; peak device "
               f"memory {torch.cuda.max_memory_allocated(dev) / 2**30:.3f} "
               "GiB", flush=True)
 
@@ -908,6 +1116,34 @@ def main() -> int:
         r1 = run_epochs(path, eng)
         rate_and_memory(path, r1)
         profiled_epoch(path, eng, 2)
+        del eng
+
+    # PinSAGE 2x256 on bench.py's walk (its engine set up in phase 4)
+    pin_edges = edges_of(pin_engine.sampler)
+    print(f"{tag} pinsage edges aggregated per step {pin_edges:.1f}",
+          flush=True)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    r1 = run_epochs("pinsage", pin_engine)
+    rate_and_memory("pinsage", r1, pin_edges)
+    profiled_epoch("pinsage", pin_engine, 2)
+    del pin_engine
+
+    # MLP 3x256 (its sampled edges counted as bench.py counts them, though
+    # it aggregates none) and GraphSAGE on khop1, the main configuration
+    for path, change in (("mlp", dict(model="mlp")),
+                         ("graphsage_khop1", dict(sample_type="khop1"))):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        eng = Engine(ds, dataclasses.replace(cfg, **change)).init()
+        per_step = edges_per_step if path == "mlp" else edges_of(eng.sampler)
+        if path != "mlp":
+            print(f"{tag} {path} edges aggregated per step {per_step:.1f}",
+                  flush=True)
+        r1 = run_epochs(path, eng)
+        rate_and_memory(path, r1, per_step)
+        if path == "mlp":
+            profiled_epoch(path, eng, 2)
         del eng
 
     for k in kernels:

@@ -262,6 +262,103 @@ def test_khop_staged_tiles_equal_plain(dev, fanout, rows, aligned):
                        ref)
 
 
+@pytest.mark.parametrize("fanout", [1, 5, 10, 15, 64])
+@pytest.mark.parametrize("dedup", [False, True])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_with_replacement_kernels_equal_plain(dev, fanout, dedup, aligned):
+    """K8a (uniform_wr, and khop1 with dedup) over rows of degree 0, small
+    degrees, hubs, EMPTY and ids outside the graph; fanouts 5, 10 and 15
+    take the staged kernel (u off 16-byte alignment: word copies), others
+    the general one."""
+    from xgnn_tpu_torch.ops import _build
+    from xgnn_tpu_torch.ops.sampling import (
+        sample_khop1,
+        sample_khop1_plain,
+        sample_uniform_wr,
+        sample_uniform_wr_plain,
+    )
+
+    kernel, plain = ((sample_khop1, sample_khop1_plain) if dedup
+                     else (sample_uniform_wr, sample_uniform_wr_plain))
+    indptr, indices, num_node = _hub_csr(dev, fanout, fanout + dedup)
+    g = _gen(dev, fanout)
+    b = 3 * 256 + 77
+    frontier = torch.randint(0, num_node, (b,), generator=g, device=dev,
+                             dtype=torch.int32)
+    frontier[-5:] = torch.arange(num_node - 5, num_node, device=dev,
+                                 dtype=torch.int32)  # the hubs
+    frontier[::9] = EMPTY
+    frontier[1::11] = num_node + 3  # outside the contract: degree 0
+    _build.LAUNCHES.reset()
+    for seed in range(10):
+        flat = torch.rand((b * fanout + 1,), generator=_gen(dev, 100 + seed),
+                          device=dev)
+        u = (flat[:-1] if aligned else flat[1:]).view(b, fanout)
+        out = kernel(indptr, indices, frontier, fanout, u=u)
+        assert torch.equal(out, plain(indptr, indices, frontier, fanout,
+                                      u=u)), f"seed {seed}"
+    out = kernel(indptr, indices, frontier, fanout, _gen(dev, 5))
+    assert torch.equal(out, plain(indptr, indices, frontier, fanout,
+                                  _gen(dev, 5)))
+    assert _build.LAUNCHES.snapshot() == {"sample_wr": 11}
+    assert kernel(indptr, indices, frontier[:0], fanout).shape == (0, fanout)
+    with pytest.raises(ValueError):
+        kernel(indptr, indices, frontier, 65)
+
+
+@pytest.mark.parametrize("w,l,k,p", [
+    (4, 3, 5, 0.5),  # the bench's walk: the kernel built for it
+    (2, 5, 3, 0.0),
+    (3, 4, 12, 1.0),
+    (8, 8, 64, 0.3),  # the most visits the kernel keeps
+    (1, 1, 1, 0.7),
+])
+def test_random_walk_kernel_equals_plain(dev, w, l, k, p):
+    """K9 over a graph of few ids (repeated visits, ties in count), with
+    EMPTY seeds, seeds of degree 0, hubs and ids outside the graph."""
+    from xgnn_tpu_torch.ops import _build
+    from xgnn_tpu_torch.ops.random_walk import (
+        sample_random_walk,
+        sample_random_walk_plain,
+    )
+
+    rng = np.random.default_rng(w * 10 + l)
+    degrees = np.concatenate([rng.choice([0, 1, 2, 3, 8, 40], size=500),
+                              [70_000, 1 << 17]])
+    indptr = np.concatenate([[0], np.cumsum(degrees)]).astype(np.int32)
+    indices = rng.integers(0, 30, int(indptr[-1])).astype(np.int32)
+    num_node = len(degrees)
+    indices[::97] = num_node - 1  # walkers reach the hubs
+    indptr, indices = (torch.from_numpy(a).to(dev) for a in (indptr, indices))
+    b = 3 * 64 + 17  # not a multiple of the block
+    frontier = torch.randint(0, num_node, (b,), generator=_gen(dev, k),
+                             device=dev, dtype=torch.int32)
+    frontier[::7] = EMPTY
+    frontier[1::13] = num_node + 5
+    frontier[2] = int(np.flatnonzero(degrees == 0)[0])
+    frontier[-2:] = torch.tensor([num_node - 2, num_node - 1])
+    kw = dict(num_random_walk=w, random_walk_length=l, restart_prob=p)
+    _build.LAUNCHES.reset()
+    for seed in range(10):
+        g = _gen(dev, 200 + seed)
+        u = (torch.rand((l, b, w), generator=g, device=dev),
+             torch.rand((l, b, w), generator=g, device=dev))
+        got = sample_random_walk(indptr, indices, frontier, k, u=u, **kw)
+        want = sample_random_walk_plain(indptr, indices, frontier, k, u=u,
+                                        **kw)
+        for a, c in zip(got, want):
+            assert torch.equal(a, c), f"seed {seed}"
+    got = sample_random_walk(indptr, indices, frontier, k, _gen(dev, 3), **kw)
+    want = sample_random_walk_plain(indptr, indices, frontier, k,
+                                    _gen(dev, 3), **kw)
+    assert all(torch.equal(a, c) for a, c in zip(got, want))
+    assert _build.LAUNCHES.snapshot() == {"random_walk": 11}
+    assert float(got[1].sum()) > 0
+    neigh, weights = sample_random_walk(indptr, indices, frontier[:0], k,
+                                        **kw)
+    assert neigh.shape == weights.shape == (0, k)
+
+
 @pytest.mark.parametrize("case", ["dups", "num_prev_0", "all_empty",
                                   "overflow", "tiny_cap"])
 def test_unique_kernel_equals_plain(dev, case):
@@ -769,7 +866,8 @@ def test_attend_refuses_past_its_registers_and_across_devices(dev):
 
 
 # ------------------------------------------------------- GCN and GAT steps
-@pytest.mark.parametrize("model,heads", [("gcn", 1), ("gat", 1), ("gat", 8)])
+@pytest.mark.parametrize("model,heads", [("gcn", 1), ("gat", 1), ("gat", 8),
+                                         ("pinsage", 1), ("mlp", 1)])
 def test_zoo_step_on_the_card_equals_the_cpu(dev, model, heads):
     """One forward and backward of the GNN on a sampled batch: logits and
     every gradient on the card against the CPU plain path, and the
@@ -783,7 +881,9 @@ def test_zoo_step_on_the_card_equals_the_cpu(dev, model, heads):
     ds = make_device_dataset(5000, 30_000, 32, 6, seed=2, device=dev)
     cfg = RunConfig(batch_size=128, fanout=(6, 4, 3), num_hidden=32,
                     model=model, num_head=heads, dropout=0.0,
-                    frontier_capacities=(128, 896, 3584, 5000))
+                    # PinSAGE: two walk layers at the default capacities
+                    frontier_capacities=None if model == "pinsage"
+                    else (128, 896, 3584, 5000))
     batch = Sampler(ds.graph, cfg, direct_extract=True).sample(
         torch.from_numpy(ds.train_set[:128]).to(dev), 128, generator(dev, 1))
     cpu_blocks = [type(b)(**{k: (v.cpu() if isinstance(v, torch.Tensor)
@@ -807,6 +907,13 @@ def test_zoo_step_on_the_card_equals_the_cpu(dev, model, heads):
     if model == "gcn":
         assert counts == {"pick_multiplicity": 3, "fanout_fwd": 3,
                           "fanout_bwd": 2}
+    elif model == "pinsage":
+        # layer 0's dst rows; the weighted sum at both layers; the prefix
+        # form's backward at layer 1 (the feature table needs no gradient)
+        assert counts == {"gather_rows": 1, "fanout_fwd": 2, "fanout_bwd": 1}
+        assert float(batch.blocks[0].weights.sum()) > 0
+    elif model == "mlp":
+        assert counts == {"gather_rows": 1}
     else:
         assert counts == {"attend_fwd": 3, "attend_bwd": 3, "gather_rows": 1}
 

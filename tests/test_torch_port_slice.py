@@ -20,20 +20,43 @@ def _t(a):
     return torch.from_numpy(np.array(a))
 
 
-def _layer_uniforms(key, frontier_lens, fanouts):
+def _layer_uniforms(key, frontier_lens, fanouts, walk=None):
     """The uniforms the JAX ``_sample_minibatch`` draws for each layer:
-    ``key, k = split(key)``, then ``uniform(k, (frontier_len, K))``."""
+    ``key, k = split(key)``, then ``uniform(k, (frontier_len, K))``, or
+    with ``walk = (num_walk, walk_len)`` the walk's from ``k``."""
     us = []
     for b, k_fan in zip(frontier_lens, fanouts):
         key, k = jax.random.split(key)
-        us.append(_t(jax.random.uniform(k, (b, k_fan))))
+        us.append(_t(jax.random.uniform(k, (b, k_fan))) if walk is None
+                  else _walk_uniforms(k, b, *walk))
     return us
+
+
+def _walk_uniforms(key, num_rows, num_walk, walk_len):
+    """``(u_step, u_restart)`` as ``sample_random_walk`` draws them: at each
+    step ``key, k_step, k_restart = split(key, 3)``, a step draw and, past
+    step 0, a restart draw, each ``(num_rows, num_walk)``; ``u_restart[0]``
+    is never read."""
+    u_step, u_restart = [], []
+    for s in range(walk_len):
+        key, k_step, k_restart = jax.random.split(key, 3)
+        u_step.append(np.asarray(jax.random.uniform(k_step,
+                                                    (num_rows, num_walk))))
+        u_restart.append(
+            np.asarray(jax.random.uniform(k_restart, (num_rows, num_walk)))
+            if s else np.ones((num_rows, num_walk), np.float32))
+    return _t(np.stack(u_step)), _t(np.stack(u_restart))
 
 
 def _assert_same_batch(port, ref):
     assert len(port.blocks) == len(ref.blocks)
     for pb, rb in zip(port.blocks, ref.blocks):
         np.testing.assert_array_equal(pb.neigh.numpy(), np.asarray(rb.neigh))
+        if rb.weights is None:
+            assert pb.weights is None
+        else:
+            np.testing.assert_array_equal(pb.weights.numpy(),
+                                          np.asarray(rb.weights))
         assert int(pb.num_src) == int(rb.num_src)
         assert int(pb.num_dst) == int(rb.num_dst)
         if rb.dst_ids is None:
@@ -79,15 +102,23 @@ def test_sample_minibatch_matches_jax(small_ds, direct, caps):
     assert bool(port.overflow) == (caps is not None)
 
 
-@pytest.mark.parametrize("model,heads", [
-    ("graphsage", 1), ("gcn", 1), ("gat", 1), ("gat", 2),
+@pytest.mark.parametrize("model,heads,sample_type", [
+    pytest.param("graphsage", 1, "khop3", id="graphsage-1"),
+    pytest.param("gcn", 1, "khop3", id="gcn-1"),
+    pytest.param("gat", 1, "khop3", id="gat-1"),
+    pytest.param("gat", 2, "khop3", id="gat-2"),
+    pytest.param("pinsage", 1, "random_walk", id="pinsage-1"),
+    pytest.param("mlp", 1, "khop3", id="mlp-1"),
+    pytest.param("graphsage", 1, "khop1", id="graphsage-1-khop1"),
 ])
-def test_training_trajectory_matches_jax_engine(learn_ds, model, heads):
+def test_training_trajectory_matches_jax_engine(learn_ds, model, heads,
+                                                sample_type):
     """>= 20 steps of the JAX Engine (direct extract, pipeline off) against
     the port's sampler (same uniforms), model (converted initial weights),
-    loss and Adam: blocks equal every step, losses close step by step
-    (rtol/atol 2e-3: float32 sums in other orders, compounded over the
-    steps' updates)."""
+    loss and Adam: blocks (and the walk's weights) equal every step, losses
+    close step by step (rtol/atol 2e-3: float32 sums in other orders,
+    compounded over the steps' updates).  PinSAGE samples two walk layers
+    of 5 picks (W=4, L=3, p=0.5)."""
     from xgnn_tpu import RunConfig as JConfig
     from xgnn_tpu.engine import Engine as JEngine
     from xgnn_tpu.engine.shuffler import Shuffler as JShuffler
@@ -103,7 +134,7 @@ def test_training_trajectory_matches_jax_engine(learn_ds, model, heads):
     fanout = (5, 4, 3)
     common = dict(batch_size=len(ds.train_set) // 21, fanout=fanout,
                   num_layer=3, num_hidden=16, model=model, num_head=heads,
-                  dropout=0.0,
+                  sample_type=sample_type, dropout=0.0,
                   lr=0.01, pipeline=False, gpu_extract=True,
                   cache_percentage=0.0)
     engine = JEngine(ds, JConfig(**common, num_epoch=1)).init()
@@ -117,6 +148,8 @@ def test_training_trajectory_matches_jax_engine(learn_ds, model, heads):
     model.load_state_dict(params_from_flax(params_np))
     opt = Adam(list(model.parameters()), cfg.lr)
 
+    walk = ((cfg.num_random_walk, cfg.random_walk_length)
+            if sample_type == "random_walk" else None)
     shuffler = JShuffler(ds.train_set, cfg.batch_size, seed=cfg.seed + 1)
     sample_base = jax.random.fold_in(engine._sample_key, 0)
     drop_base = jax.random.fold_in(engine._dropout_key, 0)
@@ -132,7 +165,7 @@ def test_training_trajectory_matches_jax_engine(learn_ds, model, heads):
         jax_losses.append(metrics["loss"])
 
         us = _layer_uniforms(key, [len(seeds)] + sampler.capacities[1:-1],
-                             fanout)
+                             sampler.fanouts, walk)
         pbatch = sampler.sample(_t(seeds), n, u=us)
         _assert_same_batch(pbatch, batch)
         plabels = labels_src.extract(pbatch.output_nodes, pbatch.num_output)
@@ -212,10 +245,11 @@ def test_entry_points_need_cuda_unless_told(learn_ds, monkeypatch):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("model", "pinsage"),
-    ("model", "mlp"),
+    ("sample_type", "weighted_khop_prefix"),
+    ("sample_type", "weighted_khop_hash_dedup"),
     ("sample_type", "weighted_khop"),
-    ("sample_type", "random_walk"),
+    ("remat", True),
+    ("compute_dtype", "bfloat16"),
     ("cache_percentage", 0.5),
     ("device_loop", True),
     ("use_dist_graph", True),

@@ -1,14 +1,17 @@
 """Run configuration of the PyTorch port.
 
-The fields of ``RunConfig`` in ``xgnn_tpu/config.py`` that the main path
-reads, under the same names and defaults.  A value that selects a path the
-port does not have yet raises ``NotImplementedError`` naming the ROADMAP
-item that ports it; nothing is silently replaced by another path.
+The fields of ``RunConfig`` in ``xgnn_tpu/config.py`` that the ported paths
+read, under the same names and defaults.  A value that selects a path the
+port does not have yet raises ``NotImplementedError`` naming, by its title,
+the ROADMAP item that ports it; nothing is silently replaced by another
+path.  PinSAGE is the random-walk path: ``model="pinsage"`` coerces the
+sampler to ``random_walk`` with the JAX package's warning.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import logging
 from enum import Enum
 from typing import Optional, Sequence
 
@@ -29,9 +32,11 @@ class SampleType(Enum):
 # khop0/khop2/khop3 are one distribution (uniform K-subset without
 # replacement) and share one sampler
 UNIFORM_KHOP = (SampleType.KHOP0, SampleType.KHOP2, SampleType.KHOP3)
+# the samplers the port has
+PORTED_SAMPLERS = UNIFORM_KHOP + (SampleType.KHOP1, SampleType.RANDOM_WALK)
 
-# the convolutions of the JAX model zoo that the port has
-PORTED_MODELS = ("graphsage", "gcn", "gat")
+# the convolutions of the JAX model zoo, all ported
+PORTED_MODELS = ("graphsage", "gcn", "gat", "pinsage", "mlp")
 
 
 @dataclasses.dataclass
@@ -45,7 +50,7 @@ class RunConfig:
     device_loop: bool = False
 
     # --- model -------------------------------------------------------------
-    model: str = "graphsage"  # graphsage, gcn or gat
+    model: str = "graphsage"  # graphsage, gcn, gat, pinsage or mlp
     num_hidden: int = 256
     num_head: int = 1  # GAT heads on the hidden layers
     num_layer: int = 3
@@ -61,6 +66,13 @@ class RunConfig:
     use_dist_graph: bool = False
     gpu_extract: bool = True
 
+    # --- random walk (PinSAGE) --------------------------------------------
+    random_walk_length: int = 3
+    random_walk_restart_prob: float = 0.5
+    num_random_walk: int = 4
+    num_neighbor: int = 5
+    num_layer_pinsage: int = 2
+
     # --- capacity planning -------------------------------------------------
     frontier_capacities: Optional[Sequence[int]] = None
     calibration_batches: int = 3
@@ -72,35 +84,45 @@ class RunConfig:
         if isinstance(self.sample_type, str):
             self.sample_type = SampleType(self.sample_type)
         self.fanout = tuple(int(f) for f in self.fanout)
+        if (self.model == "pinsage"
+                and self.sample_type != SampleType.RANDOM_WALK):
+            # a khop sampler would give num_layer blocks to a
+            # num_layer_pinsage-layer model
+            logging.getLogger(__name__).warning(
+                "model=pinsage requires random_walk sampling; overriding "
+                "sample_type=%s", self.sample_type,
+            )
+            self.sample_type = SampleType.RANDOM_WALK
         self._check_supported()
 
     def _check_supported(self):
-        todo = []
         if self.model not in PORTED_MODELS:
+            raise ValueError(f"model={self.model!r}: not a model of the zoo "
+                             f"{PORTED_MODELS}")
+        todo = []
+        if self.sample_type not in PORTED_SAMPLERS:
             todo.append(
-                f"model={self.model!r}: ROADMAP open item 9 (model zoo)"
-            )
-        if self.sample_type not in UNIFORM_KHOP:
-            todo.append(
-                f"sample_type={self.sample_type.value!r}: ROADMAP open item "
-                "10 (other samplers)"
+                f"sample_type={self.sample_type.value!r}: ROADMAP queue 1, "
+                "'Other samplers'"
             )
         if 0.0 < self.cache_percentage < 1.0:
             todo.append(
-                f"cache_percentage={self.cache_percentage}: ROADMAP open item "
-                "11 (stores and caching)"
+                f"cache_percentage={self.cache_percentage}: ROADMAP queue 1, "
+                "'Stores and caching'"
             )
         if self.use_dist_graph:
-            todo.append("use_dist_graph: ROADMAP open items 11 and 14")
+            todo.append("use_dist_graph: ROADMAP queue 1, 'Stores and "
+                        "caching' and 'Multi-GPU'")
         if self.device_loop:
-            todo.append("device_loop: ROADMAP open item 12 (tooling)")
+            todo.append("device_loop: ROADMAP queue 1, 'Tooling'")
         if self.agg_impl != "loop":
-            todo.append(f"agg_impl={self.agg_impl!r}: ROADMAP kernel K14")
+            todo.append(f"agg_impl={self.agg_impl!r}: ROADMAP section 2, "
+                        "'K14'")
         if self.compute_dtype != "float32" or self.feat_dtype != "float32":
-            todo.append("bfloat16 compute or features: ROADMAP open item 6 "
-                        "(train.py)")
+            todo.append("bfloat16 compute or features: ROADMAP queue 1, "
+                        "'Training options'")
         if self.remat:
-            todo.append("remat: ROADMAP open item 5 (models/gnn.py)")
+            todo.append("remat: ROADMAP queue 1, 'Training options'")
         if todo:
             raise NotImplementedError(
                 "not ported to xgnn_tpu_torch yet: " + "; ".join(todo)

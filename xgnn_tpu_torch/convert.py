@@ -3,8 +3,9 @@
 Flax ``Dense`` kernels are ``(in, out)`` and PyTorch weights ``(out, in)``,
 so kernels are transposed.  In each ``SAGEConv_{i}`` flax names the self
 transform ``Dense_0`` (no bias) and the neighbour transform ``Dense_1``
-(with bias), in the order ``SAGEConv.__call__`` creates them.  A
-``GCNConv_{i}`` holds ``Dense_0`` (no bias) and its own ``bias``; a
+(with bias), in the order ``SAGEConv.__call__`` creates them, and so does
+each ``PinSAGEConv_{i}``.  An ``MLPConv_{i}`` holds one ``Dense_0`` (with
+bias).  A ``GCNConv_{i}`` holds ``Dense_0`` (no bias) and its own ``bias``; a
 ``GATConv_{i}`` holds ``kernel`` ``(in, H, d)``, ``attn_l`` and ``attn_r``
 ``(H, d)``, which the port keeps in the same layout.
 """
@@ -34,12 +35,20 @@ def _gcn(p, pre):
     }
 
 
+def _mlp(p, pre):
+    return {
+        pre + "fc.weight": _t(p["Dense_0"]["kernel"]).T.contiguous(),
+        pre + "fc.bias": _t(p["Dense_0"]["bias"]),
+    }
+
+
 def _gat(p, pre):
     return {pre + name: _t(p[name]) for name in ("kernel", "attn_l",
                                                  "attn_r")}
 
 
-_LAYERS = {"SAGEConv": _sage, "GCNConv": _gcn, "GATConv": _gat}
+_LAYERS = {"SAGEConv": _sage, "PinSAGEConv": _sage, "GCNConv": _gcn,
+           "GATConv": _gat, "MLPConv": _mlp}
 
 
 def params_from_flax(params_np) -> dict:
@@ -49,8 +58,8 @@ def params_from_flax(params_np) -> dict:
         if f"{name}_0" in params_np:
             break
     else:
-        raise ValueError("no SAGEConv_{i}, GCNConv_{i} or GATConv_{i} layers "
-                         "in the flax params")
+        raise ValueError("no layers of " + ", ".join(
+            f"{n}_{{i}}" for n in _LAYERS) + " in the flax params")
     state = {}
     i = 0
     while f"{name}_{i}" in params_np:

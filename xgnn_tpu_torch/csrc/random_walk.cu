@@ -1,0 +1,197 @@
+// K9: restart random walks with the top-K most-visited nodes (PinSAGE's
+// sampler).
+//
+// For frontier row b with seed = frontier[b], W walkers each take L steps.
+// Before step s > 0 a walker restarts at the seed where
+// u_restart[s, b, w] < restart_prob (float32).  A step from node v is one
+// uniform draw with replacement:
+//     deg = indptr[v+1] - indptr[v]   (0 for EMPTY and any v outside
+//                                      [0, num_node))
+//     off = min(floor(u_step[s, b, w] * deg), deg - 1)
+//     nxt = deg > 0 ? indices[indptr[v] + off] : EMPTY
+// The walker visits nxt and moves there, or back to the seed when nxt is
+// EMPTY.  Visits are kept walker-major (walker w's step s at w*L + s); a
+// visit equal to the seed becomes EMPTY.  Each distinct visit is counted,
+// the distinct visits are ranked by count, descending, ties by the position
+// of their first occurrence, lower first, and the first K give
+// neigh[b, :] and, as float32, weights[b, :]; slots past the distinct
+// visits get EMPTY and 0.
+//
+// Replaces: xgnn_tpu/ops/random_walk.py, sample_random_walk (lines 38-120)
+// with _uniform_step (24-35): XLA ops shaped for the TPU (a take_1d gather
+// per step over the whole (B, W) walker grid, then a (B, M, M) match matrix
+// and lax.top_k, whose ties go to the lower index).  The result equals that
+// function's and the plain PyTorch version's bit for bit for the same
+// uniforms: the product u * deg is one float32 multiply rounded to nearest
+// (__fmul_rn), deg is converted rounded to nearest, the restart test is a
+// float32 compare, and the file is built without --use_fast_math.
+//
+// What bounds it on an H100: the latency of L dependent steps, each a read
+// of indptr[v], indptr[v+1] and then indices[start + off] at random
+// addresses; 12 bytes a walker-step, but two 32-byte sectors (three where
+// v % 8 == 7 puts indptr[v + 1] in the next one).  The count
+// and the ranking are O(M^2) integer compares per row (M = W*L, 144 at the
+// bench's W = 4, L = 3), far below the card's rate.
+//
+// Design: one thread per walker.  A block of up to 256 threads holds the W
+// walkers of up to 256 / W seeds (at most 2048 visits: 16 KB of shared
+// memory for the visits and their counts).  Each walker takes its L
+// dependent steps alone and writes its visits into shared memory; then the
+// W threads of a seed share its count and its ranking, visit i going to
+// thread i % W.  Each first occurrence's rank among the distinct visits is
+// counted directly (no sort), and it writes its slot if the rank is below
+// K.  For the bench's (W, L) = (4, 3) the kernel is built for those
+// constants; any other W*L up to kMaxVisits takes the same code with
+// run-time bounds.  Measured against one thread per seed walking its W
+// walkers in registers, at the bench's two layers (8,000 and 59,392 seeds)
+// on an H100 80GB HBM3 at 700 W: 4.27 against 6.29-6.31 us and
+// 20.25-20.29 against 21.02-21.06 us a launch
+// (xgnn_tpu_torch/tools/time_walk.py, one process each, in turns): four
+// times the threads hide more of the step latency.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int32_t kEmpty = 0x7fffffff;
+constexpr int kWalkThreads = 256;
+constexpr int kMaxVisits = 64;
+
+// one uniform step from v; EMPTY where v has no neighbour
+__device__ __forceinline__ int32_t walk_step(const int32_t* __restrict__ indptr,
+                                             const int32_t* __restrict__ indices,
+                                             int64_t num_node, int32_t v,
+                                             float u) {
+  if (v < 0 || (int64_t)v >= num_node) return kEmpty;
+  const int32_t start = __ldg(indptr + v);
+  const int32_t deg = __ldg(indptr + v + 1) - start;
+  if (deg <= 0) return kEmpty;
+  const float x = __fmul_rn(u, __int2float_rn(deg));
+  int32_t off = __float2int_rz(floorf(x));
+  off = off < deg - 1 ? off : deg - 1;
+  return __ldg(indices + ((int64_t)start + off));
+}
+
+// kW, kL > 0: built for those constants; 0: run-time w and l.  A block
+// holds the walkers of `rows` seeds, thread t walker t % W of seed t / W.
+template <int kW, int kL>
+__global__ void __launch_bounds__(kWalkThreads)
+random_walk_kernel(const int32_t* __restrict__ indptr,
+                   const int32_t* __restrict__ indices,
+                   const int32_t* __restrict__ frontier,
+                   const float* __restrict__ u_step,
+                   const float* __restrict__ u_restart,
+                   int32_t* __restrict__ neigh, float* __restrict__ weights,
+                   int64_t num_node, int64_t num_rows, int w_rt, int l_rt,
+                   int fanout, float restart_prob, int rows) {
+  constexpr bool kFixed = kW > 0 && kL > 0;
+  const int nw = kFixed ? kW : w_rt;
+  const int nl = kFixed ? kL : l_rt;
+  const int m = nw * nl;
+  extern __shared__ int32_t smem[];
+  const int local = threadIdx.x / nw, w = threadIdx.x % nw;
+  const int64_t row = (int64_t)blockIdx.x * rows + local;
+  const bool active = local < rows && row < num_rows;
+  int32_t* vis = smem + local * m;
+  int32_t* cnt = smem + rows * m + local * m;
+  int32_t seed = kEmpty;
+  if (active) {
+    seed = __ldg(frontier + row);
+    int32_t cur = seed;
+#pragma unroll
+    for (int s = 0; s < nl; ++s) {
+      const int64_t at = ((int64_t)s * num_rows + row) * nw + w;
+      if (s > 0 && __ldg(u_restart + at) < restart_prob) cur = seed;
+      const int32_t nxt =
+          walk_step(indptr, indices, num_node, cur, __ldg(u_step + at));
+      vis[w * nl + s] = nxt == seed ? kEmpty : nxt;
+      cur = nxt == kEmpty ? seed : nxt;
+    }
+  }
+  __syncthreads();
+  // count each first occurrence; cnt 0 marks a repeat or an EMPTY visit
+  if (active) {
+    for (int i = w; i < m; i += nw) {
+      const int32_t v = vis[i];
+      int32_t c = 0;
+      bool first = v != kEmpty;
+#pragma unroll
+      for (int j = 0; j < m; ++j) {
+        const bool eq = vis[j] == v;
+        c += eq;
+        if (j < i && eq) first = false;
+      }
+      cnt[i] = first ? c : 0;
+    }
+  }
+  __syncthreads();
+  if (!active) return;
+  // rank among the distinct visits: higher count first, then lower position
+  int32_t* nrow = neigh + row * fanout;
+  float* wrow = weights + row * fanout;
+  int distinct = 0;
+#pragma unroll
+  for (int j = 0; j < m; ++j) distinct += cnt[j] > 0;
+  for (int i = w; i < m; i += nw) {
+    const int32_t ci = cnt[i];
+    if (ci == 0) continue;
+    int rank = 0;
+#pragma unroll
+    for (int j = 0; j < m; ++j)
+      rank += cnt[j] > ci || (cnt[j] == ci && j < i);
+    if (rank < fanout) {
+      nrow[rank] = vis[i];
+      wrow[rank] = (float)ci;
+    }
+  }
+  for (int k = distinct + w; k < fanout; k += nw) {
+    nrow[k] = kEmpty;
+    wrow[k] = 0.0f;
+  }
+}
+
+}  // namespace
+
+// indptr: (num_node + 1,) int32; indices: (E,) int32; frontier: (num_rows,)
+// int32, EMPTY padded; u_step, u_restart: (walk_len, num_rows, num_walk)
+// float32 (u_restart[0] is not read); neigh: (num_rows, fanout) int32;
+// weights: (num_rows, fanout) float32.  1 <= num_walk * walk_len <= 64 and
+// 1 <= fanout <= num_walk * walk_len.  Returns cudaGetLastError() after the
+// launch (cudaErrorInvalidValue for sizes it does not take).
+extern "C" int xg_random_walk(const void* indptr, const void* indices,
+                              const void* frontier, const void* u_step,
+                              const void* u_restart, void* neigh,
+                              void* weights, long long num_node,
+                              long long num_rows, int num_walk, int walk_len,
+                              int fanout, float restart_prob, void* stream) {
+  if (num_walk < 1 || walk_len < 1 || num_walk * walk_len > kMaxVisits ||
+      fanout < 1 || fanout > num_walk * walk_len)
+    return (int)cudaErrorInvalidValue;
+  if (num_rows <= 0) return (int)cudaGetLastError();
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  const int m = num_walk * walk_len;
+  // at most 2048 visits a block: 16 KB of shared memory
+  int rows = kWalkThreads / num_walk;
+  if (rows * m > 2048) rows = 2048 / m;
+  const unsigned blocks = (unsigned)((num_rows + rows - 1) / rows);
+  const unsigned threads = (unsigned)(rows * num_walk);
+  const size_t smem = (size_t)2 * rows * m * sizeof(int32_t);
+  const int32_t* ip = static_cast<const int32_t*>(indptr);
+  const int32_t* ix = static_cast<const int32_t*>(indices);
+  const int32_t* fr = static_cast<const int32_t*>(frontier);
+  const float* us = static_cast<const float*>(u_step);
+  const float* ur = static_cast<const float*>(u_restart);
+  int32_t* nb = static_cast<int32_t*>(neigh);
+  float* wt = static_cast<float*>(weights);
+  if (num_walk == 4 && walk_len == 3) {
+    random_walk_kernel<4, 3><<<blocks, threads, smem, s>>>(
+        ip, ix, fr, us, ur, nb, wt, num_node, num_rows, num_walk, walk_len,
+        fanout, restart_prob, rows);
+  } else {
+    random_walk_kernel<0, 0><<<blocks, threads, smem, s>>>(
+        ip, ix, fr, us, ur, nb, wt, num_node, num_rows, num_walk, walk_len,
+        fanout, restart_prob, rows);
+  }
+  return (int)cudaGetLastError();
+}

@@ -1,5 +1,7 @@
-// K2: uniform K-subset neighbour sampler (khop0 / khop2 / khop3).
+// K2: uniform K-subset neighbour sampler (khop0 / khop2 / khop3), and K8a:
+// uniform draws with replacement (uniform_wr) and khop1.
 //
+// K2:
 // For frontier row b with v = frontier[b]: start = indptr[v] and
 // deg = indptr[v+1] - start (deg = 0 for EMPTY, int32 max, and for any id
 // outside [0, num_node)).  A partial Fisher-Yates over the virtual array
@@ -42,6 +44,24 @@
 // then issues its index loads back to back: they are independent, so up to
 // K are in flight at once.  Any other K up to kMaxFanout takes the unstaged
 // loop with its records in local memory.
+//
+// K8a:
+// For a row of degree deg > 0, every j < K draws with replacement:
+//     out[b, j] = indices[start + min(floor(u[b,j] * deg), deg - 1)]
+// (uniform_wr: repeats kept).  khop1 then sorts the row ascending and writes
+// EMPTY over each pick equal to the one before it; the row is not
+// compacted.  A row of degree 0 is all EMPTY and reads no index.
+//
+// Replaces: xgnn_tpu/ops/sampling.py, sample_uniform_wr (lines 98-117) and
+// sample_khop1 with _dedup_rows (120-141), bit for bit for the same u, with
+// K2's float32 rules.
+//
+// Design: K2's.  One thread per row; for K = 5, 10 and 15 the u and out
+// tiles are staged through shared memory, the K offsets are computed first
+// and the K index loads issued back to back, and khop1 sorts the K picks in
+// registers with an odd-even transposition network (K rounds, no
+// data-dependent branch).  Any other K up to kMaxFanout takes an unstaged
+// loop with the row in local memory and an insertion sort.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -174,6 +194,113 @@ __global__ void sample_khop_kernel(const int32_t* __restrict__ indptr,
   for (int j = live; j < fanout; ++j) orow[j] = kEmpty;
 }
 
+// the K8a draw: an offset in [0, deg), deg > 0
+__device__ __forceinline__ int32_t draw_wr(float u, int32_t deg) {
+  const float x = __fmul_rn(u, __int2float_rn(deg));
+  const int32_t d = __float2int_rz(floorf(x));
+  return d < deg - 1 ? d : deg - 1;
+}
+
+// sort kK values ascending (odd-even transposition: kK rounds), then EMPTY
+// over every value equal to the one before it
+template <int kK>
+__device__ __forceinline__ void sort_dedup(int32_t (&v)[kK]) {
+#pragma unroll
+  for (int round = 0; round < kK; ++round) {
+#pragma unroll
+    for (int j = round & 1; j + 1 < kK; j += 2) {
+      const int32_t a = v[j], b = v[j + 1];
+      v[j] = a < b ? a : b;
+      v[j + 1] = a < b ? b : a;
+    }
+  }
+  int32_t prev = v[0];
+#pragma unroll
+  for (int j = 1; j < kK; ++j) {
+    const int32_t cur = v[j];
+    if (cur == prev) v[j] = kEmpty;
+    prev = cur;
+  }
+}
+
+template <int kK, bool kDedup>
+__global__ void __launch_bounds__(kThreads)
+sample_wr_staged_kernel(const int32_t* __restrict__ indptr,
+                        const int32_t* __restrict__ indices,
+                        const int32_t* __restrict__ frontier,
+                        const float* __restrict__ u,
+                        int32_t* __restrict__ out, int64_t num_node,
+                        int64_t num_rows, bool vec) {
+  __shared__ __align__(16) uint32_t tile[kThreads * kK];
+  const int64_t row0 = (int64_t)blockIdx.x * kThreads;
+  const int64_t row = row0 + threadIdx.x;
+  const int64_t rows = num_rows - row0 < kThreads ? num_rows - row0 : kThreads;
+  const int words = (int)rows * kK;
+  int32_t start = 0, deg = 0;
+  if (row < num_rows) row_meta(indptr, frontier, row, num_node, &start, &deg);
+  copy_tile(tile, reinterpret_cast<const uint32_t*>(u) + row0 * kK, words,
+            vec);
+  __syncthreads();
+
+  if (row < num_rows) {
+    uint32_t* trow = tile + threadIdx.x * kK;
+    int32_t pick[kK];
+    if (deg > 0) {
+      // every offset first, then the index loads back to back
+#pragma unroll
+      for (int j = 0; j < kK; ++j)
+        pick[j] = draw_wr(__uint_as_float(trow[j]), deg);
+#pragma unroll
+      for (int j = 0; j < kK; ++j)
+        pick[j] = __ldg(indices + ((int64_t)start + pick[j]));
+      if (kDedup) sort_dedup<kK>(pick);
+    } else {
+#pragma unroll
+      for (int j = 0; j < kK; ++j) pick[j] = kEmpty;
+    }
+#pragma unroll
+    for (int j = 0; j < kK; ++j) trow[j] = (uint32_t)pick[j];
+  }
+  __syncthreads();
+  copy_tile(reinterpret_cast<uint32_t*>(out) + row0 * kK, tile, words, vec);
+}
+
+// any fanout up to kMaxFanout: one thread per row, unstaged, the row in
+// local memory
+__global__ void sample_wr_kernel(const int32_t* __restrict__ indptr,
+                                 const int32_t* __restrict__ indices,
+                                 const int32_t* __restrict__ frontier,
+                                 const float* __restrict__ u,
+                                 int32_t* __restrict__ out, int64_t num_node,
+                                 int64_t num_rows, int fanout, bool dedup) {
+  const int64_t row = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+  if (row >= num_rows) return;
+  int32_t start, deg;
+  row_meta(indptr, frontier, row, num_node, &start, &deg);
+  const float* urow = u + row * fanout;
+  int32_t* orow = out + row * fanout;
+  if (deg <= 0) {
+    for (int j = 0; j < fanout; ++j) orow[j] = kEmpty;
+    return;
+  }
+  int32_t v[kMaxFanout];
+  for (int j = 0; j < fanout; ++j)
+    v[j] = __ldg(indices + ((int64_t)start + draw_wr(__ldg(urow + j), deg)));
+  if (dedup) {
+    for (int i = 1; i < fanout; ++i) {  // insertion sort
+      const int32_t x = v[i];
+      int j = i - 1;
+      for (; j >= 0 && v[j] > x; --j) v[j + 1] = v[j];
+      v[j + 1] = x;
+    }
+    for (int j = fanout - 1; j > 0; --j)
+      if (v[j] == v[j - 1]) orow[j] = kEmpty; else orow[j] = v[j];
+    orow[0] = v[0];
+  } else {
+    for (int j = 0; j < fanout; ++j) orow[j] = v[j];
+  }
+}
+
 template <int kK>
 void launch_staged(const int32_t* indptr, const int32_t* indices,
                    const int32_t* frontier, const float* u, int32_t* out,
@@ -182,6 +309,39 @@ void launch_staged(const int32_t* indptr, const int32_t* indices,
   const long long blocks = (num_rows + kThreads - 1) / kThreads;
   sample_khop_staged_kernel<kK><<<(unsigned)blocks, kThreads, 0, s>>>(
       indptr, indices, frontier, u, out, num_node, num_rows, vec);
+}
+
+template <int kK, bool kDedup>
+void launch_wr_staged(const int32_t* indptr, const int32_t* indices,
+                      const int32_t* frontier, const float* u, int32_t* out,
+                      long long num_node, long long num_rows, bool vec,
+                      cudaStream_t s) {
+  const long long blocks = (num_rows + kThreads - 1) / kThreads;
+  sample_wr_staged_kernel<kK, kDedup><<<(unsigned)blocks, kThreads, 0, s>>>(
+      indptr, indices, frontier, u, out, num_node, num_rows, vec);
+}
+
+template <bool kDedup>
+bool launch_wr_fixed(int fanout, const int32_t* ip, const int32_t* ix,
+                     const int32_t* fr, const float* uf, int32_t* o,
+                     long long num_node, long long num_rows, bool vec,
+                     cudaStream_t s) {
+  switch (fanout) {
+    case 5:
+      launch_wr_staged<5, kDedup>(ip, ix, fr, uf, o, num_node, num_rows, vec,
+                                  s);
+      return true;
+    case 10:
+      launch_wr_staged<10, kDedup>(ip, ix, fr, uf, o, num_node, num_rows,
+                                   vec, s);
+      return true;
+    case 15:
+      launch_wr_staged<15, kDedup>(ip, ix, fr, uf, o, num_node, num_rows,
+                                   vec, s);
+      return true;
+    default:
+      return false;
+  }
 }
 
 bool aligned16(const void* p) {
@@ -222,6 +382,35 @@ extern "C" int xg_sample_khop(const void* indptr, const void* indices,
       sample_khop_kernel<<<(unsigned)blocks, kThreads, 0, s>>>(
           ip, ix, fr, uf, o, num_node, num_rows, fanout);
     }
+  }
+  return (int)cudaGetLastError();
+}
+
+// K8a.  indptr, indices, frontier, u and out as for xg_sample_khop; dedup
+// != 0 is khop1 (each row sorted, EMPTY over repeats), 0 uniform_wr.
+// Returns cudaGetLastError() after the launch.
+extern "C" int xg_sample_wr(const void* indptr, const void* indices,
+                            const void* frontier, const void* u, void* out,
+                            long long num_node, long long num_rows,
+                            int fanout, int dedup, void* stream) {
+  if (fanout < 1 || fanout > kMaxFanout) return (int)cudaErrorInvalidValue;
+  if (num_rows <= 0) return (int)cudaGetLastError();
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  const int32_t* ip = static_cast<const int32_t*>(indptr);
+  const int32_t* ix = static_cast<const int32_t*>(indices);
+  const int32_t* fr = static_cast<const int32_t*>(frontier);
+  const float* uf = static_cast<const float*>(u);
+  int32_t* o = static_cast<int32_t*>(out);
+  const bool vec = aligned16(u) && aligned16(out);
+  const bool fixed =
+      dedup ? launch_wr_fixed<true>(fanout, ip, ix, fr, uf, o, num_node,
+                                    num_rows, vec, s)
+            : launch_wr_fixed<false>(fanout, ip, ix, fr, uf, o, num_node,
+                                     num_rows, vec, s);
+  if (!fixed) {
+    const long long blocks = (num_rows + kThreads - 1) / kThreads;
+    sample_wr_kernel<<<(unsigned)blocks, kThreads, 0, s>>>(
+        ip, ix, fr, uf, o, num_node, num_rows, fanout, dedup != 0);
   }
   return (int)cudaGetLastError();
 }

@@ -3,7 +3,8 @@
 The arrays may be numpy arrays on the host or tensors; the engine moves
 them to its device.  A dataset built on the device carries its CSR as a
 ready :class:`~xgnn_tpu_torch.types.Graph` in ``graph``.  The binary-format
-file loader is not ported yet (ROADMAP open item 1).
+file loader is not ported yet (ROADMAP queue 1, 'Dataset files and
+host test graphs').
 """
 
 from __future__ import annotations

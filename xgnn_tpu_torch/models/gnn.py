@@ -1,15 +1,14 @@
-"""GraphSAGE, GCN and GAT over dense-fanout sampled blocks.
+"""GraphSAGE, PinSAGE, GCN, GAT and MLP over dense-fanout sampled blocks.
 
 The port of ``xgnn_tpu/models/gnn.py``'s ``_take_dst``,
 ``masked_mean_stream`` (with the dst rows in :func:`_dst_and_mean`),
-``SAGEConv``,
-``GCNConv``, ``GATConv`` and ``GNN`` (dropout before every layer but the
-first, ELU between GAT layers and ReLU between the others, float32
-logits).  The fanout reduce is kernel K4 (``ops/fanout.py``), the
-direct-extract dst gather kernel K1 (``ops/gather.py``), GCN's pick
-multiplicity kernel K7 (``ops/degree.py``) and GAT's edge-softmax
-aggregate kernel K5 (``ops/attend.py``).  ``PinSAGEConv`` and ``MLPConv``
-are ROADMAP open item 9.
+``SAGEConv``, ``PinSAGEConv``, ``GCNConv``, ``GATConv``, ``MLPConv`` and
+``GNN`` (dropout before every layer but the first, ELU between GAT layers
+and ReLU between the others, float32 logits).  The fanout reduce is kernel
+K4 (``ops/fanout.py``; PinSAGE's visit counts ride on it as per-pick
+weights), the direct-extract dst gather kernel K1 (``ops/gather.py``),
+GCN's pick multiplicity kernel K7 (``ops/degree.py``) and GAT's
+edge-softmax aggregate kernel K5 (``ops/attend.py``).
 """
 
 from __future__ import annotations
@@ -101,6 +100,15 @@ class SAGEConv(nn.Module):
         return self.fc_self(h_dst) + self.fc_neigh(h_neigh)
 
 
+class PinSAGEConv(SAGEConv):
+    """SAGE aggregation weighted by the random walk's visit counts
+    (``block.weights``, which need no gradient)."""
+
+    def forward(self, block: Block, h_src: torch.Tensor) -> torch.Tensor:
+        h_dst, h_neigh = _dst_and_mean(block, h_src, block.weights)
+        return self.fc_self(h_dst) + self.fc_neigh(h_neigh)
+
+
 class GCNConv(nn.Module):
     """Graph convolution with the symmetric norm over the sampled block
     (DGL ``GraphConv(norm='both')``): ``b + deg_dst^-1/2 sum_k
@@ -176,6 +184,23 @@ class GATConv(nn.Module):
         return out.reshape(block.dst_cap, h * d)
 
 
+class MLPConv(nn.Module):
+    """The feature-only control: ``W h_dst + b``, the sampled neighbours
+    ignored."""
+
+    def __init__(self, in_dim: int, out_dim: int):
+        super().__init__()
+        self.fc = Dense(in_dim, out_dim, bias=True)
+
+    def reset_parameters(self, generator: torch.Generator):
+        with torch.no_grad():
+            _lecun_normal_(self.fc.weight, self.fc.in_features, generator)
+            self.fc.bias.zero_()
+
+    def forward(self, block: Block, h_src: torch.Tensor) -> torch.Tensor:
+        return self.fc(_take_dst(block, h_src))
+
+
 def apply_dropout(h: torch.Tensor, p: float, generator: torch.Generator):
     """flax ``nn.Dropout``: keep with probability ``1 - p`` and scale by
     ``1 / (1 - p)``; the mask comes from ``generator``."""
@@ -187,7 +212,8 @@ def apply_dropout(h: torch.Tensor, p: float, generator: torch.Generator):
     return torch.where(keep, h / (1.0 - p), torch.zeros((), device=h.device))
 
 
-_CONVS = {"graphsage": SAGEConv, "gcn": GCNConv, "gat": GATConv}
+_CONVS = {"graphsage": SAGEConv, "gcn": GCNConv, "gat": GATConv,
+          "pinsage": PinSAGEConv, "mlp": MLPConv}
 
 
 class GNN(nn.Module):
@@ -237,12 +263,11 @@ class GNN(nn.Module):
 def build_model(config, feat_dim: int, num_class: int,
                 generator: Optional[torch.Generator] = None) -> GNN:
     """The config's model with flax-style initial weights drawn from
-    ``generator`` (a CPU generator; move the model to its device after)."""
-    if config.model not in _CONVS:
-        raise NotImplementedError(
-            f"model {config.model!r}: ROADMAP open item 9 (model zoo)"
-        )
-    model = GNN(feat_dim, config.num_hidden, num_class, config.num_layer,
+    ``generator`` (a CPU generator; move the model to its device after).
+    PinSAGE has ``num_layer_pinsage`` layers, the others ``num_layer``."""
+    num_layers = (config.num_layer_pinsage if config.model == "pinsage"
+                  else config.num_layer)
+    model = GNN(feat_dim, config.num_hidden, num_class, num_layers,
                 dropout=config.dropout, conv=config.model,
                 num_heads=config.num_head)
     if generator is None:

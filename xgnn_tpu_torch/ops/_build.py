@@ -47,6 +47,10 @@ SIGNATURES = {
     },
     "sampling": {
         "xg_sample_khop": [_P, _P, _P, _P, _P, _LL, _LL, _I, _P],
+        "xg_sample_wr": [_P, _P, _P, _P, _P, _LL, _LL, _I, _I, _P],
+    },
+    "random_walk": {
+        "xg_random_walk": [_P] * 7 + [_LL, _LL, _I, _I, _I, _F, _P],
     },
     "unique": {
         "xg_unique_seeded": [_P, _LL, _P, _LL, _P, _LL, _LL, _P, _LL, _LL,

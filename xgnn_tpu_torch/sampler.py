@@ -1,11 +1,14 @@
 """Multi-layer mini-batch sampler.
 
-The port of ``xgnn_tpu/sampler.py`` for the uniform khop samplers: per
-layer, sample a fixed fanout from the frontier, dedup into the next
+The port of ``xgnn_tpu/sampler.py`` for the uniform khop samplers (khop0,
+khop2 and khop3 through K2, khop1 through K8a) and the random walk (K9):
+per layer, sample a fixed fanout from the frontier, dedup into the next
 frontier with the previous one as its prefix, and remap the picks to local
-ids.  With direct extract the last layer keeps global ids and is not
-deduped.  Shapes are static, at the frontier capacities, and the overflow
-flag stays on the device: sampling never waits on the host.
+ids.  The walk's visit counts ride on each block as its ``weights``.  With
+direct extract the last layer keeps global ids and is not deduped.  Shapes
+are static, at the frontier capacities, and the overflow flag stays on the
+device: sampling never waits on the host.  The tiered topology
+(``tier=``) is not ported (ROADMAP queue 1, 'Stores and caching').
 """
 
 from __future__ import annotations
@@ -16,8 +19,8 @@ import numpy as np
 import torch
 
 from . import constants as C
-from .config import UNIFORM_KHOP, RunConfig
-from .ops import sampling, unique
+from .config import PORTED_SAMPLERS, UNIFORM_KHOP, RunConfig, SampleType
+from .ops import random_walk, sampling, unique
 from .types import Block, Graph, SampledBatch
 
 
@@ -36,6 +39,13 @@ def default_capacities(batch_size: int, fanouts: Sequence[int],
     return caps
 
 
+def _layer_fanouts(config: RunConfig) -> tuple:
+    """PinSAGE samples ``num_layer_pinsage`` layers of ``num_neighbor``."""
+    if config.sample_type == SampleType.RANDOM_WALK:
+        return tuple([config.num_neighbor] * config.num_layer_pinsage)
+    return tuple(config.fanout)
+
+
 class Sampler:
     """Owns the graph and one set of frontier capacities; ``grow()``
     returns a sampler with larger ones after an overflow."""
@@ -43,14 +53,14 @@ class Sampler:
     def __init__(self, graph: Graph, config: RunConfig,
                  capacities: Optional[Sequence[int]] = None,
                  direct_extract: bool = False):
-        if config.sample_type not in UNIFORM_KHOP:
+        if config.sample_type not in PORTED_SAMPLERS:
             raise NotImplementedError(
-                f"sample_type {config.sample_type.value!r}: ROADMAP open "
-                "item 10 (other samplers)"
+                f"sample_type {config.sample_type.value!r}: ROADMAP queue 1, "
+                "'Other samplers'"
             )
         self.graph = graph
         self.config = config
-        self.fanouts = tuple(config.fanout)
+        self.fanouts = _layer_fanouts(config)
         self.direct_extract = direct_extract
         self.num_node = graph.num_node
         if capacities is None:
@@ -69,11 +79,17 @@ class Sampler:
                generator: Optional[torch.Generator] = None,
                u: Optional[Sequence[torch.Tensor]] = None) -> SampledBatch:
         """Sample one mini-batch.  ``seeds``: ``(batch_cap,)`` int32 global
-        ids, EMPTY padded.  ``u``: optional per-layer uniforms
-        ``(frontier_len, K)``; otherwise drawn from ``generator``."""
+        ids, EMPTY padded.  ``u``: optional uniforms, one entry per layer:
+        ``(frontier_len, K)`` for the khop samplers, ``(u_step,
+        u_restart)`` for the walk (``ops/random_walk.py``); otherwise drawn
+        from ``generator``."""
+        cfg = self.config
         return _sample_minibatch(
             self.graph, seeds, num_seed,
-            fanouts=self.fanouts, capacities=tuple(self.capacities),
+            sample_type=cfg.sample_type, fanouts=self.fanouts,
+            capacities=tuple(self.capacities),
+            rw_params=(cfg.num_random_walk, cfg.random_walk_length,
+                       cfg.random_walk_restart_prob),
             direct_extract=self.direct_extract, generator=generator, u=u,
         )
 
@@ -92,11 +108,31 @@ def _device_scalar(v: int, dev: torch.device) -> torch.Tensor:
     return torch.full((), int(v), dtype=torch.int32, device=dev)
 
 
+def _sample_layer(graph: Graph, frontier: torch.Tensor, fanout: int,
+                  generator, u, sample_type: SampleType, rw_params: tuple):
+    """``(picks, weights)`` of one layer; weights only from the walk."""
+    if sample_type == SampleType.RANDOM_WALK:
+        num_rw, rw_len, restart = rw_params
+        return random_walk.sample_random_walk(
+            graph.indptr, graph.indices, frontier, fanout, generator,
+            num_random_walk=num_rw, random_walk_length=rw_len,
+            restart_prob=restart, u=u,
+        )
+    if sample_type == SampleType.KHOP1:
+        draw = sampling.sample_khop1
+    else:
+        assert sample_type in UNIFORM_KHOP, sample_type
+        draw = sampling.sample_khop0
+    return draw(graph.indptr, graph.indices, frontier, fanout, generator,
+                u=u), None
+
+
 def _sample_minibatch(graph: Graph, seeds: torch.Tensor, num_seed, *,
-                      fanouts: tuple, capacities: tuple,
+                      sample_type: SampleType, fanouts: tuple,
+                      capacities: tuple, rw_params: tuple,
                       direct_extract: bool = False,
                       generator: Optional[torch.Generator] = None,
-                      u: Optional[Sequence[torch.Tensor]] = None
+                      u: Optional[Sequence] = None
                       ) -> SampledBatch:
     """Innermost layer first; blocks come back outermost first."""
     dev = seeds.device
@@ -106,9 +142,9 @@ def _sample_minibatch(graph: Graph, seeds: torch.Tensor, num_seed, *,
     overflow = torch.zeros((), dtype=torch.bool, device=dev)
     for layer, fanout in enumerate(fanouts):
         last = layer == len(fanouts) - 1
-        nbr = sampling.sample_khop0(
-            graph.indptr, graph.indices, frontier, fanout, generator,
-            u=None if u is None else u[layer],
+        nbr, weights = _sample_layer(
+            graph, frontier, fanout, generator,
+            None if u is None else u[layer], sample_type, rw_params,
         )
         if direct_extract and last:
             blocks.append(Block(
@@ -116,6 +152,7 @@ def _sample_minibatch(graph: Graph, seeds: torch.Tensor, num_seed, *,
                 num_dst=num_frontier,
                 num_src=_device_scalar(graph.num_node, dev),
                 dst_ids=frontier,
+                weights=weights,
             ))
             break
         out_cap = capacities[layer + 1]
@@ -127,6 +164,7 @@ def _sample_minibatch(graph: Graph, seeds: torch.Tensor, num_seed, *,
             neigh=local.reshape(nbr.shape),
             num_dst=num_frontier,
             num_src=num_unique,
+            weights=weights,
         ))
         overflow = overflow | (num_unique > out_cap)
         frontier = uids

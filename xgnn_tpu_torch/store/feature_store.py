@@ -4,7 +4,7 @@ The port of ``HBMFeatureSource``, ``LabelSource`` and ``_gather_rows`` of
 ``xgnn_tpu/store/feature_store.py``.  Both gather through kernel K1.  Slots
 at or past ``num_valid`` come back as zero rows (the JAX package fills them
 with arbitrary finite rows; nothing reads them).  The tiered and cached
-sources are ROADMAP open item 11.
+sources are ROADMAP queue 1, 'Stores and caching'.
 """
 
 from __future__ import annotations

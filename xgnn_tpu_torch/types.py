@@ -56,13 +56,15 @@ class Block:
     ``neigh[i, k]`` is the local index (into the layer's src frontier) of the
     k-th sampled neighbour of dst row ``i``; ``EMPTY_KEY`` marks padding.  On
     a direct-extract block ``neigh`` holds GLOBAL ids into the feature table
-    and ``dst_ids`` the dst rows' global ids.
+    and ``dst_ids`` the dst rows' global ids.  ``weights`` are per-pick edge
+    weights (the random walk's visit counts, PinSAGE), 0 on padding.
     """
 
     neigh: torch.Tensor  # (dst_cap, fanout) int32
     num_dst: torch.Tensor  # scalar int32
     num_src: torch.Tensor  # scalar int32
     dst_ids: Optional[torch.Tensor] = None  # (dst_cap,) int32 global ids
+    weights: Optional[torch.Tensor] = None  # (dst_cap, fanout) float32
 
     @property
     def dst_cap(self) -> int:
