@@ -708,7 +708,7 @@ def main() -> int:
         nb = blk.neigh
         el, proj, (out, m, s_) = fwd
         g_out = torch.randn(out.shape, generator=gen, device=dev)
-        args = (g_out, table, nb, el, proj, out, m, s_, mode, need_table)
+        args = (g_out, table, nb, el, proj, m, s_, mode, need_table)
         got = attend_backward(*args)
         again = attend_backward(*args)
         ref = attend_backward_plain(*args)
@@ -736,9 +736,9 @@ def main() -> int:
         rows_read = distinct_rows(nb, valid)
         out_numel = out.numel()
         rows_n, width = table.shape
-        # g_out, out, the ids, el_dst, m, s and proj in; g_el_dst, g_proj
-        # and every g_table row out
-        other = (2 * out_numel * 4 + nb.numel() * 4 + 3 * el.numel() * 4
+        # g_out, the ids, el_dst, m, s and proj in; g_el_dst, g_proj and
+        # every g_table row out
+        other = (out_numel * 4 + nb.numel() * 4 + 3 * el.numel() * 4
                  + 2 * proj.numel() * 4 + el.numel() * 4
                  + (rows_n * width * 4 if need_table else 0))
         longest = int(torch.bincount(nb[valid].long(), minlength=rows_n)

@@ -739,14 +739,17 @@ def test_pick_multiplicity_kernel_equals_plain(dev, shape, num_rows):
 # ------------------------------------------------- K5 edge-softmax attend
 def _attend_inputs(dev, mode, heads, width, seed, n=3000, d=1500, k=10):
     """Picks with repeats, EMPTY and out-of-range ids, three all-EMPTY dst
-    rows and a src row picked 500 times (past one warp's 32)."""
+    rows, a src row picked 500 times (past one warp's 32) so that whole dst
+    rows repeat one id, and a dst row with one valid pick."""
     g = _gen(dev, seed)
     table = torch.randn((n, width), generator=g, device=dev)
     neigh = torch.randint(-2, n + 2, (d, k), generator=g, device=dev,
                           dtype=torch.int32)
     neigh[torch.rand((d, k), generator=g, device=dev) < 0.2] = EMPTY
-    neigh[7:10] = EMPTY
     neigh.view(-1)[100:600] = 11
+    neigh[7:10] = EMPTY
+    neigh[3] = EMPTY
+    neigh[3, k // 2] = 5
     el = torch.randn((d, heads), generator=g, device=dev)
     if mode == "shared":
         proj = 0.1 * torch.randn((width, heads), generator=g, device=dev)
@@ -773,22 +776,29 @@ def _rel_norm(a, b):
     return float((a.double() - b.double()).norm() / b.double().norm())
 
 
-_ATTEND_CASES = [("shared", h, w) for h in (1, 2, 8) for w in (47, 128, 256)]
-_ATTEND_CASES += [("per_head", h, w) for h in (1, 2, 8) for w in (128, 256)]
-_ATTEND_CASES += [("per_head", 1, 47)]
+_ATTEND_CASES = [("shared", h, w, 10) for h in (1, 2, 8)
+                 for w in (47, 128, 256)]
+_ATTEND_CASES += [("per_head", h, w, 10) for h in (1, 2, 8)
+                  for w in (128, 256)]
+_ATTEND_CASES += [("per_head", 1, 47, 10)]
+# the main path's fanouts at 4 and 8 heads, and rows of two pick windows
+_ATTEND_CASES += [("shared", h, w, k) for h in (4, 8) for w in (128, 256)
+                  for k in (5, 10, 15)]
+_ATTEND_CASES += [("shared", 8, 128, 40), ("per_head", 2, 128, 40)]
 
 
-@pytest.mark.parametrize("mode,heads,width", _ATTEND_CASES)
-def test_attend_kernels_equal_plain(dev, mode, heads, width):
+@pytest.mark.parametrize("mode,heads,width,fanout", _ATTEND_CASES)
+def test_attend_kernels_equal_plain(dev, mode, heads, width, fanout):
     """Forward (out, m, s) against the plain version at rtol/atol 1e-5;
     backward g_table and g_el_dst at rtol/atol 1e-4, g_proj by its relative
     norm, 1e-5.  The backward's looser bound: each pick's g_e is a
-    difference of two W-term dot products (g_out . payload - g_out . out),
-    whose float32 rounding (2^-24 times the sum of the terms' magnitudes,
-    about 1e-5 at W = 256) the difference keeps while the values cancel,
-    and g_table sums up to 500 such rows of one src row in another order
-    than the plain version's index_add_.  Two backward launches equal bit
-    for bit (no float atomics)."""
+    difference of two W-term dot products (g_out . payload - dot, dot =
+    sum_k a_k g_out . payload_k), whose float32 rounding (2^-24 times the
+    sum of the terms' magnitudes, about 1e-5 at W = 256) the difference
+    keeps while the values cancel, and g_table sums up to 500 such rows of
+    one src row in another order than the plain version's index_add_.  Two
+    launches of the forward and of the backward equal bit for bit (no
+    float atomics)."""
     from xgnn_tpu_torch.ops import _build
     from xgnn_tpu_torch.ops.attend import (
         attend_backward,
@@ -798,9 +808,13 @@ def test_attend_kernels_equal_plain(dev, mode, heads, width):
     )
 
     table, neigh, el, proj = _attend_inputs(dev, mode, heads, width,
-                                            heads * 1000 + width)
+                                            heads * 1000 + width + fanout,
+                                            k=fanout)
     _build.LAUNCHES.reset()
     out, m, s = attend_forward(table, neigh, el, proj, mode)
+    for a, b in zip((out, m, s), attend_forward(table, neigh, el, proj,
+                                                mode)):
+        assert torch.equal(a, b)
     ref = attend_forward_plain(table, neigh, el, proj, mode)
     for name, a, b in zip(("out", "m", "s"), (out, m, s), ref):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5,
@@ -808,12 +822,12 @@ def test_attend_kernels_equal_plain(dev, mode, heads, width):
     assert torch.all(out[7:10] == 0)
     g_out = torch.randn(out.shape, generator=_gen(dev, 1), device=dev)
     for need_table in (True, False):
-        got = attend_backward(g_out, table, neigh, el, proj, out, m, s, mode,
+        got = attend_backward(g_out, table, neigh, el, proj, m, s, mode,
                               need_table)
-        again = attend_backward(g_out, table, neigh, el, proj, out, m, s,
-                                mode, need_table)
-        want = attend_backward_plain(g_out, table, neigh, el, proj, out, m,
-                                     s, mode, need_table)
+        again = attend_backward(g_out, table, neigh, el, proj, m, s, mode,
+                                need_table)
+        want = attend_backward_plain(g_out, table, neigh, el, proj, m, s,
+                                     mode, need_table)
         assert (got[0] is None) == (not need_table)
         for a, b in zip(got, again):
             assert a is None or torch.equal(a, b)
@@ -821,7 +835,7 @@ def test_attend_kernels_equal_plain(dev, mode, heads, width):
             torch.testing.assert_close(got[0], want[0], rtol=1e-4, atol=1e-4)
         torch.testing.assert_close(got[1], want[1], rtol=1e-4, atol=1e-4)
         assert _rel_norm(got[2], want[2]) < 1e-5
-    assert _build.LAUNCHES.snapshot() == {"attend_fwd": 1, "attend_bwd": 4}
+    assert _build.LAUNCHES.snapshot() == {"attend_fwd": 2, "attend_bwd": 4}
 
 
 def test_attend_autograd_on_the_card_equals_the_cpu(dev):

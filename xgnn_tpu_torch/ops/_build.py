@@ -61,7 +61,7 @@ SIGNATURES = {
     },
     "attend": {
         "xg_attend_fwd": [_P] * 7 + [_LL, _LL, _I, _I, _I, _I, _F, _P],
-        "xg_attend_bwd": [_P] * 12 + [_I, _LL, _LL, _I, _I, _I, _I, _F, _P],
+        "xg_attend_bwd": [_P] * 11 + [_I, _LL, _LL, _I, _I, _I, _I, _F, _P],
     },
 }
 

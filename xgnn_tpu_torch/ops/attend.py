@@ -22,12 +22,13 @@ Two modes, as the JAX paths shape the table:
   is ``(D, H, d)``.
 
 The gradient is the exact softmax gradient (the running max carries none,
-as in the JAX package): with ``a_k = exp(e_k - m) / s``, ``g_e_k = a_k
-(g_out . payload_k - g_out . out)`` and ``g_pre_k = g_e_k leaky'(pre_k)``;
-``g_el_dst`` sums ``g_pre_k`` over the picks, ``g_proj`` sums ``g_pre_k
-row_k`` over every pick of the block, and the table's row ``r`` gets, over
-its picks, ``a_k g_out[b, h]`` on the payload and ``g_pre_k proj[:, h]``
-through the score.
+as in the JAX package): with ``a_k = exp(e_k - m) / s``, ``ga_k = g_out .
+payload_k``, ``dot = sum_k a_k ga_k / sum_k a_k`` (which is ``g_out .
+out``, so the backward never reads ``out``), ``g_e_k = a_k (ga_k - dot)``
+and ``g_pre_k = g_e_k leaky'(pre_k)``; ``g_el_dst`` sums ``g_pre_k`` over
+the picks, ``g_proj`` sums ``g_pre_k row_k`` over every pick of the block,
+and the table's row ``r`` gets, over its picks, ``a_k g_out[b, h]`` on the
+payload and ``g_pre_k proj[:, h]`` through the score.
 
 The CUDA kernels are ``csrc/attend.cu``; the table's gradient is summed by
 src row with ``csrc/fanout.cu``'s segmented backward (K4's), over one
@@ -117,23 +118,49 @@ def attend_forward_plain(table, neigh, el_dst, proj, mode):
     return out, torch.where(torch.isfinite(m), m, 0.0), s
 
 
-def attend_backward_plain(g_out, table, neigh, el_dst, proj, out, m, s, mode,
+def _pick_terms(g_out, table, neigh, el_dst, proj, m, den, mode, k):
+    """Pick ``k`` of every dst row: ``(valid, rows, pre, a, ga)``."""
+    h, _ = _geometry(table, proj, mode)
+    valid, rows = _pick_rows(table, neigh[:, k])
+    pre = el_dst + _score(rows, proj, mode, h)
+    a = torch.where(valid[:, None], torch.exp(_leaky(pre) - m) / den, 0.0)
+    ga = (g_out * _payload(rows, mode, h)).sum(-1)
+    return valid, rows, pre, a, ga
+
+
+def attend_dot_plain(g_out, table, neigh, el_dst, proj, m, s, mode):
+    """``sum_k a_k (g_out . payload_k) / sum_k a_k`` per dst row and head:
+    ``g_out . out`` without ``out``, from the forward's ``m`` and ``s``.
+    The ratio keeps it exact where ``m`` and ``s`` come from scores summed
+    in another order (the kernel's): ``sum_k a_k`` is then 1 only to their
+    rounding, which ``|dot|`` would multiply."""
+    den = torch.clamp(s, min=1e-9)
+    dot = torch.zeros_like(el_dst)
+    total = torch.zeros_like(el_dst)
+    for k in range(neigh.shape[1]):
+        _, _, _, a, ga = _pick_terms(g_out, table, neigh, el_dst, proj, m,
+                                     den, mode, k)
+        dot = dot + a * ga
+        total = total + a
+    return torch.where(total > 0, dot / torch.where(total > 0, total, 1.0),
+                       0.0)
+
+
+def attend_backward_plain(g_out, table, neigh, el_dst, proj, m, s, mode,
                           need_table: bool):
     """``(g_table or None, g_el_dst, g_proj)`` pass by pass over the picks,
     and the table's gradient rows added by ``index_add_`` in pick order."""
     h, _ = _geometry(table, proj, mode)
     d, fanout = neigh.shape
-    dot = (g_out * out).sum(-1)
+    dot = attend_dot_plain(g_out, table, neigh, el_dst, proj, m, s, mode)
     den = torch.clamp(s, min=1e-9)
     g_el = torch.zeros_like(el_dst)
     g_proj = torch.zeros_like(proj)
     per_pick = []
     for k in range(fanout):
-        valid, rows = _pick_rows(table, neigh[:, k])
-        pre = el_dst + _score(rows, proj, mode, h)
-        a = torch.where(valid[:, None], torch.exp(_leaky(pre) - m) / den, 0.0)
-        g_a = (g_out * _payload(rows, mode, h)).sum(-1)
-        g_e = a * (g_a - dot)
+        valid, rows, pre, a, ga = _pick_terms(g_out, table, neigh, el_dst,
+                                              proj, m, den, mode, k)
+        g_e = a * (ga - dot)
         g_pre = torch.where(pre >= 0, g_e, NEGATIVE_SLOPE * g_e)
         g_el = g_el + g_pre
         if mode == SHARED:
@@ -238,23 +265,22 @@ def _bwd_blocks(num_dst: int) -> int:
 
 def attend_backward(g_out: torch.Tensor, table: torch.Tensor,
                     neigh: torch.Tensor, el_dst: torch.Tensor,
-                    proj: torch.Tensor, out: torch.Tensor, m: torch.Tensor,
-                    s: torch.Tensor, mode: str, need_table: bool):
+                    proj: torch.Tensor, m: torch.Tensor, s: torch.Tensor,
+                    mode: str, need_table: bool):
     """``(g_table or None, g_el_dst, g_proj)`` of :func:`gat_attend`, given
-    ``g_out`` and the forward's ``out``, ``m`` and ``s``."""
+    ``g_out`` and the forward's ``m`` and ``s``."""
     _check(table, neigh, el_dst, proj, mode)
     h, wp = _geometry(table, proj, mode)
     d, fanout = neigh.shape
-    for name, t, shape in (("g_out", g_out, (d, h, wp)),
-                           ("out", out, (d, h, wp)), ("m", m, (d, h)),
+    for name, t, shape in (("g_out", g_out, (d, h, wp)), ("m", m, (d, h)),
                            ("s", s, (d, h))):
         if (t.shape != shape or t.dtype != torch.float32
                 or t.device != table.device or not t.is_contiguous()):
             raise ValueError(f"attend_backward: {name} must be contiguous "
                              f"float32 {shape} on {table.device}")
     if table.device.type == "cpu":
-        return attend_backward_plain(g_out, table, neigh, el_dst, proj, out,
-                                     m, s, mode, need_table)
+        return attend_backward_plain(g_out, table, neigh, el_dst, proj, m, s,
+                                     mode, need_table)
     lib = _build.load("attend")
     dev = table.device
     n, width = table.shape
@@ -270,8 +296,8 @@ def attend_backward(g_out: torch.Tensor, table: torch.Tensor,
     stream = _build.stream_handle(dev)
     rc = lib.xg_attend_bwd(
         table.data_ptr(), neigh.data_ptr(), el_dst.data_ptr(),
-        proj.data_ptr(), out.data_ptr(), m.data_ptr(), s.data_ptr(),
-        g_out.data_ptr(), g_el.data_ptr(), g_proj.data_ptr(),
+        proj.data_ptr(), m.data_ptr(), s.data_ptr(), g_out.data_ptr(),
+        g_el.data_ptr(), g_proj.data_ptr(),
         partials.data_ptr(), _ptr(per_pick), blocks, n, d, fanout, width, h,
         int(mode == SHARED), NEGATIVE_SLOPE, stream,
     )
@@ -299,7 +325,7 @@ class _Attend(torch.autograd.Function):
     @staticmethod
     def forward(ctx, table, neigh, el_dst, proj, mode):
         out, m, s = _forward(table, neigh, el_dst, proj, mode)
-        ctx.save_for_backward(table, neigh, el_dst, proj, out, m, s)
+        ctx.save_for_backward(table, neigh, el_dst, proj, m, s)
         ctx.mode = mode
         return out
 
@@ -308,10 +334,10 @@ class _Attend(torch.autograd.Function):
         need_table, _, need_el, need_proj, _ = ctx.needs_input_grad
         if not (need_table or need_el or need_proj):
             return None, None, None, None, None
-        table, neigh, el_dst, proj, out, m, s = ctx.saved_tensors
+        table, neigh, el_dst, proj, m, s = ctx.saved_tensors
         g_table, g_el, g_proj = attend_backward(
-            g_out.contiguous(), table, neigh, el_dst, proj, out, m, s,
-            ctx.mode, need_table)
+            g_out.contiguous(), table, neigh, el_dst, proj, m, s, ctx.mode,
+            need_table)
         return (g_table, None, g_el if need_el else None,
                 g_proj if need_proj else None, None)
 
