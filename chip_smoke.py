@@ -61,6 +61,27 @@ Phases, each fatal on failure:
    one unpipelined epoch (per-stage device-inclusive times); every path
    but graphsage_khop1 runs one profiled pipelined epoch (the device's busy
    time per step and its time by kernel).
+7. Weighted sampling: the weighted products dataset through
+   ``make_device_dataset(weighted=True)`` (timed; its prefix table and
+   coarse CDF are 496 MB and 1.25 GB), its graph, features, labels and
+   split equal to phase 3's, which it then replaces, every prefix row
+   nondecreasing, and its tables close to the same functions run again
+   (each timed; the coarse CDF exactly, the sums within 1e-6); K8b-prefix at the three layers' frontiers of
+   one batch, walked through K3, exact, with the bytes of the rows it reads
+   whole and of a coarse row for every live row; the whole batch equal to
+   the plain path's; then GraphSAGE 3x256 on weighted_khop_prefix (the
+   path ``graphsage_weighted_prefix``: warm-up, counted and profiled epochs
+   as in 6), and the prefix tables freed.  Then alias tables for the same
+   edge weights, built on the card by ``synthetic_device.alias_tables``
+   (timed, with their peak memory) and held to the weights (every id's
+   probability within 1e-6 of its row's largest): K8b-alias with and
+   without dedup at the three frontiers of a batch of 8000, fanout (15,
+   10, 5), exact, and one batch through ``Sampler.sample`` for each alias
+   form, its launches counted and equal to the plain path's.  The same
+   again on a graph of 2^16 nodes at products' mean degree with alias
+   tables built on the host by ``synthetic.build_alias_tables`` (timed):
+   its 40 MB of tables sit in the card's 50 MB L2, so its times say
+   nothing of the products graph.
 
 Each kernel is timed twice: ``ms`` back to back (the wrapper's host time
 included, where the host is the slower) and ``device_ms`` with the host
@@ -92,6 +113,10 @@ FANOUT = (15, 10, 5)
 WALK = dict(num_random_walk=4, random_walk_length=3, restart_prob=0.5)
 NUM_NEIGHBOR = 5
 CAPS = (BATCH, 133376, 1007360, 2449152)
+# K8b-alias's graph: 2^16 nodes at the products graph's mean degree (50.63),
+# small enough for the host's alias build
+ALIAS_NODES = 1 << 16
+ALIAS_DRAWS = 1_659_000
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 RTOL = ATOL = 1e-5
@@ -180,13 +205,29 @@ def main() -> int:
         sample_random_walk_plain,
     )
     from xgnn_tpu_torch.ops.sampling import (
+        HASH_DEDUP_ROUNDS,
+        build_coarse_cdf,
         sample_khop0,
         sample_khop0_plain,
         sample_khop1,
         sample_khop1_plain,
         sample_uniform_wr,
         sample_uniform_wr_plain,
+        sample_weighted_khop,
+        sample_weighted_khop_hash_dedup,
+        sample_weighted_khop_hash_dedup_plain,
+        sample_weighted_khop_plain,
+        sample_weighted_khop_prefix,
+        sample_weighted_khop_prefix_plain,
     )
+    from xgnn_tpu_torch.sampler import Sampler, default_capacities
+    from xgnn_tpu_torch.synthetic import build_alias_tables
+    from xgnn_tpu_torch.synthetic_device import (
+        alias_tables,
+        edge_weights,
+        prefix_table,
+    )
+    from xgnn_tpu_torch.types import Graph
     from xgnn_tpu_torch.ops.unique import (
         unique_seeded_split,
         unique_seeded_split_plain,
@@ -214,8 +255,9 @@ def main() -> int:
     ds = make_device_dataset(NUM_NODE, NUM_EDGE, FEAT_DIM, NUM_CLASS,
                              train_frac=0.08, seed=0, name="products_synth")
     torch.cuda.synchronize()
+    graph_s = time.perf_counter() - t0
     print(f"{tag} graph: {ds.num_node} nodes, {ds.num_edge} edges, built in "
-          f"{time.perf_counter() - t0:.3f} s", flush=True)
+          f"{graph_s:.3f} s", flush=True)
     cfg = RunConfig(  # bench.py's default configuration
         batch_size=BATCH, fanout=FANOUT, num_layer=len(FANOUT),
         num_hidden=256, model="graphsage", sample_type="khop3",
@@ -396,17 +438,20 @@ def main() -> int:
         frontier, num = out[0], torch.clamp(out[1], max=cap)
     del u, nbr, ref, ids, out, frontier, picks, other
 
-    def assert_plain_batch(sampler, batch, module, name, plain, kernels_named):
+    def assert_plain_batch(sampler, batch, module, name, plain, kernels_named,
+                           batch_seeds=None, batch_n=None):
         """The whole batch sampled again with ``module.name`` and K3 swapped
         for their plain versions, from the same generator seed, equal to
-        ``batch`` field by field."""
+        ``batch`` field by field (the main batch's seeds unless given)."""
         kernel_fns = getattr(module, name), unique.unique_seeded_split
         setattr(module, name, plain)
         unique.unique_seeded_split = (
             lambda prefix, picks, num_prev, out_cap, num_node=None:
             unique_seeded_split_plain(prefix, picks, num_prev, out_cap))
         try:
-            plain_batch = sampler.sample(seeds, n, generator(dev, 7))
+            plain_batch = sampler.sample(
+                seeds if batch_seeds is None else batch_seeds,
+                n if batch_n is None else batch_n, generator(dev, 7))
         finally:
             setattr(module, name, kernel_fns[0])
             unique.unique_seeded_split = kernel_fns[1]
@@ -912,7 +957,6 @@ def main() -> int:
     small = make_device_dataset(3000, 12000, 32, 6, seed=1, device=dev)
     scfg = RunConfig(batch_size=64, fanout=(5, 4, 3), num_hidden=16,
                      frontier_capacities=(64, 512, 2048, 3072))
-    from xgnn_tpu_torch.sampler import Sampler
 
     small_seeds = torch.from_numpy(small.train_set[:64]).to(dev)
     sb = Sampler(small.graph, scfg, direct_extract=True).sample(
@@ -983,6 +1027,11 @@ def main() -> int:
                             "unique_seeded": 2 * steps,
                             "gather_rows": 2 * steps, "fanout_fwd": 3 * steps,
                             "fanout_bwd": 2 * steps},
+        "graphsage_weighted_prefix": {"sample_prefix": 3 * steps,
+                                      "unique_seeded": 2 * steps,
+                                      "gather_rows": 2 * steps,
+                                      "fanout_fwd": 3 * steps,
+                                      "fanout_bwd": 2 * steps},
     }
     counts_by_path = {}
     mean = lambda v: sum(v) / max(len(v), 1)
@@ -1056,6 +1105,8 @@ def main() -> int:
             ("K7, *hist_kernel* and *gather_kernel*",
              lambda n: "hist_kernel" in n or "gather_kernel" in n),
             ("K9, *random_walk*", lambda n: "random_walk" in n),
+            ("K8b, *sample_prefix* and *sample_alias*",
+             lambda n: "sample_prefix" in n or "sample_alias" in n),
         )
         for what, match in groups:
             us = sum(t for name, t in by_name.items() if match(name.lower()))
@@ -1145,6 +1196,301 @@ def main() -> int:
         if path == "mlp":
             profiled_epoch(path, eng, 2)
         del eng
+
+    # ---- 7. weighted sampling ----------------------------------------------
+    # The weighted dataset through its entry point: make_device_dataset
+    # (weighted=True) gives phase 3's graph, features, labels and split,
+    # with the prefix table and its coarse CDF; kept for K8b-prefix, the
+    # graphsage_weighted_prefix path and K8b-alias, then freed
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    wds = make_device_dataset(NUM_NODE, NUM_EDGE, FEAT_DIM, NUM_CLASS,
+                              train_frac=0.08, seed=0, name="products_synth",
+                              weighted=True)
+    torch.cuda.synchronize()
+    wds_s = time.perf_counter() - t0
+    wgraph = wds.graph
+    prefix, coarse = wgraph.prob_prefix_table, wgraph.coarse_cdf
+    for name in ("indptr", "indices", "feat", "label", "train_set",
+                 "valid_set", "test_set"):
+        a, b = getattr(wds, name), getattr(ds, name)
+        same = (torch.equal(a, b) if isinstance(a, torch.Tensor)
+                else a.shape == b.shape and bool((a == b).all()))
+        if not same:
+            raise AssertionError(f"weighted dataset: {name} differs from "
+                                 "the unweighted one of the same seed")
+    # the unweighted dataset's tensors go: the paths' peak memory stays
+    # comparable
+    ds, graph, feat = wds, wgraph, wds.feat
+    # every row of the prefix table nondecreasing, as K8b-prefix needs
+    starts = torch.zeros(wgraph.num_edge, dtype=torch.bool, device=dev)
+    starts[wgraph.indptr[:-1][wgraph.indptr[1:] > wgraph.indptr[:-1]]
+           .long()] = True
+    if not bool(((prefix[1:] >= prefix[:-1]) | starts[1:]).all()):
+        raise AssertionError("weighted dataset: a prefix row decreases")
+    del starts
+    # the tables once more, each step timed: the coarse CDF equal to the
+    # dataset's, the prefix sums within 1e-6 (a float64 scan on the card
+    # need not round alike twice)
+    t0 = time.perf_counter()
+    w = edge_weights(wgraph.num_edge, 0, dev)
+    again = prefix_table(wgraph.indptr, w)
+    del w
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    again_cdf = build_coarse_cdf(wgraph.indptr, prefix, wgraph.num_node)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    if not (torch.allclose(again, prefix, rtol=1e-6, atol=0.0)
+            and torch.equal(again_cdf, coarse)):
+        raise AssertionError("weighted dataset: its tables differ from "
+                             "the same functions run again")
+    print(f"{tag} weighted dataset: prefix sums run again differ in "
+          f"{int((again != prefix).sum())} of {prefix.numel()} entries",
+          flush=True)
+    del again, again_cdf
+    print(f"{tag} weighted dataset: built in {wds_s:.3f} s (phase 3's "
+          f"unweighted one, the card's first work: {graph_s:.3f} s), equal "
+          f"to it but for its tables: prefix {prefix.numel() * 4} bytes "
+          f"(weights and sums again: {t1 - t0:.3f} s), coarse CDF "
+          f"{coarse.numel() * 4} bytes ({t2 - t1:.3f} s); largest degree "
+          f"{wgraph.n_max_deg}", flush=True)
+    wcfg = dataclasses.replace(cfg, sample_type="weighted_khop_prefix")
+    weng = Engine(wds, wcfg).init()
+
+    def prefix_traffic(frontier, k, out):
+        """The bytes K8b-prefix must move (the frontier, an indptr pair a
+        valid row, u, the prefix entries a binary search over each live row
+        reads, at most the row, one index a pick, the output), what the
+        kept design reads of the rows of at most 128 entries, what a coarse
+        row for every live row would read, and the rows past 128."""
+        ok = (frontier >= 0) & (frontier < wgraph.num_node)
+        node = torch.where(ok, frontier, 0).long()
+        deg = torch.where(ok, wgraph.indptr[node + 1] - wgraph.indptr[node],
+                          0).double()
+        d = deg[deg > 0]
+        search = torch.minimum(d, k * (torch.ceil(torch.log2(d)) + 1))
+        live = d.numel()
+        nbytes = (frontier.numel() * 4 + int(ok.sum()) * 8 + live * k * 4
+                  + int(search.sum()) * 4 + int((out != empty).sum()) * 4
+                  + out.numel() * 4)
+        return (nbytes, int(d[d <= 128].sum()) * 4, live * 512,
+                int((d > 128).sum()))
+
+    # K8b-prefix at each layer's frontier, one batch walked layer by layer
+    # through K3 as the sampler walks it
+    frontier = seeds
+    num = torch.full((), n, dtype=torch.int32, device=dev)
+    for layer, k in enumerate(FANOUT):
+        u = torch.rand((frontier.shape[0], k), generator=gen, device=dev)
+        a = (wgraph.indptr, wgraph.indices, prefix, frontier, k, None,
+             wgraph.n_max_deg, coarse)
+        got = sample_weighted_khop_prefix(*a, u=u)
+        ref = sample_weighted_khop_prefix_plain(*a, u=u)
+        torch.cuda.synchronize()
+        assert_close("sample_prefix", got, ref, exact=True)
+        nbytes, direct_b, coarse_b, hubs = prefix_traffic(frontier, k, got)
+        rows = int((frontier != empty).sum())
+        record("sample_prefix", "xgnn_tpu_torch/csrc/weighted.cu",
+               "xgnn_tpu/ops/sampling.py:339",
+               f"layer {layer}: frontier {frontier.shape[0]} ({rows} valid, "
+               f"{hubs} past 128 entries) x K={k}, "
+               f"{int((got != empty).sum())} picks",
+               max_err(got, ref), "exact",
+               lambda: sample_weighted_khop_prefix(*a, u=u),
+               lambda: sample_weighted_khop_prefix_plain(*a, u=u),
+               None, None, nbytes=nbytes, flops=0, per_step=3,
+               path="graphsage_weighted_prefix")
+        kernels[-1].update(direct_read_bytes=direct_b,
+                           coarse_row_bytes=coarse_b)
+        print(f"{tag} sample_prefix layer {layer}: rows of <= 128 entries "
+              f"read whole {direct_b} bytes, a coarse row for every live row "
+              f"{coarse_b} bytes", flush=True)
+        if layer == len(FANOUT) - 1:
+            break
+        out = unique_seeded_split(frontier, got.reshape(-1), num,
+                                  CAPS[layer + 1], num_node=wgraph.num_node)
+        frontier, num = out[0], torch.clamp(out[1], max=CAPS[layer + 1])
+    del u, got, ref, out, frontier, a
+    wbatch = weng.sampler.sample(seeds, n, generator(dev, 7))
+    assert_plain_batch(weng.sampler, wbatch, sampling,
+                       "sample_weighted_khop_prefix",
+                       sample_weighted_khop_prefix_plain, "K8b-prefix/K3")
+    del wbatch
+
+    # GraphSAGE 3x256 on weighted_khop_prefix, the main configuration
+    w_edges = edges_of(weng.sampler)
+    print(f"{tag} graphsage_weighted_prefix edges aggregated per step "
+          f"{w_edges:.1f}", flush=True)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    r1 = run_epochs("graphsage_weighted_prefix", weng)
+    rate_and_memory("graphsage_weighted_prefix", r1, w_edges)
+    profiled_epoch("graphsage_weighted_prefix", weng, 2)
+    del weng, prefix, coarse
+    wds.prob_prefix_table = None
+    wgraph.prob_prefix_table = wgraph.coarse_cdf = None
+    torch.cuda.empty_cache()
+
+    def alias_error(g, w):
+        """The largest gap, over every (row, id), between the probability
+        that g's alias tables give an id and the one its weights ``w`` give
+        it (multi-edges summed), over the row's largest"""
+        num_node = g.num_node
+        deg = (g.indptr[1:] - g.indptr[:-1]).long()
+        rows = torch.repeat_interleave(
+            torch.arange(num_node, device=dev), deg, output_size=g.num_edge)
+        w64 = w.double()
+        total = torch.zeros(num_node, dtype=torch.float64,
+                            device=dev).index_add_(0, rows, w64)
+        want = w64 / total[rows]
+        del w64
+        slot = 1.0 / deg[rows].double()
+        own = g.prob_table.double() * slot
+        key = torch.cat([rows * num_node + g.indices,
+                         rows * num_node + g.alias_table,
+                         rows * num_node + g.indices])
+        mass = torch.cat([own, slot - own, -want])
+        del own, slot
+        ids, inv = torch.unique(key, return_inverse=True)
+        del key
+        gap = torch.zeros(ids.shape[0], dtype=torch.float64,
+                          device=dev).index_add_(0, inv, mass)
+        top = torch.zeros(num_node, dtype=torch.float64,
+                          device=dev).scatter_reduce_(0, rows, want, "amax")
+        return float((gap.abs() / top[ids // num_node]).max())
+
+    def alias_traffic(g, frontier, k, m, dedup, out):
+        """The bytes K8b-alias must move: the frontier, an indptr pair a
+        valid row, 16 bytes a draw (u, coin, prob and alias or index) of
+        the rows it draws from, an index an entry of a whole row (dedup,
+        deg <= K), the output."""
+        ok = (frontier >= 0) & (frontier < g.num_node)
+        node = torch.where(ok, frontier, 0).long()
+        deg = torch.where(ok, g.indptr[node + 1] - g.indptr[node], 0)
+        drawn = (deg > k) if dedup else (deg > 0)
+        whole = int(deg[(deg > 0) & (deg <= k)].sum()) if dedup else 0
+        return (frontier.numel() * 4 + int(ok.sum()) * 8
+                + int(drawn.sum()) * m * 16 + whole * 4 + out.numel() * 4)
+
+    def alias_phase(g, graph_name, caps, batch_seeds):
+        """K8b-alias with and without dedup at the three frontiers of one
+        batch walked through K3 by the draws without dedup, exact; then one
+        batch through Sampler.sample for each alias form, its launches
+        counted, equal to the plain path's"""
+        paths = {False: f"weighted_khop ({graph_name})",
+                 True: f"weighted_khop_hash_dedup ({graph_name})"}
+        frontier = batch_seeds
+        num = torch.full((), BATCH, dtype=torch.int32, device=dev)
+        for layer, k in enumerate(FANOUT):
+            b = frontier.shape[0]
+            rows = int((frontier != empty).sum())
+            for dedup in (False, True):
+                m = (HASH_DEDUP_ROUNDS if dedup else 1) * k
+                fn, plain = ((sample_weighted_khop_hash_dedup,
+                              sample_weighted_khop_hash_dedup_plain) if dedup
+                             else (sample_weighted_khop,
+                                   sample_weighted_khop_plain))
+                u = torch.rand((b, m), generator=gen, device=dev)
+                coin = torch.rand((b, m), generator=gen, device=dev)
+                a = (g.indptr, g.indices, g.prob_table, g.alias_table,
+                     frontier, k)
+                got, ref = fn(*a, u=u, coin=coin), plain(*a, u=u, coin=coin)
+                torch.cuda.synchronize()
+                assert_close("sample_alias", got, ref, exact=True)
+                record("sample_alias", "xgnn_tpu_torch/csrc/weighted.cu",
+                       "xgnn_tpu/ops/sampling.py:"
+                       + ("248" if dedup else "217"),
+                       f"{'hash_dedup' if dedup else 'weighted_khop'}, layer "
+                       f"{layer}: frontier {b} ({rows} valid) x K={k}, {m} "
+                       f"draws a row, {int((got != empty).sum())} picks; "
+                       f"{graph_name}, {g.num_node} nodes",
+                       max_err(got, ref), "exact",
+                       lambda: fn(*a, u=u, coin=coin),
+                       lambda: plain(*a, u=u, coin=coin), None, None,
+                       nbytes=alias_traffic(g, frontier, k, m, dedup, got),
+                       flops=0, per_step=3, path=paths[dedup])
+                if not dedup:
+                    picks = got
+            if layer == len(FANOUT) - 1:
+                break
+            out = unique_seeded_split(frontier, picks.reshape(-1), num,
+                                      caps[layer + 1], num_node=g.num_node)
+            frontier, num = out[0], torch.clamp(out[1], max=caps[layer + 1])
+        for dedup, st, fn_name, plain in (
+                (False, "weighted_khop", "sample_weighted_khop",
+                 sample_weighted_khop_plain),
+                (True, "weighted_khop_hash_dedup",
+                 "sample_weighted_khop_hash_dedup",
+                 sample_weighted_khop_hash_dedup_plain)):
+            sampler = Sampler(g, dataclasses.replace(cfg, sample_type=st),
+                              caps, direct_extract=True)
+            _build.LAUNCHES.reset()
+            batch = sampler.sample(batch_seeds, BATCH, generator(dev, 7))
+            torch.cuda.synchronize()
+            counts = _build.LAUNCHES.snapshot()
+            want = {"sample_alias": len(FANOUT),
+                    "unique_seeded": len(FANOUT) - 1}
+            if counts != want:
+                raise AssertionError(f"{st} ({graph_name}): launch counts "
+                                     f"{counts} != {want}")
+            counts_by_path[paths[dedup]] = counts
+            print(f"{tag} {st} batch on the {graph_name}: capacities "
+                  f"{list(caps)}, "
+                  f"{sum(int(blk.mask.sum()) for blk in batch.blocks)} edges,"
+                  f" launches {counts}", flush=True)
+            assert_plain_batch(sampler, batch, sampling, fn_name, plain,
+                               "K8b-alias/K3", batch_seeds, BATCH)
+
+    # K8b-alias on the products graph, its alias tables built on the card
+    # by the port's alias_tables from the weighted dataset's own edge
+    # weights (edge_weights, the draw make_device_dataset made), and held
+    # to those weights
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    held = torch.cuda.memory_allocated(dev)
+    t0 = time.perf_counter()
+    w = edge_weights(wgraph.num_edge, 0, dev)
+    wgraph.prob_table, wgraph.alias_table = alias_tables(
+        wgraph.indptr, wgraph.indices, w)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    build_peak = torch.cuda.max_memory_allocated(dev) - held
+    err = alias_error(wgraph, w)
+    print(f"{tag} products alias tables: {wgraph.num_edge * 8} bytes built "
+          f"on the card in {t1 - t0:.3f} s (peak {build_peak} bytes above "
+          f"what was held); largest gap to the weights' probabilities "
+          f"{err:.3e} of the row's largest (tolerance 1e-6)", flush=True)
+    if not err <= 1e-6:
+        raise AssertionError(f"products alias tables: a row's probabilities "
+                             f"miss its weights' by {err:.3e}")
+    del w
+    alias_phase(wgraph, "products graph", CAPS, seeds)
+    del wds, wgraph
+    torch.cuda.empty_cache()
+
+    # K8b-alias on a graph of 2^16 nodes at products' mean degree, its alias
+    # tables built on the host by the port's build_alias_tables (bit-equal
+    # to the JAX package's); its 40 MB of tables fit the card's 50 MB L2
+    t0 = time.perf_counter()
+    sg = make_device_dataset(ALIAS_NODES, ALIAS_DRAWS, 8, NUM_CLASS, seed=3,
+                             train_frac=0.2, device=dev)
+    host = dataclasses.replace(sg, indptr=sg.indptr.cpu().numpy(),
+                               indices=sg.indices.cpu().numpy(), graph=None)
+    t1 = time.perf_counter()
+    build_alias_tables(host, seed=3)
+    t2 = time.perf_counter()
+    agraph = Graph.from_dataset(host, dev, weighted=True)
+    torch.cuda.synchronize()
+    print(f"{tag} alias graph: {host.num_node} nodes, {host.num_edge} edges "
+          f"(mean degree {host.num_edge / host.num_node:.2f}, largest "
+          f"{agraph.n_max_deg}) built on the card in {t1 - t0:.3f} s; alias "
+          f"tables ({host.num_edge * 8} bytes) built on the host in "
+          f"{t2 - t1:.3f} s", flush=True)
+    acaps = [BATCH] + default_capacities(BATCH, FANOUT, agraph.num_node)[1:]
+    alias_phase(agraph, "alias graph", acaps,
+                torch.from_numpy(host.train_set[:BATCH]).to(dev))
+    del sg, host, agraph
 
     for k in kernels:
         k["launches"] = counts_by_path[k["path"]].get(k["name"], 0)

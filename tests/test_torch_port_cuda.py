@@ -957,3 +957,172 @@ def test_a_zoo_step_never_waits_on_the_card(dev, model):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert np.isfinite(float(metrics["loss"]))
+
+
+# ------------------------------------------------------ K8b weighted draws
+def _weighted_csr(dev, fanout, seed):
+    """Rows of degree 0, 1, around ``fanout``, past 128, a hub of 10,000
+    entries, one of 70,000, and a skewed row (``4 * fanout + 3`` entries of
+    two ids), with the port's alias and prefix tables and the coarse CDF."""
+    from xgnn_tpu_torch.ops.sampling import build_coarse_cdf
+    from xgnn_tpu_torch.synthetic import build_alias_tables
+    from xgnn_tpu_torch.types import Graph
+
+    rng = np.random.default_rng(seed)
+    small = [0, 1, max(fanout - 1, 0), fanout, fanout + 1, 37, 128, 129, 300]
+    degrees = np.concatenate([rng.choice(small, size=400),
+                              [10_000, 70_000, 4 * fanout + 3]])
+    indptr = np.concatenate([[0], np.cumsum(degrees)]).astype(np.int32)
+    indices = rng.integers(0, len(degrees), int(indptr[-1])).astype(np.int32)
+    s = int(indptr[-2])
+    indices[s:] = 7
+    indices[s + 1] = 8
+    ds = type("Host", (), dict(num_node=len(degrees),
+                               num_edge=int(indptr[-1]), indptr=indptr,
+                               indices=indices))()
+    build_alias_tables(ds, seed=seed)
+    g = Graph.from_dataset(ds, dev, weighted=True)
+    assert torch.equal(g.coarse_cdf, build_coarse_cdf(
+        g.indptr, g.prob_prefix_table, g.num_node))
+    return g
+
+
+def _weighted_frontier(dev, g, seed, b=3 * 256 + 77):
+    f = torch.randint(0, g.num_node, (b,), generator=_gen(dev, seed),
+                      device=dev, dtype=torch.int32)
+    f[-3:] = torch.arange(g.num_node - 3, g.num_node, device=dev,
+                          dtype=torch.int32)  # the hubs and the skewed row
+    f[::9] = EMPTY
+    f[1::11] = g.num_node + 3  # outside the contract: degree 0
+    return f
+
+
+def _edge_uniforms(dev, shape, seed):
+    """uniforms with 0 and the float below 1 in them"""
+    u = torch.rand(shape, generator=_gen(dev, seed), device=dev)
+    u.view(-1)[::13] = 0.0
+    u.view(-1)[5::11] = 1.0 - 2.0 ** -24
+    return u
+
+
+@pytest.mark.parametrize("fanout", [1, 5, 15, 64])
+@pytest.mark.parametrize("coarse", [True, False])
+def test_prefix_kernel_equals_plain(dev, fanout, coarse):
+    """K8b-prefix over rows of degree 0, short rows, hubs of 10,000 and
+    70,000 entries (searched through their coarse rows), EMPTY and ids
+    past N, with and without the coarse CDF."""
+    from xgnn_tpu_torch.ops import _build
+    from xgnn_tpu_torch.ops.sampling import (
+        sample_weighted_khop_prefix,
+        sample_weighted_khop_prefix_plain,
+    )
+
+    g = _weighted_csr(dev, fanout, fanout)
+    f = _weighted_frontier(dev, g, fanout)
+    cdf = g.coarse_cdf if coarse else None
+    args = (g.indptr, g.indices, g.prob_prefix_table, f, fanout)
+    _build.LAUNCHES.reset()
+    for seed in range(5):
+        u = _edge_uniforms(dev, (f.shape[0], fanout), 100 + seed)
+        ref = sample_weighted_khop_prefix_plain(*args, None, g.n_max_deg,
+                                                cdf, u=u)
+        out = sample_weighted_khop_prefix(*args, None, g.n_max_deg, cdf,
+                                          u=u)
+        assert torch.equal(out, ref), seed
+    out = sample_weighted_khop_prefix(*args, _gen(dev, 5), coarse_cdf=cdf)
+    assert torch.equal(out, sample_weighted_khop_prefix_plain(
+        *args, _gen(dev, 5), g.n_max_deg, cdf))
+    assert bool((out[-3:-1] != EMPTY).all())  # the hubs
+    assert _build.LAUNCHES.snapshot() == {"sample_prefix": 6}
+    assert sample_weighted_khop_prefix(g.indptr, g.indices,
+                                       g.prob_prefix_table, f[:0],
+                                       fanout).shape == (0, fanout)
+
+
+@pytest.mark.parametrize("fanout", [1, 5, 15, 64])
+@pytest.mark.parametrize("dedup", [False, True])
+def test_alias_kernels_equal_plain(dev, fanout, dedup):
+    """K8b-alias, weighted_khop and its hash-dedup form, over the same
+    rows; the skewed row's draws hold fewer than ``fanout`` distinct
+    values."""
+    from xgnn_tpu_torch.ops import _build
+    from xgnn_tpu_torch.ops import sampling as s
+
+    kernel, plain = ((s.sample_weighted_khop_hash_dedup,
+                      s.sample_weighted_khop_hash_dedup_plain) if dedup
+                     else (s.sample_weighted_khop, s.sample_weighted_khop_plain))
+    g = _weighted_csr(dev, fanout, 50 + fanout)
+    f = _weighted_frontier(dev, g, fanout)
+    args = (g.indptr, g.indices, g.prob_table, g.alias_table, f, fanout)
+    m = (s.HASH_DEDUP_ROUNDS if dedup else 1) * fanout
+    _build.LAUNCHES.reset()
+    for seed in range(5):
+        u = _edge_uniforms(dev, (f.shape[0], m), 200 + seed)
+        coin = _edge_uniforms(dev, (f.shape[0], m), 300 + seed)
+        out = kernel(*args, u=u, coin=coin)
+        assert torch.equal(out, plain(*args, u=u, coin=coin)), seed
+    out = kernel(*args, _gen(dev, 5))
+    assert torch.equal(out, plain(*args, _gen(dev, 5)))
+    if dedup and fanout > 2:  # the skewed row: at most two distinct ids
+        skewed = out[-1]
+        kept = skewed[skewed != EMPTY].tolist()
+        assert 7 in kept and set(kept) <= {7, 8}
+        assert bool((skewed[len(kept):] == EMPTY).all())
+    assert _build.LAUNCHES.snapshot() == {"sample_alias": 6}
+    assert kernel(*args[:4], f[:0], fanout).shape == (0, fanout)
+
+
+def test_weighted_kernels_refuse(dev):
+    from xgnn_tpu_torch.ops import sampling as s
+
+    g = _weighted_csr(dev, 5, 1)
+    f = _weighted_frontier(dev, g, 1)
+    alias = (g.indptr, g.indices, g.prob_table, g.alias_table, f)
+    with pytest.raises(ValueError, match="fanout"):
+        s.sample_weighted_khop(*alias, 65)
+    with pytest.raises(ValueError, match="draws"):
+        s.sample_weighted_khop_hash_dedup(*alias, 64, rounds=5)
+    with pytest.raises(ValueError, match="different devices"):
+        s.sample_weighted_khop(*alias[:4], f.cpu(), 5)
+    with pytest.raises(ValueError, match="u must be"):
+        s.sample_weighted_khop_hash_dedup(
+            *alias, 5, u=torch.rand((f.shape[0], 5), device=dev),
+            coin=torch.rand((f.shape[0], 5), device=dev))
+    prefix = (g.indptr, g.indices, g.prob_prefix_table, f)
+    with pytest.raises(ValueError, match="fanout"):
+        s.sample_weighted_khop_prefix(*prefix, 65)
+    with pytest.raises(ValueError, match="coarse_cdf"):
+        s.sample_weighted_khop_prefix(*prefix, 5,
+                                      coarse_cdf=g.coarse_cdf.cpu())
+
+
+def test_a_weighted_step_never_waits_on_the_card(dev):
+    """GraphSAGE on weighted_khop_prefix: the sampler's three K8b-prefix
+    launches and the train step only queue work on the card."""
+    from xgnn_tpu_torch import Engine, RunConfig, make_device_dataset
+    from xgnn_tpu_torch.device import generator
+    from xgnn_tpu_torch.engine.shuffler import Shuffler
+    from xgnn_tpu_torch.ops import _build
+    from xgnn_tpu_torch.train import train_step
+
+    ds = make_device_dataset(20_000, 100_000, 32, 7, seed=5, device=dev,
+                             weighted=True)
+    cfg = RunConfig(batch_size=256, fanout=(10, 5, 3), num_hidden=32,
+                    calibration_batches=0, sample_type="weighted_khop_prefix")
+    engine = Engine(ds, cfg).init()
+    item = next(Shuffler(ds.train_set, cfg.batch_size).epoch_batches(0))
+    batch, x, labels, _, _ = engine._produce((item, 1, (0, 0)))
+    train_step(engine.model, engine.opt, batch.blocks, x, labels,
+               batch.num_output, generator(dev, 2), batch.overflow)
+    torch.cuda.synchronize()
+    _build.LAUNCHES.reset()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        batch, x, labels, _, _ = engine._produce((item, 3, (0, 1)))
+        metrics = train_step(engine.model, engine.opt, batch.blocks, x,
+                             labels, batch.num_output, generator(dev, 4),
+                             batch.overflow)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert _build.LAUNCHES.snapshot()["sample_prefix"] == 3
+    assert np.isfinite(float(metrics["loss"]))

@@ -5,6 +5,8 @@ and a 20+ step training trajectory (sampler, converted initial weights,
 loss, Adam) is held to the JAX ``Engine``'s losses step by step.
 """
 
+import copy
+
 import numpy as np
 import pytest
 
@@ -110,6 +112,8 @@ def test_sample_minibatch_matches_jax(small_ds, direct, caps):
     pytest.param("pinsage", 1, "random_walk", id="pinsage-1"),
     pytest.param("mlp", 1, "khop3", id="mlp-1"),
     pytest.param("graphsage", 1, "khop1", id="graphsage-1-khop1"),
+    pytest.param("graphsage", 1, "weighted_khop_prefix",
+                 id="graphsage-1-weighted_khop_prefix"),
 ])
 def test_training_trajectory_matches_jax_engine(learn_ds, model, heads,
                                                 sample_type):
@@ -118,7 +122,8 @@ def test_training_trajectory_matches_jax_engine(learn_ds, model, heads,
     loss and Adam: blocks (and the walk's weights) equal every step, losses
     close step by step (rtol/atol 2e-3: float32 sums in other orders,
     compounded over the steps' updates).  PinSAGE samples two walk layers
-    of 5 picks (W=4, L=3, p=0.5)."""
+    of 5 picks (W=4, L=3, p=0.5).  The weighted sampler reads the JAX
+    package's tables, built on a copy of the dataset."""
     from xgnn_tpu import RunConfig as JConfig
     from xgnn_tpu.engine import Engine as JEngine
     from xgnn_tpu.engine.shuffler import Shuffler as JShuffler
@@ -131,6 +136,12 @@ def test_training_trajectory_matches_jax_engine(learn_ds, model, heads,
     from xgnn_tpu_torch.types import Graph
 
     ds = learn_ds
+    weighted = sample_type.startswith("weighted")
+    if weighted:
+        from xgnn_tpu import synthetic as jsyn
+
+        ds = copy.copy(learn_ds)
+        jsyn.build_alias_tables(ds, seed=3)
     fanout = (5, 4, 3)
     common = dict(batch_size=len(ds.train_set) // 21, fanout=fanout,
                   num_layer=3, num_hidden=16, model=model, num_head=heads,
@@ -141,7 +152,8 @@ def test_training_trajectory_matches_jax_engine(learn_ds, model, heads,
     params_np = jax.tree.map(np.asarray, engine.state.params)
 
     cfg = RunConfig(**common, frontier_capacities=engine.sampler.capacities)
-    sampler = Sampler(Graph.from_dataset(ds, "cpu"), cfg, direct_extract=True)
+    sampler = Sampler(Graph.from_dataset(ds, "cpu", weighted=weighted), cfg,
+                      direct_extract=True)
     feat = HBMFeatureSource(ds.feat, "cpu")
     labels_src = LabelSource(ds.label, "cpu")
     model = build_model(cfg, ds.feat_dim, ds.num_class)
@@ -244,10 +256,36 @@ def test_entry_points_need_cuda_unless_told(learn_ds, monkeypatch):
         make_device_dataset(100, 200, 4, 2)
 
 
+@pytest.mark.parametrize("sample_type", ["weighted_khop_prefix",
+                                         "weighted_khop_hash_dedup",
+                                         "weighted_khop"])
+def test_weighted_configs_construct_and_sample(sample_type):
+    """The weighted samplers, once refused, take a config and sample a
+    batch from a weighted graph made on the CPU (the port's alias tables
+    on a weighted device dataset)."""
+    from xgnn_tpu_torch import RunConfig, make_device_dataset
+    from xgnn_tpu_torch.sampler import Sampler
+    from xgnn_tpu_torch.synthetic import build_alias_tables
+    from xgnn_tpu_torch.types import Graph
+
+    cfg = RunConfig(sample_type=sample_type, batch_size=32, fanout=(4, 3))
+    assert cfg.sample_type.value == sample_type
+    ds = make_device_dataset(400, 2000, 4, 3, seed=2, device="cpu",
+                             weighted=True)
+    graph = ds.graph
+    if sample_type != "weighted_khop_prefix":
+        build_alias_tables(ds, seed=2)
+        graph = Graph.from_dataset(ds, "cpu", weighted=True)
+    batch = Sampler(graph, cfg).sample(torch.from_numpy(ds.train_set[:32]),
+                                       32)
+    outer, seed_block = batch.blocks  # outermost first
+    assert seed_block.neigh.shape[1] == 4 and outer.neigh.shape[1] == 3
+    assert bool(seed_block.mask[:32].any(1).all())
+    assert not bool(batch.overflow)
+    assert int(batch.num_input) > 32
+
+
 @pytest.mark.parametrize("field,value", [
-    ("sample_type", "weighted_khop_prefix"),
-    ("sample_type", "weighted_khop_hash_dedup"),
-    ("sample_type", "weighted_khop"),
     ("remat", True),
     ("compute_dtype", "bfloat16"),
     ("cache_percentage", 0.5),

@@ -32,8 +32,9 @@ class SampleType(Enum):
 # khop0/khop2/khop3 are one distribution (uniform K-subset without
 # replacement) and share one sampler
 UNIFORM_KHOP = (SampleType.KHOP0, SampleType.KHOP2, SampleType.KHOP3)
-# the samplers the port has
-PORTED_SAMPLERS = UNIFORM_KHOP + (SampleType.KHOP1, SampleType.RANDOM_WALK)
+# the samplers that read the graph's weighted tables
+WEIGHTED = (SampleType.WEIGHTED_KHOP, SampleType.WEIGHTED_KHOP_PREFIX,
+            SampleType.WEIGHTED_KHOP_HASH_DEDUP)
 
 # the convolutions of the JAX model zoo, all ported
 PORTED_MODELS = ("graphsage", "gcn", "gat", "pinsage", "mlp")
@@ -100,11 +101,6 @@ class RunConfig:
             raise ValueError(f"model={self.model!r}: not a model of the zoo "
                              f"{PORTED_MODELS}")
         todo = []
-        if self.sample_type not in PORTED_SAMPLERS:
-            todo.append(
-                f"sample_type={self.sample_type.value!r}: ROADMAP queue 1, "
-                "'Other samplers'"
-            )
         if 0.0 < self.cache_percentage < 1.0:
             todo.append(
                 f"cache_percentage={self.cache_percentage}: ROADMAP queue 1, "

@@ -18,7 +18,7 @@ import numpy as np
 import torch
 
 from .. import constants as C
-from ..config import RunConfig
+from ..config import WEIGHTED, RunConfig
 from ..device import generator, resolve, seed_of
 from ..models import build_model
 from ..sampler import Sampler
@@ -63,7 +63,8 @@ class Engine:
         if getattr(self.ds, "graph", None) is not None:
             self.graph = self.ds.graph
         else:
-            self.graph = Graph.from_dataset(self.ds, self.device)
+            self.graph = Graph.from_dataset(
+                self.ds, self.device, weighted=cfg.sample_type in WEIGHTED)
         # direct extract: the last sampled layer keeps global ids and the
         # first GNN layer reads the feature table itself
         self._direct = cfg.gpu_extract

@@ -59,6 +59,10 @@ SIGNATURES = {
     "degree": {
         "xg_pick_multiplicity": [_P, _P, _P, _LL, _LL, _P],
     },
+    "weighted": {
+        "xg_sample_prefix": [_P] * 7 + [_LL, _LL, _I, _P],
+        "xg_sample_alias": [_P] * 8 + [_LL, _LL, _I, _I, _I, _P],
+    },
     "attend": {
         "xg_attend_fwd": [_P] * 7 + [_LL, _LL, _I, _I, _I, _I, _F, _P],
         "xg_attend_bwd": [_P] * 11 + [_I, _LL, _LL, _I, _I, _I, _I, _F, _P],

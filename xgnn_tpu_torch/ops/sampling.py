@@ -1,29 +1,37 @@
-"""K2 and K8a: uniform neighbour sampling without and with replacement.
+"""K2, K8a and K8b: uniform and weighted neighbour sampling.
 
 The port of ``xgnn_tpu/ops/sampling.py``'s ``_frontier_meta``,
 ``sample_khop0`` (K2), ``sample_uniform_wr`` and ``sample_khop1`` with
-``_dedup_rows`` (K8a).  The reference's khop0, khop2 and khop3 all draw a
-uniform K-subset of the neighbours (all of them when ``deg <= K``), so the
-three share one partial Fisher-Yates.  khop1 draws K picks with replacement
-(``sample_uniform_wr``), sorts each row and writes EMPTY over every repeat;
-the row is not compacted.  Each call maps a padded frontier ``(B,)`` to a
-neighbour matrix ``(B, K)`` with ``EMPTY_KEY`` padding, with static shapes
-and no host sync.  A frontier id outside ``[0, num_node)`` has degree 0.
+``_dedup_rows`` (K8a), and the weighted samplers (K8b):
+``sample_weighted_khop``, ``sample_weighted_khop_hash_dedup`` and
+``sample_weighted_khop_prefix`` with ``build_coarse_cdf``.  The reference's
+khop0, khop2 and khop3 all draw a uniform K-subset of the neighbours (all
+of them when ``deg <= K``), so the three share one partial Fisher-Yates.
+khop1 draws K picks with replacement (``sample_uniform_wr``), sorts each
+row and writes EMPTY over every repeat; the row is not compacted.  The
+weighted samplers draw with replacement too, by alias tables or by a search
+in row-local prefix sums, but for the hash-dedup form, which keeps the
+first K distinct of ``HASH_DEDUP_ROUNDS * K`` alias draws.  Each call maps
+a padded frontier ``(B,)`` to a neighbour matrix ``(B, K)`` with
+``EMPTY_KEY`` padding, with static shapes and no host sync.  A frontier id
+outside ``[0, num_node)`` has degree 0.
 
-Given the same uniforms ``u`` the picks equal the JAX package's exactly:
-the draws ``t = j + min(floor(u[:, j] * span), span - 1)`` (K2) and
-``min(floor(u[:, j] * deg), deg - 1)`` (K8a) are computed in float32 as
-there.
+Given the same uniforms ``u`` (and ``coin``) the picks equal the JAX
+package's exactly: the draws ``t = j + min(floor(u[:, j] * span), span -
+1)`` (K2), ``min(floor(u[:, j] * deg), deg - 1)`` (K8a, the alias slot)
+and the prefix target ``u * total`` are computed in float32 as there.  The
+port's tables carry no tile padding.
 
-The CUDA kernels are ``csrc/sampling.cu``.  :func:`sample_khop0_plain`,
-:func:`sample_uniform_wr_plain` and :func:`sample_khop1_plain` are their
-plain PyTorch versions: the wrappers take them only for tensors on the CPU.
-Launches are counted as ``sample_khop`` (K2) and ``sample_wr`` (K8a, both
-forms).
+The CUDA kernels are ``csrc/sampling.cu`` (K2, K8a) and ``csrc/weighted.cu``
+(K8b).  The ``*_plain`` functions are their plain PyTorch versions: the
+wrappers take them only for tensors on the CPU.  Launches are counted as
+``sample_khop`` (K2), ``sample_wr`` (K8a, both forms), ``sample_prefix``
+and ``sample_alias`` (K8b, the alias count covering both forms).
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -33,7 +41,11 @@ from . import _build
 
 EMPTY = C.EMPTY_KEY
 _NAME, _WR = "sample_khop", "sample_wr"
+_PREFIX, _ALIAS = "sample_prefix", "sample_alias"
 MAX_FANOUT = 64  # the kernels keep at most this many picks per row
+HASH_DEDUP_ROUNDS = 4  # alias draws a pick of the hash-dedup form
+MAX_DRAWS = 256  # the hash-dedup kernel keeps at most this many draws a row
+COARSE_LANES = 128  # width of a coarse CDF row
 
 
 def _frontier_meta(indptr: torch.Tensor, frontier: torch.Tensor):
@@ -249,3 +261,328 @@ def sample_khop1(
     """The :func:`sample_uniform_wr` picks, each row sorted with EMPTY over
     every repeat (``[5, 3, 3]`` becomes ``[3, EMPTY, 5]``)."""
     return _sample_wr(indptr, indices, frontier, fanout, generator, u, True)
+
+
+# ------------------------------------------------------------------ K8b
+def _mask_rows(nbr: torch.Tensor, deg: torch.Tensor) -> torch.Tensor:
+    """EMPTY over every row of degree 0."""
+    return torch.where(deg[:, None] > 0, nbr, EMPTY)
+
+
+def _alias_uniforms(frontier, draws, generator, u, coin):
+    """``u`` and ``coin``, each ``(B, draws)``, drawn in that order from
+    ``generator`` when not given."""
+    if u is None:
+        shape = (frontier.shape[0], draws)
+        u = torch.rand(shape, generator=generator, device=frontier.device)
+        coin = torch.rand(shape, generator=generator, device=frontier.device)
+    return u, coin
+
+
+def _alias_draws(indptr, indices, prob_table, alias_table, frontier, u,
+                 coin):
+    """The alias draw at every entry of ``u``, rows of degree 0 not yet
+    masked, with the rows' ``(start, deg)``.  ``alias_table`` holds global
+    ids: its entry is the pick itself, never looked up in ``indices``."""
+    _, start, deg, _ = _frontier_meta(indptr, frontier)
+    slot = torch.minimum(torch.floor(u * deg[:, None]).to(torch.int32),
+                         torch.clamp(deg - 1, min=0)[:, None])
+    # rows of degree 0 read edge 0 (a valid address), then are masked
+    edge = torch.where(deg[:, None] > 0, start[:, None] + slot, 0)
+    val = torch.where(coin >= prob_table[edge], alias_table[edge],
+                      indices[edge])
+    return val, start, deg
+
+
+def sample_weighted_khop_plain(indptr, indices, prob_table, alias_table,
+                               frontier, fanout, generator=None, *, u=None,
+                               coin=None) -> torch.Tensor:
+    """K alias draws a row, duplicates kept."""
+    u, coin = _alias_uniforms(frontier, fanout, generator, u, coin)
+    val, _, deg = _alias_draws(indptr, indices, prob_table, alias_table,
+                               frontier, u, coin)
+    return _mask_rows(val, deg)
+
+
+def sample_weighted_khop_hash_dedup_plain(
+        indptr, indices, prob_table, alias_table, frontier, fanout,
+        generator=None, *, u=None, coin=None,
+        rounds: int = HASH_DEDUP_ROUNDS) -> torch.Tensor:
+    """The first K distinct values of ``rounds * K`` alias draws, in draw
+    order, EMPTY after them when fewer appear; a row of ``deg <= K`` is the
+    whole row in CSR order.  First occurrences by two stable sorts, as the
+    JAX function finds them."""
+    m = rounds * fanout
+    u, coin = _alias_uniforms(frontier, m, generator, u, coin)
+    val, start, deg = _alias_draws(indptr, indices, prob_table, alias_table,
+                                   frontier, u, coin)
+    val_s, idx_s = torch.sort(val, dim=1, stable=True)
+    lead = torch.ones_like(val_s, dtype=torch.bool)
+    lead[:, 1:] = val_s[:, 1:] != val_s[:, :-1]
+    first_slot = torch.where(lead, idx_s, m)  # repeats sort to the back
+    ord_slot, order = torch.sort(first_slot, dim=1, stable=True)
+    ord_val = torch.gather(val_s, 1, order)
+    picked = torch.where(ord_slot[:, :fanout] < m, ord_val[:, :fanout], EMPTY)
+    j = torch.arange(fanout, device=frontier.device)[None, :]
+    live = j < deg[:, None]
+    full = torch.where(live, indices[torch.where(live, start[:, None] + j, 0)],
+                       EMPTY)
+    out = torch.where((deg <= fanout)[:, None], full, picked)
+    return _mask_rows(out, deg)
+
+
+def _coarse_pos(j, deg, lanes: int):
+    """Offset of the j-th coarse quantile of a row, ``ceil((j+1)*deg/lanes)
+    - 1``, without overflow (``deg = q*lanes + r``)."""
+    q, r = deg // lanes, deg % lanes
+    return (j + 1) * q + ((j + 1) * r + lanes - 1) // lanes - 1
+
+
+_COARSE_CHUNK = 1 << 18  # rows a step: about 1 GB of int64 temporaries
+
+
+def build_coarse_cdf(indptr: torch.Tensor, prob_prefix_table: torch.Tensor,
+                     num_node: int, lanes: int = COARSE_LANES
+                     ) -> torch.Tensor:
+    """``(num_node, lanes)`` float32, ``C[v, j] = prefix[start_v +
+    ceil((j+1)*deg_v/lanes) - 1]``: each row's CDF at ``lanes`` evenly
+    spaced offsets, 0 on rows of degree 0.  A one-time build, in steps of
+    ``_COARSE_CHUNK`` rows."""
+    dev = indptr.device
+    out = torch.zeros((num_node, lanes), dtype=torch.float32, device=dev)
+    n = prob_prefix_table.shape[0]
+    if n == 0:
+        return out
+    j = torch.arange(lanes, dtype=torch.int64, device=dev)[None, :]
+    for lo in range(0, num_node, _COARSE_CHUNK):
+        hi = min(lo + _COARSE_CHUNK, num_node)
+        start = indptr[lo:hi].to(torch.int64)[:, None]
+        d = indptr[lo + 1:hi + 1].to(torch.int64)[:, None] - start
+        e = _coarse_pos(j, torch.clamp(d, min=1), lanes)
+        pos = start + torch.minimum(torch.clamp(e, min=0),
+                                    torch.clamp(d - 1, min=0))
+        c = prob_prefix_table[torch.clamp(pos, 0, n - 1)]
+        out[lo:hi] = torch.where(d > 0, c, 0.0)
+    return out
+
+
+def _search_depth(span: Optional[int]) -> int:
+    """Binary steps that resolve an interval of ``span`` entries (32 when
+    it is not known), as the JAX function sizes its search."""
+    if span is None:
+        return 32
+    return min(32, max(1, int(math.ceil(math.log2(max(span, 2)))) + 1))
+
+
+def sample_weighted_khop_prefix_plain(
+        indptr, indices, prob_prefix_table, frontier, fanout,
+        generator=None, max_deg: Optional[int] = None, coarse_cdf=None, *,
+        u=None) -> torch.Tensor:
+    """Per pick the smallest offset with ``prefix[start+off] > u * total``,
+    clamped to ``deg - 1``: a binary search over the row, started from the
+    coarse row's bucket when ``coarse_cdf`` is given; ``max_deg`` sizes the
+    search."""
+    b = frontier.shape[0]
+    node, start, deg, _ = _frontier_meta(indptr, frontier)
+    live = (deg > 0)[:, None]
+    safe = torch.clamp(deg, min=1)[:, None]
+    if u is None:
+        u = torch.rand((b, fanout), generator=generator,
+                       device=frontier.device)
+    table = prob_prefix_table
+    total = table[torch.where(live, start[:, None] + safe - 1, 0)]
+    x = u * total  # float32, rounded to nearest, as the JAX product
+    if coarse_cdf is None:
+        lo = torch.zeros((b, fanout), dtype=torch.int64,
+                         device=frontier.device)
+        hi = (safe - 1).to(torch.int64).expand(b, fanout)
+        steps = _search_depth(max_deg)
+    else:
+        lanes = coarse_cdf.shape[1]
+        # the count of coarse values <= x (the row is nondecreasing), with
+        # x rounded up to total kept in the last bucket
+        j = torch.searchsorted(coarse_cdf[node], x.contiguous(), right=True)
+        j = torch.clamp(j, max=lanes - 1)
+        prev = torch.minimum(torch.clamp(_coarse_pos(j - 1, safe, lanes),
+                                         min=-1), safe - 1)
+        lo = torch.where(j > 0, prev + 1, 0)
+        hi = torch.minimum(torch.clamp(_coarse_pos(j, safe, lanes), min=0),
+                           safe - 1)
+        steps = _search_depth(None if max_deg is None
+                              else -(-max_deg // lanes))
+    for _ in range(steps):
+        mid = (lo + hi) >> 1
+        right = table[torch.where(live, start[:, None] + mid, 0)] <= x
+        lo = torch.where(right, mid + 1, lo)
+        hi = torch.where(right, hi, mid)
+    off = torch.minimum(lo, safe - 1)
+    return _mask_rows(indices[torch.where(live, start[:, None] + off, 0)],
+                      deg)
+
+
+def _check_weighted(indptr, indices, frontier, fanout, tables, draws, what):
+    """``tables``: ``(name, tensor, dtype)`` of edge-aligned tables;
+    ``draws``: ``(width, u, ...)``, the uniforms each ``(B, width)``."""
+    _check(indptr, indices, frontier, fanout, None, what)
+    width, *us = draws
+    tensors = []
+    for name, t, dtype in tables:
+        if (t is None or t.dtype != dtype
+                or tuple(t.shape) != tuple(indices.shape)):
+            raise ValueError(
+                f"{what}: {name} must be {dtype} {tuple(indices.shape)}, "
+                f"got {None if t is None else (t.dtype, tuple(t.shape))}"
+            )
+        tensors.append(t)
+    if any(t is None for t in us) and any(t is not None for t in us):
+        raise ValueError(f"{what}: give u and coin together")
+    for t in us:
+        if t is None:
+            continue
+        if t.dtype != torch.float32 or tuple(t.shape) != (frontier.shape[0],
+                                                          width):
+            raise ValueError(
+                f"{what}: u must be float32 ({frontier.shape[0]}, {width}), "
+                f"got {t.dtype} {tuple(t.shape)}"
+            )
+        tensors.append(t)
+    if any(t.device != frontier.device for t in tensors):
+        raise ValueError(f"{what}: tensors on different devices")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{what}: tensors must be contiguous")
+
+
+def sample_weighted_khop_prefix(
+    indptr: torch.Tensor,
+    indices: torch.Tensor,
+    prob_prefix_table: torch.Tensor,
+    frontier: torch.Tensor,
+    fanout: int,
+    generator: Optional[torch.Generator] = None,
+    max_deg: Optional[int] = None,
+    coarse_cdf: Optional[torch.Tensor] = None,
+    *,
+    u: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """``(B, fanout)`` int32 picks drawn with replacement, each neighbour
+    with the probability of its weight, by a search in the row-local
+    inclusive prefix sums ``prob_prefix_table``; EMPTY on rows of degree 0.
+
+    Every row of ``prob_prefix_table`` must be nondecreasing (sums of
+    positive weights, as ``synthetic_device.prefix_table`` makes them): the
+    kernel counts the entries ``<= u * total`` where the plain version
+    searches, and the two agree on such rows.  ``coarse_cdf``
+    (:func:`build_coarse_cdf`, 128 wide) serves the kernel's rows of more
+    than 128 entries, which are gathered otherwise; ``max_deg`` sizes the
+    plain version's search.  ``u`` as for :func:`sample_khop0`."""
+    _check_weighted(indptr, indices, frontier, fanout,
+                    [("prob_prefix_table", prob_prefix_table, torch.float32)],
+                    (fanout, u), _PREFIX)
+    num_node = indptr.shape[0] - 1
+    if coarse_cdf is not None and (
+            coarse_cdf.dtype != torch.float32
+            or tuple(coarse_cdf.shape) != (num_node, COARSE_LANES)
+            or coarse_cdf.device != frontier.device
+            or not coarse_cdf.is_contiguous()):
+        raise ValueError(
+            f"{_PREFIX}: coarse_cdf must be contiguous float32 ({num_node}, "
+            f"{COARSE_LANES}) on {frontier.device}, got {coarse_cdf.dtype} "
+            f"{tuple(coarse_cdf.shape)} on {coarse_cdf.device}"
+        )
+    if frontier.device.type == "cpu":
+        return sample_weighted_khop_prefix_plain(
+            indptr, indices, prob_prefix_table, frontier, fanout, generator,
+            max_deg, coarse_cdf, u=u)
+    b = frontier.shape[0]
+    if u is None:
+        u = torch.rand((b, fanout), generator=generator, device=frontier.device)
+    lib = _build.load("weighted")
+    out = torch.empty((b, fanout), dtype=torch.int32, device=frontier.device)
+    if b:
+        rc = lib.xg_sample_prefix(
+            indptr.data_ptr(), indices.data_ptr(),
+            prob_prefix_table.data_ptr(),
+            None if coarse_cdf is None else coarse_cdf.data_ptr(),
+            frontier.data_ptr(), u.data_ptr(), out.data_ptr(), num_node, b,
+            fanout, _build.stream_handle(frontier.device),
+        )
+        _build.check(rc, _PREFIX)
+        _build.LAUNCHES.add(_PREFIX)
+    return out
+
+
+def _sample_alias(indptr, indices, prob_table, alias_table, frontier, fanout,
+                  generator, u, coin, rounds):
+    """Both alias forms: ``rounds`` is None without dedup."""
+    dedup = rounds is not None
+    draws = rounds * fanout if dedup else fanout
+    if dedup and not (rounds >= 1 and draws <= MAX_DRAWS):
+        raise ValueError(f"{_ALIAS}: {rounds} rounds of {fanout}: the "
+                         f"kernel keeps 1 to {MAX_DRAWS} draws a row")
+    _check_weighted(indptr, indices, frontier, fanout,
+                    [("prob_table", prob_table, torch.float32),
+                     ("alias_table", alias_table, torch.int32)],
+                    (draws, u, coin), _ALIAS)
+    if frontier.device.type == "cpu":
+        if dedup:
+            return sample_weighted_khop_hash_dedup_plain(
+                indptr, indices, prob_table, alias_table, frontier, fanout,
+                generator, u=u, coin=coin, rounds=rounds)
+        return sample_weighted_khop_plain(
+            indptr, indices, prob_table, alias_table, frontier, fanout,
+            generator, u=u, coin=coin)
+    u, coin = _alias_uniforms(frontier, draws, generator, u, coin)
+    lib = _build.load("weighted")
+    b = frontier.shape[0]
+    out = torch.empty((b, fanout), dtype=torch.int32, device=frontier.device)
+    if b:
+        rc = lib.xg_sample_alias(
+            indptr.data_ptr(), indices.data_ptr(), prob_table.data_ptr(),
+            alias_table.data_ptr(), frontier.data_ptr(), u.data_ptr(),
+            coin.data_ptr(), out.data_ptr(), indptr.shape[0] - 1, b, fanout,
+            draws, int(dedup), _build.stream_handle(frontier.device),
+        )
+        _build.check(rc, _ALIAS)
+        _build.LAUNCHES.add(_ALIAS)
+    return out
+
+
+def sample_weighted_khop(
+    indptr: torch.Tensor,
+    indices: torch.Tensor,
+    prob_table: torch.Tensor,
+    alias_table: torch.Tensor,
+    frontier: torch.Tensor,
+    fanout: int,
+    generator: Optional[torch.Generator] = None,
+    *,
+    u: Optional[torch.Tensor] = None,
+    coin: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """``(B, fanout)`` int32 alias draws, duplicates kept, EMPTY on rows of
+    degree 0.  ``u``, ``coin``: ``(B, fanout)`` float32, the slot and the
+    coin of each draw; drawn from ``generator`` (u first) when not given."""
+    return _sample_alias(indptr, indices, prob_table, alias_table, frontier,
+                         fanout, generator, u, coin, None)
+
+
+def sample_weighted_khop_hash_dedup(
+    indptr: torch.Tensor,
+    indices: torch.Tensor,
+    prob_table: torch.Tensor,
+    alias_table: torch.Tensor,
+    frontier: torch.Tensor,
+    fanout: int,
+    generator: Optional[torch.Generator] = None,
+    *,
+    u: Optional[torch.Tensor] = None,
+    coin: Optional[torch.Tensor] = None,
+    rounds: int = HASH_DEDUP_ROUNDS,
+) -> torch.Tensor:
+    """``(B, fanout)`` int32: the first ``fanout`` distinct values of
+    ``rounds * fanout`` alias draws in draw order, EMPTY after them when
+    fewer appear (the bounded-rounds deviation of PARITY.md); a row of
+    ``deg <= fanout`` is the whole row.  ``u``, ``coin``: ``(B, rounds *
+    fanout)`` float32."""
+    return _sample_alias(indptr, indices, prob_table, alias_table, frontier,
+                         fanout, generator, u, coin, rounds)

@@ -1,7 +1,8 @@
 """Multi-layer mini-batch sampler.
 
-The port of ``xgnn_tpu/sampler.py`` for the uniform khop samplers (khop0,
-khop2 and khop3 through K2, khop1 through K8a) and the random walk (K9):
+The port of ``xgnn_tpu/sampler.py`` for every sampler: khop0, khop2 and
+khop3 through K2, khop1 through K8a, the weighted samplers through K8b
+(they read the graph's alias or prefix tables) and the random walk (K9):
 per layer, sample a fixed fanout from the frontier, dedup into the next
 frontier with the previous one as its prefix, and remap the picks to local
 ids.  The walk's visit counts ride on each block as its ``weights``.  With
@@ -19,7 +20,7 @@ import numpy as np
 import torch
 
 from . import constants as C
-from .config import PORTED_SAMPLERS, UNIFORM_KHOP, RunConfig, SampleType
+from .config import UNIFORM_KHOP, WEIGHTED, RunConfig, SampleType
 from .ops import random_walk, sampling, unique
 from .types import Block, Graph, SampledBatch
 
@@ -53,11 +54,16 @@ class Sampler:
     def __init__(self, graph: Graph, config: RunConfig,
                  capacities: Optional[Sequence[int]] = None,
                  direct_extract: bool = False):
-        if config.sample_type not in PORTED_SAMPLERS:
-            raise NotImplementedError(
-                f"sample_type {config.sample_type.value!r}: ROADMAP queue 1, "
-                "'Other samplers'"
-            )
+        st = config.sample_type
+        if st in WEIGHTED:
+            table = ("prob_prefix_table"
+                     if st == SampleType.WEIGHTED_KHOP_PREFIX else "prob_table")
+            if getattr(graph, table) is None:
+                raise ValueError(
+                    f"sample_type {st.value!r} reads the graph's {table}: "
+                    "build it with weighted=True (Graph.from_dataset, "
+                    "make_device_dataset)"
+                )
         self.graph = graph
         self.config = config
         self.fanouts = _layer_fanouts(config)
@@ -80,7 +86,9 @@ class Sampler:
                u: Optional[Sequence[torch.Tensor]] = None) -> SampledBatch:
         """Sample one mini-batch.  ``seeds``: ``(batch_cap,)`` int32 global
         ids, EMPTY padded.  ``u``: optional uniforms, one entry per layer:
-        ``(frontier_len, K)`` for the khop samplers, ``(u_step,
+        ``(frontier_len, K)`` for the khop samplers and the prefix draw,
+        ``(u, coin)`` for the alias draws (``(frontier_len, K)`` each, or
+        ``HASH_DEDUP_ROUNDS * K`` wide for the hash-dedup form), ``(u_step,
         u_restart)`` for the walk (``ops/random_walk.py``); otherwise drawn
         from ``generator``."""
         cfg = self.config
@@ -118,6 +126,20 @@ def _sample_layer(graph: Graph, frontier: torch.Tensor, fanout: int,
             num_random_walk=num_rw, random_walk_length=rw_len,
             restart_prob=restart, u=u,
         )
+    if sample_type in (SampleType.WEIGHTED_KHOP,
+                       SampleType.WEIGHTED_KHOP_HASH_DEDUP):
+        draw = (sampling.sample_weighted_khop
+                if sample_type == SampleType.WEIGHTED_KHOP
+                else sampling.sample_weighted_khop_hash_dedup)
+        u, coin = (None, None) if u is None else u
+        return draw(graph.indptr, graph.indices, graph.prob_table,
+                    graph.alias_table, frontier, fanout, generator, u=u,
+                    coin=coin), None
+    if sample_type == SampleType.WEIGHTED_KHOP_PREFIX:
+        return sampling.sample_weighted_khop_prefix(
+            graph.indptr, graph.indices, graph.prob_prefix_table, frontier,
+            fanout, generator, max_deg=graph.n_max_deg,
+            coarse_cdf=graph.coarse_cdf, u=u), None
     if sample_type == SampleType.KHOP1:
         draw = sampling.sample_khop1
     else:

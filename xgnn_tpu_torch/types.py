@@ -21,10 +21,18 @@ EMPTY = C.EMPTY_KEY
 
 @dataclasses.dataclass
 class Graph:
-    """CSR topology on the device."""
+    """CSR topology on the device, with the weighted samplers' tables."""
 
     indptr: torch.Tensor  # (num_node + 1,) int32
     indices: torch.Tensor  # (num_edge,) int32
+    prob_table: Optional[torch.Tensor] = None  # (num_edge,) f32, alias method
+    alias_table: Optional[torch.Tensor] = None  # (num_edge,) int32 global ids
+    # (num_edge,) f32 row-local inclusive prefix sums of the edge weights
+    prob_prefix_table: Optional[torch.Tensor] = None
+    # (num_node, 128) f32 per-row CDF quantiles (ops/sampling.build_coarse_cdf)
+    coarse_cdf: Optional[torch.Tensor] = None
+    # the largest out-degree: sizes the plain prefix search
+    n_max_deg: Optional[int] = None
 
     @property
     def num_node(self) -> int:
@@ -35,7 +43,9 @@ class Graph:
         return self.indices.shape[0]
 
     @classmethod
-    def from_dataset(cls, ds, device) -> "Graph":
+    def from_dataset(cls, ds, device, weighted: bool = False) -> "Graph":
+        """The dataset's CSR on ``device``; with ``weighted``, also the
+        tables it has, and the coarse CDF of its prefix table."""
         iptr = np.asarray(ds.indptr)
         if len(iptr) and int(iptr[-1]) >= 2**31:
             # edge offsets are int32, as on the JAX package's single store
@@ -43,10 +53,26 @@ class Graph:
                 f"graph has {int(iptr[-1])} edges (>= 2^31): a single-store "
                 "int32 CSR cannot address them"
             )
-        to = lambda a: torch.as_tensor(
-            np.asarray(a).astype(np.int32, copy=False)
-        ).to(device)
-        return cls(indptr=to(iptr), indices=to(ds.indices))
+
+        def to(a, dtype=np.int32):
+            if a is None:
+                return None
+            return torch.as_tensor(np.asarray(a).astype(dtype, copy=False)
+                                   ).to(device)
+
+        g = cls(indptr=to(iptr), indices=to(ds.indices),
+                n_max_deg=int(np.max(np.diff(iptr))) if len(iptr) > 1
+                else None)
+        if weighted:
+            g.prob_table = to(ds.prob_table, np.float32)
+            g.alias_table = to(ds.alias_table)
+            g.prob_prefix_table = to(ds.prob_prefix_table, np.float32)
+            if g.prob_prefix_table is not None:
+                from .ops.sampling import build_coarse_cdf
+
+                g.coarse_cdf = build_coarse_cdf(g.indptr, g.prob_prefix_table,
+                                                g.num_node)
+        return g
 
 
 @dataclasses.dataclass
