@@ -22,15 +22,17 @@ Phases, each fatal on failure:
    and K3 equal, block by block, to the same batch sampled through their plain
    versions from the same generator seed; K1 (row gather) on the
    direct-extract dst ids, as drawn and with 30% of them EMPTY, and on the
-   label column at the seeds, exact; K4 forward at the three layers'
-   shapes and K4 backward (with the dst prefix's gradient) at the layer-1
-   and layer-2 shapes, rtol 1e-5 / atol 1e-5, the backward also equal bit
-   for bit across two launches, with its longest segment (the most picks
-   of one src row) printed; K7 (pick multiplicity) at the three layers,
-   exact; K4 as GCN runs it, with K7's per-pick weights rsqrt(max(cnt,
-   1)): forward at the three layers (layer 2 over the 47-wide transformed
-   table) and backward without the prefix gradient at layers 1 and 2, at
-   the same tolerances and bit-equal across two launches; K5 (GAT edge
+   label column at the seeds, exact; K4's mean form (SAGE's masked mean,
+   divided in the kernel) forward at the three layers' shapes, exact, and
+   its backward (given the forward's denominator, with the dst prefix's
+   gradient) at the layer-1 and layer-2 shapes, rtol 1e-5 / atol 1e-5,
+   the backward also equal bit for bit across two launches, with its
+   longest segment (the most picks of one src row) printed; K7 (pick
+   multiplicity) at the three layers, exact; K4's sum form as GCN runs it,
+   with K7's per-pick weights rsqrt(max(cnt, 1)): forward at the three
+   layers (layer 2 over the 47-wide transformed table), exact, and
+   backward without the prefix gradient at layers 1 and 2, at the same
+   tolerances and bit-equal across two launches; K5 (GAT edge
    softmax) forward in shared mode at one head at
    layers 0 and 1 and at 8 heads at layers 0 and 1, and per head on the
    47-wide transformed table at layer 2, rtol/atol 1e-5; K5 backward at
@@ -43,10 +45,10 @@ Phases, each fatal on failure:
    capacities calibrated from 2 batches): K9 (restart random walk with
    top-K visit counts) at its two layers' frontiers, exact, with its byte
    bound and its 32-byte-sector floor; a whole PinSAGE batch through K9
-   and K3 equal to the plain path's; K4 as PinSAGE runs it, with the
-   walk's counts as weights: forward at both layers and backward with the
-   prefix gradient at layer 1, at the same tolerances and bit-equal across
-   two launches.  TF32 is off throughout.
+   and K3 equal to the plain path's; K4's mean form as PinSAGE runs it,
+   with the walk's counts as weights: forward at both layers, exact, and
+   backward with the prefix gradient at layer 1, at the same tolerances
+   and bit-equal across two launches.  TF32 is off throughout.
 5. Small reference: on a small graph the kernels' forward logits and loss
    agree with the plain path on the CPU for the same blocks and weights,
    for GraphSAGE, GCN, GAT at 1 and 8 heads, PinSAGE (its own walk
@@ -60,7 +62,7 @@ Phases, each fatal on failure:
    aggregated per second and its peak device memory.  GraphSAGE then runs
    one unpipelined epoch (per-stage device-inclusive times); every path
    but graphsage_khop1 runs one profiled pipelined epoch (the device's busy
-   time per step and its time by kernel).
+   time per step, its time by kernel, and the elementwise divisions').
 7. Weighted sampling: the weighted products dataset through
    ``make_device_dataset(weighted=True)`` (timed; its prefix table and
    coarse CDF are 496 MB and 1.25 GB), its graph, features, labels and
@@ -88,7 +90,8 @@ included, where the host is the slower) and ``device_ms`` with the host
 ahead of the card (the card's time alone).  ``bound_ms`` reads each input
 once: a gather over picks (K4 forward, K5) counts each distinct table row
 of this batch once, and ``per_pick_bound_ms`` beside it a row per valid
-pick.
+pick; K4's mean form moves the sum form's bytes.  K4's mean-form
+``library_ms`` is two calls, ``F.embedding_bag`` and the division.
 
 Prints the kernels' JSON line, then the card's line (nvidia-smi's name and
 power limit), then the result line.
@@ -121,6 +124,14 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 RTOL = ATOL = 1e-5
 K5_BWD_TOL = 1e-4  # rtol and atol of K5's g_table and g_el_dst
+# bench.py's default configuration, as RunConfig's fields
+BENCH_CONFIG = dict(
+    batch_size=BATCH, fanout=FANOUT, num_layer=len(FANOUT), num_hidden=256,
+    model="graphsage", sample_type="khop3", cache_percentage=0.0,
+    pipeline=True, agg_impl="loop", feat_dtype="float32",
+    compute_dtype="float32", device_loop=False, frontier_capacities=CAPS,
+    calibration_batches=0, remat=False,
+)
 
 
 def card_line() -> str:
@@ -194,10 +205,13 @@ def main() -> int:
         pick_multiplicity_plain,
     )
     from xgnn_tpu_torch.ops.fanout import (
+        MEAN_EPS,
         fanout_backward,
         fanout_backward_plain,
         fanout_reduce,
         fanout_reduce_plain,
+        masked_mean,
+        masked_mean_plain,
     )
     from xgnn_tpu_torch.ops.gather import gather_rows, gather_rows_plain
     from xgnn_tpu_torch.ops.random_walk import (
@@ -258,13 +272,7 @@ def main() -> int:
     graph_s = time.perf_counter() - t0
     print(f"{tag} graph: {ds.num_node} nodes, {ds.num_edge} edges, built in "
           f"{graph_s:.3f} s", flush=True)
-    cfg = RunConfig(  # bench.py's default configuration
-        batch_size=BATCH, fanout=FANOUT, num_layer=len(FANOUT),
-        num_hidden=256, model="graphsage", sample_type="khop3",
-        cache_percentage=0.0, pipeline=True, agg_impl="loop",
-        feat_dtype="float32", compute_dtype="float32", device_loop=False,
-        frontier_capacities=CAPS, calibration_batches=0, remat=False,
-    )
+    cfg = RunConfig(**BENCH_CONFIG)
     t0 = time.perf_counter()
     engine = Engine(ds, cfg).init()
     torch.cuda.synchronize()
@@ -520,58 +528,79 @@ def main() -> int:
         """the table rows the valid picks read, each counted once"""
         return int(torch.unique(nb[valid]).numel())
 
-    def fwd_case(name, h, blk, per_step, weights=None, path="graphsage",
-                 wname="GCN weights"):
+    def fwd_case(h, blk, per_step, weights=None, path="graphsage",
+                 wname="GCN weights", mean=False):
+        """K4 forward: the sum form (GCN), or with ``mean`` the masked mean
+        (SAGE, PinSAGE), whose library yardstick is two calls: the sum by
+        F.embedding_bag, then the division by the clamped denominator."""
         nb = blk.neigh
+        fn, plain = ((masked_mean, masked_mean_plain) if mean
+                     else (fanout_reduce, fanout_reduce_plain))
+        form = "mean" if mean else "sum"
         with torch.no_grad():
-            s, d = fanout_reduce(h, nb, weights)
-            s_ref, d_ref = fanout_reduce_plain(h, nb, weights)
+            s, d = fn(h, nb, weights)
+            s_ref, d_ref = plain(h, nb, weights)
         torch.cuda.synchronize()
-        assert_close(name + " sum", s, s_ref, exact=False)
-        assert_close(name + " denom", d, d_ref, exact=False)
+        assert_close(f"fanout_fwd {form}", s, s_ref, exact=True)
+        assert_close("fanout_fwd denom", d, d_ref, exact=True)
         valid = (nb >= 0) & (nb < h.shape[0])
         picks, rows_read = int(valid.sum()), distinct_rows(nb, valid)
         clamped = torch.where(valid, nb, 0).long()
         msk = valid.float() if weights is None else valid.float() * weights
+        den_lib = torch.clamp(msk.sum(1, keepdim=True), min=MEAN_EPS)
         f = h.shape[1]
-        # the ids (and weights) in, the sum and the denominator out
+
+        def library():
+            out = F.embedding_bag(clamped, h, mode="sum",
+                                  per_sample_weights=msk)
+            return out / den_lib if mean else out
+
+        # the ids (and weights) in, the sum or mean and the denominator out
         other = (nb.numel() * (4 if weights is None else 8)
                  + nb.shape[0] * (f + 1) * 4)
         with torch.no_grad():
-            record(name, "xgnn_tpu_torch/csrc/fanout.cu",
-                   "xgnn_tpu/models/gnn.py:62",
-                   f"{tuple(nb.shape)} picks ({picks} valid, {rows_read} "
-                   f"distinct rows) over {tuple(h.shape)} f32"
+            record("fanout_fwd", "xgnn_tpu_torch/csrc/fanout.cu",
+                   "xgnn_tpu/models/gnn.py:"
+                   + ("144-147 (masked_mean_stream over fanout_reduce, :62)"
+                      if mean else "62"),
+                   f"{form} form: {tuple(nb.shape)} picks ({picks} valid, "
+                   f"{rows_read} distinct rows) over {tuple(h.shape)} f32"
                    + ("" if weights is None else f", {wname}"),
-                   max(max_err(s, s_ref), max_err(d, d_ref)),
-                   f"rtol {RTOL}, atol {ATOL}",
-                   lambda: fanout_reduce(h, nb, weights),
-                   lambda: fanout_reduce_plain(h, nb, weights),
-                   lambda: F.embedding_bag(clamped, h, mode="sum",
-                                           per_sample_weights=msk),
+                   max(max_err(s, s_ref), max_err(d, d_ref)), "exact",
+                   lambda: fn(h, nb, weights),
+                   lambda: plain(h, nb, weights), library,
                    "F.embedding_bag(mode='sum', per_sample_weights=mask"
-                   + ("" if weights is None else " * weights") + ")",
+                   + ("" if weights is None else " * weights") + ")"
+                   + (", then / clamp(denom, 1e-9) (two calls; denom "
+                      "precomputed)" if mean else ""),
                    nbytes=rows_read * f * 4 + other,
                    pick_nbytes=picks * f * 4 + other,
-                   flops=picks * f, per_step=per_step, path=path)
+                   flops=picks * f + (nb.shape[0] * f if mean else 0),
+                   per_step=per_step, path=path)
+        kernels[-1]["form"] = form
 
-    fwd_case("fanout_fwd", feat, b0, 3)
-    fwd_case("fanout_fwd", h1, b1, 3)
-    fwd_case("fanout_fwd", h2, b2, 3)
+    fwd_case(feat, b0, 3, mean=True)
+    fwd_case(h1, b1, 3, mean=True)
+    fwd_case(h2, b2, 3, mean=True)
 
     def bwd_case(h, blk, weights=None, with_dst=True, path="graphsage",
-                 wname="GCN weights", per_step=2):
-        """K4 backward: the gradient w.r.t. h of the fanout sum, and of the
-        dst prefix h[:D] where ``with_dst`` (SAGE's and PinSAGE's local-id
-        blocks; GCN's weighted sum has no prefix term)."""
+                 wname="GCN weights", per_step=2, mean=True):
+        """K4 backward: the gradient w.r.t. h of the fanout mean (SAGE's and
+        PinSAGE's, given the forward's denominator) or, without ``mean``,
+        of the sum (GCN's), and of the dst prefix h[:D] where ``with_dst``
+        (SAGE's and PinSAGE's local-id blocks; GCN's weighted sum has no
+        prefix term)."""
         nb = blk.neigh
         d, (rows, f) = nb.shape[0], h.shape
-        g_sum = torch.randn((d, f), generator=gen, device=dev)
+        g_out = torch.randn((d, f), generator=gen, device=dev)
         g_dst = (torch.randn((d, f), generator=gen, device=dev) if with_dst
                  else None)
-        gh = fanout_backward(g_sum, nb, weights, rows, g_dst)
-        again = fanout_backward(g_sum, nb, weights, rows, g_dst)
-        ref = fanout_backward_plain(g_sum, nb, weights, rows, g_dst)
+        with torch.no_grad():
+            den = masked_mean(h, nb, weights)[1] if mean else None
+        args = (g_out, nb, weights, rows, g_dst, den)
+        gh = fanout_backward(*args)
+        again = fanout_backward(*args)
+        ref = fanout_backward_plain(*args)
         torch.cuda.synchronize()
         assert_close("fanout_bwd", gh, ref, exact=False)
         if not torch.equal(gh, again):
@@ -580,41 +609,51 @@ def main() -> int:
         valid = (nb >= 0) & (nb < rows)
         picks = int(valid.sum())
         longest = int(torch.bincount(nb[valid].long(), minlength=rows).max())
-        print(f"{tag} fanout_bwd {tuple(nb.shape)} into ({rows}, {f})"
-              f"{'' if weights is None else ' with ' + wname}: longest "
+        form = "mean" if mean else "sum"
+        print(f"{tag} fanout_bwd {form} form {tuple(nb.shape)} into ({rows}, "
+              f"{f}){'' if weights is None else ' with ' + wname}: longest "
               f"segment {longest} picks of one src row; two launches equal "
               "bit for bit", flush=True)
         hl = h.clone().requires_grad_(True)
         msk = valid.float() if weights is None else valid.float() * weights
-        lib_sum = F.embedding_bag(torch.where(valid, nb, 0).long(), hl,
+        lib_out = F.embedding_bag(torch.where(valid, nb, 0).long(), hl,
                                   mode="sum", per_sample_weights=msk)
+        if mean:
+            lib_out = lib_out / torch.clamp(den, min=MEAN_EPS)
         if with_dst:
-            lib_outs, lib_grads = (hl[:d], lib_sum), (g_dst, g_sum)
+            lib_outs, lib_grads = (hl[:d], lib_out), (g_dst, g_out)
         else:
-            lib_outs, lib_grads = (lib_sum,), (g_sum,)
+            lib_outs, lib_grads = (lib_out,), (g_out,)
         record("fanout_bwd", "xgnn_tpu_torch/csrc/fanout.cu",
-               "xgnn_tpu/models/gnn.py:62",
-               f"{tuple(nb.shape)} picks ({picks} valid) into ({rows}, {f}) "
-               "f32 " + ("" if weights is None else f"with {wname}, ")
+               "xgnn_tpu/models/gnn.py:"
+               + ("144-147 (masked_mean_stream over fanout_reduce, :62)"
+                  if mean else "62"),
+               f"{form} form: {tuple(nb.shape)} picks ({picks} valid) into "
+               f"({rows}, {f}) f32 "
+               + ("" if weights is None else f"with {wname}, ")
                + ("with the prefix gradient" if with_dst else "no prefix")
                + f"; longest segment {longest}",
                max_err(gh, ref),
                f"rtol {RTOL}, atol {ATOL}; bit-equal across launches",
-               lambda: fanout_backward(g_sum, nb, weights, rows, g_dst),
-               lambda: fanout_backward_plain(g_sum, nb, weights, rows, g_dst),
+               lambda: fanout_backward(*args),
+               lambda: fanout_backward_plain(*args),
                lambda: torch.autograd.grad(lib_outs, hl, lib_grads,
                                            retain_graph=True),
                "torch.autograd.grad of "
                + ("(h[:D], " if with_dst else "(")
                + "F.embedding_bag(mode='sum', per_sample_weights=mask"
-               + ("" if weights is None else " * weights") + ")) w.r.t. h",
-               # grad_sum (and grad_dst), neigh (and weights) in, every
-               # grad_h row out
+               + ("" if weights is None else " * weights") + ")"
+               + (" / clamp(denom, 1e-9)" if mean else "") + ") w.r.t. h",
+               # grad_out (and grad_dst, denom), neigh (and weights) in,
+               # every grad_h row out
                nbytes=(2 if with_dst else 1) * d * f * 4
-               + nb.numel() * (4 if weights is None else 8) + rows * f * 4,
-               flops=picks * f + (d * f if with_dst else 0),
+               + nb.numel() * (4 if weights is None else 8) + rows * f * 4
+               + (d * 4 if mean else 0),
+               flops=picks * f + (d * f if with_dst else 0)
+               + (picks * f if mean else 0),
                per_step=per_step, path=path)
         kernels[-1]["longest_segment"] = longest
+        kernels[-1]["form"] = form
 
     bwd_case(h1, b1)
     bwd_case(h2, b2)
@@ -651,9 +690,10 @@ def main() -> int:
     for layer, (h, blk) in enumerate(((feat, b0), (h1, b1), (h2t, b2))):
         cnt = pick_multiplicity(blk.neigh, h.shape[0])
         w = torch.rsqrt(torch.clamp(cnt.to(torch.float32), min=1.0))
-        fwd_case("fanout_fwd", h, blk, 3, weights=w, path="gcn")
+        fwd_case(h, blk, 3, weights=w, path="gcn")
         if layer:
-            bwd_case(h, blk, weights=w, with_dst=False, path="gcn")
+            bwd_case(h, blk, weights=w, with_dst=False, path="gcn",
+                     mean=False)
         del cnt, w
 
     def attend_library(table, nb, el, proj, mode):
@@ -945,10 +985,10 @@ def main() -> int:
     pb0, pb1 = pbatch.blocks
     h_pin = torch.randn((pb0.dst_cap, cfg.num_hidden), generator=gen,
                         device=dev)
-    fwd_case("fanout_fwd", feat, pb0, 2, weights=pb0.weights, path="pinsage",
-             wname="walk counts")
-    fwd_case("fanout_fwd", h_pin, pb1, 2, weights=pb1.weights,
-             path="pinsage", wname="walk counts")
+    fwd_case(feat, pb0, 2, weights=pb0.weights, path="pinsage",
+             wname="walk counts", mean=True)
+    fwd_case(h_pin, pb1, 2, weights=pb1.weights, path="pinsage",
+             wname="walk counts", mean=True)
     bwd_case(h_pin, pb1, weights=pb1.weights, with_dst=True, path="pinsage",
              wname="walk counts", per_step=1)
     del pbatch, pb0, pb1, h_pin
@@ -1107,11 +1147,17 @@ def main() -> int:
             ("K9, *random_walk*", lambda n: "random_walk" in n),
             ("K8b, *sample_prefix* and *sample_alias*",
              lambda n: "sample_prefix" in n or "sample_alias" in n),
+            ("elementwise divisions, *divfunctor* (a mean's division "
+             "outside K4, forward and backward, and Adam's)",
+             lambda n: "divfunctor" in n),
         )
         for what, match in groups:
-            us = sum(t for name, t in by_name.items() if match(name.lower()))
+            hits = [(name, end - start) for start, end, name in spans
+                    if match(name.lower())]
+            us = sum(t for _, t in hits)
             print(f"{tag}   device ms per step in {what}: "
-                  f"{us / 1e3 / steps:.3f}", flush=True)
+                  f"{us / 1e3 / steps:.3f} ({len(hits) / steps:.1f} "
+                  "kernels a step)", flush=True)
 
     def edges_of(sampler):
         """edges aggregated per step, counted from the block masks

@@ -198,6 +198,156 @@ def test_no_backward_launch_for_a_table_without_grad(dev):
     assert _build.LAUNCHES.snapshot() == {"fanout_fwd": 1}
 
 
+@pytest.mark.parametrize("table", ["47", "128", "256", "128 unaligned"])
+@pytest.mark.parametrize("fanout", [5, 10, 15, 7, 33])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_fanout_forward_kernel_is_the_plain_version(dev, table, fanout,
+                                                    weighted):
+    """Both forms of the forward, the sum and the masked mean, against
+    their plain versions on the card bit for bit: the main path's fanouts
+    (5, 10, 15, templated) and two others (7, and 33 across two chunks of
+    32 picks), float4 lanes (128: one slice, 256: two), float lanes (47 and
+    a table 4 bytes off 16-byte alignment), invalid picks and a dst row
+    with none."""
+    from xgnn_tpu_torch.ops import _build
+    from xgnn_tpu_torch.ops.fanout import (
+        fanout_reduce,
+        fanout_reduce_plain,
+        masked_mean,
+        masked_mean_plain,
+    )
+
+    width = int(table.split()[0])
+    g = _gen(dev, width + fanout)
+    n, d = 5000, 1234
+    if table.endswith("unaligned"):
+        h = torch.randn((n * width + 1,), generator=g,
+                        device=dev)[1:].view(n, width)
+        assert h.data_ptr() % 16 != 0
+    else:
+        h = torch.randn((n, width), generator=g, device=dev)
+    neigh = torch.randint(-2, n + 2, (d, fanout), generator=g, device=dev,
+                          dtype=torch.int32)
+    neigh[torch.rand((d, fanout), generator=g, device=dev) < 0.3] = EMPTY
+    neigh[7] = EMPTY
+    w = (torch.rand((d, fanout), generator=g, device=dev) + 0.5
+         if weighted else None)
+    _build.LAUNCHES.reset()
+    for fn, plain in ((fanout_reduce, fanout_reduce_plain),
+                      (masked_mean, masked_mean_plain)):
+        out, den = fn(h, neigh, w)
+        ref, den_ref = plain(h, neigh, w)
+        assert torch.equal(out, ref) and torch.equal(den, den_ref)
+    assert _build.LAUNCHES.snapshot() == {"fanout_fwd": 2}
+    assert torch.all(out[7] == 0) and float(den[7]) == 0.0
+
+
+@pytest.mark.parametrize("width", [7, 128, 256])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_fanout_backward_with_denom_is_the_cpu_plain_version(dev, width,
+                                                             weighted):
+    """The mean form's backward (``denom`` given): at a shape where no src
+    row has more than 32 picks, bit-equal to the CPU plain version, which
+    divides first, and bit-equal across two launches, with dst rows that
+    have no valid pick (divided by 1e-9)."""
+    from xgnn_tpu_torch.ops.fanout import (
+        fanout_backward,
+        fanout_backward_plain,
+        masked_mean,
+    )
+
+    n, d, fanout = 400, 300, 5
+    neigh, w, gs, gd = _bwd_case(dev, n, d, width, fanout, weighted,
+                                 width + 3)
+    neigh[:4] = EMPTY
+    h = torch.randn((n, width), generator=_gen(dev, 5), device=dev)
+    _, den = masked_mean(h, neigh, w)
+    assert int((den == 0).sum()) >= 4
+    cpu = [None if t is None else t.cpu() for t in (neigh, w, gs, gd, den)]
+    ref = fanout_backward_plain(cpu[2], cpu[0], cpu[1], n, cpu[3], cpu[4])
+    got = fanout_backward(gs, neigh, w, n, gd, den)
+    assert torch.equal(got, fanout_backward(gs, neigh, w, n, gd, den))
+    assert torch.equal(got.cpu(), ref)
+
+
+@pytest.mark.parametrize("width", [7, 128])
+@pytest.mark.parametrize("fanout", [10, 7])
+@pytest.mark.parametrize("mean", [False, True])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_fanout_backward_on_a_large_block_is_the_cpu_plain_version(
+        dev, width, fanout, mean, weighted):
+    """From 32,768 dst rows on, the rows kernel takes 5 picks of a dst row
+    a task (K = 10: two tasks a row; K = 7: 5 and 2) under its register
+    cap.  With the prefix gradient and half the gradient entries zero (as
+    after ReLU), the sum form and the mean form (``denom`` given) are
+    bit-equal to the CPU plain version where no src row has more than 32
+    picks, and across two launches."""
+    from xgnn_tpu_torch.ops.fanout import (
+        fanout_backward,
+        fanout_backward_plain,
+        fanout_reduce_plain,
+    )
+
+    n, d = 120_000, 40_000
+    neigh, w, gs, gd = _bwd_case(dev, n, d, width, fanout, weighted,
+                                 width + fanout)
+    gs[torch.rand(gs.shape, generator=_gen(dev, 3), device=dev) < 0.5] = 0.0
+    valid = (neigh >= 0) & (neigh < n)
+    assert int(torch.bincount(neigh[valid].long(), minlength=n).max()) <= 32
+    den = (fanout_reduce_plain(torch.zeros((n, 1), device=dev), neigh, w)[1]
+           if mean else None)
+    cpu = [None if t is None else t.cpu() for t in (neigh, w, gs, gd, den)]
+    ref = fanout_backward_plain(cpu[2], cpu[0], cpu[1], n, cpu[3], cpu[4])
+    got = fanout_backward(gs, neigh, w, n, gd, den)
+    assert torch.equal(got, fanout_backward(gs, neigh, w, n, gd, den))
+    assert torch.equal(got.cpu(), ref)
+
+
+@pytest.mark.parametrize("model", ["graphsage", "pinsage"])
+def test_mean_aggregate_launches_no_division(dev, model):
+    """SAGEConv and PinSAGEConv divide inside K4: one forward launch a
+    layer, and no PyTorch division kernel in the step's forward and
+    backward (the profiler's device events); a mean under ``no_grad`` is
+    one kernel on the card."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from xgnn_tpu_torch import RunConfig, make_device_dataset
+    from xgnn_tpu_torch.device import generator
+    from xgnn_tpu_torch.models import build_model
+    from xgnn_tpu_torch.ops import _build
+    from xgnn_tpu_torch.ops.fanout import masked_mean
+    from xgnn_tpu_torch.sampler import Sampler
+
+    ds = make_device_dataset(5000, 30_000, 32, 6, seed=2, device=dev)
+    cfg = RunConfig(batch_size=128, fanout=(6, 4, 3), num_hidden=32,
+                    model=model, dropout=0.0,
+                    frontier_capacities=None if model == "pinsage"
+                    else (128, 896, 3584, 5000))
+    batch = Sampler(ds.graph, cfg, direct_extract=True).sample(
+        torch.from_numpy(ds.train_set[:128]).to(dev), 128, generator(dev, 1))
+    net = build_model(cfg, 32, 6).to(dev)
+    torch.cuda.synchronize()
+    _build.LAUNCHES.reset()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        net(batch.blocks, ds.feat).square().sum().backward()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    layers = len(batch.blocks)
+    assert _build.LAUNCHES.snapshot()["fanout_fwd"] == layers
+    assert sum("fanout_fwd_kernel" in x for x in names) == layers
+    assert not [x for x in names if "div" in x.lower()]
+    neigh = batch.blocks[0].neigh
+    with torch.no_grad(), profile(activities=[ProfilerActivity.CPU,
+                                              ProfilerActivity.CUDA]) as one:
+        masked_mean(ds.feat, neigh)
+        torch.cuda.synchronize()
+    kernels = [e.name for e in one.events()
+               if e.device_type == DeviceType.CUDA]
+    assert len(kernels) == 1 and "fanout_fwd_kernel" in kernels[0]
+
+
 def _hub_csr(dev, fanout, seed):
     """A CSR whose rows have degree 0, below, at and above ``fanout``, and
     hubs past 2^16, with random neighbour ids."""

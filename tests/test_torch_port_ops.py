@@ -438,6 +438,146 @@ def test_fanout_reduce_refuses_weight_gradients_and_bad_input():
         fanout_reduce(h.double(), neigh)
 
 
+@pytest.mark.parametrize("prefix", [False, True])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_masked_mean_matches_jax(prefix, weighted):
+    """``masked_mean`` against ``masked_mean_stream``, and
+    ``prefix_masked_mean`` against ``_take_dst`` plus it: values and
+    ``jax.grad``, on ``_prefix_case``'s picks (EMPTY, negative and too-large
+    ids, a dst row with no valid pick, src row 3 picked 520 times)."""
+    from xgnn_tpu.models.gnn import _take_dst, masked_mean_stream
+    from xgnn_tpu.types import Block as JBlock
+    from xgnn_tpu_torch.ops.fanout import masked_mean, prefix_masked_mean
+
+    h, neigh, w, g_dst, g_mean = _prefix_case(weighted,
+                                              11 + 2 * prefix + weighted)
+    n, d = h.shape[0], neigh.shape[0]
+    assert (neigh == 3).sum() >= 500 and not (
+        (neigh[5] >= 0) & (neigh[5] < n)).any()
+    # the JAX loop clips picks outside [0, N) other than EMPTY (ROADMAP
+    # section 3); the port skips them, so JAX sees them as EMPTY
+    jneigh = np.where((neigh >= 0) & (neigh < n), neigh, EMPTY_KEY)
+    blk = JBlock(neigh=jnp.asarray(jneigh), num_dst=jnp.int32(d),
+                 num_src=jnp.int32(n))
+    jw = None if w is None else jnp.asarray(w)
+
+    def jfwd(x):
+        return _take_dst(blk, x), masked_mean_stream(x, blk, jw, impl="loop")
+
+    def jloss(x):
+        h_dst, mean = jfwd(x)
+        return (jnp.sum(h_dst * g_dst) if prefix else 0.0) + jnp.sum(
+            mean * g_mean)
+
+    dst_ref, mean_ref = jfwd(jnp.asarray(h))
+    gh_ref = jax.grad(jloss)(jnp.asarray(h))
+
+    ht = _t(h).requires_grad_(True)
+    tw = None if w is None else _t(w)
+    if prefix:
+        h_dst, mean, den = prefix_masked_mean(ht, _t(neigh), tw)
+        np.testing.assert_array_equal(h_dst.detach().numpy(),
+                                      np.asarray(dst_ref))
+        (gh,) = torch.autograd.grad((h_dst, mean), ht,
+                                    (_t(g_dst), _t(g_mean)))
+    else:
+        mean, den = masked_mean(ht, _t(neigh), tw)
+        (gh,) = torch.autograd.grad(mean, ht, _t(g_mean))
+    tol = dict(rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(mean.detach().numpy(), np.asarray(mean_ref),
+                               **tol)
+    np.testing.assert_allclose(gh.numpy(), np.asarray(gh_ref), **tol)
+    assert torch.all(mean[5] == 0) and float(den[5]) == 0.0
+    assert not den.requires_grad
+
+
+@pytest.mark.parametrize("prefix", [False, True])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_masked_mean_is_the_sum_route_bit_for_bit(prefix, weighted):
+    """On the CPU the mean form and its gradient equal the sum form
+    followed by ``s / torch.clamp(denom, min=1e-9)`` under autograd bit for
+    bit, and ``fanout_backward`` with ``denom`` equals the plain backward
+    of the divided gradient."""
+    from xgnn_tpu_torch.ops.fanout import (
+        fanout_backward,
+        fanout_backward_plain,
+        fanout_reduce,
+        masked_mean,
+        masked_mean_plain,
+        prefix_masked_mean,
+    )
+
+    h, neigh, w, g_dst, g_mean = (
+        None if a is None else _t(a)
+        for a in _prefix_case(weighted, 21 + 2 * prefix + weighted))
+    n, d = h.shape[0], neigh.shape[0]
+    old = h.clone().requires_grad_(True)
+    s, den_old = fanout_reduce(old, neigh, w)
+    mean_old = s / torch.clamp(den_old, min=1e-9)
+    outs_old, grads = (((old[:d], mean_old), (g_dst, g_mean)) if prefix
+                       else ((mean_old,), (g_mean,)))
+    (g_old,) = torch.autograd.grad(outs_old, old, grads)
+
+    new = h.clone().requires_grad_(True)
+    if prefix:
+        h_dst, mean, den = prefix_masked_mean(new, neigh, w)
+        (g_new,) = torch.autograd.grad((h_dst, mean), new, grads)
+    else:
+        mean, den = masked_mean(new, neigh, w)
+        (g_new,) = torch.autograd.grad(mean, new, grads)
+    assert torch.equal(mean, mean_old) and torch.equal(den, den_old)
+    assert torch.equal(g_new, g_old)
+    plain_mean, plain_den = masked_mean_plain(h, neigh, w)
+    assert torch.equal(plain_mean, mean_old) and torch.equal(plain_den, den)
+    g_dst_arg = g_dst if prefix else None
+    ref = fanout_backward_plain(g_mean / torch.clamp(den, min=1e-9), neigh,
+                                w, n, g_dst_arg)
+    assert torch.equal(fanout_backward(g_mean, neigh, w, n, g_dst_arg, den),
+                       ref)
+    assert torch.equal(g_new, ref)
+
+
+def test_masked_mean_without_a_gradient_skips_autograd():
+    """A table that needs no gradient, or a call under ``no_grad``, takes
+    the launch alone: the outputs have no autograd node, and equal the
+    tracked call's."""
+    from xgnn_tpu_torch.ops.fanout import (
+        fanout_reduce,
+        masked_mean,
+        prefix_masked_mean,
+    )
+
+    h, neigh, w, _, _ = (None if a is None else _t(a)
+                         for a in _prefix_case(True, 31))
+    tracked = h.clone().requires_grad_(True)
+    for fn in (fanout_reduce, masked_mean, prefix_masked_mean):
+        outs = fn(tracked, neigh, w)
+        assert outs[-2].grad_fn is not None and not outs[-1].requires_grad
+        with torch.no_grad():
+            quiet = fn(tracked, neigh, w)
+        plain = fn(h, neigh, w)
+        for a, b, c in zip(outs, quiet, plain):
+            assert b.grad_fn is None and c.grad_fn is None
+            assert torch.equal(a, b) and torch.equal(a, c)
+    with pytest.raises(NotImplementedError):
+        masked_mean(h, neigh, w.clone().requires_grad_(True))
+    with pytest.raises(ValueError):
+        prefix_masked_mean(h[:10], neigh, w)  # D > N
+
+
+def test_fanout_backward_refuses_a_bad_denom():
+    from xgnn_tpu_torch.ops.fanout import fanout_backward
+
+    gs = torch.zeros((3, 4))
+    neigh = torch.zeros((3, 2), dtype=torch.int32)
+    assert fanout_backward(gs, neigh, None, 5, denom=torch.ones((3, 1))).eq(
+        0).all()
+    for denom in (torch.ones((2, 1)), torch.ones((3, 1)).double(),
+                  torch.ones((6, 1))[::2]):
+        with pytest.raises(ValueError):
+            fanout_backward(gs, neigh, None, 5, denom=denom)
+
+
 # --------------------------------------------------------------- SAGE model
 def _jax_batch(ds, direct, fanout, seed):
     from xgnn_tpu import RunConfig as JConfig

@@ -1,41 +1,56 @@
-// K4: fanout gather-reduce, forward and backward.
+// K4: fanout gather-reduce, forward (a sum or a masked mean) and backward.
 //
 // Forward:  sum[i, :] = sum_k m[i,k] * h_src[neigh[i,k], :]
 //           denom[i]  = sum_k m[i,k]
+//           mean[i, :] = sum[i, :] / max(denom[i], 1e-9)   (the mean form)
 // where m[i,k] = valid(neigh[i,k]) (times weights[i,k] when given) and a
 // pick is valid when it lies in [0, num_rows): EMPTY (int32 max) is not.
+// The sum form serves GCN; the mean form is the JAX package's
+// masked_mean_stream (SAGE and PinSAGE), its division in the epilogue, so
+// the (D, F) sum never reaches device memory.
 // Backward, for every src row r < num_rows:
 //   grad_h[r, :] = sum over the valid picks (i,k) with neigh[i,k] = r of
-//                  m[i,k] * grad_sum[i, :]   (+ grad_dst[r, :] if r < D)
-// summed from 0 in ascending k, then ascending i, with grad_dst added last.
-// grad_dst is the gradient of a local-id block's dst rows, which are the
-// prefix h_src[:D] (D = num_dst); it may be absent.  A row that no pick
-// lands on gets zeros (or grad_dst[r]).  denom carries no gradient.
+//                  m[i,k] * g[i, :]   (+ grad_dst[r, :] if r < D)
+// where g = grad_sum, or grad_sum[i, :] / max(denom[i], 1e-9) when denom is
+// given (the gradient of the mean form), summed from 0 in ascending k, then
+// ascending i, with grad_dst added last.  grad_dst is the gradient of a
+// local-id block's dst rows, which are the prefix h_src[:D] (D = num_dst);
+// it may be absent.  A row that no pick lands on gets zeros (or
+// grad_dst[r]).  denom carries no gradient.
 //
 // Replaces: xgnn_tpu/models/gnn.py, fanout_reduce (the "loop" contract,
-// K unrolled gather + FMA passes that XLA fuses) and its autodiff
-// scatter-add, together with the gradient of _take_dst's prefix slice.  On
-// the TPU it was XLA ops, not a Pallas kernel; the port writes it by hand
-// because it is the heaviest traffic of the step.
+// K unrolled gather + FMA passes that XLA fuses) and masked_mean_stream's
+// division, and their autodiff scatter-add, together with the gradient of
+// _take_dst's prefix slice.  On the TPU it was XLA ops, not a Pallas
+// kernel; the port writes it by hand because it is the heaviest traffic of
+// the step.
 //
 // What bounds it on an H100: bytes.  The forward reads every valid pick's
 // row once (layer 0 of the main path: about 5M rows of 512 B from the
-// 2.45M-row feature table) and writes each sum row once; one FMA per element
-// read is far below the card's arithmetic rate.  The backward reads
-// grad_sum, grad_dst and neigh once and writes every grad_h row once (layer
-// 1 of the main path: 137 + 137 + 5 MB in, 1,031 MB out, about 0.39 ms at
-// 3.35 TB/s); one add per pick element.  The design adds a counting sort of
-// a few MB of int32 and reads the grad_sum rows of a src row's second and
-// later picks out of order.
+// 2.45M-row feature table) and writes each output row once; one FMA per
+// element read (and one division per element written) is far below the
+// card's arithmetic rate.  The backward reads grad_sum, grad_dst and neigh
+// once and writes every grad_h row once (layer 1 of the main path: 137 +
+// 137 + 5 MB in, 1,031 MB out, about 0.39 ms at 3.35 TB/s); one add per pick
+// element.  The design adds a counting sort of a few MB of int32 and reads
+// the grad_sum rows of a src row's second and later picks out of order.
 //
-// Design, forward: one warp per dst row.  Lanes hold a 16-byte column slice
-// (float4) when F % 4 == 0 and the tables are aligned, else one float; the
-// K picks are summed in registers in pick order and the row is written
-// once, so the (dst, F) accumulator never round-trips device memory as it
-// did in the K-pass XLA loop.  All lanes read the same pick id (a broadcast
-// load).  An invalid pick reads nothing.  Sums run in the order k = 0..K-1
-// with the product rounded before the add, as the plain PyTorch version
-// does, so the two agree bit for bit.
+// Design, forward: one warp per dst row, templated on the fanout (5, 10
+// and 15, the main path's; any other K in chunks of 32 picks).  Lanes
+// j < K load the row's ids (and weights) once, in one coalesced read, and
+// hand them round by shuffles.  Lanes hold a 16-byte column slice (float4)
+// when F % 4 == 0 and the tables are aligned, else one float, and two
+// slices past 128 floats (a 1 KB row at width 256 is one warp-wide pair of
+// loads; the 47-wide table one pass over the picks).  The row loads of
+// kGroup picks are issued before the adds consume them, so each warp keeps
+// several rows in flight.  The K picks
+// are summed in registers in pick order, the mean form divides in
+// registers, and the row is written once with an evict-first store, so the
+// output does not push table rows out of L2.  An invalid pick reads
+// nothing and adds +0.  Sums run in the order k = 0..K-1 from 0 with the
+// product rounded before the add (__fmul_rn) and the division is IEEE
+// (__fdiv_rn), as the plain PyTorch version computes them, so the two agree
+// bit for bit.
 //
 // Design, backward: the picks are grouped by src row with a counting sort,
 // then each src row is summed by one warp (or, for a long row, one block)
@@ -52,10 +67,13 @@
 //      off[r] + atomicSub(&cnt[r], 1) - 1.  Each segment then holds its
 //      row's keys in an order that varies from run to run.
 //   6. rows of 1..kShort picks (nearly all): a warp takes kPicksPerWarp
-//      picks of one dst row i.  A pick whose key is its row's smallest owns
-//      the row, and the warp sums each row it owns: lane j loads the row's
-//      key j, and since the keys are distinct a key's rank among them
-//      (shuffles) is its place in ascending (k, i) order.  Lanes hold float4
+//      (kPicksPerWarpLarge from kLargeDst dst rows on) picks of one dst
+//      row i.  A row whose only pick is one of them is m * grad_sum[i]:
+//      the warp reads grad_sum[i] once for all such rows.  Else a pick
+//      whose key is its row's smallest owns the row, and the warp sums
+//      each row it owns: lane j loads the row's key j, and since the keys
+//      are distinct a key's rank among them (shuffles) is its place in
+//      ascending (k, i) order.  Lanes hold float4
 //      column slices (float when F % 4 != 0 or a table is unaligned) and
 //      add the picks' grad_sum rows in that order in registers, grad_dst
 //      last.  The warps run roughly in dst-row order, and most src rows have
@@ -72,9 +90,18 @@
 //      order, then grad_dst.  The partition depends only on the row's
 //      length, so the result is deterministic, though its rounding is not
 //      the single chain of a short row.
-// Weighted products are __fmul_rn, never fused into the add, and each sum
-// starts from 0, so a row of at most kShort picks equals the plain
-// version's index_add_ passes on the CPU bit for bit.
+// With denom, each grad_sum element is divided (__fdiv_rn) as it is
+// loaded, before the weight's product: once a task for the rows of one
+// pick, and once a pick, with the divisor read once a row, for the rest.
+// A zero element keeps its value without the division's slow path, and
+// from kLargeDst dst rows on the rows kernel is held to 32 registers (8
+// blocks an SM).  On an H100 the division then adds 3-4% to the sum
+// form's time at layer 1 and 2-3% at layer 2 (tools/time_fanout.py).
+// Weighted products
+// are __fmul_rn, never fused into the add, and each sum starts from 0, so
+// a row of at most kShort picks equals the plain version's index_add_
+// passes on the CPU bit for bit.
+//
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -86,7 +113,16 @@ constexpr int kWarpsPerBlock = kThreads / 32;
 constexpr unsigned kFull = 0xffffffffu;
 
 constexpr int kShort = 32;     // picks one warp sorts and sums alone
-constexpr int kPicksPerWarp = 4;  // picks of one dst row per warp
+// The rows kernel's tasks: kPicksPerWarp picks of one dst row a warp, and
+// from kLargeDst dst rows on kPicksPerWarpLarge, with kRowsBlocks blocks an
+// SM (at most 32 registers a thread, no spill).  With many dst rows the
+// card is full either way, and longer tasks divide g[i] once for more
+// rows; with few (layer 2 of the main path) the warps are latency-bound
+// and more tasks and registers a warp win (tools/time_fanout.py).
+constexpr int kPicksPerWarp = 4;
+constexpr int kPicksPerWarpLarge = 5;
+constexpr long long kLargeDst = 32768;
+constexpr int kRowsBlocks = 8;
 constexpr int kSeg = 1024;     // rows per warp in the scan
 constexpr int kScanThreads = 1024;
 constexpr int kLongThreads = 512;
@@ -128,58 +164,150 @@ __device__ __forceinline__ float4 zero_value<float4>() {
   return make_float4(0.f, 0.f, 0.f, 0.f);
 }
 
-template <bool kVec>
-__global__ void fanout_fwd_kernel(const float* __restrict__ h,
-                                  const int32_t* __restrict__ neigh,
-                                  const float* __restrict__ w,
-                                  float* __restrict__ sum,
-                                  float* __restrict__ denom,
-                                  int64_t num_rows, int64_t num_dst, int fanout,
-                                  int64_t width) {
+// x / q for a divisor q > 0 (or NaN), as __fdiv_rn gives it: a zero x
+// returns itself without the division, whose slow path it would take (half
+// a step's gradient entries can be zeros)
+__device__ __forceinline__ float div_rn(float x, float q) {
+  return x == 0.f && q > 0.f ? x : __fdiv_rn(x, q);
+}
+
+__device__ __forceinline__ float4 div_rn(float4 a, float q) {
+  return make_float4(div_rn(a.x, q), div_rn(a.y, q), div_rn(a.z, q),
+                     div_rn(a.w, q));
+}
+
+// max(d, 1e-9) as torch.clamp(d, min=1e-9) computes it (a NaN stays NaN)
+__device__ __forceinline__ float mean_divisor(float d) {
+  return d < 1e-9f ? 1e-9f : d;
+}
+
+// ---- forward ------------------------------------------------------------
+
+// a table row's slice, through the read-only data path.  Reads with an L2
+// evict-last policy, or without allocating in L1, were no faster at layers
+// 0 and 1, where the bytes are (tools/time_fanout.py builds both).
+__device__ __forceinline__ float4 ld_table(const float4* p) { return __ldg(p); }
+
+__device__ __forceinline__ float ld_table(const float* p) { return __ldg(p); }
+
+// One warp per dst row.  V is float4 or float, kV the slices a lane holds
+// per pass over the picks (columns c0 + lane + 32 u), K the fanout (0: any,
+// read in chunks of 32 picks).  wv is the row width in V units.
+template <typename V, int kV, int K, bool kW, bool kMean>
+__global__ void __launch_bounds__(kThreads)
+fanout_fwd_kernel(const V* __restrict__ h, const int32_t* __restrict__ neigh,
+                  const float* __restrict__ w, V* __restrict__ out,
+                  float* __restrict__ denom, int64_t num_rows,
+                  int64_t num_dst, int fanout, int64_t wv) {
+  constexpr int kGroup = K > 0 ? 5 : 4;  // picks whose loads fly together
+  constexpr int kSpan = K > 0 ? K : 32;  // picks held by the warp at once
   const int64_t row = (int64_t)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (row >= num_dst) return;
-  const int32_t* nrow = neigh + row * fanout;
-  const float* wrow = w ? w + row * fanout : nullptr;
-  const bool weighted = w != nullptr;
-
-  if (lane == 0) {
-    float d = 0.f;
-    for (int k = 0; k < fanout; ++k) {
-      if (pick_valid(__ldg(nrow + k), num_rows)) d += weighted ? __ldg(wrow + k) : 1.f;
-    }
-    denom[row] = d;
-  }
-
-  if (kVec) {
-    const int64_t w4 = width >> 2;
-    float4* out = reinterpret_cast<float4*>(sum + row * width);
-    for (int64_t c = lane; c < w4; c += 32) {
-      float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-      for (int k = 0; k < fanout; ++k) {
-        const int32_t id = __ldg(nrow + k);
-        if (!pick_valid(id, num_rows)) continue;
-        const float m = weighted ? __ldg(wrow + k) : 1.f;
-        const float4 v =
-            __ldg(reinterpret_cast<const float4*>(h + (int64_t)id * width) + c);
-        acc = axpy4(acc, m, v, weighted);
+  const int kn = K > 0 ? K : fanout;
+  const int32_t* nrow = neigh + row * kn;
+  const float* wrow = kW ? w + row * kn : nullptr;
+  V* orow = out + row * wv;
+  float d = 0.f;
+  int64_t c0 = 0;
+  do {  // at least once: denom is written at width 0 too
+    V acc[kV];
+#pragma unroll
+    for (int u = 0; u < kV; ++u) acc[u] = zero_value<V>();
+    for (int k0 = 0; k0 < kn; k0 += 32) {
+      // lane j holds pick k0 + j: its row id (-1 if invalid) and m
+      int32_t id = -1;
+      float m = 0.f;
+      if (k0 + lane < kn) {
+        const int32_t r = __ldg(nrow + k0 + lane);
+        if (pick_valid(r, num_rows)) {
+          id = r;
+          m = kW ? __ldg(wrow + k0 + lane) : 1.f;
+        }
       }
-      out[c] = acc;
+      const int nk = K > 0 ? K : min(32, kn - k0);
+#pragma unroll
+      for (int g0 = 0; g0 < kSpan; g0 += kGroup) {
+        if (K == 0 && g0 >= nk) break;
+        V v[kGroup][kV];
+#pragma unroll
+        for (int j = 0; j < kGroup; ++j) {
+          const int32_t r = __shfl_sync(kFull, id, (g0 + j) & 31);
+          const bool live = r >= 0 && g0 + j < nk;
+#pragma unroll
+          for (int u = 0; u < kV; ++u) {
+            const int64_t c = c0 + lane + 32 * u;
+            v[j][u] = zero_value<V>();
+            if (live && c < wv) v[j][u] = ld_table(h + (int64_t)r * wv + c);
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < kGroup; ++j) {
+          const float mj = __shfl_sync(kFull, m, (g0 + j) & 31);
+          if (g0 + j < nk) {
+#pragma unroll
+            for (int u = 0; u < kV; ++u)
+              acc[u] = axpy4(acc[u], mj, v[j][u], kW);
+            if (c0 == 0) d += mj;
+          }
+        }
+      }
     }
+    const float q = mean_divisor(d);
+#pragma unroll
+    for (int u = 0; u < kV; ++u) {
+      const int64_t c = c0 + lane + 32 * u;
+      if (c < wv) __stcs(orow + c, kMean ? div_rn(acc[u], q) : acc[u]);
+    }
+    c0 += 32 * kV;
+  } while (c0 < wv);
+  if (lane == 0) denom[row] = d;
+}
+
+template <typename V, int kV, int K>
+void launch_fwd(const float* h, const int32_t* neigh, const float* w,
+                float* out, float* denom, long long num_rows,
+                long long num_dst, int fanout, long long wv, bool mean,
+                cudaStream_t s) {
+  const unsigned blocks =
+      (unsigned)((num_dst + kWarpsPerBlock - 1) / kWarpsPerBlock);
+  const V* hv = reinterpret_cast<const V*>(h);
+  V* ov = reinterpret_cast<V*>(out);
+#define XG_FWD(W, M)                                                   \
+  fanout_fwd_kernel<V, kV, K, W, M><<<blocks, kThreads, 0, s>>>(       \
+      hv, neigh, w, ov, denom, num_rows, num_dst, fanout, wv)
+  if (w) {
+    if (mean) XG_FWD(true, true); else XG_FWD(true, false);
   } else {
-    float* out = sum + row * width;
-    for (int64_t c = lane; c < width; c += 32) {
-      float acc = 0.f;
-      for (int k = 0; k < fanout; ++k) {
-        const int32_t id = __ldg(nrow + k);
-        if (!pick_valid(id, num_rows)) continue;
-        const float v = __ldg(h + (int64_t)id * width + c);
-        acc += weighted ? __fmul_rn(__ldg(wrow + k), v) : v;
-      }
-      out[c] = acc;
-    }
+    if (mean) XG_FWD(false, true); else XG_FWD(false, false);
+  }
+#undef XG_FWD
+}
+
+template <typename V, int kV>
+void launch_fwd_fanout(const float* h, const int32_t* neigh, const float* w,
+                       float* out, float* denom, long long num_rows,
+                       long long num_dst, int fanout, long long wv, bool mean,
+                       cudaStream_t s) {
+  switch (fanout) {
+    case 5:
+      launch_fwd<V, kV, 5>(h, neigh, w, out, denom, num_rows, num_dst, fanout,
+                           wv, mean, s);
+      break;
+    case 10:
+      launch_fwd<V, kV, 10>(h, neigh, w, out, denom, num_rows, num_dst,
+                            fanout, wv, mean, s);
+      break;
+    case 15:
+      launch_fwd<V, kV, 15>(h, neigh, w, out, denom, num_rows, num_dst,
+                            fanout, wv, mean, s);
+      break;
+    default:
+      launch_fwd<V, kV, 0>(h, neigh, w, out, denom, num_rows, num_dst,
+                           fanout, wv, mean, s);
   }
 }
+
 
 // ---- backward: counting sort of the picks by src row --------------------
 
@@ -301,35 +429,40 @@ __global__ void bwd_fill_kernel(const int32_t* __restrict__ neigh,
 // ---- backward: the segmented reduce -------------------------------------
 
 // rows of 1..kShort picks, a warp per task (dst row i, picks k0 ..
-// k0 + kPicksPerWarp - 1): lane l takes pick (i, k0 + l) and its src row r.
+// k0 + ppw - 1, ppw <= 32 picks): lane l takes pick (i, k0 + l) and its
+// src row r.
 // The pick whose key is the smallest of r's segment owns r; the warp sums
-// and writes each row it owns, one after the other.  Warps run roughly in
-// dst-row order and most src rows have one pick, so grad_sum is read about
-// in order and about once: a row whose only pick is (i, k) is
-// m * grad_sum[i] plus grad_dst, and needs no key read.
-template <typename V>
-__global__ void bwd_rows_kernel(const int32_t* __restrict__ neigh,
-                                const int32_t* __restrict__ off,
-                                const int32_t* __restrict__ keys,
-                                const V* __restrict__ grad_sum,
-                                const V* __restrict__ grad_dst,
-                                const float* __restrict__ w,
-                                V* __restrict__ grad_h, int64_t num_rows,
-                                int32_t num_dst, int fanout, int64_t wv) {
+// and writes each row it owns.  Warps run roughly in dst-row order and most
+// src rows have one pick, so grad_sum is read about in order and about
+// once.  A row whose only pick is (i, k) is m * g[i] plus grad_dst and
+// needs no key read: the warp reads (and with kDiv divides) g[i] once for
+// all such rows of its task.  kDiv: grad_sum[i] is divided by
+// max(denom[i], 1e-9) as it is loaded.
+template <typename V, bool kDiv, int kMinBlocks>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+bwd_rows_kernel(const int32_t* __restrict__ neigh,
+                const int32_t* __restrict__ off,
+                const int32_t* __restrict__ keys,
+                const V* __restrict__ grad_sum,
+                const V* __restrict__ grad_dst,
+                const float* __restrict__ w,
+                const float* __restrict__ denom,
+                V* __restrict__ grad_h, int64_t num_rows,
+                int32_t num_dst, int fanout, int ppw, int64_t wv) {
   __shared__ int32_t sorted[kWarpsPerBlock][kShort];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int chunks = (fanout + kPicksPerWarp - 1) / kPicksPerWarp;
+  const int chunks = (fanout + ppw - 1) / ppw;
   const int64_t task = (int64_t)blockIdx.x * kWarpsPerBlock + warp;
   if (task >= (int64_t)num_dst * chunks) return;
   const int32_t i = (int32_t)(task / chunks);
-  const int k = (int)(task - (int64_t)i * chunks) * kPicksPerWarp + lane;
+  const int k = (int)(task - (int64_t)i * chunks) * ppw + lane;
   const bool weighted = w != nullptr;
 
   int32_t r = 0, start = 0;
   int n = 0;
   float m = 1.f;
   bool own = false;
-  if (lane < kPicksPerWarp && k < fanout) {
+  if (lane < ppw && k < fanout) {
     r = __ldg(neigh + (int64_t)i * fanout + k);
     if (pick_valid(r, num_rows)) {
       start = __ldg(off + r);
@@ -341,28 +474,53 @@ __global__ void bwd_rows_kernel(const int32_t* __restrict__ neigh,
         own = __ldg(keys + start + t) >= q;
     }
   }
-  for (unsigned todo = __ballot_sync(kFull, own); todo; todo &= todo - 1) {
+  // the rows of one pick, all m * g[i]: g[i] read and divided once a slice
+  const unsigned single = __ballot_sync(kFull, own && n == 1);
+  if (single) {
+    const float q = kDiv ? mean_divisor(__ldg(denom + i)) : 1.f;
+    for (int64_t c0 = 0; c0 < wv; c0 += 32) {
+      const int64_t c = c0 + lane;
+      const bool live = c < wv;
+      V g = zero_value<V>();
+      if (live) {
+        g = __ldg(grad_sum + (int64_t)i * wv + c);
+        if (kDiv) g = div_rn(g, q);
+      }
+      for (unsigned todo = single; todo; todo &= todo - 1) {
+        const int l = __ffs(todo) - 1;
+        const int64_t row = __shfl_sync(kFull, r, l);
+        const float ml = __shfl_sync(kFull, m, l);
+        if (!live) continue;
+        V acc = axpy4(zero_value<V>(), ml, g, weighted);
+        if (grad_dst != nullptr && row < num_dst)
+          acc = axpy4(acc, 1.f, __ldg(grad_dst + row * wv + c), false);
+        grad_h[row * wv + c] = acc;
+      }
+    }
+  }
+  for (unsigned todo = __ballot_sync(kFull, own && n > 1); todo;
+       todo &= todo - 1) {
     const int l = __ffs(todo) - 1;
     const int64_t row = __shfl_sync(kFull, r, l);
     const int nn = __shfl_sync(kFull, n, l);
-    // lane j < nn: the row's j-th pick in ascending (k, i) order; the keys
-    // are distinct, so a key's rank among them is its place
-    int32_t src = i;
-    float mj = __shfl_sync(kFull, m, l);
-    if (nn > 1) {
-      const int32_t s = __shfl_sync(kFull, start, l);
-      const int32_t key = lane < nn ? __ldg(keys + s + lane) : 0;
-      int rank = 0;
-      for (int t = 0; t < nn; ++t) rank += __shfl_sync(kFull, key, t) < key;
-      __syncwarp();  // the previous row's reads of sorted[] are done
-      if (lane < nn) sorted[warp][rank] = key;
-      __syncwarp();
-      if (lane < nn) {
-        const int32_t qj = sorted[warp][lane];
-        const int32_t kj = qj / num_dst;
-        src = qj - kj * num_dst;
-        if (weighted) mj = __ldg(w + (int64_t)src * fanout + kj);
-      }
+    const int32_t s = __shfl_sync(kFull, start, l);
+    // the row's keys in ascending (k, i) order: they are distinct, so a
+    // key's rank among them is its place
+    const int32_t key = lane < nn ? __ldg(keys + s + lane) : 0;
+    int rank = 0;
+    for (int t = 0; t < nn; ++t) rank += __shfl_sync(kFull, key, t) < key;
+    __syncwarp();  // the previous row's reads of sorted[] are done
+    if (lane < nn) sorted[warp][rank] = key;
+    __syncwarp();
+    // lane j < nn: pick j's dst row, weight and divisor
+    int32_t src = 0;
+    float mj = 1.f, qj = 1.f;
+    if (lane < nn) {
+      const int32_t qk = sorted[warp][lane];
+      const int32_t kj = qk / num_dst;
+      src = qk - kj * num_dst;
+      if (weighted) mj = __ldg(w + (int64_t)src * fanout + kj);
+      if (kDiv) qj = mean_divisor(__ldg(denom + src));
     }
     const bool has_dst = grad_dst != nullptr && row < num_dst;
     for (int64_t c0 = 0; c0 < wv; c0 += 32) {
@@ -373,9 +531,12 @@ __global__ void bwd_rows_kernel(const int32_t* __restrict__ neigh,
       for (int j = 0; j < nn; ++j) {
         const int32_t ij = __shfl_sync(kFull, src, j);
         const float m_j = __shfl_sync(kFull, mj, j);
-        if (live)
-          acc = axpy4(acc, m_j, __ldg(grad_sum + (int64_t)ij * wv + c),
-                      weighted);
+        const float q_j = kDiv ? __shfl_sync(kFull, qj, j) : 1.f;
+        if (live) {
+          V g = __ldg(grad_sum + (int64_t)ij * wv + c);
+          if (kDiv) g = div_rn(g, q_j);
+          acc = axpy4(acc, m_j, g, weighted);
+        }
       }
       if (!live) continue;
       if (has_dst) acc = axpy4(acc, 1.f, __ldg(grad_dst + row * wv + c), false);
@@ -436,13 +597,14 @@ __device__ void block_sort(int32_t* a, int n) {
 }
 
 // rows with more than kShort picks, from the list; a block per row
-template <typename V>
+template <typename V, bool kDiv>
 __global__ void __launch_bounds__(kLongThreads)
 bwd_long_kernel(const int32_t* __restrict__ off, int32_t* keys,
                 const int32_t* __restrict__ long_rows,
                 const int32_t* __restrict__ num_long,
                 const V* __restrict__ grad_sum, const V* __restrict__ grad_dst,
-                const float* __restrict__ w, V* __restrict__ grad_h,
+                const float* __restrict__ w, const float* __restrict__ denom,
+                V* __restrict__ grad_h,
                 int32_t num_dst, int fanout, int64_t wv) {
   __shared__ int32_t skeys[kSortCap];
   __shared__ V part[kLongWarps][32];
@@ -471,8 +633,9 @@ bwd_long_kernel(const int32_t* __restrict__ off, int32_t* keys,
           const int32_t i = q - k * num_dst;
           const float m =
               weighted ? __ldg(w + (int64_t)i * fanout + k) : 1.f;
-          acc = axpy4(acc, m, __ldg(grad_sum + (int64_t)i * wv + c),
-                      weighted);
+          V g = __ldg(grad_sum + (int64_t)i * wv + c);
+          if (kDiv) g = div_rn(g, mean_divisor(__ldg(denom + i)));
+          acc = axpy4(acc, m, g, weighted);
         }
       }
       part[warp][lane] = acc;
@@ -490,28 +653,36 @@ bwd_long_kernel(const int32_t* __restrict__ off, int32_t* keys,
   }
 }
 
-template <typename V>
+template <typename V, bool kDiv>
 void launch_reduce(const int32_t* neigh, const int32_t* off, int32_t* keys,
                    const int32_t* long_rows, const int32_t* num_long,
                    const void* grad_sum, const void* grad_dst, const float* w,
-                   void* grad_h, long long num_rows, int32_t num_dst,
+                   const float* denom, void* grad_h, long long num_rows,
+                   int32_t num_dst,
                    int fanout, long long wv, cudaStream_t s) {
   const V* g = static_cast<const V*>(grad_sum);
   const V* gd = static_cast<const V*>(grad_dst);
   V* gh = static_cast<V*>(grad_h);
-  const long long tasks =
-      (long long)num_dst * ((fanout + kPicksPerWarp - 1) / kPicksPerWarp);
-  if (tasks > 0)
-    bwd_rows_kernel<V><<<(unsigned)((tasks + kWarpsPerBlock - 1) /
-                                    kWarpsPerBlock),
-                         kThreads, 0, s>>>(neigh, off, keys, g, gd, w, gh,
-                                           num_rows, num_dst, fanout, wv);
+  const bool large = num_dst >= kLargeDst;
+  const int ppw = large ? kPicksPerWarpLarge : kPicksPerWarp;
+  const long long tasks = (long long)num_dst * ((fanout + ppw - 1) / ppw);
+  const unsigned blocks =
+      (unsigned)((tasks + kWarpsPerBlock - 1) / kWarpsPerBlock);
+  if (tasks > 0 && large)
+    bwd_rows_kernel<V, kDiv, kRowsBlocks><<<blocks, kThreads, 0, s>>>(
+        neigh, off, keys, g, gd, w, denom, gh, num_rows, num_dst, fanout,
+        ppw, wv);
+  else if (tasks > 0)
+    bwd_rows_kernel<V, kDiv, 1><<<blocks, kThreads, 0, s>>>(
+        neigh, off, keys, g, gd, w, denom, gh, num_rows, num_dst, fanout,
+        ppw, wv);
   const long long row_warps = (num_rows + 31) / 32;
   bwd_empty_kernel<V><<<(unsigned)((row_warps + kWarpsPerBlock - 1) /
                                    kWarpsPerBlock),
                         kThreads, 0, s>>>(off, gd, gh, num_rows, num_dst, wv);
-  bwd_long_kernel<V><<<kLongBlocks, kLongThreads, 0, s>>>(
-      off, keys, long_rows, num_long, g, gd, w, gh, num_dst, fanout, wv);
+  bwd_long_kernel<V, kDiv><<<kLongBlocks, kLongThreads, 0, s>>>(
+      off, keys, long_rows, num_long, g, gd, w, denom, gh, num_dst, fanout,
+      wv);
 }
 
 unsigned grid_for(long long work) {
@@ -528,39 +699,45 @@ bool aligned16(const void* p) {
 }  // namespace
 
 // h: (num_rows, width) f32; neigh: (num_dst, fanout) int32; w: null or
-// (num_dst, fanout) f32; sum: (num_dst, width) f32; denom: (num_dst,) f32.
+// (num_dst, fanout) f32; out: (num_dst, width) f32, the sum, or with mean
+// the masked mean; denom: (num_dst,) f32.
 extern "C" int xg_fanout_fwd(const void* h, const void* neigh, const void* w,
-                             void* sum, void* denom, long long num_rows,
+                             void* out, void* denom, long long num_rows,
                              long long num_dst, int fanout, long long width,
-                             void* stream) {
+                             int mean, void* stream) {
   if (num_dst <= 0) return (int)cudaGetLastError();
-  const long long blocks = (num_dst + kWarpsPerBlock - 1) / kWarpsPerBlock;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  const bool vec = width % 4 == 0 && aligned16(h) && aligned16(sum);
+  const bool vec = width % 4 == 0 && aligned16(h) && aligned16(out);
   const float* hf = static_cast<const float*>(h);
   const int32_t* n = static_cast<const int32_t*>(neigh);
   const float* wf = static_cast<const float*>(w);
-  float* sf = static_cast<float*>(sum);
+  float* of = static_cast<float*>(out);
   float* df = static_cast<float*>(denom);
-  if (vec) {
-    fanout_fwd_kernel<true><<<(unsigned)blocks, kThreads, 0, s>>>(
-        hf, n, wf, sf, df, num_rows, num_dst, fanout, width);
+  if (vec && width <= 128) {
+    launch_fwd_fanout<float4, 1>(hf, n, wf, of, df, num_rows, num_dst,
+                                 fanout, width / 4, mean != 0, s);
+  } else if (vec) {
+    launch_fwd_fanout<float4, 2>(hf, n, wf, of, df, num_rows, num_dst,
+                                 fanout, width / 4, mean != 0, s);
   } else {
-    fanout_fwd_kernel<false><<<(unsigned)blocks, kThreads, 0, s>>>(
-        hf, n, wf, sf, df, num_rows, num_dst, fanout, width);
+    launch_fwd_fanout<float, 2>(hf, n, wf, of, df, num_rows, num_dst, fanout,
+                                width, mean != 0, s);
   }
   return (int)cudaGetLastError();
 }
 
 // grad_sum: (num_dst, width) f32; grad_dst: null or (num_dst, width) f32
-// with num_dst <= num_rows; grad_h: (num_rows, width) f32, every row written;
-// neigh and w as in the forward.  scratch: int32, at least
+// with num_dst <= num_rows; denom: null (the gradient of the sum form) or
+// (num_dst,) f32, the forward's (of the mean form); grad_h: (num_rows,
+// width) f32, every row written; neigh and w as in the forward.  scratch:
+// int32, at least
 // 2 * num_rows + 2 + ceil(num_rows / 1024) + P + P / 33 + 1 entries, where
 // P = num_dst * fanout < 2^31.  Returns cudaGetLastError() after the last
 // launch (cudaErrorInvalidValue, launching nothing, for a scratch too small
 // or sizes past int32).
 extern "C" int xg_fanout_bwd(const void* grad_sum, const void* neigh,
-                             const void* w, const void* grad_dst, void* grad_h,
+                             const void* w, const void* grad_dst,
+                             const void* denom, void* grad_h,
                              void* scratch, long long scratch_len,
                              long long num_rows, long long num_dst, int fanout,
                              long long width, void* stream) {
@@ -598,16 +775,20 @@ extern "C" int xg_fanout_bwd(const void* grad_sum, const void* neigh,
   }
 
   const float* wf = static_cast<const float*>(w);
+  const float* df = static_cast<const float*>(denom);
   const bool vec = width % 4 == 0 && aligned16(grad_sum) &&
                    aligned16(grad_h) && (!grad_dst || aligned16(grad_dst));
+#define XG_REDUCE(V, DIV, WV)                                              \
+  launch_reduce<V, DIV>(n, off, keys, long_rows, num_long, grad_sum,       \
+                        grad_dst, wf, df, grad_h, num_rows, (int32_t)num_dst, \
+                        fanout, WV, s)
   if (vec) {
-    launch_reduce<float4>(n, off, keys, long_rows, num_long, grad_sum,
-                          grad_dst, wf, grad_h, num_rows, (int32_t)num_dst,
-                          fanout, width >> 2, s);
+    if (df) XG_REDUCE(float4, true, width >> 2);
+    else XG_REDUCE(float4, false, width >> 2);
   } else {
-    launch_reduce<float>(n, off, keys, long_rows, num_long, grad_sum,
-                         grad_dst, wf, grad_h, num_rows, (int32_t)num_dst,
-                         fanout, width, s);
+    if (df) XG_REDUCE(float, true, width);
+    else XG_REDUCE(float, false, width);
   }
+#undef XG_REDUCE
   return (int)cudaGetLastError();
 }

@@ -5,8 +5,9 @@ The port of ``xgnn_tpu/models/gnn.py``'s ``_take_dst``,
 ``SAGEConv``, ``PinSAGEConv``, ``GCNConv``, ``GATConv``, ``MLPConv`` and
 ``GNN`` (dropout before every layer but the first, ELU between GAT layers
 and ReLU between the others, float32 logits).  The fanout reduce is kernel
-K4 (``ops/fanout.py``; PinSAGE's visit counts ride on it as per-pick
-weights), the direct-extract dst gather kernel K1 (``ops/gather.py``),
+K4 (``ops/fanout.py``: its mean form for SAGE and PinSAGE, whose visit
+counts ride on it as per-pick weights, its sum form for GCN), the
+direct-extract dst gather kernel K1 (``ops/gather.py``),
 GCN's pick multiplicity kernel K7 (``ops/degree.py``) and GAT's
 edge-softmax aggregate kernel K5 (``ops/attend.py``).
 """
@@ -21,7 +22,7 @@ from torch import nn
 
 from ..ops.attend import PER_HEAD, SHARED, gat_attend
 from ..ops.degree import pick_multiplicity
-from ..ops.fanout import fanout_reduce, prefix_fanout_reduce
+from ..ops.fanout import fanout_reduce, masked_mean, prefix_masked_mean
 from ..ops.gather import gather_rows
 from ..types import Block
 
@@ -37,16 +38,17 @@ def _take_dst(block: Block, h_src: torch.Tensor) -> torch.Tensor:
 
 def _dst_and_mean(block: Block, h_src: torch.Tensor, weights=None):
     """``(h_dst, h_neigh)``: the dst rows of a block and the masked mean of
-    its picks.  A local-id block's dst rows are the prefix
-    ``h_src[:dst_cap]``, which K4 returns with the sum so that the gradient
-    w.r.t. ``h_src`` is one backward launch; a direct-extract block gathers
-    them by global id with zero rows for EMPTY (``Block.dst_ids``, K1)."""
+    its picks (``masked_mean_stream``, one K4 launch with its division).  A
+    local-id block's dst rows are the prefix ``h_src[:dst_cap]``, which K4
+    returns with the mean so that the gradient w.r.t. ``h_src`` is one
+    backward launch; a direct-extract block gathers them by global id with
+    zero rows for EMPTY (``Block.dst_ids``, K1)."""
     if block.dst_ids is None:
-        h_dst, s, denom = prefix_fanout_reduce(h_src, block.neigh, weights)
+        h_dst, h_neigh, _ = prefix_masked_mean(h_src, block.neigh, weights)
     else:
         h_dst = _take_dst(block, h_src)
-        s, denom = fanout_reduce(h_src, block.neigh, weights)
-    return h_dst, s / torch.clamp(denom, min=1e-9)
+        h_neigh, _ = masked_mean(h_src, block.neigh, weights)
+    return h_dst, h_neigh
 
 
 def _lecun_normal_(w: torch.Tensor, fan_in: int, generator: torch.Generator):

@@ -41,9 +41,8 @@ SIGNATURES = {
         "xg_gather_rows": [_P, _P, _P, _LL, _LL, _LL, _P],
     },
     "fanout": {
-        "xg_fanout_fwd": [_P, _P, _P, _P, _P, _LL, _LL, _I, _LL, _P],
-        "xg_fanout_bwd": [_P, _P, _P, _P, _P, _P, _LL, _LL, _LL, _I, _LL,
-                          _P],
+        "xg_fanout_fwd": [_P] * 5 + [_LL, _LL, _I, _LL, _I, _P],
+        "xg_fanout_bwd": [_P] * 7 + [_LL, _LL, _LL, _I, _LL, _P],
     },
     "sampling": {
         "xg_sample_khop": [_P, _P, _P, _P, _P, _LL, _LL, _I, _P],
@@ -169,5 +168,12 @@ def check(rc: int, what: str):
         raise RuntimeError(f"{what}: CUDA error {rc} at launch")
 
 
+# the raw handle without a Stream object (CUDA builds of PyTorch have it)
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
 def stream_handle(device) -> int:
+    """The handle of PyTorch's current stream on ``device``."""
+    if _raw_stream is not None and device.index is not None:
+        return _raw_stream(device.index)
     return torch.cuda.current_stream(device).cuda_stream

@@ -311,7 +311,7 @@ def attend_backward(g_out: torch.Tensor, table: torch.Tensor,
         n_scratch = _scratch_len(n, num_picks)
         scratch = torch.empty((n_scratch,), dtype=torch.int32, device=dev)
         rc = _build.load("fanout").xg_fanout_bwd(
-            per_pick.data_ptr(), neigh.data_ptr(), None, None,
+            per_pick.data_ptr(), neigh.data_ptr(), None, None, None,
             g_table.data_ptr(), scratch.data_ptr(), n_scratch, n, num_picks,
             1, width, stream,
         )
