@@ -84,6 +84,27 @@ Phases, each fatal on failure:
    tables built on the host by ``synthetic.build_alias_tables`` (timed):
    its 40 MB of tables sit in the card's 50 MB L2, so its times say
    nothing of the products graph.
+8. The tiered store: the pinned host-to-device ``copy_`` rate (512
+   MiB), then ``Engine.init()`` at graphsage's configuration with
+   ``cache_percentage=0.2`` and ``cache_policy="pre_sample"`` (one
+   presample epoch through K12, the table pinned and mapped, the cache
+   built by K11's all-miss form), after which the dataset's device copy of
+   the features is dropped.  K3 at the last layer's dedup (non-direct
+   extract, out_cap 2,449,152), exact; K11 on one sampled batch's input
+   nodes, as drawn and with 30% EMPTY, and in its all-miss form (the
+   cache's rows), exact with equal hit and miss counts, its bound the
+   larger of its HBM bytes and its miss bytes over PCIe gen 5 x16's rated
+   rate (63.0 GB/s a direction; the measured copy rate printed beside
+   it), its launches those of the path's counted
+   epoch, the cache build's those of the engine's init;
+   K12 on the batch and K12b (the exact static closure) for one batch's
+   three layers, exact; presample_static's ranking (a K12b launch a
+   batch).  Then the path ``graphsage_cached``: warm-up, counted,
+   unpipelined and profiled epochs, with the epoch hit rate, misses and
+   miss bytes a step, and how much of K11's time other kernels ran beside
+   it.  Then two epochs of ``dynamic_cache`` (``graphsage_dynamic``: K12
+   every step, a refresh at each epoch's end), its posmap moved and 200,000
+   ids extracted after the refresh equal to the host table.
 
 Each kernel is timed twice: ``ms`` back to back (the wrapper's host time
 included, where the host is the slower) and ``device_ms`` with the host
@@ -120,6 +141,13 @@ CAPS = (BATCH, 133376, 1007360, 2449152)
 # small enough for the host's alias build
 ALIAS_NODES = 1 << 16
 ALIAS_DRAWS = 1_659_000
+# graphsage_cached: bench.py's XGNN_BENCH_CACHE_PCT=0.2 with its default
+# policy (pre_sample, one presample epoch)
+CACHE_PCT = 0.2
+H2D_BYTES = 512 * 2**20  # the pinned host-to-device copy timed beside K11
+# H100 SXM data sheet: PCIe gen 5 x16, a direction (32 GT/s a lane,
+# 128b/130b line code)
+PCIE_BYTES_PER_S = 16 * 32e9 * 128 / 130 / 8
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 RTOL = ATOL = 1e-5
@@ -214,6 +242,13 @@ def main() -> int:
         masked_mean_plain,
     )
     from xgnn_tpu_torch.ops.gather import gather_rows, gather_rows_plain
+    from xgnn_tpu_torch.ops.presample import (
+        accumulate_freq,
+        accumulate_freq_plain,
+        closure_expand,
+        closure_expand_plain,
+    )
+    from xgnn_tpu_torch.ops.tiered import tiered_extract, tiered_extract_plain
     from xgnn_tpu_torch.ops.random_walk import (
         sample_random_walk,
         sample_random_walk_plain,
@@ -235,6 +270,7 @@ def main() -> int:
         sample_weighted_khop_prefix_plain,
     )
     from xgnn_tpu_torch.sampler import Sampler, default_capacities
+    from xgnn_tpu_torch.store.presample import static_exact_ranking
     from xgnn_tpu_torch.synthetic import build_alias_tables
     from xgnn_tpu_torch.synthetic_device import (
         alias_tables,
@@ -293,15 +329,17 @@ def main() -> int:
 
     def record(name, source, replaces, shape, err, tol, fn, plain, library,
                library_call, nbytes, flops, per_step, path="graphsage",
-               pick_nbytes=None):
+               pick_nbytes=None, plain_reps=10, bound=None):
         """``nbytes`` reads each distinct table row once; ``pick_nbytes``,
         where given, is the same traffic with a table row per valid pick,
         what a gather that keeps no row between picks moves
-        (``per_pick_bound_ms``)."""
-        ms, plain_ms = time_ms(torch, fn), time_ms(torch, plain)
+        (``per_pick_bound_ms``).  ``bound``, where given, is a ``(ms, by)``
+        computed by the caller (K11's, over two links)."""
+        ms = time_ms(torch, fn)
+        plain_ms = time_ms(torch, plain, reps=plain_reps)
         device_ms = time_ms(torch, fn, host_ahead=True)
         lib_ms = None if library is None else time_ms(torch, library)
-        b_ms, b_by = bound_ms(nbytes, flops)
+        b_ms, b_by = bound_ms(nbytes, flops) if bound is None else bound
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "shape": shape, "launches": None,
@@ -1072,6 +1110,21 @@ def main() -> int:
                                       "gather_rows": 2 * steps,
                                       "fanout_fwd": 3 * steps,
                                       "fanout_bwd": 2 * steps},
+        # non-direct extract: the last layer deduped too, K11 once a step,
+        # K1 for the labels only (the dst rows are x's prefix)
+        "graphsage_cached": {"sample_khop": 3 * steps,
+                             "unique_seeded": 3 * steps,
+                             "tiered_extract": steps, "gather_rows": steps,
+                             "fanout_fwd": 3 * steps,
+                             "fanout_bwd": 2 * steps},
+        # and K12 once a step; K11 once more at the epoch's end, in its
+        # all-miss form, to rebuild the refreshed cache
+        "graphsage_dynamic": {"sample_khop": 3 * steps,
+                              "unique_seeded": 3 * steps,
+                              "accumulate_freq": steps,
+                              "tiered_extract": steps + 1,
+                              "gather_rows": steps, "fanout_fwd": 3 * steps,
+                              "fanout_bwd": 2 * steps},
     }
     counts_by_path = {}
     mean = lambda v: sum(v) / max(len(v), 1)
@@ -1147,6 +1200,8 @@ def main() -> int:
             ("K9, *random_walk*", lambda n: "random_walk" in n),
             ("K8b, *sample_prefix* and *sample_alias*",
              lambda n: "sample_prefix" in n or "sample_alias" in n),
+            ("K11, *tiered_extract*", lambda n: "tiered_extract" in n),
+            ("K12, *accumulate_kernel*", lambda n: "accumulate_kernel" in n),
             ("elementwise divisions, *divfunctor* (a mean's division "
              "outside K4, forward and backward, and Adam's)",
              lambda n: "divfunctor" in n),
@@ -1158,6 +1213,24 @@ def main() -> int:
             print(f"{tag}   device ms per step in {what}: "
                   f"{us / 1e3 / steps:.3f} ({len(hits) / steps:.1f} "
                   "kernels a step)", flush=True)
+        k11 = [(a, b) for a, b, name in spans if "tiered_extract" in name]
+        if k11:
+            # how much of K11's time other kernels (training, on the other
+            # stream) ran beside it
+            merged = []
+            for a, b, name in spans:
+                if "tiered_extract" in name:
+                    continue
+                if merged and a <= merged[-1][1]:
+                    merged[-1][1] = max(merged[-1][1], b)
+                else:
+                    merged.append([a, b])
+            total = sum(b - a for a, b in k11)
+            beside = sum(max(0.0, min(b, mb) - max(a, ma))
+                         for a, b in k11 for ma, mb in merged)
+            print(f"{tag}   K11 overlaps other kernels for {beside / 1e3:.1f} "
+                  f"of its {total / 1e3:.1f} ms ({beside / max(total, 1e-9):.3f}"
+                  "): extract beside training", flush=True)
 
     def edges_of(sampler):
         """edges aggregated per step, counted from the block masks
@@ -1538,8 +1611,293 @@ def main() -> int:
                 torch.from_numpy(host.train_set[:BATCH]).to(dev))
     del sg, host, agraph
 
+    # ---- 8. the tiered store: GraphSAGE on a presampled hot-row cache ------
+    # ds is phase 7's weighted dataset, phase 3's graph, features, labels
+    # and split; its alias tables go
+    ds.graph.prob_table = ds.graph.alias_table = None
+    del feat, graph
+    torch.cuda.empty_cache()
+    # K11's PCIe bound: the link's rated rate; the pinned host-to-device
+    # copy rate beside it, the practical ceiling
+    pinned = torch.empty(H2D_BYTES // 4, dtype=torch.float32).pin_memory()
+    on_card = torch.empty(pinned.shape, dtype=torch.float32, device=dev)
+    h2d_ms = time_ms(torch, lambda: on_card.copy_(pinned, non_blocking=True),
+                     reps=5)
+    h2d_rate = H2D_BYTES / h2d_ms * 1e3
+    del pinned, on_card
+    # a copy faster than the rating: the copy's rate is the peak
+    pcie_rate = max(PCIE_BYTES_PER_S, h2d_rate)
+    print(f"{tag} PCIe: rated {PCIE_BYTES_PER_S / 1e9:.3f} GB/s a direction "
+          f"(gen 5 x16); pinned host-to-device copy_: {H2D_BYTES} bytes in "
+          f"{h2d_ms:.4f} ms, {h2d_rate / 1e9:.3f} GB/s; K11's bound takes "
+          f"{pcie_rate / 1e9:.3f} GB/s", flush=True)
+    ccfg = dataclasses.replace(cfg, cache_percentage=CACHE_PCT,
+                               cache_policy="pre_sample", presample_epoch=1)
+    _build.LAUNCHES.reset()
+    t0 = time.perf_counter()
+    ceng = Engine(ds, ccfg).init()
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_counts = _build.LAUNCHES.snapshot()
+    store = ceng.feature_source
+    num_cache, width = store.num_cache, store.feat_dim
+    print(f"{tag} graphsage_cached engine init: {init_s:.3f} s; presample "
+          f"{ceng.init_times['presample']:.3f} s (one epoch, "
+          f"{init_counts.get('accumulate_freq', 0)} K12 launches), cache "
+          f"build {ceng.init_times['cache_build']:.3f} s (the table's "
+          f"{store.feat_host.numel() * 4} bytes pulled, pinned and mapped, "
+          f"then {num_cache} rows by K11's all-miss form); capacities "
+          f"{ceng.sampler.capacities}", flush=True)
+    if (init_counts.get("accumulate_freq") != steps
+            or init_counts.get("tiered_extract") != 1):
+        raise AssertionError(f"graphsage_cached init: launches {init_counts}")
+    # the store keeps no device copy of the features; the dataset's goes
+    ds.feat = store.feat_host
+    torch.cuda.empty_cache()
+
+    # K3 at the last layer's dedup (non-direct extract), walked layer by
+    # layer through K2 and K3 as the sampler walks them
+    frontier = seeds
+    num = torch.full((), n, dtype=torch.int32, device=dev)
+    indptr, indices = ds.graph.indptr, ds.graph.indices
+    for layer, k in enumerate(FANOUT):
+        u = torch.rand((frontier.shape[0], k), generator=gen, device=dev)
+        picks = sample_khop0(indptr, indices, frontier, k, u=u).reshape(-1)
+        cap = CAPS[layer + 1]
+        out = unique_seeded_split(frontier, picks, num, cap,
+                                  num_node=NUM_NODE)
+        if layer < len(FANOUT) - 1:
+            frontier, num = out[0], torch.clamp(out[1], max=cap)
+            continue
+        ref = unique_seeded_split_plain(frontier, picks, num, cap)
+        torch.cuda.synchronize()
+        for o, r in zip(out, ref):
+            assert_close("unique_seeded (last layer)", o, r, exact=True)
+        ids = torch.cat([frontier, picks])
+        record("unique_seeded", "xgnn_tpu_torch/csrc/unique.cu",
+               "xgnn_tpu/ops/unique.py:178",
+               f"layer {layer} (non-direct extract): {ids.shape[0]} ids "
+               f"(prefix {frontier.shape[0]}, {int((picks != empty).sum())} "
+               f"valid picks), out_cap {cap}, {int(out[1])} unique",
+               max(max_err(o, r) for o, r in zip(out, ref)), "exact",
+               lambda: unique_seeded_split(frontier, picks, num, cap,
+                                           num_node=NUM_NODE),
+               lambda: unique_seeded_split_plain(frontier, picks, num, cap),
+               lambda: torch.unique(ids, sorted=True, return_inverse=True),
+               "torch.unique(sorted=True, return_inverse=True) on the "
+               "concatenated ids; its id order differs (no seeded prefix)",
+               nbytes=ids.numel() * 4 + picks.numel() * 4 + cap * 4 + 8,
+               flops=0, per_step=3, path="graphsage_cached")
+    del u, picks, out, ref, ids, frontier
+
+    # K11 on one sampled batch's input nodes, as drawn and with 30% EMPTY
+    cbatch = ceng.sampler.sample(seeds, n, generator(dev, 7))
+    num_in = cbatch.num_input
+    sparse = cbatch.input_nodes.clone()
+    sparse[torch.rand(sparse.shape, generator=gen, device=dev) < 0.3] = empty
+    print(f"{tag} graphsage_cached batch: {int(num_in)} input nodes of "
+          f"capacity {cbatch.input_nodes.shape[0]}", flush=True)
+
+    def k11_case(ids, num_valid, posmap, what, per_step,
+                 path="graphsage_cached"):
+        args = (ids, num_valid, posmap,
+                None if posmap is None else store.cache_feat)
+        out, counts = tiered_extract(*args, store.host)
+        ref, ref_counts = tiered_extract_plain(*args, store.feat_host)
+        torch.cuda.synchronize()
+        assert_close("tiered_extract", out, ref, exact=True)
+        if not torch.equal(counts, ref_counts):
+            raise AssertionError(f"tiered_extract: counts {counts.tolist()} "
+                                 f"!= {ref_counts.tolist()}")
+        hits, misses = (int(c) for c in counts)
+        # the ids, a posmap word a valid id, the hit rows and the output in
+        # HBM; the miss rows over PCIe
+        hbm = (ids.numel() * 4 + (hits + misses) * 4 + hits * width * 4
+               + ids.numel() * width * 4 + 8)
+        pcie = misses * width * 4
+        hbm_ms = hbm / HBM_BYTES_PER_S * 1e3
+        pcie_ms = pcie / pcie_rate * 1e3
+        record("tiered_extract", "xgnn_tpu_torch/csrc/tiered.cu",
+               "xgnn_tpu/store/feature_store.py:65-119 (_split_kernel, the "
+               "host gather, _combine_kernel; driven by extract :217-250)",
+               f"{what}: {ids.numel()} ids ({hits + misses} valid: {hits} "
+               f"hits, {misses} misses) over a ({NUM_NODE}, {width}) f32 "
+               f"mapped host table and a ({num_cache}, {width}) cache",
+               max_err(out, ref), "exact; hit and miss counts equal",
+               lambda: tiered_extract(*args, store.host),
+               lambda: tiered_extract_plain(*args, store.feat_host),
+               None, "none: no one PyTorch call reads a mapped host table",
+               nbytes=hbm, flops=0, per_step=per_step, path=path,
+               plain_reps=3,
+               bound=max((hbm_ms, "bytes"), (pcie_ms, "bytes")))
+        dms = kernels[-1]["device_ms"]
+        kernels[-1].update(hbm_bound_ms=hbm_ms, pcie_bound_ms=pcie_ms,
+                           copy_bound_ms=pcie / h2d_rate * 1e3,
+                           pcie_bytes=pcie, pcie_bytes_per_s_rated=pcie_rate,
+                           h2d_bytes_per_s=h2d_rate,
+                           pcie_bytes_per_s=pcie / dms * 1e3)
+        print(f"{tag} tiered_extract {what}: {pcie} bytes over PCIe at "
+              f"{pcie / dms / 1e6:.3f} GB/s on the card alone (rated "
+              f"{pcie_rate / 1e9:.3f} GB/s, pinned copy_ "
+              f"{h2d_rate / 1e9:.3f} GB/s); bound HBM {hbm_ms:.4f} ms, PCIe "
+              f"{pcie_ms:.4f} ms ({pcie / h2d_rate * 1e3:.4f} ms at the "
+              f"copy's rate)", flush=True)
+        return out
+
+    k11_case(cbatch.input_nodes, num_in, store.posmap, "the batch as drawn",
+             1)
+    k11_case(sparse, num_in, store.posmap, "30% EMPTY", 1)
+    # the all-miss form: the cache's rows, in slot order
+    cached = (store.posmap != empty).nonzero().flatten()
+    cache_ids = torch.empty(num_cache, dtype=torch.int32, device=dev)
+    cache_ids[store.posmap[cached].long()] = cached.to(torch.int32)
+    counts_by_path["graphsage_cached_init"] = init_counts
+    rows = k11_case(cache_ids, num_cache, None, "all-miss form (cache build)",
+                    0, path="graphsage_cached_init")
+    assert_close("tiered_extract (cache build)", rows, store.cache_feat,
+                 exact=True)
+    del sparse, cached, rows
+
+    # K12 on the batch (the dynamic cache's per-step count)
+    freq = torch.zeros(NUM_NODE, dtype=torch.int32, device=dev)
+    got = accumulate_freq(freq.clone(), cbatch.input_nodes, num_in)
+    ref = accumulate_freq_plain(freq.clone(), cbatch.input_nodes, num_in)
+    torch.cuda.synchronize()
+    assert_close("accumulate_freq", got, ref, exact=True)
+    ok = ((torch.arange(cbatch.input_nodes.shape[0], device=dev) < num_in)
+          & (cbatch.input_nodes >= 0) & (cbatch.input_nodes < NUM_NODE))
+    lib_idx = torch.where(ok, cbatch.input_nodes, 0).long()
+    lib_val = ok.to(torch.int32)
+    live = int(ok.sum())
+    record("accumulate_freq", "xgnn_tpu_torch/csrc/presample.cu",
+           "xgnn_tpu/store/presample.py:100-105",
+           f"{cbatch.input_nodes.shape[0]} ids ({live} valid) into "
+           f"({NUM_NODE},) int32", max_err(got, ref), "exact",
+           lambda: accumulate_freq(freq, cbatch.input_nodes, num_in),
+           lambda: accumulate_freq_plain(freq, cbatch.input_nodes, num_in),
+           lambda: freq.index_put_((lib_idx,), lib_val, accumulate=True),
+           "freq.index_put_((ids,), mask, accumulate=True) on the ids "
+           "clamped to 0 where masked",
+           # the ids in, a freq word read and written a valid id
+           nbytes=cbatch.input_nodes.numel() * 4 + live * 8, flops=0,
+           per_step=1, path="graphsage_dynamic")
+    del got, ref, ok, lib_idx, lib_val, freq
+
+    # K12b: one batch's three layers of the exact static closure
+    bseeds = seeds[:n].contiguous()
+    zero = torch.zeros(NUM_NODE, dtype=torch.int32, device=dev)
+    got = closure_expand(indptr, indices, bseeds, len(FANOUT), zero.clone())
+    ref = closure_expand_plain(indptr, indices, bseeds, len(FANOUT),
+                               zero.clone())
+    torch.cuda.synchronize()
+    assert_close("closure_expand", got, ref, exact=True)
+    deg = (indptr[1:] - indptr[:-1]).long()
+    marked = [closure_expand_plain(indptr, indices, bseeds, lay,
+                                   zero.clone()).bool()
+              for lay in range(len(FANOUT))]
+    # least: the seeds, an indptr pair and the indices of each row within
+    # L-1 hops (its neighbours are all that the last hop needs), counts
+    # read and written; the kernel streams every marked row's indices again
+    # each layer
+    reach = marked[-1]
+    need = (bseeds.numel() * 4 + int(reach.sum()) * 8
+            + int(deg[reach].sum()) * 4 + NUM_NODE * 8)
+    streamed = sum(int(deg[m].sum()) for m in marked)
+    record("closure_expand", "xgnn_tpu_torch/csrc/presample.cu",
+           "xgnn_tpu/store/presample.py:69-83 (expand inside "
+           "static_exact_ranking)",
+           f"{n} seeds, {len(FANOUT)} layers over ({NUM_NODE}, "
+           f"{indices.numel()}) CSR: {int(got.sum())} nodes reached, "
+           f"{int(reach.sum())} rows within {len(FANOUT) - 1} hops; "
+           f"{streamed} edges streamed", max_err(got, ref), "exact",
+           lambda: closure_expand(indptr, indices, bseeds, len(FANOUT), zero),
+           lambda: closure_expand_plain(indptr, indices, bseeds, len(FANOUT),
+                                        zero),
+           None, "none: no one PyTorch call expands a CSR mask",
+           nbytes=need, flops=0, per_step=1, path="presample_static",
+           plain_reps=3)
+    kernels[-1]["edges_streamed"] = streamed
+    del got, ref, marked, reach, deg, zero
+    # presample_static's ranking, a K12b launch a batch
+    _build.LAUNCHES.reset()
+    t0 = time.perf_counter()
+    static = static_exact_ranking(ds.graph, ds.train_set, ccfg, NUM_NODE,
+                                  dev)
+    static_s = time.perf_counter() - t0
+    counts_by_path["presample_static"] = _build.LAUNCHES.snapshot()
+    if counts_by_path["presample_static"] != {"closure_expand": steps}:
+        raise AssertionError("presample_static: launches "
+                             f"{counts_by_path['presample_static']}")
+    print(f"{tag} presample_static ranking: {steps} batches in "
+          f"{static_s:.3f} s, {int((static > 0).sum())} nodes reached, "
+          f"launches {counts_by_path['presample_static']}", flush=True)
+    del static, cbatch, bseeds
+
+    # graphsage_cached: warm-up, counted, unpipelined and profiled epochs
+    c_edges = edges_of(ceng.sampler)
+    print(f"{tag} graphsage_cached edges aggregated per step {c_edges:.1f}",
+          flush=True)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    r1 = run_epochs("graphsage_cached", ceng)
+    rate_and_memory("graphsage_cached", r1, c_edges)
+    hist = ceng.history[1]
+    print(f"{tag} graphsage_cached epoch 1: hit rate {r1['hit_rate']:.6f}; "
+          f"per step {mean(hist['hit']):.1f} hits, {mean(hist['miss']):.1f} "
+          f"misses, {mean(hist['miss']) * width * 4:.1f} miss bytes; K11 "
+          f"launches {counts_by_path['graphsage_cached']['tiered_extract']} "
+          f"(expected {steps}), K12 "
+          f"{counts_by_path['graphsage_cached'].get('accumulate_freq', 0)} "
+          "(expected 0)", flush=True)
+    if not 0.0 < r1["hit_rate"] <= 1.0:
+        raise AssertionError(f"graphsage_cached: hit rate {r1['hit_rate']}")
+    ceng.config.pipeline = False
+    r2 = ceng.train_epoch(2)
+    stage = ceng.history[2]["stages"]
+    print(f"{tag} graphsage_cached epoch 2 (unpipelined, synchronised per "
+          f"stage): {r2['time']:.3f} s; per step sample "
+          f"{mean(stage['sample']) * 1e3:.3f} ms, extract "
+          f"{mean(stage['extract']) * 1e3:.3f} ms, train "
+          f"{mean(stage['train']) * 1e3:.3f} ms; loss {r2['loss']:.4f}, hit "
+          f"rate {r2['hit_rate']:.6f}", flush=True)
+    if not all(math.isfinite(v) for v in ceng.history[2]["loss"]):
+        raise AssertionError("graphsage_cached epoch 2: a step loss is not "
+                             "finite")
+    ceng.config.pipeline = True
+    profiled_epoch("graphsage_cached", ceng, 3)
+    del ceng, store, hist
+    torch.cuda.empty_cache()
+
+    # two epochs of the dynamic cache at the same configuration: it counts
+    # every step (K12) and refreshes at each epoch's end
+    deng = Engine(ds, dataclasses.replace(ccfg,
+                                          cache_policy="dynamic_cache")).init()
+    posmap0 = deng.feature_source.posmap.clone()
+    run_epochs("graphsage_dynamic", deng)
+    moved = int((deng.feature_source.posmap != posmap0).sum())
+    if not moved:
+        raise AssertionError("graphsage_dynamic: the refresh left posmap as "
+                             "it was")
+    check = torch.randint(0, NUM_NODE, (200_000,), generator=gen, device=dev,
+                          dtype=torch.int32)
+    out, info = deng.feature_source.extract(check, check.shape[0])
+    want = deng.feature_source.feat_host[check.cpu().long()]
+    if not torch.equal(out.cpu(), want):
+        raise AssertionError("graphsage_dynamic: extraction after the "
+                             "refresh differs from the host table")
+    rates = [float(h["hit"].sum() / (h["hit"].sum() + h["miss"].sum()))
+             for h in (deng.history[0], deng.history[1])]
+    print(f"{tag} graphsage_dynamic: the refresh moved {moved} posmap "
+          f"entries; {check.shape[0]} ids after it ({int(info['num_hit'])} "
+          f"hits) equal the host table; epoch hit rates {rates}", flush=True)
+    del deng, out, want, check, posmap0
+
     for k in kernels:
         k["launches"] = counts_by_path[k["path"]].get(k["name"], 0)
+        if k["path"] == "graphsage_cached_init":
+            # the cache build again at each refresh of the dynamic cache
+            k["refresh_launches"] = (
+                counts_by_path["graphsage_dynamic"]["tiered_extract"] - steps)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

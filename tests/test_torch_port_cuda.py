@@ -1276,3 +1276,158 @@ def test_a_weighted_step_never_waits_on_the_card(dev):
         torch.cuda.set_sync_debug_mode("default")
     assert _build.LAUNCHES.snapshot()["sample_prefix"] == 3
     assert np.isfinite(float(metrics["loss"]))
+
+
+def _tiered_inputs(dev, width, pct, seed, n=5000, num_node=3000):
+    from xgnn_tpu_torch.store import TieredFeatureSource
+
+    g = _gen(torch.device("cpu"), seed)
+    feat = torch.randn((num_node, width), generator=g)
+    ranking = torch.randperm(num_node, generator=g).to(torch.int32)
+    src = TieredFeatureSource(feat, ranking, pct, dev)
+    ids = torch.randint(-5, num_node + 5, (n,), generator=g,
+                        dtype=torch.int32)
+    ids[torch.rand(n, generator=g) < 0.3] = EMPTY
+    return src, feat, ids.to(dev)
+
+
+@pytest.mark.parametrize("width", [1, 3, 4, 128, 131, 256])
+@pytest.mark.parametrize("pct", [0.0, 0.3, 0.9])
+@pytest.mark.parametrize("num_input", [0, 1, 2999, 5000])
+def test_tiered_extract_kernel_equals_plain(dev, width, pct, num_input):
+    """K11 against its plain version on the same tensors: rows bit-equal
+    (zero for EMPTY, negative and out-of-range ids and past num_input),
+    hit and miss counts equal; the cache rows built by its all-miss form
+    equal the host table's."""
+    from xgnn_tpu_torch.ops import _build
+    from xgnn_tpu_torch.ops.tiered import tiered_extract_plain
+
+    src, feat, ids = _tiered_inputs(dev, width, pct, width + num_input)
+    assert src.host.dev_ptr is not None
+    cached = (src.posmap != EMPTY).nonzero().flatten()
+    assert torch.equal(src.cache_feat[src.posmap[cached].long()].cpu(),
+                       feat[cached.cpu()])
+    num = torch.tensor(num_input, dtype=torch.int32, device=dev)
+    _build.LAUNCHES.reset()
+    out, info = src.extract(ids, num)
+    assert _build.LAUNCHES.snapshot() == {"tiered_extract": 1}
+    ref, counts = tiered_extract_plain(ids, num, src.posmap, src.cache_feat,
+                                       src.feat_host)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref)
+    assert [int(info["num_hit"]), int(info["num_miss"])] == counts.tolist()
+    assert int(info["miss_bytes"]) == int(counts[1]) * width * 4
+    if pct == 0.0:
+        assert int(info["num_hit"]) == 0
+
+
+def test_tiered_extract_all_miss_form_on_the_card(dev):
+    from xgnn_tpu_torch.ops.tiered import (
+        MappedHostTable,
+        tiered_extract,
+        tiered_extract_plain,
+    )
+
+    feat = torch.randn((4000, 128), generator=_gen(torch.device("cpu"), 3))
+    host = MappedHostTable(feat, dev)
+    ids = torch.randperm(4000, generator=_gen(torch.device("cpu"), 4))[:1500]
+    ids = ids.to(torch.int32).to(dev)
+    out, counts = tiered_extract(ids, 1500, None, None, host)
+    ref, ref_counts = tiered_extract_plain(ids, 1500, None, None, host.tensor)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref) and torch.equal(out.cpu(),
+                                                 feat[ids.cpu().long()])
+    assert counts.tolist() == ref_counts.tolist() == [0, 1500]
+    host.close()
+    assert host.dev_ptr is None
+    with pytest.raises(ValueError, match="not mapped"):
+        tiered_extract(ids, 1500, None, None, host)
+
+
+@pytest.mark.parametrize("num_input", [0, 700, 4096])
+def test_accumulate_freq_kernel_equals_plain(dev, num_input):
+    from xgnn_tpu_torch.ops.presample import (
+        accumulate_freq,
+        accumulate_freq_plain,
+    )
+
+    g = _gen(dev, num_input)
+    ids = torch.randint(-3, 1003, (4096,), generator=g, device=dev,
+                        dtype=torch.int32)
+    ids[::7] = EMPTY
+    freq = torch.randint(0, 9, (1000,), generator=g, device=dev,
+                         dtype=torch.int32)
+    num = torch.tensor(num_input, dtype=torch.int32, device=dev)
+    want = accumulate_freq_plain(freq.clone(), ids, num)
+    got = accumulate_freq(freq, ids, num)
+    torch.cuda.synchronize()
+    assert got is freq and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("num_layer", [0, 1, 2, 3])
+def test_closure_expand_kernel_equals_plain(dev, num_layer):
+    from xgnn_tpu_torch import make_device_dataset
+    from xgnn_tpu_torch.ops.presample import (
+        closure_expand,
+        closure_expand_plain,
+    )
+
+    ds = make_device_dataset(20_001, 60_000, 4, 3, seed=num_layer,
+                             device=dev)
+    seeds = torch.from_numpy(ds.train_set[:300]).to(dev)
+    seeds[::11] = EMPTY
+    counts = torch.randint(0, 5, (ds.num_node,), generator=_gen(dev, 1),
+                           device=dev, dtype=torch.int32)
+    want = closure_expand_plain(ds.graph.indptr, ds.graph.indices, seeds,
+                                num_layer, counts.clone())
+    got = closure_expand(ds.graph.indptr, ds.graph.indices, seeds, num_layer,
+                         counts)
+    torch.cuda.synchronize()
+    assert got is counts and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("policy", ["pre_sample", "presample_static",
+                                    "dynamic_cache"])
+def test_a_cached_step_never_waits_on_the_card(dev, policy):
+    """The tiered store's step (K12 for the dynamic cache, K11) and the
+    train step only queue work on the card; two epochs train with finite
+    losses and a hit rate in (0, 1], and the dynamic cache refreshes."""
+    from xgnn_tpu_torch import Engine, RunConfig, make_device_dataset
+    from xgnn_tpu_torch.device import generator
+    from xgnn_tpu_torch.engine.shuffler import Shuffler
+    from xgnn_tpu_torch.ops import _build
+    from xgnn_tpu_torch.train import train_step
+
+    ds = make_device_dataset(20_000, 100_000, 32, 7, seed=5, device=dev)
+    cfg = RunConfig(batch_size=256, fanout=(10, 5, 3), num_hidden=32,
+                    calibration_batches=1, cache_percentage=0.2,
+                    cache_policy=policy)
+    engine = Engine(ds, cfg).init()
+    assert not engine._direct
+    item = next(Shuffler(ds.train_set, cfg.batch_size).epoch_batches(0))
+    batch, x, labels, _, _ = engine._produce((item, 1, (0, 0)))
+    train_step(engine.model, engine.opt, batch.blocks, x, labels,
+               batch.num_output, generator(dev, 2), batch.overflow)
+    torch.cuda.synchronize()
+    _build.LAUNCHES.reset()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        batch, x, labels, info, _ = engine._produce((item, 3, (0, 1)))
+        metrics = train_step(engine.model, engine.opt, batch.blocks, x,
+                             labels, batch.num_output, generator(dev, 4),
+                             batch.overflow)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    counts = _build.LAUNCHES.snapshot()
+    assert counts["tiered_extract"] == 1
+    assert counts.get("accumulate_freq", 0) == (policy == "dynamic_cache")
+    assert np.isfinite(float(metrics["loss"]))
+    posmap = engine.feature_source.posmap.clone()
+    for e in range(2):
+        r = engine.train_epoch(e)
+        assert np.isfinite(r["loss"]) and 0 < r["hit_rate"] <= 1
+    changed = not torch.equal(engine.feature_source.posmap, posmap)
+    assert changed == (policy == "dynamic_cache")
+    ids = torch.arange(512, dtype=torch.int32, device=dev)
+    out, _ = engine.feature_source.extract(ids, 512)
+    assert torch.equal(out, ds.feat[:512])

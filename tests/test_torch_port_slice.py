@@ -293,8 +293,19 @@ def test_weighted_configs_construct_and_sample(sample_type):
     ("use_dist_graph", True),
     ("agg_impl", "tiled"),
 ])
-def test_unported_configs_raise(field, value):
-    from xgnn_tpu_torch import RunConfig
+def test_unported_configs_raise(field, value, learn_ds):
+    from xgnn_tpu_torch import Engine, RunConfig
 
+    if field == "cache_percentage":
+        # once refused, a cache share in (0, 1) now builds the tiered store
+        from xgnn_tpu_torch.store import TieredFeatureSource
+
+        cfg = RunConfig(**{field: value}, batch_size=64, fanout=(4, 3),
+                        num_layer=2, num_hidden=8, calibration_batches=1)
+        assert cfg.cache_percentage == value
+        engine = Engine(Dataset.from_arrays(learn_ds), cfg,
+                        device="cpu").init()
+        assert type(engine.feature_source) is TieredFeatureSource
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         RunConfig(**{field: value})

@@ -371,7 +371,7 @@ def test_unported_messages_name_roadmap_items_that_exist():
     from xgnn_tpu_torch import RunConfig
 
     roadmap = (Path(__file__).resolve().parents[1] / "ROADMAP.md").read_text()
-    cases = [dict(feat_dtype="bfloat16"), dict(cache_percentage=0.5),
+    cases = [dict(feat_dtype="bfloat16"),
              dict(use_dist_graph=True), dict(device_loop=True),
              dict(agg_impl="tiled"), dict(compute_dtype="bfloat16"),
              dict(remat=True)]

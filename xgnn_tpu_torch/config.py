@@ -5,7 +5,9 @@ read, under the same names and defaults.  A value that selects a path the
 port does not have yet raises ``NotImplementedError`` naming, by its title,
 the ROADMAP item that ports it; nothing is silently replaced by another
 path.  PinSAGE is the random-walk path: ``model="pinsage"`` coerces the
-sampler to ``random_walk`` with the JAX package's warning.
+sampler to ``random_walk`` with the JAX package's warning.  A
+``cache_percentage`` in (0, 1) selects the tiered feature store, with the
+ranking of ``cache_policy``.
 """
 
 from __future__ import annotations
@@ -27,6 +29,20 @@ class SampleType(Enum):
     WEIGHTED_KHOP_PREFIX = "weighted_khop_prefix"
     WEIGHTED_KHOP_HASH_DEDUP = "weighted_khop_hash_dedup"
     RANDOM_WALK = "random_walk"
+
+
+class CachePolicy(Enum):
+    """Hot-row cache rankings (same names and values as the JAX package's
+    enum)."""
+
+    DEGREE = "degree"
+    HEURISTIC = "heuristic"
+    PRE_SAMPLE = "pre_sample"  # frequency ranking from presample epochs
+    DEGREE_HOP = "degree_hop"
+    PRE_SAMPLE_STATIC = "presample_static"
+    FAKE_OPTIMAL = "fake_optimal"
+    DYNAMIC = "dynamic_cache"
+    RANDOM = "random"
 
 
 # khop0/khop2/khop3 are one distribution (uniform K-subset without
@@ -63,7 +79,13 @@ class RunConfig:
     feat_dtype: str = "float32"
 
     # --- feature store -----------------------------------------------------
+    cache_policy: CachePolicy = CachePolicy.PRE_SAMPLE
+    # in (0, 1): the tiered store, that share of the rows cached on the
+    # device; 0 or >= 1: the whole table on the device
     cache_percentage: float = 0.0
+    presample_epoch: int = 1
+    # the wide-khop fanout of presample_static on a tiered topology
+    presample_static_fanout: int = 32
     use_dist_graph: bool = False
     gpu_extract: bool = True
 
@@ -80,10 +102,15 @@ class RunConfig:
 
     # --- misc --------------------------------------------------------------
     seed: int = 42
+    # the dynamic cache refreshes at an epoch's end when this is -1 or 0
+    # (every epoch) or equal to the epoch
+    barriered_epoch: int = -1
 
     def __post_init__(self):
         if isinstance(self.sample_type, str):
             self.sample_type = SampleType(self.sample_type)
+        if isinstance(self.cache_policy, str):
+            self.cache_policy = CachePolicy(self.cache_policy)
         self.fanout = tuple(int(f) for f in self.fanout)
         if (self.model == "pinsage"
                 and self.sample_type != SampleType.RANDOM_WALK):
@@ -101,14 +128,9 @@ class RunConfig:
             raise ValueError(f"model={self.model!r}: not a model of the zoo "
                              f"{PORTED_MODELS}")
         todo = []
-        if 0.0 < self.cache_percentage < 1.0:
-            todo.append(
-                f"cache_percentage={self.cache_percentage}: ROADMAP queue 1, "
-                "'Stores and caching'"
-            )
         if self.use_dist_graph:
-            todo.append("use_dist_graph: ROADMAP queue 1, 'Stores and "
-                        "caching' and 'Multi-GPU'")
+            todo.append("use_dist_graph: ROADMAP queue 1, 'Tiered "
+                        "topology' and 'Multi-GPU'")
         if self.device_loop:
             todo.append("device_loop: ROADMAP queue 1, 'Tooling'")
         if self.agg_impl != "loop":

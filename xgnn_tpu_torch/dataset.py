@@ -15,6 +15,13 @@ from typing import Any, Optional
 import numpy as np
 
 
+def host_array(a) -> np.ndarray:
+    """A numpy array of ``a``, pulled from the device if it is a tensor."""
+    if hasattr(a, "detach"):
+        return a.detach().cpu().numpy()
+    return np.asarray(a)
+
+
 @dataclasses.dataclass
 class Dataset:
     name: str
@@ -36,6 +43,15 @@ class Dataset:
     out_degrees: Optional[np.ndarray] = None
     cache_rankings: dict = dataclasses.field(default_factory=dict)
     graph: Any = None  # a device-resident types.Graph, when built on device
+
+    @property
+    def degrees(self) -> np.ndarray:
+        """Out-degrees from the CSR (sampling fans out along indptr rows),
+        on the host."""
+        if self.out_degrees is not None:
+            return np.asarray(self.out_degrees)
+        indptr = host_array(self.indptr)
+        return np.diff(indptr)
 
     @classmethod
     def from_arrays(cls, other) -> "Dataset":

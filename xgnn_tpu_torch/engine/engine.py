@@ -1,12 +1,18 @@
 """The training engine: init, calibration and the host epoch loop.
 
-The port of ``xgnn_tpu/engine/engine.py``'s single-store ``Engine`` on the
-main path: the whole feature table on the device, direct extract, and a
-pipelined host loop.  Per step nothing waits on the device; the overflow
-flags, losses and accuracies come to the host in one pull per epoch, and an
-overflow grows the sampler's capacities for the next epoch (the overflowed
-steps were skipped on the device).  ``history[epoch]`` keeps each step's
-loss, accuracy and overflow flag and the host time of each stage.
+The port of ``xgnn_tpu/engine/engine.py``'s single-store ``Engine``: the
+whole feature table on the device with direct extract, or, for a
+``cache_percentage`` in (0, 1), the tiered store (a ranked hot-row cache on
+the device, the table in pinned host memory, the ranking from
+``cache_policy``, presampled at init where the policy needs it) with
+non-direct extract; and a pipelined host loop.  Per step nothing waits on
+the device; the overflow flags, losses, accuracies and the store's hit and
+miss counts come to the host in one pull per epoch, and an overflow grows
+the sampler's capacities for the next epoch (the overflowed steps were
+skipped on the device).  ``dynamic_cache`` counts accesses on the device
+every step and refreshes the cache at epoch ends.  ``history[epoch]`` keeps
+each step's loss, accuracy, overflow flag, hits and misses and the host
+time of each stage.
 """
 
 from __future__ import annotations
@@ -18,11 +24,19 @@ import numpy as np
 import torch
 
 from .. import constants as C
-from ..config import WEIGHTED, RunConfig
+from ..config import WEIGHTED, CachePolicy, RunConfig
 from ..device import generator, resolve, seed_of
 from ..models import build_model
+from ..ops.presample import accumulate_freq
 from ..sampler import Sampler
-from ..store.feature_store import HBMFeatureSource, LabelSource
+from ..store.feature_store import (
+    DynamicTieredFeatureSource,
+    HBMFeatureSource,
+    LabelSource,
+    TieredFeatureSource,
+)
+from ..store.presample import presample_ranking, static_exact_ranking
+from ..store.ranking import FREQUENCY_POLICIES, build_ranking
 from ..train import Adam, train_step
 from ..types import Graph
 from .pipeline import Prefetcher
@@ -56,6 +70,9 @@ class Engine:
         self.model = None
         self.opt: Optional[Adam] = None
         self.history: dict = {}
+        # host seconds of the init stages (presample, cache build)
+        self.init_times: dict = {}
+        self._dyn_freq: Optional[torch.Tensor] = None
 
     # ------------------------------------------------------------------ init
     def init(self):
@@ -66,11 +83,12 @@ class Engine:
             self.graph = Graph.from_dataset(
                 self.ds, self.device, weighted=cfg.sample_type in WEIGHTED)
         # direct extract: the last sampled layer keeps global ids and the
-        # first GNN layer reads the feature table itself
-        self._direct = cfg.gpu_extract
+        # first GNN layer reads the feature table itself; the tiered store
+        # extracts the last layer's deduplicated ids instead
+        self._direct = cfg.gpu_extract and not self._tiered
         self.sampler = Sampler(self.graph, cfg, direct_extract=self._direct)
         self._calibrate()
-        self.feature_source = HBMFeatureSource(self.ds.feat, self.device)
+        self._build_feature_source()
         self.label_source = LabelSource(self.ds.label, self.device)
         self.model = build_model(cfg, self.ds.feat_dim, self.ds.num_class)
         self.model.to(self.device)
@@ -100,6 +118,45 @@ class Engine:
         self.sampler = Sampler(self.graph, cfg, caps,
                                direct_extract=self._direct)
 
+    @property
+    def _tiered(self) -> bool:
+        return 0.0 < self.config.cache_percentage < 1.0
+
+    def _build_feature_source(self):
+        """The whole table on the device, or the tiered store with the
+        ranking of ``cache_policy`` (presampled here where it needs access
+        counts).  The features go to pinned host memory once."""
+        cfg = self.config
+        if not self._tiered:
+            self.feature_source = HBMFeatureSource(self.ds.feat, self.device)
+            return
+        access_freq = None
+        if cfg.cache_policy in FREQUENCY_POLICIES:
+            t0 = time.perf_counter()
+            if cfg.cache_policy == CachePolicy.PRE_SAMPLE_STATIC:
+                # the exact all-neighbour closure over the whole topology
+                access_freq = static_exact_ranking(
+                    self.graph, self.ds.train_set, cfg, self.graph.num_node,
+                    self.device)
+            else:
+                access_freq = presample_ranking(
+                    self.sampler, self.ds.train_set, cfg,
+                    self.sampler.num_node, self.device)
+            self.init_times["presample"] = time.perf_counter() - t0
+        ranking = build_ranking(self.ds, cfg, access_freq)
+        t0 = time.perf_counter()
+        cls = (DynamicTieredFeatureSource
+               if cfg.cache_policy == CachePolicy.DYNAMIC
+               else TieredFeatureSource)
+        self.feature_source = cls(self.ds.feat, ranking,
+                                  cfg.cache_percentage, self.device)
+        self._sync()
+        self.init_times["cache_build"] = time.perf_counter() - t0
+        if cfg.cache_policy == CachePolicy.DYNAMIC:
+            self._dyn_freq = torch.zeros(self.graph.num_node,
+                                         dtype=torch.int32,
+                                         device=self.device)
+
     def _to_device(self, seeds: np.ndarray) -> torch.Tensor:
         host = torch.from_numpy(seeds)
         if self.device.type != "cuda":
@@ -122,6 +179,9 @@ class Engine:
         t0 = time.perf_counter()
         gen = generator(self.device, seed)
         batch = self.sampler.sample(self._to_device(seeds), num_valid, gen)
+        if self._dyn_freq is not None:
+            accumulate_freq(self._dyn_freq, batch.input_nodes,
+                            batch.num_input)
         if sync:
             self._sync()
         t1 = time.perf_counter()
@@ -155,7 +215,7 @@ class Engine:
             # unpipelined, each stage's host time covers its device work
             else (self._produce(item, sync=True) for item in work())
         )
-        losses, accs, overflows = [], [], []
+        losses, accs, overflows, hits, misses = [], [], [], [], []
         stages = {"sample": [], "extract": [], "train": []}
         t_epoch = time.perf_counter()
         try:
@@ -177,21 +237,32 @@ class Engine:
                 losses.append(metrics["loss"])
                 accs.append(metrics["acc"])
                 overflows.append(batch.overflow)
+                if "num_hit" in info:
+                    hits.append(info["num_hit"])
+                    misses.append(info["num_miss"])
         finally:
             # stop the producer even if training raised: it must not go on
             # queueing device work after the consumer is gone
             if isinstance(stream, Prefetcher):
                 stream.close()
+        hit_rate = float("nan")
         if losses:
             # ONE device-to-host pull for the epoch's metrics
-            stats = torch.stack([
-                torch.stack(losses).float(),
-                torch.stack(accs).float(),
-                torch.stack(overflows).float(),
-            ]).cpu().numpy()
-            loss_v, acc_v, over_v = stats
+            cols = [torch.stack(losses).float(), torch.stack(accs).float(),
+                    torch.stack(overflows).float()]
+            if hits:
+                # counts below 2^24 a step: exact in float32
+                cols += [torch.stack(hits).float(),
+                         torch.stack(misses).float()]
+            stats = torch.stack(cols).cpu().numpy()
+            loss_v, acc_v, over_v = stats[:3]
             self.history[epoch] = {"loss": loss_v, "acc": acc_v,
                                    "overflow": over_v, "stages": stages}
+            if hits:
+                hit_v, miss_v = stats[3], stats[4]
+                self.history[epoch].update(hit=hit_v, miss=miss_v)
+                total = hit_v.sum() + miss_v.sum()
+                hit_rate = float(hit_v.sum() / max(total, 1.0))
             if over_v.sum():
                 print(f"warning: {int(over_v.sum())} batches overflowed "
                       f"capacity in epoch {epoch}")
@@ -201,7 +272,16 @@ class Engine:
         else:
             loss = acc = float("nan")
         dt = time.perf_counter() - t_epoch
+        refresh = (cfg.barriered_epoch in (-1, 0)
+                   or epoch == cfg.barriered_epoch)
+        if self._dyn_freq is not None and refresh:
+            # the dynamic cache takes the hottest rows by the running access
+            # counts (the top-k and the rebuild stay on the device)
+            k = self.feature_source.num_cache
+            if k > 0:
+                top = torch.topk(self._dyn_freq, k).indices.to(torch.int32)
+                self.feature_source.refresh(top)
         return {
             "epoch": epoch, "loss": loss, "train_acc": acc, "time": dt,
-            "hit_rate": float("nan"),
+            "hit_rate": hit_rate,
         }

@@ -62,6 +62,16 @@ SIGNATURES = {
         "xg_sample_prefix": [_P] * 7 + [_LL, _LL, _I, _P],
         "xg_sample_alias": [_P] * 8 + [_LL, _LL, _I, _I, _I, _P],
     },
+    "tiered": {
+        "xg_tiered_extract": [_P, _LL, _P, _P, _LL, _P, _P, _LL, _P, _P, _I,
+                              _P],
+        "xg_host_map": [_P, _LL, _I, _P],
+        "xg_host_unmap": [_P, _I],
+    },
+    "presample": {
+        "xg_accumulate_freq": [_P, _LL, _P, _LL, _P, _I, _P],
+        "xg_closure_expand": [_P, _P, _LL, _P, _LL, _I, _P, _P, _P, _I, _P],
+    },
     "attend": {
         "xg_attend_fwd": [_P] * 7 + [_LL, _LL, _I, _I, _I, _I, _F, _P],
         "xg_attend_bwd": [_P] * 11 + [_I, _LL, _LL, _I, _I, _I, _I, _F, _P],
@@ -177,3 +187,12 @@ def stream_handle(device) -> int:
     if _raw_stream is not None and device.index is not None:
         return _raw_stream(device.index)
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def int32_scalar(num, device) -> torch.Tensor:
+    """``num`` (an int or a one-element tensor) as an int32 scalar on
+    ``device``, for a kernel that reads a count on the device; an int is
+    filled in there, so nothing waits on the host."""
+    if isinstance(num, torch.Tensor):
+        return num.to(device=device, dtype=torch.int32).reshape(())
+    return torch.full((), int(num), dtype=torch.int32, device=device)

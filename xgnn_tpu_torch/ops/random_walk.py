@@ -2,7 +2,7 @@
 
 The port of ``xgnn_tpu/ops/random_walk.py``'s ``sample_random_walk`` with
 ``_uniform_step`` (the untiered walk; the tiered walk over a host topology
-is ROADMAP queue 1, 'Stores and caching').  Per seed, W walkers take L
+is ROADMAP queue 1, 'Tiered topology').  Per seed, W walkers take L
 steps; before each step after the first a walker restarts at its seed with
 probability ``restart_prob``, and a step is one uniform draw with
 replacement (:func:`~xgnn_tpu_torch.ops.sampling.sample_uniform_wr` at

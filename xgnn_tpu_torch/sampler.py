@@ -9,7 +9,7 @@ ids.  The walk's visit counts ride on each block as its ``weights``.  With
 direct extract the last layer keeps global ids and is not deduped.  Shapes
 are static, at the frontier capacities, and the overflow flag stays on the
 device: sampling never waits on the host.  The tiered topology
-(``tier=``) is not ported (ROADMAP queue 1, 'Stores and caching').
+(``tier=``) is not ported (ROADMAP queue 1, 'Tiered topology').
 """
 
 from __future__ import annotations

@@ -1,1 +1,6 @@
-from .feature_store import HBMFeatureSource, LabelSource  # noqa: F401
+from .feature_store import (  # noqa: F401
+    DynamicTieredFeatureSource,
+    HBMFeatureSource,
+    LabelSource,
+    TieredFeatureSource,
+)

@@ -1,10 +1,20 @@
-"""Feature and label sources with the whole table on the device.
+"""Feature and label sources: the whole table on the device, or tiered.
 
-The port of ``HBMFeatureSource``, ``LabelSource`` and ``_gather_rows`` of
-``xgnn_tpu/store/feature_store.py``.  Both gather through kernel K1.  Slots
-at or past ``num_valid`` come back as zero rows (the JAX package fills them
-with arbitrary finite rows; nothing reads them).  The tiered and cached
-sources are ROADMAP queue 1, 'Stores and caching'.
+The port of ``xgnn_tpu/store/feature_store.py``:
+
+- ``HBMFeatureSource`` and ``LabelSource`` gather through kernel K1.  Slots
+  at or past ``num_valid`` come back as zero rows (the JAX package fills
+  them with arbitrary finite rows; nothing reads them).
+- ``TieredFeatureSource``: a hot-row cache in device memory (a ranking's
+  prefix) with a node-to-slot position map, and the whole table in pinned
+  host memory.  ``extract`` is one launch of kernel K11, which reads the
+  cached rows from the cache and the others from the host table in place,
+  over PCIe.  The JAX package's split, host gather, copy and combine, and
+  the fixed miss bucket that keeps them free of host syncs (``miss_cap``,
+  its ``overflow`` flag, ``grow_miss_cap``, ``PAD_ROWS``), have nothing to
+  do here; the hit and miss counts stay on the device.
+- ``DynamicTieredFeatureSource``: ``refresh(ranking)`` rebuilds the position
+  map and the cache on the device.
 """
 
 from __future__ import annotations
@@ -14,6 +24,9 @@ import torch
 
 from .. import constants as C
 from ..ops.gather import gather_rows
+from ..ops.tiered import MappedHostTable, tiered_extract
+
+EMPTY = C.EMPTY_KEY
 
 
 def _gather_rows(feat: torch.Tensor, ids: torch.Tensor, num_valid):
@@ -33,6 +46,62 @@ class HBMFeatureSource:
     def extract(self, input_nodes: torch.Tensor, num_input):
         out = _gather_rows(self.feat, input_nodes, num_input)
         return out, {"hit_rate": 1.0, "miss_bytes": 0}
+
+
+class TieredFeatureSource:
+    """The ``int(num_node * cache_percentage)`` hottest rows of a ranking
+    cached on the device, every row in pinned, mapped host memory.
+
+    ``extract`` returns ``(x, info)``: ``info["num_hit"]`` and
+    ``info["num_miss"]`` are device int32 scalars and ``info["miss_bytes"]``
+    a device int64 scalar, so a step waits on nothing; the engine pulls
+    them once an epoch.  The host table is a copy of ``feat_host`` (pulled
+    from the device if it lies there; the source keeps no device copy).
+    """
+
+    def __init__(self, feat_host, ranking, cache_percentage: float, device):
+        self.device = torch.device(device)
+        self.host = MappedHostTable(feat_host, self.device)
+        num_node, self.feat_dim = self.host.tensor.shape
+        self.num_cache = int(num_node * cache_percentage)
+        self._build(ranking)
+
+    @property
+    def feat_host(self) -> torch.Tensor:
+        return self.host.tensor
+
+    def _build(self, ranking):
+        """The position map and the cache rows of ``ranking``'s prefix, on
+        the device; the rows are read from the host table by K11's
+        all-miss form."""
+        num_node = self.host.tensor.shape[0]
+        cache_ids = torch.as_tensor(ranking[: self.num_cache]).to(
+            device=self.device, dtype=torch.int32)
+        posmap = torch.full((num_node,), EMPTY, dtype=torch.int32,
+                            device=self.device)
+        posmap[cache_ids.long()] = torch.arange(
+            cache_ids.shape[0], dtype=torch.int32, device=self.device)
+        self.posmap = posmap
+        self.cache_feat, _ = tiered_extract(
+            cache_ids.contiguous(), cache_ids.shape[0], None, None, self.host)
+
+    def extract(self, input_nodes: torch.Tensor, num_input):
+        out, counts = tiered_extract(input_nodes, num_input, self.posmap,
+                                     self.cache_feat, self.host)
+        return out, {
+            "num_hit": counts[0],
+            "num_miss": counts[1],
+            "miss_bytes": counts[1].to(torch.int64) * (self.feat_dim * 4),
+        }
+
+
+class DynamicTieredFeatureSource(TieredFeatureSource):
+    """A refreshable cache: ``refresh(ranking)`` swaps the cached rows for
+    the prefix of a new ranking (a host array or a device tensor).  The
+    engine counts accesses on the device and refreshes at epoch ends."""
+
+    def refresh(self, ranking):
+        self._build(ranking)
 
 
 class LabelSource:
