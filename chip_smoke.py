@@ -92,11 +92,14 @@ Phases, each fatal on failure:
    the features is dropped.  K3 at the last layer's dedup (non-direct
    extract, out_cap 2,449,152), exact; K11 on one sampled batch's input
    nodes, as drawn and with 30% EMPTY, and in its all-miss form (the
-   cache's rows), exact with equal hit and miss counts, its bound the
-   larger of its HBM bytes and its miss bytes over PCIe gen 5 x16's rated
-   rate (63.0 GB/s a direction; the measured copy rate printed beside
-   it), its launches those of the path's counted
-   epoch, the cache build's those of the engine's init;
+   cache's rows): its split (the hit and zero rows, the miss positions and
+   ids, the counts) and its SMs' reads of the miss rows in place, each
+   exact against its plain version, and the whole extract exact with
+   equal hit and miss counts, timed with its bound: the larger of its HBM
+   bytes and its miss bytes over PCIe gen 5 x16's rated rate (63.0 GB/s a
+   direction; the measured copy rate printed beside it).  Their launches
+   are those of the path's counted epoch, the cache build's those of the
+   engine's init;
    K12 on the batch and K12b (the exact static closure) for one batch's
    three layers, exact; presample_static's ranking (a K12b launch a
    batch).  Then the path ``graphsage_cached``: warm-up, counted,
@@ -248,7 +251,14 @@ def main() -> int:
         closure_expand,
         closure_expand_plain,
     )
-    from xgnn_tpu_torch.ops.tiered import tiered_extract, tiered_extract_plain
+    from xgnn_tpu_torch.ops.tiered import (
+        tiered_direct,
+        tiered_direct_plain,
+        tiered_extract,
+        tiered_extract_plain,
+        tiered_split,
+        tiered_split_plain,
+    )
     from xgnn_tpu_torch.ops.random_walk import (
         sample_random_walk,
         sample_random_walk_plain,
@@ -458,6 +468,9 @@ def main() -> int:
                                  ProfilerActivity.CUDA]) as prof:
             dedup(picks)
             torch.cuda.synchronize()
+            # CUPTI may drop a short trace's last kernel records if it
+            # stops at once
+            time.sleep(0.2)
         per_call = sum(1 for e in prof.events()
                        if e.device_type == DeviceType.CUDA)
         state_bytes = unique.state(dev, graph.num_node).buf.numel() * 8
@@ -1110,11 +1123,13 @@ def main() -> int:
                                       "gather_rows": 2 * steps,
                                       "fanout_fwd": 3 * steps,
                                       "fanout_bwd": 2 * steps},
-        # non-direct extract: the last layer deduped too, K11 once a step,
-        # K1 for the labels only (the dst rows are x's prefix)
+        # non-direct extract: the last layer deduped too, K11 once a step
+        # (its split and its SMs' reads), K1 for the labels only (the dst
+        # rows are x's prefix)
         "graphsage_cached": {"sample_khop": 3 * steps,
                              "unique_seeded": 3 * steps,
-                             "tiered_extract": steps, "gather_rows": steps,
+                             "tiered_split": steps, "tiered_direct": steps,
+                             "gather_rows": steps,
                              "fanout_fwd": 3 * steps,
                              "fanout_bwd": 2 * steps},
         # and K12 once a step; K11 once more at the epoch's end, in its
@@ -1122,7 +1137,8 @@ def main() -> int:
         "graphsage_dynamic": {"sample_khop": 3 * steps,
                               "unique_seeded": 3 * steps,
                               "accumulate_freq": steps,
-                              "tiered_extract": steps + 1,
+                              "tiered_split": steps + 1,
+                              "tiered_direct": steps + 1,
                               "gather_rows": steps, "fanout_fwd": 3 * steps,
                               "fanout_bwd": 2 * steps},
     }
@@ -1200,7 +1216,9 @@ def main() -> int:
             ("K9, *random_walk*", lambda n: "random_walk" in n),
             ("K8b, *sample_prefix* and *sample_alias*",
              lambda n: "sample_prefix" in n or "sample_alias" in n),
-            ("K11, *tiered_extract*", lambda n: "tiered_extract" in n),
+            ("K11's split, *split_*", lambda n: "split_" in n),
+            ("K11's reads in place, *direct_kernel*",
+             lambda n: "direct_kernel" in n),
             ("K12, *accumulate_kernel*", lambda n: "accumulate_kernel" in n),
             ("elementwise divisions, *divfunctor* (a mean's division "
              "outside K4, forward and backward, and Adam's)",
@@ -1213,13 +1231,13 @@ def main() -> int:
             print(f"{tag}   device ms per step in {what}: "
                   f"{us / 1e3 / steps:.3f} ({len(hits) / steps:.1f} "
                   "kernels a step)", flush=True)
-        k11 = [(a, b) for a, b, name in spans if "tiered_extract" in name]
+        k11 = [(a, b) for a, b, name in spans if "direct_kernel" in name]
         if k11:
-            # how much of K11's time other kernels (training, on the other
-            # stream) ran beside it
+            # how much of K11's reads' time other kernels (training, on the
+            # other stream) ran beside them
             merged = []
             for a, b, name in spans:
-                if "tiered_extract" in name:
+                if "direct_kernel" in name:
                     continue
                 if merged and a <= merged[-1][1]:
                     merged[-1][1] = max(merged[-1][1], b)
@@ -1649,7 +1667,8 @@ def main() -> int:
           f"then {num_cache} rows by K11's all-miss form); capacities "
           f"{ceng.sampler.capacities}", flush=True)
     if (init_counts.get("accumulate_freq") != steps
-            or init_counts.get("tiered_extract") != 1):
+            or init_counts.get("tiered_split") != 1
+            or init_counts.get("tiered_direct") != 1):
         raise AssertionError(f"graphsage_cached init: launches {init_counts}")
     # the store keeps no device copy of the features; the dataset's goes
     ds.feat = store.feat_host
@@ -1700,8 +1719,80 @@ def main() -> int:
 
     def k11_case(ids, num_valid, posmap, what, per_step,
                  path="graphsage_cached"):
-        args = (ids, num_valid, posmap,
-                None if posmap is None else store.cache_feat)
+        """K11's split, its SMs' reads and the whole extract against their
+        plain versions, exactly; the split and the reads recorded with
+        their bounds, the whole call timed beside them."""
+        cache = None if posmap is None else store.cache_feat
+        args = (ids, num_valid, posmap, cache)
+        # the split: the hit and zero rows, the miss list, the counts
+        out, counts, pos, miss_ids = tiered_split(*args, store.host)
+        p_out, p_counts, p_pos, p_ids = tiered_split_plain(*args,
+                                                           store.feat_host)
+        torch.cuda.synchronize()
+        hits, misses = (int(c) for c in p_counts)
+        valid = hits + misses
+        if not (torch.equal(counts, p_counts)
+                and torch.equal(pos[:misses], p_pos[:misses])
+                and torch.equal(miss_ids[:misses], p_ids[:misses])):
+            raise AssertionError(f"tiered_split {what}: counts or miss list "
+                                 "differ from the plain version")
+        kept = torch.ones(ids.numel(), dtype=torch.bool, device=dev)
+        kept[pos[:misses].long()] = False
+        assert_close("tiered_split", out[kept], p_out[kept], exact=True)
+        # the ids, a posmap word a valid id, the hit rows, the rows of out
+        # it writes, the miss list and the counts
+        split_bytes = (ids.numel() * 4 + valid * 4 + hits * width * 4
+                       + (ids.numel() - misses) * width * 4 + misses * 8 + 8)
+        record("tiered_split", "xgnn_tpu_torch/csrc/tiered.cu",
+               "xgnn_tpu/store/feature_store.py:64-109 (_split_kernel, with "
+               "compact_mask_positions, xgnn_tpu/ops/unique.py:27)",
+               f"{what}: {ids.numel()} ids ({valid} valid: {hits} hits, "
+               f"{misses} misses) over a ({num_cache}, {width}) cache",
+               max_err(out[kept], p_out[kept]), "exact: hit and zero rows, "
+               "miss positions and ids, counts",
+               lambda: tiered_split(*args, store.host),
+               lambda: tiered_split_plain(*args, store.feat_host), None,
+               "none: no one PyTorch call splits and compacts",
+               nbytes=split_bytes, flops=0, per_step=per_step, path=path,
+               plain_reps=3)
+        del out, pos, miss_ids, kept
+        # the SMs' reads, on the plain split's output and miss list
+        got = tiered_direct(p_out.clone(), p_ids, p_pos, p_counts,
+                            store.host)
+        ref = tiered_direct_plain(p_out.clone(), p_ids, p_pos, misses,
+                                  store.feat_host)
+        torch.cuda.synchronize()
+        assert_close("tiered_direct", got, ref, exact=True)
+        d_err = max_err(got, ref)
+        del got, ref
+        d_out = p_out.clone()
+        # the miss list and the rows it writes in HBM; the miss rows over
+        # PCIe
+        pcie = misses * width * 4
+        d_hbm_ms = (misses * (width * 4 + 8) + 4) / HBM_BYTES_PER_S * 1e3
+        pcie_ms = pcie / pcie_rate * 1e3
+        record("tiered_direct", "xgnn_tpu_torch/csrc/tiered.cu",
+               "xgnn_tpu/store/feature_store.py:111-118 and 217-250 (the "
+               "host gather, the copy, _combine_kernel)",
+               f"{what}: {misses} miss rows of {width} f32 from a "
+               f"({NUM_NODE}, {width}) mapped host table into "
+               f"({ids.numel()}, {width})", d_err, "exact",
+               lambda: tiered_direct(d_out, p_ids, p_pos, p_counts,
+                                     store.host),
+               lambda: tiered_direct_plain(d_out, p_ids, p_pos, misses,
+                                           store.feat_host),
+               None, "none: no one PyTorch call reads a mapped host table",
+               nbytes=0, flops=0, per_step=per_step, path=path, plain_reps=3,
+               bound=max((d_hbm_ms, "bytes"), (pcie_ms, "bytes")))
+        kernels[-1].update(pcie_bound_ms=pcie_ms, pcie_bytes=pcie,
+                           pcie_bytes_per_s_rated=pcie_rate,
+                           h2d_bytes_per_s=h2d_rate,
+                           copy_bound_ms=pcie / h2d_rate * 1e3,
+                           pcie_bytes_per_s=pcie / kernels[-1]["device_ms"]
+                           * 1e3)
+        direct_row = kernels[-1]
+        del d_out, p_out, p_pos, p_ids
+        # the whole extract
         out, counts = tiered_extract(*args, store.host)
         ref, ref_counts = tiered_extract_plain(*args, store.feat_host)
         torch.cuda.synchronize()
@@ -1709,39 +1800,27 @@ def main() -> int:
         if not torch.equal(counts, ref_counts):
             raise AssertionError(f"tiered_extract: counts {counts.tolist()} "
                                  f"!= {ref_counts.tolist()}")
-        hits, misses = (int(c) for c in counts)
+        del ref
         # the ids, a posmap word a valid id, the hit rows and the output in
         # HBM; the miss rows over PCIe
-        hbm = (ids.numel() * 4 + (hits + misses) * 4 + hits * width * 4
+        hbm = (ids.numel() * 4 + valid * 4 + hits * width * 4
                + ids.numel() * width * 4 + 8)
-        pcie = misses * width * 4
         hbm_ms = hbm / HBM_BYTES_PER_S * 1e3
-        pcie_ms = pcie / pcie_rate * 1e3
-        record("tiered_extract", "xgnn_tpu_torch/csrc/tiered.cu",
-               "xgnn_tpu/store/feature_store.py:65-119 (_split_kernel, the "
-               "host gather, _combine_kernel; driven by extract :217-250)",
-               f"{what}: {ids.numel()} ids ({hits + misses} valid: {hits} "
-               f"hits, {misses} misses) over a ({NUM_NODE}, {width}) f32 "
-               f"mapped host table and a ({num_cache}, {width}) cache",
-               max_err(out, ref), "exact; hit and miss counts equal",
-               lambda: tiered_extract(*args, store.host),
-               lambda: tiered_extract_plain(*args, store.feat_host),
-               None, "none: no one PyTorch call reads a mapped host table",
-               nbytes=hbm, flops=0, per_step=per_step, path=path,
-               plain_reps=3,
-               bound=max((hbm_ms, "bytes"), (pcie_ms, "bytes")))
-        dms = kernels[-1]["device_ms"]
-        kernels[-1].update(hbm_bound_ms=hbm_ms, pcie_bound_ms=pcie_ms,
-                           copy_bound_ms=pcie / h2d_rate * 1e3,
-                           pcie_bytes=pcie, pcie_bytes_per_s_rated=pcie_rate,
-                           h2d_bytes_per_s=h2d_rate,
-                           pcie_bytes_per_s=pcie / dms * 1e3)
-        print(f"{tag} tiered_extract {what}: {pcie} bytes over PCIe at "
-              f"{pcie / dms / 1e6:.3f} GB/s on the card alone (rated "
+        e_ms = time_ms(torch, lambda: tiered_extract(*args, store.host))
+        e_dev = time_ms(torch, lambda: tiered_extract(*args, store.host),
+                        host_ahead=True)
+        e_bound = max(hbm_ms, pcie_ms)
+        direct_row.update(extract_ms=e_ms, extract_device_ms=e_dev,
+                          extract_bound_ms=e_bound,
+                          extract_pcie_bytes_per_s=pcie / e_dev * 1e3)
+        print(f"{tag} tiered_extract {what} (split and reads): {e_ms:.4f} ms "
+              f"({e_dev:.4f} ms on the card alone), {pcie} bytes over PCIe "
+              f"at {pcie / e_dev / 1e6:.3f} GB/s (rated "
               f"{pcie_rate / 1e9:.3f} GB/s, pinned copy_ "
-              f"{h2d_rate / 1e9:.3f} GB/s); bound HBM {hbm_ms:.4f} ms, PCIe "
-              f"{pcie_ms:.4f} ms ({pcie / h2d_rate * 1e3:.4f} ms at the "
-              f"copy's rate)", flush=True)
+              f"{h2d_rate / 1e9:.3f} GB/s); bound {e_bound:.4f} ms (HBM "
+              f"{hbm_ms:.4f} ms, PCIe {pcie_ms:.4f} ms, "
+              f"{pcie / h2d_rate * 1e3:.4f} ms at the copy's rate)",
+              flush=True)
         return out
 
     k11_case(cbatch.input_nodes, num_in, store.posmap, "the batch as drawn",
@@ -1845,7 +1924,7 @@ def main() -> int:
     print(f"{tag} graphsage_cached epoch 1: hit rate {r1['hit_rate']:.6f}; "
           f"per step {mean(hist['hit']):.1f} hits, {mean(hist['miss']):.1f} "
           f"misses, {mean(hist['miss']) * width * 4:.1f} miss bytes; K11 "
-          f"launches {counts_by_path['graphsage_cached']['tiered_extract']} "
+          f"launches {counts_by_path['graphsage_cached']['tiered_direct']} "
           f"(expected {steps}), K12 "
           f"{counts_by_path['graphsage_cached'].get('accumulate_freq', 0)} "
           "(expected 0)", flush=True)
@@ -1897,7 +1976,7 @@ def main() -> int:
         if k["path"] == "graphsage_cached_init":
             # the cache build again at each refresh of the dynamic cache
             k["refresh_launches"] = (
-                counts_by_path["graphsage_dynamic"]["tiered_extract"] - steps)
+                counts_by_path["graphsage_dynamic"][k["name"]] - steps)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

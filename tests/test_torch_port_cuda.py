@@ -7,6 +7,8 @@ without the JAX test harness:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_port_cuda.py
 """
 
+import time
+
 import numpy as np
 import pytest
 
@@ -303,6 +305,17 @@ def test_fanout_backward_on_a_large_block_is_the_cpu_plain_version(
     assert torch.equal(got.cpu(), ref)
 
 
+def _settle():
+    """Wait for the card, then give CUPTI time to complete its kernel
+    records before a profiler trace stops.  A trace stopped right after
+    the synchronize kept its host-side ``cudaLaunchKernel`` events but now
+    and then lost some or all of the last kernels' device records (seen on
+    an H100 with torch 2.11 and CUDA 12.8, with or without a warm-up step);
+    after a short wait it lost none."""
+    torch.cuda.synchronize()
+    time.sleep(0.2)
+
+
 @pytest.mark.parametrize("model", ["graphsage", "pinsage"])
 def test_mean_aggregate_launches_no_division(dev, model):
     """SAGEConv and PinSAGEConv divide inside K4: one forward launch a
@@ -332,7 +345,7 @@ def test_mean_aggregate_launches_no_division(dev, model):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         net(batch.blocks, ds.feat).square().sum().backward()
-        torch.cuda.synchronize()
+        _settle()
     names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
     layers = len(batch.blocks)
     assert _build.LAUNCHES.snapshot()["fanout_fwd"] == layers
@@ -342,7 +355,7 @@ def test_mean_aggregate_launches_no_division(dev, model):
     with torch.no_grad(), profile(activities=[ProfilerActivity.CPU,
                                               ProfilerActivity.CUDA]) as one:
         masked_mean(ds.feat, neigh)
-        torch.cuda.synchronize()
+        _settle()
     kernels = [e.name for e in one.events()
                if e.device_type == DeviceType.CUDA]
     assert len(kernels) == 1 and "fanout_fwd_kernel" in kernels[0]
@@ -742,6 +755,8 @@ def test_unique_split_equals_unique_seeded(dev, out_cap):
 
 
 def test_unique_is_three_launches_and_allocates_only_its_outputs(dev):
+    """K3's call is three kernels on the profiler's device events.  The
+    trace waits for CUPTI before it stops (``_settle``)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -757,8 +772,9 @@ def test_unique_is_three_launches_and_allocates_only_its_outputs(dev):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         out = unique.unique_seeded_split(*args, cap, num_node=num_node)
-        torch.cuda.synchronize()
+        _settle()
     grown = torch.cuda.memory_allocated(dev) - before
+    _assert_plain(out, args, cap)
     kernels = [e.name for e in prof.events()
                if e.device_type == DeviceType.CUDA]
     assert len(kernels) == 3, kernels
@@ -1297,8 +1313,9 @@ def _tiered_inputs(dev, width, pct, seed, n=5000, num_node=3000):
 def test_tiered_extract_kernel_equals_plain(dev, width, pct, num_input):
     """K11 against its plain version on the same tensors: rows bit-equal
     (zero for EMPTY, negative and out-of-range ids and past num_input),
-    hit and miss counts equal; the cache rows built by its all-miss form
-    equal the host table's."""
+    hit and miss counts equal, the split and the SMs' reads launched once
+    each; the cache rows built by its all-miss form equal the host
+    table's."""
     from xgnn_tpu_torch.ops import _build
     from xgnn_tpu_torch.ops.tiered import tiered_extract_plain
 
@@ -1310,7 +1327,8 @@ def test_tiered_extract_kernel_equals_plain(dev, width, pct, num_input):
     num = torch.tensor(num_input, dtype=torch.int32, device=dev)
     _build.LAUNCHES.reset()
     out, info = src.extract(ids, num)
-    assert _build.LAUNCHES.snapshot() == {"tiered_extract": 1}
+    assert _build.LAUNCHES.snapshot() == {"tiered_split": 1,
+                                          "tiered_direct": 1}
     ref, counts = tiered_extract_plain(ids, num, src.posmap, src.cache_feat,
                                        src.feat_host)
     torch.cuda.synchronize()
@@ -1342,6 +1360,117 @@ def test_tiered_extract_all_miss_form_on_the_card(dev):
     assert host.dev_ptr is None
     with pytest.raises(ValueError, match="not mapped"):
         tiered_extract(ids, 1500, None, None, host)
+
+
+def test_tiered_pinning_that_fails_raises(dev):
+    """Pinning memory that is pinned already fails in CUDA, and raises; the
+    error is not reported again by the next extract's launch check."""
+    from xgnn_tpu_torch.ops import tiered
+
+    host = tiered.MappedHostTable(torch.ones((1000, 8)), dev)
+    with pytest.raises(RuntimeError, match="pinning"):
+        tiered._map(host.tensor, dev.index)
+    ids = torch.arange(1000, dtype=torch.int32, device=dev)
+    out, counts = tiered.tiered_extract(ids, 1000, None, None, host)
+    torch.cuda.synchronize()
+    assert torch.equal(out.cpu(), host.tensor)
+    assert counts.tolist() == [0, 1000]
+    host.close()
+
+
+def _pass_rows(dev):
+    """The misses that K11's SM reads take in one pass of their persistent
+    grid (a quarter of the SMs, 8 warps a block, 8 rows a warp)."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    return max(1, sms // 4) * 8 * 8
+
+
+def _miss_case(dev, case, width=128):
+    """A mapped table, a posmap and cache over its first rows, and ids with
+    as many misses as ``case`` says, counted in passes of the SMs' grid:
+    ``(host, posmap, cache, ids, num_input)``."""
+    from xgnn_tpu_torch.ops.tiered import MappedHostTable
+
+    rows = _pass_rows(dev)
+    misses = {"no_miss": 0, "one_row": 1, "one_pass": rows,
+              "one_pass_plus_one": rows + 1, "all_miss": 3 * rows + 5,
+              "many_passes": 52 * rows + 7, "empty": 0}[case]
+    hits = 0 if case in ("all_miss", "empty") else 3000
+    g = _gen(torch.device("cpu"), len(case))
+    num_node = misses + hits + 1000
+    feat = torch.randn((num_node, width), generator=g)
+    host = MappedHostTable(feat, dev)
+    num_cache = hits + 500
+    posmap = torch.full((num_node,), EMPTY, dtype=torch.int32)
+    posmap[:num_cache] = torch.randperm(num_cache, generator=g).to(
+        torch.int32)
+    cache = torch.empty((num_cache, width))
+    cache[posmap[:num_cache].long()] = feat[:num_cache]
+    picked = torch.cat([torch.arange(hits),
+                        num_cache + torch.randperm(num_node - num_cache,
+                                                   generator=g)[:misses]])
+    if case == "empty":
+        ids = torch.empty(0, dtype=torch.int32)
+    else:
+        ids = picked[torch.randperm(picked.numel(), generator=g)].to(
+            torch.int32)
+        # EMPTY, out-of-range and dead slots beside them
+        ids = torch.cat([ids, torch.tensor([EMPTY, -1, num_node],
+                                           dtype=torch.int32),
+                         torch.randint(0, num_node, (50,), generator=g,
+                                       dtype=torch.int32)])
+    num_input = torch.tensor(ids.numel() - 50 * (ids.numel() > 0),
+                             dtype=torch.int32, device=dev)
+    if case == "all_miss":
+        posmap = cache = None
+    else:
+        posmap, cache = posmap.to(dev), cache.to(dev)
+    return host, posmap, cache, ids.to(dev), num_input
+
+
+@pytest.mark.parametrize("case", ["no_miss", "one_row", "one_pass",
+                                  "one_pass_plus_one", "all_miss",
+                                  "many_passes", "empty"])
+def test_tiered_split_direct_and_extract_equal_plain(dev, case):
+    """K11's split (the hit and zero rows, the miss list, the counts), its
+    SM reads of the misses and the whole extract bit-equal to their plain
+    versions: no miss, one row, exactly one pass of the SMs' grid and one
+    more row, the all-miss form, no ids, and over 50 passes; ``num_input``
+    a device scalar, the miss count read on the device."""
+    from xgnn_tpu_torch.ops import _build
+    from xgnn_tpu_torch.ops.tiered import (
+        tiered_direct,
+        tiered_direct_plain,
+        tiered_extract,
+        tiered_extract_plain,
+        tiered_split,
+        tiered_split_plain,
+    )
+
+    host, posmap, cache, ids, num = _miss_case(dev, case)
+    out, counts, pos, miss_ids = tiered_split(ids, num, posmap, cache, host)
+    p_out, p_counts, p_pos, p_ids = tiered_split_plain(ids, num, posmap,
+                                                       cache, host.tensor)
+    torch.cuda.synchronize()
+    nm = int(p_counts[1])
+    assert torch.equal(counts, p_counts)
+    assert torch.equal(pos[:nm], p_pos[:nm])
+    assert torch.equal(miss_ids[:nm], p_ids[:nm])
+    kept = torch.ones(ids.numel(), dtype=torch.bool, device=dev)
+    kept[pos[:nm].long()] = False
+    assert torch.equal(out[kept], p_out[kept])
+    got = tiered_direct(p_out.clone(), p_ids, p_pos, p_counts, host)
+    assert torch.equal(got, tiered_direct_plain(p_out.clone(), p_ids, p_pos,
+                                                nm, host.tensor))
+    _build.LAUNCHES.reset()
+    out, counts = tiered_extract(ids, num, posmap, cache, host)
+    ref, ref_counts = tiered_extract_plain(ids, num, posmap, cache,
+                                           host.tensor)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref) and torch.equal(counts, ref_counts)
+    assert _build.LAUNCHES.snapshot() == (
+        {} if case == "empty" else {"tiered_split": 1, "tiered_direct": 1})
+    host.close()
 
 
 @pytest.mark.parametrize("num_input", [0, 700, 4096])
@@ -1391,7 +1520,8 @@ def test_closure_expand_kernel_equals_plain(dev, num_layer):
 def test_a_cached_step_never_waits_on_the_card(dev, policy):
     """The tiered store's step (K12 for the dynamic cache, K11) and the
     train step only queue work on the card; two epochs train with finite
-    losses and a hit rate in (0, 1], and the dynamic cache refreshes."""
+    losses and a hit rate in (0, 1], the dynamic cache refreshes, and rows
+    extracted after it are the host table's."""
     from xgnn_tpu_torch import Engine, RunConfig, make_device_dataset
     from xgnn_tpu_torch.device import generator
     from xgnn_tpu_torch.engine.shuffler import Shuffler
@@ -1419,7 +1549,7 @@ def test_a_cached_step_never_waits_on_the_card(dev, policy):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     counts = _build.LAUNCHES.snapshot()
-    assert counts["tiered_extract"] == 1
+    assert counts["tiered_split"] == counts["tiered_direct"] == 1
     assert counts.get("accumulate_freq", 0) == (policy == "dynamic_cache")
     assert np.isfinite(float(metrics["loss"]))
     posmap = engine.feature_source.posmap.clone()

@@ -1,71 +1,73 @@
 // K11: tiered extract, the hot rows from the cache in device memory and the
-// cold rows from the host table, read in place over PCIe.
+// cold rows read by the SMs in place from the pinned, mapped host table.
 //
 //   for i < num_input, id = ids[i] in [0, num_node):
 //     s = posmap[id];  out[i] = s != EMPTY ? cache[s] : host[id]
 //   every other row of out (EMPTY or out-of-range ids, i >= num_input) is 0;
 //   counts[0] = the hits, counts[1] = the misses (exact int32).
-// With no posmap (the all-miss form) every valid id is read from the host
-// table: the cache's own rows are built that way.
+// With no posmap (the all-miss form) every valid id is a miss: the cache's
+// own rows are built that way.
 //
 // Replaces: xgnn_tpu/store/feature_store.py, _split_kernel (the posmap
-// lookup, the hit/miss split and the compaction of the miss positions and
-// ids), the host gather of the miss rows, their host-to-device copy and
-// _combine_kernel (their scatter into place), driven by
-// TieredFeatureSource.extract.  On the TPU they were XLA ops and a host
-// gather, not a Pallas kernel: a TPU cannot read host memory, so its store
-// moves the miss ids to the host and the rows back.  An H100 reads pinned,
-// mapped host memory from a kernel, as the reference system's zero-copy
-// GPUExtractMissData does, so the miss rows are read where they are: no
-// compaction, no bucket, no step that waits on the host.
+// lookup, the hit/miss split and the stable compaction of the miss
+// positions and ids, compact_mask_positions of xgnn_tpu/ops/unique.py:27),
+// the host gather of the miss rows (cpp/hostgather.cpp), their
+// host-to-device copy and _combine_kernel (their scatter into place),
+// driven by TieredFeatureSource.extract.  On the TPU they were XLA ops and a
+// host gather, not a Pallas kernel: a TPU cannot read host memory, so its
+// store moves the miss ids to the host and the rows back.  An H100 reads
+// pinned, mapped host memory from a kernel, as the reference system's
+// zero-copy GPUExtractMissData does, so the miss rows are read where they
+// are and nothing waits on the host.  Two steps, both on the caller's
+// stream:
+//
+//   1. split (xg_tiered_split; three launches: count, scan, write).  A
+//      block takes a tile of kTile ids.  count: each warp looks up 32 ids a
+//      step and counts hits and misses by ballots; a block sum gives the
+//      tile's misses, and two atomics a block the exact counts.  scan: one
+//      block scans the tiles' miss counts into offsets.  write: each tile
+//      looks its ids up again, ranks its misses in position order (a ballot
+//      a warp, the warps' counts in shared memory), writes miss_pos and
+//      miss_ids from its offset on, and copies the hit rows from the cache
+//      (kUnroll rows a warp at a time, every load before any store) and
+//      zero rows for invalid and dead slots.  A miss row of out is left for
+//      step 2.
+//   2. direct (xg_tiered_direct): out[miss_pos[j]] = host[miss_ids[j]] for
+//      j < counts[1], the count read on the device: a warp reads kUnroll
+//      rows at once from the mapped table over PCIe, on a persistent grid
+//      of a quarter of the multiprocessors.  PCIe, not the SMs, sets its
+//      rate, and the training step that runs beside it on the other stream
+//      keeps the SMs it leaves.
 //
 // What bounds it on an H100: bytes, over two links.  The miss rows cross
-// PCIe (Gen5 x16: 63.0 GB/s a direction after its line code, the rate of
-// chip_smoke.py's bound, which measures the card's pinned host-to-device
-// copy rate beside it); the hit rows, the ids, the posmap words and the
-// output move in HBM at 3.35 TB/s.  At the main path's shape (2,449,152
-// ids, about 2M valid, 20% of the rows cached) the PCIe side, about 1.6M
-// rows of 512 bytes, is the bound.  On
-// an NVIDIA H100 80GB HBM3 at 700 W, loads from SMs read mapped host
-// memory at about 28 GB/s at best (every row in order), where the copy
-// engine's pinned copy_ moves 47-50 GB/s (tools/time_tiered.py); K11 on
-// the batch as drawn reads 23-28 GB/s, and neither more rows in flight,
-// other load flavours, fewer blocks nor sorted ids moved it by more than
-// the spread.
-//
-// Design: a warp takes 32 consecutive ids.  Each lane looks up one id and
-// its posmap word; two ballots count the chunk's hits and misses (kept in a
-// register, summed per block in shared memory, one atomicAdd per block per
-// count at the end).  Each lane forms its row's source address (a cache
-// row, a host row or none), and the warp copies the 32 rows kUnroll at a
-// time, shuffling the addresses, with every lane's loads of those kUnroll
-// rows issued before its stores: at width 128 a lane holds kUnroll 16-byte
-// words, so a resident warp keeps 4 KB of reads in flight, megabytes over
-// the card, far past what PCIe latency needs.  The source is uniform
-// across the warp for each row, so the tiers never diverge.  The grid is
-// persistent and small: a block of 8 warps on a quarter of the
-// multiprocessors (33 on an H100).  PCIe, not the SMs, sets K11's rate (33
-// blocks read as fast as the 396 that fit at once), and K11 runs on the
-// producer's stream beside the training step, which takes the SMs it
-// leaves: with every SM held, graphsage_cached's epoch took 1.27-1.45 s,
-// with a quarter 1.09-1.19 s (tools/time_tiered.py, NVIDIA H100 80GB
-// HBM3, 700 W).  It copies 16-byte words when the width is a multiple of
-// 4 and every table is 16-byte aligned, 4-byte words otherwise.
-//
-// Beside it: xg_host_map pins a host table and maps it into the device's
-// address space (cudaHostRegister with cudaHostRegisterMapped, then
-// cudaHostGetDevicePointer); xg_host_unmap releases it.
+// PCIe (Gen5 x16: 63.0 GB/s a direction after its line code); the hit rows,
+// the ids, the posmap words and the output move in HBM at 3.35 TB/s.  At
+// the main path's shape (2,449,152 ids, about 2.1M valid, 20% of the rows
+// cached) the PCIe side, about 1.65M rows of 512 bytes, is the bound.  The
+// SMs' loads of mapped memory read it at 24-28 GB/s, where the copy
+// engine's pinned copy_ moves about 48 GB/s; but a copy needs the rows
+// gathered on the host first, and the card's 8-core hosts gather them more
+// slowly than the SMs read them, with the cores the training loop needs
+// (tools/time_tiered.py, NVIDIA H100 80GB HBM3, 700 W).  Neither more rows
+// in flight, other load flavours, fewer blocks nor sorted ids moved the
+// SMs' rate by more than the spread.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <algorithm>
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
+constexpr int kTileIters = 8;
+constexpr int kTile = kThreads * kTileIters;  // ids a block of the split
+constexpr int kScanThreads = 1024;
 constexpr int kUnroll = 8;  // the rows a warp copies at once
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int32_t kEmpty = INT32_MAX;
+constexpr int kZero = 0, kHit = 1, kMiss = 2;
 
 template <typename Word>
 __device__ __forceinline__ Word zero_word();
@@ -78,82 +80,197 @@ __device__ __forceinline__ uint32_t zero_word<uint32_t>() {
   return 0u;
 }
 
-// Word is uint4 (width in 16-byte words) or uint32_t (width in 4-byte words)
-template <typename Word>
+__device__ __forceinline__ int64_t live_count(const int32_t* num_input,
+                                              int64_t n) {
+  return min(n, (int64_t)max(*num_input, 0));
+}
+
+// kZero (dead slot, EMPTY or out-of-range id), kHit or kMiss
+__device__ __forceinline__ int classify(const int32_t* __restrict__ ids,
+                                        int64_t i, int64_t live,
+                                        const int32_t* __restrict__ posmap,
+                                        int64_t num_node, int32_t& id,
+                                        int32_t& slot) {
+  id = kEmpty;
+  slot = kEmpty;
+  if (i >= live) return kZero;
+  id = __ldg(ids + i);
+  if (id < 0 || (int64_t)id >= num_node) return kZero;
+  if (posmap == nullptr) return kMiss;
+  slot = __ldg(posmap + id);
+  return slot != kEmpty ? kHit : kMiss;
+}
+
 __global__ void __launch_bounds__(kThreads)
-tiered_extract_kernel(const int32_t* __restrict__ ids, int64_t n,
-                      const int32_t* __restrict__ num_input,
-                      const int32_t* __restrict__ posmap, int64_t num_node,
-                      const Word* cache, const Word* host, int64_t width,
-                      Word* __restrict__ out, int32_t* __restrict__ counts) {
-  __shared__ int block_hits, block_misses;
-  if (threadIdx.x == 0) block_hits = block_misses = 0;
-  __syncthreads();
-  const int lane = threadIdx.x & 31;
-  const int64_t live = min(n, (int64_t)max(*num_input, 0));
-  const int64_t chunks = (n + 31) / 32;
-  const int64_t num_warps = (int64_t)gridDim.x * kWarps;
+split_count_kernel(const int32_t* __restrict__ ids, int64_t n,
+                   const int32_t* __restrict__ num_input,
+                   const int32_t* __restrict__ posmap, int64_t num_node,
+                   int32_t* __restrict__ tiles, int32_t* __restrict__ counts) {
+  __shared__ int s_hit[kWarps], s_miss[kWarps];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int64_t live = live_count(num_input, n);
+  const int64_t base = (int64_t)blockIdx.x * kTile;
   int hits = 0, misses = 0;
-  for (int64_t c = (int64_t)blockIdx.x * kWarps + (threadIdx.x >> 5);
-       c < chunks; c += num_warps) {
-    const int64_t base = c * 32;
-    const int64_t i = base + lane;
-    const Word* src = nullptr;
-    bool hit = false, miss = false;
-    if (i < live) {
-      const int32_t id = __ldg(ids + i);
-      if (id >= 0 && (int64_t)id < num_node) {
-        const int32_t slot = posmap ? __ldg(posmap + id) : kEmpty;
-        hit = slot != kEmpty;
-        miss = !hit;
-        src = hit ? cache + (int64_t)slot * width : host + (int64_t)id * width;
-      }
-    }
-    hits += __popc(__ballot_sync(kFull, hit));
-    misses += __popc(__ballot_sync(kFull, miss));
-    const int rows = (int)min((int64_t)32, n - base);
-    const unsigned long long mine = reinterpret_cast<unsigned long long>(src);
-    for (int r0 = 0; r0 < rows; r0 += kUnroll) {
-      const Word* s[kUnroll];
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u)
-        s[u] = reinterpret_cast<const Word*>(
-            __shfl_sync(kFull, mine, (r0 + u) & 31));
-      for (int64_t col = lane; col < width; col += 32) {
-        Word v[kUnroll];
-#pragma unroll
-        for (int u = 0; u < kUnroll; ++u)
-          v[u] = s[u] != nullptr ? s[u][col] : zero_word<Word>();
-#pragma unroll
-        for (int u = 0; u < kUnroll; ++u)
-          if (r0 + u < rows) out[(base + r0 + u) * width + col] = v[u];
-      }
-    }
+  for (int it = 0; it < kTileIters; ++it) {
+    int32_t id, slot;
+    const int k = classify(ids, base + it * kThreads + threadIdx.x, live,
+                           posmap, num_node, id, slot);
+    hits += __popc(__ballot_sync(kFull, k == kHit));
+    misses += __popc(__ballot_sync(kFull, k == kMiss));
   }
   if (lane == 0) {
-    atomicAdd(&block_hits, hits);
-    atomicAdd(&block_misses, misses);
+    s_hit[warp] = hits;
+    s_miss[warp] = misses;
   }
   __syncthreads();
   if (threadIdx.x == 0) {
-    atomicAdd(counts, block_hits);
-    atomicAdd(counts + 1, block_misses);
+    int h = 0, m = 0;
+    for (int w = 0; w < kWarps; ++w) {
+      h += s_hit[w];
+      m += s_miss[w];
+    }
+    tiles[blockIdx.x] = m;
+    if (h) atomicAdd(counts, h);
+    if (m) atomicAdd(counts + 1, m);
   }
 }
 
-// a persistent grid, all resident at once, of at most a quarter of the
-// multiprocessors' count of blocks
-template <typename Kernel>
-unsigned grid_for(Kernel kernel, long long n, int device) {
-  int sms = 132, per_sm = 1;
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, 0);
-  const long long chunks = (n + 31) / 32;
-  const long long want = (chunks + kWarps - 1) / kWarps;
-  long long cap = (long long)sms * (per_sm > 0 ? per_sm : 1);
-  const long long limit = sms / 4 > 0 ? sms / 4 : 1;
-  if (cap > limit) cap = limit;
-  return (unsigned)(want < cap ? want : cap);
+// tiles[t] = the misses of the tiles before t (one block, in place)
+__global__ void __launch_bounds__(kScanThreads)
+split_scan_kernel(int32_t* __restrict__ tiles, int64_t num_tiles) {
+  __shared__ int s_warp[kScanThreads / 32];
+  __shared__ int s_carry;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (threadIdx.x == 0) s_carry = 0;
+  __syncthreads();
+  for (int64_t base = 0; base < num_tiles; base += kScanThreads) {
+    const int64_t i = base + threadIdx.x;
+    const int v = i < num_tiles ? tiles[i] : 0;
+    int x = v;  // inclusive scan within the warp
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(kFull, x, o);
+      if (lane >= o) x += y;
+    }
+    if (lane == 31) s_warp[warp] = x;
+    __syncthreads();
+    if (warp == 0) {
+      int w = s_warp[lane];
+      for (int o = 1; o < 32; o <<= 1) {
+        const int y = __shfl_up_sync(kFull, w, o);
+        if (lane >= o) w += y;
+      }
+      s_warp[lane] = w;
+    }
+    __syncthreads();
+    if (i < num_tiles)
+      tiles[i] = s_carry + (warp > 0 ? s_warp[warp - 1] : 0) + x - v;
+    __syncthreads();
+    if (threadIdx.x == 0) s_carry += s_warp[kScanThreads / 32 - 1];
+    __syncthreads();
+  }
+}
+
+// The warp's 32 rows from row0 on: row r is written where bit r of `write`
+// is set, from the address lane r holds in `src` (a zero row for null)
+template <typename Word>
+__device__ __forceinline__ void copy_rows(const Word* src, unsigned write,
+                                          int64_t row0, int64_t width,
+                                          Word* __restrict__ out, int lane) {
+  const unsigned long long mine = reinterpret_cast<unsigned long long>(src);
+  for (int r0 = 0; r0 < 32; r0 += kUnroll) {
+    const unsigned group = (write >> r0) & ((1u << kUnroll) - 1u);
+    if (group == 0) continue;  // the same for the whole warp
+    const Word* s[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u)
+      s[u] = reinterpret_cast<const Word*>(__shfl_sync(kFull, mine, r0 + u));
+    for (int64_t col = lane; col < width; col += 32) {
+      Word v[kUnroll];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u)
+        v[u] = s[u] != nullptr ? s[u][col] : zero_word<Word>();
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u)
+        if ((group >> u) & 1u) out[(row0 + r0 + u) * width + col] = v[u];
+    }
+  }
+}
+
+// Word is uint4 (width in 16-byte words) or uint32_t (width in 4-byte words)
+template <typename Word>
+__global__ void __launch_bounds__(kThreads)
+split_write_kernel(const int32_t* __restrict__ ids, int64_t n,
+                   const int32_t* __restrict__ num_input,
+                   const int32_t* __restrict__ posmap, int64_t num_node,
+                   const Word* __restrict__ cache, int64_t width,
+                   Word* __restrict__ out, const int32_t* __restrict__ tiles,
+                   int32_t* __restrict__ miss_pos,
+                   int32_t* __restrict__ miss_ids) {
+  __shared__ int s_miss[kWarps];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int64_t live = live_count(num_input, n);
+  const int64_t base = (int64_t)blockIdx.x * kTile;
+  int running = tiles[blockIdx.x];
+  for (int it = 0; it < kTileIters; ++it) {
+    const int64_t row0 = base + it * kThreads + warp * 32;
+    const int64_t i = row0 + lane;
+    int32_t id, slot;
+    const int k = classify(ids, i, live, posmap, num_node, id, slot);
+    const unsigned miss = __ballot_sync(kFull, k == kMiss);
+    const unsigned write = __ballot_sync(kFull, k != kMiss && i < n);
+    if (lane == 0) s_miss[warp] = __popc(miss);
+    __syncthreads();
+    int before = 0, total = 0;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const int c = s_miss[w];
+      before += w < warp ? c : 0;
+      total += c;
+    }
+    if (k == kMiss) {
+      const int r = running + before + __popc(miss & ((1u << lane) - 1u));
+      miss_pos[r] = (int32_t)i;
+      miss_ids[r] = id;
+    }
+    running += total;
+    copy_rows<Word>(k == kHit ? cache + (int64_t)slot * width : nullptr,
+                    write, row0, width, out, lane);
+    __syncthreads();  // s_miss is rewritten next step
+  }
+}
+
+// Step 2: out[pos[j]] = table[ids[j]] for j < *count; a warp moves kUnroll
+// rows at once, every load before any store
+template <typename Word>
+__global__ void __launch_bounds__(kThreads)
+direct_kernel(const Word* table, const int32_t* __restrict__ ids,
+              const int32_t* __restrict__ pos,
+              const int32_t* __restrict__ num_miss, int64_t width,
+              Word* __restrict__ out, int64_t n) {
+  const int64_t count = min(n, (int64_t)max(*num_miss, 0));
+  const int lane = threadIdx.x & 31;
+  const int64_t warp = ((int64_t)blockIdx.x * kThreads + threadIdx.x) >> 5;
+  const int64_t warps = (int64_t)gridDim.x * kWarps;
+  for (int64_t j0 = warp * kUnroll; j0 < count; j0 += warps * kUnroll) {
+    int64_t dst[kUnroll];
+    const Word* src[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int64_t j = j0 + u;
+      const int64_t p = j < count ? (int64_t)__ldg(pos + j) : -1;
+      dst[u] = p >= 0 && p < n ? p : -1;
+      src[u] = table + (dst[u] < 0 ? 0 : (int64_t)__ldg(ids + j)) * width;
+    }
+    for (int64_t col = lane; col < width; col += 32) {
+      Word v[kUnroll];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u)
+        if (dst[u] >= 0) v[u] = src[u][col];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u)
+        if (dst[u] >= 0) out[dst[u] * width + col] = v[u];
+    }
+  }
 }
 
 bool aligned16(const void* p) {
@@ -164,63 +281,100 @@ bool aligned16(const void* p) {
 
 // Pin `bytes` of host memory at `host` and map it for `device`; the device
 // address goes to *dev_ptr (dev_ptr: the address of a void*).  Returns the
-// first CUDA error (nothing stays registered after a failure).
+// first CUDA error (nothing stays registered after a failure, and the error
+// is cleared, so the next launch's check does not report it again).
 extern "C" int xg_host_map(void* host, long long bytes, int device,
                            void* dev_ptr) {
-  if (bytes <= 0 || dev_ptr == nullptr) return (int)cudaErrorInvalidValue;
+  if (bytes <= 0 || host == nullptr || dev_ptr == nullptr)
+    return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaSetDevice(device);
-  if (e != cudaSuccess) return (int)e;
-  e = cudaHostRegister(host, (size_t)bytes, cudaHostRegisterMapped);
-  if (e != cudaSuccess) return (int)e;
-  e = cudaHostGetDevicePointer(static_cast<void**>(dev_ptr), host, 0);
-  if (e != cudaSuccess) {
-    cudaHostUnregister(host);
-    return (int)e;
+  if (e == cudaSuccess)
+    e = cudaHostRegister(host, (size_t)bytes, cudaHostRegisterMapped);
+  if (e == cudaSuccess) {
+    e = cudaHostGetDevicePointer(static_cast<void**>(dev_ptr), host, 0);
+    if (e != cudaSuccess) cudaHostUnregister(host);
   }
-  return 0;
+  if (e != cudaSuccess) cudaGetLastError();
+  return (int)e;
 }
 
 extern "C" int xg_host_unmap(void* host, int device) {
   cudaError_t e = cudaSetDevice(device);
-  if (e != cudaSuccess) return (int)e;
-  return (int)cudaHostUnregister(host);
+  if (e == cudaSuccess) e = cudaHostUnregister(host);
+  if (e != cudaSuccess) cudaGetLastError();
+  return (int)e;
 }
 
-// ids: (n,) int32; num_input: a device int32 scalar; posmap: (num_node,)
-// int32 cache slots, EMPTY where not cached, or null (all miss); cache:
-// (num_cache, width) 4-byte words in device memory (unused when posmap is
-// null); host: the device address of the mapped (num_node, width) host
-// table; out: (n, width); counts: 2 int32 (hits, misses), zeroed here.
-// Returns cudaGetLastError() after the launch.
-extern "C" int xg_tiered_extract(const void* ids, long long n,
-                                 const void* num_input, const void* posmap,
-                                 long long num_node, const void* cache,
-                                 const void* host, long long width, void* out,
-                                 void* counts, int device, void* stream) {
-  if (n < 0 || width <= 0 || num_node < 0 || num_node > INT32_MAX ||
-      host == nullptr || counts == nullptr)
+// Step 1.  ids: (n,) int32; num_input: a device int32 scalar; posmap:
+// (num_node,) int32 cache slots, EMPTY where not cached, or null (all
+// miss); cache: (num_cache, width) 4-byte words (unused when posmap is
+// null); out: (n, width), its miss rows left as they are; counts: 2 int32
+// (hits, misses), zeroed here; tiles: ceil(n / kTile) int32 scratch;
+// miss_pos, miss_ids: (n,) int32, their first `misses` entries written.
+// Returns cudaGetLastError() after the launches.
+extern "C" int xg_tiered_split(const void* ids, long long n,
+                               const void* num_input, const void* posmap,
+                               long long num_node, const void* cache,
+                               long long width, void* out, void* counts,
+                               void* tiles, void* miss_pos, void* miss_ids,
+                               void* stream) {
+  if (n <= 0 || n > INT32_MAX || width <= 0 || num_node < 0 ||
+      num_node > INT32_MAX || counts == nullptr)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  cudaMemsetAsync(counts, 0, 2 * sizeof(int32_t), s);
-  if (n == 0) return (int)cudaGetLastError();
+  cudaError_t e = cudaMemsetAsync(counts, 0, 2 * sizeof(int32_t), s);
+  if (e != cudaSuccess) return (int)e;
   const int32_t* id = static_cast<const int32_t*>(ids);
   const int32_t* num = static_cast<const int32_t*>(num_input);
   const int32_t* pm = static_cast<const int32_t*>(posmap);
-  int32_t* cnt = static_cast<int32_t*>(counts);
-  const bool vec = width % 4 == 0 && aligned16(host) && aligned16(out) &&
+  int32_t* tile = static_cast<int32_t*>(tiles);
+  int32_t* mp = static_cast<int32_t*>(miss_pos);
+  int32_t* mi = static_cast<int32_t*>(miss_ids);
+  const long long num_tiles = (n + kTile - 1) / kTile;
+  split_count_kernel<<<(unsigned)num_tiles, kThreads, 0, s>>>(
+      id, n, num, pm, num_node, tile, static_cast<int32_t*>(counts));
+  split_scan_kernel<<<1, kScanThreads, 0, s>>>(tile, num_tiles);
+  const bool vec = width % 4 == 0 && aligned16(out) &&
                    (posmap == nullptr || aligned16(cache));
-  if (vec) {
-    const unsigned grid = grid_for(tiered_extract_kernel<uint4>, n, device);
-    tiered_extract_kernel<uint4><<<grid, kThreads, 0, s>>>(
-        id, n, num, pm, num_node, static_cast<const uint4*>(cache),
-        static_cast<const uint4*>(host), width / 4, static_cast<uint4*>(out),
-        cnt);
-  } else {
-    const unsigned grid = grid_for(tiered_extract_kernel<uint32_t>, n, device);
-    tiered_extract_kernel<uint32_t><<<grid, kThreads, 0, s>>>(
-        id, n, num, pm, num_node, static_cast<const uint32_t*>(cache),
-        static_cast<const uint32_t*>(host), width,
-        static_cast<uint32_t*>(out), cnt);
-  }
+  if (vec)
+    split_write_kernel<uint4><<<(unsigned)num_tiles, kThreads, 0, s>>>(
+        id, n, num, pm, num_node, static_cast<const uint4*>(cache), width / 4,
+        static_cast<uint4*>(out), tile, mp, mi);
+  else
+    split_write_kernel<uint32_t><<<(unsigned)num_tiles, kThreads, 0, s>>>(
+        id, n, num, pm, num_node, static_cast<const uint32_t*>(cache), width,
+        static_cast<uint32_t*>(out), tile, mp, mi);
+  return (int)cudaGetLastError();
+}
+
+// Step 2.  table: the device address of the mapped (num_node, width) host
+// table of 4-byte words; miss_ids, miss_pos: (n,) int32, the split's lists;
+// num_miss: a device int32 scalar (the split's counts[1]); out: (n, width).
+// Returns cudaGetLastError() after the launch.
+extern "C" int xg_tiered_direct(const void* table, long long width,
+                                const void* miss_ids, const void* miss_pos,
+                                const void* num_miss, void* out, long long n,
+                                void* stream) {
+  if (n <= 0 || width <= 0 || table == nullptr || miss_ids == nullptr ||
+      miss_pos == nullptr || num_miss == nullptr || out == nullptr)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  int device = 0, sms = 132;
+  cudaGetDevice(&device);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  const long long per_block = (long long)kWarps * kUnroll;
+  const long long grid = std::max(
+      1ll, std::min((n + per_block - 1) / per_block, (long long)sms / 4));
+  const int32_t* ids = static_cast<const int32_t*>(miss_ids);
+  const int32_t* pos = static_cast<const int32_t*>(miss_pos);
+  const int32_t* num = static_cast<const int32_t*>(num_miss);
+  if (width % 4 == 0 && aligned16(table) && aligned16(out))
+    direct_kernel<uint4><<<(unsigned)grid, kThreads, 0, s>>>(
+        static_cast<const uint4*>(table), ids, pos, num, width / 4,
+        static_cast<uint4*>(out), n);
+  else
+    direct_kernel<uint32_t><<<(unsigned)grid, kThreads, 0, s>>>(
+        static_cast<const uint32_t*>(table), ids, pos, num, width,
+        static_cast<uint32_t*>(out), n);
   return (int)cudaGetLastError();
 }

@@ -63,10 +63,10 @@ SIGNATURES = {
         "xg_sample_alias": [_P] * 8 + [_LL, _LL, _I, _I, _I, _P],
     },
     "tiered": {
-        "xg_tiered_extract": [_P, _LL, _P, _P, _LL, _P, _P, _LL, _P, _P, _I,
-                              _P],
         "xg_host_map": [_P, _LL, _I, _P],
         "xg_host_unmap": [_P, _I],
+        "xg_tiered_split": [_P, _LL, _P, _P, _LL, _P, _LL] + [_P] * 6,
+        "xg_tiered_direct": [_P, _LL, _P, _P, _P, _P, _LL, _P],
     },
     "presample": {
         "xg_accumulate_freq": [_P, _LL, _P, _LL, _P, _I, _P],

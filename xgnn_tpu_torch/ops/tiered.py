@@ -1,5 +1,5 @@
 """K11: the tiered extract, hot rows from the device cache and cold rows
-read from pinned, mapped host memory.
+read by the SMs in place from pinned, mapped host memory.
 
 The port of ``xgnn_tpu/store/feature_store.py``'s two-phase extract
 (``_split_kernel``, the host gather of the miss rows, their copy to the
@@ -9,12 +9,23 @@ table's row ``id``; every other row is zero.  ``counts`` holds the hits and
 the misses as device int32.  With ``posmap=None`` (the all-miss form) every
 valid id is read from the host table: the cache's rows are built so.
 
-The CUDA kernel is ``csrc/tiered.cu``.  It reads the host table in place
-over PCIe through :class:`MappedHostTable`, which pins and maps it; nothing
-waits on the host.  :func:`tiered_extract_plain` is its plain PyTorch
-version (a gather from the cache, a gather of the miss rows on the host and
-their copy to the device, then a ``torch.where``): the wrapper takes it
-only for ids on the CPU.  Launches are counted as ``tiered_extract``.
+Two steps in ``csrc/tiered.cu``, both on the caller's stream, with nothing
+waiting on the host:
+
+1. :func:`tiered_split`: the posmap lookup, the hit and zero rows of
+   ``out``, the exact counts and the stable compaction of the miss
+   positions and ids (``compact_mask_positions``), JAX's split;
+2. :func:`tiered_direct`: ``out[miss_pos[j]] = host[miss_ids[j]]`` for
+   ``j < counts[1]`` (the count read on the device), the SMs reading the
+   rows in place over PCIe from the table that :class:`MappedHostTable`
+   pins and maps: JAX's host gather, copy and combine in one kernel.
+
+Their plain PyTorch versions are :func:`tiered_split_plain` and
+:func:`tiered_direct_plain` (a gather of the miss rows on the host, their
+copy to the device and :func:`tiered_combine_plain`, JAX's combine),
+composed in :func:`tiered_extract_plain`: the wrappers take them only for
+tensors on the CPU.  Launches are counted as ``tiered_split`` and
+``tiered_direct``.
 """
 
 from __future__ import annotations
@@ -26,9 +37,24 @@ import torch
 
 from .. import constants as C
 from . import _build
+from .unique import compact_mask_positions
 
-_NAME = "tiered_extract"
 EMPTY = C.EMPTY_KEY
+_TILE = 2048  # ids a block of the split (kTile in csrc/tiered.cu)
+
+
+def _map(tensor: torch.Tensor, index: int) -> int:
+    """Pin ``tensor``'s memory and map it for device ``index``; its device
+    address.  Raises if CUDA refuses."""
+    nbytes = tensor.numel() * tensor.element_size()
+    out = ctypes.c_void_p()
+    rc = _build.load("tiered").xg_host_map(tensor.data_ptr(), nbytes, index,
+                                           ctypes.addressof(out))
+    if rc != 0:
+        raise RuntimeError(f"MappedHostTable: pinning and mapping {nbytes} "
+                           f"bytes failed (CUDA error {rc}); the tiered "
+                           "store has no other path")
+    return out.value
 
 
 class MappedHostTable:
@@ -56,18 +82,7 @@ class MappedHostTable:
                 torch.cuda.current_device()
             self.device = torch.device("cuda", index)
             torch.cuda.init()
-            out = ctypes.c_void_p()
-            lib = _build.load("tiered")
-            rc = lib.xg_host_map(
-                self.tensor.data_ptr(),
-                self.tensor.numel() * self.tensor.element_size(), index,
-                ctypes.addressof(out))
-            if rc != 0:
-                raise RuntimeError(
-                    f"MappedHostTable: pinning and mapping "
-                    f"{self.tensor.numel() * 4} bytes failed (CUDA error "
-                    f"{rc}); the tiered store has no other path")
-            self.dev_ptr = out.value
+            self.dev_ptr = _map(self.tensor, index)
 
     def close(self):
         if self.dev_ptr is not None:
@@ -82,12 +97,15 @@ class MappedHostTable:
             pass
 
 
-def tiered_extract_plain(ids: torch.Tensor, num_input,
-                         posmap: Optional[torch.Tensor],
-                         cache: Optional[torch.Tensor],
-                         host: torch.Tensor):
-    """``(out, counts)``: K11's function in PyTorch ops; ``host`` is the
-    table on the CPU, gathered there for the misses."""
+# ---------------------------------------------------------- plain versions
+def tiered_split_plain(ids: torch.Tensor, num_input,
+                       posmap: Optional[torch.Tensor],
+                       cache: Optional[torch.Tensor], host: torch.Tensor):
+    """``(out, counts, miss_pos, miss_ids)``: JAX's ``_split_kernel`` in
+    PyTorch ops.  ``out`` holds the hit rows and zero rows elsewhere (the
+    misses included); ``miss_pos`` the misses' positions in order, padded
+    with ``n``; ``miss_ids`` their ids, padded with EMPTY; ``counts`` the
+    int32 ``(hits, misses)``.  ``host`` is the table (its shape is read)."""
     dev = ids.device
     n, (num_node, width) = ids.shape[0], host.shape
     live = torch.arange(n, device=dev) < _build.int32_scalar(num_input, dev)
@@ -98,16 +116,51 @@ def tiered_extract_plain(ids: torch.Tensor, num_input,
     else:
         hit = valid & (posmap[safe] != EMPTY)
     miss = valid & ~hit
-    out = torch.zeros((n, width), dtype=host.dtype, device=dev)
+    out = torch.zeros((n, width), dtype=torch.float32, device=dev)
     if posmap is not None and cache is not None and cache.shape[0]:
         slot = torch.where(hit, posmap[safe], 0).long()
         out = torch.where(hit[:, None], cache[slot], out)
-    miss_ids = safe[miss].cpu()
-    out[miss] = host[miss_ids].to(dev)
-    counts = torch.stack([hit.sum(), miss.sum()]).to(torch.int32)
-    return out, counts
+    num_miss = miss.sum(dtype=torch.int32)
+    miss_pos = compact_mask_positions(miss, n)
+    miss_ids = torch.where(torch.arange(n, device=dev) < num_miss,
+                           ids[miss_pos.clamp(max=max(n - 1, 0)).long()],
+                           EMPTY)
+    counts = torch.stack([hit.sum(dtype=torch.int32), num_miss])
+    return out, counts, miss_pos, miss_ids
 
 
+def tiered_combine_plain(out: torch.Tensor, miss_rows: torch.Tensor,
+                         miss_pos: torch.Tensor, num_miss: int):
+    """JAX's ``_combine_kernel``: ``out[miss_pos[j]] = miss_rows[j]`` for
+    ``j < num_miss``, in place (JAX donates ``out``); returns ``out``."""
+    out[miss_pos[:num_miss].long()] = miss_rows[:num_miss].to(out.device)
+    return out
+
+
+def tiered_direct_plain(out: torch.Tensor, miss_ids: torch.Tensor,
+                        miss_pos: torch.Tensor, num_miss: int,
+                        host: torch.Tensor):
+    """JAX's host gather, copy and combine: ``out[miss_pos[j]] =
+    host[miss_ids[j]]`` for ``j < num_miss``, the rows gathered from the
+    table on the CPU; in place, returns ``out``."""
+    miss_rows = host[miss_ids[:num_miss].cpu().long()]
+    return tiered_combine_plain(out, miss_rows, miss_pos, num_miss)
+
+
+def tiered_extract_plain(ids: torch.Tensor, num_input,
+                         posmap: Optional[torch.Tensor],
+                         cache: Optional[torch.Tensor],
+                         host: torch.Tensor):
+    """``(out, counts)``: the split, then the miss rows gathered from the
+    host table on the CPU and combined into place, in PyTorch ops."""
+    out, counts, miss_pos, miss_ids = tiered_split_plain(
+        ids, num_input, posmap, cache, host)
+    num_miss = int(counts[1])
+    return tiered_direct_plain(out, miss_ids, miss_pos, num_miss,
+                               host), counts
+
+
+# ----------------------------------------------------------- card wrappers
 def _check(ids, posmap, cache, host: MappedHostTable):
     if ids.dim() != 1 or ids.dtype != torch.int32 or not ids.is_contiguous():
         raise ValueError(f"tiered_extract: ids must be 1-D contiguous int32, "
@@ -127,6 +180,79 @@ def _check(ids, posmap, cache, host: MappedHostTable):
                 f"float32 on {ids.device}")
     if ids.device.type not in ("cpu", "cuda"):
         raise ValueError(f"tiered_extract: no kernel for {ids.device}")
+    if ids.device.type == "cuda" and (host.dev_ptr is None
+                                      or host.device != ids.device):
+        raise ValueError(f"tiered_extract: the host table is not mapped for "
+                         f"{ids.device}")
+
+
+def tiered_split(ids: torch.Tensor, num_input,
+                 posmap: Optional[torch.Tensor],
+                 cache: Optional[torch.Tensor], host: MappedHostTable):
+    """``(out, counts, miss_pos, miss_ids)``: step 1.  ``counts`` is the
+    int32 ``(hits, misses)`` on ``ids``' device; ``miss_pos`` and
+    ``miss_ids`` the misses' positions and ids in position order.  On the
+    card ``out``'s miss rows and the lists past ``counts[1]`` are left
+    unwritten (the plain version zeroes the rows and pads the lists)."""
+    _check(ids, posmap, cache, host)
+    if ids.device.type == "cpu":
+        return tiered_split_plain(ids, num_input, posmap, cache, host.tensor)
+    dev = ids.device
+    n = ids.shape[0]
+    num_node, width = host.tensor.shape
+    out = torch.empty((n, width), dtype=torch.float32, device=dev)
+    scratch = torch.empty(2 * n + -(-n // _TILE), dtype=torch.int32,
+                          device=dev)
+    miss_pos, miss_ids, tiles = scratch[:n], scratch[n:2 * n], scratch[2 * n:]
+    if n == 0:
+        return out, torch.zeros(2, dtype=torch.int32, device=dev), \
+            miss_pos, miss_ids
+    counts = torch.empty(2, dtype=torch.int32, device=dev)
+    num = _build.int32_scalar(num_input, dev)
+    rc = _build.load("tiered").xg_tiered_split(
+        ids.data_ptr(), n, num.data_ptr(),
+        None if posmap is None else posmap.data_ptr(), num_node,
+        None if cache is None else cache.data_ptr(), width, out.data_ptr(),
+        counts.data_ptr(), tiles.data_ptr(), miss_pos.data_ptr(),
+        miss_ids.data_ptr(), _build.stream_handle(dev))
+    _build.check(rc, "tiered_split")
+    _build.LAUNCHES.add("tiered_split")
+    return out, counts, miss_pos, miss_ids
+
+
+def tiered_direct(out: torch.Tensor, miss_ids: torch.Tensor,
+                  miss_pos: torch.Tensor, counts: torch.Tensor,
+                  host: MappedHostTable):
+    """Step 2: ``out[miss_pos[j]] = host[miss_ids[j]]`` for ``j <
+    counts[1]``, in place; returns ``out``.  On the card the count is read
+    on the device (no host sync); positions outside ``out`` are skipped."""
+    n, width = out.shape if out.dim() == 2 else (-1, -1)
+    if (out.dtype != torch.float32 or width != host.tensor.shape[1]
+            or miss_ids.dtype != torch.int32 or miss_pos.dtype != torch.int32
+            or counts.dtype != torch.int32 or counts.shape != (2,)
+            or miss_ids.shape != (n,) or miss_pos.shape != (n,)
+            or not (out.is_contiguous() and miss_ids.is_contiguous()
+                    and miss_pos.is_contiguous())
+            or not out.device == miss_ids.device == miss_pos.device
+            == counts.device):
+        raise ValueError(f"tiered_direct: out (n, {host.tensor.shape[1]}) "
+                         "contiguous float32, miss_ids and miss_pos (n,) "
+                         "and counts (2,) int32, on one device")
+    if out.device.type == "cpu":
+        return tiered_direct_plain(out, miss_ids, miss_pos, int(counts[1]),
+                                   host.tensor)
+    if host.dev_ptr is None or host.device != out.device:
+        raise ValueError(f"tiered_direct: the host table is not mapped for "
+                         f"{out.device}")
+    if n == 0:
+        return out
+    rc = _build.load("tiered").xg_tiered_direct(
+        host.dev_ptr, width, miss_ids.data_ptr(), miss_pos.data_ptr(),
+        counts[1:].data_ptr(), out.data_ptr(), n,
+        _build.stream_handle(out.device))
+    _build.check(rc, "tiered_direct")
+    _build.LAUNCHES.add("tiered_direct")
+    return out
 
 
 def tiered_extract(ids: torch.Tensor, num_input,
@@ -140,22 +266,6 @@ def tiered_extract(ids: torch.Tensor, num_input,
     if ids.device.type == "cpu":
         return tiered_extract_plain(ids, num_input, posmap, cache,
                                     host.tensor)
-    if host.dev_ptr is None or host.device != ids.device:
-        raise ValueError(f"tiered_extract: the host table is not mapped for "
-                         f"{ids.device}")
-    lib = _build.load("tiered")
-    num_node, width = host.tensor.shape
-    out = torch.empty((ids.shape[0], width), dtype=torch.float32,
-                      device=ids.device)
-    counts = torch.empty(2, dtype=torch.int32, device=ids.device)
-    num = _build.int32_scalar(num_input, ids.device)
-    rc = lib.xg_tiered_extract(
-        ids.data_ptr(), ids.shape[0], num.data_ptr(),
-        None if posmap is None else posmap.data_ptr(), num_node,
-        None if cache is None else cache.data_ptr(), host.dev_ptr, width,
-        out.data_ptr(), counts.data_ptr(), ids.device.index,
-        _build.stream_handle(ids.device),
-    )
-    _build.check(rc, _NAME)
-    _build.LAUNCHES.add(_NAME)
-    return out, counts
+    out, counts, miss_pos, miss_ids = tiered_split(ids, num_input, posmap,
+                                                   cache, host)
+    return tiered_direct(out, miss_ids, miss_pos, counts, host), counts

@@ -34,6 +34,23 @@ _TILE_WORDS = 256  # bitmap words per scan tile (kTileWords in csrc/unique.cu)
 _MAX_GEN = 2**32 - 1  # the last generation before the stamp wraps
 
 
+def compact_mask_positions(mask: torch.Tensor, out_cap: int) -> torch.Tensor:
+    """The positions of ``mask``'s True elements in their order, then ``n``
+    (the mask's length) as padding, ``min(out_cap, n)`` of them, int32:
+    JAX's ``compact_mask_positions`` (``xgnn_tpu/ops/unique.py:27``, K10).
+    A rank by cumulative sum and one scatter (JAX sorts, a TPU workaround
+    for scatters); no host sync.  Its CUDA form is the tiered store's split
+    (``csrc/tiered.cu``), which compacts the miss positions so."""
+    n = mask.shape[0]
+    cap = min(out_cap, n)
+    rank = torch.cumsum(mask, 0) - 1
+    slot = torch.where(mask & (rank < cap), rank, cap)
+    pos = torch.full((cap + 1,), n, dtype=torch.int32, device=mask.device)
+    pos.scatter_(0, slot, torch.arange(n, dtype=torch.int32,
+                                       device=mask.device))
+    return pos[:cap]
+
+
 def unique_seeded_plain(
     ids: torch.Tensor, num_prev: torch.Tensor, prev_cap: int, out_cap: int
 ):

@@ -7,12 +7,12 @@ The port of ``xgnn_tpu/store/feature_store.py``:
   them with arbitrary finite rows; nothing reads them).
 - ``TieredFeatureSource``: a hot-row cache in device memory (a ranking's
   prefix) with a node-to-slot position map, and the whole table in pinned
-  host memory.  ``extract`` is one launch of kernel K11, which reads the
-  cached rows from the cache and the others from the host table in place,
-  over PCIe.  The JAX package's split, host gather, copy and combine, and
-  the fixed miss bucket that keeps them free of host syncs (``miss_cap``,
-  its ``overflow`` flag, ``grow_miss_cap``, ``PAD_ROWS``), have nothing to
-  do here; the hit and miss counts stay on the device.
+  host memory.  ``extract`` is kernel K11: JAX's split on the card, then
+  the miss rows read from the host table in place, over PCIe, in place of
+  JAX's host gather, copy and combine.  The miss count stays on the device,
+  so the fixed miss bucket that keeps JAX's steps free of host syncs
+  (``miss_cap``, its ``overflow`` flag, ``grow_miss_cap``, ``PAD_ROWS``)
+  has nothing to do here; the hit and miss counts stay on the device.
 - ``DynamicTieredFeatureSource``: ``refresh(ranking)`` rebuilds the position
   map and the cache on the device.
 """

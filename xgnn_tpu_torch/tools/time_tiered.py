@@ -1,87 +1,176 @@
 #!/usr/bin/env python3
-"""Time K11 (the tiered extract) against builds of other designs.
+"""Time K11 (the tiered extract) step by step, beside its parent version.
 
-    python3 xgnn_tpu_torch/tools/time_tiered.py [--variants NAME ...]
+    python3 xgnn_tpu_torch/tools/time_tiered.py [--parent DIR]
 
 The inputs are those of ``chip_smoke.py``'s phase 8: the products-scale
 synthetic dataset (seed 0), GraphSAGE's configuration at cache 0.2 with
-``pre_sample`` (its engine's presample ranking, its table pinned and
-mapped), and the input nodes of one non-direct batch (the seeds of
-``chip_smoke.py``'s first batch, generator seed 7).  Each variant is
-``csrc/tiered.cu`` changed by text substitution and built into a library
-of its own (:data:`VARIANTS`: the grid on every multiprocessor's resident
-blocks, on 66 or on 16 blocks, in place of a quarter of the
-multiprocessors; 16 rows a warp at once in place of 8; the rows read with
-``ld.global.cs`` or ``ld.global.nc`` in place of plain loads), checked
-bit-equal to the shipped build and timed with ``chip_smoke.time_ms`` with
-the host ahead of the card, in turns (the shipped build, then each
-variant, then back).  Three inputs:
-the batch as drawn, the same ids sorted ascending (the host pages read in
-order), and the all-miss form over every row in order (the rate of a plain
-stream of host rows).  The pinned ``copy_`` rate is printed beside.  Then
-each build runs graphsage_cached's pipelined epoch in turns (the wrapper
-given the build's library), where K11 shares the card with the training
-step.  The last line is one JSON object.
+``pre_sample`` (its engine's presample ranking and pinned, mapped table),
+and the input nodes of one non-direct batch (the seeds of
+``chip_smoke.py``'s first batch, generator seed 7): as drawn, with 30% of
+them EMPTY, and the all-miss form over the cache's rows (the cache build).
+It prints:
+
+- the machine's CPUs and NUMA nodes (``lscpu``, ``numactl -H``);
+- the other way to move the misses, for comparison: a host gather of the
+  drawn batch's miss rows into pinned memory (``torch.index_select`` on
+  the pinned table) by thread count from 1 to every core, the pinned
+  ``copy_`` alone (512 MiB and the gathered rows), and the two pipelined
+  (host threads gather chunks of 4 MiB into a ring of pinned slots, each
+  moved to the card on a side stream while the next is gathered) at 2,
+  the cores less two, and every core: GB/s, best of 3;
+- for each input: the split alone and the SMs' reads alone (device ms,
+  the card's time with the host ahead) and the whole call (back to back,
+  and on the card alone), in turns with the parent's K11 where
+  ``--parent`` is given (parent, new, new, parent), every result checked
+  bit-equal;
+- the same batch's misses on a table four times as large (9,796,116 rows,
+  5.0 GB pinned; a valid id ``v`` becomes ``4v + (7v + 3) % 4``), where the
+  misses are 17% of the table's rows, beside the time of one ``copy_`` of
+  the whole table at the measured rate;
+- graphsage_cached's and graphsage_dynamic's pipelined epochs (25 steps
+  after a warm-up), three each in turns with the parent's K11 in the same
+  engine (parent, new, new, parent, parent, new).
+
+``--parent DIR``: a checkout of an earlier version, unpacked into a
+gitignored directory, as in ``git archive <commit> | tar -x -C
+build/parent``.  Its ``csrc/tiered.cu`` (one kernel, ``xg_tiered_extract``)
+is built and bound with the C interface that its ``ops/_build.py``
+declares, and reads its own pinned, mapped copy of the host table.  The
+last line is one JSON object.
 """
 
 import argparse
 import ctypes
+import importlib.util
 import json
+import os
 import subprocess
 import sys
+import threading
+import time
 from pathlib import Path
 
 CHECKOUT = Path(__file__).resolve().parents[2]
-_GRID = "const long long limit = sms / 4 > 0 ? sms / 4 : 1;"
-_LOAD = "s[u][col] : zero_word<Word>()"
-# name: the substitutions that make the variant from csrc/tiered.cu
-VARIANTS = {
-    "grid_all": [(_GRID, "const long long limit = cap;")],
-    "grid66": [(_GRID, "const long long limit = 66;")],
-    "grid16": [(_GRID, "const long long limit = 16;")],
-    "unroll16": [("constexpr int kUnroll = 8;",
-                  "constexpr int kUnroll = 16;")],
-    "ldcs": [(_LOAD, "__ldcs(s[u] + col) : zero_word<Word>()")],
-    "ldg": [(_LOAD, "__ldg(s[u] + col) : zero_word<Word>()")],
-}
-DEFAULT_VARIANTS = ["grid_all", "grid66", "grid16", "unroll16"]
+CHUNK_BYTES = 4 << 20  # a pinned slot of the gather-and-copy pipeline
+SLOTS_PER_THREAD = 3
 
 
-def build_variants(_build, names) -> dict:
-    """``{name: library}`` of the variants, compiled in parallel."""
-    out_dir = _build.BUILD_DIR / "time_tiered"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    source = (_build.CSRC / "tiered.cu").read_text()
-    jobs = {}
-    for name in names:
-        text = source
-        for old, new in VARIANTS[name]:
-            if text.count(old) != 1:
-                raise RuntimeError(f"time_tiered: the {name} variant's text "
-                                   f"is not in tiered.cu once: {old!r}")
-            text = text.replace(old, new)
-        src = out_dir / f"tiered_{name}.cu"
-        src.write_text(text)
-        lib = out_dir / f"libtiered_{name}.so"
-        jobs[name] = (lib, subprocess.Popen(
-            [_build.nvcc()] + _build.NVCC_FLAGS + ["-o", str(lib), str(src)]))
-    libs = {}
-    for name, (path, proc) in jobs.items():
-        if proc.wait() != 0:
-            raise RuntimeError(f"time_tiered: the {name} variant did not "
-                               "build")
-        lib = ctypes.CDLL(str(path))
-        fn = lib.xg_tiered_extract
-        fn.argtypes = _build.SIGNATURES["tiered"]["xg_tiered_extract"]
-        fn.restype = ctypes.c_int
-        libs[name] = lib
-    return libs
+class ParentK11:
+    """The parent's K11 on its own mapped copy of ``table``."""
+
+    def __init__(self, _build, parent, table, device):
+        root = Path(parent).resolve() / "xgnn_tpu_torch"
+        spec = importlib.util.spec_from_file_location(
+            "parent_build", root / "ops" / "_build.py")
+        parent_build = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(parent_build)
+        out_dir = _build.BUILD_DIR / "time_tiered"
+        out_dir.mkdir(parents=True, exist_ok=True)
+        lib = out_dir / "libtiered_parent.so"
+        log = subprocess.run(
+            [_build.nvcc()] + parent_build.NVCC_FLAGS
+            + ["-o", str(lib), str(root / "csrc" / "tiered.cu")],
+            capture_output=True, text=True)
+        if log.returncode != 0:
+            raise RuntimeError(f"time_tiered: the parent did not build:\n"
+                               f"{log.stdout}{log.stderr}")
+        self.lib = ctypes.CDLL(str(lib))
+        for fn, argtypes in parent_build.SIGNATURES["tiered"].items():
+            getattr(self.lib, fn).argtypes = argtypes
+            getattr(self.lib, fn).restype = ctypes.c_int
+        self.table = table.clone()
+        self.device = device
+        ptr = ctypes.c_void_p()
+        rc = self.lib.xg_host_map(
+            self.table.data_ptr(), self.table.numel() * 4, device.index,
+            ctypes.addressof(ptr))
+        _build.check(rc, "parent xg_host_map")
+        self.dev_ptr = ptr.value
+
+    def extract(self, torch, _build, ids, num_input, posmap, cache):
+        num_node, width = self.table.shape
+        out = torch.empty((ids.shape[0], width), dtype=torch.float32,
+                          device=ids.device)
+        counts = torch.empty(2, dtype=torch.int32, device=ids.device)
+        num = _build.int32_scalar(num_input, ids.device)
+        rc = self.lib.xg_tiered_extract(
+            ids.data_ptr(), ids.shape[0], num.data_ptr(),
+            None if posmap is None else posmap.data_ptr(), num_node,
+            None if cache is None else cache.data_ptr(), self.dev_ptr, width,
+            out.data_ptr(), counts.data_ptr(), self.device.index,
+            _build.stream_handle(ids.device))
+        _build.check(rc, "parent tiered_extract")
+        return out, counts
+
+    def close(self):
+        self.lib.xg_host_unmap(self.table.data_ptr(), self.device.index)
+
+
+def machine() -> dict:
+    """The CPU model, core count and NUMA layout, as lscpu and numactl say."""
+    info = {"cpu_count": os.cpu_count(),
+            "affinity": len(os.sched_getaffinity(0))}
+    for cmd in (["lscpu"], ["numactl", "-H"]):
+        try:
+            out = subprocess.run(cmd, capture_output=True, text=True,
+                                 timeout=20).stdout
+        except (OSError, subprocess.SubprocessError) as e:
+            out = f"not available ({e.__class__.__name__})"
+        keep = [ln.strip() for ln in out.splitlines()
+                if cmd[0] != "lscpu" or ln.split(":")[0].strip() in (
+                    "Model name", "Model", "CPU(s)", "Thread(s) per core",
+                    "Core(s) per socket", "Socket(s)", "BogoMIPS",
+                    "L2 cache", "L3 cache", "NUMA node(s)",
+                    "NUMA node0 CPU(s)", "NUMA node1 CPU(s)")]
+        info[cmd[0]] = keep
+        print(f"{' '.join(cmd)}: " + "; ".join(keep), flush=True)
+    return info
+
+
+def gather_and_copy(torch, table, ids, dev_rows, threads):
+    """``dev_rows[r] = table[ids[r]]``: ``threads`` host threads take chunks
+    of rows in turn, gather each into a pinned slot of their own ring and
+    copy it to the card on a side stream; a slot is refilled only once its
+    copy's event has completed.  Returns when the last copy has landed."""
+    width = table.shape[1]
+    rows = max(1, CHUNK_BYTES // (width * 4))
+    chunks = -(-ids.shape[0] // rows)
+    stream = torch.cuda.Stream(device=dev_rows.device)
+    slots = [[(torch.empty((rows, width), dtype=torch.float32,
+                           pin_memory=True), torch.cuda.Event())
+              for _ in range(SLOTS_PER_THREAD)] for _ in range(threads)]
+    taken = iter(range(chunks))
+    lock = threading.Lock()
+
+    def work(t):
+        with torch.cuda.stream(stream):
+            for turn in range(chunks):
+                with lock:
+                    c = next(taken, None)
+                if c is None:
+                    return
+                buf, done = slots[t][turn % SLOTS_PER_THREAD]
+                done.synchronize()
+                part = ids[c * rows:(c + 1) * rows]
+                torch.index_select(table, 0, part, out=buf[:part.shape[0]])
+                dev_rows[c * rows:c * rows + part.shape[0]].copy_(
+                    buf[:part.shape[0]], non_blocking=True)
+                done.record(stream)
+
+    pool = [threading.Thread(target=work, args=(t,)) for t in range(threads)]
+    for th in pool:
+        th.start()
+    for th in pool:
+        th.join()
+    stream.synchronize()
+    return dev_rows
 
 
 def main() -> int:
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--variants", nargs="*", default=DEFAULT_VARIANTS,
-                    choices=sorted(VARIANTS))
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--parent", default=None,
+                    help="a checkout of an earlier version")
     args = ap.parse_args()
     sys.path.insert(0, str(CHECKOUT))
     import chip_smoke as cs
@@ -94,13 +183,20 @@ def main() -> int:
     from xgnn_tpu_torch.device import generator
     from xgnn_tpu_torch.engine.shuffler import Shuffler
     from xgnn_tpu_torch.ops import _build
-    from xgnn_tpu_torch.ops.tiered import tiered_extract
+    from xgnn_tpu_torch.ops.tiered import (
+        EMPTY,
+        MappedHostTable,
+        tiered_direct,
+        tiered_extract,
+        tiered_extract_plain,
+        tiered_split,
+    )
 
     dev = torch.device("cuda", 0)
     card = cs.card_line()
     print(f"card: {card}", flush=True)
+    report = {"card": card, "machine": machine()}
     _build.build()
-    libs = build_variants(_build, args.variants)
     ds = make_device_dataset(cs.NUM_NODE, cs.NUM_EDGE, cs.FEAT_DIM,
                              cs.NUM_CLASS, train_frac=0.08, seed=0,
                              name="products_synth")
@@ -108,87 +204,197 @@ def main() -> int:
                            cache_policy="pre_sample"))
     eng = Engine(ds, cfg).init()
     store = eng.feature_source
-    ds.feat = None
+    feat_dev, ds.feat = ds.feat, store.feat_host
+    del feat_dev
+    torch.cuda.empty_cache()
+    width = store.feat_dim
+    parent = (None if args.parent is None
+              else ParentK11(_build, args.parent, store.feat_host, dev))
     seeds, n = next(Shuffler(ds.train_set, cs.BATCH, seed=7).epoch_batches(0))
     batch = eng.sampler.sample(torch.from_numpy(seeds).to(dev), n,
                                generator(dev, 7))
     drawn, num = batch.input_nodes, batch.num_input
-    live = int(num)
-    ordered = drawn.clone()
-    ordered[:live] = torch.sort(drawn[:live]).values
-    every = torch.arange(cs.NUM_NODE, dtype=torch.int32, device=dev)
-    inputs = {"drawn": (drawn, num, store.posmap),
-              "sorted": (ordered, num, store.posmap),
-              "all rows in order, all-miss": (every, cs.NUM_NODE, None)}
+    gen = torch.Generator(device=dev).manual_seed(11)
+    sparse = drawn.clone()
+    sparse[torch.rand(sparse.shape, generator=gen, device=dev) < 0.3] = EMPTY
+    cached = (store.posmap != EMPTY).nonzero().flatten()
+    cache_ids = torch.empty(store.num_cache, dtype=torch.int32, device=dev)
+    cache_ids[store.posmap[cached].long()] = cached.to(torch.int32)
+    inputs = {"drawn": (drawn, num, store.posmap, store.cache_feat),
+              "30% EMPTY": (sparse, num, store.posmap, store.cache_feat),
+              "all-miss (cache build)": (cache_ids, store.num_cache, None,
+                                         None)}
+
+    # the other way: a host gather and the copy engines, on the drawn
+    # batch's misses
+    _, counts, _, miss_ids = tiered_split(drawn, num, store.posmap,
+                                          store.cache_feat, store.host)
+    nm = int(counts[1])
+    ids_host = miss_ids[:nm].cpu().long()
+    nbytes = nm * width * 4
+    rows = torch.empty((nm, width), dtype=torch.float32, pin_memory=True)
+    cores = os.cpu_count() or 1
+    intra = torch.get_num_threads()
+    gather = {}
+    for t in sorted({1, cores} | {1 << k for k in range(8)
+                                  if 1 << k <= cores}):
+        torch.set_num_threads(t)
+        best = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            torch.index_select(store.feat_host, 0, ids_host, out=rows)
+            best.append(time.perf_counter() - t0)
+        gather[t] = nbytes / min(best) / 1e9
+        print(f"host gather, {nm} rows of {width * 4} bytes, {t} threads: "
+              f"{gather[t]:.3f} GB/s (best of "
+              f"{[round(b * 1e3, 3) for b in best]} ms)", flush=True)
+    torch.set_num_threads(intra)
+    report["host_gather_GBps"] = gather
     pinned = torch.empty(cs.H2D_BYTES // 4, dtype=torch.float32).pin_memory()
     on_card = torch.empty(pinned.shape, dtype=torch.float32, device=dev)
     h2d_ms = cs.time_ms(torch, lambda: on_card.copy_(pinned,
                                                      non_blocking=True),
                         reps=5)
-    h2d_rate = cs.H2D_BYTES / h2d_ms * 1e3
-    print(f"pinned copy_ {h2d_rate / 1e9:.3f} GB/s", flush=True)
-    results = []
-    for what, (ids, nv, posmap) in inputs.items():
-        cache = None if posmap is None else store.cache_feat
-        ref, counts = tiered_extract(ids, nv, posmap, cache, store.host)
-        misses = int(counts[1])
-        numt = torch.full((), int(nv), dtype=torch.int32, device=dev)
+    on_card = torch.empty(rows.shape, dtype=torch.float32, device=dev)
+    rows_ms = cs.time_ms(torch, lambda: on_card.copy_(rows,
+                                                      non_blocking=True),
+                         reps=5)
+    report["copy_GBps"] = {"512MiB": cs.H2D_BYTES / h2d_ms / 1e6,
+                           "gathered_rows": nbytes / rows_ms / 1e6}
+    print(f"pinned copy_: {report['copy_GBps']} GB/s", flush=True)
+    torch.set_num_threads(1)
+    piped = {}
+    for t in sorted({2, max(1, cores - 2), cores}):
+        best = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            gather_and_copy(torch, store.feat_host, ids_host, on_card, t)
+            best.append(time.perf_counter() - t0)
+        piped[t] = {"ms": min(best) * 1e3, "GBps": nbytes / min(best) / 1e9}
+        print(f"gather and copy pipelined, {t} threads: {piped[t]}",
+              flush=True)
+    torch.set_num_threads(intra)
+    if not torch.equal(on_card.cpu(), store.feat_host[ids_host]):
+        raise AssertionError("the gather-and-copy pipeline moved other rows")
+    report["gather_and_copy"] = piped
+    del pinned, on_card, rows
 
-        def variant(lib):
-            out = torch.empty_like(ref)
-            cnt = torch.empty(2, dtype=torch.int32, device=dev)
-
-            def run():
-                rc = lib.xg_tiered_extract(
-                    ids.data_ptr(), ids.shape[0], numt.data_ptr(),
-                    None if posmap is None else posmap.data_ptr(),
-                    cs.NUM_NODE, None if cache is None else cache.data_ptr(),
-                    store.host.dev_ptr, store.feat_dim, out.data_ptr(),
-                    cnt.data_ptr(), dev.index, _build.stream_handle(dev))
-                _build.check(rc, "tiered_extract variant")
-                return out, cnt
-            return run
-
-        shipped = lambda: tiered_extract(ids, nv, posmap, cache, store.host)
-        runs = {"shipped": shipped}
-        runs.update({spec: variant(lib) for spec, lib in libs.items()})
-        for spec, fn in runs.items():
-            out, cnt = fn()
+    def per_input(what, ids, nv, posmap, cache, host, parent_k11):
+        ref, ref_counts = tiered_extract_plain(ids, nv, posmap, cache,
+                                               host.tensor)
+        out, cnt = tiered_extract(ids, nv, posmap, cache, host)
+        torch.cuda.synchronize()
+        if not (torch.equal(out, ref) and torch.equal(cnt, ref_counts)):
+            raise AssertionError(f"{what}: K11 differs from its plain version")
+        misses = int(cnt[1])
+        row = {"input": what, "ids": ids.shape[0], "hits": int(cnt[0]),
+               "misses": misses, "pcie_bytes": misses * width * 4,
+               "table_rows": host.tensor.shape[0]}
+        split = lambda: tiered_split(ids, nv, posmap, cache, host)
+        row["split_device_ms"] = cs.time_ms(torch, split, host_ahead=True)
+        o, c, pos, mids = split()
+        row["direct_device_ms"] = cs.time_ms(
+            torch, lambda: tiered_direct(o, mids, pos, c, host),
+            host_ahead=True)
+        del o, c, pos, mids
+        runs = {"new": lambda: tiered_extract(ids, nv, posmap, cache, host)}
+        if parent_k11 is not None:
+            pout, pcnt = parent_k11.extract(torch, _build, ids, nv, posmap,
+                                            cache)
             torch.cuda.synchronize()
-            if not (torch.equal(out, ref) and torch.equal(cnt, counts)):
-                raise AssertionError(f"{what}: {spec} differs from the "
-                                     "shipped build")
-        order = list(runs) + list(runs)[::-1]
-        times = {spec: [] for spec in runs}
-        for spec in order:
-            times[spec].append(cs.time_ms(torch, runs[spec], reps=5,
-                                          host_ahead=True))
-        row = {"input": what, "ids": ids.shape[0], "valid": int(nv),
-               "misses": misses, "pcie_bytes": misses * store.feat_dim * 4,
-               "device_ms": times,
-               "pcie_GBps": {s: misses * store.feat_dim * 4 / min(t) / 1e6
-                             for s, t in times.items()}}
+            if not (torch.equal(pout, ref) and torch.equal(pcnt, cnt)):
+                raise AssertionError(f"{what}: the parent's K11 differs")
+            del pout
+            runs["parent"] = lambda: parent_k11.extract(
+                torch, _build, ids, nv, posmap, cache)
+        del ref
+        order = sorted(runs, key=lambda k: k != "parent")
+        order += order[::-1]
+        row["call_ms"] = {k: [] for k in runs}
+        row["device_ms"] = {k: [] for k in runs}
+        for k in order:
+            row["call_ms"][k].append(cs.time_ms(torch, runs[k]))
+            row["device_ms"][k].append(cs.time_ms(torch, runs[k],
+                                                  host_ahead=True))
+        row["pcie_GBps"] = {k: misses * width * 4 / min(v) / 1e6
+                            for k, v in row["device_ms"].items()}
         print(json.dumps(row), flush=True)
-        results.append(row)
-    # each build in graphsage_cached's pipelined epoch, where K11 runs on
-    # the producer's stream beside the training step: the wrapper loads
-    # the build's library in place of the shipped one, in turns
-    epochs = {spec: [] for spec in ["shipped"] + list(libs)}
-    shipped_lib = _build.load("tiered")
-    eng.train_epoch(0)
-    epoch = 1
-    for spec in list(epochs) + list(epochs)[::-1]:
-        _build._libs["tiered"] = shipped_lib if spec == "shipped" \
-            else libs[spec]
-        torch.cuda.synchronize()
-        r = eng.train_epoch(epoch)
-        torch.cuda.synchronize()
-        epochs[spec].append(r["time"])
-        epoch += 1
-    _build._libs["tiered"] = shipped_lib
-    print(json.dumps({"epoch_s": epochs}), flush=True)
-    print(json.dumps({"card": card, "h2d_bytes_per_s": h2d_rate,
-                      "inputs": results, "epoch_s": epochs}))
+        return row
+
+    report["inputs"] = [per_input(what, *spec, store.host, parent)
+                        for what, spec in inputs.items()]
+
+    # the same misses on a table four times as large
+    big = torch.empty((4 * cs.NUM_NODE, width), dtype=torch.float32)
+    where = torch.arange(cs.NUM_NODE, dtype=torch.int64)
+    where = 4 * where + (7 * where + 3) % 4
+    big[where] = store.feat_host
+    host4 = MappedHostTable(big, dev)
+    del big
+    where = where.to(dev)
+    posmap4 = torch.full((4 * cs.NUM_NODE,), EMPTY, dtype=torch.int32,
+                         device=dev)
+    posmap4[where] = store.posmap
+    valid = (drawn >= 0) & (drawn < cs.NUM_NODE)
+    drawn4 = torch.where(valid, where[torch.where(valid, drawn, 0).long()]
+                         .to(torch.int32), drawn)
+    row = per_input("drawn, 4x table", drawn4, num, posmap4,
+                    store.cache_feat, host4, None)
+    out4, _ = tiered_extract(drawn4, num, posmap4, store.cache_feat, host4)
+    out1, _ = tiered_extract(drawn, num, store.posmap, store.cache_feat,
+                             store.host)
+    torch.cuda.synchronize()
+    if not torch.equal(out4, out1):
+        raise AssertionError("the 4x table's rows differ from the table's")
+    del out4, out1
+    row["whole_table_copy_ms"] = (host4.tensor.numel() * 4
+                                  / report["copy_GBps"]["512MiB"] / 1e6)
+    print(f"4x table: a copy_ of its {host4.tensor.numel() * 4} bytes would "
+          f"take {row['whole_table_copy_ms']:.3f} ms", flush=True)
+    report["inputs"].append(row)
+    host4.close()
+    del host4, posmap4, drawn4, where, sparse, batch
+
+    # the epochs, the parent's K11 swapped into the same engine in turns
+    def epochs(engine, path):
+        store = engine.feature_source
+        runs = {"new": None}
+        if parent is not None:
+            def parent_extract(ids, nv):
+                out, cnt = parent.extract(torch, _build, ids, nv,
+                                          store.posmap, store.cache_feat)
+                return out, {"num_hit": cnt[0], "num_miss": cnt[1],
+                             "miss_bytes": cnt[1].to(torch.int64)
+                             * (width * 4)}
+            runs["parent"] = parent_extract
+        order = sorted(runs, key=lambda k: k != "parent")
+        order = order + order[::-1] + order
+        times = {k: [] for k in runs}
+        rates = {k: [] for k in runs}
+        engine.train_epoch(0)
+        for epoch, k in enumerate(order, start=1):
+            store.__dict__.pop("extract", None)
+            if runs[k] is not None:
+                store.extract = runs[k]
+            torch.cuda.synchronize()
+            r = engine.train_epoch(epoch)
+            torch.cuda.synchronize()
+            times[k].append(r["time"])
+            rates[k].append(r["hit_rate"])
+        store.__dict__.pop("extract", None)
+        print(f"{path} epochs (s): {times}; hit rates {rates}", flush=True)
+        return {"epoch_s": times, "hit_rate": rates}
+
+    report["graphsage_cached"] = epochs(eng, "graphsage_cached")
+    del eng, store
+    torch.cuda.empty_cache()
+    deng = Engine(ds, RunConfig(**dict(cs.BENCH_CONFIG,
+                                       cache_percentage=cs.CACHE_PCT,
+                                       cache_policy="dynamic_cache"))).init()
+    report["graphsage_dynamic"] = epochs(deng, "graphsage_dynamic")
+    if parent is not None:
+        parent.close()
+    print(json.dumps(report))
     return 0
 
 
