@@ -52,7 +52,9 @@ Phases, each fatal on failure:
 5. Small reference: on a small graph the kernels' forward logits and loss
    agree with the plain path on the CPU for the same blocks and weights,
    for GraphSAGE, GCN, GAT at 1 and 8 heads, PinSAGE (its own walk
-   blocks) and MLP.
+   blocks) and MLP; K6a (sum and mean) and K6b (8 heads of 4) on the card
+   agree with their plain versions on the CPU, and the full-graph logits
+   of GraphSAGE, GCN, GAT at 1 and 8 heads and PinSAGE with the CPU's.
 6. Main path: GraphSAGE, then GCN 3x256 and GAT 3x256 at 1 and at 8 heads
    on the same configuration, then PinSAGE 2x256 on the walk above, MLP
    3x256 on the main configuration and GraphSAGE on khop1 sampling.  Each
@@ -108,6 +110,25 @@ Phases, each fatal on failure:
    it.  Then two epochs of ``dynamic_cache`` (``graphsage_dynamic``: K12
    every step, a refresh at each epoch's end), its posmap moved and 200,000
    ids extracted after the refresh equal to the host table.
+9. Full-graph inference: phase 6's trained graphsage 3x256, gcn, gat1,
+   gat8 and pinsage 2x256 over every node of phase 3's graph (123,999,946
+   edges; rows past ``HUB_CAP`` counted), each after a warm-up: the
+   inference's wall time, device time and edges
+   aggregated per second (edges times layers over the wall time), its
+   launches (K6a or K6b once a layer, asserted), finite logits of
+   (2449029, 47), its peak memory, the valid and test accuracy of
+   ``evaluate_full`` and ``Engine.evaluate("valid")`` beside them.  At
+   each layer shape, K6a (mean 128 and 256, GCN's sum 256 and 47) and K6b
+   ((1, 256), (1, 47), (8, 32)) against their plain versions on the card
+   within 1e-5 of the same aggregate of the terms' magnitudes (the bound
+   of a sum in another order), bit-equal across two launches, timed with
+   both bounds (distinct rows once; ``per_pick_bound_ms`` a row a pick),
+   the plain version and the library (cuSPARSE's ``torch.sparse.mm`` of
+   a CSR of ones; for K6b a composition of torch ops), beside the same
+   call over the graph without its hub rows and with every row on the
+   rows kernel (no hub kernel).  The inference's device time and each K6
+   call's come from CUDA events with the inference queued while the card
+   sleeps (the card's time alone).
 
 Each kernel is timed twice: ``ms`` back to back (the wrapper's host time
 included, where the host is the slower) and ``device_ms`` with the host
@@ -117,8 +138,8 @@ of this batch once, and ``per_pick_bound_ms`` beside it a row per valid
 pick; K4's mean form moves the sum form's bytes.  K4's mean-form
 ``library_ms`` is two calls, ``F.embedding_bag`` and the division.
 
-Prints the kernels' JSON line, then the card's line (nvidia-smi's name and
-power limit), then the result line.
+Prints the inference's JSON line, the kernels' JSON line, then the card's
+line (nvidia-smi's name and power limit), then the result line.
 Exits non-zero with no result line when there is no CUDA device.
 """
 
@@ -293,6 +314,16 @@ def main() -> int:
         unique_seeded_split_plain,
     )
     from xgnn_tpu_torch.train import loss_fn
+    from xgnn_tpu_torch import inference as inference_mod
+    from xgnn_tpu_torch.inference import evaluate_full, full_graph_inference
+    from xgnn_tpu_torch.ops import spmm as spmm_ops
+    from xgnn_tpu_torch.ops.spmm import (
+        gat_aggregate_csr,
+        gat_aggregate_csr_plain,
+        inverse_degree,
+        spmm_csr,
+        spmm_csr_plain,
+    )
 
     # plain versions are compared in full float32
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -375,6 +406,14 @@ def main() -> int:
         ok = torch.equal(a, b) if exact else torch.allclose(
             a, b, rtol=RTOL, atol=ATOL)
         if not ok:
+            raise AssertionError(f"{name}: kernel disagrees with its plain "
+                                 f"version (max abs err {max_err(a, b)})")
+
+    def assert_agg_close(name, a, b, mass):
+        """K6's tolerance: within RTOL of the same aggregate of the terms'
+        magnitudes (``mass``), the error bound of a sum taken in another
+        order (the plain version's atomics, a hub row's parts)."""
+        if not bool(((a - b).abs() <= RTOL * mass + 1e-7).all()):
             raise AssertionError(f"{name}: kernel disagrees with its plain "
                                  f"version (max abs err {max_err(a, b)})")
 
@@ -1092,7 +1131,50 @@ def main() -> int:
               f"logits {tuple(logits.shape)} max abs diff "
               f"{max_err(logits.cpu(), ref_logits):.3e}, loss "
               f"{loss.item():.6f} vs {ref_loss.item():.6f}", flush=True)
-    del small, sb, sbp, model, logits
+    # K6a and K6b on the small graph, the kernels on the card against their
+    # plain versions on the CPU; then full-graph logits of the zoo against
+    # the CPU's
+    si, sx, sn = small.graph.indptr, small.graph.indices, small.num_node
+    cpu_csr = (si.cpu(), sx.cpu())
+    sh = torch.randn((sn, 32), generator=gen, device=dev)
+    for mean in (False, True):
+        got = spmm_csr(si, sx, sh, num_node=sn, mean=mean).cpu()
+        ref = spmm_csr_plain(*cpu_csr, sh.cpu(), num_node=sn, mean=mean)
+        mass = spmm_csr_plain(*cpu_csr, sh.abs().cpu(), num_node=sn,
+                              mean=mean)
+        assert_agg_close("spmm_csr (small graph)", got, ref, mass)
+        print(f"{tag} small reference spmm_csr ({'mean' if mean else 'sum'}"
+              f", {sn} rows x 32): max abs err {max_err(got, ref):.3e} "
+              f"against the CPU's plain version (bit-equal: "
+              f"{torch.equal(got, ref)})", flush=True)
+    sf = torch.randn((sn, 8, 4), generator=gen, device=dev)
+    sel_, ser = (torch.randn((sn, 8), generator=gen, device=dev)
+                 for _ in range(2))
+    got = gat_aggregate_csr(si, sx, sf, sel_, ser, num_node=sn).cpu()
+    cpu_gat = [t.cpu() for t in (sf, sel_, ser)]
+    ref = gat_aggregate_csr_plain(*cpu_csr, *cpu_gat, num_node=sn)
+    mass = gat_aggregate_csr_plain(*cpu_csr, cpu_gat[0].abs(), *cpu_gat[1:],
+                                   num_node=sn)
+    assert_agg_close("gat_aggregate_csr (small graph)", got, ref, mass)
+    print(f"{tag} small reference gat_aggregate_csr ({sn} rows, 8 heads of "
+          f"4): max abs err {max_err(got, ref):.3e} against the CPU's plain "
+          "version", flush=True)
+    for model_name, heads in (("graphsage", 1), ("gcn", 1), ("gat", 1),
+                              ("gat", 8), ("pinsage", 1)):
+        mcfg = RunConfig(num_hidden=16, model=model_name, num_head=heads)
+        model = build_model(mcfg, 32, 6)
+        ref_logits = full_graph_inference(model, *cpu_csr, small.feat.cpu(),
+                                          device="cpu")
+        logits = full_graph_inference(model.to(dev), si, sx, small.feat)
+        if not torch.allclose(logits.cpu(), ref_logits, rtol=1e-4,
+                              atol=1e-5):
+            raise AssertionError(f"small reference full_graph_inference "
+                                 f"({model_name}, {heads} head(s)): card "
+                                 "logits disagree with the CPU's")
+        print(f"{tag} small reference full_graph_inference {model_name} "
+              f"({heads} head(s)): logits {tuple(logits.shape)} max abs diff "
+              f"{max_err(logits.cpu(), ref_logits):.3e}", flush=True)
+    del small, sb, sbp, model, logits, sh, sf, sel_, ser, got, ref, mass
 
     # ---- 6. main path ------------------------------------------------------
     steps = Shuffler(ds.train_set, BATCH).num_local_step
@@ -1142,7 +1224,7 @@ def main() -> int:
                               "gather_rows": steps, "fanout_fwd": 3 * steps,
                               "fanout_bwd": 2 * steps},
     }
-    counts_by_path = {}
+    counts_by_path, inference_rows = {}, {}
     mean = lambda v: sum(v) / max(len(v), 1)
 
     def run_epochs(path, eng):
@@ -1292,6 +1374,8 @@ def main() -> int:
         raise AssertionError("epoch 2: a step loss is not finite")
     engine.config.pipeline = True
     profiled_epoch("graphsage", engine, 3)
+    # the trained models, for phase 9
+    trained = {"graphsage": (engine.config, engine.model)}
     del engine
 
     # GCN 3x256 and GAT 3x256 at 1 and at 8 heads, the same configuration
@@ -1304,6 +1388,7 @@ def main() -> int:
         r1 = run_epochs(path, eng)
         rate_and_memory(path, r1)
         profiled_epoch(path, eng, 2)
+        trained[path] = (eng.config, eng.model)
         del eng
 
     # PinSAGE 2x256 on bench.py's walk (its engine set up in phase 4)
@@ -1315,6 +1400,7 @@ def main() -> int:
     r1 = run_epochs("pinsage", pin_engine)
     rate_and_memory("pinsage", r1, pin_edges)
     profiled_epoch("pinsage", pin_engine, 2)
+    trained["pinsage"] = (pin_engine.config, pin_engine.model)
     del pin_engine
 
     # MLP 3x256 (its sampled edges counted as bench.py counts them, though
@@ -1970,6 +2056,281 @@ def main() -> int:
           f"entries; {check.shape[0]} ids after it ({int(info['num_hit'])} "
           f"hits) equal the host table; epoch hit rates {rates}", flush=True)
     del deng, out, want, check, posmap0
+
+    # ---- 9. full-graph inference and evaluation ----------------------------
+    # phase 6's trained models over every node of phase 3's graph, with the
+    # features back on the card (phase 8 left them in pinned host memory)
+    ds.feat = ds.feat.to(dev)
+    indptr, indices = ds.graph.indptr, ds.graph.indices
+    num_edge = indices.numel()
+    deg = indptr[1:] - indptr[:-1]
+    hubs = deg > spmm_ops.HUB_CAP
+    edge_cols = indices.long()
+    # the distinct rows a layer reads: each input read once
+    src_rows = int((torch.bincount(edge_cols, minlength=NUM_NODE) > 0).sum())
+    print(f"{tag} inference graph: {NUM_NODE} nodes, {num_edge} edges "
+          f"({src_rows} distinct rows read), largest degree "
+          f"{int(deg.max())}; {int(hubs.sum())} rows past HUB_CAP "
+          f"{spmm_ops.HUB_CAP} hold {int(deg[hubs].sum())} edges "
+          f"({float(deg[hubs].sum()) / num_edge:.4f})", flush=True)
+    # the yardsticks' structure: cuSPARSE's CSR of ones, the row of each
+    # edge; built once, outside every timing
+    csr_ones = torch.sparse_csr_tensor(
+        indptr, indices, torch.ones(num_edge, device=dev),
+        (NUM_NODE, NUM_NODE))
+    inv_deg = inverse_degree(indptr, NUM_NODE)[:, None]
+    edge_rows = torch.repeat_interleave(
+        torch.arange(NUM_NODE, device=dev), deg.long(),
+        output_size=num_edge)
+    csr_bytes = num_edge * 4 + (NUM_NODE + 1) * 4
+
+    # the same graph with the rows past HUB_CAP emptied: what the rows
+    # kernel takes for the rest
+    no_hub_indptr = torch.cat([
+        torch.zeros(1, dtype=torch.int32, device=dev),
+        torch.cumsum(torch.where(hubs, 0, deg), 0).to(torch.int32)])
+    no_hub_indices = indices[~hubs[edge_rows]].contiguous()
+
+    def hub_split(fn_on, name):
+        """The call's device ms with every row on the rows kernel (HUB_CAP
+        past the largest degree: no hub kernel) and over the graph without
+        the hub rows, beside the call as it runs."""
+        cap = spmm_ops.HUB_CAP
+        spmm_ops.HUB_CAP = 2**31 - 1
+        try:
+            flat_ms = time_ms(torch, lambda: fn_on(indptr, indices), reps=3,
+                              host_ahead=True)
+        finally:
+            spmm_ops.HUB_CAP = cap
+        rest_ms = time_ms(torch, lambda: fn_on(no_hub_indptr, no_hub_indices),
+                          reps=3, host_ahead=True)
+        print(f"{tag} {name}: every row on the rows kernel (no hub kernel) "
+              f"{flat_ms:.4f} ms; the {int(hubs.sum())} hub rows excluded "
+              f"{rest_ms:.4f} ms", flush=True)
+        return {"no_hub_kernel_ms": flat_ms, "hubs_excluded_ms": rest_ms}
+
+    def spmm_case(path, layer, h, mean):
+        f = h.shape[1]
+        form = "mean" if mean else "sum"
+
+        def fn_on(ip, ix):
+            return spmm_csr(ip, ix, h, num_node=NUM_NODE, mean=mean)
+
+        def fn():
+            return fn_on(indptr, indices)
+
+        def plain():
+            return spmm_csr_plain(indptr, indices, h, num_node=NUM_NODE,
+                                  mean=mean)
+
+        def library():
+            out = torch.sparse.mm(csr_ones, h)
+            return out * inv_deg if mean else out
+
+        out, again, ref = fn(), fn(), plain()
+        mass = spmm_csr_plain(indptr, indices, h.abs(), num_node=NUM_NODE,
+                              mean=mean)
+        torch.cuda.synchronize()
+        assert_agg_close(f"spmm_csr ({path} layer {layer})", out, ref, mass)
+        equal = torch.equal(out, again)
+        if not equal:
+            raise AssertionError(f"spmm_csr ({path} layer {layer}): two "
+                                 "launches differ")
+        lib_err = max_err(library(), out)
+        del again, mass
+        record("spmm_csr", "xgnn_tpu_torch/csrc/spmm.cu",
+               "xgnn_tpu/ops/spmm.py:29-72 (spmm_csr; the plan's "
+               "spmm_csr_planned :437-483)",
+               f"{form}, {path} layer {layer}: ({NUM_NODE}, {num_edge}) CSR "
+               f"over ({h.shape[0]}, {f}) f32",
+               max_err(out, ref), "1e-5 of the aggregate of |h|", fn, plain,
+               library,
+               "torch.sparse.mm(sparse_csr_tensor(indptr, indices, ones), h)"
+               " (cuSPARSE)" + (" times 1/max(deg, 1)" if mean else ""),
+               nbytes=src_rows * f * 4 + csr_bytes + NUM_NODE * f * 4,
+               flops=num_edge * f + (NUM_NODE * f if mean else 0),
+               per_step=3, path=f"inference_{path}",
+               pick_nbytes=num_edge * f * 4 + csr_bytes + NUM_NODE * f * 4,
+               plain_reps=1)
+        kernels[-1].update(bit_equal=equal, library_max_abs_err=lib_err,
+                           **hub_split(fn_on, f"spmm_csr {form} F={f}"))
+        print(f"{tag} spmm_csr {form} F={f}: two launches equal bit for "
+              f"bit; per-pick bound {kernels[-1]['per_pick_bound_ms']:.4f} "
+              f"ms; the library's max abs err {lib_err:.3e}", flush=True)
+
+    def gat_library(feat, el, er):
+        """The composition: each edge's scores, their row max
+        (scatter_reduce amax), the weights, their row sums, then a CSR
+        sparse.mm a head with the weights as values."""
+        heads = feat.shape[1]
+        e = F.leaky_relu(el[edge_rows] + er[edge_cols], 0.2)
+        m = torch.full((NUM_NODE, heads), -1e30, device=dev).scatter_reduce_(
+            0, edge_rows[:, None].expand_as(e), e, "amax")
+        w = torch.exp(e - m[edge_rows])
+        den = torch.zeros((NUM_NODE, heads), device=dev).index_add_(
+            0, edge_rows, w)
+        out = torch.stack([torch.sparse.mm(torch.sparse_csr_tensor(
+            indptr, indices, w[:, k].contiguous(), (NUM_NODE, NUM_NODE)),
+            feat[:, k]) for k in range(heads)], 1)
+        return out / torch.clamp(den, min=1e-9)[..., None]
+
+    def gat_case(path, layer, feat, el, er):
+        _, heads, d = feat.shape
+
+        def fn_on(ip, ix):
+            return gat_aggregate_csr(ip, ix, feat, el, er, num_node=NUM_NODE)
+
+        def fn():
+            return fn_on(indptr, indices)
+
+        def plain():
+            return gat_aggregate_csr_plain(indptr, indices, feat, el, er,
+                                           num_node=NUM_NODE)
+
+        out, again, ref = fn(), fn(), plain()
+        mass = gat_aggregate_csr_plain(indptr, indices, feat.abs(), el, er,
+                                       num_node=NUM_NODE)
+        torch.cuda.synchronize()
+        assert_agg_close(f"gat_aggregate_csr ({path} layer {layer})", out,
+                         ref, mass)
+        equal = torch.equal(out, again)
+        if not equal:
+            raise AssertionError(f"gat_aggregate_csr ({path} layer "
+                                 f"{layer}): two launches differ")
+        lib_err = max_err(gat_library(feat, el, er), out)
+        del again, mass
+        row = heads * d + heads  # a feat row and its er words
+        record("gat_aggregate_csr", "xgnn_tpu_torch/csrc/spmm.cu",
+               "xgnn_tpu/ops/spmm.py:114-177 (gat_aggregate_csr with "
+               "segment_max_csr :75-111; the plan's gat_aggregate_planned "
+               ":617-691)",
+               f"{path} layer {layer}: ({NUM_NODE}, {num_edge}) CSR over "
+               f"({feat.shape[0]}, {heads}, {d}) f32",
+               max_err(out, ref),
+               "1e-5 of the softmax-weighted aggregate of |feat|", fn, plain,
+               lambda: gat_library(feat, el, er),
+               "scores by index, scatter_reduce amax, exp, index_add_, then "
+               "a CSR torch.sparse.mm a head with the weights as values",
+               nbytes=(src_rows * row + NUM_NODE * heads) * 4 + csr_bytes
+               + NUM_NODE * heads * d * 4,
+               # a product and an add an element; a score, an exp and the
+               # sum's add a head
+               flops=num_edge * heads * (2 * d + 4),
+               per_step=3, path=f"inference_{path}",
+               pick_nbytes=(num_edge * row + NUM_NODE * heads) * 4
+               + csr_bytes + NUM_NODE * heads * d * 4,
+               plain_reps=1)
+        kernels[-1].update(bit_equal=equal, library_max_abs_err=lib_err,
+                           **hub_split(fn_on, f"gat_aggregate_csr ({heads}, "
+                                              f"{d})"))
+        print(f"{tag} gat_aggregate_csr ({heads}, {d}): two launches equal "
+              f"bit for bit; per-pick bound "
+              f"{kernels[-1]['per_pick_bound_ms']:.4f} ms; the "
+              f"composition's max abs err {lib_err:.3e}", flush=True)
+
+    def traced_inference(model):
+        """One inference queued while the card sleeps, so that its events
+        read the card's time alone: the arguments of each K6 call, and
+        the device ms of each and of the whole inference."""
+        calls, marks = [], []
+        real = inference_mod.spmm_csr, inference_mod.gat_aggregate_csr
+
+        def traced(fn):
+            def wrapped(*args, **kw):
+                calls.append((args, kw))
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                ev[0].record()
+                out = fn(*args, **kw)
+                ev[1].record()
+                marks.append(ev)
+                return out
+            return wrapped
+
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        inference_mod.spmm_csr = traced(real[0])
+        inference_mod.gat_aggregate_csr = traced(real[1])
+        try:
+            torch.cuda._sleep(1_000_000_000)  # about 0.5 s
+            start.record()
+            full_graph_inference(model, indptr, indices, ds.feat)
+            end.record()
+            if start.query():
+                raise AssertionError("traced inference: the host was not "
+                                     "ahead of the card")
+        finally:
+            inference_mod.spmm_csr, inference_mod.gat_aggregate_csr = real
+        torch.cuda.synchronize()
+        return (calls, [a.elapsed_time(b) for a, b in marks],
+                start.elapsed_time(end))
+
+    # the layers whose shapes K6 is recorded at (graphsage's layer 2 and
+    # pinsage's two share graphsage's layer 1 and 0 shapes; gat8's layer 2
+    # gat1's)
+    recorded_layers = {"graphsage": (0, 1), "gcn": (0, 2), "gat1": (0, 2),
+                       "gat8": (0,), "pinsage": ()}
+    for path in ("graphsage", "gcn", "gat1", "gat8", "pinsage"):
+        mcfg, model = trained[path]
+        kname = "gat_aggregate_csr" if mcfg.model == "gat" else "spmm_csr"
+        num_layers = len(model.layers)
+        full_graph_inference(model, indptr, indices, ds.feat)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        _build.LAUNCHES.reset()
+        t0 = time.perf_counter()
+        logits = full_graph_inference(model, indptr, indices, ds.feat)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _build.LAUNCHES.snapshot()
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        counts_by_path[f"inference_{path}"] = counts
+        if counts != {kname: num_layers}:
+            raise AssertionError(f"inference {path}: launches {counts}")
+        if (logits.shape != (NUM_NODE, NUM_CLASS)
+                or not bool(torch.isfinite(logits).all())):
+            raise AssertionError(f"inference {path}: logits "
+                                 f"{tuple(logits.shape)} not all finite")
+        del logits
+        calls, k6_layers, busy = traced_inference(model)
+        k6_ms = sum(k6_layers)
+        if len(calls) != num_layers:
+            raise AssertionError(f"inference {path}: {len(calls)} K6 calls")
+        t0 = time.perf_counter()
+        acc_valid = evaluate_full(model, indptr, indices, ds.feat, ds.label,
+                                  ds.valid_set)
+        acc_test = evaluate_full(model, indptr, indices, ds.feat, ds.label,
+                                 ds.test_set)
+        eval_s = time.perf_counter() - t0
+        eng = Engine(ds, mcfg).init()
+        eng.model.load_state_dict(model.state_dict())
+        t0 = time.perf_counter()
+        sampled = eng.evaluate("valid")
+        sampled_s = time.perf_counter() - t0
+        del eng
+        print(f"{tag} inference {path} ({num_layers} layers): "
+              f"{wall * 1e3:.3f} ms wall, {busy:.3f} ms on the card alone "
+              f"(K6 {k6_ms:.3f} ms: "
+              f"{', '.join(f'{t:.3f}' for t in k6_layers)} by layer); "
+              f"{num_edge * num_layers / wall:.1f} "
+              f"edges aggregated/s; peak {peak:.3f} GiB; launches {counts}; "
+              f"evaluate_full valid {acc_valid:.6f} test {acc_test:.6f} "
+              f"({eval_s:.3f} s for both); Engine.evaluate('valid') "
+              f"{sampled:.6f} ({sampled_s:.3f} s); chance "
+              f"{1 / NUM_CLASS:.6f} (uniform random labels)", flush=True)
+        inference_rows[path] = {
+            "wall_ms": wall * 1e3, "device_ms": busy, "k6_ms": k6_layers,
+            "edges_per_s": num_edge * num_layers / wall, "peak_gib": peak,
+            "acc_valid": acc_valid, "acc_test": acc_test,
+            "sampled_acc_valid": sampled}
+        for layer in recorded_layers[path]:
+            args, kw = calls[layer]
+            if kname == "spmm_csr":
+                spmm_case(path, layer, args[2], kw.get("mean", False))
+            else:
+                gat_case(path, layer, *args[2:5])
+        calls = args = kw = None
+        torch.cuda.empty_cache()
+    print(json.dumps({"inference": inference_rows}), flush=True)
 
     for k in kernels:
         k["launches"] = counts_by_path[k["path"]].get(k["name"], 0)

@@ -1561,3 +1561,127 @@ def test_a_cached_step_never_waits_on_the_card(dev, policy):
     ids = torch.arange(512, dtype=torch.int32, device=dev)
     out, _ = engine.feature_source.extract(ids, 512)
     assert torch.equal(out, ds.feat[:512])
+
+
+# ----------------------------------------------- K6 full-graph aggregation
+def _csr_with_hub(dev, seed, n=3000, hub_deg=9000):
+    """Rows of degree 0 to 40, one row past HUB_CAP (2048) and one hub of
+    ``hub_deg``, on the card."""
+    rng = np.random.default_rng(seed)
+    deg = rng.integers(0, 41, n)
+    deg[rng.choice(n, 100, replace=False)] = 0
+    deg[5], deg[n // 2] = 2049, hub_deg
+    indptr = np.concatenate([[0], np.cumsum(deg)]).astype(np.int32)
+    indices = rng.integers(0, n, int(indptr[-1])).astype(np.int32)
+    return (torch.from_numpy(indptr).to(dev),
+            torch.from_numpy(indices).to(dev), deg)
+
+
+def _agg_close(out, ref, mass, rtol=1e-5):
+    """Within rtol of the aggregate of the terms' magnitudes: the error
+    bound of a sum taken in another order."""
+    return bool(((out - ref).abs() <= rtol * mass + 1e-7).all())
+
+
+@pytest.mark.parametrize("width", [47, 128, 256])
+@pytest.mark.parametrize("mean", [False, True])
+@pytest.mark.parametrize("hub_cap", [None, 0, 2**31 - 1])
+def test_spmm_kernel_equals_plain(dev, width, mean, hub_cap, monkeypatch):
+    """K6a against its plain version on the CPU: every row of at most
+    HUB_CAP edges bit for bit (both sum in CSR order from 0), the hub rows
+    within 1e-5 of the aggregate of |h|; the same bits on a second launch;
+    one launch counted a call.  ``hub_cap`` 0 sends every row to the
+    block-a-row kernel, 2^31 - 1 none."""
+    from xgnn_tpu_torch.ops import _build, spmm
+
+    if hub_cap is not None:
+        monkeypatch.setattr(spmm, "HUB_CAP", hub_cap)
+    indptr, indices, deg = _csr_with_hub(dev, width)
+    n = indptr.shape[0] - 1
+    h = torch.randn((n, width), generator=_gen(dev, width), device=dev)
+    _build.LAUNCHES.reset()
+    out = spmm.spmm_csr(indptr, indices, h, num_node=n, mean=mean)
+    again = spmm.spmm_csr(indptr, indices, h, num_node=n, mean=mean)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES.snapshot() == {"spmm_csr": 2}
+    assert torch.equal(out, again)
+    ref = spmm.spmm_csr_plain(indptr.cpu(), indices.cpu(), h.cpu(),
+                              num_node=n, mean=mean)
+    mass = spmm.spmm_csr_plain(indptr.cpu(), indices.cpu(), h.abs().cpu(),
+                               num_node=n, mean=mean)
+    cap = spmm.HUB_CAP
+    short = torch.from_numpy(deg <= cap)
+    assert torch.equal(out.cpu()[short], ref[short])
+    assert _agg_close(out.cpu(), ref, mass)
+    # and against the plain version on the card (index_add_'s atomics)
+    assert _agg_close(out, spmm.spmm_csr_plain(indptr, indices, h,
+                                               num_node=n, mean=mean),
+                      mass.to(dev))
+    # an unaligned view takes the 4-byte path
+    sub = h[:, 1:]
+    assert torch.equal(spmm.spmm_csr(indptr, indices, sub, num_node=n)
+                       .cpu()[short],
+                       spmm.spmm_csr_plain(indptr.cpu(), indices.cpu(),
+                                           sub.cpu(), num_node=n)[short])
+
+
+@pytest.mark.parametrize("heads,d", [(1, 47), (1, 256), (8, 32), (2, 4)])
+@pytest.mark.parametrize("hub_cap", [None, 0])
+def test_gat_kernel_equals_plain(dev, heads, d, hub_cap, monkeypatch):
+    """K6b against its plain version (JAX's two passes) on the card and on
+    the CPU, within 1e-5 of the softmax-weighted aggregate of |feat|; the
+    same bits on a second launch; zero rows where a row is empty."""
+    from xgnn_tpu_torch.ops import _build, spmm
+
+    if hub_cap is not None:
+        monkeypatch.setattr(spmm, "HUB_CAP", hub_cap)
+    indptr, indices, deg = _csr_with_hub(dev, heads * d, hub_deg=5000)
+    n = indptr.shape[0] - 1
+    g = _gen(dev, d)
+    feat = torch.randn((n, heads, d), generator=g, device=dev)
+    el = torch.randn((n, heads), generator=g, device=dev)
+    er = 3 * torch.randn((n, heads), generator=g, device=dev)
+    _build.LAUNCHES.reset()
+    out = spmm.gat_aggregate_csr(indptr, indices, feat, el, er, num_node=n)
+    again = spmm.gat_aggregate_csr(indptr, indices, feat, el, er, num_node=n)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES.snapshot() == {"gat_aggregate_csr": 2}
+    assert torch.equal(out, again)
+    mass = spmm.gat_aggregate_csr_plain(indptr, indices, feat.abs(), el, er,
+                                        num_node=n)
+    assert _agg_close(out, spmm.gat_aggregate_csr_plain(
+        indptr, indices, feat, el, er, num_node=n), mass)
+    cpu = [t.cpu() for t in (indptr, indices, feat, el, er)]
+    assert _agg_close(out.cpu(), spmm.gat_aggregate_csr_plain(
+        *cpu, num_node=n), mass.cpu())
+    assert not out[torch.from_numpy(deg == 0).to(dev)].any()
+
+
+@pytest.mark.parametrize("conv,heads", [("graphsage", 1), ("gcn", 1),
+                                        ("gat", 8), ("pinsage", 1)])
+def test_full_graph_inference_never_waits_on_the_card(dev, conv, heads):
+    """The layers launch K6 once each and nothing in them waits on the
+    host; the logits agree with the CPU's."""
+    from xgnn_tpu_torch.inference import full_graph_inference
+    from xgnn_tpu_torch.models.gnn import GNN
+    from xgnn_tpu_torch.ops import _build
+
+    indptr, indices, _ = _csr_with_hub(dev, 7)
+    n = indptr.shape[0] - 1
+    feat = torch.randn((n, 32), generator=_gen(dev, 8), device=dev)
+    model = GNN(32, 64, 6, 3, conv=conv, num_heads=heads)
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    ref = full_graph_inference(model, indptr.cpu(), indices.cpu(),
+                               feat.cpu(), device="cpu")
+    model.to(dev)
+    full_graph_inference(model, indptr, indices, feat)  # warm-up
+    torch.cuda.synchronize()
+    _build.LAUNCHES.reset()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = full_graph_inference(model, indptr, indices, feat)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    name = "gat_aggregate_csr" if conv == "gat" else "spmm_csr"
+    assert _build.LAUNCHES.snapshot() == {name: 3}
+    torch.testing.assert_close(out.cpu(), ref, rtol=1e-4, atol=1e-4)

@@ -2,7 +2,8 @@
 
 The JAX package ``xgnn_tpu`` stays beside it as the reference.  This
 package imports torch, numpy and the standard library only.  Its entry
-points (``Engine``, ``Sampler``, ``make_device_dataset``) run on the CUDA
+points (``Engine``, ``Sampler``, ``make_device_dataset``, and
+``inference.full_graph_inference`` and ``evaluate_full``) run on the CUDA
 device unless the caller names another, and raise when none is there.
 """
 

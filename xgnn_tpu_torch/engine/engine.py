@@ -5,7 +5,7 @@ whole feature table on the device with direct extract, or, for a
 ``cache_percentage`` in (0, 1), the tiered store (a ranked hot-row cache on
 the device, the table in pinned host memory, the ranking from
 ``cache_policy``, presampled at init where the policy needs it) with
-non-direct extract; and a pipelined host loop.  Per step nothing waits on
+non-direct extract; a pipelined host loop; and the sampled evaluation.  Per step nothing waits on
 the device; the overflow flags, losses, accuracies and the store's hit and
 miss counts come to the host in one pull per epoch, and an overflow grows
 the sampler's capacities for the next epoch (the overflowed steps were
@@ -37,13 +37,14 @@ from ..store.feature_store import (
 )
 from ..store.presample import presample_ranking, static_exact_ranking
 from ..store.ranking import FREQUENCY_POLICIES, build_ranking
-from ..train import Adam, train_step
+from ..train import Adam, eval_step, train_step
 from ..types import Graph
 from .pipeline import Prefetcher
 from .shuffler import Shuffler
 
 # stream tags mixed into the seeds, as the JAX engine xors its keys
 _SAMPLE, _DROPOUT, _CALIBRATE = 0x5A3F1E, 0xD20F00, 0xCA11B
+_EVALUATE = 123  # the JAX engine's evaluation key
 
 
 def _nanmean(v) -> float:
@@ -285,3 +286,26 @@ class Engine:
             "epoch": epoch, "loss": loss, "train_acc": acc, "time": dt,
             "hit_rate": hit_rate,
         }
+
+    def evaluate(self, split: str = "valid",
+                 max_batches: Optional[int] = None) -> float:
+        """The sampled accuracy over the valid (or test) nodes: batches of
+        ``batch_size`` in the order ``Shuffler(nodes, seed=0)`` gives them,
+        batch ``i`` sampled from ``seed_of(123, i)``, the forward without
+        dropout, and the batches' accuracies averaged with their node
+        counts as weights, pulled to the host once."""
+        nodes = self.ds.valid_set if split == "valid" else self.ds.test_set
+        if len(nodes) == 0:
+            return float("nan")
+        shuffler = Shuffler(nodes, self.config.batch_size, seed=0)
+        accs, weights = [], []
+        for i, (seeds, n) in enumerate(shuffler.epoch_batches(0)):
+            if max_batches is not None and i >= max_batches:
+                break
+            batch, x, labels, _, _ = self._produce(
+                ((seeds, n), seed_of(_EVALUATE, i), (-1, i)))
+            accs.append(eval_step(self.model, batch.blocks, x, labels,
+                                  batch.num_output))
+            weights.append(n)
+        accs = torch.stack(accs).float().cpu().numpy()
+        return float(np.average(accs, weights=weights))

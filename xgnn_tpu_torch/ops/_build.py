@@ -72,6 +72,10 @@ SIGNATURES = {
         "xg_accumulate_freq": [_P, _LL, _P, _LL, _P, _I, _P],
         "xg_closure_expand": [_P, _P, _LL, _P, _LL, _I, _P, _P, _P, _I, _P],
     },
+    "spmm": {
+        "xg_spmm_csr": [_P] * 4 + [_LL, _LL, _LL, _I, _LL, _P],
+        "xg_gat_csr": [_P] * 6 + [_LL, _LL, _I, _I, _F, _LL, _P],
+    },
     "attend": {
         "xg_attend_fwd": [_P] * 7 + [_LL, _LL, _I, _I, _I, _I, _F, _P],
         "xg_attend_bwd": [_P] * 11 + [_I, _LL, _LL, _I, _I, _I, _I, _F, _P],

@@ -1,8 +1,8 @@
 """Loss, optimizer and the train step.
 
 The port of ``xgnn_tpu/train.py``: the masked cross-entropy over the first
-``num_valid`` seeds, Adam with optax's defaults, and the skip-on-overflow
-no-op update.  The skip stays on the device: ``torch.where(skip, old, new)``
+``num_valid`` seeds, Adam with optax's defaults, the skip-on-overflow
+no-op update, and the evaluation step.  The skip stays on the device: ``torch.where(skip, old, new)``
 over the params, both moments and the step count, so a step never waits on
 the host to learn whether its batch overflowed.  That is why Adam is a
 small function here and not ``torch.optim.Adam``, which needs the decision
@@ -87,3 +87,13 @@ def train_step(model, opt: Adam, blocks: Sequence[Block], x: torch.Tensor,
     if skip is not None:
         loss = torch.where(skip, torch.full_like(loss, float("nan")), loss)
     return {"loss": loss, "acc": acc.detach()}
+
+
+@torch.no_grad()
+def eval_step(model, blocks: Sequence[Block], x: torch.Tensor,
+              labels: torch.Tensor, num_valid) -> torch.Tensor:
+    """The forward without dropout, then the accuracy over the first
+    ``num_valid`` rows, a device scalar."""
+    logits = model(blocks, x, train=False)
+    _, acc = loss_fn(logits, labels, num_valid)
+    return acc
