@@ -39,7 +39,12 @@ Phases, each fatal on failure:
    layer 0 (no table gradient) and layer 1 (1 and 8 heads each) and at
    layer 2,
    g_table and g_el_dst at rtol/atol 1e-4, g_proj by relative norm 1e-5,
-   bit-equal across two launches.  K8a (with-replacement draws) at the
+   bit-equal across two launches; at one head (layers 1 and 2) the
+   table's gradient, K4's sum over g_out weighted by the dst-row pass's a
+   with the rank-1 term (sum g_pre) * u, bit-equal to the CPU plain
+   version on every src row of at most 32 picks given the kernel's a and
+   g_pre, and at layer 1 the dst prefix's gradient folded into that sum
+   equal to g_table + g_el @ wl.T.  K8a (with-replacement draws) at the
    three layers' frontiers, uniform_wr and khop1, exact.  Then PinSAGE's
    engine is set up (walk W=4, L=3, restart 0.5, 5 neighbours, 2 layers,
    capacities calibrated from 2 batches): K9 (restart random walk with
@@ -247,6 +252,7 @@ def main() -> int:
     from xgnn_tpu_torch.ops.attend import (
         PER_HEAD,
         SHARED,
+        _bwd_rows,
         attend_backward,
         attend_backward_plain,
         attend_forward,
@@ -916,11 +922,13 @@ def main() -> int:
         other = (out_numel * 4 + nb.numel() * 4 + 3 * el.numel() * 4
                  + 2 * proj.numel() * 4 + el.numel() * 4
                  + (rows_n * width * 4 if need_table else 0))
-        longest = int(torch.bincount(nb[valid].long(), minlength=rows_n)
-                      .max())
+        count = torch.bincount(nb[valid].long(), minlength=rows_n)
+        longest = int(count.max())
         print(f"{tag} attend_bwd layer {layer}: g_proj relative norm error "
               f"{rel:.3e}; longest segment {longest} picks of one src row; "
               "two launches equal bit for bit", flush=True)
+        if heads == 1 and need_table:
+            attend_one_head_sum(layer, args, got, count, width)
         leaves = [el.clone().requires_grad_(True),
                   proj.clone().requires_grad_(True)]
         tab = table.clone().requires_grad_(True) if need_table else table
@@ -953,6 +961,43 @@ def main() -> int:
                flops=10 * picks * per_pick, per_step=3, path=path)
         kernels[-1]["longest_segment"] = longest
         kernels[-1]["g_proj_rel_err"] = rel
+
+    def attend_one_head_sum(layer, args, got, count, width):
+        """At one head the table's gradient is K4's segmented sum over
+        g_out with weights a and the rank-1 term (sum g_pre) * u, from the
+        dst-row pass's two floats a pick: given the kernel's a and g_pre,
+        bit-equal to the CPU plain version on every src row of at most 32
+        picks.  In shared mode the prefix's gradient g_el @ wl.T, folded
+        into the sum, lands after the rest: the result equals g_table
+        plus it, bit for bit."""
+        g_out, table, nb, el, proj, m, s_, mode, _ = args
+        g_el, _, a, g_pre, per_pick = _bwd_rows(*args)
+        if per_pick is not None or a is None:
+            raise AssertionError("attend_bwd at one head: a row a pick")
+        u = proj[:, 0] if mode == SHARED else proj[0]
+        cpu = [t.cpu() for t in (g_out.view(nb.shape[0], width), nb, a,
+                                 g_pre, u)]
+        ref = fanout_backward_plain(cpu[0], cpu[1], cpu[2], table.shape[0],
+                                    c=cpu[3], u=cpu[4])
+        short = (count <= 32).cpu()
+        if not torch.equal(got[0].cpu()[short], ref[short]):
+            raise AssertionError(f"attend_bwd layer {layer}: the src-row "
+                                 "pass differs from its plain version on "
+                                 "rows of at most 32 picks")
+        what = (f"{tag} attend_bwd layer {layer}: the src-row pass bit-equal "
+                f"to its plain version on {int(short.sum())} rows of at most "
+                f"32 picks (of {short.numel()})")
+        if mode == SHARED:
+            wl = 0.1 * torch.randn(proj.shape, generator=gen, device=dev)
+            folded = attend_backward(*args, wl=wl)[0]
+            want = got[0].clone()
+            want[:nb.shape[0]] += g_el @ wl.T
+            if not torch.equal(folded, want):
+                raise AssertionError(f"attend_bwd layer {layer}: the folded "
+                                     "prefix differs from g_table + g_el @ "
+                                     "wl.T")
+            what += "; the folded prefix equals g_table + g_el @ wl.T"
+        print(what, flush=True)
 
     # K5: layers 0 and 1 in shared mode at one head, layer 1 also at 8
     # heads, layer 2 per head on the 47-wide transformed table

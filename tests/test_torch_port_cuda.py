@@ -1045,6 +1045,170 @@ def test_attend_refuses_past_its_registers_and_across_devices(dev):
                    torch.zeros((8, 1)), "shared")
 
 
+def _one_head_case(dev, mode, width, fanout, seed, hub=0):
+    """K5's one-head backward on _attend_inputs' picks (the first ``hub``
+    of them on src row 17): the backward's arguments, a prefix projection
+    ``wl`` (shared mode), and the dst-row pass's ``g_el``, its ``a`` and
+    ``g_pre`` a pick and the rank-1 row ``u``."""
+    from xgnn_tpu_torch.ops.attend import _bwd_rows, attend_forward
+
+    d = 1500
+    table, neigh, el, proj = _attend_inputs(dev, mode, 1, width, seed, d=d,
+                                            k=fanout)
+    neigh.view(-1)[:hub] = 17
+    _, m, s = attend_forward(table, neigh, el, proj, mode)
+    g = _gen(dev, seed + 1)
+    g_out = torch.randn((d, 1, width), generator=g, device=dev)
+    wl = (0.1 * torch.randn((width, 1), generator=g, device=dev)
+          if mode == "shared" else None)
+    args = (g_out, table, neigh, el, proj, m, s, mode)
+    g_el, _, a, g_pre, per_pick = _bwd_rows(*args, True)
+    assert per_pick is None and a.shape == g_pre.shape == neigh.shape
+    u = proj[:, 0] if mode == "shared" else proj[0]
+    return args, wl, g_el, a, g_pre, u
+
+
+@pytest.mark.parametrize("mode,width", [("shared", 47), ("shared", 128),
+                                        ("shared", 256), ("per_head", 47),
+                                        ("per_head", 128)])
+@pytest.mark.parametrize("fanout", [10, 40])
+def test_one_head_attend_backward_is_the_plain_sum(dev, mode, width, fanout):
+    """At one head the table's gradient is K4's segmented sum over g_out
+    with weights a, its rank-1 term (sum g_pre) * u and (shared mode) the
+    prefix's g_el @ wl.T, from the dst-row pass's two floats a pick.  Given
+    the kernel's a and g_pre, it equals the CPU plain version bit for bit
+    on every src row of at most 32 picks, and the rows past 32 (the long
+    rows' kernel; src row 11 has over 300) within the float32 summation
+    bound; invalid picks carry
+    a = g_pre = 0; two launches equal bit for bit; ``g_el`` and ``g_proj``
+    are those of the backward without the table's gradient."""
+    from xgnn_tpu_torch.ops.attend import attend_backward
+    from xgnn_tpu_torch.ops.fanout import fanout_backward_plain
+
+    args, wl, g_el, a, g_pre, u = _one_head_case(dev, mode, width, fanout,
+                                                 width + fanout)
+    neigh, n = args[2], args[1].shape[0]
+    valid = (neigh >= 0) & (neigh < n)
+    assert torch.all(a[~valid] == 0) and torch.all(g_pre[~valid] == 0)
+    for prefix in ((None, wl) if wl is not None else (None,)):
+        got = attend_backward(*args, True, prefix)
+        again = attend_backward(*args, True, prefix)
+        none = attend_backward(*args, False, prefix)
+        for x, y in zip(got, again):
+            assert torch.equal(x, y)
+        assert torch.equal(got[1], none[1]) and torch.equal(got[2], none[2])
+        gd = None if prefix is None else (got[1] @ prefix.T).contiguous()
+        cpu = [None if t is None else t.cpu()
+               for t in (args[0].view(neigh.shape[0], width), neigh, a, gd,
+                         g_pre, u)]
+        ref = fanout_backward_plain(cpu[0], cpu[1], cpu[2], n, cpu[3],
+                                    c=cpu[4], u=cpu[5])
+        count = torch.bincount(neigh[valid].long(), minlength=n).cpu()
+        short = count <= 32
+        assert torch.equal(got[0].cpu()[short], ref[short])
+        assert int(count[11]) > 300
+        for row in torch.nonzero(~short)[:, 0].tolist():
+            _within_rank1_bound(got[0], row, args[0], neigh, a, g_pre, u, gd)
+
+
+def _within_rank1_bound(got, row, g_out, neigh, a, g_pre, u, gd):
+    """Row ``row`` of the one-head table gradient against its float64
+    value, to the bound of any float32 summation order."""
+    i, k = torch.nonzero(neigh == row, as_tuple=True)
+    terms = g_out.double().view(neigh.shape[0], -1)[i] * a.double()[i, k,
+                                                                     None]
+    c = g_pre.double()[i, k]
+    exact = terms.sum(0) + c.sum() * u.double()
+    size = terms.abs().sum(0) + c.abs().sum() * u.double().abs()
+    if gd is not None and row < gd.shape[0]:
+        exact, size = exact + gd[row].double(), size + gd[row].double().abs()
+    bound = (len(i) + 3) * 2.0 ** -24 * size
+    assert torch.all((got[row].double() - exact).abs() <= bound)
+
+
+def test_one_head_attend_backward_hub_of_10000_picks(dev):
+    """A src row picked 10,000 times goes through the long rows' kernel
+    (its keys sorted in device memory past 8,192) with the rank-1 term and
+    the prefix: within the float32 summation bound of its float64 sum, and
+    bit-equal across two launches."""
+    from xgnn_tpu_torch.ops.attend import attend_backward
+
+    args, wl, g_el, a, g_pre, u = _one_head_case(dev, "shared", 128, 10, 5,
+                                                 hub=10_000)
+    got = attend_backward(*args, True, wl)
+    assert torch.equal(got[0], attend_backward(*args, True, wl)[0])
+    assert int((args[2] == 17).sum()) >= 10_000
+    _within_rank1_bound(got[0], 17, args[0], args[2], a, g_pre, u,
+                        (g_el @ wl.T).contiguous())
+
+
+def test_one_head_attend_backward_writes_no_row_a_pick(dev):
+    """At one head the backward's peak allocation stays under the table's
+    gradient plus 16 MiB: no (D * K, W) buffer (200 MB here), while the
+    8-head backward on the same picks allocates one."""
+    from xgnn_tpu_torch.ops.attend import attend_backward, attend_forward
+
+    n, d, k, width = 30_000, 20_000, 10, 256
+    rows = d * k * width * 4
+    for heads in (1, 8):
+        table, neigh, el, proj = _attend_inputs(dev, "shared", heads, width,
+                                                9, n=n, d=d, k=k)
+        _, m, s = attend_forward(table, neigh, el, proj, "shared")
+        g_out = torch.randn((d, heads, width), generator=_gen(dev, 2),
+                            device=dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        attend_backward(g_out, table, neigh, el, proj, m, s, "shared", True)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        if heads == 1:
+            assert peak < n * width * 4 + 16 * 2**20 < rows
+        else:
+            assert peak >= rows
+
+
+@pytest.mark.parametrize("heads", [1, 8])
+def test_attend_prefix_on_the_card_equals_the_cpu(dev, heads):
+    """``gat_attend_prefix`` on the card against the same Function on the
+    CPU (the plain versions), at K5's tolerances: the output at 1e-5, the
+    gradient w.r.t. h_src (the table's, the prefix's folded in) at
+    rtol/atol 1e-4, wr's (g_proj) by its relative norm at 1e-5 and wl's (a
+    sum of g_el_dst's rows, held at 1e-4) at 1e-4; under ``no_grad`` one
+    forward launch and nothing else."""
+    from xgnn_tpu_torch.ops import _build
+    from xgnn_tpu_torch.ops.attend import gat_attend_prefix
+
+    n, d, width = 900, 300, 64
+    table, neigh, _, wr = _attend_inputs(dev, "shared", heads, width, 4,
+                                         n=n, d=d)
+    wl = 0.1 * torch.randn((width, heads), generator=_gen(dev, 6),
+                           device=dev)
+    g_out = torch.randn((d, heads, width), generator=_gen(dev, 7),
+                        device=dev)
+    results = []
+    for where in (dev, torch.device("cpu")):
+        leaves = [t.to(where).requires_grad_(True) for t in (table, wl, wr)]
+        _build.LAUNCHES.reset()
+        out = gat_attend_prefix(leaves[0], neigh.to(where), leaves[1],
+                                leaves[2])
+        grads = torch.autograd.grad(out, leaves, g_out.to(where))
+        if where == dev:
+            assert _build.LAUNCHES.snapshot() == {"attend_fwd": 1,
+                                                  "attend_bwd": 1}
+        results.append([out] + list(grads))
+    (out, g_h, g_wl, g_wr), want = results
+    torch.testing.assert_close(out.cpu(), want[0], rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(g_h.cpu(), want[1], rtol=1e-4, atol=1e-4)
+    assert _rel_norm(g_wl.cpu(), want[2]) < 1e-4
+    assert _rel_norm(g_wr.cpu(), want[3]) < 1e-5
+    _build.LAUNCHES.reset()
+    with torch.no_grad():
+        out = gat_attend_prefix(table, neigh, wl, wr)
+    assert torch.equal(out, results[0][0].detach())
+    assert _build.LAUNCHES.snapshot() == {"attend_fwd": 1}
+
+
 # ------------------------------------------------------- GCN and GAT steps
 @pytest.mark.parametrize("model,heads", [("gcn", 1), ("gat", 1), ("gat", 8),
                                          ("pinsage", 1), ("mlp", 1)])

@@ -17,9 +17,15 @@
 //   g_pre_k = a_k (ga_k - dot_h) * leaky'(pre_k)
 //   g_el[b,h] = sum_k g_pre_k;  g_proj = sum over every pick of g_pre_k row_k
 //   (per head, or per head's slice); and, when the table needs a gradient,
-//   one row per pick, v_k = sum_h a_k g_out[b,h] (on the payload) + g_pre_k
-//   proj_h (through the score), which the caller sums by src row with K4's
-//   segmented backward (csrc/fanout.cu).
+//   its src row r gets v_k = sum_h a_k g_out[b,h] (on the payload) +
+//   g_pre_k proj_h (through the score) from each of its picks.  The caller
+//   sums those by src row with K4's segmented backward (csrc/fanout.cu):
+//   - one head: this pass writes only a_k and g_pre_k, two floats a pick
+//     (zeros for an invalid pick), since sum_k v_k over r's picks is
+//     sum_k a_k g_out[b] + (sum_k g_pre_k) proj: K4's weighted sum over
+//     g_out with weights a and its rank-1 term with c = g_pre, u = proj;
+//   - more heads: v_k mixes every head's g_out row, so this pass writes
+//     the W-wide row v_k a pick, which K4 sums as (D * K) rows of one pick.
 //
 // Replaces: xgnn_tpu/models/gnn.py, GATConv._online_attend (a K-pass XLA
 // loop with a (dst, H, W) accumulator in HBM) with the score and payload of
@@ -30,8 +36,10 @@
 // row once and writes each output row once (the main path's layer 0 at 8
 // heads: 1.98M distinct rows of 512 B and a 4.1 GB output, about 1.6 ms at
 // 3.35 TB/s); per pick element it does 2H multiply-adds, far below the
-// card's float32 rate.  The backward reads the rows and g_out and writes
-// the per-pick rows, which the segmented sum reads back.
+// card's float32 rate.  The backward reads the rows and g_out; at more
+// than one head it writes the per-pick rows, which the segmented sum reads
+// back, and at one head two floats a pick (layer 1 of gat1: 10.7 MB in
+// place of 1.37 GB of rows written and read back).
 //
 // Design: one warp per dst row (persistent warps walk the rows), lanes
 // across the width (a float4 per lane where the row is 16-byte aligned,
@@ -61,12 +69,13 @@
 // every window for m and s (or dot) and computes each window's records
 // again in pass 2, adding later windows' output into out.
 // Backward: no read of out (dot_h from a and ga), g_out's row in
-// registers only while pass 1 runs, the per-pick rows v only when the
-// table needs a gradient (a template flag) and formed from the records
-// with no table row; each block adds its warps' g_proj shares in warp
-// order and writes one partial, and a second launch sums the partials in
-// block order.  No float atomics anywhere, so the result is the same from
-// run to run.  Cfg below holds the choices measured on the card: which
+// registers only while pass 1 runs, the table's share (a template flag:
+// none, the per-pick rows v, or at one head a and g_pre a pick) only when
+// the table needs a gradient, formed from the records with no table row;
+// each block adds its warps' g_proj shares in warp order and writes one
+// partial, and a second launch sums the partials in block order.  No
+// float atomics anywhere, so the result is the same from run to run.  Cfg
+// below holds the choices measured on the card: which
 // kernels keep the projection in registers, and a register cap where
 // more blocks an SM paid (tools/time_attend.py, PERF.md).
 // fits() holds the limits (heads, width, H * W in shared mode); the
@@ -720,8 +729,12 @@ __device__ __forceinline__ void bwd_picks(
   }
 }
 
-// kPick: the table needs a gradient, so the per-pick rows are written
-template <int H, int NV, bool kVec, bool kShared, bool kPick>
+// What the backward writes for the table's gradient: nothing (the table
+// needs none), a W-wide row v a pick (several heads), or a and g_pre a
+// pick (one head).
+enum TableGrad { kNone, kRows, kScalars };
+
+template <int H, int NV, bool kVec, bool kShared, TableGrad kTable>
 __global__ void __launch_bounds__(kThreads,
                                   (Cfg<H, NV, kVec, kShared>::kBwdBlocks))
 attend_bwd_kernel(const float* __restrict__ table,
@@ -732,8 +745,11 @@ attend_bwd_kernel(const float* __restrict__ table,
                   const float* __restrict__ s_in,
                   const float* __restrict__ g_out, float* __restrict__ g_el,
                   float* __restrict__ partials, float* __restrict__ per_pick,
+                  float* __restrict__ a_pick, float* __restrict__ gpre_pick,
                   int64_t num_rows, int64_t num_dst, int fanout, int width,
                   int nh, float slope) {
+  static_assert(kTable != kScalars || H == 1, "two scalars a pick: one head");
+  constexpr bool kPass2 = kTable != kNone;  // the window pass after dot
   using T = typename Lane<kVec>::T;
   constexpr int kF = Lane<kVec>::kF;
   constexpr int HA = kShared ? H : 1;
@@ -786,7 +802,7 @@ attend_bwd_kernel(const float* __restrict__ table,
     for (int j = 0; j < NV; ++j) gpa[j] = gpb[j] = zero<T>();
     for (int w0 = 0; w0 < fanout; w0 += kWin) {
       mask = window(nrow, w0, fanout, num_rows, lane, &id);
-      dt += bwd_records<H, NV, kShared, kOnline, kPick || !kOnline, T>(
+      dt += bwd_records<H, NV, kShared, kOnline, kPass2 || !kOnline, T>(
           table, g_out, q, rec, mask, id, b, el, mx, rden, slope, width, ne,
           nh, hd, lane, gpa, gpb, &as, &sa, &sb);
     }
@@ -807,7 +823,7 @@ attend_bwd_kernel(const float* __restrict__ table,
         }
       }
     }
-    for (int w0 = 0; w0 < fanout && (kPick || !kOnline); w0 += kWin) {
+    for (int w0 = 0; w0 < fanout && (kPass2 || !kOnline); w0 += kWin) {
       if (multi) {  // this window's records again (pass 1 kept the last)
         __syncwarp();
         mask = window(nrow, w0, fanout, num_rows, lane, &id);
@@ -850,9 +866,19 @@ attend_bwd_kernel(const float* __restrict__ table,
           for (int h = 0; h < H; ++h) add(gp[(h * NV + j) * 32], gpc[h]);
         }
       }
-      if constexpr (kPick)
+      if constexpr (kTable == kRows)
         bwd_picks<H, NV, kShared, T>(g_out, q, rec, mask, b, w0, per_pick,
                                      fanout, width, ne, nh, hd, lane);
+      if constexpr (kTable == kScalars) {
+        // lane p: pick w0 + p's a and g_pre (bwd_gpre formed them), one
+        // coalesced store each
+        const int k = w0 + lane;
+        if (k < fanout) {
+          const bool ok = (mask >> lane) & 1u;
+          a_pick[b * fanout + k] = ok ? rec.a[lane] : 0.f;
+          gpre_pick[b * fanout + k] = ok ? rec.g[lane] : 0.f;
+        }
+      }
     }
     if (lane < 16 && lane % R2 == 0 && hl < nh) g_el[b * nh + hl] = gel;
     __syncwarp();  // the next row's pass 1 writes the records
@@ -907,6 +933,8 @@ struct Args {
   float* g_el;
   float* partials;
   float* per_pick;
+  float* a_pick;
+  float* gpre_pick;
   long long num_rows, num_dst;
   int fanout, width, nh, blocks;
   float slope;
@@ -921,16 +949,17 @@ void launch(const Args& a, bool backward) {
                      bwd_head_floats<NV, kVec>() * (int)sizeof(float);
     // the static part: the staged proj and the warps' records
     constexpr int kStatic = (kMaxRow + kWarps * 3 * kWin * H) * sizeof(float);
-    auto kernel = a.per_pick != nullptr
-                      ? attend_bwd_kernel<H, NV, kVec, kShared, true>
-                      : attend_bwd_kernel<H, NV, kVec, kShared, false>;
+    constexpr TableGrad kTable = H == 1 ? kScalars : kRows;
+    auto kernel = a.per_pick != nullptr || a.a_pick != nullptr
+                      ? attend_bwd_kernel<H, NV, kVec, kShared, kTable>
+                      : attend_bwd_kernel<H, NV, kVec, kShared, kNone>;
     if (smem + kStatic > 48 * 1024)
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            smem);
     kernel<<<a.blocks, kThreads, smem, a.stream>>>(
         a.table, a.neigh, a.el_dst, a.proj, a.m, a.s, a.g_out, a.g_el,
-        a.partials, a.per_pick, a.num_rows, a.num_dst, a.fanout, a.width,
-        a.nh, a.slope);
+        a.partials, a.per_pick, a.a_pick, a.gpre_pick, a.num_rows,
+        a.num_dst, a.fanout, a.width, a.nh, a.slope);
   } else {
     attend_fwd_kernel<H, NV, kVec, kShared>
         <<<a.blocks, kThreads, 0, a.stream>>>(
@@ -1046,17 +1075,22 @@ extern "C" int xg_attend_fwd(const void* table, const void* neigh,
 
 // The backward's row pass and the sum of its g_proj partials.  m, s: the
 // forward's; g_out as the forward's out; g_el as el_dst; g_proj as proj;
-// partials: (blocks, proj's size) f32 scratch; per_pick: null, or (num_dst
-// * fanout, width) f32, one row per pick (the rows of invalid picks are not
-// written).
+// partials: (blocks, proj's size) f32 scratch.  For the table's gradient,
+// at more than one head per_pick: (num_dst * fanout, width) f32, one row
+// per pick (the rows of invalid picks are not written); at one head a_pick
+// and gpre_pick: (num_dst, fanout) f32 each, a and g_pre a pick (0 for an
+// invalid pick).  All null: the table needs no gradient.
 extern "C" int xg_attend_bwd(const void* table, const void* neigh,
                              const void* el_dst, const void* proj,
                              const void* m, const void* s, const void* g_out,
                              void* g_el, void* g_proj, void* partials,
-                             void* per_pick, int blocks, long long num_rows,
+                             void* per_pick, void* a_pick, void* gpre_pick,
+                             int blocks, long long num_rows,
                              long long num_dst, int fanout, int width, int nh,
                              int shared, float slope, void* stream) {
-  if (!fits(num_rows, num_dst, fanout, width, nh, shared) || blocks < 1)
+  if (!fits(num_rows, num_dst, fanout, width, nh, shared) || blocks < 1 ||
+      (a_pick != nullptr) != (gpre_pick != nullptr) ||
+      (nh == 1 ? per_pick != nullptr : a_pick != nullptr))
     return (int)cudaErrorInvalidValue;
   Args a{};
   a.table = static_cast<const float*>(table);
@@ -1069,6 +1103,8 @@ extern "C" int xg_attend_bwd(const void* table, const void* neigh,
   a.g_el = static_cast<float*>(g_el);
   a.partials = static_cast<float*>(partials);
   a.per_pick = static_cast<float*>(per_pick);
+  a.a_pick = static_cast<float*>(a_pick);
+  a.gpre_pick = static_cast<float*>(gpre_pick);
   a.num_rows = num_rows;
   a.num_dst = num_dst;
   a.fanout = fanout;

@@ -10,13 +10,19 @@
 // the (D, F) sum never reaches device memory.
 // Backward, for every src row r < num_rows:
 //   grad_h[r, :] = sum over the valid picks (i,k) with neigh[i,k] = r of
-//                  m[i,k] * g[i, :]   (+ grad_dst[r, :] if r < D)
+//                  m[i,k] * g[i, :]
+//                  (+ (sum over the same picks of c[i,k]) * u[:])
+//                  (+ grad_dst[r, :] if r < P)
 // where g = grad_sum, or grad_sum[i, :] / max(denom[i], 1e-9) when denom is
 // given (the gradient of the mean form), summed from 0 in ascending k, then
-// ascending i, with grad_dst added last.  grad_dst is the gradient of a
-// local-id block's dst rows, which are the prefix h_src[:D] (D = num_dst);
-// it may be absent.  A row that no pick lands on gets zeros (or
-// grad_dst[r]).  denom carries no gradient.
+// ascending i; then the rank-1 term, its scalar summed from 0 in the same
+// order; grad_dst last.  grad_dst is the gradient of a prefix h_src[:P]:
+// a local-id block's dst rows (P = num_dst, or K5's dst rows when its
+// picks come as num_dst = D * K rows of one pick); it may be absent.  The
+// rank-1 term (c (D, K) per pick, u one row) may be absent: K5 at one head
+// sums its table's gradient with it, w = a and c = g_pre (csrc/attend.cu).
+// A row that no pick lands on gets zeros (or grad_dst[r]).  denom carries
+// no gradient.
 //
 // Replaces: xgnn_tpu/models/gnn.py, fanout_reduce (the "loop" contract,
 // K unrolled gather + FMA passes that XLA fuses) and masked_mean_stream's
@@ -434,11 +440,12 @@ __global__ void bwd_fill_kernel(const int32_t* __restrict__ neigh,
 // The pick whose key is the smallest of r's segment owns r; the warp sums
 // and writes each row it owns.  Warps run roughly in dst-row order and most
 // src rows have one pick, so grad_sum is read about in order and about
-// once.  A row whose only pick is (i, k) is m * g[i] plus grad_dst and
-// needs no key read: the warp reads (and with kDiv divides) g[i] once for
-// all such rows of its task.  kDiv: grad_sum[i] is divided by
-// max(denom[i], 1e-9) as it is loaded.
-template <typename V, bool kDiv, int kMinBlocks>
+// once.  A row whose only pick is (i, k) is m * g[i] plus the rank-1 term
+// and grad_dst and needs no key read: the warp reads (and with kDiv
+// divides) g[i] once for all such rows of its task.  kDiv: grad_sum[i] is
+// divided by max(denom[i], 1e-9) as it is loaded.  kRank1: the rank-1
+// term, c summed over the row's picks in the sum's order, times u.
+template <typename V, bool kDiv, int kMinBlocks, bool kRank1>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 bwd_rows_kernel(const int32_t* __restrict__ neigh,
                 const int32_t* __restrict__ off,
@@ -447,8 +454,10 @@ bwd_rows_kernel(const int32_t* __restrict__ neigh,
                 const V* __restrict__ grad_dst,
                 const float* __restrict__ w,
                 const float* __restrict__ denom,
+                const float* __restrict__ cw, const V* __restrict__ u,
                 V* __restrict__ grad_h, int64_t num_rows,
-                int32_t num_dst, int fanout, int ppw, int64_t wv) {
+                int32_t num_dst, int64_t num_prefix, int fanout, int ppw,
+                int64_t wv) {
   __shared__ int32_t sorted[kWarpsPerBlock][kShort];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int chunks = (fanout + ppw - 1) / ppw;
@@ -460,7 +469,7 @@ bwd_rows_kernel(const int32_t* __restrict__ neigh,
 
   int32_t r = 0, start = 0;
   int n = 0;
-  float m = 1.f;
+  float m = 1.f, cp = 0.f;
   bool own = false;
   if (lane < ppw && k < fanout) {
     r = __ldg(neigh + (int64_t)i * fanout + k);
@@ -468,6 +477,7 @@ bwd_rows_kernel(const int32_t* __restrict__ neigh,
       start = __ldg(off + r);
       n = __ldg(off + r + 1) - start;
       if (weighted) m = __ldg(w + (int64_t)i * fanout + k);
+      if (kRank1) cp = __ldg(cw + (int64_t)i * fanout + k);
       const int32_t q = k * num_dst + i;
       own = n <= kShort;
       for (int t = 0; own && n > 1 && t < n; ++t)
@@ -481,18 +491,21 @@ bwd_rows_kernel(const int32_t* __restrict__ neigh,
     for (int64_t c0 = 0; c0 < wv; c0 += 32) {
       const int64_t c = c0 + lane;
       const bool live = c < wv;
-      V g = zero_value<V>();
+      V g = zero_value<V>(), uc = zero_value<V>();
       if (live) {
         g = __ldg(grad_sum + (int64_t)i * wv + c);
         if (kDiv) g = div_rn(g, q);
+        if (kRank1) uc = __ldg(u + c);
       }
       for (unsigned todo = single; todo; todo &= todo - 1) {
         const int l = __ffs(todo) - 1;
         const int64_t row = __shfl_sync(kFull, r, l);
         const float ml = __shfl_sync(kFull, m, l);
+        const float cl = kRank1 ? 0.f + __shfl_sync(kFull, cp, l) : 0.f;
         if (!live) continue;
         V acc = axpy4(zero_value<V>(), ml, g, weighted);
-        if (grad_dst != nullptr && row < num_dst)
+        if (kRank1) acc = axpy4(acc, cl, uc, true);
+        if (grad_dst != nullptr && row < num_prefix)
           acc = axpy4(acc, 1.f, __ldg(grad_dst + row * wv + c), false);
         grad_h[row * wv + c] = acc;
       }
@@ -514,15 +527,20 @@ bwd_rows_kernel(const int32_t* __restrict__ neigh,
     __syncwarp();
     // lane j < nn: pick j's dst row, weight and divisor
     int32_t src = 0;
-    float mj = 1.f, qj = 1.f;
+    float mj = 1.f, qj = 1.f, cj = 0.f;
     if (lane < nn) {
       const int32_t qk = sorted[warp][lane];
       const int32_t kj = qk / num_dst;
       src = qk - kj * num_dst;
       if (weighted) mj = __ldg(w + (int64_t)src * fanout + kj);
       if (kDiv) qj = mean_divisor(__ldg(denom + src));
+      if (kRank1) cj = __ldg(cw + (int64_t)src * fanout + kj);
     }
-    const bool has_dst = grad_dst != nullptr && row < num_dst;
+    // the rank-1 term's scalar, summed from 0 in the picks' order
+    float cs = 0.f;
+    if (kRank1)
+      for (int j = 0; j < nn; ++j) cs += __shfl_sync(kFull, cj, j);
+    const bool has_dst = grad_dst != nullptr && row < num_prefix;
     for (int64_t c0 = 0; c0 < wv; c0 += 32) {
       const int64_t c = c0 + lane;
       const bool live = c < wv;
@@ -539,19 +557,20 @@ bwd_rows_kernel(const int32_t* __restrict__ neigh,
         }
       }
       if (!live) continue;
+      if (kRank1) acc = axpy4(acc, cs, __ldg(u + c), true);
       if (has_dst) acc = axpy4(acc, 1.f, __ldg(grad_dst + row * wv + c), false);
       grad_h[row * wv + c] = acc;
     }
   }
 }
 
-// rows no pick lands on: zeros, plus grad_dst in the prefix; a warp per 32
-// consecutive rows
+// rows no pick lands on: zeros, plus grad_dst in the prefix (the rank-1
+// term's scalar is a sum of no picks, 0); a warp per 32 consecutive rows
 template <typename V>
 __global__ void bwd_empty_kernel(const int32_t* __restrict__ off,
                                  const V* __restrict__ grad_dst,
                                  V* __restrict__ grad_h, int64_t num_rows,
-                                 int32_t num_dst, int64_t wv) {
+                                 int64_t num_prefix, int64_t wv) {
   const int lane = threadIdx.x & 31;
   const int64_t r0 =
       ((int64_t)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5)) * 32;
@@ -561,7 +580,7 @@ __global__ void bwd_empty_kernel(const int32_t* __restrict__ off,
       mine < num_rows && __ldg(off + mine + 1) == __ldg(off + mine);
   for (unsigned todo = __ballot_sync(kFull, empty); todo; todo &= todo - 1) {
     const int64_t r = r0 + __ffs(todo) - 1;
-    const bool has_dst = grad_dst != nullptr && r < num_dst;
+    const bool has_dst = grad_dst != nullptr && r < num_prefix;
     for (int64_t c = lane; c < wv; c += 32) {
       V v = zero_value<V>();
       if (has_dst) v = axpy4(v, 1.f, __ldg(grad_dst + r * wv + c), false);
@@ -596,18 +615,22 @@ __device__ void block_sort(int32_t* a, int n) {
   }
 }
 
-// rows with more than kShort picks, from the list; a block per row
-template <typename V, bool kDiv>
+// rows with more than kShort picks, from the list; a block per row.  With
+// kRank1 each warp also sums c over its part (lanes in stride, then a
+// butterfly), and every thread adds the warps' sums in warp order.
+template <typename V, bool kDiv, bool kRank1>
 __global__ void __launch_bounds__(kLongThreads)
 bwd_long_kernel(const int32_t* __restrict__ off, int32_t* keys,
                 const int32_t* __restrict__ long_rows,
                 const int32_t* __restrict__ num_long,
                 const V* __restrict__ grad_sum, const V* __restrict__ grad_dst,
                 const float* __restrict__ w, const float* __restrict__ denom,
-                V* __restrict__ grad_h,
-                int32_t num_dst, int fanout, int64_t wv) {
+                const float* __restrict__ cw, const V* __restrict__ u,
+                V* __restrict__ grad_h, int32_t num_dst, int64_t num_prefix,
+                int fanout, int64_t wv) {
   __shared__ int32_t skeys[kSortCap];
   __shared__ V part[kLongWarps][32];
+  __shared__ float cpart[kLongWarps];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const bool weighted = w != nullptr;
   const int count = *num_long;
@@ -623,6 +646,19 @@ bwd_long_kernel(const int32_t* __restrict__ off, int32_t* keys,
     block_sort(a, n);
     const int per = (n + kLongWarps - 1) / kLongWarps;
     const int j0 = min(n, warp * per), j1 = min(n, j0 + per);
+    float cs = 0.f;
+    if (kRank1) {
+      float t = 0.f;
+      for (int j = j0 + lane; j < j1; j += 32) {
+        const int32_t q = a[j];
+        const int32_t k = q / num_dst;
+        t += __ldg(cw + (int64_t)(q - k * num_dst) * fanout + k);
+      }
+      for (int o = 16; o > 0; o >>= 1) t += __shfl_xor_sync(kFull, t, o);
+      if (lane == 0) cpart[warp] = t;
+      __syncthreads();
+      for (int p = 0; p < kLongWarps; ++p) cs += cpart[p];
+    }
     for (int64_t c0 = 0; c0 < wv; c0 += 32) {
       const int64_t c = c0 + lane;
       V acc = zero_value<V>();
@@ -644,7 +680,8 @@ bwd_long_kernel(const int32_t* __restrict__ off, int32_t* keys,
         V tot = zero_value<V>();
         for (int p = 0; p < kLongWarps; ++p)
           tot = axpy4(tot, 1.f, part[p][lane], false);
-        if (grad_dst != nullptr && r < num_dst)
+        if (kRank1) tot = axpy4(tot, cs, __ldg(u + c), true);
+        if (grad_dst != nullptr && r < num_prefix)
           tot = axpy4(tot, 1.f, __ldg(grad_dst + r * wv + c), false);
         grad_h[r * wv + c] = tot;
       }
@@ -653,15 +690,17 @@ bwd_long_kernel(const int32_t* __restrict__ off, int32_t* keys,
   }
 }
 
-template <typename V, bool kDiv>
+template <typename V, bool kDiv, bool kRank1>
 void launch_reduce(const int32_t* neigh, const int32_t* off, int32_t* keys,
                    const int32_t* long_rows, const int32_t* num_long,
                    const void* grad_sum, const void* grad_dst, const float* w,
-                   const float* denom, void* grad_h, long long num_rows,
-                   int32_t num_dst,
-                   int fanout, long long wv, cudaStream_t s) {
+                   const float* denom, const float* cw, const void* u,
+                   void* grad_h, long long num_rows, int32_t num_dst,
+                   long long num_prefix, int fanout, long long wv,
+                   cudaStream_t s) {
   const V* g = static_cast<const V*>(grad_sum);
   const V* gd = static_cast<const V*>(grad_dst);
+  const V* uv = static_cast<const V*>(u);
   V* gh = static_cast<V*>(grad_h);
   const bool large = num_dst >= kLargeDst;
   const int ppw = large ? kPicksPerWarpLarge : kPicksPerWarp;
@@ -669,20 +708,21 @@ void launch_reduce(const int32_t* neigh, const int32_t* off, int32_t* keys,
   const unsigned blocks =
       (unsigned)((tasks + kWarpsPerBlock - 1) / kWarpsPerBlock);
   if (tasks > 0 && large)
-    bwd_rows_kernel<V, kDiv, kRowsBlocks><<<blocks, kThreads, 0, s>>>(
-        neigh, off, keys, g, gd, w, denom, gh, num_rows, num_dst, fanout,
-        ppw, wv);
+    bwd_rows_kernel<V, kDiv, kRowsBlocks, kRank1><<<blocks, kThreads, 0, s>>>(
+        neigh, off, keys, g, gd, w, denom, cw, uv, gh, num_rows, num_dst,
+        num_prefix, fanout, ppw, wv);
   else if (tasks > 0)
-    bwd_rows_kernel<V, kDiv, 1><<<blocks, kThreads, 0, s>>>(
-        neigh, off, keys, g, gd, w, denom, gh, num_rows, num_dst, fanout,
-        ppw, wv);
+    bwd_rows_kernel<V, kDiv, 1, kRank1><<<blocks, kThreads, 0, s>>>(
+        neigh, off, keys, g, gd, w, denom, cw, uv, gh, num_rows, num_dst,
+        num_prefix, fanout, ppw, wv);
   const long long row_warps = (num_rows + 31) / 32;
   bwd_empty_kernel<V><<<(unsigned)((row_warps + kWarpsPerBlock - 1) /
                                    kWarpsPerBlock),
-                        kThreads, 0, s>>>(off, gd, gh, num_rows, num_dst, wv);
-  bwd_long_kernel<V, kDiv><<<kLongBlocks, kLongThreads, 0, s>>>(
-      off, keys, long_rows, num_long, g, gd, w, denom, gh, num_dst, fanout,
-      wv);
+                        kThreads, 0, s>>>(off, gd, gh, num_rows, num_prefix,
+                                          wv);
+  bwd_long_kernel<V, kDiv, kRank1><<<kLongBlocks, kLongThreads, 0, s>>>(
+      off, keys, long_rows, num_long, g, gd, w, denom, cw, uv, gh, num_dst,
+      num_prefix, fanout, wv);
 }
 
 unsigned grid_for(long long work) {
@@ -726,25 +766,28 @@ extern "C" int xg_fanout_fwd(const void* h, const void* neigh, const void* w,
   return (int)cudaGetLastError();
 }
 
-// grad_sum: (num_dst, width) f32; grad_dst: null or (num_dst, width) f32
-// with num_dst <= num_rows; denom: null (the gradient of the sum form) or
-// (num_dst,) f32, the forward's (of the mean form); grad_h: (num_rows,
-// width) f32, every row written; neigh and w as in the forward.  scratch:
-// int32, at least
+// grad_sum: (num_dst, width) f32; grad_dst: null or (num_prefix, width)
+// f32 with num_prefix <= num_rows; denom: null (the gradient of the sum
+// form) or (num_dst,) f32, the forward's (of the mean form); c: null or
+// (num_dst, fanout) f32 with u (width,) f32, the rank-1 term (not with
+// denom); grad_h: (num_rows, width) f32, every row written; neigh and w as
+// in the forward.  scratch: int32, at least
 // 2 * num_rows + 2 + ceil(num_rows / 1024) + P + P / 33 + 1 entries, where
 // P = num_dst * fanout < 2^31.  Returns cudaGetLastError() after the last
-// launch (cudaErrorInvalidValue, launching nothing, for a scratch too small
-// or sizes past int32).
+// launch (cudaErrorInvalidValue, launching nothing, for a scratch too small,
+// sizes past int32, or c without u or with denom).
 extern "C" int xg_fanout_bwd(const void* grad_sum, const void* neigh,
                              const void* w, const void* grad_dst,
-                             const void* denom, void* grad_h,
-                             void* scratch, long long scratch_len,
-                             long long num_rows, long long num_dst, int fanout,
-                             long long width, void* stream) {
+                             const void* denom, const void* c, const void* u,
+                             void* grad_h, void* scratch,
+                             long long scratch_len, long long num_rows,
+                             long long num_dst, int fanout, long long width,
+                             long long num_prefix, void* stream) {
   const long long num_picks = num_dst * fanout;
   const long long num_seg = (num_rows + kSeg - 1) / kSeg;
   if (num_rows >= INT32_MAX || num_picks >= INT32_MAX ||
-      (grad_dst && num_dst > num_rows) ||
+      (grad_dst && (num_prefix < 0 || num_prefix > num_rows)) ||
+      (c != nullptr) != (u != nullptr) || (c && denom) ||
       scratch_len < 2 * num_rows + 2 + num_seg + num_picks +
                         num_picks / (kShort + 1) + 1)
     return (int)cudaErrorInvalidValue;
@@ -776,18 +819,23 @@ extern "C" int xg_fanout_bwd(const void* grad_sum, const void* neigh,
 
   const float* wf = static_cast<const float*>(w);
   const float* df = static_cast<const float*>(denom);
+  const float* cf = static_cast<const float*>(c);
+  const long long np = grad_dst ? num_prefix : 0;
   const bool vec = width % 4 == 0 && aligned16(grad_sum) &&
-                   aligned16(grad_h) && (!grad_dst || aligned16(grad_dst));
-#define XG_REDUCE(V, DIV, WV)                                              \
-  launch_reduce<V, DIV>(n, off, keys, long_rows, num_long, grad_sum,       \
-                        grad_dst, wf, df, grad_h, num_rows, (int32_t)num_dst, \
-                        fanout, WV, s)
+                   aligned16(grad_h) && (!grad_dst || aligned16(grad_dst)) &&
+                   (!u || aligned16(u));
+#define XG_REDUCE(V, DIV, RANK1, WV)                                       \
+  launch_reduce<V, DIV, RANK1>(n, off, keys, long_rows, num_long,          \
+                               grad_sum, grad_dst, wf, df, cf, u, grad_h,  \
+                               num_rows, (int32_t)num_dst, np, fanout, WV, s)
   if (vec) {
-    if (df) XG_REDUCE(float4, true, width >> 2);
-    else XG_REDUCE(float4, false, width >> 2);
+    if (df) XG_REDUCE(float4, true, false, width >> 2);
+    else if (cf) XG_REDUCE(float4, false, true, width >> 2);
+    else XG_REDUCE(float4, false, false, width >> 2);
   } else {
-    if (df) XG_REDUCE(float, true, width);
-    else XG_REDUCE(float, false, width);
+    if (df) XG_REDUCE(float, true, false, width);
+    else if (cf) XG_REDUCE(float, false, true, width);
+    else XG_REDUCE(float, false, false, width);
   }
 #undef XG_REDUCE
   return (int)cudaGetLastError();

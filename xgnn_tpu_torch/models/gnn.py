@@ -20,7 +20,7 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
-from ..ops.attend import PER_HEAD, SHARED, gat_attend
+from ..ops.attend import PER_HEAD, SHARED, gat_attend, gat_attend_prefix
 from ..ops.degree import pick_multiplicity
 from ..ops.fanout import fanout_reduce, masked_mean, prefix_masked_mean
 from ..ops.gather import gather_rows
@@ -153,7 +153,10 @@ class GATConv(nn.Module):
     over the dst rows only.  The JAX package's contraction and per-pick
     forms of that second case, and ``gat_select_path`` choosing among
     them, shape the same function for the TPU; the port has K5's one form
-    (ROADMAP section 3).  Output ``(D, H*d)``, head-major."""
+    (ROADMAP section 3).  On a local-id block in shared mode K5 forms
+    ``el_dst`` from the prefix ``h_src[:D]`` itself
+    (``gat_attend_prefix``), so the prefix's gradient joins the table's in
+    one sum.  Output ``(D, H*d)``, head-major."""
 
     def __init__(self, in_dim: int, out_dim: int, num_heads: int = 1):
         super().__init__()
@@ -174,14 +177,17 @@ class GATConv(nn.Module):
         h, d = self.num_heads, self.out_dim
         in_dim = h_src.shape[1]
         wl = torch.einsum("ihd,hd->ih", self.kernel, self.attn_l)
-        el_dst = _take_dst(block, h_src) @ wl
         if in_dim > h * d:
             feat = h_src @ self.kernel.reshape(in_dim, h * d)
-            out = gat_attend(feat, block.neigh, el_dst,
+            out = gat_attend(feat, block.neigh, _take_dst(block, h_src) @ wl,
                              self.attn_r.contiguous(), PER_HEAD)
             return out.reshape(block.dst_cap, h * d)
-        wr = torch.einsum("ihd,hd->ih", self.kernel, self.attn_r)
-        agg = gat_attend(h_src, block.neigh, el_dst, wr.contiguous(), SHARED)
+        wr = torch.einsum("ihd,hd->ih", self.kernel, self.attn_r).contiguous()
+        if block.dst_ids is None:
+            agg = gat_attend_prefix(h_src, block.neigh, wl.contiguous(), wr)
+        else:
+            agg = gat_attend(h_src, block.neigh, _take_dst(block, h_src) @ wl,
+                             wr, SHARED)
         out = torch.einsum("bhi,ihd->bhd", agg, self.kernel)
         return out.reshape(block.dst_cap, h * d)
 

@@ -42,7 +42,7 @@ SIGNATURES = {
     },
     "fanout": {
         "xg_fanout_fwd": [_P] * 5 + [_LL, _LL, _I, _LL, _I, _P],
-        "xg_fanout_bwd": [_P] * 7 + [_LL, _LL, _LL, _I, _LL, _P],
+        "xg_fanout_bwd": [_P] * 9 + [_LL, _LL, _LL, _I, _LL, _LL, _P],
     },
     "sampling": {
         "xg_sample_khop": [_P, _P, _P, _P, _P, _LL, _LL, _I, _P],
@@ -78,7 +78,7 @@ SIGNATURES = {
     },
     "attend": {
         "xg_attend_fwd": [_P] * 7 + [_LL, _LL, _I, _I, _I, _I, _F, _P],
-        "xg_attend_bwd": [_P] * 11 + [_I, _LL, _LL, _I, _I, _I, _I, _F, _P],
+        "xg_attend_bwd": [_P] * 13 + [_I, _LL, _LL, _I, _I, _I, _I, _F, _P],
     },
 }
 

@@ -31,13 +31,24 @@ and the table's row ``r`` gets, over its picks, ``a_k g_out[b, h]`` on the
 payload and ``g_pre_k proj[:, h]`` through the score.
 
 The CUDA kernels are ``csrc/attend.cu``; the table's gradient is summed by
-src row with ``csrc/fanout.cu``'s segmented backward (K4's), over one
-gradient row per pick.  :func:`attend_forward_plain` and
-:func:`attend_backward_plain` are the plain PyTorch versions, which the
-wrappers take only for tensors on the CPU.  Launches are counted as
+src row with ``csrc/fanout.cu``'s segmented backward (K4's).  At one head
+the row pass writes ``a_k`` and ``g_pre_k``, two floats a pick, and the
+sum is K4's weighted backward over ``g_out`` with weights ``a`` plus its
+rank-1 term, ``(sum of g_pre over the row's picks) * proj``; at more heads
+it writes one gradient row a pick, which K4 sums as rows of one pick.
+:func:`attend_forward_plain` and :func:`attend_backward_plain` are the
+plain PyTorch versions, which the wrappers take only for tensors on the
+CPU; the plain backward sums the table's gradient in the kernels'
+association (``fanout_backward_plain``).  Launches are counted as
 ``attend_fwd`` and ``attend_bwd``, one each per call of the forward and of
 the backward.  The backward also runs when the table needs no gradient
 (the feature table at layer 0), for ``g_el_dst`` and ``g_proj``.
+
+:func:`gat_attend_prefix` is the shared mode of a local-id block, whose
+dst rows are the prefix ``h_src[:D]``: it forms ``el_dst = h_src[:D] @
+wl`` itself, so that the prefix's gradient ``g_el_dst @ wl.T`` goes into
+the table's sum as K4's ``grad_dst`` and autograd makes no zero-filled
+gradient of ``h_src`` for the slice.
 """
 
 from __future__ import annotations
@@ -47,7 +58,7 @@ from typing import Optional
 import torch
 
 from . import _build
-from .fanout import _ptr, _scratch_len
+from .fanout import _ptr, fanout_backward_plain, segment_sum
 
 SHARED, PER_HEAD = "shared", "per_head"
 NEGATIVE_SLOPE = 0.2
@@ -146,17 +157,29 @@ def attend_dot_plain(g_out, table, neigh, el_dst, proj, m, s, mode):
                        0.0)
 
 
+def _rank1_row(proj, mode):
+    """``u`` of the one-head table gradient's rank-1 term: ``wr[:, 0]``
+    (shared) or ``attn_r[0]`` (per head), each contiguous."""
+    return proj[:, 0] if mode == SHARED else proj[0]
+
+
 def attend_backward_plain(g_out, table, neigh, el_dst, proj, m, s, mode,
-                          need_table: bool):
-    """``(g_table or None, g_el_dst, g_proj)`` pass by pass over the picks,
-    and the table's gradient rows added by ``index_add_`` in pick order."""
+                          need_table: bool,
+                          wl: Optional[torch.Tensor] = None):
+    """``(g_table or None, g_el_dst, g_proj)`` pass by pass over the picks.
+    The table's gradient is summed as the kernels sum it: at one head from
+    ``a`` and ``g_pre`` a pick, ``fanout_backward_plain`` over ``g_out``
+    with weights ``a`` and the rank-1 term ``(sum g_pre) * proj``; at more
+    heads from one gradient row a pick, summed as rows of one pick.  With
+    ``wl`` (shared mode, ``el_dst = table[:D] @ wl``) the prefix's gradient
+    ``g_el_dst @ wl.T`` is added to rows ``< D`` last."""
     h, _ = _geometry(table, proj, mode)
     d, fanout = neigh.shape
     dot = attend_dot_plain(g_out, table, neigh, el_dst, proj, m, s, mode)
     den = torch.clamp(s, min=1e-9)
     g_el = torch.zeros_like(el_dst)
     g_proj = torch.zeros_like(proj)
-    per_pick = []
+    per_pick, a_cols, c_cols = [], [], []
     for k in range(fanout):
         valid, rows, pre, a, ga = _pick_terms(g_out, table, neigh, el_dst,
                                               proj, m, den, mode, k)
@@ -168,20 +191,28 @@ def attend_backward_plain(g_out, table, neigh, el_dst, proj, m, s, mode,
         else:
             g_proj = g_proj + (g_pre[:, :, None]
                                * rows.reshape(d, h, -1)).sum(0)
-        if need_table:
+        if need_table and h == 1:
+            a_cols.append(a[:, 0])
+            c_cols.append(torch.where(valid, g_pre[:, 0], 0.0))
+        elif need_table:
             if mode == SHARED:
                 v = (a[:, :, None] * g_out).sum(1) + g_pre @ proj.T
             else:
                 v = (a[:, :, None] * g_out
                      + g_pre[:, :, None] * proj).reshape(d, -1)
             per_pick.append(torch.where(valid[:, None], v, 0.0))
-    g_table = None
-    if need_table:
-        flat = neigh.reshape(-1)
-        valid = (flat >= 0) & (flat < table.shape[0])
+    if not need_table:
+        return None, g_el, g_proj
+    grad_dst = None if wl is None else g_el @ wl.T
+    n = table.shape[0]
+    if h == 1:
+        g_table = fanout_backward_plain(
+            g_out.reshape(d, table.shape[1]), neigh, torch.stack(a_cols, 1),
+            n, grad_dst, c=torch.stack(c_cols, 1), u=_rank1_row(proj, mode))
+    else:
         rows_v = torch.stack(per_pick, 1).reshape(d * fanout, -1)
-        g_table = torch.zeros_like(table)
-        g_table.index_add_(0, torch.where(valid, flat, 0), rows_v)
+        g_table = fanout_backward_plain(rows_v, neigh.reshape(-1, 1), None,
+                                        n, grad_dst)
     return g_table, g_el, g_proj
 
 
@@ -266,9 +297,12 @@ def _bwd_blocks(num_dst: int) -> int:
 def attend_backward(g_out: torch.Tensor, table: torch.Tensor,
                     neigh: torch.Tensor, el_dst: torch.Tensor,
                     proj: torch.Tensor, m: torch.Tensor, s: torch.Tensor,
-                    mode: str, need_table: bool):
+                    mode: str, need_table: bool,
+                    wl: Optional[torch.Tensor] = None):
     """``(g_table or None, g_el_dst, g_proj)`` of :func:`gat_attend`, given
-    ``g_out`` and the forward's ``m`` and ``s``."""
+    ``g_out`` and the forward's ``m`` and ``s``.  With ``wl`` ``(W, H)``
+    (shared mode; ``el_dst`` is ``table[:D] @ wl``), ``g_table`` also holds
+    the prefix's gradient ``g_el_dst @ wl.T`` in rows ``< D``."""
     _check(table, neigh, el_dst, proj, mode)
     h, wp = _geometry(table, proj, mode)
     d, fanout = neigh.shape
@@ -278,10 +312,39 @@ def attend_backward(g_out: torch.Tensor, table: torch.Tensor,
                 or t.device != table.device or not t.is_contiguous()):
             raise ValueError(f"attend_backward: {name} must be contiguous "
                              f"float32 {shape} on {table.device}")
+    if wl is not None and (mode != SHARED or wl.shape != proj.shape
+                           or d > table.shape[0]):
+        raise ValueError("attend_backward: wl is the dst prefix's (W, H) "
+                         "projection of a shared-mode table")
     if table.device.type == "cpu":
         return attend_backward_plain(g_out, table, neigh, el_dst, proj, m, s,
-                                     mode, need_table)
+                                     mode, need_table, wl)
+    g_el, g_proj, a, g_pre, per_pick = _bwd_rows(
+        g_out, table, neigh, el_dst, proj, m, s, mode, need_table)
+    g_table = None
+    if need_table:
+        grad_dst = None if wl is None else (g_el @ wl.T).contiguous()
+        n = table.shape[0]
+        if h == 1:
+            g_table = segment_sum(g_out.view(d, table.shape[1]), neigh, a,
+                                  n, grad_dst, c=g_pre,
+                                  u=_rank1_row(proj, mode))
+        else:
+            g_table = segment_sum(per_pick, neigh.view(-1, 1), None, n,
+                                  grad_dst)
+    _build.LAUNCHES.add(_BWD)
+    return g_table, g_el, g_proj
+
+
+def _bwd_rows(g_out, table, neigh, el_dst, proj, m, s, mode,
+              need_table: bool):
+    """The backward's dst-row pass on the card: ``(g_el, g_proj, a, g_pre,
+    per_pick)``, with ``a`` and ``g_pre`` ``(D, K)`` at one head and
+    ``per_pick`` ``(D * K, W)`` at more, when the table needs a gradient
+    (else None)."""
     lib = _build.load("attend")
+    h, _ = _geometry(table, proj, mode)
+    d, fanout = neigh.shape
     dev = table.device
     n, width = table.shape
     g_el = torch.empty_like(el_dst)
@@ -289,35 +352,22 @@ def attend_backward(g_out: torch.Tensor, table: torch.Tensor,
     blocks = _bwd_blocks(d)
     partials = torch.empty((blocks, proj.numel()), dtype=torch.float32,
                            device=dev)
-    per_pick: Optional[torch.Tensor] = None
-    if need_table:
+    a = g_pre = per_pick = None
+    if need_table and h == 1:
+        a = torch.empty((d, fanout), dtype=torch.float32, device=dev)
+        g_pre = torch.empty((d, fanout), dtype=torch.float32, device=dev)
+    elif need_table:
         per_pick = torch.empty((d * fanout, width), dtype=torch.float32,
                                device=dev)
-    stream = _build.stream_handle(dev)
     rc = lib.xg_attend_bwd(
         table.data_ptr(), neigh.data_ptr(), el_dst.data_ptr(),
         proj.data_ptr(), m.data_ptr(), s.data_ptr(), g_out.data_ptr(),
-        g_el.data_ptr(), g_proj.data_ptr(),
-        partials.data_ptr(), _ptr(per_pick), blocks, n, d, fanout, width, h,
-        int(mode == SHARED), NEGATIVE_SLOPE, stream,
+        g_el.data_ptr(), g_proj.data_ptr(), partials.data_ptr(),
+        _ptr(per_pick), _ptr(a), _ptr(g_pre), blocks, n, d, fanout, width, h,
+        int(mode == SHARED), NEGATIVE_SLOPE, _build.stream_handle(dev),
     )
     _build.check(rc, _BWD)
-    g_table = None
-    if need_table:
-        # the per-pick rows summed by src row: K4's segmented backward over
-        # the picks as (D * K) dst rows of one pick each
-        g_table = torch.empty_like(table)
-        num_picks = d * fanout
-        n_scratch = _scratch_len(n, num_picks)
-        scratch = torch.empty((n_scratch,), dtype=torch.int32, device=dev)
-        rc = _build.load("fanout").xg_fanout_bwd(
-            per_pick.data_ptr(), neigh.data_ptr(), None, None, None,
-            g_table.data_ptr(), scratch.data_ptr(), n_scratch, n, num_picks,
-            1, width, stream,
-        )
-        _build.check(rc, _BWD)
-    _build.LAUNCHES.add(_BWD)
-    return g_table, g_el, g_proj
+    return g_el, g_proj, a, g_pre, per_pick
 
 
 class _Attend(torch.autograd.Function):
@@ -351,3 +401,49 @@ def gat_attend(table: torch.Tensor, neigh: torch.Tensor,
     is ``attn_r`` ``(H, d)``, ``W = H * d``, ``W' = d``)."""
     _check(table, neigh, el_dst, proj, mode)
     return _Attend.apply(table, neigh, el_dst, proj, mode)
+
+
+class _AttendPrefix(torch.autograd.Function):
+
+    """``el_dst`` comes in formed (``h_src[:D] @ wl``, untracked); its
+    gradient goes to ``h_src``'s prefix and to ``wl`` here."""
+
+    @staticmethod
+    def forward(ctx, h_src, neigh, el_dst, wl, wr):
+        out, m, s = _forward(h_src, neigh, el_dst, wr, SHARED)
+        ctx.save_for_backward(h_src, neigh, el_dst, wl, wr, m, s)
+        return out
+
+    @staticmethod
+    def backward(ctx, g_out):
+        need_h, _, _, need_wl, need_wr = ctx.needs_input_grad
+        if not (need_h or need_wl or need_wr):
+            return None, None, None, None, None
+        h_src, neigh, el_dst, wl, wr, m, s = ctx.saved_tensors
+        g_table, g_el, g_wr = attend_backward(
+            g_out.contiguous(), h_src, neigh, el_dst, wr, m, s, SHARED,
+            need_h, wl)
+        g_wl = h_src[: neigh.shape[0]].T @ g_el if need_wl else None
+        return g_table, None, None, g_wl, g_wr if need_wr else None
+
+
+def gat_attend_prefix(h_src: torch.Tensor, neigh: torch.Tensor,
+                      wl: torch.Tensor, wr: torch.Tensor) -> torch.Tensor:
+    """:func:`gat_attend` in shared mode on a local-id block, with ``el_dst
+    = h_src[:D] @ wl`` formed inside: ``wl`` and ``wr`` are ``(W, H)``.
+    The gradient w.r.t. ``h_src`` of the prefix and of the picks is one
+    sum by src row (K4's, with the prefix's gradient as its ``grad_dst``).
+    With no gradient to track, the forward's launch alone."""
+    d = neigh.shape[0]
+    if (wl.shape != wr.shape or wl.dtype != wr.dtype or wl.device != wr.device
+            or d > h_src.shape[0]):
+        raise ValueError(f"gat_attend_prefix: wl {tuple(wl.shape)} and wr "
+                         f"{tuple(wr.shape)} for {d} dst rows of a table "
+                         f"{tuple(h_src.shape)}")
+    with torch.no_grad():
+        el_dst = h_src[:d] @ wl
+    _check(h_src, neigh, el_dst, wr, SHARED)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (h_src, wl, wr)):
+        return _AttendPrefix.apply(h_src, neigh, el_dst, wl, wr)
+    return _forward(h_src, neigh, el_dst, wr, SHARED)[0]

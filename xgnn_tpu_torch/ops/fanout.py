@@ -12,6 +12,10 @@ contract) and ``masked_mean_stream``, with their gradients:
   ``neigh[i,k]``, where ``grad`` is the sum's gradient, or the mean's
   divided by ``max(denom[i], 1e-9)``.  ``denom`` carries none, and weights
   that require a gradient are refused (ROADMAP K4 weight gradient).
+  The kernel (:func:`segment_sum`) and :func:`fanout_backward_plain` also
+  take a rank-1 term: per-pick scalars ``c`` and one row ``u`` add ``(sum
+  of c over row r's picks) * u`` to row ``r``.  K5 (``ops/attend.py``)
+  sums its table's gradient at one head so.
 
 A local-id block's dst rows are the prefix ``h_src[:D]`` of its src rows
 (``_take_dst`` in the JAX package).  :func:`prefix_fanout_reduce` and
@@ -21,8 +25,9 @@ the gradient w.r.t. ``h_src`` of both is one backward pass, which adds
 gradient and adds nothing after the kernel.
 
 The CUDA kernels are ``csrc/fanout.cu``; the backward sums each src row in
-ascending ``k``, then ascending ``i``, without atomics, so its result is the
-same from run to run.  :func:`fanout_reduce_plain`,
+ascending ``k``, then ascending ``i``, then adds the rank-1 term and then
+the prefix's gradient, without atomics, so its result is the same from run
+to run.  :func:`fanout_reduce_plain`,
 :func:`masked_mean_plain` and :func:`fanout_backward_plain` are their plain
 PyTorch versions, which the wrappers take only for tensors on the CPU.
 When ``h_src`` needs no gradient (the feature table on the direct-extract
@@ -89,23 +94,35 @@ def masked_mean_plain(h_src: torch.Tensor, neigh: torch.Tensor,
 def fanout_backward_plain(grad_sum: torch.Tensor, neigh: torch.Tensor,
                           weights: Optional[torch.Tensor], num_rows: int,
                           grad_dst: Optional[torch.Tensor] = None,
-                          denom: Optional[torch.Tensor] = None):
-    """K ``index_add_`` passes in pick order, then ``grad_dst`` into the
-    prefix; with ``denom`` (the mean form's gradient) ``grad_sum`` is first
-    divided by ``max(denom, 1e-9)``, as autograd divides it through the
-    plain mean.  On the CPU ``index_add_`` adds in index order, so every
-    row is summed in ascending ``k``, then ascending ``i``, as the kernel
-    sums it."""
+                          denom: Optional[torch.Tensor] = None,
+                          c: Optional[torch.Tensor] = None,
+                          u: Optional[torch.Tensor] = None):
+    """K ``index_add_`` passes in pick order, then the rank-1 term ``(sum
+    of c over the row's picks) * u`` when ``c`` is given, then ``grad_dst``
+    into the prefix; with ``denom`` (the mean form's gradient) ``grad_sum``
+    is first divided by ``max(denom, 1e-9)``, as autograd divides it
+    through the plain mean.  On the CPU ``index_add_`` adds in index order,
+    so every row is summed in ascending ``k``, then ascending ``i``, as the
+    kernel sums it; ``c`` rides as one more column of the same passes, so
+    its sums run in that order too."""
     if denom is not None:
         grad_sum = grad_sum / torch.clamp(denom, min=MEAN_EPS)
-    grad_h = torch.zeros((num_rows, grad_sum.shape[1]), dtype=torch.float32,
+    width = grad_sum.shape[1]
+    extra = int(c is not None)
+    grad_h = torch.zeros((num_rows, width + extra), dtype=torch.float32,
                          device=grad_sum.device)
     for k in range(neigh.shape[1]):
         col = neigh[:, k]
         valid, m = _pick_mask(
             col, num_rows, None if weights is None else weights[:, k]
         )
-        grad_h.index_add_(0, torch.where(valid, col, 0), grad_sum * m)
+        src = grad_sum * m
+        if extra:
+            src = torch.cat([src, torch.where(valid, c[:, k], 0.0)[:, None]],
+                            1)
+        grad_h.index_add_(0, torch.where(valid, col, 0), src)
+    if extra:
+        grad_h = grad_h[:, :width] + grad_h[:, width:] * u
     if grad_dst is not None:
         grad_h[: grad_dst.shape[0]] += grad_dst
     return grad_h
@@ -214,6 +231,24 @@ def fanout_backward(grad_sum: torch.Tensor, neigh: torch.Tensor,
     if grad_sum.device.type == "cpu":
         return fanout_backward_plain(grad_sum, neigh, weights, num_rows,
                                      grad_dst, denom)
+    grad_h = segment_sum(grad_sum, neigh, weights, num_rows, grad_dst, denom)
+    if num_rows and width:
+        _build.LAUNCHES.add(_BWD)
+    return grad_h
+
+
+def segment_sum(grad_sum, neigh, weights, num_rows: int, grad_dst=None,
+                denom=None, c=None, u=None):
+    """:func:`fanout_backward`'s kernel on checked CUDA tensors, without
+    its launch count: K5's backward sums its table's gradient with it and
+    counts that launch as its own.  ``grad_dst`` ``(P, F)``, ``P <=
+    num_rows``, goes into rows ``< P`` (K5 at several heads passes its
+    picks as ``D * K`` rows of one pick, and its prefix is ``D`` rows).
+    With ``c`` ``(D, K)`` and ``u`` ``(F,)`` (not with ``denom``), row ``r``
+    also gets ``(sum of c over its picks) * u``, before ``grad_dst``: the
+    rank-1 term of ``fanout_backward_plain``."""
+    d, fanout = neigh.shape
+    width = grad_sum.shape[1]
     grad_h = torch.empty((num_rows, width), dtype=torch.float32,
                          device=grad_sum.device)
     if num_rows and width:
@@ -222,12 +257,12 @@ def fanout_backward(grad_sum: torch.Tensor, neigh: torch.Tensor,
                               device=grad_sum.device)
         rc = _library().xg_fanout_bwd(
             grad_sum.data_ptr(), neigh.data_ptr(), _ptr(weights),
-            _ptr(grad_dst), _ptr(denom), grad_h.data_ptr(),
+            _ptr(grad_dst), _ptr(denom), _ptr(c), _ptr(u), grad_h.data_ptr(),
             scratch.data_ptr(), n_scratch, num_rows, d, fanout, width,
+            0 if grad_dst is None else grad_dst.shape[0],
             _build.stream_handle(grad_sum.device),
         )
         _build.check(rc, _BWD)
-        _build.LAUNCHES.add(_BWD)
     return grad_h
 
 

@@ -96,8 +96,8 @@ VARIANTS = {
 }""")],
     "uncapped": [("constexpr int kRowsBlocks = 8;",
                   "constexpr int kRowsBlocks = 1;")],
-    "capped": [("bwd_rows_kernel<V, kDiv, 1>",
-                "bwd_rows_kernel<V, kDiv, kRowsBlocks>")],
+    "capped": [("bwd_rows_kernel<V, kDiv, 1, kRank1>",
+                "bwd_rows_kernel<V, kDiv, kRowsBlocks, kRank1>")],
     "task4": [("constexpr int kPicksPerWarpLarge = 5;",
                "constexpr int kPicksPerWarpLarge = 4;")],
     "task8": [("constexpr int kPicksPerWarpLarge = 5;",
@@ -111,11 +111,13 @@ VARIANTS = {
 
 
 class Build:
-    """A library of K4 and whether its C interface has the mean form (a
-    ``mean`` flag in the forward, ``denom`` in the backward)."""
+    """A library of K4, whether its C interface has the mean form (a
+    ``mean`` flag in the forward, ``denom`` in the backward) and whether
+    its backward takes the rank-1 term and the prefix's length (``c``,
+    ``u`` and ``num_prefix``)."""
 
-    def __init__(self, lib, mean: bool):
-        self.lib, self.mean = lib, mean
+    def __init__(self, lib, mean: bool, rank1: bool = False):
+        self.lib, self.mean, self.rank1 = lib, mean, rank1
 
     def forward(self, h, nb, w, out, den, mean, stream):
         args = [h.data_ptr(), nb.data_ptr(), None if w is None else
@@ -133,9 +135,12 @@ class Build:
             args.append(None if den is None else den.data_ptr())
         elif den is not None:
             raise ValueError("this build has no mean form")
+        if self.rank1:
+            args += [None, None]
+        tail = [nb.shape[0]] if self.rank1 else []
         return self.lib.xg_fanout_bwd(
             *args, out.data_ptr(), scratch.data_ptr(), scratch.numel(), rows,
-            nb.shape[0], nb.shape[1], g.shape[1], stream)
+            nb.shape[0], nb.shape[1], g.shape[1], *tail, stream)
 
 
 def _bind(path: Path, signatures: dict):
@@ -188,7 +193,8 @@ def build_all(_build, parent) -> dict:
             print(f"time_fanout: the {name} build failed (nvcc exit "
                   f"{p.returncode}):\n{log[-2000:]}", flush=True)
             continue
-        builds[name] = Build(_bind(lib, sigs), mean)
+        builds[name] = Build(_bind(lib, sigs), mean,
+                             len(sigs["xg_fanout_bwd"]) > 13)
     return builds
 
 
@@ -252,7 +258,7 @@ def main() -> int:
     print(f"card: {card}", flush=True)
     t0 = time.perf_counter()
     _build.build(["fanout", "sampling", "unique"])
-    builds = {"new": Build(_build.load("fanout"), True),
+    builds = {"new": Build(_build.load("fanout"), True, True),
               **build_all(_build, args.parent)}
     print(f"builds: {time.perf_counter() - t0:.3f} s, {sorted(builds)}",
           flush=True)
