@@ -77,10 +77,11 @@ Phases, each fatal on failure:
    nondecreasing, and its tables close to the same functions run again
    (each timed; the coarse CDF exactly, the sums within 1e-6); K8b-prefix at the three layers' frontiers of
    one batch, walked through K3, exact, with the bytes of the rows it reads
-   whole and of a coarse row for every live row; the whole batch equal to
-   the plain path's; then GraphSAGE 3x256 on weighted_khop_prefix (the
-   path ``graphsage_weighted_prefix``: warm-up, counted and profiled epochs
-   as in 6), and the prefix tables freed.  Then alias tables for the same
+   whole and of a coarse row for every live row, and its 32-byte-sector
+   floor; the whole batch equal to the plain path's; then GraphSAGE 3x256
+   on weighted_khop_prefix (the path ``graphsage_weighted_prefix``:
+   warm-up, counted and profiled epochs as in 6), and the prefix tables
+   freed.  Then alias tables for the same
    edge weights, built on the card by ``synthetic_device.alias_tables``
    (timed, with their peak memory) and held to the weights (every id's
    probability within 1e-6 of its row's largest): K8b-alias with and
@@ -127,9 +128,11 @@ Phases, each fatal on failure:
    ((1, 256), (1, 47), (8, 32)) against their plain versions on the card
    within 1e-5 of the same aggregate of the terms' magnitudes (the bound
    of a sum in another order), bit-equal across two launches, timed with
-   both bounds (distinct rows once; ``per_pick_bound_ms`` a row a pick),
-   the plain version and the library (cuSPARSE's ``torch.sparse.mm`` of
-   a CSR of ones; for K6b a composition of torch ops), beside the same
+   both bounds (distinct rows once; ``per_pick_bound_ms`` a row a pick;
+   for K6b also ``sector_bound_ms``, each edge's row read as the 32-byte
+   sectors it spans), the plain version and the library (cuSPARSE's
+   ``torch.sparse.mm`` of a CSR of ones; for K6b a composition of torch
+   ops), beside the same
    call over the graph without its hub rows and with every row on the
    rows kernel (no hub kernel).  The inference's device time and each K6
    call's come from CUDA events with the inference queued while the card
@@ -1529,21 +1532,32 @@ def main() -> int:
     def prefix_traffic(frontier, k, out):
         """The bytes K8b-prefix must move (the frontier, an indptr pair a
         valid row, u, the prefix entries a binary search over each live row
-        reads, at most the row, one index a pick, the output), what the
-        kept design reads of the rows of at most 128 entries, what a coarse
-        row for every live row would read, and the rows past 128."""
+        reads, at most the row, one index a pick, the output), the same
+        with each random read as the 32-byte sectors it spans (an indptr
+        pair spans two when v % 8 == 7; a search a sector a step, at most
+        the row's sectors; an index a sector a pick), what the kept design
+        reads of the rows of at most 128 entries, what a coarse row for
+        every live row would read, and the rows past 128."""
         ok = (frontier >= 0) & (frontier < wgraph.num_node)
         node = torch.where(ok, frontier, 0).long()
-        deg = torch.where(ok, wgraph.indptr[node + 1] - wgraph.indptr[node],
-                          0).double()
-        d = deg[deg > 0]
-        search = torch.minimum(d, k * (torch.ceil(torch.log2(d)) + 1))
+        start = wgraph.indptr[node].long()
+        deg = torch.where(ok, wgraph.indptr[node + 1] - start, 0).double()
+        live_rows = deg > 0
+        d = deg[live_rows]
+        steps = k * (torch.ceil(torch.log2(d)) + 1)
+        search = torch.minimum(d, steps)
+        first = start[live_rows] * 4
+        row_sectors = (first + d.long() * 4 - 1) // 32 - first // 32 + 1
         live = d.numel()
-        nbytes = (frontier.numel() * 4 + int(ok.sum()) * 8 + live * k * 4
-                  + int(search.sum()) * 4 + int((out != empty).sum()) * 4
-                  + out.numel() * 4)
-        return (nbytes, int(d[d <= 128].sum()) * 4, live * 512,
-                int((d > 128).sum()))
+        picks = int((out != empty).sum())
+        fixed = frontier.numel() * 4 + live * k * 4 + out.numel() * 4
+        nbytes = (fixed + int(ok.sum()) * 8 + int(search.sum()) * 4
+                  + picks * 4)
+        sector_bytes = fixed + 32 * (
+            int(ok.sum()) + int((ok & (node % 8 == 7)).sum())
+            + int(torch.minimum(row_sectors.double(), steps).sum()) + picks)
+        return (nbytes, sector_bytes, int(d[d <= 128].sum()) * 4,
+                live * 512, int((d > 128).sum()))
 
     # K8b-prefix at each layer's frontier, one batch walked layer by layer
     # through K3 as the sampler walks it
@@ -1557,7 +1571,8 @@ def main() -> int:
         ref = sample_weighted_khop_prefix_plain(*a, u=u)
         torch.cuda.synchronize()
         assert_close("sample_prefix", got, ref, exact=True)
-        nbytes, direct_b, coarse_b, hubs = prefix_traffic(frontier, k, got)
+        nbytes, sector_b, direct_b, coarse_b, hubs = prefix_traffic(
+            frontier, k, got)
         rows = int((frontier != empty).sum())
         record("sample_prefix", "xgnn_tpu_torch/csrc/weighted.cu",
                "xgnn_tpu/ops/sampling.py:339",
@@ -1570,10 +1585,12 @@ def main() -> int:
                None, None, nbytes=nbytes, flops=0, per_step=3,
                path="graphsage_weighted_prefix")
         kernels[-1].update(direct_read_bytes=direct_b,
-                           coarse_row_bytes=coarse_b)
+                           coarse_row_bytes=coarse_b,
+                           sector_bound_ms=bound_ms(sector_b, 0)[0])
         print(f"{tag} sample_prefix layer {layer}: rows of <= 128 entries "
               f"read whole {direct_b} bytes, a coarse row for every live row "
-              f"{coarse_b} bytes", flush=True)
+              f"{coarse_b} bytes; sector floor "
+              f"{kernels[-1]['sector_bound_ms']:.4f} ms", flush=True)
         if layer == len(FANOUT) - 1:
             break
         out = unique_seeded_split(frontier, got.reshape(-1), num,
@@ -2112,7 +2129,8 @@ def main() -> int:
     hubs = deg > spmm_ops.HUB_CAP
     edge_cols = indices.long()
     # the distinct rows a layer reads: each input read once
-    src_rows = int((torch.bincount(edge_cols, minlength=NUM_NODE) > 0).sum())
+    in_edges = torch.bincount(edge_cols, minlength=NUM_NODE)
+    src_rows = int((in_edges > 0).sum())
     print(f"{tag} inference graph: {NUM_NODE} nodes, {num_edge} edges "
           f"({src_rows} distinct rows read), largest degree "
           f"{int(deg.max())}; {int(hubs.sum())} rows past HUB_CAP "
@@ -2245,6 +2263,13 @@ def main() -> int:
         lib_err = max_err(gat_library(feat, el, er), out)
         del again, mass
         row = heads * d + heads  # a feat row and its er words
+        # each edge's feat row as the 32-byte sectors it spans; el, er (in
+        # the L2), the CSR and the output once
+        first = (feat.data_ptr() % 32
+                 + torch.arange(NUM_NODE, device=dev) * (heads * d * 4))
+        sectors = (first + heads * d * 4 - 1) // 32 - first // 32 + 1
+        sector_bytes = (32 * int((in_edges * sectors).sum()) + csr_bytes
+                        + NUM_NODE * heads * (2 + d) * 4)
         record("gat_aggregate_csr", "xgnn_tpu_torch/csrc/spmm.cu",
                "xgnn_tpu/ops/spmm.py:114-177 (gat_aggregate_csr with "
                "segment_max_csr :75-111; the plan's gat_aggregate_planned "
@@ -2266,11 +2291,13 @@ def main() -> int:
                + csr_bytes + NUM_NODE * heads * d * 4,
                plain_reps=1)
         kernels[-1].update(bit_equal=equal, library_max_abs_err=lib_err,
+                           sector_bound_ms=bound_ms(sector_bytes, 0)[0],
                            **hub_split(fn_on, f"gat_aggregate_csr ({heads}, "
                                               f"{d})"))
         print(f"{tag} gat_aggregate_csr ({heads}, {d}): two launches equal "
               f"bit for bit; per-pick bound "
-              f"{kernels[-1]['per_pick_bound_ms']:.4f} ms; the "
+              f"{kernels[-1]['per_pick_bound_ms']:.4f} ms, sector floor "
+              f"{kernels[-1]['sector_bound_ms']:.4f} ms; the "
               f"composition's max abs err {lib_err:.3e}", flush=True)
 
     def traced_inference(model):

@@ -1335,12 +1335,13 @@ def _edge_uniforms(dev, shape, seed):
     return u
 
 
-@pytest.mark.parametrize("fanout", [1, 5, 15, 64])
+@pytest.mark.parametrize("fanout", [1, 5, 15, 32, 33, 64])
 @pytest.mark.parametrize("coarse", [True, False])
 def test_prefix_kernel_equals_plain(dev, fanout, coarse):
     """K8b-prefix over rows of degree 0, short rows, hubs of 10,000 and
     70,000 entries (searched through their coarse rows), EMPTY and ids
-    past N, with and without the coarse CDF."""
+    past N, with and without the coarse CDF.  A warp takes a run of
+    min(32, 512 // fanout) rows: the 845 rows are no multiple of it."""
     from xgnn_tpu_torch.ops import _build
     from xgnn_tpu_torch.ops.sampling import (
         sample_weighted_khop_prefix,
@@ -1789,12 +1790,15 @@ def test_spmm_kernel_equals_plain(dev, width, mean, hub_cap, monkeypatch):
                                            sub.cpu(), num_node=n)[short])
 
 
-@pytest.mark.parametrize("heads,d", [(1, 47), (1, 256), (8, 32), (2, 4)])
+@pytest.mark.parametrize("heads,d", [(1, 47), (1, 256), (8, 32), (2, 4),
+                                    (1, 1), (1, 33), (1, 63)])
 @pytest.mark.parametrize("hub_cap", [None, 0])
 def test_gat_kernel_equals_plain(dev, heads, d, hub_cap, monkeypatch):
     """K6b against its plain version (JAX's two passes) on the card and on
     the CPU, within 1e-5 of the softmax-weighted aggregate of |feat|; the
-    same bits on a second launch; zero rows where a row is empty."""
+    same bits on a second launch; zero rows where a row is empty.  Widths
+    1, 33 and 63 at one head take the lean scalar kernel around its
+    slices' 32-float limits (a lane holds columns c and c + 32)."""
     from xgnn_tpu_torch.ops import _build, spmm
 
     if hub_cap is not None:
@@ -1819,6 +1823,52 @@ def test_gat_kernel_equals_plain(dev, heads, d, hub_cap, monkeypatch):
     assert _agg_close(out.cpu(), spmm.gat_aggregate_csr_plain(
         *cpu, num_node=n), mass.cpu())
     assert not out[torch.from_numpy(deg == 0).to(dev)].any()
+
+
+def test_prefix_and_gat_kernels_on_rows_of_127_to_129_entries(dev):
+    """K8b-prefix reads a row of at most 128 entries whole and a longer one
+    through its coarse row; K6b takes a row's edges 32 at a time.  Both on
+    rows of 127, 128 and 129 entries (and of 0, 1, 32 and 33), exact (K8b)
+    and within 1e-5 of the weighted aggregate of |feat| (K6b)."""
+    from xgnn_tpu_torch.ops import sampling, spmm
+    from xgnn_tpu_torch.ops.sampling import build_coarse_cdf
+    from xgnn_tpu_torch.synthetic import build_alias_tables
+    from xgnn_tpu_torch.types import Graph
+
+    degrees = np.array([127, 128, 129, 0, 1, 32, 33] * 40)
+    indptr = np.concatenate([[0], np.cumsum(degrees)]).astype(np.int32)
+    rng = np.random.default_rng(127)
+    indices = rng.integers(0, len(degrees), int(indptr[-1])).astype(np.int32)
+    ds = type("Host", (), dict(num_node=len(degrees),
+                               num_edge=int(indptr[-1]), indptr=indptr,
+                               indices=indices))()
+    build_alias_tables(ds, seed=3)
+    g = Graph.from_dataset(ds, dev, weighted=True)
+    cdf = build_coarse_cdf(g.indptr, g.prob_prefix_table, g.num_node)
+    f = torch.arange(g.num_node, device=dev, dtype=torch.int32)
+    for fanout in (5, 33):
+        args = (g.indptr, g.indices, g.prob_prefix_table, f, fanout, None,
+                g.n_max_deg)
+        for seed, coarse in ((1, cdf), (2, None)):
+            u = _edge_uniforms(dev, (f.shape[0], fanout), seed)
+            assert torch.equal(
+                sampling.sample_weighted_khop_prefix(*args, coarse, u=u),
+                sampling.sample_weighted_khop_prefix_plain(*args, coarse,
+                                                           u=u))
+    n = g.num_node
+    for heads, d in ((1, 47), (1, 256), (8, 32)):
+        gen = _gen(dev, d)
+        feat = torch.randn((n, heads, d), generator=gen, device=dev)
+        el = torch.randn((n, heads), generator=gen, device=dev)
+        er = 3 * torch.randn((n, heads), generator=gen, device=dev)
+        out = spmm.gat_aggregate_csr(g.indptr, g.indices, feat, el, er,
+                                     num_node=n)
+        ref = spmm.gat_aggregate_csr_plain(g.indptr, g.indices, feat, el, er,
+                                           num_node=n)
+        mass = spmm.gat_aggregate_csr_plain(g.indptr, g.indices, feat.abs(),
+                                            el, er, num_node=n)
+        assert _agg_close(out, ref, mass), (heads, d)
+        assert not out[torch.from_numpy(degrees == 0).to(dev)].any()
 
 
 @pytest.mark.parametrize("conv,heads", [("graphsage", 1), ("gcn", 1),

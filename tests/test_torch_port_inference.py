@@ -131,13 +131,17 @@ def test_segment_max_csr_matches_jax():
 
 
 # ---------------------------------------------------------------- K6b
-@pytest.mark.parametrize("heads", [1, 2, 8])
-def test_gat_aggregate_csr_matches_jax_scan_and_plan(heads):
+@pytest.mark.parametrize("heads,d", [
+    pytest.param(1, 4, id="1"), pytest.param(2, 4, id="2"),
+    pytest.param(8, 4, id="8"),
+    # gat1's 47-wide logits layer and gat8's (8, 32) heads
+    (1, 47), (8, 32)])
+def test_gat_aggregate_csr_matches_jax_scan_and_plan(heads, d):
     from xgnn_tpu.ops import spmm as J
     from xgnn_tpu_torch.ops.spmm import gat_aggregate_csr
 
     indptr, indices = _graph(seed=heads)
-    n, d = len(indptr) - 1, 4
+    n = len(indptr) - 1
     rng = np.random.default_rng(10 + heads)
     feat = rng.standard_normal((n, heads, d)).astype(np.float32)
     el = rng.standard_normal((n, heads)).astype(np.float32)

@@ -32,17 +32,19 @@ from test_torch_port_slice import (  # noqa: E402
 HUB = 5000  # a row far past one coarse bucket of 128 entries
 
 
-def _csr(seed, k):
-    """Rows of degree 0, 1, below, at and past ``k``, past 128, one hub of
-    ``HUB`` entries, and a skewed row of ``4k + 3`` entries holding two ids
-    (its ``4k`` draws hold fewer than ``k`` distinct values), with the JAX
-    package's alias and prefix tables (float64 row sums)."""
+def _csr(seed, k, extra=()):
+    """Rows of degree 0, 1, below, at and past ``k``, past 128, rows of the
+    ``extra`` degrees, one hub of ``HUB`` entries, and a skewed row of
+    ``4k + 3`` entries holding two ids (its ``4k`` draws hold fewer than
+    ``k`` distinct values), with the JAX package's alias and prefix tables
+    (float64 row sums)."""
     from xgnn_tpu import synthetic as jsyn
 
     rng = np.random.default_rng(seed)
     degrees = rng.choice([0, 1, max(k - 1, 0), k, k + 1, 37, 128, 129, 300],
                          size=150)
-    degrees = np.concatenate([degrees, [0, HUB, 4 * k + 3]])
+    degrees = np.concatenate([degrees, np.asarray(extra, degrees.dtype),
+                              [0, HUB, 4 * k + 3]])
     n = len(degrees)
     indptr = np.concatenate([[0], np.cumsum(degrees)]).astype(np.int32)
     indices = rng.integers(0, n, int(indptr[-1])).astype(np.int32)
@@ -86,16 +88,21 @@ def _uniforms(rng, shape):
 
 
 # ---------------------------------------------------------- K8b prefix
-@pytest.mark.parametrize("k", [1, 5, 15])
+@pytest.mark.parametrize("k", [1, 5, 15, 64])
 @pytest.mark.parametrize("coarse", [False, True])
 @pytest.mark.parametrize("max_deg", [False, True])
 def test_prefix_plain_matches_jax(k, coarse, max_deg):
+    """Also on rows of 127, 128 and 129 entries, around the kernel's
+    whole-row limit (its rows past 128 go through their coarse rows)."""
     from xgnn_tpu.ops import sampling as jsampling
     from xgnn_tpu_torch.ops import sampling
 
-    ds = _csr(k, k)
+    ds = _csr(k, k, extra=(127, 128, 129))
     rng = np.random.default_rng(100 + k)
     frontier = _frontier(rng, ds, 300)
+    n = ds.num_node
+    frontier[3:6] = [n - 6, n - 5, n - 4]
+    assert list(np.diff(ds.indptr)[n - 6: n - 3]) == [127, 128, 129]
     u = _uniforms(rng, (300, k))
     j = _jax_arrays(ds)
     md = int(np.max(np.diff(ds.indptr))) if max_deg else None

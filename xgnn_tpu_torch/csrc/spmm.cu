@@ -35,12 +35,24 @@
 // 256-wide row in one pass.  K6a sums in CSR order from 0 in registers, with
 // no atomics and no zero fill, multiplies by the mean's factor and writes
 // each row once with an evict-first store; a row of at most hub_cap edges
-// equals the plain version's in-order index_add_ bit for bit.  K6b keeps
-// an online softmax a slice: a running max and sum, and the weighted row,
-// rescaled once a group of edges when the max grows, so the row is
-// read once (JAX reads the scores twice, in two passes).  A lane's slice
-// lies in one head, so the lanes of a head load the same er[u, hd] word:
-// one transaction for them.  The result is divided (IEEE) by max(s, 1e-9).
+// equals the plain version's in-order index_add_ bit for bit.
+//
+// K6b keeps an online softmax a head: a running max and sum, and the
+// weighted row, so the row is read once (JAX reads the scores twice, in
+// two passes).  Each edge is scored once a head: lane j loads er[id_j, h]
+// for the pass's heads (at most 8; a wider row takes passes of 8 heads),
+// forms leaky(el[v, h] + er[id_j, h]), and the warp takes the batch's max
+// and weight sum by shuffles; w_j = exp(s_j - max) is taken once an edge
+// and head and put in shared memory, where every lane of the head reads
+// it, and the lanes' slices are rescaled once a batch of up to 32 edges,
+// so the inner loop is a load and a multiply-add an element.  The next
+// batch's ids and the first group's rows are in flight while a batch is
+// scored.  At one head the feature rows are read evict-first, so that er
+// (4 bytes a node) stays in the L2 for the next edge of its node, and the
+// scalar rows (the 47-wide logits layer) run 48 warps an SM, 4 edges'
+// rows in flight a warp: that layer waits on the latency of its 188-byte
+// rows, not on its bytes.  The result is divided (IEEE) by max(sum,
+// 1e-9).
 //
 // Rows with more than hub_cap edges (the products graph's largest degree
 // is 18,969; JAX's plan splits rows at 2048) would leave one warp working
@@ -95,15 +107,13 @@ __device__ __forceinline__ float4 vmul(float4 a, float q) {
                      __fmul_rn(a.w, q));
 }
 
-// acc * scale + w * x
-__device__ __forceinline__ float vaxpby(float acc, float scale, float w,
-                                        float x) {
-  return acc * scale + w * x;
+// acc + w * x
+__device__ __forceinline__ float vfma(float acc, float w, float x) {
+  return acc + w * x;
 }
-__device__ __forceinline__ float4 vaxpby(float4 acc, float scale, float w,
-                                         float4 x) {
-  return make_float4(acc.x * scale + w * x.x, acc.y * scale + w * x.y,
-                     acc.z * scale + w * x.z, acc.w * scale + w * x.w);
+__device__ __forceinline__ float4 vfma(float4 acc, float w, float4 x) {
+  return make_float4(acc.x + w * x.x, acc.y + w * x.y, acc.z + w * x.z,
+                     acc.w + w * x.w);
 }
 
 __device__ __forceinline__ float vdiv(float a, float q) {
@@ -263,140 +273,241 @@ spmm_hub_kernel(const int32_t* __restrict__ indptr,
 
 // ---- K6b ----------------------------------------------------------------
 
-// The online softmax of a lane's kV slices over edges [s, e) of a row:
-// m, sum and acc carry over between calls.  hd[u] is slice u's head,
-// el_v[u] = el[v, hd[u]].
-template <typename V, int kV>
-__device__ __forceinline__ void attend_edges(
-    const int32_t* __restrict__ indices, const V* __restrict__ feat,
-    const float* __restrict__ er, int64_t s, int64_t e, int32_t num_rows,
-    int heads, int64_t wv, int64_t c0, int lane, const int (&hd)[kV],
-    const float (&el_v)[kV], float slope, float (&m)[kV], float (&sum)[kV],
-    V (&acc)[kV]) {
-  // a lane's rows and scores of a group in registers: fewer at 8 floats
-  constexpr int G = sizeof(V) * kV > 16 ? kGroup / 2 : kGroup;
-  for (int64_t k0 = s; k0 < e; k0 += 32) {
-    const int n = (int)min64(32, e - k0);
-    int32_t id = 0;
-    if (lane < n) id = clip_id(__ldg(indices + k0 + lane), num_rows);
-    for (int g0 = 0; g0 < n; g0 += G) {
-      V x[G][kV];
-      float sc[G][kV];
+// K6b's scalar one-head rows (the 47-wide logits layer) are lean: 4 edges
+// a group and at most 40 registers, so that 6 blocks (48 warps) fit an SM;
+// more rows in flight a warp, or fewer warps, were slower
+// (xgnn_tpu_torch/tools/time_spmm.py).
+template <typename V, int kH>
+constexpr bool kLean = sizeof(V) == sizeof(float) && kH == 1;
+
+// A warp's shared state in a column pass of a row that holds kH heads (1,
+// or up to 8): w[t][j], edge j's weight for the pass's head t in the
+// current batch of up to 32 edges, and w[t][32] the rescale of head t's
+// earlier terms in that batch; at the end of the pass each head's max and
+// sum, read by the lanes of its columns.
+template <int kH>
+struct GatScratch {
+  float w[kH][33];
+  float m[kH], sum[kH];
+};
+
+// A lane's share of the column pass [c0, c1) of a row: its kV slices, 32
+// vectors apart, each slice's head counted from the pass's first head h0,
+// and el[row, h0 + t] for the pass's nh heads.
+template <int kV, int kH>
+struct GatPass {
+  int c1;
+  int col[kV];  // a slice's vector (none at or past c1)
+  int t[kV];
+  int h0, nh;
+  float el_v[kH];
+};
+
+template <int kV, int kH>
+__device__ __forceinline__ GatPass<kV, kH> gat_pass(
+    const float* __restrict__ el, int64_t row, int heads, int d, int vw,
+    int wv, int c0, int lane) {
+  GatPass<kV, kH> p;
+  p.c1 = min(wv, c0 + 32 * kV);
+  if constexpr (kH == 1) {  // one head: no head arithmetic
+    p.h0 = 0;
+    p.nh = 1;
+  } else {
+    // at most kH heads (a vector lies in one head)
+    p.h0 = c0 * vw / d;
+    p.c1 = min(p.c1, (p.h0 + kH) * d / vw);
+    p.nh = (p.c1 - 1) * vw / d - p.h0 + 1;
+  }
 #pragma unroll
-      for (int j = 0; j < G; ++j) {
-        const int32_t r = __shfl_sync(kFull, id, (g0 + j) & 31);
-        const bool live = g0 + j < n;
+  for (int u = 0; u < kV; ++u) {
+    p.col[u] = c0 + lane + 32 * u;
+    p.t[u] = kH == 1 || p.col[u] >= p.c1 ? 0 : p.col[u] * vw / d - p.h0;
+  }
 #pragma unroll
-        for (int u = 0; u < kV; ++u) {
-          const int64_t c = c0 + lane + 32 * u;
-          x[j][u] = zero_value<V>();
-          sc[j][u] = 0.f;
-          if (live) {
-            if (c < wv) x[j][u] = __ldg(feat + (int64_t)r * wv + c);
-            sc[j][u] = __ldg(er + (int64_t)r * heads + hd[u]);
-          }
-        }
-      }
-      // the scores once every load of the group is in flight: computed
-      // as each er word arrived, they held the next edge's loads back
+  for (int t = 0; t < kH; ++t)
+    p.el_v[t] = t < p.nh ? __ldg(el + row * heads + p.h0 + t) : 0.f;
+  return p;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
-      for (int j = 0; j < G; ++j) {
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(kFull, v, o));
+  return v;
+}
+
+// the same bits in every lane: each step adds a pair in both orders
+__device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
-        for (int u = 0; u < kV; ++u)
-          sc[j][u] = g0 + j < n ? leaky(el_v[u] + sc[j][u], slope)
-                                : -INFINITY;
-      }
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
+  return v;
+}
+
+// x[i] <- a lane's slices of the row of the batch's edge g0 + i (zero past
+// the batch's n edges); lane j of the warp holds edge j's id.  At one head
+// the rows stream (evict-first), so that er, read again by every edge of
+// its node, stays in the L2.
+template <typename V, int kV, int kH, int G>
+__device__ __forceinline__ void load_group(const V* __restrict__ feat,
+                                           int32_t id, int g0, int n, int wv,
+                                           const GatPass<kV, kH>& p,
+                                           V (&x)[G][kV]) {
 #pragma unroll
-      for (int u = 0; u < kV; ++u) {
-        float mx = m[u];
+  for (int i = 0; i < G; ++i) {
+    const int32_t r = __shfl_sync(kFull, id, (g0 + i) & 31);
 #pragma unroll
-        for (int j = 0; j < G; ++j) mx = fmaxf(mx, sc[j][u]);
-        // the old terms rescaled to the new max (1 when it did not grow)
-        const float scale = m[u] == -INFINITY ? 0.f : expf(m[u] - mx);
-        V a = acc[u];
-        float t = sum[u] * scale;
-        bool first = true;
-#pragma unroll
-        for (int j = 0; j < G; ++j) {
-          if (g0 + j < n) {
-            const float w = expf(sc[j][u] - mx);
-            a = vaxpby(a, first ? scale : 1.f, w, x[j][u]);
-            t += w;
-            first = false;
-          }
-        }
-        acc[u] = a;
-        sum[u] = t;
-        m[u] = mx;
+    for (int u = 0; u < kV; ++u) {
+      x[i][u] = zero_value<V>();
+      if (g0 + i < n && p.col[u] < p.c1) {
+        const V* at = feat + (int64_t)r * wv + p.col[u];
+        x[i][u] = kH == 1 ? __ldcs(at) : __ldg(at);
       }
     }
   }
 }
 
-template <typename V, int kV>
-__device__ __forceinline__ void slice_heads(const float* __restrict__ el,
-                                            int64_t row, int heads, int d,
-                                            int vw, int64_t wv, int64_t c0,
-                                            int lane, int (&hd)[kV],
-                                            float (&el_v)[kV]) {
+// The online softmax of a column pass over edges [s, e) of a row, a batch
+// of up to 32 edges at a time: lane j scores edge j once a head (its er
+// words loaded together), the batch's max and weight sum come from warp
+// shuffles, each weight exp(score - max) is taken once, and the lanes'
+// slices are rescaled once a batch and then take one multiply-add an
+// element, the weight read from shared memory.  m and sum (a head each,
+// the same in every lane) and acc carry over between calls.
+template <typename V, int kV, int kH>
+__device__ __forceinline__ void attend_edges(
+    const int32_t* __restrict__ indices, const V* __restrict__ feat,
+    const float* __restrict__ er, int64_t s, int64_t e, int32_t num_rows,
+    int heads, int wv, const GatPass<kV, kH>& p, float slope, int lane,
+    GatScratch<kH>& g, float (&m)[kH], float (&sum)[kH], V (&acc)[kV]) {
+  // a lane's rows of a group in registers: fewer at 8 floats and on the
+  // lean rows
+  constexpr int G =
+      kLean<V, kH> || sizeof(V) * kV > 16 ? kGroup / 2 : kGroup;
+  // each batch's ids are read while the batch before it is weighed
+  int32_t next = 0;
+  if (lane < min64(32, e - s)) next = __ldg(indices + s + lane);
+  for (int64_t k0 = s; k0 < e; k0 += 32) {
+    const int n = (int)min64(32, e - k0);
+    const int32_t id = lane < n ? clip_id(next, num_rows) : 0;
+    if (lane < min64(32, e - k0 - 32)) next = __ldg(indices + k0 + 32 + lane);
+    // the first group's rows fly while the scores are formed
+    V x[G][kV];
+    load_group<V, kV, kH, G>(feat, id, 0, n, wv, p, x);
+    float z[kH];
 #pragma unroll
-  for (int u = 0; u < kV; ++u) {
-    const int64_t c = c0 + lane + 32 * u;
-    hd[u] = c < wv ? (int)(c * vw / d) : 0;
-    el_v[u] = __ldg(el + row * heads + hd[u]);
+    for (int t = 0; t < kH; ++t)
+      z[t] = t < p.nh && lane < n
+                 ? __ldg(er + (int64_t)id * heads + p.h0 + t) : 0.f;
+#pragma unroll
+    for (int t = 0; t < kH; ++t) {
+      if (t < p.nh) {
+        z[t] = lane < n ? leaky(p.el_v[t] + z[t], slope) : -INFINITY;
+        const float mx = fmaxf(m[t], warp_max(z[t]));
+        const float w = lane < n ? expf(z[t] - mx) : 0.f;
+        // the earlier terms rescaled to the new max (1 when it did not
+        // grow, 0 before the first batch)
+        const float scale = m[t] == -INFINITY ? 0.f : expf(m[t] - mx);
+        sum[t] = sum[t] * scale + warp_sum(w);
+        m[t] = mx;
+        g.w[t][lane] = w;
+        if (lane == 0) g.w[t][32] = scale;
+      }
+    }
+    __syncwarp();
+#pragma unroll
+    for (int u = 0; u < kV; ++u)
+      acc[u] = vmul(acc[u], g.w[kH == 1 ? 0 : p.t[u]][32]);
+    for (int g0 = 0; g0 < n; g0 += G) {
+      if (g0 > 0) load_group<V, kV, kH, G>(feat, id, g0, n, wv, p, x);
+#pragma unroll
+      for (int i = 0; i < G; ++i) {
+        if (g0 + i < n) {
+#pragma unroll
+          for (int u = 0; u < kV; ++u)
+            acc[u] = vfma(acc[u], g.w[kH == 1 ? 0 : p.t[u]][g0 + i], x[i][u]);
+        }
+      }
+    }
+    __syncwarp();  // the weights are read before the next batch writes them
   }
 }
 
-template <typename V, int kV>
-__global__ void __launch_bounds__(kThreads)
+// A warp's column pass over edges [s, e) of a row: acc, and each head's
+// max and sum in g.m, g.sum.
+template <typename V, int kV, int kH>
+__device__ __forceinline__ void attend_part(
+    const int32_t* __restrict__ indices, const V* __restrict__ feat,
+    const float* __restrict__ er, int64_t s, int64_t e, int32_t num_rows,
+    int heads, int wv, const GatPass<kV, kH>& p, float slope, int lane,
+    GatScratch<kH>& g, V (&acc)[kV]) {
+  float m[kH], sum[kH];
+#pragma unroll
+  for (int t = 0; t < kH; ++t) {
+    m[t] = -INFINITY;
+    sum[t] = 0.f;
+  }
+#pragma unroll
+  for (int u = 0; u < kV; ++u) acc[u] = zero_value<V>();
+  attend_edges<V, kV, kH>(indices, feat, er, s, e, num_rows, heads, wv, p,
+                          slope, lane, g, m, sum, acc);
+  if (lane == 0) {
+#pragma unroll
+    for (int t = 0; t < kH; ++t) {
+      g.m[t] = m[t];
+      g.sum[t] = sum[t];
+    }
+  }
+  __syncwarp();
+}
+
+template <typename V, int kV, int kH>
+__global__ void __launch_bounds__(kThreads, kLean<V, kH> ? 6 : 1)
 gat_rows_kernel(const int32_t* __restrict__ indptr,
                 const int32_t* __restrict__ indices, const V* __restrict__ feat,
                 const float* __restrict__ el, const float* __restrict__ er,
                 V* __restrict__ out, int64_t num_node, int32_t num_rows,
-                int heads, int d, int vw, int64_t wv, float slope,
+                int heads, int d, int vw, int wv, float slope,
                 int64_t hub_cap) {
+  __shared__ GatScratch<kH> scratch[kWarps];
   const int lane = threadIdx.x & 31;
+  GatScratch<kH>& g = scratch[threadIdx.x >> 5];
   const int64_t warps = (int64_t)gridDim.x * kWarps;
   for (int64_t row = (int64_t)blockIdx.x * kWarps + (threadIdx.x >> 5);
        row < num_node; row += warps) {
     const int64_t s = __ldg(indptr + row), e = __ldg(indptr + row + 1);
     if (e - s > hub_cap) continue;  // the hub kernel's
-    for (int64_t c0 = 0; c0 < wv; c0 += 32 * kV) {
-      int hd[kV];
-      float el_v[kV], m[kV], sum[kV];
+    for (int c0 = 0; c0 < wv;) {
+      const GatPass<kV, kH> p =
+          gat_pass<kV, kH>(el, row, heads, d, vw, wv, c0, lane);
       V acc[kV];
-      slice_heads<V, kV>(el, row, heads, d, vw, wv, c0, lane, hd, el_v);
+      attend_part<V, kV, kH>(indices, feat, er, s, e, num_rows, heads, wv, p,
+                             slope, lane, g, acc);
 #pragma unroll
       for (int u = 0; u < kV; ++u) {
-        m[u] = -INFINITY;
-        sum[u] = 0.f;
-        acc[u] = zero_value<V>();
+        if (p.col[u] < p.c1)
+          __stcs(out + row * wv + p.col[u],
+                 vdiv(acc[u], fmaxf(g.sum[p.t[u]], kGatEps)));
       }
-      attend_edges<V, kV>(indices, feat, er, s, e, num_rows, heads, wv, c0,
-                          lane, hd, el_v, slope, m, sum, acc);
-#pragma unroll
-      for (int u = 0; u < kV; ++u) {
-        const int64_t c = c0 + lane + 32 * u;
-        if (c < wv)
-          __stcs(out + row * wv + c, vdiv(acc[u], fmaxf(sum[u], kGatEps)));
-      }
+      __syncwarp();  // g.sum is read before the next pass writes it
+      c0 = p.c1;
     }
   }
 }
 
-template <typename V, int kV>
+template <typename V, int kV, int kH>
 __global__ void __launch_bounds__(kThreads)
 gat_hub_kernel(const int32_t* __restrict__ indptr,
                const int32_t* __restrict__ indices, const V* __restrict__ feat,
                const float* __restrict__ el, const float* __restrict__ er,
                V* __restrict__ out, int64_t num_node, int32_t num_rows,
-               int heads, int d, int vw, int64_t wv, float slope,
+               int heads, int d, int vw, int wv, float slope,
                int64_t hub_cap) {
   __shared__ int32_t hubs[kThreads];
   __shared__ int num_hubs;
+  __shared__ GatScratch<kH> scratch[kWarps];
   __shared__ V part[kWarps][32 * kV];
   __shared__ float part_m[kWarps][32 * kV], part_s[kWarps][32 * kV];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  GatScratch<kH>& g = scratch[warp];
   for (int64_t base = (int64_t)blockIdx.x * kThreads; base < num_node;
        base += (int64_t)gridDim.x * kThreads) {
     const int nh = find_hubs(indptr, base, num_node, hub_cap, hubs, &num_hubs);
@@ -405,24 +516,18 @@ gat_hub_kernel(const int32_t* __restrict__ indptr,
       const int64_t s = __ldg(indptr + row), e = __ldg(indptr + row + 1);
       int64_t ws, we;
       warp_part(s, e, warp, &ws, &we);
-      for (int64_t c0 = 0; c0 < wv; c0 += 32 * kV) {
-        int hd[kV];
-        float el_v[kV], m[kV], sum[kV];
+      for (int c0 = 0; c0 < wv;) {
+        const GatPass<kV, kH> p =
+            gat_pass<kV, kH>(el, row, heads, d, vw, wv, c0, lane);
         V acc[kV];
-        slice_heads<V, kV>(el, row, heads, d, vw, wv, c0, lane, hd, el_v);
+        attend_part<V, kV, kH>(indices, feat, er, ws, we, num_rows, heads,
+                               wv, p, slope, lane, g, acc);
 #pragma unroll
         for (int u = 0; u < kV; ++u) {
-          m[u] = -INFINITY;
-          sum[u] = 0.f;
-          acc[u] = zero_value<V>();
-        }
-        attend_edges<V, kV>(indices, feat, er, ws, we, num_rows, heads, wv,
-                            c0, lane, hd, el_v, slope, m, sum, acc);
-#pragma unroll
-        for (int u = 0; u < kV; ++u) {
-          part[warp][lane + 32 * u] = acc[u];
-          part_m[warp][lane + 32 * u] = m[u];
-          part_s[warp][lane + 32 * u] = sum[u];
+          const int k = lane + 32 * u;
+          part[warp][k] = acc[u];
+          part_m[warp][k] = g.m[p.t[u]];
+          part_s[warp][k] = g.sum[p.t[u]];
         }
         __syncthreads();
         if (warp == 0) {
@@ -437,14 +542,15 @@ gat_hub_kernel(const int32_t* __restrict__ indptr,
               // an empty part (m = -inf) adds nothing
               const float f = part_m[w][k] == -INFINITY
                                   ? 0.f : expf(part_m[w][k] - mx);
-              a = vaxpby(a, 1.f, f, part[w][k]);
+              a = vfma(a, f, part[w][k]);
               t += part_s[w][k] * f;
             }
-            const int64_t c = c0 + k;
-            if (c < wv) __stcs(out + row * wv + c, vdiv(a, fmaxf(t, kGatEps)));
+            if (p.col[u] < p.c1)
+              __stcs(out + row * wv + p.col[u], vdiv(a, fmaxf(t, kGatEps)));
           }
         }
         __syncthreads();
+        c0 = p.c1;
       }
     }
     __syncthreads();  // num_hubs is read before thread 0 resets it
@@ -486,21 +592,21 @@ void launch_spmm(const int32_t* indptr, const int32_t* indices,
   }
 }
 
-template <typename V, int kV>
+template <typename V, int kV, int kH>
 void launch_gat(const int32_t* indptr, const int32_t* indices,
                 const float* feat, const float* el, const float* er,
                 float* out, int64_t num_node, int32_t num_rows, int heads,
-                int d, int64_t wv, float slope, int64_t hub_cap,
+                int d, int wv, float slope, int64_t hub_cap,
                 cudaStream_t s) {
   const int vw = (int)(sizeof(V) / sizeof(float));
   const V* fv = reinterpret_cast<const V*>(feat);
   V* ov = reinterpret_cast<V*>(out);
-  auto rows = gat_rows_kernel<V, kV>;
+  auto rows = gat_rows_kernel<V, kV, kH>;
   rows<<<grid_for(rows, num_node, kWarps), kThreads, 0, s>>>(
       indptr, indices, fv, el, er, ov, num_node, num_rows, heads, d, vw, wv,
       slope, hub_cap);
   if (hub_cap < INT32_MAX) {
-    auto hub = gat_hub_kernel<V, kV>;
+    auto hub = gat_hub_kernel<V, kV, kH>;
     hub<<<grid_for(hub, num_node, kThreads), kThreads, 0, s>>>(
         indptr, indices, fv, el, er, ov, num_node, num_rows, heads, d, vw, wv,
         slope, hub_cap);
@@ -549,7 +655,7 @@ extern "C" int xg_gat_csr(const void* indptr, const void* indices,
                           int heads, int head_dim, float negative_slope,
                           long long hub_cap, void* stream) {
   if (num_rows >= INT32_MAX || num_rows < num_node || heads <= 0 ||
-      head_dim <= 0)
+      head_dim <= 0 || (int64_t)heads * head_dim >= INT32_MAX)
     return (int)cudaErrorInvalidValue;
   if (num_node <= 0) return (int)cudaGetLastError();
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
@@ -560,17 +666,19 @@ extern "C" int xg_gat_csr(const void* indptr, const void* indices,
   const float* erf = static_cast<const float*>(er);
   float* of = static_cast<float*>(out);
   const int32_t nr = (int32_t)num_rows;
-  const int64_t width = (int64_t)heads * head_dim;
+  const int width = heads * head_dim;
   // a float4 slice must lie in one head
   const bool vec = head_dim % 4 == 0 && aligned16(feat) && aligned16(out);
-  if (vec && width <= 128)
-    launch_gat<float4, 1>(ip, ix, ff, elf, erf, of, num_node, nr, heads,
-                          head_dim, width / 4, negative_slope, hub_cap, s);
-  else if (vec)
-    launch_gat<float4, 2>(ip, ix, ff, elf, erf, of, num_node, nr, heads,
-                          head_dim, width / 4, negative_slope, hub_cap, s);
-  else
-    launch_gat<float, 2>(ip, ix, ff, elf, erf, of, num_node, nr, heads,
-                         head_dim, width, negative_slope, hub_cap, s);
+#define XG_GAT(V, KV, WV)                                                    \
+  (heads == 1 ? launch_gat<V, KV, 1>(ip, ix, ff, elf, erf, of, num_node, nr, \
+                                     heads, head_dim, WV, negative_slope,    \
+                                     hub_cap, s)                             \
+              : launch_gat<V, KV, 8>(ip, ix, ff, elf, erf, of, num_node, nr, \
+                                     heads, head_dim, WV, negative_slope,    \
+                                     hub_cap, s))
+  if (vec && width <= 128) XG_GAT(float4, 1, width / 4);
+  else if (vec) XG_GAT(float4, 2, width / 4);
+  else XG_GAT(float, 2, width);
+#undef XG_GAT
   return (int)cudaGetLastError();
 }

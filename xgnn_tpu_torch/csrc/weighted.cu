@@ -4,16 +4,16 @@
 // Every kernel reads a frontier row v = frontier[b] as K2 does: start =
 // indptr[v], deg = indptr[v+1] - start, and deg = 0 for EMPTY and for any id
 // outside [0, num_node).  A row of degree 0 is all EMPTY.  Offsets into the
-// edge arrays are 64-bit.  Built without --use_fast_math; every float product
-// is __fmul_rn, so it is never fused into anything.
+// edge arrays are 64-bit (K8b-prefix keeps a pick's edge position in 32
+// bits: indptr is int32, so each fits).  Built without --use_fast_math;
+// every float product is __fmul_rn, so it is never fused into anything.
 //
 // K8b-prefix (xg_sample_prefix):
 // For pick k of a row, x = u[b,k] * total with total = prefix[start+deg-1],
 // one float32 product rounded to nearest.  The offset is the smallest off with
 // prefix[start+off] > x, clamped to deg - 1; out[b,k] = indices[start+off].
 // The rows of prefix are nondecreasing (the wrapper states it), so that
-// offset is min(#{j < deg : prefix[start+j] <= x}, deg - 1): a count, and no
-// search.
+// offset is min(#{j < deg : prefix[start+j] <= x}, deg - 1).
 //
 // Replaces: xgnn_tpu/ops/sampling.py, sample_weighted_khop_prefix (lines
 // 339-424), a fixed-depth binary search, or a coarse-CDF bucket, binary
@@ -22,22 +22,33 @@
 //
 // What bounds it on an H100: bytes, and in practice the latency of the
 // dependent reads frontier -> indptr -> prefix -> indices.  A row of the
-// products graph holds 50.6 entries on average (202 bytes).
+// products graph holds 50.6 entries on average (202 bytes).  With a warp a
+// row, each row waited out four round trips to memory, one after another
+// (0.379 ms for 1,007,360 rows, NVIDIA H100 80GB HBM3, 700 W).
 //
-// Design: one warp per frontier row; lane k holds pick k's x (and lane
-// k - 32 pick k for K > 32).
-// - A row of at most kDirectMax = 128 entries is read once, coalesced,
-//   4 entries a lane.  Each pick's offset is a warp-wide count: a ballot of
-//   "entry <= x" and a popc per 32 entries.
-// - A longer row (a hub) reads its coarse row instead: the 128 prefix values
-//   at offsets e_j = ceil((j+1)*deg/128) - 1, 512 bytes shared by the K picks
-//   (from coarse_cdf when the caller has it, else gathered from prefix).  The
-//   count j of coarse values <= x (clamped to 127) picks the bucket
-//   [e_{j-1} + 1, e_j], at most ceil(deg/128) entries, which the warp then
-//   counts 32 at a time.  The coarse row of every row would cost 512 bytes
-//   where the mean row is 202: built with -DXG_PREFIX_DIRECT_MAX=0, every
-//   row goes that way, the design this one was measured against
-//   (xgnn_tpu_torch/tools/time_prefix.py).
+// Design: a warp takes a run of up to 32 rows (fewer where the frontier
+// would not fill the card's resident warps, and at most 512 picks) and
+// issues each round trip for several rows at once:
+// - lane i reads row i's frontier id, then its indptr pair, while the
+//   run's uniforms are copied to shared memory (cp.async);
+// - the rows' prefix reads are copied (cp.async, so no register waits on
+//   them) into a ring of kDepth = 4 row slots in shared memory, 3 rows
+//   ahead of the row being searched: a row of at most kDirectMax = 128
+//   entries whole, a longer row (a hub) its coarse row, the 128 prefix
+//   values at offsets e_j = ceil((j+1)*deg/128) - 1, 512 bytes shared by
+//   the K picks (from coarse_cdf when the caller has it, else gathered
+//   from prefix), and each row's total;
+// - lane k searches pick k's offset in the row in shared memory (a search:
+//   the rows are nondecreasing), or in a hub's coarse row its bucket
+//   [e_{j-1} + 1, e_j], j the count of coarse values <= x clamped to 127,
+//   at most ceil(deg/128) entries, which the warp then counts 32 at a
+//   time, 8 picks' bucket reads issued together;
+// - each pick's edge position replaces its uniform in shared memory, and
+//   the run's index gathers go out together, stored in one coalesced pass.
+// The coarse row of every row would cost 512 bytes where the mean row is
+// 202: built with -DXG_PREFIX_DIRECT_MAX=0, every row goes that way, a
+// design this one was measured against (xgnn_tpu_torch/tools/
+// time_prefix.py, which also times other ring depths).
 //
 // K8b-alias (xg_sample_alias):
 // A draw of a row of degree deg > 0 is slot = min(floor(u * deg), deg - 1)
@@ -64,6 +75,7 @@
 // a 32-byte sector.  The dedup's scan is at most draws * ceil(draws/32)
 // compares a lane, below the card's rate.
 
+#include <cuda_pipeline_primitives.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -76,6 +88,7 @@ constexpr int kMaxFanout = 64;
 constexpr int kLanes = 128;  // width of a coarse CDF row
 constexpr int kChunks = kLanes / 32;
 constexpr int kMaxDraws = 256;
+constexpr int kRunPicks = 512;  // K8b-prefix's picks a warp a run
 constexpr int kDrawChunks = kMaxDraws / 32;
 #ifndef XG_PREFIX_DIRECT_MAX
 #define XG_PREFIX_DIRECT_MAX 128
@@ -83,7 +96,7 @@ constexpr int kDrawChunks = kMaxDraws / 32;
 // K8b-prefix reads a row of at most this many entries whole
 constexpr int kDirectMax = XG_PREFIX_DIRECT_MAX;
 static_assert(kDirectMax >= 0 && kDirectMax <= kLanes,
-              "a direct row fits the warp's kChunks registers");
+              "a direct row fits a ring slot");
 
 __device__ __forceinline__ void row_meta(const int32_t* __restrict__ indptr,
                                          int32_t v, int64_t num_node,
@@ -111,6 +124,103 @@ __device__ __forceinline__ int count(bool pred) {
   return __popc(__ballot_sync(kFull, pred));
 }
 
+// The offset of the first entry of a nondecreasing row[0, n) above x,
+// clamped to n - 1: min(#{j < n : row[j] <= x}, n - 1)
+__device__ __forceinline__ int32_t upper_offset(const float* row, int32_t n,
+                                                float x) {
+  int32_t lo = 0, hi = n - 1;
+  while (lo < hi) {
+    const int32_t mid = (lo + hi) >> 1;
+    if (row[mid] <= x) lo = mid + 1;
+    else hi = mid;
+  }
+  return lo;
+}
+
+// Row r of a run into slot (kLanes + 1 floats), copied asynchronously
+// (cp.async: no register waits on it): its entries (a row of at most
+// kDirectMax) or its coarse row (a longer one), then its total
+__device__ __forceinline__ void issue_row(const float* __restrict__ prefix,
+                                          const float* __restrict__ coarse,
+                                          int32_t start, int32_t deg,
+                                          int32_t v, int lane, float* slot) {
+  if (deg <= 0) return;
+  const float* p = prefix + start;
+  if (deg > kDirectMax) {
+#pragma unroll
+    for (int c = 0; c < kChunks; ++c) {
+      const int i = lane + 32 * c;
+      __pipeline_memcpy_async(slot + i,
+                              coarse != nullptr
+                                  ? coarse + (int64_t)v * kLanes + i
+                                  : p + coarse_pos(i, deg, 0),
+                              4);
+    }
+  } else {
+    for (int i = lane; i < deg; i += 32)
+      __pipeline_memcpy_async(slot + i, p + i, 4);
+  }
+  if (lane == 0) __pipeline_memcpy_async(slot + kLanes, p + deg - 1, 4);
+}
+
+// The offsets of a hub row's picks (lane k holds pick k's in off0, pick
+// k + 32's in off1): each pick's bucket from the coarse row cr by a
+// search, then the buckets' entries counted by ballots, kPickGroup picks'
+// reads issued together.
+__device__ __forceinline__ void hub_offsets(const float* __restrict__ p,
+                                            const float* cr, int32_t deg,
+                                            float total, const int32_t* urow,
+                                            int fanout, int lane,
+                                            int32_t* off0, int32_t* off1) {
+  constexpr int kPickGroup = 8;
+  int32_t lo0 = 0, lo1 = 0, hi0 = 0, hi1 = 0;
+  for (int k = lane; k < fanout; k += 32) {
+    const float x = __fmul_rn(__int_as_float(urow[k]), total);
+    // the count of coarse values <= x, clamped to 127 (x rounded up to
+    // total stays in the last bucket)
+    const int32_t j = upper_offset(cr, kLanes, x);
+    const int32_t lo = j > 0 ? coarse_pos(j - 1, deg, -1) + 1 : 0;
+    const int32_t hi = coarse_pos(j, deg, 0);
+    (k < 32 ? lo0 : lo1) = lo;
+    (k < 32 ? hi0 : hi1) = hi;
+  }
+  // a bucket holds at most ceil(deg / 128) entries
+  const int32_t span = (deg + kLanes - 1) / kLanes;
+  int32_t n0 = lo0, n1 = lo1;
+  for (int k0 = 0; k0 < fanout; k0 += kPickGroup) {
+    for (int32_t b0 = 0; b0 < span; b0 += 32) {
+      float val[kPickGroup];
+#pragma unroll
+      for (int i = 0; i < kPickGroup; ++i) {
+        const int k = k0 + i;
+        const int32_t lo = __shfl_sync(kFull, k < 32 ? lo0 : lo1, k & 31);
+        const int32_t hi = __shfl_sync(kFull, k < 32 ? hi0 : hi1, k & 31);
+        const int32_t at = lo + b0 + lane;
+        val[i] = k < fanout && at <= hi ? __ldg(p + at) : INFINITY;
+      }
+#pragma unroll
+      for (int i = 0; i < kPickGroup; ++i) {
+        const int k = k0 + i;
+        if (k < fanout) {
+          const float x = __fmul_rn(__int_as_float(urow[k]), total);
+          const int c = count(val[i] <= x);
+          if (lane == (k & 31)) (k < 32 ? n0 : n1) += c;
+        }
+      }
+    }
+  }
+  *off0 = n0 < deg - 1 ? n0 : deg - 1;
+  *off1 = n1 < deg - 1 ? n1 : deg - 1;
+}
+
+// One warp a run of rows (run_rows of them: enough runs to fill the card,
+// and at most 32 rows or kRunPicks picks).  The run's uniforms are copied
+// to shared memory asynchronously while lane i reads row i's frontier id,
+// then its indptr pair.  The rows' prefix reads are copied into a ring of
+// kDepth slots, kDepth - 1 rows ahead of the row being searched: lane k
+// searches pick k's offset in the row in shared memory, and its edge
+// position replaces its uniform.  The run's index gathers then go out
+// together and the picks are stored in one coalesced pass.
 __global__ void __launch_bounds__(kWarps * 32)
 sample_prefix_kernel(const int32_t* __restrict__ indptr,
                      const int32_t* __restrict__ indices,
@@ -118,74 +228,86 @@ sample_prefix_kernel(const int32_t* __restrict__ indptr,
                      const float* __restrict__ coarse,
                      const int32_t* __restrict__ frontier,
                      const float* __restrict__ u, int32_t* __restrict__ out,
-                     int64_t num_node, int64_t num_rows, int fanout) {
-  const int lane = threadIdx.x & 31;
-  const int64_t row = (int64_t)blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (row >= num_rows) return;  // the whole warp: row is warp-uniform
-  const int32_t v = __ldg(frontier + row);
+                     int64_t num_node, int64_t num_rows, int fanout,
+                     int run_rows) {
+  constexpr int kDepth = 4;
+  constexpr int kBatch = 8;  // a lane's gathers in flight
+  // the run's picks: each one's uniform (its bits), then its edge
+  // position (-1 on a row of degree 0)
+  __shared__ int32_t slot[kWarps][kRunPicks];
+  // the rows in flight: a row's values and, last, its total
+  __shared__ float ring[kWarps][kDepth][kLanes + 1];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int64_t base =
+      ((int64_t)blockIdx.x * kWarps + warp) * (int64_t)run_rows;
+  if (base >= num_rows) return;  // the whole warp
+  const int rows = (int)(num_rows - base < run_rows ? num_rows - base
+                                                     : run_rows);
+  const int picks = rows * fanout;
+  int32_t* sl = slot[warp];
+  const float* urun = u + base * fanout;
+  for (int i = lane; i < picks; i += 32)
+    __pipeline_memcpy_async(sl + i, urun + i, 4);
+  __pipeline_commit();
+  const int32_t v = lane < rows ? __ldg(frontier + base + lane) : kEmpty;
   int32_t start, deg;
   row_meta(indptr, v, num_node, &start, &deg);
-  int32_t* orow = out + row * fanout;
-  if (deg <= 0) {
-    for (int k = lane; k < fanout; k += 32) orow[k] = kEmpty;
-    return;
+#pragma unroll
+  for (int r = 0; r < kDepth - 1; ++r) {
+    if (r < rows)
+      issue_row(prefix, coarse, __shfl_sync(kFull, start, r),
+                __shfl_sync(kFull, deg, r), __shfl_sync(kFull, v, r), lane,
+                ring[warp][r]);
+    __pipeline_commit();
   }
-  const float* p = prefix + start;
-  const float total = __ldg(p + deg - 1);
-  const float* urow = u + row * fanout;
-  // lane k holds pick k's x, and pick k + 32's
-  const float x0 = lane < fanout ? __fmul_rn(__ldg(urow + lane), total) : 0.f;
-  const float x1 =
-      lane + 32 < fanout ? __fmul_rn(__ldg(urow + lane + 32), total) : 0.f;
-  int32_t off0 = 0, off1 = 0;
-
-  if (deg <= kDirectMax) {
-    // the whole row, at most 128 entries, read once
-    const int chunks = (deg + 31) >> 5;
-    float r[kChunks];
-#pragma unroll
-    for (int c = 0; c < kChunks; ++c) {
-      const int i = lane + 32 * c;
-      r[c] = c < chunks && i < deg ? __ldg(p + i) : 0.f;
-    }
-    for (int k = 0; k < fanout; ++k) {
-      const float x = __shfl_sync(kFull, k < 32 ? x0 : x1, k & 31);
-      int n = 0;
-#pragma unroll
-      for (int c = 0; c < kChunks; ++c)
-        if (c < chunks) n += count(lane + 32 * c < deg && r[c] <= x);
-      const int32_t off = n < deg - 1 ? n : deg - 1;
-      if (lane == (k & 31)) (k < 32 ? off0 : off1) = off;
-    }
-  } else {
-    // the coarse row, 128 values, shared by the K picks
-    float cr[kChunks];
-#pragma unroll
-    for (int c = 0; c < kChunks; ++c) {
-      const int j = lane + 32 * c;
-      cr[c] = coarse != nullptr ? __ldg(coarse + (int64_t)v * kLanes + j)
-                                : __ldg(p + coarse_pos(j, deg, 0));
-    }
-    for (int k = 0; k < fanout; ++k) {
-      const float x = __shfl_sync(kFull, k < 32 ? x0 : x1, k & 31);
-      int j = 0;
-#pragma unroll
-      for (int c = 0; c < kChunks; ++c) j += count(cr[c] <= x);
-      j = j < kLanes - 1 ? j : kLanes - 1;  // x rounded up to total
-      const int32_t lo = j > 0 ? coarse_pos(j - 1, deg, -1) + 1 : 0;
-      const int32_t hi = coarse_pos(j, deg, 0);
-      int32_t n = lo;
-      for (int32_t base = lo; base <= hi; base += 32) {
-        const int32_t i = base + lane;
-        n += count(i <= hi && __ldg(p + i) <= x);
+  for (int r = 0; r < rows; ++r) {
+    const int ahead = r + kDepth - 1;
+    const int32_t sa = __shfl_sync(kFull, start, ahead & 31);
+    const int32_t da = __shfl_sync(kFull, deg, ahead & 31);
+    const int32_t va = __shfl_sync(kFull, v, ahead & 31);
+    if (ahead < rows)
+      issue_row(prefix, coarse, sa, da, va, lane,
+                ring[warp][ahead % kDepth]);
+    __pipeline_commit();
+    __pipeline_wait_prior(kDepth - 1);  // this lane's copies of row r
+    __syncwarp();                       // and every lane's
+    const int32_t s = __shfl_sync(kFull, start, r);
+    const int32_t d = __shfl_sync(kFull, deg, r);
+    const float* row = ring[warp][r % kDepth];
+    int32_t* urow = sl + r * fanout;
+    if (d > 0 && d <= kDirectMax) {
+      // lane k: pick k's uniform in, its position out
+      for (int k = lane; k < fanout; k += 32) {
+        const float x = __fmul_rn(__int_as_float(urow[k]), row[kLanes]);
+        urow[k] = s + upper_offset(row, d, x);
       }
-      const int32_t off = n < deg - 1 ? n : deg - 1;
-      if (lane == (k & 31)) (k < 32 ? off0 : off1) = off;
+    } else if (d > 0) {
+      int32_t off0, off1;
+      hub_offsets(prefix + s, row, d, row[kLanes], urow, fanout, lane,
+                  &off0, &off1);
+      __syncwarp();  // every lane read the row's uniforms
+      if (lane < fanout) urow[lane] = s + off0;
+      if (lane + 32 < fanout) urow[lane + 32] = s + off1;
+    } else {
+      for (int k = lane; k < fanout; k += 32) urow[k] = -1;
+    }
+    __syncwarp();  // the slot is read before it is refilled
+  }
+  int32_t* orun = out + base * fanout;
+  for (int i0 = 0; i0 < picks; i0 += 32 * kBatch) {
+    int32_t got[kBatch];
+#pragma unroll
+    for (int t = 0; t < kBatch; ++t) {
+      const int i = i0 + 32 * t + lane;
+      const int32_t e = i < picks ? sl[i] : -1;
+      got[t] = e >= 0 ? __ldg(indices + e) : kEmpty;
+    }
+#pragma unroll
+    for (int t = 0; t < kBatch; ++t) {
+      const int i = i0 + 32 * t + lane;
+      if (i < picks) orun[i] = got[t];
     }
   }
-  if (lane < fanout) orow[lane] = __ldg(indices + ((int64_t)start + off0));
-  if (lane + 32 < fanout)
-    orow[lane + 32] = __ldg(indices + ((int64_t)start + off1));
 }
 
 // an alias draw of a row of degree deg > 0
@@ -297,14 +419,28 @@ extern "C" int xg_sample_prefix(const void* indptr, const void* indices,
                                 void* stream) {
   if (fanout < 1 || fanout > kMaxFanout) return (int)cudaErrorInvalidValue;
   if (num_rows <= 0) return (int)cudaGetLastError();
-  const long long blocks = (num_rows + kWarps - 1) / kWarps;
+  // rows a warp: as many as spread the frontier over the card's resident
+  // warps, at most 32 and kRunPicks / fanout
+  int dev = 0, sms = 132, per_sm = 1;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, sample_prefix_kernel,
+                                                kWarps * 32, 0);
+  const long long resident = (long long)sms * (per_sm > 0 ? per_sm : 1) *
+                             kWarps;
+  long long run_rows = (num_rows + resident - 1) / resident;
+  const int most = kRunPicks / fanout < 32 ? kRunPicks / fanout : 32;
+  run_rows = run_rows < 1 ? 1 : (run_rows > most ? most : run_rows);
+  const long long runs = (num_rows + run_rows - 1) / run_rows;
+  const long long blocks = (runs + kWarps - 1) / kWarps;
   sample_prefix_kernel<<<(unsigned)blocks, kWarps * 32, 0,
                          reinterpret_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(indptr),
       static_cast<const int32_t*>(indices),
       static_cast<const float*>(prefix), static_cast<const float*>(coarse),
       static_cast<const int32_t*>(frontier), static_cast<const float*>(u),
-      static_cast<int32_t*>(out), num_node, num_rows, fanout);
+      static_cast<int32_t*>(out), num_node, num_rows, fanout,
+      (int)run_rows);
   return (int)cudaGetLastError();
 }
 

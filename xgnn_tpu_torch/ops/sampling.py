@@ -470,11 +470,11 @@ def sample_weighted_khop_prefix(
 
     Every row of ``prob_prefix_table`` must be nondecreasing (sums of
     positive weights, as ``synthetic_device.prefix_table`` makes them): the
-    kernel counts the entries ``<= u * total`` where the plain version
-    searches, and the two agree on such rows.  ``coarse_cdf``
-    (:func:`build_coarse_cdf`, 128 wide) serves the kernel's rows of more
-    than 128 entries, which are gathered otherwise; ``max_deg`` sizes the
-    plain version's search.  ``u`` as for :func:`sample_khop0`."""
+    kernel searches a row held in shared memory and counts a hub's bucket,
+    the plain version searches the table, and the two agree on such rows.
+    ``coarse_cdf`` (:func:`build_coarse_cdf`, 128 wide) serves the kernel's
+    rows of more than 128 entries, which are gathered otherwise;
+    ``max_deg`` sizes the plain version's search.  ``u`` as for :func:`sample_khop0`."""
     _check_weighted(indptr, indices, frontier, fanout,
                     [("prob_prefix_table", prob_prefix_table, torch.float32)],
                     (fanout, u), _PREFIX)

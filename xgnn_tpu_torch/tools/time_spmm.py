@@ -2,7 +2,13 @@
 """Time K6 (``csrc/spmm.cu``) at full-graph inference's layer shapes, with
 its hub split and against the variants it was chosen over.
 
-    python3 xgnn_tpu_torch/tools/time_spmm.py
+    python3 xgnn_tpu_torch/tools/time_spmm.py [--root DIR]
+
+``DIR`` holds the ``xgnn_tpu_torch`` package to time (default: this
+checkout), so that two versions of the kernels are timed on one card, each
+in a process of its own: unpack the other version (``git archive``) into a
+gitignored directory such as ``build/`` and alternate the two roots
+(parent, change, change, parent).
 
 The graph is ``chip_smoke.py``'s products-scale synthetic dataset (seed
 0: 2,449,029 nodes, 123,999,946 edges); the tables are normal draws
@@ -16,18 +22,25 @@ ms (``chip_smoke.time_ms`` with the host ahead of the card) of:
 - each build over the same graph with the rows past 2048 edges emptied
   ("hubs excluded": what the rows kernel alone takes for the rest).
 
-The builds are "new" (the package's source) and variants made here from
-it by text substitution: "full_grid" (a block per 8 rows, every row its
-own warp, scheduled by the hardware as blocks finish, in place of the
-resident grid that strides over the rows) and "score_at_load" (K6b's
-first design: each edge's score computed as its er word is loaded, in
-place of after the group's loads).  Every build's result is first
-checked equal to new's bit for bit.  Turns run new, the variants, then the
-same backwards.  The last line is one JSON object.
+The builds are "new" (the package's source) and, for this checkout's
+source only, variants made here from it by text substitution:
+"full_grid" (a block per 8 rows, every row its own warp, scheduled by the
+hardware as blocks finish, in place of the resident grid that strides
+over the rows), "not_lean" (K6b's scalar one-head rows with 8 edges'
+rows in flight a warp and no register cap, as its other rows), "shared_l2"
+(K6b's feature rows at one head read with the default cache policy, not
+evict-first), "stream_all" (K6b's feature rows read evict-first at every
+head count, not at one head only) and "rows_after_scores" (K6b's first
+group of rows loaded after the batch's scores, in place of before them).  Every build's result
+is first held to the plain version within 1e-5 of the same aggregate of
+the terms' magnitudes, as ``chip_smoke.py`` holds K6.  Turns run new, the variants,
+then the same backwards.  The last line is one JSON object.
 """
 
+import argparse
 import ctypes
 import json
+import os
 import subprocess
 import sys
 import time
@@ -35,38 +48,24 @@ from pathlib import Path
 
 CHECKOUT = Path(__file__).resolve().parents[2]
 # name: the substitutions that make the variant from csrc/spmm.cu
-_SCORE_AFTER = """          sc[j][u] = 0.f;
-          if (live) {
-            if (c < wv) x[j][u] = __ldg(feat + (int64_t)r * wv + c);
-            sc[j][u] = __ldg(er + (int64_t)r * heads + hd[u]);
-          }
-        }
-      }
-      // the scores once every load of the group is in flight: computed
-      // as each er word arrived, they held the next edge's loads back
-#pragma unroll
-      for (int j = 0; j < G; ++j) {
-#pragma unroll
-        for (int u = 0; u < kV; ++u)
-          sc[j][u] = g0 + j < n ? leaky(el_v[u] + sc[j][u], slope)
-                                : -INFINITY;
-      }
-"""
-_SCORE_AT_LOAD = """          sc[j][u] = -INFINITY;
-          if (live) {
-            if (c < wv) x[j][u] = __ldg(feat + (int64_t)r * wv + c);
-            sc[j][u] = leaky(el_v[u] + __ldg(er + (int64_t)r * heads + hd[u]),
-                             slope);
-          }
-        }
-      }
-"""
 VARIANTS = {
     "full_grid": [(
         "  return (unsigned)(want < resident ? (want > 0 ? want : 1) : "
         "resident);",
         "  return (unsigned)(want > 0 ? want : 1);")],
-    "score_at_load": [(_SCORE_AFTER, _SCORE_AT_LOAD)],
+    "not_lean": [
+        ("__launch_bounds__(kThreads, kLean<V, kH> ? 6 : 1)",
+         "__launch_bounds__(kThreads)"),
+        ("      kLean<V, kH> || sizeof(V) * kV > 16 ? kGroup / 2 : kGroup;",
+         "      sizeof(V) * kV > 16 ? kGroup / 2 : kGroup;")],
+    "shared_l2": [("        x[i][u] = kH == 1 ? __ldcs(at) : __ldg(at);",
+                   "        x[i][u] = __ldg(at);")],
+    "stream_all": [("        x[i][u] = kH == 1 ? __ldcs(at) : __ldg(at);",
+                    "        x[i][u] = __ldcs(at);")],
+    "rows_after_scores": [
+        ("    V x[G][kV];\n    load_group<V, kV, kH, G>(feat, id, 0, n, wv, "
+         "p, x);\n", "    V x[G][kV];\n"),
+        ("      if (g0 > 0) load_group<", "      load_group<")],
 }
 HUB_CAPS = (2048, 256, 2**31 - 1)
 SHAPES = (("spmm", "mean", 128), ("spmm", "mean", 256), ("spmm", "sum", 256),
@@ -106,21 +105,37 @@ def build_variants(_build) -> dict:
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--root", default=str(CHECKOUT),
+                    help="the directory holding the xgnn_tpu_torch to time")
+    args = ap.parse_args()
     sys.path.insert(0, str(CHECKOUT))
     import chip_smoke as cs
+
+    sys.path.insert(0, os.path.abspath(args.root))
+    for name in [m for m in sys.modules if m.startswith("xgnn_tpu_torch")]:
+        del sys.modules[name]  # the package under --root, not this one
     import torch
 
     if not torch.cuda.is_available():
         print("time_spmm: no CUDA device; nothing was run", file=sys.stderr)
         return 2
+    import xgnn_tpu_torch
     from xgnn_tpu_torch import make_device_dataset
     from xgnn_tpu_torch.ops import _build
+    from xgnn_tpu_torch.ops.spmm import (
+        gat_aggregate_csr_plain,
+        spmm_csr_plain,
+    )
 
     dev = torch.device("cuda", 0)
     card = cs.card_line()
-    print(f"card: {card}", flush=True)
+    package = os.path.dirname(xgnn_tpu_torch.__file__)
+    own = Path(package).resolve() == (CHECKOUT / "xgnn_tpu_torch").resolve()
+    print(f"card: {card}; package {package}", flush=True)
     t0 = time.perf_counter()
-    libs = {"new": _build.load("spmm"), **build_variants(_build)}
+    libs = {"new": _build.load("spmm"),
+            **(build_variants(_build) if own else {})}
     print(f"builds: {time.perf_counter() - t0:.3f} s, {sorted(libs)}",
           flush=True)
     ds = make_device_dataset(cs.NUM_NODE, cs.NUM_EDGE, cs.FEAT_DIM,
@@ -176,12 +191,21 @@ def main() -> int:
                 _build.check(rc, "xg_gat_csr")
                 return out
             what = f"gat_aggregate_csr ({heads}, {d})"
-        want = call(libs["new"], graphs["all rows"], HUB_CAPS[0]).clone()
+        ip, ix = graphs["all rows"]
+        if kind == "spmm":
+            want = spmm_csr_plain(ip, ix, h, num_node=n, mean=form == "mean")
+            mass = spmm_csr_plain(ip, ix, h.abs(), num_node=n,
+                                  mean=form == "mean")
+        else:
+            want = gat_aggregate_csr_plain(ip, ix, feat, el, er, num_node=n)
+            mass = gat_aggregate_csr_plain(ip, ix, feat.abs(), el, er,
+                                           num_node=n)
         for name, lib in libs.items():
-            if not torch.equal(call(lib, graphs["all rows"], HUB_CAPS[0]),
-                               want):
-                raise AssertionError(f"{what}: {name} differs from new")
-        del want
+            got = call(lib, graphs["all rows"], HUB_CAPS[0])
+            if not bool(((got - want).abs() <= 1e-5 * mass + 1e-7).all()):
+                raise AssertionError(f"{what}: {name} differs from the "
+                                     "plain version")
+        del want, mass, got
         cases = [(name, graph, cap) for name in libs for graph in graphs
                  for cap in (HUB_CAPS if graph == "all rows"
                              else HUB_CAPS[:1])]
@@ -199,7 +223,8 @@ def main() -> int:
                             "hub_cap": cap, "device_ms": t})
         del out, call
         torch.cuda.empty_cache()
-    print(json.dumps({"card": card, "times": results}))
+    print(json.dumps({"card": card, "package": package,
+                      "times": results}))
     return 0
 
 
