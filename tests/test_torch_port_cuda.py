@@ -7,6 +7,9 @@ without the JAX test harness:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_port_cuda.py
 """
 
+import os
+import subprocess
+import sys
 import time
 
 import numpy as np
@@ -661,8 +664,9 @@ def test_unique_two_streams_interleaved(dev):
 
 def test_unique_threads_sharing_a_stream(dev):
     """Threads that queue K3 on one stream share its state: each call's
-    generation is drawn and launched under one lock, so the card sees
-    them in order."""
+    three launches are queued under one lock, so the calls do not
+    interleave, and each takes the generation its predecessor left on the
+    card."""
     import sys
     import threading
 
@@ -700,8 +704,9 @@ def test_unique_threads_sharing_a_stream(dev):
 
 
 def test_unique_generation_wrap(dev):
-    """The stamp wraps after 2^32 - 1 calls; the wrapper clears the state
-    once and starts again at 1."""
+    """The stamp wraps after 2^32 - 1 calls: the call of the last
+    generation clears the state on the card, and the next starts again at
+    1."""
     from xgnn_tpu_torch.ops import unique
 
     rng = np.random.default_rng(6)
@@ -1899,3 +1904,185 @@ def test_full_graph_inference_never_waits_on_the_card(dev, conv, heads):
     name = "gat_aggregate_csr" if conv == "gat" else "spmm_csr"
     assert _build.LAUNCHES.snapshot() == {name: 3}
     torch.testing.assert_close(out.cpu(), ref, rtol=1e-4, atol=1e-4)
+
+
+# ------------------------------------------------- CUDA graphs (device_loop)
+# Each capture test runs in a Python process of its own, so that no other
+# test of this file runs after a CUDA graph in its process, whatever the
+# order of the tests: the profiler-based tests count kernel records, and
+# after a replay in the process a profiler session had lost some (seen on
+# an H100 with torch 2.11 and CUDA 12.8).
+
+
+def _in_own_process(body: str, *args):
+    """Runs ``body(dev, *args)``, a function of this module, in a new Python
+    process on card 0."""
+    tests = os.path.dirname(os.path.abspath(__file__))
+    code = ("import sys, torch\n"
+            f"sys.path.insert(0, {tests!r})\n"
+            "import test_torch_port_cuda as m\n"
+            "torch.backends.cuda.matmul.allow_tf32 = False\n"
+            f"m.{body}(torch.device('cuda', 0), *{args!r})\n")
+    r = subprocess.run([sys.executable, "-c", code],
+                       cwd=os.path.dirname(tests), capture_output=True,
+                       text=True, timeout=900)
+    assert r.returncode == 0, r.stdout[-6000:] + r.stderr[-6000:]
+
+
+def _unique_replayed_under_capture(dev):
+    from xgnn_tpu_torch.ops import unique
+
+    rng = np.random.default_rng(12)
+    num_node, cap = 200_000, 60_000
+    cases = [_dedup_inputs(rng, num_node, 5000, 4700, 50_000)
+             for _ in range(4)]
+    prefix, picks, num_prev = _on_card(dev, cases[0])
+    stream = torch.cuda.Stream(dev)
+    stream.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(stream):
+        # the state made, and the kernels loaded, before the capture
+        unique.unique_seeded_split(prefix, picks, num_prev, cap,
+                                   num_node=num_node)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        out = unique.unique_seeded_split(prefix, picks, num_prev, cap,
+                                         num_node=num_node)
+    st = unique._states[(dev.index, stream.cuda_stream, num_node)]
+    gen = st.gen
+    for i, case in enumerate(cases[1:]):
+        for buf, val in zip((prefix, picks, num_prev), _on_card(dev, case)):
+            buf.copy_(val)
+        graph.replay()
+        torch.cuda.synchronize()
+        _assert_plain(out, (prefix, picks, num_prev), cap)
+        assert st.gen == gen + i + 1
+
+
+def test_unique_replayed_under_capture(dev):
+    """K3 captured once in a CUDA graph, replayed three times with new picks
+    copied into its inputs: each replay equals the plain version, so the
+    generation advances on the card, not in the captured launch."""
+    _in_own_process("_unique_replayed_under_capture")
+
+
+def _registered_generator_reseeded(dev):
+    from xgnn_tpu_torch.device import generator
+
+    gen = torch.Generator(device=dev)
+    stream = torch.cuda.Stream(dev)
+    stream.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(stream):
+        torch.rand((1000, 7), generator=gen, device=dev)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    graph.register_generator_state(gen)
+    with torch.cuda.graph(graph, stream=stream):
+        a = torch.rand((1000, 7), generator=gen, device=dev)
+        b = torch.rand((3, 1_000_003), generator=gen, device=dev)
+    for seed in (3, 99, 3):
+        gen.manual_seed(seed)
+        graph.replay()
+        torch.cuda.synchronize()
+        ref = generator(dev, seed)
+        assert torch.equal(a, torch.rand((1000, 7), generator=ref,
+                                         device=dev))
+        assert torch.equal(b, torch.rand((3, 1_000_003), generator=ref,
+                                         device=dev))
+
+
+def test_registered_generator_reseeded_equals_eager(dev):
+    """A generator registered with a CUDA graph and seeded with
+    ``manual_seed`` before each replay draws what a new generator of that
+    seed draws eagerly (the device_loop's uniforms and dropout masks)."""
+    _in_own_process("_registered_generator_reseeded")
+
+
+def _hand_kernel_launches(engine, epoch) -> dict:
+    """The port's kernels launched in one more epoch, by name, from the
+    profiler's records."""
+    import re
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    csrc = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "xgnn_tpu_torch", "csrc")
+    decl = re.compile(r"__global__\s+void\s+(?:__launch_bounds__\("
+                      r"(?:[^()]|\([^()]*\))*\)\s*)?(\w+)\s*\(")
+    names = set()
+    for f in os.listdir(csrc):
+        if f.endswith(".cu"):
+            with open(os.path.join(csrc, f)) as fh:
+                names.update(decl.findall(fh.read()))
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        # after a replay a session lost its first kernels' records: a
+        # lead-in of spin kernels, not counted
+        for _ in range(16):
+            torch.cuda._sleep(1000)
+        _settle()
+        engine.train_epoch(epoch)
+        _settle()
+    counts = {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        n = re.sub(r"^void\s+", "",
+                   e.name.replace("(anonymous namespace)::", ""))
+        n = re.match(r"(?:\w+::)*(\w+)", n).group(1)
+        if n in names:
+            counts[n] = counts.get(n, 0) + 1
+    return counts
+
+
+def _device_loop_against_host_loop(dev, model, heads):
+    from xgnn_tpu_torch import Engine, RunConfig, make_device_dataset
+    from xgnn_tpu_torch.ops import _build
+
+    ds = make_device_dataset(20_000, 100_000, 32, 7, seed=5, device=dev)
+    hist, counts = [], []
+    for device_loop in (False, True):
+        cfg = RunConfig(batch_size=256, fanout=(10, 5, 3), num_hidden=32,
+                        model=model, num_head=heads, dropout=0.5,
+                        calibration_batches=2, device_loop=device_loop)
+        engine = Engine(ds, cfg).init()
+        for epoch in range(2):
+            _build.LAUNCHES.reset()
+            engine.train_epoch(epoch)
+            torch.cuda.synchronize()
+            counts.append(_build.LAUNCHES.snapshot())
+        if device_loop:
+            assert engine._fused is not None and engine._fused.graph
+        hist.append([engine.history[e] for e in range(2)])
+    for host, fused in zip(*hist):
+        assert np.all(np.isfinite(host["loss"]))
+        np.testing.assert_allclose(fused["loss"], host["loss"], rtol=1e-5)
+        np.testing.assert_allclose(fused["acc"], host["acc"], rtol=1e-5)
+    # the capturing epoch calls each wrapper for the eager warm-up step and
+    # the captured one; a replayed epoch calls none
+    steps = len(hist[0][0]["loss"])
+    assert counts[2] == {k: 2 * n // steps for k, n in counts[1].items()}
+    assert counts[3] == {}
+    # and its replays launch the eager steps' kernels: a profiled host-loop
+    # epoch and a profiled replayed one of the same engine, a pair measured
+    # again where the profiler dropped a record
+    for attempt in range(3):
+        engine.config.device_loop = False
+        eager = _hand_kernel_launches(engine, 2 + 2 * attempt)
+        engine.config.device_loop = True
+        replayed = _hand_kernel_launches(engine, 3 + 2 * attempt)
+        if eager and replayed == eager:
+            break
+    else:
+        pytest.fail(f"replays launched {replayed}, eager steps {eager}")
+
+
+@pytest.mark.parametrize("model,heads", [("graphsage", 1), ("gcn", 1),
+                                         ("gat", 1), ("pinsage", 1)])
+def test_device_loop_equals_the_host_loop_on_the_card(dev, model, heads):
+    """Two epochs of the captured step, replayed, against the pipelined
+    host loop from the same seeds at dropout 0.5: equal per-step losses and
+    accuracies, and a profiled epoch of replays launches the hand kernels
+    that as many eager steps launch."""
+    _in_own_process("_device_loop_against_host_loop", model, heads)

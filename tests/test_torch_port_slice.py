@@ -307,5 +307,15 @@ def test_unported_configs_raise(field, value, learn_ds):
                         device="cpu").init()
         assert type(engine.feature_source) is TieredFeatureSource
         return
+    if field == "device_loop":
+        # once refused, device_loop now builds and trains: each step runs
+        # the captured step's function (uncaptured on the CPU)
+        cfg = RunConfig(**{field: value}, batch_size=64, fanout=(4, 3),
+                        num_layer=2, num_hidden=8, calibration_batches=1)
+        engine = Engine(Dataset.from_arrays(learn_ds), cfg,
+                        device="cpu").init()
+        r = engine.train_epoch(0)
+        assert engine._fused is not None and np.isfinite(r["loss"])
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         RunConfig(**{field: value})

@@ -362,6 +362,27 @@ def test_pinsage_sampler_batch_matches_jax(small_ds, direct):
     assert bool(port.overflow) == bool(ref.overflow)
 
 
+def test_pinsage_device_loop_builds_and_trains(learn_ds):
+    """``device_loop``, once refused, builds and trains on the walk: each
+    step runs the captured step's function (uncaptured on the CPU), with
+    the same losses as the host loop."""
+    from xgnn_tpu_torch import Engine, RunConfig
+    from xgnn_tpu_torch.dataset import Dataset
+
+    losses = []
+    for device_loop in (False, True):
+        cfg = RunConfig(model="pinsage", batch_size=64, num_hidden=8,
+                        num_neighbor=3, calibration_batches=1,
+                        device_loop=device_loop)
+        engine = Engine(Dataset.from_arrays(learn_ds), cfg,
+                        device="cpu").init()
+        engine.train_epoch(0)
+        assert (engine._fused is not None) == device_loop
+        losses.append(engine.history[0]["loss"])
+    assert np.all(np.isfinite(losses[1]))
+    np.testing.assert_allclose(losses[1], losses[0], rtol=1e-5)
+
+
 def test_unported_messages_name_roadmap_items_that_exist():
     """Each message names its ROADMAP item by a title that ROADMAP.md
     holds, so a renumbering cannot make it stale."""
@@ -372,7 +393,7 @@ def test_unported_messages_name_roadmap_items_that_exist():
 
     roadmap = (Path(__file__).resolve().parents[1] / "ROADMAP.md").read_text()
     cases = [dict(feat_dtype="bfloat16"),
-             dict(use_dist_graph=True), dict(device_loop=True),
+             dict(use_dist_graph=True),
              dict(agg_impl="tiled"), dict(compute_dtype="bfloat16"),
              dict(remat=True)]
     for kwargs in cases:

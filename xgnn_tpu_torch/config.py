@@ -7,15 +7,23 @@ the ROADMAP item that ports it; nothing is silently replaced by another
 path.  PinSAGE is the random-walk path: ``model="pinsage"`` coerces the
 sampler to ``random_walk`` with the JAX package's warning.  A
 ``cache_percentage`` in (0, 1) selects the tiered feature store, with the
-ranking of ``cache_policy``.
+ranking of ``cache_policy``.  ``device_loop`` runs an epoch as one
+training step captured in a CUDA graph and replayed once a step
+(``engine/fused.py``).  The environment overrides ``XGNN_SANITY_CHECK``
+and ``XGNN_DUMP_TRACE`` are read as the JAX package reads them; JAX's
+``profile_level`` is left out, since no level changes what its profiler
+logs.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import logging
+import os
 from enum import Enum
 from typing import Optional, Sequence
+
+from . import constants
 
 
 class SampleType(Enum):
@@ -60,6 +68,7 @@ PORTED_MODELS = ("graphsage", "gcn", "gat", "pinsage", "mlp")
 class RunConfig:
     # --- execution ---------------------------------------------------------
     sample_type: SampleType = SampleType.KHOP3
+    num_epoch: int = 10
     batch_size: int = 8000
     fanout: Sequence[int] = (15, 10, 5)
     pipeline: bool = True  # overlap sample(n+1) with train(n)
@@ -100,11 +109,18 @@ class RunConfig:
     frontier_capacities: Optional[Sequence[int]] = None
     calibration_batches: int = 3
 
+    # --- checkpointing -----------------------------------------------------
+    checkpoint_dir: Optional[str] = None
+    checkpoint_every: int = 1  # epochs
+
     # --- misc --------------------------------------------------------------
     seed: int = 42
     # the dynamic cache refreshes at an epoch's end when this is -1 or 0
     # (every epoch) or equal to the epoch
     barriered_epoch: int = -1
+    report_acc: int = 0
+    sanity_check: bool = False
+    dump_trace: bool = False
 
     def __post_init__(self):
         if isinstance(self.sample_type, str):
@@ -121,7 +137,29 @@ class RunConfig:
                 "sample_type=%s", self.sample_type,
             )
             self.sample_type = SampleType.RANDOM_WALK
+        self._load_env()
         self._check_supported()
+
+    def _load_env(self):
+        """The environment's overrides, as the JAX package reads them."""
+        env = os.environ
+        if constants.ENV_SANITY_CHECK in env:
+            self.sanity_check = env[constants.ENV_SANITY_CHECK] not in ("",
+                                                                        "0")
+        if constants.ENV_DUMP_TRACE in env:
+            self.dump_trace = env[constants.ENV_DUMP_TRACE] not in ("", "0")
+
+    def to_dict(self) -> dict:
+        out = dataclasses.asdict(self)
+        out["sample_type"] = self.sample_type.value
+        out["cache_policy"] = self.cache_policy.value
+        return out
+
+    def print_run_config(self):
+        """The ``config:key=value`` stdout lines, as the JAX package prints
+        them."""
+        for k, v in sorted(self.to_dict().items()):
+            print(f"config:{k}={v}")
 
     def _check_supported(self):
         if self.model not in PORTED_MODELS:
@@ -131,8 +169,6 @@ class RunConfig:
         if self.use_dist_graph:
             todo.append("use_dist_graph: ROADMAP queue 1, 'Tiered "
                         "topology' and 'Multi-GPU'")
-        if self.device_loop:
-            todo.append("device_loop: ROADMAP queue 1, 'Tooling'")
         if self.agg_impl != "loop":
             todo.append(f"agg_impl={self.agg_impl!r}: ROADMAP section 2, "
                         "'K14'")

@@ -18,3 +18,8 @@ EMPTY_KEY = int(np.iinfo(np.int32).max)  # 2147483647
 ALLOC_SCALE = 1.25
 # calibrated capacities are rounded up to a multiple of this
 CAPACITY_ALIGN = 256
+
+# environment overrides (the JAX package's names)
+ENV_SANITY_CHECK = "XGNN_SANITY_CHECK"
+ENV_DUMP_TRACE = "XGNN_DUMP_TRACE"
+ENV_LOG_NODE_ACCESS = "XGNN_LOG_NODE_ACCESS"

@@ -36,9 +36,7 @@
 //                    carries its generation's stamp ~gen, below every older
 //                    stamp, so an atomicMin of this call beats what older
 //                    calls left, and a read of an id marked in this call
-//                    sees this call's value.  The wrapper starts gen at 1,
-//                    adds one a call, and clears the state once when gen
-//                    would wrap.
+//                    sees this call's value.
 //   status[tiles]    the scan's tile words, (gen << 32) | flag | count: a
 //                    word of an older generation reads as not yet published.
 //   rank[words]      per bitmap word (words = ceil(num_node / 32)): the new
@@ -49,6 +47,17 @@
 //                    words it reads).
 //   misc             the scan's ticket counter (0 between calls) and the
 //                    number of new ids of the call.
+//   generations      two uint32: last_gen, the generation of the state's
+//                    last call (0 for a new state), and cur_gen, the
+//                    current call's.  Mark and rank take last_gen + 1; the
+//                    scan's last tile stores it in cur_gen, and remap, which
+//                    reads only cur_gen, stores it in last_gen.  So the
+//                    generation needs no host value, and a call captured in
+//                    a CUDA graph gets a new one on every replay.  A call of
+//                    generation 2^32 - 1, the last a stamp holds, ends with
+//                    the last block of remap to finish clearing the table
+//                    and the tile words and storing last_gen 0: the next
+//                    call starts again at 1.
 //
 // Three launches on the caller's stream, no host sync, no allocation:
 //   1. mark: a valid prefix id at position i does atomicMin(table[id],
@@ -70,7 +79,8 @@
 //      that holds its id's smallest position writes the id into uniq and
 //      counts one distinct prefix id (a block sum, one integer atomic into
 //      num_unique per block); every uniq slot no id lands on gets EMPTY.
-//      A grid-stride over max(prev_cap + m, out_cap).
+//      A grid-stride over max(prev_cap + m, out_cap).  Its first thread
+//      stores the call's generation in last_gen.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -103,14 +113,22 @@ __device__ __forceinline__ u64 status_word(uint32_t gen, unsigned flag,
   return ((u64)gen << 32) | flag | count;
 }
 
+__device__ __forceinline__ uint32_t call_generation(const uint32_t* last_gen) {
+  return *last_gen + 1u;
+}
+
+constexpr uint32_t kLastGen = 0xffffffffu;  // the last generation a stamp holds
+
 __global__ void mark_kernel(const int32_t* __restrict__ prefix,
                             int64_t prev_cap,
                             const int32_t* __restrict__ picks, int64_t m,
-                            int64_t num_node, u64 stamp,
+                            int64_t num_node,
+                            const uint32_t* __restrict__ last_gen,
                             u64* __restrict__ table,
                             uint32_t* __restrict__ pick_bits,
                             uint32_t* __restrict__ prefix_bits) {
   const int64_t n = prev_cap + m, stride = grid_threads();
+  const u64 stamp = (u64)(~call_generation(last_gen)) << 32;
   for (int64_t i = global_thread(); i < n; i += stride) {
     if (i < prev_cap) {
       const int32_t id = __ldg(prefix + i);
@@ -129,7 +147,9 @@ __global__ void rank_kernel(uint32_t* __restrict__ pick_bits,
                             uint32_t* __restrict__ prefix_bits, int64_t words,
                             u64* __restrict__ rank, u64* __restrict__ status,
                             int32_t tiles,
-                            uint32_t gen, int32_t* __restrict__ ticket,
+                            const uint32_t* __restrict__ last_gen,
+                            uint32_t* __restrict__ cur_gen,
+                            int32_t* __restrict__ ticket,
                             int32_t* __restrict__ num_new,
                             const int32_t* __restrict__ num_prev,
                             int32_t* __restrict__ uniq, int64_t out_cap,
@@ -138,6 +158,7 @@ __global__ void rank_kernel(uint32_t* __restrict__ pick_bits,
   __shared__ uint32_t s_warp[kWarps];  // warp counts, then warp offsets
   __shared__ uint32_t s_excl;          // the tile's exclusive prefix
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const uint32_t gen = call_generation(last_gen);
   if (threadIdx.x == 0) {
     // tiles draw their index in the order they start, so every tile a
     // tile looks back at has started and will publish
@@ -204,6 +225,7 @@ __global__ void rank_kernel(uint32_t* __restrict__ pick_bits,
       if (tile == tiles - 1) {
         *num_new = (int32_t)(excl + agg);
         *num_unique = (int32_t)(excl + agg);
+        *cur_gen = gen;
       }
     }
   }
@@ -231,15 +253,22 @@ __global__ void rank_kernel(uint32_t* __restrict__ pick_bits,
 __global__ void remap_kernel(const int32_t* __restrict__ prefix,
                              int64_t prev_cap,
                              const int32_t* __restrict__ picks, int64_t m,
-                             int64_t num_node, const u64* __restrict__ table,
+                             int64_t num_node, u64* table,
                              const u64* __restrict__ rank,
                              const int32_t* __restrict__ num_prev,
                              const int32_t* __restrict__ num_new,
                              int32_t* __restrict__ local_prefix,
                              int32_t* __restrict__ local_picks,
                              int32_t* __restrict__ uniq, int64_t out_cap,
-                             int32_t* __restrict__ num_unique) {
+                             int32_t* __restrict__ num_unique,
+                             u64* __restrict__ status, int32_t tiles,
+                             const uint32_t* __restrict__ cur_gen,
+                             uint32_t* __restrict__ last_gen,
+                             int32_t* __restrict__ ticket) {
   __shared__ int s_heads[kWarps];
+  __shared__ bool s_last;
+  const uint32_t gen = *cur_gen;
+  if (blockIdx.x == 0 && threadIdx.x == 0 && gen != kLastGen) *last_gen = gen;
   const int64_t n = prev_cap + m, work = n > out_cap ? n : out_cap;
   const int64_t stride = grid_threads();
   // the new ids' slots, written by the rank
@@ -283,6 +312,23 @@ __global__ void remap_kernel(const int32_t* __restrict__ prefix,
     for (int w = 0; w < kWarps; ++w) sum += s_heads[w];
     if (sum) atomicAdd(num_unique, sum);
   }
+  if (gen != kLastGen) return;
+  // the stamp's last generation: once every block's reads of the table are
+  // done (a ticket each), the last block makes every table entry older
+  // than any stamp, every tile word unpublished, and the next call's
+  // generation 1
+  if (threadIdx.x == 0) {
+    __threadfence();
+    const int32_t t = atomicAdd(ticket, 1);
+    s_last = t == (int32_t)gridDim.x - 1;
+    if (s_last) *ticket = 0;
+  }
+  __syncthreads();
+  if (!s_last) return;
+  for (int64_t i = threadIdx.x; i < num_node; i += blockDim.x)
+    table[i] = ~0ull;
+  for (int64_t i = threadIdx.x; i < tiles; i += blockDim.x) status[i] = 0;
+  if (threadIdx.x == 0) *last_gen = 0;
 }
 
 unsigned grid_for(long long work) {
@@ -296,26 +342,24 @@ unsigned grid_for(long long work) {
 
 // prefix: (prev_cap,) int32; picks: (m,) int32; num_prev: device int32
 // scalar; state: (state_len,) int64, laid out as above, at least num_node
-// + tiles + 2 * words + 1 entries for words = ceil(num_node / 32) and tiles =
-// max(1, ceil(words / 256)); gen in [1, 2^32): one more than the state's
-// last call, or 1 after the wrapper cleared it; uniq: (out_cap,) int32;
+// + tiles + 2 * words + 2 entries for words = ceil(num_node / 32) and tiles =
+// max(1, ceil(words / 256)), all as a new state holds them (table -1, the
+// rest 0) or as the last call left them; uniq: (out_cap,) int32;
 // num_unique: device int32 scalar; local_prefix: (prev_cap,) int32 or null;
 // local_picks: (m,) int32.  Returns cudaGetLastError() after the last
-// launch (cudaErrorInvalidValue, launching nothing, for a state too small
-// or a gen out of range).
+// launch (cudaErrorInvalidValue, launching nothing, for a state too
+// small).
 extern "C" int xg_unique_seeded(const void* prefix, long long prev_cap,
                                 const void* picks, long long m,
                                 const void* num_prev, long long num_node,
                                 long long out_cap, void* state,
-                                long long state_len, long long gen,
-                                void* uniq, void* num_unique,
-                                void* local_prefix, void* local_picks,
-                                void* stream) {
+                                long long state_len, void* uniq,
+                                void* num_unique, void* local_prefix,
+                                void* local_picks, void* stream) {
   const long long words = (num_node + 31) / 32;
   const long long tiles_ll = (words + kTileWords - 1) / kTileWords;
   const int32_t tiles = (int32_t)(tiles_ll < 1 ? 1 : tiles_ll);
-  if (state_len < num_node + tiles + 2 * words + 1 || gen < 1 ||
-      gen > 0xffffffffLL)
+  if (state_len < num_node + tiles + 2 * words + 2)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   u64* table = static_cast<u64*>(state);
@@ -326,8 +370,8 @@ extern "C" int xg_unique_seeded(const void* prefix, long long prev_cap,
   int32_t* misc = reinterpret_cast<int32_t*>(rank + 2 * words);
   int32_t* ticket = misc;
   int32_t* num_new = misc + 1;
-  const uint32_t g = (uint32_t)gen;
-  const u64 stamp = (u64)(~g) << 32;
+  uint32_t* last_gen = reinterpret_cast<uint32_t*>(rank + 2 * words + 1);
+  uint32_t* cur_gen = last_gen + 1;
   const int32_t* pre = static_cast<const int32_t*>(prefix);
   const int32_t* pk = static_cast<const int32_t*>(picks);
   const int32_t* np = static_cast<const int32_t*>(num_prev);
@@ -337,17 +381,16 @@ extern "C" int xg_unique_seeded(const void* prefix, long long prev_cap,
 
   if (n > 0)
     mark_kernel<<<grid_for(n), kThreads, 0, s>>>(pre, prev_cap, pk, m,
-                                                 num_node, stamp, table,
+                                                 num_node, last_gen, table,
                                                  pick_bits, prefix_bits);
   rank_kernel<<<tiles, kThreads, 0, s>>>(pick_bits, prefix_bits, words, rank,
-                                         status, tiles, g, ticket, num_new,
-                                         np, u, out_cap, nu);
+                                         status, tiles, last_gen, cur_gen,
+                                         ticket, num_new, np, u, out_cap, nu);
+  // launched even with nothing to remap: it advances last_gen
   const long long work = n > out_cap ? n : out_cap;
-  int32_t* lp = static_cast<int32_t*>(local_prefix);
-  int32_t* lk = static_cast<int32_t*>(local_picks);
-  if (work > 0)
-    remap_kernel<<<grid_for(work), kThreads, 0, s>>>(
-        pre, prev_cap, pk, m, num_node, table, rank, np, num_new, lp, lk, u,
-        out_cap, nu);
+  remap_kernel<<<grid_for(work), kThreads, 0, s>>>(
+      pre, prev_cap, pk, m, num_node, table, rank, np, num_new,
+      static_cast<int32_t*>(local_prefix), static_cast<int32_t*>(local_picks),
+      u, out_cap, nu, status, tiles, cur_gen, last_gen, ticket);
   return (int)cudaGetLastError();
 }

@@ -1,4 +1,5 @@
-"""The training engine: init, calibration and the host epoch loop.
+"""The training engine: init, calibration, the epoch loops, evaluation and
+``run``.
 
 The port of ``xgnn_tpu/engine/engine.py``'s single-store ``Engine``: the
 whole feature table on the device with direct extract, or, for a
@@ -13,10 +14,21 @@ skipped on the device).  ``dynamic_cache`` counts accesses on the device
 every step and refreshes the cache at epoch ends.  ``history[epoch]`` keeps
 each step's loss, accuracy, overflow flag, hits and misses and the host
 time of each stage.
+
+``profiler`` is wired as the JAX engine wires it: init times and memory,
+each step's stage times, input nodes, hit rate and miss bytes, the
+overflow retries, ``dump_trace``'s spans, the node-access log and
+``sanity_check`` in ``_produce``.  ``device_loop`` runs an epoch as one
+captured step replayed once a step (``fused.py``) where JAX's gate allows
+it (the whole table on the device, no per-step host instrumentation, no
+dynamic cache); otherwise it warns once and takes the host loop, as the
+JAX engine does.  ``run`` trains ``num_epoch`` epochs with the accuracy
+report, checkpoints and resume, and prints the ``test_result:`` lines.
 """
 
 from __future__ import annotations
 
+import logging
 import time
 from typing import Optional
 
@@ -24,9 +36,12 @@ import numpy as np
 import torch
 
 from .. import constants as C
+from .. import profiler as P
+from ..checkpoint import CheckpointManager
 from ..config import WEIGHTED, CachePolicy, RunConfig
 from ..device import generator, resolve, seed_of
 from ..models import build_model
+from ..ops import sanity
 from ..ops.presample import accumulate_freq
 from ..sampler import Sampler
 from ..store.feature_store import (
@@ -39,6 +54,7 @@ from ..store.presample import presample_ranking, static_exact_ranking
 from ..store.ranking import FREQUENCY_POLICIES, build_ranking
 from ..train import Adam, eval_step, train_step
 from ..types import Graph
+from .fused import FusedEpoch
 from .pipeline import Prefetcher
 from .shuffler import Shuffler
 
@@ -73,27 +89,42 @@ class Engine:
         self.history: dict = {}
         # host seconds of the init stages (presample, cache build)
         self.init_times: dict = {}
+        self.profiler = P.Profiler()
         self._dyn_freq: Optional[torch.Tensor] = None
+        self._fused: Optional[FusedEpoch] = None
+        self._fused_warned = False
 
     # ------------------------------------------------------------------ init
     def init(self):
         cfg = self.config
+        prof = self.profiler
+        t0 = time.perf_counter()
         if getattr(self.ds, "graph", None) is not None:
             self.graph = self.ds.graph
         else:
             self.graph = Graph.from_dataset(
                 self.ds, self.device, weighted=cfg.sample_type in WEIGHTED)
+        prof.log_init("graph_load_time", time.perf_counter() - t0)
+        prof.log_mem_usage("graph_load", self.device)
+        t0 = time.perf_counter()
         # direct extract: the last sampled layer keeps global ids and the
         # first GNN layer reads the feature table itself; the tiered store
         # extracts the last layer's deduplicated ids instead
         self._direct = cfg.gpu_extract and not self._tiered
         self.sampler = Sampler(self.graph, cfg, direct_extract=self._direct)
         self._calibrate()
+        prof.log_init("sampler_build_time", time.perf_counter() - t0)
+        t0 = time.perf_counter()
         self._build_feature_source()
         self.label_source = LabelSource(self.ds.label, self.device)
+        prof.log_init("cache_build_time", time.perf_counter() - t0)
+        prof.log_mem_usage("cache_build", self.device)
+        t0 = time.perf_counter()
         self.model = build_model(cfg, self.ds.feat_dim, self.ds.num_class)
         self.model.to(self.device)
         self.opt = Adam(list(self.model.parameters()), cfg.lr)
+        prof.log_init("model_init_time", time.perf_counter() - t0)
+        prof.log_mem_usage("model_init", self.device)
         return self
 
     def _calibrate(self):
@@ -118,6 +149,7 @@ class Engine:
         ]
         self.sampler = Sampler(self.graph, cfg, caps,
                                direct_extract=self._direct)
+        self.profiler.log_init("calibrated_input_cap", caps[-1])
 
     @property
     def _tiered(self) -> bool:
@@ -144,6 +176,8 @@ class Engine:
                     self.sampler, self.ds.train_set, cfg,
                     self.sampler.num_node, self.device)
             self.init_times["presample"] = time.perf_counter() - t0
+            self.profiler.log_init("presample_time",
+                                   self.init_times["presample"])
         ranking = build_ranking(self.ds, cfg, access_freq)
         t0 = time.perf_counter()
         cls = (DynamicTieredFeatureSource
@@ -171,21 +205,9 @@ class Engine:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    def _produce(self, item, sync: bool = False):
-        """Sample + extract for one step (in the prefetch thread when
-        pipelining).  Returns host times of the two stages: on a CUDA
-        device they measure the enqueue, unless ``sync`` waits for each
-        stage's device work."""
-        (seeds, num_valid), seed, _ = item
-        t0 = time.perf_counter()
-        gen = generator(self.device, seed)
-        batch = self.sampler.sample(self._to_device(seeds), num_valid, gen)
-        if self._dyn_freq is not None:
-            accumulate_freq(self._dyn_freq, batch.input_nodes,
-                            batch.num_input)
-        if sync:
-            self._sync()
-        t1 = time.perf_counter()
+    def _extract(self, batch):
+        """A step's feature rows (under direct extract the table itself)
+        and labels, with the store's hit counts."""
         if self._direct:
             x, info = self.feature_source.feat, {"hit_rate": 1.0,
                                                  "miss_bytes": 0}
@@ -194,13 +216,113 @@ class Engine:
                                                   batch.num_input)
         labels = self.label_source.extract(batch.output_nodes,
                                            batch.num_output)
+        return x, labels, info
+
+    def _train(self, batch, x, labels, gen) -> dict:
+        """A step's forward, backward and Adam, skipped on the device when
+        the batch overflowed."""
+        return train_step(self.model, self.opt, batch.blocks, x, labels,
+                          batch.num_output, gen, batch.overflow)
+
+    def _produce(self, item, sync: bool = False):
+        """Sample + extract for one step (in the prefetch thread when
+        pipelining).  Returns host times of the two stages: on a CUDA
+        device they measure the enqueue, unless ``sync`` waits for each
+        stage's device work.  With ``sanity_check`` the batch's violation
+        flags come to the host and a violation raises; with the node-access
+        log its input nodes come to the host."""
+        (seeds, num_valid), seed, (epoch, step) = item
+        cfg, prof = self.config, self.profiler
+        if cfg.dump_trace:
+            prof.trace_begin(epoch, step, "sample")
+        t0 = time.perf_counter()
+        gen = generator(self.device, seed)
+        batch = self.sampler.sample(self._to_device(seeds), num_valid, gen)
+        if cfg.sanity_check:
+            flags = int(sanity.check_batch(batch))
+            if flags:
+                raise RuntimeError(
+                    f"sanity check failed: {sanity.explain(flags)}")
+        if prof._log_node_access:
+            prof.log_node_access(
+                batch.input_nodes[:int(batch.num_input)].cpu().numpy())
+        if self._dyn_freq is not None:
+            accumulate_freq(self._dyn_freq, batch.input_nodes,
+                            batch.num_input)
+        if sync:
+            self._sync()
+        t1 = time.perf_counter()
+        if cfg.dump_trace:
+            prof.trace_end(epoch, step, "sample")
+            prof.trace_begin(epoch, step, "copy")
+        x, labels, info = self._extract(batch)
         if sync:
             self._sync()
         t2 = time.perf_counter()
+        if cfg.dump_trace:
+            prof.trace_end(epoch, step, "copy")
         return batch, x, labels, info, (t1 - t0, t2 - t1)
 
+    def _fused_ok(self) -> bool:
+        """``device_loop``'s gate, the JAX engine's: the captured step must
+        be device work alone, so the whole table on the device and no
+        per-step host instrumentation."""
+        return (isinstance(self.feature_source, HBMFeatureSource)
+                and not self.config.dump_trace
+                and not self.config.sanity_check
+                and not self.profiler._log_node_access
+                and self._dyn_freq is None)
+
+    def _train_epoch_fused(self, epoch: int) -> dict:
+        """The ``device_loop`` epoch: the captured step replayed once a
+        step (captured at the first such epoch, and again after an
+        overflow grew the sampler)."""
+        cfg, prof = self.config, self.profiler
+        shuffler = Shuffler(self.ds.train_set, cfg.batch_size,
+                            seed=cfg.seed + 1, num_worker=1)
+        steps = shuffler.num_local_step
+        seeds = np.empty((steps, cfg.batch_size), C.ID_DTYPE)
+        num_valid = np.empty((steps,), np.int32)
+        for s, (b_seeds, n) in enumerate(shuffler.epoch_batches(epoch)):
+            seeds[s], num_valid[s] = b_seeds, n
+        gen_seeds = [(seed_of(cfg.seed, _SAMPLE, epoch, s),
+                      seed_of(cfg.seed, _DROPOUT, epoch, s))
+                     for s in range(steps)]
+        if self._fused is None or self._fused.steps != steps:
+            self._fused = FusedEpoch(self, steps)
+            prof.log_init("device_loop_capture_time", self._fused.capture_s)
+        t0 = time.perf_counter()
+        # ONE device-to-host pull for the epoch's metrics
+        loss_v, acc_v, over_v, nin_v = self._fused.run(seeds, num_valid,
+                                                       gen_seeds)
+        dt = time.perf_counter() - t0
+        self.history[epoch] = {"loss": loss_v, "acc": acc_v,
+                               "overflow": over_v, "num_input": nin_v}
+        for s in range(steps):
+            prof.log_step(epoch, s, P.L1_NUM_NODE, float(nin_v[s]))
+        n_over = int(over_v.sum())
+        if n_over:
+            print(f"warning: {n_over} batches overflowed capacity in epoch "
+                  f"{epoch}")
+            prof.log_step(epoch, 0, P.L3_OVERFLOW_RETRY, float(n_over))
+            self.sampler = self.sampler.grow()
+            self._fused = None  # capacities changed: capture again
+        loss = _nanmean(loss_v)
+        acc = _nanmean(np.where(np.isnan(loss_v), np.nan, acc_v))
+        prof.log_epoch_add(epoch, "epoch_time", dt)
+        return {"epoch": epoch, "loss": loss, "train_acc": acc, "time": dt}
+
     def train_epoch(self, epoch: int) -> dict:
-        cfg = self.config
+        cfg, prof = self.config, self.profiler
+        if cfg.device_loop:
+            if self._fused_ok():
+                return self._train_epoch_fused(epoch)
+            if not self._fused_warned:
+                self._fused_warned = True
+                logging.getLogger(__name__).warning(
+                    "device_loop requested but ineligible (needs all-HBM "
+                    "features, no per-step host instrumentation); using the "
+                    "host-driven loop")
         shuffler = Shuffler(self.ds.train_set, cfg.batch_size,
                             seed=cfg.seed + 1, num_worker=1)
 
@@ -216,28 +338,40 @@ class Engine:
             # unpipelined, each stage's host time covers its device work
             else (self._produce(item, sync=True) for item in work())
         )
-        losses, accs, overflows, hits, misses = [], [], [], [], []
+        losses, accs, overflows, num_inputs = [], [], [], []
+        hits, misses = [], []
         stages = {"sample": [], "extract": [], "train": []}
         t_epoch = time.perf_counter()
         try:
             for step, (batch, x, labels, info, (t_sample, t_extract)) in (
                 enumerate(stream)
             ):
+                if cfg.dump_trace:
+                    prof.trace_begin(epoch, step, "train")
                 t0 = time.perf_counter()
                 gen = generator(self.device,
                                 seed_of(cfg.seed, _DROPOUT, epoch, step))
-                metrics = train_step(
-                    self.model, self.opt, batch.blocks, x, labels,
-                    batch.num_output, gen, batch.overflow,
-                )
+                metrics = self._train(batch, x, labels, gen)
                 if not cfg.pipeline:
                     self._sync()
+                t_train = time.perf_counter() - t0
+                if cfg.dump_trace:
+                    prof.trace_end(epoch, step, "train")
+                prof.log_step(epoch, step, P.L1_SAMPLE_TIME, t_sample)
+                prof.log_step(epoch, step, P.L1_COPY_TIME, t_extract)
+                prof.log_step(epoch, step, P.L1_TRAIN_TIME, t_train)
+                if info.get("hit_rate") is not None:
+                    prof.log_step(epoch, step, P.L2_CACHE_HIT_RATE,
+                                  info["hit_rate"])
+                    prof.log_step(epoch, step, P.L1_MISS_BYTES,
+                                  info["miss_bytes"])
                 stages["sample"].append(t_sample)
                 stages["extract"].append(t_extract)
-                stages["train"].append(time.perf_counter() - t0)
+                stages["train"].append(t_train)
                 losses.append(metrics["loss"])
                 accs.append(metrics["acc"])
                 overflows.append(batch.overflow)
+                num_inputs.append(batch.num_input)
                 if "num_hit" in info:
                     hits.append(info["num_hit"])
                     misses.append(info["num_miss"])
@@ -249,30 +383,42 @@ class Engine:
         hit_rate = float("nan")
         if losses:
             # ONE device-to-host pull for the epoch's metrics
+            # counts below 2^24 a step: exact in float32
             cols = [torch.stack(losses).float(), torch.stack(accs).float(),
-                    torch.stack(overflows).float()]
+                    torch.stack(overflows).float(),
+                    torch.stack(num_inputs).float()]
             if hits:
-                # counts below 2^24 a step: exact in float32
                 cols += [torch.stack(hits).float(),
                          torch.stack(misses).float()]
             stats = torch.stack(cols).cpu().numpy()
-            loss_v, acc_v, over_v = stats[:3]
+            loss_v, acc_v, over_v, nin_v = stats[:4]
             self.history[epoch] = {"loss": loss_v, "acc": acc_v,
-                                   "overflow": over_v, "stages": stages}
+                                   "overflow": over_v, "num_input": nin_v,
+                                   "stages": stages}
             if hits:
-                hit_v, miss_v = stats[3], stats[4]
+                hit_v, miss_v = stats[4], stats[5]
                 self.history[epoch].update(hit=hit_v, miss=miss_v)
                 total = hit_v.sum() + miss_v.sum()
                 hit_rate = float(hit_v.sum() / max(total, 1.0))
+                prof.log_step(epoch, 0, P.L2_CACHE_HIT_RATE, hit_rate)
+                row_bytes = self.feature_source.feat_dim * 4
+                for step, m in enumerate(miss_v):
+                    prof.log_step(epoch, step, P.L1_MISS_BYTES,
+                                  float(m) * row_bytes)
+            for step, n in enumerate(nin_v):
+                prof.log_step(epoch, step, P.L1_NUM_NODE, float(n))
             if over_v.sum():
                 print(f"warning: {int(over_v.sum())} batches overflowed "
                       f"capacity in epoch {epoch}")
+                prof.log_step(epoch, 0, P.L3_OVERFLOW_RETRY,
+                              float(over_v.sum()))
                 self.sampler = self.sampler.grow()
             loss = _nanmean(loss_v)
             acc = _nanmean(np.where(np.isnan(loss_v), np.nan, acc_v))
         else:
             loss = acc = float("nan")
         dt = time.perf_counter() - t_epoch
+        prof.log_epoch_add(epoch, "epoch_time", dt)
         refresh = (cfg.barriered_epoch in (-1, 0)
                    or epoch == cfg.barriered_epoch)
         if self._dyn_freq is not None and refresh:
@@ -309,3 +455,51 @@ class Engine:
             weights.append(n)
         accs = torch.stack(accs).float().cpu().numpy()
         return float(np.average(accs, weights=weights))
+
+    # ------------------------------------------------------------------- run
+    def run(self) -> dict:
+        """``init``, then epochs up to ``num_epoch``: resumed from the
+        newest checkpoint of ``checkpoint_dir`` where there is one, the
+        valid accuracy every ``report_acc`` epochs, a checkpoint every
+        ``checkpoint_every``; then the trace (``dump_trace``), the
+        node-access files and the ``test_result:`` lines, into the working
+        directory and stdout as the JAX engine writes them."""
+        cfg = self.config
+        self.init()
+        ckpt = None
+        start_epoch = 0
+        if cfg.checkpoint_dir:
+            ckpt = CheckpointManager(cfg.checkpoint_dir)
+            state, extra = ckpt.restore((self.model, self.opt))
+            if state is not None:
+                start_epoch = (extra or {}).get("epoch", -1) + 1
+                print(f"resumed from checkpoint at epoch {start_epoch}")
+        results = []
+        for epoch in range(start_epoch, cfg.num_epoch):
+            r = self.train_epoch(epoch)
+            results.append(r)
+            if cfg.report_acc and epoch % max(cfg.report_acc, 1) == 0:
+                r["valid_acc"] = self.evaluate("valid")
+            if ckpt and (epoch + 1) % cfg.checkpoint_every == 0:
+                ckpt.save(epoch, (self.model, self.opt),
+                          extra={"epoch": epoch})
+        if ckpt:
+            ckpt.close()
+        if cfg.dump_trace:
+            path = "xgnn_trace.json"
+            self.profiler.dump_trace(path)
+            print(f"trace dumped to {path}")
+        if self.profiler._log_node_access:
+            deg = self.ds.degrees
+            self.profiler.dump_node_access(
+                "node_access.txt", in_degrees=deg, out_degrees=deg)
+            self.profiler.dump_node_access_frequency(
+                "node_access_frequency.txt", self.ds.num_node)
+            self.profiler.dump_node_access_similarity(
+                "node_access_similarity.txt")
+            opt = self.profiler.optimal_cache_hit_rate(
+                max(cfg.cache_percentage, 0.0), self.ds.num_node)
+            print(f"test_result:optimal_cache_hit_rate={opt:.6f}")
+        out = self.profiler.test_results(extra={
+            "final_train_acc": results[-1]["train_acc"] if results else 0.0})
+        return {"epochs": results, "test_results": out}

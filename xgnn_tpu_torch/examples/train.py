@@ -1,0 +1,184 @@
+"""Train a GNN with the PyTorch port: the counterpart of the JAX package's
+``examples/train.py``, with its flags.
+
+It prints the ``config:`` lines, then ``Engine.run()``'s ``test_result:``
+lines.  ``--synthetic`` builds a power-law graph on the device with
+``make_device_dataset`` (``--synthetic-nodes`` nodes, ``--synthetic-nodes *
+--synthetic-degree / 2`` endpoint draws, symmetrised; 128 features, 32
+classes).  ``--cpu`` runs everything on the CPU.  Flags that select a path
+the port does not have yet raise ``NotImplementedError`` naming its ROADMAP
+item.
+
+    python -m xgnn_tpu_torch.examples.train --cpu --synthetic \\
+        --synthetic-nodes 20000 --model graphsage --num-epoch 2 \\
+        --batch-size 500 --fanout 8 4 --num-hidden 32 --report-acc 1
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+from typing import Optional, Sequence
+
+FEAT_DIM, NUM_CLASS = 128, 32  # the JAX command line's synthetic graph
+DATASET_FILES = "ROADMAP queue 1, 'Dataset files and host test graphs'"
+MULTI_GPU = "ROADMAP queue 1, 'Multi-GPU'"
+TIERED_TOPOLOGY = "ROADMAP queue 1, 'Tiered topology'"
+WEIGHTED = ("weighted_khop", "weighted_khop_prefix",
+            "weighted_khop_hash_dedup")
+
+
+def parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser("xgnn_tpu_torch training")
+    p.add_argument("--model", default="graphsage",
+                   choices=["graphsage", "gcn", "gat", "pinsage", "mlp"])
+    p.add_argument("--dataset", default="synthetic")
+    p.add_argument("--root-path", default="/graph-learning/samgraph/")
+    p.add_argument("--synthetic", action="store_true",
+                   help="a power-law graph built on the device")
+    p.add_argument("--synthetic-nodes", type=int, default=100_000)
+    p.add_argument("--synthetic-degree", type=float, default=15,
+                   help="mean degree of the symmetrised graph")
+    p.add_argument("--synthetic-signal", type=float, default=None,
+                   help="planted label signal (not ported)")
+    p.add_argument("--synthetic-rmat", action="store_true",
+                   help="RMAT generator (not ported)")
+    p.add_argument("--sample-type", default="khop3",
+                   choices=["khop0", "khop1", "khop2", "khop3",
+                            "weighted_khop", "weighted_khop_prefix",
+                            "weighted_khop_hash_dedup", "random_walk"])
+    p.add_argument("--fanout", nargs="+", type=int, default=[15, 10, 5])
+    p.add_argument("--batch-size", type=int, default=8000)
+    p.add_argument("--num-epoch", type=int, default=10)
+    p.add_argument("--num-hidden", type=int, default=256)
+    p.add_argument("--num-head", type=int, default=1,
+                   help="GAT attention heads (hidden layers)")
+    p.add_argument("--lr", type=float, default=0.003)
+    p.add_argument("--dropout", type=float, default=0.5)
+    p.add_argument("--cache-policy", default="pre_sample",
+                   choices=["degree", "heuristic", "pre_sample", "degree_hop",
+                            "presample_static", "fake_optimal",
+                            "dynamic_cache", "random"])
+    p.add_argument("--cache-percentage", type=float, default=0.0)
+    p.add_argument("--presample-epoch", type=int, default=1)
+    p.add_argument("--num-worker", type=int, default=1)
+    p.add_argument("--num-sample-worker", type=int, default=0)
+    p.add_argument("--num-train-worker", type=int, default=1)
+    p.add_argument("--num-dcn-groups", type=int, default=1)
+    p.add_argument("--use-dist-graph", action="store_true", default=False)
+    p.add_argument("--dist-graph-percentage", type=float, default=1.0)
+    p.add_argument("--part-cache", action="store_true", default=False)
+    p.add_argument("--auto-placement", action="store_true", default=False)
+    p.add_argument("--hbm-budget-gb", type=float, default=None)
+    p.add_argument("--pipeline", action="store_true", default=False)
+    p.add_argument("--no-pipeline", dest="pipeline", action="store_false")
+    p.add_argument("--device-loop", action="store_true", default=False,
+                   help="each step one replay of a captured CUDA graph")
+    p.add_argument("--report-acc", type=int, default=0)
+    p.add_argument("--checkpoint-dir", type=str, default=None)
+    p.add_argument("--checkpoint-every", type=int, default=1)
+    p.add_argument("--validate-configs", action="store_true",
+                   help="exit after printing the resolved config")
+    p.add_argument("--seed", type=int, default=42)
+    p.add_argument("-pl", "--profile-level", type=int, default=0,
+                   help="taken as the JAX command line takes it; no level "
+                   "changes what is logged")
+    p.add_argument("--prefetch-depth", type=int, default=2)
+    p.add_argument("--cpu", action="store_true",
+                   help="run on the CPU (the kernels' plain versions)")
+    p.add_argument("--gpu-extract", dest="gpu_extract", action="store_true",
+                   default=True)
+    p.add_argument("--no-gpu-extract", dest="gpu_extract",
+                   action="store_false")
+    p.add_argument("--agg-impl", default=None, choices=["loop", "tiled"])
+    p.add_argument("--remat", action="store_true", default=False)
+    p.add_argument("--feat-dtype", default=None,
+                   choices=["float32", "bfloat16"])
+    p.add_argument("--compute-dtype", default=None,
+                   choices=["float32", "bfloat16"])
+    return p
+
+
+def check_ported(args):
+    """Refuse the flags of paths the port does not have yet."""
+    todo = []
+    if not (args.synthetic or args.dataset == "synthetic"):
+        todo.append(f"--dataset {args.dataset} from files: {DATASET_FILES}")
+    if args.synthetic_signal is not None or args.synthetic_rmat:
+        todo.append("--synthetic-signal and --synthetic-rmat (the host "
+                    f"synthetic graphs): {DATASET_FILES}")
+    if (args.num_worker > 1 or args.num_sample_worker > 0
+            or args.num_train_worker != 1 or args.num_dcn_groups != 1
+            or args.part_cache or args.auto_placement
+            or args.hbm_budget_gb is not None):
+        todo.append(f"more than one card: {MULTI_GPU}")
+    if args.use_dist_graph or args.dist_graph_percentage < 1.0:
+        todo.append(f"--use-dist-graph: {TIERED_TOPOLOGY}")
+    if todo:
+        raise NotImplementedError(
+            "not ported to xgnn_tpu_torch yet: " + "; ".join(todo))
+
+
+def synthetic_dataset(num_node: int, degree: float, seed: int, device,
+                      sample_type: str = "khop3"):
+    """The ``--synthetic`` graph on ``device``, with the tables that a
+    weighted ``sample_type`` reads."""
+    from xgnn_tpu_torch import make_device_dataset
+    from xgnn_tpu_torch.synthetic_device import alias_tables, edge_weights
+
+    ds = make_device_dataset(num_node, int(num_node * degree / 2), FEAT_DIM,
+                             NUM_CLASS, seed=seed, device=device,
+                             weighted=sample_type in WEIGHTED)
+    if sample_type in ("weighted_khop", "weighted_khop_hash_dedup"):
+        g = ds.graph
+        g.prob_table, g.alias_table = alias_tables(
+            g.indptr, g.indices, edge_weights(g.num_edge, seed, g.indptr.device))
+    return ds
+
+
+def main(argv: Optional[Sequence[str]] = None):
+    """Train as the flags say; returns the engine after ``run()``."""
+    args = parser().parse_args(argv)
+    check_ported(args)
+    from xgnn_tpu_torch import Engine, RunConfig
+
+    if args.sample_type == "random_walk" and args.model != "pinsage":
+        print("warning: random_walk sampling is the pinsage path; "
+              "forcing --model pinsage", file=sys.stderr)
+        args.model = "pinsage"
+    if args.model == "pinsage":
+        args.sample_type = "random_walk"
+    extra = {k: v for k, v in (("agg_impl", args.agg_impl),
+                               ("feat_dtype", args.feat_dtype),
+                               ("compute_dtype", args.compute_dtype))
+             if v is not None}
+    config = RunConfig(
+        model=args.model, **extra, sample_type=args.sample_type,
+        fanout=tuple(args.fanout), num_layer=len(args.fanout),
+        batch_size=args.batch_size, num_epoch=args.num_epoch,
+        num_hidden=args.num_hidden, num_head=args.num_head, lr=args.lr,
+        dropout=args.dropout, cache_policy=args.cache_policy,
+        cache_percentage=args.cache_percentage,
+        presample_epoch=args.presample_epoch, pipeline=args.pipeline,
+        gpu_extract=args.gpu_extract, device_loop=args.device_loop,
+        remat=args.remat, report_acc=args.report_acc,
+        checkpoint_dir=args.checkpoint_dir,
+        checkpoint_every=args.checkpoint_every, seed=args.seed,
+        prefetch_depth=args.prefetch_depth,
+    )
+    config.print_run_config()
+    if args.validate_configs:
+        return None
+    device = "cpu" if args.cpu else None
+    ds = synthetic_dataset(args.synthetic_nodes, args.synthetic_degree,
+                           args.seed, device, args.sample_type)
+    engine = Engine(ds, config, device=device)
+    engine.run()
+    if args.report_acc:
+        acc = engine.evaluate("test")
+        print(f"test_result:test_acc={acc:.4f}")
+    return engine
+
+
+if __name__ == "__main__":
+    main()

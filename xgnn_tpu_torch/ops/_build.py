@@ -52,7 +52,7 @@ SIGNATURES = {
         "xg_random_walk": [_P] * 7 + [_LL, _LL, _I, _I, _I, _F, _P],
     },
     "unique": {
-        "xg_unique_seeded": [_P, _LL, _P, _LL, _P, _LL, _LL, _P, _LL, _LL,
+        "xg_unique_seeded": [_P, _LL, _P, _LL, _P, _LL, _LL, _P, _LL,
                              _P, _P, _P, _P, _P],
     },
     "degree": {

@@ -9,7 +9,11 @@ The CUDA kernel is ``csrc/unique.cu``: a direct-address table over the node
 ids and a bitmap of the ids present, so it needs ``num_node``.  Its table
 and bitmaps are state kept across calls, one per (device, stream,
 ``num_node``), made at first use (:func:`state`); a call allocates only its
-outputs and makes three launches.  :func:`unique_seeded_split` takes the
+outputs and makes three launches.  The state's generation stamp lives on
+the card and the kernel advances it, so a call captured in a CUDA graph
+stays right on every replay; make the state before the capture, on the
+stream that captures (a state made during a capture would put its fill
+into the graph).  :func:`unique_seeded_split` takes the
 prefix and the picks as two tensors, as the sampler holds them, and returns
 the picks' local ids only.  :func:`unique_seeded_plain` is the kernel's
 plain PyTorch version (one stable sort, a ``cummax`` forward fill and two
@@ -107,31 +111,32 @@ def unique_seeded_split_plain(prefix: torch.Tensor, picks: torch.Tensor,
 
 
 class _State:
-    """K3's table, tile words, rank records and bitmaps for one stream
-    (``csrc/unique.cu`` gives the layout), and the generation of its last
-    call."""
+    """K3's table, tile words, rank records, bitmaps and the generation of
+    its last call, for one stream (``csrc/unique.cu`` gives the layout)."""
 
     def __init__(self, device: torch.device, num_node: int):
         words = -(-num_node // 32)
         tiles = max(1, -(-words // _TILE_WORDS))
         self.num_node = num_node
-        self.buf = torch.empty(num_node + tiles + 2 * words + 1,
+        self.buf = torch.empty(num_node + tiles + 2 * words + 2,
                                dtype=torch.int64, device=device)
         self.lock = threading.Lock()
-        self.clear()
+        # every table entry older than any stamp, every tile word
+        # unpublished, the bitmaps, the ticket and the generation 0
+        self.buf[:num_node].fill_(-1)
+        self.buf[num_node:].zero_()
 
-    def clear(self):
-        """Every table entry older than any stamp, every tile word
-        unpublished, the bitmaps and the ticket 0."""
-        self.buf[:self.num_node].fill_(-1)
-        self.buf[self.num_node:].zero_()
-        self.gen = 0
+    @property
+    def gen(self) -> int:
+        """The generation of the state's last call (read from the card: it
+        waits for the stream), the low word of the state's last int64."""
+        return int(self.buf[-1]) & _MAX_GEN
 
-    def next_generation(self) -> int:
-        if self.gen >= _MAX_GEN:
-            self.clear()
-        self.gen += 1
-        return self.gen
+    @gen.setter
+    def gen(self, value: int):
+        if not 0 <= value < _MAX_GEN:
+            raise ValueError(f"generation {value} out of [0, {_MAX_GEN})")
+        self.buf[-1].fill_(value)
 
 
 _states: dict = {}
@@ -190,13 +195,14 @@ def _launch(prefix, picks, num_prev, out_cap, num_node, local_prefix,
     st = state(dev, num_node)
     unique_ids = torch.empty(out_cap, dtype=torch.int32, device=dev)
     num_unique = torch.empty((), dtype=torch.int32, device=dev)
-    # the generation and the launch under one lock: the calls of a stream
-    # must reach it in the order of their generations
+    # a call's three launches under one lock, so that the calls of two
+    # threads on one stream do not interleave; each takes the generation
+    # its predecessor on the stream left on the card
     with st.lock:
         rc = lib.xg_unique_seeded(
             prefix.data_ptr(), prefix.shape[0], picks.data_ptr(),
             picks.shape[0], num_prev.data_ptr(), num_node, out_cap,
-            st.buf.data_ptr(), st.buf.numel(), st.next_generation(),
+            st.buf.data_ptr(), st.buf.numel(),
             unique_ids.data_ptr(), num_unique.data_ptr(),
             None if local_prefix is None else local_prefix.data_ptr(),
             local_picks.data_ptr(), _build.stream_handle(dev),

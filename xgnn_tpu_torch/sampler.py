@@ -110,9 +110,13 @@ class Sampler:
                        direct_extract=self.direct_extract)
 
 
-def _device_scalar(v: int, dev: torch.device) -> torch.Tensor:
-    """An int32 scalar filled in on ``dev``: a copy from pageable host
-    memory would wait for the stream."""
+def _device_scalar(v, dev: torch.device) -> torch.Tensor:
+    """An int32 scalar on ``dev``: an int is filled in there (a copy from
+    pageable host memory would wait for the stream); an int32 scalar
+    already there passes through unchanged, so a step captured in a CUDA
+    graph reads it from its buffer on every replay."""
+    if isinstance(v, torch.Tensor):
+        return v.to(device=dev, dtype=torch.int32).reshape(())
     return torch.full((), int(v), dtype=torch.int32, device=dev)
 
 

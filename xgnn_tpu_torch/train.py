@@ -6,7 +6,9 @@ no-op update, and the evaluation step.  The skip stays on the device: ``torch.wh
 over the params, both moments and the step count, so a step never waits on
 the host to learn whether its batch overflowed.  That is why Adam is a
 small function here and not ``torch.optim.Adam``, which needs the decision
-on the host.  Params and moments are updated in place.
+on the host.  Params, moments and the step count are updated in place, so
+a step captured in a CUDA graph (``engine/fused.py``) reads and writes the
+same tensors on every replay.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ from .types import Block
 
 def loss_fn(logits: torch.Tensor, labels: torch.Tensor, num_valid):
     """Masked softmax cross-entropy and accuracy over the first
-    ``num_valid`` rows.  Labels are clipped into range for the loss, and
+    ``num_valid`` rows (an int or an int32 device scalar).  Labels are clipped into range for the loss, and
     compared unclipped for the accuracy."""
     n, c = logits.shape
     mask = (torch.arange(n, device=logits.device) < num_valid).float()
@@ -70,7 +72,7 @@ class Adam:
             p.copy_(p_new)
         if skip is not None:
             count = torch.where(skip, self.count, count)
-        self.count = count
+        self.count.copy_(count)
 
 
 def train_step(model, opt: Adam, blocks: Sequence[Block], x: torch.Tensor,
