@@ -159,6 +159,29 @@ Phases, each fatal on failure:
    Adam state equal bit for bit, and the accuracy command line in a
    process of its own on that checkpoint, its valid accuracy equal to
    ``evaluate_full`` in this process.
+11. Training options, at bench.py's configuration with the options of
+   its A/B switches: ``graphsage_bf16`` (``feat_dtype`` and
+   ``compute_dtype`` "bfloat16"), its host loop and ``device_loop`` from
+   the same seeds with per-step losses and accuracies equal bit for bit;
+   ``graphsage_bf16_compute`` (``compute_dtype`` alone: the float32 table
+   cast every step), its losses those of ``graphsage_bf16``;
+   ``gcn_bf16``, ``pinsage_bf16``, ``mlp_bf16`` and
+   ``graphsage_cached_bf16`` (a bfloat16 cache, the hit rate); and at
+   float32 ``graphsage_remat``, whose per-step losses equal phase 6's
+   graphsage host loop bit for bit (the same kernels in the same order;
+   remat launches each convolution's forward again in the backward), and
+   ``graphsage_adamw`` (weight decay 5e-4).  Every loss comparison of the
+   phase is bit for bit.  ``agg_impl`` is not driven here: every value
+   builds the same model (K4 computes each formulation), which the CPU
+   tests hold.
+   Each path runs a warm-up, a counted and a profiled epoch, its launches
+   asserted, its busy ms a step and its peak memory printed beside its
+   float32 path's.  The new kernel forms against their plain versions at
+   the paths' shapes: K1 over the bfloat16 table at layer 0's dst ids,
+   exact; K4's forward over it at layer 0 (the mean form, GCN's sum with
+   K7's weights, PinSAGE's mean with the walk's counts), bit-equal; K11's
+   reads rounding the misses into bfloat16 rows, exact, and the whole
+   bfloat16 extract exact.
 
 Each kernel is timed twice: ``ms`` back to back (the wrapper's host time
 included, where the host is the slower) and ``device_ms`` with the host
@@ -168,8 +191,8 @@ of this batch once, and ``per_pick_bound_ms`` beside it a row per valid
 pick; K4's mean form moves the sum form's bytes.  K4's mean-form
 ``library_ms`` is two calls, ``F.embedding_bag`` and the division.
 
-Prints the inference's JSON line, the tooling's (phase 10), the kernels'
-JSON line, then the card's line (nvidia-smi's name and power limit), then
+Prints the inference's JSON line, the tooling's (phase 10), the training
+options' (phase 11), the kernels' JSON line, then the card's line (nvidia-smi's name and power limit), then
 the result line.
 Exits non-zero with no result line when there is no CUDA device.
 """
@@ -560,6 +583,7 @@ def phase_tooling(torch, tag, dev, ds, cfg, pin_cfg, steps, expected,
 
 
 def main() -> int:
+    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
@@ -1819,7 +1843,7 @@ def main() -> int:
         r1 = run_epochs(path, eng)
         rate_and_memory(path, r1, per_step)
         if path == "mlp":
-            profiled_epoch(path, eng, 2)
+            host_runs[path]["profiled"] = profiled_epoch(path, eng, 2)
         del eng
 
     # ---- 7. weighted sampling ----------------------------------------------
@@ -2445,7 +2469,8 @@ def main() -> int:
         raise AssertionError("graphsage_cached epoch 2: a step loss is not "
                              "finite")
     ceng.config.pipeline = True
-    profiled_epoch("graphsage_cached", ceng, 3)
+    host_runs["graphsage_cached"]["profiled"] = profiled_epoch(
+        "graphsage_cached", ceng, 3)
     del ceng, store, hist
     torch.cuda.empty_cache()
 
@@ -2765,6 +2790,280 @@ def main() -> int:
         torch, tag, dev, ds, cfg, pin_cfg, steps, expected, host_runs,
         profiled_epoch)
     print(json.dumps({"tooling": tooling_rows}), flush=True)
+
+    # ---- 11. training options: bfloat16, remat, AdamW ----------------------
+    torch.cuda.empty_cache()
+    bf16 = dict(feat_dtype="bfloat16", compute_dtype="bfloat16")
+    labels_only = {"gather_rows": steps}  # K1's 4-byte form: the labels
+    sampled = {"sample_khop": 3 * steps, "unique_seeded": 2 * steps}
+    expected.update({
+        # layer 0 reads the bfloat16 table: its dst rows (K1) and its mean
+        # (K4); layers 1 and 2 are float32
+        "graphsage_bf16": {**labels_only, "gather_rows_bf16": steps,
+                           "fanout_fwd_bf16": steps, "fanout_fwd": 2 * steps,
+                           "fanout_bwd": 2 * steps, **sampled},
+        # bf16 compute over the float32 table: the whole table cast a
+        # step, then the same kernels
+        "graphsage_bf16_compute": {**labels_only, "gather_rows_bf16": steps,
+                                   "fanout_fwd_bf16": steps,
+                                   "fanout_fwd": 2 * steps,
+                                   "fanout_bwd": 2 * steps, **sampled},
+        "gcn_bf16": {**labels_only, "pick_multiplicity": 3 * steps,
+                     "fanout_fwd_bf16": steps, "fanout_fwd": 2 * steps,
+                     "fanout_bwd": 2 * steps, **sampled},
+        "pinsage_bf16": {"random_walk": 2 * steps, "unique_seeded": steps,
+                         **labels_only, "gather_rows_bf16": steps,
+                         "fanout_fwd_bf16": steps, "fanout_fwd": steps,
+                         "fanout_bwd": steps},
+        "mlp_bf16": {**labels_only, "gather_rows_bf16": steps, **sampled},
+        # K11 writes bfloat16 rows (its reads round them); x's prefix is
+        # layer 0's dst rows
+        "graphsage_cached_bf16": {"sample_khop": 3 * steps,
+                                  "unique_seeded": 3 * steps,
+                                  "tiered_split": steps,
+                                  "tiered_direct_bf16": steps,
+                                  **labels_only, "fanout_fwd_bf16": steps,
+                                  "fanout_fwd": 2 * steps,
+                                  "fanout_bwd": 2 * steps},
+        # every convolution's forward again in the backward: K1 at layer
+        # 0's dst rows and K4 at each layer
+        "graphsage_remat": {"gather_rows": 3 * steps,
+                            "fanout_fwd": 6 * steps,
+                            "fanout_bwd": 2 * steps, **sampled},
+        "graphsage_adamw": expected["graphsage"],
+    })
+    option_rows = {}
+
+    def option_path(path, base, change, per_step, f32_path):
+        """A warm-up and a counted epoch (run_epochs) and a profiled one on
+        the path's own engine; its busy time a step beside the float32
+        path's of phase 6 or 8."""
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        eng = Engine(ds, dataclasses.replace(base, **change)).init()
+        r = run_epochs(path, eng)
+        rate_and_memory(path, r, per_step)
+        prof = profiled_epoch(path, eng, 2) or {}
+        f32 = host_runs[f32_path]
+        f32_prof = f32.get("profiled") or {}
+        row = {"epoch_s": r["time"], "f32_path": f32_path,
+               "f32_epoch_s": f32["time"],
+               "busy_ms_per_step": prof.get("busy_ms_per_step"),
+               "f32_busy_ms_per_step": f32_prof.get("busy_ms_per_step"),
+               "busy_share": prof.get("busy_share"),
+               "step_peak_gib": host_runs[path]["step_peak_gib"],
+               "f32_step_peak_gib": f32["step_peak_gib"]}
+        option_rows[path] = row
+        print(f"{tag} {path}: counted epoch {r['time']:.3f} s against "
+              f"{f32_path}'s {f32['time']:.3f} s; profiled busy "
+              f"{row['busy_ms_per_step']} ms a step against "
+              f"{row['f32_busy_ms_per_step']}; peak above the engine "
+              f"{row['step_peak_gib']:.3f} GiB against "
+              f"{row['f32_step_peak_gib']:.3f}", flush=True)
+        return eng
+
+    def same_losses(path, ref_path, hist=None):
+        """Epochs 0 and 1 of ``path`` (or ``hist``) against ``ref_path``'s
+        per-step losses and accuracies, finite and equal bit for bit: the
+        same kernels run in the same order on the same rows."""
+        got = hist or host_runs[path]["hist"]
+        for epoch in (0, 1):
+            for key in ("loss", "acc"):
+                a, b = got[epoch][key], host_runs[ref_path]["hist"][epoch][key]
+                if not np.all(np.isfinite(a)) or not np.array_equal(a, b):
+                    raise AssertionError(
+                        f"{path} epoch {epoch}: {key} not bit-equal to "
+                        f"{ref_path}'s: {list(a)} against {list(b)}")
+        option_rows.setdefault(path, {}).update(losses_as=ref_path,
+                                                bit_equal=True)
+        print(f"{tag} {path}: epochs 0 and 1 per-step losses and "
+              f"accuracies equal {ref_path}'s bit for bit", flush=True)
+
+    # graphsage_bf16: the host loop, then device_loop from the same seeds
+    eng = option_path("graphsage_bf16", cfg, bf16, edges_per_step,
+                      "graphsage")
+    table = eng.feature_source.feat
+    if table.dtype != torch.bfloat16:
+        raise AssertionError(f"graphsage_bf16: a {table.dtype} table")
+    seeds, n = next(Shuffler(ds.train_set, BATCH, seed=7).epoch_batches(0))
+    seeds = torch.from_numpy(seeds).to(dev)
+    b0 = eng.sampler.sample(seeds, n, generator(dev, 7)).blocks[0]
+    width = table.shape[1]
+    # K1 over the bfloat16 table at layer 0's dst ids
+    ids = b0.dst_ids
+    out, ref = gather_rows(table, ids), gather_rows_plain(table, ids)
+    torch.cuda.synchronize()
+    assert_close("gather_rows_bf16", out, ref, exact=True)
+    valid = (ids >= 0) & (ids < table.shape[0])
+    n_valid = int(valid.sum())
+    safe = torch.where(valid, ids, 0)
+    record("gather_rows_bf16", "xgnn_tpu_torch/csrc/gather.cu",
+           "xgnn_tpu/ops/pallas_gather.py:85",
+           f"{ids.shape[0]} ids ({n_valid} valid) x {tuple(table.shape)} "
+           "bf16", max_err(out, ref), "exact",
+           lambda: gather_rows(table, ids),
+           lambda: gather_rows_plain(table, ids),
+           lambda: torch.index_select(table, 0, safe),
+           "torch.index_select on the bf16 table, the ids clamped into it",
+           nbytes=n_valid * width * 2 + ids.shape[0] * (width * 2 + 4),
+           flops=0, per_step=1, path="graphsage_bf16")
+    del out, ref, safe, valid
+
+    def fwd_bf16_case(blk, weights, path, mean, wname):
+        """K4's forward over the bfloat16 table at a layer-0 shape, bit for
+        bit against its plain version (the rows upcast, summed in the same
+        order); the library yardstick is F.embedding_bag over the bfloat16
+        table (float32 accumulation, a bfloat16 result)."""
+        nb = blk.neigh
+        fn, plain = ((masked_mean, masked_mean_plain) if mean
+                     else (fanout_reduce, fanout_reduce_plain))
+        with torch.no_grad():
+            s, d = fn(table, nb, weights)
+            s_ref, d_ref = plain(table, nb, weights)
+        torch.cuda.synchronize()
+        form = "mean" if mean else "sum"
+        assert_close(f"fanout_fwd_bf16 {form}", s, s_ref, exact=True)
+        assert_close("fanout_fwd_bf16 denom", d, d_ref, exact=True)
+        valid = (nb >= 0) & (nb < table.shape[0])
+        picks, rows_read = int(valid.sum()), distinct_rows(nb, valid)
+        clamped = torch.where(valid, nb, 0).long()
+        msk = valid.float() if weights is None else valid.float() * weights
+        msk_bf = msk.to(torch.bfloat16)
+
+        def library():
+            out = F.embedding_bag(clamped, table, mode="sum",
+                                  per_sample_weights=msk_bf)
+            return out / msk.sum(1, keepdim=True).clamp(min=MEAN_EPS) \
+                if mean else out
+
+        other = (nb.numel() * (4 if weights is None else 8)
+                 + nb.shape[0] * (width + 1) * 4)
+        with torch.no_grad():
+            record("fanout_fwd_bf16", "xgnn_tpu_torch/csrc/fanout.cu",
+                   "xgnn_tpu/models/gnn.py:"
+                   + ("144-147 (masked_mean_stream over fanout_reduce, :62; "
+                      "K14 xgnn_tpu/ops/fanout.py:47)" if mean
+                      else "62 (K14 xgnn_tpu/ops/fanout.py:47)"),
+                   f"{form} form: {tuple(nb.shape)} picks ({picks} valid, "
+                   f"{rows_read} distinct rows) over {tuple(table.shape)} "
+                   "bf16" + ("" if weights is None else f", {wname}"),
+                   max(max_err(s, s_ref), max_err(d, d_ref)), "exact",
+                   lambda: fn(table, nb, weights),
+                   lambda: plain(table, nb, weights), library,
+                   "F.embedding_bag(mode='sum') over the bf16 table (f32 "
+                   "accumulation, a bf16 result)"
+                   + (", then / clamp(denom, 1e-9)" if mean else ""),
+                   nbytes=rows_read * width * 2 + other,
+                   pick_nbytes=picks * width * 2 + other,
+                   flops=picks * width * (2 if weights is not None else 1)
+                   + (nb.shape[0] * width if mean else 0),
+                   per_step=1, path=path)
+        del s, d, s_ref, d_ref
+
+    fwd_bf16_case(b0, None, "graphsage_bf16", True, "")
+    # GCN's layer 0: the sum form with K7's weights
+    cnt = pick_multiplicity(b0.neigh, table.shape[0])
+    gcn_w = torch.rsqrt(torch.clamp(cnt.to(torch.float32), min=1.0))
+    fwd_bf16_case(b0, gcn_w, "gcn_bf16", False, "GCN weights")
+    del cnt, gcn_w, b0
+    dl = Engine(ds, dataclasses.replace(cfg, **bf16, device_loop=True)).init()
+    dl_times = [dl.train_epoch(epoch)["time"] for epoch in (0, 1)]
+    torch.cuda.synchronize()
+    if dl._fused is None or dl._fused.graph is None:
+        raise AssertionError("graphsage_bf16 device_loop: no captured step")
+    same_losses("graphsage_bf16_device_loop", "graphsage_bf16",
+                [dl.history[0], dl.history[1]])
+    option_rows["graphsage_bf16"]["device_loop_epoch_s"] = dl_times[1]
+    print(f"{tag} graphsage_bf16 device_loop: epoch 1 {dl_times[1]:.6f} s "
+          f"against the host loop's "
+          f"{host_runs['graphsage_bf16']['time']:.6f} s", flush=True)
+    del dl, eng, table
+    # compute_dtype alone: the float32 table cast to bfloat16 every step
+    # (as JAX casts it), the rows of the bfloat16 table's path
+    option_path("graphsage_bf16_compute", cfg,
+                dict(compute_dtype="bfloat16"), edges_per_step, "graphsage")
+    same_losses("graphsage_bf16_compute", "graphsage_bf16")
+
+    # gcn, pinsage and mlp over the bfloat16 table
+    option_path("gcn_bf16", cfg, dict(model="gcn", **bf16), edges_per_step,
+                "gcn")
+    eng = option_path("pinsage_bf16", pin_cfg, bf16, pin_edges, "pinsage")
+    table = eng.feature_source.feat
+    pb0 = eng.sampler.sample(seeds, n, generator(dev, 7)).blocks[0]
+    fwd_bf16_case(pb0, pb0.weights, "pinsage_bf16", True,
+                  "the walk's visit counts")
+    del eng, pb0, table
+    option_path("mlp_bf16", cfg, dict(model="mlp", **bf16), edges_per_step,
+                "mlp")
+
+    # graphsage_cached_bf16: a bfloat16 cache, K11 rounding the misses
+    eng = option_path("graphsage_cached_bf16", ccfg, bf16, c_edges,
+                      "graphsage_cached")
+    store = eng.feature_source
+    if (store.cache_feat.dtype != torch.bfloat16
+            or store.feat_host.dtype != torch.float32):
+        raise AssertionError("graphsage_cached_bf16: a cache of "
+                             f"{store.cache_feat.dtype}, a host table of "
+                             f"{store.feat_host.dtype}")
+    hist = eng.history[1]
+    hit_rate = float(hist["hit"].sum() / (hist["hit"].sum()
+                                          + hist["miss"].sum()))
+    option_rows["graphsage_cached_bf16"]["hit_rate"] = hit_rate
+    print(f"{tag} graphsage_cached_bf16 epoch 1: hit rate {hit_rate:.6f}; "
+          f"per step {np.mean(hist['hit']):.1f} hits, "
+          f"{np.mean(hist['miss']):.1f} misses, "
+          f"{np.mean(hist['miss']) * width * 4:.1f} miss bytes (the "
+          "host's float32)", flush=True)
+    cb = eng.sampler.sample(seeds, n, generator(dev, 7))
+    c_ids, c_num = cb.input_nodes, cb.num_input
+    out, counts = tiered_extract(c_ids, c_num, store.posmap, store.cache_feat,
+                                 store.host)
+    ref, ref_counts = tiered_extract_plain(c_ids, c_num, store.posmap,
+                                           store.cache_feat, store.feat_host)
+    torch.cuda.synchronize()
+    assert_close("tiered_extract bf16", out, ref, exact=True)
+    if not torch.equal(counts, ref_counts):
+        raise AssertionError("tiered_extract bf16: counts differ")
+    del out, ref
+    p_out, p_counts, p_pos, p_ids = tiered_split_plain(
+        c_ids, c_num, store.posmap, store.cache_feat, store.feat_host)
+    misses = int(p_counts[1])
+    got = tiered_direct(p_out.clone(), p_ids, p_pos, p_counts, store.host)
+    ref = tiered_direct_plain(p_out.clone(), p_ids, p_pos, misses,
+                              store.feat_host)
+    torch.cuda.synchronize()
+    assert_close("tiered_direct_bf16", got, ref, exact=True)
+    d_err = max_err(got, ref)
+    del got, ref
+    d_out = p_out.clone()
+    pcie = misses * width * 4  # the host's float32 rows
+    d_hbm_ms = (misses * (width * 2 + 8) + 4) / HBM_BYTES_PER_S * 1e3
+    pcie_ms = pcie / pcie_rate * 1e3
+    record("tiered_direct_bf16", "xgnn_tpu_torch/csrc/tiered.cu",
+           "xgnn_tpu/store/feature_store.py:111-118 (_combine_kernel's "
+           "astype) and 217-250 (the host gather, the copy)",
+           f"{misses} miss rows of {width} f32 from a ({NUM_NODE}, {width}) "
+           f"mapped host table, rounded into ({c_ids.numel()}, {width}) "
+           "bf16", d_err, "exact",
+           lambda: tiered_direct(d_out, p_ids, p_pos, p_counts, store.host),
+           lambda: tiered_direct_plain(d_out, p_ids, p_pos, misses,
+                                       store.feat_host),
+           None, "none: no one PyTorch call reads a mapped host table",
+           nbytes=0, flops=0, per_step=1, path="graphsage_cached_bf16",
+           plain_reps=3, bound=max((d_hbm_ms, "bytes"), (pcie_ms, "bytes")))
+    kernels[-1].update(pcie_bound_ms=pcie_ms, pcie_bytes=pcie,
+                       pcie_bytes_per_s=pcie / kernels[-1]["device_ms"] * 1e3)
+    del eng, store, cb, c_ids, p_out, p_pos, p_ids, d_out, hist
+
+    # remat at float32: phase 6's kernels in phase 6's order, so phase 6's
+    # losses; AdamW.  (agg_impl builds the same model whatever its value:
+    # K4 computes every formulation, tests/test_torch_port_options.py)
+    for path, change in (("graphsage_remat", dict(remat=True)),
+                         ("graphsage_adamw", dict(weight_decay=5e-4))):
+        option_path(path, cfg, change, edges_per_step, "graphsage")
+        if path != "graphsage_adamw":
+            same_losses(path, "graphsage")
+    print(json.dumps({"options": option_rows}), flush=True)
 
     for k in kernels:
         k["launches"] = counts_by_path[k["path"]].get(k["name"], 0)

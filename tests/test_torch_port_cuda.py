@@ -57,6 +57,30 @@ def test_gather_rows_kernel_equals_plain(dev, width, dtype):
     assert gather_rows(feat, ids[:0]).shape == (0, width)
 
 
+@pytest.mark.parametrize("width", [1, 47, 128, 256])
+def test_gather_rows_bf16_kernel_equals_plain(dev, width):
+    """K1 over a bfloat16 table, bit-equal to its plain version: 16-byte
+    words at widths 128 and 256, 4-byte words at an even width or from a
+    table 2 bytes off 16-byte alignment, 2-byte words at an odd width."""
+    from xgnn_tpu_torch.ops import _build
+    from xgnn_tpu_torch.ops.gather import gather_rows, gather_rows_plain
+
+    g = _gen(dev, width)
+    n = 3000
+    feat = torch.randn((n * width + 1,), generator=g,
+                       device=dev).to(torch.bfloat16)
+    ids = torch.randint(-5, n + 5, (4099,), generator=g, device=dev,
+                        dtype=torch.int32)
+    ids[::3] = EMPTY
+    _build.LAUNCHES.reset()
+    for table in (feat[:-1].view(n, width), feat[1:].view(n, width)):
+        out = gather_rows(table, ids)
+        assert out.dtype == torch.bfloat16
+        ref = gather_rows_plain(table, ids)
+        assert torch.equal(out.view(torch.int16), ref.view(torch.int16))
+    assert _build.LAUNCHES.snapshot() == {"gather_rows_bf16": 2}
+
+
 @pytest.mark.parametrize("width,fanout", [(128, 5), (256, 10), (7, 3),
                                           (64, 40)])
 @pytest.mark.parametrize("weighted", [False, True])
@@ -247,6 +271,55 @@ def test_fanout_forward_kernel_is_the_plain_version(dev, table, fanout,
     assert torch.all(out[7] == 0) and float(den[7]) == 0.0
 
 
+@pytest.mark.parametrize("table", ["47", "128", "256", "128 unaligned"])
+@pytest.mark.parametrize("fanout", [5, 10, 15, 7, 33])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_fanout_forward_over_bf16_is_the_plain_version(dev, table, fanout,
+                                                       weighted):
+    """The forward over a bfloat16 table (layer 0 under feat_dtype or
+    compute_dtype "bfloat16"), both forms and the dst prefix, against the
+    plain version on the card bit for bit: float32 sums and denominators,
+    8-byte bfloat16 slices a lane (128, 256) or one element (47, and a
+    table 2 bytes off 8-byte alignment); a bfloat16 table that needs a
+    gradient is refused."""
+    from xgnn_tpu_torch.ops import _build
+    from xgnn_tpu_torch.ops.fanout import (
+        fanout_reduce,
+        fanout_reduce_plain,
+        masked_mean,
+        masked_mean_plain,
+        prefix_masked_mean,
+    )
+
+    width = int(table.split()[0])
+    g = _gen(dev, width + fanout + 1)
+    n, d = 5000, 1234
+    flat = torch.randn((n * width + 1,), generator=g,
+                       device=dev).to(torch.bfloat16)
+    h = (flat[1:] if table.endswith("unaligned") else flat[:-1]).view(
+        n, width)
+    if table.endswith("unaligned"):
+        assert h.data_ptr() % 8 != 0
+    neigh = torch.randint(-2, n + 2, (d, fanout), generator=g, device=dev,
+                          dtype=torch.int32)
+    neigh[torch.rand((d, fanout), generator=g, device=dev) < 0.3] = EMPTY
+    neigh[7] = EMPTY
+    w = (torch.rand((d, fanout), generator=g, device=dev) + 0.5
+         if weighted else None)
+    _build.LAUNCHES.reset()
+    for fn, plain in ((fanout_reduce, fanout_reduce_plain),
+                      (masked_mean, masked_mean_plain)):
+        out, den = fn(h, neigh, w)
+        ref, den_ref = plain(h, neigh, w)
+        assert out.dtype == den.dtype == torch.float32
+        assert torch.equal(out, ref) and torch.equal(den, den_ref)
+    h_dst, mean, _ = prefix_masked_mean(h, neigh, w)
+    assert torch.equal(mean, out) and h_dst.data_ptr() == h.data_ptr()
+    assert _build.LAUNCHES.snapshot() == {"fanout_fwd_bf16": 3}
+    with pytest.raises(NotImplementedError, match="bfloat16"):
+        masked_mean(h.clone().requires_grad_(), neigh, w)
+
+
 @pytest.mark.parametrize("width", [7, 128, 256])
 @pytest.mark.parametrize("weighted", [False, True])
 def test_fanout_backward_with_denom_is_the_cpu_plain_version(dev, width,
@@ -319,15 +392,38 @@ def _settle():
     time.sleep(0.2)
 
 
+def _device_kernels(run):
+    """The names of every device event of ``run()`` under the profiler
+    (kernels, memsets and copies), and what ``run()`` returned.  A session
+    that kept fewer device kernel records than its host-side launch records
+    (``cudaLaunchKernel`` and the like) lost some: ``run()`` is profiled
+    again, at most twice, as ``chip_smoke.py``'s tooling phase measures a
+    pair again."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            got = run()
+            _settle()
+        events = prof.events()
+        launched = sum("LaunchKernel" in e.name for e in events
+                       if e.device_type == DeviceType.CPU)
+        device = [e.name for e in events if e.device_type == DeviceType.CUDA]
+        kernels = [x for x in device
+                   if not x.startswith(("Memset", "Memcpy"))]
+        if len(kernels) >= launched:
+            break
+    return device, got
+
+
 @pytest.mark.parametrize("model", ["graphsage", "pinsage"])
 def test_mean_aggregate_launches_no_division(dev, model):
     """SAGEConv and PinSAGEConv divide inside K4: one forward launch a
     layer, and no PyTorch division kernel in the step's forward and
-    backward (the profiler's device events); a mean under ``no_grad`` is
-    one kernel on the card."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    backward (the profiler's device events, ``_device_kernels``); a mean
+    under ``no_grad`` is one kernel on the card."""
     from xgnn_tpu_torch import RunConfig, make_device_dataset
     from xgnn_tpu_torch.device import generator
     from xgnn_tpu_torch.models import build_model
@@ -344,23 +440,19 @@ def test_mean_aggregate_launches_no_division(dev, model):
         torch.from_numpy(ds.train_set[:128]).to(dev), 128, generator(dev, 1))
     net = build_model(cfg, 32, 6).to(dev)
     torch.cuda.synchronize()
-    _build.LAUNCHES.reset()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+
+    def step():
+        _build.LAUNCHES.reset()
         net(batch.blocks, ds.feat).square().sum().backward()
-        _settle()
-    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+    names, _ = _device_kernels(step)
     layers = len(batch.blocks)
     assert _build.LAUNCHES.snapshot()["fanout_fwd"] == layers
     assert sum("fanout_fwd_kernel" in x for x in names) == layers
     assert not [x for x in names if "div" in x.lower()]
     neigh = batch.blocks[0].neigh
-    with torch.no_grad(), profile(activities=[ProfilerActivity.CPU,
-                                              ProfilerActivity.CUDA]) as one:
-        masked_mean(ds.feat, neigh)
-        _settle()
-    kernels = [e.name for e in one.events()
-               if e.device_type == DeviceType.CUDA]
+    with torch.no_grad():
+        kernels, _ = _device_kernels(lambda: masked_mean(ds.feat, neigh))
     assert len(kernels) == 1 and "fanout_fwd_kernel" in kernels[0]
 
 
@@ -761,10 +853,8 @@ def test_unique_split_equals_unique_seeded(dev, out_cap):
 
 def test_unique_is_three_launches_and_allocates_only_its_outputs(dev):
     """K3's call is three kernels on the profiler's device events.  The
-    trace waits for CUPTI before it stops (``_settle``)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    trace waits for CUPTI before it stops (``_settle``), and a session that
+    lost records is taken again (``_device_kernels``)."""
     from xgnn_tpu_torch.ops import unique
 
     rng = np.random.default_rng(9)
@@ -773,15 +863,14 @@ def test_unique_is_three_launches_and_allocates_only_its_outputs(dev):
     args = _on_card(dev, case)
     _assert_plain(*_dedup(dev, case, cap, num_node), cap)  # state made
     torch.cuda.synchronize()
-    before = torch.cuda.memory_allocated(dev)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+
+    def call():
+        before = torch.cuda.memory_allocated(dev)
         out = unique.unique_seeded_split(*args, cap, num_node=num_node)
-        _settle()
-    grown = torch.cuda.memory_allocated(dev) - before
+        return out, torch.cuda.memory_allocated(dev) - before
+
+    kernels, (out, grown) = _device_kernels(call)
     _assert_plain(out, args, cap)
-    kernels = [e.name for e in prof.events()
-               if e.device_type == DeviceType.CUDA]
     assert len(kernels) == 3, kernels
     sizes = [t.numel() * t.element_size() for t in out]
     assert sum(sizes) <= grown <= sum(-(-b // 512) * 512 for b in sizes)
@@ -1509,6 +1598,46 @@ def test_tiered_extract_kernel_equals_plain(dev, width, pct, num_input):
         assert int(info["num_hit"]) == 0
 
 
+@pytest.mark.parametrize("width", [3, 47, 128, 256])
+@pytest.mark.parametrize("pct", [0.0, 0.3])
+def test_tiered_extract_bf16_kernel_equals_plain(dev, width, pct):
+    """K11 with a bfloat16 cache (feat_dtype="bfloat16"): the cache built
+    by its all-miss form is the host rows rounded to bfloat16; an
+    extract's rows (hits copied, misses read as float32 and rounded as the
+    SMs write them) equal its plain version's, bit for bit, the counts
+    equal, the miss bytes the host's float32."""
+    from xgnn_tpu_torch.ops import _build
+    from xgnn_tpu_torch.ops.tiered import tiered_extract_plain
+    from xgnn_tpu_torch.store import TieredFeatureSource
+
+    g = _gen(torch.device("cpu"), width)
+    num_node, n = 3000, 5000
+    feat = torch.randn((num_node, width), generator=g)
+    ranking = torch.randperm(num_node, generator=g).to(torch.int32)
+    src = TieredFeatureSource(feat, ranking, pct, dev, torch.bfloat16)
+    assert src.cache_feat.dtype == torch.bfloat16
+    assert src.feat_host.dtype == torch.float32
+    cached = (src.posmap != EMPTY).nonzero().flatten()
+    assert torch.equal(src.cache_feat[src.posmap[cached].long()].cpu(),
+                       feat[cached.cpu()].to(torch.bfloat16))
+    ids = torch.randint(-5, num_node + 5, (n,), generator=g,
+                        dtype=torch.int32)
+    ids[torch.rand(n, generator=g) < 0.3] = EMPTY
+    ids = ids.to(dev)
+    num = torch.tensor(4000, dtype=torch.int32, device=dev)
+    _build.LAUNCHES.reset()
+    out, info = src.extract(ids, num)
+    assert _build.LAUNCHES.snapshot() == {"tiered_split": 1,
+                                          "tiered_direct_bf16": 1}
+    ref, counts = tiered_extract_plain(ids, num, src.posmap, src.cache_feat,
+                                       src.feat_host)
+    torch.cuda.synchronize()
+    assert out.dtype == ref.dtype == torch.bfloat16
+    assert torch.equal(out.view(torch.int16), ref.view(torch.int16))
+    assert [int(info["num_hit"]), int(info["num_miss"])] == counts.tolist()
+    assert int(info["miss_bytes"]) == int(counts[1]) * width * 4
+
+
 def test_tiered_extract_all_miss_form_on_the_card(dev):
     from xgnn_tpu_torch.ops.tiered import (
         MappedHostTable,
@@ -2036,7 +2165,7 @@ def _hand_kernel_launches(engine, epoch) -> dict:
     return counts
 
 
-def _device_loop_against_host_loop(dev, model, heads):
+def _device_loop_against_host_loop(dev, model, heads, options=None):
     from xgnn_tpu_torch import Engine, RunConfig, make_device_dataset
     from xgnn_tpu_torch.ops import _build
 
@@ -2045,7 +2174,8 @@ def _device_loop_against_host_loop(dev, model, heads):
     for device_loop in (False, True):
         cfg = RunConfig(batch_size=256, fanout=(10, 5, 3), num_hidden=32,
                         model=model, num_head=heads, dropout=0.5,
-                        calibration_batches=2, device_loop=device_loop)
+                        calibration_batches=2, device_loop=device_loop,
+                        **(options or {}))
         engine = Engine(ds, cfg).init()
         for epoch in range(2):
             _build.LAUNCHES.reset()
@@ -2086,3 +2216,18 @@ def test_device_loop_equals_the_host_loop_on_the_card(dev, model, heads):
     accuracies, and a profiled epoch of replays launches the hand kernels
     that as many eager steps launch."""
     _in_own_process("_device_loop_against_host_loop", model, heads)
+
+
+@pytest.mark.parametrize("options", [
+    dict(feat_dtype="bfloat16", compute_dtype="bfloat16"),
+    dict(remat=True),
+    dict(weight_decay=5e-4, agg_impl="tiled"),
+], ids=["bf16", "remat", "adamw-tiled"])
+def test_device_loop_with_training_options_equals_the_host_loop(dev,
+                                                                options):
+    """The training options captured and replayed (graphsage): per-step
+    losses equal to the host loop's, and the replays launch the eager
+    steps' hand kernels (remat's recomputed forwards in the backward of
+    the captured step)."""
+    _in_own_process("_device_loop_against_host_loop", "graphsage", 1,
+                    options)

@@ -392,10 +392,11 @@ def test_unported_messages_name_roadmap_items_that_exist():
     from xgnn_tpu_torch import RunConfig
 
     roadmap = (Path(__file__).resolve().parents[1] / "ROADMAP.md").read_text()
-    cases = [dict(feat_dtype="bfloat16"),
+    cases = [dict(model="gat", feat_dtype="bfloat16"),
              dict(use_dist_graph=True),
-             dict(agg_impl="tiled"), dict(compute_dtype="bfloat16"),
-             dict(remat=True)]
+             dict(model="gat", agg_impl="tiled", compute_dtype="bfloat16"),
+             dict(model="gat", compute_dtype="bfloat16"),
+             dict(model="gat", remat=True, feat_dtype="bfloat16")]
     for kwargs in cases:
         with pytest.raises(NotImplementedError) as err:
             RunConfig(**kwargs)

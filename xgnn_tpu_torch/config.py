@@ -12,7 +12,12 @@ training step captured in a CUDA graph and replayed once a step
 (``engine/fused.py``).  The environment overrides ``XGNN_SANITY_CHECK``
 and ``XGNN_DUMP_TRACE`` are read as the JAX package reads them; JAX's
 ``profile_level`` is left out, since no level changes what its profiler
-logs.
+logs.  The training options are JAX's: ``feat_dtype="bfloat16"`` keeps the
+feature table (the tiered store's device cache) in bfloat16,
+``compute_dtype="bfloat16"`` casts the model's input to it, ``remat``
+recomputes each convolution in the backward, ``weight_decay > 0`` is
+AdamW, and ``agg_impl`` names JAX's fanout-reduce formulation (``loop``,
+``tiled`` or ``chunk<N>``), each of which K4 computes.
 """
 
 from __future__ import annotations
@@ -20,6 +25,7 @@ from __future__ import annotations
 import dataclasses
 import logging
 import os
+import re
 from enum import Enum
 from typing import Optional, Sequence
 
@@ -62,6 +68,10 @@ WEIGHTED = (SampleType.WEIGHTED_KHOP, SampleType.WEIGHTED_KHOP_PREFIX,
 
 # the convolutions of the JAX model zoo, all ported
 PORTED_MODELS = ("graphsage", "gcn", "gat", "pinsage", "mlp")
+DTYPES = ("float32", "bfloat16")
+# JAX's fanout_reduce formulations: the loop, K14's tiles, or chunks of N
+# picks ("chunk" alone is 3)
+AGG_IMPL = re.compile(r"loop|tiled|chunk([1-9][0-9]*)?")
 
 
 @dataclasses.dataclass
@@ -82,6 +92,7 @@ class RunConfig:
     num_layer: int = 3
     lr: float = 0.003
     dropout: float = 0.5
+    weight_decay: float = 0.0  # > 0: AdamW
     compute_dtype: str = "float32"
     remat: bool = False
     agg_impl: str = "loop"
@@ -165,18 +176,20 @@ class RunConfig:
         if self.model not in PORTED_MODELS:
             raise ValueError(f"model={self.model!r}: not a model of the zoo "
                              f"{PORTED_MODELS}")
+        for field in ("compute_dtype", "feat_dtype"):
+            if getattr(self, field) not in DTYPES:
+                raise ValueError(f"{field}={getattr(self, field)!r}: not one "
+                                 f"of {DTYPES}")
+        if not AGG_IMPL.fullmatch(self.agg_impl):
+            raise ValueError(f"agg_impl={self.agg_impl!r}: not loop, tiled "
+                             "or chunk<N>")
         todo = []
         if self.use_dist_graph:
             todo.append("use_dist_graph: ROADMAP queue 1, 'Tiered "
                         "topology' and 'Multi-GPU'")
-        if self.agg_impl != "loop":
-            todo.append(f"agg_impl={self.agg_impl!r}: ROADMAP section 2, "
-                        "'K14'")
-        if self.compute_dtype != "float32" or self.feat_dtype != "float32":
-            todo.append("bfloat16 compute or features: ROADMAP queue 1, "
-                        "'Training options'")
-        if self.remat:
-            todo.append("remat: ROADMAP queue 1, 'Training options'")
+        if self.model == "gat" and "bfloat16" in (self.compute_dtype,
+                                                  self.feat_dtype):
+            todo.append("GAT under bfloat16: ROADMAP section 2, 'K5 bf16'")
         if todo:
             raise NotImplementedError(
                 "not ported to xgnn_tpu_torch yet: " + "; ".join(todo)

@@ -31,6 +31,14 @@
 // kernel; the port writes it by hand because it is the heaviest traffic of
 // the step.
 //
+// The table may be bfloat16 (feat_dtype or compute_dtype "bfloat16": layer
+// 0 reads the bfloat16 feature table or extracted rows).  The forward then
+// loads bfloat16 and widens each element to float32 in registers, exactly,
+// and sums as above: the accumulator, the output and denom stay float32,
+// and the result equals the plain version's (which upcasts the rows and
+// sums in the same order) bit for bit.  A bfloat16 table never needs a
+// gradient here (it is layer 0's input), so there is no bfloat16 backward.
+//
 // What bounds it on an H100: bytes.  The forward reads every valid pick's
 // row once (layer 0 of the main path: about 5M rows of 512 B from the
 // 2.45M-row feature table) and writes each output row once; one FMA per
@@ -45,7 +53,8 @@
 // and 15, the main path's; any other K in chunks of 32 picks).  Lanes
 // j < K load the row's ids (and weights) once, in one coalesced read, and
 // hand them round by shuffles.  Lanes hold a 16-byte column slice (float4)
-// when F % 4 == 0 and the tables are aligned, else one float, and two
+// when F % 4 == 0 and the tables are aligned, else one float (from a
+// bfloat16 table: 8 bytes of 4 elements, or one element), and two
 // slices past 128 floats (a 1 KB row at width 256 is one warp-wide pair of
 // loads; the 47-wide table one pass over the picks).  The row loads of
 // kGroup picks are issued before the adds consume them, so each warp keeps
@@ -189,19 +198,59 @@ __device__ __forceinline__ float mean_divisor(float d) {
 
 // ---- forward ------------------------------------------------------------
 
-// a table row's slice, through the read-only data path.  Reads with an L2
-// evict-last policy, or without allocating in L1, were no faster at layers
-// 0 and 1, where the bytes are (tools/time_fanout.py builds both).
+// A slice V (float4 or float) of a table row: S is the table's storage of
+// one slice (float4 or float, or 4 or 1 bfloat16: uint2 or uint16_t)
+template <typename V, bool kBf16>
+struct Slice;
+template <>
+struct Slice<float4, false> {
+  using S = float4;
+};
+template <>
+struct Slice<float, false> {
+  using S = float;
+};
+template <>
+struct Slice<float4, true> {
+  using S = uint2;
+};
+template <>
+struct Slice<float, true> {
+  using S = uint16_t;
+};
+
+// a bfloat16's bits widened to the float32 of the same value (exact)
+__device__ __forceinline__ float bf16_lo(uint32_t w) {
+  return __uint_as_float(w << 16);
+}
+__device__ __forceinline__ float bf16_hi(uint32_t w) {
+  return __uint_as_float(w & 0xffff0000u);
+}
+
+// a table row's slice, through the read-only data path, as float32.  Reads
+// with an L2 evict-last policy, or without allocating in L1, were no faster
+// at layers 0 and 1, where the bytes are (tools/time_fanout.py builds both).
 __device__ __forceinline__ float4 ld_table(const float4* p) { return __ldg(p); }
 
 __device__ __forceinline__ float ld_table(const float* p) { return __ldg(p); }
 
+__device__ __forceinline__ float4 ld_table(const uint2* p) {
+  const uint2 v = __ldg(p);  // 4 bfloat16, low half first
+  return make_float4(bf16_lo(v.x), bf16_hi(v.x), bf16_lo(v.y), bf16_hi(v.y));
+}
+
+__device__ __forceinline__ float ld_table(const uint16_t* p) {
+  return bf16_lo(__ldg(p));
+}
+
 // One warp per dst row.  V is float4 or float, kV the slices a lane holds
 // per pass over the picks (columns c0 + lane + 32 u), K the fanout (0: any,
-// read in chunks of 32 picks).  wv is the row width in V units.
-template <typename V, int kV, int K, bool kW, bool kMean>
+// read in chunks of 32 picks), kBf16 a bfloat16 table.  wv is the row width
+// in V units.
+template <typename V, int kV, int K, bool kW, bool kMean, bool kBf16>
 __global__ void __launch_bounds__(kThreads)
-fanout_fwd_kernel(const V* __restrict__ h, const int32_t* __restrict__ neigh,
+fanout_fwd_kernel(const typename Slice<V, kBf16>::S* __restrict__ h,
+                  const int32_t* __restrict__ neigh,
                   const float* __restrict__ w, V* __restrict__ out,
                   float* __restrict__ denom, int64_t num_rows,
                   int64_t num_dst, int fanout, int64_t wv) {
@@ -270,17 +319,17 @@ fanout_fwd_kernel(const V* __restrict__ h, const int32_t* __restrict__ neigh,
   if (lane == 0) denom[row] = d;
 }
 
-template <typename V, int kV, int K>
-void launch_fwd(const float* h, const int32_t* neigh, const float* w,
+template <typename V, int kV, int K, bool kBf16>
+void launch_fwd(const void* h, const int32_t* neigh, const float* w,
                 float* out, float* denom, long long num_rows,
                 long long num_dst, int fanout, long long wv, bool mean,
                 cudaStream_t s) {
   const unsigned blocks =
       (unsigned)((num_dst + kWarpsPerBlock - 1) / kWarpsPerBlock);
-  const V* hv = reinterpret_cast<const V*>(h);
+  const auto* hv = static_cast<const typename Slice<V, kBf16>::S*>(h);
   V* ov = reinterpret_cast<V*>(out);
 #define XG_FWD(W, M)                                                   \
-  fanout_fwd_kernel<V, kV, K, W, M><<<blocks, kThreads, 0, s>>>(       \
+  fanout_fwd_kernel<V, kV, K, W, M, kBf16><<<blocks, kThreads, 0, s>>>( \
       hv, neigh, w, ov, denom, num_rows, num_dst, fanout, wv)
   if (w) {
     if (mean) XG_FWD(true, true); else XG_FWD(true, false);
@@ -290,28 +339,50 @@ void launch_fwd(const float* h, const int32_t* neigh, const float* w,
 #undef XG_FWD
 }
 
-template <typename V, int kV>
-void launch_fwd_fanout(const float* h, const int32_t* neigh, const float* w,
+template <typename V, int kV, bool kBf16>
+void launch_fwd_fanout(const void* h, const int32_t* neigh, const float* w,
                        float* out, float* denom, long long num_rows,
                        long long num_dst, int fanout, long long wv, bool mean,
                        cudaStream_t s) {
   switch (fanout) {
     case 5:
-      launch_fwd<V, kV, 5>(h, neigh, w, out, denom, num_rows, num_dst, fanout,
-                           wv, mean, s);
+      launch_fwd<V, kV, 5, kBf16>(h, neigh, w, out, denom, num_rows, num_dst,
+                                  fanout, wv, mean, s);
       break;
     case 10:
-      launch_fwd<V, kV, 10>(h, neigh, w, out, denom, num_rows, num_dst,
-                            fanout, wv, mean, s);
+      launch_fwd<V, kV, 10, kBf16>(h, neigh, w, out, denom, num_rows,
+                                   num_dst, fanout, wv, mean, s);
       break;
     case 15:
-      launch_fwd<V, kV, 15>(h, neigh, w, out, denom, num_rows, num_dst,
-                            fanout, wv, mean, s);
+      launch_fwd<V, kV, 15, kBf16>(h, neigh, w, out, denom, num_rows,
+                                   num_dst, fanout, wv, mean, s);
       break;
     default:
-      launch_fwd<V, kV, 0>(h, neigh, w, out, denom, num_rows, num_dst,
-                           fanout, wv, mean, s);
+      launch_fwd<V, kV, 0, kBf16>(h, neigh, w, out, denom, num_rows, num_dst,
+                                  fanout, wv, mean, s);
   }
+}
+
+// the forward over a table of float32 or (kBf16) bfloat16 elements
+template <bool kBf16>
+void launch_fwd_table(const void* h, const int32_t* neigh, const float* w,
+                      float* out, float* denom, long long num_rows,
+                      long long num_dst, int fanout, long long width,
+                      bool mean, cudaStream_t s) {
+  // a float4 slice is 16 bytes of a float32 table, 8 of a bfloat16 one
+  const uintptr_t slice_bytes = kBf16 ? 8 : 16;
+  const bool vec = width % 4 == 0 &&
+                   reinterpret_cast<uintptr_t>(h) % slice_bytes == 0 &&
+                   reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  if (vec && width <= 128)
+    launch_fwd_fanout<float4, 1, kBf16>(h, neigh, w, out, denom, num_rows,
+                                        num_dst, fanout, width / 4, mean, s);
+  else if (vec)
+    launch_fwd_fanout<float4, 2, kBf16>(h, neigh, w, out, denom, num_rows,
+                                        num_dst, fanout, width / 4, mean, s);
+  else
+    launch_fwd_fanout<float, 2, kBf16>(h, neigh, w, out, denom, num_rows,
+                                       num_dst, fanout, width, mean, s);
 }
 
 
@@ -738,31 +809,25 @@ bool aligned16(const void* p) {
 
 }  // namespace
 
-// h: (num_rows, width) f32; neigh: (num_dst, fanout) int32; w: null or
-// (num_dst, fanout) f32; out: (num_dst, width) f32, the sum, or with mean
-// the masked mean; denom: (num_dst,) f32.
+// h: (num_rows, width) f32, or bfloat16 with h_bf16; neigh: (num_dst,
+// fanout) int32; w: null or (num_dst, fanout) f32; out: (num_dst, width)
+// f32, the sum, or with mean the masked mean; denom: (num_dst,) f32.
 extern "C" int xg_fanout_fwd(const void* h, const void* neigh, const void* w,
                              void* out, void* denom, long long num_rows,
                              long long num_dst, int fanout, long long width,
-                             int mean, void* stream) {
+                             int mean, int h_bf16, void* stream) {
   if (num_dst <= 0) return (int)cudaGetLastError();
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  const bool vec = width % 4 == 0 && aligned16(h) && aligned16(out);
-  const float* hf = static_cast<const float*>(h);
   const int32_t* n = static_cast<const int32_t*>(neigh);
   const float* wf = static_cast<const float*>(w);
   float* of = static_cast<float*>(out);
   float* df = static_cast<float*>(denom);
-  if (vec && width <= 128) {
-    launch_fwd_fanout<float4, 1>(hf, n, wf, of, df, num_rows, num_dst,
-                                 fanout, width / 4, mean != 0, s);
-  } else if (vec) {
-    launch_fwd_fanout<float4, 2>(hf, n, wf, of, df, num_rows, num_dst,
-                                 fanout, width / 4, mean != 0, s);
-  } else {
-    launch_fwd_fanout<float, 2>(hf, n, wf, of, df, num_rows, num_dst, fanout,
-                                width, mean != 0, s);
-  }
+  if (h_bf16)
+    launch_fwd_table<true>(h, n, wf, of, df, num_rows, num_dst, fanout, width,
+                           mean != 0, s);
+  else
+    launch_fwd_table<false>(h, n, wf, of, df, num_rows, num_dst, fanout,
+                            width, mean != 0, s);
   return (int)cudaGetLastError();
 }
 

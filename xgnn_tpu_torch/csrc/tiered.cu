@@ -6,7 +6,11 @@
 //   every other row of out (EMPTY or out-of-range ids, i >= num_input) is 0;
 //   counts[0] = the hits, counts[1] = the misses (exact int32).
 // With no posmap (the all-miss form) every valid id is a miss: the cache's
-// own rows are built that way.
+// own rows are built that way.  The host table is float32; the cache and
+// out are float32, or bfloat16 under feat_dtype="bfloat16": then a miss
+// row is rounded to bfloat16 (to nearest, ties to even, as JAX's astype
+// and PyTorch's .to round) as the SMs write it, and its bytes over PCIe
+// stay float32, as in JAX's store.
 //
 // Replaces: xgnn_tpu/store/feature_store.py, _split_kernel (the posmap
 // lookup, the hit/miss split and the stable compaction of the miss
@@ -52,6 +56,7 @@
 // in flight, other load flavours, fewer blocks nor sorted ids moved the
 // SMs' rate by more than the spread.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -79,6 +84,32 @@ template <>
 __device__ __forceinline__ uint32_t zero_word<uint32_t>() {
   return 0u;
 }
+template <>
+__device__ __forceinline__ uint16_t zero_word<uint16_t>() {
+  return 0u;
+}
+
+// A host-table slice In as out's slice Out: the same words, or float32
+// rounded to bfloat16 (to nearest, ties to even)
+template <typename In, typename Out>
+struct Narrow {
+  static __device__ __forceinline__ Out run(In v) { return v; }
+};
+template <>
+struct Narrow<float4, uint2> {
+  static __device__ __forceinline__ uint2 run(float4 v) {
+    const __nv_bfloat162 a = __float22bfloat162_rn(make_float2(v.x, v.y));
+    const __nv_bfloat162 b = __float22bfloat162_rn(make_float2(v.z, v.w));
+    return make_uint2(*reinterpret_cast<const uint32_t*>(&a),
+                      *reinterpret_cast<const uint32_t*>(&b));
+  }
+};
+template <>
+struct Narrow<float, uint16_t> {
+  static __device__ __forceinline__ uint16_t run(float v) {
+    return __bfloat16_as_ushort(__float2bfloat16_rn(v));
+  }
+};
 
 __device__ __forceinline__ int64_t live_count(const int32_t* num_input,
                                               int64_t n) {
@@ -196,7 +227,7 @@ __device__ __forceinline__ void copy_rows(const Word* src, unsigned write,
   }
 }
 
-// Word is uint4 (width in 16-byte words) or uint32_t (width in 4-byte words)
+// Word is uint4, uint32_t or uint16_t, width the row's length in Words
 template <typename Word>
 __global__ void __launch_bounds__(kThreads)
 split_write_kernel(const int32_t* __restrict__ ids, int64_t n,
@@ -240,20 +271,22 @@ split_write_kernel(const int32_t* __restrict__ ids, int64_t n,
 }
 
 // Step 2: out[pos[j]] = table[ids[j]] for j < *count; a warp moves kUnroll
-// rows at once, every load before any store
-template <typename Word>
+// rows at once, every load before any store.  In is the table's slice
+// (uint4, uint32_t, or float4 and float read as float32), Out out's (the
+// same, or uint2 and uint16_t: the slice in bfloat16); width in slices.
+template <typename In, typename Out>
 __global__ void __launch_bounds__(kThreads)
-direct_kernel(const Word* table, const int32_t* __restrict__ ids,
+direct_kernel(const In* table, const int32_t* __restrict__ ids,
               const int32_t* __restrict__ pos,
               const int32_t* __restrict__ num_miss, int64_t width,
-              Word* __restrict__ out, int64_t n) {
+              Out* __restrict__ out, int64_t n) {
   const int64_t count = min(n, (int64_t)max(*num_miss, 0));
   const int lane = threadIdx.x & 31;
   const int64_t warp = ((int64_t)blockIdx.x * kThreads + threadIdx.x) >> 5;
   const int64_t warps = (int64_t)gridDim.x * kWarps;
   for (int64_t j0 = warp * kUnroll; j0 < count; j0 += warps * kUnroll) {
     int64_t dst[kUnroll];
-    const Word* src[kUnroll];
+    const In* src[kUnroll];
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
       const int64_t j = j0 + u;
@@ -262,19 +295,44 @@ direct_kernel(const Word* table, const int32_t* __restrict__ ids,
       src[u] = table + (dst[u] < 0 ? 0 : (int64_t)__ldg(ids + j)) * width;
     }
     for (int64_t col = lane; col < width; col += 32) {
-      Word v[kUnroll];
+      In v[kUnroll];
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u)
         if (dst[u] >= 0) v[u] = src[u][col];
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u)
-        if (dst[u] >= 0) out[dst[u] * width + col] = v[u];
+        if (dst[u] >= 0)
+          out[dst[u] * width + col] = Narrow<In, Out>::run(v[u]);
     }
   }
 }
 
 bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+bool aligned(const void* p, int bytes) {
+  return reinterpret_cast<uintptr_t>(p) % bytes == 0;
+}
+
+template <typename Word>
+void launch_write(const int32_t* id, long long n, const int32_t* num,
+                  const int32_t* pm, long long num_node, const void* cache,
+                  long long width, void* out, const int32_t* tile,
+                  int32_t* mp, int32_t* mi, long long num_tiles,
+                  cudaStream_t s) {
+  split_write_kernel<Word><<<(unsigned)num_tiles, kThreads, 0, s>>>(
+      id, n, num, pm, num_node, static_cast<const Word*>(cache), width,
+      static_cast<Word*>(out), tile, mp, mi);
+}
+
+template <typename In, typename Out>
+void launch_direct(const void* table, const int32_t* ids, const int32_t* pos,
+                   const int32_t* num, long long width, void* out,
+                   long long n, long long grid, cudaStream_t s) {
+  direct_kernel<In, Out><<<(unsigned)grid, kThreads, 0, s>>>(
+      static_cast<const In*>(table), ids, pos, num, width,
+      static_cast<Out*>(out), n);
 }
 
 }  // namespace
@@ -307,19 +365,21 @@ extern "C" int xg_host_unmap(void* host, int device) {
 
 // Step 1.  ids: (n,) int32; num_input: a device int32 scalar; posmap:
 // (num_node,) int32 cache slots, EMPTY where not cached, or null (all
-// miss); cache: (num_cache, width) 4-byte words (unused when posmap is
-// null); out: (n, width), its miss rows left as they are; counts: 2 int32
+// miss); cache: (num_cache, width) elements of elem_bytes (4: float32, 2:
+// bfloat16; unused when posmap is null); out: (n, width) of the same
+// elements, its miss rows left as they are; counts: 2 int32
 // (hits, misses), zeroed here; tiles: ceil(n / kTile) int32 scratch;
 // miss_pos, miss_ids: (n,) int32, their first `misses` entries written.
 // Returns cudaGetLastError() after the launches.
 extern "C" int xg_tiered_split(const void* ids, long long n,
                                const void* num_input, const void* posmap,
                                long long num_node, const void* cache,
-                               long long width, void* out, void* counts,
-                               void* tiles, void* miss_pos, void* miss_ids,
-                               void* stream) {
+                               long long width, int elem_bytes, void* out,
+                               void* counts, void* tiles, void* miss_pos,
+                               void* miss_ids, void* stream) {
   if (n <= 0 || n > INT32_MAX || width <= 0 || num_node < 0 ||
-      num_node > INT32_MAX || counts == nullptr)
+      num_node > INT32_MAX || counts == nullptr ||
+      (elem_bytes != 2 && elem_bytes != 4))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   cudaError_t e = cudaMemsetAsync(counts, 0, 2 * sizeof(int32_t), s);
@@ -334,27 +394,34 @@ extern "C" int xg_tiered_split(const void* ids, long long n,
   split_count_kernel<<<(unsigned)num_tiles, kThreads, 0, s>>>(
       id, n, num, pm, num_node, tile, static_cast<int32_t*>(counts));
   split_scan_kernel<<<1, kScanThreads, 0, s>>>(tile, num_tiles);
-  const bool vec = width % 4 == 0 && aligned16(out) &&
-                   (posmap == nullptr || aligned16(cache));
-  if (vec)
-    split_write_kernel<uint4><<<(unsigned)num_tiles, kThreads, 0, s>>>(
-        id, n, num, pm, num_node, static_cast<const uint4*>(cache), width / 4,
-        static_cast<uint4*>(out), tile, mp, mi);
+  // the widest word that divides a row and both tables' alignment
+  const long long row_bytes = width * elem_bytes;
+  auto fits = [&](int bytes) {
+    return row_bytes % bytes == 0 && aligned(out, bytes) &&
+           (posmap == nullptr || aligned(cache, bytes));
+  };
+  if (fits(16))
+    launch_write<uint4>(id, n, num, pm, num_node, cache, row_bytes / 16, out,
+                        tile, mp, mi, num_tiles, s);
+  else if (fits(4))
+    launch_write<uint32_t>(id, n, num, pm, num_node, cache, row_bytes / 4,
+                           out, tile, mp, mi, num_tiles, s);
   else
-    split_write_kernel<uint32_t><<<(unsigned)num_tiles, kThreads, 0, s>>>(
-        id, n, num, pm, num_node, static_cast<const uint32_t*>(cache), width,
-        static_cast<uint32_t*>(out), tile, mp, mi);
+    launch_write<uint16_t>(id, n, num, pm, num_node, cache, row_bytes / 2,
+                           out, tile, mp, mi, num_tiles, s);
   return (int)cudaGetLastError();
 }
 
 // Step 2.  table: the device address of the mapped (num_node, width) host
-// table of 4-byte words; miss_ids, miss_pos: (n,) int32, the split's lists;
-// num_miss: a device int32 scalar (the split's counts[1]); out: (n, width).
-// Returns cudaGetLastError() after the launch.
+// table of 4-byte words (float32); miss_ids, miss_pos: (n,) int32, the
+// split's lists; num_miss: a device int32 scalar (the split's counts[1]);
+// out: (n, width) 4-byte words, or with out_bf16 bfloat16, each element
+// rounded from the table's float32.  Returns cudaGetLastError() after the
+// launch.
 extern "C" int xg_tiered_direct(const void* table, long long width,
                                 const void* miss_ids, const void* miss_pos,
                                 const void* num_miss, void* out, long long n,
-                                void* stream) {
+                                int out_bf16, void* stream) {
   if (n <= 0 || width <= 0 || table == nullptr || miss_ids == nullptr ||
       miss_pos == nullptr || num_miss == nullptr || out == nullptr)
     return (int)cudaErrorInvalidValue;
@@ -368,13 +435,19 @@ extern "C" int xg_tiered_direct(const void* table, long long width,
   const int32_t* ids = static_cast<const int32_t*>(miss_ids);
   const int32_t* pos = static_cast<const int32_t*>(miss_pos);
   const int32_t* num = static_cast<const int32_t*>(num_miss);
-  if (width % 4 == 0 && aligned16(table) && aligned16(out))
-    direct_kernel<uint4><<<(unsigned)grid, kThreads, 0, s>>>(
-        static_cast<const uint4*>(table), ids, pos, num, width / 4,
-        static_cast<uint4*>(out), n);
+  const bool vec = width % 4 == 0 && aligned16(table) &&
+                   aligned(out, out_bf16 ? 8 : 16);
+  if (out_bf16 && vec)
+    launch_direct<float4, uint2>(table, ids, pos, num, width / 4, out, n,
+                                 grid, s);
+  else if (out_bf16)
+    launch_direct<float, uint16_t>(table, ids, pos, num, width, out, n, grid,
+                                   s);
+  else if (vec)
+    launch_direct<uint4, uint4>(table, ids, pos, num, width / 4, out, n, grid,
+                                s);
   else
-    direct_kernel<uint32_t><<<(unsigned)grid, kThreads, 0, s>>>(
-        static_cast<const uint32_t*>(table), ids, pos, num, width,
-        static_cast<uint32_t*>(out), n);
+    launch_direct<uint32_t, uint32_t>(table, ids, pos, num, width, out, n,
+                                      grid, s);
   return (int)cudaGetLastError();
 }

@@ -2,8 +2,8 @@
 ``run``.
 
 The port of ``xgnn_tpu/engine/engine.py``'s single-store ``Engine``: the
-whole feature table on the device with direct extract, or, for a
-``cache_percentage`` in (0, 1), the tiered store (a ranked hot-row cache on
+whole feature table on the device (in ``feat_dtype``) with direct extract,
+or, for a ``cache_percentage`` in (0, 1), the tiered store (a ranked hot-row cache on
 the device, the table in pinned host memory, the ranking from
 ``cache_policy``, presampled at init where the policy needs it) with
 non-direct extract; a pipelined host loop; and the sampled evaluation.  Per step nothing waits on
@@ -76,10 +76,20 @@ def _align_up(n: int, num_node: int) -> int:
 
 
 class Engine:
-    def __init__(self, dataset, config: RunConfig, device=None):
+    def __init__(self, dataset, config: RunConfig, device=None,
+                 feat_dtype: Optional[torch.dtype] = None):
         self.ds = dataset
         self.config = config
         self.device = resolve(device)
+        # the device table's type is the config's feat_dtype (None keeps
+        # the dataset's); the argument, kept for the JAX engine's signature,
+        # may only repeat it, so RunConfig's checks cannot be bypassed
+        want = getattr(torch, config.feat_dtype)
+        if feat_dtype is not None and feat_dtype != want:
+            raise ValueError(f"feat_dtype={feat_dtype} differs from the "
+                             f"config's feat_dtype={config.feat_dtype!r}: "
+                             "set RunConfig.feat_dtype")
+        self.feat_dtype = torch.bfloat16 if want == torch.bfloat16 else None
         self.graph: Optional[Graph] = None
         self.sampler: Optional[Sampler] = None
         self.feature_source = None
@@ -122,7 +132,8 @@ class Engine:
         t0 = time.perf_counter()
         self.model = build_model(cfg, self.ds.feat_dim, self.ds.num_class)
         self.model.to(self.device)
-        self.opt = Adam(list(self.model.parameters()), cfg.lr)
+        self.opt = Adam(list(self.model.parameters()), cfg.lr,
+                        weight_decay=cfg.weight_decay)
         prof.log_init("model_init_time", time.perf_counter() - t0)
         prof.log_mem_usage("model_init", self.device)
         return self
@@ -161,7 +172,8 @@ class Engine:
         counts).  The features go to pinned host memory once."""
         cfg = self.config
         if not self._tiered:
-            self.feature_source = HBMFeatureSource(self.ds.feat, self.device)
+            self.feature_source = HBMFeatureSource(self.ds.feat, self.device,
+                                                   self.feat_dtype)
             return
         access_freq = None
         if cfg.cache_policy in FREQUENCY_POLICIES:
@@ -184,7 +196,8 @@ class Engine:
                if cfg.cache_policy == CachePolicy.DYNAMIC
                else TieredFeatureSource)
         self.feature_source = cls(self.ds.feat, ranking,
-                                  cfg.cache_percentage, self.device)
+                                  cfg.cache_percentage, self.device,
+                                  self.feat_dtype)
         self._sync()
         self.init_times["cache_build"] = time.perf_counter() - t0
         if cfg.cache_policy == CachePolicy.DYNAMIC:
@@ -401,7 +414,7 @@ class Engine:
                 total = hit_v.sum() + miss_v.sum()
                 hit_rate = float(hit_v.sum() / max(total, 1.0))
                 prof.log_step(epoch, 0, P.L2_CACHE_HIT_RATE, hit_rate)
-                row_bytes = self.feature_source.feat_dim * 4
+                row_bytes = self.feature_source.row_bytes
                 for step, m in enumerate(miss_v):
                     prof.log_step(epoch, step, P.L1_MISS_BYTES,
                                   float(m) * row_bytes)

@@ -57,7 +57,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                        num_head=args.num_head, num_layer=len(args.fanout),
                        fanout=tuple(args.fanout))
     model = build_model(config, ds.feat_dim, ds.num_class).to(device)
-    opt = Adam(list(model.parameters()), config.lr)
+    opt = Adam(list(model.parameters()), config.lr,
+               weight_decay=config.weight_decay)
     state, _ = CheckpointManager(args.checkpoint_dir).restore((model, opt))
     if state is None:
         print("no checkpoint found", file=sys.stderr)

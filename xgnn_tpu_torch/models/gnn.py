@@ -10,6 +10,20 @@ counts ride on it as per-pick weights, its sum form for GCN), the
 direct-extract dst gather kernel K1 (``ops/gather.py``),
 GCN's pick multiplicity kernel K7 (``ops/degree.py``) and GAT's
 edge-softmax aggregate kernel K5 (``ops/attend.py``).
+
+The training options are JAX's.  ``compute_dtype=torch.bfloat16`` casts
+the input to bfloat16 (a bfloat16 input, the ``feat_dtype`` table, is kept
+as it is); K4 and K1 read the bfloat16 rows, K4 sums them in float32, and
+``Dense`` promotes a bfloat16 input to its float32 weights, as flax's
+``nn.Dense`` does, so every layer after the first computes in float32.
+GAT under bfloat16 is refused (ROADMAP 'K5 bf16').  JAX's ``agg_impl``
+(``loop``, ``tiled`` or ``chunk<N>``) is checked by ``RunConfig`` and does
+not reach the model: each is a formulation of one function, the masked
+weighted fanout sum, which K4 computes, so none changes the arithmetic.
+``remat`` recomputes each
+convolution in the backward (``torch.utils.checkpoint``), its activation
+and dropout outside the recomputed region as in JAX, with the parameter
+names unchanged.
 """
 
 from __future__ import annotations
@@ -19,6 +33,7 @@ from typing import Optional, Sequence
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.attend import PER_HEAD, SHARED, gat_attend, gat_attend_prefix
 from ..ops.degree import pick_multiplicity
@@ -70,7 +85,9 @@ def _glorot_uniform_(w: torch.Tensor, fan_in: int, fan_out: int,
 
 class Dense(nn.Module):
     """``x @ weight.T + bias``, allocated without drawing from the global
-    random stream (``reset_parameters`` of the owner fills it)."""
+    random stream (``reset_parameters`` of the owner fills it).  An input of
+    another type (bfloat16) is promoted to the weights' float32 first, as
+    flax's ``nn.Dense`` promotes it."""
 
     def __init__(self, in_dim: int, out_dim: int, bias: bool):
         super().__init__()
@@ -79,7 +96,8 @@ class Dense(nn.Module):
         self.bias = nn.Parameter(torch.zeros(out_dim)) if bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return nn.functional.linear(x, self.weight, self.bias)
+        return nn.functional.linear(x.to(self.weight.dtype), self.weight,
+                                    self.bias)
 
 
 class SAGEConv(nn.Module):
@@ -227,12 +245,20 @@ _CONVS = {"graphsage": SAGEConv, "gcn": GCNConv, "gat": GATConv,
 class GNN(nn.Module):
     """A multi-layer GNN of one convolution over blocks ordered outermost
     first.  GAT puts ``num_heads`` heads of ``hidden_dim // num_heads`` on
-    the hidden layers and one head on the logits."""
+    the hidden layers and one head on the logits.  ``compute_dtype`` and
+    ``remat`` are JAX's training options (module docstring)."""
 
     def __init__(self, in_dim: int, hidden_dim: int, out_dim: int,
                  num_layers: int, dropout: float = 0.5,
-                 conv: str = "graphsage", num_heads: int = 1):
+                 conv: str = "graphsage", num_heads: int = 1,
+                 compute_dtype: torch.dtype = torch.float32,
+                 remat: bool = False):
         super().__init__()
+        if conv == "gat" and compute_dtype == torch.bfloat16:
+            raise NotImplementedError(
+                "not ported to xgnn_tpu_torch yet: GAT under bfloat16: "
+                "ROADMAP section 2, 'K5 bf16'")
+        self.compute_dtype, self.remat = compute_dtype, remat
         layers, width = [], in_dim
         for i in range(num_layers):
             last = i == num_layers - 1
@@ -257,12 +283,22 @@ class GNN(nn.Module):
     def forward(self, blocks: Sequence[Block], x: torch.Tensor,
                 train: bool = False,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        h = x
+        # a bfloat16 input (the feat_dtype table) stays as it is: a cast
+        # of it would be a pass over the whole table
+        h = x if x.dtype == torch.bfloat16 else x.to(self.compute_dtype)
         last = len(self.layers) - 1
+        remat = self.remat and torch.is_grad_enabled()
         for i, layer in enumerate(self.layers):
             if i != 0 and train:
                 h = apply_dropout(h, self.dropout, generator)
-            h = layer(blocks[i], h)
+            if remat:
+                # the convolution alone is recomputed: it draws no random
+                # numbers, so no generator state is kept for it (a CUDA
+                # generator's state cannot be read under graph capture)
+                h = checkpoint(layer, blocks[i], h, use_reentrant=False,
+                               preserve_rng_state=False)
+            else:
+                h = layer(blocks[i], h)
             if i != last:
                 h = self.activation(h)
         return h.float()
@@ -277,7 +313,9 @@ def build_model(config, feat_dim: int, num_class: int,
                   else config.num_layer)
     model = GNN(feat_dim, config.num_hidden, num_class, num_layers,
                 dropout=config.dropout, conv=config.model,
-                num_heads=config.num_head)
+                num_heads=config.num_head,
+                compute_dtype=getattr(torch, config.compute_dtype),
+                remat=config.remat)
     if generator is None:
         generator = torch.Generator().manual_seed(config.seed)
     model.reset_parameters(generator)

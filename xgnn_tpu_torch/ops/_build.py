@@ -38,10 +38,10 @@ _F = ctypes.c_float
 # the C entry points of each source, with their argument types
 SIGNATURES = {
     "gather": {
-        "xg_gather_rows": [_P, _P, _P, _LL, _LL, _LL, _P],
+        "xg_gather_rows": [_P, _P, _P, _LL, _LL, _LL, _I, _P],
     },
     "fanout": {
-        "xg_fanout_fwd": [_P] * 5 + [_LL, _LL, _I, _LL, _I, _P],
+        "xg_fanout_fwd": [_P] * 5 + [_LL, _LL, _I, _LL, _I, _I, _P],
         "xg_fanout_bwd": [_P] * 9 + [_LL, _LL, _LL, _I, _LL, _LL, _P],
     },
     "sampling": {
@@ -65,8 +65,8 @@ SIGNATURES = {
     "tiered": {
         "xg_host_map": [_P, _LL, _I, _P],
         "xg_host_unmap": [_P, _I],
-        "xg_tiered_split": [_P, _LL, _P, _P, _LL, _P, _LL] + [_P] * 6,
-        "xg_tiered_direct": [_P, _LL, _P, _P, _P, _P, _LL, _P],
+        "xg_tiered_split": [_P, _LL, _P, _P, _LL, _P, _LL, _I] + [_P] * 6,
+        "xg_tiered_direct": [_P, _LL, _P, _P, _P, _P, _LL, _I, _P],
     },
     "presample": {
         "xg_accumulate_freq": [_P, _LL, _P, _LL, _P, _I, _P],

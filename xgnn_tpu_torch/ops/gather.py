@@ -16,7 +16,10 @@ import torch
 
 from . import _build
 
-_NAME = "gather_rows"
+# launches are counted by the table's type: the bfloat16 form apart
+_NAME, _NAME_BF16 = "gather_rows", "gather_rows_bf16"
+# the tables the kernel copies, by their element's bytes
+DTYPES = {torch.float32: 4, torch.int32: 4, torch.bfloat16: 2}
 
 
 def gather_rows_plain(feat: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
@@ -27,10 +30,10 @@ def gather_rows_plain(feat: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
 
 
 def _check(feat: torch.Tensor, ids: torch.Tensor):
-    if feat.dim() != 2 or feat.dtype not in (torch.float32, torch.int32):
+    if feat.dim() != 2 or feat.dtype not in DTYPES:
         raise ValueError(
-            f"gather_rows: feat must be 2-D float32 or int32 (4-byte words), "
-            f"got {feat.dtype} {tuple(feat.shape)}"
+            f"gather_rows: feat must be 2-D float32, int32 or bfloat16, got "
+            f"{feat.dtype} {tuple(feat.shape)}"
         )
     if ids.dim() != 1 or ids.dtype != torch.int32:
         raise ValueError(
@@ -52,8 +55,8 @@ def _check(feat: torch.Tensor, ids: torch.Tensor):
 
 
 def gather_rows(feat: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    """``(B,)`` int32 ids into a ``(N, F)`` table of 4-byte words give
-    ``(B, F)`` rows of the table's dtype."""
+    """``(B,)`` int32 ids into a ``(N, F)`` float32, int32 or bfloat16
+    table give ``(B, F)`` rows of the table's dtype."""
     _check(feat, ids)
     if feat.device.type == "cpu":
         return gather_rows_plain(feat, ids)
@@ -65,9 +68,10 @@ def gather_rows(feat: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     if ids.shape[0] and feat.shape[1]:
         rc = lib.xg_gather_rows(
             feat.data_ptr(), ids.data_ptr(), out.data_ptr(),
-            feat.shape[0], ids.shape[0], feat.shape[1],
+            feat.shape[0], ids.shape[0], feat.shape[1], DTYPES[feat.dtype],
             _build.stream_handle(feat.device),
         )
-        _build.check(rc, _NAME)
-        _build.LAUNCHES.add(_NAME)
+        name = _NAME_BF16 if feat.dtype == torch.bfloat16 else _NAME
+        _build.check(rc, name)
+        _build.LAUNCHES.add(name)
     return out

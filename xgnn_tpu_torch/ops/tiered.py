@@ -7,7 +7,12 @@ device and ``_combine_kernel``).  For ``i < num_input`` and a valid id,
 ``out[i] = cache[posmap[id]]`` where the row is cached, else the host
 table's row ``id``; every other row is zero.  ``counts`` holds the hits and
 the misses as device int32.  With ``posmap=None`` (the all-miss form) every
-valid id is read from the host table: the cache's rows are built so.
+valid id is read from the host table: the cache's rows are built so.  The
+host table is float32; the cache and ``out`` are float32, or bfloat16 under
+``feat_dtype="bfloat16"`` (JAX keeps the host tier in the dataset's dtype
+and the device cache in ``feat_dtype``): a miss row is then rounded to
+bfloat16 as it is written, as JAX's combine casts it (``astype``), and
+crosses PCIe as float32.
 
 Two steps in ``csrc/tiered.cu``, both on the caller's stream, with nothing
 waiting on the host:
@@ -25,7 +30,7 @@ Their plain PyTorch versions are :func:`tiered_split_plain` and
 copy to the device and :func:`tiered_combine_plain`, JAX's combine),
 composed in :func:`tiered_extract_plain`: the wrappers take them only for
 tensors on the CPU.  Launches are counted as ``tiered_split`` and
-``tiered_direct``.
+``tiered_direct`` (``tiered_direct_bf16`` where it rounds to bfloat16).
 """
 
 from __future__ import annotations
@@ -41,6 +46,8 @@ from .unique import compact_mask_positions
 
 EMPTY = C.EMPTY_KEY
 _TILE = 2048  # ids a block of the split (kTile in csrc/tiered.cu)
+# the types of the cache and of the extracted rows, by their element's bytes
+DTYPES = {torch.float32: 4, torch.bfloat16: 2}
 
 
 def _map(tensor: torch.Tensor, index: int) -> int:
@@ -98,14 +105,24 @@ class MappedHostTable:
 
 
 # ---------------------------------------------------------- plain versions
+def _out_dtype(cache: Optional[torch.Tensor], dtype) -> torch.dtype:
+    """The extracted rows' type: ``dtype`` where given, else the cache's,
+    else float32."""
+    if dtype is not None:
+        return dtype
+    return torch.float32 if cache is None else cache.dtype
+
+
 def tiered_split_plain(ids: torch.Tensor, num_input,
                        posmap: Optional[torch.Tensor],
-                       cache: Optional[torch.Tensor], host: torch.Tensor):
+                       cache: Optional[torch.Tensor], host: torch.Tensor,
+                       dtype: Optional[torch.dtype] = None):
     """``(out, counts, miss_pos, miss_ids)``: JAX's ``_split_kernel`` in
     PyTorch ops.  ``out`` holds the hit rows and zero rows elsewhere (the
     misses included); ``miss_pos`` the misses' positions in order, padded
     with ``n``; ``miss_ids`` their ids, padded with EMPTY; ``counts`` the
-    int32 ``(hits, misses)``.  ``host`` is the table (its shape is read)."""
+    int32 ``(hits, misses)``.  ``host`` is the table (its shape is read).
+    ``out`` is of ``dtype``, by default the cache's (float32 without one)."""
     dev = ids.device
     n, (num_node, width) = ids.shape[0], host.shape
     live = torch.arange(n, device=dev) < _build.int32_scalar(num_input, dev)
@@ -116,7 +133,7 @@ def tiered_split_plain(ids: torch.Tensor, num_input,
     else:
         hit = valid & (posmap[safe] != EMPTY)
     miss = valid & ~hit
-    out = torch.zeros((n, width), dtype=torch.float32, device=dev)
+    out = torch.zeros((n, width), dtype=_out_dtype(cache, dtype), device=dev)
     if posmap is not None and cache is not None and cache.shape[0]:
         slot = torch.where(hit, posmap[safe], 0).long()
         out = torch.where(hit[:, None], cache[slot], out)
@@ -132,8 +149,10 @@ def tiered_split_plain(ids: torch.Tensor, num_input,
 def tiered_combine_plain(out: torch.Tensor, miss_rows: torch.Tensor,
                          miss_pos: torch.Tensor, num_miss: int):
     """JAX's ``_combine_kernel``: ``out[miss_pos[j]] = miss_rows[j]`` for
-    ``j < num_miss``, in place (JAX donates ``out``); returns ``out``."""
-    out[miss_pos[:num_miss].long()] = miss_rows[:num_miss].to(out.device)
+    ``j < num_miss``, cast to ``out``'s type, in place (JAX donates
+    ``out``); returns ``out``."""
+    out[miss_pos[:num_miss].long()] = miss_rows[:num_miss].to(
+        device=out.device, dtype=out.dtype)
     return out
 
 
@@ -150,18 +169,19 @@ def tiered_direct_plain(out: torch.Tensor, miss_ids: torch.Tensor,
 def tiered_extract_plain(ids: torch.Tensor, num_input,
                          posmap: Optional[torch.Tensor],
                          cache: Optional[torch.Tensor],
-                         host: torch.Tensor):
+                         host: torch.Tensor,
+                         dtype: Optional[torch.dtype] = None):
     """``(out, counts)``: the split, then the miss rows gathered from the
     host table on the CPU and combined into place, in PyTorch ops."""
     out, counts, miss_pos, miss_ids = tiered_split_plain(
-        ids, num_input, posmap, cache, host)
+        ids, num_input, posmap, cache, host, dtype)
     num_miss = int(counts[1])
     return tiered_direct_plain(out, miss_ids, miss_pos, num_miss,
                                host), counts
 
 
 # ----------------------------------------------------------- card wrappers
-def _check(ids, posmap, cache, host: MappedHostTable):
+def _check(ids, posmap, cache, host: MappedHostTable, dtype):
     if ids.dim() != 1 or ids.dtype != torch.int32 or not ids.is_contiguous():
         raise ValueError(f"tiered_extract: ids must be 1-D contiguous int32, "
                          f"got {ids.dtype} {tuple(ids.shape)}")
@@ -172,12 +192,16 @@ def _check(ids, posmap, cache, host: MappedHostTable):
             raise ValueError(
                 f"tiered_extract: posmap must be ({num_node},) contiguous "
                 f"int32 on {ids.device}")
-        if (cache is None or cache.dtype != torch.float32 or cache.dim() != 2
+        if (cache is None or cache.dtype not in DTYPES or cache.dim() != 2
                 or cache.shape[1] != width or not cache.is_contiguous()
                 or cache.device != ids.device):
             raise ValueError(
                 f"tiered_extract: cache must be (rows, {width}) contiguous "
-                f"float32 on {ids.device}")
+                f"float32 or bfloat16 on {ids.device}")
+    if _out_dtype(cache, dtype) not in DTYPES or (
+            cache is not None and dtype not in (None, cache.dtype)):
+        raise ValueError(f"tiered_extract: rows of {dtype} from a cache of "
+                         f"{None if cache is None else cache.dtype}")
     if ids.device.type not in ("cpu", "cuda"):
         raise ValueError(f"tiered_extract: no kernel for {ids.device}")
     if ids.device.type == "cuda" and (host.dev_ptr is None
@@ -188,19 +212,24 @@ def _check(ids, posmap, cache, host: MappedHostTable):
 
 def tiered_split(ids: torch.Tensor, num_input,
                  posmap: Optional[torch.Tensor],
-                 cache: Optional[torch.Tensor], host: MappedHostTable):
+                 cache: Optional[torch.Tensor], host: MappedHostTable,
+                 dtype: Optional[torch.dtype] = None):
     """``(out, counts, miss_pos, miss_ids)``: step 1.  ``counts`` is the
     int32 ``(hits, misses)`` on ``ids``' device; ``miss_pos`` and
     ``miss_ids`` the misses' positions and ids in position order.  On the
     card ``out``'s miss rows and the lists past ``counts[1]`` are left
-    unwritten (the plain version zeroes the rows and pads the lists)."""
-    _check(ids, posmap, cache, host)
+    unwritten (the plain version zeroes the rows and pads the lists).
+    ``out`` is of ``dtype``, by default the cache's (float32 without
+    one)."""
+    _check(ids, posmap, cache, host, dtype)
     if ids.device.type == "cpu":
-        return tiered_split_plain(ids, num_input, posmap, cache, host.tensor)
+        return tiered_split_plain(ids, num_input, posmap, cache, host.tensor,
+                                  dtype)
     dev = ids.device
     n = ids.shape[0]
     num_node, width = host.tensor.shape
-    out = torch.empty((n, width), dtype=torch.float32, device=dev)
+    out_dtype = _out_dtype(cache, dtype)
+    out = torch.empty((n, width), dtype=out_dtype, device=dev)
     scratch = torch.empty(2 * n + -(-n // _TILE), dtype=torch.int32,
                           device=dev)
     miss_pos, miss_ids, tiles = scratch[:n], scratch[n:2 * n], scratch[2 * n:]
@@ -212,7 +241,8 @@ def tiered_split(ids: torch.Tensor, num_input,
     rc = _build.load("tiered").xg_tiered_split(
         ids.data_ptr(), n, num.data_ptr(),
         None if posmap is None else posmap.data_ptr(), num_node,
-        None if cache is None else cache.data_ptr(), width, out.data_ptr(),
+        None if cache is None else cache.data_ptr(), width,
+        DTYPES[out_dtype], out.data_ptr(),
         counts.data_ptr(), tiles.data_ptr(), miss_pos.data_ptr(),
         miss_ids.data_ptr(), _build.stream_handle(dev))
     _build.check(rc, "tiered_split")
@@ -224,10 +254,11 @@ def tiered_direct(out: torch.Tensor, miss_ids: torch.Tensor,
                   miss_pos: torch.Tensor, counts: torch.Tensor,
                   host: MappedHostTable):
     """Step 2: ``out[miss_pos[j]] = host[miss_ids[j]]`` for ``j <
-    counts[1]``, in place; returns ``out``.  On the card the count is read
-    on the device (no host sync); positions outside ``out`` are skipped."""
+    counts[1]``, in place, rounded to bfloat16 for a bfloat16 ``out``;
+    returns ``out``.  On the card the count is read on the device (no host
+    sync); positions outside ``out`` are skipped."""
     n, width = out.shape if out.dim() == 2 else (-1, -1)
-    if (out.dtype != torch.float32 or width != host.tensor.shape[1]
+    if (out.dtype not in DTYPES or width != host.tensor.shape[1]
             or miss_ids.dtype != torch.int32 or miss_pos.dtype != torch.int32
             or counts.dtype != torch.int32 or counts.shape != (2,)
             or miss_ids.shape != (n,) or miss_pos.shape != (n,)
@@ -236,7 +267,8 @@ def tiered_direct(out: torch.Tensor, miss_ids: torch.Tensor,
             or not out.device == miss_ids.device == miss_pos.device
             == counts.device):
         raise ValueError(f"tiered_direct: out (n, {host.tensor.shape[1]}) "
-                         "contiguous float32, miss_ids and miss_pos (n,) "
+                         "contiguous float32 or bfloat16, miss_ids and "
+                         "miss_pos (n,) "
                          "and counts (2,) int32, on one device")
     if out.device.type == "cpu":
         return tiered_direct_plain(out, miss_ids, miss_pos, int(counts[1]),
@@ -249,23 +281,27 @@ def tiered_direct(out: torch.Tensor, miss_ids: torch.Tensor,
     rc = _build.load("tiered").xg_tiered_direct(
         host.dev_ptr, width, miss_ids.data_ptr(), miss_pos.data_ptr(),
         counts[1:].data_ptr(), out.data_ptr(), n,
-        _build.stream_handle(out.device))
-    _build.check(rc, "tiered_direct")
-    _build.LAUNCHES.add("tiered_direct")
+        int(out.dtype == torch.bfloat16), _build.stream_handle(out.device))
+    name = ("tiered_direct_bf16" if out.dtype == torch.bfloat16
+            else "tiered_direct")
+    _build.check(rc, name)
+    _build.LAUNCHES.add(name)
     return out
 
 
 def tiered_extract(ids: torch.Tensor, num_input,
                    posmap: Optional[torch.Tensor],
-                   cache: Optional[torch.Tensor], host: MappedHostTable):
-    """``(out, counts)``: ``out`` is ``(len(ids), F)`` float32 rows,
+                   cache: Optional[torch.Tensor], host: MappedHostTable,
+                   dtype: Optional[torch.dtype] = None):
+    """``(out, counts)``: ``out`` is ``(len(ids), F)`` rows of ``dtype``
+    (float32 or bfloat16; by default the cache's, float32 without one),
     ``counts`` the int32 ``(hits, misses)`` on ``ids``' device.
     ``num_input`` is an int or a device int32 scalar (read on the device:
     no host sync)."""
-    _check(ids, posmap, cache, host)
+    _check(ids, posmap, cache, host, dtype)
     if ids.device.type == "cpu":
         return tiered_extract_plain(ids, num_input, posmap, cache,
-                                    host.tensor)
+                                    host.tensor, dtype)
     out, counts, miss_pos, miss_ids = tiered_split(ids, num_input, posmap,
-                                                   cache, host)
+                                                   cache, host, dtype)
     return tiered_direct(out, miss_ids, miss_pos, counts, host), counts

@@ -15,9 +15,16 @@ The port of ``xgnn_tpu/store/feature_store.py``:
   has nothing to do here; the hit and miss counts stay on the device.
 - ``DynamicTieredFeatureSource``: ``refresh(ranking)`` rebuilds the position
   map and the cache on the device.
+
+``dtype`` is JAX's ``feat_dtype``: ``torch.bfloat16`` keeps the device
+table (the tiered store's cache, and the rows it extracts) in bfloat16,
+rounded from float32 to nearest, ties to even, as ``astype`` rounds; the
+tiered store's host table keeps the dataset's float32.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import numpy as np
 import torch
@@ -36,11 +43,12 @@ def _gather_rows(feat: torch.Tensor, ids: torch.Tensor, num_valid):
 
 
 class HBMFeatureSource:
-    """The whole feature matrix in device memory."""
+    """The whole feature matrix in device memory, in ``dtype`` (float32 by
+    default)."""
 
-    def __init__(self, feat, device):
-        self.feat = torch.as_tensor(feat).to(device=device,
-                                             dtype=torch.float32).contiguous()
+    def __init__(self, feat, device, dtype: Optional[torch.dtype] = None):
+        self.feat = torch.as_tensor(feat).to(
+            device=device, dtype=dtype or torch.float32).contiguous()
         self.feat_dim = int(self.feat.shape[1])
 
     def extract(self, input_nodes: torch.Tensor, num_input):
@@ -52,15 +60,19 @@ class TieredFeatureSource:
     """The ``int(num_node * cache_percentage)`` hottest rows of a ranking
     cached on the device, every row in pinned, mapped host memory.
 
-    ``extract`` returns ``(x, info)``: ``info["num_hit"]`` and
-    ``info["num_miss"]`` are device int32 scalars and ``info["miss_bytes"]``
-    a device int64 scalar, so a step waits on nothing; the engine pulls
-    them once an epoch.  The host table is a copy of ``feat_host`` (pulled
-    from the device if it lies there; the source keeps no device copy).
+    ``extract`` returns ``(x, info)``: ``x`` in the cache's ``dtype``
+    (float32 by default); ``info["num_hit"]`` and ``info["num_miss"]`` are
+    device int32 scalars and ``info["miss_bytes"]`` a device int64 scalar
+    (the miss rows' bytes in the host table's float32, as they cross
+    PCIe), so a step waits on nothing; the engine pulls them once an epoch.
+    The host table is a float32 copy of ``feat_host`` (pulled from the
+    device if it lies there; the source keeps no device copy).
     """
 
-    def __init__(self, feat_host, ranking, cache_percentage: float, device):
+    def __init__(self, feat_host, ranking, cache_percentage: float, device,
+                 dtype: Optional[torch.dtype] = None):
         self.device = torch.device(device)
+        self.dtype = dtype or torch.float32
         self.host = MappedHostTable(feat_host, self.device)
         num_node, self.feat_dim = self.host.tensor.shape
         self.num_cache = int(num_node * cache_percentage)
@@ -69,6 +81,11 @@ class TieredFeatureSource:
     @property
     def feat_host(self) -> torch.Tensor:
         return self.host.tensor
+
+    @property
+    def row_bytes(self) -> int:
+        """A host row's bytes, what a miss moves over PCIe."""
+        return self.feat_dim * self.host.tensor.element_size()
 
     def _build(self, ranking):
         """The position map and the cache rows of ``ranking``'s prefix, on
@@ -83,7 +100,8 @@ class TieredFeatureSource:
             cache_ids.shape[0], dtype=torch.int32, device=self.device)
         self.posmap = posmap
         self.cache_feat, _ = tiered_extract(
-            cache_ids.contiguous(), cache_ids.shape[0], None, None, self.host)
+            cache_ids.contiguous(), cache_ids.shape[0], None, None, self.host,
+            self.dtype)
 
     def extract(self, input_nodes: torch.Tensor, num_input):
         out, counts = tiered_extract(input_nodes, num_input, self.posmap,
@@ -91,7 +109,7 @@ class TieredFeatureSource:
         return out, {
             "num_hit": counts[0],
             "num_miss": counts[1],
-            "miss_bytes": counts[1].to(torch.int64) * (self.feat_dim * 4),
+            "miss_bytes": counts[1].to(torch.int64) * self.row_bytes,
         }
 
 

@@ -112,12 +112,14 @@ VARIANTS = {
 
 class Build:
     """A library of K4, whether its C interface has the mean form (a
-    ``mean`` flag in the forward, ``denom`` in the backward) and whether
-    its backward takes the rank-1 term and the prefix's length (``c``,
-    ``u`` and ``num_prefix``)."""
+    ``mean`` flag in the forward, ``denom`` in the backward), whether its
+    backward takes the rank-1 term and the prefix's length (``c``, ``u``
+    and ``num_prefix``) and whether its forward takes the table's bfloat16
+    flag."""
 
-    def __init__(self, lib, mean: bool, rank1: bool = False):
-        self.lib, self.mean, self.rank1 = lib, mean, rank1
+    def __init__(self, lib, mean: bool, rank1: bool = False,
+                 bf16: bool = False):
+        self.lib, self.mean, self.rank1, self.bf16 = lib, mean, rank1, bf16
 
     def forward(self, h, nb, w, out, den, mean, stream):
         args = [h.data_ptr(), nb.data_ptr(), None if w is None else
@@ -127,6 +129,8 @@ class Build:
             args.append(int(mean))
         elif mean:
             raise ValueError("this build has no mean form")
+        if self.bf16:
+            args.append(int(str(h.dtype) == "torch.bfloat16"))
         return self.lib.xg_fanout_fwd(*args, stream)
 
     def backward(self, g, nb, g_dst, den, out, scratch, rows, stream):
@@ -176,9 +180,9 @@ def build_all(_build, parent) -> dict:
         parent_build = importlib.util.module_from_spec(spec)
         spec.loader.exec_module(parent_build)
         sigs = parent_build.SIGNATURES["fanout"]
+        # a forward of 11 arguments or more has the mean flag
         jobs["parent"] = (root / "csrc" / "fanout.cu", sigs,
-                          len(sigs["xg_fanout_fwd"])
-                          == len(_build.SIGNATURES["fanout"]["xg_fanout_fwd"]))
+                          len(sigs["xg_fanout_fwd"]) >= 11)
     procs = {}
     for name, (src, sigs, mean) in jobs.items():
         lib = out_dir / f"libfanout_{name}.so"
@@ -194,7 +198,8 @@ def build_all(_build, parent) -> dict:
                   f"{p.returncode}):\n{log[-2000:]}", flush=True)
             continue
         builds[name] = Build(_bind(lib, sigs), mean,
-                             len(sigs["xg_fanout_bwd"]) > 13)
+                             len(sigs["xg_fanout_bwd"]) > 13,
+                             len(sigs["xg_fanout_fwd"]) > 11)
     return builds
 
 

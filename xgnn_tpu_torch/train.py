@@ -1,8 +1,9 @@
 """Loss, optimizer and the train step.
 
 The port of ``xgnn_tpu/train.py``: the masked cross-entropy over the first
-``num_valid`` seeds, Adam with optax's defaults, the skip-on-overflow
-no-op update, and the evaluation step.  The skip stays on the device: ``torch.where(skip, old, new)``
+``num_valid`` seeds, Adam with optax's defaults (AdamW with a weight decay,
+as ``make_optimizer`` builds it), the skip-on-overflow no-op update, and
+the evaluation step.  The skip stays on the device: ``torch.where(skip, old, new)``
 over the params, both moments and the step count, so a step never waits on
 the host to learn whether its batch overflowed.  That is why Adam is a
 small function here and not ``torch.optim.Adam``, which needs the decision
@@ -38,12 +39,17 @@ def loss_fn(logits: torch.Tensor, labels: torch.Tensor, num_valid):
 
 class Adam:
     """optax.adam: b1 0.9, b2 0.999, eps 1e-8 outside the square root, bias
-    correction by the step count."""
+    correction by the step count.  With ``weight_decay > 0`` it is
+    optax.adamw: ``weight_decay * p`` joins Adam's update of every
+    parameter (biases too: no mask) before the learning rate scales it.
+    The state is Adam's either way: ``mu``, ``nu`` and ``count``."""
 
     def __init__(self, params: Sequence[torch.Tensor], lr: float,
-                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
+                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
+                 weight_decay: float = 0.0):
         self.params = list(params)
         self.lr, self.b1, self.b2, self.eps = lr, b1, b2, eps
+        self.weight_decay = weight_decay
         self.mu = [torch.zeros_like(p) for p in self.params]
         self.nu = [torch.zeros_like(p) for p in self.params]
         dev = self.params[0].device
@@ -62,6 +68,8 @@ class Adam:
             mu_new = (1.0 - self.b1) * g + self.b1 * mu
             nu_new = (1.0 - self.b2) * (g * g) + self.b2 * nu
             upd = (mu_new / bc1) / (torch.sqrt(nu_new / bc2) + self.eps)
+            if self.weight_decay:
+                upd = upd + self.weight_decay * p
             p_new = p + (-self.lr) * upd
             if skip is not None:
                 mu_new = torch.where(skip, mu, mu_new)
