@@ -182,6 +182,33 @@ Phases, each fatal on failure:
    K7's weights, PinSAGE's mean with the walk's counts), bit-equal; K11's
    reads rounding the misses into bfloat16 rows, exact, and the whole
    bfloat16 extract exact.
+12. The tiered topology (``use_dist_graph``, ``dist_graph_percentage``
+   0.85, the reference's large-graph setting): the weighted tables of
+   phase 7's edge weights built again on the card, then
+   ``make_tiered_topology`` (the hot prefix and its tables on the card,
+   the whole CSR and tables pulled, pinned and mapped, timed).  At the
+   three layers' frontiers of one batch walked through K3, K2, K8a (khop1;
+   uniform_wr checked), K8b-prefix and K8b-alias with and without dedup,
+   and K9 at PinSAGE's two layers, each tiered call (one launch over hot,
+   cold and EMPTY rows, the cold ones read in place from host memory)
+   exact against its plain version (the cold rows read on the host) and
+   against the untiered kernel over the whole CSR at the same uniforms,
+   timed beside that untiered call, with its cold rows, its cold sectors
+   and its bound (the larger of its hot bytes over HBM and the distinct
+   32-byte sectors of host memory its cold rows read, over PCIe); a
+   whole tiered batch and a batch of each
+   alias form equal to the plain path's.  Then the paths
+   ``graphsage_tiered`` (warm-up, counted and profiled epochs, its busy
+   ms a step beside graphsage's, then ``device_loop`` with epochs 0 and 1
+   per-step losses and accuracies equal to its host loop's bit for bit),
+   ``graphsage_khop1_tiered``, ``graphsage_weighted_prefix_tiered`` and
+   ``pinsage_tiered`` (profiled too), each through ``Engine.init``'s own
+   tiered topology with its launches asserted; and
+   ``graphsage_auto_placement``: ``auto_placement`` at the largest of a
+   few ``hbm_budget_gb`` at which the solver tiers the topology, the
+   store tiered too and presampled through the tiered sampler, its epoch
+   hit rate beside the presample's out-of-sample estimate; the
+   ``{"tiered_topology": ...}`` JSON line.
 
 Each kernel is timed twice: ``ms`` back to back (the wrapper's host time
 included, where the host is the slower) and ``device_ms`` with the host
@@ -192,8 +219,9 @@ pick; K4's mean form moves the sum form's bytes.  K4's mean-form
 ``library_ms`` is two calls, ``F.embedding_bag`` and the division.
 
 Prints the inference's JSON line, the tooling's (phase 10), the training
-options' (phase 11), the kernels' JSON line, then the card's line (nvidia-smi's name and power limit), then
-the result line.
+options' (phase 11), the tiered topology's (phase 12), the kernels' JSON
+line, then the card's line (nvidia-smi's name and power limit), then the
+result line.
 Exits non-zero with no result line when there is no CUDA device.
 """
 
@@ -231,6 +259,13 @@ PCIE_BYTES_PER_S = 16 * 32e9 * 128 / 130 / 8
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 RTOL = ATOL = 1e-5
+# the tiered topology's share of the edges on the card (the reference's
+# large-graph setting, evaluation/large_graph --use-dist-graph 0.85)
+TIER_PCT = 0.85
+# the tiered samplers' sources, by launch counter
+SOURCES = {"sample_khop": "sampling.cu", "sample_wr": "sampling.cu",
+           "sample_prefix": "weighted.cu", "sample_alias": "weighted.cu",
+           "random_walk": "random_walk.cu"}
 K5_BWD_TOL = 1e-4  # rtol and atol of K5's g_table and g_el_dst
 # bench.py's default configuration, as RunConfig's fields
 BENCH_CONFIG = dict(
@@ -657,7 +692,13 @@ def main() -> int:
         sample_weighted_khop_prefix,
         sample_weighted_khop_prefix_plain,
     )
-    from xgnn_tpu_torch.sampler import Sampler, default_capacities
+    from xgnn_tpu_torch.config import SampleType
+    from xgnn_tpu_torch.sampler import (
+        Sampler,
+        default_capacities,
+        make_tiered_topology,
+    )
+    from xgnn_tpu_torch.store.placement import resolve_auto_placement
     from xgnn_tpu_torch.store.presample import static_exact_ranking
     from xgnn_tpu_torch.synthetic import build_alias_tables
     from xgnn_tpu_torch.synthetic_device import (
@@ -3064,6 +3105,472 @@ def main() -> int:
         if path != "graphsage_adamw":
             same_losses(path, "graphsage")
     print(json.dumps({"options": option_rows}), flush=True)
+
+    # ---- 12. the tiered topology: the hot CSR prefix on the card, the cold
+    # rows read in place from mapped host memory -----------------------------
+    torch.cuda.empty_cache()
+    g = ds.graph
+    # the weighted samplers' tables for phase 7's edge weights, on the card
+    w = edge_weights(g.num_edge, 0, dev)
+    g.prob_prefix_table = prefix_table(g.indptr, w)
+    g.coarse_cdf = build_coarse_cdf(g.indptr, g.prob_prefix_table,
+                                    g.num_node)
+    g.prob_table, g.alias_table = alias_tables(g.indptr, g.indices, w)
+    del w
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hot, tier, n_all = make_tiered_topology(
+        g.indptr, g.indices, TIER_PCT, SampleType.WEIGHTED_KHOP,
+        prob_table=g.prob_table, alias_table=g.alias_table,
+        prob_prefix_table=g.prob_prefix_table, device=dev)
+    torch.cuda.synchronize()
+    tier_s = time.perf_counter() - t0
+    ncn = tier.num_cache_node
+    host_bytes = sum(a.tensor.numel() * a.tensor.element_size()
+                     for a in tier.csr.arrays.values())
+    print(f"{tag} tiered topology at {TIER_PCT}: hot prefix {ncn} of "
+          f"{n_all} nodes, {hot.num_edge} of {g.num_edge} edges on the card "
+          f"(its alias, prefix and coarse CDF tables too); the whole CSR "
+          f"and tables ({host_bytes} bytes) pulled, pinned and mapped in "
+          f"{tier_s:.3f} s", flush=True)
+    if not 0 < ncn < n_all:
+        raise AssertionError(f"tiered topology: hot prefix {ncn} of {n_all}")
+    seeds, n = next(Shuffler(ds.train_set, BATCH, seed=7).epoch_batches(0))
+    seeds = torch.from_numpy(seeds).to(dev)
+    tier_rows = {}  # cold rows by layer of the batch walked below
+
+    edge_pos = torch.arange(g.num_edge, dtype=torch.int32, device=dev)
+
+    def sectors(pos, width):
+        """The distinct 32-byte sectors that the elements at ``pos`` of an
+        array of ``width``-byte elements span (the array 32-byte aligned)"""
+        return int(torch.unique(pos.long() * width // 32).numel())
+
+    def cold_traffic(frontier, k, form, u, coin, out):
+        """What a tiered call must move: the hot rows' bytes through HBM
+        (the frontier, u and coin, an indptr pair a hot row, an index a hot
+        pick, the output) and the distinct 32-byte sectors of host memory
+        that the cold rows read (a host read goes through L2, so a sector
+        crosses the link once a call): the int64 indptr pair of each cold
+        row; then per form, at the positions this run's uniforms give, an
+        index a pick (khop, wr); a prob and an alias or an index a draw,
+        and a row of at most K entries whole (alias, dedup); the total and
+        every entry that the binary searches of a row's picks read, and an
+        index a pick (prefix).  The positions are found on the whole graph
+        on the card (``g``), the same rows at the same offsets, and held
+        to the call's cold picks.  Returns (hot bytes, cold sectors, hot
+        rows, cold rows)."""
+        ok = (frontier >= 0) & (frontier < n_all)
+        cold = ok & (frontier >= ncn)
+        v = frontier[cold].long()
+        start = g.indptr[v].long()
+        deg = g.indptr[v + 1].long() - start
+        n_sec = sectors(torch.cat([v, v + 1]), 8)
+        uc = u[cold]
+        if form in ("khop", "wr"):
+            fn = sample_khop0_plain if form == "khop" else (
+                sample_uniform_wr_plain)
+            pos = fn(g.indptr, edge_pos, frontier[cold], k, u=uc)
+            picked = pos != empty
+            # khop1's picks are sorted and deduplicated: K2's are the reads
+            if form == "khop" and not torch.equal(torch.where(
+                    picked, g.indices[torch.where(picked, pos, 0)], empty),
+                    out[cold]):
+                raise AssertionError("cold_traffic: khop positions")
+            n_sec += sectors(pos[picked], 4)
+        elif form in ("alias", "dedup"):
+            cc = coin[cold]
+            drawn = deg > k if form == "dedup" else deg > 0
+            d, st = deg[drawn, None], start[drawn, None]
+            slot = torch.minimum(torch.floor(uc[drawn] * d).long(), d - 1)
+            e = (st + slot).reshape(-1)
+            take = (cc[drawn].reshape(-1) >= g.prob_table[e])
+            if form == "alias" and not torch.equal(torch.where(
+                    take, g.alias_table[e], g.indices[e]),
+                    out[cold][drawn].reshape(-1)):
+                raise AssertionError("cold_traffic: alias positions")
+            whole = (deg > 0) & ~drawn
+            rows_e = start[whole].repeat_interleave(deg[whole]) + (
+                torch.arange(int(deg[whole].sum()), device=dev)
+                - torch.repeat_interleave(
+                    torch.cumsum(deg[whole], 0) - deg[whole], deg[whole]))
+            n_sec += (sectors(e, 4) + sectors(e[take], 4)
+                      + sectors(torch.cat([e[~take], rows_e]), 4))
+        else:  # prefix
+            live = deg > 0
+            st, d = start[live, None], deg[live, None]
+            pf = g.prob_prefix_table
+            total = pf[st + d - 1]
+            x = uc[live] * total
+            lo = torch.zeros_like(x, dtype=torch.long)
+            hi = (d - 1).expand_as(lo).clone()
+            read = [(st + d - 1).reshape(-1)]
+            while True:
+                act = lo < hi
+                if not bool(act.any()):
+                    break
+                mid = (lo + hi) >> 1
+                at = (st + mid)[act]
+                read.append(at)
+                up = torch.zeros_like(act)
+                up[act] = pf[at] <= x[act]
+                lo = torch.where(up, mid + 1, lo)
+                hi = torch.where(act & ~up, mid, hi)
+            if not torch.equal(g.indices[st + lo], out[cold][live]):
+                raise AssertionError("cold_traffic: prefix positions")
+            n_sec += (sectors(torch.cat(read), 4)
+                      + sectors((st + lo).reshape(-1), 4))
+        hot_rows = int((ok & ~cold).sum())
+        hot_picks = int(((out != empty) & ~cold[:, None]).sum())
+        u_bytes = (u.numel() + (0 if coin is None else coin.numel())) * 4
+        nbytes = (frontier.numel() * 4 + u_bytes + out.numel() * 4
+                  + hot_rows * 8 + hot_picks * 4)
+        return nbytes, n_sec, hot_rows, int(cold.sum())
+
+    def walk_tier_traffic(frontier, uw):
+        """K9's hot bytes (as walk_traffic counts them, for the walker-steps
+        from hot nodes) and the distinct 32-byte sectors of host memory its
+        cold steps read (the int64 indptr pair of each cold node stood on,
+        and the index each step from a cold node of degree > 0 reads), with
+        the hot and cold walker-steps."""
+        u_step, u_restart = uw
+        ip, ix = g.indptr, g.indices
+        seed = frontier[:, None].expand(-1, num_walk)
+        cur, hot_on, hot_live, cold_on = seed, 0, 0, 0
+        nodes, picks = [], []
+        for step in range(walk_len):
+            if step:
+                cur = torch.where(u_restart[step] < restart, seed, cur)
+            ok = (cur >= 0) & (cur < n_all)
+            node = torch.where(ok, cur, 0)
+            start = ip[node]
+            deg = torch.where(ok, ip[node + 1] - start, 0)
+            off = torch.minimum(torch.floor(u_step[step] * deg).int(),
+                                torch.clamp(deg - 1, min=0))
+            nxt = torch.where(deg > 0, ix[torch.where(deg > 0, start + off,
+                                                      0)], empty)
+            cold = ok & (node >= ncn)
+            hot_on += int((ok & ~cold).sum())
+            hot_live += int(((deg > 0) & ~cold).sum())
+            cold_on += int(cold.sum())
+            nodes.append(node[cold])
+            picks.append((start + off)[cold & (deg > 0)])
+            cur = torch.where(nxt == empty, seed, nxt)
+        v = torch.cat(nodes).long()
+        n_sec = sectors(torch.cat([v, v + 1]), 8) + sectors(
+            torch.cat(picks), 4)
+        b = frontier.numel()
+        fixed = (b * 4 + (2 * walk_len - 1) * b * num_walk * 4
+                 + b * NUM_NEIGHBOR * 8)
+        return fixed + hot_on * 8 + hot_live * 4, n_sec, hot_on, cold_on
+
+    def tier_case(name, form, layer, frontier, k, fn, plain, whole, u,
+                  coin, replaces, path, per_step, detail="", traffic=None):
+        """A tiered call held to its plain version (the cold rows read on
+        the host) and to the untiered kernel over the whole CSR on the card
+        at the same uniforms, exact; timed beside the untiered call, with
+        its bound: the larger of its hot bytes over HBM and its cold
+        sectors over PCIe."""
+        got, ref, full = fn(), plain(), whole()
+        torch.cuda.synchronize()
+        pairs = (list(zip(got, ref, full)) if isinstance(got, tuple)
+                 else [(got, ref, full)])
+        for a, b, c in pairs:
+            assert_close(f"{name} (tiered)", a, b, exact=True)
+            if not torch.equal(a, c):
+                raise AssertionError(f"{name} (tiered): differs from the "
+                                     "untiered kernel over the whole CSR")
+        out = got[0] if isinstance(got, tuple) else got
+        nbytes, sectors, hot_rows, cold_rows = (
+            cold_traffic(frontier, k, form, u, coin, out) if traffic is None
+            else traffic())
+        hbm_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        pcie_ms = sectors * 32 / pcie_rate * 1e3
+        record(name, f"xgnn_tpu_torch/csrc/{SOURCES[name]}", replaces,
+               f"tiered {TIER_PCT}{detail}, layer {layer}: frontier "
+               f"{frontier.shape[0]} ({hot_rows} hot, {cold_rows} cold rows) "
+               f"x K={k}, {int((out != empty).sum())} picks",
+               max(max_err(a, b) for a, b, _ in pairs), "exact", fn, plain,
+               None, None, nbytes=nbytes, flops=0, per_step=per_step,
+               path=path, plain_reps=1,
+               bound=max((hbm_ms, "bytes"), (pcie_ms, "bytes")))
+        untiered_ms = time_ms(torch, whole, host_ahead=True)
+        kernels[-1].update(tiered=True, hot_rows=hot_rows,
+                           cold_rows=cold_rows, cold_sectors=sectors,
+                           hbm_bound_ms=hbm_ms, pcie_bound_ms=pcie_ms,
+                           untiered_device_ms=untiered_ms)
+        print(f"{tag} {name} (tiered) layer {layer}: {cold_rows} cold rows, "
+              f"{sectors} sectors from host memory; "
+              f"{kernels[-1]['device_ms']:.4f} ms on the card alone against "
+              f"the untiered call's {untiered_ms:.4f} ms at the same "
+              f"frontier; bound HBM {hbm_ms:.4f} ms, PCIe {pcie_ms:.4f} ms",
+              flush=True)
+        return got
+
+    # K2, K8a, K8b (three forms) at the three layers' frontiers of one
+    # batch, walked through K3 as the sampler walks it
+    frontier = seeds
+    num = torch.full((), n, dtype=torch.int32, device=dev)
+    for layer, k in enumerate(FANOUT):
+        b = frontier.shape[0]
+        u = torch.rand((b, k), generator=gen, device=dev)
+        coin = torch.rand((b, k), generator=gen, device=dev)
+        m = HASH_DEDUP_ROUNDS * k
+        um = torch.rand((b, m), generator=gen, device=dev)
+        cm = torch.rand((b, m), generator=gen, device=dev)
+        f_, uk = frontier, u
+        nbr = tier_case(
+            "sample_khop", "khop", layer, f_, k,
+            lambda: sample_khop0(hot.indptr, hot.indices, f_, k, u=uk,
+                                 tier=tier),
+            lambda: sample_khop0_plain(hot.indptr, hot.indices, f_, k, u=uk,
+                                       tier=tier),
+            lambda: sample_khop0(g.indptr, g.indices, f_, k, u=uk),
+            uk, None, "xgnn_tpu/ops/sampling.py:144",
+            "graphsage_tiered", 3)
+        tier_rows[layer] = kernels[-1]["cold_rows"]
+        wr, wr_ref = (sample_uniform_wr(hot.indptr, hot.indices, f_, k, u=uk,
+                                        tier=tier),
+                      sample_uniform_wr_plain(hot.indptr, hot.indices, f_, k,
+                                              u=uk, tier=tier))
+        torch.cuda.synchronize()
+        assert_close("sample_wr (uniform_wr, tiered)", wr, wr_ref,
+                     exact=True)
+        del wr, wr_ref
+        tier_case(
+            "sample_wr", "wr", layer, f_, k,
+            lambda: sample_khop1(hot.indptr, hot.indices, f_, k, u=uk,
+                                 tier=tier),
+            lambda: sample_khop1_plain(hot.indptr, hot.indices, f_, k, u=uk,
+                                       tier=tier),
+            lambda: sample_khop1(g.indptr, g.indices, f_, k, u=uk),
+            uk, None, "xgnn_tpu/ops/sampling.py:130",
+            "graphsage_khop1_tiered", 3, ", khop1")
+        pa = (hot.indptr, hot.indices, hot.prob_prefix_table, f_, k, None,
+              hot.n_max_deg, hot.coarse_cdf)
+        tier_case(
+            "sample_prefix", "prefix", layer, f_, k,
+            lambda: sample_weighted_khop_prefix(*pa, u=uk, tier=tier),
+            lambda: sample_weighted_khop_prefix_plain(*pa, u=uk, tier=tier),
+            lambda: sample_weighted_khop_prefix(
+                g.indptr, g.indices, g.prob_prefix_table, f_, k, None,
+                g.n_max_deg, g.coarse_cdf, u=uk),
+            uk, None, "xgnn_tpu/ops/sampling.py:339",
+            "graphsage_weighted_prefix_tiered", 3)
+        for dedup, fn, plain, uu, cc in (
+                (False, sample_weighted_khop, sample_weighted_khop_plain, u,
+                 coin),
+                (True, sample_weighted_khop_hash_dedup,
+                 sample_weighted_khop_hash_dedup_plain, um, cm)):
+            aa = (hot.indptr, hot.indices, hot.prob_table, hot.alias_table,
+                  f_, k)
+            tier_case(
+                "sample_alias", "dedup" if dedup else "alias", layer, f_, k,
+                lambda fn=fn, uu=uu, cc=cc: fn(*aa, u=uu, coin=cc, tier=tier),
+                lambda plain=plain, uu=uu, cc=cc: plain(*aa, u=uu, coin=cc,
+                                                        tier=tier),
+                lambda fn=fn, uu=uu, cc=cc: fn(
+                    g.indptr, g.indices, g.prob_table, g.alias_table, f_, k,
+                    u=uu, coin=cc),
+                uu, cc, "xgnn_tpu/ops/sampling.py:"
+                + ("248" if dedup else "217"),
+                f"weighted_khop{'_hash_dedup' if dedup else ''} (tiered)", 3,
+                ", hash_dedup" if dedup else ", weighted_khop")
+        if layer == len(FANOUT) - 1:
+            break
+        out = unique_seeded_split(frontier, nbr.reshape(-1), num,
+                                  CAPS[layer + 1], num_node=n_all)
+        frontier, num = out[0], torch.clamp(out[1], max=CAPS[layer + 1])
+    del u, coin, um, cm, nbr, out, frontier, f_, uk, edge_pos
+    # K9 at PinSAGE's two layers: the seeds, then K3's frontier of their
+    # picks
+    w_b = seeds.shape[0]
+    for layer in range(2):
+        wf = seeds if layer == 0 else f1
+        uw = random_walk.draw_uniforms(WALK["num_random_walk"],
+                                       WALK["random_walk_length"],
+                                       wf.shape[0], gen, dev)
+        got = tier_case(
+            "random_walk", "khop", layer, wf, NUM_NEIGHBOR,
+            lambda wf=wf, uw=uw: sample_random_walk(
+                hot.indptr, hot.indices, wf, NUM_NEIGHBOR, u=uw, tier=tier,
+                **WALK),
+            lambda wf=wf, uw=uw: sample_random_walk_plain(
+                hot.indptr, hot.indices, wf, NUM_NEIGHBOR, u=uw, tier=tier,
+                **WALK),
+            lambda wf=wf, uw=uw: sample_random_walk(
+                g.indptr, g.indices, wf, NUM_NEIGHBOR, u=uw, **WALK),
+            uw[0], uw[1], "xgnn_tpu/ops/random_walk.py:38",
+            "pinsage_tiered", 2, ", walk W=4 L=3 (rows: hot and cold "
+            "walker-steps)",
+            traffic=lambda wf=wf, uw=uw: walk_tier_traffic(wf, uw))
+        if layer == 0:
+            f1 = unique_seeded_split(
+                seeds, got[0].reshape(-1),
+                torch.full((), n, dtype=torch.int32, device=dev),
+                pin_caps[1], num_node=n_all)[0]
+    del f1, got, uw
+    print(f"{tag} tiered topology: cold rows of the batch by layer "
+          f"{tier_rows}, {sum(tier_rows.values())} a step", flush=True)
+    # a whole tiered batch through K2 and K3 equal to the plain path's
+    tcfg = dataclasses.replace(cfg, use_dist_graph=True,
+                               dist_graph_percentage=TIER_PCT)
+    ts = Sampler(hot, tcfg, CAPS, direct_extract=True, tier=tier,
+                 num_node=n_all)
+    tb = ts.sample(seeds, n, generator(dev, 7))
+    assert_plain_batch(ts, tb, sampling, "sample_khop0", sample_khop0_plain,
+                       "tiered K2/K3")
+    # one batch of each alias form through Sampler.sample
+    for st, fn_name, plain in (
+            ("weighted_khop", "sample_weighted_khop",
+             sample_weighted_khop_plain),
+            ("weighted_khop_hash_dedup", "sample_weighted_khop_hash_dedup",
+             sample_weighted_khop_hash_dedup_plain)):
+        path = f"{st} (tiered)"
+        asamp = Sampler(hot, dataclasses.replace(tcfg, sample_type=st),
+                        CAPS, direct_extract=True, tier=tier, num_node=n_all)
+        _build.LAUNCHES.reset()
+        ab = asamp.sample(seeds, n, generator(dev, 7))
+        torch.cuda.synchronize()
+        counts = _build.LAUNCHES.snapshot()
+        want = {"sample_alias": len(FANOUT), "unique_seeded": len(FANOUT) - 1}
+        if counts != want:
+            raise AssertionError(f"{path}: launch counts {counts} != {want}")
+        counts_by_path[path] = counts
+        print(f"{tag} {path} batch: "
+              f"{sum(int(blk.mask.sum()) for blk in ab.blocks)} edges, "
+              f"launches {counts}", flush=True)
+        assert_plain_batch(asamp, ab, sampling, fn_name, plain,
+                           f"tiered K8b-alias/K3 ({st})")
+    del ts, tb, asamp, ab, hot
+    tier.csr.close()
+    del tier
+    g.prob_table = g.alias_table = None
+    torch.cuda.empty_cache()
+
+    # the paths: graphsage (its host loop and device_loop), khop1, the
+    # weighted prefix (its tables on the dataset's graph) and pinsage, each
+    # through Engine.init's own tiered topology
+    expected.update({
+        "graphsage_tiered": expected["graphsage"],
+        "graphsage_khop1_tiered": expected["graphsage_khop1"],
+        "graphsage_weighted_prefix_tiered":
+            expected["graphsage_weighted_prefix"],
+        "pinsage_tiered": expected["pinsage"],
+        # the store tiered too: graphsage_cached's kernels
+        "graphsage_auto_placement": expected["graphsage_cached"],
+    })
+    tier_rows_out = {"cold_rows_by_layer": tier_rows, "paths": {}}
+    for path, change, base, per_step in (
+            ("graphsage_tiered", {}, cfg, edges_per_step),
+            ("graphsage_khop1_tiered", dict(sample_type="khop1"), cfg, None),
+            ("graphsage_weighted_prefix_tiered",
+             dict(sample_type="weighted_khop_prefix"), cfg, None),
+            ("pinsage_tiered", {}, pin_cfg, None)):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        eng = Engine(ds, dataclasses.replace(
+            base, use_dist_graph=True, dist_graph_percentage=TIER_PCT,
+            **change)).init()
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        if eng._tier is None or eng.graph.num_node >= eng.sampler.num_node:
+            raise AssertionError(f"{path}: the topology did not tier")
+        print(f"{tag} {path} engine init: {init_s:.3f} s (graph load "
+              f"{eng.profiler._init_items['graph_load_time']:.3f} s: the "
+              f"hot prefix to the card, the whole CSR pinned and mapped); "
+              f"hot prefix {eng.graph.num_node} of {eng.sampler.num_node} "
+              f"nodes; capacities {eng.sampler.capacities}", flush=True)
+        per_step = edges_of(eng.sampler) if per_step is None else per_step
+        r = run_epochs(path, eng)
+        rate_and_memory(path, r, per_step)
+        prof = (profiled_epoch(path, eng, 2) or {}) if path in (
+            "graphsage_tiered", "pinsage_tiered") else {}
+        ref_path = path.replace("_tiered", "")
+        ref = host_runs[ref_path]
+        row = {"epoch_s": r["time"], "untiered_epoch_s": ref["time"],
+               "busy_ms_per_step": prof.get("busy_ms_per_step"),
+               "untiered_busy_ms_per_step": (ref.get("profiled") or {}).get(
+                   "busy_ms_per_step"),
+               "busy_share": prof.get("busy_share"),
+               "step_peak_gib": host_runs[path]["step_peak_gib"]}
+        tier_rows_out["paths"][path] = row
+        print(f"{tag} {path}: counted epoch {r['time']:.3f} s against "
+              f"{ref_path}'s {ref['time']:.3f} s; profiled busy "
+              f"{row['busy_ms_per_step']} ms a step against "
+              f"{row['untiered_busy_ms_per_step']}", flush=True)
+        del eng
+    # device_loop on the tiered graphsage: the cold reads replay inside the
+    # captured step; epochs 0 and 1 equal the host loop's bit for bit
+    torch.cuda.empty_cache()
+    deng = Engine(ds, dataclasses.replace(
+        tcfg, device_loop=True)).init()
+    times = []
+    for epoch in (0, 1):
+        _build.LAUNCHES.reset()
+        r = deng.train_epoch(epoch)
+        torch.cuda.synchronize()
+        times.append(r["time"])
+        for key in ("loss", "acc"):
+            a = deng.history[epoch][key]
+            b = host_runs["graphsage_tiered"]["hist"][epoch][key]
+            if not np.all(np.isfinite(a)) or not np.array_equal(a, b):
+                raise AssertionError(
+                    f"graphsage_tiered device_loop epoch {epoch}: {key} not "
+                    f"bit-equal to the host loop's: {list(a)} against "
+                    f"{list(b)}")
+    if deng._fused is None:
+        raise AssertionError("graphsage_tiered: device_loop did not capture")
+    tier_rows_out["paths"]["graphsage_tiered"].update(
+        device_loop_epoch_s=times[1], device_loop_bit_equal=True)
+    print(f"{tag} graphsage_tiered device_loop: epochs 0 and 1 per-step "
+          f"losses and accuracies equal the host loop's bit for bit; "
+          f"counted epoch {times[1]:.3f} s against the host loop's "
+          f"{host_runs['graphsage_tiered']['time']:.3f} s", flush=True)
+    del deng
+    # auto_placement: the largest budget of these at which the solver
+    # tiers the topology; the store tiers too, presampled through the
+    # tiered sampler, with its out-of-sample hit estimate
+    g.prob_prefix_table = g.coarse_cdf = None
+    torch.cuda.empty_cache()
+    for budget in (8.0, 4.0, 2.0, 1.5, 1.0, 0.75, 0.5):
+        acfg = dataclasses.replace(cfg, auto_placement=True,
+                                   hbm_budget_gb=budget)
+        solved, plan = resolve_auto_placement(acfg, ds, group_size=1)
+        if solved.use_dist_graph and solved.dist_graph_percentage < 1.0:
+            break
+    else:
+        raise AssertionError("auto_placement: no budget tiered the topology")
+    t0 = time.perf_counter()
+    aeng = Engine(ds, acfg).init()
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    if aeng._tier is None:
+        raise AssertionError("graphsage_auto_placement: no tier")
+    plan = aeng.placement_plan
+    if not aeng._tiered:  # the whole table fits: graphsage's kernels
+        expected["graphsage_auto_placement"] = expected["graphsage"]
+    print(f"{tag} graphsage_auto_placement at hbm_budget_gb={budget}: "
+          f"dist_graph_percentage {aeng.config.dist_graph_percentage}, "
+          f"cache_percentage {aeng.config.cache_percentage} (policy "
+          f"{aeng.config.cache_policy.value}); plan {plan}; init "
+          f"{init_s:.3f} s, presample "
+          f"{aeng.init_times.get('presample', 0):.3f} s", flush=True)
+    r = run_epochs("graphsage_auto_placement", aeng)
+    rate_and_memory("graphsage_auto_placement", r, edges_per_step)
+    tier_rows_out["auto_placement"] = {
+        "hbm_budget_gb": budget,
+        "dist_graph_percentage": aeng.config.dist_graph_percentage,
+        "cache_percentage": aeng.config.cache_percentage,
+        "expected_topo_hit": plan.expected_topo_hit,
+        "expected_feat_hit": plan.expected_feat_hit,
+        "epoch_hit_rate": r["hit_rate"], "epoch_s": r["time"]}
+    print(f"{tag} graphsage_auto_placement: epoch hit rate "
+          f"{r['hit_rate']:.4f} against the presample's out-of-sample "
+          f"estimate {plan.expected_feat_hit:.4f}", flush=True)
+    del aeng
+    print(json.dumps({"tiered_topology": tier_rows_out}), flush=True)
 
     for k in kernels:
         k["launches"] = counts_by_path[k["path"]].get(k["name"], 0)

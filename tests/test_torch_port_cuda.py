@@ -2231,3 +2231,181 @@ def test_device_loop_with_training_options_equals_the_host_loop(dev,
     the captured step)."""
     _in_own_process("_device_loop_against_host_loop", "graphsage", 1,
                     options)
+
+
+# ------------------------------------------------------- tiered topology
+def _tiered_graph(dev, pct=0.5):
+    """A weighted power-law graph on the card (alias tables built there)
+    and its tiered topology at ``pct``: the hot prefix on the card, the
+    whole CSR and tables pinned and mapped."""
+    from xgnn_tpu_torch import make_device_dataset
+    from xgnn_tpu_torch.config import SampleType
+    from xgnn_tpu_torch.sampler import make_tiered_topology
+    from xgnn_tpu_torch.synthetic_device import alias_tables, edge_weights
+
+    ds = make_device_dataset(20_000, 300_000, 8, 5, seed=4, device=dev,
+                             weighted=True)
+    g = ds.graph
+    g.prob_table, g.alias_table = alias_tables(
+        g.indptr, g.indices, edge_weights(g.num_edge, 4, dev))
+    hot, tier, n = make_tiered_topology(
+        g.indptr, g.indices, pct, SampleType.WEIGHTED_KHOP,
+        prob_table=g.prob_table, alias_table=g.alias_table,
+        prob_prefix_table=g.prob_prefix_table, device=dev)
+    return g, hot, tier, n
+
+
+def _tiered_frontier(g, tier, n, seed):
+    """Random ids, the 64 largest rows, EMPTY, and the prefix's edges."""
+    rng = np.random.default_rng(seed)
+    ncn = tier.num_cache_node
+    deg = (g.indptr[1:] - g.indptr[:-1]).cpu().numpy()
+    f = np.concatenate([rng.integers(0, n, 6000), np.argsort(-deg)[:64],
+                        np.full(100, EMPTY), [n - 1, ncn, ncn - 1, 0]])
+    f = f.astype(np.int32)
+    rng.shuffle(f)
+    cold = (f != EMPTY) & (f >= ncn)
+    assert cold.sum() > 1000
+    # cold rows past 128 entries: K8b-prefix's hubs, searched in place
+    assert (cold & (deg[np.minimum(f, n - 1)] > 128)).any()
+    return f
+
+
+def _tiered_cases(dev, g, hot, tier, frontier, k, seed):
+    """Each tiered wrapper as ``fn(tier, graph)``, with its plain version
+    on the tier, at the same uniforms."""
+    from xgnn_tpu_torch.ops import random_walk as rw
+    from xgnn_tpu_torch.ops import sampling as s
+
+    b = frontier.shape[0]
+    gen = _gen(dev, seed)
+    u = torch.rand((b, k), generator=gen, device=dev)
+    coin = torch.rand((b, k), generator=gen, device=dev)
+    m = s.HASH_DEDUP_ROUNDS * k
+    um = torch.rand((b, m), generator=gen, device=dev)
+    cm = torch.rand((b, m), generator=gen, device=dev)
+    w, l = 4, 3
+    uw = rw.draw_uniforms(w, l, b, gen, dev)
+    walk = dict(num_random_walk=w, random_walk_length=l, restart_prob=0.5)
+    kw = min(k, w * l)
+    return {
+        "sample_khop": lambda t, gr, f=s.sample_khop0: f(
+            gr.indptr, gr.indices, frontier, k, u=u, tier=t),
+        "sample_wr": lambda t, gr, f=s.sample_uniform_wr: f(
+            gr.indptr, gr.indices, frontier, k, u=u, tier=t),
+        "sample_wr khop1": lambda t, gr, f=s.sample_khop1: f(
+            gr.indptr, gr.indices, frontier, k, u=u, tier=t),
+        "sample_alias": lambda t, gr, f=s.sample_weighted_khop: f(
+            gr.indptr, gr.indices, gr.prob_table, gr.alias_table, frontier,
+            k, u=u, coin=coin, tier=t),
+        "sample_alias dedup": lambda t, gr, f=(
+            s.sample_weighted_khop_hash_dedup): f(
+            gr.indptr, gr.indices, gr.prob_table, gr.alias_table, frontier,
+            k, u=um, coin=cm, tier=t),
+        "sample_prefix": lambda t, gr, f=s.sample_weighted_khop_prefix: f(
+            gr.indptr, gr.indices, gr.prob_prefix_table, frontier, k,
+            max_deg=gr.n_max_deg, coarse_cdf=gr.coarse_cdf, u=u, tier=t),
+        "random_walk": lambda t, gr, f=rw.sample_random_walk: f(
+            gr.indptr, gr.indices, frontier, kw, u=uw, tier=t, **walk),
+    }, {
+        "sample_khop": lambda: s.sample_khop0_plain(
+            hot.indptr, hot.indices, frontier, k, u=u, tier=tier),
+        "sample_wr": lambda: s.sample_uniform_wr_plain(
+            hot.indptr, hot.indices, frontier, k, u=u, tier=tier),
+        "sample_wr khop1": lambda: s.sample_khop1_plain(
+            hot.indptr, hot.indices, frontier, k, u=u, tier=tier),
+        "sample_alias": lambda: s.sample_weighted_khop_plain(
+            hot.indptr, hot.indices, hot.prob_table, hot.alias_table,
+            frontier, k, u=u, coin=coin, tier=tier),
+        "sample_alias dedup": lambda: (
+            s.sample_weighted_khop_hash_dedup_plain(
+                hot.indptr, hot.indices, hot.prob_table, hot.alias_table,
+                frontier, k, u=um, coin=cm, tier=tier)),
+        "sample_prefix": lambda: s.sample_weighted_khop_prefix_plain(
+            hot.indptr, hot.indices, hot.prob_prefix_table, frontier, k,
+            max_deg=hot.n_max_deg, coarse_cdf=hot.coarse_cdf, u=u,
+            tier=tier),
+        "random_walk": lambda: rw.sample_random_walk_plain(
+            hot.indptr, hot.indices, frontier, kw, u=uw, tier=tier, **walk),
+    }
+
+
+@pytest.mark.parametrize("k", [5, 10, 15, 7, 33])
+def test_tiered_kernels_equal_plain_and_untiered(dev, k):
+    """K2, K8a, K8b (its three forms) and K9 on a tiered topology, one
+    launch over hot, cold and EMPTY rows: equal to their plain versions
+    (the cold rows read from the host CSR on the CPU) and to the untiered
+    kernels over the whole CSR on the card at the same uniforms."""
+    from xgnn_tpu_torch.ops import _build
+
+    g, hot, tier, n = _tiered_graph(dev)
+    assert 0 < tier.num_cache_node < n
+    assert hot.coarse_cdf.shape[0] == tier.num_cache_node
+    frontier = torch.from_numpy(_tiered_frontier(g, tier, n, k)).to(dev)
+    fns, plains = _tiered_cases(dev, g, hot, tier, frontier, k, k)
+    for name, fn in fns.items():
+        _build.LAUNCHES.reset()
+        got = fn(tier, hot)
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES.snapshot() == {name.split()[0]: 1}, name
+        whole = fn(None, g)
+        ref = plains[name]()
+        if name == "random_walk":
+            for a, b_, c in zip(got, whole, ref):
+                assert torch.equal(a, b_) and torch.equal(a, c), name
+        else:
+            assert torch.equal(got, ref), name
+            assert torch.equal(got, whole), name
+    tier.csr.close()
+
+
+def test_tiered_kernels_refuse_an_unmapped_tier(dev):
+    """A tier whose host CSR is not mapped for the card raises, and so
+    does one whose hot prefix is not the device graph's."""
+    from xgnn_tpu_torch.ops.sampling import sample_khop0
+    from xgnn_tpu_torch.store.topology import MappedHostCSR, Tier
+
+    g, hot, tier, n = _tiered_graph(dev)
+    frontier = torch.arange(100, dtype=torch.int32, device=dev)
+    cpu = Tier(tier.num_cache_node,
+               MappedHostCSR(g.indptr, g.indices, device="cpu"))
+    with pytest.raises(ValueError, match="not mapped"):
+        sample_khop0(hot.indptr, hot.indices, frontier, 5, tier=cpu)
+    with pytest.raises(ValueError, match="hot rows"):
+        sample_khop0(g.indptr, g.indices, frontier, 5, tier=tier)
+    tier.csr.close()
+
+
+def _tiered_replayed_under_capture(dev):
+    g, hot, tier, n = _tiered_graph(dev)
+    f0 = torch.from_numpy(_tiered_frontier(g, tier, n, 1)).to(dev)
+    frontier = f0.clone()
+    k = 10
+    fns, plains = _tiered_cases(dev, g, hot, tier, frontier, k, 3)
+    stream = torch.cuda.Stream(dev)
+    stream.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(stream):
+        for fn in fns.values():  # every library loaded before the capture
+            fn(tier, hot)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        outs = {name: fn(tier, hot) for name, fn in fns.items()}
+    for seed in (2, 5, 9):
+        frontier.copy_(torch.from_numpy(
+            _tiered_frontier(g, tier, n, seed)).to(dev))
+        graph.replay()
+        torch.cuda.synchronize()
+        for name, out in outs.items():
+            ref = plains[name]()
+            if name == "random_walk":
+                assert all(torch.equal(a, b) for a, b in zip(out, ref)), name
+            else:
+                assert torch.equal(out, ref), name
+
+
+def test_tiered_kernels_replayed_under_capture(dev):
+    """The tiered kernels captured once in a CUDA graph read the mapped
+    host CSR at fixed device addresses: replayed with new frontiers they
+    equal their plain versions (device_loop on the tiered topology)."""
+    _in_own_process("_tiered_replayed_under_capture")

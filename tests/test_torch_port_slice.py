@@ -317,6 +317,20 @@ def test_unported_configs_raise(field, value, learn_ds):
         r = engine.train_epoch(0)
         assert engine._fused is not None and np.isfinite(r["loss"])
         return
+    if field == "use_dist_graph":
+        # once refused, the tiered topology now builds on one card (its
+        # hot prefix on the device; tests/test_torch_port_tiered_topology.py
+        # holds it to JAX), and use_dist_graph alone keeps the whole graph
+        # on the device, as in JAX
+        for pct, tiered in ((1.0, False), (0.5, True)):
+            cfg = RunConfig(**{field: value}, dist_graph_percentage=pct,
+                            batch_size=64, fanout=(4, 3), num_layer=2,
+                            num_hidden=8, calibration_batches=1)
+            engine = Engine(Dataset.from_arrays(learn_ds), cfg,
+                            device="cpu").init()
+            assert (engine._tier is not None) == tiered
+            assert np.isfinite(engine.train_epoch(0)["loss"])
+        return
     if field in ("remat", "compute_dtype", "agg_impl"):
         # once refused, the training options now build and train
         # (tests/test_torch_port_options.py holds them to JAX); GAT under

@@ -387,8 +387,10 @@ def test_the_clis_train_and_evaluate_a_checkpoint(tmp_path, capsys,
 @pytest.mark.parametrize("flags", [
     ["--dataset", "products"], ["--synthetic-rmat"],
     ["--synthetic-signal", "1.5"], ["--num-worker", "4"],
-    ["--use-dist-graph"], ["--model", "gat", "--remat", "--feat-dtype",
-                           "bfloat16"],
+    # --use-dist-graph runs on one card now; --part-cache is a multi-card
+    # flag
+    ["--use-dist-graph", "--part-cache"],
+    ["--model", "gat", "--remat", "--feat-dtype", "bfloat16"],
     ["--model", "gat", "--agg-impl", "tiled", "--compute-dtype",
      "bfloat16"]])
 def test_cli_flags_of_unported_paths_name_roadmap_items(flags):

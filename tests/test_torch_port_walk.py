@@ -392,8 +392,10 @@ def test_unported_messages_name_roadmap_items_that_exist():
     from xgnn_tpu_torch import RunConfig
 
     roadmap = (Path(__file__).resolve().parents[1] / "ROADMAP.md").read_text()
+    # use_dist_graph, once refused, is the tiered topology now
+    RunConfig(use_dist_graph=True, dist_graph_percentage=0.5)
     cases = [dict(model="gat", feat_dtype="bfloat16"),
-             dict(use_dist_graph=True),
+             dict(model="gat", use_dist_graph=True, feat_dtype="bfloat16"),
              dict(model="gat", agg_impl="tiled", compute_dtype="bfloat16"),
              dict(model="gat", compute_dtype="bfloat16"),
              dict(model="gat", remat=True, feat_dtype="bfloat16")]

@@ -17,7 +17,12 @@ feature table (the tiered store's device cache) in bfloat16,
 ``compute_dtype="bfloat16"`` casts the model's input to it, ``remat``
 recomputes each convolution in the backward, ``weight_decay > 0`` is
 AdamW, and ``agg_impl`` names JAX's fanout-reduce formulation (``loop``,
-``tiled`` or ``chunk<N>``), each of which K4 computes.
+``tiled`` or ``chunk<N>``), each of which K4 computes.  On one card,
+``use_dist_graph`` with ``dist_graph_percentage < 1`` is the tiered
+topology (the hot CSR prefix on the device, the rest read in place from
+host memory), and ``auto_placement`` solves ``use_dist_graph``,
+``dist_graph_percentage`` and ``cache_percentage`` from the device memory
+(``hbm_budget_gb`` where given) and the degree skew.
 """
 
 from __future__ import annotations
@@ -108,6 +113,17 @@ class RunConfig:
     presample_static_fanout: int = 32
     use_dist_graph: bool = False
     gpu_extract: bool = True
+    # the share of the EDGES whose rows stay on the device when
+    # use_dist_graph is on; the other rows' adjacency is read from host
+    # memory (reference dist_graph_percentage, dist_engine.cc:224-235)
+    dist_graph_percentage: float = 1.0
+    # solve dist_graph_percentage, cache_percentage and use_dist_graph from
+    # the device memory and the degree skew at init (store/placement.py);
+    # values the caller set win
+    auto_placement: bool = False
+    # the device memory auto_placement plans for (GiB); None reads the
+    # card's, and must be given on the CPU
+    hbm_budget_gb: Optional[float] = None
 
     # --- random walk (PinSAGE) --------------------------------------------
     random_walk_length: int = 3
@@ -184,9 +200,6 @@ class RunConfig:
             raise ValueError(f"agg_impl={self.agg_impl!r}: not loop, tiled "
                              "or chunk<N>")
         todo = []
-        if self.use_dist_graph:
-            todo.append("use_dist_graph: ROADMAP queue 1, 'Tiered "
-                        "topology' and 'Multi-GPU'")
         if self.model == "gat" and "bfloat16" in (self.compute_dtype,
                                                   self.feat_dtype):
             todo.append("GAT under bfloat16: ROADMAP section 2, 'K5 bf16'")

@@ -48,9 +48,21 @@
 // 20.25-20.29 against 21.02-21.06 us a launch
 // (xgnn_tpu_torch/tools/time_walk.py, one process each, in turns): four
 // times the threads hide more of the step latency.
+//
+// The tiered topology (tier.cuh): a walker standing on a cold node takes
+// its step from the whole graph's CSR in mapped host memory, in the same
+// launch, with the same arithmetic on the same uniform: the walk equals
+// the untiered walk over the whole CSR.  A cold step is two dependent PCIe
+// round trips.  The kernel is built twice, kTiered false (the untiered
+// launch, no cold branch) and true.  Replaces, for the cold steps:
+// xgnn_tpu/ops/random_walk.py:83-103, each step's host callback
+// (xgnn_tpu/parallel/ggms.py, cold_sample_callback) over the walkers that
+// stand on cold nodes.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "tier.cuh"
 
 namespace {
 
@@ -58,24 +70,38 @@ constexpr int32_t kEmpty = 0x7fffffff;
 constexpr int kWalkThreads = 256;
 constexpr int kMaxVisits = 64;
 
+// the step's offset in a row of degree deg > 0
+__device__ __forceinline__ int32_t step_offset(float u, int32_t deg) {
+  const float x = __fmul_rn(u, __int2float_rn(deg));
+  const int32_t off = __float2int_rz(floorf(x));
+  return off < deg - 1 ? off : deg - 1;
+}
+
 // one uniform step from v; EMPTY where v has no neighbour
+template <bool kTiered>
 __device__ __forceinline__ int32_t walk_step(const int32_t* __restrict__ indptr,
                                              const int32_t* __restrict__ indices,
+                                             const Cold& cold,
                                              int64_t num_node, int32_t v,
                                              float u) {
-  if (v < 0 || (int64_t)v >= num_node) return kEmpty;
-  const int32_t start = __ldg(indptr + v);
-  const int32_t deg = __ldg(indptr + v + 1) - start;
+  if (v < 0) return kEmpty;
+  if ((int64_t)v < num_node) {
+    const int32_t start = __ldg(indptr + v);
+    const int32_t deg = __ldg(indptr + v + 1) - start;
+    if (deg <= 0) return kEmpty;
+    return __ldg(indices + ((int64_t)start + step_offset(u, deg)));
+  }
+  if (!kTiered || !cold_id(cold, v, num_node)) return kEmpty;
+  int64_t start;
+  int32_t deg;
+  cold_row(cold, v, &start, &deg);
   if (deg <= 0) return kEmpty;
-  const float x = __fmul_rn(u, __int2float_rn(deg));
-  int32_t off = __float2int_rz(floorf(x));
-  off = off < deg - 1 ? off : deg - 1;
-  return __ldg(indices + ((int64_t)start + off));
+  return __ldcg(cold.indices + (start + step_offset(u, deg)));
 }
 
 // kW, kL > 0: built for those constants; 0: run-time w and l.  A block
 // holds the walkers of `rows` seeds, thread t walker t % W of seed t / W.
-template <int kW, int kL>
+template <int kW, int kL, bool kTiered>
 __global__ void __launch_bounds__(kWalkThreads)
 random_walk_kernel(const int32_t* __restrict__ indptr,
                    const int32_t* __restrict__ indices,
@@ -84,7 +110,7 @@ random_walk_kernel(const int32_t* __restrict__ indptr,
                    const float* __restrict__ u_restart,
                    int32_t* __restrict__ neigh, float* __restrict__ weights,
                    int64_t num_node, int64_t num_rows, int w_rt, int l_rt,
-                   int fanout, float restart_prob, int rows) {
+                   int fanout, float restart_prob, int rows, Cold cold) {
   constexpr bool kFixed = kW > 0 && kL > 0;
   const int nw = kFixed ? kW : w_rt;
   const int nl = kFixed ? kL : l_rt;
@@ -104,7 +130,8 @@ random_walk_kernel(const int32_t* __restrict__ indptr,
       const int64_t at = ((int64_t)s * num_rows + row) * nw + w;
       if (s > 0 && __ldg(u_restart + at) < restart_prob) cur = seed;
       const int32_t nxt =
-          walk_step(indptr, indices, num_node, cur, __ldg(u_step + at));
+          walk_step<kTiered>(indptr, indices, cold, num_node, cur,
+                             __ldg(u_step + at));
       vis[w * nl + s] = nxt == seed ? kEmpty : nxt;
       cur = nxt == kEmpty ? seed : nxt;
     }
@@ -151,32 +178,59 @@ random_walk_kernel(const int32_t* __restrict__ indptr,
   }
 }
 
+// sizes: at most 2048 visits a block (16 KB of shared memory)
+template <bool kTiered>
+void launch_walk(const int32_t* ip, const int32_t* ix, const int32_t* fr,
+                 const float* us, const float* ur, int32_t* nb, float* wt,
+                 long long num_node, long long num_rows, int num_walk,
+                 int walk_len, int fanout, float restart_prob,
+                 const Cold& cold, cudaStream_t s) {
+  const int m = num_walk * walk_len;
+  int rows = kWalkThreads / num_walk;
+  if (rows * m > 2048) rows = 2048 / m;
+  const unsigned blocks = (unsigned)((num_rows + rows - 1) / rows);
+  const unsigned threads = (unsigned)(rows * num_walk);
+  const size_t smem = (size_t)2 * rows * m * sizeof(int32_t);
+  if (num_walk == 4 && walk_len == 3) {
+    random_walk_kernel<4, 3, kTiered><<<blocks, threads, smem, s>>>(
+        ip, ix, fr, us, ur, nb, wt, num_node, num_rows, num_walk, walk_len,
+        fanout, restart_prob, rows, cold);
+  } else {
+    random_walk_kernel<0, 0, kTiered><<<blocks, threads, smem, s>>>(
+        ip, ix, fr, us, ur, nb, wt, num_node, num_rows, num_walk, walk_len,
+        fanout, restart_prob, rows, cold);
+  }
+}
+
 }  // namespace
 
 // indptr: (num_node + 1,) int32; indices: (E,) int32; frontier: (num_rows,)
 // int32, EMPTY padded; u_step, u_restart: (walk_len, num_rows, num_walk)
 // float32 (u_restart[0] is not read); neigh: (num_rows, fanout) int32;
 // weights: (num_rows, fanout) float32.  1 <= num_walk * walk_len <= 64 and
-// 1 <= fanout <= num_walk * walk_len.  Returns cudaGetLastError() after the
-// launch (cudaErrorInvalidValue for sizes it does not take).
+// 1 <= fanout <= num_walk * walk_len.  cold_indptr, cold_indices: the whole
+// graph's CSR in mapped host memory ((num_total + 1,) int64 and int32),
+// read for the nodes [num_node, num_total); both null and num_total ==
+// num_node when the topology is not tiered.  Returns cudaGetLastError()
+// after the launch (cudaErrorInvalidValue for sizes or a tier it does not
+// take).
 extern "C" int xg_random_walk(const void* indptr, const void* indices,
                               const void* frontier, const void* u_step,
                               const void* u_restart, void* neigh,
                               void* weights, long long num_node,
                               long long num_rows, int num_walk, int walk_len,
-                              int fanout, float restart_prob, void* stream) {
+                              int fanout, float restart_prob,
+                              const void* cold_indptr,
+                              const void* cold_indices, long long num_total,
+                              void* stream) {
+  Cold cold;
   if (num_walk < 1 || walk_len < 1 || num_walk * walk_len > kMaxVisits ||
-      fanout < 1 || fanout > num_walk * walk_len)
+      fanout < 1 || fanout > num_walk * walk_len ||
+      !make_cold(cold_indptr, cold_indices, nullptr, nullptr, nullptr,
+                 num_node, num_total, kNoTables, &cold))
     return (int)cudaErrorInvalidValue;
   if (num_rows <= 0) return (int)cudaGetLastError();
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  const int m = num_walk * walk_len;
-  // at most 2048 visits a block: 16 KB of shared memory
-  int rows = kWalkThreads / num_walk;
-  if (rows * m > 2048) rows = 2048 / m;
-  const unsigned blocks = (unsigned)((num_rows + rows - 1) / rows);
-  const unsigned threads = (unsigned)(rows * num_walk);
-  const size_t smem = (size_t)2 * rows * m * sizeof(int32_t);
   const int32_t* ip = static_cast<const int32_t*>(indptr);
   const int32_t* ix = static_cast<const int32_t*>(indices);
   const int32_t* fr = static_cast<const int32_t*>(frontier);
@@ -184,14 +238,11 @@ extern "C" int xg_random_walk(const void* indptr, const void* indices,
   const float* ur = static_cast<const float*>(u_restart);
   int32_t* nb = static_cast<int32_t*>(neigh);
   float* wt = static_cast<float*>(weights);
-  if (num_walk == 4 && walk_len == 3) {
-    random_walk_kernel<4, 3><<<blocks, threads, smem, s>>>(
-        ip, ix, fr, us, ur, nb, wt, num_node, num_rows, num_walk, walk_len,
-        fanout, restart_prob, rows);
-  } else {
-    random_walk_kernel<0, 0><<<blocks, threads, smem, s>>>(
-        ip, ix, fr, us, ur, nb, wt, num_node, num_rows, num_walk, walk_len,
-        fanout, restart_prob, rows);
-  }
+  if (cold.indptr != nullptr)
+    launch_walk<true>(ip, ix, fr, us, ur, nb, wt, num_node, num_rows, num_walk,
+                      walk_len, fanout, restart_prob, cold, s);
+  else
+    launch_walk<false>(ip, ix, fr, us, ur, nb, wt, num_node, num_rows,
+                       num_walk, walk_len, fanout, restart_prob, cold, s);
   return (int)cudaGetLastError();
 }

@@ -62,9 +62,25 @@
 // registers with an odd-even transposition network (K rounds, no
 // data-dependent branch).  Any other K up to kMaxFanout takes an unstaged
 // loop with the row in local memory and an insertion sort.
+//
+// The tiered topology (K2 and K8a alike; tier.cuh): a cold row is read in
+// place from the whole graph's CSR in mapped host memory, in the same
+// launch.  Its draws are the hot rows' arithmetic on the same u, so a
+// tiered call picks what the untiered call over the whole CSR picks.  A
+// row's two host reads (indptr, then indices) depend on each other, each
+// a PCIe round trip of about a microsecond: a thread with a cold row
+// stalls its warp on them.  Each kernel is built twice, kTiered false (the
+// untiered launch, no cold branch) and true.
+//
+// Replaces, for the cold rows: xgnn_tpu/parallel/ggms.py,
+// HostColdSampler (lines 264-453) driven by cold_sample_callback
+// (456-487) and xgnn_tpu/sampler.py:282-310: a host callback over the
+// compacted cold ids of each layer, merged into the device's picks.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "tier.cuh"
 
 namespace {
 
@@ -72,17 +88,40 @@ constexpr int32_t kEmpty = 0x7fffffff;
 constexpr int kThreads = 256;
 constexpr int kMaxFanout = 64;
 
-__device__ __forceinline__ void row_meta(const int32_t* __restrict__ indptr,
-                                         const int32_t* __restrict__ frontier,
-                                         int64_t row, int64_t num_node,
-                                         int32_t* start, int32_t* deg) {
+// A frontier row: its first edge, its degree (0 for EMPTY and any id
+// outside the graph), and whether it lies in host memory
+struct Row {
+  int64_t start;
+  int32_t deg;
+  bool cold;
+};
+
+template <bool kTiered>
+__device__ __forceinline__ Row row_meta(const int32_t* __restrict__ indptr,
+                                        const int32_t* __restrict__ frontier,
+                                        int64_t row, int64_t num_node,
+                                        const Cold& cold) {
   const int32_t v = __ldg(frontier + row);
-  *start = 0;
-  *deg = 0;
+  Row r{0, 0, false};
   if (v >= 0 && (int64_t)v < num_node) {
-    *start = __ldg(indptr + v);
-    *deg = __ldg(indptr + v + 1) - *start;
+    const int32_t start = __ldg(indptr + v);
+    r.start = start;
+    r.deg = __ldg(indptr + v + 1) - start;
+  } else if (kTiered && v >= 0 && cold_id(cold, v, num_node)) {
+    cold_row(cold, v, &r.start, &r.deg);
+    r.cold = true;
   }
+  return r;
+}
+
+// index off of a row, from the card's indices or the host's
+template <bool kTiered>
+__device__ __forceinline__ int32_t edge(const int32_t* __restrict__ indices,
+                                        const Cold& cold, const Row& r,
+                                        int32_t off) {
+  return rd<kTiered>((kTiered && r.cold ? cold.indices : indices) +
+                         (r.start + off),
+                     r.cold);
 }
 
 // the draw of step j: t in [j, deg)
@@ -107,21 +146,23 @@ __device__ __forceinline__ void copy_tile(uint32_t* dst, const uint32_t* src,
   for (int i = done + threadIdx.x; i < n; i += kThreads) dst[i] = src[i];
 }
 
-template <int kK>
+template <int kK, bool kTiered>
 __global__ void __launch_bounds__(kThreads)
 sample_khop_staged_kernel(const int32_t* __restrict__ indptr,
                           const int32_t* __restrict__ indices,
                           const int32_t* __restrict__ frontier,
                           const float* __restrict__ u,
                           int32_t* __restrict__ out, int64_t num_node,
-                          int64_t num_rows, bool vec) {
+                          int64_t num_rows, bool vec, Cold cold) {
   __shared__ __align__(16) uint32_t tile[kThreads * kK];
   const int64_t row0 = (int64_t)blockIdx.x * kThreads;
   const int64_t row = row0 + threadIdx.x;
   const int64_t rows = num_rows - row0 < kThreads ? num_rows - row0 : kThreads;
   const int words = (int)rows * kK;
-  int32_t start = 0, deg = 0;
-  if (row < num_rows) row_meta(indptr, frontier, row, num_node, &start, &deg);
+  Row r{0, 0, false};
+  if (row < num_rows)
+    r = row_meta<kTiered>(indptr, frontier, row, num_node, cold);
+  const int32_t deg = r.deg;
   copy_tile(tile, reinterpret_cast<const uint32_t*>(u) + row0 * kK, words,
             vec);
   __syncthreads();
@@ -155,7 +196,7 @@ sample_khop_staged_kernel(const int32_t* __restrict__ indptr,
     // every offset is known: the index loads go out back to back
 #pragma unroll
     for (int j = 0; j < kK; ++j)
-      pick[j] = j < live ? __ldg(indices + ((int64_t)start + pick[j])) : kEmpty;
+      pick[j] = j < live ? edge<kTiered>(indices, cold, r, pick[j]) : kEmpty;
 #pragma unroll
     for (int j = 0; j < kK; ++j) trow[j] = (uint32_t)pick[j];
   }
@@ -165,17 +206,18 @@ sample_khop_staged_kernel(const int32_t* __restrict__ indptr,
 
 // any fanout up to kMaxFanout: one thread per row, unstaged, records in
 // local memory
+template <bool kTiered>
 __global__ void sample_khop_kernel(const int32_t* __restrict__ indptr,
                                    const int32_t* __restrict__ indices,
                                    const int32_t* __restrict__ frontier,
                                    const float* __restrict__ u,
                                    int32_t* __restrict__ out,
                                    int64_t num_node, int64_t num_rows,
-                                   int fanout) {
+                                   int fanout, Cold cold) {
   const int64_t row = (int64_t)blockIdx.x * kThreads + threadIdx.x;
   if (row >= num_rows) return;
-  int32_t start, deg;
-  row_meta(indptr, frontier, row, num_node, &start, &deg);
+  const Row r = row_meta<kTiered>(indptr, frontier, row, num_node, cold);
+  const int32_t deg = r.deg;
   const int live = deg <= 0 ? 0 : (deg < fanout ? deg : fanout);
   const float* urow = u + row * fanout;
   int32_t* orow = out + row * fanout;
@@ -189,7 +231,7 @@ __global__ void sample_khop_kernel(const int32_t* __restrict__ indptr,
     }
     pos[j] = t;
     val[j] = a_j;
-    orow[j] = __ldg(indices + ((int64_t)start + pick));
+    orow[j] = edge<kTiered>(indices, cold, r, pick);
   }
   for (int j = live; j < fanout; ++j) orow[j] = kEmpty;
 }
@@ -223,21 +265,23 @@ __device__ __forceinline__ void sort_dedup(int32_t (&v)[kK]) {
   }
 }
 
-template <int kK, bool kDedup>
+template <int kK, bool kDedup, bool kTiered>
 __global__ void __launch_bounds__(kThreads)
 sample_wr_staged_kernel(const int32_t* __restrict__ indptr,
                         const int32_t* __restrict__ indices,
                         const int32_t* __restrict__ frontier,
                         const float* __restrict__ u,
                         int32_t* __restrict__ out, int64_t num_node,
-                        int64_t num_rows, bool vec) {
+                        int64_t num_rows, bool vec, Cold cold) {
   __shared__ __align__(16) uint32_t tile[kThreads * kK];
   const int64_t row0 = (int64_t)blockIdx.x * kThreads;
   const int64_t row = row0 + threadIdx.x;
   const int64_t rows = num_rows - row0 < kThreads ? num_rows - row0 : kThreads;
   const int words = (int)rows * kK;
-  int32_t start = 0, deg = 0;
-  if (row < num_rows) row_meta(indptr, frontier, row, num_node, &start, &deg);
+  Row r{0, 0, false};
+  if (row < num_rows)
+    r = row_meta<kTiered>(indptr, frontier, row, num_node, cold);
+  const int32_t deg = r.deg;
   copy_tile(tile, reinterpret_cast<const uint32_t*>(u) + row0 * kK, words,
             vec);
   __syncthreads();
@@ -252,7 +296,7 @@ sample_wr_staged_kernel(const int32_t* __restrict__ indptr,
         pick[j] = draw_wr(__uint_as_float(trow[j]), deg);
 #pragma unroll
       for (int j = 0; j < kK; ++j)
-        pick[j] = __ldg(indices + ((int64_t)start + pick[j]));
+        pick[j] = edge<kTiered>(indices, cold, r, pick[j]);
       if (kDedup) sort_dedup<kK>(pick);
     } else {
 #pragma unroll
@@ -267,16 +311,18 @@ sample_wr_staged_kernel(const int32_t* __restrict__ indptr,
 
 // any fanout up to kMaxFanout: one thread per row, unstaged, the row in
 // local memory
+template <bool kTiered>
 __global__ void sample_wr_kernel(const int32_t* __restrict__ indptr,
                                  const int32_t* __restrict__ indices,
                                  const int32_t* __restrict__ frontier,
                                  const float* __restrict__ u,
                                  int32_t* __restrict__ out, int64_t num_node,
-                                 int64_t num_rows, int fanout, bool dedup) {
+                                 int64_t num_rows, int fanout, bool dedup,
+                                 Cold cold) {
   const int64_t row = (int64_t)blockIdx.x * kThreads + threadIdx.x;
   if (row >= num_rows) return;
-  int32_t start, deg;
-  row_meta(indptr, frontier, row, num_node, &start, &deg);
+  const Row r = row_meta<kTiered>(indptr, frontier, row, num_node, cold);
+  const int32_t deg = r.deg;
   const float* urow = u + row * fanout;
   int32_t* orow = out + row * fanout;
   if (deg <= 0) {
@@ -285,7 +331,7 @@ __global__ void sample_wr_kernel(const int32_t* __restrict__ indptr,
   }
   int32_t v[kMaxFanout];
   for (int j = 0; j < fanout; ++j)
-    v[j] = __ldg(indices + ((int64_t)start + draw_wr(__ldg(urow + j), deg)));
+    v[j] = edge<kTiered>(indices, cold, r, draw_wr(__ldg(urow + j), deg));
   if (dedup) {
     for (int i = 1; i < fanout; ++i) {  // insertion sort
       const int32_t x = v[i];
@@ -301,46 +347,91 @@ __global__ void sample_wr_kernel(const int32_t* __restrict__ indptr,
   }
 }
 
-template <int kK>
+template <int kK, bool kTiered>
 void launch_staged(const int32_t* indptr, const int32_t* indices,
                    const int32_t* frontier, const float* u, int32_t* out,
                    long long num_node, long long num_rows, bool vec,
-                   cudaStream_t s) {
+                   const Cold& cold, cudaStream_t s) {
   const long long blocks = (num_rows + kThreads - 1) / kThreads;
-  sample_khop_staged_kernel<kK><<<(unsigned)blocks, kThreads, 0, s>>>(
-      indptr, indices, frontier, u, out, num_node, num_rows, vec);
+  sample_khop_staged_kernel<kK, kTiered><<<(unsigned)blocks, kThreads, 0, s>>>(
+      indptr, indices, frontier, u, out, num_node, num_rows, vec, cold);
 }
 
-template <int kK, bool kDedup>
+template <bool kTiered>
+void launch_khop(const int32_t* ip, const int32_t* ix, const int32_t* fr,
+                 const float* uf, int32_t* o, long long num_node,
+                 long long num_rows, int fanout, bool vec, const Cold& cold,
+                 cudaStream_t s) {
+  switch (fanout) {
+    case 5:
+      launch_staged<5, kTiered>(ip, ix, fr, uf, o, num_node, num_rows, vec,
+                                cold, s);
+      break;
+    case 10:
+      launch_staged<10, kTiered>(ip, ix, fr, uf, o, num_node, num_rows, vec,
+                                 cold, s);
+      break;
+    case 15:
+      launch_staged<15, kTiered>(ip, ix, fr, uf, o, num_node, num_rows, vec,
+                                 cold, s);
+      break;
+    default: {
+      const long long blocks = (num_rows + kThreads - 1) / kThreads;
+      sample_khop_kernel<kTiered><<<(unsigned)blocks, kThreads, 0, s>>>(
+          ip, ix, fr, uf, o, num_node, num_rows, fanout, cold);
+    }
+  }
+}
+
+template <int kK, bool kDedup, bool kTiered>
 void launch_wr_staged(const int32_t* indptr, const int32_t* indices,
                       const int32_t* frontier, const float* u, int32_t* out,
                       long long num_node, long long num_rows, bool vec,
-                      cudaStream_t s) {
+                      const Cold& cold, cudaStream_t s) {
   const long long blocks = (num_rows + kThreads - 1) / kThreads;
-  sample_wr_staged_kernel<kK, kDedup><<<(unsigned)blocks, kThreads, 0, s>>>(
-      indptr, indices, frontier, u, out, num_node, num_rows, vec);
+  sample_wr_staged_kernel<kK, kDedup, kTiered>
+      <<<(unsigned)blocks, kThreads, 0, s>>>(indptr, indices, frontier, u, out,
+                                            num_node, num_rows, vec, cold);
 }
 
-template <bool kDedup>
+template <bool kDedup, bool kTiered>
 bool launch_wr_fixed(int fanout, const int32_t* ip, const int32_t* ix,
                      const int32_t* fr, const float* uf, int32_t* o,
                      long long num_node, long long num_rows, bool vec,
-                     cudaStream_t s) {
+                     const Cold& cold, cudaStream_t s) {
   switch (fanout) {
     case 5:
-      launch_wr_staged<5, kDedup>(ip, ix, fr, uf, o, num_node, num_rows, vec,
-                                  s);
+      launch_wr_staged<5, kDedup, kTiered>(ip, ix, fr, uf, o, num_node,
+                                           num_rows, vec, cold, s);
       return true;
     case 10:
-      launch_wr_staged<10, kDedup>(ip, ix, fr, uf, o, num_node, num_rows,
-                                   vec, s);
+      launch_wr_staged<10, kDedup, kTiered>(ip, ix, fr, uf, o, num_node,
+                                            num_rows, vec, cold, s);
       return true;
     case 15:
-      launch_wr_staged<15, kDedup>(ip, ix, fr, uf, o, num_node, num_rows,
-                                   vec, s);
+      launch_wr_staged<15, kDedup, kTiered>(ip, ix, fr, uf, o, num_node,
+                                            num_rows, vec, cold, s);
       return true;
     default:
       return false;
+  }
+}
+
+template <bool kTiered>
+void launch_wr(const int32_t* ip, const int32_t* ix, const int32_t* fr,
+               const float* uf, int32_t* o, long long num_node,
+               long long num_rows, int fanout, bool dedup, bool vec,
+               const Cold& cold, cudaStream_t s) {
+  const bool fixed =
+      dedup ? launch_wr_fixed<true, kTiered>(fanout, ip, ix, fr, uf, o,
+                                             num_node, num_rows, vec, cold, s)
+            : launch_wr_fixed<false, kTiered>(fanout, ip, ix, fr, uf, o,
+                                              num_node, num_rows, vec, cold,
+                                              s);
+  if (!fixed) {
+    const long long blocks = (num_rows + kThreads - 1) / kThreads;
+    sample_wr_kernel<kTiered><<<(unsigned)blocks, kThreads, 0, s>>>(
+        ip, ix, fr, uf, o, num_node, num_rows, fanout, dedup, cold);
   }
 }
 
@@ -352,13 +443,23 @@ bool aligned16(const void* p) {
 
 // indptr: (num_node + 1,) int32; indices: (E,) int32; frontier: (num_rows,)
 // int32, EMPTY padded; u: (num_rows, fanout) float32; out: (num_rows,
-// fanout) int32.  1 <= fanout <= 64.  Returns cudaGetLastError() after the
-// launch (cudaErrorInvalidValue for a fanout it does not take).
+// fanout) int32.  1 <= fanout <= 64.  cold_indptr, cold_indices: the whole
+// graph's CSR in mapped host memory ((num_total + 1,) int64 and int32),
+// read for the rows [num_node, num_total); both null and num_total ==
+// num_node when the topology is not tiered.  Returns cudaGetLastError()
+// after the launch (cudaErrorInvalidValue for a fanout or a tier it does
+// not take).
 extern "C" int xg_sample_khop(const void* indptr, const void* indices,
                               const void* frontier, const void* u, void* out,
                               long long num_node, long long num_rows,
-                              int fanout, void* stream) {
-  if (fanout < 1 || fanout > kMaxFanout) return (int)cudaErrorInvalidValue;
+                              int fanout, const void* cold_indptr,
+                              const void* cold_indices, long long num_total,
+                              void* stream) {
+  Cold cold;
+  if (fanout < 1 || fanout > kMaxFanout ||
+      !make_cold(cold_indptr, cold_indices, nullptr, nullptr, nullptr,
+                 num_node, num_total, kNoTables, &cold))
+    return (int)cudaErrorInvalidValue;
   if (num_rows <= 0) return (int)cudaGetLastError();
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   const int32_t* ip = static_cast<const int32_t*>(indptr);
@@ -367,33 +468,29 @@ extern "C" int xg_sample_khop(const void* indptr, const void* indices,
   const float* uf = static_cast<const float*>(u);
   int32_t* o = static_cast<int32_t*>(out);
   const bool vec = aligned16(u) && aligned16(out);
-  switch (fanout) {
-    case 5:
-      launch_staged<5>(ip, ix, fr, uf, o, num_node, num_rows, vec, s);
-      break;
-    case 10:
-      launch_staged<10>(ip, ix, fr, uf, o, num_node, num_rows, vec, s);
-      break;
-    case 15:
-      launch_staged<15>(ip, ix, fr, uf, o, num_node, num_rows, vec, s);
-      break;
-    default: {
-      const long long blocks = (num_rows + kThreads - 1) / kThreads;
-      sample_khop_kernel<<<(unsigned)blocks, kThreads, 0, s>>>(
-          ip, ix, fr, uf, o, num_node, num_rows, fanout);
-    }
-  }
+  if (cold.indptr != nullptr)
+    launch_khop<true>(ip, ix, fr, uf, o, num_node, num_rows, fanout, vec, cold,
+                      s);
+  else
+    launch_khop<false>(ip, ix, fr, uf, o, num_node, num_rows, fanout, vec,
+                       cold, s);
   return (int)cudaGetLastError();
 }
 
-// K8a.  indptr, indices, frontier, u and out as for xg_sample_khop; dedup
-// != 0 is khop1 (each row sorted, EMPTY over repeats), 0 uniform_wr.
-// Returns cudaGetLastError() after the launch.
+// K8a.  indptr, indices, frontier, u, out and the tier as for
+// xg_sample_khop; dedup != 0 is khop1 (each row sorted, EMPTY over
+// repeats), 0 uniform_wr.  Returns cudaGetLastError() after the launch.
 extern "C" int xg_sample_wr(const void* indptr, const void* indices,
                             const void* frontier, const void* u, void* out,
                             long long num_node, long long num_rows,
-                            int fanout, int dedup, void* stream) {
-  if (fanout < 1 || fanout > kMaxFanout) return (int)cudaErrorInvalidValue;
+                            int fanout, int dedup, const void* cold_indptr,
+                            const void* cold_indices, long long num_total,
+                            void* stream) {
+  Cold cold;
+  if (fanout < 1 || fanout > kMaxFanout ||
+      !make_cold(cold_indptr, cold_indices, nullptr, nullptr, nullptr,
+                 num_node, num_total, kNoTables, &cold))
+    return (int)cudaErrorInvalidValue;
   if (num_rows <= 0) return (int)cudaGetLastError();
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   const int32_t* ip = static_cast<const int32_t*>(indptr);
@@ -402,15 +499,11 @@ extern "C" int xg_sample_wr(const void* indptr, const void* indices,
   const float* uf = static_cast<const float*>(u);
   int32_t* o = static_cast<int32_t*>(out);
   const bool vec = aligned16(u) && aligned16(out);
-  const bool fixed =
-      dedup ? launch_wr_fixed<true>(fanout, ip, ix, fr, uf, o, num_node,
-                                    num_rows, vec, s)
-            : launch_wr_fixed<false>(fanout, ip, ix, fr, uf, o, num_node,
-                                     num_rows, vec, s);
-  if (!fixed) {
-    const long long blocks = (num_rows + kThreads - 1) / kThreads;
-    sample_wr_kernel<<<(unsigned)blocks, kThreads, 0, s>>>(
-        ip, ix, fr, uf, o, num_node, num_rows, fanout, dedup != 0);
-  }
+  if (cold.indptr != nullptr)
+    launch_wr<true>(ip, ix, fr, uf, o, num_node, num_rows, fanout, dedup != 0,
+                    vec, cold, s);
+  else
+    launch_wr<false>(ip, ix, fr, uf, o, num_node, num_rows, fanout,
+                     dedup != 0, vec, cold, s);
   return (int)cudaGetLastError();
 }

@@ -74,10 +74,28 @@
 // indices (16 bytes); the alias and prob reads are random 4-byte reads, each
 // a 32-byte sector.  The dedup's scan is at most draws * ceil(draws/32)
 // compares a lane, below the card's rate.
+//
+// The tiered topology (all three forms; tier.cuh): a cold row is read in
+// place from the whole graph's CSR and the tables the form reads, in
+// mapped host memory, in the same launch, with 64-bit offsets (start +
+// slot, and the search's start + mid).  A cold row's draws are the hot
+// rows' arithmetic on the same u and coin, so a tiered call picks what the
+// untiered call over the whole CSR picks.  K8b-prefix searches a cold row
+// by a plain binary search over its host prefix row (no ring slot, no
+// coarse row: a lane a pick, about log2(deg) dependent reads), and keeps
+// the pick itself, not its edge position, as -2 - pick in its slot.  Each
+// kernel is built twice, kTiered false (the untiered launch, no cold
+// branch) and true.
+//
+// Replaces, for the cold rows: xgnn_tpu/parallel/ggms.py, HostColdSampler
+// (lines 264-453: its alias, hash-dedup and prefix draws) driven by
+// cold_sample_callback (456-487).
 
 #include <cuda_pipeline_primitives.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "tier.cuh"
 
 namespace {
 
@@ -98,14 +116,24 @@ constexpr int kDirectMax = XG_PREFIX_DIRECT_MAX;
 static_assert(kDirectMax >= 0 && kDirectMax <= kLanes,
               "a direct row fits a ring slot");
 
+// A frontier row of the device CSR, or (kTiered) of the host CSR: its
+// first edge, its degree (0 for EMPTY and any id outside the graph), and
+// whether it is cold
+template <bool kTiered>
 __device__ __forceinline__ void row_meta(const int32_t* __restrict__ indptr,
-                                         int32_t v, int64_t num_node,
-                                         int32_t* start, int32_t* deg) {
+                                         const Cold& cold, int32_t v,
+                                         int64_t num_node, int64_t* start,
+                                         int32_t* deg, bool* c) {
   *start = 0;
   *deg = 0;
+  *c = false;
   if (v >= 0 && (int64_t)v < num_node) {
-    *start = __ldg(indptr + v);
-    *deg = __ldg(indptr + v + 1) - *start;
+    const int32_t s = __ldg(indptr + v);
+    *start = s;
+    *deg = __ldg(indptr + v + 1) - s;
+  } else if (kTiered && v >= 0 && cold_id(cold, v, num_node)) {
+    cold_row(cold, v, start, deg);
+    *c = true;
   }
 }
 
@@ -221,6 +249,7 @@ __device__ __forceinline__ void hub_offsets(const float* __restrict__ p,
 // searches pick k's offset in the row in shared memory, and its edge
 // position replaces its uniform.  The run's index gathers then go out
 // together and the picks are stored in one coalesced pass.
+template <bool kTiered>
 __global__ void __launch_bounds__(kWarps * 32)
 sample_prefix_kernel(const int32_t* __restrict__ indptr,
                      const int32_t* __restrict__ indices,
@@ -229,11 +258,12 @@ sample_prefix_kernel(const int32_t* __restrict__ indptr,
                      const int32_t* __restrict__ frontier,
                      const float* __restrict__ u, int32_t* __restrict__ out,
                      int64_t num_node, int64_t num_rows, int fanout,
-                     int run_rows) {
+                     int run_rows, Cold cold) {
   constexpr int kDepth = 4;
   constexpr int kBatch = 8;  // a lane's gathers in flight
   // the run's picks: each one's uniform (its bits), then its edge
-  // position (-1 on a row of degree 0)
+  // position (-1 on a row of degree 0; a cold row's pick p itself as
+  // -2 - p)
   __shared__ int32_t slot[kWarps][kRunPicks];
   // the rows in flight: a row's values and, last, its total
   __shared__ float ring[kWarps][kDepth][kLanes + 1];
@@ -250,20 +280,25 @@ sample_prefix_kernel(const int32_t* __restrict__ indptr,
     __pipeline_memcpy_async(sl + i, urun + i, 4);
   __pipeline_commit();
   const int32_t v = lane < rows ? __ldg(frontier + base + lane) : kEmpty;
-  int32_t start, deg;
-  row_meta(indptr, v, num_node, &start, &deg);
+  int64_t start64;
+  int32_t deg;
+  bool is_cold;
+  row_meta<kTiered>(indptr, cold, v, num_node, &start64, &deg, &is_cold);
+  // a hot row's start fits 32 bits; a cold row takes no ring slot
+  const int32_t start = is_cold ? 0 : (int32_t)start64;
+  const int32_t ring_deg = is_cold ? 0 : deg;
 #pragma unroll
   for (int r = 0; r < kDepth - 1; ++r) {
     if (r < rows)
       issue_row(prefix, coarse, __shfl_sync(kFull, start, r),
-                __shfl_sync(kFull, deg, r), __shfl_sync(kFull, v, r), lane,
-                ring[warp][r]);
+                __shfl_sync(kFull, ring_deg, r), __shfl_sync(kFull, v, r),
+                lane, ring[warp][r]);
     __pipeline_commit();
   }
   for (int r = 0; r < rows; ++r) {
     const int ahead = r + kDepth - 1;
     const int32_t sa = __shfl_sync(kFull, start, ahead & 31);
-    const int32_t da = __shfl_sync(kFull, deg, ahead & 31);
+    const int32_t da = __shfl_sync(kFull, ring_deg, ahead & 31);
     const int32_t va = __shfl_sync(kFull, v, ahead & 31);
     if (ahead < rows)
       issue_row(prefix, coarse, sa, da, va, lane,
@@ -273,9 +308,26 @@ sample_prefix_kernel(const int32_t* __restrict__ indptr,
     __syncwarp();                       // and every lane's
     const int32_t s = __shfl_sync(kFull, start, r);
     const int32_t d = __shfl_sync(kFull, deg, r);
+    const bool c = kTiered && __shfl_sync(kFull, (int)is_cold, r) != 0;
     const float* row = ring[warp][r % kDepth];
     int32_t* urow = sl + r * fanout;
-    if (d > 0 && d <= kDirectMax) {
+    if (c && d > 0) {
+      // a cold row: lane k searches pick k in the host prefix row, then
+      // reads its index
+      const long long cs = __shfl_sync(kFull, (long long)start64, r);
+      const float* p = cold.prefix + cs;
+      const float total = __ldcg(p + d - 1);
+      for (int k = lane; k < fanout; k += 32) {
+        const float x = __fmul_rn(__int_as_float(urow[k]), total);
+        int32_t lo = 0, hi = d - 1;
+        while (lo < hi) {
+          const int32_t mid = (lo + hi) >> 1;
+          if (__ldcg(p + mid) <= x) lo = mid + 1;
+          else hi = mid;
+        }
+        urow[k] = -2 - __ldcg(cold.indices + cs + lo);
+      }
+    } else if (d > 0 && d <= kDirectMax) {
       // lane k: pick k's uniform in, its position out
       for (int k = lane; k < fanout; k += 32) {
         const float x = __fmul_rn(__int_as_float(urow[k]), row[kLanes]);
@@ -300,7 +352,8 @@ sample_prefix_kernel(const int32_t* __restrict__ indptr,
     for (int t = 0; t < kBatch; ++t) {
       const int i = i0 + 32 * t + lane;
       const int32_t e = i < picks ? sl[i] : -1;
-      got[t] = e >= 0 ? __ldg(indices + e) : kEmpty;
+      got[t] = e >= 0 ? __ldg(indices + e)
+                      : (kTiered && e != -1 ? -2 - e : kEmpty);
     }
 #pragma unroll
     for (int t = 0; t < kBatch; ++t) {
@@ -310,19 +363,23 @@ sample_prefix_kernel(const int32_t* __restrict__ indptr,
   }
 }
 
-// an alias draw of a row of degree deg > 0
+// an alias draw of a row of degree deg > 0, from the device's tables or,
+// for a cold row, the host's
+template <bool kTiered>
 __device__ __forceinline__ int32_t alias_draw(
-    const int32_t* __restrict__ indices, const float* __restrict__ prob,
-    const int32_t* __restrict__ alias, int32_t start, int32_t deg, float u,
-    float coin) {
+    const int32_t* indices, const float* prob, const int32_t* alias,
+    int64_t start, int32_t deg, float u, float coin, bool is_cold) {
   const float x = __fmul_rn(u, __int2float_rn(deg));
   int32_t slot = __float2int_rz(floorf(x));
   slot = slot < deg - 1 ? slot : deg - 1;
-  const int64_t e = (int64_t)start + slot;
-  return coin >= __ldg(prob + e) ? __ldg(alias + e) : __ldg(indices + e);
+  const int64_t e = start + slot;
+  return coin >= rd<kTiered>(prob + e, is_cold)
+             ? rd<kTiered>(alias + e, is_cold)
+             : rd<kTiered>(indices + e, is_cold);
 }
 
 // weighted_khop: one thread per pick
+template <bool kTiered>
 __global__ void sample_alias_kernel(const int32_t* __restrict__ indptr,
                                     const int32_t* __restrict__ indices,
                                     const float* __restrict__ prob,
@@ -332,17 +389,23 @@ __global__ void sample_alias_kernel(const int32_t* __restrict__ indptr,
                                     const float* __restrict__ coin,
                                     int32_t* __restrict__ out,
                                     int64_t num_node, int64_t num_picks,
-                                    int fanout) {
+                                    int fanout, Cold cold) {
   const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= num_picks) return;
-  int32_t start, deg;
-  row_meta(indptr, __ldg(frontier + t / fanout), num_node, &start, &deg);
-  out[t] = deg > 0 ? alias_draw(indices, prob, alias, start, deg, __ldg(u + t),
-                                __ldg(coin + t))
+  int64_t start;
+  int32_t deg;
+  bool c;
+  row_meta<kTiered>(indptr, cold, __ldg(frontier + t / fanout), num_node,
+                    &start, &deg, &c);
+  out[t] = deg > 0 ? alias_draw<kTiered>(
+                         c ? cold.indices : indices, c ? cold.prob : prob,
+                         c ? cold.alias : alias, start, deg, __ldg(u + t),
+                         __ldg(coin + t), c)
                    : kEmpty;
 }
 
 // weighted_khop_hash_dedup: one warp per row
+template <bool kTiered>
 __global__ void __launch_bounds__(kWarps * 32)
 sample_alias_dedup_kernel(const int32_t* __restrict__ indptr,
                           const int32_t* __restrict__ indices,
@@ -352,18 +415,25 @@ sample_alias_dedup_kernel(const int32_t* __restrict__ indptr,
                           const float* __restrict__ u,
                           const float* __restrict__ coin,
                           int32_t* __restrict__ out, int64_t num_node,
-                          int64_t num_rows, int fanout, int draws) {
+                          int64_t num_rows, int fanout, int draws,
+                          Cold cold) {
   __shared__ int32_t drawn[kWarps][kMaxDraws];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int64_t row = (int64_t)blockIdx.x * kWarps + warp;
   if (row >= num_rows) return;  // the whole warp
-  int32_t start, deg;
-  row_meta(indptr, __ldg(frontier + row), num_node, &start, &deg);
+  int64_t start;
+  int32_t deg;
+  bool is_cold;
+  row_meta<kTiered>(indptr, cold, __ldg(frontier + row), num_node, &start,
+                    &deg, &is_cold);
+  const int32_t* ix = is_cold ? cold.indices : indices;
+  const float* pr = is_cold ? cold.prob : prob;
+  const int32_t* al = is_cold ? cold.alias : alias;
   int32_t* orow = out + row * fanout;
   if (deg <= fanout) {  // the whole row (none when deg = 0)
     for (int k = lane; k < fanout; k += 32)
-      orow[k] = k < deg ? __ldg(indices + ((int64_t)start + k)) : kEmpty;
+      orow[k] = k < deg ? rd<kTiered>(ix + (start + k), is_cold) : kEmpty;
     return;
   }
   const int chunks = (draws + 31) >> 5;
@@ -376,8 +446,9 @@ sample_alias_dedup_kernel(const int32_t* __restrict__ indptr,
   for (int c = 0; c < kDrawChunks; ++c) {
     const int i = lane + 32 * c;
     first[c] = c < chunks && i < draws;
-    val[c] = first[c] ? alias_draw(indices, prob, alias, start, deg,
-                                   __ldg(urow + i), __ldg(crow + i))
+    val[c] = first[c] ? alias_draw<kTiered>(ix, pr, al, start, deg,
+                                            __ldg(urow + i), __ldg(crow + i),
+                                            is_cold)
                       : kEmpty;
     if (first[c]) s[i] = val[c];
   }
@@ -404,28 +475,19 @@ sample_alias_dedup_kernel(const int32_t* __restrict__ indptr,
   for (int k = taken + lane; k < fanout; k += 32) orow[k] = kEmpty;
 }
 
-}  // namespace
-
-// K8b-prefix.  indptr: (num_node + 1,) int32; indices, prefix: (E,) int32
-// and float32, prefix nondecreasing within each row; coarse: (num_node, 128)
-// float32 or null; frontier: (num_rows,) int32, EMPTY padded; u, out:
-// (num_rows, fanout) float32 and int32.  1 <= fanout <= 64.  Returns
-// cudaGetLastError() after the launch.
-extern "C" int xg_sample_prefix(const void* indptr, const void* indices,
-                                const void* prefix, const void* coarse,
-                                const void* frontier, const void* u,
-                                void* out, long long num_node,
-                                long long num_rows, int fanout,
-                                void* stream) {
-  if (fanout < 1 || fanout > kMaxFanout) return (int)cudaErrorInvalidValue;
-  if (num_rows <= 0) return (int)cudaGetLastError();
-  // rows a warp: as many as spread the frontier over the card's resident
-  // warps, at most 32 and kRunPicks / fanout
+// K8b-prefix's launch: rows a warp as many as spread the frontier over the
+// card's resident warps, at most 32 and kRunPicks / fanout
+template <bool kTiered>
+void launch_prefix(const int32_t* indptr, const int32_t* indices,
+                   const float* prefix, const float* coarse,
+                   const int32_t* frontier, const float* u, int32_t* out,
+                   long long num_node, long long num_rows, int fanout,
+                   const Cold& cold, cudaStream_t s) {
   int dev = 0, sms = 132, per_sm = 1;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, sample_prefix_kernel,
-                                                kWarps * 32, 0);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, sample_prefix_kernel<kTiered>, kWarps * 32, 0);
   const long long resident = (long long)sms * (per_sm > 0 ? per_sm : 1) *
                              kWarps;
   long long run_rows = (num_rows + resident - 1) / resident;
@@ -433,31 +495,94 @@ extern "C" int xg_sample_prefix(const void* indptr, const void* indices,
   run_rows = run_rows < 1 ? 1 : (run_rows > most ? most : run_rows);
   const long long runs = (num_rows + run_rows - 1) / run_rows;
   const long long blocks = (runs + kWarps - 1) / kWarps;
-  sample_prefix_kernel<<<(unsigned)blocks, kWarps * 32, 0,
-                         reinterpret_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(indptr),
-      static_cast<const int32_t*>(indices),
-      static_cast<const float*>(prefix), static_cast<const float*>(coarse),
-      static_cast<const int32_t*>(frontier), static_cast<const float*>(u),
-      static_cast<int32_t*>(out), num_node, num_rows, fanout,
-      (int)run_rows);
+  sample_prefix_kernel<kTiered><<<(unsigned)blocks, kWarps * 32, 0, s>>>(
+      indptr, indices, prefix, coarse, frontier, u, out, num_node, num_rows,
+      fanout, (int)run_rows, cold);
+}
+
+template <bool kTiered>
+void launch_alias(const int32_t* ip, const int32_t* ix, const float* pr,
+                  const int32_t* al, const int32_t* fr, const float* uf,
+                  const float* cf, int32_t* o, long long num_node,
+                  long long num_rows, int fanout, int draws, bool dedup,
+                  const Cold& cold, cudaStream_t s) {
+  if (dedup) {
+    const long long blocks = (num_rows + kWarps - 1) / kWarps;
+    sample_alias_dedup_kernel<kTiered><<<(unsigned)blocks, kWarps * 32, 0, s>>>(
+        ip, ix, pr, al, fr, uf, cf, o, num_node, num_rows, fanout, draws,
+        cold);
+  } else {
+    const long long picks = num_rows * fanout;
+    sample_alias_kernel<kTiered>
+        <<<(unsigned)((picks + 255) / 256), 256, 0, s>>>(
+            ip, ix, pr, al, fr, uf, cf, o, num_node, picks, fanout, cold);
+  }
+}
+
+}  // namespace
+
+// K8b-prefix.  indptr: (num_node + 1,) int32; indices, prefix: (E,) int32
+// and float32, prefix nondecreasing within each row; coarse: (num_node, 128)
+// float32 or null; frontier: (num_rows,) int32, EMPTY padded; u, out:
+// (num_rows, fanout) float32 and int32.  1 <= fanout <= 64.  cold_indptr,
+// cold_indices, cold_prefix: the whole graph's CSR and prefix table in
+// mapped host memory ((num_total + 1,) int64, int32, float32), read for
+// the rows [num_node, num_total); all null and num_total == num_node when
+// the topology is not tiered.  Returns cudaGetLastError() after the launch.
+extern "C" int xg_sample_prefix(const void* indptr, const void* indices,
+                                const void* prefix, const void* coarse,
+                                const void* frontier, const void* u,
+                                void* out, long long num_node,
+                                long long num_rows, int fanout,
+                                const void* cold_indptr,
+                                const void* cold_indices,
+                                const void* cold_prefix, long long num_total,
+                                void* stream) {
+  Cold cold;
+  if (fanout < 1 || fanout > kMaxFanout ||
+      !make_cold(cold_indptr, cold_indices, nullptr, nullptr, cold_prefix,
+                 num_node, num_total, kPrefixTable, &cold))
+    return (int)cudaErrorInvalidValue;
+  if (num_rows <= 0) return (int)cudaGetLastError();
+  const int32_t* ip = static_cast<const int32_t*>(indptr);
+  const int32_t* ix = static_cast<const int32_t*>(indices);
+  const float* pf = static_cast<const float*>(prefix);
+  const float* cc = static_cast<const float*>(coarse);
+  const int32_t* fr = static_cast<const int32_t*>(frontier);
+  const float* uf = static_cast<const float*>(u);
+  int32_t* o = static_cast<int32_t*>(out);
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  if (cold.indptr != nullptr)
+    launch_prefix<true>(ip, ix, pf, cc, fr, uf, o, num_node, num_rows, fanout,
+                        cold, s);
+  else
+    launch_prefix<false>(ip, ix, pf, cc, fr, uf, o, num_node, num_rows,
+                         fanout, cold, s);
   return (int)cudaGetLastError();
 }
 
 // K8b-alias.  indptr, indices and frontier as above; prob, alias: (E,)
 // float32 and int32; u, coin: (num_rows, draws) float32; out: (num_rows,
 // fanout) int32.  dedup == 0: draws == fanout, each draw a pick; dedup != 0:
-// the first fanout distinct of the draws, fanout <= draws <= 256.  Returns
-// cudaGetLastError() after the launch.
+// the first fanout distinct of the draws, fanout <= draws <= 256.
+// cold_indptr, cold_indices, cold_prob, cold_alias: the whole graph's CSR
+// and alias tables in mapped host memory, as for xg_sample_prefix.
+// Returns cudaGetLastError() after the launch.
 extern "C" int xg_sample_alias(const void* indptr, const void* indices,
                                const void* prob, const void* alias,
                                const void* frontier, const void* u,
                                const void* coin, void* out,
                                long long num_node, long long num_rows,
                                int fanout, int draws, int dedup,
-                               void* stream) {
+                               const void* cold_indptr,
+                               const void* cold_indices,
+                               const void* cold_prob, const void* cold_alias,
+                               long long num_total, void* stream) {
+  Cold cold;
   if (fanout < 1 || fanout > kMaxFanout ||
-      (dedup ? draws < fanout || draws > kMaxDraws : draws != fanout))
+      (dedup ? draws < fanout || draws > kMaxDraws : draws != fanout) ||
+      !make_cold(cold_indptr, cold_indices, cold_prob, cold_alias, nullptr,
+                 num_node, num_total, kAliasTables, &cold))
     return (int)cudaErrorInvalidValue;
   if (num_rows <= 0) return (int)cudaGetLastError();
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
@@ -469,14 +594,11 @@ extern "C" int xg_sample_alias(const void* indptr, const void* indices,
   const float* uf = static_cast<const float*>(u);
   const float* cf = static_cast<const float*>(coin);
   int32_t* o = static_cast<int32_t*>(out);
-  if (dedup) {
-    const long long blocks = (num_rows + kWarps - 1) / kWarps;
-    sample_alias_dedup_kernel<<<(unsigned)blocks, kWarps * 32, 0, s>>>(
-        ip, ix, pr, al, fr, uf, cf, o, num_node, num_rows, fanout, draws);
-  } else {
-    const long long picks = num_rows * fanout;
-    sample_alias_kernel<<<(unsigned)((picks + 255) / 256), 256, 0, s>>>(
-        ip, ix, pr, al, fr, uf, cf, o, num_node, picks, fanout);
-  }
+  if (cold.indptr != nullptr)
+    launch_alias<true>(ip, ix, pr, al, fr, uf, cf, o, num_node, num_rows,
+                       fanout, draws, dedup != 0, cold, s);
+  else
+    launch_alias<false>(ip, ix, pr, al, fr, uf, cf, o, num_node, num_rows,
+                        fanout, draws, dedup != 0, cold, s);
   return (int)cudaGetLastError();
 }

@@ -24,6 +24,16 @@ it (the whole table on the device, no per-step host instrumentation, no
 dynamic cache); otherwise it warns once and takes the host loop, as the
 JAX engine does.  ``run`` trains ``num_epoch`` epochs with the accuracy
 report, checkpoints and resume, and prints the ``test_result:`` lines.
+
+``use_dist_graph`` with ``dist_graph_percentage < 1`` is the tiered
+topology (``sampler.make_tiered_topology``): the hot CSR prefix on the
+device, the whole CSR pinned and mapped in host memory, and the samplers'
+kernels reading the cold rows in place.  ``auto_placement`` first solves
+the store's split from the device memory and the degree skew
+(``store/placement.py``, JAX's ``group_size=1``).  A presample on a tiered
+topology samples through the tiered sampler (``presample_static`` through
+its wide khop0, ``static_presample_config``), and with a placement plan
+sets ``placement_plan.expected_feat_hit`` out of sample, as JAX does.
 """
 
 from __future__ import annotations
@@ -43,14 +53,19 @@ from ..device import generator, resolve, seed_of
 from ..models import build_model
 from ..ops import sanity
 from ..ops.presample import accumulate_freq
-from ..sampler import Sampler
+from ..sampler import Sampler, make_tiered_topology
 from ..store.feature_store import (
     DynamicTieredFeatureSource,
     HBMFeatureSource,
     LabelSource,
     TieredFeatureSource,
 )
-from ..store.presample import presample_ranking, static_exact_ranking
+from ..store.placement import resolve_auto_placement
+from ..store.presample import (
+    presample_ranking,
+    static_exact_ranking,
+    static_presample_config,
+)
 from ..store.ranking import FREQUENCY_POLICIES, build_ranking
 from ..train import Adam, eval_step, train_step
 from ..types import Graph
@@ -92,6 +107,10 @@ class Engine:
         self.feat_dtype = torch.bfloat16 if want == torch.bfloat16 else None
         self.graph: Optional[Graph] = None
         self.sampler: Optional[Sampler] = None
+        # the tiered topology's cold side and the whole graph's node count
+        self._tier = None
+        self._full_num_node: Optional[int] = None
+        self.placement_plan = None
         self.feature_source = None
         self.label_source = None
         self.model = None
@@ -106,14 +125,39 @@ class Engine:
 
     # ------------------------------------------------------------------ init
     def init(self):
-        cfg = self.config
         prof = self.profiler
+        if self.config.auto_placement:
+            # the store's split solved from the device memory and the degree
+            # skew; this engine owns one card's store (group_size=1)
+            self.config, self.placement_plan = resolve_auto_placement(
+                self.config, self.ds, group_size=1, device=self.device)
+            prof.log_init("auto_dist_graph_percentage",
+                          self.config.dist_graph_percentage)
+            prof.log_init("auto_cache_percentage",
+                          self.config.cache_percentage)
+        cfg = self.config
         t0 = time.perf_counter()
-        if getattr(self.ds, "graph", None) is not None:
+        weighted = cfg.sample_type in WEIGHTED
+        if cfg.use_dist_graph and cfg.dist_graph_percentage < 1.0:
+            # the tiered topology (the reference's single-GPU large-graph
+            # mode, evaluation/large_graph --use-dist-graph 0.85): the hot
+            # prefix on the device, the whole CSR mapped from host memory
+            g = getattr(self.ds, "graph", None)
+            src = g if g is not None else self.ds
+            table = (lambda name: getattr(src, name, None)
+                     if weighted else None)
+            self.graph, self._tier, self._full_num_node = (
+                make_tiered_topology(
+                    src.indptr, src.indices, cfg.dist_graph_percentage,
+                    cfg.sample_type, prob_table=table("prob_table"),
+                    alias_table=table("alias_table"),
+                    prob_prefix_table=table("prob_prefix_table"),
+                    device=self.device))
+        elif getattr(self.ds, "graph", None) is not None:
             self.graph = self.ds.graph
         else:
-            self.graph = Graph.from_dataset(
-                self.ds, self.device, weighted=cfg.sample_type in WEIGHTED)
+            self.graph = Graph.from_dataset(self.ds, self.device,
+                                            weighted=weighted)
         prof.log_init("graph_load_time", time.perf_counter() - t0)
         prof.log_mem_usage("graph_load", self.device)
         t0 = time.perf_counter()
@@ -121,7 +165,9 @@ class Engine:
         # first GNN layer reads the feature table itself; the tiered store
         # extracts the last layer's deduplicated ids instead
         self._direct = cfg.gpu_extract and not self._tiered
-        self.sampler = Sampler(self.graph, cfg, direct_extract=self._direct)
+        self.sampler = Sampler(self.graph, cfg, direct_extract=self._direct,
+                               tier=self._tier,
+                               num_node=self._full_num_node)
         self._calibrate()
         prof.log_init("sampler_build_time", time.perf_counter() - t0)
         t0 = time.perf_counter()
@@ -159,7 +205,9 @@ class Engine:
             for s in observed[1:]
         ]
         self.sampler = Sampler(self.graph, cfg, caps,
-                               direct_extract=self._direct)
+                               direct_extract=self._direct,
+                               tier=self.sampler.tier,
+                               num_node=self.sampler.num_node)
         self.profiler.log_init("calibrated_input_cap", caps[-1])
 
     @property
@@ -176,20 +224,33 @@ class Engine:
                                                    self.feat_dtype)
             return
         access_freq = None
+        num_node = self.sampler.num_node  # the whole graph's
         if cfg.cache_policy in FREQUENCY_POLICIES:
             t0 = time.perf_counter()
-            if cfg.cache_policy == CachePolicy.PRE_SAMPLE_STATIC:
+            static = cfg.cache_policy == CachePolicy.PRE_SAMPLE_STATIC
+            if static and self._tier is None:
                 # the exact all-neighbour closure over the whole topology
                 access_freq = static_exact_ranking(
-                    self.graph, self.ds.train_set, cfg, self.graph.num_node,
+                    self.graph, self.ds.train_set, cfg, num_node,
                     self.device)
             else:
-                access_freq = presample_ranking(
-                    self.sampler, self.ds.train_set, cfg,
-                    self.sampler.num_node, self.device)
+                sampler = self.sampler
+                if static:
+                    # a tiered topology: the wide-khop0 approximation (exact
+                    # for rows of degree <= presample_static_fanout) through
+                    # the tiered sampler
+                    sampler = Sampler(self.graph,
+                                      static_presample_config(cfg),
+                                      tier=self._tier, num_node=num_node)
+                access_freq, freq_a, freq_b = presample_ranking(
+                    sampler, self.ds.train_set, cfg, num_node, self.device,
+                    halves=True)
             self.init_times["presample"] = time.perf_counter() - t0
             self.profiler.log_init("presample_time",
                                    self.init_times["presample"])
+            if self.placement_plan is not None:
+                self.placement_plan.expected_feat_hit = self._expected_hit(
+                    access_freq, None if static else (freq_a, freq_b))
         ranking = build_ranking(self.ds, cfg, access_freq)
         t0 = time.perf_counter()
         cls = (DynamicTieredFeatureSource
@@ -201,9 +262,24 @@ class Engine:
         self._sync()
         self.init_times["cache_build"] = time.perf_counter() - t0
         if cfg.cache_policy == CachePolicy.DYNAMIC:
-            self._dyn_freq = torch.zeros(self.graph.num_node,
-                                         dtype=torch.int32,
+            self._dyn_freq = torch.zeros(num_node, dtype=torch.int32,
                                          device=self.device)
+
+    def _expected_hit(self, access_freq, halves) -> float:
+        """The feature cache's expected hit rate, as the JAX engine
+        estimates it for the placement plan: the degree proxy the plan was
+        solved with over-weights hubs, so it is measured on the presample.
+        ``halves`` (the even and the odd batches' counts): rank by one,
+        score the other (out of sample); None (``presample_static``,
+        whose closure JAX takes as the access distribution itself): the
+        counts' own top share."""
+        k = int(len(access_freq) * self.config.cache_percentage)
+        if halves is None:
+            w = np.sort(np.asarray(access_freq, np.float64))[::-1]
+            return float(w[:k].sum() / max(w.sum(), 1.0))
+        fa, fb = (np.asarray(h, np.float64) for h in halves)
+        order = np.argsort(-fa, kind="stable")
+        return float(fb[order][:k].sum() / max(fb.sum(), 1.0))
 
     def _to_device(self, seeds: np.ndarray) -> torch.Tensor:
         host = torch.from_numpy(seeds)

@@ -5,9 +5,11 @@ It prints the ``config:`` lines, then ``Engine.run()``'s ``test_result:``
 lines.  ``--synthetic`` builds a power-law graph on the device with
 ``make_device_dataset`` (``--synthetic-nodes`` nodes, ``--synthetic-nodes *
 --synthetic-degree / 2`` endpoint draws, symmetrised; 128 features, 32
-classes).  ``--cpu`` runs everything on the CPU.  Flags that select a path
-the port does not have yet raise ``NotImplementedError`` naming its ROADMAP
-item.
+classes).  ``--cpu`` runs everything on the CPU.  ``--use-dist-graph
+--dist-graph-percentage P`` trains on the tiered topology, and
+``--auto-placement [--hbm-budget-gb G]`` solves the store's split.  Flags
+that select a path the port does not have yet (more than one card) raise
+``NotImplementedError`` naming its ROADMAP item.
 
     python -m xgnn_tpu_torch.examples.train --cpu --synthetic \\
         --synthetic-nodes 20000 --model graphsage --num-epoch 2 \\
@@ -23,7 +25,6 @@ from typing import Optional, Sequence
 FEAT_DIM, NUM_CLASS = 128, 32  # the JAX command line's synthetic graph
 DATASET_FILES = "ROADMAP queue 1, 'Dataset files and host test graphs'"
 MULTI_GPU = "ROADMAP queue 1, 'Multi-GPU'"
-TIERED_TOPOLOGY = "ROADMAP queue 1, 'Tiered topology'"
 WEIGHTED = ("weighted_khop", "weighted_khop_prefix",
             "weighted_khop_hash_dedup")
 
@@ -107,13 +108,13 @@ def check_ported(args):
     if args.synthetic_signal is not None or args.synthetic_rmat:
         todo.append("--synthetic-signal and --synthetic-rmat (the host "
                     f"synthetic graphs): {DATASET_FILES}")
+    # --use-dist-graph, --dist-graph-percentage, --auto-placement and
+    # --hbm-budget-gb run on one card (the tiered topology, the placement
+    # solved with group_size=1)
     if (args.num_worker > 1 or args.num_sample_worker > 0
             or args.num_train_worker != 1 or args.num_dcn_groups != 1
-            or args.part_cache or args.auto_placement
-            or args.hbm_budget_gb is not None):
+            or args.part_cache):
         todo.append(f"more than one card: {MULTI_GPU}")
-    if args.use_dist_graph or args.dist_graph_percentage < 1.0:
-        todo.append(f"--use-dist-graph: {TIERED_TOPOLOGY}")
     if todo:
         raise NotImplementedError(
             "not ported to xgnn_tpu_torch yet: " + "; ".join(todo))
@@ -159,6 +160,9 @@ def main(argv: Optional[Sequence[str]] = None):
         num_hidden=args.num_hidden, num_head=args.num_head, lr=args.lr,
         dropout=args.dropout, cache_policy=args.cache_policy,
         cache_percentage=args.cache_percentage,
+        use_dist_graph=args.use_dist_graph,
+        dist_graph_percentage=args.dist_graph_percentage,
+        auto_placement=args.auto_placement, hbm_budget_gb=args.hbm_budget_gb,
         presample_epoch=args.presample_epoch, pipeline=args.pipeline,
         gpu_extract=args.gpu_extract, device_loop=args.device_loop,
         remat=args.remat, report_acc=args.report_acc,

@@ -2,8 +2,11 @@
 
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface, at first use, into ``build/xgnn_tpu_torch/``
-at the root of the checkout, and bound with ``ctypes``.  A library's file
-name carries a hash of its source and flags, so an edited source is rebuilt.
+at the root of the checkout, and bound with ``ctypes``.  A source may
+include the shared headers ``csrc/*.cuh`` (``-I csrc``, so a copy of a
+source built elsewhere finds them too).  A library's file name carries a
+hash of its source, the headers and the flags, so an edited one is
+rebuilt.
 :func:`build` compiles several sources at once, one ``nvcc`` process each.
 
 Every C entry point returns ``cudaGetLastError()`` after its launch; the
@@ -31,6 +34,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "xgnn_tpu_torch"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-I", str(CSRC),
 ]
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -45,11 +49,14 @@ SIGNATURES = {
         "xg_fanout_bwd": [_P] * 9 + [_LL, _LL, _LL, _I, _LL, _LL, _P],
     },
     "sampling": {
-        "xg_sample_khop": [_P, _P, _P, _P, _P, _LL, _LL, _I, _P],
-        "xg_sample_wr": [_P, _P, _P, _P, _P, _LL, _LL, _I, _I, _P],
+        # the last four: the tier's host indptr and indices, num_total, the
+        # stream (xgnn_tpu_torch/ops/sampling.py, _cold_args)
+        "xg_sample_khop": [_P] * 5 + [_LL, _LL, _I, _P, _P, _LL, _P],
+        "xg_sample_wr": [_P] * 5 + [_LL, _LL, _I, _I, _P, _P, _LL, _P],
     },
     "random_walk": {
-        "xg_random_walk": [_P] * 7 + [_LL, _LL, _I, _I, _I, _F, _P],
+        "xg_random_walk": [_P] * 7 + [_LL, _LL, _I, _I, _I, _F, _P, _P, _LL,
+                                      _P],
     },
     "unique": {
         "xg_unique_seeded": [_P, _LL, _P, _LL, _P, _LL, _LL, _P, _LL,
@@ -59,8 +66,9 @@ SIGNATURES = {
         "xg_pick_multiplicity": [_P, _P, _P, _LL, _LL, _P],
     },
     "weighted": {
-        "xg_sample_prefix": [_P] * 7 + [_LL, _LL, _I, _P],
-        "xg_sample_alias": [_P] * 8 + [_LL, _LL, _I, _I, _I, _P],
+        "xg_sample_prefix": [_P] * 7 + [_LL, _LL, _I] + [_P] * 3 + [_LL, _P],
+        "xg_sample_alias": [_P] * 8 + [_LL, _LL, _I, _I, _I] + [_P] * 4
+        + [_LL, _P],
     },
     "tiered": {
         "xg_host_map": [_P, _LL, _I, _P],
@@ -125,8 +133,9 @@ def nvcc() -> str:
 
 def library_path(name: str) -> Path:
     src = CSRC / f"{name}.cu"
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
+        src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()
     ).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}_{digest}.so"
 

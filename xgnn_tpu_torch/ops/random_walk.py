@@ -1,8 +1,7 @@
 """K9: restart random walks with top-K visit counts (PinSAGE's sampler).
 
 The port of ``xgnn_tpu/ops/random_walk.py``'s ``sample_random_walk`` with
-``_uniform_step`` (the untiered walk; the tiered walk over a host topology
-is ROADMAP queue 1, 'Tiered topology').  Per seed, W walkers take L
+``_uniform_step``, untiered and tiered.  Per seed, W walkers take L
 steps; before each step after the first a walker restarts at its seed with
 probability ``restart_prob``, and a step is one uniform draw with
 replacement (:func:`~xgnn_tpu_torch.ops.sampling.sample_uniform_wr` at
@@ -21,6 +20,14 @@ float32 as there, and the restart compares in float32 against
 ``float32(restart_prob)``.  A frontier id outside ``[0, num_node)`` other
 than EMPTY is outside the contract, as for K2: it has degree 0.
 
+On a tiered topology (``tier=``, as for
+:func:`~xgnn_tpu_torch.ops.sampling.sample_khop0`) a walker standing on a
+cold node ``num_cache_node <= v < tier.csr.num_node`` takes its step from
+the whole graph's CSR in pinned, mapped host memory, in the same launch,
+with the same uniform: the walk equals the untiered walk over the whole
+CSR (JAX splits each step into the device's hot step and a host callback,
+``xgnn_tpu/ops/random_walk.py:83-103``).
+
 The CUDA kernel is ``csrc/random_walk.cu``; it keeps at most 64 visits a
 seed, so ``W * L <= 64`` (a limit the JAX package does not have, ROADMAP
 section 3), and ``fanout <= W * L`` as ``lax.top_k`` requires.
@@ -37,6 +44,7 @@ import torch
 
 from .. import constants as C
 from . import _build
+from .sampling import _check_tier, _cold_args, _on, _per_tier, _tables
 
 EMPTY = C.EMPTY_KEY
 _NAME = "random_walk"
@@ -44,8 +52,13 @@ MAX_VISITS = 64  # kMaxVisits in csrc/random_walk.cu
 
 
 def _walk_step(indptr: torch.Tensor, indices: torch.Tensor,
-               cur: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
-    """One uniform step of every walker; EMPTY where it has no neighbour."""
+               cur: torch.Tensor, u: torch.Tensor, tier=None) -> torch.Tensor:
+    """One uniform step of every walker; EMPTY where it has no neighbour.
+    A walker on a tier's cold node steps in the host CSR."""
+    if tier is not None:
+        return _per_tier(cur, tier, lambda csr, at: _walk_step(
+            *_tables(csr, ("indptr", "indices"), (indptr, indices)), at,
+            _on(u, at)))
     valid = (cur >= 0) & (cur < indptr.shape[0] - 1)
     node = torch.where(valid, cur, 0)
     start = indptr[node]
@@ -78,6 +91,7 @@ def sample_random_walk_plain(
     random_walk_length: int,
     restart_prob: float,
     u: Optional[Sequence[torch.Tensor]] = None,
+    tier=None,
 ):
     """The JAX function's steps over the whole ``(B, W)`` walker grid, then
     a ``(B, M, M)`` match count and a stable descending sort of the scores
@@ -94,7 +108,7 @@ def sample_random_walk_plain(
     for s in range(l):
         if s > 0:
             cur = torch.where(u_restart[s] < p, seed2d, cur)
-        nxt = _walk_step(indptr, indices, cur, u_step[s])
+        nxt = _walk_step(indptr, indices, cur, u_step[s], tier)
         visits.append(nxt)
         cur = torch.where(nxt == EMPTY, seed2d, nxt)
     v = torch.stack(visits, dim=2).reshape(b, w * l)  # walker-major
@@ -115,7 +129,7 @@ def sample_random_walk_plain(
     return neigh, weights
 
 
-def _check(indptr, indices, frontier, fanout, w, l, u):
+def _check(indptr, indices, frontier, fanout, w, l, u, tier):
     for name, t in (("indptr", indptr), ("indices", indices),
                     ("frontier", frontier)):
         if t.dim() != 1 or t.dtype != torch.int32:
@@ -154,6 +168,7 @@ def _check(indptr, indices, frontier, fanout, w, l, u):
         raise ValueError("random_walk: tensors must be contiguous")
     if frontier.device.type not in ("cpu", "cuda"):
         raise ValueError(f"random_walk: no kernel for {frontier.device}")
+    _check_tier(tier, indptr, frontier, ("indptr", "indices"), _NAME)
 
 
 def sample_random_walk(
@@ -167,18 +182,20 @@ def sample_random_walk(
     random_walk_length: int,
     restart_prob: float,
     u: Optional[Sequence[torch.Tensor]] = None,
+    tier=None,
 ):
     """``(neigh, weights)``: ``(B, fanout)`` int32 global ids, EMPTY
     padded, and their float32 visit counts, for the ``(B,)`` int32
     frontier.  ``u``: ``(u_step, u_restart)``; drawn from ``generator`` when
-    not given, as the plain version draws them."""
+    not given, as the plain version draws them.  ``tier``: the tiered
+    topology's cold side (module docstring)."""
     w, l = num_random_walk, random_walk_length
-    _check(indptr, indices, frontier, fanout, w, l, u)
+    _check(indptr, indices, frontier, fanout, w, l, u, tier)
     if frontier.device.type == "cpu":
         return sample_random_walk_plain(
             indptr, indices, frontier, fanout, generator,
             num_random_walk=w, random_walk_length=l,
-            restart_prob=restart_prob, u=u,
+            restart_prob=restart_prob, u=u, tier=tier,
         )
     b = frontier.shape[0]
     if u is None:
@@ -193,6 +210,7 @@ def sample_random_walk(
             u[0].data_ptr(), u[1].data_ptr(), neigh.data_ptr(),
             weights.data_ptr(), indptr.shape[0] - 1, b, w, l, fanout,
             float(restart_prob),
+            *_cold_args(tier, indptr, ("indptr", "indices")),
             _build.stream_handle(frontier.device),
         )
         _build.check(rc, _NAME)

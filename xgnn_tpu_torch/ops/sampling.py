@@ -14,13 +14,24 @@ in row-local prefix sums, but for the hash-dedup form, which keeps the
 first K distinct of ``HASH_DEDUP_ROUNDS * K`` alias draws.  Each call maps
 a padded frontier ``(B,)`` to a neighbour matrix ``(B, K)`` with
 ``EMPTY_KEY`` padding, with static shapes and no host sync.  A frontier id
-outside ``[0, num_node)`` has degree 0.
+outside ``[0, num_node)`` (``[0, tier.csr.num_node)`` on a tiered topology)
+has degree 0.
 
 Given the same uniforms ``u`` (and ``coin``) the picks equal the JAX
 package's exactly: the draws ``t = j + min(floor(u[:, j] * span), span -
 1)`` (K2), ``min(floor(u[:, j] * deg), deg - 1)`` (K8a, the alias slot)
 and the prefix target ``u * total`` are computed in float32 as there.  The
 port's tables carry no tile padding.
+
+A tiered topology (``tier=``, a :class:`~xgnn_tpu_torch.store.topology.
+Tier`): the device CSR holds the hot node-id prefix ``[0,
+tier.num_cache_node)`` only, and a frontier id ``num_cache_node <= v <
+tier.csr.num_node`` (a cold row) reads its start, degree, picks and tables
+from the whole graph's CSR in pinned, mapped host memory
+(``tier.csr``, int64 offsets), in the same launch as the hot rows.  A cold
+row takes the same uniforms as a hot row, so a tiered call picks what the
+untiered call over the whole CSR picks.  The device CSR's ``indptr`` stays
+int32 (an int64 one is refused); the host CSR's is int64.
 
 The CUDA kernels are ``csrc/sampling.cu`` (K2, K8a) and ``csrc/weighted.cu``
 (K8b).  The ``*_plain`` functions are their plain PyTorch versions: the
@@ -58,6 +69,59 @@ def _frontier_meta(indptr: torch.Tensor, frontier: torch.Tensor):
     return node, start, deg, valid
 
 
+def _on(t: Optional[torch.Tensor], like: torch.Tensor):
+    return None if t is None else t.to(like.device)
+
+
+def _tables(csr, names, hot):
+    """The device graph's tensors ``hot`` (``csr`` None), or the host CSR's
+    of the same ``names``."""
+    return tuple(hot) if csr is None else tuple(csr.host(n) for n in names)
+
+
+def _per_tier(frontier: torch.Tensor, tier, run):
+    """The plain form of a tiered call: ``run(csr, rows)`` over the device
+    graph for every row (``csr`` None; a cold id has degree 0 there), then
+    over the host CSR (``csr``, its tensors on the CPU) for the cold rows
+    alone, each row's result taken from its own tier."""
+    out = run(None, frontier)
+    cold = (frontier >= tier.num_cache_node) & (frontier < tier.csr.num_node)
+    got = run(tier.csr, torch.where(cold, frontier, EMPTY).cpu())
+    mask = cold.reshape(cold.shape + (1,) * (out.dim() - cold.dim()))
+    return torch.where(mask, got.to(out.device), out)
+
+
+def _check_tier(tier, indptr, frontier, names, what):
+    """A tier fits the device graph (its hot prefix is that graph's rows)
+    and, for a CUDA frontier, its host arrays ``names`` are mapped for that
+    device."""
+    if tier is None:
+        return
+    num_node = indptr.shape[0] - 1
+    if tier.num_cache_node != num_node or tier.csr.num_node < num_node:
+        raise ValueError(
+            f"{what}: a tier of {tier.num_cache_node} hot rows of "
+            f"{tier.csr.num_node} for a device graph of {num_node} rows")
+    for name in names:
+        if tier.csr.host(name) is None:
+            raise ValueError(f"{what}: the tier's host CSR has no {name}")
+        if (frontier.device.type == "cuda"
+                and (tier.csr.device != frontier.device
+                     or tier.csr.dev_ptr(name) is None)):
+            raise ValueError(
+                f"{what}: the tier's {name} is not mapped for "
+                f"{frontier.device} (MappedHostCSR(..., device=...))")
+
+
+def _cold_args(tier, indptr, names):
+    """The kernels' tier arguments: the host arrays' device addresses and
+    the whole graph's node count; null and the device graph's node count
+    when there is no tier."""
+    if tier is None:
+        return [None] * len(names) + [indptr.shape[0] - 1]
+    return [tier.csr.dev_ptr(n) for n in names] + [tier.csr.num_node]
+
+
 def sample_khop0_plain(
     indptr: torch.Tensor,
     indices: torch.Tensor,
@@ -66,6 +130,7 @@ def sample_khop0_plain(
     generator: Optional[torch.Generator] = None,
     *,
     u: Optional[torch.Tensor] = None,
+    tier=None,
 ) -> torch.Tensor:
     """Partial Fisher-Yates over the virtual array ``A = [0..deg)``: at step
     ``j`` draw ``t`` in ``[j, deg)``, emit ``A[t]`` and set ``A[t] = A[j]``.
@@ -73,12 +138,16 @@ def sample_khop0_plain(
     is resolved by a scan over the records.
 
     ``u``: ``(B, fanout)`` float32 uniforms; drawn from ``generator`` when
-    not given.
+    not given.  ``tier``: the cold rows read from its host CSR.
     """
     b = frontier.shape[0]
-    _, start, deg, _ = _frontier_meta(indptr, frontier)
     if u is None:
         u = torch.rand((b, fanout), generator=generator, device=frontier.device)
+    if tier is not None:
+        return _per_tier(frontier, tier, lambda csr, rows: sample_khop0_plain(
+            *_tables(csr, ("indptr", "indices"), (indptr, indices)), rows,
+            fanout, u=_on(u, rows)))
+    _, start, deg, _ = _frontier_meta(indptr, frontier)
 
     rec_pos = []  # displaced positions, one per step
     rec_val = []  # the value stored at that position
@@ -116,13 +185,20 @@ def sample_uniform_wr_plain(
     generator: Optional[torch.Generator] = None,
     *,
     u: Optional[torch.Tensor] = None,
+    tier=None,
 ) -> torch.Tensor:
     """K independent uniform picks per row, duplicates kept: offset
     ``min(floor(u * deg), deg - 1)``; a row of degree 0 is all EMPTY."""
-    _, start, deg, _ = _frontier_meta(indptr, frontier)
     if u is None:
         u = torch.rand((frontier.shape[0], fanout), generator=generator,
                        device=frontier.device)
+    if tier is not None:
+        return _per_tier(frontier, tier,
+                         lambda csr, rows: sample_uniform_wr_plain(
+                             *_tables(csr, ("indptr", "indices"),
+                                      (indptr, indices)),
+                             rows, fanout, u=_on(u, rows)))
+    _, start, deg, _ = _frontier_meta(indptr, frontier)
     off = torch.floor(u * deg[:, None]).to(torch.int32)
     off = torch.minimum(off, torch.clamp(deg - 1, min=0)[:, None])
     live = deg[:, None] > 0
@@ -140,13 +216,15 @@ def _dedup_rows(nbr: torch.Tensor) -> torch.Tensor:
 
 
 def sample_khop1_plain(indptr, indices, frontier, fanout, generator=None,
-                       *, u=None) -> torch.Tensor:
+                       *, u=None, tier=None) -> torch.Tensor:
     """khop1: the with-replacement draw, then each row's repeats masked."""
     return _dedup_rows(sample_uniform_wr_plain(indptr, indices, frontier,
-                                               fanout, generator, u=u))
+                                               fanout, generator, u=u,
+                                               tier=tier))
 
 
-def _check(indptr, indices, frontier, fanout, u, what=_NAME):
+def _check(indptr, indices, frontier, fanout, u, what=_NAME, tier=None,
+           tier_arrays=("indptr", "indices")):
     for name, t in (("indptr", indptr), ("indices", indices),
                     ("frontier", frontier)):
         if t.dim() != 1 or t.dtype != torch.int32:
@@ -176,6 +254,7 @@ def _check(indptr, indices, frontier, fanout, u, what=_NAME):
         raise ValueError(f"{what}: tensors must be contiguous")
     if frontier.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{what}: no kernel for {frontier.device}")
+    _check_tier(tier, indptr, frontier, tier_arrays, what)
 
 
 def sample_khop0(
@@ -186,14 +265,16 @@ def sample_khop0(
     generator: Optional[torch.Generator] = None,
     *,
     u: Optional[torch.Tensor] = None,
+    tier=None,
 ) -> torch.Tensor:
     """``(B, fanout)`` int32 picks for the ``(B,)`` int32 frontier, EMPTY
     past each row's degree.  ``u``: ``(B, fanout)`` float32 uniforms; drawn
-    from ``generator`` when not given, as the plain version draws them."""
-    _check(indptr, indices, frontier, fanout, u)
+    from ``generator`` when not given, as the plain version draws them.
+    ``tier``: the tiered topology's cold side (module docstring)."""
+    _check(indptr, indices, frontier, fanout, u, tier=tier)
     if frontier.device.type == "cpu":
         return sample_khop0_plain(indptr, indices, frontier, fanout,
-                                  generator, u=u)
+                                  generator, u=u, tier=tier)
     b = frontier.shape[0]
     if u is None:
         u = torch.rand((b, fanout), generator=generator, device=frontier.device)
@@ -203,6 +284,7 @@ def sample_khop0(
         rc = lib.xg_sample_khop(
             indptr.data_ptr(), indices.data_ptr(), frontier.data_ptr(),
             u.data_ptr(), out.data_ptr(), indptr.shape[0] - 1, b, fanout,
+            *_cold_args(tier, indptr, ("indptr", "indices")),
             _build.stream_handle(frontier.device),
         )
         _build.check(rc, _NAME)
@@ -214,11 +296,13 @@ sample_khop2 = sample_khop0
 sample_khop3 = sample_khop0
 
 
-def _sample_wr(indptr, indices, frontier, fanout, generator, u, dedup):
-    _check(indptr, indices, frontier, fanout, u, _WR)
+def _sample_wr(indptr, indices, frontier, fanout, generator, u, dedup,
+               tier):
+    _check(indptr, indices, frontier, fanout, u, _WR, tier)
     if frontier.device.type == "cpu":
         plain = sample_khop1_plain if dedup else sample_uniform_wr_plain
-        return plain(indptr, indices, frontier, fanout, generator, u=u)
+        return plain(indptr, indices, frontier, fanout, generator, u=u,
+                     tier=tier)
     b = frontier.shape[0]
     if u is None:
         u = torch.rand((b, fanout), generator=generator, device=frontier.device)
@@ -228,7 +312,8 @@ def _sample_wr(indptr, indices, frontier, fanout, generator, u, dedup):
         rc = lib.xg_sample_wr(
             indptr.data_ptr(), indices.data_ptr(), frontier.data_ptr(),
             u.data_ptr(), out.data_ptr(), indptr.shape[0] - 1, b, fanout,
-            int(dedup), _build.stream_handle(frontier.device),
+            int(dedup), *_cold_args(tier, indptr, ("indptr", "indices")),
+            _build.stream_handle(frontier.device),
         )
         _build.check(rc, _WR)
         _build.LAUNCHES.add(_WR)
@@ -243,10 +328,13 @@ def sample_uniform_wr(
     generator: Optional[torch.Generator] = None,
     *,
     u: Optional[torch.Tensor] = None,
+    tier=None,
 ) -> torch.Tensor:
     """``(B, fanout)`` int32 picks drawn with replacement, duplicates kept,
-    EMPTY on rows of degree 0.  ``u`` as for :func:`sample_khop0`."""
-    return _sample_wr(indptr, indices, frontier, fanout, generator, u, False)
+    EMPTY on rows of degree 0.  ``u`` and ``tier`` as for
+    :func:`sample_khop0`."""
+    return _sample_wr(indptr, indices, frontier, fanout, generator, u, False,
+                      tier)
 
 
 def sample_khop1(
@@ -257,10 +345,12 @@ def sample_khop1(
     generator: Optional[torch.Generator] = None,
     *,
     u: Optional[torch.Tensor] = None,
+    tier=None,
 ) -> torch.Tensor:
     """The :func:`sample_uniform_wr` picks, each row sorted with EMPTY over
     every repeat (``[5, 3, 3]`` becomes ``[3, EMPTY, 5]``)."""
-    return _sample_wr(indptr, indices, frontier, fanout, generator, u, True)
+    return _sample_wr(indptr, indices, frontier, fanout, generator, u, True,
+                      tier)
 
 
 # ------------------------------------------------------------------ K8b
@@ -294,11 +384,23 @@ def _alias_draws(indptr, indices, prob_table, alias_table, frontier, u,
     return val, start, deg
 
 
+_ALIAS_ARRAYS = ("indptr", "indices", "prob_table", "alias_table")
+_PREFIX_ARRAYS = ("indptr", "indices", "prob_prefix_table")
+
+
 def sample_weighted_khop_plain(indptr, indices, prob_table, alias_table,
                                frontier, fanout, generator=None, *, u=None,
-                               coin=None) -> torch.Tensor:
+                               coin=None, tier=None) -> torch.Tensor:
     """K alias draws a row, duplicates kept."""
     u, coin = _alias_uniforms(frontier, fanout, generator, u, coin)
+    if tier is not None:
+        return _per_tier(frontier, tier,
+                         lambda csr, rows: sample_weighted_khop_plain(
+                             *_tables(csr, _ALIAS_ARRAYS,
+                                      (indptr, indices, prob_table,
+                                       alias_table)),
+                             rows, fanout, u=_on(u, rows),
+                             coin=_on(coin, rows)))
     val, _, deg = _alias_draws(indptr, indices, prob_table, alias_table,
                                frontier, u, coin)
     return _mask_rows(val, deg)
@@ -307,13 +409,21 @@ def sample_weighted_khop_plain(indptr, indices, prob_table, alias_table,
 def sample_weighted_khop_hash_dedup_plain(
         indptr, indices, prob_table, alias_table, frontier, fanout,
         generator=None, *, u=None, coin=None,
-        rounds: int = HASH_DEDUP_ROUNDS) -> torch.Tensor:
+        rounds: int = HASH_DEDUP_ROUNDS, tier=None) -> torch.Tensor:
     """The first K distinct values of ``rounds * K`` alias draws, in draw
     order, EMPTY after them when fewer appear; a row of ``deg <= K`` is the
     whole row in CSR order.  First occurrences by two stable sorts, as the
     JAX function finds them."""
     m = rounds * fanout
     u, coin = _alias_uniforms(frontier, m, generator, u, coin)
+    if tier is not None:
+        return _per_tier(
+            frontier, tier,
+            lambda csr, rows: sample_weighted_khop_hash_dedup_plain(
+                *_tables(csr, _ALIAS_ARRAYS,
+                         (indptr, indices, prob_table, alias_table)),
+                rows, fanout, u=_on(u, rows), coin=_on(coin, rows),
+                rounds=rounds))
     val, start, deg = _alias_draws(indptr, indices, prob_table, alias_table,
                                    frontier, u, coin)
     val_s, idx_s = torch.sort(val, dim=1, stable=True)
@@ -377,18 +487,28 @@ def _search_depth(span: Optional[int]) -> int:
 def sample_weighted_khop_prefix_plain(
         indptr, indices, prob_prefix_table, frontier, fanout,
         generator=None, max_deg: Optional[int] = None, coarse_cdf=None, *,
-        u=None) -> torch.Tensor:
+        u=None, tier=None) -> torch.Tensor:
     """Per pick the smallest offset with ``prefix[start+off] > u * total``,
     clamped to ``deg - 1``: a binary search over the row, started from the
     coarse row's bucket when ``coarse_cdf`` is given; ``max_deg`` sizes the
-    search."""
+    search.  A tier's cold rows are searched whole (no coarse row, 32
+    steps)."""
     b = frontier.shape[0]
-    node, start, deg, _ = _frontier_meta(indptr, frontier)
-    live = (deg > 0)[:, None]
-    safe = torch.clamp(deg, min=1)[:, None]
     if u is None:
         u = torch.rand((b, fanout), generator=generator,
                        device=frontier.device)
+    if tier is not None:
+        return _per_tier(
+            frontier, tier,
+            lambda csr, rows: sample_weighted_khop_prefix_plain(
+                *_tables(csr, _PREFIX_ARRAYS,
+                         (indptr, indices, prob_prefix_table)),
+                rows, fanout, max_deg=max_deg if csr is None else None,
+                coarse_cdf=coarse_cdf if csr is None else None,
+                u=_on(u, rows)))
+    node, start, deg, _ = _frontier_meta(indptr, frontier)
+    live = (deg > 0)[:, None]
+    safe = torch.clamp(deg, min=1)[:, None]
     table = prob_prefix_table
     total = table[torch.where(live, start[:, None] + safe - 1, 0)]
     x = u * total  # float32, rounded to nearest, as the JAX product
@@ -420,10 +540,12 @@ def sample_weighted_khop_prefix_plain(
                       deg)
 
 
-def _check_weighted(indptr, indices, frontier, fanout, tables, draws, what):
+def _check_weighted(indptr, indices, frontier, fanout, tables, draws, what,
+                    tier):
     """``tables``: ``(name, tensor, dtype)`` of edge-aligned tables;
     ``draws``: ``(width, u, ...)``, the uniforms each ``(B, width)``."""
-    _check(indptr, indices, frontier, fanout, None, what)
+    _check(indptr, indices, frontier, fanout, None, what, tier,
+           ("indptr", "indices") + tuple(name for name, _, _ in tables))
     width, *us = draws
     tensors = []
     for name, t, dtype in tables:
@@ -463,6 +585,7 @@ def sample_weighted_khop_prefix(
     coarse_cdf: Optional[torch.Tensor] = None,
     *,
     u: Optional[torch.Tensor] = None,
+    tier=None,
 ) -> torch.Tensor:
     """``(B, fanout)`` int32 picks drawn with replacement, each neighbour
     with the probability of its weight, by a search in the row-local
@@ -474,10 +597,12 @@ def sample_weighted_khop_prefix(
     the plain version searches the table, and the two agree on such rows.
     ``coarse_cdf`` (:func:`build_coarse_cdf`, 128 wide) serves the kernel's
     rows of more than 128 entries, which are gathered otherwise;
-    ``max_deg`` sizes the plain version's search.  ``u`` as for :func:`sample_khop0`."""
+    ``max_deg`` sizes the plain version's search.  ``u`` and ``tier`` as
+    for :func:`sample_khop0`: a cold row is searched in the host CSR's
+    ``prob_prefix_table``, ``coarse_cdf`` covers the hot rows only."""
     _check_weighted(indptr, indices, frontier, fanout,
                     [("prob_prefix_table", prob_prefix_table, torch.float32)],
-                    (fanout, u), _PREFIX)
+                    (fanout, u), _PREFIX, tier)
     num_node = indptr.shape[0] - 1
     if coarse_cdf is not None and (
             coarse_cdf.dtype != torch.float32
@@ -492,7 +617,7 @@ def sample_weighted_khop_prefix(
     if frontier.device.type == "cpu":
         return sample_weighted_khop_prefix_plain(
             indptr, indices, prob_prefix_table, frontier, fanout, generator,
-            max_deg, coarse_cdf, u=u)
+            max_deg, coarse_cdf, u=u, tier=tier)
     b = frontier.shape[0]
     if u is None:
         u = torch.rand((b, fanout), generator=generator, device=frontier.device)
@@ -504,7 +629,8 @@ def sample_weighted_khop_prefix(
             prob_prefix_table.data_ptr(),
             None if coarse_cdf is None else coarse_cdf.data_ptr(),
             frontier.data_ptr(), u.data_ptr(), out.data_ptr(), num_node, b,
-            fanout, _build.stream_handle(frontier.device),
+            fanout, *_cold_args(tier, indptr, _PREFIX_ARRAYS),
+            _build.stream_handle(frontier.device),
         )
         _build.check(rc, _PREFIX)
         _build.LAUNCHES.add(_PREFIX)
@@ -512,7 +638,7 @@ def sample_weighted_khop_prefix(
 
 
 def _sample_alias(indptr, indices, prob_table, alias_table, frontier, fanout,
-                  generator, u, coin, rounds):
+                  generator, u, coin, rounds, tier):
     """Both alias forms: ``rounds`` is None without dedup."""
     dedup = rounds is not None
     draws = rounds * fanout if dedup else fanout
@@ -522,15 +648,15 @@ def _sample_alias(indptr, indices, prob_table, alias_table, frontier, fanout,
     _check_weighted(indptr, indices, frontier, fanout,
                     [("prob_table", prob_table, torch.float32),
                      ("alias_table", alias_table, torch.int32)],
-                    (draws, u, coin), _ALIAS)
+                    (draws, u, coin), _ALIAS, tier)
     if frontier.device.type == "cpu":
         if dedup:
             return sample_weighted_khop_hash_dedup_plain(
                 indptr, indices, prob_table, alias_table, frontier, fanout,
-                generator, u=u, coin=coin, rounds=rounds)
+                generator, u=u, coin=coin, rounds=rounds, tier=tier)
         return sample_weighted_khop_plain(
             indptr, indices, prob_table, alias_table, frontier, fanout,
-            generator, u=u, coin=coin)
+            generator, u=u, coin=coin, tier=tier)
     u, coin = _alias_uniforms(frontier, draws, generator, u, coin)
     lib = _build.load("weighted")
     b = frontier.shape[0]
@@ -540,7 +666,8 @@ def _sample_alias(indptr, indices, prob_table, alias_table, frontier, fanout,
             indptr.data_ptr(), indices.data_ptr(), prob_table.data_ptr(),
             alias_table.data_ptr(), frontier.data_ptr(), u.data_ptr(),
             coin.data_ptr(), out.data_ptr(), indptr.shape[0] - 1, b, fanout,
-            draws, int(dedup), _build.stream_handle(frontier.device),
+            draws, int(dedup), *_cold_args(tier, indptr, _ALIAS_ARRAYS),
+            _build.stream_handle(frontier.device),
         )
         _build.check(rc, _ALIAS)
         _build.LAUNCHES.add(_ALIAS)
@@ -558,12 +685,14 @@ def sample_weighted_khop(
     *,
     u: Optional[torch.Tensor] = None,
     coin: Optional[torch.Tensor] = None,
+    tier=None,
 ) -> torch.Tensor:
     """``(B, fanout)`` int32 alias draws, duplicates kept, EMPTY on rows of
     degree 0.  ``u``, ``coin``: ``(B, fanout)`` float32, the slot and the
-    coin of each draw; drawn from ``generator`` (u first) when not given."""
+    coin of each draw; drawn from ``generator`` (u first) when not given.
+    ``tier`` as for :func:`sample_khop0`, its host CSR with alias tables."""
     return _sample_alias(indptr, indices, prob_table, alias_table, frontier,
-                         fanout, generator, u, coin, None)
+                         fanout, generator, u, coin, None, tier)
 
 
 def sample_weighted_khop_hash_dedup(
@@ -578,11 +707,12 @@ def sample_weighted_khop_hash_dedup(
     u: Optional[torch.Tensor] = None,
     coin: Optional[torch.Tensor] = None,
     rounds: int = HASH_DEDUP_ROUNDS,
+    tier=None,
 ) -> torch.Tensor:
     """``(B, fanout)`` int32: the first ``fanout`` distinct values of
     ``rounds * fanout`` alias draws in draw order, EMPTY after them when
     fewer appear (the bounded-rounds deviation of PARITY.md); a row of
     ``deg <= fanout`` is the whole row.  ``u``, ``coin``: ``(B, rounds *
-    fanout)`` float32."""
+    fanout)`` float32.  ``tier`` as for :func:`sample_weighted_khop`."""
     return _sample_alias(indptr, indices, prob_table, alias_table, frontier,
-                         fanout, generator, u, coin, rounds)
+                         fanout, generator, u, coin, rounds, tier)

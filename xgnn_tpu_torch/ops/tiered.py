@@ -50,7 +50,8 @@ _TILE = 2048  # ids a block of the split (kTile in csrc/tiered.cu)
 DTYPES = {torch.float32: 4, torch.bfloat16: 2}
 
 
-def _map(tensor: torch.Tensor, index: int) -> int:
+def _map(tensor: torch.Tensor, index: int, what: str = "MappedHostTable"
+         ) -> int:
     """Pin ``tensor``'s memory and map it for device ``index``; its device
     address.  Raises if CUDA refuses."""
     nbytes = tensor.numel() * tensor.element_size()
@@ -58,30 +59,34 @@ def _map(tensor: torch.Tensor, index: int) -> int:
     rc = _build.load("tiered").xg_host_map(tensor.data_ptr(), nbytes, index,
                                            ctypes.addressof(out))
     if rc != 0:
-        raise RuntimeError(f"MappedHostTable: pinning and mapping {nbytes} "
-                           f"bytes failed (CUDA error {rc}); the tiered "
-                           "store has no other path")
+        raise RuntimeError(f"{what}: pinning and mapping {nbytes} bytes "
+                           f"failed (CUDA error {rc}); the tiered store and "
+                           "topology have no other path")
     return out.value
 
 
-class MappedHostTable:
-    """A contiguous float32 table in host memory that a CUDA device reads
-    in place: on a CUDA ``device`` it is pinned and mapped into the
+class MappedHostTensor:
+    """A contiguous tensor of ``dtype`` in host memory that a CUDA device
+    reads in place: on a CUDA ``device`` it is pinned and mapped into the
     device's address space (``cudaHostRegister`` with
     ``cudaHostRegisterMapped``), and any failure raises.  On the CPU it is
-    the plain table.  :meth:`close` (or garbage collection) unmaps it."""
+    the plain tensor.  The data is copied first unless converting it made a
+    copy already (on the CPU too, unless ``share_on_cpu``): memory that the
+    caller holds is never pinned.  :meth:`close` (or garbage collection)
+    unmaps it."""
 
-    def __init__(self, table, device: Union[str, torch.device]):
+    def __init__(self, data, device: Union[str, torch.device],
+                 dtype: torch.dtype, what: str = "MappedHostTensor",
+                 share_on_cpu: bool = False):
         device = torch.device(device)
-        t = torch.as_tensor(table).detach()
-        own = t.to("cpu", torch.float32)
-        if own is t:
+        t = torch.as_tensor(data).detach()
+        own = t.to("cpu", dtype)
+        if own is t and (device.type == "cuda" or not share_on_cpu):
             # no copy was made: never pin memory that the caller holds
             own = own.clone()
         self.tensor = own.contiguous()
-        if self.tensor.dim() != 2:
-            raise ValueError(f"MappedHostTable: a 2-D table, got "
-                             f"{tuple(self.tensor.shape)}")
+        self.what = what
+        self._check()
         self.device = device
         self.dev_ptr: Optional[int] = None
         if device.type == "cuda" and self.tensor.numel():
@@ -89,7 +94,10 @@ class MappedHostTable:
                 torch.cuda.current_device()
             self.device = torch.device("cuda", index)
             torch.cuda.init()
-            self.dev_ptr = _map(self.tensor, index)
+            self.dev_ptr = _map(self.tensor, index, what)
+
+    def _check(self):
+        """A subclass's refusal of a shape, before anything is pinned."""
 
     def close(self):
         if self.dev_ptr is not None:
@@ -102,6 +110,19 @@ class MappedHostTable:
             self.close()
         except Exception:  # at interpreter exit the library may be gone
             pass
+
+
+class MappedHostTable(MappedHostTensor):
+    """A 2-D float32 :class:`MappedHostTensor`: the tiered store's host
+    table of feature rows."""
+
+    def __init__(self, table, device: Union[str, torch.device]):
+        super().__init__(table, device, torch.float32, "MappedHostTable")
+
+    def _check(self):
+        if self.tensor.dim() != 2:
+            raise ValueError(f"MappedHostTable: a 2-D table, got "
+                             f"{tuple(self.tensor.shape)}")
 
 
 # ---------------------------------------------------------- plain versions

@@ -8,12 +8,16 @@ frontier with the previous one as its prefix, and remap the picks to local
 ids.  The walk's visit counts ride on each block as its ``weights``.  With
 direct extract the last layer keeps global ids and is not deduped.  Shapes
 are static, at the frontier capacities, and the overflow flag stays on the
-device: sampling never waits on the host.  The tiered topology
-(``tier=``) is not ported (ROADMAP queue 1, 'Tiered topology').
+device: sampling never waits on the host.  On a tiered topology
+(:func:`make_tiered_topology`, ``tier=``) the device graph holds the hot
+node-id prefix only, and each layer's one launch reads the cold rows in
+place from the whole graph's CSR in mapped host memory; K3's id space is
+the whole graph's node count (``num_node``).
 """
 
 from __future__ import annotations
 
+from types import SimpleNamespace
 from typing import Optional, Sequence
 
 import numpy as np
@@ -21,7 +25,15 @@ import torch
 
 from . import constants as C
 from .config import UNIFORM_KHOP, WEIGHTED, RunConfig, SampleType
+from .dataset import host_array
+from .device import resolve
 from .ops import random_walk, sampling, unique
+from .store.topology import (
+    MappedHostCSR,
+    Tier,
+    clamp_num_cache_node_int32,
+    compute_num_cache_node,
+)
 from .types import Block, Graph, SampledBatch
 
 
@@ -47,13 +59,54 @@ def _layer_fanouts(config: RunConfig) -> tuple:
     return tuple(config.fanout)
 
 
+def make_tiered_topology(indptr, indices, percentage: float,
+                         sample_type: SampleType, prob_table=None,
+                         alias_table=None, prob_prefix_table=None,
+                         device=None):
+    """A single-store tiered topology: the hot node-id prefix, whose edges
+    are ``percentage`` of all edges, clamped so that its offsets fit int32
+    (``store/topology.py``), as a :class:`Graph` on ``device`` (with its
+    weighted tables for a weighted ``sample_type``, and a coarse CDF of the
+    hot rows); and the whole CSR with those tables in host memory, pinned
+    and mapped for ``device`` (:class:`~xgnn_tpu_torch.store.topology.
+    MappedHostCSR`).  The arrays may be numpy arrays or tensors on any
+    device.
+
+    Returns ``(hot_graph, tier, num_node)`` for ``Sampler(hot_graph, cfg,
+    tier=tier, num_node=num_node)``: the reference's single-GPU large-graph
+    mode (``evaluation/large_graph --use-dist-graph 0.85``)."""
+    device = resolve(device)
+    host_indptr = host_array(indptr)
+    ncn = compute_num_cache_node(host_indptr, percentage)
+    ncn = clamp_num_cache_node_int32(host_indptr, ncn, 1)
+    e = int(host_indptr[ncn])
+    weighted = sample_type in WEIGHTED
+    tables = dict(prob_table=prob_table, alias_table=alias_table,
+                  prob_prefix_table=prob_prefix_table)
+    if not weighted:
+        tables = {k: None for k in tables}
+    host = {k: None if v is None else host_array(v)
+            for k, v in dict(indices=indices, **tables).items()}
+    sl = lambda a: None if a is None else a[:e]
+    hot = Graph.from_dataset(
+        SimpleNamespace(indptr=host_indptr[:ncn + 1].astype(np.int32),
+                        **{k: sl(v) for k, v in host.items()}),
+        device, weighted=weighted)
+    csr = MappedHostCSR(host_indptr, device=device, **host)
+    return hot, Tier(ncn, csr), len(host_indptr) - 1
+
+
 class Sampler:
     """Owns the graph and one set of frontier capacities; ``grow()``
-    returns a sampler with larger ones after an overflow."""
+    returns a sampler with larger ones after an overflow.  ``tier``: the
+    cold side of a tiered topology (:func:`make_tiered_topology`), with
+    ``num_node`` the whole graph's node count, which sizes the capacities
+    and K3."""
 
     def __init__(self, graph: Graph, config: RunConfig,
                  capacities: Optional[Sequence[int]] = None,
-                 direct_extract: bool = False):
+                 direct_extract: bool = False, tier: Optional[Tier] = None,
+                 num_node: Optional[int] = None):
         st = config.sample_type
         if st in WEIGHTED:
             table = ("prob_prefix_table"
@@ -68,7 +121,8 @@ class Sampler:
         self.config = config
         self.fanouts = _layer_fanouts(config)
         self.direct_extract = direct_extract
-        self.num_node = graph.num_node
+        self.tier = tier
+        self.num_node = num_node or graph.num_node
         if capacities is None:
             capacities = config.frontier_capacities
         if capacities is None:
@@ -99,6 +153,7 @@ class Sampler:
             rw_params=(cfg.num_random_walk, cfg.random_walk_length,
                        cfg.random_walk_restart_prob),
             direct_extract=self.direct_extract, generator=generator, u=u,
+            tier=self.tier, num_node=self.num_node,
         )
 
     def grow(self, factor: float = 2.0) -> "Sampler":
@@ -107,7 +162,8 @@ class Sampler:
             for c in self.capacities[1:]
         ]
         return Sampler(self.graph, self.config, caps,
-                       direct_extract=self.direct_extract)
+                       direct_extract=self.direct_extract, tier=self.tier,
+                       num_node=self.num_node)
 
 
 def _device_scalar(v, dev: torch.device) -> torch.Tensor:
@@ -121,14 +177,16 @@ def _device_scalar(v, dev: torch.device) -> torch.Tensor:
 
 
 def _sample_layer(graph: Graph, frontier: torch.Tensor, fanout: int,
-                  generator, u, sample_type: SampleType, rw_params: tuple):
-    """``(picks, weights)`` of one layer; weights only from the walk."""
+                  generator, u, sample_type: SampleType, rw_params: tuple,
+                  tier: Optional[Tier] = None):
+    """``(picks, weights)`` of one layer, in one launch for hot and cold
+    rows; weights only from the walk."""
     if sample_type == SampleType.RANDOM_WALK:
         num_rw, rw_len, restart = rw_params
         return random_walk.sample_random_walk(
             graph.indptr, graph.indices, frontier, fanout, generator,
             num_random_walk=num_rw, random_walk_length=rw_len,
-            restart_prob=restart, u=u,
+            restart_prob=restart, u=u, tier=tier,
         )
     if sample_type in (SampleType.WEIGHTED_KHOP,
                        SampleType.WEIGHTED_KHOP_HASH_DEDUP):
@@ -138,19 +196,19 @@ def _sample_layer(graph: Graph, frontier: torch.Tensor, fanout: int,
         u, coin = (None, None) if u is None else u
         return draw(graph.indptr, graph.indices, graph.prob_table,
                     graph.alias_table, frontier, fanout, generator, u=u,
-                    coin=coin), None
+                    coin=coin, tier=tier), None
     if sample_type == SampleType.WEIGHTED_KHOP_PREFIX:
         return sampling.sample_weighted_khop_prefix(
             graph.indptr, graph.indices, graph.prob_prefix_table, frontier,
             fanout, generator, max_deg=graph.n_max_deg,
-            coarse_cdf=graph.coarse_cdf, u=u), None
+            coarse_cdf=graph.coarse_cdf, u=u, tier=tier), None
     if sample_type == SampleType.KHOP1:
         draw = sampling.sample_khop1
     else:
         assert sample_type in UNIFORM_KHOP, sample_type
         draw = sampling.sample_khop0
     return draw(graph.indptr, graph.indices, frontier, fanout, generator,
-                u=u), None
+                u=u, tier=tier), None
 
 
 def _sample_minibatch(graph: Graph, seeds: torch.Tensor, num_seed, *,
@@ -158,9 +216,11 @@ def _sample_minibatch(graph: Graph, seeds: torch.Tensor, num_seed, *,
                       capacities: tuple, rw_params: tuple,
                       direct_extract: bool = False,
                       generator: Optional[torch.Generator] = None,
-                      u: Optional[Sequence] = None
-                      ) -> SampledBatch:
-    """Innermost layer first; blocks come back outermost first."""
+                      u: Optional[Sequence] = None,
+                      tier: Optional[Tier] = None,
+                      num_node: Optional[int] = None) -> SampledBatch:
+    """Innermost layer first; blocks come back outermost first.
+    ``num_node`` (the graph's when not given) sizes K3."""
     dev = seeds.device
     frontier = seeds
     num_frontier = num_seed = _device_scalar(num_seed, dev)
@@ -170,7 +230,7 @@ def _sample_minibatch(graph: Graph, seeds: torch.Tensor, num_seed, *,
         last = layer == len(fanouts) - 1
         nbr, weights = _sample_layer(
             graph, frontier, fanout, generator,
-            None if u is None else u[layer], sample_type, rw_params,
+            None if u is None else u[layer], sample_type, rw_params, tier,
         )
         if direct_extract and last:
             blocks.append(Block(
@@ -184,7 +244,7 @@ def _sample_minibatch(graph: Graph, seeds: torch.Tensor, num_seed, *,
         out_cap = capacities[layer + 1]
         uids, num_unique, local = unique.unique_seeded_split(
             frontier, nbr.reshape(-1), num_frontier, out_cap,
-            num_node=graph.num_node,
+            num_node=num_node or graph.num_node,
         )
         blocks.append(Block(
             neigh=local.reshape(nbr.shape),

@@ -134,12 +134,18 @@ def main() -> int:
         def kept():
             return sample_weighted_khop_prefix(*a, u=u)
 
+        # no tier (a version before the tiered topology has no such
+        # arguments)
+        untiered = ([None, None, None, g.num_node] if len(
+            _build.SIGNATURES["weighted"]["xg_sample_prefix"]) > 11 else [])
+
         def other(lib):
             rc = lib.xg_sample_prefix(
                 g.indptr.data_ptr(), g.indices.data_ptr(),
                 g.prob_prefix_table.data_ptr(), g.coarse_cdf.data_ptr(),
                 frontier.data_ptr(), u.data_ptr(), out_other.data_ptr(),
-                g.num_node, frontier.shape[0], k, _build.stream_handle(dev))
+                g.num_node, frontier.shape[0], k, *untiered,
+                _build.stream_handle(dev))
             _build.check(rc, "sample_prefix variant")
             return out_other
 
