@@ -195,14 +195,19 @@ Phases, each fatal on failure:
    against the untiered kernel over the whole CSR at the same uniforms,
    timed beside that untiered call, with its cold rows, its cold sectors
    and its bound (the larger of its hot bytes over HBM and the distinct
-   32-byte sectors of host memory its cold rows read, over PCIe); a
-   whole tiered batch and a batch of each
+   32-byte sectors of host memory its cold rows read, over PCIe), the
+   same sectors over the card's measured ceilings for scattered mapped
+   host reads of 32 and 128 bytes (``tools/host_reads.py``, run first),
+   and for K2 and
+   K8b-prefix the distinct sectors their own design reads; a whole tiered
+   batch and a batch of each
    alias form equal to the plain path's.  Then the paths
    ``graphsage_tiered`` (warm-up, counted and profiled epochs, its busy
    ms a step beside graphsage's, then ``device_loop`` with epochs 0 and 1
    per-step losses and accuracies equal to its host loop's bit for bit),
    ``graphsage_khop1_tiered``, ``graphsage_weighted_prefix_tiered`` and
-   ``pinsage_tiered`` (profiled too), each through ``Engine.init``'s own
+   ``pinsage_tiered`` (the first, third and fourth profiled too, each
+   beside its untiered path's busy ms), each through ``Engine.init``'s own
    tiered topology with its launches asserted; and
    ``graphsage_auto_placement``: ``auto_placement`` at the largest of a
    few ``hbm_budget_gb`` at which the solver tiers the topology, the
@@ -701,6 +706,7 @@ def main() -> int:
     from xgnn_tpu_torch.store.placement import resolve_auto_placement
     from xgnn_tpu_torch.store.presample import static_exact_ranking
     from xgnn_tpu_torch.synthetic import build_alias_tables
+    from xgnn_tpu_torch.tools import host_reads
     from xgnn_tpu_torch.synthetic_device import (
         alias_tables,
         edge_weights,
@@ -2030,7 +2036,8 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats(dev)
     r1 = run_epochs("graphsage_weighted_prefix", weng)
     rate_and_memory("graphsage_weighted_prefix", r1, w_edges)
-    profiled_epoch("graphsage_weighted_prefix", weng, 2)
+    host_runs["graphsage_weighted_prefix"]["profiled"] = profiled_epoch(
+        "graphsage_weighted_prefix", weng, 2)
     del weng, prefix, coarse
     wds.prob_prefix_table = None
     wgraph.prob_prefix_table = wgraph.coarse_cdf = None
@@ -3138,6 +3145,16 @@ def main() -> int:
     seeds, n = next(Shuffler(ds.train_set, BATCH, seed=7).epoch_batches(0))
     seeds = torch.from_numpy(seeds).to(dev)
     tier_rows = {}  # cold rows by layer of the batch walked below
+    # the card's ceilings for the cold rows' scattered host reads: a
+    # sector alone (32-byte reads) and sectors in whole lines (128-byte)
+    probe = host_reads.host_read_rates(torch, dev)
+    read_rate, line_rate = (host_reads.ceiling(probe, w)["sectors_per_s"]
+                            for w in (32, 128))
+    print(f"{tag} mapped host reads of a {host_reads.BUFFER_BYTES} byte "
+          f"buffer: {host_reads.describe(probe)}; ceilings "
+          f"{read_rate / 1e6:.1f}M sectors/s at 32 bytes a read, "
+          f"{line_rate / 1e6:.1f}M at 128, against PCIe's rated "
+          f"{PCIE_BYTES_PER_S / 32 / 1e6:.1f}M", flush=True)
 
     edge_pos = torch.arange(g.num_edge, dtype=torch.int32, device=dev)
 
@@ -3227,6 +3244,56 @@ def main() -> int:
                   + hot_rows * 8 + hot_picks * 4)
         return nbytes, n_sec, hot_rows, int(cold.sum())
 
+    def prefix_design_sectors(frontier, k, u):
+        """The distinct 32-byte sectors of host memory that K8b-prefix's
+        cold branch reads: each cold row's int64 indptr pair; a row of at
+        most 128 entries whole, a longer row its coarse row (the prefix at
+        coarse_pos) and each pick's bucket; an index a pick."""
+        ok = (frontier >= 0) & (frontier < n_all)
+        cold = ok & (frontier >= ncn)
+        v = frontier[cold].long()
+        start = g.indptr[v].long()
+        deg = g.indptr[v + 1].long() - start
+        pf = g.prob_prefix_table
+        pos = [torch.cat([v, v + 1])]
+        short = (deg > 0) & (deg <= 128)
+        d, st = deg[short], start[short]
+        pos.append(st.repeat_interleave(d) + (
+            torch.arange(int(d.sum()), device=dev)
+            - torch.repeat_interleave(torch.cumsum(d, 0) - d, d)))
+        hub = deg > 128
+        d, st = deg[hub, None], start[hub, None]
+        j = torch.arange(128, device=dev)[None, :]
+        q, r = d // 128, d % 128
+        cpos = ((j + 1) * q + ((j + 1) * r + 127) // 128 - 1).clamp(
+            max=d - 1)
+        pos.append((st + cpos).reshape(-1))
+        x = u[cold][hub] * pf[st + d - 1]
+        cval = pf[st + cpos]
+        jj = (cval[:, None, :] <= x[:, :, None]).sum(-1).clamp(max=127)
+        lo = torch.where(jj > 0, cpos.gather(1, (jj - 1).clamp(min=0)) + 1, 0)
+        hi = cpos.gather(1, jj)
+        n_b = (hi - lo + 1).reshape(-1)
+        pos.append((st + lo).reshape(-1).repeat_interleave(n_b) + (
+            torch.arange(int(n_b.sum()), device=dev)
+            - torch.repeat_interleave(torch.cumsum(n_b, 0) - n_b, n_b)))
+        n_sec = sectors(pos[0], 8) + sectors(torch.cat(pos[1:]), 4)
+        # an index a pick, at the pick's offset: found by the plain search
+        live = deg > 0
+        st, d = start[live, None], deg[live, None]
+        xs = u[cold][live] * pf[st + d - 1]
+        off = torch.zeros_like(xs, dtype=torch.long)
+        hi_ = (d - 1).expand_as(off).clone()
+        while True:
+            act = off < hi_
+            if not bool(act.any()):
+                break
+            mid = (off + hi_) >> 1
+            up = pf[st + mid] <= xs
+            off = torch.where(act & up, mid + 1, off)
+            hi_ = torch.where(act & ~up, mid, hi_)
+        return n_sec + sectors((st + off).reshape(-1), 4)
+
     def walk_tier_traffic(frontier, uw):
         """K9's hot bytes (as walk_traffic counts them, for the walker-steps
         from hot nodes) and the distinct 32-byte sectors of host memory its
@@ -3265,12 +3332,15 @@ def main() -> int:
         return fixed + hot_on * 8 + hot_live * 4, n_sec, hot_on, cold_on
 
     def tier_case(name, form, layer, frontier, k, fn, plain, whole, u,
-                  coin, replaces, path, per_step, detail="", traffic=None):
+                  coin, replaces, path, per_step, detail="", traffic=None,
+                  design=None):
         """A tiered call held to its plain version (the cold rows read on
         the host) and to the untiered kernel over the whole CSR on the card
         at the same uniforms, exact; timed beside the untiered call, with
         its bound: the larger of its hot bytes over HBM and its cold
-        sectors over PCIe."""
+        sectors over PCIe; beside it those sectors over the measured
+        ceiling, and ``design()``: the sectors its design reads (the
+        bound's own where not given)."""
         got, ref, full = fn(), plain(), whole()
         torch.cuda.synchronize()
         pairs = (list(zip(got, ref, full)) if isinstance(got, tuple)
@@ -3295,16 +3365,27 @@ def main() -> int:
                path=path, plain_reps=1,
                bound=max((hbm_ms, "bytes"), (pcie_ms, "bytes")))
         untiered_ms = time_ms(torch, whole, host_ahead=True)
+        design_sectors = sectors if design is None else design()
         kernels[-1].update(tiered=True, hot_rows=hot_rows,
                            cold_rows=cold_rows, cold_sectors=sectors,
                            hbm_bound_ms=hbm_ms, pcie_bound_ms=pcie_ms,
+                           ceiling_ms=sectors / read_rate * 1e3,
+                           line_ceiling_ms=sectors / line_rate * 1e3,
+                           design_sectors=design_sectors,
+                           design_ceiling_ms=design_sectors / read_rate * 1e3,
+                           design_line_ceiling_ms=(design_sectors / line_rate
+                                                   * 1e3),
                            untiered_device_ms=untiered_ms)
         print(f"{tag} {name} (tiered) layer {layer}: {cold_rows} cold rows, "
               f"{sectors} sectors from host memory; "
               f"{kernels[-1]['device_ms']:.4f} ms on the card alone against "
               f"the untiered call's {untiered_ms:.4f} ms at the same "
-              f"frontier; bound HBM {hbm_ms:.4f} ms, PCIe {pcie_ms:.4f} ms",
-              flush=True)
+              f"frontier; bound HBM {hbm_ms:.4f} ms, PCIe {pcie_ms:.4f} ms; "
+              f"at the measured ceilings {kernels[-1]['ceiling_ms']:.4f} ms "
+              f"(32-byte reads) / {kernels[-1]['line_ceiling_ms']:.4f} ms "
+              f"(128-byte); the design reads {design_sectors} sectors "
+              f"({kernels[-1]['design_ceiling_ms']:.4f} / "
+              f"{kernels[-1]['design_line_ceiling_ms']:.4f} ms)", flush=True)
         return got
 
     # K2, K8a, K8b (three forms) at the three layers' frontiers of one
@@ -3356,7 +3437,8 @@ def main() -> int:
                 g.indptr, g.indices, g.prob_prefix_table, f_, k, None,
                 g.n_max_deg, g.coarse_cdf, u=uk),
             uk, None, "xgnn_tpu/ops/sampling.py:339",
-            "graphsage_weighted_prefix_tiered", 3)
+            "graphsage_weighted_prefix_tiered", 3,
+            design=lambda: prefix_design_sectors(f_, k, uk))
         for dedup, fn, plain, uu, cc in (
                 (False, sample_weighted_khop, sample_weighted_khop_plain, u,
                  coin),
@@ -3486,7 +3568,8 @@ def main() -> int:
         r = run_epochs(path, eng)
         rate_and_memory(path, r, per_step)
         prof = (profiled_epoch(path, eng, 2) or {}) if path in (
-            "graphsage_tiered", "pinsage_tiered") else {}
+            "graphsage_tiered", "graphsage_weighted_prefix_tiered",
+            "pinsage_tiered") else {}
         ref_path = path.replace("_tiered", "")
         ref = host_runs[ref_path]
         row = {"epoch_s": r["time"], "untiered_epoch_s": ref["time"],

@@ -2255,20 +2255,106 @@ def _tiered_graph(dev, pct=0.5):
     return g, hot, tier, n
 
 
-def _tiered_frontier(g, tier, n, seed):
-    """Random ids, the 64 largest rows, EMPTY, and the prefix's edges."""
+# cold-row degrees that the tiered kernels branch on: 0, 1, K - 1 for K =
+# 5, 7, 10 and 15, a warp's 32 and 33, K2's whole row (64, 65), K8b-prefix's
+# whole row (127, 128) and its coarse row (129), and a longer hub
+_LAYOUT_DEGREES = (0, 1, 4, 6, 9, 14, 32, 33, 50, 64, 65, 127, 128, 129, 300)
+# the frontier layouts of _tiered_frontier besides "mixed"
+_LAYOUTS = ("all_cold", "all_hot", "one_cold_a_block", "cold_runs",
+            "degrees", "block_edges")
+
+
+def _layout_graph(dev, pct=0.5):
+    """A weighted graph of 6,000 nodes whose degrees are drawn from
+    _LAYOUT_DEGREES, its tables built on the card, and its tiered topology
+    at ``pct``."""
+    from xgnn_tpu_torch.config import SampleType
+    from xgnn_tpu_torch.ops.sampling import build_coarse_cdf
+    from xgnn_tpu_torch.sampler import make_tiered_topology
+    from xgnn_tpu_torch.synthetic_device import (
+        alias_tables,
+        edge_weights,
+        prefix_table,
+    )
+    from xgnn_tpu_torch.types import Graph
+
+    rng = np.random.default_rng(12)
+    n = 6000
+    deg = rng.choice(_LAYOUT_DEGREES, n)
+    indptr = torch.from_numpy(
+        np.concatenate([[0], np.cumsum(deg)]).astype(np.int32)).to(dev)
+    indices = torch.from_numpy(rng.integers(
+        0, n, int(deg.sum())).astype(np.int32)).to(dev)
+    w = edge_weights(indices.numel(), 12, dev)
+    g = Graph(indptr=indptr, indices=indices,
+              prob_prefix_table=prefix_table(indptr, w),
+              n_max_deg=int(deg.max()))
+    g.prob_table, g.alias_table = alias_tables(indptr, indices, w)
+    g.coarse_cdf = build_coarse_cdf(indptr, g.prob_prefix_table, n)
+    hot, tier, n = make_tiered_topology(
+        indptr, indices, pct, SampleType.WEIGHTED_KHOP,
+        prob_table=g.prob_table, alias_table=g.alias_table,
+        prob_prefix_table=g.prob_prefix_table, device=dev)
+    return g, hot, tier, n
+
+
+def _tiered_frontier(g, tier, n, seed, layout="mixed"):
+    """Frontier ids for a tiered call.  "mixed": random ids, the 64 largest
+    rows, EMPTY, and the prefix's edges.  The layouts that the cold-row
+    designs create (_LAYOUTS): "all_cold", "all_hot", "one_cold_a_block"
+    (a cold row in each 256-row block), "cold_runs" (a whole block cold,
+    and 100 cold rows in a row: more than a warp's lanes), "degrees" (cold
+    rows of every degree the graph's cold rows have, six of each, among hot
+    rows), "block_edges" (cold rows on both sides of each block boundary
+    and in a partial last block); every one but "all_cold" and "all_hot"
+    with EMPTY, negative and out-of-range ids among its rows."""
     rng = np.random.default_rng(seed)
     ncn = tier.num_cache_node
     deg = (g.indptr[1:] - g.indptr[:-1]).cpu().numpy()
-    f = np.concatenate([rng.integers(0, n, 6000), np.argsort(-deg)[:64],
-                        np.full(100, EMPTY), [n - 1, ncn, ncn - 1, 0]])
-    f = f.astype(np.int32)
-    rng.shuffle(f)
-    cold = (f != EMPTY) & (f >= ncn)
-    assert cold.sum() > 1000
-    # cold rows past 128 entries: K8b-prefix's hubs, searched in place
-    assert (cold & (deg[np.minimum(f, n - 1)] > 128)).any()
-    return f
+    if layout == "mixed":
+        f = np.concatenate([rng.integers(0, n, 6000), np.argsort(-deg)[:64],
+                            np.full(100, EMPTY), [n - 1, ncn, ncn - 1, 0]])
+        f = f.astype(np.int32)
+        rng.shuffle(f)
+        cold = (f != EMPTY) & (f >= ncn)
+        assert cold.sum() > 1000
+        # cold rows past 128 entries: K8b-prefix's hubs, read in place
+        assert (cold & (deg[np.minimum(f, n - 1)] > 128)).any()
+        return f
+
+    def hot(m):
+        return rng.integers(0, ncn, m)
+
+    def cold(m):
+        return rng.integers(ncn, n, m)
+
+    if layout == "all_cold":
+        return cold(3000).astype(np.int32)
+    if layout == "all_hot":
+        return hot(3000).astype(np.int32)
+    if layout == "one_cold_a_block":
+        f = hot(256 * 12)
+        f[np.arange(12) * 256 + rng.integers(0, 256, 12)] = cold(12)
+    elif layout == "cold_runs":
+        f = hot(256 * 6)
+        f[256:512] = cold(256)
+        f[800:900] = cold(100)
+    elif layout == "degrees":
+        ids = np.arange(ncn, n)
+        have = np.unique(deg[ids])
+        assert {0, 1, 128, 129} <= set(have.tolist())
+        f = np.concatenate([rng.choice(ids[deg[ids] == d], 6) for d in have]
+                           + [hot(200)])
+        rng.shuffle(f)
+    else:
+        assert layout == "block_edges"
+        f = hot(256 * 5 + 37)
+        f[[0, 255, 256, 511, 512, 1023, 1024, 1279, 1280, 1300, 1316]] = (
+            cold(11))
+    junk = np.array([EMPTY, -1, -7, n, n + 5, EMPTY])
+    at = rng.choice(f.size, junk.size, replace=False)
+    f[at] = junk
+    return f.astype(np.int32)
 
 
 def _tiered_cases(dev, g, hot, tier, frontier, k, seed):
@@ -2336,12 +2422,19 @@ def test_tiered_kernels_equal_plain_and_untiered(dev, k):
     launch over hot, cold and EMPTY rows: equal to their plain versions
     (the cold rows read from the host CSR on the CPU) and to the untiered
     kernels over the whole CSR on the card at the same uniforms."""
-    from xgnn_tpu_torch.ops import _build
-
     g, hot, tier, n = _tiered_graph(dev)
     assert 0 < tier.num_cache_node < n
     assert hot.coarse_cdf.shape[0] == tier.num_cache_node
     frontier = torch.from_numpy(_tiered_frontier(g, tier, n, k)).to(dev)
+    _assert_tiered_equal(dev, g, hot, tier, frontier, k)
+    tier.csr.close()
+
+
+def _assert_tiered_equal(dev, g, hot, tier, frontier, k):
+    """Each tiered wrapper, counted once a call, equal to its plain version
+    and to the untiered kernel over the whole CSR ``g``."""
+    from xgnn_tpu_torch.ops import _build
+
     fns, plains = _tiered_cases(dev, g, hot, tier, frontier, k, k)
     for name, fn in fns.items():
         _build.LAUNCHES.reset()
@@ -2356,6 +2449,22 @@ def test_tiered_kernels_equal_plain_and_untiered(dev, k):
         else:
             assert torch.equal(got, ref), name
             assert torch.equal(got, whole), name
+
+
+@pytest.mark.parametrize("k", [5, 10, 15, 7])
+@pytest.mark.parametrize("layout", _LAYOUTS)
+def test_tiered_layouts_equal_plain_and_untiered(dev, layout, k):
+    """The layouts of cold rows that K2's cold warps and K8b-prefix's cold
+    ring meet (all cold, all hot, a cold row a block, more cold rows in a
+    block than a warp has lanes, every cold degree from 0 to 300 with 128
+    and 129 among them, cold rows at block boundaries and in a partial last
+    block, EMPTY and out-of-range ids among them): every tiered sampler
+    equal to its plain version and to the untiered kernel over the whole
+    CSR, at K2's staged fanouts and an unstaged one."""
+    g, hot, tier, n = _layout_graph(dev)
+    frontier = torch.from_numpy(
+        _tiered_frontier(g, tier, n, k, layout)).to(dev)
+    _assert_tiered_equal(dev, g, hot, tier, frontier, k)
     tier.csr.close()
 
 

@@ -63,14 +63,42 @@
 // data-dependent branch).  Any other K up to kMaxFanout takes an unstaged
 // loop with the row in local memory and an insertion sort.
 //
-// The tiered topology (K2 and K8a alike; tier.cuh): a cold row is read in
-// place from the whole graph's CSR in mapped host memory, in the same
-// launch.  Its draws are the hot rows' arithmetic on the same u, so a
-// tiered call picks what the untiered call over the whole CSR picks.  A
-// row's two host reads (indptr, then indices) depend on each other, each
-// a PCIe round trip of about a microsecond: a thread with a cold row
-// stalls its warp on them.  Each kernel is built twice, kTiered false (the
-// untiered launch, no cold branch) and true.
+// The tiered topology (tier.cuh): a cold row is read in place from the
+// whole graph's CSR in mapped host memory.  Its draws are the hot rows'
+// arithmetic on the same u, so a tiered call picks what the untiered call
+// over the whole CSR picks.  A cold row's host reads are two dependent PCIe
+// round trips (its indptr pair, then its picks), and what bounds them is the
+// rate at which the link and the host answer scattered 32-byte reads, not
+// the link's bytes.
+//
+// K2 gives its cold rows warps of their own work: each warp first writes
+// its hot rows' picks (a cold row, an id past the hot prefix, reads there
+// as EMPTY), then takes its 32 rows' cold rows together: a ballot compacts
+// them, lanes 2r and 2r + 1 read cold row r's indptr pair in one
+// instruction, lane r resolves its row's K offsets from u and the degree
+// (the offsets need no index), and then a lane a pick reads the picks, a
+// row's picks in neighbouring lanes, so picks in one sector or line go out
+// as one request and every pick of the warp's cold rows is in flight at
+// once.  In the staged kernel the cold picks overwrite their rows of the
+// block's out tile before its one coalesced store.  A warp with no cold row
+// skips it all.  What bounds it: the rate at which the link and the host
+// answer scattered reads.  At layer 2 of the main path's batch at 0.85
+// (143,826 cold rows of 1,007,360, K = 5; NVIDIA H100 80GB HBM3, 700.00 W,
+// xgnn_tpu_torch/tools/time_samplers.py --tiered) it takes 1.34-1.50
+// device ms against PR 17's 2.80-3.23 (a thread a row, each of its 7 reads
+// a request of its own): 415-466M distinct sectors a second, between the
+// card's measured rates for scattered 32-byte (259-285M sectors a second)
+// and 128-byte (525-560M) mapped host reads, since a row's picks share
+// lines.  Two
+// other shapes measured slower there (PERF.md section 6, PR 18): the same
+// warp routine in a second launch after the untiered kernel (1.46-1.57),
+// and that launch reading each cold row of at most 64 entries whole before
+// selecting its picks (2.02-2.18).
+//
+// K8a keeps PR 17's cold branch: a thread with a cold row reads its indptr
+// pair and then its picks itself, stalling its warp on the two round trips
+// (ROADMAP section 2, **Tiered kernels**).  Each kernel that reads a tier is
+// built twice, kTiered false (the untiered launch, no cold branch) and true.
 //
 // Replaces, for the cold rows: xgnn_tpu/parallel/ggms.py,
 // HostColdSampler (lines 264-453) driven by cold_sample_callback
@@ -87,6 +115,10 @@ namespace {
 constexpr int32_t kEmpty = 0x7fffffff;
 constexpr int kThreads = 256;
 constexpr int kMaxFanout = 64;
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kWarps = kThreads / 32;
+constexpr int kColdPicks = 512;  // a warp's cold picks at a time
+constexpr int kColdBatch = 8;    // a lane's cold pick reads in flight
 
 // A frontier row: its first edge, its degree (0 for EMPTY and any id
 // outside the graph), and whether it lies in host memory
@@ -132,6 +164,122 @@ __device__ __forceinline__ int32_t draw(float u, int32_t deg, int j) {
   return j + (d < span - 1 ? d : span - 1);
 }
 
+// the position of the (r + 1)-th set bit of mask (r < popc(mask))
+__device__ __forceinline__ int nth_bit(unsigned mask, int r) {
+  int pos = 0;
+#pragma unroll
+  for (int w = 16; w > 0; w >>= 1) {
+    const int c = __popc(mask & ((1u << w) - 1u));
+    if (r >= c) {
+      r -= c;
+      mask >>= w;
+      pos += w;
+    }
+  }
+  return pos;
+}
+
+// K2's cold rows among the frontier rows [row0, row0 + n), by one warp
+// (every lane calls it; n <= 32 and n * fanout <= kColdPicks): their picks
+// into o + i * K, i a row's index in the run (o in device or shared
+// memory).  The run's cold rows are compacted by a ballot; lanes 2r and
+// 2r + 1 read cold row r's indptr pair in one instruction; lane r resolves
+// its row's offsets from u and the degree (K2's records, in registers for a
+// compile-time K) into offs; then a lane a pick reads the picks.
+template <int kK>
+__device__ __forceinline__ void cold_rows(
+    const int32_t* __restrict__ frontier, const float* __restrict__ u,
+    int32_t* o, int64_t row0, int n, int fanout, int64_t num_node,
+    const Cold& cold, int32_t* offs) {
+  const int K = kK > 0 ? kK : fanout;
+  const int lane = threadIdx.x & 31;
+  const int32_t v = lane < n ? __ldg(frontier + row0 + lane) : -1;
+  const unsigned mask =
+      __ballot_sync(kFull, v >= 0 && cold_id(cold, v, num_node));
+  const int nc = __popc(mask);
+  if (nc == 0) return;
+  // lane r < nc: the run's r-th cold row, its index ri in the run
+  const int ri = nth_bit(mask, lane < nc ? lane : 0);
+  const int32_t cv = __shfl_sync(kFull, v, ri);
+  long long e[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = 16 * h + (lane >> 1);
+    const int32_t vr = __shfl_sync(kFull, cv, r);
+    e[h] = r < nc ? __ldcg(cold.indptr + vr + (lane & 1)) : 0;
+  }
+  const int src = (2 * lane) & 31;
+  const long long s0 = __shfl_sync(kFull, e[0], src);
+  const long long t0 = __shfl_sync(kFull, e[0], src + 1);
+  const long long s1 = __shfl_sync(kFull, e[1], src);
+  const long long t1 = __shfl_sync(kFull, e[1], src + 1);
+  const long long start = lane < 16 ? s0 : s1;
+  const int32_t deg = lane < nc ? (int32_t)((lane < 16 ? t0 : t1) - start) : 0;
+  const int live = deg <= 0 ? 0 : (deg < K ? deg : K);
+  if (lane < nc) {
+    const float* urow = u + (row0 + ri) * K;
+    int32_t* my = offs + lane * K;
+    if constexpr (kK > 0) {
+      int32_t pos[kK], val[kK];
+#pragma unroll
+      for (int j = 0; j < kK; ++j) {
+        int32_t p = -1;
+        if (j < live) {
+          const int32_t t = draw(__ldg(urow + j), deg, j);
+          int32_t a_j = j;
+          p = t;
+#pragma unroll
+          for (int i = 0; i < kK; ++i) {
+            if (i < j) {
+              if (pos[i] == t) p = val[i];
+              if (pos[i] == j) a_j = val[i];
+            }
+          }
+          pos[j] = t;
+          val[j] = a_j;
+        }
+        my[j] = p;
+      }
+    } else {
+      int32_t pos[kMaxFanout], val[kMaxFanout];
+      for (int j = 0; j < live; ++j) {
+        const int32_t t = draw(__ldg(urow + j), deg, j);
+        int32_t p = t, a_j = j;
+        for (int i = 0; i < j; ++i) {
+          if (pos[i] == t) p = val[i];
+          if (pos[i] == j) a_j = val[i];
+        }
+        pos[j] = t;
+        val[j] = a_j;
+        my[j] = p;
+      }
+      for (int j = live; j < K; ++j) my[j] = -1;
+    }
+  }
+  __syncwarp();
+  // pick p is step p % K of cold row p / K; kColdBatch reads a lane in
+  // flight
+  const int picks = nc * K;
+  for (int p0 = 0; p0 < picks; p0 += 32 * kColdBatch) {
+    int32_t got[kColdBatch];
+#pragma unroll
+    for (int t = 0; t < kColdBatch; ++t) {
+      const int p = p0 + 32 * t + lane;
+      const int r = p < picks ? p / K : 0;
+      const long long s = __shfl_sync(kFull, start, r);
+      const int32_t off = p < picks ? offs[p] : -1;
+      got[t] = off >= 0 ? __ldcg(cold.indices + s + off) : kEmpty;
+    }
+#pragma unroll
+    for (int t = 0; t < kColdBatch; ++t) {
+      const int p = p0 + 32 * t + lane;
+      const int r = p < picks ? p / K : 0;
+      const int i = __shfl_sync(kFull, ri, r);
+      if (p < picks) o[i * K + (p - r * K)] = got[t];
+    }
+  }
+}
+
 // n words from src to dst, 16 bytes at a time when both are 16-byte aligned
 __device__ __forceinline__ void copy_tile(uint32_t* dst, const uint32_t* src,
                                           int n, bool vec) {
@@ -159,9 +307,11 @@ sample_khop_staged_kernel(const int32_t* __restrict__ indptr,
   const int64_t row = row0 + threadIdx.x;
   const int64_t rows = num_rows - row0 < kThreads ? num_rows - row0 : kThreads;
   const int words = (int)rows * kK;
+  // a cold row (kTiered) reads as an id outside the graph here, its
+  // picks EMPTY until the warp's cold rows overwrite them below
   Row r{0, 0, false};
   if (row < num_rows)
-    r = row_meta<kTiered>(indptr, frontier, row, num_node, cold);
+    r = row_meta<false>(indptr, frontier, row, num_node, cold);
   const int32_t deg = r.deg;
   copy_tile(tile, reinterpret_cast<const uint32_t*>(u) + row0 * kK, words,
             vec);
@@ -196,16 +346,28 @@ sample_khop_staged_kernel(const int32_t* __restrict__ indptr,
     // every offset is known: the index loads go out back to back
 #pragma unroll
     for (int j = 0; j < kK; ++j)
-      pick[j] = j < live ? edge<kTiered>(indices, cold, r, pick[j]) : kEmpty;
+      pick[j] = j < live ? edge<false>(indices, cold, r, pick[j]) : kEmpty;
 #pragma unroll
     for (int j = 0; j < kK; ++j) trow[j] = (uint32_t)pick[j];
+  }
+  if constexpr (kTiered) {  // the warp's cold rows
+    __shared__ int32_t offs[kWarps][kColdPicks];
+    const int warp = threadIdx.x >> 5;
+    const int64_t first = row0 + 32 * warp;
+    const int64_t left = num_rows - first;
+    __syncwarp();
+    cold_rows<kK>(frontier, u,
+                  reinterpret_cast<int32_t*>(tile) + 32 * warp * kK, first,
+                  left < 0 ? 0 : (left < 32 ? (int)left : 32), kK, num_node,
+                  cold, offs[warp]);
   }
   __syncthreads();
   copy_tile(reinterpret_cast<uint32_t*>(out) + row0 * kK, tile, words, vec);
 }
 
 // any fanout up to kMaxFanout: one thread per row, unstaged, records in
-// local memory
+// local memory; tiered, each warp then takes its rows' cold rows, a run of
+// at most kColdPicks / fanout rows at a time
 template <bool kTiered>
 __global__ void sample_khop_kernel(const int32_t* __restrict__ indptr,
                                    const int32_t* __restrict__ indices,
@@ -215,25 +377,42 @@ __global__ void sample_khop_kernel(const int32_t* __restrict__ indptr,
                                    int64_t num_node, int64_t num_rows,
                                    int fanout, Cold cold) {
   const int64_t row = (int64_t)blockIdx.x * kThreads + threadIdx.x;
-  if (row >= num_rows) return;
-  const Row r = row_meta<kTiered>(indptr, frontier, row, num_node, cold);
-  const int32_t deg = r.deg;
-  const int live = deg <= 0 ? 0 : (deg < fanout ? deg : fanout);
-  const float* urow = u + row * fanout;
-  int32_t* orow = out + row * fanout;
-  int32_t pos[kMaxFanout], val[kMaxFanout];
-  for (int j = 0; j < live; ++j) {
-    const int32_t t = draw(__ldg(urow + j), deg, j);
-    int32_t pick = t, a_j = j;
-    for (int i = 0; i < j; ++i) {
-      if (pos[i] == t) pick = val[i];
-      if (pos[i] == j) a_j = val[i];
+  if (!kTiered && row >= num_rows) return;
+  if (row < num_rows) {
+    const Row r = row_meta<false>(indptr, frontier, row, num_node, cold);
+    const int32_t deg = r.deg;
+    const int live = deg <= 0 ? 0 : (deg < fanout ? deg : fanout);
+    const float* urow = u + row * fanout;
+    int32_t* orow = out + row * fanout;
+    int32_t pos[kMaxFanout], val[kMaxFanout];
+    for (int j = 0; j < live; ++j) {
+      const int32_t t = draw(__ldg(urow + j), deg, j);
+      int32_t pick = t, a_j = j;
+      for (int i = 0; i < j; ++i) {
+        if (pos[i] == t) pick = val[i];
+        if (pos[i] == j) a_j = val[i];
+      }
+      pos[j] = t;
+      val[j] = a_j;
+      orow[j] = edge<false>(indices, cold, r, pick);
     }
-    pos[j] = t;
-    val[j] = a_j;
-    orow[j] = edge<kTiered>(indices, cold, r, pick);
+    for (int j = live; j < fanout; ++j) orow[j] = kEmpty;
   }
-  for (int j = live; j < fanout; ++j) orow[j] = kEmpty;
+  if constexpr (kTiered) {
+    __shared__ int32_t offs[kWarps][kColdPicks];
+    const int warp = threadIdx.x >> 5;
+    const int64_t first = row - (threadIdx.x & 31);
+    const int run = kColdPicks / fanout < 32 ? kColdPicks / fanout : 32;
+    __syncwarp();  // the warp's hot rows' stores before the cold ones
+    for (int i = 0; i < 32; i += run) {
+      const int64_t left = num_rows - (first + i);
+      const int m = 32 - i < run ? 32 - i : run;  // the warp's rows in it
+      cold_rows<0>(frontier, u, out + (first + i) * fanout, first + i,
+                   left <= 0 ? 0 : (left < m ? (int)left : m), fanout,
+                   num_node, cold, offs[warp]);
+      __syncwarp();  // offs is read before the next run refills it
+    }
+  }
 }
 
 // the K8a draw: an offset in [0, deg), deg > 0

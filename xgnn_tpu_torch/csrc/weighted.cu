@@ -77,15 +77,38 @@
 //
 // The tiered topology (all three forms; tier.cuh): a cold row is read in
 // place from the whole graph's CSR and the tables the form reads, in
-// mapped host memory, in the same launch, with 64-bit offsets (start +
-// slot, and the search's start + mid).  A cold row's draws are the hot
-// rows' arithmetic on the same u and coin, so a tiered call picks what the
-// untiered call over the whole CSR picks.  K8b-prefix searches a cold row
-// by a plain binary search over its host prefix row (no ring slot, no
-// coarse row: a lane a pick, about log2(deg) dependent reads), and keeps
-// the pick itself, not its edge position, as -2 - pick in its slot.  Each
-// kernel is built twice, kTiered false (the untiered launch, no cold
-// branch) and true.
+// mapped host memory, in the same launch, with 64-bit offsets.  A cold
+// row's draws are the hot rows' arithmetic on the same u and coin, so a
+// tiered call picks what the untiered call over the whole CSR picks.  A
+// host read is a PCIe round trip of a microsecond or more, and what bounds
+// the cold rows is the rate at which the link and the host answer
+// scattered reads, and the round trips a row waits out one after another.
+//
+// K8b-prefix takes a cold row through the ring as a hot row, in three
+// dependent host round trips (its indptr pair, its row, its indices): its
+// prefix entries (at most kDirectMax) or its coarse row (the 128 values at
+// coarse_pos, gathered from the host prefix: the card's coarse CDF covers
+// the hot rows only) are read kDepth - 1 rows ahead with plain loads, the
+// lanes' reads of a row coalesced, and held in registers (host reads never
+// go through cp.async) until the row's turn, when they are stored into its
+// slot and searched there as a hot row's are (a hub's buckets then read
+// from host memory: a fourth round trip).  Its picks' offsets (int32) take
+// the slots as -2 - off, the row's 64-bit start stays in its lane, and the
+// index reads join the run's batched gathers.  At layer 2 of the main
+// path's batch at 0.85 (143,826 cold rows of 1,007,360, K = 5; NVIDIA H100
+// 80GB HBM3, 700.00 W, xgnn_tpu_torch/tools/time_samplers.py --tiered) it
+// takes 3.94-4.38 device ms against PR 17's 8.30-9.32 (a binary search
+// over the host row, about log2(deg) + 2 dependent round trips a row),
+// reading 1.76M distinct sectors at 400-450M a second, between the card's
+// measured rates for scattered 32-byte and 128-byte mapped host reads
+// (PERF.md section 6, PR 18).  At layer 1, where more rows are hubs, it
+// is slower than PR 17's, 0.785 against 0.688: a cold hub's coarse row is
+// 128 scattered reads where the search touched about 40.  The cold words'
+// registers bring the tiered instance to 80 registers against 64 (3 blocks
+// an SM); a cap at 64 spilled and was slower.  The alias forms keep PR
+// 17's cold branch: a thread or a warp
+// reads its row's tables in place as a hot row's.  Each kernel is built
+// twice, kTiered false (the untiered launch, no cold branch) and true.
 //
 // Replaces, for the cold rows: xgnn_tpu/parallel/ggms.py, HostColdSampler
 // (lines 264-453: its alias, hash-dedup and prefix draws) driven by
@@ -191,15 +214,45 @@ __device__ __forceinline__ void issue_row(const float* __restrict__ prefix,
   if (lane == 0) __pipeline_memcpy_async(slot + kLanes, p + deg - 1, 4);
 }
 
+// A cold row's prefix reads (tiered), as issue_row's, from host memory:
+// plain loads into registers at issue (w: lane i's words of the row's
+// entries i + 32c, or of its coarse row, the prefix at coarse_pos(i + 32c,
+// deg, 0)), so several rows' host reads are in flight at once; stored into
+// the row's slot at its turn (store_cold)
+__device__ __forceinline__ void issue_cold(const float* p, int32_t deg,
+                                           int lane, float (&w)[kChunks]) {
+#pragma unroll
+  for (int c = 0; c < kChunks; ++c) {
+    const int i = lane + 32 * c;
+    w[c] = deg > kDirectMax ? __ldcg(p + coarse_pos(i, deg, 0))
+                            : (i < deg ? __ldcg(p + i) : 0.f);
+  }
+}
+
+// a cold row's words into its slot, with its total: the last entry, or the
+// coarse row's last value (coarse_pos(127, deg, 0) = deg - 1)
+__device__ __forceinline__ void store_cold(float* slot, int32_t deg, int lane,
+                                           const float (&w)[kChunks]) {
+  const int last = deg > kDirectMax ? kLanes - 1 : deg - 1;
+#pragma unroll
+  for (int c = 0; c < kChunks; ++c) {
+    const int i = lane + 32 * c;
+    if (deg > kDirectMax || i < deg) slot[i] = w[c];
+    if (i == last) slot[kLanes] = w[c];
+  }
+}
+
 // The offsets of a hub row's picks (lane k holds pick k's in off0, pick
 // k + 32's in off1): each pick's bucket from the coarse row cr by a
 // search, then the buckets' entries counted by ballots, kPickGroup picks'
-// reads issued together.
+// reads issued together (from host memory for a cold row).
+template <bool kTiered>
 __device__ __forceinline__ void hub_offsets(const float* __restrict__ p,
                                             const float* cr, int32_t deg,
                                             float total, const int32_t* urow,
                                             int fanout, int lane,
-                                            int32_t* off0, int32_t* off1) {
+                                            int32_t* off0, int32_t* off1,
+                                            bool cold) {
   constexpr int kPickGroup = 8;
   int32_t lo0 = 0, lo1 = 0, hi0 = 0, hi1 = 0;
   for (int k = lane; k < fanout; k += 32) {
@@ -224,7 +277,8 @@ __device__ __forceinline__ void hub_offsets(const float* __restrict__ p,
         const int32_t lo = __shfl_sync(kFull, k < 32 ? lo0 : lo1, k & 31);
         const int32_t hi = __shfl_sync(kFull, k < 32 ? hi0 : hi1, k & 31);
         const int32_t at = lo + b0 + lane;
-        val[i] = k < fanout && at <= hi ? __ldg(p + at) : INFINITY;
+        val[i] = k < fanout && at <= hi ? rd<kTiered>(p + at, cold)
+                                        : INFINITY;
       }
 #pragma unroll
       for (int i = 0; i < kPickGroup; ++i) {
@@ -248,7 +302,11 @@ __device__ __forceinline__ void hub_offsets(const float* __restrict__ p,
 // kDepth slots, kDepth - 1 rows ahead of the row being searched: lane k
 // searches pick k's offset in the row in shared memory, and its edge
 // position replaces its uniform.  The run's index gathers then go out
-// together and the picks are stored in one coalesced pass.
+// together and the picks are stored in one coalesced pass.  Tiered, a cold
+// row's reads (its entries or its coarse row, from host memory) are loaded
+// into registers kDepth - 1 rows ahead and stored into its slot at its
+// turn; it is then searched as a hot row, and its picks' index reads join
+// the run's gathers, at its 64-bit start plus their offsets.
 template <bool kTiered>
 __global__ void __launch_bounds__(kWarps * 32)
 sample_prefix_kernel(const int32_t* __restrict__ indptr,
@@ -262,8 +320,8 @@ sample_prefix_kernel(const int32_t* __restrict__ indptr,
   constexpr int kDepth = 4;
   constexpr int kBatch = 8;  // a lane's gathers in flight
   // the run's picks: each one's uniform (its bits), then its edge
-  // position (-1 on a row of degree 0; a cold row's pick p itself as
-  // -2 - p)
+  // position (-1 on a row of degree 0; a cold row's offset off as
+  // -2 - off)
   __shared__ int32_t slot[kWarps][kRunPicks];
   // the rows in flight: a row's values and, last, its total
   __shared__ float ring[kWarps][kDepth][kLanes + 1];
@@ -284,66 +342,122 @@ sample_prefix_kernel(const int32_t* __restrict__ indptr,
   int32_t deg;
   bool is_cold;
   row_meta<kTiered>(indptr, cold, v, num_node, &start64, &deg, &is_cold);
-  // a hot row's start fits 32 bits; a cold row takes no ring slot
+  // a hot row's start fits 32 bits (a cold row's stays in start64)
   const int32_t start = is_cold ? 0 : (int32_t)start64;
-  const int32_t ring_deg = is_cold ? 0 : deg;
+  if constexpr (kTiered) {
+    // the rows' loop unrolled by kDepth, so a row's slot (and its cold
+    // words' registers) has a compile-time index
+    float stg[kDepth][kChunks];
 #pragma unroll
-  for (int r = 0; r < kDepth - 1; ++r) {
-    if (r < rows)
-      issue_row(prefix, coarse, __shfl_sync(kFull, start, r),
-                __shfl_sync(kFull, ring_deg, r), __shfl_sync(kFull, v, r),
-                lane, ring[warp][r]);
-    __pipeline_commit();
-  }
-  for (int r = 0; r < rows; ++r) {
-    const int ahead = r + kDepth - 1;
-    const int32_t sa = __shfl_sync(kFull, start, ahead & 31);
-    const int32_t da = __shfl_sync(kFull, ring_deg, ahead & 31);
-    const int32_t va = __shfl_sync(kFull, v, ahead & 31);
-    if (ahead < rows)
-      issue_row(prefix, coarse, sa, da, va, lane,
-                ring[warp][ahead % kDepth]);
-    __pipeline_commit();
-    __pipeline_wait_prior(kDepth - 1);  // this lane's copies of row r
-    __syncwarp();                       // and every lane's
-    const int32_t s = __shfl_sync(kFull, start, r);
-    const int32_t d = __shfl_sync(kFull, deg, r);
-    const bool c = kTiered && __shfl_sync(kFull, (int)is_cold, r) != 0;
-    const float* row = ring[warp][r % kDepth];
-    int32_t* urow = sl + r * fanout;
-    if (c && d > 0) {
-      // a cold row: lane k searches pick k in the host prefix row, then
-      // reads its index
-      const long long cs = __shfl_sync(kFull, (long long)start64, r);
-      const float* p = cold.prefix + cs;
-      const float total = __ldcg(p + d - 1);
-      for (int k = lane; k < fanout; k += 32) {
-        const float x = __fmul_rn(__int_as_float(urow[k]), total);
-        int32_t lo = 0, hi = d - 1;
-        while (lo < hi) {
-          const int32_t mid = (lo + hi) >> 1;
-          if (__ldcg(p + mid) <= x) lo = mid + 1;
-          else hi = mid;
+    for (int r = 0; r < kDepth - 1; ++r) {
+      if (r < rows) {
+        const int32_t da = __shfl_sync(kFull, deg, r);
+        const long long ca = __shfl_sync(kFull, (long long)start64, r);
+        if (__shfl_sync(kFull, (int)is_cold, r) != 0) {
+          if (da > 0) issue_cold(cold.prefix + ca, da, lane, stg[r]);
+        } else {
+          issue_row(prefix, coarse, __shfl_sync(kFull, start, r), da,
+                    __shfl_sync(kFull, v, r), lane, ring[warp][r]);
         }
-        urow[k] = -2 - __ldcg(cold.indices + cs + lo);
       }
-    } else if (d > 0 && d <= kDirectMax) {
-      // lane k: pick k's uniform in, its position out
-      for (int k = lane; k < fanout; k += 32) {
-        const float x = __fmul_rn(__int_as_float(urow[k]), row[kLanes]);
-        urow[k] = s + upper_offset(row, d, x);
-      }
-    } else if (d > 0) {
-      int32_t off0, off1;
-      hub_offsets(prefix + s, row, d, row[kLanes], urow, fanout, lane,
-                  &off0, &off1);
-      __syncwarp();  // every lane read the row's uniforms
-      if (lane < fanout) urow[lane] = s + off0;
-      if (lane + 32 < fanout) urow[lane + 32] = s + off1;
-    } else {
-      for (int k = lane; k < fanout; k += 32) urow[k] = -1;
+      __pipeline_commit();
     }
-    __syncwarp();  // the slot is read before it is refilled
+    for (int r0 = 0; r0 < rows; r0 += kDepth) {
+#pragma unroll
+      for (int q = 0; q < kDepth; ++q) {
+        const int r = r0 + q;
+        if (r >= rows) break;
+        const int ahead = r + kDepth - 1;
+        const int qa = (q + kDepth - 1) % kDepth;
+        const int32_t sa = __shfl_sync(kFull, start, ahead & 31);
+        const int32_t da = __shfl_sync(kFull, deg, ahead & 31);
+        const int32_t va = __shfl_sync(kFull, v, ahead & 31);
+        const long long ca = __shfl_sync(kFull, (long long)start64,
+                                         ahead & 31);
+        const bool cold_a = __shfl_sync(kFull, (int)is_cold, ahead & 31) != 0;
+        if (ahead < rows) {
+          if (cold_a) {
+            if (da > 0) issue_cold(cold.prefix + ca, da, lane, stg[qa]);
+          } else {
+            issue_row(prefix, coarse, sa, da, va, lane, ring[warp][qa]);
+          }
+        }
+        __pipeline_commit();
+        __pipeline_wait_prior(kDepth - 1);  // this lane's copies of row r
+        __syncwarp();                       // and every lane's
+        const int32_t s = __shfl_sync(kFull, start, r);
+        const int32_t d = __shfl_sync(kFull, deg, r);
+        const bool c = __shfl_sync(kFull, (int)is_cold, r) != 0;
+        const long long cs = __shfl_sync(kFull, (long long)start64, r);
+        float* row = ring[warp][q];
+        int32_t* urow = sl + r * fanout;
+        if (c && d > 0) {
+          store_cold(row, d, lane, stg[q]);
+          __syncwarp();
+        }
+        // a pick's edge position, or a cold pick's offset off as -2 - off
+        // (its row's 64-bit start stays in lane r's start64)
+        if (d > 0 && d <= kDirectMax) {
+          for (int k = lane; k < fanout; k += 32) {
+            const float x = __fmul_rn(__int_as_float(urow[k]), row[kLanes]);
+            const int32_t off = upper_offset(row, d, x);
+            urow[k] = c ? -2 - off : s + off;
+          }
+        } else if (d > 0) {
+          int32_t off0, off1;
+          hub_offsets<true>(c ? cold.prefix + cs : prefix + s, row, d,
+                            row[kLanes], urow, fanout, lane, &off0, &off1, c);
+          __syncwarp();  // every lane read the row's uniforms
+          if (lane < fanout) urow[lane] = c ? -2 - off0 : s + off0;
+          if (lane + 32 < fanout) urow[lane + 32] = c ? -2 - off1 : s + off1;
+        } else {
+          for (int k = lane; k < fanout; k += 32) urow[k] = -1;
+        }
+        __syncwarp();  // the slot is read before it is refilled
+      }
+    }
+  } else {
+#pragma unroll
+    for (int r = 0; r < kDepth - 1; ++r) {
+      if (r < rows)
+        issue_row(prefix, coarse, __shfl_sync(kFull, start, r),
+                  __shfl_sync(kFull, deg, r), __shfl_sync(kFull, v, r), lane,
+                  ring[warp][r]);
+      __pipeline_commit();
+    }
+    for (int r = 0; r < rows; ++r) {
+      const int ahead = r + kDepth - 1;
+      const int32_t sa = __shfl_sync(kFull, start, ahead & 31);
+      const int32_t da = __shfl_sync(kFull, deg, ahead & 31);
+      const int32_t va = __shfl_sync(kFull, v, ahead & 31);
+      if (ahead < rows)
+        issue_row(prefix, coarse, sa, da, va, lane,
+                  ring[warp][ahead % kDepth]);
+      __pipeline_commit();
+      __pipeline_wait_prior(kDepth - 1);  // this lane's copies of row r
+      __syncwarp();                       // and every lane's
+      const int32_t s = __shfl_sync(kFull, start, r);
+      const int32_t d = __shfl_sync(kFull, deg, r);
+      const float* row = ring[warp][r % kDepth];
+      int32_t* urow = sl + r * fanout;
+      if (d > 0 && d <= kDirectMax) {
+        // lane k: pick k's uniform in, its position out
+        for (int k = lane; k < fanout; k += 32) {
+          const float x = __fmul_rn(__int_as_float(urow[k]), row[kLanes]);
+          urow[k] = s + upper_offset(row, d, x);
+        }
+      } else if (d > 0) {
+        int32_t off0, off1;
+        hub_offsets<false>(prefix + s, row, d, row[kLanes], urow, fanout,
+                           lane, &off0, &off1, false);
+        __syncwarp();  // every lane read the row's uniforms
+        if (lane < fanout) urow[lane] = s + off0;
+        if (lane + 32 < fanout) urow[lane + 32] = s + off1;
+      } else {
+        for (int k = lane; k < fanout; k += 32) urow[k] = -1;
+      }
+      __syncwarp();  // the slot is read before it is refilled
+    }
   }
   int32_t* orun = out + base * fanout;
   for (int i0 = 0; i0 < picks; i0 += 32 * kBatch) {
@@ -352,8 +466,16 @@ sample_prefix_kernel(const int32_t* __restrict__ indptr,
     for (int t = 0; t < kBatch; ++t) {
       const int i = i0 + 32 * t + lane;
       const int32_t e = i < picks ? sl[i] : -1;
-      got[t] = e >= 0 ? __ldg(indices + e)
-                      : (kTiered && e != -1 ? -2 - e : kEmpty);
+      if constexpr (kTiered) {
+        // a cold pick: its row's start (lane i / fanout's) plus its offset
+        const long long cs = __shfl_sync(kFull, (long long)start64,
+                                         (i / fanout) & 31);
+        got[t] = e >= 0 ? __ldg(indices + e)
+                        : (e != -1 ? __ldcg(cold.indices + cs + (-2 - e))
+                                   : kEmpty);
+      } else {
+        got[t] = e >= 0 ? __ldg(indices + e) : kEmpty;
+      }
     }
 #pragma unroll
     for (int t = 0; t < kBatch; ++t) {

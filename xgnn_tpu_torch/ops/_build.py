@@ -84,6 +84,9 @@ SIGNATURES = {
         "xg_spmm_csr": [_P] * 4 + [_LL, _LL, _LL, _I, _LL, _P],
         "xg_gat_csr": [_P] * 6 + [_LL, _LL, _I, _I, _F, _LL, _P],
     },
+    "host_read": {  # a probe of the card's mapped host reads, no path's
+        "xg_host_read": [_P, _LL, _I, _I, _I, _I, ctypes.c_uint, _P, _P],
+    },
     "attend": {
         "xg_attend_fwd": [_P] * 7 + [_LL, _LL, _I, _I, _I, _I, _F, _P],
         "xg_attend_bwd": [_P] * 13 + [_I, _LL, _LL, _I, _I, _I, _I, _F, _P],

@@ -1,17 +1,16 @@
 #!/usr/bin/env python3
-"""Time the untiered samplers (K2, K8a, K8b's three forms and K9) against
-their parent versions, in turns.
+"""Time the samplers (K2, K8a, K8b's three forms and K9) against their
+parent versions, in turns, untiered or on the tiered topology.
 
-    python3 xgnn_tpu_torch/tools/time_samplers.py --parent DIR
+    python3 xgnn_tpu_torch/tools/time_samplers.py --parent DIR [--tiered]
 
 ``DIR`` is a checkout of the version to compare with, unpacked into a
 gitignored directory, as in ``git archive <commit> | tar -x -C
 build/parent``.  Its ``csrc/sampling.cu``, ``weighted.cu`` and
 ``random_walk.cu`` are built with its own flags and bound with the C
 interface that its ``ops/_build.py`` declares; this checkout's three are
-built beside them, all in parallel, and called untiered (null tier
-pointers).  Each build's registers and stack a thread are read with
-``cuobjdump -res-usage``.
+built beside them, all in parallel.  Each build's registers and stack a
+thread are read with ``cuobjdump -res-usage``.
 
 The inputs are those of ``chip_smoke.py``: the products-scale synthetic
 graph (seed 0), phase 7's edge weights with their prefix, coarse-CDF and
@@ -21,10 +20,18 @@ three frontiers are that batch walked layer by layer through K2 and K3
 but K9 is timed at each of them with the layer's fanout (K8a as khop1,
 K8b-alias with and without hash-dedup).  K9 walks PinSAGE's two layers
 (the seeds, then K3's frontier of their picks) with bench.py's walk.
-Every case's output is checked bit-equal between the two builds; each
-is timed with ``chip_smoke.time_ms`` (``ms`` back to back, ``device_ms``
-with the host ahead of the card: the card's time alone) in the order
-parent, new, new, parent, twice.  The last line is one JSON object.
+
+Untiered (the default), every sampler is called with null tier pointers.
+With ``--tiered`` the graph is tiered as phase 12 tiers it (0.85 of the
+edges on the card, the whole CSR and tables pinned and mapped), the
+frontiers are walked over the whole graph, and every sampler is called on
+the hot prefix with the tier, after a probe of the card's scattered
+mapped host reads (``tools/host_reads.py``).
+
+Every case's output is checked bit-equal between the builds; each is
+timed with ``chip_smoke.time_ms`` (``ms`` back to back, ``device_ms`` with
+the host ahead of the card: the card's time alone) in the order parent,
+new, new, parent, twice.  The last line is one JSON object.
 """
 
 import argparse
@@ -86,8 +93,9 @@ def build(_build, parent: Path) -> dict:
             procs[(who, name)] = (subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True), lib)
-    # the wrappers that walk the frontiers: this checkout's own libraries
-    _build.build(["sampling", "unique", "random_walk"])
+    # the wrappers that walk the frontiers, and the host-read probe: this
+    # checkout's own libraries
+    _build.build(["sampling", "unique", "random_walk", "tiered", "host_read"])
     libs = {}
     for (who, name), (p, lib) in procs.items():
         log, _ = p.communicate()
@@ -107,12 +115,15 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", required=True,
                     help="a checkout of the version to compare with")
+    ap.add_argument("--tiered", action="store_true",
+                    help="the tiered instances, on phase 12's tier")
     args = ap.parse_args()
     sys.path.insert(0, str(CHECKOUT))
     import chip_smoke as cs
     import torch
 
     from xgnn_tpu_torch import make_device_dataset
+    from xgnn_tpu_torch.config import SampleType
     from xgnn_tpu_torch.engine.shuffler import Shuffler
     from xgnn_tpu_torch.ops import _build
     from xgnn_tpu_torch.ops.random_walk import (
@@ -125,11 +136,13 @@ def main() -> int:
         sample_khop0,
     )
     from xgnn_tpu_torch.ops.unique import unique_seeded_split
+    from xgnn_tpu_torch.sampler import make_tiered_topology
     from xgnn_tpu_torch.synthetic_device import (
         alias_tables,
         edge_weights,
         prefix_table,
     )
+    from xgnn_tpu_torch.tools import host_reads
 
     if not torch.cuda.is_available():
         print("time_samplers: no CUDA device", file=sys.stderr)
@@ -140,6 +153,12 @@ def main() -> int:
     libs = build(_build, Path(args.parent).resolve())
     regs = {f"{who}/{name}": use for (who, name), (_, _, use) in libs.items()}
     print(f"registers: {json.dumps(regs)}", flush=True)
+    probe = None
+    if args.tiered:
+        probe = host_reads.host_read_rates(torch, dev)
+        print(f"[{card}] mapped host reads of a "
+              f"{host_reads.BUFFER_BYTES} byte buffer: "
+              f"{host_reads.describe(probe)}", flush=True)
 
     ds = make_device_dataset(cs.NUM_NODE, cs.NUM_EDGE, cs.FEAT_DIM,
                              cs.NUM_CLASS, train_frac=0.08, seed=0,
@@ -150,28 +169,44 @@ def main() -> int:
     coarse = build_coarse_cdf(g.indptr, prefix, g.num_node)
     prob, alias = alias_tables(g.indptr, g.indices, w)
     del w
+    nn = n_all = g.num_node
+    gr, tier = g, None  # the graph the samplers read, and its tier
+    if args.tiered:
+        gr, tier, n_all = make_tiered_topology(
+            g.indptr, g.indices, cs.TIER_PCT, SampleType.WEIGHTED_KHOP,
+            prob_table=prob, alias_table=alias, prob_prefix_table=prefix,
+            device=dev)
+        nn = gr.num_node
+        print(f"tiered at {cs.TIER_PCT}: hot prefix {nn} of {n_all} nodes",
+              flush=True)
+    else:
+        gr.prob_prefix_table, gr.coarse_cdf = prefix, coarse
+        gr.prob_table, gr.alias_table = prob, alias
     gen = torch.Generator(device=dev).manual_seed(11)
     seeds, n = next(Shuffler(ds.train_set, cs.BATCH,
                              seed=7).epoch_batches(0))
     seeds = torch.from_numpy(seeds).to(dev)
     stream = _build.stream_handle(dev)
-    nn = g.num_node
 
-    def entry(name, fn, common, n_cold):
-        """``call(who)`` of ``fn`` in ``name``'s two builds: ``common``
-        then, where the build takes a tier, ``n_cold`` null pointers and
-        the node count, then the stream."""
+    def entry(name, fn, common, cold_names):
+        """``call(who)`` of ``fn`` in ``name``'s builds: ``common`` then,
+        where the build takes a tier, the tier's host arrays ``cold_names``
+        (null pointers untiered) and the node count, then the stream."""
         def call(who):
             lib, sigs, _ = libs[(who, name)]
-            tier = ([None] * n_cold + [nn]
-                    if len(sigs[fn]) == len(common) + n_cold + 2 else [])
-            _build.check(getattr(lib, fn)(*common, *tier, stream),
+            tier_args = []
+            if len(sigs[fn]) == len(common) + len(cold_names) + 2:
+                tier_args = ([tier.csr.dev_ptr(a) for a in cold_names]
+                             + [n_all] if tier is not None
+                             else [None] * len(cold_names) + [nn])
+            _build.check(getattr(lib, fn)(*common, *tier_args, stream),
                          f"time_samplers {who} {fn}")
         return call
 
     cases = {}
     frontier = seeds
     num = torch.full((), n, dtype=torch.int32, device=dev)
+    khop = ("indptr", "indices")
     for layer, k in enumerate(cs.FANOUT):
         b = frontier.shape[0]
         u = torch.rand((b, k), generator=gen, device=dev)
@@ -180,43 +215,45 @@ def main() -> int:
         um = torch.rand((b, m), generator=gen, device=dev)
         cm = torch.rand((b, m), generator=gen, device=dev)
         rows = int((frontier != torch.iinfo(torch.int32).max).sum())
-        where = f"layer {layer}: frontier {b} ({rows} valid) x K={k}"
+        n_cold = int(((frontier >= nn) & (frontier < n_all)).sum())
+        where = (f"layer {layer}: frontier {b} ({rows} valid, {n_cold} "
+                 f"cold) x K={k}")
         fr = frontier
-        outs = {who: torch.empty((b, k), dtype=torch.int32, device=dev)
-                for who in ("new", "parent")}
 
-        def add(label, name, fn, common_of, n_cold, outs=outs):
+        def add(label, name, fn, common_of, cold_names):
+            outs = {who: torch.empty((b, k), dtype=torch.int32, device=dev)
+                    for who in ("parent", "new")}
             cases[f"{label} {where}"] = (
-                {who: entry(name, fn, common_of(o), n_cold)
+                {who: entry(name, fn, common_of(o), cold_names)
                  for who, o in outs.items()}, outs)
 
-        base = (g.indptr.data_ptr(), g.indices.data_ptr(), fr.data_ptr())
+        base = (gr.indptr.data_ptr(), gr.indices.data_ptr(), fr.data_ptr())
         add("K2 khop", "sampling", "xg_sample_khop",
-            lambda o, u=u: base + (u.data_ptr(), o.data_ptr(), nn, b, k), 2)
-        # fresh outputs a case, so no case reads another's result
+            lambda o, u=u: base + (u.data_ptr(), o.data_ptr(), nn, b, k),
+            khop)
         add("K8a khop1", "sampling", "xg_sample_wr",
             lambda o, u=u: base + (u.data_ptr(), o.data_ptr(), nn, b, k, 1),
-            2, outs={who: torch.empty_like(o) for who, o in outs.items()})
+            khop)
         add("K8b-prefix", "weighted", "xg_sample_prefix",
-            lambda o, u=u: (g.indptr.data_ptr(), g.indices.data_ptr(),
-                            prefix.data_ptr(), coarse.data_ptr(),
-                            fr.data_ptr(), u.data_ptr(), o.data_ptr(), nn,
-                            b, k), 3,
-            outs={who: torch.empty_like(o) for who, o in outs.items()})
+            lambda o, u=u: (gr.indptr.data_ptr(), gr.indices.data_ptr(),
+                            gr.prob_prefix_table.data_ptr(),
+                            gr.coarse_cdf.data_ptr(), fr.data_ptr(),
+                            u.data_ptr(), o.data_ptr(), nn, b, k),
+            khop + ("prob_prefix_table",))
         for dedup, uu, cc in ((0, u, coin), (1, um, cm)):
             add(f"K8b-alias{' hash-dedup' if dedup else ''}", "weighted",
                 "xg_sample_alias",
                 lambda o, uu=uu, cc=cc, dedup=dedup: (
-                    g.indptr.data_ptr(), g.indices.data_ptr(),
-                    prob.data_ptr(), alias.data_ptr(), fr.data_ptr(),
-                    uu.data_ptr(), cc.data_ptr(), o.data_ptr(), nn, b, k,
-                    uu.shape[1], dedup), 4,
-                outs={who: torch.empty_like(o) for who, o in outs.items()})
+                    gr.indptr.data_ptr(), gr.indices.data_ptr(),
+                    gr.prob_table.data_ptr(), gr.alias_table.data_ptr(),
+                    fr.data_ptr(), uu.data_ptr(), cc.data_ptr(),
+                    o.data_ptr(), nn, b, k, uu.shape[1], dedup),
+                khop + ("prob_table", "alias_table"))
         if layer == len(cs.FANOUT) - 1:
             break
-        nbr = sample_khop0(g.indptr, g.indices, frontier, k, u=u)
+        nbr = sample_khop0(gr.indptr, gr.indices, frontier, k, u=u, tier=tier)
         out = unique_seeded_split(frontier, nbr.reshape(-1), num,
-                                  cs.CAPS[layer + 1], num_node=nn)
+                                  cs.CAPS[layer + 1], num_node=n_all)
         frontier, num = out[0], torch.clamp(out[1], max=cs.CAPS[layer + 1])
     walk = cs.WALK
     wf = seeds
@@ -231,32 +268,36 @@ def main() -> int:
         cases[f"K9 walk layer {layer}: frontier {b} x "
               f"W={walk['num_random_walk']} L={walk['random_walk_length']}"
               ] = ({who: entry("random_walk", "xg_random_walk", (
-                  g.indptr.data_ptr(), g.indices.data_ptr(), wf.data_ptr(),
+                  gr.indptr.data_ptr(), gr.indices.data_ptr(), wf.data_ptr(),
                   uw[0].data_ptr(), uw[1].data_ptr(), o[0].data_ptr(),
                   o[1].data_ptr(), nn, b, walk["num_random_walk"],
                   walk["random_walk_length"], cs.NUM_NEIGHBOR,
-                  float(walk["restart_prob"])), 2)
+                  float(walk["restart_prob"])), khop)
                   for who, o in outs.items()}, outs)
         if layer == 0:
-            neigh, _ = sample_random_walk(g.indptr, g.indices, seeds,
-                                          cs.NUM_NEIGHBOR, u=uw, **walk)
+            neigh, _ = sample_random_walk(gr.indptr, gr.indices, seeds,
+                                          cs.NUM_NEIGHBOR, u=uw, tier=tier,
+                                          **walk)
             wf = unique_seeded_split(
                 seeds, neigh.reshape(-1),
                 torch.full((), n, dtype=torch.int32, device=dev),
-                seeds.shape[0] * (cs.NUM_NEIGHBOR + 1), num_node=nn)[0]
+                seeds.shape[0] * (cs.NUM_NEIGHBOR + 1), num_node=n_all)[0]
 
     rows = {}
     for label, (calls, outs) in cases.items():
-        for who in ("new", "parent"):
+        for who in calls:
             calls[who](who)
         torch.cuda.synchronize()
-        a, b_ = outs["new"], outs["parent"]
-        same = (all(torch.equal(x, y) for x, y in zip(a, b_))
-                if isinstance(a, tuple) else torch.equal(a, b_))
-        if not same:
-            raise AssertionError(f"time_samplers: {label}: the new build's "
-                                 "output differs from the parent's")
-        got = {"new": [], "parent": []}
+        ref = outs["parent"]
+        for who, got in outs.items():
+            same = (all(torch.equal(x, y) for x, y in zip(got, ref))
+                    if isinstance(got, tuple) else torch.equal(got, ref))
+            if not same:
+                raise AssertionError(f"time_samplers: {label}: the {who} "
+                                     "build's output differs from the "
+                                     "parent's")
+        builds = list(calls)
+        got = {who: [] for who in builds}
         for who in ORDER:
             fn = (lambda who=who: calls[who](who))
             got[who].append({"ms": cs.time_ms(torch, fn),
@@ -264,15 +305,19 @@ def main() -> int:
                                                      host_ahead=True)})
         med = {who: statistics.median(r["device_ms"] for r in runs)
                for who, runs in got.items()}
-        rows[label] = dict(got, median_device_ms=med,
-                           new_over_parent=med["new"] / med["parent"])
-        print(f"[{card}] {label}: device ms median new {med['new']:.4f} "
-              f"parent {med['parent']:.4f} (new/parent "
-              f"{med['new'] / med['parent']:.4f}); new "
-              f"{[round(r['device_ms'], 4) for r in got['new']]}, parent "
-              f"{[round(r['device_ms'], 4) for r in got['parent']]}",
-              flush=True)
-    print(json.dumps({"card": card, "registers": regs, "samplers": rows}))
+        rows[label] = dict(got, median_device_ms=med, over_parent={
+            who: med[who] / med["parent"] for who in builds if who != "parent"})
+        print(f"[{card}] {label}: device ms median " + ", ".join(
+            f"{who} {med[who]:.4f}" for who in builds) + " (over parent: "
+            + ", ".join(f"{who} {med[who] / med['parent']:.4f}"
+                        for who in builds if who != "parent") + "); "
+            + "; ".join(f"{who} {[round(r['device_ms'], 4) for r in got[who]]}"
+                        for who in builds), flush=True)
+    if tier is not None:
+        tier.csr.close()
+    print(json.dumps({"card": card, "tiered": args.tiered,
+                      "registers": regs, "host_reads": probe,
+                      "samplers": rows}))
     return 0
 
 
