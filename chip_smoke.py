@@ -68,8 +68,8 @@ Phases, each fatal on failure:
    step, and every loss must be finite.  Each path prints its edges
    aggregated per second and its peak device memory.  GraphSAGE then runs
    one unpipelined epoch (per-stage device-inclusive times); every path
-   but graphsage_khop1 runs one profiled pipelined epoch (the device's busy
-   time per step, its time by kernel, and the elementwise divisions').
+   runs one profiled pipelined epoch (the device's busy time per step, its
+   time by kernel, and the elementwise divisions').
 7. Weighted sampling: the weighted products dataset through
    ``make_device_dataset(weighted=True)`` (timed; its prefix table and
    coarse CDF are 496 MB and 1.25 GB), its graph, features, labels and
@@ -198,17 +198,18 @@ Phases, each fatal on failure:
    32-byte sectors of host memory its cold rows read, over PCIe), the
    same sectors over the card's measured ceilings for scattered mapped
    host reads of 32 and 128 bytes (``tools/host_reads.py``, run first),
-   and for K2 and
-   K8b-prefix the distinct sectors their own design reads; a whole tiered
-   batch and a batch of each
-   alias form equal to the plain path's.  Then the paths
-   ``graphsage_tiered`` (warm-up, counted and profiled epochs, its busy
-   ms a step beside graphsage's, then ``device_loop`` with epochs 0 and 1
-   per-step losses and accuracies equal to its host loop's bit for bit),
-   ``graphsage_khop1_tiered``, ``graphsage_weighted_prefix_tiered`` and
-   ``pinsage_tiered`` (the first, third and fourth profiled too, each
-   beside its untiered path's busy ms), each through ``Engine.init``'s own
-   tiered topology with its launches asserted; and
+   its device ms again with L2 flushed before each launch, for K2 and
+   K8b-prefix the distinct sectors their own design reads, and for K8a and
+   K9 the requests to host memory that their warp design sends in the
+   model of ``tools/cold_requests.py``; a whole tiered batch and a
+   batch of each alias form equal to the plain path's.  Then the paths
+   ``graphsage_tiered``, ``graphsage_khop1_tiered``,
+   ``graphsage_weighted_prefix_tiered`` and ``pinsage_tiered`` (warm-up,
+   counted and profiled epochs, each busy ms a step beside its untiered
+   path's), each through ``Engine.init``'s own tiered topology with its
+   launches asserted; ``graphsage_tiered`` and ``pinsage_tiered`` again
+   under ``device_loop``, epochs 0 and 1 per-step losses and accuracies
+   equal to their host loop's bit for bit; and
    ``graphsage_auto_placement``: ``auto_placement`` at the largest of a
    few ``hbm_budget_gb`` at which the solver tiers the topology, the
    store tiered too and presampled through the tiered sampler, its epoch
@@ -264,6 +265,9 @@ PCIE_BYTES_PER_S = 16 * 32e9 * 128 / 130 / 8
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 RTOL = ATOL = 1e-5
+# written before each launch that time_flushed_ms times: five times the
+# H100's 50 MB L2
+L2_FLUSH_BYTES = 256 * 2**20
 # the tiered topology's share of the edges on the card (the reference's
 # large-graph setting, evaluation/large_graph --use-dist-graph 0.85)
 TIER_PCT = 0.85
@@ -314,6 +318,38 @@ def time_ms(torch, fn, reps: int = 10, host_ahead: bool = False) -> float:
             return start.elapsed_time(end) / reps
         if cycles > 2**34:
             raise RuntimeError("time_ms: the host never got ahead of the card")
+        cycles *= 4
+
+
+def time_flushed_ms(torch, fn, reps: int = 10) -> float:
+    """Median time of ``fn`` alone over ``reps`` launches, each after a
+    write of ``L2_FLUSH_BYTES`` that evicts the card's L2, by a pair of CUDA
+    events around each launch, queued while the card sleeps so that the
+    host is ahead.  Launches of one call back to back find in L2 what the
+    last one read (mapped host memory too, which goes through L2); these
+    read it anew, as a training step's fresh frontier does."""
+    scratch = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.int32,
+                          device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    events = [tuple(torch.cuda.Event(enable_timing=True) for _ in range(2))
+              for _ in range(reps)]
+    cycles = 20_000_000
+    while True:
+        torch.cuda._sleep(cycles)
+        for start, end in events:
+            scratch.fill_(1)
+            start.record()
+            fn()
+            end.record()
+        behind = events[0][0].query()
+        torch.cuda.synchronize()
+        if not behind:
+            times = sorted(a.elapsed_time(b) for a, b in events)
+            return (times[(reps - 1) // 2] + times[reps // 2]) / 2
+        if cycles > 2**34:
+            raise RuntimeError("time_flushed_ms: the host never got ahead "
+                               "of the card")
         cycles *= 4
 
 
@@ -706,7 +742,7 @@ def main() -> int:
     from xgnn_tpu_torch.store.placement import resolve_auto_placement
     from xgnn_tpu_torch.store.presample import static_exact_ranking
     from xgnn_tpu_torch.synthetic import build_alias_tables
-    from xgnn_tpu_torch.tools import host_reads
+    from xgnn_tpu_torch.tools import cold_requests, host_reads
     from xgnn_tpu_torch.synthetic_device import (
         alias_tables,
         edge_weights,
@@ -1753,6 +1789,19 @@ def main() -> int:
               "device events; device ms per step by kernel:", flush=True)
         for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:16]:
             print(f"{tag}   {us / 1e3 / steps:9.3f}  {name[:120]}", flush=True)
+        # each sampler instance's ms a launch, by its place among the
+        # instance's launches in a step (K9's two layers share one)
+        launches_of = collections.defaultdict(list)
+        for start, end, name in spans:
+            if "sample_" in name or "random_walk" in name:
+                launches_of[name].append(end - start)
+        for name, ts in sorted(launches_of.items()):
+            k = len(ts) // steps
+            at = ("" if k < 2 or len(ts) != k * steps else
+                  "; by place in a step " + " / ".join(
+                      f"{sum(ts[i::k]) / steps / 1e3:.4f}" for i in range(k)))
+            print(f"{tag}   sampler {sum(ts) / len(ts) / 1e3:.4f} ms a launch "
+                  f"over {len(ts)} launches{at}: {name[:100]}", flush=True)
         groups = (
             ("*fill*", lambda n: "fill" in n),
             ("*add*", lambda n: "add" in n),
@@ -1889,8 +1938,7 @@ def main() -> int:
                   flush=True)
         r1 = run_epochs(path, eng)
         rate_and_memory(path, r1, per_step)
-        if path == "mlp":
-            host_runs[path]["profiled"] = profiled_epoch(path, eng, 2)
+        host_runs[path]["profiled"] = profiled_epoch(path, eng, 2)
         del eng
 
     # ---- 7. weighted sampling ----------------------------------------------
@@ -3333,14 +3381,17 @@ def main() -> int:
 
     def tier_case(name, form, layer, frontier, k, fn, plain, whole, u,
                   coin, replaces, path, per_step, detail="", traffic=None,
-                  design=None):
+                  design=None, requests=None):
         """A tiered call held to its plain version (the cold rows read on
         the host) and to the untiered kernel over the whole CSR on the card
         at the same uniforms, exact; timed beside the untiered call, with
         its bound: the larger of its hot bytes over HBM and its cold
         sectors over PCIe; beside it those sectors over the measured
-        ceiling, and ``design()``: the sectors its design reads (the
-        bound's own where not given)."""
+        ceiling, ``design()``: the sectors its design reads (the bound's
+        own where not given), and ``requests()``: the requests to host
+        memory that its warp design sends in ``tools/cold_requests.py``'s
+        model, printed and not kept.  Its device ms is also timed with L2
+        flushed before each launch (``time_flushed_ms``)."""
         got, ref, full = fn(), plain(), whole()
         torch.cuda.synchronize()
         pairs = (list(zip(got, ref, full)) if isinstance(got, tuple)
@@ -3365,6 +3416,7 @@ def main() -> int:
                path=path, plain_reps=1,
                bound=max((hbm_ms, "bytes"), (pcie_ms, "bytes")))
         untiered_ms = time_ms(torch, whole, host_ahead=True)
+        flushed_ms = time_flushed_ms(torch, fn)
         design_sectors = sectors if design is None else design()
         kernels[-1].update(tiered=True, hot_rows=hot_rows,
                            cold_rows=cold_rows, cold_sectors=sectors,
@@ -3375,17 +3427,23 @@ def main() -> int:
                            design_ceiling_ms=design_sectors / read_rate * 1e3,
                            design_line_ceiling_ms=(design_sectors / line_rate
                                                    * 1e3),
-                           untiered_device_ms=untiered_ms)
+                           untiered_device_ms=untiered_ms,
+                           flushed_device_ms=flushed_ms)
         print(f"{tag} {name} (tiered) layer {layer}: {cold_rows} cold rows, "
               f"{sectors} sectors from host memory; "
-              f"{kernels[-1]['device_ms']:.4f} ms on the card alone against "
+              f"{kernels[-1]['device_ms']:.4f} ms on the card alone "
+              f"({flushed_ms:.4f} ms a launch with L2 flushed) against "
               f"the untiered call's {untiered_ms:.4f} ms at the same "
               f"frontier; bound HBM {hbm_ms:.4f} ms, PCIe {pcie_ms:.4f} ms; "
               f"at the measured ceilings {kernels[-1]['ceiling_ms']:.4f} ms "
               f"(32-byte reads) / {kernels[-1]['line_ceiling_ms']:.4f} ms "
               f"(128-byte); the design reads {design_sectors} sectors "
               f"({kernels[-1]['design_ceiling_ms']:.4f} / "
-              f"{kernels[-1]['design_line_ceiling_ms']:.4f} ms)", flush=True)
+              f"{kernels[-1]['design_line_ceiling_ms']:.4f} ms)"
+              + ("" if requests is None else
+                 f"; {requests()} requests to host memory in the model of "
+                 "tools/cold_requests.py"),
+              flush=True)
         return got
 
     # K2, K8a, K8b (three forms) at the three layers' frontiers of one
@@ -3426,7 +3484,9 @@ def main() -> int:
                                        tier=tier),
             lambda: sample_khop1(g.indptr, g.indices, f_, k, u=uk),
             uk, None, "xgnn_tpu/ops/sampling.py:130",
-            "graphsage_khop1_tiered", 3, ", khop1")
+            "graphsage_khop1_tiered", 3, ", khop1",
+            requests=lambda: cold_requests.wr_requests(
+                g.indptr, f_, uk, ncn, n_all))
         pa = (hot.indptr, hot.indices, hot.prob_prefix_table, f_, k, None,
               hot.n_max_deg, hot.coarse_cdf)
         tier_case(
@@ -3485,7 +3545,10 @@ def main() -> int:
             uw[0], uw[1], "xgnn_tpu/ops/random_walk.py:38",
             "pinsage_tiered", 2, ", walk W=4 L=3 (rows: hot and cold "
             "walker-steps)",
-            traffic=lambda wf=wf, uw=uw: walk_tier_traffic(wf, uw))
+            traffic=lambda wf=wf, uw=uw: walk_tier_traffic(wf, uw),
+            requests=lambda wf=wf, uw=uw: cold_requests.walk_requests(
+                g.indptr, g.indices, wf, *uw, WALK["restart_prob"], ncn,
+                n_all))
         if layer == 0:
             f1 = unique_seeded_split(
                 seeds, got[0].reshape(-1),
@@ -3567,9 +3630,7 @@ def main() -> int:
         per_step = edges_of(eng.sampler) if per_step is None else per_step
         r = run_epochs(path, eng)
         rate_and_memory(path, r, per_step)
-        prof = (profiled_epoch(path, eng, 2) or {}) if path in (
-            "graphsage_tiered", "graphsage_weighted_prefix_tiered",
-            "pinsage_tiered") else {}
+        prof = profiled_epoch(path, eng, 2) or {}
         ref_path = path.replace("_tiered", "")
         ref = host_runs[ref_path]
         row = {"epoch_s": r["time"], "untiered_epoch_s": ref["time"],
@@ -3584,34 +3645,38 @@ def main() -> int:
               f"{row['busy_ms_per_step']} ms a step against "
               f"{row['untiered_busy_ms_per_step']}", flush=True)
         del eng
-    # device_loop on the tiered graphsage: the cold reads replay inside the
-    # captured step; epochs 0 and 1 equal the host loop's bit for bit
-    torch.cuda.empty_cache()
-    deng = Engine(ds, dataclasses.replace(
-        tcfg, device_loop=True)).init()
-    times = []
-    for epoch in (0, 1):
-        _build.LAUNCHES.reset()
-        r = deng.train_epoch(epoch)
-        torch.cuda.synchronize()
-        times.append(r["time"])
-        for key in ("loss", "acc"):
-            a = deng.history[epoch][key]
-            b = host_runs["graphsage_tiered"]["hist"][epoch][key]
-            if not np.all(np.isfinite(a)) or not np.array_equal(a, b):
-                raise AssertionError(
-                    f"graphsage_tiered device_loop epoch {epoch}: {key} not "
-                    f"bit-equal to the host loop's: {list(a)} against "
-                    f"{list(b)}")
-    if deng._fused is None:
-        raise AssertionError("graphsage_tiered: device_loop did not capture")
-    tier_rows_out["paths"]["graphsage_tiered"].update(
-        device_loop_epoch_s=times[1], device_loop_bit_equal=True)
-    print(f"{tag} graphsage_tiered device_loop: epochs 0 and 1 per-step "
-          f"losses and accuracies equal the host loop's bit for bit; "
-          f"counted epoch {times[1]:.3f} s against the host loop's "
-          f"{host_runs['graphsage_tiered']['time']:.3f} s", flush=True)
-    del deng
+    # device_loop on the tiered graphsage and pinsage: the cold reads replay
+    # inside the captured step; epochs 0 and 1 equal the host loop's bit
+    # for bit
+    for path, base in (("graphsage_tiered", cfg), ("pinsage_tiered",
+                                                   pin_cfg)):
+        torch.cuda.empty_cache()
+        deng = Engine(ds, dataclasses.replace(
+            base, use_dist_graph=True, dist_graph_percentage=TIER_PCT,
+            device_loop=True)).init()
+        times = []
+        for epoch in (0, 1):
+            _build.LAUNCHES.reset()
+            r = deng.train_epoch(epoch)
+            torch.cuda.synchronize()
+            times.append(r["time"])
+            for key in ("loss", "acc"):
+                a = deng.history[epoch][key]
+                b = host_runs[path]["hist"][epoch][key]
+                if not np.all(np.isfinite(a)) or not np.array_equal(a, b):
+                    raise AssertionError(
+                        f"{path} device_loop epoch {epoch}: {key} not "
+                        f"bit-equal to the host loop's: {list(a)} against "
+                        f"{list(b)}")
+        if deng._fused is None:
+            raise AssertionError(f"{path}: device_loop did not capture")
+        tier_rows_out["paths"][path].update(
+            device_loop_epoch_s=times[1], device_loop_bit_equal=True)
+        print(f"{tag} {path} device_loop: epochs 0 and 1 per-step losses "
+              f"and accuracies equal the host loop's bit for bit; counted "
+              f"epoch {times[1]:.3f} s against the host loop's "
+              f"{host_runs[path]['time']:.3f} s", flush=True)
+        del deng
     # auto_placement: the largest budget of these at which the solver
     # tiers the topology; the store tiers too, presampled through the
     # tiered sampler, with its out-of-sample hit estimate

@@ -2357,9 +2357,10 @@ def _tiered_frontier(g, tier, n, seed, layout="mixed"):
     return f.astype(np.int32)
 
 
-def _tiered_cases(dev, g, hot, tier, frontier, k, seed):
+def _tiered_cases(dev, g, hot, tier, frontier, k, seed, walk_shape=(4, 3)):
     """Each tiered wrapper as ``fn(tier, graph)``, with its plain version
-    on the tier, at the same uniforms."""
+    on the tier, at the same uniforms (the walk's W and L
+    ``walk_shape``)."""
     from xgnn_tpu_torch.ops import random_walk as rw
     from xgnn_tpu_torch.ops import sampling as s
 
@@ -2370,7 +2371,7 @@ def _tiered_cases(dev, g, hot, tier, frontier, k, seed):
     m = s.HASH_DEDUP_ROUNDS * k
     um = torch.rand((b, m), generator=gen, device=dev)
     cm = torch.rand((b, m), generator=gen, device=dev)
-    w, l = 4, 3
+    w, l = walk_shape
     uw = rw.draw_uniforms(w, l, b, gen, dev)
     walk = dict(num_random_walk=w, random_walk_length=l, restart_prob=0.5)
     kw = min(k, w * l)
@@ -2468,6 +2469,93 @@ def test_tiered_layouts_equal_plain_and_untiered(dev, layout, k):
     tier.csr.close()
 
 
+def _cold_ids_of(g, tier, n, rng, degree, m):
+    """m cold ids of the given degree (some must exist)."""
+    deg = (g.indptr[1:] - g.indptr[:-1]).cpu().numpy()
+    ids = np.arange(tier.num_cache_node, n)
+    ids = ids[deg[ids] == degree]
+    assert ids.size, degree
+    return rng.choice(ids, m)
+
+
+@pytest.mark.parametrize("k", [5, 10, 15, 7, 33])
+def test_tiered_wr_cold_rows_equal_plain_and_untiered(dev, k):
+    """K8a (uniform_wr and khop1) on the cold rows its warp routine meets:
+    cold rows of degree 0, 1 and K - 1; rows where every draw repeats (a
+    row of degree 1, and cold rows whose K uniforms are equal); a warp
+    whose 32 rows are all cold and a whole cold block (at K = 15 staged,
+    at K = 7 and 33 the unstaged kernel); EMPTY and out-of-range ids.
+    Equal to the plain version and to the untiered kernel over the whole
+    CSR at the same uniforms."""
+    from xgnn_tpu_torch.ops import sampling as s
+
+    g, hot, tier, n = _layout_graph(dev)
+    ncn = tier.num_cache_node
+    rng = np.random.default_rng(k)
+    f = rng.integers(0, ncn, 256 * 4 + 19)
+    f[:32] = rng.integers(ncn, n, 32)  # a cold warp
+    f[256:512] = rng.integers(ncn, n, 256)  # a cold block
+    for at, d in ((600, 0), (606, 1), (612, k - 1)):
+        f[at:at + 6] = _cold_ids_of(g, tier, n, rng, d, 6)
+    f[700:720] = rng.integers(ncn, n, 20)
+    f[[3, 40, 650, 1030]] = [EMPTY, -1, n, n + 7]
+    frontier = torch.from_numpy(f.astype(np.int32)).to(dev)
+    u = torch.rand((f.size, k), generator=_gen(dev, k), device=dev)
+    u[700:720] = u[700:720, :1]  # every draw of these rows repeats
+    for fn, plain in ((s.sample_uniform_wr, s.sample_uniform_wr_plain),
+                      (s.sample_khop1, s.sample_khop1_plain)):
+        got = fn(hot.indptr, hot.indices, frontier, k, u=u, tier=tier)
+        ref = plain(hot.indptr, hot.indices, frontier, k, u=u, tier=tier)
+        whole = fn(g.indptr, g.indices, frontier, k, u=u)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref), fn.__name__
+        assert torch.equal(got, whole), fn.__name__
+    tier.csr.close()
+
+
+@pytest.mark.parametrize("w,l,restart", [(4, 3, 0.0), (4, 3, 1.0),
+                                         (4, 3, 0.5), (3, 5, 0.5),
+                                         (1, 2, 0.5), (8, 8, 0.3)])
+def test_tiered_walk_cold_seeds_equal_plain_and_untiered(dev, w, l, restart):
+    """K9 on the cold walks its warp design meets: restart 0 and 1, a
+    frontier that repeats one cold seed across warps, cold seeds of degree
+    0, cold seeds whose neighbours are all cold (walks that stay on cold
+    nodes other than the seed), a run of cold seeds, EMPTY and
+    out-of-range ids, at the bench's (W, L) = (4, 3) and at run-time ones
+    (W = 3: a seed's walkers across two warps).  Equal to the plain version
+    and to the untiered walk over the whole CSR at the same uniforms."""
+    from xgnn_tpu_torch.ops import random_walk as rw
+
+    g, hot, tier, n = _layout_graph(dev)
+    ncn = tier.num_cache_node
+    indptr, indices = g.indptr.cpu().numpy(), g.indices.cpu().numpy()
+    inner = [v for v in range(ncn, n) if indptr[v + 1] > indptr[v]
+             and (indices[indptr[v]:indptr[v + 1]] >= ncn).all()]
+    assert len(inner) >= 8
+    rng = np.random.default_rng(w * 100 + l)
+    f = rng.integers(0, n, 700)
+    f[:70] = rng.integers(ncn, n)  # one cold seed again and again
+    f[100:106] = _cold_ids_of(g, tier, n, rng, 0, 6)
+    f[110:150] = rng.choice(inner, 40)
+    f[200:300] = rng.integers(ncn, n, 100)
+    f[[7, 90, 410, 699]] = [EMPTY, -2, n, n + 3]
+    frontier = torch.from_numpy(f.astype(np.int32)).to(dev)
+    uw = rw.draw_uniforms(w, l, f.size, _gen(dev, w + l), dev)
+    kw = min(5, w * l)
+    walk = dict(num_random_walk=w, random_walk_length=l,
+                restart_prob=restart)
+    got = rw.sample_random_walk(hot.indptr, hot.indices, frontier, kw, u=uw,
+                                tier=tier, **walk)
+    ref = rw.sample_random_walk_plain(hot.indptr, hot.indices, frontier, kw,
+                                      u=uw, tier=tier, **walk)
+    whole = rw.sample_random_walk(g.indptr, g.indices, frontier, kw, u=uw,
+                                  **walk)
+    torch.cuda.synchronize()
+    for a, b, c in zip(got, ref, whole):
+        assert torch.equal(a, b) and torch.equal(a, c)
+    tier.csr.close()
+
+
 def test_tiered_kernels_refuse_an_unmapped_tier(dev):
     """A tier whose host CSR is not mapped for the card raises, and so
     does one whose hot prefix is not the device graph's."""
@@ -2489,28 +2577,33 @@ def _tiered_replayed_under_capture(dev):
     g, hot, tier, n = _tiered_graph(dev)
     f0 = torch.from_numpy(_tiered_frontier(g, tier, n, 1)).to(dev)
     frontier = f0.clone()
-    k = 10
-    fns, plains = _tiered_cases(dev, g, hot, tier, frontier, k, 3)
-    stream = torch.cuda.Stream(dev)
-    stream.wait_stream(torch.cuda.current_stream(dev))
-    with torch.cuda.stream(stream):
-        for fn in fns.values():  # every library loaded before the capture
-            fn(tier, hot)
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph, stream=stream):
-        outs = {name: fn(tier, hot) for name, fn in fns.items()}
-    for seed in (2, 5, 9):
-        frontier.copy_(torch.from_numpy(
-            _tiered_frontier(g, tier, n, seed)).to(dev))
-        graph.replay()
+    # K8a's staged and unstaged kernels; the walk at (4, 3) and at a
+    # run-time (W, L) whose seeds' walkers cross warps
+    for k, walk_shape in ((10, (4, 3)), (33, (3, 5))):
+        fns, plains = _tiered_cases(dev, g, hot, tier, frontier, k, 3,
+                                    walk_shape)
+        stream = torch.cuda.Stream(dev)
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(stream):
+            for fn in fns.values():  # every library loaded before capture
+                fn(tier, hot)
         torch.cuda.synchronize()
-        for name, out in outs.items():
-            ref = plains[name]()
-            if name == "random_walk":
-                assert all(torch.equal(a, b) for a, b in zip(out, ref)), name
-            else:
-                assert torch.equal(out, ref), name
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=stream):
+            outs = {name: fn(tier, hot) for name, fn in fns.items()}
+        for seed in (2, 5, 9):
+            frontier.copy_(torch.from_numpy(
+                _tiered_frontier(g, tier, n, seed)).to(dev))
+            graph.replay()
+            torch.cuda.synchronize()
+            for name, out in outs.items():
+                ref = plains[name]()
+                if name == "random_walk":
+                    assert all(torch.equal(a, b)
+                               for a, b in zip(out, ref)), name
+                else:
+                    assert torch.equal(out, ref), name
+        frontier.copy_(f0)
 
 
 def test_tiered_kernels_replayed_under_capture(dev):

@@ -551,7 +551,33 @@ def test_tiered_device_loop_losses_equal_host_loop(learnable_ds):
     np.testing.assert_array_equal(losses[1], losses[0])
 
 
-@pytest.mark.parametrize("policy", ["degree", "heuristic", "pre_sample",
+def test_tiered_pinsage_device_loop_losses_equal_host_loop(learnable_ds):
+    """PinSAGE on the tiered topology under ``device_loop``: the walk's
+    cold steps replay inside the captured step, and two epochs' per-step
+    losses and accuracies equal the host loop's."""
+    from xgnn_tpu_torch import Engine
+
+    hist = []
+    for device_loop in (False, True):
+        cfg = _tiered_cfg(model="pinsage", sample_type="random_walk",
+                          num_random_walk=4, random_walk_length=3,
+                          random_walk_restart_prob=0.5, num_neighbor=4,
+                          device_loop=device_loop, dropout=0.5,
+                          pipeline=True)
+        engine = Engine(Dataset.from_arrays(learnable_ds), cfg,
+                        device="cpu").init()
+        for epoch in (0, 1):
+            engine.train_epoch(epoch)
+        assert (engine._fused is not None) == device_loop
+        hist.append([(engine.history[e]["loss"], engine.history[e]["acc"])
+                     for e in (0, 1)])
+    for (loss, acc), (ref_loss, ref_acc) in zip(hist[1], hist[0]):
+        assert np.all(np.isfinite(loss))
+        np.testing.assert_array_equal(loss, ref_loss)
+        np.testing.assert_array_equal(acc, ref_acc)
+
+
+@pytest.mark.parametrize("policy",["degree", "heuristic", "pre_sample",
                                     "degree_hop", "presample_static",
                                     "fake_optimal", "dynamic_cache",
                                     "random"])

@@ -52,9 +52,25 @@
 // The tiered topology (tier.cuh): a walker standing on a cold node takes
 // its step from the whole graph's CSR in mapped host memory, in the same
 // launch, with the same arithmetic on the same uniform: the walk equals
-// the untiered walk over the whole CSR.  A cold step is two dependent PCIe
-// round trips.  The kernel is built twice, kTiered false (the untiered
-// launch, no cold branch) and true.  Replaces, for the cold steps:
+// the untiered walk over the whole CSR.  What bounds it: the requests that
+// the link and the host answer (tools/host_reads.py), and at layer 0, less
+// than a wave, the chain of dependent round trips.  Design (walk_tiered):
+// each seed's first edge and degree are read once, before the walk, and
+// kept in its walkers' registers, so a walker standing on its seed (all of
+// step 0 and, at restart 0.5, half of the later steps) reads no indptr, hot
+// or cold, and a cold step from the seed is one round trip; a cold seed's
+// pair is read by lane pairs, asked for by the seed's first lane in the
+// warp.  At a step from a cold node other than the seed, a ballot compacts
+// the warp's walkers there and lane pairs read their pairs in one
+// instruction; then each walker reads its index.  The block is padded to
+// whole warps for the ballots.  At PinSAGE's two layers at 0.85 (NVIDIA
+// H100 80GB HBM3, 700.00 W, tools/time_samplers.py --tiered, 226M
+// scattered 32-byte mapped reads a second; PERF.md section 6) it takes
+// 0.0737 / 0.4300 device ms against 0.1244 / 0.7293 for a walker reading
+// its node's indptr pair in
+// two loads at every step, its seed's again at each restart.  The kernel is
+// built twice, kTiered false (the untiered launch, no cold branch) and
+// true.  Replaces, for the cold steps:
 // xgnn_tpu/ops/random_walk.py:83-103, each step's host callback
 // (xgnn_tpu/parallel/ggms.py, cold_sample_callback) over the walkers that
 // stand on cold nodes.
@@ -77,26 +93,108 @@ __device__ __forceinline__ int32_t step_offset(float u, int32_t deg) {
   return off < deg - 1 ? off : deg - 1;
 }
 
-// one uniform step from v; EMPTY where v has no neighbour
-template <bool kTiered>
+// one uniform step of the untiered walk from v; EMPTY where v has no
+// neighbour
 __device__ __forceinline__ int32_t walk_step(const int32_t* __restrict__ indptr,
                                              const int32_t* __restrict__ indices,
-                                             const Cold& cold,
                                              int64_t num_node, int32_t v,
                                              float u) {
-  if (v < 0) return kEmpty;
-  if ((int64_t)v < num_node) {
-    const int32_t start = __ldg(indptr + v);
-    const int32_t deg = __ldg(indptr + v + 1) - start;
-    if (deg <= 0) return kEmpty;
-    return __ldg(indices + ((int64_t)start + step_offset(u, deg)));
-  }
-  if (!kTiered || !cold_id(cold, v, num_node)) return kEmpty;
-  int64_t start;
-  int32_t deg;
-  cold_row(cold, v, &start, &deg);
+  if (v < 0 || (int64_t)v >= num_node) return kEmpty;
+  const int32_t start = __ldg(indptr + v);
+  const int32_t deg = __ldg(indptr + v + 1) - start;
   if (deg <= 0) return kEmpty;
-  return __ldcg(cold.indices + (start + step_offset(u, deg)));
+  return __ldg(indices + ((int64_t)start + step_offset(u, deg)));
+}
+
+// The pair of cold node v for every lane of the warp that asks (every
+// lane calls it): a ballot compacts the askers and lane pairs read their
+// pairs (cold_pairs); the lane gets the pair that lane `me` asked for, and
+// returns false, reading nothing, when no lane asks.
+__device__ __forceinline__ bool warp_pairs(const Cold& cold, bool ask,
+                                           int32_t v, int me,
+                                           long long* start, int32_t* deg) {
+  constexpr unsigned kFull = 0xffffffffu;
+  const int lane = threadIdx.x & 31;
+  const unsigned mask = __ballot_sync(kFull, ask);
+  if (mask == 0) return false;
+  const int n = __popc(mask);
+  cold_pairs(cold, __shfl_sync(kFull, v, nth_bit(mask, lane < n ? lane : 0)),
+             n, start, deg);
+  const int r = __popc(mask & ((1u << me) - 1u));
+  *start = __shfl_sync(kFull, *start, r);
+  *deg = __shfl_sync(kFull, *deg, r);
+  return true;
+}
+
+// The walk of the tiered build (every lane of the warp calls it; the block
+// is whole warps, so a ballot holds all 32 lanes): walker w of seed takes
+// nl steps, its visits into vis where active.  The seed's first edge and
+// degree are read once, before the walk, and kept: a walker that stands on
+// its seed reads no indptr, hot or cold, and a cold seed's pair is read by
+// the warp's lane pairs, asked for by the seed's first lane in the warp.
+// A step from a cold node that is not the seed: a ballot compacts the
+// warp's walkers there, lane pairs read their pairs in one instruction,
+// and each walker reads its index, hot or cold, in the same warp
+// instruction as the others.  The arithmetic and the uniforms are the
+// untiered walk's, so the walk equals it over the whole CSR.
+template <int kL>
+__device__ __forceinline__ void walk_tiered(
+    const int32_t* __restrict__ indptr, const int32_t* __restrict__ indices,
+    const float* __restrict__ u_step, const float* __restrict__ u_restart,
+    const Cold& cold, int64_t num_node, int64_t num_rows, int64_t row,
+    int nw, int w, int nl, float restart_prob, bool active, int32_t seed,
+    int32_t* vis) {
+  const int lane = threadIdx.x & 31;
+  const bool seed_cold = seed >= 0 && cold_id(cold, seed, num_node);
+  long long seed_start = 0, start;
+  int32_t seed_deg = 0, deg;
+  if (seed >= 0 && (int64_t)seed < num_node) {
+    const int32_t st = __ldg(indptr + seed);
+    seed_start = st;
+    seed_deg = __ldg(indptr + seed + 1) - st;
+  }
+  const int lead = lane - (w < lane ? w : lane);  // the seed's first lane
+  if (warp_pairs(cold, seed_cold && lead == lane, seed, lead, &start, &deg) &&
+      seed_cold) {
+    seed_start = start;
+    seed_deg = deg;
+  }
+  int32_t cur = seed;
+#pragma unroll
+  for (int s = 0; s < (kL > 0 ? kL : nl); ++s) {
+    const int64_t at = ((int64_t)s * num_rows + row) * nw + w;
+    float u = 0.0f;
+    if (active) {
+      if (s > 0 && __ldg(u_restart + at) < restart_prob) cur = seed;
+      u = __ldg(u_step + at);
+    }
+    bool on_cold = seed_cold;
+    start = seed_start;
+    deg = seed_deg;
+    if (cur != seed) {
+      on_cold = cur >= 0 && cold_id(cold, cur, num_node);
+      deg = 0;
+      if (cur >= 0 && (int64_t)cur < num_node) {
+        const int32_t st = __ldg(indptr + cur);
+        start = st;
+        deg = __ldg(indptr + cur + 1) - st;
+      }
+    }
+    const bool ask = cur != seed && on_cold;
+    long long cs;
+    int32_t cd;
+    if (warp_pairs(cold, ask, cur, lane, &cs, &cd) && ask) {
+      start = cs;
+      deg = cd;
+    }
+    int32_t nxt = kEmpty;
+    if (deg > 0) {
+      const int64_t e = start + step_offset(u, deg);
+      nxt = on_cold ? __ldcg(cold.indices + e) : __ldg(indices + e);
+    }
+    if (active) vis[w * nl + s] = nxt == seed ? kEmpty : nxt;
+    cur = nxt == kEmpty ? seed : nxt;
+  }
 }
 
 // kW, kL > 0: built for those constants; 0: run-time w and l.  A block
@@ -122,7 +220,12 @@ random_walk_kernel(const int32_t* __restrict__ indptr,
   int32_t* vis = smem + local * m;
   int32_t* cnt = smem + rows * m + local * m;
   int32_t seed = kEmpty;
-  if (active) {
+  if constexpr (kTiered) {
+    seed = active ? __ldg(frontier + row) : kEmpty;
+    walk_tiered<kL>(indptr, indices, u_step, u_restart, cold, num_node,
+                    num_rows, row, nw, w, nl, restart_prob, active, seed,
+                    vis);
+  } else if (active) {
     seed = __ldg(frontier + row);
     int32_t cur = seed;
 #pragma unroll
@@ -130,8 +233,7 @@ random_walk_kernel(const int32_t* __restrict__ indptr,
       const int64_t at = ((int64_t)s * num_rows + row) * nw + w;
       if (s > 0 && __ldg(u_restart + at) < restart_prob) cur = seed;
       const int32_t nxt =
-          walk_step<kTiered>(indptr, indices, cold, num_node, cur,
-                             __ldg(u_step + at));
+          walk_step(indptr, indices, num_node, cur, __ldg(u_step + at));
       vis[w * nl + s] = nxt == seed ? kEmpty : nxt;
       cur = nxt == kEmpty ? seed : nxt;
     }
@@ -189,7 +291,10 @@ void launch_walk(const int32_t* ip, const int32_t* ix, const int32_t* fr,
   int rows = kWalkThreads / num_walk;
   if (rows * m > 2048) rows = 2048 / m;
   const unsigned blocks = (unsigned)((num_rows + rows - 1) / rows);
-  const unsigned threads = (unsigned)(rows * num_walk);
+  // tiered: whole warps, for the cold steps' ballots
+  const unsigned threads =
+      kTiered ? (unsigned)((rows * num_walk + 31) / 32 * 32)
+              : (unsigned)(rows * num_walk);
   const size_t smem = (size_t)2 * rows * m * sizeof(int32_t);
   if (num_walk == 4 && walk_len == 3) {
     random_walk_kernel<4, 3, kTiered><<<blocks, threads, smem, s>>>(

@@ -95,10 +95,23 @@
 // and that launch reading each cold row of at most 64 entries whole before
 // selecting its picks (2.02-2.18).
 //
-// K8a keeps PR 17's cold branch: a thread with a cold row reads its indptr
-// pair and then its picks itself, stalling its warp on the two round trips
-// (ROADMAP section 2, **Tiered kernels**).  Each kernel that reads a tier is
-// built twice, kTiered false (the untiered launch, no cold branch) and true.
+// K8a's cold rows take K2's warp shape (cold_rows_wr): after the hot rows,
+// a ballot compacts the warp's cold rows, lane pairs read their indptr
+// pairs in one instruction (cold_pairs, tier.cuh), and a lane a draw reads
+// the picks, each lane computing its own offset from u and the degree
+// shuffled from the row's lane: the draws are independent, so no lane
+// resolves a row first and the warp's 32 rows go in one run at any K.
+// khop1 then sorts each cold row on its own lane (in registers for K = 5,
+// 10 and 15).  At the main path's three frontiers at 0.85 (NVIDIA H100 80GB
+// HBM3, 700.00 W, tools/time_samplers.py --tiered, on a host answering
+// 226M scattered 32-byte mapped reads a second; PERF.md section 6) khop1
+// takes 0.0313 / 0.1704 / 1.5556 device ms at layers 0 / 1 / 2 against
+// 0.1067 / 1.1455 / 3.3607 for a thread a cold row reading its pair and
+// then its picks itself (each read a request of its own, its warp stalled
+// on both round trips); layer 2 level with K2's 1.6196 over the same cold
+// rows.  Each
+// kernel that reads a tier is built twice, kTiered false (the untiered
+// launch, no cold branch) and true.
 //
 // Replaces, for the cold rows: xgnn_tpu/parallel/ggms.py,
 // HostColdSampler (lines 264-453) driven by cold_sample_callback
@@ -120,40 +133,31 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kColdPicks = 512;  // a warp's cold picks at a time
 constexpr int kColdBatch = 8;    // a lane's cold pick reads in flight
 
-// A frontier row: its first edge, its degree (0 for EMPTY and any id
-// outside the graph), and whether it lies in host memory
+// A frontier row on the card: its first edge and its degree (0 for EMPTY
+// and any id outside the hot rows; a tiered call's cold rows read so here,
+// and their warps take them after)
 struct Row {
   int64_t start;
   int32_t deg;
-  bool cold;
 };
 
-template <bool kTiered>
 __device__ __forceinline__ Row row_meta(const int32_t* __restrict__ indptr,
                                         const int32_t* __restrict__ frontier,
-                                        int64_t row, int64_t num_node,
-                                        const Cold& cold) {
+                                        int64_t row, int64_t num_node) {
   const int32_t v = __ldg(frontier + row);
-  Row r{0, 0, false};
+  Row r{0, 0};
   if (v >= 0 && (int64_t)v < num_node) {
     const int32_t start = __ldg(indptr + v);
     r.start = start;
     r.deg = __ldg(indptr + v + 1) - start;
-  } else if (kTiered && v >= 0 && cold_id(cold, v, num_node)) {
-    cold_row(cold, v, &r.start, &r.deg);
-    r.cold = true;
   }
   return r;
 }
 
-// index off of a row, from the card's indices or the host's
-template <bool kTiered>
+// index off of a row
 __device__ __forceinline__ int32_t edge(const int32_t* __restrict__ indices,
-                                        const Cold& cold, const Row& r,
-                                        int32_t off) {
-  return rd<kTiered>((kTiered && r.cold ? cold.indices : indices) +
-                         (r.start + off),
-                     r.cold);
+                                        const Row& r, int32_t off) {
+  return __ldg(indices + (r.start + off));
 }
 
 // the draw of step j: t in [j, deg)
@@ -162,21 +166,6 @@ __device__ __forceinline__ int32_t draw(float u, int32_t deg, int j) {
   const float x = __fmul_rn(u, __int2float_rn(span));
   const int32_t d = __float2int_rz(floorf(x));
   return j + (d < span - 1 ? d : span - 1);
-}
-
-// the position of the (r + 1)-th set bit of mask (r < popc(mask))
-__device__ __forceinline__ int nth_bit(unsigned mask, int r) {
-  int pos = 0;
-#pragma unroll
-  for (int w = 16; w > 0; w >>= 1) {
-    const int c = __popc(mask & ((1u << w) - 1u));
-    if (r >= c) {
-      r -= c;
-      mask >>= w;
-      pos += w;
-    }
-  }
-  return pos;
 }
 
 // K2's cold rows among the frontier rows [row0, row0 + n), by one warp
@@ -200,21 +189,9 @@ __device__ __forceinline__ void cold_rows(
   if (nc == 0) return;
   // lane r < nc: the run's r-th cold row, its index ri in the run
   const int ri = nth_bit(mask, lane < nc ? lane : 0);
-  const int32_t cv = __shfl_sync(kFull, v, ri);
-  long long e[2];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int r = 16 * h + (lane >> 1);
-    const int32_t vr = __shfl_sync(kFull, cv, r);
-    e[h] = r < nc ? __ldcg(cold.indptr + vr + (lane & 1)) : 0;
-  }
-  const int src = (2 * lane) & 31;
-  const long long s0 = __shfl_sync(kFull, e[0], src);
-  const long long t0 = __shfl_sync(kFull, e[0], src + 1);
-  const long long s1 = __shfl_sync(kFull, e[1], src);
-  const long long t1 = __shfl_sync(kFull, e[1], src + 1);
-  const long long start = lane < 16 ? s0 : s1;
-  const int32_t deg = lane < nc ? (int32_t)((lane < 16 ? t0 : t1) - start) : 0;
+  long long start;
+  int32_t deg;
+  cold_pairs(cold, __shfl_sync(kFull, v, ri), nc, &start, &deg);
   const int live = deg <= 0 ? 0 : (deg < K ? deg : K);
   if (lane < nc) {
     const float* urow = u + (row0 + ri) * K;
@@ -309,9 +286,9 @@ sample_khop_staged_kernel(const int32_t* __restrict__ indptr,
   const int words = (int)rows * kK;
   // a cold row (kTiered) reads as an id outside the graph here, its
   // picks EMPTY until the warp's cold rows overwrite them below
-  Row r{0, 0, false};
+  Row r{0, 0};
   if (row < num_rows)
-    r = row_meta<false>(indptr, frontier, row, num_node, cold);
+    r = row_meta(indptr, frontier, row, num_node);
   const int32_t deg = r.deg;
   copy_tile(tile, reinterpret_cast<const uint32_t*>(u) + row0 * kK, words,
             vec);
@@ -346,7 +323,7 @@ sample_khop_staged_kernel(const int32_t* __restrict__ indptr,
     // every offset is known: the index loads go out back to back
 #pragma unroll
     for (int j = 0; j < kK; ++j)
-      pick[j] = j < live ? edge<false>(indices, cold, r, pick[j]) : kEmpty;
+      pick[j] = j < live ? edge(indices, r, pick[j]) : kEmpty;
 #pragma unroll
     for (int j = 0; j < kK; ++j) trow[j] = (uint32_t)pick[j];
   }
@@ -379,7 +356,7 @@ __global__ void sample_khop_kernel(const int32_t* __restrict__ indptr,
   const int64_t row = (int64_t)blockIdx.x * kThreads + threadIdx.x;
   if (!kTiered && row >= num_rows) return;
   if (row < num_rows) {
-    const Row r = row_meta<false>(indptr, frontier, row, num_node, cold);
+    const Row r = row_meta(indptr, frontier, row, num_node);
     const int32_t deg = r.deg;
     const int live = deg <= 0 ? 0 : (deg < fanout ? deg : fanout);
     const float* urow = u + row * fanout;
@@ -394,7 +371,7 @@ __global__ void sample_khop_kernel(const int32_t* __restrict__ indptr,
       }
       pos[j] = t;
       val[j] = a_j;
-      orow[j] = edge<false>(indices, cold, r, pick);
+      orow[j] = edge(indices, r, pick);
     }
     for (int j = live; j < fanout; ++j) orow[j] = kEmpty;
   }
@@ -444,6 +421,91 @@ __device__ __forceinline__ void sort_dedup(int32_t (&v)[kK]) {
   }
 }
 
+// sort fanout values ascending (insertion sort, v in local memory) into
+// orow, with EMPTY over every value equal to the one before it
+__device__ __forceinline__ void sort_dedup_into(int32_t* v, int fanout,
+                                                int32_t* orow) {
+  for (int i = 1; i < fanout; ++i) {
+    const int32_t x = v[i];
+    int j = i - 1;
+    for (; j >= 0 && v[j] > x; --j) v[j + 1] = v[j];
+    v[j + 1] = x;
+  }
+  for (int j = fanout - 1; j > 0; --j)
+    if (v[j] == v[j - 1]) orow[j] = kEmpty; else orow[j] = v[j];
+  orow[0] = v[0];
+}
+
+// K8a's cold rows among the warp's frontier rows [row0, row0 + n) (every
+// lane calls it; n <= 32): their draws into o + i * K, i a row's index in
+// the warp (o in device or shared memory), each row sorted with EMPTY over
+// its repeats when kDedup.  A ballot compacts the cold rows and lane pairs
+// read their indptr pairs (cold_pairs); then a lane a pick: pick p is draw
+// p % K of cold row p / K, its offset draw_wr(u, deg) from the row's u and
+// the degree shuffled from lane p / K, kColdBatch reads a lane in flight
+// and a row's draws in neighbouring lanes, so draws in one sector share a
+// request (a row of degree d < K repeats offsets at no cost).  The draws
+// are independent: no lane resolves a row first (K2's records), and no
+// buffer of offsets splits a warp's rows into runs.  Then the lane whose
+// row is cold sorts it: in registers for a compile-time K, in local memory
+// otherwise.
+template <int kK, bool kDedup>
+__device__ __forceinline__ void cold_rows_wr(
+    const int32_t* __restrict__ frontier, const float* __restrict__ u,
+    int32_t* o, int64_t row0, int n, int fanout, int64_t num_node,
+    const Cold& cold) {
+  const int K = kK > 0 ? kK : fanout;
+  const int lane = threadIdx.x & 31;
+  const int32_t v = lane < n ? __ldg(frontier + row0 + lane) : -1;
+  const bool mine = v >= 0 && cold_id(cold, v, num_node);
+  const unsigned mask = __ballot_sync(kFull, mine);
+  const int nc = __popc(mask);
+  if (nc == 0) return;
+  // lane r < nc: the warp's r-th cold row, its index ri in the warp
+  const int ri = nth_bit(mask, lane < nc ? lane : 0);
+  long long start;
+  int32_t deg;
+  cold_pairs(cold, __shfl_sync(kFull, v, ri), nc, &start, &deg);
+  const int picks = nc * K;
+  for (int p0 = 0; p0 < picks; p0 += 32 * kColdBatch) {
+    int32_t got[kColdBatch], at[kColdBatch];
+#pragma unroll
+    for (int t = 0; t < kColdBatch; ++t) {
+      const int p = p0 + 32 * t + lane;
+      const int r = p < picks ? p / K : 0;
+      const long long s = __shfl_sync(kFull, start, r);
+      const int32_t d = __shfl_sync(kFull, deg, r);
+      const int i = __shfl_sync(kFull, ri, r);
+      at[t] = i * K + (p - r * K);  // the pick's slot
+      got[t] = kEmpty;
+      if (p < picks && d > 0)
+        got[t] = __ldcg(cold.indices + s +
+                        draw_wr(__ldg(u + row0 * K + at[t]), d));
+    }
+#pragma unroll
+    for (int t = 0; t < kColdBatch; ++t)
+      if (p0 + 32 * t + lane < picks) o[at[t]] = got[t];
+  }
+  if constexpr (kDedup) {
+    __syncwarp();  // the warp's draws before a lane sorts its row
+    if (mine) {
+      int32_t* orow = o + lane * K;
+      if constexpr (kK > 0) {
+        int32_t pick[kK];
+#pragma unroll
+        for (int j = 0; j < kK; ++j) pick[j] = orow[j];
+        sort_dedup<kK>(pick);
+#pragma unroll
+        for (int j = 0; j < kK; ++j) orow[j] = pick[j];
+      } else {
+        int32_t w[kMaxFanout];
+        for (int j = 0; j < K; ++j) w[j] = orow[j];
+        sort_dedup_into(w, K, orow);
+      }
+    }
+  }
+}
+
 template <int kK, bool kDedup, bool kTiered>
 __global__ void __launch_bounds__(kThreads)
 sample_wr_staged_kernel(const int32_t* __restrict__ indptr,
@@ -457,9 +519,11 @@ sample_wr_staged_kernel(const int32_t* __restrict__ indptr,
   const int64_t row = row0 + threadIdx.x;
   const int64_t rows = num_rows - row0 < kThreads ? num_rows - row0 : kThreads;
   const int words = (int)rows * kK;
-  Row r{0, 0, false};
+  // a cold row (kTiered) reads as an id outside the graph here, its
+  // draws EMPTY until the warp's cold rows overwrite them below
+  Row r{0, 0};
   if (row < num_rows)
-    r = row_meta<kTiered>(indptr, frontier, row, num_node, cold);
+    r = row_meta(indptr, frontier, row, num_node);
   const int32_t deg = r.deg;
   copy_tile(tile, reinterpret_cast<const uint32_t*>(u) + row0 * kK, words,
             vec);
@@ -475,7 +539,7 @@ sample_wr_staged_kernel(const int32_t* __restrict__ indptr,
         pick[j] = draw_wr(__uint_as_float(trow[j]), deg);
 #pragma unroll
       for (int j = 0; j < kK; ++j)
-        pick[j] = edge<kTiered>(indices, cold, r, pick[j]);
+        pick[j] = edge(indices, r, pick[j]);
       if (kDedup) sort_dedup<kK>(pick);
     } else {
 #pragma unroll
@@ -484,23 +548,29 @@ sample_wr_staged_kernel(const int32_t* __restrict__ indptr,
 #pragma unroll
     for (int j = 0; j < kK; ++j) trow[j] = (uint32_t)pick[j];
   }
+  if constexpr (kTiered) {  // the warp's cold rows
+    const int warp = threadIdx.x >> 5;
+    const int64_t first = row0 + 32 * warp;
+    const int64_t left = num_rows - first;
+    __syncwarp();
+    cold_rows_wr<kK, kDedup>(
+        frontier, u, reinterpret_cast<int32_t*>(tile) + 32 * warp * kK, first,
+        left < 0 ? 0 : (left < 32 ? (int)left : 32), kK, num_node, cold);
+  }
   __syncthreads();
   copy_tile(reinterpret_cast<uint32_t*>(out) + row0 * kK, tile, words, vec);
 }
 
-// any fanout up to kMaxFanout: one thread per row, unstaged, the row in
-// local memory
-template <bool kTiered>
-__global__ void sample_wr_kernel(const int32_t* __restrict__ indptr,
-                                 const int32_t* __restrict__ indices,
-                                 const int32_t* __restrict__ frontier,
-                                 const float* __restrict__ u,
-                                 int32_t* __restrict__ out, int64_t num_node,
-                                 int64_t num_rows, int fanout, bool dedup,
-                                 Cold cold) {
-  const int64_t row = (int64_t)blockIdx.x * kThreads + threadIdx.x;
-  if (row >= num_rows) return;
-  const Row r = row_meta<kTiered>(indptr, frontier, row, num_node, cold);
+// one row of the unstaged K8a kernel: its draws, sorted when dedup, in
+// local memory (a cold row, kTiered, reads here as EMPTY)
+__device__ __forceinline__ void wr_row(const int32_t* __restrict__ indptr,
+                                       const int32_t* __restrict__ indices,
+                                       const int32_t* __restrict__ frontier,
+                                       const float* __restrict__ u,
+                                       int32_t* __restrict__ out,
+                                       int64_t num_node, int64_t row,
+                                       int fanout, bool dedup) {
+  const Row r = row_meta(indptr, frontier, row, num_node);
   const int32_t deg = r.deg;
   const float* urow = u + row * fanout;
   int32_t* orow = out + row * fanout;
@@ -510,19 +580,39 @@ __global__ void sample_wr_kernel(const int32_t* __restrict__ indptr,
   }
   int32_t v[kMaxFanout];
   for (int j = 0; j < fanout; ++j)
-    v[j] = edge<kTiered>(indices, cold, r, draw_wr(__ldg(urow + j), deg));
+    v[j] = edge(indices, r, draw_wr(__ldg(urow + j), deg));
   if (dedup) {
-    for (int i = 1; i < fanout; ++i) {  // insertion sort
-      const int32_t x = v[i];
-      int j = i - 1;
-      for (; j >= 0 && v[j] > x; --j) v[j + 1] = v[j];
-      v[j + 1] = x;
-    }
-    for (int j = fanout - 1; j > 0; --j)
-      if (v[j] == v[j - 1]) orow[j] = kEmpty; else orow[j] = v[j];
-    orow[0] = v[0];
+    sort_dedup_into(v, fanout, orow);
   } else {
     for (int j = 0; j < fanout; ++j) orow[j] = v[j];
+  }
+}
+
+// any fanout up to kMaxFanout: one thread per row, unstaged, the row in
+// local memory; tiered, each warp then takes its rows' cold rows
+template <bool kTiered>
+__global__ void sample_wr_kernel(const int32_t* __restrict__ indptr,
+                                 const int32_t* __restrict__ indices,
+                                 const int32_t* __restrict__ frontier,
+                                 const float* __restrict__ u,
+                                 int32_t* __restrict__ out, int64_t num_node,
+                                 int64_t num_rows, int fanout, bool dedup,
+                                 Cold cold) {
+  const int64_t row = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+  if (!kTiered && row >= num_rows) return;
+  if (row < num_rows)
+    wr_row(indptr, indices, frontier, u, out, num_node, row, fanout, dedup);
+  if constexpr (kTiered) {
+    const int64_t first = row - (threadIdx.x & 31);
+    const int64_t left = num_rows - first;
+    const int n = left <= 0 ? 0 : (left < 32 ? (int)left : 32);
+    __syncwarp();  // the warp's hot rows' stores before the cold ones
+    if (dedup)
+      cold_rows_wr<0, true>(frontier, u, out + first * fanout, first, n,
+                            fanout, num_node, cold);
+    else
+      cold_rows_wr<0, false>(frontier, u, out + first * fanout, first, n,
+                             fanout, num_node, cold);
   }
 }
 

@@ -72,6 +72,48 @@ __device__ __forceinline__ void cold_row(const Cold& cold, int32_t v,
   *deg = (int32_t)(__ldcg(cold.indptr + v + 1) - s);
 }
 
+// The position of the (r + 1)-th set bit of mask (r < popc(mask))
+__device__ __forceinline__ int nth_bit(unsigned mask, int r) {
+  int pos = 0;
+#pragma unroll
+  for (int w = 16; w > 0; w >>= 1) {
+    const int c = __popc(mask & ((1u << w) - 1u));
+    if (r >= c) {
+      r -= c;
+      mask >>= w;
+      pos += w;
+    }
+  }
+  return pos;
+}
+
+// The indptr pairs of a warp's n <= 32 cold nodes, compacted by a ballot
+// (every lane calls it): lane r < n names the r-th node, cv.  Lanes 2r and
+// 2r + 1 read node r's two 8-byte halves in one instruction, so 16 pairs
+// go out as one warp load (a second for nodes 16-31) and neighbouring
+// pairs share a request.  Lane r < n gets its node's first edge and
+// degree; the other lanes degree 0.
+__device__ __forceinline__ void cold_pairs(const Cold& cold, int32_t cv,
+                                           int n, long long* start,
+                                           int32_t* deg) {
+  const unsigned full = 0xffffffffu;
+  const int lane = threadIdx.x & 31;
+  long long e[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = 16 * h + (lane >> 1);
+    const int32_t vr = __shfl_sync(full, cv, r);
+    e[h] = r < n ? __ldcg(cold.indptr + vr + (lane & 1)) : 0;
+  }
+  const int src = (2 * lane) & 31;
+  const long long s0 = __shfl_sync(full, e[0], src);
+  const long long t0 = __shfl_sync(full, e[0], src + 1);
+  const long long s1 = __shfl_sync(full, e[1], src);
+  const long long t1 = __shfl_sync(full, e[1], src + 1);
+  *start = lane < 16 ? s0 : s1;
+  *deg = lane < n ? (int32_t)((lane < 16 ? t0 : t1) - *start) : 0;
+}
+
 // an element of a hot or a cold array: the read-only path on the card, a
 // plain load from host memory
 template <bool kTiered, typename T>

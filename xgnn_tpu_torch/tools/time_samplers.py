@@ -30,8 +30,10 @@ mapped host reads (``tools/host_reads.py``).
 
 Every case's output is checked bit-equal between the builds; each is
 timed with ``chip_smoke.time_ms`` (``ms`` back to back, ``device_ms`` with
-the host ahead of the card: the card's time alone) in the order parent,
-new, new, parent, twice.  The last line is one JSON object.
+the host ahead of the card: the card's time alone) and with
+``chip_smoke.time_flushed_ms`` (``flushed_ms``: a launch alone after L2 is
+flushed, so that no launch finds in L2 what the last one read) in the
+order parent, new, new, parent, twice.  The last line is one JSON object.
 """
 
 import argparse
@@ -302,17 +304,27 @@ def main() -> int:
             fn = (lambda who=who: calls[who](who))
             got[who].append({"ms": cs.time_ms(torch, fn),
                              "device_ms": cs.time_ms(torch, fn,
-                                                     host_ahead=True)})
-        med = {who: statistics.median(r["device_ms"] for r in runs)
-               for who, runs in got.items()}
-        rows[label] = dict(got, median_device_ms=med, over_parent={
-            who: med[who] / med["parent"] for who in builds if who != "parent"})
-        print(f"[{card}] {label}: device ms median " + ", ".join(
-            f"{who} {med[who]:.4f}" for who in builds) + " (over parent: "
-            + ", ".join(f"{who} {med[who] / med['parent']:.4f}"
-                        for who in builds if who != "parent") + "); "
-            + "; ".join(f"{who} {[round(r['device_ms'], 4) for r in got[who]]}"
-                        for who in builds), flush=True)
+                                                     host_ahead=True),
+                             "flushed_ms": cs.time_flushed_ms(torch, fn)})
+        med, over = {}, {}
+        for key in ("device_ms", "flushed_ms"):
+            med[key] = {who: statistics.median(r[key] for r in runs)
+                        for who, runs in got.items()}
+            over[key] = {who: med[key][who] / med[key]["parent"]
+                         for who in builds if who != "parent"}
+        rows[label] = dict(got, median_device_ms=med["device_ms"],
+                           median_flushed_ms=med["flushed_ms"],
+                           over_parent=over["device_ms"],
+                           flushed_over_parent=over["flushed_ms"])
+        print(f"[{card}] {label}: " + "; ".join(
+            f"{key.replace('_', ' ')} median " + ", ".join(
+                f"{who} {med[key][who]:.4f}" for who in builds)
+            + " (over parent: " + ", ".join(
+                f"{who} {v:.4f}" for who, v in over[key].items()) + ")"
+            for key in med) + "; " + "; ".join(
+            f"{who} {[round(r['device_ms'], 4) for r in got[who]]} / "
+            f"{[round(r['flushed_ms'], 4) for r in got[who]]}"
+            for who in builds), flush=True)
     if tier is not None:
         tier.csr.close()
     print(json.dumps({"card": card, "tiered": args.tiered,
