@@ -152,13 +152,7 @@ Phases, each fatal on failure:
    replays queued while the card sleeps), a profiled epoch's busy time and
    share, and peak memory with the graph's pool.  K3 captured at the main
    path's two dedup shapes and replayed three times with new picks, each
-   equal to its plain version.  Then ``Engine.run()`` through the training
-   command line (``xgnn_tpu_torch.examples.train``: graphsage, 2 epochs,
-   the valid accuracy each, a checkpoint each; its ``test_result:`` lines
-   printed), a second engine resumed from the checkpoint with params and
-   Adam state equal bit for bit, and the accuracy command line in a
-   process of its own on that checkpoint, its valid accuracy equal to
-   ``evaluate_full`` in this process.
+   equal to its plain version.  (The command lines run in phase 13.)
 11. Training options, at bench.py's configuration with the options of
    its A/B switches: ``graphsage_bf16`` (``feat_dtype`` and
    ``compute_dtype`` "bfloat16"), its host loop and ``device_loop`` from
@@ -216,6 +210,36 @@ Phases, each fatal on failure:
    hit rate beside the presample's out-of-sample estimate; the
    ``{"tiered_topology": ...}`` JSON line.
 
+13. Dataset files: phase 3's graph, features, labels and split written
+   with ``save_dataset`` into a temporary directory (under ``/dev/shm``
+   where it has room, else under ``tempfile``'s default; deleted at the
+   end whatever happens), loaded with ``load_dataset`` (read-only maps)
+   and every array held to phase 3's; graphsage at bench.py's
+   configuration from the maps, epochs 0 and 1 per-step losses equal to
+   phase 6's host loop bit for bit, its launches counted and an epoch
+   profiled, the init's graph load and cache build beside phase 6's;
+   graphsage_tiered at 0.85 from the maps, equal to phase 12's bit for
+   bit, the file-backed CSR's pin and map beside phase 12's;
+   ``xgnn-convert`` built by ``clib.convert_path()``, its
+   ``create-weights`` and ``cache-by-degree`` run on the directory, then
+   graphsage on ``weighted_khop`` from the files' alias tables (K8b-alias
+   in training: its device ms a launch by layer from a profiled epoch) and
+   graphsage_cached with ``cache_policy="degree"`` (the cache the ranking
+   file's prefix); ``Engine.run()`` through the training command line on
+   ``--dataset <name> --root-path <dir>`` (graphsage, 2 epochs, the valid
+   accuracy each, a checkpoint each), a second engine resumed from the
+   checkpoint with params and Adam state equal bit for bit, and the
+   accuracy command line in a process of its own on that checkpoint, its
+   valid accuracy equal to ``evaluate_full`` in this process; the JAX
+   command line's ``--synthetic`` graph at its defaults (100,000 nodes,
+   degree 15, signal 1.5) for two epochs, its test accuracy above 0.5;
+   ``tests/test_hop2_task.py``'s contract on the card (graphsage at least
+   0.10 above the MLP, between 0.55 and 0.95); and
+   ``make_device_dataset(dedup=True)`` at phase 3's sizes (time, edges
+   kept, peak memory; no self-loop and no repeated neighbour, checked on
+   the card; features and labels equal to phase 3's).  The phase's wall
+   time and the ``{"dataset_files": ...}`` JSON line.
+
 Each kernel is timed twice: ``ms`` back to back (the wrapper's host time
 included, where the host is the slower) and ``device_ms`` with the host
 ahead of the card (the card's time alone).  ``bound_ms`` reads each input
@@ -225,8 +249,8 @@ pick; K4's mean form moves the sum form's bytes.  K4's mean-form
 ``library_ms`` is two calls, ``F.embedding_bag`` and the division.
 
 Prints the inference's JSON line, the tooling's (phase 10), the training
-options' (phase 11), the tiered topology's (phase 12), the kernels' JSON
-line, then the card's line (nvidia-smi's name and power limit), then the
+options' (phase 11), the tiered topology's (phase 12), the dataset
+files' (phase 13), the kernels' JSON line, then the card's line (nvidia-smi's name and power limit), then the
 result line.
 Exits non-zero with no result line when there is no CUDA device.
 """
@@ -392,20 +416,15 @@ def kernel_name(event_name: str) -> str:
 def phase_tooling(torch, tag, dev, ds, cfg, pin_cfg, steps, expected,
                   host_runs, profiled_epoch):
     """Phase 10: the device_loop paths against the host loop's epochs of
-    phase 6, K3 replayed under capture at the main path's dedup shapes,
-    then ``Engine.run()`` through the training command line with a
-    checkpoint, its resume, and the accuracy command line on it.  Returns
+    phase 6 and K3 replayed under capture at the main path's dedup shapes
+    (the command lines run in phase 13, on its dataset directory).  Returns
     the paths' rows for the JSON line."""
-    import shutil
-
     import numpy as np
 
     from xgnn_tpu_torch import Engine
     from xgnn_tpu_torch.device import generator, seed_of
     from xgnn_tpu_torch.engine.engine import _DROPOUT, _SAMPLE
     from xgnn_tpu_torch.engine.shuffler import Shuffler
-    from xgnn_tpu_torch.examples import train as train_cli
-    from xgnn_tpu_torch.inference import evaluate_full
     from xgnn_tpu_torch.ops import _build
     from xgnn_tpu_torch.ops.sampling import sample_khop0
     from xgnn_tpu_torch.ops.unique import (
@@ -603,22 +622,320 @@ def phase_tooling(torch, tag, dev, ds, cfg, pin_cfg, steps, expected,
         num = torch.clamp(out[1], max=cap)
         del g, out, picks, static
 
-    # Engine.run() through the training command line, its resume, and the
-    # accuracy command line on its checkpoint
+    return rows
+
+
+def phase_dataset_files(torch, tag, dev, ds, cfg, steps, expected,
+                        host_runs, init_items, profiled_epoch):
+    """Phase 13: phase 3's products graph written as a dataset directory,
+    loaded and trained from, on the whole table, on the tiered topology,
+    on ``xgnn-convert``'s alias tables and degree ranking and through the
+    two command lines; the JAX command line's ``--synthetic`` graph and
+    the hop2 task learnt; the deduplicated device build at products
+    scale.  The directory is deleted at the end, whatever happens.
+    Returns the phase's row for the JSON line."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from xgnn_tpu_torch import (
+        Dataset,
+        Engine,
+        RunConfig,
+        load_dataset,
+        make_device_dataset,
+        save_dataset,
+    )
+    from xgnn_tpu_torch.clib import convert_path
+    from xgnn_tpu_torch.examples import train as train_cli
+    from xgnn_tpu_torch.inference import evaluate_full
+    from xgnn_tpu_torch.ops import _build
+    from xgnn_tpu_torch.synthetic import (
+        make_synthetic_dataset,
+        plant_hop2_task,
+    )
+
+    t_phase = time.perf_counter()
+    row = {}
+    # weighted_khop from the files' tables: K8b-alias at every layer
+    expected["graphsage_alias_files"] = {
+        "sample_alias": 3 * steps, "unique_seeded": 2 * steps,
+        "gather_rows": 2 * steps, "fanout_fwd": 3 * steps,
+        "fanout_bwd": 2 * steps}
+    g = ds.graph
+    name = "products_synth"
+    # the files' bytes: the CSR, features, labels and sets, then
+    # create-weights' three tables and a ranking
+    need = (4 * (ds.num_node + 1) + 16 * g.num_edge
+            + (4 * FEAT_DIM + 12) * ds.num_node)
+    shm = (shutil.disk_usage("/dev/shm").free
+           if os.path.isdir("/dev/shm") else 0)
+    parent = "/dev/shm" if shm > need + 2**30 else None
+    tmp = tempfile.mkdtemp(prefix="xgnn_chip_smoke_", dir=parent)
+    free = shutil.disk_usage(tmp).free
+    row["directory"] = {"under": parent or tempfile.gettempdir(),
+                        "free_bytes": free, "bytes_needed": need}
+    print(f"{tag} dataset files: a temporary directory under "
+          f"{row['directory']['under']} ({free} bytes free; /dev/shm "
+          f"{shm} free, the files need {need})", flush=True)
     root = os.path.dirname(os.path.abspath(__file__))
     ckpt = os.path.join(root, "build", "chip_smoke_ckpt")
-    shutil.rmtree(ckpt, ignore_errors=True)
-    synth = ["--synthetic", "--synthetic-nodes", str(NUM_NODE),
-             "--synthetic-degree", "50"]
+    path = os.path.join(tmp, name)
+
+    def quiet(fn, *args):
+        """``fn(*args)`` with its stdout kept; the ``test_result:`` lines
+        printed and parsed."""
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            out = fn(*args)
+        lines = [ln for ln in buf.getvalue().splitlines()
+                 if ln.startswith("test_result:")]
+        for ln in lines:
+            print(f"{tag}   {ln}", flush=True)
+        return out, dict(ln[len("test_result:"):].split("=", 1)
+                         for ln in lines)
+
+    def epochs(path_name, eng, ref=None, counted=None, first=0):
+        """Epochs ``first`` and ``first + 1``: their per-step losses equal
+        ``ref``'s host loop bit for bit where given, the second counted
+        against ``expected[counted]``."""
+        out = []
+        for epoch in (first, first + 1):
+            _build.LAUNCHES.reset()
+            r = eng.train_epoch(epoch)
+            torch.cuda.synchronize()
+            counts = _build.LAUNCHES.snapshot()
+            losses = eng.history[epoch]["loss"]
+            if not np.all(np.isfinite(losses)):
+                raise AssertionError(f"{path_name} epoch {epoch}: a step "
+                                     f"loss is not finite: {list(losses)}")
+            if ref is not None:
+                want = host_runs[ref]["hist"][epoch]["loss"]
+                if not np.array_equal(losses, want):
+                    raise AssertionError(
+                        f"{path_name} epoch {epoch}: per-step losses "
+                        f"{list(losses)} differ from {ref}'s {list(want)}")
+            if epoch == first + 1 and counted and counts != expected[
+                    counted]:
+                raise AssertionError(f"{path_name}: launch counts {counts} "
+                                     f"!= {expected[counted]}")
+            kind = "counted" if epoch > first else "warm-up"
+            print(f"{tag} {path_name} epoch {epoch} ({kind}, pipelined): "
+                  f"{r['time']:.3f} s, loss {r['loss']:.4f}, acc "
+                  f"{r['train_acc']:.4f}"
+                  + ("" if ref is None else
+                     f", per-step losses equal {ref}'s bit for bit"),
+                  flush=True)
+            out.append(r)
+        return out
+
     try:
+        # (a) write, load and train graphsage
+        host = {"indptr": g.indptr.cpu().numpy(),
+                "indices": g.indices.cpu().numpy(),
+                "feat": ds.feat.cpu().numpy(),
+                "label": ds.label.cpu().numpy()}
+        for key in ("train_set", "valid_set", "test_set"):
+            host[key] = np.asarray(getattr(ds, key))
+        src = Dataset(name=name, num_node=ds.num_node, num_edge=g.num_edge,
+                      feat_dim=ds.feat_dim, num_class=ds.num_class, **host)
         t0 = time.perf_counter()
-        first = train_cli.main(synth + [
+        save_dataset(src, path)
+        write_s = time.perf_counter() - t0
+        nbytes = sum(os.path.getsize(os.path.join(path, f))
+                     for f in os.listdir(path))
+        t0 = time.perf_counter()
+        fds = load_dataset(path)
+        load_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for key, want in host.items():
+            got = getattr(fds, key)
+            if got.shape != want.shape or not np.array_equal(got, want):
+                raise AssertionError(f"dataset files: {key} differs from "
+                                     "phase 3's")
+        check_s = time.perf_counter() - t0
+        print(f"{tag} dataset files: phase 3's graph ({ds.num_node} nodes, "
+              f"{g.num_edge} edges, {FEAT_DIM} float32 features, labels and "
+              f"the split) written in {write_s:.3f} s ({nbytes} bytes), "
+              f"loaded (mapped) in {load_s:.4f} s; every array equal to "
+              f"phase 3's ({check_s:.3f} s to read and compare); dtypes "
+              f"indptr {fds.indptr.dtype}, feat {fds.feat.dtype}, label "
+              f"{fds.label.dtype}", flush=True)
+        del src, host
+        row.update(write_s=write_s, load_s=load_s, check_s=check_s,
+                   bytes=nbytes)
+        paths = row["paths"] = {}
+
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        eng = Engine(fds, cfg).init()
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        items, ref = eng.profiler._init_items, init_items["graphsage"]
+        print(f"{tag} graphsage_files engine init: {init_s:.3f} s; "
+              f"graph_load_time {items['graph_load_time']:.3f} s and "
+              f"cache_build_time {items['cache_build_time']:.3f} s (the CSR "
+              f"and the table from the maps to the card) against phase 6's "
+              f"{ref['graph_load_time']:.3f} s and "
+              f"{ref['cache_build_time']:.3f} s (built on the card); init "
+              f"{ref['init_s']:.3f} s", flush=True)
+        r = epochs("graphsage_files", eng, "graphsage", "graphsage")
+        prof = profiled_epoch("graphsage_files", eng, 2) or {}
+        paths["graphsage_files"] = {
+            "init_s": init_s, "graph_load_s": items["graph_load_time"],
+            "cache_build_s": items["cache_build_time"],
+            "device_built_graph_load_s": ref["graph_load_time"],
+            "device_built_cache_build_s": ref["cache_build_time"],
+            "epoch_s": r[1]["time"],
+            "device_built_epoch_s": host_runs["graphsage"]["time"],
+            "busy_ms_per_step": prof.get("busy_ms_per_step"),
+            "device_built_busy_ms_per_step": (host_runs["graphsage"].get(
+                "profiled") or {}).get("busy_ms_per_step"),
+            "losses_bit_equal": True}
+        print(f"{tag} graphsage_files: counted epoch {r[1]['time']:.3f} s "
+              f"against phase 6's {host_runs['graphsage']['time']:.3f} s; "
+              f"profiled busy {prof.get('busy_ms_per_step')} ms a step "
+              f"against phase 6's "
+              f"{paths['graphsage_files']['device_built_busy_ms_per_step']}",
+              flush=True)
+        del eng
+
+        # (b) the tiered topology from the files
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        eng = Engine(fds, dataclasses.replace(
+            cfg, use_dist_graph=True, dist_graph_percentage=TIER_PCT)).init()
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        if eng._tier is None:
+            raise AssertionError("graphsage_tiered_files: no tier")
+        pinned = sum(a.tensor.numel() * a.tensor.element_size()
+                     for a in eng._tier.csr.arrays.values())
+        load_t = eng.profiler._init_items["graph_load_time"]
+        ref_t = init_items["graphsage_tiered"]["graph_load_time"]
+        print(f"{tag} graphsage_tiered_files engine init: {init_s:.3f} s; "
+              f"graph load {load_t:.3f} s (the hot prefix to the card, the "
+              f"file-backed CSR's {pinned} bytes copied, pinned and mapped) "
+              f"against phase 12's {ref_t:.3f} s (from the card's CSR); hot "
+              f"prefix {eng._tier.num_cache_node} of {fds.num_node} nodes",
+              flush=True)
+        r = epochs("graphsage_tiered_files", eng, "graphsage_tiered",
+                   "graphsage_tiered")
+        paths["graphsage_tiered_files"] = {
+            "init_s": init_s, "graph_load_s": load_t,
+            "device_built_graph_load_s": ref_t, "pinned_bytes": pinned,
+            "epoch_s": r[1]["time"],
+            "device_built_epoch_s": host_runs["graphsage_tiered"]["time"],
+            "losses_bit_equal": True}
+        del eng
+
+        # (c) xgnn-convert's tables: K8b-alias in training, the degree
+        # ranking's cache
+        t0 = time.perf_counter()
+        exe = convert_path()
+        if exe is None:
+            raise AssertionError("xgnn-convert: no C++ compiler to build it")
+        build_s = time.perf_counter() - t0
+        convert_s = {}
+        for cmd in ("create-weights", "cache-by-degree"):
+            t0 = time.perf_counter()
+            done = subprocess.run([exe, cmd, path], capture_output=True,
+                                  text=True, timeout=600)
+            convert_s[cmd] = time.perf_counter() - t0
+            if done.returncode != 0:
+                raise AssertionError(f"xgnn-convert {cmd}: exit "
+                                     f"{done.returncode}\n{done.stderr}")
+        wds = load_dataset(path)
+        for key in ("prob_table", "alias_table", "prob_prefix_table"):
+            if getattr(wds, key) is None:
+                raise AssertionError(f"create-weights wrote no {key}")
+        ranking = wds.cache_rankings.get("degree")
+        if ranking is None:
+            raise AssertionError("cache-by-degree wrote no ranking")
+        row["convert"] = {"build_s": build_s, **convert_s}
+        print(f"{tag} xgnn-convert: built in {build_s:.3f} s; "
+              f"create-weights {convert_s['create-weights']:.3f} s, "
+              f"cache-by-degree {convert_s['cache-by-degree']:.3f} s on "
+              f"{g.num_edge} edges", flush=True)
+
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        eng = Engine(wds, dataclasses.replace(
+            cfg, sample_type="weighted_khop")).init()
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        r = epochs("graphsage_alias_files", eng, None,
+                   "graphsage_alias_files")
+        prof = profiled_epoch("graphsage_alias_files", eng, 2) or {}
+        alias = {k: v for k, v in (prof.get("sampler_ms") or {}).items()
+                 if "alias" in k}
+        if prof and not alias:
+            raise AssertionError("graphsage_alias_files: the profiled epoch "
+                                 "recorded no K8b-alias launch")
+        by_layer = [v["ms_by_place"] or [v["ms_per_launch"]]
+                    for v in alias.values()]
+        items = eng.profiler._init_items
+        paths["graphsage_alias_files"] = {
+            "init_s": init_s, "graph_load_s": items["graph_load_time"],
+            "cache_build_s": items["cache_build_time"],
+            "epoch_s": r[1]["time"],
+            "busy_ms_per_step": prof.get("busy_ms_per_step"),
+            "k8b_alias_ms": alias}
+        print(f"{tag} graphsage_alias_files (weighted_khop from "
+              f"create-weights' tables): init {init_s:.3f} s (graph load "
+              f"{items['graph_load_time']:.3f} s: the CSR and the three "
+              f"tables to the card, the coarse CDF built there; cache build "
+              f"{items['cache_build_time']:.3f} s); counted epoch "
+              f"{r[1]['time']:.3f} s; profiled busy "
+              f"{prof.get('busy_ms_per_step')} ms a step; K8b-alias device "
+              f"ms a launch by layer {by_layer}", flush=True)
+        del eng
+
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        eng = Engine(wds, dataclasses.replace(
+            cfg, cache_percentage=CACHE_PCT, cache_policy="degree")).init()
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        store = eng.feature_source
+        k = store.num_cache
+        top = torch.from_numpy(np.array(ranking[:k])).to(dev).long()
+        if not torch.equal(store.posmap[top], torch.arange(
+                k, dtype=torch.int32, device=dev)):
+            raise AssertionError("graphsage_cached_degree_files: the cache "
+                                 "is not the ranking file's prefix")
+        r = epochs("graphsage_cached_degree_files", eng, None,
+                   "graphsage_cached")
+        paths["graphsage_cached_degree_files"] = {
+            "init_s": init_s, "cache_build_s": eng.init_times["cache_build"],
+            "device_built_cache_build_s":
+                init_items["graphsage_cached"]["cache_build"],
+            "epoch_s": r[1]["time"], "hit_rate": r[1]["hit_rate"]}
+        print(f"{tag} graphsage_cached_degree_files: the cache holds the "
+              f"ranking file's first {k} rows; init {init_s:.3f} s, cache "
+              f"build {eng.init_times['cache_build']:.3f} s (the mapped "
+              f"table copied, pinned and mapped) against phase 8's "
+              f"{init_items['graphsage_cached']['cache_build']:.3f} s; "
+              f"epoch hit rate {r[1]['hit_rate']:.4f}", flush=True)
+        del eng, store, wds
+        torch.cuda.empty_cache()
+
+        # (d) the command lines on the files: Engine.run() through the
+        # training command line, its resume, and the accuracy command line
+        # on its checkpoint
+        shutil.rmtree(ckpt, ignore_errors=True)
+        files = ["--dataset", name, "--root-path", tmp]
+        t0 = time.perf_counter()
+        first, _ = quiet(train_cli.main, files + [
             "--num-epoch", "2", "--report-acc", "1", "--pipeline",
             "--checkpoint-dir", ckpt])
         torch.cuda.synchronize()
         run_s = time.perf_counter() - t0
         resumed = Engine(first.ds, first.config)
-        out = resumed.run()
+        out, _ = quiet(resumed.run)
         if out["epochs"]:
             raise AssertionError(f"the resumed run trained epochs "
                                  f"{[e['epoch'] for e in out['epochs']]}")
@@ -631,7 +948,7 @@ def phase_tooling(torch, tag, dev, ds, cfg, pin_cfg, steps, expected,
         t0 = time.perf_counter()
         cli = subprocess.run(
             [sys.executable, "-m", "xgnn_tpu_torch.examples.accuracy"]
-            + synth + ["--checkpoint-dir", ckpt], cwd=root,
+            + files + ["--checkpoint-dir", ckpt], cwd=root,
             capture_output=True, text=True, timeout=300)
         acc_s = time.perf_counter() - t0
         if cli.returncode != 0:
@@ -647,15 +964,105 @@ def phase_tooling(torch, tag, dev, ds, cfg, pin_cfg, steps, expected,
         if abs(cli_valid - ref) > 1e-4 + 2 / len(fds.valid_set):
             raise AssertionError(f"accuracy CLI valid {cli_valid} against "
                                  f"evaluate_full in this process {ref}")
+        row["clis"] = {"train_s": run_s, "accuracy_s": acc_s,
+                       "full_valid_acc": cli_valid}
         print(f"{tag} run(): two epochs and their valid accuracy through "
-              f"the training command line in {run_s:.3f} s (dataset "
-              f"included); resumed at epoch 2 with params and Adam state "
-              f"equal bit for bit; the accuracy command line on the "
-              f"checkpoint: {cli.stdout.strip()} ({acc_s:.3f} s, a process "
-              f"of its own), evaluate_full here {ref:.6f}", flush=True)
+              f"the training command line on --dataset {name} --root-path "
+              f"<dir> in {run_s:.3f} s (the load included); resumed at epoch "
+              f"2 with params and Adam state equal bit for bit; the accuracy "
+              f"command line on the checkpoint: "
+              f"{'; '.join(cli.stdout.split())} "
+              f"({acc_s:.3f} s, a process of its own), evaluate_full here "
+              f"{ref:.6f}", flush=True)
+        del first, resumed, fds
     finally:
+        shutil.rmtree(tmp, ignore_errors=True)
         shutil.rmtree(ckpt, ignore_errors=True)
-    return rows
+    torch.cuda.empty_cache()
+
+    # (e) learning on the JAX command line's graph and the hop2 task
+    t0 = time.perf_counter()
+    eng, got = quiet(train_cli.main, ["--synthetic", "--num-epoch", "2",
+                                      "--report-acc", "1"])
+    synth_s = time.perf_counter() - t0
+    test_acc = float(got["test_acc"])
+    if not test_acc > 0.5:
+        raise AssertionError(f"--synthetic: test accuracy {test_acc} after "
+                             "two epochs (chance is 1/32)")
+    row["synthetic"] = {"test_acc": test_acc, "s": synth_s,
+                        "num_edge": eng.ds.num_edge}
+    print(f"{tag} --synthetic at the JAX command line's defaults (100,000 "
+          f"nodes, {eng.ds.num_edge} edges, degree 15, signal 1.5): two "
+          f"epochs in {synth_s:.3f} s (the graph's build on the host "
+          f"included), test accuracy {test_acc:.4f} (chance 1/32)",
+          flush=True)
+    del eng
+    t0 = time.perf_counter()
+    hop2 = plant_hop2_task(make_synthetic_dataset(
+        num_node=20000, avg_degree=8, feat_dim=32, num_class=8, seed=3,
+        planted_signal=1.0, train_frac=0.5), seed=4)
+    accs = {}
+    for model in ("graphsage", "mlp"):
+        heng = Engine(hop2, RunConfig(
+            batch_size=512, fanout=(5, 5, 5), num_layer=3, num_hidden=64,
+            num_epoch=3, model=model, sample_type="khop3",
+            cache_percentage=0.0, pipeline=False, lr=0.01, dropout=0.1,
+            calibration_batches=2)).init()
+        for epoch in range(3):
+            r = heng.train_epoch(epoch)
+        if not math.isfinite(r["loss"]):
+            raise AssertionError(f"hop2 {model}: loss {r['loss']}")
+        accs[model] = heng.evaluate("valid", max_batches=8)
+        del heng
+    sep = accs["graphsage"] - accs["mlp"]
+    row["hop2"] = dict(accs, separation=sep, s=time.perf_counter() - t0)
+    print(f"{tag} hop2 task (tests/test_hop2_task.py's sizes): valid "
+          f"accuracy graphsage {accs['graphsage']:.4f}, mlp "
+          f"{accs['mlp']:.4f}, separation {sep:.4f} (the contract: >= 0.10, "
+          f"0.55 < graphsage < 0.95)", flush=True)
+    if not (sep >= 0.10 and 0.55 < accs["graphsage"] < 0.95):
+        raise AssertionError(f"hop2 contract: {accs}")
+
+    # (f) the deduplicated build at products scale
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    dds = make_device_dataset(NUM_NODE, NUM_EDGE, FEAT_DIM, NUM_CLASS,
+                              train_frac=0.08, seed=0, name=name)
+    torch.cuda.synchronize()
+    dedup_s = time.perf_counter() - t0
+    peak = (torch.cuda.max_memory_allocated(dev) - base) / 2**30
+    dg = dds.graph
+    deg = (dg.indptr[1:] - dg.indptr[:-1]).long()
+    rows_of = torch.repeat_interleave(
+        torch.arange(dds.num_node, device=dev), deg,
+        output_size=dg.num_edge)
+    loops = int((dg.indices.long() == rows_of).sum())
+    same_row = rows_of[1:] == rows_of[:-1]
+    unsorted = int((same_row & (dg.indices[1:] <= dg.indices[:-1])).sum())
+    if loops or unsorted:
+        raise AssertionError(f"dedup build: {loops} self-loops, {unsorted} "
+                             "repeated or unsorted neighbours")
+    for key in ("feat", "label"):
+        if not torch.equal(getattr(dds, key), getattr(ds, key).to(dev)):
+            raise AssertionError(f"dedup build: {key} differs from phase "
+                                 "3's")
+    row["dedup"] = {"s": dedup_s, "edges": dg.num_edge,
+                    "draws": 2 * NUM_EDGE, "peak_gib": peak}
+    print(f"{tag} make_device_dataset(dedup=True) at phase 3's sizes: "
+          f"{dedup_s:.3f} s, {dg.num_edge} edges kept of {2 * NUM_EDGE} "
+          f"directed draws (phase 3 kept {g.num_edge} without dedup); no "
+          f"row holds a self-loop or a repeated neighbour (checked on the "
+          f"card); features and labels equal phase 3's; peak "
+          f"{peak:.3f} GiB above what was held before", flush=True)
+    del dds, dg, deg, rows_of, same_row
+    torch.cuda.empty_cache()
+    row["wall_s"] = time.perf_counter() - t_phase
+    print(f"{tag} phase 13 (dataset files) wall time {row['wall_s']:.3f} s",
+          flush=True)
+    return row
 
 
 def main() -> int:
@@ -784,7 +1191,8 @@ def main() -> int:
     # ---- 3. main-path set-up -----------------------------------------------
     t0 = time.perf_counter()
     ds = make_device_dataset(NUM_NODE, NUM_EDGE, FEAT_DIM, NUM_CLASS,
-                             train_frac=0.08, seed=0, name="products_synth")
+                             train_frac=0.08, seed=0, name="products_synth",
+                             dedup=False)
     torch.cuda.synchronize()
     graph_s = time.perf_counter() - t0
     print(f"{tag} graph: {ds.num_node} nodes, {ds.num_edge} edges, built in "
@@ -793,7 +1201,11 @@ def main() -> int:
     t0 = time.perf_counter()
     engine = Engine(ds, cfg).init()
     torch.cuda.synchronize()
-    print(f"{tag} engine init: {time.perf_counter() - t0:.3f} s; "
+    init_s = time.perf_counter() - t0
+    # the init stages' times by path, for phase 13
+    init_items = {"graphsage": dict(engine.profiler._init_items,
+                                    init_s=init_s)}
+    print(f"{tag} engine init: {init_s:.3f} s; "
           f"capacities {engine.sampler.capacities}", flush=True)
 
     # ---- 4. kernels against their plain versions ---------------------------
@@ -1563,7 +1975,8 @@ def main() -> int:
     del pbatch, pb0, pb1, h_pin
 
     # ---- 5. small reference: kernels on the card vs plain on the CPU -------
-    small = make_device_dataset(3000, 12000, 32, 6, seed=1, device=dev)
+    small = make_device_dataset(3000, 12000, 32, 6, seed=1, device=dev,
+                                dedup=False)
     scfg = RunConfig(batch_size=64, fanout=(5, 4, 3), num_hidden=16,
                      frontier_capacities=(64, 512, 2048, 3072))
 
@@ -1795,13 +2208,18 @@ def main() -> int:
         for start, end, name in spans:
             if "sample_" in name or "random_walk" in name:
                 launches_of[name].append(end - start)
+        sampler_ms = {}
         for name, ts in sorted(launches_of.items()):
             k = len(ts) // steps
-            at = ("" if k < 2 or len(ts) != k * steps else
-                  "; by place in a step " + " / ".join(
-                      f"{sum(ts[i::k]) / steps / 1e3:.4f}" for i in range(k)))
+            by_place = (None if k < 2 or len(ts) != k * steps else
+                        [sum(ts[i::k]) / steps / 1e3 for i in range(k)])
+            at = ("" if by_place is None else "; by place in a step "
+                  + " / ".join(f"{t:.4f}" for t in by_place))
             print(f"{tag}   sampler {sum(ts) / len(ts) / 1e3:.4f} ms a launch "
                   f"over {len(ts)} launches{at}: {name[:100]}", flush=True)
+            sampler_ms[name[:100]] = {"ms_per_launch": sum(ts) / len(ts)
+                                      / 1e3, "launches": len(ts),
+                                      "ms_by_place": by_place}
         groups = (
             ("*fill*", lambda n: "fill" in n),
             ("*add*", lambda n: "add" in n),
@@ -1850,7 +2268,8 @@ def main() -> int:
         return {"busy_ms_per_step": busy_us / 1e3 / steps,
                 "busy_share": busy_us / wall_us, "wall_ms": wall_us / 1e3,
                 "device_events": len(spans),
-                "hand_kernel_launches": dict(sorted(hand.items()))}
+                "hand_kernel_launches": dict(sorted(hand.items())),
+                "sampler_ms": sampler_ms}
 
     def edges_of(sampler):
         """edges aggregated per step, counted from the block masks
@@ -1950,7 +2369,7 @@ def main() -> int:
     t0 = time.perf_counter()
     wds = make_device_dataset(NUM_NODE, NUM_EDGE, FEAT_DIM, NUM_CLASS,
                               train_frac=0.08, seed=0, name="products_synth",
-                              weighted=True)
+                              weighted=True, dedup=False)
     torch.cuda.synchronize()
     wds_s = time.perf_counter() - t0
     wgraph = wds.graph
@@ -2233,7 +2652,7 @@ def main() -> int:
     # to the JAX package's); its 40 MB of tables fit the card's 50 MB L2
     t0 = time.perf_counter()
     sg = make_device_dataset(ALIAS_NODES, ALIAS_DRAWS, 8, NUM_CLASS, seed=3,
-                             train_frac=0.2, device=dev)
+                             train_frac=0.2, device=dev, dedup=False)
     host = dataclasses.replace(sg, indptr=sg.indptr.cpu().numpy(),
                                indices=sg.indices.cpu().numpy(), graph=None)
     t1 = time.perf_counter()
@@ -2279,6 +2698,8 @@ def main() -> int:
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     init_counts = _build.LAUNCHES.snapshot()
+    init_items["graphsage_cached"] = dict(ceng.profiler._init_items,
+                                          init_s=init_s, **ceng.init_times)
     store = ceng.feature_source
     num_cache, width = store.num_cache, store.feat_dim
     print(f"{tag} graphsage_cached engine init: {init_s:.3f} s; presample "
@@ -3622,6 +4043,7 @@ def main() -> int:
         init_s = time.perf_counter() - t0
         if eng._tier is None or eng.graph.num_node >= eng.sampler.num_node:
             raise AssertionError(f"{path}: the topology did not tier")
+        init_items[path] = dict(eng.profiler._init_items, init_s=init_s)
         print(f"{tag} {path} engine init: {init_s:.3f} s (graph load "
               f"{eng.profiler._init_items['graph_load_time']:.3f} s: the "
               f"hot prefix to the card, the whole CSR pinned and mapped); "
@@ -3719,6 +4141,14 @@ def main() -> int:
           f"estimate {plan.expected_feat_hit:.4f}", flush=True)
     del aeng
     print(json.dumps({"tiered_topology": tier_rows_out}), flush=True)
+
+    # ---- 13. dataset files: phase 3's graph written, loaded and trained
+    # from; xgnn-convert's tables; the command lines; JAX's host graphs
+    torch.cuda.empty_cache()
+    files_row = phase_dataset_files(torch, tag, dev, ds, cfg, steps,
+                                    expected, host_runs, init_items,
+                                    profiled_epoch)
+    print(json.dumps({"dataset_files": files_row}), flush=True)
 
     for k in kernels:
         k["launches"] = counts_by_path[k["path"]].get(k["name"], 0)

@@ -431,7 +431,8 @@ def test_mean_aggregate_launches_no_division(dev, model):
     from xgnn_tpu_torch.ops.fanout import masked_mean
     from xgnn_tpu_torch.sampler import Sampler
 
-    ds = make_device_dataset(5000, 30_000, 32, 6, seed=2, device=dev)
+    ds = make_device_dataset(5000, 30_000, 32, 6, seed=2, device=dev,
+                             dedup=False)
     cfg = RunConfig(batch_size=128, fanout=(6, 4, 3), num_hidden=32,
                     model=model, dropout=0.0,
                     frontier_capacities=None if model == "pinsage"
@@ -885,7 +886,8 @@ def test_sampler_kernels_equal_the_plain_path(dev, monkeypatch):
     from xgnn_tpu_torch.ops import _build, sampling, unique
     from xgnn_tpu_torch.sampler import Sampler
 
-    ds = make_device_dataset(20_000, 100_000, 8, 5, seed=3, device=dev)
+    ds = make_device_dataset(20_000, 100_000, 8, 5, seed=3, device=dev,
+                             dedup=False)
     for direct in (True, False):
         sampler = Sampler(ds.graph, RunConfig(batch_size=480,
                                               fanout=(15, 10, 5)),
@@ -923,7 +925,8 @@ def test_sampler_kernels_equal_the_plain_path(dev, monkeypatch):
 def test_pipelined_engine_matches_serial_on_the_card(dev):
     from xgnn_tpu_torch import Engine, RunConfig, make_device_dataset
 
-    ds = make_device_dataset(20_000, 100_000, 32, 7, seed=5, device=dev)
+    ds = make_device_dataset(20_000, 100_000, 32, 7, seed=5, device=dev,
+                             dedup=False)
     losses = []
     for pipeline in (True, False):
         cfg = RunConfig(batch_size=256, fanout=(10, 5, 3), num_hidden=32,
@@ -945,7 +948,8 @@ def test_a_step_never_waits_on_the_card(dev):
     from xgnn_tpu_torch.engine.shuffler import Shuffler
     from xgnn_tpu_torch.train import train_step
 
-    ds = make_device_dataset(20_000, 100_000, 32, 7, seed=5, device=dev)
+    ds = make_device_dataset(20_000, 100_000, 32, 7, seed=5, device=dev,
+                             dedup=False)
     cfg = RunConfig(batch_size=256, fanout=(10, 5, 3), num_hidden=32,
                     calibration_batches=0)
     engine = Engine(ds, cfg).init()
@@ -1316,7 +1320,8 @@ def test_zoo_step_on_the_card_equals_the_cpu(dev, model, heads):
     from xgnn_tpu_torch.ops import _build
     from xgnn_tpu_torch.sampler import Sampler
 
-    ds = make_device_dataset(5000, 30_000, 32, 6, seed=2, device=dev)
+    ds = make_device_dataset(5000, 30_000, 32, 6, seed=2, device=dev,
+                             dedup=False)
     cfg = RunConfig(batch_size=128, fanout=(6, 4, 3), num_hidden=32,
                     model=model, num_head=heads, dropout=0.0,
                     # PinSAGE: two walk layers at the default capacities
@@ -1363,7 +1368,8 @@ def test_a_zoo_step_never_waits_on_the_card(dev, model):
     from xgnn_tpu_torch.engine.shuffler import Shuffler
     from xgnn_tpu_torch.train import train_step
 
-    ds = make_device_dataset(20_000, 100_000, 32, 7, seed=5, device=dev)
+    ds = make_device_dataset(20_000, 100_000, 32, 7, seed=5, device=dev,
+                             dedup=False)
     cfg = RunConfig(batch_size=256, fanout=(10, 5, 3), num_hidden=32,
                     calibration_batches=0, model=model, num_head=2)
     engine = Engine(ds, cfg).init()
@@ -1531,7 +1537,7 @@ def test_a_weighted_step_never_waits_on_the_card(dev):
     from xgnn_tpu_torch.train import train_step
 
     ds = make_device_dataset(20_000, 100_000, 32, 7, seed=5, device=dev,
-                             weighted=True)
+                             weighted=True, dedup=False)
     cfg = RunConfig(batch_size=256, fanout=(10, 5, 3), num_hidden=32,
                     calibration_batches=0, sample_type="weighted_khop_prefix")
     engine = Engine(ds, cfg).init()
@@ -1801,7 +1807,7 @@ def test_closure_expand_kernel_equals_plain(dev, num_layer):
     )
 
     ds = make_device_dataset(20_001, 60_000, 4, 3, seed=num_layer,
-                             device=dev)
+                             device=dev, dedup=False)
     seeds = torch.from_numpy(ds.train_set[:300]).to(dev)
     seeds[::11] = EMPTY
     counts = torch.randint(0, 5, (ds.num_node,), generator=_gen(dev, 1),
@@ -1827,7 +1833,8 @@ def test_a_cached_step_never_waits_on_the_card(dev, policy):
     from xgnn_tpu_torch.ops import _build
     from xgnn_tpu_torch.train import train_step
 
-    ds = make_device_dataset(20_000, 100_000, 32, 7, seed=5, device=dev)
+    ds = make_device_dataset(20_000, 100_000, 32, 7, seed=5, device=dev,
+                             dedup=False)
     cfg = RunConfig(batch_size=256, fanout=(10, 5, 3), num_hidden=32,
                     calibration_batches=1, cache_percentage=0.2,
                     cache_policy=policy)
@@ -2169,7 +2176,8 @@ def _device_loop_against_host_loop(dev, model, heads, options=None):
     from xgnn_tpu_torch import Engine, RunConfig, make_device_dataset
     from xgnn_tpu_torch.ops import _build
 
-    ds = make_device_dataset(20_000, 100_000, 32, 7, seed=5, device=dev)
+    ds = make_device_dataset(20_000, 100_000, 32, 7, seed=5, device=dev,
+                             dedup=False)
     hist, counts = [], []
     for device_loop in (False, True):
         cfg = RunConfig(batch_size=256, fanout=(10, 5, 3), num_hidden=32,
@@ -2244,7 +2252,7 @@ def _tiered_graph(dev, pct=0.5):
     from xgnn_tpu_torch.synthetic_device import alias_tables, edge_weights
 
     ds = make_device_dataset(20_000, 300_000, 8, 5, seed=4, device=dev,
-                             weighted=True)
+                             weighted=True, dedup=False)
     g = ds.graph
     g.prob_table, g.alias_table = alias_tables(
         g.indptr, g.indices, edge_weights(g.num_edge, 4, dev))

@@ -746,7 +746,8 @@ def test_shuffler_matches_jax(learn_ds, batch_size, epoch):
 def test_device_dataset_csr_is_well_formed():
     from xgnn_tpu_torch.synthetic_device import make_device_dataset
 
-    ds = make_device_dataset(10_000, 40_000, 16, 5, seed=3, device="cpu")
+    ds = make_device_dataset(10_000, 40_000, 16, 5, seed=3, device="cpu",
+                             dedup=False)
     indptr = ds.graph.indptr.long()
     indices = ds.graph.indices.long()
     assert indptr.shape == (10_001,) and int(indptr[0]) == 0
@@ -758,6 +759,7 @@ def test_device_dataset_csr_is_well_formed():
     assert int(indices.min()) >= 0 and int(indices.max()) < 10_000
     assert ds.feat.shape == (10_000, 16) and ds.label.dtype == torch.int32
     assert len(ds.train_set) == 800
-    again = make_device_dataset(10_000, 40_000, 16, 5, seed=3, device="cpu")
+    again = make_device_dataset(10_000, 40_000, 16, 5, seed=3, device="cpu",
+                                dedup=False)
     assert torch.equal(again.graph.indptr, ds.graph.indptr)
     assert torch.equal(again.graph.indices, ds.graph.indices)

@@ -253,7 +253,7 @@ def test_entry_points_need_cuda_unless_told(learn_ds, monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Engine(Dataset.from_arrays(learn_ds), RunConfig())
     with pytest.raises(RuntimeError, match="device='cpu'"):
-        make_device_dataset(100, 200, 4, 2)
+        make_device_dataset(100, 200, 4, 2, dedup=False)
 
 
 @pytest.mark.parametrize("sample_type", ["weighted_khop_prefix",
@@ -271,7 +271,7 @@ def test_weighted_configs_construct_and_sample(sample_type):
     cfg = RunConfig(sample_type=sample_type, batch_size=32, fanout=(4, 3))
     assert cfg.sample_type.value == sample_type
     ds = make_device_dataset(400, 2000, 4, 3, seed=2, device="cpu",
-                             weighted=True)
+                             weighted=True, dedup=False)
     graph = ds.graph
     if sample_type != "weighted_khop_prefix":
         build_alias_tables(ds, seed=2)

@@ -385,8 +385,9 @@ def test_the_clis_train_and_evaluate_a_checkpoint(tmp_path, capsys,
 
 
 @pytest.mark.parametrize("flags", [
-    ["--dataset", "products"], ["--synthetic-rmat"],
-    ["--synthetic-signal", "1.5"], ["--num-worker", "4"],
+    # --dataset, --synthetic-rmat and --synthetic-signal run now
+    # (tests/test_torch_dataset_files.py)
+    ["--num-worker", "4"],
     # --use-dist-graph runs on one card now; --part-cache is a multi-card
     # flag
     ["--use-dist-graph", "--part-cache"],
@@ -397,8 +398,7 @@ def test_cli_flags_of_unported_paths_name_roadmap_items(flags):
     from xgnn_tpu_torch.examples import train
 
     roadmap = (Path(__file__).resolve().parents[1] / "ROADMAP.md").read_text()
-    argv = ["--cpu"] + (flags if flags[0] == "--dataset"
-                        else ["--synthetic"] + flags)
+    argv = ["--cpu", "--synthetic"] + flags
     with pytest.raises(NotImplementedError) as err:
         train.main(argv)
     titles = [t for part in str(err.value).split("ROADMAP")[1:]

@@ -363,8 +363,9 @@ def test_weighted_device_dataset_keeps_the_graph():
     from xgnn_tpu_torch.ops.sampling import build_coarse_cdf
 
     args = (3000, 20000, 8, 5)
-    plain = make_device_dataset(*args, seed=4, device="cpu")
-    ds = make_device_dataset(*args, seed=4, device="cpu", weighted=True)
+    plain = make_device_dataset(*args, seed=4, device="cpu", dedup=False)
+    ds = make_device_dataset(*args, seed=4, device="cpu", weighted=True,
+                             dedup=False)
     for name in ("indptr", "indices", "feat", "label"):
         assert torch.equal(getattr(ds, name), getattr(plain, name)), name
     for name in ("train_set", "valid_set", "test_set"):

@@ -12,11 +12,12 @@ training step captured in a CUDA graph and replayed once a step
 (``engine/fused.py``).  The environment overrides ``XGNN_SANITY_CHECK``
 and ``XGNN_DUMP_TRACE`` are read as the JAX package reads them; JAX's
 ``profile_level`` is left out, since no level changes what its profiler
-logs.  The training options are JAX's: ``feat_dtype="bfloat16"`` keeps the
-feature table (the tiered store's device cache) in bfloat16,
-``compute_dtype="bfloat16"`` casts the model's input to it, ``remat``
-recomputes each convolution in the backward, ``weight_decay > 0`` is
-AdamW, and ``agg_impl`` names JAX's fanout-reduce formulation (``loop``,
+logs.  ``root_path`` and ``dataset`` name the dataset directory
+(``dataset_path``) that the command lines load.  The training options are
+JAX's: ``feat_dtype="bfloat16"`` keeps the feature table (the tiered
+store's device cache) in bfloat16, ``compute_dtype="bfloat16"`` casts the
+model's input to it, ``remat`` recomputes each convolution in the
+backward, ``weight_decay > 0`` is AdamW, and ``agg_impl`` names JAX's fanout-reduce formulation (``loop``,
 ``tiled`` or ``chunk<N>``), each of which K4 computes.  On one card,
 ``use_dist_graph`` with ``dist_graph_percentage < 1`` is the tiered
 topology (the hot CSR prefix on the device, the rest read in place from
@@ -81,6 +82,11 @@ AGG_IMPL = re.compile(r"loop|tiled|chunk([1-9][0-9]*)?")
 
 @dataclasses.dataclass
 class RunConfig:
+    # --- dataset -----------------------------------------------------------
+    # the directory that load_dataset reads is root_path/dataset
+    root_path: str = "/graph-learning/samgraph/"
+    dataset: str = "products"
+
     # --- execution ---------------------------------------------------------
     sample_type: SampleType = SampleType.KHOP3
     num_epoch: int = 10
@@ -175,6 +181,10 @@ class RunConfig:
                                                                         "0")
         if constants.ENV_DUMP_TRACE in env:
             self.dump_trace = env[constants.ENV_DUMP_TRACE] not in ("", "0")
+
+    @property
+    def dataset_path(self) -> str:
+        return os.path.join(self.root_path, self.dataset)
 
     def to_dict(self) -> dict:
         out = dataclasses.asdict(self)

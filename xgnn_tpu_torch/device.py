@@ -6,6 +6,7 @@ card and without a named device they raise: they never carry on on the CPU.
 
 from __future__ import annotations
 
+import warnings
 from typing import Optional, Union
 
 import numpy as np
@@ -34,3 +35,27 @@ def generator(device: torch.device, seed: int) -> torch.Generator:
     g = torch.Generator(device=device)
     g.manual_seed(int(seed))
     return g
+
+
+def to_tensor(a, device: Union[str, torch.device],
+              dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """``a`` (a tensor or an array, a dataset file's read-only memory map
+    among them) as a tensor on ``device``, of ``dtype`` where given.  A
+    read-only array is read in place and copied once: to the card, or on
+    the CPU into memory of the tensor's own, so that nothing writes to a
+    file's pages.  A uint32 array (a CSR's offsets from 2^31 edges on)
+    becomes int64 on the host first: torch's uint32 support is partial."""
+    if isinstance(a, torch.Tensor):
+        return a.to(device=device, dtype=dtype)
+    device = torch.device(device)
+    a = np.asarray(a)
+    if a.dtype == np.uint32:
+        a = a.astype(np.int64)
+    if not a.flags.writeable and device.type != "cuda":
+        a = np.array(a)
+    with warnings.catch_warnings():
+        # a read-only array is only read here, by the copy to the card
+        warnings.filterwarnings("ignore", "The given NumPy array is not "
+                                "writable")
+        t = torch.as_tensor(a)
+    return t.to(device=device, dtype=dtype)

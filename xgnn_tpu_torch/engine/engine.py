@@ -15,6 +15,14 @@ every step and refreshes the cache at epoch ends.  ``history[epoch]`` keeps
 each step's loss, accuracy, overflow flag, hits and misses and the host
 time of each stage.
 
+The dataset may be a directory that ``load_dataset`` mapped: its
+read-only arrays are copied once, to the card or into the tiered stores'
+pinned memory; a uint32 ``indptr`` (2^31 edges or more) only the tiered
+topology takes; the weighted samplers read the files' tables and the
+static cache policies their ranking files.  A float16 feature table (an
+``F16`` file) is refused: JAX sums its fanout in float16, which the port's
+kernels do not.
+
 ``profiler`` is wired as the JAX engine wires it: init times and memory,
 each step's stage times, input nodes, hit rate and miss bytes, the
 overflow retries, ``dump_trace``'s spans, the node-access log and
@@ -93,6 +101,14 @@ def _align_up(n: int, num_node: int) -> int:
 class Engine:
     def __init__(self, dataset, config: RunConfig, device=None,
                  feat_dtype: Optional[torch.dtype] = None):
+        if str(getattr(dataset.feat, "dtype", "")) in ("float16",
+                                                      "torch.float16"):
+            # JAX keeps an F16 table in float16 and sums its fanout in
+            # float16; a float32 table would give other results
+            raise NotImplementedError(
+                "not ported to xgnn_tpu_torch yet: a float16 feature table "
+                "(FEAT_DATA_TYPE F16): ROADMAP section 2, 'F16 feature "
+                "files'")
         self.ds = dataset
         self.config = config
         self.device = resolve(device)

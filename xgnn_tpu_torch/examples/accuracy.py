@@ -4,8 +4,12 @@ package's ``examples/accuracy.py``.
 Restores a checkpoint written by ``python -m xgnn_tpu_torch.examples.train
 --checkpoint-dir DIR`` and prints the valid and test accuracy of exact
 layer-wise full-graph inference (``inference.evaluate_full``) as
-``test_result:full_{valid,test}_acc`` lines.  The ``--synthetic`` flags
-must be those the training run was given, so that the graph is the same.
+``test_result:full_{valid,test}_acc`` lines.  The graph is the dataset
+directory ``--root-path``/``--dataset``, or with ``--synthetic`` the JAX
+command line's synthetic graph at its defaults (degree 15, planted signal
+1.5) with ``--synthetic-nodes`` and ``--seed``, as the JAX package's
+``examples/accuracy.py`` builds it: the training run's, where that run
+kept those defaults.
 
     python -m xgnn_tpu_torch.examples.accuracy --cpu --synthetic \\
         --synthetic-nodes 20000 --fanout 8 4 --num-hidden 32 \\
@@ -15,10 +19,11 @@ must be those the training run was given, so that the graph is the same.
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 from typing import Optional, Sequence
 
-from .train import DATASET_FILES, synthetic_dataset
+from .train import synthetic_dataset
 
 
 def main(argv: Optional[Sequence[str]] = None) -> dict:
@@ -29,7 +34,6 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     p.add_argument("--root-path", default="/graph-learning/samgraph/")
     p.add_argument("--synthetic", action="store_true")
     p.add_argument("--synthetic-nodes", type=int, default=100_000)
-    p.add_argument("--synthetic-degree", type=float, default=15)
     p.add_argument("--num-hidden", type=int, default=256)
     p.add_argument("--num-head", type=int, default=1)
     p.add_argument("--fanout", nargs="+", type=int, default=[15, 10, 5])
@@ -38,12 +42,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     p.add_argument("--cpu", action="store_true",
                    help="run the inference on the CPU")
     args = p.parse_args(argv)
-    if not (args.synthetic or args.dataset == "synthetic"):
-        raise NotImplementedError(
-            f"not ported to xgnn_tpu_torch yet: --dataset {args.dataset} "
-            f"from files: {DATASET_FILES}")
 
-    from xgnn_tpu_torch import RunConfig
+    from xgnn_tpu_torch import RunConfig, load_dataset
     from xgnn_tpu_torch.checkpoint import CheckpointManager
     from xgnn_tpu_torch.device import resolve
     from xgnn_tpu_torch.inference import evaluate_full
@@ -51,8 +51,10 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     from xgnn_tpu_torch.train import Adam
 
     device = resolve("cpu" if args.cpu else None)
-    ds = synthetic_dataset(args.synthetic_nodes, args.synthetic_degree,
-                           args.seed, device)
+    if args.synthetic or args.dataset == "synthetic":
+        ds = synthetic_dataset(args.synthetic_nodes, 15, 1.5, args.seed)
+    else:
+        ds = load_dataset(os.path.join(args.root_path, args.dataset))
     config = RunConfig(model=args.model, num_hidden=args.num_hidden,
                        num_head=args.num_head, num_layer=len(args.fanout),
                        fanout=tuple(args.fanout))

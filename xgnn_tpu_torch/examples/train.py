@@ -2,18 +2,23 @@
 ``examples/train.py``, with its flags.
 
 It prints the ``config:`` lines, then ``Engine.run()``'s ``test_result:``
-lines.  ``--synthetic`` builds a power-law graph on the device with
-``make_device_dataset`` (``--synthetic-nodes`` nodes, ``--synthetic-nodes *
---synthetic-degree / 2`` endpoint draws, symmetrised; 128 features, 32
-classes).  ``--cpu`` runs everything on the CPU.  ``--use-dist-graph
---dist-graph-percentage P`` trains on the tiered topology, and
-``--auto-placement [--hbm-budget-gb G]`` solves the store's split.  Flags
-that select a path the port does not have yet (more than one card) raise
-``NotImplementedError`` naming its ROADMAP item.
+lines.  ``--dataset NAME --root-path DIR`` loads the dataset directory
+``DIR/NAME`` (``load_dataset``).  ``--synthetic`` builds the JAX command
+line's graph on the host (``synthetic.make_synthetic_dataset``:
+``--synthetic-nodes`` nodes, ``--synthetic-degree`` draws a node,
+symmetrised; 128 features, 32 classes, the planted signal
+``--synthetic-signal``, RMAT draws with ``--synthetic-rmat``; alias tables
+for a weighted ``--sample-type``).  ``--cpu`` runs everything on the CPU.
+``--use-dist-graph --dist-graph-percentage P`` trains on the tiered
+topology, and ``--auto-placement [--hbm-budget-gb G]`` solves the store's
+split.  Flags that select a path the port does not have yet (more than one
+card) raise ``NotImplementedError`` naming its ROADMAP item.
 
     python -m xgnn_tpu_torch.examples.train --cpu --synthetic \\
         --synthetic-nodes 20000 --model graphsage --num-epoch 2 \\
         --batch-size 500 --fanout 8 4 --num-hidden 32 --report-acc 1
+    python -m xgnn_tpu_torch.examples.train --dataset products \\
+        --root-path /data --num-epoch 2
 """
 
 from __future__ import annotations
@@ -23,10 +28,7 @@ import sys
 from typing import Optional, Sequence
 
 FEAT_DIM, NUM_CLASS = 128, 32  # the JAX command line's synthetic graph
-DATASET_FILES = "ROADMAP queue 1, 'Dataset files and host test graphs'"
 MULTI_GPU = "ROADMAP queue 1, 'Multi-GPU'"
-WEIGHTED = ("weighted_khop", "weighted_khop_prefix",
-            "weighted_khop_hash_dedup")
 
 
 def parser() -> argparse.ArgumentParser:
@@ -36,14 +38,15 @@ def parser() -> argparse.ArgumentParser:
     p.add_argument("--dataset", default="synthetic")
     p.add_argument("--root-path", default="/graph-learning/samgraph/")
     p.add_argument("--synthetic", action="store_true",
-                   help="a power-law graph built on the device")
+                   help="the JAX command line's synthetic graph, built on "
+                   "the host (no dataset directory)")
     p.add_argument("--synthetic-nodes", type=int, default=100_000)
-    p.add_argument("--synthetic-degree", type=float, default=15,
-                   help="mean degree of the symmetrised graph")
-    p.add_argument("--synthetic-signal", type=float, default=None,
-                   help="planted label signal (not ported)")
+    p.add_argument("--synthetic-degree", type=int, default=15,
+                   help="endpoint draws a node, before symmetrising")
+    p.add_argument("--synthetic-signal", type=float, default=1.5,
+                   help="planted label signal (0: none)")
     p.add_argument("--synthetic-rmat", action="store_true",
-                   help="RMAT generator (not ported)")
+                   help="RMAT endpoint draws instead of power-law ones")
     p.add_argument("--sample-type", default="khop3",
                    choices=["khop0", "khop1", "khop2", "khop3",
                             "weighted_khop", "weighted_khop_prefix",
@@ -102,39 +105,42 @@ def parser() -> argparse.ArgumentParser:
 
 def check_ported(args):
     """Refuse the flags of paths the port does not have yet."""
-    todo = []
-    if not (args.synthetic or args.dataset == "synthetic"):
-        todo.append(f"--dataset {args.dataset} from files: {DATASET_FILES}")
-    if args.synthetic_signal is not None or args.synthetic_rmat:
-        todo.append("--synthetic-signal and --synthetic-rmat (the host "
-                    f"synthetic graphs): {DATASET_FILES}")
     # --use-dist-graph, --dist-graph-percentage, --auto-placement and
     # --hbm-budget-gb run on one card (the tiered topology, the placement
     # solved with group_size=1)
     if (args.num_worker > 1 or args.num_sample_worker > 0
             or args.num_train_worker != 1 or args.num_dcn_groups != 1
             or args.part_cache):
-        todo.append(f"more than one card: {MULTI_GPU}")
-    if todo:
-        raise NotImplementedError(
-            "not ported to xgnn_tpu_torch yet: " + "; ".join(todo))
+        raise NotImplementedError("not ported to xgnn_tpu_torch yet: more "
+                                  f"than one card: {MULTI_GPU}")
 
 
-def synthetic_dataset(num_node: int, degree: float, seed: int, device,
+def synthetic_dataset(num_node: int, avg_degree: int, signal: float,
+                      seed: int, rmat: bool = False,
                       sample_type: str = "khop3"):
-    """The ``--synthetic`` graph on ``device``, with the tables that a
-    weighted ``sample_type`` reads."""
-    from xgnn_tpu_torch import make_device_dataset
-    from xgnn_tpu_torch.synthetic_device import alias_tables, edge_weights
+    """The JAX command line's ``--synthetic`` graph, on the host, with the
+    tables that a weighted ``sample_type`` reads."""
+    from xgnn_tpu_torch import synthetic
 
-    ds = make_device_dataset(num_node, int(num_node * degree / 2), FEAT_DIM,
-                             NUM_CLASS, seed=seed, device=device,
-                             weighted=sample_type in WEIGHTED)
-    if sample_type in ("weighted_khop", "weighted_khop_hash_dedup"):
-        g = ds.graph
-        g.prob_table, g.alias_table = alias_tables(
-            g.indptr, g.indices, edge_weights(g.num_edge, seed, g.indptr.device))
+    ds = synthetic.make_synthetic_dataset(
+        num_node=num_node, avg_degree=avg_degree, feat_dim=FEAT_DIM,
+        num_class=NUM_CLASS, planted_signal=signal,
+        power_law="rmat" if rmat else True, seed=seed)
+    if sample_type.startswith("weighted"):
+        synthetic.build_alias_tables(ds)
     return ds
+
+
+def load(args, config):
+    """The dataset the flags name: the ``--synthetic`` graph, or the
+    directory ``config.dataset_path``."""
+    if args.synthetic or args.dataset == "synthetic":
+        return synthetic_dataset(args.synthetic_nodes, args.synthetic_degree,
+                                 args.synthetic_signal, args.seed,
+                                 args.synthetic_rmat, args.sample_type)
+    from xgnn_tpu_torch import load_dataset
+
+    return load_dataset(config.dataset_path)
 
 
 def main(argv: Optional[Sequence[str]] = None):
@@ -154,7 +160,8 @@ def main(argv: Optional[Sequence[str]] = None):
                                ("compute_dtype", args.compute_dtype))
              if v is not None}
     config = RunConfig(
-        model=args.model, **extra, sample_type=args.sample_type,
+        model=args.model, dataset=args.dataset, root_path=args.root_path,
+        **extra, sample_type=args.sample_type,
         fanout=tuple(args.fanout), num_layer=len(args.fanout),
         batch_size=args.batch_size, num_epoch=args.num_epoch,
         num_hidden=args.num_hidden, num_head=args.num_head, lr=args.lr,
@@ -174,9 +181,7 @@ def main(argv: Optional[Sequence[str]] = None):
     if args.validate_configs:
         return None
     device = "cpu" if args.cpu else None
-    ds = synthetic_dataset(args.synthetic_nodes, args.synthetic_degree,
-                           args.seed, device, args.sample_type)
-    engine = Engine(ds, config, device=device)
+    engine = Engine(load(args, config), config, device=device)
     engine.run()
     if args.report_acc:
         acc = engine.evaluate("test")

@@ -22,10 +22,9 @@ on that device, and never waits on the host inside its layers.
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
-from .device import resolve
+from .device import resolve, to_tensor
 from .models.gnn import GATConv, GCNConv, SAGEConv
 from .ops.spmm import gat_aggregate_csr, spmm_csr
 
@@ -62,11 +61,6 @@ def _layer_fn(layer):
                      "gat have one)")
 
 
-def _on(a, device, dtype=None) -> torch.Tensor:
-    t = torch.as_tensor(a)
-    return t.to(device=device, dtype=dtype or t.dtype)
-
-
 @torch.no_grad()
 def full_graph_inference(model, indptr, indices, feat, num_node=None,
                          device=None) -> torch.Tensor:
@@ -94,9 +88,9 @@ def full_graph_inference(model, indptr, indices, feat, num_node=None,
             raise ValueError(f"full_graph_inference: the model is on "
                              f"{p.device}, the inference on {dev}; move it "
                              "with model.to(...)")
-    indptr = _on(indptr, dev, torch.int32)
-    indices = _on(indices, dev, torch.int32)
-    h = _on(feat, dev, torch.float32)
+    indptr = to_tensor(indptr, dev, torch.int32)
+    indices = to_tensor(indices, dev, torch.int32)
+    h = to_tensor(feat, dev, torch.float32)
     last = len(fns) - 1
     for i, (fn, layer) in enumerate(zip(fns, model.layers)):
         h = fn(layer, indptr, indices, h, num_node)
@@ -111,7 +105,8 @@ def evaluate_full(model, indptr, indices, feat, label, node_set,
     largest logit) is its label."""
     logits = full_graph_inference(model, indptr, indices, feat, device=device)
     pred = torch.argmax(logits, dim=-1)
-    sel = _on(np.asarray(node_set), pred.device, torch.long)
-    ok = (pred[sel] == _on(label, pred.device)[sel].to(pred.dtype)).sum()
+    sel = to_tensor(node_set, pred.device, torch.long)
+    ok = (pred[sel] == to_tensor(label, pred.device)[sel].to(pred.dtype)
+          ).sum()
     return float(ok) / len(node_set)
 

@@ -36,6 +36,7 @@ tensors on the CPU.  Launches are counted as ``tiered_split`` and
 from __future__ import annotations
 
 import ctypes
+import warnings
 from typing import Optional, Union
 
 import torch
@@ -79,7 +80,12 @@ class MappedHostTensor:
                  dtype: torch.dtype, what: str = "MappedHostTensor",
                  share_on_cpu: bool = False):
         device = torch.device(device)
-        t = torch.as_tensor(data).detach()
+        with warnings.catch_warnings():
+            # a read-only array (a dataset file's memory map) is copied
+            # below, or only read where it is shared on the CPU
+            warnings.filterwarnings("ignore", "The given NumPy array is "
+                                    "not writable")
+            t = torch.as_tensor(data).detach()
         own = t.to("cpu", dtype)
         if own is t and (device.type == "cuda" or not share_on_cpu):
             # no copy was made: never pin memory that the caller holds

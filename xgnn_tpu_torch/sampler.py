@@ -69,14 +69,19 @@ def make_tiered_topology(indptr, indices, percentage: float,
     weighted tables for a weighted ``sample_type``, and a coarse CDF of the
     hot rows); and the whole CSR with those tables in host memory, pinned
     and mapped for ``device`` (:class:`~xgnn_tpu_torch.store.topology.
-    MappedHostCSR`).  The arrays may be numpy arrays or tensors on any
-    device.
+    MappedHostCSR`).  The arrays may be numpy arrays (a dataset directory's
+    read-only memory maps among them, a uint32 ``indptr`` from 2^31 edges
+    on) or tensors on any device.
 
     Returns ``(hot_graph, tier, num_node)`` for ``Sampler(hot_graph, cfg,
     tier=tier, num_node=num_node)``: the reference's single-GPU large-graph
     mode (``evaluation/large_graph --use-dist-graph 0.85``)."""
     device = resolve(device)
     host_indptr = host_array(indptr)
+    if host_indptr.dtype == np.uint32:
+        # a dataset file's offsets from 2^31 edges on: int64, as the host
+        # CSR holds them
+        host_indptr = host_indptr.astype(np.int64)
     ncn = compute_num_cache_node(host_indptr, percentage)
     ncn = clamp_num_cache_node_int32(host_indptr, ncn, 1)
     e = int(host_indptr[ncn])

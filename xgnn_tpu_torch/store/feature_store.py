@@ -26,10 +26,10 @@ from __future__ import annotations
 
 from typing import Optional
 
-import numpy as np
 import torch
 
 from .. import constants as C
+from ..device import to_tensor
 from ..ops.gather import gather_rows
 from ..ops.tiered import MappedHostTable, tiered_extract
 
@@ -47,8 +47,8 @@ class HBMFeatureSource:
     default)."""
 
     def __init__(self, feat, device, dtype: Optional[torch.dtype] = None):
-        self.feat = torch.as_tensor(feat).to(
-            device=device, dtype=dtype or torch.float32).contiguous()
+        self.feat = to_tensor(feat, device, dtype or torch.float32
+                              ).contiguous()
         self.feat_dim = int(self.feat.shape[1])
 
     def extract(self, input_nodes: torch.Tensor, num_input):
@@ -92,8 +92,8 @@ class TieredFeatureSource:
         the device; the rows are read from the host table by K11's
         all-miss form."""
         num_node = self.host.tensor.shape[0]
-        cache_ids = torch.as_tensor(ranking[: self.num_cache]).to(
-            device=self.device, dtype=torch.int32)
+        cache_ids = to_tensor(ranking[: self.num_cache], self.device,
+                              torch.int32)
         posmap = torch.full((num_node,), EMPTY, dtype=torch.int32,
                             device=self.device)
         posmap[cache_ids.long()] = torch.arange(
@@ -126,10 +126,7 @@ class LabelSource:
     """Labels in device memory as int32, negative labels clipped to 0."""
 
     def __init__(self, label, device):
-        if isinstance(label, torch.Tensor):
-            lab = label.to(device=device, dtype=torch.int32)
-        else:
-            lab = torch.from_numpy(np.asarray(label).astype(np.int32)).to(device)
+        lab = to_tensor(label, device, torch.int32)
         self.label = torch.clamp(lab, min=0).contiguous()
 
     def extract(self, output_nodes: torch.Tensor, num_output):

@@ -1,16 +1,19 @@
 """Synthetic power-law graphs built on the device.
 
-The port of ``xgnn_tpu/synthetic_device.py``'s ``make_device_dataset`` with
-``dedup=False`` (``_gen_edges`` and ``_build_csr_fast``): power-law endpoint
-draws, one sort by source, then a bincount and cumsum for ``indptr``.
-Multi-edges are kept and self-loops dropped.  The random streams are
-PyTorch's, so the graph is not bit-equal to the JAX package's for a seed;
-it is drawn from the same distribution.  With ``weighted=True`` the graph
-also carries random edge weights as row-local prefix sums, their coarse
-CDF and the largest degree (``_prefix_table`` and
-``build_coarse_cdf`` there).  :func:`alias_tables` builds alias tables for
-the same weights on the device, which the JAX package builds only on the
-host.
+The port of ``xgnn_tpu/synthetic_device.py``'s ``make_device_dataset``:
+power-law endpoint draws (``_gen_edges``), symmetrised, then a CSR with
+multi-edges and self-loops removed (``dedup=True``, the default:
+``_build_csr``, one sort of the int64 keys ``src * N + dst``) or with
+multi-edges kept (``dedup=False``: ``_build_csr_fast``, one sort by
+source).  The random streams are PyTorch's, so the graph is not bit-equal
+to the JAX package's for a seed; it is drawn from the same distribution.
+The JAX package pads the arrays to its TPU tile; the port keeps them
+trimmed.  With ``weighted=True`` the graph also carries random edge
+weights as row-local prefix sums, their coarse CDF and the largest degree
+(``_prefix_table`` and ``build_coarse_cdf`` there).  :func:`alias_tables`
+builds alias tables for the same weights on the device, which the JAX
+package builds only on the host.  The host test graphs, bit-equal to the
+JAX package's, are ``synthetic.make_synthetic_dataset``'s.
 """
 
 from __future__ import annotations
@@ -59,6 +62,27 @@ def _build_csr_fast(src: torch.Tensor, dst: torch.Tensor, num_node: int):
     del order
     counts = torch.bincount(s, minlength=num_node)
     indptr = torch.zeros(num_node + 1, dtype=torch.int32, device=s.device)
+    indptr[1:] = torch.cumsum(counts, 0)
+    return indptr, indices
+
+
+def _build_csr(src: torch.Tensor, dst: torch.Tensor, num_node: int):
+    """COO to CSR with multi-edges and self-loops removed: the sorted
+    distinct int64 keys ``src * num_node + dst`` of the edges that are not
+    loops.  The JAX package sorts the int32 pairs with ``lexsort`` (a TPU
+    runs without 64-bit types); one sort of the key gives the same CSR:
+    each row's neighbours ascending and distinct."""
+    keep = src != dst
+    key = torch.unique(src[keep].to(torch.int64) * num_node
+                       + dst[keep].to(torch.int64))
+    del keep
+    rows = torch.div(key, num_node, rounding_mode="floor")
+    indices = (key - rows * num_node).to(torch.int32)
+    del key
+    counts = torch.bincount(rows, minlength=num_node)
+    del rows
+    indptr = torch.zeros(num_node + 1, dtype=torch.int32,
+                         device=indices.device)
     indptr[1:] = torch.cumsum(counts, 0)
     return indptr, indices
 
@@ -192,11 +216,15 @@ def make_device_dataset(
     symmetric: bool = True,
     device: Optional[str] = None,
     weighted: bool = False,
+    dedup: bool = True,
 ) -> Dataset:
     """Build a power-law graph with ``num_edge`` endpoint draws (twice as
-    many edges when ``symmetric``), normal features, uniform labels and a
-    random train/valid/test split.  Topology, features and labels stay on
-    ``device``; the node sets come to the host.  ``weighted`` adds edge
+    many when ``symmetric``; with ``dedup`` the distinct ones that are not
+    loops, else every one that is not a loop), normal features, uniform
+    labels and a random train/valid/test split.  ``dedup`` draws nothing,
+    so the features, labels and split are the same either way.  Topology,
+    features and labels stay on ``device``; the node sets come to the
+    host.  ``weighted`` adds edge
     weights U[0.1, 1.0), drawn from a generator of their own (the same
     graph, features and split as unweighted), as the prefix table and its
     coarse CDF: what ``weighted_khop_prefix`` samples from."""
@@ -205,7 +233,8 @@ def make_device_dataset(
     src, dst = _gen_edges(num_node, num_edge, alpha, gen, device)
     if symmetric:
         src, dst = torch.cat([src, dst]), torch.cat([dst, src])
-    indptr, indices = _build_csr_fast(src, dst, num_node)
+    indptr, indices = (_build_csr if dedup else _build_csr_fast)(
+        src, dst, num_node)
     del src, dst
     graph = Graph(indptr=indptr, indices=indices)
 

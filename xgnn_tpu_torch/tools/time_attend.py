@@ -66,7 +66,7 @@ def main() -> int:
     _build.build()
     ds = make_device_dataset(cs.NUM_NODE, cs.NUM_EDGE, cs.FEAT_DIM,
                              cs.NUM_CLASS, train_frac=0.08, seed=0,
-                             name="products_synth")
+                             name="products_synth", dedup=False)
     cfg = RunConfig(batch_size=cs.BATCH, fanout=cs.FANOUT,
                     num_layer=len(cs.FANOUT), num_hidden=256,
                     model="graphsage", sample_type="khop3",

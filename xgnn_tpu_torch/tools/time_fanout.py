@@ -269,7 +269,7 @@ def main() -> int:
           flush=True)
     ds = make_device_dataset(cs.NUM_NODE, cs.NUM_EDGE, cs.FEAT_DIM,
                              cs.NUM_CLASS, train_frac=0.08, seed=0,
-                             name="products_synth")
+                             name="products_synth", dedup=False)
     cfg = RunConfig(**cs.BENCH_CONFIG)
     seeds, n = next(Shuffler(ds.train_set, cs.BATCH, seed=7).epoch_batches(0))
     batch = Sampler(ds.graph, cfg, direct_extract=True).sample(

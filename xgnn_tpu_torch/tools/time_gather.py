@@ -171,7 +171,7 @@ def main() -> int:
                            device=dev)[:8000].to(torch.int32)
     ds = make_device_dataset(cs.NUM_NODE, cs.NUM_EDGE, cs.FEAT_DIM,
                              cs.NUM_CLASS, train_frac=0.08, seed=0,
-                             name="products_synth")
+                             name="products_synth", dedup=False)
     batch_seeds, n = next(Shuffler(ds.train_set, cs.BATCH,
                                    seed=7).epoch_batches(0))
     dst_ids = Sampler(ds.graph, RunConfig(**cs.BENCH_CONFIG),

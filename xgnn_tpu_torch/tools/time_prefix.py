@@ -117,7 +117,7 @@ def main() -> int:
     libs = build_variants(_build, own)
     ds = make_device_dataset(cs.NUM_NODE, cs.NUM_EDGE, cs.FEAT_DIM,
                              cs.NUM_CLASS, train_frac=0.08, seed=0,
-                             name="products_synth", weighted=True)
+                             name="products_synth", weighted=True, dedup=False)
     g = ds.graph
     seeds, n = next(Shuffler(ds.train_set, cs.BATCH, seed=7).epoch_batches(0))
     frontier = torch.from_numpy(seeds).to(dev)

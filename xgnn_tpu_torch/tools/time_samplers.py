@@ -164,7 +164,7 @@ def main() -> int:
 
     ds = make_device_dataset(cs.NUM_NODE, cs.NUM_EDGE, cs.FEAT_DIM,
                              cs.NUM_CLASS, train_frac=0.08, seed=0,
-                             name="products_synth")
+                             name="products_synth", dedup=False)
     g = ds.graph
     w = edge_weights(g.num_edge, 0, dev)
     prefix = prefix_table(g.indptr, w)

@@ -140,7 +140,7 @@ def main() -> int:
           flush=True)
     ds = make_device_dataset(cs.NUM_NODE, cs.NUM_EDGE, cs.FEAT_DIM,
                              cs.NUM_CLASS, train_frac=0.08, seed=0,
-                             name="products_synth")
+                             name="products_synth", dedup=False)
     n = ds.num_node
     graphs = {"all rows": (ds.graph.indptr, ds.graph.indices)}
     deg = ds.graph.indptr[1:] - ds.graph.indptr[:-1]

@@ -199,7 +199,7 @@ def main() -> int:
     _build.build()
     ds = make_device_dataset(cs.NUM_NODE, cs.NUM_EDGE, cs.FEAT_DIM,
                              cs.NUM_CLASS, train_frac=0.08, seed=0,
-                             name="products_synth")
+                             name="products_synth", dedup=False)
     cfg = RunConfig(**dict(cs.BENCH_CONFIG, cache_percentage=cs.CACHE_PCT,
                            cache_policy="pre_sample"))
     eng = Engine(ds, cfg).init()

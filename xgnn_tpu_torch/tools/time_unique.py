@@ -75,7 +75,7 @@ def main() -> int:
     print(f"card: {card}; package {package}", flush=True)
     ds = make_device_dataset(cs.NUM_NODE, cs.NUM_EDGE, cs.FEAT_DIM,
                              cs.NUM_CLASS, train_frac=0.08, seed=0,
-                             name="products_synth")
+                             name="products_synth", dedup=False)
     graph = ds.graph
     seeds, n = next(Shuffler(ds.train_set, cs.BATCH, seed=7).epoch_batches(0))
     frontier = torch.from_numpy(seeds).to(dev)

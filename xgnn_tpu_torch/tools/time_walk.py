@@ -56,7 +56,7 @@ def main() -> int:
     print(f"card: {card}; package {package}", flush=True)
     ds = make_device_dataset(cs.NUM_NODE, cs.NUM_EDGE, cs.FEAT_DIM,
                              cs.NUM_CLASS, train_frac=0.08, seed=0,
-                             name="products_synth")
+                             name="products_synth", dedup=False)
     graph = ds.graph
     cfg = RunConfig(batch_size=cs.BATCH, model="pinsage",
                     sample_type="random_walk", num_neighbor=cs.NUM_NEIGHBOR,

@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from . import constants as C
+from .device import to_tensor
 
 EMPTY = C.EMPTY_KEY
 
@@ -45,7 +46,8 @@ class Graph:
     @classmethod
     def from_dataset(cls, ds, device, weighted: bool = False) -> "Graph":
         """The dataset's CSR on ``device``; with ``weighted``, also the
-        tables it has, and the coarse CDF of its prefix table."""
+        tables it has, and the coarse CDF of its prefix table.  The arrays
+        may be read-only memory maps of a dataset directory."""
         iptr = np.asarray(ds.indptr)
         if len(iptr) and int(iptr[-1]) >= 2**31:
             # edge offsets are int32, as on the JAX package's single store
@@ -54,19 +56,16 @@ class Graph:
                 "int32 CSR cannot address them"
             )
 
-        def to(a, dtype=np.int32):
-            if a is None:
-                return None
-            return torch.as_tensor(np.asarray(a).astype(dtype, copy=False)
-                                   ).to(device)
+        def to(a, dtype=torch.int32):
+            return None if a is None else to_tensor(a, device, dtype)
 
         g = cls(indptr=to(iptr), indices=to(ds.indices),
                 n_max_deg=int(np.max(np.diff(iptr))) if len(iptr) > 1
                 else None)
         if weighted:
-            g.prob_table = to(ds.prob_table, np.float32)
+            g.prob_table = to(ds.prob_table, torch.float32)
             g.alias_table = to(ds.alias_table)
-            g.prob_prefix_table = to(ds.prob_prefix_table, np.float32)
+            g.prob_prefix_table = to(ds.prob_prefix_table, torch.float32)
             if g.prob_prefix_table is not None:
                 from .ops.sampling import build_coarse_cdf
 
