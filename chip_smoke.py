@@ -240,6 +240,34 @@ Phases, each fatal on failure:
    the card; features and labels equal to phase 3's).  The phase's wall
    time and the ``{"dataset_files": ...}`` JSON line.
 
+14. The last single-card configurations.  GAT under bfloat16:
+   ``gat1_bf16`` and ``gat8_bf16`` (``feat_dtype``) and
+   ``gat1_bf16_compute`` (``compute_dtype``: the float32 table cast every
+   step, its per-step losses those of ``gat1_bf16`` bit for bit), each a
+   warm-up, a counted and a profiled epoch beside gat1's or gat8's
+   (epoch, busy ms a step, peak memory), their launches counted; K5 over
+   the bfloat16 table at layer 0's shape (1 and 8 heads), forward and the
+   backward without a table gradient, bit-equal to the float32 kernels
+   over the same values widened and held to the plain versions.  An F16
+   feature file: phase 3's graph and its features rounded to float16
+   written with ``save_dataset`` and the features rewritten as F16 (under
+   ``/dev/shm`` where it has room; deleted at the end whatever happens)
+   and loaded; ``graphsage_f16_files`` and ``gat1_f16_files`` from it,
+   their per-step losses equal bit for bit to the same paths over a
+   float32 table of the same values (``*_f16_widened``); K1, K4's mean
+   and K5 over the float16 table at layer 0's shape against their plain
+   versions; ``graphsage_cached_f16_files`` (cache 0.2, pre_sample: a
+   float16 cache and host tier) beside graphsage_cached (hit rate, miss
+   bytes a step, K11's reads' device ms) and K11's float16 reads exact;
+   the accuracy command line over the directory (K6a's float16 form at
+   layer 0 of both splits' inference, its launches counted), and K6a's
+   float16 form at that shape against its plain version on the card
+   (for each segment an f16 ulp of the row's aggregate of |h| times
+   1/deg and two of the result: the plain version's atomics sum in
+   another order) and bit for bit against the CPU's on every row past
+   2048 edges and 20,000 others.  The phase's wall time and the
+   ``{"last_configs": ...}`` JSON line.
+
 Each kernel is timed twice: ``ms`` back to back (the wrapper's host time
 included, where the host is the slower) and ``device_ms`` with the host
 ahead of the card (the card's time alone).  ``bound_ms`` reads each input
@@ -250,7 +278,8 @@ pick; K4's mean form moves the sum form's bytes.  K4's mean-form
 
 Prints the inference's JSON line, the tooling's (phase 10), the training
 options' (phase 11), the tiered topology's (phase 12), the dataset
-files' (phase 13), the kernels' JSON line, then the card's line (nvidia-smi's name and power limit), then the
+files' (phase 13), the last configurations' (phase 14), the kernels' JSON
+line, then the card's line (nvidia-smi's name and power limit), then the
 result line.
 Exits non-zero with no result line when there is no CUDA device.
 """
@@ -3351,13 +3380,14 @@ def main() -> int:
     })
     option_rows = {}
 
-    def option_path(path, base, change, per_step, f32_path):
+    def option_path(path, base, change, per_step, f32_path, dataset=None):
         """A warm-up and a counted epoch (run_epochs) and a profiled one on
-        the path's own engine; its busy time a step beside the float32
-        path's of phase 6 or 8."""
+        the path's own engine (over ``dataset``, phase 3's by default);
+        its busy time a step beside the float32 path's of phase 6 or 8."""
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(dev)
-        eng = Engine(ds, dataclasses.replace(base, **change)).init()
+        eng = Engine(ds if dataset is None else dataset,
+                     dataclasses.replace(base, **change)).init()
         r = run_epochs(path, eng)
         rate_and_memory(path, r, per_step)
         prof = profiled_epoch(path, eng, 2) or {}
@@ -3426,11 +3456,13 @@ def main() -> int:
            flops=0, per_step=1, path="graphsage_bf16")
     del out, ref, safe, valid
 
-    def fwd_bf16_case(blk, weights, path, mean, wname):
-        """K4's forward over the bfloat16 table at a layer-0 shape, bit for
-        bit against its plain version (the rows upcast, summed in the same
-        order); the library yardstick is F.embedding_bag over the bfloat16
-        table (float32 accumulation, a bfloat16 result)."""
+    def fwd16_case(table, blk, weights, path, mean, wname):
+        """K4's forward over a bfloat16 or float16 table at a layer-0
+        shape, bit for bit against its plain version (the rows upcast,
+        summed in the same order); the library yardstick is
+        F.embedding_bag over the same table (float32 accumulation, a result
+        of the table's type)."""
+        s16 = "bf16" if table.dtype == torch.bfloat16 else "f16"
         nb = blk.neigh
         fn, plain = ((masked_mean, masked_mean_plain) if mean
                      else (fanout_reduce, fanout_reduce_plain))
@@ -3439,13 +3471,13 @@ def main() -> int:
             s_ref, d_ref = plain(table, nb, weights)
         torch.cuda.synchronize()
         form = "mean" if mean else "sum"
-        assert_close(f"fanout_fwd_bf16 {form}", s, s_ref, exact=True)
-        assert_close("fanout_fwd_bf16 denom", d, d_ref, exact=True)
+        assert_close(f"fanout_fwd_{s16} {form}", s, s_ref, exact=True)
+        assert_close(f"fanout_fwd_{s16} denom", d, d_ref, exact=True)
         valid = (nb >= 0) & (nb < table.shape[0])
         picks, rows_read = int(valid.sum()), distinct_rows(nb, valid)
         clamped = torch.where(valid, nb, 0).long()
         msk = valid.float() if weights is None else valid.float() * weights
-        msk_bf = msk.to(torch.bfloat16)
+        msk_bf = msk.to(table.dtype)
 
         def library():
             out = F.embedding_bag(clamped, table, mode="sum",
@@ -3456,19 +3488,19 @@ def main() -> int:
         other = (nb.numel() * (4 if weights is None else 8)
                  + nb.shape[0] * (width + 1) * 4)
         with torch.no_grad():
-            record("fanout_fwd_bf16", "xgnn_tpu_torch/csrc/fanout.cu",
+            record(f"fanout_fwd_{s16}", "xgnn_tpu_torch/csrc/fanout.cu",
                    "xgnn_tpu/models/gnn.py:"
                    + ("144-147 (masked_mean_stream over fanout_reduce, :62; "
                       "K14 xgnn_tpu/ops/fanout.py:47)" if mean
                       else "62 (K14 xgnn_tpu/ops/fanout.py:47)"),
                    f"{form} form: {tuple(nb.shape)} picks ({picks} valid, "
                    f"{rows_read} distinct rows) over {tuple(table.shape)} "
-                   "bf16" + ("" if weights is None else f", {wname}"),
+                   + s16 + ("" if weights is None else f", {wname}"),
                    max(max_err(s, s_ref), max_err(d, d_ref)), "exact",
                    lambda: fn(table, nb, weights),
                    lambda: plain(table, nb, weights), library,
-                   "F.embedding_bag(mode='sum') over the bf16 table (f32 "
-                   "accumulation, a bf16 result)"
+                   f"F.embedding_bag(mode='sum') over the {s16} table (f32 "
+                   f"accumulation, a {s16} result)"
                    + (", then / clamp(denom, 1e-9)" if mean else ""),
                    nbytes=rows_read * width * 2 + other,
                    pick_nbytes=picks * width * 2 + other,
@@ -3477,11 +3509,11 @@ def main() -> int:
                    per_step=1, path=path)
         del s, d, s_ref, d_ref
 
-    fwd_bf16_case(b0, None, "graphsage_bf16", True, "")
+    fwd16_case(table, b0, None, "graphsage_bf16", True, "")
     # GCN's layer 0: the sum form with K7's weights
     cnt = pick_multiplicity(b0.neigh, table.shape[0])
     gcn_w = torch.rsqrt(torch.clamp(cnt.to(torch.float32), min=1.0))
-    fwd_bf16_case(b0, gcn_w, "gcn_bf16", False, "GCN weights")
+    fwd16_case(table, b0, gcn_w, "gcn_bf16", False, "GCN weights")
     del cnt, gcn_w, b0
     dl = Engine(ds, dataclasses.replace(cfg, **bf16, device_loop=True)).init()
     dl_times = [dl.train_epoch(epoch)["time"] for epoch in (0, 1)]
@@ -3507,8 +3539,8 @@ def main() -> int:
     eng = option_path("pinsage_bf16", pin_cfg, bf16, pin_edges, "pinsage")
     table = eng.feature_source.feat
     pb0 = eng.sampler.sample(seeds, n, generator(dev, 7)).blocks[0]
-    fwd_bf16_case(pb0, pb0.weights, "pinsage_bf16", True,
-                  "the walk's visit counts")
+    fwd16_case(table, pb0, pb0.weights, "pinsage_bf16", True,
+               "the walk's visit counts")
     del eng, pb0, table
     option_path("mlp_bf16", cfg, dict(model="mlp", **bf16), edges_per_step,
                 "mlp")
@@ -4149,6 +4181,498 @@ def main() -> int:
                                     expected, host_runs, init_items,
                                     profiled_epoch)
     print(json.dumps({"dataset_files": files_row}), flush=True)
+
+    # ---- 14. the last single-card configurations: GAT under bfloat16, and
+    # an F16 feature file trained from and evaluated end to end --------------
+    torch.cuda.empty_cache()
+    t14 = time.perf_counter()
+    gcfg = {"gat1": dict(model="gat", num_head=1),
+            "gat8": dict(model="gat", num_head=8)}
+
+    def gat16(s):
+        """GAT over a 2-byte layer-0 table: its el_dst rows (K1) and K5's
+        forward and backward at layer 0 in that type; labels in float32"""
+        return {"gather_rows": steps, f"gather_rows_{s}": steps,
+                f"attend_fwd_{s}": steps, "attend_fwd": 2 * steps,
+                f"attend_bwd_{s}": steps, "attend_bwd": 2 * steps, **sampled}
+
+    expected.update({
+        "gat1_bf16": gat16("bf16"), "gat8_bf16": gat16("bf16"),
+        # the float32 table cast to bfloat16 every step, as JAX casts it
+        "gat1_bf16_compute": gat16("bf16"),
+        # the F16 file's float16 table: K1's dst rows, K4's layer-0 mean
+        "graphsage_f16_files": {"gather_rows": steps,
+                                "gather_rows_f16": steps,
+                                "fanout_fwd_f16": steps,
+                                "fanout_fwd": 2 * steps,
+                                "fanout_bwd": 2 * steps, **sampled},
+        "graphsage_f16_widened": expected["graphsage"],
+        "gat1_f16_files": gat16("f16"),
+        "gat1_f16_widened": expected["gat1"],
+        # a float16 cache and host tier: K11 copies the misses' 2-byte rows
+        "graphsage_cached_f16_files": {"sample_khop": 3 * steps,
+                                       "unique_seeded": 3 * steps,
+                                       "tiered_split": steps,
+                                       "tiered_direct_f16": steps,
+                                       "gather_rows": steps,
+                                       "fanout_fwd_f16": steps,
+                                       "fanout_fwd": 2 * steps,
+                                       "fanout_bwd": 2 * steps},
+    })
+    seeds, n = next(Shuffler(ds.train_set, BATCH, seed=7).epoch_batches(0))
+    seeds = torch.from_numpy(seeds).to(dev)
+
+    def attend16_case(eng, path, heads):
+        """K5 over the engine's 2-byte table at layer 0's shape (shared
+        mode): the forward and the backward without a table gradient
+        bit-equal to the float32 kernels over the same values widened, and
+        held to the plain versions at the float32 form's tolerances."""
+        t16 = eng.feature_source.feat
+        s16 = "bf16" if t16.dtype == torch.bfloat16 else "f16"
+        blk = eng.sampler.sample(seeds, n, generator(dev, 7)).blocks[0]
+        nb = blk.neigh
+        wide = t16.float()
+        el, proj = attend_inputs(wide, blk, heads, SHARED)
+        if t16.dtype == torch.bfloat16:  # the model rounds wr so
+            proj = proj.to(torch.bfloat16).float()
+        got = attend_forward(t16, nb, el, proj, SHARED)
+        want = attend_forward(wide, nb, el, proj, SHARED)
+        ref = attend_forward_plain(t16, nb, el, proj, SHARED)
+        torch.cuda.synchronize()
+        for what, a, b, c in zip(("out", "m", "s"), got, want, ref):
+            assert_close(f"attend_fwd_{s16} {what} against the float32 "
+                         "kernel over the widened table", a, b, exact=True)
+            assert_close(f"attend_fwd_{s16} {what}", a, c, exact=False)
+        fwd_err = max(max_err(a, c) for a, c in zip(got, ref))
+        del want, ref
+        g_out = torch.randn(got[0].shape, generator=gen, device=dev)
+        args = (g_out, t16, nb, el, proj, got[1], got[2], SHARED, False)
+        back = attend_backward(*args)
+        back_w = attend_backward(g_out, wide, nb, el, proj, got[1], got[2],
+                                 SHARED, False)
+        back_ref = attend_backward_plain(*args)
+        torch.cuda.synchronize()
+        for what, a, b in (("g_el_dst", back[1], back_w[1]),
+                           ("g_proj", back[2], back_w[2])):
+            assert_close(f"attend_bwd_{s16} {what} against the float32 "
+                         "kernel over the widened table", a, b, exact=True)
+        if not torch.allclose(back[1], back_ref[1], rtol=K5_BWD_TOL,
+                              atol=K5_BWD_TOL):
+            raise AssertionError(f"attend_bwd_{s16} g_el_dst: kernel "
+                                 "disagrees with its plain version (max abs "
+                                 f"err {max_err(back[1], back_ref[1])})")
+        rel = float((back[2].double() - back_ref[2].double()).norm()
+                    / back_ref[2].double().norm())
+        if not rel < 1e-5:
+            raise AssertionError(f"attend_bwd_{s16} g_proj: relative norm "
+                                 f"error {rel} (tolerance 1e-5)")
+        bwd_err = max_err(back[1], back_ref[1])
+        del back, back_w, back_ref, wide
+        picks, valid, per_pick = attend_cost(t16, nb, heads, SHARED)
+        rows_read = distinct_rows(nb, valid)
+        width = t16.shape[1]
+        out_numel = got[0].numel()
+        shape = (f"layer 0: {tuple(nb.shape)} picks ({picks} valid, "
+                 f"{rows_read} distinct rows) over {tuple(t16.shape)} {s16}, "
+                 f"{heads} head(s), shared")
+        idx = torch.where(valid, nb, 0).reshape(-1)
+
+        def compose(el_, proj_):
+            """the composition of stock ops over the rows widened after
+            their gather"""
+            d, k = nb.shape
+            rows = torch.index_select(t16, 0, idx).float().view(d, k, -1)
+            e = F.leaky_relu(el_[:, None, :] + rows @ proj_, 0.2)
+            a = torch.nan_to_num(torch.softmax(
+                e.masked_fill(~valid[:, :, None], -math.inf), 1))
+            return torch.bmm(a.transpose(1, 2), rows)
+
+        other = (nb.numel() * 4 + el.numel() * 4 + proj.numel() * 4
+                 + out_numel * 4 + 2 * el.numel() * 4)
+        source = (f"xgnn_tpu_torch/csrc/attend.cu (library attend_{s16}: "
+                  f"-DXG_ATTEND_ELEM={1 if s16 == 'bf16' else 2})")
+        record(f"attend_fwd_{s16}", source, "xgnn_tpu/models/gnn.py:486",
+               shape, fwd_err,
+               k5_tol + "; bit-equal to the float32 kernel over the widened "
+               "table",
+               lambda: attend_forward(t16, nb, el, proj, SHARED),
+               lambda: attend_forward_plain(t16, nb, el, proj, SHARED),
+               lambda: compose(el, proj),
+               f"index_select of the {s16} rows, widened -> masked softmax "
+               "-> bmm (stock PyTorch ops)",
+               nbytes=rows_read * width * 2 + other,
+               pick_nbytes=picks * width * 2 + other,
+               flops=4 * picks * per_pick, per_step=1, path=path)
+        leaves = [el.clone().requires_grad_(True),
+                  proj.clone().requires_grad_(True)]
+        lib_out = compose(*leaves)
+        # g_out, the ids, el_dst, m, s and proj in; g_el_dst and g_proj out
+        other = (out_numel * 4 + nb.numel() * 4 + 3 * el.numel() * 4
+                 + 2 * proj.numel() * 4 + el.numel() * 4)
+        record(f"attend_bwd_{s16}", source, "xgnn_tpu/models/gnn.py:486",
+               shape + ", without g_table (layer 0's input)", bwd_err,
+               f"g_el_dst rtol/atol {K5_BWD_TOL}; g_proj relative norm "
+               "1e-5; bit-equal to the float32 kernel over the widened table",
+               lambda: attend_backward(*args),
+               lambda: attend_backward_plain(*args),
+               lambda: torch.autograd.grad(lib_out, leaves, g_out,
+                                           retain_graph=True),
+               "torch.autograd.grad of the same composition w.r.t. el_dst "
+               "and proj",
+               nbytes=rows_read * width * 2 + other,
+               pick_nbytes=picks * width * 2 + other,
+               # the score, g_out . payload and g_proj: 3 multiply-adds an
+               # element
+               flops=6 * picks * per_pick, per_step=1, path=path)
+        kernels[-1]["g_proj_rel_err"] = rel
+        print(f"{tag} {path}: K5 over the {s16} table bit-equal to the "
+              "float32 kernels over the widened table, forward and "
+              f"backward; g_proj relative norm error {rel:.3e}", flush=True)
+        del got, lib_out, leaves, g_out
+
+    # GAT under bfloat16: the table (feat_dtype), and the float32 table cast
+    # every step (compute_dtype), beside gat1's and gat8's float32 paths
+    for path, f32_path, change in (
+            ("gat1_bf16", "gat1", dict(feat_dtype="bfloat16")),
+            ("gat8_bf16", "gat8", dict(feat_dtype="bfloat16")),
+            ("gat1_bf16_compute", "gat1", dict(compute_dtype="bfloat16"))):
+        eng = option_path(path, cfg, {**gcfg[f32_path], **change},
+                          edges_per_step, f32_path)
+        if "feat_dtype" in change:
+            if eng.feature_source.feat.dtype != torch.bfloat16:
+                raise AssertionError(f"{path}: a "
+                                     f"{eng.feature_source.feat.dtype} table")
+            attend16_case(eng, path, eng.config.num_head)
+        del eng
+    same_losses("gat1_bf16_compute", "gat1_bf16")
+
+    # an F16 directory: phase 3's features rounded to float16, written with
+    # the graph into /dev/shm where it has room; deleted at the end
+    import contextlib
+    import copy
+    import io
+    import shutil
+    import tempfile
+
+    from xgnn_tpu_torch import Dataset, load_dataset, save_dataset
+    from xgnn_tpu_torch import constants as xconst
+    from xgnn_tpu_torch.checkpoint import CheckpointManager
+    from xgnn_tpu_torch.examples import accuracy as accuracy_cli
+    from xgnn_tpu_torch.ops.spmm import SEGMENT, spmm_csr_f16_plain
+
+    g = ds.graph
+    half = ds.feat.to(dev, torch.float16)
+    f16_name = "products_synth_f16"
+    need = (4 * (ds.num_node + 1) + 4 * g.num_edge
+            + (2 * FEAT_DIM + 12) * ds.num_node)
+    shm = (shutil.disk_usage("/dev/shm").free
+           if os.path.isdir("/dev/shm") else 0)
+    tmp = tempfile.mkdtemp(prefix="xgnn_chip_smoke_f16_",
+                           dir="/dev/shm" if shm > need + 2**30 else None)
+    f16_dir = os.path.join(tmp, f16_name)
+    ckpt16 = os.path.join(tmp, "ckpt")
+    f16_row = {"directory": os.path.dirname(tmp), "bytes_needed": need}
+    try:
+        t0 = time.perf_counter()
+        src = Dataset(name=f16_name, num_node=ds.num_node,
+                      num_edge=g.num_edge, feat_dim=ds.feat_dim,
+                      num_class=ds.num_class, indptr=g.indptr.cpu().numpy(),
+                      indices=g.indices.cpu().numpy(), feat=None,
+                      label=ds.label.cpu().numpy(),
+                      train_set=np.asarray(ds.train_set),
+                      valid_set=np.asarray(ds.valid_set),
+                      test_set=np.asarray(ds.test_set))
+        save_dataset(src, f16_dir)
+        half_np = half.cpu().numpy()
+        half_np.tofile(os.path.join(f16_dir, xconst.FEAT_FILE))
+        meta = os.path.join(f16_dir, xconst.META_FILE)
+        with open(meta) as fh:
+            text = fh.read()
+        with open(meta, "w") as fh:
+            fh.write(text.replace(f"{xconst.META_FEAT_DATA_TYPE} F32",
+                                  f"{xconst.META_FEAT_DATA_TYPE} F16"))
+        del src
+        fds = load_dataset(f16_dir)
+        if (fds.feat.dtype != np.float16
+                or not np.array_equal(np.asarray(fds.feat), half_np)):
+            raise AssertionError("F16 directory: the features read back "
+                                 "differ from phase 3's rounded")
+        f16_row["write_and_load_s"] = time.perf_counter() - t0
+        print(f"{tag} F16 directory: phase 3's graph and its features "
+              f"rounded to float16 ({half_np.nbytes} bytes against "
+              f"{half_np.nbytes * 2} in float32) written and loaded in "
+              f"{f16_row['write_and_load_s']:.3f} s under "
+              f"{f16_row['directory']}", flush=True)
+        del half_np
+        # the same graph and values in float32: the widened twin
+        wds = copy.copy(ds)
+        wds.feat = half.float()
+        for path, dataset, change, f32_path in (
+                ("graphsage_f16_widened", wds, {}, "graphsage"),
+                ("graphsage_f16_files", fds, {}, "graphsage"),
+                ("gat1_f16_widened", wds, gcfg["gat1"], "gat1"),
+                ("gat1_f16_files", fds, gcfg["gat1"], "gat1")):
+            eng = option_path(path, cfg, change, edges_per_step, f32_path,
+                              dataset=dataset)
+            if path.endswith("_widened"):
+                del eng
+                continue
+            table = eng.feature_source.feat
+            if table.dtype != torch.float16:
+                raise AssertionError(f"{path}: a {table.dtype} table")
+            if path.startswith("gat"):
+                attend16_case(eng, path, 1)
+                del eng, table
+                continue
+            CheckpointManager(ckpt16).save(0, (eng.model, eng.opt))
+            blk = eng.sampler.sample(seeds, n, generator(dev, 7)).blocks[0]
+            ids = blk.dst_ids
+            out, ref = gather_rows(table, ids), gather_rows_plain(table, ids)
+            torch.cuda.synchronize()
+            assert_close("gather_rows_f16", out, ref, exact=True)
+            valid = (ids >= 0) & (ids < table.shape[0])
+            n_valid = int(valid.sum())
+            safe = torch.where(valid, ids, 0)
+            width = table.shape[1]
+            record("gather_rows_f16", "xgnn_tpu_torch/csrc/gather.cu",
+                   "xgnn_tpu/ops/pallas_gather.py:85",
+                   f"{ids.shape[0]} ids ({n_valid} valid) x "
+                   f"{tuple(table.shape)} f16", max_err(out, ref), "exact",
+                   lambda: gather_rows(table, ids),
+                   lambda: gather_rows_plain(table, ids),
+                   lambda: torch.index_select(table, 0, safe),
+                   "torch.index_select on the f16 table, the ids clamped "
+                   "into it",
+                   nbytes=n_valid * width * 2 + ids.shape[0] * (width * 2 + 4),
+                   flops=0, per_step=1, path=path)
+            del out, ref, safe, valid
+            fwd16_case(table, blk, None, path, True, "")
+            del eng, table, blk, ids
+        same_losses("graphsage_f16_files", "graphsage_f16_widened")
+        same_losses("gat1_f16_files", "gat1_f16_widened")
+        del wds
+
+        # the tiered store over the F16 file: a float16 cache and host tier
+        eng = option_path("graphsage_cached_f16_files", ccfg, {}, c_edges,
+                          "graphsage_cached", dataset=fds)
+        store = eng.feature_source
+        if (store.cache_feat.dtype != torch.float16
+                or store.feat_host.dtype != torch.float16):
+            raise AssertionError("graphsage_cached_f16_files: a cache of "
+                                 f"{store.cache_feat.dtype}, a host table of "
+                                 f"{store.feat_host.dtype}")
+        width = store.feat_dim
+        hits = {}
+        for key, hist in (("f16", eng.history[1]),
+                          ("f32", host_runs["graphsage_cached"]["hist"][1])):
+            hits[key] = (float(hist["hit"].sum() / (hist["hit"].sum()
+                                                    + hist["miss"].sum())),
+                         float(np.mean(hist["miss"])))
+        f16_row["cached"] = {
+            "hit_rate": hits["f16"][0], "f32_hit_rate": hits["f32"][0],
+            "miss_bytes_per_step": hits["f16"][1] * width * 2,
+            "f32_miss_bytes_per_step": hits["f32"][1] * width * 4}
+        cb = eng.sampler.sample(seeds, n, generator(dev, 7))
+        c_ids, c_num = cb.input_nodes, cb.num_input
+        out, counts = tiered_extract(c_ids, c_num, store.posmap,
+                                     store.cache_feat, store.host)
+        ref, ref_counts = tiered_extract_plain(c_ids, c_num, store.posmap,
+                                               store.cache_feat,
+                                               store.feat_host)
+        torch.cuda.synchronize()
+        assert_close("tiered_extract f16", out, ref, exact=True)
+        if not torch.equal(counts, ref_counts):
+            raise AssertionError("tiered_extract f16: counts differ")
+        del out, ref
+        p_out, p_counts, p_pos, p_ids = tiered_split_plain(
+            c_ids, c_num, store.posmap, store.cache_feat, store.feat_host)
+        misses = int(p_counts[1])
+        got = tiered_direct(p_out.clone(), p_ids, p_pos, p_counts,
+                            store.host)
+        ref = tiered_direct_plain(p_out.clone(), p_ids, p_pos, misses,
+                                  store.feat_host)
+        torch.cuda.synchronize()
+        assert_close("tiered_direct_f16", got, ref, exact=True)
+        d_err = max_err(got, ref)
+        del got, ref
+        d_out = p_out.clone()
+        pcie = misses * width * 2  # the host's float16 rows
+        d_hbm_ms = (misses * (width * 2 + 8) + 4) / HBM_BYTES_PER_S * 1e3
+        pcie_ms = pcie / pcie_rate * 1e3
+        record("tiered_direct_f16", "xgnn_tpu_torch/csrc/tiered.cu",
+               "xgnn_tpu/store/feature_store.py:111-118 (_combine_kernel) and "
+               "217-250 (the host gather, the copy)",
+               f"{misses} miss rows of {width} f16 from a ({NUM_NODE}, "
+               f"{width}) mapped host table into ({c_ids.numel()}, {width}) "
+               "f16", d_err, "exact",
+               lambda: tiered_direct(d_out, p_ids, p_pos, p_counts,
+                                     store.host),
+               lambda: tiered_direct_plain(d_out, p_ids, p_pos, misses,
+                                           store.feat_host),
+               None, "none: no one PyTorch call reads a mapped host table",
+               nbytes=0, flops=0, per_step=1,
+               path="graphsage_cached_f16_files", plain_reps=3,
+               bound=max((d_hbm_ms, "bytes"), (pcie_ms, "bytes")))
+        kernels[-1].update(pcie_bound_ms=pcie_ms, pcie_bytes=pcie,
+                           pcie_bytes_per_s=pcie / kernels[-1]["device_ms"]
+                           * 1e3)
+        f32_direct = [k for k in kernels if k["name"] == "tiered_direct"
+                      and k["path"] == "graphsage_cached"]
+        f16_row["cached"].update(
+            direct_device_ms=kernels[-1]["device_ms"],
+            f32_direct_device_ms=(f32_direct[0]["device_ms"]
+                                  if f32_direct else None))
+        print(f"{tag} graphsage_cached_f16_files epoch 1: hit rate "
+              f"{hits['f16'][0]:.6f} against graphsage_cached's "
+              f"{hits['f32'][0]:.6f}; miss bytes a step "
+              f"{f16_row['cached']['miss_bytes_per_step']:.1f} (2 a value) "
+              f"against {f16_row['cached']['f32_miss_bytes_per_step']:.1f}; "
+              f"K11's reads {kernels[-1]['device_ms']:.4f} ms on the card "
+              f"alone against {f16_row['cached']['f32_direct_device_ms']} "
+              "(phase 8's float32 rows)", flush=True)
+        del eng, store, cb, c_ids, p_out, p_pos, p_ids, d_out
+
+        # the accuracy command line over the directory, from graphsage_f16_
+        # files's checkpoint: K6a's float16 form at layer 0 of each split's
+        # full-graph inference
+        argv = (["--dataset", f16_name, "--root-path", tmp, "--fanout"]
+                + [str(k) for k in FANOUT]
+                + ["--num-hidden", str(cfg.num_hidden), "--checkpoint-dir",
+                   ckpt16])
+        torch.cuda.empty_cache()
+        _build.LAUNCHES.reset()
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            accs = accuracy_cli.main(argv)
+        torch.cuda.synchronize()
+        acc_s = time.perf_counter() - t0
+        counts = _build.LAUNCHES.snapshot()
+        counts_by_path["inference_f16_files"] = counts
+        if counts != {"spmm_csr_f16": 2, "spmm_csr": 4}:
+            raise AssertionError(f"accuracy over the F16 directory: "
+                                 f"launches {counts}")
+        for ln in buf.getvalue().splitlines():
+            if ln.startswith("test_result:"):
+                print(f"{tag}   {ln}", flush=True)
+        if not all(0.0 <= v <= 1.0 for v in accs.values()):
+            raise AssertionError(f"accuracy over the F16 directory: {accs}")
+        f16_row["accuracy_cli"] = dict(accs, wall_s=acc_s, launches=counts)
+        print(f"{tag} accuracy command line over the F16 directory: "
+              f"{accs} in {acc_s:.3f} s (the directory loaded, the "
+              f"checkpoint restored, two full-graph inferences); launches "
+              f"{counts}", flush=True)
+
+        # K6a's float16 form at that layer 0 shape
+        indptr, indices = g.indptr, g.indices
+        num_edge = indices.numel()
+        deg = (indptr[1:] - indptr[:-1]).long()
+        in_edges = torch.bincount(indices.long(), minlength=NUM_NODE)
+        src_rows = int((in_edges > 0).sum())
+        csr_bytes = num_edge * 4 + (NUM_NODE + 1) * 4
+        f = half.shape[1]
+
+        def fn():
+            return spmm_csr(indptr, indices, half, num_node=NUM_NODE,
+                            mean=True)
+
+        def plain():
+            return spmm_csr_f16_plain(indptr, indices, half,
+                                      num_node=NUM_NODE, mean=True)
+
+        csr_ones = torch.sparse_csr_tensor(
+            indptr, indices, torch.ones(num_edge, device=dev),
+            (NUM_NODE, NUM_NODE))
+        inv_deg = inverse_degree(indptr, NUM_NODE)[:, None]
+
+        def library():
+            return (torch.sparse.mm(csr_ones, half.float()) * inv_deg).half()
+
+        out, again, ref = fn(), fn(), plain()
+        torch.cuda.synchronize()
+        if not torch.equal(out, again):
+            raise AssertionError("spmm_csr_f16: two launches differ")
+
+        def ulp16(x):
+            """float16's spacing at |x| (2^-24 below its normal range)"""
+            return torch.exp2(torch.floor(torch.log2(torch.clamp(
+                x.double().abs(), min=2.0 ** -14))) - 10)
+
+        # On the card the plain version sums a segment with index_add_'s
+        # atomics, in another order: where the two float32 sums differ in
+        # their last bits their float16 roundings may fall apart by an ulp
+        # of the sum (at most the row's aggregate of |h|), which the mean
+        # scales by 1 / deg; the product's and each addition's roundings
+        # may then fall apart by an ulp of the result, for each segment
+        nseg = torch.clamp((deg + SEGMENT - 1) // SEGMENT, min=1)[:, None]
+        mass = spmm_csr_plain(indptr, indices, half.abs().float(),
+                              num_node=NUM_NODE)
+        inv = inverse_degree(indptr, NUM_NODE)[:, None].double()
+        tol = nseg * (ulp16(mass) * inv
+                      + 2 * ulp16(torch.maximum(out.abs(), ref.abs())))
+        if not bool(((out.double() - ref.double()).abs() <= tol).all()):
+            raise AssertionError("spmm_csr_f16: kernel disagrees with its "
+                                 "plain version (max abs err "
+                                 f"{max_err(out, ref)})")
+        del mass, inv, tol
+        # the CPU's plain version sums each segment in CSR order, as the
+        # kernel does: bit for bit on every hub row and 20,000 others
+        ip = indptr.cpu().long()
+        rows = torch.cat([torch.nonzero(deg > SEGMENT)[:, 0].cpu(),
+                          torch.randperm(NUM_NODE, generator=torch.Generator(
+                              ).manual_seed(14))[:20000]]).unique()
+        lens = ip[rows + 1] - ip[rows]
+        sub_ip = torch.cat([torch.zeros(1, dtype=torch.long),
+                            torch.cumsum(lens, 0)])
+        eids = (torch.repeat_interleave(ip[rows] - sub_ip[:-1], lens)
+                + torch.arange(int(sub_ip[-1])))
+        cpu_ref = spmm_csr_f16_plain(
+            sub_ip.to(torch.int32), indices.cpu()[eids], half.cpu(),
+            num_node=rows.numel(), mean=True)
+        if not torch.equal(out[rows.to(dev)].cpu().view(torch.int16),
+                           cpu_ref.view(torch.int16)):
+            raise AssertionError("spmm_csr_f16: kernel differs from the "
+                                 "CPU's plain version on sampled rows")
+        print(f"{tag} spmm_csr_f16: two launches equal bit for bit; "
+              f"bit-equal to the CPU's plain version on {rows.numel()} rows "
+              f"({int((deg > SEGMENT).sum())} past {SEGMENT} edges) holding "
+              f"{int(sub_ip[-1])} edges", flush=True)
+        lib_err = max_err(library(), out)
+        err = max_err(out, ref)
+        del out, again, ref, in_edges, cpu_ref, eids, ip
+        record("spmm_csr_f16", "xgnn_tpu_torch/csrc/spmm.cu",
+               "xgnn_tpu/ops/spmm.py:374-394 (_bucket_pass_pre) and 437-483 "
+               "(spmm_csr_planned) over a float16 h",
+               f"mean, inference layer 0 over the F16 file: ({NUM_NODE}, "
+               f"{num_edge}) CSR over ({half.shape[0]}, {f}) f16", err,
+               "for each segment, an f16 ulp of the row's aggregate of |h| "
+               "times 1/deg and two of the result (the card's plain "
+               "version sums with atomics); bit-equal to the CPU's plain "
+               "version on the rows past 2048 edges and 20,000 others",
+               fn, plain, library,
+               "torch.sparse.mm(sparse_csr_tensor(indptr, indices, ones), "
+               "h.float()) (cuSPARSE) times 1/max(deg, 1), then .half() (one "
+               "rounding, not JAX's)",
+               nbytes=src_rows * f * 2 + csr_bytes + NUM_NODE * f * 2,
+               flops=num_edge * f + NUM_NODE * f, per_step=1,
+               path="inference_f16_files",
+               pick_nbytes=num_edge * f * 2 + csr_bytes + NUM_NODE * f * 2,
+               plain_reps=1)
+        kernels[-1]["library_max_abs_err"] = lib_err
+        del csr_ones, inv_deg, deg
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    del half
+    torch.cuda.empty_cache()
+    last_rows = {p: option_rows[p] for p in (
+        "gat1_bf16", "gat8_bf16", "gat1_bf16_compute", "graphsage_f16_files",
+        "graphsage_f16_widened", "gat1_f16_files", "gat1_f16_widened",
+        "graphsage_cached_f16_files")}
+    last_rows["f16_files"] = f16_row
+    last_rows["wall_s"] = time.perf_counter() - t14
+    print(f"{tag} phase 14 (the last single-card configurations) wall time "
+          f"{last_rows['wall_s']:.3f} s", flush=True)
+    print(json.dumps({"last_configs": last_rows}), flush=True)
 
     for k in kernels:
         k["launches"] = counts_by_path[k["path"]].get(k["name"], 0)

@@ -13,7 +13,8 @@ Six steps of the port's ``Engine`` over a loaded directory hold to the JAX
 degree ranking; ``weighted_khop`` from the file's alias tables; the tiered
 topology at 0.85), the hop2 task separates graphsage from the MLP on the
 port's engine, and the two command lines train and evaluate from a
-directory and build the JAX command line's ``--synthetic`` graph.
+directory and build the JAX command line's ``--synthetic`` graph.  Training
+and inference over an F16 directory are ``tests/test_torch_f16_files.py``'s.
 """
 
 import dataclasses
@@ -596,24 +597,6 @@ def test_engine_reads_the_maps_without_a_copy_warning(toy_dir):
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
     assert out.stdout.split()[-1] == "ok"
-
-
-def test_engine_refuses_an_f16_feature_file(tmp_path):
-    """An F16 table would be summed in float32 by the port's kernels, in
-    float16 by JAX's fanout: refused, naming its ROADMAP item."""
-    from xgnn_tpu_torch import Dataset, Engine, RunConfig
-
-    path = str(tmp_path / "ds")
-    pdataset.save_dataset(_toy(seed=3, num_node=300, avg_degree=3), path)
-    _to_f16(path)
-    roadmap = (REPO / "ROADMAP.md").read_text()
-    for ds in (pdataset.load_dataset(path),
-               Dataset.from_arrays(jdataset.load_dataset(path))):
-        with pytest.raises(NotImplementedError) as err:
-            Engine(ds, RunConfig(), device="cpu")
-        titles = re.findall(r"'([^']+)'", str(err.value).split("ROADMAP")[1])
-        assert titles == ["F16 feature files"]
-        assert "**F16 feature files**" in roadmap
 
 
 # ------------------------------------------------- the hop2 task contract

@@ -1001,12 +1001,16 @@ def test_pick_multiplicity_kernel_equals_plain(dev, shape, num_rows):
 
 
 # ------------------------------------------------- K5 edge-softmax attend
-def _attend_inputs(dev, mode, heads, width, seed, n=3000, d=1500, k=10):
+def _attend_inputs(dev, mode, heads, width, seed, n=3000, d=1500, k=10,
+                   dtype=None):
     """Picks with repeats, EMPTY and out-of-range ids, three all-EMPTY dst
     rows, a src row picked 500 times (past one warp's 32) so that whole dst
-    rows repeat one id, and a dst row with one valid pick."""
+    rows repeat one id, and a dst row with one valid pick.  With ``dtype``
+    the float32 table holds values of that type."""
     g = _gen(dev, seed)
     table = torch.randn((n, width), generator=g, device=dev)
+    if dtype is not None:
+        table = table.to(dtype).float()
     neigh = torch.randint(-2, n + 2, (d, k), generator=g, device=dev,
                           dtype=torch.int32)
     neigh[torch.rand((d, k), generator=g, device=dev) < 0.2] = EMPTY
@@ -2619,3 +2623,215 @@ def test_tiered_kernels_replayed_under_capture(dev):
     host CSR at fixed device addresses: replayed with new frontiers they
     equal their plain versions (device_loop on the tiered topology)."""
     _in_own_process("_tiered_replayed_under_capture")
+
+
+# ------------------------------------- 2-byte tables: F16 files, GAT bf16
+def _bits16(t):
+    return t.contiguous().view(torch.int16)
+
+
+@pytest.mark.parametrize("width", [1, 47, 100, 128])
+def test_gather_rows_f16_kernel_equals_plain(dev, width):
+    """K1 over a float16 table (an F16 feature file), bit-equal to its
+    plain version, aligned and 2 bytes off, counted as gather_rows_f16."""
+    from xgnn_tpu_torch.ops import _build
+    from xgnn_tpu_torch.ops.gather import gather_rows, gather_rows_plain
+
+    g = _gen(dev, width)
+    n = 3000
+    feat = torch.randn((n * width + 1,), generator=g,
+                       device=dev).to(torch.float16)
+    ids = torch.randint(-5, n + 5, (4099,), generator=g, device=dev,
+                        dtype=torch.int32)
+    ids[::3] = EMPTY
+    _build.LAUNCHES.reset()
+    for table in (feat[:-1].view(n, width), feat[1:].view(n, width)):
+        out = gather_rows(table, ids)
+        assert out.dtype == torch.float16
+        assert torch.equal(_bits16(out), _bits16(gather_rows_plain(table,
+                                                                   ids)))
+    assert _build.LAUNCHES.snapshot() == {"gather_rows_f16": 2}
+
+
+@pytest.mark.parametrize("table", ["47", "100", "128", "128 unaligned"])
+@pytest.mark.parametrize("fanout", [5, 10, 15, 7, 33])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_fanout_forward_over_f16_is_the_plain_version(dev, table, fanout,
+                                                      weighted):
+    """K4's forward over a float16 table, both forms and the dst prefix:
+    bit-equal to the plain version on the card and to the float32 kernel
+    over the same values widened (the sums run in the same order); a
+    float16 table that needs a gradient is refused."""
+    from xgnn_tpu_torch.ops import _build
+    from xgnn_tpu_torch.ops.fanout import (
+        fanout_reduce,
+        fanout_reduce_plain,
+        masked_mean,
+        masked_mean_plain,
+        prefix_masked_mean,
+    )
+
+    width = int(table.split()[0])
+    g = _gen(dev, width + fanout + 2)
+    n, d = 5000, 1234
+    flat = torch.randn((n * width + 1,), generator=g,
+                       device=dev).to(torch.float16)
+    h = (flat[1:] if table.endswith("unaligned") else flat[:-1]).view(
+        n, width)
+    neigh = torch.randint(-2, n + 2, (d, fanout), generator=g, device=dev,
+                          dtype=torch.int32)
+    neigh[torch.rand((d, fanout), generator=g, device=dev) < 0.3] = EMPTY
+    w = (torch.rand((d, fanout), generator=g, device=dev) + 0.5
+         if weighted else None)
+    wide = h.float()
+    _build.LAUNCHES.reset()
+    for fn, plain in ((fanout_reduce, fanout_reduce_plain),
+                      (masked_mean, masked_mean_plain)):
+        out, den = fn(h, neigh, w)
+        ref, den_ref = plain(h, neigh, w)
+        assert out.dtype == den.dtype == torch.float32
+        assert torch.equal(out, ref) and torch.equal(den, den_ref)
+        assert torch.equal(out, fn(wide, neigh, w)[0])
+    h_dst, mean, _ = prefix_masked_mean(h, neigh, w)
+    assert torch.equal(mean, out) and h_dst.data_ptr() == h.data_ptr()
+    assert _build.LAUNCHES.snapshot() == {"fanout_fwd_f16": 3,
+                                          "fanout_fwd": 2}
+    with pytest.raises(NotImplementedError, match="float16"):
+        masked_mean(h.clone().requires_grad_(), neigh, w)
+
+
+_ATTEND16_CASES = [(dt, "shared", h, w, k) for dt in ("bf16", "f16")
+                   for h in (1, 8) for w in (47, 100, 128) for k in (5, 15)]
+_ATTEND16_CASES += [(dt, "per_head", h, w, 10) for dt in ("bf16", "f16")
+                    for h in (1, 2) for w in (47, 128) if w % h == 0]
+_ATTEND16_CASES += [("bf16", "shared", 4, 256, 40), ("f16", "shared", 2,
+                                                      128, 40)]
+
+
+@pytest.mark.parametrize("dtype,mode,heads,width,fanout", _ATTEND16_CASES)
+def test_attend_over_2_byte_tables_equals_plain(dev, dtype, mode, heads,
+                                                width, fanout):
+    """K5 over a bfloat16 or float16 table: the forward (out, m, s) and the
+    backward's g_el_dst and g_proj (no table gradient) equal the float32
+    kernels' over the same values widened, bit for bit (the loads widen
+    exactly and the arithmetic is the float32 kernel's), and the plain
+    versions within the float32 cases' bounds; a 2-byte table that needs
+    a gradient is refused."""
+    from xgnn_tpu_torch.ops import _build
+    from xgnn_tpu_torch.ops.attend import (
+        attend_backward,
+        attend_backward_plain,
+        attend_forward,
+        attend_forward_plain,
+        gat_attend,
+    )
+
+    tdt = torch.bfloat16 if dtype == "bf16" else torch.float16
+    wide, neigh, el, proj = _attend_inputs(dev, mode, heads, width,
+                                           heads * 100 + width + fanout,
+                                           k=fanout, dtype=tdt)
+    narrow = wide.to(tdt)
+    _build.LAUNCHES.reset()
+    got = attend_forward(narrow, neigh, el, proj, mode)
+    assert _build.LAUNCHES.snapshot() == {f"attend_fwd_{dtype}": 1}
+    for a, b in zip(got, attend_forward(wide, neigh, el, proj, mode)):
+        assert torch.equal(a, b)
+    for a, b in zip(got, attend_forward_plain(narrow, neigh, el, proj,
+                                              mode)):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+    out, m, s = got
+    g_out = torch.randn(out.shape, generator=_gen(dev, 1), device=dev)
+    back = attend_backward(g_out, narrow, neigh, el, proj, m, s, mode, False)
+    assert back[0] is None
+    for a, b in zip(back[1:], attend_backward(g_out, wide, neigh, el, proj,
+                                              m, s, mode, False)[1:]):
+        assert torch.equal(a, b)
+    want = attend_backward_plain(g_out, narrow, neigh, el, proj, m, s, mode,
+                                 False)
+    torch.testing.assert_close(back[1], want[1], rtol=1e-4, atol=1e-4)
+    assert _rel_norm(back[2], want[2]) < 1e-5
+    with pytest.raises(NotImplementedError):
+        attend_backward(g_out, narrow, neigh, el, proj, m, s, mode, True)
+    with pytest.raises(NotImplementedError):
+        gat_attend(narrow.clone().requires_grad_(), neigh, el, proj, mode)
+
+
+@pytest.mark.parametrize("width", [12, 100, 128, 7])
+@pytest.mark.parametrize("mean", [False, True])
+def test_spmm_f16_kernel_is_the_cpu_plain_version(dev, width, mean):
+    """K6a's float16 form against its plain version on the CPU, bit for
+    bit on every row (both sum each segment in CSR order, round, and add
+    the segments in JAX's order): rows of degree 0 to 40, a row of 2049
+    edges (a partial segment of one edge, added first) and a hub of 9000
+    (a partial of 808, first), and one of 6000 (1904: last) and 4096 (two
+    whole segments); two launches equal; an unaligned view (the 2-byte
+    path) too."""
+    from xgnn_tpu_torch.ops import _build, spmm
+
+    rng = np.random.default_rng(width)
+    n = 3000
+    deg = rng.integers(0, 41, n)
+    deg[rng.choice(n, 100, replace=False)] = 0
+    deg[5], deg[n // 2], deg[7], deg[9] = 2049, 9000, 6000, 4096
+    indptr = torch.from_numpy(np.concatenate([[0], np.cumsum(deg)])
+                              .astype(np.int32))
+    indices = torch.from_numpy(rng.integers(0, n, int(indptr[-1]))
+                               .astype(np.int32))
+    flat = (3 * torch.randn((n * (width + 1),),
+                            generator=_gen(torch.device("cpu"), width))
+            ).to(torch.float16)
+    _build.LAUNCHES.reset()
+    for h in (flat[: n * width].view(n, width),
+              flat[1: n * width + 1].view(n, width)):
+        out = spmm.spmm_csr(indptr.to(dev), indices.to(dev), h.to(dev),
+                            num_node=n, mean=mean)
+        again = spmm.spmm_csr(indptr.to(dev), indices.to(dev), h.to(dev),
+                              num_node=n, mean=mean)
+        torch.cuda.synchronize()
+        assert out.dtype == torch.float16 and torch.equal(out, again)
+        ref = spmm.spmm_csr(indptr, indices, h, num_node=n, mean=mean)
+        assert torch.equal(_bits16(out.cpu()), _bits16(ref))
+    assert _build.LAUNCHES.snapshot() == {"spmm_csr_f16": 4}
+
+
+@pytest.mark.parametrize("width", [3, 100, 128])
+@pytest.mark.parametrize("dtype", [None, "bf16"])
+@pytest.mark.parametrize("pct", [0.0, 0.3])
+def test_tiered_extract_over_an_f16_host_table(dev, width, dtype, pct):
+    """K11 over a float16 host table (an F16 feature file): the cache, the
+    extract's rows (float16 copied, or under feat_dtype "bfloat16" rounded
+    from the float16 as the SMs write them) and the counts equal the plain
+    version's, bit for bit; the miss bytes are the host's 2 a value."""
+    from xgnn_tpu_torch.ops import _build
+    from xgnn_tpu_torch.ops.tiered import tiered_extract_plain
+    from xgnn_tpu_torch.store import TieredFeatureSource
+
+    g = _gen(torch.device("cpu"), width)
+    num_node, n = 3000, 5000
+    feat = torch.randn((num_node, width), generator=g).to(torch.float16)
+    ranking = torch.randperm(num_node, generator=g).to(torch.int32)
+    want = torch.bfloat16 if dtype else torch.float16
+    src = TieredFeatureSource(feat, ranking, pct, dev,
+                              torch.bfloat16 if dtype else None)
+    assert src.cache_feat.dtype == want
+    assert src.feat_host.dtype == torch.float16
+    cached = (src.posmap != EMPTY).nonzero().flatten()
+    assert torch.equal(_bits16(src.cache_feat[src.posmap[cached].long()]
+                               .cpu()),
+                       _bits16(feat[cached.cpu()].to(want)))
+    ids = torch.randint(-5, num_node + 5, (n,), generator=g,
+                        dtype=torch.int32)
+    ids[torch.rand(n, generator=g) < 0.3] = EMPTY
+    ids = ids.to(dev)
+    num = torch.tensor(4000, dtype=torch.int32, device=dev)
+    _build.LAUNCHES.reset()
+    out, info = src.extract(ids, num)
+    name = "tiered_direct_f16_bf16" if dtype else "tiered_direct_f16"
+    assert _build.LAUNCHES.snapshot() == {"tiered_split": 1, name: 1}
+    ref, counts = tiered_extract_plain(ids, num, src.posmap, src.cache_feat,
+                                       src.feat_host)
+    torch.cuda.synchronize()
+    assert out.dtype == ref.dtype == want
+    assert torch.equal(_bits16(out), _bits16(ref))
+    assert [int(info["num_hit"]), int(info["num_miss"])] == counts.tolist()
+    assert int(info["miss_bytes"]) == int(counts[1]) * width * 2

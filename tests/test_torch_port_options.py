@@ -12,8 +12,9 @@
 - ``remat``'s per-step losses against the plain run's and JAX's remat run;
 - trajectories under bfloat16 features and compute against the JAX
   ``Engine`` (direct and non-direct extract, GCN, PinSAGE, the tiered
-  store), and the stores' dtypes;
-- GAT under bfloat16 refused with its ROADMAP item.
+  store), and the stores' dtypes.
+
+GAT under bfloat16 has a file of its own, ``tests/test_torch_gat_bf16.py``.
 """
 
 import re
@@ -506,20 +507,6 @@ def test_feat_dtype_sets_the_stores(learn_ds):
         assert torch.equal(out, src.feat_host.to(torch.bfloat16))
         assert int(info["miss_bytes"]) == int(info["num_miss"]) * 4 * \
             src.feat_dim
-
-
-def test_gat_under_bf16_names_its_roadmap_item():
-    from xgnn_tpu_torch import RunConfig
-    from xgnn_tpu_torch.models.gnn import GNN
-
-    roadmap = (Path(__file__).resolve().parents[1] / "ROADMAP.md").read_text()
-    for kw in (dict(feat_dtype="bfloat16"), dict(compute_dtype="bfloat16")):
-        with pytest.raises(NotImplementedError, match="K5 bf16") as err:
-            RunConfig(model="gat", **kw)
-        for title in re.findall(r"'([^']+)'", str(err.value)):
-            assert f"**{title} " in roadmap, title
-    with pytest.raises(NotImplementedError, match="K5 bf16"):
-        GNN(8, 8, 3, 2, conv="gat", compute_dtype=torch.bfloat16)
 
 
 def test_the_training_cli_takes_the_option_flags(capsys):

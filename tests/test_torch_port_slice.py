@@ -333,16 +333,17 @@ def test_unported_configs_raise(field, value, learn_ds):
         return
     if field in ("remat", "compute_dtype", "agg_impl"):
         # once refused, the training options now build and train
-        # (tests/test_torch_port_options.py holds them to JAX); GAT under
-        # bfloat16 is what stays refused
-        cfg = RunConfig(**{field: value}, batch_size=64, fanout=(4, 3),
-                        num_layer=2, num_hidden=8, calibration_batches=1)
-        engine = Engine(Dataset.from_arrays(learn_ds), cfg,
-                        device="cpu").init()
-        assert np.isfinite(engine.train_epoch(0)["loss"])
-        if field == "compute_dtype":
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
-                RunConfig(**{field: value}, model="gat")
+        # (tests/test_torch_port_options.py holds them to JAX), GAT under
+        # bfloat16 too (tests/test_torch_gat_bf16.py)
+        models = ("graphsage", "gat") if field == "compute_dtype" else (
+            "graphsage",)
+        for model in models:
+            cfg = RunConfig(**{field: value}, model=model, batch_size=64,
+                            fanout=(4, 3), num_layer=2, num_hidden=8,
+                            calibration_batches=1)
+            engine = Engine(Dataset.from_arrays(learn_ds), cfg,
+                            device="cpu").init()
+            assert np.isfinite(engine.train_epoch(0)["loss"])
         return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         RunConfig(**{field: value})

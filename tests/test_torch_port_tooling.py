@@ -391,9 +391,12 @@ def test_the_clis_train_and_evaluate_a_checkpoint(tmp_path, capsys,
     # --use-dist-graph runs on one card now; --part-cache is a multi-card
     # flag
     ["--use-dist-graph", "--part-cache"],
-    ["--model", "gat", "--remat", "--feat-dtype", "bfloat16"],
+    # GAT under bfloat16 runs now (tests/test_torch_gat_bf16.py); the
+    # flags of more than one card still raise
+    ["--model", "gat", "--remat", "--feat-dtype", "bfloat16",
+     "--num-train-worker", "2"],
     ["--model", "gat", "--agg-impl", "tiled", "--compute-dtype",
-     "bfloat16"]])
+     "bfloat16", "--num-dcn-groups", "2"]])
 def test_cli_flags_of_unported_paths_name_roadmap_items(flags):
     from xgnn_tpu_torch.examples import train
 

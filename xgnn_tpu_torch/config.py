@@ -1,10 +1,10 @@
 """Run configuration of the PyTorch port.
 
 The fields of ``RunConfig`` in ``xgnn_tpu/config.py`` that the ported paths
-read, under the same names and defaults.  A value that selects a path the
-port does not have yet raises ``NotImplementedError`` naming, by its title,
-the ROADMAP item that ports it; nothing is silently replaced by another
-path.  PinSAGE is the random-walk path: ``model="pinsage"`` coerces the
+read, under the same names and defaults; every value they take has its
+path in the port, and nothing is silently replaced by another path (the
+command line's flags of more than one card raise, naming their ROADMAP
+item).  PinSAGE is the random-walk path: ``model="pinsage"`` coerces the
 sampler to ``random_walk`` with the JAX package's warning.  A
 ``cache_percentage`` in (0, 1) selects the tiered feature store, with the
 ranking of ``cache_policy``.  ``device_loop`` runs an epoch as one
@@ -16,9 +16,10 @@ logs.  ``root_path`` and ``dataset`` name the dataset directory
 (``dataset_path``) that the command lines load.  The training options are
 JAX's: ``feat_dtype="bfloat16"`` keeps the feature table (the tiered
 store's device cache) in bfloat16, ``compute_dtype="bfloat16"`` casts the
-model's input to it, ``remat`` recomputes each convolution in the
-backward, ``weight_decay > 0`` is AdamW, and ``agg_impl`` names JAX's fanout-reduce formulation (``loop``,
-``tiled`` or ``chunk<N>``), each of which K4 computes.  On one card,
+model's input to it (every model, GAT too), ``remat`` recomputes each
+convolution in the backward, ``weight_decay > 0`` is AdamW, and
+``agg_impl`` names JAX's fanout-reduce formulation (``loop``, ``tiled`` or
+``chunk<N>``), each of which K4 computes.  On one card,
 ``use_dist_graph`` with ``dist_graph_percentage < 1`` is the tiered
 topology (the hot CSR prefix on the device, the rest read in place from
 host memory), and ``auto_placement`` solves ``use_dist_graph``,
@@ -209,11 +210,3 @@ class RunConfig:
         if not AGG_IMPL.fullmatch(self.agg_impl):
             raise ValueError(f"agg_impl={self.agg_impl!r}: not loop, tiled "
                              "or chunk<N>")
-        todo = []
-        if self.model == "gat" and "bfloat16" in (self.compute_dtype,
-                                                  self.feat_dtype):
-            todo.append("GAT under bfloat16: ROADMAP section 2, 'K5 bf16'")
-        if todo:
-            raise NotImplementedError(
-                "not ported to xgnn_tpu_torch yet: " + "; ".join(todo)
-            )

@@ -81,10 +81,31 @@
 // fits() holds the limits (heads, width, H * W in shared mode); the
 // wrapper refuses more (ROADMAP K5 wide rows).  Per-head mode takes its
 // head count (at most kMaxHeads) at run time past one head.
+//
+// The table's element (Elem) is float32, or with XG_ATTEND_ELEM 1 or 2 at
+// build time bfloat16 or float16: ops/_build.py builds this source three
+// times, as the libraries attend, attend_bf16 and attend_f16, which nvcc
+// compiles in parallel.  A 2-byte table is layer 0's under feat_dtype or
+// compute_dtype "bfloat16" (JAX's GATConv over a bf16 h_src) or an F16
+// feature file: its rows are read 4 elements (8 bytes) or 1 a lane and
+// widened to float32 in registers, exactly, and everything after the load
+// (the scores, the softmax, the payload, out, m, s and the backward's sums)
+// is the float32 kernel's.  Such a table is layer 0's input and never
+// needs a gradient, so its libraries build only the backward that writes
+// none (g_el and g_proj).  The projections come in float32; under bf16
+// the model passes them rounded to bfloat16, as JAX's _mp_dot rounds them,
+// so each product of a bf16 element and a projection is exact in float32.
 
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
+
+#ifndef XG_ATTEND_ELEM
+#define XG_ATTEND_ELEM 0
+#endif
 
 namespace {
 
@@ -170,6 +191,43 @@ __device__ __forceinline__ float leaky(float x, float slope) {
   return x >= 0.f ? x : slope * x;
 }
 
+// A 2-byte table element: bfloat16 or float16 bits
+struct Bf16 {
+  uint16_t bits;
+};
+struct Half {
+  uint16_t bits;
+};
+using Elem = std::conditional_t<
+    XG_ATTEND_ELEM == 1, Bf16,
+    std::conditional_t<XG_ATTEND_ELEM == 2, Half, float>>;
+constexpr bool kWide = std::is_same_v<Elem, float>;
+
+__device__ __forceinline__ float widen(Bf16, uint32_t b) {
+  return __uint_as_float((b & 0xffffu) << 16);
+}
+__device__ __forceinline__ float widen(Half, uint32_t b) {
+  return __half2float(__ushort_as_half((unsigned short)(b & 0xffffu)));
+}
+
+// A lane's slice T (float4 or float) of a table row at p, as float32: a
+// float32 table's read as it is, a 2-byte table's 4 (8 bytes) or 1
+// elements widened exactly.
+template <typename T>
+__device__ __forceinline__ T ldt(const float* p) {
+  return ldg<T>(p);
+}
+template <typename T, typename E>
+__device__ __forceinline__ T ldt(const E* p) {
+  if constexpr (std::is_same_v<T, float4>) {
+    const uint2 v = __ldg(reinterpret_cast<const uint2*>(p));  // low first
+    return make_float4(widen(E{}, v.x), widen(E{}, v.x >> 16),
+                       widen(E{}, v.y), widen(E{}, v.y >> 16));
+  } else {
+    return widen(E{}, __ldg(reinterpret_cast<const unsigned short*>(p)));
+  }
+}
+
 // x[0..V) summed over the warp, V a power of two up to 32, in V - 1 +
 // log2(32 / V) shuffles: each halving step keeps half the values in the
 // lanes whose bit o is set and the other half in their partners.  On return
@@ -217,15 +275,15 @@ __device__ __forceinline__ int next_pick(unsigned* mm, int32_t id,
 
 // the lane's NV elements of a table row (zero past the row's ne elements)
 template <typename T, int NV>
-__device__ __forceinline__ void load_row(T (&r)[NV], const float* table,
+__device__ __forceinline__ void load_row(T (&r)[NV], const Elem* table,
                                          int32_t id, int width, int ne,
                                          int lane) {
   constexpr int kF = sizeof(T) / sizeof(float);
-  const float* p = table + (int64_t)id * width;
+  const Elem* p = table + (int64_t)id * width;
 #pragma unroll
   for (int j = 0; j < NV; ++j) {
     const int e = lane + 32 * j;
-    r[j] = e < ne ? ldg<T>(p + e * kF) : zero<T>();
+    r[j] = e < ne ? ldt<T>(p + e * kF) : zero<T>();
   }
 }
 
@@ -331,7 +389,7 @@ struct Cfg {
 // chunks by a shuffle from a lane that holds them.
 template <int H, int NV, bool kShared, typename T, typename Q>
 __device__ __forceinline__ void fwd_online(
-    const float* __restrict__ table, const Q& q,
+    const Elem* __restrict__ table, const Q& q,
     unsigned mask, int32_t id, float el, float slope, int width, int ne,
     const int (&hd)[NV], int lane, float* mx, float* sm, T (&acc)[NV]) {
   constexpr int R = 32 / H;
@@ -378,7 +436,7 @@ __device__ __forceinline__ void fwd_online(
 // exp(e - max).
 template <int H, int NV, bool kMax, typename T, typename Q>
 __device__ __forceinline__ void fwd_scores(
-    const float* __restrict__ table, const Q& q,
+    const Elem* __restrict__ table, const Q& q,
     float* rec, unsigned mask, int32_t id, float el, float slope, int width,
     int ne, const int (&hd)[NV], int lane, float* mx, float* sm) {
   constexpr int R = 32 / H;
@@ -414,7 +472,7 @@ __device__ __forceinline__ void fwd_scores(
 template <int H, int NV, bool kVec, bool kShared>
 __global__ void __launch_bounds__(kThreads,
                                   (Cfg<H, NV, kVec, kShared>::kFwdBlocks))
-attend_fwd_kernel(const float* __restrict__ table,
+attend_fwd_kernel(const Elem* __restrict__ table,
                   const int32_t* __restrict__ neigh,
                   const float* __restrict__ el_dst,
                   const float* __restrict__ proj, float* __restrict__ out,
@@ -503,13 +561,13 @@ attend_fwd_kernel(const float* __restrict__ table,
           int p = next_pick(&mm, id, &pid);
           T cur = zero<T>();
           if (p >= 0 && live)
-            cur = ldg<T>(table + (int64_t)pid * width + e * kF);
+            cur = ldt<T>(table + (int64_t)pid * width + e * kF);
           while (p >= 0) {
             int32_t nid = 0;
             const int pn = next_pick(&mm, id, &nid);
             T nxt = zero<T>();
             if (pn >= 0 && live)
-              nxt = ldg<T>(table + (int64_t)nid * width + e * kF);
+              nxt = ldt<T>(table + (int64_t)nid * width + e * kF);
             const float* wp = rec + p * H;
 #pragma unroll
             for (int h = 0; h < H; ++h) axpy(acc[h], wp[h], cur);
@@ -561,7 +619,7 @@ struct Recs {
 template <int H, int NV, bool kShared, bool kAcc, bool kRec, typename T,
           typename Q>
 __device__ __forceinline__ float bwd_records(
-    const float* __restrict__ table, const float* __restrict__ g_out,
+    const Elem* __restrict__ table, const float* __restrict__ g_out,
     const Q& q, Recs rec, unsigned mask, int32_t id,
     int64_t b, float el, float mx, float rden, float slope, int width,
     int ne, int nh, const int (&hd)[NV], int lane, T (&gpa)[NV],
@@ -737,7 +795,7 @@ enum TableGrad { kNone, kRows, kScalars };
 template <int H, int NV, bool kVec, bool kShared, TableGrad kTable>
 __global__ void __launch_bounds__(kThreads,
                                   (Cfg<H, NV, kVec, kShared>::kBwdBlocks))
-attend_bwd_kernel(const float* __restrict__ table,
+attend_bwd_kernel(const Elem* __restrict__ table,
                   const int32_t* __restrict__ neigh,
                   const float* __restrict__ el_dst,
                   const float* __restrict__ proj,
@@ -849,13 +907,13 @@ attend_bwd_kernel(const float* __restrict__ table,
           int p = next_pick(&mm, id, &pid);
           T cur = zero<T>();
           if (p >= 0 && live)
-            cur = ldg<T>(table + (int64_t)pid * width + e * kF);
+            cur = ldt<T>(table + (int64_t)pid * width + e * kF);
           while (p >= 0) {
             int32_t nid = 0;
             const int pn = next_pick(&mm, id, &nid);
             T nxt = zero<T>();
             if (pn >= 0 && live)
-              nxt = ldg<T>(table + (int64_t)nid * width + e * kF);
+              nxt = ldt<T>(table + (int64_t)nid * width + e * kF);
             const float* gw = rec.g + p * H;
 #pragma unroll
             for (int h = 0; h < H; ++h) axpy(gpc[h], gw[h], cur);
@@ -922,7 +980,7 @@ proj_reduce_kernel(const float* __restrict__ partials, int blocks, int pn,
 }
 
 struct Args {
-  const float* table;
+  const Elem* table;
   const int32_t* neigh;
   const float* el_dst;
   const float* proj;
@@ -950,9 +1008,12 @@ void launch(const Args& a, bool backward) {
     // the static part: the staged proj and the warps' records
     constexpr int kStatic = (kMaxRow + kWarps * 3 * kWin * H) * sizeof(float);
     constexpr TableGrad kTable = H == 1 ? kScalars : kRows;
-    auto kernel = a.per_pick != nullptr || a.a_pick != nullptr
-                      ? attend_bwd_kernel<H, NV, kVec, kShared, kTable>
-                      : attend_bwd_kernel<H, NV, kVec, kShared, kNone>;
+    // a 2-byte table's libraries build only the backward that writes no
+    // table gradient (the entry point refuses the others)
+    auto kernel = attend_bwd_kernel<H, NV, kVec, kShared, kNone>;
+    if constexpr (kWide)
+      if (a.per_pick != nullptr || a.a_pick != nullptr)
+        kernel = attend_bwd_kernel<H, NV, kVec, kShared, kTable>;
     if (smem + kStatic > 48 * 1024)
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            smem);
@@ -1001,17 +1062,21 @@ bool by_heads(const Args& a, bool backward) {
   return false;
 }
 
-bool aligned16(const void* p) {
-  return p == nullptr || reinterpret_cast<uintptr_t>(p) % 16 == 0;
+bool aligned(const void* p, int bytes) {
+  return p == nullptr || reinterpret_cast<uintptr_t>(p) % bytes == 0;
 }
 
-// float4 lanes: shared mode, W % 4 == 0, every row-sized buffer aligned.
+bool aligned16(const void* p) { return aligned(p, 16); }
+
+// float4 lanes: shared mode, W % 4 == 0, every row-sized buffer aligned
+// (the table to its 4 elements: 16 bytes of float32, 8 of a 2-byte type).
 // Per-head mode has one accumulator of W/32 floats a lane whatever the
 // heads, so the head count is a run-time value there: one head (the
 // logits) has its own kernels, more heads share kernels whose records are
 // sized kMaxHeads.
 bool dispatch(const Args& a, bool shared, bool backward) {
-  const bool vec = shared && a.width % 4 == 0 && aligned16(a.table) &&
+  const bool vec = shared && a.width % 4 == 0 &&
+                   aligned(a.table, 4 * (int)sizeof(Elem)) &&
                    aligned16(a.out) && aligned16(a.g_out) &&
                    aligned16(a.per_pick);
   if (!shared)
@@ -1039,7 +1104,7 @@ bool fits(long long num_rows, long long num_dst, int fanout, int width,
 
 }  // namespace
 
-// table: (num_rows, width) f32; neigh: (num_dst, fanout) int32; el_dst:
+// table: (num_rows, width) of Elem; neigh: (num_dst, fanout) int32; el_dst:
 // (num_dst, nh) f32; proj: (width, nh) f32 (shared) or (nh, width / nh)
 // (per-head); out: (num_dst, nh, width) or (num_dst, width) f32; m, s:
 // (num_dst, nh) f32.  Returns cudaGetLastError() after the launch
@@ -1053,7 +1118,7 @@ extern "C" int xg_attend_fwd(const void* table, const void* neigh,
     return (int)cudaErrorInvalidValue;
   if (num_dst == 0) return (int)cudaGetLastError();
   Args a{};
-  a.table = static_cast<const float*>(table);
+  a.table = static_cast<const Elem*>(table);
   a.neigh = static_cast<const int32_t*>(neigh);
   a.el_dst = static_cast<const float*>(el_dst);
   a.proj = static_cast<const float*>(proj);
@@ -1079,7 +1144,8 @@ extern "C" int xg_attend_fwd(const void* table, const void* neigh,
 // at more than one head per_pick: (num_dst * fanout, width) f32, one row
 // per pick (the rows of invalid picks are not written); at one head a_pick
 // and gpre_pick: (num_dst, fanout) f32 each, a and g_pre a pick (0 for an
-// invalid pick).  All null: the table needs no gradient.
+// invalid pick).  All null: the table needs no gradient (always so for a
+// 2-byte table).
 extern "C" int xg_attend_bwd(const void* table, const void* neigh,
                              const void* el_dst, const void* proj,
                              const void* m, const void* s, const void* g_out,
@@ -1090,10 +1156,11 @@ extern "C" int xg_attend_bwd(const void* table, const void* neigh,
                              int shared, float slope, void* stream) {
   if (!fits(num_rows, num_dst, fanout, width, nh, shared) || blocks < 1 ||
       (a_pick != nullptr) != (gpre_pick != nullptr) ||
-      (nh == 1 ? per_pick != nullptr : a_pick != nullptr))
+      (nh == 1 ? per_pick != nullptr : a_pick != nullptr) ||
+      (!kWide && (per_pick != nullptr || a_pick != nullptr)))
     return (int)cudaErrorInvalidValue;
   Args a{};
-  a.table = static_cast<const float*>(table);
+  a.table = static_cast<const Elem*>(table);
   a.neigh = static_cast<const int32_t*>(neigh);
   a.el_dst = static_cast<const float*>(el_dst);
   a.proj = static_cast<const float*>(proj);

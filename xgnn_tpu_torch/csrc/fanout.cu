@@ -32,12 +32,14 @@
 // the step.
 //
 // The table may be bfloat16 (feat_dtype or compute_dtype "bfloat16": layer
-// 0 reads the bfloat16 feature table or extracted rows).  The forward then
-// loads bfloat16 and widens each element to float32 in registers, exactly,
-// and sums as above: the accumulator, the output and denom stay float32,
-// and the result equals the plain version's (which upcasts the rows and
-// sums in the same order) bit for bit.  A bfloat16 table never needs a
-// gradient here (it is layer 0's input), so there is no bfloat16 backward.
+// 0 reads the bfloat16 feature table or extracted rows) or float16 (an F16
+// feature file under compute_dtype "float32", whose table stays float16 as
+// JAX keeps it).  The forward then loads the 2-byte elements and widens
+// each to float32 in registers, exactly, and sums as above: the
+// accumulator, the output and denom stay float32, and the result equals
+// the plain version's (which upcasts the rows and sums in the same order)
+// bit for bit.  Such a table never needs a gradient here (it is layer 0's
+// input), so there is no 2-byte backward.
 //
 // What bounds it on an H100: bytes.  The forward reads every valid pick's
 // row once (layer 0 of the main path: about 5M rows of 512 B from the
@@ -54,7 +56,7 @@
 // j < K load the row's ids (and weights) once, in one coalesced read, and
 // hand them round by shuffles.  Lanes hold a 16-byte column slice (float4)
 // when F % 4 == 0 and the tables are aligned, else one float (from a
-// bfloat16 table: 8 bytes of 4 elements, or one element), and two
+// 2-byte table: 8 bytes of 4 elements, or one element), and two
 // slices past 128 floats (a 1 KB row at width 256 is one warp-wide pair of
 // loads; the 47-wide table one pass over the picks).  The row loads of
 // kGroup picks are issued before the adds consume them, so each warp keeps
@@ -118,6 +120,7 @@
 // passes on the CPU bit for bit.
 //
 
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -198,25 +201,45 @@ __device__ __forceinline__ float mean_divisor(float d) {
 
 // ---- forward ------------------------------------------------------------
 
+// the table's element: float32, bfloat16 or float16
+enum Elem { kF32 = 0, kBf16 = 1, kF16 = 2 };
+
+// 4 and 1 float16 of a table row (bfloat16 takes uint2 and uint16_t)
+struct Half4 {
+  uint2 bits;
+};
+struct Half1 {
+  uint16_t bits;
+};
+
 // A slice V (float4 or float) of a table row: S is the table's storage of
-// one slice (float4 or float, or 4 or 1 bfloat16: uint2 or uint16_t)
-template <typename V, bool kBf16>
+// one slice (float4 or float, 4 or 1 bfloat16: uint2 or uint16_t, 4 or 1
+// float16: Half4 or Half1)
+template <typename V, int kE>
 struct Slice;
 template <>
-struct Slice<float4, false> {
+struct Slice<float4, kF32> {
   using S = float4;
 };
 template <>
-struct Slice<float, false> {
+struct Slice<float, kF32> {
   using S = float;
 };
 template <>
-struct Slice<float4, true> {
+struct Slice<float4, kBf16> {
   using S = uint2;
 };
 template <>
-struct Slice<float, true> {
+struct Slice<float, kBf16> {
   using S = uint16_t;
+};
+template <>
+struct Slice<float4, kF16> {
+  using S = Half4;
+};
+template <>
+struct Slice<float, kF16> {
+  using S = Half1;
 };
 
 // a bfloat16's bits widened to the float32 of the same value (exact)
@@ -243,13 +266,28 @@ __device__ __forceinline__ float ld_table(const uint16_t* p) {
   return bf16_lo(__ldg(p));
 }
 
+// a float16's bits widened to the float32 of the same value (exact)
+__device__ __forceinline__ float f16_bits(uint32_t b) {
+  return __half2float(__ushort_as_half((unsigned short)(b & 0xffffu)));
+}
+
+__device__ __forceinline__ float4 ld_table(const Half4* p) {
+  const uint2 v = __ldg(&p->bits);  // 4 float16, low half first
+  return make_float4(f16_bits(v.x), f16_bits(v.x >> 16), f16_bits(v.y),
+                     f16_bits(v.y >> 16));
+}
+
+__device__ __forceinline__ float ld_table(const Half1* p) {
+  return f16_bits(__ldg(&p->bits));
+}
+
 // One warp per dst row.  V is float4 or float, kV the slices a lane holds
 // per pass over the picks (columns c0 + lane + 32 u), K the fanout (0: any,
-// read in chunks of 32 picks), kBf16 a bfloat16 table.  wv is the row width
-// in V units.
-template <typename V, int kV, int K, bool kW, bool kMean, bool kBf16>
+// read in chunks of 32 picks), kE the table's element.  wv is the row
+// width in V units.
+template <typename V, int kV, int K, bool kW, bool kMean, int kE>
 __global__ void __launch_bounds__(kThreads)
-fanout_fwd_kernel(const typename Slice<V, kBf16>::S* __restrict__ h,
+fanout_fwd_kernel(const typename Slice<V, kE>::S* __restrict__ h,
                   const int32_t* __restrict__ neigh,
                   const float* __restrict__ w, V* __restrict__ out,
                   float* __restrict__ denom, int64_t num_rows,
@@ -319,17 +357,17 @@ fanout_fwd_kernel(const typename Slice<V, kBf16>::S* __restrict__ h,
   if (lane == 0) denom[row] = d;
 }
 
-template <typename V, int kV, int K, bool kBf16>
+template <typename V, int kV, int K, int kE>
 void launch_fwd(const void* h, const int32_t* neigh, const float* w,
                 float* out, float* denom, long long num_rows,
                 long long num_dst, int fanout, long long wv, bool mean,
                 cudaStream_t s) {
   const unsigned blocks =
       (unsigned)((num_dst + kWarpsPerBlock - 1) / kWarpsPerBlock);
-  const auto* hv = static_cast<const typename Slice<V, kBf16>::S*>(h);
+  const auto* hv = static_cast<const typename Slice<V, kE>::S*>(h);
   V* ov = reinterpret_cast<V*>(out);
 #define XG_FWD(W, M)                                                   \
-  fanout_fwd_kernel<V, kV, K, W, M, kBf16><<<blocks, kThreads, 0, s>>>( \
+  fanout_fwd_kernel<V, kV, K, W, M, kE><<<blocks, kThreads, 0, s>>>(    \
       hv, neigh, w, ov, denom, num_rows, num_dst, fanout, wv)
   if (w) {
     if (mean) XG_FWD(true, true); else XG_FWD(true, false);
@@ -339,49 +377,49 @@ void launch_fwd(const void* h, const int32_t* neigh, const float* w,
 #undef XG_FWD
 }
 
-template <typename V, int kV, bool kBf16>
+template <typename V, int kV, int kE>
 void launch_fwd_fanout(const void* h, const int32_t* neigh, const float* w,
                        float* out, float* denom, long long num_rows,
                        long long num_dst, int fanout, long long wv, bool mean,
                        cudaStream_t s) {
   switch (fanout) {
     case 5:
-      launch_fwd<V, kV, 5, kBf16>(h, neigh, w, out, denom, num_rows, num_dst,
+      launch_fwd<V, kV, 5, kE>(h, neigh, w, out, denom, num_rows, num_dst,
                                   fanout, wv, mean, s);
       break;
     case 10:
-      launch_fwd<V, kV, 10, kBf16>(h, neigh, w, out, denom, num_rows,
+      launch_fwd<V, kV, 10, kE>(h, neigh, w, out, denom, num_rows,
                                    num_dst, fanout, wv, mean, s);
       break;
     case 15:
-      launch_fwd<V, kV, 15, kBf16>(h, neigh, w, out, denom, num_rows,
+      launch_fwd<V, kV, 15, kE>(h, neigh, w, out, denom, num_rows,
                                    num_dst, fanout, wv, mean, s);
       break;
     default:
-      launch_fwd<V, kV, 0, kBf16>(h, neigh, w, out, denom, num_rows, num_dst,
+      launch_fwd<V, kV, 0, kE>(h, neigh, w, out, denom, num_rows, num_dst,
                                   fanout, wv, mean, s);
   }
 }
 
-// the forward over a table of float32 or (kBf16) bfloat16 elements
-template <bool kBf16>
+// the forward over a table of kE elements
+template <int kE>
 void launch_fwd_table(const void* h, const int32_t* neigh, const float* w,
                       float* out, float* denom, long long num_rows,
                       long long num_dst, int fanout, long long width,
                       bool mean, cudaStream_t s) {
-  // a float4 slice is 16 bytes of a float32 table, 8 of a bfloat16 one
-  const uintptr_t slice_bytes = kBf16 ? 8 : 16;
+  // a float4 slice is 16 bytes of a float32 table, 8 of a 2-byte one
+  const uintptr_t slice_bytes = kE == kF32 ? 16 : 8;
   const bool vec = width % 4 == 0 &&
                    reinterpret_cast<uintptr_t>(h) % slice_bytes == 0 &&
                    reinterpret_cast<uintptr_t>(out) % 16 == 0;
   if (vec && width <= 128)
-    launch_fwd_fanout<float4, 1, kBf16>(h, neigh, w, out, denom, num_rows,
+    launch_fwd_fanout<float4, 1, kE>(h, neigh, w, out, denom, num_rows,
                                         num_dst, fanout, width / 4, mean, s);
   else if (vec)
-    launch_fwd_fanout<float4, 2, kBf16>(h, neigh, w, out, denom, num_rows,
+    launch_fwd_fanout<float4, 2, kE>(h, neigh, w, out, denom, num_rows,
                                         num_dst, fanout, width / 4, mean, s);
   else
-    launch_fwd_fanout<float, 2, kBf16>(h, neigh, w, out, denom, num_rows,
+    launch_fwd_fanout<float, 2, kE>(h, neigh, w, out, denom, num_rows,
                                        num_dst, fanout, width, mean, s);
 }
 
@@ -809,25 +847,31 @@ bool aligned16(const void* p) {
 
 }  // namespace
 
-// h: (num_rows, width) f32, or bfloat16 with h_bf16; neigh: (num_dst,
-// fanout) int32; w: null or (num_dst, fanout) f32; out: (num_dst, width)
-// f32, the sum, or with mean the masked mean; denom: (num_dst,) f32.
+// h: (num_rows, width) of elem (0: float32, 1: bfloat16, 2: float16);
+// neigh: (num_dst, fanout) int32; w: null or (num_dst, fanout) f32; out:
+// (num_dst, width) f32, the sum, or with mean the masked mean; denom:
+// (num_dst,) f32.
 extern "C" int xg_fanout_fwd(const void* h, const void* neigh, const void* w,
                              void* out, void* denom, long long num_rows,
                              long long num_dst, int fanout, long long width,
-                             int mean, int h_bf16, void* stream) {
+                             int mean, int elem, void* stream) {
   if (num_dst <= 0) return (int)cudaGetLastError();
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   const int32_t* n = static_cast<const int32_t*>(neigh);
   const float* wf = static_cast<const float*>(w);
   float* of = static_cast<float*>(out);
   float* df = static_cast<float*>(denom);
-  if (h_bf16)
-    launch_fwd_table<true>(h, n, wf, of, df, num_rows, num_dst, fanout, width,
-                           mean != 0, s);
-  else
-    launch_fwd_table<false>(h, n, wf, of, df, num_rows, num_dst, fanout,
+  if (elem == kBf16)
+    launch_fwd_table<kBf16>(h, n, wf, of, df, num_rows, num_dst, fanout,
                             width, mean != 0, s);
+  else if (elem == kF16)
+    launch_fwd_table<kF16>(h, n, wf, of, df, num_rows, num_dst, fanout,
+                           width, mean != 0, s);
+  else if (elem == kF32)
+    launch_fwd_table<kF32>(h, n, wf, of, df, num_rows, num_dst, fanout,
+                           width, mean != 0, s);
+  else
+    return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }
 

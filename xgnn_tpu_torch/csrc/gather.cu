@@ -5,7 +5,8 @@
 // kernel _gather_kernel).  On the port's main path it serves the
 // direct-extract layer's dst rows (models/gnn.py _take_dst), the label
 // gather and HBMFeatureSource.extract; under feat_dtype="bfloat16" the same
-// rows of the bfloat16 table.
+// rows of the bfloat16 table, and from an F16 feature file those of its
+// float16 table.
 //
 // What bounds it on an H100: bytes.  It moves B*F*s bytes out (s the
 // element's 4 or 2 bytes), at most as many in, and B*4 bytes of ids; it
@@ -17,12 +18,12 @@
 // that covers the row's words, at most a warp: a 512-byte float32 row of
 // 128 takes a warp of 16-byte words, a 256-byte bfloat16 row of 128 half a
 // warp, so a warp copies two such rows at once and no lane idles.  The
-// kernel copies a row's bytes and never looks at them, so float32 and
-// bfloat16 feature rows and the int32 label column share it.  The row is
+// kernel copies a row's bytes and never looks at them, so float32,
+// bfloat16 and float16 feature rows and the int32 label column share it.  The row is
 // copied in 16-byte words (uint4) when its bytes are a multiple of 16 and
 // both tables are 16-byte aligned, else in 4-byte words when they are a
-// multiple of 4 (every float32 or int32 row, a bfloat16 row of even
-// width), else in 2-byte words (a bfloat16 row of odd width, whose rows
+// multiple of 4 (every float32 or int32 row, a 2-byte row of even
+// width), else in 2-byte words (a 2-byte row of odd width, whose rows
 // start 2-byte aligned), so consecutive lanes touch consecutive addresses.
 // Row offsets are computed in 64 bits (2.45M rows x 128 words passes
 // 2^31).  An invalid id writes zeros and never reads the table, so an
@@ -106,7 +107,7 @@ bool aligned(const void* p, int bytes) {
 }  // namespace
 
 // feat: (num_rows, width) elements of elem_bytes (4: float32 or int32, 2:
-// bfloat16); ids: (num_ids,) int32; out: (num_ids, width) of feat's type.
+// bfloat16 or float16); ids: (num_ids,) int32; out: (num_ids, width) of feat's type.
 // Returns cudaGetLastError() after the launch (cudaErrorInvalidValue,
 // launching nothing, for another element size).
 extern "C" int xg_gather_rows(const void* feat, const void* ids, void* out,

@@ -63,7 +63,26 @@
 // maximum), so the result is deterministic, though its rounding is not the
 // single chain of a short row.  The blocks of the second kernel find the
 // hub rows themselves, 256 rows at a time, so nothing waits on the host.
+//
+// K6a's float16 form (xg_spmm_csr_f16; full-graph inference's layer 0 over
+// an F16 feature file) rounds where JAX's spmm_csr_planned rounds over a
+// float16 h (xgnn_tpu/ops/spmm.py :374-394, :455): a row is cut into
+// segments of `seg` (2048) edges from its start, each segment's rows are
+// read as float16, widened exactly and summed in float32 in CSR order, the
+// sum is rounded to float16 (jnp.sum's upcast), the mean form multiplies it
+// by the float32 1 / max(deg, 1) and rounds again, and the segments are
+// added into a float16 accumulator, each addition rounded.  A row of one
+// segment is the rows kernel's, a warp a row; a longer row is the hub
+// kernel's, whose warps take its segments 8 at a time and warp 0 adds them
+// in the order of JAX's plan: the buckets run from the smallest cap up, so
+// a last partial segment of at most first_max (1536, the cap below 2048 in
+// JAX's fine buckets) edges comes first, and the full segments (and a
+// longer partial one, in their bucket) follow from the row's start.  The
+// reads are 8 bytes (4 float16) a lane where the width is a multiple of 4
+// and the tables are 8-byte aligned, else 2 bytes.  Bytes bound it as they
+// bound the float32 form, at half the row's bytes.
 
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -130,14 +149,42 @@ __device__ __forceinline__ float leaky(float x, float slope) {
 
 // ---- K6a ----------------------------------------------------------------
 
-// acc[u] += h[indices[k], c0 + lane + 32 u] for k in [s, e), in order.  The
-// warp's lanes all call it with the same s, e and c0.
-template <typename V, int kV>
+// A table's slice S as the float32 slice the sums take: float4 and float
+// as they are, 4 float16 (uint2) or one (uint16_t) widened exactly.
+template <typename S>
+struct Wide {
+  using T = S;
+};
+template <>
+struct Wide<uint2> {
+  using T = float4;
+};
+template <>
+struct Wide<uint16_t> {
+  using T = float;
+};
+
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ float4 widen(float4 v) { return v; }
+__device__ __forceinline__ float half_bits(uint32_t b) {
+  return __half2float(__ushort_as_half((unsigned short)(b & 0xffffu)));
+}
+__device__ __forceinline__ float widen(uint16_t v) { return half_bits(v); }
+__device__ __forceinline__ float4 widen(uint2 v) {  // low half first
+  return make_float4(half_bits(v.x), half_bits(v.x >> 16), half_bits(v.y),
+                     half_bits(v.y >> 16));
+}
+
+// acc[u] += h[indices[k], c0 + lane + 32 u] for k in [s, e), in order, each
+// slice widened to float32.  The warp's lanes all call it with the same s,
+// e and c0.
+template <typename S, int kV>
 __device__ __forceinline__ void sum_edges(const int32_t* __restrict__ indices,
-                                          const V* __restrict__ h, int64_t s,
+                                          const S* __restrict__ h, int64_t s,
                                           int64_t e, int32_t num_rows,
                                           int64_t wv, int64_t c0, int lane,
-                                          V (&acc)[kV]) {
+                                          typename Wide<S>::T (&acc)[kV]) {
+  using V = typename Wide<S>::T;
   for (int64_t k0 = s; k0 < e; k0 += 32) {
     const int n = (int)min64(32, e - k0);
     int32_t id = 0;
@@ -151,7 +198,8 @@ __device__ __forceinline__ void sum_edges(const int32_t* __restrict__ indices,
         for (int u = 0; u < kV; ++u) {
           const int64_t c = c0 + lane + 32 * u;
           v[j][u] = zero_value<V>();
-          if (g0 + j < n && c < wv) v[j][u] = __ldg(h + (int64_t)r * wv + c);
+          if (g0 + j < n && c < wv)
+            v[j][u] = widen(__ldg(h + (int64_t)r * wv + c));
         }
       }
 #pragma unroll
@@ -265,6 +313,136 @@ spmm_hub_kernel(const int32_t* __restrict__ indptr,
                                   lane);
         }
         __syncthreads();
+      }
+    }
+    __syncthreads();  // num_hubs is read before thread 0 resets it
+  }
+}
+
+// ---- K6a over float16 ----------------------------------------------------
+
+// x rounded to float16 (to nearest, ties to even), as a float32
+__device__ __forceinline__ float r16(float x) {
+  return __half2float(__float2half_rn(x));
+}
+__device__ __forceinline__ float4 r16(float4 x) {
+  return make_float4(r16(x.x), r16(x.y), r16(x.z), r16(x.w));
+}
+
+__device__ __forceinline__ uint16_t narrow16(float x) {
+  return __half_as_ushort(__float2half_rn(x));
+}
+__device__ __forceinline__ uint2 narrow16(float4 x) {
+  return make_uint2(narrow16(x.x) | ((uint32_t)narrow16(x.y) << 16),
+                    narrow16(x.z) | ((uint32_t)narrow16(x.w) << 16));
+}
+
+// One segment [s, e) of a row at the lane's columns: its float32 sum
+// rounded to float16, and with kMean that times inv rounded again.
+template <typename S, int kV, bool kMean>
+__device__ __forceinline__ void segment16(const int32_t* __restrict__ indices,
+                                          const S* __restrict__ h, int64_t s,
+                                          int64_t e, int32_t num_rows,
+                                          int64_t wv, int64_t c0, int lane,
+                                          float inv,
+                                          typename Wide<S>::T (&v)[kV]) {
+#pragma unroll
+  for (int u = 0; u < kV; ++u) v[u] = zero_value<typename Wide<S>::T>();
+  sum_edges<S, kV>(indices, h, s, e, num_rows, wv, c0, lane, v);
+#pragma unroll
+  for (int u = 0; u < kV; ++u) {
+    v[u] = r16(v[u]);
+    if (kMean) v[u] = r16(vmul(v[u], inv));
+  }
+}
+
+template <typename S, int kV>
+__device__ __forceinline__ void store16(S* __restrict__ orow,
+                                        const typename Wide<S>::T (&v)[kV],
+                                        int64_t wv, int64_t c0, int lane) {
+#pragma unroll
+  for (int u = 0; u < kV; ++u) {
+    const int64_t c = c0 + lane + 32 * u;
+    if (c < wv) orow[c] = narrow16(v[u]);
+  }
+}
+
+// the rows of at most seg edges (one segment), a warp a row
+template <typename S, int kV, bool kMean>
+__global__ void __launch_bounds__(kThreads)
+spmm16_rows_kernel(const int32_t* __restrict__ indptr,
+                   const int32_t* __restrict__ indices,
+                   const S* __restrict__ h, S* __restrict__ out,
+                   int64_t num_node, int32_t num_rows, int64_t wv,
+                   int64_t seg) {
+  const int lane = threadIdx.x & 31;
+  const int64_t warps = (int64_t)gridDim.x * kWarps;
+  for (int64_t row = (int64_t)blockIdx.x * kWarps + (threadIdx.x >> 5);
+       row < num_node; row += warps) {
+    const int64_t s = __ldg(indptr + row), e = __ldg(indptr + row + 1);
+    if (e - s > seg) continue;  // the hub kernel's
+    const float inv = kMean ? inverse_degree(e - s) : 1.f;
+    for (int64_t c0 = 0; c0 < wv; c0 += 32 * kV) {
+      typename Wide<S>::T v[kV];
+      segment16<S, kV, kMean>(indices, h, s, e, num_rows, wv, c0, lane, inv,
+                              v);
+      store16<S, kV>(out + row * wv, v, wv, c0, lane);
+    }
+  }
+}
+
+// The rows of more than seg edges, a block a row: its warps take the
+// row's segments kWarps at a time, in the order of JAX's plan (the partial
+// last segment first where it has at most first_max edges), and warp 0
+// adds each round's segments into the float16 accumulator in that order.
+template <typename S, int kV, bool kMean>
+__global__ void __launch_bounds__(kThreads)
+spmm16_hub_kernel(const int32_t* __restrict__ indptr,
+                  const int32_t* __restrict__ indices,
+                  const S* __restrict__ h, S* __restrict__ out,
+                  int64_t num_node, int32_t num_rows, int64_t wv, int64_t seg,
+                  int64_t first_max) {
+  using V = typename Wide<S>::T;
+  __shared__ int32_t hubs[kThreads];
+  __shared__ int num_hubs;
+  __shared__ V part[kWarps][32 * kV];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int64_t base = (int64_t)blockIdx.x * kThreads; base < num_node;
+       base += (int64_t)gridDim.x * kThreads) {
+    const int nh = find_hubs(indptr, base, num_node, seg, hubs, &num_hubs);
+    for (int i = 0; i < nh; ++i) {
+      const int64_t row = hubs[i];
+      const int64_t s = __ldg(indptr + row), e = __ldg(indptr + row + 1);
+      const int64_t nseg = (e - s + seg - 1) / seg, rem = (e - s) % seg;
+      const bool first = rem != 0 && rem <= first_max;
+      const float inv = kMean ? inverse_degree(e - s) : 1.f;
+      for (int64_t c0 = 0; c0 < wv; c0 += 32 * kV) {
+        V acc[kV];
+#pragma unroll
+        for (int u = 0; u < kV; ++u) acc[u] = zero_value<V>();
+        for (int64_t r0 = 0; r0 < nseg; r0 += kWarps) {
+          const int64_t k = r0 + warp;
+          if (k < nseg) {
+            const int64_t sg = first ? (k == 0 ? nseg - 1 : k - 1) : k;
+            V v[kV];
+            segment16<S, kV, kMean>(indices, h, s + sg * seg,
+                                    min64(e, s + (sg + 1) * seg), num_rows,
+                                    wv, c0, lane, inv, v);
+#pragma unroll
+            for (int u = 0; u < kV; ++u) part[warp][lane + 32 * u] = v[u];
+          }
+          __syncthreads();
+          if (warp == 0) {
+            const int64_t n = min64(kWarps, nseg - r0);
+            for (int w = 0; w < n; ++w) {
+#pragma unroll
+              for (int u = 0; u < kV; ++u)
+                acc[u] = r16(vadd(acc[u], part[w][lane + 32 * u]));
+            }
+          }
+          __syncthreads();
+        }
+        if (warp == 0) store16<S, kV>(out + row * wv, acc, wv, c0, lane);
       }
     }
     __syncthreads();  // num_hubs is read before thread 0 resets it
@@ -592,6 +770,21 @@ void launch_spmm(const int32_t* indptr, const int32_t* indices,
   }
 }
 
+template <typename S, int kV, bool kMean>
+void launch_spmm16(const int32_t* indptr, const int32_t* indices,
+                   const void* h, void* out, int64_t num_node,
+                   int32_t num_rows, int64_t wv, int64_t seg,
+                   int64_t first_max, cudaStream_t s) {
+  const S* hv = static_cast<const S*>(h);
+  S* ov = static_cast<S*>(out);
+  auto rows = spmm16_rows_kernel<S, kV, kMean>;
+  rows<<<grid_for(rows, num_node, kWarps), kThreads, 0, s>>>(
+      indptr, indices, hv, ov, num_node, num_rows, wv, seg);
+  auto hub = spmm16_hub_kernel<S, kV, kMean>;
+  hub<<<grid_for(hub, num_node, kThreads), kThreads, 0, s>>>(
+      indptr, indices, hv, ov, num_node, num_rows, wv, seg, first_max);
+}
+
 template <typename V, int kV, int kH>
 void launch_gat(const int32_t* indptr, const int32_t* indices,
                 const float* feat, const float* el, const float* er,
@@ -643,6 +836,37 @@ extern "C" int xg_spmm_csr(const void* indptr, const void* indices,
   else if (vec) XG_SPMM(float4, 2, width / 4);
   else XG_SPMM(float, 2, width);
 #undef XG_SPMM
+  return (int)cudaGetLastError();
+}
+
+// K6a's float16 form: h: (num_rows, width) float16; out: (num_node,
+// width) float16, every row written; seg: the segment's edges (2048);
+// first_max: the longest partial last segment that JAX's plan adds first
+// (1536).  indptr, indices and mean as above.
+extern "C" int xg_spmm_csr_f16(const void* indptr, const void* indices,
+                               const void* h, void* out, long long num_node,
+                               long long num_rows, long long width, int mean,
+                               long long seg, long long first_max,
+                               void* stream) {
+  if (num_rows >= INT32_MAX || (num_rows <= 0 && num_node > 0) || seg <= 0)
+    return (int)cudaErrorInvalidValue;
+  if (num_node <= 0 || width <= 0) return (int)cudaGetLastError();
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  const int32_t* ip = static_cast<const int32_t*>(indptr);
+  const int32_t* ix = static_cast<const int32_t*>(indices);
+  const int32_t nr = (int32_t)num_rows;
+  const bool vec = width % 4 == 0 &&
+                   reinterpret_cast<uintptr_t>(h) % 8 == 0 &&
+                   reinterpret_cast<uintptr_t>(out) % 8 == 0;
+#define XG_SPMM16(S, KV, WV)                                                \
+  (mean ? launch_spmm16<S, KV, true>(ip, ix, h, out, num_node, nr, WV, seg,  \
+                                     first_max, s)                          \
+        : launch_spmm16<S, KV, false>(ip, ix, h, out, num_node, nr, WV, seg, \
+                                      first_max, s))
+  if (vec && width <= 128) XG_SPMM16(uint2, 1, width / 4);
+  else if (vec) XG_SPMM16(uint2, 2, width / 4);
+  else XG_SPMM16(uint16_t, 2, width);
+#undef XG_SPMM16
   return (int)cudaGetLastError();
 }
 

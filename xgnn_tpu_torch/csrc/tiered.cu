@@ -6,11 +6,12 @@
 //   every other row of out (EMPTY or out-of-range ids, i >= num_input) is 0;
 //   counts[0] = the hits, counts[1] = the misses (exact int32).
 // With no posmap (the all-miss form) every valid id is a miss: the cache's
-// own rows are built that way.  The host table is float32; the cache and
-// out are float32, or bfloat16 under feat_dtype="bfloat16": then a miss
-// row is rounded to bfloat16 (to nearest, ties to even, as JAX's astype
-// and PyTorch's .to round) as the SMs write it, and its bytes over PCIe
-// stay float32, as in JAX's store.
+// own rows are built that way.  The host table is the dataset's float32 or
+// float16 (an F16 feature file); the cache and out are of the host's type,
+// or bfloat16 under feat_dtype="bfloat16": then a miss row is rounded to
+// bfloat16 (to nearest, ties to even, as JAX's astype and PyTorch's .to
+// round; a float16 widened exactly first) as the SMs write it, and its
+// bytes over PCIe stay the host's, as in JAX's store.
 //
 // Replaces: xgnn_tpu/store/feature_store.py, _split_kernel (the posmap
 // lookup, the hit/miss split and the stable compaction of the miss
@@ -57,6 +58,7 @@
 // SMs' rate by more than the spread.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -108,6 +110,34 @@ template <>
 struct Narrow<float, uint16_t> {
   static __device__ __forceinline__ uint16_t run(float v) {
     return __bfloat16_as_ushort(__float2bfloat16_rn(v));
+  }
+};
+
+// 4 and 1 float16 of a host row, read as such (a copy moves raw words)
+struct Half4 {
+  uint2 bits;
+};
+struct Half1 {
+  uint16_t bits;
+};
+
+__device__ __forceinline__ float f16_bits(uint32_t b) {
+  return __half2float(__ushort_as_half((unsigned short)(b & 0xffffu)));
+}
+
+// float16 widened exactly, then rounded to bfloat16 as float32 rounds
+template <>
+struct Narrow<Half4, uint2> {
+  static __device__ __forceinline__ uint2 run(Half4 h) {
+    return Narrow<float4, uint2>::run(
+        make_float4(f16_bits(h.bits.x), f16_bits(h.bits.x >> 16),
+                    f16_bits(h.bits.y), f16_bits(h.bits.y >> 16)));
+  }
+};
+template <>
+struct Narrow<Half1, uint16_t> {
+  static __device__ __forceinline__ uint16_t run(Half1 h) {
+    return Narrow<float, uint16_t>::run(f16_bits(h.bits));
   }
 };
 
@@ -272,8 +302,9 @@ split_write_kernel(const int32_t* __restrict__ ids, int64_t n,
 
 // Step 2: out[pos[j]] = table[ids[j]] for j < *count; a warp moves kUnroll
 // rows at once, every load before any store.  In is the table's slice
-// (uint4, uint32_t, or float4 and float read as float32), Out out's (the
-// same, or uint2 and uint16_t: the slice in bfloat16); width in slices.
+// (uint4, uint32_t or uint16_t words copied as they are, or float4 and
+// float, Half4 and Half1 read as float32 or float16), Out out's (the same
+// words, or uint2 and uint16_t: the slice in bfloat16); width in slices.
 template <typename In, typename Out>
 __global__ void __launch_bounds__(kThreads)
 direct_kernel(const In* table, const int32_t* __restrict__ ids,
@@ -305,10 +336,6 @@ direct_kernel(const In* table, const int32_t* __restrict__ ids,
           out[dst[u] * width + col] = Narrow<In, Out>::run(v[u]);
     }
   }
-}
-
-bool aligned16(const void* p) {
-  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
 bool aligned(const void* p, int bytes) {
@@ -413,17 +440,18 @@ extern "C" int xg_tiered_split(const void* ids, long long n,
 }
 
 // Step 2.  table: the device address of the mapped (num_node, width) host
-// table of 4-byte words (float32); miss_ids, miss_pos: (n,) int32, the
-// split's lists; num_miss: a device int32 scalar (the split's counts[1]);
-// out: (n, width) 4-byte words, or with out_bf16 bfloat16, each element
-// rounded from the table's float32.  Returns cudaGetLastError() after the
-// launch.
+// table of host_bytes elements (4: float32, 2: float16); miss_ids,
+// miss_pos: (n,) int32, the split's lists; num_miss: a device int32 scalar
+// (the split's counts[1]); out: (n, width) of the table's elements, or with
+// out_bf16 bfloat16, each element rounded from the table's.  Returns
+// cudaGetLastError() after the launch.
 extern "C" int xg_tiered_direct(const void* table, long long width,
                                 const void* miss_ids, const void* miss_pos,
                                 const void* num_miss, void* out, long long n,
-                                int out_bf16, void* stream) {
+                                int host_bytes, int out_bf16, void* stream) {
   if (n <= 0 || width <= 0 || table == nullptr || miss_ids == nullptr ||
-      miss_pos == nullptr || num_miss == nullptr || out == nullptr)
+      miss_pos == nullptr || num_miss == nullptr || out == nullptr ||
+      (host_bytes != 2 && host_bytes != 4))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   int device = 0, sms = 132;
@@ -435,19 +463,38 @@ extern "C" int xg_tiered_direct(const void* table, long long width,
   const int32_t* ids = static_cast<const int32_t*>(miss_ids);
   const int32_t* pos = static_cast<const int32_t*>(miss_pos);
   const int32_t* num = static_cast<const int32_t*>(num_miss);
-  const bool vec = width % 4 == 0 && aligned16(table) &&
-                   aligned(out, out_bf16 ? 8 : 16);
-  if (out_bf16 && vec)
-    launch_direct<float4, uint2>(table, ids, pos, num, width / 4, out, n,
-                                 grid, s);
-  else if (out_bf16)
-    launch_direct<float, uint16_t>(table, ids, pos, num, width, out, n, grid,
-                                   s);
-  else if (vec)
-    launch_direct<uint4, uint4>(table, ids, pos, num, width / 4, out, n, grid,
-                                s);
+  if (out_bf16) {
+    // 4 elements a slice where the row and both tables allow it
+    const bool vec = width % 4 == 0 && aligned(table, 4 * host_bytes) &&
+                     aligned(out, 8);
+    if (host_bytes == 4 && vec)
+      launch_direct<float4, uint2>(table, ids, pos, num, width / 4, out, n,
+                                   grid, s);
+    else if (host_bytes == 4)
+      launch_direct<float, uint16_t>(table, ids, pos, num, width, out, n,
+                                     grid, s);
+    else if (vec)
+      launch_direct<Half4, uint2>(table, ids, pos, num, width / 4, out, n,
+                                  grid, s);
+    else
+      launch_direct<Half1, uint16_t>(table, ids, pos, num, width, out, n,
+                                     grid, s);
+    return (int)cudaGetLastError();
+  }
+  // a copy: the widest word that divides a row and both tables' alignment
+  const long long row_bytes = width * host_bytes;
+  auto fits = [&](int bytes) {
+    return row_bytes % bytes == 0 && aligned(table, bytes) &&
+           aligned(out, bytes);
+  };
+  if (fits(16))
+    launch_direct<uint4, uint4>(table, ids, pos, num, row_bytes / 16, out, n,
+                                grid, s);
+  else if (fits(4))
+    launch_direct<uint32_t, uint32_t>(table, ids, pos, num, row_bytes / 4,
+                                      out, n, grid, s);
   else
-    launch_direct<uint32_t, uint32_t>(table, ids, pos, num, width, out, n,
-                                      grid, s);
+    launch_direct<uint16_t, uint16_t>(table, ids, pos, num, row_bytes / 2,
+                                      out, n, grid, s);
   return (int)cudaGetLastError();
 }

@@ -37,6 +37,13 @@ def generator(device: torch.device, seed: int) -> torch.Generator:
     return g
 
 
+def feature_dtype(feat) -> torch.dtype:
+    """The type a feature table is kept in: float16 for an F16 file's
+    table (a float16 array or tensor), float32 for any other."""
+    half = str(getattr(feat, "dtype", "")) in ("float16", "torch.float16")
+    return torch.float16 if half else torch.float32
+
+
 def to_tensor(a, device: Union[str, torch.device],
               dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """``a`` (a tensor or an array, a dataset file's read-only memory map

@@ -20,8 +20,13 @@ read-only arrays are copied once, to the card or into the tiered stores'
 pinned memory; a uint32 ``indptr`` (2^31 edges or more) only the tiered
 topology takes; the weighted samplers read the files' tables and the
 static cache policies their ranking files.  A float16 feature table (an
-``F16`` file) is refused: JAX sums its fanout in float16, which the port's
-kernels do not.
+``F16`` file) stays float16 on the card and in the tiered store's host
+tier and cache, as JAX keeps it, at half the bytes of float32; the model
+does no float16 arithmetic (JAX's ``GNN`` casts its input to
+``compute_dtype`` first), so the kernels widen its rows exactly where JAX
+widens the table.  Under ``feat_dtype`` "bfloat16" the table is rounded
+to bfloat16, and under ``compute_dtype`` "bfloat16" alone it is rounded
+once at init, which gives the values of JAX's per-step ``astype``.
 
 ``profiler`` is wired as the JAX engine wires it: init times and memory,
 each step's stage times, input nodes, hit rate and miss bytes, the
@@ -57,7 +62,7 @@ from .. import constants as C
 from .. import profiler as P
 from ..checkpoint import CheckpointManager
 from ..config import WEIGHTED, CachePolicy, RunConfig
-from ..device import generator, resolve, seed_of
+from ..device import feature_dtype, generator, resolve, seed_of
 from ..models import build_model
 from ..ops import sanity
 from ..ops.presample import accumulate_freq
@@ -101,14 +106,6 @@ def _align_up(n: int, num_node: int) -> int:
 class Engine:
     def __init__(self, dataset, config: RunConfig, device=None,
                  feat_dtype: Optional[torch.dtype] = None):
-        if str(getattr(dataset.feat, "dtype", "")) in ("float16",
-                                                      "torch.float16"):
-            # JAX keeps an F16 table in float16 and sums its fanout in
-            # float16; a float32 table would give other results
-            raise NotImplementedError(
-                "not ported to xgnn_tpu_torch yet: a float16 feature table "
-                "(FEAT_DATA_TYPE F16): ROADMAP section 2, 'F16 feature "
-                "files'")
         self.ds = dataset
         self.config = config
         self.device = resolve(device)
@@ -120,7 +117,12 @@ class Engine:
             raise ValueError(f"feat_dtype={feat_dtype} differs from the "
                              f"config's feat_dtype={config.feat_dtype!r}: "
                              "set RunConfig.feat_dtype")
-        self.feat_dtype = torch.bfloat16 if want == torch.bfloat16 else None
+        # None keeps the dataset's float32 or float16; an F16 table under
+        # bfloat16 compute is rounded once here in place of every step
+        bf16 = want == torch.bfloat16 or (
+            feature_dtype(dataset.feat) == torch.float16
+            and config.compute_dtype == "bfloat16")
+        self.feat_dtype = torch.bfloat16 if bf16 else None
         self.graph: Optional[Graph] = None
         self.sampler: Optional[Sampler] = None
         # the tiered topology's cold side and the whole graph's node count

@@ -12,6 +12,14 @@ sampling noise.  A layer aggregates through K6 (``ops/spmm.py``):
 - GAT: ``feat = h W`` as ``(N, H, D)``, its two score terms ``el`` and
   ``er``, and K6b's segment softmax; the last layer has one head.
 
+A float16 table (an F16 feature file) stays float16, as JAX keeps it, and
+layer 0 rounds where JAX's does: SAGE's and PinSAGE's mean is K6a's
+float16 form (each segment of 2048 edges summed in float32 and rounded,
+then added in float16), GCN's ``deg`` and ``1 / sqrt(max(deg, 1))`` are
+float16, and the products with the float32 weights (the Dense layers,
+GAT's transform) widen the rows exactly, as JAX's promotion does.  Every
+later layer is float32.
+
 ReLU between layers, ELU for GAT; no dropout.  The MLP has no full-graph
 layer and is refused, as the JAX lookup refuses it.  JAX builds a
 degree-bucketed plan of the graph for the TPU (``build_spmm_plan``,
@@ -24,7 +32,7 @@ from __future__ import annotations
 
 import torch
 
-from .device import resolve, to_tensor
+from .device import feature_dtype, resolve, to_tensor
 from .models.gnn import GATConv, GCNConv, SAGEConv
 from .ops.spmm import gat_aggregate_csr, spmm_csr
 
@@ -44,7 +52,7 @@ def _gcn(layer, indptr, indices, h, num_node):
 def _gat(layer, indptr, indices, h, num_node):
     heads, d = layer.num_heads, layer.out_dim
     w = layer.kernel.reshape(layer.kernel.shape[0], heads * d)
-    feat = (h @ w).reshape(-1, heads, d)
+    feat = (h.to(w.dtype) @ w).reshape(-1, heads, d)
     el = (feat * layer.attn_l).sum(-1)
     er = (feat * layer.attn_r).sum(-1)
     out = gat_aggregate_csr(indptr, indices, feat, el, er, num_node=num_node)
@@ -66,8 +74,8 @@ def full_graph_inference(model, indptr, indices, feat, num_node=None,
                          device=None) -> torch.Tensor:
     """``(num_node, num_class)`` float32 logits of every node by exact
     layer-wise propagation.  ``indptr``, ``indices`` and ``feat`` are
-    tensors or numpy arrays; pass ``num_node`` for an ``indptr`` longer
-    than the graph."""
+    tensors or numpy arrays (``feat`` float32, or float16 kept so); pass
+    ``num_node`` for an ``indptr`` longer than the graph."""
     dev = resolve(device)
     fns = [_layer_fn(layer) for layer in model.layers]
     if num_node is None:
@@ -90,7 +98,7 @@ def full_graph_inference(model, indptr, indices, feat, num_node=None,
                              "with model.to(...)")
     indptr = to_tensor(indptr, dev, torch.int32)
     indices = to_tensor(indices, dev, torch.int32)
-    h = to_tensor(feat, dev, torch.float32)
+    h = to_tensor(feat, dev, feature_dtype(feat))
     last = len(fns) - 1
     for i, (fn, layer) in enumerate(zip(fns, model.layers)):
         h = fn(layer, indptr, indices, h, num_node)

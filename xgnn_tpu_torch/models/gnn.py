@@ -13,11 +13,17 @@ edge-softmax aggregate kernel K5 (``ops/attend.py``).
 
 The training options are JAX's.  ``compute_dtype=torch.bfloat16`` casts
 the input to bfloat16 (a bfloat16 input, the ``feat_dtype`` table, is kept
-as it is); K4 and K1 read the bfloat16 rows, K4 sums them in float32, and
-``Dense`` promotes a bfloat16 input to its float32 weights, as flax's
+as it is); K4, K1 and K5 read the bfloat16 rows and sum them in float32,
+and ``Dense`` promotes a bfloat16 input to its float32 weights, as flax's
 ``nn.Dense`` does, so every layer after the first computes in float32.
-GAT under bfloat16 is refused (ROADMAP 'K5 bf16').  JAX's ``agg_impl``
-(``loop``, ``tiled`` or ``chunk<N>``) is checked by ``RunConfig`` and does
+GAT over bfloat16 rows takes JAX's ``_mp_dot`` (:func:`_mp_dot`): its
+score projections and its transform are rounded to bfloat16 where JAX
+rounds them.  A float16 input (an F16 feature file) under
+``compute_dtype=torch.float32`` is kept whole too, where JAX's ``astype``
+would widen the table every step: the kernels and :func:`_mp_dot` widen
+its rows exactly, which gives the values of that ``astype``.  JAX's
+``agg_impl`` (``loop``, ``tiled`` or ``chunk<N>``) is checked by
+``RunConfig`` and does
 not reach the model: each is a formulation of one function, the masked
 weighted fanout sum, which K4 computes, so none changes the arithmetic.
 ``remat`` recomputes each
@@ -83,11 +89,22 @@ def _glorot_uniform_(w: torch.Tensor, fan_in: int, fan_out: int,
     nn.init.uniform_(w, -limit, limit, generator=generator)
 
 
+def _mp_dot(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """JAX's ``_mp_dot``: a bfloat16 ``x`` meets ``w`` rounded to bfloat16
+    (the cast's backward rounds ``w``'s gradient to bfloat16, as JAX's VJP
+    of the bfloat16 operand does), and every ``x`` is widened exactly, so
+    the product of float32 operands is the bfloat16 product with float32
+    accumulation (and a float16 ``x`` JAX's promotion to float32)."""
+    if x.dtype == torch.bfloat16:
+        w = w.to(torch.bfloat16).float()
+    return x.to(w.dtype) @ w
+
+
 class Dense(nn.Module):
     """``x @ weight.T + bias``, allocated without drawing from the global
     random stream (``reset_parameters`` of the owner fills it).  An input of
-    another type (bfloat16) is promoted to the weights' float32 first, as
-    flax's ``nn.Dense`` promotes it."""
+    another type (bfloat16, float16) is promoted to the weights' float32
+    first, as flax's ``nn.Dense`` promotes it."""
 
     def __init__(self, in_dim: int, out_dim: int, bias: bool):
         super().__init__()
@@ -171,7 +188,12 @@ class GATConv(nn.Module):
     over the dst rows only.  The JAX package's contraction and per-pick
     forms of that second case, and ``gat_select_path`` choosing among
     them, shape the same function for the TPU; the port has K5's one form
-    (ROADMAP section 3).  On a local-id block in shared mode K5 forms
+    (ROADMAP section 3).  Over bfloat16 rows (layer 0 under bfloat16) the
+    products with ``wl``, ``wr`` and the per-head transform round the
+    projection to bfloat16 as JAX's ``_mp_dot`` does; ``out``'s transform
+    stays float32, as JAX's ``kernel.astype(acc_dt)``.  The per-head
+    branch's K5 table is the transform's float32 output, so only shared
+    mode reads a 2-byte table.  On a local-id block in shared mode K5 forms
     ``el_dst`` from the prefix ``h_src[:D]`` itself
     (``gat_attend_prefix``), so the prefix's gradient joins the table's in
     one sum.  Output ``(D, H*d)``, head-major."""
@@ -196,16 +218,22 @@ class GATConv(nn.Module):
         in_dim = h_src.shape[1]
         wl = torch.einsum("ihd,hd->ih", self.kernel, self.attn_l)
         if in_dim > h * d:
-            feat = h_src @ self.kernel.reshape(in_dim, h * d)
-            out = gat_attend(feat, block.neigh, _take_dst(block, h_src) @ wl,
+            feat = _mp_dot(h_src, self.kernel.reshape(in_dim, h * d))
+            out = gat_attend(feat, block.neigh,
+                             _mp_dot(_take_dst(block, h_src), wl),
                              self.attn_r.contiguous(), PER_HEAD)
             return out.reshape(block.dst_cap, h * d)
-        wr = torch.einsum("ihd,hd->ih", self.kernel, self.attn_r).contiguous()
+        wr = torch.einsum("ihd,hd->ih", self.kernel, self.attn_r)
+        if h_src.dtype == torch.bfloat16:
+            # the rows' scores against the projections rounded to bfloat16
+            wl, wr = (w.to(torch.bfloat16).float() for w in (wl, wr))
+        wr = wr.contiguous()
         if block.dst_ids is None:
             agg = gat_attend_prefix(h_src, block.neigh, wl.contiguous(), wr)
         else:
-            agg = gat_attend(h_src, block.neigh, _take_dst(block, h_src) @ wl,
-                             wr, SHARED)
+            agg = gat_attend(h_src, block.neigh,
+                             _mp_dot(_take_dst(block, h_src), wl), wr,
+                             SHARED)
         out = torch.einsum("bhi,ihd->bhd", agg, self.kernel)
         return out.reshape(block.dst_cap, h * d)
 
@@ -254,10 +282,6 @@ class GNN(nn.Module):
                  compute_dtype: torch.dtype = torch.float32,
                  remat: bool = False):
         super().__init__()
-        if conv == "gat" and compute_dtype == torch.bfloat16:
-            raise NotImplementedError(
-                "not ported to xgnn_tpu_torch yet: GAT under bfloat16: "
-                "ROADMAP section 2, 'K5 bf16'")
         self.compute_dtype, self.remat = compute_dtype, remat
         layers, width = [], in_dim
         for i in range(num_layers):
@@ -284,8 +308,12 @@ class GNN(nn.Module):
                 train: bool = False,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         # a bfloat16 input (the feat_dtype table) stays as it is: a cast
-        # of it would be a pass over the whole table
-        h = x if x.dtype == torch.bfloat16 else x.to(self.compute_dtype)
+        # of it would be a pass over the whole table; so does a float16
+        # one (an F16 file) under float32 compute, whose rows the layer
+        # widens exactly where JAX's astype widens the table
+        keep = x.dtype == torch.bfloat16 or (
+            x.dtype == torch.float16 and self.compute_dtype == torch.float32)
+        h = x if keep else x.to(self.compute_dtype)
         last = len(self.layers) - 1
         remat = self.remat and torch.is_grad_enabled()
         for i, layer in enumerate(self.layers):

@@ -6,8 +6,10 @@ at the root of the checkout, and bound with ``ctypes``.  A source may
 include the shared headers ``csrc/*.cuh`` (``-I csrc``, so a copy of a
 source built elsewhere finds them too).  A library's file name carries a
 hash of its source, the headers and the flags, so an edited one is
-rebuilt.
-:func:`build` compiles several sources at once, one ``nvcc`` process each.
+rebuilt.  A library of :data:`VARIANTS` is its source built with extra
+flags (K5's 2-byte tables: ``attend.cu`` with ``-DXG_ATTEND_ELEM``).
+:func:`build` compiles several libraries at once, one ``nvcc`` process
+each.
 
 Every C entry point returns ``cudaGetLastError()`` after its launch; the
 wrappers raise when it is not 0.  Each wrapper counts its launches in
@@ -45,6 +47,8 @@ SIGNATURES = {
         "xg_gather_rows": [_P, _P, _P, _LL, _LL, _LL, _I, _P],
     },
     "fanout": {
+        # the int before the stream: the table's element (0 float32, 1
+        # bfloat16, 2 float16)
         "xg_fanout_fwd": [_P] * 5 + [_LL, _LL, _I, _LL, _I, _I, _P],
         "xg_fanout_bwd": [_P] * 9 + [_LL, _LL, _LL, _I, _LL, _LL, _P],
     },
@@ -74,7 +78,8 @@ SIGNATURES = {
         "xg_host_map": [_P, _LL, _I, _P],
         "xg_host_unmap": [_P, _I],
         "xg_tiered_split": [_P, _LL, _P, _P, _LL, _P, _LL, _I] + [_P] * 6,
-        "xg_tiered_direct": [_P, _LL, _P, _P, _P, _P, _LL, _I, _P],
+        # host_bytes (4 float32, 2 float16), out_bf16
+        "xg_tiered_direct": [_P, _LL, _P, _P, _P, _P, _LL, _I, _I, _P],
     },
     "presample": {
         "xg_accumulate_freq": [_P, _LL, _P, _LL, _P, _I, _P],
@@ -83,6 +88,7 @@ SIGNATURES = {
     "spmm": {
         "xg_spmm_csr": [_P] * 4 + [_LL, _LL, _LL, _I, _LL, _P],
         "xg_gat_csr": [_P] * 6 + [_LL, _LL, _I, _I, _F, _LL, _P],
+        "xg_spmm_csr_f16": [_P] * 4 + [_LL, _LL, _LL, _I, _LL, _LL, _P],
     },
     "host_read": {  # a probe of the card's mapped host reads, no path's
         "xg_host_read": [_P, _LL, _I, _I, _I, _I, ctypes.c_uint, _P, _P],
@@ -92,6 +98,15 @@ SIGNATURES = {
         "xg_attend_bwd": [_P] * 13 + [_I, _LL, _LL, _I, _I, _I, _I, _F, _P],
     },
 }
+
+
+# K5 over a 2-byte table: attend.cu with its element chosen at build time
+VARIANTS = {
+    "attend_bf16": ("attend", ["-DXG_ATTEND_ELEM=1"]),
+    "attend_f16": ("attend", ["-DXG_ATTEND_ELEM=2"]),
+}
+for _name in VARIANTS:
+    SIGNATURES[_name] = SIGNATURES["attend"]
 
 
 class LaunchCounter:
@@ -134,11 +149,17 @@ def nvcc() -> str:
     return found
 
 
+def _source(name: str):
+    """``(source file, nvcc flags)`` of a library."""
+    src, extra = VARIANTS.get(name, (name, []))
+    return CSRC / f"{src}.cu", NVCC_FLAGS + extra
+
+
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
+    src, flags = _source(name)
     headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(
-        src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()
+        src.read_bytes() + headers + " ".join(flags).encode()
     ).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}_{digest}.so"
 
@@ -157,7 +178,8 @@ def build(names: Optional[Iterable[str]] = None):
     procs = {}
     for n in todo:
         tmp = BUILD_DIR / f".{library_path(n).name}.{os.getpid()}.tmp"
-        cmd = [compiler] + NVCC_FLAGS + ["-o", str(tmp), str(CSRC / f"{n}.cu")]
+        src, flags = _source(n)
+        cmd = [compiler] + flags + ["-o", str(tmp), str(src)]
         procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                      stderr=subprocess.STDOUT, text=True),
                     tmp, time.perf_counter())
@@ -166,7 +188,7 @@ def build(names: Optional[Iterable[str]] = None):
         log, _ = p.communicate()
         out[n] = (time.perf_counter() - t0, log)
         if p.returncode != 0:
-            failed.append(f"{n}.cu (nvcc exit {p.returncode}):\n{log}")
+            failed.append(f"{n} (nvcc exit {p.returncode}):\n{log}")
             tmp.unlink(missing_ok=True)
         else:
             os.replace(tmp, library_path(n))

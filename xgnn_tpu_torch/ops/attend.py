@@ -30,8 +30,18 @@ the picks, ``g_proj`` sums ``g_pre_k row_k`` over every pick of the block,
 and the table's row ``r`` gets, over its picks, ``a_k g_out[b, h]`` on the
 payload and ``g_pre_k proj[:, h]`` through the score.
 
-The CUDA kernels are ``csrc/attend.cu``; the table's gradient is summed by
-src row with ``csrc/fanout.cu``'s segmented backward (K4's).  At one head
+The table may be bfloat16 or float16 (layer 0 of GAT under ``feat_dtype``
+or ``compute_dtype`` "bfloat16", or over an F16 feature file): its rows
+are widened to float32 exactly as they are read, and everything after
+(``out``, ``m``, ``s``, ``el_dst``, ``proj`` and every sum) is float32, as
+JAX's ``acc_dt``.  Such a table is layer 0's input and gets no gradient:
+the wrappers refuse one that requires it, and its backward returns
+``g_el_dst`` and ``g_proj`` alone.
+
+The CUDA kernels are ``csrc/attend.cu``, built once a table type
+(libraries ``attend``, ``attend_bf16`` and ``attend_f16``); the table's
+gradient is summed by src row with ``csrc/fanout.cu``'s segmented
+backward (K4's).  At one head
 the row pass writes ``a_k`` and ``g_pre_k``, two floats a pick, and the
 sum is K4's weighted backward over ``g_out`` with weights ``a`` plus its
 rank-1 term, ``(sum of g_pre over the row's picks) * proj``; at more heads
@@ -40,9 +50,10 @@ it writes one gradient row a pick, which K4 sums as rows of one pick.
 plain PyTorch versions, which the wrappers take only for tensors on the
 CPU; the plain backward sums the table's gradient in the kernels'
 association (``fanout_backward_plain``).  Launches are counted as
-``attend_fwd`` and ``attend_bwd``, one each per call of the forward and of
-the backward.  The backward also runs when the table needs no gradient
-(the feature table at layer 0), for ``g_el_dst`` and ``g_proj``.
+``attend_fwd`` and ``attend_bwd`` (with ``_bf16`` or ``_f16`` over a
+2-byte table), one each per call of the forward and of the backward.  The
+backward also runs when the table needs no gradient (the feature table at
+layer 0), for ``g_el_dst`` and ``g_proj``.
 
 :func:`gat_attend_prefix` is the shared mode of a local-id block, whose
 dst rows are the prefix ``h_src[:D]``: it forms ``el_dst = h_src[:D] @
@@ -74,6 +85,10 @@ MAX_WIDTH = 512
 _BWD_WARPS, _BWD_MAX_BLOCKS = 8, 132 * 8
 
 _FWD, _BWD = "attend_fwd", "attend_bwd"
+# the library and the launch names' suffix of each table type
+_FORMS = {torch.float32: ("attend", ""),
+          torch.bfloat16: ("attend_bf16", "_bf16"),
+          torch.float16: ("attend_f16", "_f16")}
 
 
 def _geometry(table, proj, mode):
@@ -101,8 +116,9 @@ def _leaky(x):
 
 
 def _pick_rows(table, col):
+    """The picks' validity and rows, widened to float32."""
     valid = (col >= 0) & (col < table.shape[0])
-    return valid, table[torch.where(valid, col, 0)]
+    return valid, table[torch.where(valid, col, 0)].float()
 
 
 def attend_forward_plain(table, neigh, el_dst, proj, mode):
@@ -220,11 +236,14 @@ def _check(table, neigh, el_dst, proj, mode):
     if mode not in (SHARED, PER_HEAD):
         raise ValueError(f"gat_attend: mode must be {SHARED!r} or "
                          f"{PER_HEAD!r}, got {mode!r}")
-    for name, t, dim in (("table", table, 2), ("el_dst", el_dst, 2),
-                         ("proj", proj, 2)):
-        if t.dim() != dim or t.dtype != torch.float32:
-            raise ValueError(f"gat_attend: {name} must be {dim}-D float32, "
-                             f"got {t.dtype} {tuple(t.shape)}")
+    if table.dim() != 2 or table.dtype not in _FORMS:
+        raise ValueError(f"gat_attend: table must be 2-D float32, bfloat16 "
+                         f"or float16, got {table.dtype} "
+                         f"{tuple(table.shape)}")
+    for name, t in (("el_dst", el_dst), ("proj", proj)):
+        if t.dim() != 2 or t.dtype != torch.float32:
+            raise ValueError(f"gat_attend: {name} must be 2-D float32, got "
+                             f"{t.dtype} {tuple(t.shape)}")
     if neigh.dim() != 2 or neigh.dtype != torch.int32:
         raise ValueError(f"gat_attend: neigh must be 2-D int32, got "
                          f"{neigh.dtype} {tuple(neigh.shape)}")
@@ -258,6 +277,13 @@ def _check(table, neigh, el_dst, proj, mode):
         raise ValueError("gat_attend: sizes past int32")
 
 
+def _no_table_grad(table, need_table: bool):
+    if need_table and table.dtype != torch.float32:
+        raise NotImplementedError(
+            f"gat_attend: no gradient w.r.t. a {table.dtype} table (layer "
+            "0's table or extracted rows need none, in JAX too)")
+
+
 def attend_forward(table: torch.Tensor, neigh: torch.Tensor,
                    el_dst: torch.Tensor, proj: torch.Tensor, mode: str):
     """``(out (D, H, W'), m, s)`` of :func:`gat_attend` without its
@@ -270,7 +296,8 @@ def attend_forward(table: torch.Tensor, neigh: torch.Tensor,
 def _forward(table, neigh, el_dst, proj, mode):
     if table.device.type == "cpu":
         return attend_forward_plain(table, neigh, el_dst, proj, mode)
-    lib = _build.load("attend")
+    lib_name, suffix = _FORMS[table.dtype]
+    lib = _build.load(lib_name)
     h, wp = _geometry(table, proj, mode)
     d, fanout = neigh.shape
     dev = table.device
@@ -284,8 +311,8 @@ def _forward(table, neigh, el_dst, proj, mode):
             table.shape[0], d, fanout, table.shape[1], h,
             int(mode == SHARED), NEGATIVE_SLOPE, _build.stream_handle(dev),
         )
-        _build.check(rc, _FWD)
-        _build.LAUNCHES.add(_FWD)
+        _build.check(rc, _FWD + suffix)
+        _build.LAUNCHES.add(_FWD + suffix)
     return out, m, s
 
 
@@ -302,8 +329,10 @@ def attend_backward(g_out: torch.Tensor, table: torch.Tensor,
     """``(g_table or None, g_el_dst, g_proj)`` of :func:`gat_attend`, given
     ``g_out`` and the forward's ``m`` and ``s``.  With ``wl`` ``(W, H)``
     (shared mode; ``el_dst`` is ``table[:D] @ wl``), ``g_table`` also holds
-    the prefix's gradient ``g_el_dst @ wl.T`` in rows ``< D``."""
+    the prefix's gradient ``g_el_dst @ wl.T`` in rows ``< D``.  A 2-byte
+    table takes ``need_table=False`` only."""
     _check(table, neigh, el_dst, proj, mode)
+    _no_table_grad(table, need_table)
     h, wp = _geometry(table, proj, mode)
     d, fanout = neigh.shape
     for name, t, shape in (("g_out", g_out, (d, h, wp)), ("m", m, (d, h)),
@@ -332,7 +361,7 @@ def attend_backward(g_out: torch.Tensor, table: torch.Tensor,
         else:
             g_table = segment_sum(per_pick, neigh.view(-1, 1), None, n,
                                   grad_dst)
-    _build.LAUNCHES.add(_BWD)
+    _build.LAUNCHES.add(_BWD + _FORMS[table.dtype][1])
     return g_table, g_el, g_proj
 
 
@@ -342,7 +371,7 @@ def _bwd_rows(g_out, table, neigh, el_dst, proj, m, s, mode,
     per_pick)``, with ``a`` and ``g_pre`` ``(D, K)`` at one head and
     ``per_pick`` ``(D * K, W)`` at more, when the table needs a gradient
     (else None)."""
-    lib = _build.load("attend")
+    lib = _build.load(_FORMS[table.dtype][0])
     h, _ = _geometry(table, proj, mode)
     d, fanout = neigh.shape
     dev = table.device
@@ -366,7 +395,7 @@ def _bwd_rows(g_out, table, neigh, el_dst, proj, m, s, mode,
         _ptr(per_pick), _ptr(a), _ptr(g_pre), blocks, n, d, fanout, width, h,
         int(mode == SHARED), NEGATIVE_SLOPE, _build.stream_handle(dev),
     )
-    _build.check(rc, _BWD)
+    _build.check(rc, _BWD + _FORMS[table.dtype][1])
     return g_el, g_proj, a, g_pre, per_pick
 
 
@@ -398,8 +427,10 @@ def gat_attend(table: torch.Tensor, neigh: torch.Tensor,
     """The normalised edge-softmax aggregate ``(D, H, W')`` of ``neigh``
     ``(D, K)``'s picks over ``table`` ``(N, W)``, in mode ``"shared"``
     (``proj`` is ``wr`` ``(W, H)``, ``W' = W``) or ``"per_head"`` (``proj``
-    is ``attn_r`` ``(H, d)``, ``W = H * d``, ``W' = d``)."""
+    is ``attn_r`` ``(H, d)``, ``W = H * d``, ``W' = d``).  The table may
+    be float32, bfloat16 or float16; a 2-byte one takes no gradient."""
     _check(table, neigh, el_dst, proj, mode)
+    _no_table_grad(table, table.requires_grad and torch.is_grad_enabled())
     return _Attend.apply(table, neigh, el_dst, proj, mode)
 
 
@@ -423,7 +454,8 @@ class _AttendPrefix(torch.autograd.Function):
         g_table, g_el, g_wr = attend_backward(
             g_out.contiguous(), h_src, neigh, el_dst, wr, m, s, SHARED,
             need_h, wl)
-        g_wl = h_src[: neigh.shape[0]].T @ g_el if need_wl else None
+        g_wl = (h_src[: neigh.shape[0]].to(g_el.dtype).T @ g_el
+                if need_wl else None)
         return g_table, None, None, g_wl, g_wr if need_wr else None
 
 
@@ -433,7 +465,8 @@ def gat_attend_prefix(h_src: torch.Tensor, neigh: torch.Tensor,
     = h_src[:D] @ wl`` formed inside: ``wl`` and ``wr`` are ``(W, H)``.
     The gradient w.r.t. ``h_src`` of the prefix and of the picks is one
     sum by src row (K4's, with the prefix's gradient as its ``grad_dst``).
-    With no gradient to track, the forward's launch alone."""
+    With no gradient to track, the forward's launch alone.  A 2-byte
+    ``h_src`` is widened exactly for ``el_dst`` and takes no gradient."""
     d = neigh.shape[0]
     if (wl.shape != wr.shape or wl.dtype != wr.dtype or wl.device != wr.device
             or d > h_src.shape[0]):
@@ -441,8 +474,9 @@ def gat_attend_prefix(h_src: torch.Tensor, neigh: torch.Tensor,
                          f"{tuple(wr.shape)} for {d} dst rows of a table "
                          f"{tuple(h_src.shape)}")
     with torch.no_grad():
-        el_dst = h_src[:d] @ wl
+        el_dst = h_src[:d].to(wl.dtype) @ wl
     _check(h_src, neigh, el_dst, wr, SHARED)
+    _no_table_grad(h_src, h_src.requires_grad and torch.is_grad_enabled())
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (h_src, wl, wr)):
         return _AttendPrefix.apply(h_src, neigh, el_dst, wl, wr)

@@ -18,11 +18,13 @@ contract) and ``masked_mean_stream``, with their gradients:
   sums its table's gradient at one head so.
 
 ``h_src`` may be bfloat16 (layer 0 under ``feat_dtype`` or
-``compute_dtype`` "bfloat16"): the rows are read in bfloat16 and summed in
-float32, so the sum, the mean and ``denom`` are float32, as in the JAX
-loop, K14 (``ops/fanout.fanout_reduce_tiled``) and the chunked form.  Such
-a source is layer 0's input and needs no gradient: the forward refuses one
-that requires it.
+``compute_dtype`` "bfloat16") or float16 (layer 0 over an F16 feature file
+under ``compute_dtype`` "float32", whose values JAX's ``astype`` gives
+exactly): the rows are read in their 2-byte type and summed in float32, so
+the sum, the mean and ``denom`` are float32, as in the JAX loop, K14
+(``ops/fanout.fanout_reduce_tiled``) and the chunked form.  Such a source
+is layer 0's input and needs no gradient: the forward refuses one that
+requires it.
 
 A local-id block's dst rows are the prefix ``h_src[:D]`` of its src rows
 (``_take_dst`` in the JAX package).  :func:`prefix_fanout_reduce` and
@@ -40,7 +42,8 @@ PyTorch versions, which the wrappers take only for tensors on the CPU.
 When ``h_src`` needs no gradient (the feature table on the direct-extract
 layer, or under ``torch.no_grad``) the forward launches its kernel without
 ``autograd.Function`` and no backward follows.  Launches are counted as
-``fanout_fwd`` (``fanout_fwd_bf16`` over a bfloat16 table) and
+``fanout_fwd`` (``fanout_fwd_bf16`` and ``fanout_fwd_f16`` over a
+bfloat16 and a float16 table) and
 ``fanout_bwd``, one each per call of the forward (either form) and of the
 backward.
 """
@@ -54,7 +57,11 @@ import torch
 from . import _build
 
 _FWD, _BWD = "fanout_fwd", "fanout_bwd"
-_FWD_BF16 = "fanout_fwd_bf16"  # the forward over a bfloat16 table
+# the forward's launch names and element codes (csrc/fanout.cu's Elem) by
+# the table's type
+_FWD_FORMS = {torch.float32: (_FWD, 0),
+              torch.bfloat16: ("fanout_fwd_bf16", 1),
+              torch.float16: ("fanout_fwd_f16", 2)}
 MEAN_EPS = 1e-9  # masked_mean_stream's floor under the denominator
 _lib = None
 
@@ -138,8 +145,8 @@ def fanout_backward_plain(grad_sum: torch.Tensor, neigh: torch.Tensor,
 
 
 def _check(rows, neigh, weights, dtypes=(torch.float32,)):
-    """``rows`` is ``h_src`` for the forward (float32 or bfloat16) and
-    ``grad_sum`` for the backward (float32)."""
+    """``rows`` is ``h_src`` for the forward (float32, bfloat16 or
+    float16) and ``grad_sum`` for the backward (float32)."""
     if rows.dim() != 2 or rows.dtype not in dtypes:
         raise ValueError(
             f"fanout_reduce: rows must be 2-D {' or '.join(map(str, dtypes))},"
@@ -187,12 +194,12 @@ def _forward(h_src, neigh, weights, mean: bool):
     out = torch.empty((d, f), dtype=torch.float32, device=dev)
     denom = torch.empty((d, 1), dtype=torch.float32, device=dev)
     if d:
+        name, elem = _FWD_FORMS[h_src.dtype]
         rc = _library().xg_fanout_fwd(
             h_src.data_ptr(), neigh.data_ptr(), _ptr(weights), out.data_ptr(),
-            denom.data_ptr(), h_src.shape[0], d, fanout, f, int(mean),
-            int(h_src.dtype == torch.bfloat16), _build.stream_handle(dev),
+            denom.data_ptr(), h_src.shape[0], d, fanout, f, int(mean), elem,
+            _build.stream_handle(dev),
         )
-        name = _FWD_BF16 if h_src.dtype == torch.bfloat16 else _FWD
         _build.check(rc, name)
         _build.LAUNCHES.add(name)
     return out, denom
@@ -311,15 +318,15 @@ class _FanoutReduce(torch.autograd.Function):
 
 
 def _reduce(h_src, neigh, weights, prefix: bool, mean: bool):
-    _check(h_src, neigh, weights, (torch.float32, torch.bfloat16))
+    _check(h_src, neigh, weights, tuple(_FWD_FORMS))
     if prefix and neigh.shape[0] > h_src.shape[0]:
         raise ValueError(f"fanout_reduce: {neigh.shape[0]} dst rows are not "
                          f"a prefix of {h_src.shape[0]} src rows")
     if h_src.requires_grad and torch.is_grad_enabled():
-        if h_src.dtype == torch.bfloat16:
+        if h_src.dtype != torch.float32:
             raise NotImplementedError(
-                "fanout_reduce: no gradient w.r.t. a bfloat16 source (layer "
-                "0's table or extracted rows need none, in JAX too)")
+                f"fanout_reduce: no gradient w.r.t. a {h_src.dtype} source "
+                "(layer 0's table or extracted rows need none, in JAX too)")
         return _FanoutReduce.apply(h_src, neigh, weights, prefix, mean)
     # no gradient to track: the launch alone, without autograd's wrapping
     out, denom = _forward(h_src, neigh, weights, mean)

@@ -16,10 +16,13 @@ import torch
 
 from . import _build
 
-# launches are counted by the table's type: the bfloat16 form apart
-_NAME, _NAME_BF16 = "gather_rows", "gather_rows_bf16"
+# launches are counted by the table's type: the 2-byte forms apart
+_NAMES = {torch.bfloat16: "gather_rows_bf16",
+          torch.float16: "gather_rows_f16"}
+_NAME = "gather_rows"
 # the tables the kernel copies, by their element's bytes
-DTYPES = {torch.float32: 4, torch.int32: 4, torch.bfloat16: 2}
+DTYPES = {torch.float32: 4, torch.int32: 4, torch.bfloat16: 2,
+          torch.float16: 2}
 
 
 def gather_rows_plain(feat: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
@@ -32,7 +35,8 @@ def gather_rows_plain(feat: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
 def _check(feat: torch.Tensor, ids: torch.Tensor):
     if feat.dim() != 2 or feat.dtype not in DTYPES:
         raise ValueError(
-            f"gather_rows: feat must be 2-D float32, int32 or bfloat16, got "
+            f"gather_rows: feat must be 2-D float32, int32, bfloat16 or "
+            f"float16, got "
             f"{feat.dtype} {tuple(feat.shape)}"
         )
     if ids.dim() != 1 or ids.dtype != torch.int32:
@@ -55,8 +59,8 @@ def _check(feat: torch.Tensor, ids: torch.Tensor):
 
 
 def gather_rows(feat: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    """``(B,)`` int32 ids into a ``(N, F)`` float32, int32 or bfloat16
-    table give ``(B, F)`` rows of the table's dtype."""
+    """``(B,)`` int32 ids into a ``(N, F)`` float32, int32, bfloat16 or
+    float16 table give ``(B, F)`` rows of the table's dtype."""
     _check(feat, ids)
     if feat.device.type == "cpu":
         return gather_rows_plain(feat, ids)
@@ -71,7 +75,7 @@ def gather_rows(feat: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
             feat.shape[0], ids.shape[0], feat.shape[1], DTYPES[feat.dtype],
             _build.stream_handle(feat.device),
         )
-        name = _NAME_BF16 if feat.dtype == torch.bfloat16 else _NAME
+        name = _NAMES.get(feat.dtype, _NAME)
         _build.check(rc, name)
         _build.LAUNCHES.add(name)
     return out

@@ -18,15 +18,29 @@ does.  JAX's degree-bucketed plan (``build_spmm_plan``,
 functions in another order for the TPU's transaction costs; the port has
 one form of each (ROADMAP section 3).
 
+K6a also takes a float16 ``h`` (full-graph inference's layer 0 over an
+F16 feature file, whose table JAX keeps in float16) and then rounds where
+JAX's plan rounds (``xgnn_tpu/ops/spmm.py:374-394``, ``:455``): each
+segment of :data:`SEGMENT` edges from a row's start is summed in float32
+in CSR order and rounded to float16, the mean form multiplies it by the
+float32 ``1 / max(deg, 1)`` and rounds again, and a row's segments are
+added into a float16 accumulator in the order of JAX's buckets (a last
+partial segment of at most :data:`SEGMENT_FIRST_MAX` edges first, then
+the others from the row's start), each addition rounded.  The result is
+float16.
+
 The CUDA kernels are ``csrc/spmm.cu``: a warp a row in CSR order, rows
 longer than :data:`HUB_CAP` edges summed by a block in a fixed order, so
-two launches give the same bits.  The ``*_plain`` functions are their plain
+two launches give the same bits; the float16 form's rows of more than
+:data:`SEGMENT` edges get a block whose warps sum their segments.  The
+``*_plain`` functions are their plain
 PyTorch versions, which walk the edges in chunks of ``chunk`` (a gather and
 an ``index_add_`` a chunk, as JAX's scan does), so that they also run at
 products scale on the card; the wrappers take them only for tensors on the
 CPU.  On the CPU ``index_add_`` adds in index order, so the plain sum runs
 in CSR order from 0, as the kernel's does.  Launches are counted as
-``spmm_csr`` and ``gat_aggregate_csr``.
+``spmm_csr`` (``spmm_csr_f16`` for the float16 form) and
+``gat_aggregate_csr``.
 """
 
 from __future__ import annotations
@@ -37,10 +51,16 @@ from torch.nn import functional as F
 from . import _build
 
 _SPMM, _GAT = "spmm_csr", "gat_aggregate_csr"
+_SPMM_F16 = "spmm_csr_f16"
 # rows with more edges than this are summed by a block of warps, each over
 # a contiguous part of the row, the parts added in warp order (the largest
 # degree of the products graph is 18,969)
 HUB_CAP = 2048
+# the float16 form's segments: JAX's plan cuts rows at max_cap 2048 edges,
+# and its fine buckets run from the smallest cap up, so a row's last
+# partial segment of at most 1536 edges (the cap below 2048) is added
+# first, a longer one after the full segments
+SEGMENT, SEGMENT_FIRST_MAX = 2048, 1536
 GAT_EPS = 1e-9  # gat_aggregate_csr's floor under the softmax's sum
 SEGMENT_MAX_INIT = -1e30
 
@@ -77,6 +97,52 @@ def spmm_csr_plain(indptr, indices, h, *, num_node: int, chunk: int = 1 << 20,
     out = acc[:num_node]
     if mean:
         out = out * inverse_degree(indptr, num_node)[:, None]
+    return out
+
+
+def spmm_csr_f16_plain(indptr, indices, h, *, num_node: int,
+                       chunk: int = 1 << 20,
+                       mean: bool = False) -> torch.Tensor:
+    """The float16 form: each segment's float32 sum by ``index_add_`` a
+    chunk of edges (in CSR order on the CPU), rounded to float16 (and with
+    ``mean`` times the inverse degree, rounded again), then the segments
+    added into a float16 accumulator a round at a time, in JAX's order."""
+    dev = h.device
+    bounds = indptr[: num_node + 1].long()
+    deg = bounds[1:] - bounds[:-1]
+    nseg = (deg + SEGMENT - 1) // SEGMENT
+    base = torch.cumsum(nseg, 0) - nseg  # each row's first segment
+    total = int(nseg.sum())
+    acc = torch.zeros((total + 1, h.shape[1]), dtype=torch.float32,
+                      device=dev)
+    num_edge = indices.shape[0]
+    for e0 in range(0, num_edge, chunk):
+        e1 = min(num_edge, e0 + chunk)
+        eids = torch.arange(e0, e1, device=dev)
+        rows = torch.searchsorted(bounds, eids, right=True) - 1
+        live = rows < num_node  # edges past the last row go to row total
+        at = torch.clamp(rows, max=max(num_node - 1, 0))
+        seg = torch.where(live, base[at] + (eids - bounds[at]) // SEGMENT,
+                          total)
+        nbrs = torch.clamp(indices[e0:e1].long(), 0, max(h.shape[0] - 1, 0))
+        acc.index_add_(0, seg, h[nbrs].float())
+    part = acc[:total].half()
+    if mean:
+        seg_row = torch.repeat_interleave(
+            torch.arange(num_node, device=dev), nseg)
+        part = (part.float()
+                * inverse_degree(indptr, num_node)[seg_row, None]).half()
+    out = torch.zeros((num_node, h.shape[1]), dtype=torch.float16,
+                      device=dev)
+    rem = deg % SEGMENT
+    first = (rem != 0) & (rem <= SEGMENT_FIRST_MAX)
+    for j in range(int(nseg.max()) if num_node else 0):
+        rows = torch.nonzero(nseg > j)[:, 0]
+        if j == 0:
+            sg = torch.where(first[rows], nseg[rows] - 1, 0)
+        else:
+            sg = torch.where(first[rows], j - 1, j)
+        out[rows] = (out[rows].float() + part[base[rows] + sg].float()).half()
     return out
 
 
@@ -121,7 +187,8 @@ def gat_aggregate_csr_plain(indptr, indices, feat, el, er, *, num_node: int,
                                           min=GAT_EPS)[..., None]
 
 
-def _check_csr(name, indptr, indices, num_node, table):
+def _check_csr(name, indptr, indices, num_node, table,
+               dtypes=(torch.float32,)):
     if indptr.dtype != torch.int32 or indices.dtype != torch.int32:
         raise ValueError(f"{name}: indptr and indices must be int32, got "
                          f"{indptr.dtype} and {indices.dtype}")
@@ -130,8 +197,9 @@ def _check_csr(name, indptr, indices, num_node, table):
     if not 0 <= num_node <= indptr.shape[0] - 1:
         raise ValueError(f"{name}: num_node {num_node} does not fit an "
                          f"indptr of {indptr.shape[0]} entries")
-    if table.dtype != torch.float32:
-        raise ValueError(f"{name}: rows must be float32, got {table.dtype}")
+    if table.dtype not in dtypes:
+        raise ValueError(f"{name}: rows must be "
+                         f"{' or '.join(map(str, dtypes))}, got {table.dtype}")
     if not (indptr.device == indices.device == table.device):
         raise ValueError(f"{name}: indptr on {indptr.device}, indices on "
                          f"{indices.device}, rows on {table.device}")
@@ -151,17 +219,28 @@ def _contiguous(*tensors):
 def spmm_csr(indptr, indices, h, *, num_node: int, chunk: int = 1 << 20,
              mean: bool = False) -> torch.Tensor:
     """``(num_node, F)``: the sum (or mean) of ``h``'s rows over each CSR
-    row.  ``chunk`` sets the plain version's edges a pass (the CPU's); the
-    kernel reads each row's edges in place."""
+    row, of ``h``'s type (float32, or float16 rounded as JAX's plan rounds:
+    module docstring).  ``chunk`` sets the plain version's edges a pass
+    (the CPU's); the kernel reads each row's edges in place."""
     if h.dim() != 2:
         raise ValueError(f"spmm_csr: h must be 2-D, got {tuple(h.shape)}")
-    _check_csr(_SPMM, indptr, indices, num_node, h)
+    _check_csr(_SPMM, indptr, indices, num_node, h,
+               (torch.float32, torch.float16))
+    half = h.dtype == torch.float16
     if h.device.type == "cpu":
-        return spmm_csr_plain(indptr, indices, h, num_node=num_node,
-                              chunk=chunk, mean=mean)
+        plain = spmm_csr_f16_plain if half else spmm_csr_plain
+        return plain(indptr, indices, h, num_node=num_node, chunk=chunk,
+                     mean=mean)
     indptr, indices, h = _contiguous(indptr, indices, h)
     out = torch.empty((num_node, h.shape[1]), dtype=h.dtype, device=h.device)
-    if num_node and h.shape[1]:
+    if half and num_node and h.shape[1]:
+        rc = _build.load("spmm").xg_spmm_csr_f16(
+            indptr.data_ptr(), indices.data_ptr(), h.data_ptr(),
+            out.data_ptr(), num_node, h.shape[0], h.shape[1], int(mean),
+            SEGMENT, SEGMENT_FIRST_MAX, _build.stream_handle(h.device))
+        _build.check(rc, _SPMM_F16)
+        _build.LAUNCHES.add(_SPMM_F16)
+    elif num_node and h.shape[1]:
         rc = _build.load("spmm").xg_spmm_csr(
             indptr.data_ptr(), indices.data_ptr(), h.data_ptr(),
             out.data_ptr(), num_node, h.shape[0], h.shape[1], int(mean),

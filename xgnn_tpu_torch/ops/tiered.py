@@ -8,11 +8,12 @@ device and ``_combine_kernel``).  For ``i < num_input`` and a valid id,
 table's row ``id``; every other row is zero.  ``counts`` holds the hits and
 the misses as device int32.  With ``posmap=None`` (the all-miss form) every
 valid id is read from the host table: the cache's rows are built so.  The
-host table is float32; the cache and ``out`` are float32, or bfloat16 under
+host table is the dataset's float32 or float16 (an F16 feature file); the
+cache and ``out`` are of the host's type, or bfloat16 under
 ``feat_dtype="bfloat16"`` (JAX keeps the host tier in the dataset's dtype
 and the device cache in ``feat_dtype``): a miss row is then rounded to
 bfloat16 as it is written, as JAX's combine casts it (``astype``), and
-crosses PCIe as float32.
+crosses PCIe in the host's type.
 
 Two steps in ``csrc/tiered.cu``, both on the caller's stream, with nothing
 waiting on the host:
@@ -29,8 +30,11 @@ Their plain PyTorch versions are :func:`tiered_split_plain` and
 :func:`tiered_direct_plain` (a gather of the miss rows on the host, their
 copy to the device and :func:`tiered_combine_plain`, JAX's combine),
 composed in :func:`tiered_extract_plain`: the wrappers take them only for
-tensors on the CPU.  Launches are counted as ``tiered_split`` and
-``tiered_direct`` (``tiered_direct_bf16`` where it rounds to bfloat16).
+tensors on the CPU.  Launches are counted as ``tiered_split`` and by the
+host's and ``out``'s types as ``tiered_direct`` (float32 rows),
+``tiered_direct_bf16`` (float32 rounded to bfloat16),
+``tiered_direct_f16`` (float16 rows) and ``tiered_direct_f16_bf16``
+(float16 rounded to bfloat16).
 """
 
 from __future__ import annotations
@@ -42,13 +46,21 @@ from typing import Optional, Union
 import torch
 
 from .. import constants as C
+from ..device import feature_dtype
 from . import _build
 from .unique import compact_mask_positions
 
 EMPTY = C.EMPTY_KEY
 _TILE = 2048  # ids a block of the split (kTile in csrc/tiered.cu)
 # the types of the cache and of the extracted rows, by their element's bytes
-DTYPES = {torch.float32: 4, torch.bfloat16: 2}
+DTYPES = {torch.float32: 4, torch.bfloat16: 2, torch.float16: 2}
+# the host table's types: a dataset's feature file is F32 or F16
+HOST_DTYPES = (torch.float32, torch.float16)
+# tiered_direct's launch names by (host, out) type
+_DIRECT = {(torch.float32, torch.float32): "tiered_direct",
+           (torch.float32, torch.bfloat16): "tiered_direct_bf16",
+           (torch.float16, torch.float16): "tiered_direct_f16",
+           (torch.float16, torch.bfloat16): "tiered_direct_f16_bf16"}
 
 
 def _map(tensor: torch.Tensor, index: int, what: str = "MappedHostTable"
@@ -119,11 +131,13 @@ class MappedHostTensor:
 
 
 class MappedHostTable(MappedHostTensor):
-    """A 2-D float32 :class:`MappedHostTensor`: the tiered store's host
-    table of feature rows."""
+    """A 2-D :class:`MappedHostTensor`: the tiered store's host table of
+    feature rows, float16 where ``table`` is float16 (an F16 feature file,
+    kept as JAX keeps its host tier), else float32."""
 
     def __init__(self, table, device: Union[str, torch.device]):
-        super().__init__(table, device, torch.float32, "MappedHostTable")
+        super().__init__(table, device, feature_dtype(table),
+                         "MappedHostTable")
 
     def _check(self):
         if self.tensor.dim() != 2:
@@ -132,12 +146,13 @@ class MappedHostTable(MappedHostTensor):
 
 
 # ---------------------------------------------------------- plain versions
-def _out_dtype(cache: Optional[torch.Tensor], dtype) -> torch.dtype:
+def _out_dtype(cache: Optional[torch.Tensor], dtype,
+               host: torch.Tensor) -> torch.dtype:
     """The extracted rows' type: ``dtype`` where given, else the cache's,
-    else float32."""
+    else the host table's."""
     if dtype is not None:
         return dtype
-    return torch.float32 if cache is None else cache.dtype
+    return host.dtype if cache is None else cache.dtype
 
 
 def tiered_split_plain(ids: torch.Tensor, num_input,
@@ -149,7 +164,8 @@ def tiered_split_plain(ids: torch.Tensor, num_input,
     misses included); ``miss_pos`` the misses' positions in order, padded
     with ``n``; ``miss_ids`` their ids, padded with EMPTY; ``counts`` the
     int32 ``(hits, misses)``.  ``host`` is the table (its shape is read).
-    ``out`` is of ``dtype``, by default the cache's (float32 without one)."""
+    ``out`` is of ``dtype``, by default the cache's (the host's without
+    one)."""
     dev = ids.device
     n, (num_node, width) = ids.shape[0], host.shape
     live = torch.arange(n, device=dev) < _build.int32_scalar(num_input, dev)
@@ -160,7 +176,8 @@ def tiered_split_plain(ids: torch.Tensor, num_input,
     else:
         hit = valid & (posmap[safe] != EMPTY)
     miss = valid & ~hit
-    out = torch.zeros((n, width), dtype=_out_dtype(cache, dtype), device=dev)
+    out = torch.zeros((n, width), dtype=_out_dtype(cache, dtype, host),
+                      device=dev)
     if posmap is not None and cache is not None and cache.shape[0]:
         slot = torch.where(hit, posmap[safe], 0).long()
         out = torch.where(hit[:, None], cache[slot], out)
@@ -224,11 +241,13 @@ def _check(ids, posmap, cache, host: MappedHostTable, dtype):
                 or cache.device != ids.device):
             raise ValueError(
                 f"tiered_extract: cache must be (rows, {width}) contiguous "
-                f"float32 or bfloat16 on {ids.device}")
-    if _out_dtype(cache, dtype) not in DTYPES or (
+                f"float32, bfloat16 or float16 on {ids.device}")
+    out_dtype = _out_dtype(cache, dtype, host.tensor)
+    if (host.tensor.dtype, out_dtype) not in _DIRECT or (
             cache is not None and dtype not in (None, cache.dtype)):
         raise ValueError(f"tiered_extract: rows of {dtype} from a cache of "
-                         f"{None if cache is None else cache.dtype}")
+                         f"{None if cache is None else cache.dtype} and a "
+                         f"{host.tensor.dtype} host table")
     if ids.device.type not in ("cpu", "cuda"):
         raise ValueError(f"tiered_extract: no kernel for {ids.device}")
     if ids.device.type == "cuda" and (host.dev_ptr is None
@@ -246,7 +265,7 @@ def tiered_split(ids: torch.Tensor, num_input,
     ``miss_ids`` the misses' positions and ids in position order.  On the
     card ``out``'s miss rows and the lists past ``counts[1]`` are left
     unwritten (the plain version zeroes the rows and pads the lists).
-    ``out`` is of ``dtype``, by default the cache's (float32 without
+    ``out`` is of ``dtype``, by default the cache's (the host's without
     one)."""
     _check(ids, posmap, cache, host, dtype)
     if ids.device.type == "cpu":
@@ -255,7 +274,7 @@ def tiered_split(ids: torch.Tensor, num_input,
     dev = ids.device
     n = ids.shape[0]
     num_node, width = host.tensor.shape
-    out_dtype = _out_dtype(cache, dtype)
+    out_dtype = _out_dtype(cache, dtype, host.tensor)
     out = torch.empty((n, width), dtype=out_dtype, device=dev)
     scratch = torch.empty(2 * n + -(-n // _TILE), dtype=torch.int32,
                           device=dev)
@@ -281,11 +300,13 @@ def tiered_direct(out: torch.Tensor, miss_ids: torch.Tensor,
                   miss_pos: torch.Tensor, counts: torch.Tensor,
                   host: MappedHostTable):
     """Step 2: ``out[miss_pos[j]] = host[miss_ids[j]]`` for ``j <
-    counts[1]``, in place, rounded to bfloat16 for a bfloat16 ``out``;
-    returns ``out``.  On the card the count is read on the device (no host
-    sync); positions outside ``out`` are skipped."""
+    counts[1]``, in place, rounded to bfloat16 for a bfloat16 ``out``
+    (``out`` is of the host's type otherwise); returns ``out``.  On the
+    card the count is read on the device (no host sync); positions outside
+    ``out`` are skipped."""
     n, width = out.shape if out.dim() == 2 else (-1, -1)
-    if (out.dtype not in DTYPES or width != host.tensor.shape[1]
+    name = _DIRECT.get((host.tensor.dtype, out.dtype))
+    if (name is None or width != host.tensor.shape[1]
             or miss_ids.dtype != torch.int32 or miss_pos.dtype != torch.int32
             or counts.dtype != torch.int32 or counts.shape != (2,)
             or miss_ids.shape != (n,) or miss_pos.shape != (n,)
@@ -294,9 +315,9 @@ def tiered_direct(out: torch.Tensor, miss_ids: torch.Tensor,
             or not out.device == miss_ids.device == miss_pos.device
             == counts.device):
         raise ValueError(f"tiered_direct: out (n, {host.tensor.shape[1]}) "
-                         "contiguous float32 or bfloat16, miss_ids and "
-                         "miss_pos (n,) "
-                         "and counts (2,) int32, on one device")
+                         f"contiguous, of the {host.tensor.dtype} host "
+                         "table's type or bfloat16, miss_ids and miss_pos "
+                         "(n,) and counts (2,) int32, on one device")
     if out.device.type == "cpu":
         return tiered_direct_plain(out, miss_ids, miss_pos, int(counts[1]),
                                    host.tensor)
@@ -308,9 +329,8 @@ def tiered_direct(out: torch.Tensor, miss_ids: torch.Tensor,
     rc = _build.load("tiered").xg_tiered_direct(
         host.dev_ptr, width, miss_ids.data_ptr(), miss_pos.data_ptr(),
         counts[1:].data_ptr(), out.data_ptr(), n,
-        int(out.dtype == torch.bfloat16), _build.stream_handle(out.device))
-    name = ("tiered_direct_bf16" if out.dtype == torch.bfloat16
-            else "tiered_direct")
+        host.tensor.element_size(), int(out.dtype == torch.bfloat16),
+        _build.stream_handle(out.device))
     _build.check(rc, name)
     _build.LAUNCHES.add(name)
     return out
@@ -321,7 +341,8 @@ def tiered_extract(ids: torch.Tensor, num_input,
                    cache: Optional[torch.Tensor], host: MappedHostTable,
                    dtype: Optional[torch.dtype] = None):
     """``(out, counts)``: ``out`` is ``(len(ids), F)`` rows of ``dtype``
-    (float32 or bfloat16; by default the cache's, float32 without one),
+    (the host table's type or bfloat16; by default the cache's, the host's
+    without one),
     ``counts`` the int32 ``(hits, misses)`` on ``ids``' device.
     ``num_input`` is an int or a device int32 scalar (read on the device:
     no host sync)."""

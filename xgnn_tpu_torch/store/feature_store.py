@@ -18,8 +18,11 @@ The port of ``xgnn_tpu/store/feature_store.py``:
 
 ``dtype`` is JAX's ``feat_dtype``: ``torch.bfloat16`` keeps the device
 table (the tiered store's cache, and the rows it extracts) in bfloat16,
-rounded from float32 to nearest, ties to even, as ``astype`` rounds; the
-tiered store's host table keeps the dataset's float32.
+rounded to nearest, ties to even, as ``astype`` rounds; ``None`` keeps the
+dataset's type, float32 or an F16 file's float16, as JAX's store keeps it.
+The tiered store's host table keeps the dataset's type too, so an F16
+file's misses cross PCIe at 2 bytes a value and ``miss_bytes`` counts
+them so.
 """
 
 from __future__ import annotations
@@ -29,7 +32,7 @@ from typing import Optional
 import torch
 
 from .. import constants as C
-from ..device import to_tensor
+from ..device import feature_dtype, to_tensor
 from ..ops.gather import gather_rows
 from ..ops.tiered import MappedHostTable, tiered_extract
 
@@ -43,11 +46,11 @@ def _gather_rows(feat: torch.Tensor, ids: torch.Tensor, num_valid):
 
 
 class HBMFeatureSource:
-    """The whole feature matrix in device memory, in ``dtype`` (float32 by
-    default)."""
+    """The whole feature matrix in device memory, in ``dtype`` (by
+    default the dataset's: float32, or float16 from an F16 file)."""
 
     def __init__(self, feat, device, dtype: Optional[torch.dtype] = None):
-        self.feat = to_tensor(feat, device, dtype or torch.float32
+        self.feat = to_tensor(feat, device, dtype or feature_dtype(feat)
                               ).contiguous()
         self.feat_dim = int(self.feat.shape[1])
 
@@ -60,20 +63,21 @@ class TieredFeatureSource:
     """The ``int(num_node * cache_percentage)`` hottest rows of a ranking
     cached on the device, every row in pinned, mapped host memory.
 
-    ``extract`` returns ``(x, info)``: ``x`` in the cache's ``dtype``
-    (float32 by default); ``info["num_hit"]`` and ``info["num_miss"]`` are
-    device int32 scalars and ``info["miss_bytes"]`` a device int64 scalar
-    (the miss rows' bytes in the host table's float32, as they cross
+    ``extract`` returns ``(x, info)``: ``x`` in the cache's ``dtype`` (by
+    default the dataset's); ``info["num_hit"]`` and ``info["num_miss"]``
+    are device int32 scalars and ``info["miss_bytes"]`` a device int64
+    scalar (the miss rows' bytes in the host table's type, as they cross
     PCIe), so a step waits on nothing; the engine pulls them once an epoch.
-    The host table is a float32 copy of ``feat_host`` (pulled from the
-    device if it lies there; the source keeps no device copy).
+    The host table is a copy of ``feat_host`` in its float32 or float16
+    (pulled from the device if it lies there; the source keeps no device
+    copy).
     """
 
     def __init__(self, feat_host, ranking, cache_percentage: float, device,
                  dtype: Optional[torch.dtype] = None):
         self.device = torch.device(device)
-        self.dtype = dtype or torch.float32
         self.host = MappedHostTable(feat_host, self.device)
+        self.dtype = dtype or self.host.tensor.dtype
         num_node, self.feat_dim = self.host.tensor.shape
         self.num_cache = int(num_node * cache_percentage)
         self._build(ranking)
