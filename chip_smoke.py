@@ -268,6 +268,27 @@ Phases, each fatal on failure:
    2048 edges and 20,000 others.  The phase's wall time and the
    ``{"last_configs": ...}`` JSON line.
 
+15. The collocated multi-card engine (XGNN's arch6) at P = 1:
+   ``MultiChipEngine`` in a world of one over NCCL at bench width.
+   ``graphsage_multichip`` (``use_dist_graph``: the partitioned topology;
+   ``part_cache``: the features and labels interleaved, all on the
+   card): its first step's batch, loss and gradients against the
+   single-store ``Engine``'s train step on that batch (its rows extracted
+   by the single store, the same weights and dropout generator), rtol and
+   atol 1e-5 (the seed-count weighting of the reduction is not bit-exact);
+   K13-plan (``csrc/exchange.cu``) at the three layers' frontiers, walked
+   as the partitioned sampler walks them, and at P = 2, 4 and 8 on the
+   layer-2 frontier, bit-equal to its plain version (send, pick,
+   overflow); a warm-up and a counted epoch with their launches asserted
+   (K13 five times a step: three layers, the features, the labels), a
+   profiled epoch beside phase 6's graphsage (busy ms a step, NCCL's
+   collectives' and K13's device ms a step); then one counted epoch each
+   of ``graphsage_multichip_replicated`` (the replicated topology),
+   ``gcn_multichip`` and ``pinsage_multichip`` (the partitioned walk,
+   capacities calibrated from 2 batches), with K9's count and ranking
+   (``walk_topk``) at the walk's two layers against its plain version.
+   The phase's wall time and the ``{"multichip": ...}`` JSON line.
+
 Each kernel is timed twice: ``ms`` back to back (the wrapper's host time
 included, where the host is the slower) and ``device_ms`` with the host
 ahead of the card (the card's time alone).  ``bound_ms`` reads each input
@@ -278,7 +299,8 @@ pick; K4's mean form moves the sum form's bytes.  K4's mean-form
 
 Prints the inference's JSON line, the tooling's (phase 10), the training
 options' (phase 11), the tiered topology's (phase 12), the dataset
-files' (phase 13), the last configurations' (phase 14), the kernels' JSON
+files' (phase 13), the last configurations' (phase 14), the multi-card
+engine's (phase 15), the kernels' JSON
 line, then the card's line (nvidia-smi's name and power limit), then the
 result line.
 Exits non-zero with no result line when there is no CUDA device.
@@ -2268,11 +2290,15 @@ def main() -> int:
             ("elementwise divisions, *divfunctor* (a mean's division "
              "outside K4, forward and backward, and Adam's)",
              lambda n: "divfunctor" in n),
+            ("NCCL collectives, *nccl*", lambda n: "nccl" in n),
+            ("K13-plan, *plan_*", lambda n: "plan_" in n),
         )
+        group_ms = {}
         for what, match in groups:
             hits = [(name, end - start) for start, end, name in spans
                     if match(name.lower())]
             us = sum(t for _, t in hits)
+            group_ms[what] = us / 1e3 / steps
             print(f"{tag}   device ms per step in {what}: "
                   f"{us / 1e3 / steps:.3f} ({len(hits) / steps:.1f} "
                   "kernels a step)", flush=True)
@@ -2298,7 +2324,7 @@ def main() -> int:
                 "busy_share": busy_us / wall_us, "wall_ms": wall_us / 1e3,
                 "device_events": len(spans),
                 "hand_kernel_launches": dict(sorted(hand.items())),
-                "sampler_ms": sampler_ms}
+                "sampler_ms": sampler_ms, "group_ms": group_ms}
 
     def edges_of(sampler):
         """edges aggregated per step, counted from the block masks
@@ -4673,6 +4699,269 @@ def main() -> int:
     print(f"{tag} phase 14 (the last single-card configurations) wall time "
           f"{last_rows['wall_s']:.3f} s", flush=True)
     print(json.dumps({"last_configs": last_rows}), flush=True)
+
+    # ---- 15. the collocated multi-card engine (XGNN's arch6) at P = 1 -----
+    # MultiChipEngine in a world of one over NCCL, at bench width: the
+    # partitioned topology (use_dist_graph) and the interleaved store
+    # (part_cache, all features on the card), each step's three sampling
+    # layers, its features and its labels through the owner exchange
+    from xgnn_tpu_torch.engine.multi_engine import MultiChipEngine
+    from xgnn_tpu_torch.parallel import collocated, dist_topology
+    from xgnn_tpu_torch.parallel.exchange import (
+        plan_exchange,
+        plan_exchange_plain,
+    )
+    from xgnn_tpu_torch.ops.random_walk import walk_topk, walk_topk_plain
+
+    torch.cuda.empty_cache()
+    t15 = time.perf_counter()
+    multi_rows = {}
+    mcfg = dataclasses.replace(cfg, arch="arch6", num_worker=1,
+                               use_dist_graph=True, part_cache=True)
+    expected.update({
+        "graphsage_multichip": {
+            "plan_exchange": 5 * steps, "sample_khop": 3 * steps,
+            "unique_seeded": 3 * steps, "gather_rows": 7 * steps,
+            "fanout_fwd": 3 * steps, "fanout_bwd": 2 * steps},
+        "graphsage_multichip_replicated": {
+            "plan_exchange": 2 * steps, "sample_khop": 3 * steps,
+            "unique_seeded": 3 * steps, "gather_rows": 4 * steps,
+            "fanout_fwd": 3 * steps, "fanout_bwd": 2 * steps},
+        "gcn_multichip": {
+            "plan_exchange": 5 * steps, "sample_khop": 3 * steps,
+            "unique_seeded": 3 * steps, "gather_rows": 6 * steps,
+            "pick_multiplicity": 3 * steps, "fanout_fwd": 3 * steps,
+            "fanout_bwd": 2 * steps},
+        # a walk a layer: three exchanges (K13, K8a and K1's pick each),
+        # then K9's count and ranking
+        "pinsage_multichip": {
+            "plan_exchange": 8 * steps, "sample_wr": 6 * steps,
+            "walk_topk": 2 * steps, "unique_seeded": 2 * steps,
+            "gather_rows": 10 * steps, "fanout_fwd": 2 * steps,
+            "fanout_bwd": steps},
+    })
+
+    def multi_epochs(path, eng):
+        """A warm-up epoch, then a counted one with the launch counters set
+        to 0 just before it and read just after it."""
+        for epoch in (0, 1):
+            _build.LAUNCHES.reset()
+            r = eng.train_epoch(epoch)
+            torch.cuda.synchronize()
+            counts = _build.LAUNCHES.snapshot()
+            print(f"{tag} {path} epoch {epoch} "
+                  f"({'warm-up' if epoch == 0 else 'counted'}): "
+                  f"{r['time']:.3f} s, {r['steps']} steps, loss "
+                  f"{r['loss']:.4f}, acc {r['train_acc']:.4f}, launches "
+                  f"{counts}", flush=True)
+            if r["steps"] != steps or counts != expected[path]:
+                raise AssertionError(f"{path}: {r['steps']} steps, launch "
+                                     f"counts {counts} != {expected[path]}")
+            if not all(math.isfinite(v) for v in eng.history[epoch]["loss"]):
+                raise AssertionError(f"{path} epoch {epoch}: a step loss is "
+                                     "not finite")
+        counts_by_path[path] = counts
+        return {"epoch_s": r["time"], "steps": r["steps"], "loss": r["loss"],
+                "train_acc": r["train_acc"], "launches": counts}
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    meng = MultiChipEngine(ds, mcfg).init()
+    torch.cuda.synchronize()
+    init_multi_s = time.perf_counter() - t0
+    print(f"{tag} graphsage_multichip init: {init_multi_s:.3f} s "
+          f"({meng.mesh.backend}, world of {meng.mesh.size}); capacities "
+          f"{meng.capacities}, exchange segment {meng.seg_cap}", flush=True)
+    try:
+        # the first step's batch, its loss and gradients held against the
+        # single-store Engine's train step on that batch (local-id blocks,
+        # the rows extracted by the single store), same weights, same
+        # dropout generator; the reduction's weighting makes it not
+        # bit-equal
+        it = meng._shuffler(ds.train_set, mcfg.seed + 1).epoch_batches(0)
+        s_seeds, s_n = meng._next(it)
+        gen, dgen_seed = (generator(dev, 151), 152)
+        batch = collocated.sample_any(meng.topo, s_seeds, s_n, mcfg,
+                                      meng.capacities, meng.seg_cap,
+                                      meng.mesh, True, gen)
+        blocks, xbuf, labels, of = collocated.exchange_inputs(
+            batch, meng.feat_part, meng.lab_part, meng.mesh, meng.seg_cap)
+        params = list(meng.model.parameters())
+        loss_m, _, grads_m = collocated.lane_loss_and_grads(
+            meng.model, params, blocks, xbuf, labels, batch.num_output,
+            generator(dev, dgen_seed))
+        grads_m, loss_m, _, skip = collocated.reduce_weighted(
+            meng.mesh, grads_m, loss_m, torch.zeros(()).to(dev),
+            batch.num_output, of)
+        single = Engine(ds, dataclasses.replace(cfg)).init()
+        single.model.load_state_dict(meng.model.state_dict())
+        x1, lab1, _ = (single.feature_source.extract(batch.input_nodes,
+                                                      batch.num_input)[0],
+                       single.label_source.extract(batch.output_nodes,
+                                                   batch.num_output), None)
+        loss_s, _, grads_s = collocated.lane_loss_and_grads(
+            single.model, list(single.model.parameters()), batch.blocks, x1,
+            lab1, batch.num_output, generator(dev, dgen_seed))
+        if bool(skip) or not torch.allclose(loss_m, loss_s, rtol=1e-5,
+                                            atol=1e-5):
+            raise AssertionError(f"graphsage_multichip first step: loss "
+                                 f"{float(loss_m)} against the single "
+                                 f"store's {float(loss_s)} (skip "
+                                 f"{bool(skip)})")
+        g_err = max(max_err(a, b) for a, b in zip(grads_m, grads_s))
+        for a, b in zip(grads_m, grads_s):
+            assert_close("graphsage_multichip first step's gradients", a, b,
+                         exact=False)
+        print(f"{tag} graphsage_multichip first step against the single "
+              f"store's train step on its batch: loss {float(loss_m):.6f} "
+              f"against {float(loss_s):.6f}, gradients max abs err "
+              f"{g_err:.3e} (rtol/atol {RTOL})", flush=True)
+        multi_rows["first_step"] = {"loss": float(loss_m),
+                                    "single_store_loss": float(loss_s),
+                                    "grad_max_abs_err": g_err}
+        del single, x1, lab1, grads_s, grads_m, blocks, xbuf
+
+        # K13-plan at the partitioned layers' frontiers, walked as
+        # sample_minibatch_partitioned walks them, against its plain version
+        # bit for bit; then at P = 2, 4 and 8 on the layer-2 frontier (the
+        # plan needs no collective)
+        frontier, num_f = s_seeds, torch.full((), s_n, dtype=torch.int32,
+                                              device=dev)
+        caps = meng.capacities
+        fronts = []
+        for layer, k in enumerate(FANOUT):
+            seg = max(int(np.ceil(meng.seg_cap * caps[layer] / caps[-1])),
+                      128)
+            seg = max(min(seg, frontier.shape[0]), 1)
+            fronts.append((layer, frontier, seg))
+            nbr, _ = dist_topology.sample_layer_partitioned(
+                meng.topo, frontier, k, meng.mesh, seg, mcfg.sample_type,
+                generator(dev, 160 + layer))
+            frontier, num_u, _ = unique_seeded_split(
+                frontier, nbr.reshape(-1), num_f, caps[layer + 1],
+                num_node=NUM_NODE)
+            num_f = torch.clamp(num_u, max=caps[layer + 1])
+        cases = [(f"layer {layer}", f, 1, seg) for layer, f, seg in fronts]
+        last = fronts[-1][1]
+        cases += [(f"layer 2 at P = {p}", last, p,
+                   int(np.ceil(last.shape[0] / p * mcfg.exchange_headroom)))
+                  for p in (2, 4, 8)]
+        for what, f, p, seg in cases:
+            got = plan_exchange(f, p, seg)
+            want = plan_exchange_plain(f, p, seg)
+            for name in ("send", "pick", "overflow"):
+                if not torch.equal(getattr(got, name), getattr(want, name)):
+                    raise AssertionError(f"plan_exchange {what}: {name} "
+                                         "differs from the plain version")
+            n = f.shape[0]
+            record("plan_exchange", "xgnn_tpu_torch/csrc/exchange.cu",
+                   "xgnn_tpu/parallel/exchange.py:49-84 (plan_exchange) and "
+                   "the picks of :139-147 and dist_topology.py:304-314",
+                   f"{what}: {n} ids into ({p}, {seg})", 0.0,
+                   "exact (send, pick, overflow)",
+                   lambda: plan_exchange(f, p, seg),
+                   lambda: plan_exchange_plain(f, p, seg), None,
+                   "none (no single PyTorch call groups requests by owner)",
+                   nbytes=n * 4 + p * seg * 4 + n * 4, flops=0, per_step=5,
+                   path="graphsage_multichip")
+        del fronts, cases, last, frontier, nbr
+
+        r_ms = multi_epochs("graphsage_multichip", meng)
+        prof_m = profiled_epoch("graphsage_multichip", meng, 2) or {}
+        single_prof = host_runs["graphsage"].get("profiled") or {}
+        groups = prof_m.get("group_ms", {})
+        nccl_ms = groups.get("NCCL collectives, *nccl*")
+        plan_ms = groups.get("K13-plan, *plan_*")
+        multi_rows["graphsage_multichip"] = dict(
+            r_ms, init_s=init_multi_s,
+            busy_ms_per_step=prof_m.get("busy_ms_per_step"),
+            busy_share=prof_m.get("busy_share"),
+            single_store_busy_ms_per_step=single_prof.get("busy_ms_per_step"),
+            nccl_ms_per_step=nccl_ms, plan_exchange_ms_per_step=plan_ms,
+            peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30)
+        print(f"{tag} graphsage_multichip: epoch {r_ms['epoch_s']:.3f} s; "
+              f"profiled busy {prof_m.get('busy_ms_per_step')} ms a step "
+              "against phase 6's graphsage "
+              f"{single_prof.get('busy_ms_per_step')}; all_to_all_single and "
+              f"all_reduce (NCCL) {nccl_ms} ms a step, K13-plan {plan_ms} "
+              f"ms a step; valid acc {meng.evaluate('valid', 3):.4f} over 3 "
+              "batches", flush=True)
+    finally:
+        meng.close()
+    del meng
+
+    # the replicated-topology form, and GCN and PinSAGE (the partitioned
+    # walk) on the partitioned topology
+    for path, change in (
+            ("graphsage_multichip_replicated", dict(use_dist_graph=False)),
+            ("gcn_multichip", dict(model="gcn")),
+            ("pinsage_multichip", dict(
+                model="pinsage", sample_type="random_walk",
+                fanout=(NUM_NEIGHBOR,) * 2, frontier_capacities=None,
+                calibration_batches=2,
+                num_random_walk=WALK["num_random_walk"],
+                random_walk_length=WALK["random_walk_length"],
+                random_walk_restart_prob=WALK["restart_prob"],
+                num_neighbor=NUM_NEIGHBOR))):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        eng = MultiChipEngine(ds, dataclasses.replace(mcfg, **change)).init()
+        try:
+            init_s = time.perf_counter() - t0
+            row = multi_epochs(path, eng)
+            row.update(init_s=init_s, capacities=list(eng.capacities),
+                       peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30)
+            if path == "pinsage_multichip":
+                # K9's count and ranking at the walk's two layers, on the
+                # visits of the partitioned walk
+                seeds_p, n_p = eng._next(eng._shuffler(
+                    ds.train_set, 3).epoch_batches(0))
+                f, num_f = seeds_p, torch.full((), n_p, dtype=torch.int32,
+                                               device=dev)
+                for layer in range(2):
+                    seg = max(int(np.ceil(eng.seg_cap * eng.capacities[layer]
+                                          / eng.capacities[-1])), 128)
+                    visits, _ = dist_topology.walk_visits_partitioned(
+                        eng.topo, f, eng.mesh, seg,
+                        num_random_walk=WALK["num_random_walk"],
+                        random_walk_length=WALK["random_walk_length"],
+                        restart_prob=WALK["restart_prob"],
+                        generator=generator(dev, 170 + layer))
+                    got = walk_topk(visits, f, NUM_NEIGHBOR)
+                    want = walk_topk_plain(visits, f, NUM_NEIGHBOR)
+                    if not (torch.equal(got[0], want[0])
+                            and torch.equal(got[1], want[1])):
+                        raise AssertionError(f"walk_topk layer {layer}: "
+                                             "differs from the plain version")
+                    b, m = visits.shape[0], visits.shape[1] * visits.shape[2]
+                    record("walk_topk", "xgnn_tpu_torch/csrc/random_walk.cu",
+                           "xgnn_tpu/parallel/dist_topology.py:405-418",
+                           f"layer {layer}: {b} seeds x {m} visits, top "
+                           f"{NUM_NEIGHBOR}", 0.0, "exact",
+                           lambda: walk_topk(visits, f, NUM_NEIGHBOR),
+                           lambda: walk_topk_plain(visits, f, NUM_NEIGHBOR),
+                           None, None,
+                           nbytes=b * m * 4 + b * 4 + b * NUM_NEIGHBOR * 8,
+                           flops=b * m * m * 2, per_step=1,
+                           path="pinsage_multichip")
+                    nbr = got[0]
+                    f, num_u, _ = unique_seeded_split(
+                        f, nbr.reshape(-1), num_f, eng.capacities[layer + 1],
+                        num_node=NUM_NODE)
+                    num_f = torch.clamp(num_u, max=eng.capacities[layer + 1])
+                del visits, got, want, f
+            multi_rows[path] = row
+            print(f"{tag} {path}: init {init_s:.3f} s, counted epoch "
+                  f"{row['epoch_s']:.3f} s, capacities {row['capacities']}, "
+                  f"peak {row['peak_gib']:.3f} GiB", flush=True)
+        finally:
+            eng.close()
+        del eng
+    multi_rows["wall_s"] = time.perf_counter() - t15
+    print(f"{tag} phase 15 (the collocated multi-card engine at P = 1) wall "
+          f"time {multi_rows['wall_s']:.3f} s", flush=True)
+    print(json.dumps({"multichip": multi_rows}), flush=True)
 
     for k in kernels:
         k["launches"] = counts_by_path[k["path"]].get(k["name"], 0)

@@ -2835,3 +2835,90 @@ def test_tiered_extract_over_an_f16_host_table(dev, width, dtype, pct):
     assert torch.equal(_bits16(out), _bits16(ref))
     assert [int(info["num_hit"]), int(info["num_miss"])] == counts.tolist()
     assert int(info["miss_bytes"]) == int(counts[1]) * width * 2
+
+
+@pytest.mark.parametrize("num_parts", [1, 2, 3, 4, 8, 32])
+@pytest.mark.parametrize("n", [1, 2047, 2048, 2049, 100_003])
+@pytest.mark.parametrize("tight", [False, True])
+def test_plan_exchange_kernel_equals_plain(dev, num_parts, n, tight):
+    """K13-plan bit-equal to its plain version (send, pick and the
+    overflow flag), across tile edges, with EMPTY runs and with a
+    segment that overflows; one wrapper launch a call."""
+    from xgnn_tpu_torch.ops import _build
+    from xgnn_tpu_torch.parallel.exchange import (
+        plan_exchange,
+        plan_exchange_plain,
+    )
+
+    g = _gen(dev, n + num_parts)
+    ids = torch.randint(0, 3 * n + 7, (n,), generator=g, device=dev,
+                        dtype=torch.int32)
+    ids[::5] = EMPTY
+    ids[n // 3:n // 3 + 700] = EMPTY
+    seg = max(n // (4 * num_parts), 1) if tight else n
+    _build.LAUNCHES.reset()
+    got = plan_exchange(ids, num_parts, seg)
+    assert _build.LAUNCHES.snapshot() == {"plan_exchange": 1}
+    want = plan_exchange_plain(ids.cpu(), num_parts, seg)
+    for name in ("send", "pick"):
+        assert torch.equal(getattr(got, name).cpu(), getattr(want, name)), \
+            name
+    assert bool(got.overflow) == bool(want.overflow)
+
+
+@pytest.mark.parametrize("w,l,fanout", [(4, 3, 5), (4, 3, 12), (3, 5, 2),
+                                        (1, 2, 1), (8, 8, 64)])
+def test_walk_topk_kernel_equals_plain(dev, w, l, fanout):
+    """K9's count and ranking over given visits, as the partitioned walk
+    hands them over, bit-equal to the plain version (ties, EMPTY visits
+    and visits equal to the seed among them)."""
+    from xgnn_tpu_torch.ops.random_walk import walk_topk, walk_topk_plain
+
+    g = _gen(dev, w * l + fanout)
+    b = 3001
+    frontier = torch.randint(0, 40, (b,), generator=g, device=dev,
+                             dtype=torch.int32)
+    frontier[-7:] = EMPTY
+    visits = torch.randint(0, 40, (b, w, l), generator=g, device=dev,
+                           dtype=torch.int32)
+    visits[::4, :, 0] = EMPTY
+    visits[1::3, 0] = frontier[1::3, None]
+    got = walk_topk(visits, frontier, fanout)
+    want = walk_topk_plain(visits.cpu(), frontier.cpu(), fanout)
+    assert torch.equal(got[0].cpu(), want[0])
+    assert torch.equal(got[1].cpu(), want[1])
+
+
+@pytest.mark.parametrize("use_dist_graph", [True, False])
+def test_multichip_engine_p1_on_the_card(dev, use_dist_graph):
+    """MultiChipEngine in a world of one over NCCL: epochs that learn, five
+    K13 launches a graphsage step (three layers, features, labels) on the
+    partitioned topology and two on the replicated one, and the group
+    ended by close()."""
+    import torch.distributed as dist
+
+    from xgnn_tpu_torch import RunConfig, make_device_dataset
+    from xgnn_tpu_torch.engine.multi_engine import MultiChipEngine
+    from xgnn_tpu_torch.ops import _build
+
+    ds = make_device_dataset(20_000, 200_000, 32, 8, train_frac=0.2, seed=1,
+                             dedup=False)
+    cfg = RunConfig(model="graphsage", batch_size=500, fanout=(10, 5),
+                    num_layer=2, num_hidden=32, num_worker=1, arch="arch6",
+                    use_dist_graph=use_dist_graph, part_cache=True,
+                    dropout=0.0)
+    eng = MultiChipEngine(ds, cfg).init()
+    try:
+        assert eng.mesh.backend == "nccl"
+        r0 = eng.train_epoch(0)
+        _build.LAUNCHES.reset()
+        r1 = eng.train_epoch(1)
+        torch.cuda.synchronize()
+        counts = _build.LAUNCHES.snapshot()
+        plans = (len(cfg.fanout) + 2) if use_dist_graph else 2
+        assert counts["plan_exchange"] == plans * r1["steps"], counts
+        assert np.isfinite(r0["loss"]) and r1["loss"] < r0["loss"]
+        assert 0.0 <= eng.evaluate("valid") <= 1.0
+    finally:
+        eng.close()
+    assert not dist.is_initialized()

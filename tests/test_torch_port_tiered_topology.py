@@ -737,9 +737,13 @@ def test_cli_runs_the_tiered_topology(flags, capsys):
     assert re.search(r"^test_result:final_train_acc=[0-9.]+$", out, re.M)
 
 
-@pytest.mark.parametrize("flags", [["--num-worker", "2"], ["--part-cache"],
-                                   ["--num-sample-worker", "1"],
-                                   ["--num-dcn-groups", "2"]])
+# more than one card runs the collocated engine now, over the whole CSR
+# (tests/test_torch_port_multichip.py); its host cold tier (a percentage
+# below 1) and a partial cache over the cards are not ported
+@pytest.mark.parametrize("flags", [
+    ["--num-worker", "2", "--dist-graph-percentage", "0.85"],
+    ["--part-cache", "--num-worker", "2", "--cache-percentage", "0.5"],
+    ["--num-sample-worker", "1"], ["--num-dcn-groups", "2"]])
 def test_cli_multi_card_flags_still_raise(flags):
     from xgnn_tpu_torch.examples import train
 

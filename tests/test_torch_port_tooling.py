@@ -386,11 +386,14 @@ def test_the_clis_train_and_evaluate_a_checkpoint(tmp_path, capsys,
 
 @pytest.mark.parametrize("flags", [
     # --dataset, --synthetic-rmat and --synthetic-signal run now
-    # (tests/test_torch_dataset_files.py)
-    ["--num-worker", "4"],
-    # --use-dist-graph runs on one card now; --part-cache is a multi-card
-    # flag
-    ["--use-dist-graph", "--part-cache"],
+    # (tests/test_torch_dataset_files.py); --num-worker N runs the
+    # collocated engine (tests/test_torch_port_multichip.py), whose partial
+    # cache is not ported
+    ["--num-worker", "4", "--cache-percentage", "0.2"],
+    # --use-dist-graph runs on one card and, with --part-cache, over
+    # several; its host cold tier over several cards is not ported
+    ["--use-dist-graph", "--part-cache", "--num-worker", "2",
+     "--dist-graph-percentage", "0.85"],
     # GAT under bfloat16 runs now (tests/test_torch_gat_bf16.py); the
     # flags of more than one card still raise
     ["--model", "gat", "--remat", "--feat-dtype", "bfloat16",

@@ -387,7 +387,7 @@ def test_unported_messages_name_roadmap_items_that_exist():
     """Each message names its ROADMAP item by a title that ROADMAP.md
     holds, so a renumbering cannot make it stale.  Every ``RunConfig`` of
     one card has its path now (GAT under bfloat16 among them): the
-    command line's flags of more than one card still raise."""
+    command line's multi-card flags of paths not ported yet still raise."""
     import re
     from pathlib import Path
 
@@ -407,8 +407,12 @@ def test_unported_messages_name_roadmap_items_that_exist():
     cases = [["--num-train-worker", "2"],
              ["--num-sample-worker", "1", "--model", "gat"],
              ["--num-dcn-groups", "2", "--feat-dtype", "bfloat16"],
-             ["--num-worker", "2", "--compute-dtype", "bfloat16"],
-             ["--part-cache", "--model", "gat", "--remat"]]
+             # more than one card runs the collocated engine now, but not
+             # its partial cache or host cold tier
+             ["--num-worker", "2", "--compute-dtype", "bfloat16",
+              "--cache-percentage", "0.5"],
+             ["--part-cache", "--model", "gat", "--remat", "--num-worker",
+              "2", "--use-dist-graph", "--dist-graph-percentage", "0.5"]]
     for argv in cases:
         with pytest.raises(NotImplementedError) as err:
             train.main(["--cpu", "--synthetic"] + argv)

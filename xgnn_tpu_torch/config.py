@@ -3,8 +3,8 @@
 The fields of ``RunConfig`` in ``xgnn_tpu/config.py`` that the ported paths
 read, under the same names and defaults; every value they take has its
 path in the port, and nothing is silently replaced by another path (the
-command line's flags of more than one card raise, naming their ROADMAP
-item).  PinSAGE is the random-walk path: ``model="pinsage"`` coerces the
+command line's multi-card flags that select a path not ported yet raise,
+naming their ROADMAP item).  PinSAGE is the random-walk path: ``model="pinsage"`` coerces the
 sampler to ``random_walk`` with the JAX package's warning.  A
 ``cache_percentage`` in (0, 1) selects the tiered feature store, with the
 ranking of ``cache_policy``.  ``device_loop`` runs an epoch as one
@@ -24,7 +24,12 @@ convolution in the backward, ``weight_decay > 0`` is AdamW, and
 topology (the hot CSR prefix on the device, the rest read in place from
 host memory), and ``auto_placement`` solves ``use_dist_graph``,
 ``dist_graph_percentage`` and ``cache_percentage`` from the device memory
-(``hbm_budget_gb`` where given) and the degree skew.
+(``hbm_budget_gb`` where given) and the degree skew.  ``arch``,
+``num_worker``, ``num_dcn_groups`` and ``exchange_headroom`` are the
+multi-card fields that ``MultiChipEngine`` reads; ``part_cache`` is
+accepted and changes nothing, as in the JAX engine's fused shape (it
+chooses between a partitioned and a replicated cache only in the
+two-phase GGMS, which is not ported).
 """
 
 from __future__ import annotations
@@ -50,6 +55,28 @@ class SampleType(Enum):
     WEIGHTED_KHOP_PREFIX = "weighted_khop_prefix"
     WEIGHTED_KHOP_HASH_DEDUP = "weighted_khop_hash_dedup"
     RANDOM_WALK = "random_walk"
+
+
+class RunArch(Enum):
+    """Execution architectures (same values as the JAX package's enum):
+    one card (the single-store ``Engine``), every card sampling, reading
+    and training its own shard over the shared stores (XGNN's arch6,
+    ``MultiChipEngine``), or sampler cards feeding trainer cards (arch5,
+    not ported)."""
+
+    SINGLE = "single"
+    COLLOCATED = "collocated"
+    DISAGGREGATED = "disaggregated"
+
+
+# the reference's arch names, as the JAX package takes them
+ARCH_ALIASES = {
+    "arch1": RunArch.SINGLE, "arch2": RunArch.SINGLE,
+    "arch3": RunArch.SINGLE, "arch4": RunArch.SINGLE,
+    "arch5": RunArch.DISAGGREGATED, "arch6": RunArch.COLLOCATED,
+    "arch7": RunArch.COLLOCATED, "single": RunArch.SINGLE,
+    "collocated": RunArch.COLLOCATED, "disaggregated": RunArch.DISAGGREGATED,
+}
 
 
 class CachePolicy(Enum):
@@ -89,10 +116,18 @@ class RunConfig:
     dataset: str = "products"
 
     # --- execution ---------------------------------------------------------
+    arch: RunArch = RunArch.SINGLE
     sample_type: SampleType = SampleType.KHOP3
     num_epoch: int = 10
     batch_size: int = 8000
     fanout: Sequence[int] = (15, 10, 5)
+    num_worker: int = 1  # data-parallel cards (MultiChipEngine's ranks)
+    # the JAX package's hierarchical mesh; only 1 group is ported
+    num_dcn_groups: int = 1
+    # each rank's segment for each peer in the owner exchange, over the
+    # even split ceil(cap / P); an overflow replays the step at grown
+    # capacities, so this is a speed knob
+    exchange_headroom: float = 1.25
     pipeline: bool = True  # overlap sample(n+1) with train(n)
     prefetch_depth: int = 2
     device_loop: bool = False
@@ -124,6 +159,11 @@ class RunConfig:
     # use_dist_graph is on; the other rows' adjacency is read from host
     # memory (reference dist_graph_percentage, dist_engine.cc:224-235)
     dist_graph_percentage: float = 1.0
+    # the JAX package's switch between a partitioned and a replicated cache
+    # in its two-phase GGMS (not ported); accepted and ignored: the fused
+    # MultiChipEngine interleaves the whole table over the cards, as JAX's
+    # fused shape does whatever its value
+    part_cache: bool = False
     # solve dist_graph_percentage, cache_percentage and use_dist_graph from
     # the device memory and the degree skew at init (store/placement.py);
     # values the caller set win
@@ -157,6 +197,8 @@ class RunConfig:
     dump_trace: bool = False
 
     def __post_init__(self):
+        if isinstance(self.arch, str):
+            self.arch = ARCH_ALIASES[self.arch]
         if isinstance(self.sample_type, str):
             self.sample_type = SampleType(self.sample_type)
         if isinstance(self.cache_policy, str):
@@ -189,6 +231,7 @@ class RunConfig:
 
     def to_dict(self) -> dict:
         out = dataclasses.asdict(self)
+        out["arch"] = self.arch.value
         out["sample_type"] = self.sample_type.value
         out["cache_policy"] = self.cache_policy.value
         return out

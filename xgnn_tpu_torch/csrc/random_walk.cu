@@ -74,6 +74,12 @@
 // xgnn_tpu/ops/random_walk.py:83-103, each step's host callback
 // (xgnn_tpu/parallel/ggms.py, cold_sample_callback) over the walkers that
 // stand on cold nodes.
+//
+// walk_topk_kernel (xg_walk_topk) is the count and the ranking alone, over
+// visits walked elsewhere: the walk over the partitioned topology, whose
+// every step is an owner exchange (xgnn_tpu_torch/parallel/dist_topology.py).
+// Replaces: xgnn_tpu/parallel/dist_topology.py:405-418, the same (B, M, M)
+// match matrix and lax.top_k as above.  Launches are counted as walk_topk.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -197,6 +203,52 @@ __device__ __forceinline__ void walk_tiered(
   }
 }
 
+// Each first occurrence among a seed's m visits gets its count, a repeat or
+// an EMPTY visit 0; thread w of the seed's nw takes visits w, w + nw, ...
+__device__ __forceinline__ void count_visits(const int32_t* vis, int32_t* cnt,
+                                             int m, int w, int nw) {
+  for (int i = w; i < m; i += nw) {
+    const int32_t v = vis[i];
+    int32_t c = 0;
+    bool first = v != kEmpty;
+#pragma unroll
+    for (int j = 0; j < m; ++j) {
+      const bool eq = vis[j] == v;
+      c += eq;
+      if (j < i && eq) first = false;
+    }
+    cnt[i] = first ? c : 0;
+  }
+}
+
+// The distinct visits ranked by count, higher first, then by position,
+// lower first: the first fanout into nrow and wrow, EMPTY and 0 past them
+// (after count_visits and a barrier)
+__device__ __forceinline__ void rank_visits(const int32_t* vis,
+                                            const int32_t* cnt, int m, int w,
+                                            int nw, int fanout, int32_t* nrow,
+                                            float* wrow) {
+  int distinct = 0;
+#pragma unroll
+  for (int j = 0; j < m; ++j) distinct += cnt[j] > 0;
+  for (int i = w; i < m; i += nw) {
+    const int32_t ci = cnt[i];
+    if (ci == 0) continue;
+    int rank = 0;
+#pragma unroll
+    for (int j = 0; j < m; ++j)
+      rank += cnt[j] > ci || (cnt[j] == ci && j < i);
+    if (rank < fanout) {
+      nrow[rank] = vis[i];
+      wrow[rank] = (float)ci;
+    }
+  }
+  for (int k = distinct + w; k < fanout; k += nw) {
+    nrow[k] = kEmpty;
+    wrow[k] = 0.0f;
+  }
+}
+
 // kW, kL > 0: built for those constants; 0: run-time w and l.  A block
 // holds the walkers of `rows` seeds, thread t walker t % W of seed t / W.
 template <int kW, int kL, bool kTiered>
@@ -239,45 +291,41 @@ random_walk_kernel(const int32_t* __restrict__ indptr,
     }
   }
   __syncthreads();
-  // count each first occurrence; cnt 0 marks a repeat or an EMPTY visit
+  if (active) count_visits(vis, cnt, m, w, nw);
+  __syncthreads();
+  if (active)
+    rank_visits(vis, cnt, m, w, nw, fanout, neigh + row * fanout,
+                weights + row * fanout);
+}
+
+// The count and the ranking alone, over visits already walked (the walk
+// over the partitioned topology, whose steps are exchanges): visits is
+// (num_rows, m) walker-major; a visit equal to the row's seed becomes
+// EMPTY.  A block holds `rows` seeds, nw threads each.
+__global__ void __launch_bounds__(kWalkThreads)
+walk_topk_kernel(const int32_t* __restrict__ visits,
+                 const int32_t* __restrict__ frontier,
+                 int32_t* __restrict__ neigh, float* __restrict__ weights,
+                 int64_t num_rows, int m, int nw, int fanout, int rows) {
+  extern __shared__ int32_t smem[];
+  const int local = threadIdx.x / nw, w = threadIdx.x % nw;
+  const int64_t row = (int64_t)blockIdx.x * rows + local;
+  const bool active = local < rows && row < num_rows;
+  int32_t* vis = smem + local * m;
+  int32_t* cnt = smem + rows * m + local * m;
   if (active) {
+    const int32_t seed = __ldg(frontier + row);
     for (int i = w; i < m; i += nw) {
-      const int32_t v = vis[i];
-      int32_t c = 0;
-      bool first = v != kEmpty;
-#pragma unroll
-      for (int j = 0; j < m; ++j) {
-        const bool eq = vis[j] == v;
-        c += eq;
-        if (j < i && eq) first = false;
-      }
-      cnt[i] = first ? c : 0;
+      const int32_t v = __ldg(visits + row * m + i);
+      vis[i] = v == seed ? kEmpty : v;
     }
   }
   __syncthreads();
-  if (!active) return;
-  // rank among the distinct visits: higher count first, then lower position
-  int32_t* nrow = neigh + row * fanout;
-  float* wrow = weights + row * fanout;
-  int distinct = 0;
-#pragma unroll
-  for (int j = 0; j < m; ++j) distinct += cnt[j] > 0;
-  for (int i = w; i < m; i += nw) {
-    const int32_t ci = cnt[i];
-    if (ci == 0) continue;
-    int rank = 0;
-#pragma unroll
-    for (int j = 0; j < m; ++j)
-      rank += cnt[j] > ci || (cnt[j] == ci && j < i);
-    if (rank < fanout) {
-      nrow[rank] = vis[i];
-      wrow[rank] = (float)ci;
-    }
-  }
-  for (int k = distinct + w; k < fanout; k += nw) {
-    nrow[k] = kEmpty;
-    wrow[k] = 0.0f;
-  }
+  if (active) count_visits(vis, cnt, m, w, nw);
+  __syncthreads();
+  if (active)
+    rank_visits(vis, cnt, m, w, nw, fanout, neigh + row * fanout,
+                weights + row * fanout);
 }
 
 // sizes: at most 2048 visits a block (16 KB of shared memory)
@@ -349,5 +397,30 @@ extern "C" int xg_random_walk(const void* indptr, const void* indices,
   else
     launch_walk<false>(ip, ix, fr, us, ur, nb, wt, num_node, num_rows,
                        num_walk, walk_len, fanout, restart_prob, cold, s);
+  return (int)cudaGetLastError();
+}
+
+// visits: (num_rows, num_walk * walk_len) int32, walker-major (walker w's
+// step s at w * walk_len + s), EMPTY where a walker had no step; frontier:
+// (num_rows,) int32; neigh, weights: (num_rows, fanout).  The same limits
+// as xg_random_walk.  Returns cudaGetLastError() after the launch.
+extern "C" int xg_walk_topk(const void* visits, const void* frontier,
+                            void* neigh, void* weights, long long num_rows,
+                            int num_walk, int walk_len, int fanout,
+                            void* stream) {
+  const int m = num_walk * walk_len;
+  if (num_walk < 1 || walk_len < 1 || m > kMaxVisits || fanout < 1 ||
+      fanout > m)
+    return (int)cudaErrorInvalidValue;
+  if (num_rows <= 0) return (int)cudaGetLastError();
+  int rows = kWalkThreads / num_walk;
+  if (rows * m > 2048) rows = 2048 / m;
+  const unsigned blocks = (unsigned)((num_rows + rows - 1) / rows);
+  const size_t smem = (size_t)2 * rows * m * sizeof(int32_t);
+  walk_topk_kernel<<<blocks, rows * num_walk, smem,
+                     reinterpret_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(visits),
+      static_cast<const int32_t*>(frontier), static_cast<int32_t*>(neigh),
+      static_cast<float*>(weights), num_rows, m, num_walk, fanout, rows);
   return (int)cudaGetLastError();
 }

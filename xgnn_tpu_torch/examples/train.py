@@ -11,14 +11,22 @@ symmetrised; 128 features, 32 classes, the planted signal
 for a weighted ``--sample-type``).  ``--cpu`` runs everything on the CPU.
 ``--use-dist-graph --dist-graph-percentage P`` trains on the tiered
 topology, and ``--auto-placement [--hbm-budget-gb G]`` solves the store's
-split.  Flags that select a path the port does not have yet (more than one
-card) raise ``NotImplementedError`` naming its ROADMAP item.
+split.  ``--arch arch6`` (or ``--num-worker N`` with N > 1, as JAX's
+command line decides) trains the collocated multi-card engine
+(``MultiChipEngine``) over N ranks, one process a card (``--cpu``: N
+processes on gloo), the topology replicated or, with ``--use-dist-graph``,
+partitioned; rank 0's lines are printed.  Flags that select a multi-card
+path the port does not have yet raise ``NotImplementedError`` naming its
+ROADMAP item.
 
     python -m xgnn_tpu_torch.examples.train --cpu --synthetic \\
         --synthetic-nodes 20000 --model graphsage --num-epoch 2 \\
         --batch-size 500 --fanout 8 4 --num-hidden 32 --report-acc 1
     python -m xgnn_tpu_torch.examples.train --dataset products \\
         --root-path /data --num-epoch 2
+    python -m xgnn_tpu_torch.examples.train --cpu --synthetic \\
+        --synthetic-nodes 20000 --arch arch6 --num-worker 2 --part-cache \\
+        --use-dist-graph --num-epoch 2 --batch-size 500 --fanout 8 4
 """
 
 from __future__ import annotations
@@ -36,6 +44,12 @@ def parser() -> argparse.ArgumentParser:
     p.add_argument("--model", default="graphsage",
                    choices=["graphsage", "gcn", "gat", "pinsage", "mlp"])
     p.add_argument("--dataset", default="synthetic")
+    p.add_argument("--arch", default=None,
+                   choices=["arch1", "arch2", "arch3", "arch4", "arch5",
+                            "arch6", "arch7", "single", "collocated",
+                            "disaggregated"],
+                   help="default: collocated (arch6) when --num-worker > 1, "
+                   "else single")
     p.add_argument("--root-path", default="/graph-learning/samgraph/")
     p.add_argument("--synthetic", action="store_true",
                    help="the JAX command line's synthetic graph, built on "
@@ -103,16 +117,36 @@ def parser() -> argparse.ArgumentParser:
     return p
 
 
+def arch_of(args):
+    """The engine the flags select, as JAX's command line decides it (an
+    explicit ``--arch`` wins)."""
+    from xgnn_tpu_torch.config import ARCH_ALIASES, RunArch
+
+    if args.arch is not None:
+        return ARCH_ALIASES[args.arch]
+    if args.num_sample_worker > 0:
+        return RunArch.DISAGGREGATED
+    return RunArch.COLLOCATED if args.num_worker > 1 else RunArch.SINGLE
+
+
 def check_ported(args):
     """Refuse the flags of paths the port does not have yet."""
-    # --use-dist-graph, --dist-graph-percentage, --auto-placement and
-    # --hbm-budget-gb run on one card (the tiered topology, the placement
-    # solved with group_size=1)
-    if (args.num_worker > 1 or args.num_sample_worker > 0
-            or args.num_train_worker != 1 or args.num_dcn_groups != 1
-            or args.part_cache):
-        raise NotImplementedError("not ported to xgnn_tpu_torch yet: more "
-                                  f"than one card: {MULTI_GPU}")
+    from xgnn_tpu_torch.config import RunArch
+
+    why = None
+    if (arch_of(args) == RunArch.DISAGGREGATED or args.num_sample_worker > 0
+            or args.num_train_worker != 1):
+        why = "the disaggregated engine (arch5)"
+    elif args.num_dcn_groups != 1:
+        why = "DCN groups (--num-dcn-groups > 1)"
+    elif args.num_worker > 1 and 0.0 < args.cache_percentage < 1.0:
+        why = "a partial feature cache over more than one card"
+    elif args.num_worker > 1 and args.dist_graph_percentage < 1.0:
+        why = ("the host cold tier under the partitioned topology "
+               "(--dist-graph-percentage < 1 over more than one card)")
+    if why is not None:
+        raise NotImplementedError(
+            f"not ported to xgnn_tpu_torch yet: {why}: {MULTI_GPU}")
 
 
 def synthetic_dataset(num_node: int, avg_degree: int, signal: float,
@@ -143,11 +177,8 @@ def load(args, config):
     return load_dataset(config.dataset_path)
 
 
-def main(argv: Optional[Sequence[str]] = None):
-    """Train as the flags say; returns the engine after ``run()``."""
-    args = parser().parse_args(argv)
-    check_ported(args)
-    from xgnn_tpu_torch import Engine, RunConfig
+def config_of(args):
+    from xgnn_tpu_torch import RunConfig
 
     if args.sample_type == "random_walk" and args.model != "pinsage":
         print("warning: random_walk sampling is the pinsage path; "
@@ -159,11 +190,13 @@ def main(argv: Optional[Sequence[str]] = None):
                                ("feat_dtype", args.feat_dtype),
                                ("compute_dtype", args.compute_dtype))
              if v is not None}
-    config = RunConfig(
+    return RunConfig(
         model=args.model, dataset=args.dataset, root_path=args.root_path,
-        **extra, sample_type=args.sample_type,
+        **extra, arch=arch_of(args), sample_type=args.sample_type,
         fanout=tuple(args.fanout), num_layer=len(args.fanout),
         batch_size=args.batch_size, num_epoch=args.num_epoch,
+        num_worker=args.num_worker, num_dcn_groups=args.num_dcn_groups,
+        part_cache=args.part_cache,
         num_hidden=args.num_hidden, num_head=args.num_head, lr=args.lr,
         dropout=args.dropout, cache_policy=args.cache_policy,
         cache_percentage=args.cache_percentage,
@@ -177,16 +210,65 @@ def main(argv: Optional[Sequence[str]] = None):
         checkpoint_every=args.checkpoint_every, seed=args.seed,
         prefetch_depth=args.prefetch_depth,
     )
+
+
+def _train(engine, report_acc: int):
+    engine.run()
+    if report_acc:
+        acc = engine.evaluate("test")
+        if getattr(engine, "rank", 0) == 0:
+            print(f"test_result:test_acc={acc:.4f}")
+
+
+def _rank_main(mesh, argv):
+    """One rank of the multi-card command line: its own dataset and
+    engine; returns what it printed (only rank 0 prints)."""
+    import contextlib
+    import io
+
+    from xgnn_tpu_torch.engine.multi_engine import MultiChipEngine
+
+    args = parser().parse_args(argv)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        config = config_of(args)
+        engine = MultiChipEngine(load(args, config), config, mesh=mesh)
+        _train(engine, args.report_acc)
+    return out.getvalue() if mesh.rank == 0 else ""
+
+
+def main(argv: Optional[Sequence[str]] = None):
+    """Train as the flags say; returns the engine after ``run()`` (None
+    when the ranks ran in processes of their own)."""
+    argv = list(sys.argv[1:] if argv is None else argv)
+    args = parser().parse_args(argv)
+    check_ported(args)
+    from xgnn_tpu_torch import Engine
+    from xgnn_tpu_torch.config import RunArch
+
+    config = config_of(args)
     config.print_run_config()
     if args.validate_configs:
         return None
     device = "cpu" if args.cpu else None
-    engine = Engine(load(args, config), config, device=device)
-    engine.run()
-    if args.report_acc:
-        acc = engine.evaluate("test")
-        print(f"test_result:test_acc={acc:.4f}")
-    return engine
+    if config.arch != RunArch.COLLOCATED:
+        engine = Engine(load(args, config), config, device=device)
+        _train(engine, args.report_acc)
+        return engine
+    from xgnn_tpu_torch.engine.multi_engine import MultiChipEngine
+    from xgnn_tpu_torch.parallel.mesh import spawn
+
+    if config.num_worker == 1:
+        engine = MultiChipEngine(load(args, config), config, device=device)
+        try:
+            _train(engine, args.report_acc)
+        finally:
+            engine.close()
+        return engine
+    outs = spawn(_rank_main, config.num_worker, argv, device=device,
+                 timeout=None)
+    print(outs[0], end="")
+    return None
 
 
 if __name__ == "__main__":

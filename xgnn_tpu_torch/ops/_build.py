@@ -61,6 +61,10 @@ SIGNATURES = {
     "random_walk": {
         "xg_random_walk": [_P] * 7 + [_LL, _LL, _I, _I, _I, _F, _P, _P, _LL,
                                       _P],
+        "xg_walk_topk": [_P] * 4 + [_LL, _I, _I, _I, _P],
+    },
+    "exchange": {
+        "xg_plan_exchange": [_P, _LL, _I, _LL] + [_P] * 5,
     },
     "unique": {
         "xg_unique_seeded": [_P, _LL, _P, _LL, _P, _LL, _LL, _P, _LL,

@@ -33,7 +33,9 @@ seed, so ``W * L <= 64`` (a limit the JAX package does not have, ROADMAP
 section 3), and ``fanout <= W * L`` as ``lax.top_k`` requires.
 :func:`sample_random_walk_plain` is its plain PyTorch version, which the
 wrapper takes only for tensors on the CPU.  Launches are counted as
-``random_walk``.
+``random_walk``.  :func:`walk_topk` is the count and the ranking alone,
+over visits walked elsewhere (the partitioned walk, whose steps are
+exchanges), with :func:`walk_topk_plain` beside it.
 """
 
 from __future__ import annotations
@@ -111,12 +113,20 @@ def sample_random_walk_plain(
         nxt = _walk_step(indptr, indices, cur, u_step[s], tier)
         visits.append(nxt)
         cur = torch.where(nxt == EMPTY, seed2d, nxt)
-    v = torch.stack(visits, dim=2).reshape(b, w * l)  # walker-major
+    return walk_topk_plain(torch.stack(visits, dim=2), frontier, fanout)
+
+
+def walk_topk_plain(visits: torch.Tensor, frontier: torch.Tensor,
+                    fanout: int):
+    """The count and the ranking of ``(B, W, L)`` visits: a visit equal to
+    its seed does not count, then a ``(B, M, M)`` match count and a stable
+    descending sort of the scores (the order ``lax.top_k`` gives)."""
+    b, m = frontier.shape[0], visits.shape[1] * visits.shape[2]
+    v = visits.reshape(b, m)  # walker-major
     v = torch.where(v == frontier[:, None], EMPTY, v)
 
     eq = v[:, :, None] == v[:, None, :]
     counts = eq.sum(2, dtype=torch.int32)
-    m = w * l
     earlier = torch.ones((m, m), dtype=torch.bool,
                          device=frontier.device).tril(-1)
     is_first = ~(eq & earlier).any(2) & (v != EMPTY)
@@ -126,6 +136,45 @@ def sample_random_walk_plain(
     live = top > 0
     neigh = torch.where(live, torch.gather(v, 1, idx), EMPTY)
     weights = torch.where(live, top, 0).to(torch.float32)
+    return neigh, weights
+
+
+def walk_topk(visits: torch.Tensor, frontier: torch.Tensor, fanout: int):
+    """K9's count and ranking alone: ``(neigh, weights)`` of the ``(B, W,
+    L)`` int32 visits (walker ``w``'s step ``s`` at ``[b, w, s]``, EMPTY
+    where it had no step) of the ``(B,)`` frontier, as
+    :func:`sample_random_walk` ranks its own walk's (the partitioned walk,
+    ``parallel/dist_topology.py``).  Launches are counted as
+    ``walk_topk``."""
+    if (visits.dim() != 3 or visits.dtype != torch.int32
+            or frontier.dim() != 1 or frontier.dtype != torch.int32
+            or visits.shape[0] != frontier.shape[0]):
+        raise ValueError(
+            f"walk_topk: visits must be (B, W, L) int32 and frontier (B,) "
+            f"int32, got {visits.dtype} {tuple(visits.shape)} and "
+            f"{frontier.dtype} {tuple(frontier.shape)}")
+    b, w, l = visits.shape
+    if w < 1 or l < 1 or w * l > MAX_VISITS or not 1 <= fanout <= w * l:
+        raise ValueError(
+            f"walk_topk: {w} walks of {l} steps, fanout {fanout}: the kernel "
+            f"keeps 1 to {MAX_VISITS} visits a seed and fanout <= W * L")
+    if visits.device != frontier.device:
+        raise ValueError("walk_topk: tensors on different devices")
+    if frontier.device.type == "cpu":
+        return walk_topk_plain(visits, frontier, fanout)
+    if frontier.device.type != "cuda":
+        raise ValueError(f"walk_topk: no kernel for {frontier.device}")
+    visits, frontier = visits.contiguous(), frontier.contiguous()
+    lib = _build.load("random_walk")
+    neigh = torch.empty((b, fanout), dtype=torch.int32, device=frontier.device)
+    weights = torch.empty((b, fanout), dtype=torch.float32,
+                          device=frontier.device)
+    if b:
+        rc = lib.xg_walk_topk(visits.data_ptr(), frontier.data_ptr(),
+                              neigh.data_ptr(), weights.data_ptr(), b, w, l,
+                              fanout, _build.stream_handle(frontier.device))
+        _build.check(rc, "walk_topk")
+        _build.LAUNCHES.add("walk_topk")
     return neigh, weights
 
 

@@ -1,0 +1,183 @@
+"""The collocated multi-card step (XGNN's arch6), fused form.
+
+The port of ``xgnn_tpu/parallel/collocated.py``'s fused shape
+(``make_collocated_train_step``, lines 178-330, with ``_sample_any`` and
+``_block0_via_picks``; ``make_fused_eval_step``, line 558): every rank
+samples its own shard of the batch (over the replicated topology, or the
+partitioned one through the owner exchange), reads its input rows from
+the interleaved all-device feature store through the exchange, reads its
+labels the same way, runs the forward and backward, and the ranks reduce
+their gradients before the same update on every rank.
+
+The reduction is JAX's seed-count-weighted sum, not DDP's plain mean:
+``sum_r(g_r * w_r) / max(sum_r(w_r), 1)`` with ``w_r`` the rank's seed
+count (``num_output``), and the same for the loss and the accuracy, so a
+rank whose shard is exhausted (``num_output = 0``) weighs nothing.  The
+gradients, the three weighted scalars and the overflow flag go in one
+flattened ``all_reduce``; a step whose exchange or frontier overflowed on
+any rank is skipped by every rank on the device, as the single store's
+step is, and every rank learns it from the same reduction, so the ranks
+stay in step for the engine's replay.  The two-phase GGMS form (a partial
+cache with host misses) is not part of this port.  JAX's ``put_replicated``
+and ``put_sharded`` place a whole value on every chip of one process's
+mesh; here each rank builds its own part where it runs
+(``exchange.interleaved_part``, ``dist_topology.partition_part``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Sequence
+
+import torch
+
+from .. import constants as C
+from ..sampler import _layer_fanouts, _sample_minibatch
+from ..train import Adam, loss_fn
+from ..types import Block
+from .dist_topology import sample_minibatch_partitioned
+from .exchange import partitioned_gather, partitioned_gather_indirect
+from .mesh import Mesh
+
+EMPTY = C.EMPTY_KEY
+
+
+def rw_params(config) -> tuple:
+    return (config.num_random_walk, config.random_walk_length,
+            config.random_walk_restart_prob)
+
+
+def sample_any(topo, seeds: torch.Tensor, num_seed, config, capacities,
+               seg_cap: int, mesh: Mesh, use_dist_graph: bool,
+               generator: Optional[torch.Generator] = None):
+    """One rank's batch: over the partitioned topology (a ``LocalTopo``)
+    through the owner exchange, or over the replicated one (a ``Graph``),
+    every layer deduplicated (no direct extract: the first layer reads the
+    exchange's response)."""
+    fanouts, caps = _layer_fanouts(config), tuple(int(c) for c in capacities)
+    if use_dist_graph:
+        return sample_minibatch_partitioned(
+            topo, seeds, num_seed, mesh, seg_cap=seg_cap,
+            sample_type=config.sample_type, fanouts=fanouts, capacities=caps,
+            rw_params=rw_params(config), generator=generator)
+    return _sample_minibatch(topo, seeds, num_seed,
+                             sample_type=config.sample_type, fanouts=fanouts,
+                             capacities=caps, rw_params=rw_params(config),
+                             generator=generator)
+
+
+def block0_via_picks(block: Block, pick: torch.Tensor,
+                     input_nodes: torch.Tensor) -> Block:
+    """The input layer's block in direct-extract form against the
+    exchange's response buffer: its picks and dst rows read the buffer
+    through ``pick``, so no request-order copy of the rows exists.  EMPTY
+    stays EMPTY, and a dst row past the valid frontier gets EMPTY (a zero
+    row, as K1 gives it)."""
+    valid = block.neigh != EMPTY
+    safe = torch.clamp(torch.where(valid, block.neigh, 0), max=pick.shape[0]
+                       - 1).long()
+    neigh = torch.where(valid, pick[safe], EMPTY)
+    dst = pick[:block.dst_cap]
+    dst_ids = torch.where(input_nodes[:block.dst_cap] != EMPTY, dst, EMPTY)
+    return dataclasses.replace(block, neigh=neigh, dst_ids=dst_ids)
+
+
+def exchange_inputs(batch, feat_part: torch.Tensor, label_part: torch.Tensor,
+                    mesh: Mesh, seg_cap: int):
+    """``(blocks, x, labels, overflow)``: the batch's input rows through
+    the exchange (``x`` the response buffer, the first block reading it
+    through the pick), its labels in seed order, and the step's overflow
+    (the exchanges' and the sampler's) on this rank."""
+    xbuf, xpick, x_of = partitioned_gather_indirect(
+        feat_part, batch.input_nodes, mesh, seg_cap)
+    blocks = (block0_via_picks(batch.blocks[0], xpick, batch.input_nodes),
+              ) + tuple(batch.blocks[1:])
+    labels, l_of = partitioned_gather(label_part, batch.output_nodes, mesh,
+                                      seg_cap)
+    return blocks, xbuf, labels[:, 0], x_of | l_of | batch.overflow
+
+
+def lane_loss_and_grads(model, params: Sequence[torch.Tensor], blocks, x,
+                        labels, num_output, generator=None):
+    """One rank's loss, accuracy and gradients, before any reduction."""
+    logits = model(blocks, x, train=True, generator=generator)
+    loss, acc = loss_fn(logits, labels, num_output)
+    grads = torch.autograd.grad(loss, params)
+    return loss.detach(), acc.detach(), grads
+
+
+def reduce_weighted(mesh: Mesh, grads, loss, acc, num_output, overflow):
+    """``(grads, loss, acc, skip)``: ``sum_r(v_r * w_r) / max(sum_r(w_r),
+    1)`` of each, ``w_r`` the ranks' seed counts, and whether any rank
+    overflowed, all in one ``all_reduce``."""
+    w = num_output.to(torch.float32).reshape(())
+    flat = torch.cat([g.reshape(-1) * w for g in grads]
+                     + [torch.stack([loss * w, acc * w, w,
+                                     overflow.to(torch.float32)])])
+    mesh.all_reduce(flat)
+    n = flat.shape[0] - 4
+    wsum = torch.clamp(flat[n + 2], min=1.0)
+    out, at = [], 0
+    for g in grads:
+        out.append((flat[at:at + g.numel()] / wsum).reshape(g.shape))
+        at += g.numel()
+    return out, flat[n] / wsum, flat[n + 1] / wsum, flat[n + 3] > 0
+
+
+def make_collocated_train_step(model, opt: Adam, config, mesh: Mesh,
+                               capacities, seg_cap: int,
+                               use_dist_graph: bool = False):
+    """The fused step: ``step(topo, feat_part, label_part, seeds, num_seed,
+    generator, drop_generator) -> {"loss", "acc", "overflow",
+    "num_input"}``, device scalars, all but the rank's input count equal on
+    every rank (the loss and accuracy NaN where the step was skipped).
+    Nothing waits on the host."""
+
+    def step(topo, feat_part, label_part, seeds, num_seed, generator=None,
+             drop_generator=None):
+        batch = sample_any(topo, seeds, num_seed, config, capacities,
+                           seg_cap, mesh, use_dist_graph, generator)
+        blocks, x, labels, overflow = exchange_inputs(batch, feat_part,
+                                                      label_part, mesh,
+                                                      seg_cap)
+        loss, acc, grads = lane_loss_and_grads(
+            model, opt.params, blocks, x, labels, batch.num_output,
+            drop_generator)
+        grads, loss, acc, skip = reduce_weighted(
+            mesh, grads, loss, acc, batch.num_output, overflow)
+        opt.step(grads, skip)
+        nan = torch.full_like(loss, float("nan"))
+        return {"loss": torch.where(skip, nan, loss),
+                "acc": torch.where(skip, nan, acc), "overflow": skip,
+                "num_input": batch.num_input}
+
+    return step
+
+
+def make_fused_eval_step(model, config, mesh: Mesh, capacities,
+                         seg_cap: int, use_dist_graph: bool = False):
+    """The forward-only fused step: ``step(topo, feat_part, label_part,
+    seeds, num_seed, generator) -> (correct, total, overflow)``, summed over
+    the ranks; a step that overflowed anywhere counts 0 of both (the engine
+    runs it again at grown capacities)."""
+
+    @torch.no_grad()
+    def step(topo, feat_part, label_part, seeds, num_seed, generator=None):
+        batch = sample_any(topo, seeds, num_seed, config, capacities,
+                           seg_cap, mesh, use_dist_graph, generator)
+        blocks, x, labels, overflow = exchange_inputs(batch, feat_part,
+                                                      label_part, mesh,
+                                                      seg_cap)
+        logits = model(blocks, x, train=False)
+        n = logits.shape[0]
+        mask = torch.arange(n, device=logits.device) < batch.num_output
+        correct = ((torch.argmax(logits, -1) == labels) & mask).sum()
+        v = torch.stack([correct.to(torch.float32),
+                         batch.num_output.to(torch.float32).reshape(()),
+                         overflow.to(torch.float32)])
+        mesh.all_reduce(v)
+        keep = (v[2] == 0).to(torch.float32)
+        return v[0] * keep, v[1] * keep, v[2] > 0
+
+    return step
+

@@ -1,0 +1,188 @@
+"""The owner exchange over an interleaved store (K13).
+
+The port of ``xgnn_tpu/parallel/exchange.py``.  Rows are interleaved over
+the ``P`` ranks: global row ``g`` lives on rank ``g % P`` at local row
+``g // P`` (:func:`shard_interleaved`).  A read of arbitrary rows is two
+collectives with static shapes:
+
+    group the requested ids by owner (:func:`plan_exchange`, K13-plan) ->
+    all_to_all the ids -> every rank gathers its local rows (K1) ->
+    all_to_all the rows back -> read them in request order through the
+    plan's pick.
+
+Each rank's segment for each peer holds ``seg_cap`` slots; a request past
+its owner's ``seg_cap`` raises the overflow flag (the step is skipped and
+replayed at grown capacities by the engine).  Both collectives are
+``all_to_all_single`` with equal splits, as JAX's padded segments are.
+
+The owner's serve is K1 over its local partition at ``req // P``, an
+EMPTY slot giving a zero row (JAX spreads its padding slots over distinct
+rows, a TPU transaction trick; no pick addresses them, so their value is
+free).  :func:`partitioned_gather_indirect` returns the raw response
+buffer and the pick, so the model's first layer reads the rows through
+the pick without a request-order copy; :func:`partitioned_gather` picks
+them in request order with K1, where an invalid pick (EMPTY) gives a zero
+row, as JAX's ``mode="fill"``.
+
+K13-plan's CUDA kernel is ``csrc/exchange.cu``; :func:`plan_exchange_plain`
+is its plain PyTorch version (JAX's ``P`` prefix counts), which the
+wrapper takes only for ids on the CPU.  Launches are counted as
+``plan_exchange``.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from .. import constants as C
+from ..ops import _build
+from ..ops.gather import gather_rows
+from .mesh import Mesh
+
+EMPTY = C.EMPTY_KEY
+MAX_PARTS = 32  # kMaxParts in csrc/exchange.cu
+_NAME = "plan_exchange"
+_TILE = 2048  # kTile in csrc/exchange.cu
+
+
+def shard_interleaved(arr, num_parts: int) -> np.ndarray:
+    """Host-side: rows rearranged so that partition ``p`` holds rows ``p,
+    p + P, p + 2P, ...``: ``(P, ceil(N / P), ...)``, zero padded; row ``g``
+    lands at ``[g % P, g // P]``."""
+    arr = np.asarray(arr)
+    n = arr.shape[0]
+    rows = -(-n // num_parts)
+    padded = np.zeros((num_parts * rows,) + arr.shape[1:], arr.dtype)
+    padded[:n] = arr
+    return np.ascontiguousarray(
+        padded.reshape(rows, num_parts, *arr.shape[1:]).swapaxes(0, 1))
+
+
+def interleaved_part(t, num_parts: int, part: int):
+    """Rank ``part``'s rows of a tensor or a host array (rows ``part, part
+    + P, ...``, zero padded to ``ceil(N / P)``), where it lies:
+    ``shard_interleaved(t, P)[part]``.  At P = 1 it is ``t`` itself, not a
+    copy."""
+    if num_parts == 1:
+        return t
+    rows = -(-t.shape[0] // num_parts)
+    own = t[part::num_parts]
+    if isinstance(t, torch.Tensor):
+        out = torch.zeros((rows,) + tuple(t.shape[1:]), dtype=t.dtype,
+                          device=t.device)
+    else:
+        out = np.zeros((rows,) + t.shape[1:], t.dtype)
+    out[:own.shape[0]] = own
+    return out
+
+
+class Plan(NamedTuple):
+    """``send``: ``(P, seg_cap)`` ids by owner, in request order, EMPTY
+    padded; ``pick``: each request's slot ``owner * seg_cap + rank``, or
+    EMPTY where it is EMPTY or past ``seg_cap``; ``overflow``: a bool scalar
+    on the device.  ``owner`` (``P`` for EMPTY) and ``rank`` (0 for EMPTY)
+    only from :func:`plan_exchange_plain` where asked for."""
+
+    send: torch.Tensor
+    pick: torch.Tensor
+    overflow: torch.Tensor
+    owner: Optional[torch.Tensor] = None
+    rank: Optional[torch.Tensor] = None
+
+
+def plan_exchange_plain(ids: torch.Tensor, num_parts: int, seg_cap: int,
+                        ranks: bool = False) -> Plan:
+    """JAX's ``plan_exchange`` in torch ops: ``P`` prefix counts over the
+    request vector, then a linearised scatter.  ``ranks``: also return each
+    request's owner and rank, as JAX's ``plan_exchange`` does (the
+    exchange itself needs only ``send`` and ``pick``)."""
+    valid = ids != EMPTY
+    owner = torch.where(valid, torch.remainder(ids, num_parts), num_parts)
+    rank = torch.zeros_like(ids)
+    for k in range(num_parts):
+        mask = owner == k
+        rank = rank + torch.where(mask, torch.cumsum(mask, 0) - 1, 0).to(
+            torch.int32)
+    ok = valid & (rank < seg_cap)
+    slot = owner * seg_cap + rank
+    dump = num_parts * seg_cap
+    send = torch.full((dump + 1,), EMPTY, dtype=torch.int32,
+                      device=ids.device)
+    send[torch.where(ok, slot, dump).long()] = ids
+    return Plan(send[:dump].reshape(num_parts, seg_cap),
+                torch.where(ok, slot, EMPTY).to(torch.int32),
+                (valid & (rank >= seg_cap)).any(),
+                owner.to(torch.int32) if ranks else None,
+                rank if ranks else None)
+
+
+def plan_exchange(ids: torch.Tensor, num_parts: int, seg_cap: int) -> Plan:
+    """K13-plan: ``(n,)`` int32 requested ids grouped by owner (``id %
+    num_parts``) into a ``(num_parts, seg_cap)`` send buffer."""
+    if ids.dim() != 1 or ids.dtype != torch.int32:
+        raise ValueError(f"plan_exchange: ids must be 1-D int32, got "
+                         f"{ids.dtype} {tuple(ids.shape)}")
+    if not 1 <= num_parts <= MAX_PARTS:
+        raise ValueError(f"plan_exchange: {num_parts} parts; the kernel "
+                         f"takes 1 to {MAX_PARTS}")
+    if seg_cap < 1 or num_parts * seg_cap >= 2**31:
+        raise ValueError(f"plan_exchange: seg_cap {seg_cap} out of range")
+    if ids.device.type == "cpu":
+        return plan_exchange_plain(ids, num_parts, seg_cap)
+    if ids.device.type != "cuda":
+        raise ValueError(f"plan_exchange: no kernel for {ids.device}")
+    ids = ids.contiguous()
+    n, dev = ids.shape[0], ids.device
+    tiles = max(-(-n // _TILE), 1)
+    i32 = dict(dtype=torch.int32, device=dev)
+    send = torch.empty((num_parts, seg_cap), **i32)
+    pick = torch.empty((n,), **i32)
+    flag = torch.empty((), **i32)
+    scratch = torch.empty((num_parts * tiles + num_parts,), **i32)
+    lib = _build.load("exchange")
+    rc = lib.xg_plan_exchange(
+        ids.data_ptr(), n, num_parts, seg_cap, send.data_ptr(),
+        pick.data_ptr(), flag.data_ptr(), scratch.data_ptr(),
+        _build.stream_handle(dev))
+    _build.check(rc, _NAME)
+    _build.LAUNCHES.add(_NAME)
+    return Plan(send, pick, flag != 0)
+
+
+def local_rows_of(req: torch.Tensor, num_parts: int) -> torch.Tensor:
+    """The owner's local row of each received global id (``g // P``),
+    EMPTY kept."""
+    if num_parts == 1:
+        return req
+    return torch.where(req != EMPTY,
+                       torch.div(req, num_parts, rounding_mode="floor"),
+                       EMPTY)
+
+
+def partitioned_gather_indirect(local_rows: torch.Tensor, ids: torch.Tensor,
+                                mesh: Mesh, seg_cap: int):
+    """The exchange without the request-order copy: ``(buf, pick,
+    overflow)``, ``buf`` the ``(P * seg, F)`` response rows in (owner,
+    rank) order and ``row_for_request[i] == buf[pick[i]]``, ``pick[i]``
+    EMPTY for an EMPTY or overflowed request.  A segment never needs more
+    slots than there are requests, so ``seg = min(seg_cap, n)``."""
+    p = mesh.size
+    seg = max(min(seg_cap, ids.shape[0]), 1)
+    plan = plan_exchange(ids, p, seg)
+    req = mesh.all_to_all(plan.send.reshape(-1))
+    rows = gather_rows(local_rows, local_rows_of(req, p))
+    buf = mesh.all_to_all(rows)
+    return buf, plan.pick, plan.overflow
+
+
+def partitioned_gather(local_rows: torch.Tensor, ids: torch.Tensor,
+                       mesh: Mesh, seg_cap: int):
+    """Rows of an interleave-partitioned table in request order: ``(out,
+    overflow)``, ``out`` ``(n, F)`` with zero rows for EMPTY or overflowed
+    requests."""
+    buf, pick, overflow = partitioned_gather_indirect(local_rows, ids, mesh,
+                                                      seg_cap)
+    return gather_rows(buf, pick), overflow
