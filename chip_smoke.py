@@ -288,6 +288,23 @@ Phases, each fatal on failure:
    capacities calibrated from 2 batches), with K9's count and ranking
    (``walk_topk``) at the walk's two layers against its plain version.
    The phase's wall time and the ``{"multichip": ...}`` JSON line.
+16. XGNN's two-phase GGMS at P = 1: ``MultiChipEngine`` on the
+   partitioned topology with phase 8's partial cache (0.2, ``pre_sample``,
+   one presample epoch through the owner exchange and K12), every row in
+   pinned, mapped host memory.  ``graphsage_multichip_ggms`` (the cache
+   partitioned over the ranks, ``part_cache``): one batch's input rows
+   (K11's position form, the positions' exchange with K13 and K1, K11's
+   reads of the misses in place) bit-equal to the plain versions' rows,
+   and K11's position form at that batch's frontier against its plain
+   version, exact; ``graphsage_multichip_sgnn`` (the cache replicated on
+   each rank: K11's split over it); ``graphsage_multichip_dynamic``
+   (``dynamic_cache``: the refresh at each epoch's end ranks the cache by
+   the next epoch's first batch, its hit rate before and after the
+   first).  Each: a warm-up and a
+   counted epoch with their launches asserted, then a profiled epoch (busy
+   ms a step, K11's split and reads, K13 and NCCL, device ms a step) beside
+   phase 8's graphsage_cached (its hit rate, miss bytes a step and K11's
+   device ms).  The phase's wall time and the ``{"ggms": ...}`` JSON line.
 
 Each kernel is timed twice: ``ms`` back to back (the wrapper's host time
 included, where the host is the slower) and ``device_ms`` with the host
@@ -300,7 +317,7 @@ pick; K4's mean form moves the sum form's bytes.  K4's mean-form
 Prints the inference's JSON line, the tooling's (phase 10), the training
 options' (phase 11), the tiered topology's (phase 12), the dataset
 files' (phase 13), the last configurations' (phase 14), the multi-card
-engine's (phase 15), the kernels' JSON
+engine's (phase 15), the two-phase GGMS's (phase 16), the kernels' JSON
 line, then the card's line (nvidia-smi's name and power limit), then the
 result line.
 Exits non-zero with no result line when there is no CUDA device.
@@ -4962,6 +4979,201 @@ def main() -> int:
     print(f"{tag} phase 15 (the collocated multi-card engine at P = 1) wall "
           f"time {multi_rows['wall_s']:.3f} s", flush=True)
     print(json.dumps({"multichip": multi_rows}), flush=True)
+
+    # ---- 16. XGNN's two-phase GGMS at P = 1 --------------------------------
+    # MultiChipEngine with phase 8's partial cache (0.2, pre_sample) on the
+    # partitioned topology: the cache partitioned over the ranks (XGNN) or
+    # replicated on each (SGNN), every row in pinned host memory, the
+    # misses read in place by K11; then dynamic_cache over two epochs
+    from xgnn_tpu_torch.ops.tiered import (
+        tiered_split_positions,
+        tiered_split_positions_plain,
+    )
+
+    torch.cuda.empty_cache()
+    t16 = time.perf_counter()
+    ggms_rows = {}
+    gcfg = dataclasses.replace(mcfg, cache_percentage=CACHE_PCT,
+                               cache_policy="pre_sample", presample_epoch=1,
+                               num_epoch=2)
+    ggms_step = {"plan_exchange": 5 * steps, "sample_khop": 3 * steps,
+                 "unique_seeded": 3 * steps, "gather_rows": 7 * steps,
+                 "tiered_split_positions": steps, "tiered_direct": steps,
+                 "fanout_fwd": 3 * steps, "fanout_bwd": 2 * steps}
+    expected.update({
+        # the layers', the cache positions' and the labels' exchanges; K1
+        # for the three layers' picks, the owner's serve of the cache rows
+        # and their pick, the labels' serve and pick
+        "graphsage_multichip_ggms": ggms_step,
+        # K11's split over the whole cache in place of the positions'
+        # exchange
+        "graphsage_multichip_sgnn": dict(
+            {k: v for k, v in ggms_step.items()
+             if k != "tiered_split_positions"},
+            plan_exchange=4 * steps, gather_rows=5 * steps,
+            tiered_split=steps),
+        # and the refresh at the epoch's end (num_epoch 3: after epochs 0
+        # and 1): the next epoch's first batch sampled and counted at its
+        # owner (K13 for the count), the cache built again (K11's all-miss
+        # form)
+        "graphsage_multichip_dynamic": dict(
+            ggms_step, plan_exchange=5 * steps + 4,
+            sample_khop=3 * steps + 3, unique_seeded=3 * steps + 3,
+            gather_rows=7 * steps + 3, tiered_direct=steps + 1,
+            accumulate_freq=1, tiered_split=1),
+    })
+    cached_hist = host_runs["graphsage_cached"]["hist"][1]
+    cached_hit = float(cached_hist["hit"].sum() / (
+        cached_hist["hit"].sum() + cached_hist["miss"].sum()))
+    cached_groups = (host_runs["graphsage_cached"].get("profiled")
+                     or {}).get("group_ms", {})
+    k11_groups = ("K11's split, *split_*",
+                  "K11's reads in place, *direct_kernel*")
+    for path, change in (
+            ("graphsage_multichip_ggms", {}),
+            ("graphsage_multichip_sgnn", dict(part_cache=False)),
+            ("graphsage_multichip_dynamic",
+             dict(cache_policy="dynamic_cache", num_epoch=3))):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        geng = MultiChipEngine(ds, dataclasses.replace(gcfg, **change)).init()
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        items = geng.profiler._init_items
+        print(f"{tag} {path} init: {init_s:.3f} s (presample "
+              f"{items.get('presample_time', 0.0):.3f} s, the table pinned "
+              f"and the cache built {items.get('cache_build_time', 0.0):.3f}"
+              f" s); {geng.num_cache} rows cached, "
+              f"{tuple(geng.cache_part.shape)} on this rank", flush=True)
+        posmap0 = geng.posmap.clone()
+        try:
+            if path == "graphsage_multichip_ggms":
+                # one batch's x against the plain versions, and K11's
+                # position form at the batch's input frontier
+                it = geng._shuffler(ds.train_set,
+                                    gcfg.seed + 1).epoch_batches(0)
+                g_seeds, g_n = geng._next(it)
+                outs = geng._fn_a(geng.topo, geng.posmap, geng.cache_part,
+                                  geng.lab_part, geng.host, g_seeds, g_n,
+                                  generator(dev, 181))
+                gbatch = collocated.sample_any(
+                    geng.topo, g_seeds, g_n, gcfg, geng.capacities,
+                    geng.seg_cap, geng.mesh, True, generator(dev, 181))
+                ids, num_in = gbatch.input_nodes, gbatch.num_input
+                ref, ref_counts = tiered_extract_plain(
+                    ids, num_in, geng.posmap, geng.cache_part,
+                    geng.host.tensor)
+                torch.cuda.synchronize()
+                got_counts = torch.stack([outs["num_hit"], outs["num_miss"]])
+                if not (torch.equal(outs["x"], ref)
+                        and torch.equal(got_counts, ref_counts)
+                        and not bool(outs["overflow"])):
+                    raise AssertionError(
+                        "graphsage_multichip_ggms: the two-phase x or its "
+                        "counts differ from the plain versions' (max abs "
+                        f"err {max_err(outs['x'], ref)}, counts "
+                        f"{got_counts.tolist()} against "
+                        f"{ref_counts.tolist()})")
+                hits, misses = (int(c) for c in ref_counts)
+                print(f"{tag} graphsage_multichip_ggms batch: x "
+                      f"{tuple(outs['x'].shape)} bit-equal to the plain "
+                      f"versions' rows ({hits} hits, {misses} misses of "
+                      f"{int(num_in)} inputs)", flush=True)
+                del outs, ref
+                pos, counts, mpos, mids = tiered_split_positions(
+                    ids, num_in, geng.posmap)
+                p_pos, p_counts, p_mpos, p_mids = \
+                    tiered_split_positions_plain(ids, num_in, geng.posmap)
+                torch.cuda.synchronize()
+                if not (torch.equal(pos, p_pos) and torch.equal(counts,
+                                                                 p_counts)
+                        and torch.equal(mpos[:misses], p_mpos[:misses])
+                        and torch.equal(mids[:misses], p_mids[:misses])):
+                    raise AssertionError("tiered_split_positions: differs "
+                                         "from the plain version")
+                n_ids = ids.numel()
+                record("tiered_split_positions",
+                       "xgnn_tpu_torch/csrc/tiered.cu",
+                       "xgnn_tpu/parallel/ggms.py:134-203 (cache_split's "
+                       "posmap lookup and miss compaction, with "
+                       "compact_mask_positions, xgnn_tpu/ops/unique.py:27)",
+                       f"{n_ids} ids ({hits + misses} valid: {hits} hits, "
+                       f"{misses} misses) over a ({NUM_NODE},) posmap",
+                       max_err(pos, p_pos), "exact: positions, miss "
+                       "positions and ids, counts",
+                       lambda: tiered_split_positions(ids, num_in,
+                                                      geng.posmap),
+                       lambda: tiered_split_positions_plain(ids, num_in,
+                                                            geng.posmap),
+                       None, "none: no one PyTorch call looks up and "
+                       "compacts",
+                       # the ids, a posmap word a valid id, the positions,
+                       # the miss list and the counts
+                       nbytes=n_ids * 4 + (hits + misses) * 4 + n_ids * 4
+                       + misses * 8 + 8, flops=0, per_step=1,
+                       path="graphsage_multichip_ggms", plain_reps=3)
+                del pos, p_pos, mpos, p_mpos, mids, p_mids, gbatch, ids
+            row = multi_epochs(path, geng)
+            hists = [geng.history[e] for e in (0, 1)]
+            rates = [float(h["hit"].sum() / (h["hit"].sum()
+                                             + h["miss"].sum()))
+                     for h in hists]
+            if not all(0.0 < r < 1.0 for r in rates):
+                raise AssertionError(f"{path}: hit rates {rates}")
+            if path == "graphsage_multichip_dynamic":
+                # the refresh after epoch 0 ranked the cache by epoch 1's
+                # first batch, the one after epoch 1 by epoch 2's
+                moved = int((geng.posmap != posmap0).sum())
+                print(f"{tag} {path}: the refreshes after epochs 0 and 1 "
+                      f"moved {moved} posmap entries; hit rate "
+                      f"{rates[0]:.6f} before the first (the presample's "
+                      f"ranking), {rates[1]:.6f} after it", flush=True)
+                if not moved:
+                    raise AssertionError(f"{path}: the refresh left posmap "
+                                         "as it was")
+                row["posmap_moved"] = moved
+            del posmap0
+            prof_g = profiled_epoch(path, geng, 2) or {}
+            groups = prof_g.get("group_ms", {})
+            row.update(
+                init_s=init_s, presample_s=items.get("presample_time"),
+                cache_build_s=items.get("cache_build_time"),
+                hit_rate_epochs=rates, graphsage_cached_hit_rate=cached_hit,
+                miss_bytes_per_step=mean(hists[1]["miss"])
+                * geng.row_bytes,
+                busy_ms_per_step=prof_g.get("busy_ms_per_step"),
+                busy_share=prof_g.get("busy_share"),
+                graphsage_cached_busy_ms_per_step=(
+                    host_runs["graphsage_cached"].get("profiled")
+                    or {}).get("busy_ms_per_step"),
+                k11_ms_per_step=[groups.get(g) for g in k11_groups],
+                graphsage_cached_k11_ms_per_step=[cached_groups.get(g)
+                                                  for g in k11_groups],
+                plan_exchange_ms_per_step=groups.get("K13-plan, *plan_*"),
+                nccl_ms_per_step=groups.get("NCCL collectives, *nccl*"),
+                peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30)
+            ggms_rows[path] = row
+            print(f"{tag} {path}: counted epoch {row['epoch_s']:.3f} s; "
+                  f"profiled busy {row['busy_ms_per_step']} ms a step "
+                  f"against graphsage_cached's "
+                  f"{row['graphsage_cached_busy_ms_per_step']}; hit rate "
+                  f"{rates[0]:.6f} (epoch 0), {rates[1]:.6f} (epoch 1) "
+                  f"against graphsage_cached's {cached_hit:.6f}; miss bytes "
+                  f"{row['miss_bytes_per_step']:.1f} a step; device ms a "
+                  f"step: K11's split {row['k11_ms_per_step'][0]}, its reads "
+                  f"{row['k11_ms_per_step'][1]} (graphsage_cached "
+                  f"{row['graphsage_cached_k11_ms_per_step']}), K13 "
+                  f"{row['plan_exchange_ms_per_step']}, NCCL "
+                  f"{row['nccl_ms_per_step']}; peak {row['peak_gib']:.3f} "
+                  "GiB", flush=True)
+        finally:
+            geng.close()
+        del geng
+    ggms_rows["wall_s"] = time.perf_counter() - t16
+    print(f"{tag} phase 16 (the two-phase GGMS at P = 1) wall time "
+          f"{ggms_rows['wall_s']:.3f} s", flush=True)
+    print(json.dumps({"ggms": ggms_rows}), flush=True)
 
     for k in kernels:
         k["launches"] = counts_by_path[k["path"]].get(k["name"], 0)

@@ -2922,3 +2922,129 @@ def test_multichip_engine_p1_on_the_card(dev, use_dist_graph):
     finally:
         eng.close()
     assert not dist.is_initialized()
+
+
+@pytest.mark.parametrize("case", ["no_miss", "one_row", "one_pass",
+                                  "one_pass_plus_one", "many_passes",
+                                  "empty"])
+def test_tiered_split_positions_kernel_equals_plain(dev, case):
+    """K11's position form (the two-phase GGMS's lookup) bit-equal to its
+    plain version: each slot's cache position or EMPTY, the counts and the
+    miss list; no row is written, and it is one launch of its own name."""
+    from xgnn_tpu_torch.ops import _build
+    from xgnn_tpu_torch.ops.tiered import (
+        tiered_split_positions,
+        tiered_split_positions_plain,
+    )
+
+    host, posmap, _, ids, num = _miss_case(dev, case)
+    _build.LAUNCHES.reset()
+    pos, counts, miss_pos, miss_ids = tiered_split_positions(ids, num,
+                                                             posmap)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES.snapshot() == (
+        {} if case == "empty" else {"tiered_split_positions": 1})
+    p_pos, p_counts, p_mpos, p_mids = tiered_split_positions_plain(
+        ids.cpu(), num.cpu(), posmap.cpu())
+    nm = int(p_counts[1])
+    assert torch.equal(pos.cpu(), p_pos)
+    assert torch.equal(counts.cpu(), p_counts)
+    assert torch.equal(miss_pos[:nm].cpu(), p_mpos[:nm])
+    assert torch.equal(miss_ids[:nm].cpu(), p_mids[:nm])
+    host.close()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+@pytest.mark.parametrize("partitioned", [True, False])
+def test_two_phase_rows_equal_plain(dev, dtype, partitioned):
+    """The two-phase step's input rows at P = 1 over NCCL (K11's position
+    form, the owner exchange's K13 and K1, K11's reads in place; or K11's
+    split over the whole cache) bit-equal to the same ids' rows read by the
+    plain versions: float32, a bfloat16 cache over a float32 host, and a
+    float16 host and cache."""
+    from xgnn_tpu_torch.ops import _build
+    from xgnn_tpu_torch.ops.tiered import MappedHostTable, tiered_direct
+    from xgnn_tpu_torch.ops.tiered import tiered_extract_plain
+    from xgnn_tpu_torch.parallel import ggms
+    from xgnn_tpu_torch.parallel.mesh import make_mesh
+
+    g = _gen(torch.device("cpu"), 23)
+    num_node, width, n = 20_000, 100, 30_000
+    feat = torch.randn((num_node, width), generator=g)
+    if dtype == "float16":
+        feat = feat.to(torch.float16)
+    cache_dtype = torch.bfloat16 if dtype == "bfloat16" else None
+    ranking = torch.randperm(num_node, generator=g).to(torch.int32).numpy()
+    ids = torch.randint(0, num_node, (n,), generator=g, dtype=torch.int32)
+    ids[torch.rand(n, generator=g) < 0.2] = EMPTY
+    ids = ids.to(dev)
+    num = torch.tensor(n - 1000, dtype=torch.int32, device=dev)
+    host = MappedHostTable(feat, dev)
+    mesh = make_mesh(dev)
+    try:
+        posmap, cache, _ = ggms.build_cache(host, ranking, 0.2, 1, 0, dev,
+                                            cache_dtype)
+        _build.LAUNCHES.reset()
+        rows, miss_ids, miss_pos, counts, of = ggms.cache_split(
+            posmap, cache, ids, num, mesh, n, host, partitioned)
+        x = tiered_direct(rows, miss_ids, miss_pos, counts, host)
+        torch.cuda.synchronize()
+        launches = _build.LAUNCHES.snapshot()
+        ref, ref_counts = tiered_extract_plain(ids.cpu(), num.cpu(),
+                                               posmap.cpu(), cache.cpu(),
+                                               host.tensor)
+        assert not bool(of)
+        assert x.dtype == ref.dtype
+        assert torch.equal(x.cpu().view(torch.int16) if x.element_size() == 2
+                           else x.cpu(),
+                           ref.view(torch.int16) if ref.element_size() == 2
+                           else ref)
+        assert torch.equal(counts.cpu(), ref_counts)
+        split = ({"tiered_split_positions": 1, "plan_exchange": 1}
+                 if partitioned else {"tiered_split": 1})
+        assert all(launches.get(k) == v for k, v in split.items()), launches
+        assert sum(v for k, v in launches.items()
+                   if k.startswith("tiered_direct")) == 1, launches
+    finally:
+        mesh.close()
+        host.close()
+
+
+@pytest.mark.parametrize("part_cache", [True, False])
+def test_multichip_engine_two_phase_on_the_card(dev, part_cache):
+    """MultiChipEngine with a partial cache in a world of one over NCCL:
+    epochs that learn, K11's position form (or its split over the whole
+    cache) and its reads once a step, a hit rate in (0, 1), and the
+    dynamic refresh moving the posmap."""
+    import torch.distributed as dist
+
+    from xgnn_tpu_torch import RunConfig, make_device_dataset
+    from xgnn_tpu_torch.engine.multi_engine import MultiChipEngine
+    from xgnn_tpu_torch.ops import _build
+
+    ds = make_device_dataset(20_000, 200_000, 32, 8, train_frac=0.2, seed=1,
+                             dedup=False)
+    cfg = RunConfig(model="graphsage", batch_size=500, fanout=(10, 5),
+                    num_layer=2, num_hidden=32, num_worker=1, arch="arch6",
+                    use_dist_graph=True, part_cache=part_cache,
+                    cache_percentage=0.2, cache_policy="dynamic_cache",
+                    num_epoch=3, dropout=0.0)
+    eng = MultiChipEngine(ds, cfg).init()
+    try:
+        posmap0 = eng.posmap.clone()
+        r0 = eng.train_epoch(0)
+        assert not torch.equal(eng.posmap, posmap0)
+        _build.LAUNCHES.reset()
+        r1 = eng.train_epoch(1)
+        torch.cuda.synchronize()
+        counts = _build.LAUNCHES.snapshot()
+        split = "tiered_split_positions" if part_cache else "tiered_split"
+        # the step's, then the refresh's all-miss cache build
+        assert counts[split] == r1["steps"] + (0 if part_cache else 1)
+        assert counts["tiered_direct"] == r1["steps"] + 1, counts
+        assert np.isfinite(r0["loss"]) and r1["loss"] < r0["loss"]
+        assert 0.0 < r0["hit_rate"] < 1.0 and 0.0 < r1["hit_rate"] < 1.0
+        assert 0.0 <= eng.evaluate("valid") <= 1.0
+    finally:
+        eng.close()
+    assert not dist.is_initialized()

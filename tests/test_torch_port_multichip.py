@@ -592,7 +592,8 @@ def test_cli_arch6_two_ranks_prints_results():
 @pytest.mark.parametrize("flags", [
     ["--arch", "arch5"], ["--num-sample-worker", "1"],
     ["--num-dcn-groups", "2", "--num-worker", "2"],
-    ["--num-worker", "2", "--cache-percentage", "0.3"],
+    ["--num-worker", "2", "--cache-percentage", "0.3", "--cache-policy",
+     "presample_static"],
     ["--num-worker", "2", "--use-dist-graph", "--dist-graph-percentage",
      "0.85"]])
 def test_cli_refuses_unported_multicard_paths(flags):
@@ -603,7 +604,8 @@ def test_cli_refuses_unported_multicard_paths(flags):
 
 
 @pytest.mark.parametrize("kwargs", [
-    dict(cache_percentage=0.3), dict(dist_graph_percentage=0.5),
+    dict(cache_percentage=0.3, cache_policy="presample_static"),
+    dict(dist_graph_percentage=0.5),
     dict(num_dcn_groups=2), dict(device_loop=True),
     dict(auto_placement=True), dict(arch="arch5")])
 def test_engine_refuses_unported_configs(graph, kwargs):

@@ -738,11 +738,13 @@ def test_cli_runs_the_tiered_topology(flags, capsys):
 
 
 # more than one card runs the collocated engine now, over the whole CSR
-# (tests/test_torch_port_multichip.py); its host cold tier (a percentage
-# below 1) and a partial cache over the cards are not ported
+# (tests/test_torch_port_multichip.py), and a partial cache over the cards
+# (tests/test_torch_port_ggms.py); its host cold tier (a percentage below
+# 1) and a partial cache ranked by presample_static are not ported
 @pytest.mark.parametrize("flags", [
     ["--num-worker", "2", "--dist-graph-percentage", "0.85"],
-    ["--part-cache", "--num-worker", "2", "--cache-percentage", "0.5"],
+    ["--part-cache", "--num-worker", "2", "--cache-percentage", "0.5",
+     "--cache-policy", "presample_static"],
     ["--num-sample-worker", "1"], ["--num-dcn-groups", "2"]])
 def test_cli_multi_card_flags_still_raise(flags):
     from xgnn_tpu_torch.examples import train

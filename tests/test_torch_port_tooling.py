@@ -387,9 +387,11 @@ def test_the_clis_train_and_evaluate_a_checkpoint(tmp_path, capsys,
 @pytest.mark.parametrize("flags", [
     # --dataset, --synthetic-rmat and --synthetic-signal run now
     # (tests/test_torch_dataset_files.py); --num-worker N runs the
-    # collocated engine (tests/test_torch_port_multichip.py), whose partial
-    # cache is not ported
-    ["--num-worker", "4", "--cache-percentage", "0.2"],
+    # collocated engine (tests/test_torch_port_multichip.py) and its
+    # partial cache (tests/test_torch_port_ggms.py), but not ranked by
+    # presample_static
+    ["--num-worker", "4", "--cache-percentage", "0.2", "--cache-policy",
+     "presample_static"],
     # --use-dist-graph runs on one card and, with --part-cache, over
     # several; its host cold tier over several cards is not ported
     ["--use-dist-graph", "--part-cache", "--num-worker", "2",

@@ -407,10 +407,12 @@ def test_unported_messages_name_roadmap_items_that_exist():
     cases = [["--num-train-worker", "2"],
              ["--num-sample-worker", "1", "--model", "gat"],
              ["--num-dcn-groups", "2", "--feat-dtype", "bfloat16"],
-             # more than one card runs the collocated engine now, but not
-             # its partial cache or host cold tier
+             # more than one card runs the collocated engine now and its
+             # partial cache, but not ranked by presample_static, nor its
+             # host cold tier
              ["--num-worker", "2", "--compute-dtype", "bfloat16",
-              "--cache-percentage", "0.5"],
+              "--cache-percentage", "0.5", "--cache-policy",
+              "presample_static"],
              ["--part-cache", "--model", "gat", "--remat", "--num-worker",
               "2", "--use-dist-graph", "--dist-graph-percentage", "0.5"]]
     for argv in cases:

@@ -26,10 +26,10 @@ host memory), and ``auto_placement`` solves ``use_dist_graph``,
 ``dist_graph_percentage`` and ``cache_percentage`` from the device memory
 (``hbm_budget_gb`` where given) and the degree skew.  ``arch``,
 ``num_worker``, ``num_dcn_groups`` and ``exchange_headroom`` are the
-multi-card fields that ``MultiChipEngine`` reads; ``part_cache`` is
-accepted and changes nothing, as in the JAX engine's fused shape (it
-chooses between a partitioned and a replicated cache only in the
-two-phase GGMS, which is not ported).
+multi-card fields that ``MultiChipEngine`` reads; with a
+``cache_percentage`` in (0, 1) it runs XGNN's two-phase GGMS, whose cache
+``part_cache`` partitions over the cards (else each holds all of it), and
+with none it changes nothing, as in the JAX engine's fused shape.
 """
 
 from __future__ import annotations
@@ -159,10 +159,9 @@ class RunConfig:
     # use_dist_graph is on; the other rows' adjacency is read from host
     # memory (reference dist_graph_percentage, dist_engine.cc:224-235)
     dist_graph_percentage: float = 1.0
-    # the JAX package's switch between a partitioned and a replicated cache
-    # in its two-phase GGMS (not ported); accepted and ignored: the fused
-    # MultiChipEngine interleaves the whole table over the cards, as JAX's
-    # fused shape does whatever its value
+    # MultiChipEngine's two-phase GGMS (a partial cache over the cards):
+    # the cache partitioned over the ranks, else replicated on each (SGNN);
+    # the fused store interleaves the whole table whatever its value
     part_cache: bool = False
     # solve dist_graph_percentage, cache_percentage and use_dist_graph from
     # the device memory and the degree skew at init (store/placement.py);

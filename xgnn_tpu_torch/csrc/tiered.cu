@@ -37,6 +37,13 @@
 //      (kUnroll rows a warp at a time, every load before any store) and
 //      zero rows for invalid and dead slots.  A miss row of out is left for
 //      step 2.
+//      The position form (xg_tiered_split_positions) is the same three
+//      launches with the write kernel built with kPositions: it writes each
+//      slot's cache position (posmap[id] on a hit, EMPTY elsewhere) where
+//      the row form copies rows, and writes no rows.  It replaces the
+//      posmap lookup and the miss compaction of cache_split
+//      (xgnn_tpu/parallel/ggms.py:134-203), whose hits the owner exchange
+//      then serves over cache positions.
 //   2. direct (xg_tiered_direct): out[miss_pos[j]] = host[miss_ids[j]] for
 //      j < counts[1], the count read on the device: a warp reads kUnroll
 //      rows at once from the mapped table over PCIe, on a persistent grid
@@ -257,14 +264,17 @@ __device__ __forceinline__ void copy_rows(const Word* src, unsigned write,
   }
 }
 
-// Word is uint4, uint32_t or uint16_t, width the row's length in Words
-template <typename Word>
+// Word is uint4, uint32_t or uint16_t, width the row's length in Words.
+// With kPositions the kernel writes pos[i] (the hit's cache position, EMPTY
+// elsewhere) in place of out's rows, and cache, width and out are unused.
+template <typename Word, bool kPositions>
 __global__ void __launch_bounds__(kThreads)
 split_write_kernel(const int32_t* __restrict__ ids, int64_t n,
                    const int32_t* __restrict__ num_input,
                    const int32_t* __restrict__ posmap, int64_t num_node,
                    const Word* __restrict__ cache, int64_t width,
-                   Word* __restrict__ out, const int32_t* __restrict__ tiles,
+                   Word* __restrict__ out, int32_t* __restrict__ pos,
+                   const int32_t* __restrict__ tiles,
                    int32_t* __restrict__ miss_pos,
                    int32_t* __restrict__ miss_ids) {
   __shared__ int s_miss[kWarps];
@@ -294,8 +304,12 @@ split_write_kernel(const int32_t* __restrict__ ids, int64_t n,
       miss_ids[r] = id;
     }
     running += total;
-    copy_rows<Word>(k == kHit ? cache + (int64_t)slot * width : nullptr,
-                    write, row0, width, out, lane);
+    if (kPositions) {
+      if (i < n) pos[i] = k == kHit ? slot : kEmpty;
+    } else {
+      copy_rows<Word>(k == kHit ? cache + (int64_t)slot * width : nullptr,
+                      write, row0, width, out, lane);
+    }
     __syncthreads();  // s_miss is rewritten next step
   }
 }
@@ -348,9 +362,24 @@ void launch_write(const int32_t* id, long long n, const int32_t* num,
                   long long width, void* out, const int32_t* tile,
                   int32_t* mp, int32_t* mi, long long num_tiles,
                   cudaStream_t s) {
-  split_write_kernel<Word><<<(unsigned)num_tiles, kThreads, 0, s>>>(
+  split_write_kernel<Word, false><<<(unsigned)num_tiles, kThreads, 0, s>>>(
       id, n, num, pm, num_node, static_cast<const Word*>(cache), width,
-      static_cast<Word*>(out), tile, mp, mi);
+      static_cast<Word*>(out), nullptr, tile, mp, mi);
+}
+
+// The split's first two launches: the exact counts (zeroed first) and each
+// tile's misses, then the tiles' offsets
+cudaError_t split_count_scan(const int32_t* id, long long n,
+                             const int32_t* num, const int32_t* pm,
+                             long long num_node, int32_t* counts,
+                             int32_t* tile, long long num_tiles,
+                             cudaStream_t s) {
+  cudaError_t e = cudaMemsetAsync(counts, 0, 2 * sizeof(int32_t), s);
+  if (e != cudaSuccess) return e;
+  split_count_kernel<<<(unsigned)num_tiles, kThreads, 0, s>>>(
+      id, n, num, pm, num_node, tile, counts);
+  split_scan_kernel<<<1, kScanThreads, 0, s>>>(tile, num_tiles);
+  return cudaSuccess;
 }
 
 template <typename In, typename Out>
@@ -409,8 +438,6 @@ extern "C" int xg_tiered_split(const void* ids, long long n,
       (elem_bytes != 2 && elem_bytes != 4))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  cudaError_t e = cudaMemsetAsync(counts, 0, 2 * sizeof(int32_t), s);
-  if (e != cudaSuccess) return (int)e;
   const int32_t* id = static_cast<const int32_t*>(ids);
   const int32_t* num = static_cast<const int32_t*>(num_input);
   const int32_t* pm = static_cast<const int32_t*>(posmap);
@@ -418,9 +445,10 @@ extern "C" int xg_tiered_split(const void* ids, long long n,
   int32_t* mp = static_cast<int32_t*>(miss_pos);
   int32_t* mi = static_cast<int32_t*>(miss_ids);
   const long long num_tiles = (n + kTile - 1) / kTile;
-  split_count_kernel<<<(unsigned)num_tiles, kThreads, 0, s>>>(
-      id, n, num, pm, num_node, tile, static_cast<int32_t*>(counts));
-  split_scan_kernel<<<1, kScanThreads, 0, s>>>(tile, num_tiles);
+  cudaError_t e = split_count_scan(id, n, num, pm, num_node,
+                                   static_cast<int32_t*>(counts), tile,
+                                   num_tiles, s);
+  if (e != cudaSuccess) return (int)e;
   // the widest word that divides a row and both tables' alignment
   const long long row_bytes = width * elem_bytes;
   auto fits = [&](int bytes) {
@@ -436,6 +464,37 @@ extern "C" int xg_tiered_split(const void* ids, long long n,
   else
     launch_write<uint16_t>(id, n, num, pm, num_node, cache, row_bytes / 2,
                            out, tile, mp, mi, num_tiles, s);
+  return (int)cudaGetLastError();
+}
+
+// Step 1's position form.  As xg_tiered_split, with a posmap (not null) and
+// no cache: pos, (n,) int32, gets posmap[id] for each hit and EMPTY for a
+// miss, an invalid id and a dead slot; no rows are written.  Returns
+// cudaGetLastError() after the launches.
+extern "C" int xg_tiered_split_positions(const void* ids, long long n,
+                                         const void* num_input,
+                                         const void* posmap,
+                                         long long num_node, void* pos,
+                                         void* counts, void* tiles,
+                                         void* miss_pos, void* miss_ids,
+                                         void* stream) {
+  if (n <= 0 || n > INT32_MAX || num_node < 0 || num_node > INT32_MAX ||
+      posmap == nullptr || pos == nullptr || counts == nullptr)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  const int32_t* id = static_cast<const int32_t*>(ids);
+  const int32_t* num = static_cast<const int32_t*>(num_input);
+  const int32_t* pm = static_cast<const int32_t*>(posmap);
+  int32_t* tile = static_cast<int32_t*>(tiles);
+  const long long num_tiles = (n + kTile - 1) / kTile;
+  cudaError_t e = split_count_scan(id, n, num, pm, num_node,
+                                   static_cast<int32_t*>(counts), tile,
+                                   num_tiles, s);
+  if (e != cudaSuccess) return (int)e;
+  split_write_kernel<uint32_t, true><<<(unsigned)num_tiles, kThreads, 0, s>>>(
+      id, n, num, pm, num_node, nullptr, 0, nullptr,
+      static_cast<int32_t*>(pos), tile, static_cast<int32_t*>(miss_pos),
+      static_cast<int32_t*>(miss_ids));
   return (int)cudaGetLastError();
 }
 

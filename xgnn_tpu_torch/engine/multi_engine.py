@@ -1,36 +1,49 @@
 """The collocated multi-card engine (XGNN's arch6): one rank a card.
 
-The port of ``xgnn_tpu/engine/multi_engine.py``'s ``MultiChipEngine`` in
-its fused shape: the topology replicated on every rank or partitioned over
-them (``use_dist_graph``, the whole CSR on the cards), the features and
-labels interleaved over the ranks' devices (``cache_percentage`` 0 or >=
-1: JAX's all-device store), and one step a batch shard a rank
-(``parallel/collocated.py``).  Each rank is a process with its own
+The port of ``xgnn_tpu/engine/multi_engine.py``'s ``MultiChipEngine``:
+the topology replicated on every rank or partitioned over them
+(``use_dist_graph``, the whole CSR on the cards), the labels interleaved
+over the ranks' devices, and one step a batch shard a rank
+(``parallel/collocated.py``).  The features are either all on the cards,
+interleaved (``cache_percentage`` 0 or >= 1: JAX's all-device store, the
+fused step), or XGNN's two-phase GGMS (``0 < cache_percentage < 1``,
+``parallel/ggms.py``): the hottest rows of ``cache_policy``'s ranking
+cached on the cards, partitioned over the ranks (``part_cache``) or
+replicated on each (SGNN), and every row in pinned host memory, where K11
+reads the misses in place.  Each rank is a process with its own
 :class:`~xgnn_tpu_torch.parallel.mesh.Mesh`; at P = 1 the engine makes a
 world of one in the caller's process.
 
-As in JAX: ``init`` partitions the topology and interleaves the labels and
-features (each rank builds its own part on its device), and calibrates the
-frontier capacities from ``calibration_batches`` warm-up batches, every
-rank's sizes max-reduced, with ``ALLOC_SCALE`` headroom; the exchange
-segment is ``min(max(ceil(cap[-1] / P * exchange_headroom), 128),
-cap[-1])``.  ``train_epoch`` shuffles with ``Shuffler(num_worker=P,
-worker_id=rank, seed=seed + 1)`` and every rank takes ``max(num_local_step)``
-steps (an exhausted rank trains on an empty shard, weighing nothing), so
-the collectives meet.  A step that overflowed anywhere was skipped on
-every rank; after the epoch the ranks, which all read the same reduced
-flags, grow every capacity twofold and replay those steps with their own
-seeds and generators, so no batch is lost.  ``evaluate`` counts each
-valid (or test) node once, summed over the ranks, an overflowed batch
-again at transient grown capacities.  ``run`` trains ``num_epoch``
+As in JAX: ``init`` partitions the topology and interleaves the labels
+(each rank builds its own part on its device), and calibrates the frontier
+capacities from ``calibration_batches`` warm-up batches through the
+presample step, every rank's sizes max-reduced, with ``ALLOC_SCALE``
+headroom; the exchange segment is ``min(max(ceil(cap[-1] / P *
+exchange_headroom), 128), cap[-1])``.  For the two-phase store it then
+counts ``presample_epoch`` epochs of inputs at the tightened shapes (the
+calibration batches' counts are thrown away), each at its owner, for the
+frequency policies' ranking; ``dynamic_cache`` counts the next epoch's
+first ``calibration_batches`` batches again at each refresh (gated by
+``barriered_epoch``) and rebuilds the cache.  ``train_epoch`` shuffles
+with ``Shuffler(num_worker=P, worker_id=rank, seed=seed + 1)`` and every
+rank takes ``max(num_local_step)`` steps (an exhausted rank trains on an
+empty shard, weighing nothing), so the collectives meet.  A step that
+overflowed anywhere was skipped on every rank; after the epoch the ranks,
+which all read the same reduced flags, grow every capacity twofold and
+replay those steps with their own seeds and generators, so no batch is
+lost.  ``evaluate`` counts each valid (or test) node once, summed over
+the ranks, an overflowed batch again at transient grown capacities.  ``run`` trains ``num_epoch``
 epochs with the accuracy report and checkpoints (written by rank 0), and
-rank 0 prints the ``test_result:`` lines.
+rank 0 prints the ``test_result:`` lines.  The two-phase store's hit rate
+is over every rank and step of an epoch, pulled once an epoch with the
+other metrics.  Unlike JAX's two-phase step it has no miss bucket, so no
+step is skipped for its misses.
 
-Not ported here, each refused naming ROADMAP's **Multi-GPU**: the
-two-phase GGMS (a partial cache, ``0 < cache_percentage < 1``), the host
-cold tier under the partitioned topology (``dist_graph_percentage < 1``),
-DCN groups, the multi-card ``device_loop``, ``auto_placement`` and the
-disaggregated engine (arch5).
+Not ported here, each refused naming ROADMAP's **Multi-GPU**:
+``presample_static`` with a partial cache (JAX's exact all-neighbour
+closure over the cards), the host cold tier under the partitioned topology
+(``dist_graph_percentage < 1``), DCN groups, the multi-card
+``device_loop``, ``auto_placement`` and the disaggregated engine (arch5).
 """
 
 from __future__ import annotations
@@ -47,19 +60,25 @@ import torch.distributed as dist
 from .. import constants as C
 from .. import profiler as P
 from ..checkpoint import CheckpointManager
-from ..config import WEIGHTED, RunArch, RunConfig
+from ..config import WEIGHTED, CachePolicy, RunArch, RunConfig
 from ..device import feature_dtype, generator, seed_of, to_tensor
 from ..models import build_model
+from ..ops.tiered import MappedHostTable
 from ..parallel.collocated import (
     make_collocated_train_step,
+    make_combine_train_step,
+    make_eval_step,
     make_fused_eval_step,
-    sample_any,
+    make_presample_step,
+    make_sample_split_step,
 )
 from ..parallel.dist_topology import partition_part
 from ..parallel.exchange import interleaved_part
+from ..parallel.ggms import build_cache
 from ..parallel.mesh import MULTI_GPU, Mesh, make_mesh
 from ..sampler import _layer_fanouts, default_capacities
 from ..store.feature_store import HBMFeatureSource
+from ..store.ranking import FREQUENCY_POLICIES, build_ranking
 from ..train import Adam
 from ..types import Graph
 from .engine import (
@@ -73,7 +92,8 @@ from .engine import (
 from .shuffler import Shuffler
 
 EMPTY = C.EMPTY_KEY
-_SEED_CALIBRATE = 0x5EED  # the JAX engine's calibration shuffle: seed ^ it
+_SEED_CALIBRATE = 0x5EED  # the JAX engine's presample shuffle: seed ^ it
+_PRESAMPLE = 0x9A3  # the JAX engine's presample key: seed ^ it
 
 
 def refuse_unported(config: RunConfig):
@@ -83,9 +103,10 @@ def refuse_unported(config: RunConfig):
         why = "the disaggregated engine (arch5)"
     elif config.num_dcn_groups != 1:
         why = "DCN groups (num_dcn_groups > 1)"
-    elif 0.0 < config.cache_percentage < 1.0:
-        why = ("the two-phase GGMS (a partial feature cache, 0 < "
-               "cache_percentage < 1)")
+    elif (0.0 < config.cache_percentage < 1.0
+          and config.cache_policy == CachePolicy.PRE_SAMPLE_STATIC):
+        why = ("presample_static with a partial feature cache over the "
+               "cards (the exact all-neighbour closure)")
     elif config.use_dist_graph and config.dist_graph_percentage < 1.0:
         why = ("the host cold tier under the partitioned topology "
                "(dist_graph_percentage < 1)")
@@ -128,6 +149,10 @@ class MultiChipEngine:
             feature_dtype(dataset.feat) == torch.float16
             and config.compute_dtype == "bfloat16")
         self.feat_dtype = torch.bfloat16 if bf16 else None
+        # XGNN's two-phase GGMS iff a partial cache is asked for: 0 means no
+        # cache knob and >= 1 that every row fits, both the fused store
+        self.two_phase = 0.0 < config.cache_percentage < 1.0
+        self.host: Optional[MappedHostTable] = None
         self.profiler = P.Profiler()
         self.history: dict = {}
         self.model = None
@@ -161,14 +186,20 @@ class MultiChipEngine:
             cfg.frontier_capacities or default_capacities(
                 cfg.batch_size, _layer_fanouts(cfg), self.ds.num_node))]
         self._derive_exchange_caps()
-        self._calibrate()
+        freq = self._presample_and_calibrate()
         prof.log_init("presample_time", time.perf_counter() - t0)
         t0 = time.perf_counter()
         feat = self.ds.feat
         if not isinstance(feat, torch.Tensor):
             feat = np.asarray(feat)
-        self.feat_part = HBMFeatureSource(interleaved_part(feat, p, rank),
-                                          dev, self.feat_dtype).feat
+        if self.two_phase:
+            # this rank's own pinned, mapped copy of the whole table
+            self.host = MappedHostTable(feat, dev)
+            self._build_feature_cache(build_ranking(self.ds, cfg, freq))
+        else:
+            self.feat_part = HBMFeatureSource(
+                interleaved_part(feat, p, rank), dev, self.feat_dtype).feat
+            self.num_cache = self.ds.num_node
         prof.log_init("cache_build_time", time.perf_counter() - t0)
         prof.log_mem_usage("cache_build", dev)
         t0 = time.perf_counter()
@@ -192,40 +223,119 @@ class MultiChipEngine:
         self.seg_cap = min(max(int(np.ceil(
             cap / self.num_parts * self.config.exchange_headroom)), 128), cap)
 
-    def _calibrate(self):
-        """Tighten the frontier capacities from warm-up batches: each rank
-        samples its shard, the sizes are max-reduced over the ranks and the
-        batches, then scaled by ALLOC_SCALE."""
+    def _presample_step(self):
+        return make_presample_step(self.config, self.mesh, self.capacities,
+                                   self.seg_cap, self.config.use_dist_graph)
+
+    def _presample_batches(self, fn, freq, epoch: int, seed_of_step,
+                           num_steps: Optional[int] = None) -> list:
+        """Count ``epoch``'s presample batches (``Shuffler(seed ^ 0x5EED)``,
+        at most ``num_steps``) into ``freq``; their max-reduced frontier
+        sizes, on the device."""
         cfg = self.config
-        if cfg.frontier_capacities is not None or cfg.calibration_batches <= 0:
-            return
         seed = cfg.seed ^ _SEED_CALIBRATE
-        total = min(self._num_steps(self.ds.train_set, seed),
-                    max(cfg.calibration_batches, 1))
-        it = self._shuffler(self.ds.train_set, seed).epoch_batches(0)
+        total = self._num_steps(self.ds.train_set, seed)
+        if num_steps is not None:
+            total = min(total, num_steps)
+        it = self._shuffler(self.ds.train_set, seed).epoch_batches(epoch)
         sizes = []
         for step in range(total):
             seeds, n = self._next(it)
-            gen = generator(self.device,
-                            seed_of(cfg.seed, _CALIBRATE, step, self.rank))
-            batch = sample_any(self.topo, seeds, n, cfg, self.capacities,
-                               self.seg_cap, self.mesh, cfg.use_dist_graph,
-                               gen)
-            sizes.append(torch.stack(
-                [batch.num_output.to(torch.int32).reshape(())]
-                + [b.num_src.to(torch.int32).reshape(())
-                   for b in reversed(batch.blocks)]))
-        observed = torch.stack(sizes).amax(0)
-        self.mesh.all_reduce(observed, dist.ReduceOp.MAX)
-        observed = observed.cpu().tolist()
-        self.capacities = [self.capacities[0]] + [
-            _align_up(int(s * C.ALLOC_SCALE), self.ds.num_node)
-            for s in observed[1:]]
-        self._derive_exchange_caps()
-        self.profiler.log_init("calibrated_input_cap", self.capacities[-1])
+            gen = generator(self.device, seed_of_step(step))
+            sizes.append(fn(freq, self.topo, seeds, n, gen)[1])
+        return sizes
+
+    def _presample_and_calibrate(self) -> Optional[np.ndarray]:
+        """Tighten the frontier capacities from ``calibration_batches``
+        warm-up batches (their sizes max-reduced over the ranks and the
+        batches, scaled by ALLOC_SCALE), then, for the two-phase store's
+        frequency policies, count ``presample_epoch`` epochs at the tight
+        shapes (the warm-up's counts thrown away) and return every node's
+        access count, the same on every rank."""
+        cfg = self.config
+        need_freq = self.two_phase and cfg.cache_policy in FREQUENCY_POLICIES
+        need_calib = (cfg.frontier_capacities is None
+                      and cfg.calibration_batches > 0)
+        if not (need_freq or need_calib):
+            return None
+        freq = self._zero_counts()
+        if need_calib:
+            sizes = self._presample_batches(
+                self._presample_step(), freq, 0,
+                lambda step: seed_of(cfg.seed, _CALIBRATE, step, self.rank),
+                max(cfg.calibration_batches, 1))
+            observed = torch.stack(sizes).amax(0).cpu().tolist()
+            self.capacities = [self.capacities[0]] + [
+                _align_up(int(s * C.ALLOC_SCALE), self.ds.num_node)
+                for s in observed[1:]]
+            self._derive_exchange_caps()
+            self.profiler.log_init("calibrated_input_cap",
+                                   self.capacities[-1])
+            if not need_freq:
+                return None
+            freq.zero_()
+        fn = self._presample_step()
+        for epoch in range(max(cfg.presample_epoch, 1)):
+            self._presample_batches(
+                fn, freq, epoch,
+                lambda step: seed_of(cfg.seed, _PRESAMPLE, epoch, step,
+                                     self.rank))
+        return self._full_counts(freq)
+
+    def _zero_counts(self) -> torch.Tensor:
+        """This rank's interleaved share of the access counts."""
+        rows = -(-self.ds.num_node // self.num_parts)
+        return torch.zeros(rows, dtype=torch.int32, device=self.device)
+
+    def _full_counts(self, freq: torch.Tensor) -> np.ndarray:
+        """Every node's count, on every rank: rank ``w``'s share at ``w::P``
+        (JAX's ``full[w::P] = parts[w]``), summed over the ranks."""
+        p = self.num_parts
+        full = torch.zeros(freq.shape[0] * p, dtype=torch.int32,
+                           device=self.device)
+        full[self.rank::p] = freq
+        self.mesh.all_reduce(full)
+        return full[:self.ds.num_node].cpu().numpy()
+
+    def _build_feature_cache(self, ranking: np.ndarray):
+        """The position map and this rank's cache rows from a
+        hottest-first ranking: position ``p`` on rank ``p % P`` at row
+        ``p // P`` (``part_cache``), or the whole cache on every rank."""
+        cfg = self.config
+        parts = self.num_parts if cfg.part_cache else 1
+        self.posmap, self.cache_part, self.num_cache = build_cache(
+            self.host, ranking, cfg.cache_percentage, parts,
+            self.rank if cfg.part_cache else 0, self.device, self.feat_dtype)
+
+    def _dynamic_refresh(self, next_epoch: int):
+        """Rank the cache anew by the access counts of the next epoch's
+        first ``calibration_batches`` batches, sampled with that epoch's own
+        generators, and rebuild it (JAX's refresh, the reference's
+        ``GPUDynamicCacheManager::ReplaceCache``)."""
+        cfg = self.config
+        fn = self._presample_step()
+        freq = self._zero_counts()
+        it = self._shuffler(self.ds.train_set,
+                            cfg.seed + 1).epoch_batches(next_epoch)
+        for step in range(max(cfg.calibration_batches, 1)):
+            seeds, n = self._next(it)
+            fn(freq, self.topo, seeds, n,
+               self._generators(next_epoch, step)[0])
+        full = self._full_counts(freq)
+        self._build_feature_cache(
+            np.argsort(-full.astype(np.int64), kind="stable").astype(
+                np.int32))
 
     def _build_step_fns(self):
         cfg = self.config
+        if self.two_phase:
+            self._fn_a = make_sample_split_step(
+                cfg, self.mesh, self.capacities, self.seg_cap,
+                cfg.use_dist_graph, cfg.part_cache)
+            self._fn_b = make_combine_train_step(self.model, self.opt, cfg,
+                                                 self.mesh)
+            self._fn_eval = make_eval_step(self.model, self.mesh)
+            return
         self.step_fn = make_collocated_train_step(
             self.model, self.opt, cfg, self.mesh, self.capacities,
             self.seg_cap, cfg.use_dist_graph)
@@ -263,8 +373,15 @@ class MultiChipEngine:
                 generator(self.device, seed_of(cfg.seed, _DROPOUT, epoch,
                                                step, r)))
 
+    def _sample_split(self, fn_a, seeds, n, gen) -> dict:
+        return fn_a(self.topo, self.posmap, self.cache_part, self.lab_part,
+                    self.host, seeds, n, gen)
+
     def _run_one_step(self, seeds, n, epoch: int, step: int) -> dict:
         gen, dgen = self._generators(epoch, step)
+        if self.two_phase:
+            return self._fn_b(self._sample_split(self._fn_a, seeds, n, gen),
+                              dgen)
         return self.step_fn(self.topo, self.feat_part, self.lab_part, seeds,
                             n, gen, dgen)
 
@@ -285,19 +402,38 @@ class MultiChipEngine:
                 metrics[-1]["loss"].item()
                 prof.trace_end(epoch, step, "train")
             now = time.perf_counter()
-            # sample, exchange and train are one fused step: its host time
-            # is logged as train time, as JAX logs its fused program's
+            # sample, exchange and train are one step on the stream: its
+            # host time is logged as train time, as JAX logs its fused
+            # program's
             prof.log_step(epoch, step, P.L1_TRAIN_TIME, now - t_prev)
             t_prev = now
+        keys = ("loss", "acc", "overflow", "num_input")
+        if self.two_phase:
+            keys += ("num_hit", "num_miss")
+        # float64: the counts of an epoch and its ranks sum exactly
+        stats = torch.stack([torch.stack([m[k].double() for m in metrics])
+                             for k in keys])
+        if self.two_phase:
+            # the hits and misses of every rank and step
+            total = stats[4:6].sum(1)
+            self.mesh.all_reduce(total)
+            stats = torch.cat([stats, total[:, None].expand(2, num_steps)])
         # ONE device-to-host pull for the epoch's metrics
-        stats = torch.stack([torch.stack([m[k].float() for m in metrics])
-                             for k in ("loss", "acc", "overflow",
-                                       "num_input")]).cpu().numpy()
-        loss_v, acc_v, over_v, nin_v = stats
+        stats = stats.cpu().numpy()
+        loss_v, acc_v, over_v, nin_v = stats[:4]
         self.history[epoch] = {"loss": loss_v, "acc": acc_v,
                                "overflow": over_v, "num_input": nin_v}
         for step, v in enumerate(nin_v):
             prof.log_step(epoch, step, P.L1_NUM_NODE, float(v))
+        hit_rate = 1.0
+        if self.two_phase:
+            hit_v, miss_v, (hits, misses) = stats[4], stats[5], stats[6:, 0]
+            self.history[epoch].update(hit=hit_v, miss=miss_v)
+            hit_rate = float(hits / max(hits + misses, 1.0))
+            prof.log_step(epoch, 0, P.L2_CACHE_HIT_RATE, hit_rate)
+            for step, m in enumerate(miss_v):
+                prof.log_step(epoch, step, P.L1_MISS_BYTES,
+                              float(m) * self.row_bytes)
         extra_losses, extra_accs = [], []
         n_over = int(over_v.sum())
         if n_over:
@@ -309,14 +445,24 @@ class MultiChipEngine:
                                     extra_losses, extra_accs)
         dt = time.perf_counter() - t_epoch
         prof.log_epoch_add(epoch, "epoch_time", dt)
+        refresh = (cfg.barriered_epoch in (-1, 0)
+                   or epoch == cfg.barriered_epoch)
+        if (self.two_phase and cfg.cache_policy == CachePolicy.DYNAMIC
+                and refresh and epoch + 1 < cfg.num_epoch):
+            self._dynamic_refresh(epoch + 1)
         return {
             "epoch": epoch,
             "loss": _nanmean(np.concatenate([loss_v, extra_losses])),
             "train_acc": _nanmean(np.concatenate([acc_v, extra_accs])),
-            "time": dt, "steps": num_steps, "hit_rate": 1.0,
+            "time": dt, "steps": num_steps, "hit_rate": hit_rate,
             "contributed_steps": int(np.isfinite(loss_v).sum())
             + len(extra_losses),
         }
+
+    @property
+    def row_bytes(self) -> int:
+        """A host row's bytes, what a miss moves over PCIe."""
+        return self.ds.feat_dim * self.host.tensor.element_size()
 
     def _grow_capacities(self):
         """Every static capacity doubled, the step functions rebuilt (the
@@ -354,13 +500,18 @@ class MultiChipEngine:
     # ------------------------------------------------------------- evaluate
     def _transient_eval_fn(self, scale: int):
         """An eval step at grown capacities that leaves the training step's
-        untouched (an eval outlier must not reshape the training path)."""
+        untouched (an eval outlier must not reshape the training path): the
+        fused eval step, or the two-phase store's sample-and-split step."""
+        cfg = self.config
         caps = [self.capacities[0]] + [
             _align_up(int(c * scale), self.ds.num_node)
             for c in self.capacities[1:]]
-        return make_fused_eval_step(self.model, self.config, self.mesh, caps,
-                                    self.seg_cap * scale,
-                                    self.config.use_dist_graph)
+        if self.two_phase:
+            return make_sample_split_step(cfg, self.mesh, caps,
+                                          self.seg_cap * scale,
+                                          cfg.use_dist_graph, cfg.part_cache)
+        return make_fused_eval_step(self.model, cfg, self.mesh, caps,
+                                    self.seg_cap * scale, cfg.use_dist_graph)
 
     def evaluate(self, split: str = "valid",
                  max_batches: Optional[int] = None) -> float:
@@ -383,14 +534,17 @@ class MultiChipEngine:
 
         def eval_one(seeds, n, step, fn):
             g = generator(self.device, seed_of(_EVALUATE, step, self.rank))
+            if self.two_phase:
+                return self._fn_eval(self._sample_split(fn, seeds, n, g))
             return fn(self.topo, self.feat_part, self.lab_part, seeds, n, g)
 
+        first = self._fn_a if self.two_phase else self._fn_eval
         batches, outs = [], []
         for step in range(num_steps):
             seeds, n = self._next(it)
             batches.append((seeds, n, step))
             outs.append(torch.stack(eval_one(seeds, n, step,
-                                             self._fn_eval)).float())
+                                             first)).float())
         vals = torch.stack(outs).cpu().numpy()  # one pull: correct, total, of
         correct, total = float(vals[:, 0].sum()), float(vals[:, 1].sum())
         retry = [b for b, v in zip(batches, vals) if v[2] > 0]
@@ -449,7 +603,9 @@ class MultiChipEngine:
             self.profiler.dump_trace("xgnn_trace.json")
             print("trace dumped to xgnn_trace.json")
         extra = {"final_train_acc": results[-1]["train_acc"] if results
-                 else 0.0, "cache_hit_rate": 1.0}
+                 else 0.0,
+                 "cache_hit_rate": results[-1]["hit_rate"] if results
+                 else 1.0}
         quiet = (contextlib.nullcontext() if self.rank == 0
                  else contextlib.redirect_stdout(io.StringIO()))
         with quiet:
@@ -457,7 +613,9 @@ class MultiChipEngine:
         return {"epochs": results, "test_results": out}
 
     def close(self):
-        """End the process group where this engine made it (a world of
-        one)."""
+        """Unmap the host table and end the process group where this
+        engine made it (a world of one)."""
+        if self.host is not None:
+            self.host.close()
         self.mesh.close()
 

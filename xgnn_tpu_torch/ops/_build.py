@@ -82,6 +82,7 @@ SIGNATURES = {
         "xg_host_map": [_P, _LL, _I, _P],
         "xg_host_unmap": [_P, _I],
         "xg_tiered_split": [_P, _LL, _P, _P, _LL, _P, _LL, _I] + [_P] * 6,
+        "xg_tiered_split_positions": [_P, _LL, _P, _P, _LL] + [_P] * 6,
         # host_bytes (4 float32, 2 float16), out_bf16
         "xg_tiered_direct": [_P, _LL, _P, _P, _P, _P, _LL, _I, _I, _P],
     },

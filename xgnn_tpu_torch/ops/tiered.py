@@ -26,11 +26,18 @@ waiting on the host:
    rows in place over PCIe from the table that :class:`MappedHostTable`
    pins and maps: JAX's host gather, copy and combine in one kernel.
 
-Their plain PyTorch versions are :func:`tiered_split_plain` and
+The split has a position form, :func:`tiered_split_positions`, for a
+cache spread over the cards (XGNN's two-phase GGMS,
+``parallel/ggms.py``): it writes each hit's cache position in place of its
+row, and the owner exchange serves the rows.
+
+Their plain PyTorch versions are :func:`tiered_split_plain`,
+:func:`tiered_split_positions_plain` and
 :func:`tiered_direct_plain` (a gather of the miss rows on the host, their
 copy to the device and :func:`tiered_combine_plain`, JAX's combine),
 composed in :func:`tiered_extract_plain`: the wrappers take them only for
-tensors on the CPU.  Launches are counted as ``tiered_split`` and by the
+tensors on the CPU.  Launches are counted as ``tiered_split``,
+``tiered_split_positions`` and by the
 host's and ``out``'s types as ``tiered_direct`` (float32 rows),
 ``tiered_direct_bf16`` (float32 rounded to bfloat16),
 ``tiered_direct_f16`` (float16 rows) and ``tiered_direct_f16_bf16``
@@ -155,6 +162,33 @@ def _out_dtype(cache: Optional[torch.Tensor], dtype,
     return host.dtype if cache is None else cache.dtype
 
 
+def _split_lists_plain(ids: torch.Tensor, num_input,
+                       posmap: Optional[torch.Tensor], num_node: int):
+    """``(hit, slot, counts, miss_pos, miss_ids)`` of the split: each
+    slot's hit flag and cache position (0 where it is no hit), the int32
+    ``(hits, misses)`` and the misses' positions in order (padded with
+    ``n``) and ids (padded with EMPTY)."""
+    dev = ids.device
+    n = ids.shape[0]
+    live = torch.arange(n, device=dev) < _build.int32_scalar(num_input, dev)
+    valid = live & (ids >= 0) & (ids < num_node)
+    safe = torch.where(valid, ids, 0).long()
+    if posmap is None or num_node == 0:
+        hit, slot = torch.zeros_like(valid), torch.zeros_like(ids)
+    else:
+        looked = posmap[safe]
+        hit = valid & (looked != EMPTY)
+        slot = torch.where(hit, looked, 0)
+    miss = valid & ~hit
+    num_miss = miss.sum(dtype=torch.int32)
+    miss_pos = compact_mask_positions(miss, n)
+    miss_ids = torch.where(torch.arange(n, device=dev) < num_miss,
+                           ids[miss_pos.clamp(max=max(n - 1, 0)).long()],
+                           EMPTY)
+    counts = torch.stack([hit.sum(dtype=torch.int32), num_miss])
+    return hit, slot, counts, miss_pos, miss_ids
+
+
 def tiered_split_plain(ids: torch.Tensor, num_input,
                        posmap: Optional[torch.Tensor],
                        cache: Optional[torch.Tensor], host: torch.Tensor,
@@ -166,28 +200,27 @@ def tiered_split_plain(ids: torch.Tensor, num_input,
     int32 ``(hits, misses)``.  ``host`` is the table (its shape is read).
     ``out`` is of ``dtype``, by default the cache's (the host's without
     one)."""
-    dev = ids.device
     n, (num_node, width) = ids.shape[0], host.shape
-    live = torch.arange(n, device=dev) < _build.int32_scalar(num_input, dev)
-    valid = live & (ids >= 0) & (ids < num_node)
-    safe = torch.where(valid, ids, 0).long()
-    if posmap is None:
-        hit = torch.zeros_like(valid)
-    else:
-        hit = valid & (posmap[safe] != EMPTY)
-    miss = valid & ~hit
+    hit, slot, counts, miss_pos, miss_ids = _split_lists_plain(
+        ids, num_input, posmap, num_node)
     out = torch.zeros((n, width), dtype=_out_dtype(cache, dtype, host),
-                      device=dev)
+                      device=ids.device)
     if posmap is not None and cache is not None and cache.shape[0]:
-        slot = torch.where(hit, posmap[safe], 0).long()
-        out = torch.where(hit[:, None], cache[slot], out)
-    num_miss = miss.sum(dtype=torch.int32)
-    miss_pos = compact_mask_positions(miss, n)
-    miss_ids = torch.where(torch.arange(n, device=dev) < num_miss,
-                           ids[miss_pos.clamp(max=max(n - 1, 0)).long()],
-                           EMPTY)
-    counts = torch.stack([hit.sum(dtype=torch.int32), num_miss])
+        out = torch.where(hit[:, None], cache[slot.long()], out)
     return out, counts, miss_pos, miss_ids
+
+
+def tiered_split_positions_plain(ids: torch.Tensor, num_input,
+                                 posmap: torch.Tensor):
+    """``(pos, counts, miss_pos, miss_ids)``: the split's position form in
+    PyTorch ops, the lookup and compaction of JAX's ``cache_split``
+    (``xgnn_tpu/parallel/ggms.py:134-203``).  ``pos`` holds each hit's
+    cache position and EMPTY elsewhere (a miss, an invalid id, a slot at or
+    past ``num_input``); the rest as :func:`tiered_split_plain`."""
+    hit, slot, counts, miss_pos, miss_ids = _split_lists_plain(
+        ids, num_input, posmap, posmap.shape[0])
+    pos = torch.where(hit, slot, EMPTY).to(torch.int32)
+    return pos, counts, miss_pos, miss_ids
 
 
 def tiered_combine_plain(out: torch.Tensor, miss_rows: torch.Tensor,
@@ -294,6 +327,46 @@ def tiered_split(ids: torch.Tensor, num_input,
     _build.check(rc, "tiered_split")
     _build.LAUNCHES.add("tiered_split")
     return out, counts, miss_pos, miss_ids
+
+
+def tiered_split_positions(ids: torch.Tensor, num_input,
+                           posmap: torch.Tensor):
+    """``(pos, counts, miss_pos, miss_ids)``: step 1 in its position form,
+    for a cache that the owner exchange serves.  ``pos`` is ``(n,)``
+    int32, each hit's ``posmap[id]`` and EMPTY elsewhere; ``counts``,
+    ``miss_pos`` and ``miss_ids`` as :func:`tiered_split`'s (the lists past
+    ``counts[1]`` unwritten on the card).  No rows are written."""
+    if ids.dim() != 1 or ids.dtype != torch.int32 or not ids.is_contiguous():
+        raise ValueError(f"tiered_split_positions: ids must be 1-D "
+                         f"contiguous int32, got {ids.dtype} "
+                         f"{tuple(ids.shape)}")
+    if (posmap.dim() != 1 or posmap.dtype != torch.int32
+            or not posmap.is_contiguous() or posmap.device != ids.device):
+        raise ValueError(f"tiered_split_positions: posmap must be 1-D "
+                         f"contiguous int32 on {ids.device}")
+    if ids.device.type == "cpu":
+        return tiered_split_positions_plain(ids, num_input, posmap)
+    if ids.device.type != "cuda":
+        raise ValueError(f"tiered_split_positions: no kernel for "
+                         f"{ids.device}")
+    dev, n = ids.device, ids.shape[0]
+    pos = torch.empty(n, dtype=torch.int32, device=dev)
+    scratch = torch.empty(2 * n + -(-n // _TILE), dtype=torch.int32,
+                          device=dev)
+    miss_pos, miss_ids, tiles = scratch[:n], scratch[n:2 * n], scratch[2 * n:]
+    if n == 0:
+        return pos, torch.zeros(2, dtype=torch.int32, device=dev), \
+            miss_pos, miss_ids
+    counts = torch.empty(2, dtype=torch.int32, device=dev)
+    num = _build.int32_scalar(num_input, dev)
+    rc = _build.load("tiered").xg_tiered_split_positions(
+        ids.data_ptr(), n, num.data_ptr(), posmap.data_ptr(),
+        posmap.shape[0], pos.data_ptr(), counts.data_ptr(),
+        tiles.data_ptr(), miss_pos.data_ptr(), miss_ids.data_ptr(),
+        _build.stream_handle(dev))
+    _build.check(rc, "tiered_split_positions")
+    _build.LAUNCHES.add("tiered_split_positions")
+    return pos, counts, miss_pos, miss_ids
 
 
 def tiered_direct(out: torch.Tensor, miss_ids: torch.Tensor,

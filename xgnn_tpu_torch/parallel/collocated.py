@@ -17,8 +17,18 @@ gradients, the three weighted scalars and the overflow flag go in one
 flattened ``all_reduce``; a step whose exchange or frontier overflowed on
 any rank is skipped by every rank on the device, as the single store's
 step is, and every rank learns it from the same reduction, so the ranks
-stay in step for the engine's replay.  The two-phase GGMS form (a partial
-cache with host misses) is not part of this port.  JAX's ``put_replicated``
+stay in step for the engine's replay.
+
+The two-phase GGMS form (a partial cache over the cards, the misses in
+host memory; ``make_sample_split_step``, line 332, ``make_combine_train_step``,
+:431, ``make_eval_step``, :511) keeps JAX's names, but no host gather
+lies between its two halves: the sample-and-split half builds the input
+rows whole, the cache's hits through the owner exchange over cache
+positions and the misses read in place from pinned host memory by K11
+(``parallel/ggms.py``), and the train half runs on them at once, on the
+same stream.  ``make_presample_step`` (:641) counts each rank's valid
+inputs at their owner for the cache's ranking and for the calibration of
+the capacities.  JAX's ``put_replicated``
 and ``put_sharded`` place a whole value on every chip of one process's
 mesh; here each rank builds its own part where it runs
 (``exchange.interleaved_part``, ``dist_topology.partition_part``).
@@ -32,11 +42,21 @@ from typing import Optional, Sequence
 import torch
 
 from .. import constants as C
+import torch.distributed as dist
+
+from ..ops.presample import accumulate_freq
+from ..ops.tiered import tiered_direct
 from ..sampler import _layer_fanouts, _sample_minibatch
 from ..train import Adam, loss_fn
 from ..types import Block
+from . import ggms
 from .dist_topology import sample_minibatch_partitioned
-from .exchange import partitioned_gather, partitioned_gather_indirect
+from .exchange import (
+    local_rows_of,
+    partitioned_gather,
+    partitioned_gather_indirect,
+    plan_exchange,
+)
 from .mesh import Mesh
 
 EMPTY = C.EMPTY_KEY
@@ -124,6 +144,36 @@ def reduce_weighted(mesh: Mesh, grads, loss, acc, num_output, overflow):
     return out, flat[n] / wsum, flat[n + 1] / wsum, flat[n + 3] > 0
 
 
+def _train_on(model, opt: Adam, mesh: Mesh, blocks, x, labels, num_output,
+              overflow, drop_generator):
+    """One update from this rank's batch: the loss and gradients, their
+    seed-weighted reduction and Adam's step, skipped on every rank where
+    any overflowed; the metrics, the loss and accuracy NaN when skipped."""
+    loss, acc, grads = lane_loss_and_grads(model, opt.params, blocks, x,
+                                           labels, num_output,
+                                           drop_generator)
+    grads, loss, acc, skip = reduce_weighted(mesh, grads, loss, acc,
+                                             num_output, overflow)
+    opt.step(grads, skip)
+    nan = torch.full_like(loss, float("nan"))
+    return {"loss": torch.where(skip, nan, loss),
+            "acc": torch.where(skip, nan, acc), "overflow": skip}
+
+
+def _count_correct(mesh: Mesh, logits, labels, num_output, overflow):
+    """``(correct, total, overflow)`` summed over the ranks; a step that
+    overflowed anywhere counts 0 of both."""
+    n = logits.shape[0]
+    mask = torch.arange(n, device=logits.device) < num_output
+    correct = ((torch.argmax(logits, -1) == labels) & mask).sum()
+    v = torch.stack([correct.to(torch.float32),
+                     num_output.to(torch.float32).reshape(()),
+                     overflow.to(torch.float32)])
+    mesh.all_reduce(v)
+    keep = (v[2] == 0).to(torch.float32)
+    return v[0] * keep, v[1] * keep, v[2] > 0
+
+
 def make_collocated_train_step(model, opt: Adam, config, mesh: Mesh,
                                capacities, seg_cap: int,
                                use_dist_graph: bool = False):
@@ -140,16 +190,10 @@ def make_collocated_train_step(model, opt: Adam, config, mesh: Mesh,
         blocks, x, labels, overflow = exchange_inputs(batch, feat_part,
                                                       label_part, mesh,
                                                       seg_cap)
-        loss, acc, grads = lane_loss_and_grads(
-            model, opt.params, blocks, x, labels, batch.num_output,
-            drop_generator)
-        grads, loss, acc, skip = reduce_weighted(
-            mesh, grads, loss, acc, batch.num_output, overflow)
-        opt.step(grads, skip)
-        nan = torch.full_like(loss, float("nan"))
-        return {"loss": torch.where(skip, nan, loss),
-                "acc": torch.where(skip, nan, acc), "overflow": skip,
-                "num_input": batch.num_input}
+        out = _train_on(model, opt, mesh, blocks, x, labels,
+                        batch.num_output, overflow, drop_generator)
+        out["num_input"] = batch.num_input
+        return out
 
     return step
 
@@ -169,15 +213,104 @@ def make_fused_eval_step(model, config, mesh: Mesh, capacities,
                                                       label_part, mesh,
                                                       seg_cap)
         logits = model(blocks, x, train=False)
-        n = logits.shape[0]
-        mask = torch.arange(n, device=logits.device) < batch.num_output
-        correct = ((torch.argmax(logits, -1) == labels) & mask).sum()
-        v = torch.stack([correct.to(torch.float32),
-                         batch.num_output.to(torch.float32).reshape(()),
-                         overflow.to(torch.float32)])
-        mesh.all_reduce(v)
-        keep = (v[2] == 0).to(torch.float32)
-        return v[0] * keep, v[1] * keep, v[2] > 0
+        return _count_correct(mesh, logits, labels, batch.num_output,
+                              overflow)
+
+    return step
+
+
+# ------------------------------------------------------- the two-phase GGMS
+def make_sample_split_step(config, mesh: Mesh, capacities, seg_cap: int,
+                           use_dist_graph: bool = False,
+                           partitioned_cache: bool = True):
+    """The sampling half of the two-phase step: ``step(topo, posmap,
+    cache_part, label_part, host, seeds, num_seed, generator) -> dict``
+    with the batch's ``blocks``, its input rows ``x`` in input-node order
+    (the cache's hits, then the misses read in place from the mapped host
+    table ``host``: no host gather follows), its ``labels``, ``num_output``,
+    ``num_input``, ``num_hit`` and ``num_miss`` (device int32) and the
+    step's ``overflow`` on this rank (the sampler's, the cache positions'
+    exchange and the labels')."""
+
+    def step(topo, posmap, cache_part, label_part, host, seeds, num_seed,
+             generator=None):
+        batch = sample_any(topo, seeds, num_seed, config, capacities,
+                           seg_cap, mesh, use_dist_graph, generator)
+        hit_rows, miss_ids, miss_pos, counts, c_of = ggms.cache_split(
+            posmap, cache_part, batch.input_nodes, batch.num_input, mesh,
+            seg_cap, host, partitioned_cache)
+        x = tiered_direct(hit_rows, miss_ids, miss_pos, counts, host)
+        labels, l_of = partitioned_gather(label_part, batch.output_nodes,
+                                          mesh, seg_cap)
+        return {"blocks": batch.blocks, "x": x, "labels": labels[:, 0],
+                "num_output": batch.num_output, "num_input": batch.num_input,
+                "num_hit": counts[0], "num_miss": counts[1],
+                "overflow": batch.overflow | c_of | l_of}
+
+    return step
+
+
+def make_combine_train_step(model, opt: Adam, config, mesh: Mesh):
+    """The training half: ``step(outs, drop_generator) -> {"loss", "acc",
+    "overflow", "num_input", "num_hit", "num_miss"}`` on what
+    :func:`make_sample_split_step` built, as the fused step trains (the
+    input rows are whole already: JAX's ``combine_miss`` has nothing left
+    to do)."""
+
+    def step(outs, drop_generator=None):
+        out = _train_on(model, opt, mesh, outs["blocks"], outs["x"],
+                        outs["labels"], outs["num_output"], outs["overflow"],
+                        drop_generator)
+        out.update({k: outs[k] for k in ("num_input", "num_hit",
+                                         "num_miss")})
+        return out
+
+    return step
+
+
+def make_eval_step(model, mesh: Mesh):
+    """The forward-only training half: ``step(outs) -> (correct, total,
+    overflow)``, summed over the ranks as the fused eval step sums them."""
+
+    @torch.no_grad()
+    def step(outs):
+        logits = model(outs["blocks"], outs["x"], train=False)
+        return _count_correct(mesh, logits, outs["labels"],
+                              outs["num_output"], outs["overflow"])
+
+    return step
+
+
+def make_presample_step(config, mesh: Mesh, capacities, seg_cap: int,
+                        use_dist_graph: bool = False):
+    """``step(freq_part, topo, seeds, num_seed, generator) -> (freq_part,
+    sizes)``: sample this rank's shard, send each valid input to its owner
+    (K13-plan, ``all_to_all_single``) and count it there into the owner's
+    interleaved share of the access counts, ``freq_part`` ``(ceil(N / P),)``
+    int32, in place (K12); ``sizes`` the batch's frontier sizes (the seeds,
+    then each layer's sources from the last), max-reduced over the ranks.
+    The counting exchange's segment takes every input (``max(seg_cap,
+    capacities[-1])``): an over-cap request would go uncounted, and the
+    hottest nodes are the ones the ranking exists to find."""
+    count_seg_cap = max(int(seg_cap), int(capacities[-1]))
+
+    def step(freq_part, topo, seeds, num_seed, generator=None):
+        batch = sample_any(topo, seeds, num_seed, config, capacities,
+                           seg_cap, mesh, use_dist_graph, generator)
+        ids = batch.input_nodes
+        live = torch.arange(ids.shape[0], device=ids.device) < batch.num_input
+        masked = torch.where(live, ids, EMPTY)
+        seg = max(min(count_seg_cap, ids.shape[0]), 1)
+        plan = plan_exchange(masked, mesh.size, seg)
+        req = mesh.all_to_all(plan.send.reshape(-1))
+        accumulate_freq(freq_part, local_rows_of(req, mesh.size),
+                        req.shape[0])
+        sizes = torch.stack(
+            [batch.num_output.to(torch.int32).reshape(())]
+            + [b.num_src.to(torch.int32).reshape(())
+               for b in reversed(batch.blocks)])
+        mesh.all_reduce(sizes, dist.ReduceOp.MAX)
+        return freq_part, sizes
 
     return step
 
