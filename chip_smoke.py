@@ -28,7 +28,11 @@ Phases, each fatal on failure:
    gradient) at the layer-1 and layer-2 shapes, rtol 1e-5 / atol 1e-5,
    the backward also equal bit for bit across two launches, with its
    longest segment (the most picks of one src row) printed; K7 (pick
-   multiplicity) at the three layers, exact; K4's sum form as GCN runs it,
+   multiplicity) at the three layers as GCNConv calls it, the counts
+   exact and GCN's weights bit-equal to torch.rsqrt, with the weights'
+   three elementwise launches timed beside it and the parent build's time
+   as tools/time_degree.py read it printed (``K7_PARENT_MS``); K4's sum
+   form as GCN runs it,
    with K7's per-pick weights rsqrt(max(cnt, 1)): forward at the three
    layers (layer 2 over the 47-wide transformed table), exact, and
    backward without the prefix gradient at layers 1 and 2, at the same
@@ -110,7 +114,8 @@ Phases, each fatal on failure:
    engine's init;
    K12 on the batch and K12b (the exact static closure) for one batch's
    three layers, exact; presample_static's ranking (a K12b launch a
-   batch).  Then the path ``graphsage_cached``: warm-up, counted,
+   batch), each beside the parent build's time as tools/time_presample.py
+   read it (``K12B_PARENT_MS``, ``K12B_PARENT_RANKING``).  Then the path ``graphsage_cached``: warm-up, counted,
    unpipelined and profiled epochs, with the epoch hit rate, misses and
    miss bytes a step, and how much of K11's time other kernels ran beside
    it.  Then two epochs of ``dynamic_cache`` (``graphsage_dynamic``: K12
@@ -355,6 +360,18 @@ H2D_BYTES = 512 * 2**20  # the pinned host-to-device copy timed beside K11
 # 128b/130b line code)
 PCIE_BYTES_PER_S = 16 * 32e9 * 128 / 130 / 8
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+# K7 and K12b as they were before their redesign (commit 3d9a793), for the
+# lines that print the redesigned kernels' times.  This script does not
+# measure them: they are the medians that `tools/time_degree.py --root DIR`
+# and `tools/time_presample.py --root DIR` (DIR a checkout of 3d9a793) read
+# in turns with the redesigned kernels on an NVIDIA H100 80GB HBM3 at
+# 700.00 W, the parent's readings that PERF.md's section 6 keeps in square
+# brackets on the K7 and K12b rows; rerun the tools for a reading of the
+# same card as this run
+K7_PARENT_MS = ("0.1086", "0.0317", "0.0089")
+K12B_PARENT_MS = "2.5412"
+K12B_PARENT_RANKING = ("0.0632 s in tools/time_presample.py's loop; 0.072 s "
+                       "in this phase at commit 3d9a793")
 FP32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 RTOL = ATOL = 1e-5
 # written before each launch that time_flushed_ms times: five times the
@@ -1163,6 +1180,7 @@ def main() -> int:
     from xgnn_tpu_torch.ops.degree import (
         pick_multiplicity,
         pick_multiplicity_plain,
+        weights_of,
     )
     from xgnn_tpu_torch.ops.fanout import (
         MEAN_EPS,
@@ -1322,6 +1340,34 @@ def main() -> int:
         return (float((a.detach().double() - b.detach().double()).abs().max())
                 if a.numel() else 0.0)
 
+    def sector_floor(indptr, frontier, draws, coalesced, tables=1,
+                     whole_at=0):
+        """A sampler call's 32-byte-sector floor, K8b-prefix's model: the
+        in-order arrays (``coalesced`` bytes) once; a valid row's indptr
+        pair as the sectors it spans (two where row % 8 == 7); ``draws`` (a
+        row's, a tensor or an int) random reads into each of ``tables``
+        edge-aligned tables, at most the row's sectors in each; a row of
+        1 to ``whole_at`` entries read whole from one table instead (hash
+        dedup's).  Stores the sector floor's ms in the last kernel's row
+        and prints it beside the device ms."""
+        ok = (frontier >= 0) & (frontier < indptr.shape[0] - 1)
+        node = torch.where(ok, frontier, 0).long()
+        start = indptr[node].long()
+        deg = torch.where(ok, indptr[node + 1].long() - start, 0)
+        row = torch.where(deg > 0, (start * 4 + deg * 4 - 1) // 32
+                          - start * 4 // 32 + 1, 0)
+        whole = (deg > 0) & (deg <= whole_at)
+        reads = torch.where(whole, row, tables * torch.minimum(
+            row, torch.as_tensor(draws, device=row.device).long()))
+        nsec = (int(ok.sum()) + int((ok & (node % 8 == 7)).sum())
+                + int(reads.sum()))
+        k = kernels[-1]
+        k["sector_bound_ms"] = bound_ms(coalesced + 32 * nsec, 0)[0]
+        print(f"{tag} {k['name']} {k['shape'][:48]}: sector floor "
+              f"{k['sector_bound_ms']:.4f} ms, "
+              f"{k['sector_bound_ms'] / k['device_ms']:.2f} of the device "
+              f"ms", flush=True)
+
     def assert_close(name, a, b, exact):
         ok = torch.equal(a, b) if exact else torch.allclose(
             a, b, rtol=RTOL, atol=ATOL)
@@ -1366,6 +1412,8 @@ def main() -> int:
                nbytes=frontier.numel() * 4 + rows * 8 + u.numel() * 4
                + picks * 4 + nbr.numel() * 4,
                flops=0, per_step=3)
+        sector_floor(graph.indptr, frontier, (nbr != empty).sum(1),
+                     (frontier.numel() + u.numel() + nbr.numel()) * 4)
         # K8a on the same frontier and uniforms: graphsage_khop1's draw
         wr = sample_uniform_wr(graph.indptr, graph.indices, frontier, k, u=u)
         wr_ref = sample_uniform_wr_plain(graph.indptr, graph.indices,
@@ -1397,6 +1445,8 @@ def main() -> int:
                    nbytes=frontier.numel() * 4 + rows * 8 + u.numel() * 4
                    + live * 4 + out.numel() * 4,
                    flops=0, per_step=3, path="graphsage_khop1")
+            sector_floor(graph.indptr, frontier, k,
+                         (frontier.numel() + u.numel() + out.numel()) * 4)
         del wr, wr_ref, k1, k1_ref
         if layer == len(FANOUT) - 1:
             break
@@ -1668,29 +1718,40 @@ def main() -> int:
     bwd_case(h1, b1)
     bwd_case(h2, b2)
 
-    # K7 at each layer: the multiplicity of every pick over the block
+    # K7 at each layer, as GCNConv calls it: the multiplicity of every pick
+    # over the block and GCN's weights rsqrt(max(cnt, 1)), beside the
+    # three elementwise launches the weights replace
     for layer, (blk, rows) in enumerate(((b0, feat.shape[0]),
                                          (b1, b0.dst_cap),
                                          (b2, b1.dst_cap))):
         nb = blk.neigh
-        out, ref = pick_multiplicity(nb, rows), pick_multiplicity_plain(nb,
-                                                                        rows)
+        out, w = pick_multiplicity(nb, rows)
+        ref, ref_w = pick_multiplicity_plain(nb, rows)
         torch.cuda.synchronize()
         assert_close("pick_multiplicity", out, ref, exact=True)
+        assert_close("pick_multiplicity's weights", w, ref_w, exact=True)
         valid = (nb >= 0) & (nb < rows)
         spare = torch.where(valid, nb, rows).reshape(-1).long()
         record("pick_multiplicity", "xgnn_tpu_torch/csrc/degree.cu",
                "xgnn_tpu/ops/degree.py:31",
                f"layer {layer}: {tuple(nb.shape)} picks ({int(valid.sum())} "
-               f"valid) over {rows} rows", max_err(out, ref), "exact",
+               f"valid) over {rows} rows, counts and GCN's weights",
+               max_err(out, ref), "exact; weights bit-equal to torch.rsqrt",
                lambda: pick_multiplicity(nb, rows),
                lambda: pick_multiplicity_plain(nb, rows),
                lambda: torch.bincount(spare, minlength=rows + 1)[spare],
                "torch.bincount(ids, minlength=N + 1)[ids] on the ids with "
-               "the invalid ones moved to bin N",
-               # the ids in, the counts out
-               nbytes=nb.numel() * 8, flops=0, per_step=3, path="gcn")
-        del out, ref, spare
+               "the invalid ones moved to bin N (the counts alone)",
+               # the ids in, the counts and the weights out
+               nbytes=nb.numel() * 12, flops=0, per_step=3, path="gcn")
+        apart_ms = time_ms(torch, lambda: weights_of(out), host_ahead=True)
+        kernels[-1]["elementwise_weights_device_ms"] = apart_ms
+        print(f"{tag} pick_multiplicity layer {layer}: the weights apart "
+              f"(three elementwise launches) {apart_ms:.4f} ms on the card "
+              f"alone; the parent's build (a memset and two kernels, counts "
+              f"alone), not measured here: {K7_PARENT_MS[layer]} ms in "
+              "tools/time_degree.py's turns", flush=True)
+        del out, ref, w, ref_w, spare
 
     # K4 as GCNConv runs it: per-pick weights rsqrt(max(cnt, 1)) from K7;
     # forward aggregate first at layers 0 and 1 and transform first at
@@ -1698,13 +1759,12 @@ def main() -> int:
     # at layers 1 and 2 without a prefix gradient
     h2t = torch.randn((b1.dst_cap, NUM_CLASS), generator=gen, device=dev)
     for layer, (h, blk) in enumerate(((feat, b0), (h1, b1), (h2t, b2))):
-        cnt = pick_multiplicity(blk.neigh, h.shape[0])
-        w = torch.rsqrt(torch.clamp(cnt.to(torch.float32), min=1.0))
+        _, w = pick_multiplicity(blk.neigh, h.shape[0])
         fwd_case(h, blk, 3, weights=w, path="gcn")
         if layer:
             bwd_case(h, blk, weights=w, with_dst=False, path="gcn",
                      mean=False)
-        del cnt, w
+        del w
 
     def attend_library(table, nb, el, proj, mode):
         """index_select -> masked softmax -> bmm over the materialised
@@ -2295,8 +2355,8 @@ def main() -> int:
              "g_table sum)", lambda n: "bwd_" in n and "attend" not in n),
             ("K5, *attend* and *proj_reduce*",
              lambda n: "attend" in n or "proj_reduce" in n),
-            ("K7, *hist_kernel* and *gather_kernel*",
-             lambda n: "hist_kernel" in n or "gather_kernel" in n),
+            ("K7, *multiplicity_kernel*",
+             lambda n: "multiplicity_kernel" in n),
             ("K9, *random_walk*", lambda n: "random_walk" in n),
             ("K8b, *sample_prefix* and *sample_alias*",
              lambda n: "sample_prefix" in n or "sample_alias" in n),
@@ -2660,6 +2720,11 @@ def main() -> int:
                        lambda: plain(*a, u=u, coin=coin), None, None,
                        nbytes=alias_traffic(g, frontier, k, m, dedup, got),
                        flops=0, per_step=3, path=paths[dedup])
+                # a draw reads prob and then alias or the index: two tables
+                sector_floor(g.indptr, frontier, m,
+                             (frontier.numel() + u.numel() + coin.numel()
+                              + got.numel()) * 4, tables=2,
+                             whole_at=k if dedup else 0)
                 if not dedup:
                     picks = got
             if layer == len(FANOUT) - 1:
@@ -2991,26 +3056,32 @@ def main() -> int:
               for lay in range(len(FANOUT))]
     # least: the seeds, an indptr pair and the indices of each row within
     # L-1 hops (its neighbours are all that the last hop needs), counts
-    # read and written; the kernel streams every marked row's indices again
-    # each layer
+    # read and written.  The kernel expands each of those rows once (a
+    # frontier row, or a row of a closed tile streamed whole); the parent
+    # streamed every marked row's indices again each layer
     reach = marked[-1]
-    need = (bseeds.numel() * 4 + int(reach.sum()) * 8
-            + int(deg[reach].sum()) * 4 + NUM_NODE * 8)
-    streamed = sum(int(deg[m].sum()) for m in marked)
+    need_edges = int(deg[reach].sum())
+    need = (bseeds.numel() * 4 + int(reach.sum()) * 8 + need_edges * 4
+            + NUM_NODE * 8)
+    rescan = sum(int(deg[m].sum()) for m in marked)
     record("closure_expand", "xgnn_tpu_torch/csrc/presample.cu",
            "xgnn_tpu/store/presample.py:69-83 (expand inside "
            "static_exact_ranking)",
            f"{n} seeds, {len(FANOUT)} layers over ({NUM_NODE}, "
            f"{indices.numel()}) CSR: {int(got.sum())} nodes reached, "
-           f"{int(reach.sum())} rows within {len(FANOUT) - 1} hops; "
-           f"{streamed} edges streamed", max_err(got, ref), "exact",
+           f"{int(reach.sum())} rows within {len(FANOUT) - 1} hops, "
+           f"{need_edges} of their edges (the parent streamed {rescan})",
+           max_err(got, ref), "exact",
            lambda: closure_expand(indptr, indices, bseeds, len(FANOUT), zero),
            lambda: closure_expand_plain(indptr, indices, bseeds, len(FANOUT),
                                         zero),
            None, "none: no one PyTorch call expands a CSR mask",
            nbytes=need, flops=0, per_step=1, path="presample_static",
            plain_reps=3)
-    kernels[-1]["edges_streamed"] = streamed
+    kernels[-1]["edges_needed"] = need_edges
+    print(f"{tag} closure_expand: the parent's build, not measured here: "
+          f"{K12B_PARENT_MS} ms a batch in tools/time_presample.py's turns",
+          flush=True)
     del got, ref, marked, reach, deg, zero
     # presample_static's ranking, a K12b launch a batch
     _build.LAUNCHES.reset()
@@ -3023,7 +3094,8 @@ def main() -> int:
         raise AssertionError("presample_static: launches "
                              f"{counts_by_path['presample_static']}")
     print(f"{tag} presample_static ranking: {steps} batches in "
-          f"{static_s:.3f} s, {int((static > 0).sum())} nodes reached, "
+          f"{static_s:.3f} s (the parent's build: {K12B_PARENT_RANKING}), "
+          f"{int((static > 0).sum())} nodes reached, "
           f"launches {counts_by_path['presample_static']}", flush=True)
     del static, cbatch, bseeds
 
@@ -3554,10 +3626,9 @@ def main() -> int:
 
     fwd16_case(table, b0, None, "graphsage_bf16", True, "")
     # GCN's layer 0: the sum form with K7's weights
-    cnt = pick_multiplicity(b0.neigh, table.shape[0])
-    gcn_w = torch.rsqrt(torch.clamp(cnt.to(torch.float32), min=1.0))
+    _, gcn_w = pick_multiplicity(b0.neigh, table.shape[0])
     fwd16_case(table, b0, gcn_w, "gcn_bf16", False, "GCN weights")
-    del cnt, gcn_w, b0
+    del gcn_w, b0
     dl = Engine(ds, dataclasses.replace(cfg, **bf16, device_loop=True)).init()
     dl_times = [dl.train_epoch(epoch)["time"] for epoch in (0, 1)]
     torch.cuda.synchronize()

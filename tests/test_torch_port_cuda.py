@@ -989,15 +989,102 @@ def test_pick_multiplicity_kernel_equals_plain(dev, shape, num_rows):
                         device=dev, dtype=torch.int32)
     ids[torch.rand(shape, generator=g, device=dev) < 0.3] = EMPTY
     _build.LAUNCHES.reset()
-    out = pick_multiplicity(ids, num_rows)
+    out, _ = pick_multiplicity(ids, num_rows)
     assert out.dtype == torch.int32
-    assert torch.equal(out, pick_multiplicity_plain(ids, num_rows))
+    assert torch.equal(out, pick_multiplicity_plain(ids, num_rows)[0])
     flat = ids.reshape(-1)[1:]
-    assert torch.equal(pick_multiplicity(flat, num_rows),
-                       pick_multiplicity_plain(flat, num_rows))
+    assert torch.equal(pick_multiplicity(flat, num_rows)[0],
+                       pick_multiplicity_plain(flat, num_rows)[0])
     assert _build.LAUNCHES.snapshot() == {"pick_multiplicity": 2}
     empty = torch.full(shape, EMPTY, dtype=torch.int32, device=dev)
-    assert int(pick_multiplicity(empty, num_rows).abs().sum()) == 0
+    assert int(pick_multiplicity(empty, num_rows)[0].abs().sum()) == 0
+
+
+def _k7_equal(ids, num_rows):
+    """The kernel's counts and weights against the plain version's."""
+    from xgnn_tpu_torch.ops import degree
+
+    ref, ref_w = degree.pick_multiplicity_plain(ids, num_rows)
+    cnt, w = degree.pick_multiplicity(ids, num_rows)
+    torch.cuda.synchronize()
+    assert cnt.dtype == torch.int32 and cnt.shape == ids.shape
+    assert w.dtype == torch.float32 and w.shape == ids.shape
+    assert torch.equal(cnt, ref) and torch.equal(w, ref_w)
+    return ref
+
+
+@pytest.mark.parametrize("case", ["hub past 2^16", "all EMPTY", "rows 0",
+                                  "rows 1", "n 1", "n 3", "unaligned n 5",
+                                  "unaligned view"])
+def test_pick_multiplicity_edge_cases(dev, case):
+    """Exact, with GCN's weights bit-equal to
+    torch.rsqrt(torch.clamp(counts.float(), min=1)) on the card."""
+    g = _gen(dev, 3)
+    if case == "hub past 2^16":
+        ids = torch.randint(100, 5000, (40_000, 3), generator=g, device=dev,
+                            dtype=torch.int32)
+        ids[:, 1] = 77  # 40,000 picks of 77 ...
+        ids[:30_000, 2] = 77  # ... and 30,000 more: 70,000 > 2^16
+        ref = _k7_equal(ids, 5000)
+        assert int(ref[0, 1]) == 70_000
+        return
+    if case == "all EMPTY":
+        ids = torch.full((1001, 5), EMPTY, dtype=torch.int32, device=dev)
+        assert int(_k7_equal(ids, 3000).abs().sum()) == 0
+        return
+    if case in ("rows 0", "rows 1"):
+        rows = int(case[-1])
+        ids = torch.randint(-2, 3, (777,), generator=g, device=dev,
+                            dtype=torch.int32)
+        ref = _k7_equal(ids, rows)
+        assert int(ref.max()) == (0 if rows == 0 else int((ids == 0).sum()))
+        return
+    if case.startswith("n "):
+        ids = torch.tensor([4, 4, EMPTY][:int(case[-1])], dtype=torch.int32,
+                           device=dev)
+        _k7_equal(ids, 10)
+        return
+    base = torch.randint(0, 300, (4 * 4099 + 1,), generator=g, device=dev,
+                         dtype=torch.int32)
+    ids = base[1:6] if case == "unaligned n 5" else base[1:]
+    assert ids.data_ptr() % 16
+    _k7_equal(ids, 300)
+
+
+@pytest.mark.parametrize("shape,num_rows", [((1_007_360, 5), 2_449_029),
+                                            ((133_376, 10), 1_007_360),
+                                            ((8000, 15), 133_376)])
+def test_pick_multiplicity_at_the_main_path_shapes(dev, shape, num_rows):
+    """GCN's three layers' shapes (power-law picks, 5% EMPTY): exact, one
+    launch counted a call."""
+    from xgnn_tpu_torch.ops import _build
+
+    g = _gen(dev, num_rows)
+    u = torch.rand(shape, generator=g, device=dev)
+    ids = (num_rows * u.pow(2.0)).to(torch.int32)
+    ids[torch.rand(shape, generator=g, device=dev) < 0.05] = EMPTY
+    _k7_equal(ids, num_rows)
+    _build.LAUNCHES.reset()
+    from xgnn_tpu_torch.ops.degree import pick_multiplicity
+
+    pick_multiplicity(ids, num_rows)
+    pick_multiplicity(ids, num_rows)
+    assert _build.LAUNCHES.snapshot() == {"pick_multiplicity": 2}
+
+
+def test_pick_multiplicity_is_a_memset_and_two_kernels(dev):
+    """A call is a memset of the bins, then the count and gather launches,
+    with the weights written by the last (no elementwise launch); exact."""
+    from xgnn_tpu_torch.ops.degree import pick_multiplicity
+
+    rows = 1000
+    ids = torch.randint(0, rows, (8000, 15), generator=_gen(dev, 4),
+                        device=dev, dtype=torch.int32)
+    _k7_equal(ids, rows)
+    records, _ = _device_kernels(lambda: pick_multiplicity(ids, rows))
+    kernels = [r for r in records if "multiplicity_kernel" in r]
+    assert len(records) == 3 and len(kernels) == 2
+    assert records[0].startswith("Memset")
 
 
 # ------------------------------------------------- K5 edge-softmax attend
@@ -1824,6 +1911,122 @@ def test_closure_expand_kernel_equals_plain(dev, num_layer):
     assert got is counts and torch.equal(got, want)
 
 
+def _csr(dev, rows):
+    """A CSR from a list of neighbour lists."""
+    indptr = np.concatenate([[0], np.cumsum([len(r) for r in rows])])
+    indices = np.concatenate([np.asarray(r, np.int64) for r in rows] +
+                             [np.zeros(0, np.int64)])
+    return (torch.from_numpy(indptr.astype(np.int32)).to(dev),
+            torch.from_numpy(indices.astype(np.int32)).to(dev))
+
+
+def _closure_graph(dev, case):
+    """``(indptr, indices, seeds)`` of a K12b edge case."""
+    rng = np.random.default_rng(len(case))
+    if case == "star":
+        # a hub of 12,345 neighbours (chunked), leaves pointing back and on
+        n = 20_000
+        rows = [list(range(1, 12_346))] + [[0, (v * 7) % n] for v in
+                                           range(1, n)]
+        return (*_csr(dev, rows), [5, 0])
+    if case == "chain":
+        n = 50
+        return (*_csr(dev, [[v + 1] for v in range(n - 1)] + [[]]), [0])
+    if case == "odd seeds":
+        n = 3000
+        rows = [list(rng.integers(0, n, rng.integers(0, 9))) for _ in
+                range(n)]
+        return (*_csr(dev, rows), [7, 7, EMPTY, n, n + 5, -1, -7, 2999, 7])
+    if case == "self-loops and isolated":
+        rows = [[0], [], [1, 1], [], [4, 0], [], [6]]
+        return (*_csr(dev, rows + [[]] * 100), [0, 2, 4, 6, 3])
+    if case == "fills at layer 1":
+        n = 4096
+        rows = [list(range(n))] + [[0]] * (n - 1)
+        return (*_csr(dev, rows), [0])
+    if case == "claims beside the frontier":
+        # tile t: lanes 0-19 seeds, each to lanes 20-31 of tile t + 7; lanes
+        # 20-31 to a far node, each far node to a farther one.  A tile whose
+        # rows 20-31 were marked or claimed by this launch must not stream
+        # them as if an earlier layer had expanded them.
+        tiles = 2048
+        far = tiles * 32
+        rows = []
+        for t in range(tiles):
+            nxt = ((t + 7) % tiles) * 32
+            rows += [[nxt + 20 + (k + j) % 12 for j in range(6)]
+                     for k in range(20)]
+            rows += [[far + t * 12 + k] for k in range(12)]
+        rows += [[far + tiles * 12 + k] for k in range(tiles * 12)]
+        rows += [[]] * (tiles * 12)
+        seeds = [t * 32 + k for t in range(tiles) for k in range(20)]
+        return (*_csr(dev, rows), seeds)
+    if case == "odd targets":
+        n = 500
+        rows = [list(rng.integers(-3, n + 3, 40)) + [EMPTY] for _ in
+                range(n)]
+        return (*_csr(dev, rows), list(range(0, n, 50)))
+    raise ValueError(case)
+
+
+@pytest.mark.parametrize("case", ["star", "chain", "odd seeds",
+                                  "self-loops and isolated",
+                                  "fills at layer 1", "odd targets",
+                                  "claims beside the frontier"])
+@pytest.mark.parametrize("num_layer", [0, 1, 2, 3, 4])
+def test_closure_expand_edge_cases(dev, case, num_layer):
+    """Bit-equal to the plain version, added in place into counts that are
+    not zero."""
+    from xgnn_tpu_torch.ops import _build
+    from xgnn_tpu_torch.ops.presample import (
+        closure_expand,
+        closure_expand_plain,
+    )
+
+    indptr, indices, seeds = _closure_graph(dev, case)
+    seeds = torch.tensor(seeds, dtype=torch.int32, device=dev)
+    n = indptr.shape[0] - 1
+    counts = torch.randint(0, 3, (n,), generator=_gen(dev, 2), device=dev,
+                           dtype=torch.int32)
+    want = closure_expand_plain(indptr, indices, seeds, num_layer,
+                                counts.clone())
+    _build.LAUNCHES.reset()
+    got = closure_expand(indptr, indices, seeds, num_layer, counts)
+    torch.cuda.synchronize()
+    assert got is counts and torch.equal(got, want)
+    assert _build.LAUNCHES.snapshot() == {"closure_expand": 1}
+    if case == "chain":  # a row a layer
+        marked = closure_expand_plain(indptr, indices, seeds, num_layer,
+                                      torch.zeros_like(counts))
+        assert int(marked.sum()) == num_layer + 1
+
+
+def test_closure_expand_products_batch_launches(dev):
+    """A products-sized batch (power-law graph, 200,003 nodes, 3 layers):
+    exact, and L + 3 device records (a memset, the start, two layers below
+    the last, the count and the last layer)."""
+    from xgnn_tpu_torch import make_device_dataset
+    from xgnn_tpu_torch.ops.presample import (
+        closure_expand,
+        closure_expand_plain,
+    )
+
+    ds = make_device_dataset(200_003, 2_500_000, 4, 3, seed=5, device=dev,
+                             dedup=False)
+    seeds = torch.from_numpy(ds.train_set[:800]).to(dev)
+    zero = torch.zeros(ds.num_node, dtype=torch.int32, device=dev)
+    want = closure_expand_plain(ds.graph.indptr, ds.graph.indices, seeds, 3,
+                                zero.clone())
+    got = closure_expand(ds.graph.indptr, ds.graph.indices, seeds, 3,
+                         zero.clone())
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and int(got.sum()) > 100_000
+    kernels, _ = _device_kernels(lambda: closure_expand(
+        ds.graph.indptr, ds.graph.indices, seeds, 3, zero))
+    names = [k for k in kernels if "closure" in k]
+    assert len(names) == 5, kernels
+
+
 @pytest.mark.parametrize("policy", ["pre_sample", "presample_static",
                                     "dynamic_cache"])
 def test_a_cached_step_never_waits_on_the_card(dev, policy):
@@ -2104,6 +2307,38 @@ def test_unique_replayed_under_capture(dev):
     copied into its inputs: each replay equals the plain version, so the
     generation advances on the card, not in the captured launch."""
     _in_own_process("_unique_replayed_under_capture")
+
+
+def _pick_multiplicity_replayed_under_capture(dev):
+    from xgnn_tpu_torch.ops import degree
+
+    g = _gen(dev, 21)
+    ids = torch.randint(0, 50_000, (133_376, 10), generator=g, device=dev,
+                        dtype=torch.int32)
+    stream = torch.cuda.Stream(dev)
+    stream.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(stream):
+        degree.pick_multiplicity(ids, 60_000)  # loaded
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        cnt, w = degree.pick_multiplicity(ids, 60_000)
+    for i in range(3):
+        ids.copy_(torch.randint(0, 50_000 // (i + 1), ids.shape, generator=g,
+                                device=dev, dtype=torch.int32))
+        ids[::7] = EMPTY
+        graph.replay()
+        torch.cuda.synchronize()
+        ref, ref_w = degree.pick_multiplicity_plain(ids, 60_000)
+        assert torch.equal(cnt, ref) and torch.equal(w, ref_w)
+
+
+def test_pick_multiplicity_replayed_under_capture(dev):
+    """K7's three launches (the memset of the bins, the count and the
+    gather) captured once in a CUDA graph, as gcn's device_loop captures
+    them, replayed three times with new picks copied into its input: each
+    replay equals the plain version."""
+    _in_own_process("_pick_multiplicity_replayed_under_capture")
 
 
 def _registered_generator_reseeded(dev):

@@ -134,6 +134,67 @@ def test_static_exact_ranking_matches_jax(small_ds, fanout, epochs):
     assert got.max() > 0
 
 
+def _closure_graph(case):
+    """``(indptr, indices, train_set)`` of the exact closure's edge cases."""
+    rng = np.random.default_rng(len(case))
+    if case == "star":  # a hub of 3,000 neighbours, leaves back and on
+        n = 4000
+        rows = [list(range(1, 3001))] + [[0, (v * 7) % n] for v in
+                                         range(1, n)]
+        train = np.array([5, 0, 3999, 17], np.int32)
+    elif case == "chain":  # each layer marks one new row
+        n = 40
+        rows = [[v + 1] for v in range(n - 1)] + [[]]
+        train = np.array([0], np.int32)
+    elif case == "hubs":  # power-law rows, EMPTY and repeated targets
+        n = 3000
+        deg = np.minimum((2.0 / rng.random(n) ** 1.2).astype(int), 2500)
+        rows = [list(rng.integers(0, n, d)) for d in deg]
+        for r in rows[::9]:
+            r += [EMPTY_KEY, r[0] if r else 0]
+        train = rng.choice(n, 300, replace=False).astype(np.int32)
+    elif case == "loops and isolated":
+        rows = [[0], [], [1, 1], [], [4, 0], [], [6]] + [[]] * 50
+        n = len(rows)
+        train = np.array([0, 2, 4, 6, 3, 2, 2], np.int32)
+    else:
+        raise ValueError(case)
+    indptr = np.concatenate([[0], np.cumsum([len(r) for r in rows])])
+    indices = np.concatenate([np.asarray(r, np.int64) for r in rows])
+    return indptr.astype(np.int32), indices.astype(np.int32), train
+
+
+@pytest.mark.parametrize("case", ["star", "chain", "hubs",
+                                  "loops and isolated"])
+@pytest.mark.parametrize("num_layer", [1, 2, 3, 4])
+def test_static_closure_edge_cases_match_jax(case, num_layer):
+    """K12b's plain version, through static_exact_ranking, against JAX's on
+    a hub past the kernel's chunk size, a chain, power-law rows with EMPTY
+    and repeated targets, self-loops and isolated nodes, and repeated
+    seeds: exact, over two epochs of batches of 3."""
+    from xgnn_tpu import RunConfig as JConfig
+    from xgnn_tpu.store.presample import static_exact_ranking as jstatic
+    from xgnn_tpu.types import Graph as JGraph
+    from xgnn_tpu_torch import RunConfig
+    from xgnn_tpu_torch.store.presample import static_exact_ranking
+    from xgnn_tpu_torch.types import Graph
+
+    indptr, indices, train = _closure_graph(case)
+    n = len(indptr) - 1
+    common = dict(batch_size=3, fanout=(5,) * num_layer, presample_epoch=2,
+                  cache_percentage=0.2, cache_policy="presample_static")
+    want = jstatic(JGraph(indptr=jnp.asarray(indptr),
+                          indices=jnp.asarray(indices)),
+                   train, JConfig(**common), n)
+    got = static_exact_ranking(
+        Graph(indptr=torch.from_numpy(indptr),
+              indices=torch.from_numpy(indices)),
+        train, RunConfig(**common), n, "cpu")
+    np.testing.assert_array_equal(got, want)
+    if case == "chain":  # one seed a batch: each batch a run of L + 1
+        assert int(got.sum()) == 2 * (num_layer + 1)
+
+
 def test_static_presample_config_matches_jax():
     from xgnn_tpu import RunConfig as JConfig
     from xgnn_tpu.store.presample import static_presample_config as jcfg_of

@@ -43,7 +43,7 @@ def test_pick_multiplicity_matches_jax(shape, num_rows):
 
     ids = _picks(np.random.default_rng(num_rows), shape, num_rows)
     ref = np.asarray(jax_mult(jnp.asarray(ids)))
-    out = pick_multiplicity(_t(ids), num_rows)
+    out, _ = pick_multiplicity(_t(ids), num_rows)
     assert out.dtype == torch.int32 and out.shape == shape
     np.testing.assert_array_equal(out.numpy(), ref)
 
@@ -53,7 +53,7 @@ def test_pick_multiplicity_all_empty_block():
     from xgnn_tpu_torch.ops.degree import pick_multiplicity
 
     ids = np.full((6, 4), EMPTY_KEY, np.int32)
-    out = pick_multiplicity(_t(ids), 10)
+    out, _ = pick_multiplicity(_t(ids), 10)
     np.testing.assert_array_equal(out.numpy(), np.asarray(jax_mult(ids)))
     assert int(out.abs().sum()) == 0
 
@@ -69,9 +69,67 @@ def test_pick_multiplicity_outside_the_rows_counts_zero():
     ids = _picks(rng, (50, 6), 20)
     ids[::7, 1] = -3
     ids[::5, 2] = 20
-    out = pick_multiplicity(_t(ids), 20).numpy()
+    out = pick_multiplicity(_t(ids), 20)[0].numpy()
     inside = np.where((ids >= 0) & (ids < 20), ids, EMPTY_KEY)
     np.testing.assert_array_equal(out, np.asarray(jax_mult(inside)))
+
+
+def _k7_edge_picks(case):
+    """Pick blocks of K7's edge cases: a hub id picked past 2^16 times, a
+    star (every pick one id), a chain (every id once), EMPTY runs."""
+    rng = np.random.default_rng(len(case))
+    if case == "hub past 2^16":
+        ids = _picks(rng, (40_000, 3), 5000, empty=0.1)
+        ids[ids == 77] = 78
+        ids[:, 1] = 77
+        ids[:30_000, 2] = 77
+        return ids, 5000
+    if case == "star":
+        return np.full((300, 7), 3, np.int32), 4
+    if case == "chain":
+        return np.arange(4096, dtype=np.int32).reshape(512, 8), 4096
+    if case == "empty runs":
+        ids = _picks(rng, (64, 33), 20, empty=0.0)
+        ids[::3] = EMPTY_KEY
+        ids[:, ::5] = EMPTY_KEY
+        return ids, 20
+    raise ValueError(case)
+
+
+@pytest.mark.parametrize("case", ["hub past 2^16", "star", "chain",
+                                  "empty runs"])
+def test_pick_multiplicity_edge_cases_match_jax(case):
+    """The counts equal JAX's; the weights equal the plain torch
+    expression bit for bit, and JAX's lax.rsqrt within 2 float32 ulps
+    (two rsqrt implementations)."""
+    from xgnn_tpu.ops.degree import pick_multiplicity as jax_mult
+    from xgnn_tpu_torch.ops.degree import pick_multiplicity
+
+    ids, rows = _k7_edge_picks(case)
+    ref = np.asarray(jax_mult(jnp.asarray(ids)))
+    cnt, w = pick_multiplicity(_t(ids), rows)
+    np.testing.assert_array_equal(cnt.numpy(), ref)
+    assert torch.equal(w, torch.rsqrt(torch.clamp(cnt.float(), min=1.0)))
+    jw = np.asarray(jax.lax.rsqrt(jnp.maximum(jnp.asarray(ref, jnp.float32),
+                                              1.0)))
+    np.testing.assert_array_max_ulp(w.numpy(), jw, maxulp=2)
+    if case == "hub past 2^16":
+        assert int(cnt[0, 1]) == 70_000
+
+
+@pytest.mark.parametrize("num_rows", [0, 1])
+def test_pick_multiplicity_with_zero_or_one_row(num_rows):
+    """With no row every pick counts 0; with one, row 0's picks count
+    each other, as JAX counts the block with the other ids made EMPTY."""
+    from xgnn_tpu.ops.degree import pick_multiplicity as jax_mult
+    from xgnn_tpu_torch.ops.degree import pick_multiplicity
+
+    ids = np.random.default_rng(num_rows).integers(-2, 3, 97).astype(
+        np.int32)
+    out = pick_multiplicity(_t(ids), num_rows)[0].numpy()
+    inside = np.where((ids >= 0) & (ids < num_rows), ids, EMPTY_KEY)
+    np.testing.assert_array_equal(out, np.asarray(jax_mult(inside)))
+    assert int(out.max()) == (0 if num_rows == 0 else int((ids == 0).sum()))
 
 
 def test_pick_multiplicity_refuses_what_it_cannot_take():

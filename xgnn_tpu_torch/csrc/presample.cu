@@ -24,18 +24,53 @@
 // (an edge-parallel bitmask closure: a gather of the mask along each edge's
 // source row and a scatter-max into the destinations; XLA ops).
 //
-// What bounds K12b: bytes.  Per layer it reads the mask (num_node bytes),
-// an indptr pair and the indices of every marked row, and stores a byte a
-// neighbour; then it reads the mask and reads and writes counts once.  At
-// products scale a batch of 8,000 seeds marks most of the graph by its
-// third layer, so the indices (496 MB) dominate.
-// Design: the mask is double-buffered (the next layer's buffer starts as a
-// copy of the current one), so that a layer reads only the layer before.
-// A warp takes 32 consecutive rows: each lane reads one row's mask byte
-// and its indptr pair, a ballot names the marked rows, and the warp
-// streams each marked row's indices with its 32 lanes, storing 1 into the
-// next mask.  The stores are idempotent, so their races are harmless, and
-// an unmarked row costs one byte of a coalesced read.
+// What bounds K12b: bytes, and one visited-set probe an edge.  Marks are
+// monotone, so a row's neighbours are all marked once the row has been
+// expanded: each row within L-1 hops has to be expanded once, at the layer
+// after the one that marked it.  The least the card reads is those rows'
+// indptr pairs and indices once (at products scale a batch of 8,000 seeds
+// marks 2,447,294 of 2,449,029 rows within 2 hops: about 500 MB, 0.16 ms
+// at 3.35 TB/s), the seeds, and the counts read and written once.  Each of
+// those edges also asks whether its target is marked: a random probe, an
+// L2 access of its own wherever it leaves the SM (an H100 80GB HBM3 serves
+// about 80-110G of those a second, tools/time_degree.py), so the design
+// keeps the probes in L1 or shared memory where it can.
+// Design: a BFS by levels, L + 3 launches a batch and no host round trip.
+//   level: a byte a node, 0 unmarked, 1 a seed, l + 2 first marked by
+//   layer l.  Layer l expands the rows whose level is l + 1, so each row
+//   once; the frontier is read from the level bytes in row order, so its
+//   indptr pairs and indices stream in order (a row not in the frontier
+//   costs one byte of a coalesced read).  The index reads are evict-first
+//   (__ldcs), ahead of the level bytes and the visited bits.
+//   start: the seeds' levels and visited bits (after one memset of the
+//   scratch) and the hub plan: each row of more than kHub edges is cut into
+//   chunks of kHub edges, a work unit each, so no warp waits on a hub (the
+//   products graph's longest row has 18,969 edges).
+//   expand: a warp takes 32 consecutive rows (a tile) or a hub chunk.  A
+//   tile's frontier rows of at most kHub edges are flattened into one run
+//   of edges (a scan of their degrees; each lane finds its edge's row with
+//   two warp votes), so the warp streams kUnroll coalesced 128-byte reads
+//   at a time however short its rows.  A closed tile (no row unmarked or
+//   marked by this launch, no hub) whose frontier holds at least half its
+//   edges streams its whole index run in 16-byte reads instead: its other
+//   rows were expanded by earlier layers, so their targets are marked.
+//   A layer below the last tests a target's bit in the visited bitmap (a
+//   bit a node, 306 KB at products scale, read through L1) before it marks
+//   it: an atomicOr of the bit and its level l + 2.  A stale L1 word only
+//   misses a mark of this launch, and the repeated mark is the same.
+//   The last layer marks nothing that expands, so counts += mask comes
+//   first (one coalesced pass, which also writes a summary: a bit for
+//   each group of G nodes with any node still unmarked, G the least power
+//   of two that keeps it within kSummaryBits), and the last layer then
+//   only claims: a target whose group's bit is clear (in shared memory) is
+//   already counted; else, if its level is 0, an atomicOr of 0x80 into its
+//   byte tells one thread that it claimed the node first, and that thread
+//   adds its 1.  At products scale 1,735 nodes are unmarked when the last
+//   layer starts, so its probes stay on the SM, and its tiles are closed.
+// Measured on that card (tools/time_presample.py, one batch): 0.51 ms,
+// layer 1 (about 25M edges, most of them probing the bitmap) 0.27 and the
+// last layer (124M edges streamed) 0.19; the variants the tool builds give
+// what each choice above is worth.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -70,66 +105,284 @@ __global__ void accumulate_kernel(int32_t* __restrict__ freq, int64_t num_node,
   }
 }
 
-__global__ void seed_kernel(uint8_t* __restrict__ mask, int64_t num_node,
-                            const int32_t* __restrict__ seeds, int64_t n) {
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += stride) {
-    const int32_t id = __ldg(seeds + i);
-    if (id >= 0 && (int64_t)id < num_node) mask[id] = 1;
-  }
+constexpr int kHub = 512;       // rows longer than this: chunks of it
+constexpr int kUnroll = 4;      // a lane's index reads in flight
+constexpr int kVecUnroll = 2;   // a lane's 16-byte reads in flight
+constexpr int kSummaryBits = 1 << 18;  // 32 KB of shared memory
+constexpr unsigned kClaim = 0x80u;     // a node claimed by the last layer
+
+struct ClosureScratch {
+  int64_t level_bytes, summary_words, hub_cap;
+  int log2_group;
+  int64_t visited_off, summary_off, count_off, hubs_off, zero_bytes, total;
+};
+
+int64_t pad16(int64_t b) { return (b + 15) / 16 * 16; }
+
+ClosureScratch closure_layout(int64_t num_node, int64_t num_edge) {
+  ClosureScratch c;
+  c.level_bytes = pad16(num_node);
+  c.log2_group = 2;
+  while (((num_node + (1LL << c.log2_group) - 1) >> c.log2_group) >
+         kSummaryBits)
+    ++c.log2_group;
+  const int64_t groups = (num_node + (1LL << c.log2_group) - 1) >>
+                         c.log2_group;
+  c.summary_words = (groups + 31) / 32;
+  c.hub_cap = 2 * num_edge / kHub + 1;
+  c.visited_off = c.level_bytes;
+  c.summary_off = c.visited_off + pad16((num_node + 31) / 32 * 4);
+  c.count_off = c.summary_off + pad16(c.summary_words * 4);
+  c.hubs_off = c.count_off + 16;
+  c.zero_bytes = c.hubs_off;
+  c.total = c.hubs_off + c.hub_cap * 16;
+  return c;
 }
 
-__global__ void __launch_bounds__(kThreads)
-expand_kernel(const int32_t* __restrict__ indptr,
-              const int32_t* __restrict__ indices, int64_t num_node,
-              const uint8_t* __restrict__ cur, uint8_t* __restrict__ next) {
-  const int lane = threadIdx.x & 31;
-  const int64_t groups = (num_node + 31) / 32;
-  const int64_t num_warps = (int64_t)gridDim.x * kWarps;
-  for (int64_t g = (int64_t)blockIdx.x * kWarps + (threadIdx.x >> 5);
-       g < groups; g += num_warps) {
-    const int64_t row = g * 32 + lane;
-    bool marked = false;
-    int32_t lo = 0, hi = 0;
-    if (row < num_node && __ldg(cur + row)) {
-      lo = __ldg(indptr + row);
-      hi = __ldg(indptr + row + 1);
-      marked = hi > lo;
+// The seeds' levels, and (plan) the hub chunks: (row, first, end) a chunk.
+__global__ void closure_start_kernel(const int32_t* __restrict__ indptr,
+                                     int64_t num_node,
+                                     const int32_t* __restrict__ seeds,
+                                     int64_t n, uint8_t* __restrict__ level,
+                                     uint32_t* __restrict__ visited,
+                                     bool plan, int4* __restrict__ hubs,
+                                     int32_t* __restrict__ hub_count) {
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  const int64_t items = plan && num_node > n ? num_node : n;
+  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < items;
+       i += stride) {
+    if (i < n) {
+      const int32_t id = __ldg(seeds + i);
+      if (id >= 0 && (int64_t)id < num_node) {
+        level[id] = 1;
+        atomicOr(visited + (id >> 5), 1u << (id & 31));
+      }
     }
-    unsigned todo = __ballot_sync(kFull, marked);
-    while (todo) {
-      const int src = __ffs(todo) - 1;
-      todo &= todo - 1;
-      const int32_t b = __shfl_sync(kFull, lo, src);
-      const int32_t e = __shfl_sync(kFull, hi, src);
-      for (int32_t k = b + lane; k < e; k += 32) {
-        const int32_t v = __ldg(indices + k);
-        if (v >= 0 && (int64_t)v < num_node) next[v] = 1;
+    if (plan && i < num_node) {
+      const int32_t lo = __ldg(indptr + i), hi = __ldg(indptr + i + 1);
+      if (hi - lo > kHub) {
+        const int parts = (hi - lo + kHub - 1) / kHub;
+        const int32_t at = atomicAdd(hub_count, parts);
+        for (int k = 0; k < parts; ++k)
+          hubs[at + k] = make_int4((int32_t)i, lo + k * kHub,
+                                   min(hi, lo + (k + 1) * kHub), 0);
       }
     }
   }
 }
 
-__global__ void add_kernel(int32_t* __restrict__ counts,
-                           const uint8_t* __restrict__ mask,
-                           int64_t num_node) {
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  const int64_t n4 = num_node >> 2;
-  const uchar4* m4 = reinterpret_cast<const uchar4*>(mask);
-  int4* c4 = reinterpret_cast<int4*>(counts);
-  for (int64_t q = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; q < n4;
-       q += stride) {
-    const uchar4 m = __ldg(m4 + q);
-    int4 c = c4[q];
-    c.x += m.x;
-    c.y += m.y;
-    c.z += m.z;
-    c.w += m.w;
-    c4[q] = c;
+// An index read: evict-first (streamed once), ahead of the level bytes
+// and the visited bits that the probes keep reading.
+__device__ __forceinline__ int32_t index_at(const int32_t* p) {
+  return __ldcs(p);
+}
+
+// Layer l's test of a target: below the last layer, mark it l + 2 where
+// it is unmarked; at the last, claim it where its group is not known to be
+// all marked and it is unmarked, and count it for the thread that claimed
+// it first.
+template <bool kLast>
+__device__ __forceinline__ void visit(int32_t v, int64_t num_node,
+                                      uint8_t* level, uint32_t* visited,
+                                      uint8_t mark, const uint32_t* summary,
+                                      int log2_group, int32_t* counts) {
+  if (v < 0 || (int64_t)v >= num_node) return;
+  if (kLast) {
+    const uint32_t g = (uint32_t)v >> log2_group;
+    if (!((summary[g >> 5] >> (g & 31)) & 1u)) return;
+    if (level[v] != 0) return;
+    const unsigned shift = ((unsigned)v & 3u) * 8u;
+    const unsigned old = atomicOr(
+        reinterpret_cast<unsigned*>(level) + ((unsigned)v >> 2),
+        kClaim << shift);
+    if (((old >> shift) & 0xffu) == 0) counts[v] += 1;
+  } else {
+    // a bit a node: the set fits the SM's L1 far better than the bytes; a
+    // stale word only misses a mark of this launch, and the mark is the same
+    const uint32_t bit = 1u << (v & 31);
+    uint32_t* word = visited + ((uint32_t)v >> 5);
+    if (*word & bit) return;
+    atomicOr(word, bit);
+    level[v] = mark;
   }
-  const int64_t p = (n4 << 2) + (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (p < num_node) counts[p] += mask[p];
+}
+
+template <bool kLast>
+__global__ void __launch_bounds__(kThreads)
+closure_expand_kernel(const int32_t* __restrict__ indptr,
+                      const int32_t* __restrict__ indices, int64_t num_node,
+                      uint8_t* level, uint32_t* visited, uint8_t tag,
+                      const uint32_t* summary_g,
+                      int64_t summary_words, int log2_group,
+                      const int4* __restrict__ hubs,
+                      const int32_t* __restrict__ hub_count, bool aligned,
+                      int32_t* __restrict__ counts) {
+  extern __shared__ uint32_t summary[];
+  __shared__ int32_t delta[kWarps][32];
+  if (kLast) {
+    for (int64_t i = threadIdx.x; i < summary_words; i += kThreads)
+      summary[i] = summary_g[i];
+    __syncthreads();
+  }
+  const uint8_t mark = tag + 1;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int64_t tiles = (num_node + 31) / 32;
+  const int64_t units = tiles + *hub_count;
+  const int64_t num_warps = (int64_t)gridDim.x * kWarps;
+  for (int64_t u = (int64_t)blockIdx.x * kWarps + warp; u < units;
+       u += num_warps) {
+    if (u >= tiles) {  // a hub chunk: [first, end) of one long row
+      const int4 h = hubs[u - tiles];
+      if (level[h.x] != tag) continue;
+      for (int32_t base = h.y; base < h.z; base += 32 * kUnroll) {
+        int32_t v[kUnroll];
+#pragma unroll
+        for (int k = 0; k < kUnroll; ++k) {
+          const int32_t p = base + 32 * k + lane;
+          v[k] = p < h.z ? index_at(indices + p) : -1;
+        }
+#pragma unroll
+        for (int k = 0; k < kUnroll; ++k)
+          visit<kLast>(v[k], num_node, level, visited, mark, summary,
+                       log2_group, counts);
+      }
+      continue;
+    }
+    const int64_t row = u * 32 + lane;
+    const bool real = row < num_node;
+    const uint8_t lv = real ? level[row] : 1;
+    const bool in = real && lv == tag;
+    if (__ballot_sync(kFull, in) == 0) continue;
+    int32_t lo = 0, hi = 0;
+    if (real) {
+      lo = __ldg(indptr + row);
+      hi = __ldg(indptr + row + 1);
+    }
+    int32_t deg = in ? hi - lo : 0;
+    if (deg > kHub || deg < 0) deg = 0;  // a hub's chunks take it
+    // A closed tile (every row in the frontier or expanded by an earlier
+    // layer, so their targets are all marked already; no hub) whose
+    // frontier holds at least half its edges streams its whole index
+    // range.  A level past tag is a mark or a claim of this launch: such a
+    // row must not expand, so its tile is not closed.
+    if (aligned &&
+        __all_sync(kFull, lv != 0 && lv <= tag && hi - lo <= kHub)) {
+      const int32_t first = __shfl_sync(kFull, lo, 0);
+      const int32_t end = __reduce_max_sync(kFull, real ? hi : 0);
+      if (2 * (int32_t)__reduce_add_sync(kFull, (unsigned)deg) >=
+          end - first) {
+        for (int32_t base = first & ~3; base < end;
+             base += 128 * kVecUnroll) {
+          int4 x[kVecUnroll];
+#pragma unroll
+          for (int k = 0; k < kVecUnroll; ++k) {
+            const int32_t p = base + 128 * k + 4 * lane;
+            if (p + 4 <= end) {
+              x[k] = __ldcs(reinterpret_cast<const int4*>(indices + p));
+            } else {  // the run's last words: none past its end
+              x[k] = make_int4(p < end ? __ldcs(indices + p) : -1,
+                               p + 1 < end ? __ldcs(indices + p + 1) : -1,
+                               p + 2 < end ? __ldcs(indices + p + 2) : -1,
+                               -1);
+            }
+          }
+#pragma unroll
+          for (int k = 0; k < kVecUnroll; ++k) {
+            const int32_t p = base + 128 * k + 4 * lane;
+            const int32_t w[4] = {x[k].x, x[k].y, x[k].z, x[k].w};
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+              if (p + j >= first && p + j < end)
+                visit<kLast>(w[j], num_node, level, visited, mark,
+                             summary, log2_group, counts);
+          }
+        }
+        continue;
+      }
+    }
+    int32_t incl = deg;  // the tile's edges as one run: a scan of degrees
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int32_t t = __shfl_up_sync(kFull, incl, o);
+      if (lane >= o) incl += t;
+    }
+    const int32_t total = __shfl_sync(kFull, incl, 31);
+    const bool has = deg > 0;
+    const unsigned nz = __ballot_sync(kFull, has);
+    // the k-th row with edges: its index position less its run position
+    if (has) delta[warp][__popc(nz & ((1u << lane) - 1))] = lo - (incl - deg);
+    __syncwarp();
+    for (int32_t base = 0; base < total; base += 32 * kUnroll) {
+      int32_t v[kUnroll];
+#pragma unroll
+      for (int k = 0; k < kUnroll; ++k) {
+        const int32_t b = base + 32 * k;
+        // run position b + lane's row: the rows ending at or before b,
+        // plus those ending in (b, b + lane]
+        const int below = __popc(__ballot_sync(kFull, has && incl <= b));
+        const int32_t d = incl - b - 1;
+        const unsigned ends = __reduce_or_sync(
+            kFull, has && d >= 0 && d < 31 ? 1u << d : 0u);
+        const int32_t e = b + lane;
+        v[k] = e < total
+                   ? index_at(indices + e +
+                              delta[warp][below +
+                                          __popc(ends & ((1u << lane) - 1))])
+                   : -1;
+      }
+#pragma unroll
+      for (int k = 0; k < kUnroll; ++k)
+        visit<kLast>(v[k], num_node, level, visited, mark, summary,
+                     log2_group, counts);
+    }
+    __syncwarp();
+  }
+}
+
+// counts[v] += (level[v] != 0), four nodes a thread; with summary, also
+// the bits of the groups that hold an unmarked node (summary zeroed).
+__global__ void __launch_bounds__(kThreads)
+closure_count_kernel(int32_t* __restrict__ counts,
+                     const uint8_t* __restrict__ level, int64_t num_node,
+                     uint32_t* __restrict__ summary, int log2_group) {
+  const int lane = threadIdx.x & 31;
+  const int64_t quads = (num_node + 3) / 4;
+  const int64_t step = (int64_t)gridDim.x * kThreads;
+  const uchar4* l4 = reinterpret_cast<const uchar4*>(level);
+  int4* c4 = reinterpret_cast<int4*>(counts);
+  for (int64_t q0 = (int64_t)blockIdx.x * kThreads + (threadIdx.x & ~31);
+       q0 < quads; q0 += step) {
+    const int64_t q = q0 + lane;
+    bool unmarked = false;
+    if (q < quads) {
+      if (4 * q + 3 < num_node) {
+        const uchar4 m = __ldg(l4 + q);
+        int4 c = c4[q];
+        c.x += m.x != 0;
+        c.y += m.y != 0;
+        c.z += m.z != 0;
+        c.w += m.w != 0;
+        c4[q] = c;
+        unmarked = !m.x || !m.y || !m.z || !m.w;
+      } else {
+        for (int64_t v = 4 * q; v < num_node; ++v) {
+          counts[v] += level[v] != 0;
+          unmarked |= level[v] == 0;
+        }
+      }
+    }
+    if (summary != nullptr) {
+      // quad q is in group q >> (log2_group - 2); the warp's groups share
+      // one summary word
+      const int s = log2_group - 2;
+      const int64_t g0 = q0 >> s;
+      const unsigned bits = __reduce_or_sync(
+          kFull, unmarked ? 1u << (int)((q >> s) - g0) : 0u);
+      if (lane == 0 && bits)
+        atomicOr(summary + (g0 >> 5), bits << (g0 & 31));
+    }
+  }
 }
 
 }  // namespace
@@ -150,40 +403,66 @@ extern "C" int xg_accumulate_freq(void* freq, long long num_node,
   return (int)cudaGetLastError();
 }
 
+// The scratch bytes xg_closure_expand needs for a graph of num_node nodes
+// and num_edge edges (the level bytes, the summary, the hub plan).
+extern "C" long long xg_closure_scratch_bytes(long long num_node,
+                                              long long num_edge) {
+  return (long long)closure_layout(num_node, num_edge).total;
+}
+
 // indptr: (num_node + 1,) int32; indices: (num_edge,) int32; seeds: (n,)
-// int32 (ids outside [0, num_node) ignored); mask_a, mask_b: scratch of
-// num_node bytes each; counts: (num_node,) int32, 16-byte aligned, added to
-// in place.  Returns cudaGetLastError() after the last launch.
+// int32 (ids outside [0, num_node) ignored); scratch: at least
+// xg_closure_scratch_bytes(num_node, num_edge) bytes, 16-byte aligned;
+// counts: (num_node,) int32, 16-byte aligned, added to in place.  Returns
+// cudaGetLastError() after the last launch.
 extern "C" int xg_closure_expand(const void* indptr, const void* indices,
-                                 long long num_node, const void* seeds,
-                                 long long n, int num_layer, void* mask_a,
-                                 void* mask_b, void* counts, int device,
-                                 void* stream) {
-  if (n < 0 || num_node < 0 || num_node > INT32_MAX || num_layer < 0 ||
+                                 long long num_node, long long num_edge,
+                                 const void* seeds, long long n,
+                                 int num_layer, void* scratch,
+                                 long long scratch_bytes, void* counts,
+                                 int device, void* stream) {
+  if (n < 0 || num_node < 0 || num_node > INT32_MAX - 1 || num_edge < 0 ||
+      num_edge > INT32_MAX - 256 || num_layer < 0 || num_layer > 126 ||
       reinterpret_cast<uintptr_t>(counts) % 16 != 0 ||
-      reinterpret_cast<uintptr_t>(mask_a) % 4 != 0 ||
-      reinterpret_cast<uintptr_t>(mask_b) % 4 != 0)
+      reinterpret_cast<uintptr_t>(scratch) % 16 != 0)
     return (int)cudaErrorInvalidValue;
-  if (num_node == 0) return (int)cudaGetLastError();
+  const ClosureScratch c = closure_layout(num_node, num_edge);
+  if (scratch_bytes < c.total) return (int)cudaErrorInvalidValue;
+  if (num_node == 0 || n == 0) return (int)cudaGetLastError();
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  uint8_t* cur = static_cast<uint8_t*>(mask_a);
-  uint8_t* nxt = static_cast<uint8_t*>(mask_b);
-  cudaMemsetAsync(cur, 0, (size_t)num_node, s);
-  if (n > 0)
-    seed_kernel<<<grid_for(n, device), kThreads, 0, s>>>(
-        cur, num_node, static_cast<const int32_t*>(seeds), n);
+  uint8_t* base = static_cast<uint8_t*>(scratch);
+  uint8_t* level = base;
+  uint32_t* visited = reinterpret_cast<uint32_t*>(base + c.visited_off);
+  uint32_t* summary = reinterpret_cast<uint32_t*>(base + c.summary_off);
+  int32_t* hub_count = reinterpret_cast<int32_t*>(base + c.count_off);
+  int4* hubs = reinterpret_cast<int4*>(base + c.hubs_off);
   const int32_t* ip = static_cast<const int32_t*>(indptr);
   const int32_t* ix = static_cast<const int32_t*>(indices);
-  const long long groups = (num_node + 31) / 32;
-  for (int l = 0; l < num_layer; ++l) {
-    cudaMemcpyAsync(nxt, cur, (size_t)num_node, cudaMemcpyDeviceToDevice, s);
-    expand_kernel<<<grid_for(groups * 32, device), kThreads, 0, s>>>(
-        ip, ix, num_node, cur, nxt);
-    uint8_t* t = cur;
-    cur = nxt;
-    nxt = t;
+  int32_t* cnt = static_cast<int32_t*>(counts);
+  cudaMemsetAsync(base, 0, (size_t)c.zero_bytes, s);
+  const bool plan = num_layer > 0;
+  const bool aligned = reinterpret_cast<uintptr_t>(indices) % 16 == 0;
+  closure_start_kernel<<<grid_for(plan && num_node > n ? num_node : n,
+                                  device),
+                         kThreads, 0, s>>>(
+      ip, num_node, static_cast<const int32_t*>(seeds), n, level, visited,
+      plan, hubs, hub_count);
+  const unsigned warps_grid = grid_for((num_node + 31) / 32 * 32, device);
+  for (int l = 0; l + 1 < num_layer; ++l)
+    closure_expand_kernel<false><<<warps_grid, kThreads, 0, s>>>(
+        ip, ix, num_node, level, visited, (uint8_t)(l + 1), nullptr, 0, 0,
+        hubs, hub_count, aligned, cnt);
+  closure_count_kernel<<<grid_for((num_node + 3) / 4, device), kThreads, 0,
+                         s>>>(cnt, level, num_node, plan ? summary : nullptr,
+                              c.log2_group);
+  if (plan) {
+    const size_t smem = (size_t)c.summary_words * 4;
+    cudaFuncSetAttribute(closure_expand_kernel<true>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         (int)smem);
+    closure_expand_kernel<true><<<warps_grid, kThreads, smem, s>>>(
+        ip, ix, num_node, level, visited, (uint8_t)num_layer, summary,
+        c.summary_words, c.log2_group, hubs, hub_count, aligned, cnt);
   }
-  add_kernel<<<grid_for((num_node + 3) / 4, device), kThreads, 0, s>>>(
-      static_cast<int32_t*>(counts), cur, num_node);
   return (int)cudaGetLastError();
 }

@@ -150,9 +150,10 @@ class GCNConv(nn.Module):
     """Graph convolution with the symmetric norm over the sampled block
     (DGL ``GraphConv(norm='both')``): ``b + deg_dst^-1/2 sum_k
     cnt_k^-1/2 h_k W``, where ``cnt_k`` is the multiplicity of pick k's id
-    in the block (K7) and rides K4's per-pick weights.  The transform runs
-    first when it narrows the rows (``in > out``, the logits), else after
-    the aggregate.  No activation inside: ``GNN`` applies it."""
+    in the block (K7, which writes ``cnt_k^-1/2`` too) and rides K4's
+    per-pick weights.  The transform runs first when it narrows the rows
+    (``in > out``, the logits), else after the aggregate.  No activation
+    inside: ``GNN`` applies it."""
 
     def __init__(self, in_dim: int, out_dim: int):
         super().__init__()
@@ -166,8 +167,7 @@ class GCNConv(nn.Module):
 
     def forward(self, block: Block, h_src: torch.Tensor) -> torch.Tensor:
         neigh, n = block.neigh, h_src.shape[0]
-        cnt = pick_multiplicity(neigh, n)
-        w = torch.rsqrt(torch.clamp(cnt.to(torch.float32), min=1.0))
+        _, w = pick_multiplicity(neigh, n)
         in_deg = ((neigh >= 0) & (neigh < n)).sum(1).to(torch.float32)
         if h_src.shape[1] > self.bias.shape[0]:
             agg, _ = fanout_reduce(self.fc(h_src), neigh, w)

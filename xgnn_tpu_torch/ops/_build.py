@@ -71,7 +71,7 @@ SIGNATURES = {
                              _P, _P, _P, _P, _P],
     },
     "degree": {
-        "xg_pick_multiplicity": [_P, _P, _P, _LL, _LL, _P],
+        "xg_pick_multiplicity": [_P] * 4 + [_LL, _LL, _P],
     },
     "weighted": {
         "xg_sample_prefix": [_P] * 7 + [_LL, _LL, _I] + [_P] * 3 + [_LL, _P],
@@ -88,7 +88,9 @@ SIGNATURES = {
     },
     "presample": {
         "xg_accumulate_freq": [_P, _LL, _P, _LL, _P, _I, _P],
-        "xg_closure_expand": [_P, _P, _LL, _P, _LL, _I, _P, _P, _P, _I, _P],
+        "xg_closure_expand": [_P, _P, _LL, _LL, _P, _LL, _I, _P, _LL, _P,
+                              _I, _P],
+        "xg_closure_scratch_bytes": [_LL, _LL],
     },
     "spmm": {
         "xg_spmm_csr": [_P] * 4 + [_LL, _LL, _LL, _I, _LL, _P],
@@ -104,6 +106,9 @@ SIGNATURES = {
     },
 }
 
+
+# entry points that return something other than a cudaError_t
+RESTYPES = {"xg_closure_scratch_bytes": _LL}
 
 # K5 over a 2-byte table: attend.cu with its element chosen at build time
 VARIANTS = {
@@ -211,7 +216,7 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(library_path(name)))
             for fn, argtypes in SIGNATURES[name].items():
                 getattr(lib, fn).argtypes = argtypes
-                getattr(lib, fn).restype = ctypes.c_int
+                getattr(lib, fn).restype = RESTYPES.get(fn, ctypes.c_int)
             _libs[name] = lib
         return lib
 

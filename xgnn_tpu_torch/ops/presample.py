@@ -8,9 +8,10 @@ within ``num_layer`` hops of the seeds (every neighbour, not a sample)
 added into ``counts`` in place, as the JAX package's ``expand`` does with
 its edge-parallel bitmask closure.
 
-The CUDA kernels are ``csrc/presample.cu``.  :func:`accumulate_freq_plain`
-(``index_put_`` with ``accumulate=True``) and :func:`closure_expand_plain`
-(the edge-parallel closure in PyTorch ops) are their plain versions: the
+The CUDA kernels are ``csrc/presample.cu``; K12b there is a BFS by levels
+that expands each row once.  :func:`accumulate_freq_plain` (``index_put_``
+with ``accumulate=True``) and :func:`closure_expand_plain` (the
+edge-parallel closure in PyTorch ops) are their plain versions: the
 wrappers take them only for tensors on the CPU.  Both are exact.  Launches
 are counted as ``accumulate_freq`` and ``closure_expand``, one a call.
 """
@@ -20,6 +21,8 @@ from __future__ import annotations
 import torch
 
 from . import _build
+
+MAX_LAYERS = 126  # the CUDA kernel keeps a node's first layer in a byte
 
 
 def accumulate_freq_plain(freq: torch.Tensor, ids: torch.Tensor, num_input):
@@ -103,14 +106,18 @@ def closure_expand(indptr: torch.Tensor, indices: torch.Tensor,
         raise ValueError(f"closure_expand: no kernel for {seeds.device}")
     if counts.data_ptr() % 16:
         raise ValueError("closure_expand: counts must be 16-byte aligned")
+    if num_layer > MAX_LAYERS:
+        raise ValueError(f"closure_expand: num_layer {num_layer} past the "
+                         f"kernel's {MAX_LAYERS} (a level byte a node)")
     lib = _build.load("presample")
     dev = seeds.device
-    masks = [torch.empty(max(num_node, 1), dtype=torch.uint8, device=dev)
-             for _ in range(2)]
+    num_edge = indices.shape[0]
+    size = lib.xg_closure_scratch_bytes(num_node, num_edge)
+    scratch = torch.empty(size, dtype=torch.uint8, device=dev)
     rc = lib.xg_closure_expand(
-        indptr.data_ptr(), indices.data_ptr(), num_node, seeds.data_ptr(),
-        seeds.shape[0], num_layer, masks[0].data_ptr(), masks[1].data_ptr(),
-        counts.data_ptr(), dev.index, _build.stream_handle(dev))
+        indptr.data_ptr(), indices.data_ptr(), num_node, num_edge,
+        seeds.data_ptr(), seeds.shape[0], num_layer, scratch.data_ptr(),
+        size, counts.data_ptr(), dev.index, _build.stream_handle(dev))
     _build.check(rc, "closure_expand")
     _build.LAUNCHES.add("closure_expand")
     return counts
