@@ -310,6 +310,29 @@ Phases, each fatal on failure:
    ms a step, K11's split and reads, K13 and NCCL, device ms a step) beside
    phase 8's graphsage_cached (its hit rate, miss bytes a step and K11's
    device ms).  The phase's wall time and the ``{"ggms": ...}`` JSON line.
+17. The host cold tier under the partitioned topology and the exact
+   presample_static over the cards, at P = 1 (MultiChipEngine over NCCL):
+   ``graphsage_multichip_tiered`` (``use_dist_graph`` at phase 12's 0.85:
+   the hot prefix partitioned, the whole CSR pinned and mapped, the cold
+   rows drawn on the requesting rank by K2's cold form; bench.py's
+   XGNN_BENCH_DIST_GRAPH=1 XGNN_BENCH_DIST_PCT=0.85 run) with K13-plan's
+   hot mask and the cold form at the three layers' frontiers of one batch
+   against their plain versions (the cold rows, their host sectors, the
+   bound over PCIe and over the measured ceilings), then a warm-up, a
+   counted and a profiled epoch beside graphsage_multichip (phase 15) and
+   graphsage_tiered (phase 12), with each cold launch's device ms;
+   ``pinsage_multichip_tiered`` (the walk's cold steps, K8a's cold form at
+   fanout W and 1) likewise beside pinsage_multichip;
+   ``graphsage_multichip_ggms_static`` (cache 0.2, presample_static: the
+   exact closure, K12b's partitioned form a layer and a reduce by owner;
+   its counts bit-equal to static_exact_ranking's over the same batches,
+   its ranking time beside phase 8's, K12b's partitioned form against its
+   plain version at each layer of a batch, its hit rate),
+   ``graphsage_multichip_ggms_static_replicated`` (the replicated form: the
+   single store's K12b and one reduce) and
+   ``graphsage_multichip_ggms_static_tiered`` (the wide-khop approximation
+   under the cold tier, its hit rate beside the exact ranking's).  The
+   phase's wall time and the ``{"dist_cold": ...}`` JSON line.
 
 Each kernel is timed twice: ``ms`` back to back (the wrapper's host time
 included, where the host is the slower) and ``device_ms`` with the host
@@ -322,9 +345,9 @@ pick; K4's mean form moves the sum form's bytes.  K4's mean-form
 Prints the inference's JSON line, the tooling's (phase 10), the training
 options' (phase 11), the tiered topology's (phase 12), the dataset
 files' (phase 13), the last configurations' (phase 14), the multi-card
-engine's (phase 15), the two-phase GGMS's (phase 16), the kernels' JSON
-line, then the card's line (nvidia-smi's name and power limit), then the
-result line.
+engine's (phase 15), the two-phase GGMS's (phase 16), the cold tier's
+and the exact presample's (phase 17), the kernels' JSON line, then the
+card's line (nvidia-smi's name and power limit), then the result line.
 Exits non-zero with no result line when there is no CUDA device.
 """
 
@@ -5245,6 +5268,420 @@ def main() -> int:
     print(f"{tag} phase 16 (the two-phase GGMS at P = 1) wall time "
           f"{ggms_rows['wall_s']:.3f} s", flush=True)
     print(json.dumps({"ggms": ggms_rows}), flush=True)
+
+    # ---- 17. the host cold tier under the partitioned topology, and the
+    # exact presample_static over the cards, at P = 1 ----------------------
+    # MultiChipEngine with use_dist_graph at phase 12's 0.85: the hot
+    # prefix partitioned (one part at P = 1), the whole CSR pinned and
+    # mapped, the cold rows drawn on the requesting rank by the samplers'
+    # cold form (K2's and K8a's, no device CSR read) and merged in the
+    # select that masks the response's EMPTY picks; then presample_static
+    # with cache 0.2: the exact closure over the partitioned topology (K12b's
+    # partitioned form and a reduce by owner a layer), over the replicated
+    # one (the single store's K12b, one reduce), and with the cold tier (the
+    # wide khop0 through the tiered presample step)
+    from xgnn_tpu_torch.ops.presample import (
+        closure_parts,
+        closure_parts_plain,
+    )
+    from xgnn_tpu_torch.ops.sampling import sample_cold, sample_cold_plain
+
+    torch.cuda.empty_cache()
+    t17 = time.perf_counter()
+    cold17 = {}
+    tcfg = dataclasses.replace(mcfg, dist_graph_percentage=TIER_PCT)
+    pin_mcfg = dataclasses.replace(
+        mcfg, model="pinsage", sample_type="random_walk",
+        fanout=(NUM_NEIGHBOR,) * 2, frontier_capacities=None,
+        calibration_batches=2, num_random_walk=WALK["num_random_walk"],
+        random_walk_length=WALK["random_walk_length"],
+        random_walk_restart_prob=WALK["restart_prob"],
+        num_neighbor=NUM_NEIGHBOR, dist_graph_percentage=TIER_PCT)
+    expected.update({
+        # the untiered paths' kernels and one cold launch a layer (a walk
+        # step)
+        "graphsage_multichip_tiered": dict(
+            counts_by_path["graphsage_multichip"],
+            sample_khop_cold=3 * steps),
+        "pinsage_multichip_tiered": dict(
+            counts_by_path["pinsage_multichip"], sample_wr_cold=6 * steps),
+        "graphsage_multichip_ggms_static": counts_by_path[
+            "graphsage_multichip_ggms"],
+        # the replicated topology's sampling (no layer exchange)
+        "graphsage_multichip_ggms_static_replicated": dict(
+            counts_by_path["graphsage_multichip_ggms"],
+            plan_exchange=2 * steps, gather_rows=4 * steps),
+        "graphsage_multichip_ggms_static_tiered": dict(
+            counts_by_path["graphsage_multichip_ggms"],
+            sample_khop_cold=3 * steps),
+    })
+    edge_pos = torch.arange(g.num_edge, dtype=torch.int32, device=dev)
+
+    def cold_case(name, form, what, frontier, k, tier17, u, per_step, path,
+                  replaces):
+        """The cold form at a main-path frontier against its plain version
+        (exact), timed, with its bound: the larger of its in-order bytes
+        (the frontier, u and the output) over HBM and the distinct 32-byte
+        sectors of host memory its cold rows read over PCIe; beside it
+        those sectors over the measured ceilings."""
+        got = sample_cold(form, tier17, frontier, k, u=u)
+        ref = sample_cold_plain(form, tier17, frontier, k, u=u)
+        torch.cuda.synchronize()
+        assert_close(f"{name} {what}", got, ref, exact=True)
+        _, n_sec, _, cold_rows = cold_traffic(
+            frontier, k, "khop" if form == "khop" else "wr", u, None, got)
+        nbytes = frontier.numel() * 4 + u.numel() * 4 + got.numel() * 4
+        hbm_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        pcie_ms = n_sec * 32 / PCIE_BYTES_PER_S * 1e3
+        source = SOURCES[name.replace("_cold", "")]
+        record(name, f"xgnn_tpu_torch/csrc/{source}",
+               replaces, f"cold form, {what}: frontier {frontier.shape[0]} "
+               f"({cold_rows} cold rows) x K={k}, "
+               f"{int((got != empty).sum())} picks", 0.0, "exact",
+               lambda: sample_cold(form, tier17, frontier, k, u=u),
+               lambda: sample_cold_plain(form, tier17, frontier, k, u=u),
+               None, "none: no PyTorch call reads mapped host memory in place",
+               nbytes=nbytes, flops=0, per_step=per_step, path=path,
+               plain_reps=1, bound=max((hbm_ms, "bytes"), (pcie_ms, "bytes")))
+        kernels[-1].update(cold_rows=cold_rows, cold_sectors=n_sec,
+                           hbm_bound_ms=hbm_ms, pcie_bound_ms=pcie_ms,
+                           ceiling_ms=n_sec / read_rate * 1e3,
+                           line_ceiling_ms=n_sec / line_rate * 1e3)
+        print(f"{tag} {name} {what}: {cold_rows} cold rows, {n_sec} sectors "
+              f"from host memory; {kernels[-1]['device_ms']:.4f} ms on the "
+              f"card alone; bound PCIe {pcie_ms:.4f} ms, HBM {hbm_ms:.4f} ms;"
+              f" at the measured ceilings {kernels[-1]['ceiling_ms']:.4f} ms "
+              f"(32-byte reads) / {kernels[-1]['line_ceiling_ms']:.4f} ms "
+              "(128-byte)", flush=True)
+        return got, cold_rows
+
+    def tiered_row(path, eng, init_s, ref_path):
+        row = multi_epochs(path, eng)
+        prof17 = profiled_epoch(path, eng, 2) or {}
+        groups = prof17.get("group_ms", {})
+        # the cold form's launches: the tiered builds (kTiered true)
+        cold_ms = {n: v for n, v in (prof17.get("sampler_ms") or {}).items()
+                   if "true>" in n}
+        ref = multi_rows[ref_path]
+        row.update(
+            init_s=init_s, capacities=list(eng.capacities),
+            busy_ms_per_step=prof17.get("busy_ms_per_step"),
+            busy_share=prof17.get("busy_share"),
+            cold_launch_ms=cold_ms,
+            untiered_busy_ms_per_step=ref.get("busy_ms_per_step"),
+            untiered_epoch_s=ref.get("epoch_s"),
+            nccl_ms_per_step=groups.get("NCCL collectives, *nccl*"),
+            plan_exchange_ms_per_step=groups.get("K13-plan, *plan_*"),
+            peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30)
+        return row
+
+    # graphsage_multichip_tiered: bench.py's XGNN_BENCH_DIST_GRAPH=1
+    # XGNN_BENCH_DIST_PCT=0.85 run
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    teng = MultiChipEngine(ds, tcfg).init()
+    torch.cuda.synchronize()
+    init_t = time.perf_counter() - t0
+    try:
+        got_ncn = None if teng.tier is None else teng.tier.num_cache_node
+        if got_ncn != ncn:
+            raise AssertionError("graphsage_multichip_tiered: hot prefix "
+                                 f"{got_ncn} against phase 12's {ncn}")
+        print(f"{tag} graphsage_multichip_tiered init: {init_t:.3f} s (the "
+              f"hot prefix {ncn} of {n_all} nodes partitioned, the whole CSR "
+              "pinned and mapped); capacities "
+              f"{teng.capacities}, exchange segment {teng.seg_cap}",
+              flush=True)
+        # one batch through the tiered layers: K13-plan with the hot mask
+        # and the cold form at each layer's frontier, against their plain
+        # versions; the cold rows a layer
+        it = teng._shuffler(ds.train_set, tcfg.seed + 1).epoch_batches(0)
+        s_seeds, s_n = teng._next(it)
+        frontier, num_f = s_seeds, torch.full((), s_n, dtype=torch.int32,
+                                              device=dev)
+        caps, cold_by_layer = teng.capacities, []
+        for layer, k in enumerate(FANOUT):
+            seg = max(int(np.ceil(teng.seg_cap * caps[layer] / caps[-1])),
+                      128)
+            seg = max(min(seg, frontier.shape[0]), 1)
+            f_ = frontier
+            got = plan_exchange(f_, 1, seg, ncn)
+            want = plan_exchange_plain(f_, 1, seg, hot_limit=ncn)
+            for name in ("send", "pick", "overflow"):
+                if not torch.equal(getattr(got, name), getattr(want, name)):
+                    raise AssertionError(f"plan_exchange (hot_limit) layer "
+                                         f"{layer}: {name} differs")
+            n = f_.shape[0]
+            record("plan_exchange", "xgnn_tpu_torch/csrc/exchange.cu",
+                   "xgnn_tpu/parallel/dist_topology.py:285-291 (the hot "
+                   "mask) and exchange.py:49-84 (plan_exchange)",
+                   f"hot_limit {ncn}, layer {layer}: {n} ids into (1, {seg})",
+                   0.0, "exact (send, pick, overflow)",
+                   lambda: plan_exchange(f_, 1, seg, ncn),
+                   lambda: plan_exchange_plain(f_, 1, seg, hot_limit=ncn),
+                   None, "none (no single PyTorch call groups requests by "
+                   "owner)", nbytes=n * 4 + seg * 4 + n * 4, flops=0,
+                   per_step=5, path="graphsage_multichip_tiered")
+            u = torch.rand((n, k), generator=generator(dev, 190 + layer),
+                           device=dev)
+            _, cold_rows = cold_case(
+                "sample_khop_cold", "khop", f"layer {layer}", f_, k,
+                teng.tier, u, 1, "graphsage_multichip_tiered",
+                "xgnn_tpu/parallel/dist_topology.py:315-330 with "
+                "xgnn_tpu/parallel/ggms.py:264-487 (the cold rows' host "
+                "callback)")
+            cold_by_layer.append(cold_rows)
+            nbr, _ = dist_topology.sample_layer_partitioned(
+                teng.topo, f_, k, teng.mesh, seg, tcfg.sample_type,
+                generator(dev, 195 + layer))
+            frontier, num_u, _ = unique_seeded_split(
+                f_, nbr.reshape(-1), num_f, caps[layer + 1],
+                num_node=NUM_NODE)
+            num_f = torch.clamp(num_u, max=caps[layer + 1])
+        del got, want, nbr, frontier, u
+        row = tiered_row("graphsage_multichip_tiered", teng, init_t,
+                         "graphsage_multichip")
+        sec = [k["cold_sectors"] for k in kernels
+               if k["name"] == "sample_khop_cold"]
+        row.update(cold_rows_by_layer=cold_by_layer,
+                   cold_sectors_by_layer=sec,
+                   cold_pcie_bound_ms=[s * 32 / PCIE_BYTES_PER_S * 1e3
+                                       for s in sec],
+                   cold_ceiling_ms=[s / read_rate * 1e3 for s in sec],
+                   cold_line_ceiling_ms=[s / line_rate * 1e3 for s in sec],
+                   graphsage_tiered=tier_rows_out["paths"].get(
+                       "graphsage_tiered"))
+        cold17["graphsage_multichip_tiered"] = row
+        print(f"{tag} graphsage_multichip_tiered: counted epoch "
+              f"{row['epoch_s']:.3f} s (graphsage_multichip "
+              f"{row['untiered_epoch_s']:.3f} s, graphsage_tiered "
+              f"{(row['graphsage_tiered'] or {}).get('epoch_s')} s); busy "
+              f"{row['busy_ms_per_step']} ms a step (graphsage_multichip "
+              f"{row['untiered_busy_ms_per_step']}, graphsage_tiered "
+              f"{(row['graphsage_tiered'] or {}).get('busy_ms_per_step')}); "
+              f"cold rows by layer {cold_by_layer}; the cold launches "
+              f"{row['cold_launch_ms']}", flush=True)
+    finally:
+        teng.close()
+    del teng
+
+    # pinsage_multichip_tiered: the partitioned walk, a walker on a cold
+    # node stepping from the host CSR on its own rank
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    peng = MultiChipEngine(ds, pin_mcfg).init()
+    init_p = time.perf_counter() - t0
+    try:
+        seeds_p, n_p = peng._next(peng._shuffler(ds.train_set,
+                                                 3).epoch_batches(0))
+        w = WALK["num_random_walk"]
+        b = seeds_p.shape[0]
+        # the walk's step 0 (a fanout-W draw over the seeds) and step 1
+        # (fanout 1 over the B * W walkers where step 0 left them) at
+        # layer 0
+        seg = max(int(np.ceil(peng.seg_cap * peng.capacities[0]
+                              / peng.capacities[-1])), 128)
+        visits, _ = dist_topology.walk_visits_partitioned(
+            peng.topo, seeds_p, peng.mesh, seg, num_random_walk=w,
+            random_walk_length=1, restart_prob=WALK["restart_prob"],
+            generator=generator(dev, 196))
+        seed2d = seeds_p[:, None].expand(b, w)
+        walkers = torch.where(visits[:, :, 0] == empty, seed2d,
+                              visits[:, :, 0]).reshape(-1).contiguous()
+        del visits, seed2d
+        cold_walk = []
+        for what, f_, k in (("walk step 0, fanout W", seeds_p, w),
+                            ("walk step 1, fanout 1", walkers, 1)):
+            u = torch.rand((f_.shape[0], k), generator=generator(dev, 197),
+                           device=dev)
+            cold_walk.append(cold_case(
+                "sample_wr_cold", "uniform_wr", what, f_, k, peng.tier, u,
+                3, "pinsage_multichip_tiered",
+                "xgnn_tpu/parallel/dist_topology.py:334-430 (the walk's "
+                "steps) with ggms.py:264-487 (the cold rows' host "
+                "callback)")[1])
+        row = tiered_row("pinsage_multichip_tiered", peng, init_p,
+                         "pinsage_multichip")
+        pin_tiered = tier_rows_out["paths"].get("pinsage_tiered") or {}
+        row.update(cold_rows_walk_layer0=cold_walk,
+                   pinsage_tiered_busy_ms_per_step=pin_tiered.get(
+                       "busy_ms_per_step"),
+                   pinsage_busy_ms_per_step=pin_tiered.get(
+                       "untiered_busy_ms_per_step"))
+        cold17["pinsage_multichip_tiered"] = row
+        print(f"{tag} pinsage_multichip_tiered: counted epoch "
+              f"{row['epoch_s']:.3f} s (pinsage_multichip "
+              f"{row['untiered_epoch_s']:.3f} s); busy "
+              f"{row['busy_ms_per_step']} ms a step (pinsage_tiered "
+              f"{row['pinsage_tiered_busy_ms_per_step']}, pinsage "
+              f"{row['pinsage_busy_ms_per_step']}); the cold launches "
+              f"{row['cold_launch_ms']}", flush=True)
+    finally:
+        peng.close()
+    del peng
+
+    # presample_static with a partial cache: the exact closure over the
+    # partitioned and the replicated topologies, its counts held to the
+    # single store's static_exact_ranking over the engine's presample
+    # batches, and the wide-khop approximation under the cold tier
+    scfg = dataclasses.replace(gcfg, cache_policy="presample_static")
+    single_cfg = dataclasses.replace(scfg, seed=scfg.seed ^ 0x5EED)
+    want_counts = static_exact_ranking(ds.graph, ds.train_set, single_cfg,
+                                       NUM_NODE, dev)
+    for path, change in (
+            ("graphsage_multichip_ggms_static", {}),
+            ("graphsage_multichip_ggms_static_replicated",
+             dict(use_dist_graph=False)),
+            ("graphsage_multichip_ggms_static_tiered",
+             dict(dist_graph_percentage=TIER_PCT))):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        _build.LAUNCHES.reset()
+        t0 = time.perf_counter()
+        seng = MultiChipEngine(ds, dataclasses.replace(scfg, **change)).init()
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        counts_by_path[path + "_init"] = _build.LAUNCHES.snapshot()
+        items = seng.profiler._init_items
+        try:
+            row = {"init_s": init_s, "presample_s": items.get(
+                "presample_time"), "init_launches": counts_by_path[
+                    path + "_init"], "presample_static_ranking_s": static_s}
+            if seng.tier is None:
+                # the engine's ranking pass again, timed: its counts against
+                # the single store's over the same batches, bit for bit
+                fn = seng._freq_step()
+                freq = seng._zero_counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                seng._presample_batches(fn, freq, 0, lambda step: 0)
+                torch.cuda.synchronize()
+                rank_s = time.perf_counter() - t0
+                got_counts = seng._full_counts(freq)
+                if not np.array_equal(got_counts, want_counts):
+                    raise AssertionError(
+                        f"{path}: the exact counts differ from "
+                        "static_exact_ranking's over the same batches "
+                        f"({int((got_counts != want_counts).sum())} nodes)")
+                row.update(ranking_s=rank_s, counts_bit_equal=True,
+                           nodes_counted=int((got_counts > 0).sum()))
+                print(f"{tag} {path}: ranking {rank_s:.3f} s over "
+                      f"{steps} batches (phase 8's single-store "
+                      f"presample_static ranking {static_s:.3f} s); counts "
+                      "bit-equal to static_exact_ranking's over the same "
+                      f"batches ({int(got_counts.sum())} in all)",
+                      flush=True)
+                if path == "graphsage_multichip_ggms_static":
+                    # K12b's partitioned form at each layer of the first
+                    # batch, against its plain version
+                    it = seng._shuffler(ds.train_set,
+                                        scfg.seed ^ 0x5EED).epoch_batches(0)
+                    s_seeds, s_n = seng._next(it)
+                    topo17 = seng.topo
+                    rows17 = topo17.indptr.shape[0] - 1
+                    level = torch.zeros((1, rows17), dtype=torch.uint8,
+                                        device=dev)
+                    recv = torch.zeros((1, rows17 + 1), dtype=torch.uint8,
+                                       device=dev)
+                    recv[0, s_seeds[:s_n].long()] = 1
+                    recv = recv[:, :rows17].contiguous()
+                    deg17 = (topo17.indptr[1:] - topo17.indptr[:-1]).long()
+                    for tag_l in range(1, len(FANOUT) + 2):
+                        lv0, rc0 = level.clone(), recv.clone()
+                        last = tag_l == len(FANOUT) + 1
+                        cnt = (torch.zeros(rows17, dtype=torch.int32,
+                                           device=dev) if last else None)
+                        out = closure_parts(topo17.indptr, topo17.indices,
+                                            level, recv, tag_l, NUM_NODE,
+                                            counts=cnt)
+                        l_ref = lv0.clone()
+                        ref = closure_parts_plain(
+                            topo17.indptr, topo17.indices, l_ref, rc0,
+                            tag_l, NUM_NODE, counts=None if cnt is None
+                            else torch.zeros_like(cnt))
+                        torch.cuda.synchronize()
+                        if not (torch.equal(out, ref)
+                                and torch.equal(level, l_ref)):
+                            raise AssertionError(
+                                f"closure_parts layer {tag_l}: differs from "
+                                "the plain version")
+                        front = (l_ref[0] == tag_l)
+                        edges = int(deg17[front].sum())
+                        nbytes = (rows17 * 3 + int(front.sum()) * 8
+                                  + edges * 4
+                                  + (rows17 * 4 * 2 if last else rows17))
+
+                        def again(lv0=lv0, rc0=rc0, tag_l=tag_l, last=last):
+                            return closure_parts(
+                                topo17.indptr, topo17.indices, lv0.clone(),
+                                rc0, tag_l, NUM_NODE,
+                                counts=torch.zeros(rows17, dtype=torch.int32,
+                                                   device=dev)
+                                if last else None)
+
+                        def again_plain(lv0=lv0, rc0=rc0, tag_l=tag_l,
+                                        last=last):
+                            return closure_parts_plain(
+                                topo17.indptr, topo17.indices, lv0.clone(),
+                                rc0, tag_l, NUM_NODE,
+                                counts=torch.zeros(rows17, dtype=torch.int32,
+                                                   device=dev)
+                                if last else None)
+
+                        record("closure_parts",
+                               "xgnn_tpu_torch/csrc/presample.cu",
+                               "xgnn_tpu/parallel/collocated.py:741-884 "
+                               "(make_presample_static_exact_step's "
+                               "partitioned closure)",
+                               ("count" if last else f"layer {tag_l}")
+                               + f": {rows17} rows, {int(front.sum())} "
+                               f"reached rows' {edges} edges", 0.0, "exact",
+                               again, again_plain, None,
+                               "none: no PyTorch call closes a graph",
+                               nbytes=nbytes, flops=0,
+                               per_step=len(FANOUT) + 1,
+                               path=path + "_init", plain_reps=1)
+                        if not last:
+                            recv = out[0].contiguous()
+                    del level, recv, out, ref, l_ref, deg17
+            row.update(multi_epochs(path, seng))
+            hists = [seng.history[e] for e in (0, 1)]
+            rates = [float(h["hit"].sum() / (h["hit"].sum()
+                                             + h["miss"].sum()))
+                     for h in hists]
+            row.update(hit_rate_epochs=rates, num_cache=seng.num_cache,
+                       peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30)
+            if path.endswith("_tiered"):
+                row["exact_hit_rate_epochs"] = cold17[
+                    "graphsage_multichip_ggms_static"]["hit_rate_epochs"]
+            if path == "graphsage_multichip_ggms_static":
+                prof_s = profiled_epoch(path, seng, 2) or {}
+                row.update(busy_ms_per_step=prof_s.get("busy_ms_per_step"),
+                           ggms_pre_sample_hit_rate=ggms_rows[
+                               "graphsage_multichip_ggms"][
+                                   "hit_rate_epochs"])
+            cold17[path] = row
+            print(f"{tag} {path}: init {init_s:.3f} s (presample "
+                  f"{row['presample_s']:.3f} s), launches in init "
+                  f"{row['init_launches']}; hit rate {rates[0]:.6f} (epoch "
+                  f"0), {rates[1]:.6f} (epoch 1)"
+                  + (f" against the exact ranking's "
+                     f"{row['exact_hit_rate_epochs']}"
+                     if path.endswith("_tiered") else "")
+                  + f"; counted epoch {row['epoch_s']:.3f} s", flush=True)
+        finally:
+            seng.close()
+        del seng
+    if not counts_by_path["graphsage_multichip_ggms_static_init"].get(
+            "closure_parts"):
+        raise AssertionError("graphsage_multichip_ggms_static: no "
+                             "closure_parts launch in its ranking")
+    cold17["wall_s"] = time.perf_counter() - t17
+    print(f"{tag} phase 17 (the cold tier under the partitioned topology and "
+          f"the exact presample_static at P = 1) wall time "
+          f"{cold17['wall_s']:.3f} s", flush=True)
+    print(json.dumps({"dist_cold": cold17}), flush=True)
 
     for k in kernels:
         k["launches"] = counts_by_path[k["path"]].get(k["name"], 0)

@@ -3283,3 +3283,167 @@ def test_multichip_engine_two_phase_on_the_card(dev, part_cache):
     finally:
         eng.close()
     assert not dist.is_initialized()
+
+
+# ------------------------------------ the partitioned topology's cold tier
+@pytest.fixture(scope="module")
+def cold_graph():
+    """A weighted graph and its host CSR, mapped for the card and plain on
+    the CPU, with the hot prefix at 40% of its nodes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from xgnn_tpu_torch import synthetic
+    from xgnn_tpu_torch.store.topology import MappedHostCSR, Tier
+
+    ds = synthetic.make_synthetic_dataset(num_node=5000, avg_degree=20,
+                                          feat_dim=8, num_class=4, seed=1)
+    synthetic.build_alias_tables(ds, seed=1)
+    tables = dict(prob_table=ds.prob_table, alias_table=ds.alias_table,
+                  prob_prefix_table=ds.prob_prefix_table)
+    ip = ds.indptr.astype(np.int64)
+    dev = torch.device("cuda", 0)
+    card = MappedHostCSR(ip, ds.indices, device=dev, **tables)
+    host = MappedHostCSR(ip, ds.indices, **tables)
+    yield ds, Tier(2000, card), Tier(2000, host)
+    card.close()
+
+
+@pytest.mark.parametrize("form", ["khop", "uniform_wr", "khop1", "alias",
+                                  "alias_dedup", "prefix"])
+@pytest.mark.parametrize("kind", ["mixed", "all_cold", "no_cold"])
+@pytest.mark.parametrize("fanout", [5, 7])
+def test_cold_form_kernel_equals_plain(dev, cold_graph, form, kind, fanout):
+    """The samplers' cold form (no device CSR: the partitioned topology's
+    requesting rank) bit-equal to its plain version on frontiers of mixed
+    ids, of cold ids only and of hot ids only (all EMPTY rows); one launch
+    a call."""
+    from xgnn_tpu_torch.ops import _build
+    from xgnn_tpu_torch.ops import sampling as ps
+
+    ds, tier, tier_cpu = cold_graph
+    g = torch.Generator().manual_seed(fanout)
+    n, ncn = 3001, tier.num_cache_node
+    lo, hi = {"mixed": (0, ds.num_node), "all_cold": (ncn, ds.num_node),
+              "no_cold": (0, ncn)}[kind]
+    f = torch.randint(lo, hi, (n,), generator=g, dtype=torch.int32)
+    f[::7] = EMPTY
+    width = ps.HASH_DEDUP_ROUNDS * fanout if form == "alias_dedup" else fanout
+    u = torch.rand((n, width), generator=g)
+    coin = (torch.rand((n, width), generator=g)
+            if form in ("alias", "alias_dedup") else None)
+    _build.LAUNCHES.reset()
+    got = ps.sample_cold(form, tier, f.to(dev), fanout, u=u.to(dev),
+                         coin=None if coin is None else coin.to(dev))
+    assert _build.LAUNCHES.snapshot() == {
+        ps.COLD_FORMS[form][1] + "_cold": 1}
+    want = ps.sample_cold(form, tier_cpu, f, fanout, u=u, coin=coin)
+    assert torch.equal(got.cpu(), want)
+    cold = (f != EMPTY) & (f >= ncn)
+    assert bool((want[~cold] == EMPTY).all())
+    assert (kind == "no_cold") == (not bool((want != EMPTY).any()))
+
+
+@pytest.mark.parametrize("num_parts", [1, 2, 4, 32])
+@pytest.mark.parametrize("hot_limit", [0, 1000, 2999, None])
+def test_plan_exchange_hot_limit_kernel_equals_plain(dev, num_parts,
+                                                     hot_limit):
+    """K13-plan with the hot mask folded in: ids at or past ``hot_limit``
+    are not sent and pick EMPTY, bit-equal to the plain version."""
+    from xgnn_tpu_torch.parallel.exchange import (
+        plan_exchange,
+        plan_exchange_plain,
+    )
+
+    g = _gen(dev, num_parts + (hot_limit or 7))
+    ids = torch.randint(0, 3000, (9001,), generator=g, device=dev,
+                        dtype=torch.int32)
+    ids[::5] = EMPTY
+    seg = 9001 // num_parts // 3 + 1
+    got = plan_exchange(ids, num_parts, seg, hot_limit)
+    want = plan_exchange_plain(ids.cpu(), num_parts, seg,
+                               hot_limit=hot_limit)
+    for name in ("send", "pick", "overflow"):
+        assert torch.equal(getattr(got, name).cpu(), getattr(want, name)), \
+            name
+
+
+@pytest.mark.parametrize("num_parts", [1, 3, 8])
+def test_closure_parts_kernel_equals_plain(dev, cold_graph, num_parts):
+    """K12b's partitioned form, layer by layer over each part (the update,
+    the owner-major marks of the reached rows' destinations, the levels)
+    and its count, bit-equal to JAX's edge-parallel form in torch ops."""
+    from xgnn_tpu_torch.ops.presample import (
+        closure_parts,
+        closure_parts_plain,
+    )
+    from xgnn_tpu_torch.parallel.dist_topology import partition_part
+
+    ds = cold_graph[0]
+    ip, ix = torch.from_numpy(ds.indptr.astype(np.int64)), torch.from_numpy(
+        ds.indices)
+    g = torch.Generator().manual_seed(num_parts)
+    for part in range(num_parts):
+        topo = partition_part(ip, ix, num_parts, part)
+        rows = topo.indptr.shape[0] - 1
+        level = torch.zeros((num_parts, rows), dtype=torch.uint8)
+        recv = (torch.rand((num_parts, rows), generator=g) < 0.02).to(
+            torch.uint8)
+        level_d, iptr_d, ind_d = level.to(dev), topo.indptr.to(dev), \
+            topo.indices.to(dev)
+        for tag in (1, 2, 3):
+            out = closure_parts(iptr_d, ind_d, level_d, recv.to(dev), tag,
+                                ds.num_node)
+            ref = closure_parts_plain(topo.indptr, topo.indices, level, recv,
+                                      tag, ds.num_node)
+            assert torch.equal(out.cpu(), ref) and torch.equal(
+                level_d.cpu(), level)
+            recv = (torch.rand((num_parts, rows), generator=g) < 0.1).to(
+                torch.uint8)
+        counts = torch.zeros(rows, dtype=torch.int32)
+        counts_d = counts.to(dev)
+        closure_parts(iptr_d, ind_d, level_d, recv.to(dev), 4, ds.num_node,
+                      counts=counts_d)
+        closure_parts_plain(topo.indptr, topo.indices, level, recv, 4,
+                            ds.num_node, counts=counts)
+        assert torch.equal(counts_d.cpu(), counts)
+
+
+@pytest.mark.parametrize("sample_type", ["khop3", "khop1", "weighted_khop",
+                                         "weighted_khop_prefix"])
+def test_tiered_partitioned_layer_on_card_equals_cpu(dev, cold_graph,
+                                                     sample_type):
+    """At P = 1 over NCCL the tiered partitioned layer (hot ids through
+    the exchange, cold ids through the cold form, merged in one select)
+    equals the same layer over gloo on the CPU with the same request-order
+    uniforms."""
+    from xgnn_tpu_torch.config import SampleType
+    from xgnn_tpu_torch.parallel import dist_topology
+    from xgnn_tpu_torch.parallel import mesh as pmesh
+
+    ds, tier, tier_cpu = cold_graph
+    tables = [torch.from_numpy(t) for t in (
+        ds.prob_table, ds.alias_table, ds.prob_prefix_table)]
+    ip = torch.from_numpy(ds.indptr.astype(np.int64))
+    ix = torch.from_numpy(ds.indices)
+    g = torch.Generator().manual_seed(3)
+    f = torch.randint(0, ds.num_node, (4000,), generator=g,
+                      dtype=torch.int32)
+    f[::9] = EMPTY
+    u = torch.rand((4000, 5), generator=g)
+    coin = torch.rand((4000, 5), generator=g)
+    outs = []
+    for device, t in ((dev, tier), ("cpu", tier_cpu)):
+        topo = dist_topology.partition_part(
+            ip.to(device), ix.to(device), 1, 0, tier.num_cache_node,
+            *[x.to(device) for x in tables])
+        topo.tier = t
+        m = pmesh.make_mesh(device)
+        try:
+            neigh, of = dist_topology.sample_layer_partitioned(
+                topo, f.to(device), 5, m, 4000, SampleType(sample_type),
+                u=u.to(device), coin=coin.to(device)
+                if sample_type == "weighted_khop" else None)
+            outs.append((neigh.cpu(), bool(of)))
+        finally:
+            m.close()
+    assert torch.equal(outs[0][0], outs[1][0]) and not outs[0][1]

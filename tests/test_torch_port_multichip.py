@@ -209,20 +209,6 @@ def test_owner_sample_duplicate_requests_independent(graph):
 
 
 # ------------------------------------------------- the ranks' suite
-def _owner_order(frontiers, num_parts, seg, draws):
-    """Each owner's uniforms as it receives the requests: rank r's request
-    i at slot ``r * seg + rank_i`` of owner ``owner_i``."""
-    out = [np.zeros((num_parts * seg,) + draws[0].shape[1:], np.float32)
-           for _ in range(num_parts)]
-    for r, f in enumerate(frontiers):
-        plan = exchange.plan_exchange_plain(_t(f), num_parts, seg, True)
-        o, k = plan.owner.numpy(), plan.rank.numpy()
-        ok = (o < num_parts) & (k < seg)
-        for i in np.nonzero(ok)[0]:
-            out[o[i]][r * seg + k[i]] = draws[r][i]
-    return out
-
-
 def _suite_data(ds, num_parts):
     rng = np.random.default_rng(num_parts)
     n = 160
@@ -239,13 +225,12 @@ def _suite_data(ds, num_parts):
     for st in TYPES:
         fronts = [_frontier(rng, n, ds.num_node) for _ in range(num_parts)]
         req = [_draws(st, rng, n) for _ in range(num_parts)]
+        # each request's uniforms in request order: the port sends them to
+        # the owner with the request
         case = {"frontier": np.stack(fronts), "seg_cap": n,
-                "u_req": [d[0] for d in req],
-                "u": _owner_order(fronts, num_parts, n, [d[0] for d in req])}
+                "u": [d[0] for d in req]}
         if req[0][1] is not None:
-            case["coin_req"] = [d[1] for d in req]
-            case["coin"] = _owner_order(fronts, num_parts, n,
-                                        [d[1] for d in req])
+            case["coin"] = [d[1] for d in req]
         layers[st] = case
     data["layers"] = layers
     data["walk"] = {"frontier": np.stack([_frontier(rng, 40, ds.num_node)
@@ -346,8 +331,8 @@ def test_partitioned_layer_matches_unpartitioned(graph, suite):
             neigh, of = outs[r][f"layer_{st}"]
             assert not of
             want = _jax_sample(st, whole, case["frontier"][r],
-                               case["u_req"][r],
-                               case["coin_req"][r] if "coin" in case
+                               case["u"][r],
+                               case["coin"][r] if "coin" in case
                                else None, max_deg)
             np.testing.assert_array_equal(neigh, np.asarray(want),
                                           err_msg=f"{st} rank {r}")
@@ -464,9 +449,9 @@ def world_of_one():
 
 
 def test_partitioned_walk_matches_sample_random_walk(graph, world_of_one):
-    """At P = 1 the owner receives the walkers in request order: fed the
-    same uniforms, the partitioned walk equals the single-store walk (the
-    port's, held to JAX's in tests/test_torch_port_walk.py)."""
+    """At P = 1, fed the single-store walk's uniforms in request order,
+    the partitioned walk equals the single-store walk (the port's, held to
+    JAX's in tests/test_torch_port_walk.py)."""
     from xgnn_tpu_torch.ops.random_walk import sample_random_walk
 
     ds = graph
@@ -591,11 +576,7 @@ def test_cli_arch6_two_ranks_prints_results():
 
 @pytest.mark.parametrize("flags", [
     ["--arch", "arch5"], ["--num-sample-worker", "1"],
-    ["--num-dcn-groups", "2", "--num-worker", "2"],
-    ["--num-worker", "2", "--cache-percentage", "0.3", "--cache-policy",
-     "presample_static"],
-    ["--num-worker", "2", "--use-dist-graph", "--dist-graph-percentage",
-     "0.85"]])
+    ["--num-dcn-groups", "2", "--num-worker", "2"]])
 def test_cli_refuses_unported_multicard_paths(flags):
     from xgnn_tpu_torch.examples import train
 
@@ -603,9 +584,56 @@ def test_cli_refuses_unported_multicard_paths(flags):
         train.main(["--cpu", "--synthetic"] + flags)
 
 
+@pytest.mark.parametrize("flags", [
+    ["--num-worker", "2", "--cache-percentage", "0.3", "--cache-policy",
+     "presample_static"],
+    ["--num-worker", "2", "--use-dist-graph", "--dist-graph-percentage",
+     "0.85"]], ids=["presample_static", "cold_tier"])
+def test_cli_trains_once_refused_multicard_paths(flags):
+    """presample_static with a partial cache and the host cold tier under
+    the partitioned topology, once refused, train over two gloo ranks at
+    toy size and print the test_result: lines
+    (tests/test_torch_port_dist_cold.py holds them to JAX)."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run(
+        [sys.executable, "-m", "xgnn_tpu_torch.examples.train", "--cpu",
+         "--synthetic", "--synthetic-nodes", "1500", "--num-epoch", "2",
+         "--batch-size", "200", "--fanout", "4", "3", "--num-hidden", "16",
+         "--report-acc", "1"] + flags,
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=SPAWN_S)
+    assert out.returncode == 0, out.stderr[-3000:]
+    lines = out.stdout.splitlines()
+    assert "config:arch=collocated" in lines
+    results = dict(l.split("=", 1) for l in lines
+                   if l.startswith("test_result:"))
+    for key in ("test_result:epoch_time:train_total",
+                "test_result:final_train_acc", "test_result:test_acc"):
+        assert np.isfinite(float(results[key])), key
+
+
 @pytest.mark.parametrize("kwargs", [
     dict(cache_percentage=0.3, cache_policy="presample_static"),
-    dict(dist_graph_percentage=0.5),
+    dict(dist_graph_percentage=0.5)], ids=["presample_static", "cold_tier"])
+def test_engine_runs_once_refused_configs(graph, kwargs, capsys):
+    """The two RunConfigs, once refused, run at P = 1: run() trains and
+    prints the test_result: lines."""
+    from xgnn_tpu_torch import RunConfig
+    from xgnn_tpu_torch.engine.multi_engine import MultiChipEngine
+
+    cfg = RunConfig(**_engine_config(1, num_epoch=2, **kwargs))
+    eng = MultiChipEngine(graph, cfg, device="cpu")
+    try:
+        out = eng.run()
+    finally:
+        eng.close()
+    assert len(out["epochs"]) == 2
+    assert all(np.isfinite(r["loss"]) for r in out["epochs"])
+    printed = capsys.readouterr().out
+    assert "test_result:final_train_acc=" in printed
+    assert (eng.tier is not None) == ("dist_graph_percentage" in kwargs)
+
+
+@pytest.mark.parametrize("kwargs", [
     dict(num_dcn_groups=2), dict(device_loop=True),
     dict(auto_placement=True), dict(arch="arch5")])
 def test_engine_refuses_unported_configs(graph, kwargs):

@@ -738,16 +738,40 @@ def test_cli_runs_the_tiered_topology(flags, capsys):
 
 
 # more than one card runs the collocated engine now, over the whole CSR
-# (tests/test_torch_port_multichip.py), and a partial cache over the cards
-# (tests/test_torch_port_ggms.py); its host cold tier (a percentage below
-# 1) and a partial cache ranked by presample_static are not ported
+# (tests/test_torch_port_multichip.py), a partial cache over the cards
+# (tests/test_torch_port_ggms.py), its host cold tier and a partial cache
+# ranked by presample_static (tests/test_torch_port_dist_cold.py); the
+# disaggregated engine and DCN groups are not ported
 @pytest.mark.parametrize("flags", [
-    ["--num-worker", "2", "--dist-graph-percentage", "0.85"],
-    ["--part-cache", "--num-worker", "2", "--cache-percentage", "0.5",
-     "--cache-policy", "presample_static"],
     ["--num-sample-worker", "1"], ["--num-dcn-groups", "2"]])
 def test_cli_multi_card_flags_still_raise(flags):
     from xgnn_tpu_torch.examples import train
 
     with pytest.raises(NotImplementedError, match="Multi-GPU"):
         train.main(_TOY + ["--use-dist-graph"] + flags)
+
+
+@pytest.mark.parametrize("flags", [
+    ["--num-worker", "2", "--dist-graph-percentage", "0.85"],
+    ["--part-cache", "--num-worker", "2", "--cache-percentage", "0.5",
+     "--cache-policy", "presample_static"]],
+    ids=["cold_tier", "presample_static"])
+def test_cli_multi_card_flags_once_refused_train(flags):
+    """The host cold tier over two ranks and presample_static over a
+    partial cache, once refused, train over two gloo ranks and print the
+    test_result: lines."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    repo = str(Path(__file__).resolve().parents[1])
+    out = subprocess.run(
+        [sys.executable, "-m", "xgnn_tpu_torch.examples.train"] + _TOY
+        + ["--use-dist-graph"] + flags,
+        cwd=repo, env=dict(os.environ, PYTHONPATH=repo), capture_output=True,
+        text=True, timeout=150)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert re.search(r"^config:use_dist_graph=True$", out.stdout, re.M)
+    assert re.search(r"^test_result:final_train_acc=[0-9.]+$", out.stdout,
+                     re.M)

@@ -387,17 +387,11 @@ def test_the_clis_train_and_evaluate_a_checkpoint(tmp_path, capsys,
 @pytest.mark.parametrize("flags", [
     # --dataset, --synthetic-rmat and --synthetic-signal run now
     # (tests/test_torch_dataset_files.py); --num-worker N runs the
-    # collocated engine (tests/test_torch_port_multichip.py) and its
-    # partial cache (tests/test_torch_port_ggms.py), but not ranked by
-    # presample_static
-    ["--num-worker", "4", "--cache-percentage", "0.2", "--cache-policy",
-     "presample_static"],
-    # --use-dist-graph runs on one card and, with --part-cache, over
-    # several; its host cold tier over several cards is not ported
-    ["--use-dist-graph", "--part-cache", "--num-worker", "2",
-     "--dist-graph-percentage", "0.85"],
+    # collocated engine (tests/test_torch_port_multichip.py), its partial
+    # cache (tests/test_torch_port_ggms.py), presample_static and the host
+    # cold tier over several cards (test_cli_flags_once_refused_train);
     # GAT under bfloat16 runs now (tests/test_torch_gat_bf16.py); the
-    # flags of more than one card still raise
+    # flags of the paths still to be ported raise
     ["--model", "gat", "--remat", "--feat-dtype", "bfloat16",
      "--num-train-worker", "2"],
     ["--model", "gat", "--agg-impl", "tiled", "--compute-dtype",
@@ -414,3 +408,31 @@ def test_cli_flags_of_unported_paths_name_roadmap_items(flags):
     assert titles, str(err.value)
     for title in titles:
         assert f"**{title}" in roadmap, title
+
+
+@pytest.mark.parametrize("flags", [
+    ["--num-worker", "4", "--cache-percentage", "0.2", "--cache-policy",
+     "presample_static"],
+    ["--use-dist-graph", "--part-cache", "--num-worker", "2",
+     "--dist-graph-percentage", "0.85"]],
+    ids=["presample_static_p4", "cold_tier"])
+def test_cli_flags_once_refused_train(flags):
+    """presample_static over four ranks and the host cold tier over two,
+    once refused, train at toy size and print the test_result: lines."""
+    import os
+    import subprocess
+    import sys
+
+    repo = str(Path(__file__).resolve().parents[1])
+    out = subprocess.run(
+        [sys.executable, "-m", "xgnn_tpu_torch.examples.train", "--cpu",
+         "--synthetic", "--synthetic-nodes", "1500", "--num-epoch", "2",
+         "--batch-size", "200", "--fanout", "4", "3", "--num-hidden", "16",
+         "--report-acc", "1"] + flags,
+        cwd=repo, env=dict(os.environ, PYTHONPATH=repo), capture_output=True,
+        text=True, timeout=150)
+    assert out.returncode == 0, out.stderr[-3000:]
+    results = dict(line.split("=", 1) for line in out.stdout.splitlines()
+                   if line.startswith("test_result:"))
+    for key in ("test_result:final_train_acc", "test_result:test_acc"):
+        assert np.isfinite(float(results[key])), key

@@ -404,17 +404,12 @@ def test_unported_messages_name_roadmap_items_that_exist():
                    dict(compute_dtype="bfloat16"),
                    dict(remat=True, feat_dtype="bfloat16")):
         assert RunConfig(model="gat", **kwargs).model == "gat"
+    # more than one card runs the collocated engine now, its partial cache
+    # (presample_static among its rankings) and its host cold tier
+    # (test_multicard_flags_once_refused_train below)
     cases = [["--num-train-worker", "2"],
              ["--num-sample-worker", "1", "--model", "gat"],
-             ["--num-dcn-groups", "2", "--feat-dtype", "bfloat16"],
-             # more than one card runs the collocated engine now and its
-             # partial cache, but not ranked by presample_static, nor its
-             # host cold tier
-             ["--num-worker", "2", "--compute-dtype", "bfloat16",
-              "--cache-percentage", "0.5", "--cache-policy",
-              "presample_static"],
-             ["--part-cache", "--model", "gat", "--remat", "--num-worker",
-              "2", "--use-dist-graph", "--dist-graph-percentage", "0.5"]]
+             ["--num-dcn-groups", "2", "--feat-dtype", "bfloat16"]]
     for argv in cases:
         with pytest.raises(NotImplementedError) as err:
             train.main(["--cpu", "--synthetic"] + argv)
@@ -428,3 +423,34 @@ def test_unported_messages_name_roadmap_items_that_exist():
                 assert f"**{title}" in roadmap, title
     with pytest.raises(ValueError, match="zoo"):
         RunConfig(model="gin")
+
+
+@pytest.mark.parametrize("flags", [
+    ["--num-worker", "2", "--compute-dtype", "bfloat16",
+     "--cache-percentage", "0.5", "--cache-policy", "presample_static"],
+    ["--part-cache", "--model", "gat", "--remat", "--num-worker", "2",
+     "--use-dist-graph", "--dist-graph-percentage", "0.5"]],
+    ids=["presample_static_bf16", "gat_remat_cold_tier"])
+def test_multicard_flags_once_refused_train(flags):
+    """The multi-card flags that once raised (presample_static with a
+    partial cache; the host cold tier under the partitioned topology)
+    train over two gloo ranks at toy size and print the test_result:
+    lines."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    repo = str(Path(__file__).resolve().parents[1])
+    out = subprocess.run(
+        [sys.executable, "-m", "xgnn_tpu_torch.examples.train", "--cpu",
+         "--synthetic", "--synthetic-nodes", "1500", "--num-epoch", "2",
+         "--batch-size", "200", "--fanout", "4", "3", "--num-hidden", "16",
+         "--report-acc", "1"] + flags,
+        cwd=repo, env=dict(os.environ, PYTHONPATH=repo), capture_output=True,
+        text=True, timeout=150)
+    assert out.returncode == 0, out.stderr[-3000:]
+    results = dict(line.split("=", 1) for line in out.stdout.splitlines()
+                   if line.startswith("test_result:"))
+    for key in ("test_result:final_train_acc", "test_result:test_acc"):
+        assert np.isfinite(float(results[key])), key

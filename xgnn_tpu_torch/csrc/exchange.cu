@@ -1,7 +1,9 @@
 // K13-plan: the owner exchange's plan.  Requests, grouped by owner into a
 // (P, seg_cap) send buffer in request order.
 //
-// For request i with id = ids[i] (int32, EMPTY = int32 max marks padding):
+// For request i with id = ids[i] (int32, EMPTY = int32 max marks padding;
+// an id at or past hot_limit, a cold row of a tiered topology, counts as
+// EMPTY: it is served on the requesting rank, never sent):
 //     owner[i] = id mod P (floored) for a valid id, P for EMPTY
 //     rank[i]  = the number of earlier valid requests with the same owner
 //                (0 for EMPTY)
@@ -15,7 +17,9 @@
 //
 // Replaces: xgnn_tpu/parallel/exchange.py, plan_exchange (lines 49-84) and
 // the pick of partitioned_gather_indirect (lines 139-147) and of
-// sample_layer_partitioned (xgnn_tpu/parallel/dist_topology.py:304-314):
+// sample_layer_partitioned (xgnn_tpu/parallel/dist_topology.py:304-314),
+// with that function's hot mask (:285-291, a separate select before the
+// plan there, folded into the plan's first read of each id here):
 // XLA ops shaped for the TPU (P unrolled prefix sums over the whole request
 // vector, then a linearised scatter with mode="drop").
 //
@@ -54,15 +58,17 @@ constexpr int kTile = kThreads * kRounds;  // ids a block
 constexpr int kMaxParts = 32;
 constexpr unsigned kFull = 0xffffffffu;
 
-__device__ __forceinline__ int32_t owner_of(int32_t id, int parts) {
-  if (id == kEmpty) return parts;
+__device__ __forceinline__ int32_t owner_of(int32_t id, int parts,
+                                            int64_t hot_limit) {
+  if (id == kEmpty || (int64_t)id >= hot_limit) return parts;
   const int32_t r = id % parts;
   return r < 0 ? r + parts : r;
 }
 
 __global__ void __launch_bounds__(kThreads)
 plan_count_kernel(const int32_t* __restrict__ ids, int64_t n, int parts,
-                  int32_t* __restrict__ counts, int64_t tiles) {
+                  int64_t hot_limit, int32_t* __restrict__ counts,
+                  int64_t tiles) {
   __shared__ int32_t cnt[kMaxParts];
   if (threadIdx.x < kMaxParts) cnt[threadIdx.x] = 0;
   __syncthreads();
@@ -71,7 +77,8 @@ plan_count_kernel(const int32_t* __restrict__ ids, int64_t n, int parts,
 #pragma unroll
   for (int r = 0; r < kRounds; ++r) {
     const int64_t i = base + (int64_t)r * kThreads + threadIdx.x;
-    const int32_t o = i < n ? owner_of(__ldg(ids + i), parts) : parts;
+    const int32_t o =
+        i < n ? owner_of(__ldg(ids + i), parts, hot_limit) : parts;
     const unsigned peers = __match_any_sync(kFull, o);
     if (o < parts && lane == __ffs(peers) - 1)
       atomicAdd(&cnt[o], __popc(peers));
@@ -117,7 +124,8 @@ __global__ void plan_scan_kernel(int32_t* __restrict__ counts,
 
 __global__ void __launch_bounds__(kThreads)
 plan_place_kernel(const int32_t* __restrict__ ids, int64_t n, int parts,
-                  int64_t seg_cap, const int32_t* __restrict__ first,
+                  int64_t hot_limit, int64_t seg_cap,
+                  const int32_t* __restrict__ first,
                   int64_t tiles, const int32_t* __restrict__ totals,
                   int32_t* __restrict__ send, int32_t* __restrict__ pick) {
   __shared__ int32_t run[kMaxParts];           // the tile's ranks so far
@@ -135,7 +143,7 @@ plan_place_kernel(const int32_t* __restrict__ ids, int64_t n, int parts,
     __syncthreads();
     const int64_t i = base + (int64_t)r * kThreads + threadIdx.x;
     const int32_t id = i < n ? __ldg(ids + i) : kEmpty;
-    const int32_t o = owner_of(id, parts);
+    const int32_t o = owner_of(id, parts, hot_limit);
     const unsigned peers = __match_any_sync(kFull, o);
     if (o < parts && lane == __ffs(peers) - 1)
       warp_cnt[warp][o] = __popc(peers);
@@ -170,13 +178,15 @@ plan_place_kernel(const int32_t* __restrict__ ids, int64_t n, int parts,
 
 }  // namespace
 
-// ids: (n,) int32; send: (parts * seg_cap,) int32; pick: (n,) int32;
-// overflow: one int32;
+// ids: (n,) int32; hot_limit: ids at or past it are not sent (EMPTY in
+// pick; 2^31 - 1 sends every valid id); send: (parts * seg_cap,) int32;
+// pick: (n,) int32; overflow: one int32;
 // scratch: (parts * ceil(n / 2048) + parts,) int32.  1 <= parts <= 32 and
 // seg_cap >= 1.  Returns cudaGetLastError() after the launches
 // (cudaErrorInvalidValue, launching nothing, for sizes it does not take).
 extern "C" int xg_plan_exchange(const void* ids, long long n, int parts,
-                                long long seg_cap, void* send, void* pick,
+                                long long hot_limit, long long seg_cap,
+                                void* send, void* pick,
                                 void* overflow,
                                 void* scratch, void* stream) {
   if (parts < 1 || parts > kMaxParts || seg_cap < 1 || n < 0 ||
@@ -188,15 +198,15 @@ extern "C" int xg_plan_exchange(const void* ids, long long n, int parts,
   int32_t* totals = counts + (int64_t)parts * tiles;
   const int32_t* in = static_cast<const int32_t*>(ids);
   if (n > 0) {
-    plan_count_kernel<<<(unsigned)tiles, kThreads, 0, s>>>(in, n, parts,
-                                                          counts, tiles);
+    plan_count_kernel<<<(unsigned)tiles, kThreads, 0, s>>>(
+        in, n, parts, hot_limit, counts, tiles);
   } else {
     cudaMemsetAsync(counts, 0, (size_t)parts * sizeof(int32_t), s);
   }
   plan_scan_kernel<<<1, parts * 32, 0, s>>>(
       counts, tiles, totals, seg_cap, static_cast<int32_t*>(overflow));
   plan_place_kernel<<<(unsigned)tiles, kThreads, 0, s>>>(
-      in, n, parts, seg_cap, counts, tiles, totals,
+      in, n, parts, hot_limit, seg_cap, counts, tiles, totals,
       static_cast<int32_t*>(send), static_cast<int32_t*>(pick));
   return (int)cudaGetLastError();
 }

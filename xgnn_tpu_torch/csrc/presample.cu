@@ -71,6 +71,38 @@
 // layer 1 (about 25M edges, most of them probing the bitmap) 0.27 and the
 // last layer (124M edges streamed) 0.19; the variants the tool builds give
 // what each choice above is worth.
+//
+// K12b's partitioned form, closure_parts: the exact closure of P batches at
+// once (a lane a rank's batch) over the interleave-partitioned CSR, where a
+// rank's local row r is global node r * P + part and holds that node's
+// edges with their global destinations.  The rank keeps each lane's level
+// over its own rows ((P lanes, rows) bytes: 0 unmarked, t first marked by
+// layer t - 1's reduce, 1 the seeds).  A layer is one launch and one reduce
+// by owner:
+//   update: every (lane, row) unmarked whose reduced mark recv is set is
+//   marked tag (recv: the seeds' marks before the first layer);
+//   expand: every (lane, row) at level tag, reached by the last reduce (so
+//   each row is expanded once a lane, as in the BFS above), marks each of
+//   its edges' destinations v in out, owner-major (P owners, P lanes, rows)
+//   at [v % P, lane, v / P]: the reduce-scatter's input, which returns each
+//   owner its rows' marks from every rank.
+// After the last layer, the count launch updates once more and adds to
+// counts[r] the lanes that reached row r.  A warp takes one lane's 32 rows:
+// a ballot of its frontier rows, then the warp walks each row's edges 32 at
+// a time, in order (coalesced index reads, one byte store an edge; equal
+// stores from two edges are the same).  The plain version is JAX's
+// edge-parallel form (a row id an edge by the cumsum trick, a gather of the
+// mask, a scatter into the destinations).
+//
+// Replaces: xgnn_tpu/parallel/collocated.py, make_presample_static_exact_step
+// (lines 741-884), its partitioned closure (the per-layer take, scatter-max
+// and psum_scatter); its replicated form is the single-store kernel above
+// for one lane, then one reduce by owner.
+//
+// What bounds it: bytes, and a random byte store an edge.  Each rank reads
+// the local rows that its lanes reach, once a lane (their indptr pairs and
+// indices), the level bytes, and writes out (P * P * rows bytes, zeroed
+// first) at random.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -385,7 +417,91 @@ closure_count_kernel(int32_t* __restrict__ counts,
   }
 }
 
+// K12b's partitioned form: update, then expand (kExpand) or count.
+template <bool kExpand>
+__global__ void __launch_bounds__(kThreads)
+closure_parts_kernel(const int32_t* __restrict__ indptr,
+                     const int32_t* __restrict__ indices, int64_t rows,
+                     int64_t num_node, int parts, uint8_t* __restrict__ level,
+                     const uint8_t* __restrict__ recv, uint8_t tag,
+                     uint8_t* __restrict__ out, int32_t* __restrict__ counts) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int64_t tiles = (rows + 31) / 32;
+  const int64_t units = tiles * parts;  // (lane, tile) pairs
+  const int64_t num_warps = (int64_t)gridDim.x * kWarps;
+  for (int64_t unit = (int64_t)blockIdx.x * kWarps + warp; unit < units;
+       unit += num_warps) {
+    const int64_t l = unit / tiles;
+    const int64_t tile = unit - l * tiles;
+    const int64_t row = tile * 32 + lane;
+    const bool real = row < rows;
+    uint8_t lv = 0;
+    if (real) {
+      const int64_t at = l * rows + row;
+      lv = level[at];
+      if (lv == 0 && recv[at] != 0) {
+        lv = tag;
+        level[at] = tag;
+      }
+    }
+    if (!kExpand) {
+      if (real && lv != 0) atomicAdd(counts + row, 1);
+      continue;
+    }
+    unsigned todo = __ballot_sync(kFull, real && lv == tag);
+    while (todo != 0) {
+      const int64_t r = tile * 32 + (__ffs(todo) - 1);
+      todo &= todo - 1;
+      const int32_t lo = __ldg(indptr + r), hi = __ldg(indptr + r + 1);
+      for (int32_t e = lo + lane; e < hi; e += 32) {
+        const int32_t v = index_at(indices + e);
+        if (v >= 0 && (int64_t)v < num_node) {
+          const int32_t o = v % parts;
+          out[((int64_t)o * parts + l) * rows + v / parts] = 1;
+        }
+      }
+    }
+  }
+}
+
 }  // namespace
+
+// K12b's partitioned form.  indptr: (rows + 1,) int32 local offsets;
+// indices: their int32 global destinations, in [0, num_node); level, recv:
+// (parts, rows) uint8; tag: this layer's mark (1 to 127).  out non-null
+// (expand): (parts, parts, rows) uint8, zeroed here, then every
+// destination of the rows at level tag marked; counts non-null (count,
+// out null): (rows,) int32, added to.  rows * parts >= num_node.  Returns
+// cudaGetLastError() after the launch.
+extern "C" int xg_closure_parts(const void* indptr, const void* indices,
+                                long long rows, long long num_node,
+                                int parts, void* level, const void* recv,
+                                int tag, void* out, void* counts, int device,
+                                void* stream) {
+  if (rows < 0 || num_node < 0 || parts < 1 || parts > 32 ||
+      rows * parts < num_node || num_node > INT32_MAX || tag < 1 ||
+      tag > 127 || (out == nullptr) == (counts == nullptr))
+    return (int)cudaErrorInvalidValue;
+  if (rows == 0) return (int)cudaGetLastError();
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  const unsigned grid = grid_for((rows + 31) / 32 * 32 * parts, device);
+  const int32_t* ip = static_cast<const int32_t*>(indptr);
+  const int32_t* ix = static_cast<const int32_t*>(indices);
+  uint8_t* lv = static_cast<uint8_t*>(level);
+  const uint8_t* rc = static_cast<const uint8_t*>(recv);
+  if (out != nullptr) {
+    cudaMemsetAsync(out, 0, (size_t)parts * parts * rows, s);
+    closure_parts_kernel<true><<<grid, kThreads, 0, s>>>(
+        ip, ix, rows, num_node, parts, lv, rc, (uint8_t)tag,
+        static_cast<uint8_t*>(out), nullptr);
+  } else {
+    closure_parts_kernel<false><<<grid, kThreads, 0, s>>>(
+        ip, ix, rows, num_node, parts, lv, rc, (uint8_t)tag, nullptr,
+        static_cast<int32_t*>(counts));
+  }
+  return (int)cudaGetLastError();
+}
 
 // freq: (num_node,) int32, added to in place; ids: (n,) int32; num_input:
 // a device int32 scalar.  Returns cudaGetLastError() after the launch.

@@ -113,10 +113,19 @@
 // kernel that reads a tier is built twice, kTiered false (the untiered
 // launch, no cold branch) and true.
 //
+// The cold form (the same tiered kernels with no device CSR: indptr and
+// indices null, num_node the hot prefix's size) serves the partitioned
+// topology, where a rank's device CSR is its part of the hot prefix (local
+// rows, not global ones) and the hot rows go to their owners: the
+// requesting rank draws its frontier's cold rows alone, every other row
+// EMPTY, and no device CSR row is read (row_meta's hot branch is off).
+//
 // Replaces, for the cold rows: xgnn_tpu/parallel/ggms.py,
 // HostColdSampler (lines 264-453) driven by cold_sample_callback
-// (456-487) and xgnn_tpu/sampler.py:282-310: a host callback over the
-// compacted cold ids of each layer, merged into the device's picks.
+// (456-487), xgnn_tpu/sampler.py:282-310 and, on the partitioned
+// topology, xgnn_tpu/parallel/dist_topology.py:315-330: a host callback
+// over the compacted cold ids of each layer, merged into the device's
+// picks.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -141,12 +150,15 @@ struct Row {
   int32_t deg;
 };
 
+// (a tiered launch with no device CSR, indptr null, is the cold form: every
+// row reads as outside the graph here, so no hot row is read)
+template <bool kTiered>
 __device__ __forceinline__ Row row_meta(const int32_t* __restrict__ indptr,
                                         const int32_t* __restrict__ frontier,
                                         int64_t row, int64_t num_node) {
   const int32_t v = __ldg(frontier + row);
   Row r{0, 0};
-  if (v >= 0 && (int64_t)v < num_node) {
+  if ((!kTiered || indptr != nullptr) && v >= 0 && (int64_t)v < num_node) {
     const int32_t start = __ldg(indptr + v);
     r.start = start;
     r.deg = __ldg(indptr + v + 1) - start;
@@ -288,7 +300,7 @@ sample_khop_staged_kernel(const int32_t* __restrict__ indptr,
   // picks EMPTY until the warp's cold rows overwrite them below
   Row r{0, 0};
   if (row < num_rows)
-    r = row_meta(indptr, frontier, row, num_node);
+    r = row_meta<kTiered>(indptr, frontier, row, num_node);
   const int32_t deg = r.deg;
   copy_tile(tile, reinterpret_cast<const uint32_t*>(u) + row0 * kK, words,
             vec);
@@ -356,7 +368,7 @@ __global__ void sample_khop_kernel(const int32_t* __restrict__ indptr,
   const int64_t row = (int64_t)blockIdx.x * kThreads + threadIdx.x;
   if (!kTiered && row >= num_rows) return;
   if (row < num_rows) {
-    const Row r = row_meta(indptr, frontier, row, num_node);
+    const Row r = row_meta<kTiered>(indptr, frontier, row, num_node);
     const int32_t deg = r.deg;
     const int live = deg <= 0 ? 0 : (deg < fanout ? deg : fanout);
     const float* urow = u + row * fanout;
@@ -523,7 +535,7 @@ sample_wr_staged_kernel(const int32_t* __restrict__ indptr,
   // draws EMPTY until the warp's cold rows overwrite them below
   Row r{0, 0};
   if (row < num_rows)
-    r = row_meta(indptr, frontier, row, num_node);
+    r = row_meta<kTiered>(indptr, frontier, row, num_node);
   const int32_t deg = r.deg;
   copy_tile(tile, reinterpret_cast<const uint32_t*>(u) + row0 * kK, words,
             vec);
@@ -563,6 +575,7 @@ sample_wr_staged_kernel(const int32_t* __restrict__ indptr,
 
 // one row of the unstaged K8a kernel: its draws, sorted when dedup, in
 // local memory (a cold row, kTiered, reads here as EMPTY)
+template <bool kTiered>
 __device__ __forceinline__ void wr_row(const int32_t* __restrict__ indptr,
                                        const int32_t* __restrict__ indices,
                                        const int32_t* __restrict__ frontier,
@@ -570,7 +583,7 @@ __device__ __forceinline__ void wr_row(const int32_t* __restrict__ indptr,
                                        int32_t* __restrict__ out,
                                        int64_t num_node, int64_t row,
                                        int fanout, bool dedup) {
-  const Row r = row_meta(indptr, frontier, row, num_node);
+  const Row r = row_meta<kTiered>(indptr, frontier, row, num_node);
   const int32_t deg = r.deg;
   const float* urow = u + row * fanout;
   int32_t* orow = out + row * fanout;
@@ -601,7 +614,8 @@ __global__ void sample_wr_kernel(const int32_t* __restrict__ indptr,
   const int64_t row = (int64_t)blockIdx.x * kThreads + threadIdx.x;
   if (!kTiered && row >= num_rows) return;
   if (row < num_rows)
-    wr_row(indptr, indices, frontier, u, out, num_node, row, fanout, dedup);
+    wr_row<kTiered>(indptr, indices, frontier, u, out, num_node, row, fanout,
+                    dedup);
   if constexpr (kTiered) {
     const int64_t first = row - (threadIdx.x & 31);
     const int64_t left = num_rows - first;
@@ -715,9 +729,11 @@ bool aligned16(const void* p) {
 // fanout) int32.  1 <= fanout <= 64.  cold_indptr, cold_indices: the whole
 // graph's CSR in mapped host memory ((num_total + 1,) int64 and int32),
 // read for the rows [num_node, num_total); both null and num_total ==
-// num_node when the topology is not tiered.  Returns cudaGetLastError()
-// after the launch (cudaErrorInvalidValue for a fanout or a tier it does
-// not take).
+// num_node when the topology is not tiered.  The cold form: indptr and
+// indices null with a tier, num_node the hot prefix's size; no device CSR
+// is read, a cold row gets its picks and every other row EMPTY.  Returns
+// cudaGetLastError() after the launch (cudaErrorInvalidValue for a fanout
+// or a tier it does not take).
 extern "C" int xg_sample_khop(const void* indptr, const void* indices,
                               const void* frontier, const void* u, void* out,
                               long long num_node, long long num_rows,
@@ -727,7 +743,9 @@ extern "C" int xg_sample_khop(const void* indptr, const void* indices,
   Cold cold;
   if (fanout < 1 || fanout > kMaxFanout ||
       !make_cold(cold_indptr, cold_indices, nullptr, nullptr, nullptr,
-                 num_node, num_total, kNoTables, &cold))
+                 num_node, num_total, kNoTables, &cold) ||
+      ((indptr == nullptr) != (indices == nullptr)) ||
+      (indptr == nullptr && cold_indptr == nullptr))
     return (int)cudaErrorInvalidValue;
   if (num_rows <= 0) return (int)cudaGetLastError();
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
@@ -746,8 +764,8 @@ extern "C" int xg_sample_khop(const void* indptr, const void* indices,
   return (int)cudaGetLastError();
 }
 
-// K8a.  indptr, indices, frontier, u, out and the tier as for
-// xg_sample_khop; dedup != 0 is khop1 (each row sorted, EMPTY over
+// K8a.  indptr, indices, frontier, u, out, the tier and the cold form as
+// for xg_sample_khop; dedup != 0 is khop1 (each row sorted, EMPTY over
 // repeats), 0 uniform_wr.  Returns cudaGetLastError() after the launch.
 extern "C" int xg_sample_wr(const void* indptr, const void* indices,
                             const void* frontier, const void* u, void* out,
@@ -758,7 +776,9 @@ extern "C" int xg_sample_wr(const void* indptr, const void* indices,
   Cold cold;
   if (fanout < 1 || fanout > kMaxFanout ||
       !make_cold(cold_indptr, cold_indices, nullptr, nullptr, nullptr,
-                 num_node, num_total, kNoTables, &cold))
+                 num_node, num_total, kNoTables, &cold) ||
+      ((indptr == nullptr) != (indices == nullptr)) ||
+      (indptr == nullptr && cold_indptr == nullptr))
     return (int)cudaErrorInvalidValue;
   if (num_rows <= 0) return (int)cudaGetLastError();
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);

@@ -110,9 +110,15 @@
 // reads its row's tables in place as a hot row's.  Each kernel is built
 // twice, kTiered false (the untiered launch, no cold branch) and true.
 //
+// The cold form, for the partitioned topology's requesting rank: the same
+// tiered kernels with no device CSR (indptr and the device tables null,
+// num_node the hot prefix's size): a cold row gets its picks, every other
+// row EMPTY, and no device row is read.
+//
 // Replaces, for the cold rows: xgnn_tpu/parallel/ggms.py, HostColdSampler
 // (lines 264-453: its alias, hash-dedup and prefix draws) driven by
-// cold_sample_callback (456-487).
+// cold_sample_callback (456-487), on the partitioned topology from
+// xgnn_tpu/parallel/dist_topology.py:315-330.
 
 #include <cuda_pipeline_primitives.h>
 #include <cuda_runtime.h>
@@ -141,7 +147,8 @@ static_assert(kDirectMax >= 0 && kDirectMax <= kLanes,
 
 // A frontier row of the device CSR, or (kTiered) of the host CSR: its
 // first edge, its degree (0 for EMPTY and any id outside the graph), and
-// whether it is cold
+// whether it is cold.  A tiered launch with no device CSR (indptr null) is
+// the cold form: no hot row is read, every row but a cold one is EMPTY.
 template <bool kTiered>
 __device__ __forceinline__ void row_meta(const int32_t* __restrict__ indptr,
                                          const Cold& cold, int32_t v,
@@ -150,7 +157,7 @@ __device__ __forceinline__ void row_meta(const int32_t* __restrict__ indptr,
   *start = 0;
   *deg = 0;
   *c = false;
-  if (v >= 0 && (int64_t)v < num_node) {
+  if ((!kTiered || indptr != nullptr) && v >= 0 && (int64_t)v < num_node) {
     const int32_t s = __ldg(indptr + v);
     *start = s;
     *deg = __ldg(indptr + v + 1) - s;
@@ -650,7 +657,10 @@ void launch_alias(const int32_t* ip, const int32_t* ix, const float* pr,
 // cold_indices, cold_prefix: the whole graph's CSR and prefix table in
 // mapped host memory ((num_total + 1,) int64, int32, float32), read for
 // the rows [num_node, num_total); all null and num_total == num_node when
-// the topology is not tiered.  Returns cudaGetLastError() after the launch.
+// the topology is not tiered.  The cold form: indptr, indices, prefix and
+// coarse null with a tier, num_node the hot prefix's size (a cold row gets
+// its picks, every other row EMPTY).  Returns cudaGetLastError() after the
+// launch.
 extern "C" int xg_sample_prefix(const void* indptr, const void* indices,
                                 const void* prefix, const void* coarse,
                                 const void* frontier, const void* u,
@@ -663,7 +673,8 @@ extern "C" int xg_sample_prefix(const void* indptr, const void* indices,
   Cold cold;
   if (fanout < 1 || fanout > kMaxFanout ||
       !make_cold(cold_indptr, cold_indices, nullptr, nullptr, cold_prefix,
-                 num_node, num_total, kPrefixTable, &cold))
+                 num_node, num_total, kPrefixTable, &cold) ||
+      (indptr == nullptr && cold_indptr == nullptr))
     return (int)cudaErrorInvalidValue;
   if (num_rows <= 0) return (int)cudaGetLastError();
   const int32_t* ip = static_cast<const int32_t*>(indptr);
@@ -688,8 +699,9 @@ extern "C" int xg_sample_prefix(const void* indptr, const void* indices,
 // fanout) int32.  dedup == 0: draws == fanout, each draw a pick; dedup != 0:
 // the first fanout distinct of the draws, fanout <= draws <= 256.
 // cold_indptr, cold_indices, cold_prob, cold_alias: the whole graph's CSR
-// and alias tables in mapped host memory, as for xg_sample_prefix.
-// Returns cudaGetLastError() after the launch.
+// and alias tables in mapped host memory, as for xg_sample_prefix, and the
+// cold form likewise (indptr, indices, prob and alias null).  Returns
+// cudaGetLastError() after the launch.
 extern "C" int xg_sample_alias(const void* indptr, const void* indices,
                                const void* prob, const void* alias,
                                const void* frontier, const void* u,
@@ -704,7 +716,8 @@ extern "C" int xg_sample_alias(const void* indptr, const void* indices,
   if (fanout < 1 || fanout > kMaxFanout ||
       (dedup ? draws < fanout || draws > kMaxDraws : draws != fanout) ||
       !make_cold(cold_indptr, cold_indices, cold_prob, cold_alias, nullptr,
-                 num_node, num_total, kAliasTables, &cold))
+                 num_node, num_total, kAliasTables, &cold) ||
+      (indptr == nullptr && cold_indptr == nullptr))
     return (int)cudaErrorInvalidValue;
   if (num_rows <= 0) return (int)cudaGetLastError();
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);

@@ -2,7 +2,12 @@
 
 The port of ``xgnn_tpu/engine/multi_engine.py``'s ``MultiChipEngine``:
 the topology replicated on every rank or partitioned over them
-(``use_dist_graph``, the whole CSR on the cards), the labels interleaved
+(``use_dist_graph``: the whole CSR on the cards, or, with
+``dist_graph_percentage < 1``, its hot node-id prefix, the prefix whose
+edges are that share of all edges, clamped so that each part's offsets fit
+int32, with the whole CSR pinned and mapped from host memory on every
+rank, where the requesting rank draws its cold rows: XGNN's Global GNN
+Memory Store over the cards and host memory), the labels interleaved
 over the ranks' devices, and one step a batch shard a rank
 (``parallel/collocated.py``).  The features are either all on the cards,
 interleaved (``cache_percentage`` 0 or >= 1: JAX's all-device store, the
@@ -22,7 +27,11 @@ headroom; the exchange segment is ``min(max(ceil(cap[-1] / P *
 exchange_headroom), 128), cap[-1])``.  For the two-phase store it then
 counts ``presample_epoch`` epochs of inputs at the tightened shapes (the
 calibration batches' counts are thrown away), each at its owner, for the
-frequency policies' ranking; ``dynamic_cache`` counts the next epoch's
+frequency policies' ranking (``presample_static``: every node within L
+hops of each batch's seeds, exactly, over the whole topology on the
+cards; with a cold tier, which holds edges that no card has, the wide
+khop0 of ``static_presample_config`` through the tiered step instead);
+``dynamic_cache`` counts the next epoch's
 first ``calibration_batches`` batches again at each refresh (gated by
 ``barriered_epoch``) and rebuilds the cache.  ``train_epoch`` shuffles
 with ``Shuffler(num_worker=P, worker_id=rank, seed=seed + 1)`` and every
@@ -39,11 +48,10 @@ is over every rank and step of an epoch, pulled once an epoch with the
 other metrics.  Unlike JAX's two-phase step it has no miss bucket, so no
 step is skipped for its misses.
 
-Not ported here, each refused naming ROADMAP's **Multi-GPU**:
-``presample_static`` with a partial cache (JAX's exact all-neighbour
-closure over the cards), the host cold tier under the partitioned topology
-(``dist_graph_percentage < 1``), DCN groups, the multi-card
-``device_loop``, ``auto_placement`` and the disaggregated engine (arch5).
+Not ported here, each refused naming ROADMAP's **Multi-GPU**: DCN groups,
+the multi-card ``device_loop``, ``auto_placement`` and the disaggregated
+engine (arch5).  Unlike JAX's, the cold tier has no ``cold_cap``: nothing
+overflows for its rows, and the capacities' growth leaves it as it is.
 """
 
 from __future__ import annotations
@@ -51,6 +59,7 @@ from __future__ import annotations
 import contextlib
 import io
 import time
+import warnings
 from typing import Optional
 
 import numpy as np
@@ -61,6 +70,7 @@ from .. import constants as C
 from .. import profiler as P
 from ..checkpoint import CheckpointManager
 from ..config import WEIGHTED, CachePolicy, RunArch, RunConfig
+from ..dataset import host_array
 from ..device import feature_dtype, generator, seed_of, to_tensor
 from ..models import build_model
 from ..ops.tiered import MappedHostTable
@@ -69,6 +79,7 @@ from ..parallel.collocated import (
     make_combine_train_step,
     make_eval_step,
     make_fused_eval_step,
+    make_presample_static_exact_step,
     make_presample_step,
     make_sample_split_step,
 )
@@ -78,7 +89,14 @@ from ..parallel.ggms import build_cache
 from ..parallel.mesh import MULTI_GPU, Mesh, make_mesh
 from ..sampler import _layer_fanouts, default_capacities
 from ..store.feature_store import HBMFeatureSource
+from ..store.presample import static_presample_config
 from ..store.ranking import FREQUENCY_POLICIES, build_ranking
+from ..store.topology import (
+    MappedHostCSR,
+    Tier,
+    clamp_num_cache_node_int32,
+    compute_num_cache_node,
+)
 from ..train import Adam
 from ..types import Graph
 from .engine import (
@@ -103,13 +121,6 @@ def refuse_unported(config: RunConfig):
         why = "the disaggregated engine (arch5)"
     elif config.num_dcn_groups != 1:
         why = "DCN groups (num_dcn_groups > 1)"
-    elif (0.0 < config.cache_percentage < 1.0
-          and config.cache_policy == CachePolicy.PRE_SAMPLE_STATIC):
-        why = ("presample_static with a partial feature cache over the "
-               "cards (the exact all-neighbour closure)")
-    elif config.use_dist_graph and config.dist_graph_percentage < 1.0:
-        why = ("the host cold tier under the partitioned topology "
-               "(dist_graph_percentage < 1)")
     elif config.device_loop:
         why = "the multi-card device_loop"
     elif config.auto_placement:
@@ -117,6 +128,21 @@ def refuse_unported(config: RunConfig):
     if why is not None:
         raise NotImplementedError(
             f"not ported to xgnn_tpu_torch yet: {why}: {MULTI_GPU}")
+
+
+def _in_place(a) -> torch.Tensor:
+    """``a`` as a tensor over the same memory, where it lies: a host array
+    is not copied (a read-only memory map is only read), its uint32 ids
+    viewed as int32."""
+    if isinstance(a, torch.Tensor):
+        return a
+    a = np.asarray(a)
+    if a.dtype == np.uint32:
+        a = a.view(np.int32)
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", "The given NumPy array is not "
+                                "writable")
+        return torch.as_tensor(a)
 
 
 def _array(ds, name: str):
@@ -153,6 +179,7 @@ class MultiChipEngine:
         # cache knob and >= 1 that every row fits, both the fused store
         self.two_phase = 0.0 < config.cache_percentage < 1.0
         self.host: Optional[MappedHostTable] = None
+        self.tier: Optional[Tier] = None  # the topology's host cold tier
         self.profiler = P.Profiler()
         self.history: dict = {}
         self.model = None
@@ -164,15 +191,15 @@ class MultiChipEngine:
         p, rank = self.num_parts, self.rank
         t0 = time.perf_counter()
         weighted = cfg.sample_type in WEIGHTED
-        tables = [None if not weighted or _array(self.ds, n) is None
-                  else to_tensor(_array(self.ds, n), dev)
-                  for n in ("prob_table", "alias_table", "prob_prefix_table")]
         if cfg.use_dist_graph:
-            indptr = to_tensor(_array(self.ds, "indptr"), dev)
-            self.topo = partition_part(
-                indptr, to_tensor(_array(self.ds, "indices"), dev,
-                                  torch.int32), p, rank, None, *tables)
+            self.topo = self._partition(weighted)
         else:
+            if int(_array(self.ds, "indptr")[-1]) >= 2**31:
+                raise ValueError(
+                    f"the graph has {int(_array(self.ds, 'indptr')[-1])} "
+                    "edges (>= 2^31): the cards' offsets are int32; run "
+                    "with use_dist_graph (each part's offsets are rebased, "
+                    "and the host tier serves any clamped remainder)")
             g = getattr(self.ds, "graph", None)
             self.topo = (g if g is not None and g.indptr.device == dev
                          else Graph.from_dataset(self.ds, dev,
@@ -216,6 +243,43 @@ class MultiChipEngine:
         prof.log_mem_usage("model_init", dev)
         return self
 
+    def _partition(self, weighted: bool):
+        """This rank's part of the partitioned topology: the hot prefix
+        (``dist_graph_percentage`` of the edges, clamped so that every
+        part's offsets fit int32), and, where it is not the whole graph,
+        the host cold tier: the whole CSR (and a weighted type's tables)
+        pinned and mapped for this rank's card.  With a tier the part is
+        cut from the arrays where they lie, so the cold edges never reach
+        the card."""
+        cfg, dev, p = self.config, self.device, self.num_parts
+        names = ("prob_table", "alias_table", "prob_prefix_table")
+        arrays = {n: _array(self.ds, n) if weighted else None for n in names}
+        indptr = host_array(_array(self.ds, "indptr"))
+        if indptr.dtype == np.uint32:
+            indptr = indptr.astype(np.int64)
+        num_node = len(indptr) - 1
+        ncn = num_node
+        if cfg.dist_graph_percentage < 1.0:
+            ncn = compute_num_cache_node(indptr, cfg.dist_graph_percentage)
+        ncn = clamp_num_cache_node_int32(indptr, ncn, p)
+        indices = _array(self.ds, "indices")
+        if ncn < num_node:
+            self.tier = Tier(ncn, MappedHostCSR(
+                indptr, host_array(indices), device=dev,
+                **{n: None if a is None else host_array(a)
+                   for n, a in arrays.items()}))
+            # the cold edges stay on the host: the part is cut there, from
+            # the caller's arrays in place (a memory map too)
+            on = _in_place
+        else:
+            on = lambda a: to_tensor(a, dev)
+        topo = partition_part(
+            to_tensor(indptr, dev), on(indices).to(torch.int32),
+            p, self.rank, ncn, *(None if a is None else on(a)
+                                 for a in arrays.values()))
+        topo.tier = self.tier
+        return topo
+
     def _derive_exchange_caps(self):
         """A rank's segment for each peer: the even split of the last
         frontier with headroom, never more than the frontier itself."""
@@ -226,6 +290,28 @@ class MultiChipEngine:
     def _presample_step(self):
         return make_presample_step(self.config, self.mesh, self.capacities,
                                    self.seg_cap, self.config.use_dist_graph)
+
+    def _freq_step(self):
+        """The step that counts the cache's ranking (JAX's ``freq_fn``):
+        ``presample_static`` runs the exact closure where the whole
+        topology is on the cards, else (a cold tier holds edges no card
+        has) the wide khop0 of ``static_presample_config`` through the
+        tiered presample step, at its own capacities; every other policy
+        runs the presample step."""
+        cfg = self.config
+        if cfg.cache_policy != CachePolicy.PRE_SAMPLE_STATIC:
+            return self._presample_step()
+        if self.tier is None:
+            return make_presample_static_exact_step(
+                cfg, self.mesh, self.ds.num_node, self.capacities[0],
+                cfg.use_dist_graph)
+        scfg = static_presample_config(cfg)
+        scaps = default_capacities(cfg.batch_size, _layer_fanouts(scfg),
+                                   self.ds.num_node)
+        seg = max(int(np.ceil(scaps[-1] / self.num_parts
+                              * cfg.exchange_headroom)), 128)
+        return make_presample_step(scfg, self.mesh, scaps, seg,
+                                   cfg.use_dist_graph)
 
     def _presample_batches(self, fn, freq, epoch: int, seed_of_step,
                            num_steps: Optional[int] = None) -> list:
@@ -274,7 +360,7 @@ class MultiChipEngine:
             if not need_freq:
                 return None
             freq.zero_()
-        fn = self._presample_step()
+        fn = self._freq_step()
         for epoch in range(max(cfg.presample_epoch, 1)):
             self._presample_batches(
                 fn, freq, epoch,
@@ -613,9 +699,11 @@ class MultiChipEngine:
         return {"epochs": results, "test_results": out}
 
     def close(self):
-        """Unmap the host table and end the process group where this
-        engine made it (a world of one)."""
+        """Unmap the host table and the cold tier's CSR, and end the
+        process group where this engine made it (a world of one)."""
         if self.host is not None:
             self.host.close()
+        if self.tier is not None:
+            self.tier.csr.close()
         self.mesh.close()
 

@@ -15,12 +15,14 @@ split.  ``--arch arch6`` (or ``--num-worker N`` with N > 1, as JAX's
 command line decides) trains the collocated multi-card engine
 (``MultiChipEngine``) over N ranks, one process a card (``--cpu``: N
 processes on gloo), the topology replicated or, with ``--use-dist-graph``,
-partitioned, the features all on the cards or, with ``--cache-percentage``
-in (0, 1), XGNN's two-phase store (a cache partitioned over the cards with
-``--part-cache``, else replicated on each; the misses read from pinned
-host memory); rank 0's lines are printed.  Flags that select a multi-card
-path the port does not have yet raise ``NotImplementedError`` naming its
-ROADMAP item.
+partitioned (with ``--dist-graph-percentage P`` < 1 its hot prefix, the
+cold rows read from pinned host memory), the features all on the cards
+or, with ``--cache-percentage`` in (0, 1), XGNN's two-phase store (a cache
+partitioned over the cards with ``--part-cache``, else replicated on each;
+the misses read from pinned host memory; any ``--cache-policy``,
+``presample_static`` among them); rank 0's lines are printed.  Flags
+that select a multi-card path the port does not have yet raise
+``NotImplementedError`` naming its ROADMAP item.
 
     python -m xgnn_tpu_torch.examples.train --cpu --synthetic \\
         --synthetic-nodes 20000 --model graphsage --num-epoch 2 \\
@@ -33,6 +35,10 @@ ROADMAP item.
     python -m xgnn_tpu_torch.examples.train --cpu --synthetic \\
         --synthetic-nodes 20000 --arch arch6 --num-worker 2 --part-cache \\
         --use-dist-graph --cache-percentage 0.2 --num-epoch 2 \\
+        --batch-size 500 --fanout 8 4
+    python -m xgnn_tpu_torch.examples.train --cpu --synthetic \\
+        --synthetic-nodes 20000 --num-worker 2 --part-cache \\
+        --use-dist-graph --dist-graph-percentage 0.85 --num-epoch 2 \\
         --batch-size 500 --fanout 8 4
 """
 
@@ -146,14 +152,6 @@ def check_ported(args):
         why = "the disaggregated engine (arch5)"
     elif args.num_dcn_groups != 1:
         why = "DCN groups (--num-dcn-groups > 1)"
-    elif (arch_of(args) == RunArch.COLLOCATED
-          and 0.0 < args.cache_percentage < 1.0
-          and args.cache_policy == "presample_static"):
-        why = ("--cache-policy presample_static with a partial feature "
-               "cache over the cards")
-    elif args.num_worker > 1 and args.dist_graph_percentage < 1.0:
-        why = ("the host cold tier under the partitioned topology "
-               "(--dist-graph-percentage < 1 over more than one card)")
     if why is not None:
         raise NotImplementedError(
             f"not ported to xgnn_tpu_torch yet: {why}: {MULTI_GPU}")

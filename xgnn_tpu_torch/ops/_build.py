@@ -64,7 +64,8 @@ SIGNATURES = {
         "xg_walk_topk": [_P] * 4 + [_LL, _I, _I, _I, _P],
     },
     "exchange": {
-        "xg_plan_exchange": [_P, _LL, _I, _LL] + [_P] * 5,
+        # ids, n, parts, hot_limit, seg_cap, then five pointers
+        "xg_plan_exchange": [_P, _LL, _I, _LL, _LL] + [_P] * 5,
     },
     "unique": {
         "xg_unique_seeded": [_P, _LL, _P, _LL, _P, _LL, _LL, _P, _LL,
@@ -91,6 +92,8 @@ SIGNATURES = {
         "xg_closure_expand": [_P, _P, _LL, _LL, _P, _LL, _I, _P, _LL, _P,
                               _I, _P],
         "xg_closure_scratch_bytes": [_LL, _LL],
+        "xg_closure_parts": [_P, _P, _LL, _LL, _I, _P, _P, _I, _P, _P, _I,
+                             _P],
     },
     "spmm": {
         "xg_spmm_csr": [_P] * 4 + [_LL, _LL, _LL, _I, _LL, _P],

@@ -8,12 +8,22 @@ within ``num_layer`` hops of the seeds (every neighbour, not a sample)
 added into ``counts`` in place, as the JAX package's ``expand`` does with
 its edge-parallel bitmask closure.
 
+K12b's partitioned form, :func:`closure_parts`: one layer of the exact
+closure of every rank's batch (a lane each) over a rank's part of the
+interleave-partitioned CSR, for ``parallel/collocated.
+make_presample_static_exact_step``: the lanes' new marks over the rank's
+own rows, then each newly reached row's edges marked at their global
+destinations, owner-major, for the reduce by owner; or, after the last
+layer, the lanes that reached each owned row added into the counts.
+
 The CUDA kernels are ``csrc/presample.cu``; K12b there is a BFS by levels
-that expands each row once.  :func:`accumulate_freq_plain` (``index_put_``
-with ``accumulate=True``) and :func:`closure_expand_plain` (the
-edge-parallel closure in PyTorch ops) are their plain versions: the
-wrappers take them only for tensors on the CPU.  Both are exact.  Launches
-are counted as ``accumulate_freq`` and ``closure_expand``, one a call.
+that expands each row once, and so is its partitioned form, a lane at a
+time.  :func:`accumulate_freq_plain` (``index_put_`` with
+``accumulate=True``), :func:`closure_expand_plain` and
+:func:`closure_parts_plain` (the edge-parallel closure in PyTorch ops, as
+JAX computes it) are their plain versions: the wrappers take them only for
+tensors on the CPU.  All are exact.  Launches are counted as
+``accumulate_freq``, ``closure_expand`` and ``closure_parts``, one a call.
 """
 
 from __future__ import annotations
@@ -121,3 +131,90 @@ def closure_expand(indptr: torch.Tensor, indices: torch.Tensor,
     _build.check(rc, "closure_expand")
     _build.LAUNCHES.add("closure_expand")
     return counts
+
+
+def closure_parts_plain(indptr: torch.Tensor, indices: torch.Tensor,
+                        level: torch.Tensor, recv: torch.Tensor, tag: int,
+                        num_node: int, counts=None):
+    """JAX's edge-parallel layer (``make_presample_static_exact_step``):
+    the update, then each edge's source row found by the cumsum trick over
+    the local offsets, the lanes' marks gathered along it and scattered
+    into the global destinations (only the rows reached by the last reduce
+    expand: the older rows' destinations are marked already)."""
+    level.masked_fill_((level == 0) & (recv != 0), tag)
+    p, rows = level.shape
+    if counts is not None:
+        return counts.add_((level != 0).sum(0, dtype=torch.int32))
+    e = indices.shape[0]
+    ip = indptr.long()
+    starts = ip[1:rows]
+    marks = torch.zeros(e, dtype=torch.int64, device=level.device)
+    marks.index_add_(0, starts[starts < e], torch.ones_like(
+        starts[starts < e]))
+    rowid = torch.cumsum(marks, 0)
+    dst = indices.long()
+    live = ((torch.arange(e, device=level.device) < ip[rows])
+            & (dst >= 0) & (dst < num_node))
+    hit = (level[:, rowid] == tag) & live[None, :]
+    flat = torch.zeros((p, rows * p), dtype=torch.uint8, device=level.device)
+    lane, edge = hit.nonzero(as_tuple=True)
+    flat[lane, dst[edge]] = 1
+    return flat.view(p, rows, p).permute(2, 0, 1).contiguous()
+
+
+def closure_parts(indptr: torch.Tensor, indices: torch.Tensor,
+                  level: torch.Tensor, recv: torch.Tensor, tag: int,
+                  num_node: int, counts=None):
+    """One layer of K12b's partitioned form.  ``indptr`` ``(rows + 1,)``
+    int32 local offsets (local row ``r`` is global node ``r * P + part``)
+    and ``indices`` their int32 global destinations; ``level``, ``recv``
+    ``(P, rows)`` uint8: each lane's level of the rank's rows (0 unmarked,
+    in place) and their reduced marks from the layer before (or the
+    seeds'); ``tag`` this layer's mark, 1 to 127.  First every unmarked
+    ``(lane, row)`` with a mark in ``recv`` is marked ``tag``; then, with
+    ``counts`` None, returns ``(P owners, P lanes, rows)`` uint8, 1 at
+    ``[v % P, lane, v // P]`` for every destination ``v`` of a row at
+    level ``tag`` (the reduce-scatter's input); else adds to ``counts``
+    (``(rows,)`` int32, in place) the lanes that reached each row and
+    returns it."""
+    for what, t, dtype in (("indptr", indptr, torch.int32),
+                           ("indices", indices, torch.int32)):
+        _check_1d("closure_parts", what, t, dtype)
+    p, rows = level.shape
+    if (level.dtype != torch.uint8 or recv.dtype != torch.uint8
+            or recv.shape != level.shape or not level.is_contiguous()
+            or not recv.is_contiguous()):
+        raise ValueError("closure_parts: level and recv must be contiguous "
+                         "uint8 (P, rows)")
+    if indptr.shape[0] != rows + 1 or rows * p < num_node:
+        raise ValueError(f"closure_parts: {indptr.shape[0]} offsets for "
+                         f"{rows} rows of {p} parts, {num_node} nodes")
+    if not 1 <= tag <= 127:
+        raise ValueError(f"closure_parts: tag {tag} outside [1, 127]")
+    if counts is not None:
+        _check_1d("closure_parts", "counts", counts)
+        if counts.shape[0] != rows:
+            raise ValueError(f"closure_parts: counts has {counts.shape[0]} "
+                             f"entries for {rows} rows")
+    dev = level.device
+    ts = [indptr, indices, level, recv] + ([] if counts is None else
+                                           [counts])
+    if len({t.device for t in ts}) != 1:
+        raise ValueError("closure_parts: tensors on several devices")
+    if dev.type == "cpu":
+        return closure_parts_plain(indptr, indices, level, recv, tag,
+                                   num_node, counts)
+    if dev.type != "cuda":
+        raise ValueError(f"closure_parts: no kernel for {dev}")
+    out = None if counts is not None else torch.empty(
+        (p, p, rows), dtype=torch.uint8, device=dev)
+    lib = _build.load("presample")
+    rc = lib.xg_closure_parts(
+        indptr.data_ptr(), indices.data_ptr(), rows, num_node, p,
+        level.data_ptr(), recv.data_ptr(), tag,
+        None if out is None else out.data_ptr(),
+        None if counts is None else counts.data_ptr(), dev.index,
+        _build.stream_handle(dev))
+    _build.check(rc, "closure_parts")
+    _build.LAUNCHES.add("closure_parts")
+    return counts if out is None else out

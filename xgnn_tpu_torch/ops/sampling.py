@@ -33,11 +33,19 @@ row takes the same uniforms as a hot row, so a tiered call picks what the
 untiered call over the whole CSR picks.  The device CSR's ``indptr`` stays
 int32 (an int64 one is refused); the host CSR's is int64.
 
+The cold form (:func:`sample_cold`) is the same tiered kernels with no
+device CSR: it draws a frontier's cold rows from the tier's host CSR and
+writes EMPTY on every other row, reading no device row.  The partitioned
+topology's requesting rank serves its cold rows with it
+(``parallel/dist_topology.py``), where the device CSR is the rank's part
+of the hot prefix, by local row.
+
 The CUDA kernels are ``csrc/sampling.cu`` (K2, K8a) and ``csrc/weighted.cu``
 (K8b).  The ``*_plain`` functions are their plain PyTorch versions: the
 wrappers take them only for tensors on the CPU.  Launches are counted as
 ``sample_khop`` (K2), ``sample_wr`` (K8a, both forms), ``sample_prefix``
-and ``sample_alias`` (K8b, the alias count covering both forms).
+and ``sample_alias`` (K8b, the alias count covering both forms), and the
+cold form's as the same names with ``_cold``.
 """
 
 from __future__ import annotations
@@ -102,6 +110,12 @@ def _check_tier(tier, indptr, frontier, names, what):
         raise ValueError(
             f"{what}: a tier of {tier.num_cache_node} hot rows of "
             f"{tier.csr.num_node} for a device graph of {num_node} rows")
+    _check_tier_arrays(tier, frontier, names, what)
+
+
+def _check_tier_arrays(tier, frontier, names, what):
+    """The tier's host arrays ``names`` exist and, for a CUDA frontier, are
+    mapped for its device."""
     for name in names:
         if tier.csr.host(name) is None:
             raise ValueError(f"{what}: the tier's host CSR has no {name}")
@@ -716,3 +730,144 @@ def sample_weighted_khop_hash_dedup(
     fanout)`` float32.  ``tier`` as for :func:`sample_weighted_khop`."""
     return _sample_alias(indptr, indices, prob_table, alias_table, frontier,
                          fanout, generator, u, coin, rounds, tier)
+
+
+# ------------------------------------------------------- the cold form
+# the cold form's kernel a form, by the samplers' forms: (library, entry
+# point's base, the host arrays it reads)
+COLD_FORMS = {
+    "khop": ("sampling", _NAME, ("indptr", "indices")),
+    "uniform_wr": ("sampling", _WR, ("indptr", "indices")),
+    "khop1": ("sampling", _WR, ("indptr", "indices")),
+    "alias": ("weighted", _ALIAS, _ALIAS_ARRAYS),
+    "alias_dedup": ("weighted", _ALIAS, _ALIAS_ARRAYS),
+    "prefix": ("weighted", _PREFIX, _PREFIX_ARRAYS),
+}
+
+
+def _cold_draws(form, frontier, fanout, generator, u, coin, rounds):
+    """The cold form's uniforms, drawn as the form's sampler draws them
+    where not given: ``(u, coin, width)``."""
+    width = rounds * fanout if form == "alias_dedup" else fanout
+    if form in ("alias", "alias_dedup"):
+        u, coin = _alias_uniforms(frontier, width, generator, u, coin)
+    elif u is None:
+        u = torch.rand((frontier.shape[0], width), generator=generator,
+                       device=frontier.device)
+    return u, coin, width
+
+
+def sample_cold_plain(form: str, tier, frontier: torch.Tensor, fanout: int,
+                      generator: Optional[torch.Generator] = None, *,
+                      u: Optional[torch.Tensor] = None,
+                      coin: Optional[torch.Tensor] = None,
+                      rounds: int = HASH_DEDUP_ROUNDS) -> torch.Tensor:
+    """The cold half of a tiered call (``_per_tier``'s): the ``form``'s
+    plain sampler over the host CSR for the frontier's cold ids, EMPTY
+    rows elsewhere."""
+    u, coin, _ = _cold_draws(form, frontier, fanout, generator, u, coin,
+                             rounds)
+    csr = tier.csr
+    cold = (frontier >= tier.num_cache_node) & (frontier < csr.num_node)
+    rows = torch.where(cold, frontier, EMPTY).cpu()
+    uc, cc = _on(u, rows), _on(coin, rows)
+    ip, ix = csr.host("indptr"), csr.host("indices")
+    if form == "khop":
+        out = sample_khop0_plain(ip, ix, rows, fanout, u=uc)
+    elif form == "uniform_wr":
+        out = sample_uniform_wr_plain(ip, ix, rows, fanout, u=uc)
+    elif form == "khop1":
+        out = sample_khop1_plain(ip, ix, rows, fanout, u=uc)
+    elif form == "alias":
+        out = sample_weighted_khop_plain(
+            ip, ix, csr.host("prob_table"), csr.host("alias_table"), rows,
+            fanout, u=uc, coin=cc)
+    elif form == "alias_dedup":
+        out = sample_weighted_khop_hash_dedup_plain(
+            ip, ix, csr.host("prob_table"), csr.host("alias_table"), rows,
+            fanout, u=uc, coin=cc, rounds=rounds)
+    else:
+        out = sample_weighted_khop_prefix_plain(
+            ip, ix, csr.host("prob_prefix_table"), rows, fanout, u=uc)
+    return out.to(frontier.device)
+
+
+def sample_cold(form: str, tier, frontier: torch.Tensor, fanout: int,
+                generator: Optional[torch.Generator] = None, *,
+                u: Optional[torch.Tensor] = None,
+                coin: Optional[torch.Tensor] = None,
+                rounds: int = HASH_DEDUP_ROUNDS) -> torch.Tensor:
+    """The cold form of the tiered samplers: ``(B, fanout)`` int32, the
+    picks that the tiered call of ``form`` (a key of :data:`COLD_FORMS`)
+    gives each frontier id in ``[tier.num_cache_node, tier.csr.num_node)``,
+    read from the tier's host CSR, and EMPTY on every other row.  No device
+    CSR is read: the partitioned topology's requesting rank serves its cold
+    rows with it, whatever part of the hot prefix it holds.  ``u`` (and
+    ``coin``; ``(B, rounds * fanout)`` for ``alias_dedup``) as the form's
+    sampler takes them, drawn from ``generator`` where not given.  One
+    launch, counted as ``<sampler>_cold``."""
+    if form not in COLD_FORMS:
+        raise ValueError(f"sample_cold: no form {form!r}")
+    lib_name, base, names = COLD_FORMS[form]
+    what = f"{base}_cold"
+    if frontier.dim() != 1 or frontier.dtype != torch.int32:
+        raise ValueError(f"{what}: frontier must be 1-D int32, got "
+                         f"{frontier.dtype} {tuple(frontier.shape)}")
+    if not 1 <= fanout <= MAX_FANOUT:
+        raise ValueError(f"{what}: fanout {fanout} outside [1, {MAX_FANOUT}]")
+    if form == "alias_dedup" and not (rounds >= 1
+                                      and rounds * fanout <= MAX_DRAWS):
+        raise ValueError(f"{what}: {rounds} rounds of {fanout}: the kernel "
+                         f"keeps 1 to {MAX_DRAWS} draws a row")
+    if frontier.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what}: no kernel for {frontier.device}")
+    if not 0 <= tier.num_cache_node <= tier.csr.num_node:
+        raise ValueError(f"{what}: a hot prefix of {tier.num_cache_node} "
+                         f"rows of {tier.csr.num_node}")
+    _check_tier_arrays(tier, frontier, names, what)
+    b = frontier.shape[0]
+    width = rounds * fanout if form == "alias_dedup" else fanout
+    for t in (u, coin):
+        if t is not None and (t.dtype != torch.float32
+                              or tuple(t.shape) != (b, width)
+                              or t.device != frontier.device
+                              or not t.is_contiguous()):
+            raise ValueError(f"{what}: u and coin must be contiguous "
+                             f"float32 ({b}, {width}) on {frontier.device}, "
+                             f"got {t.dtype} {tuple(t.shape)} on {t.device}")
+    if frontier.device.type == "cpu":
+        return sample_cold_plain(form, tier, frontier, fanout, generator,
+                                 u=u, coin=coin, rounds=rounds)
+    frontier = frontier.contiguous()
+    u, coin, width = _cold_draws(form, frontier, fanout, generator, u, coin,
+                                 rounds)
+    lib = _build.load(lib_name)
+    out = torch.empty((b, fanout), dtype=torch.int32, device=frontier.device)
+    if b:
+        ncn = tier.num_cache_node
+        cold = _cold_args(tier, None, names)
+        stream = _build.stream_handle(frontier.device)
+        if base == _NAME:
+            rc = lib.xg_sample_khop(None, None, frontier.data_ptr(),
+                                    u.data_ptr(), out.data_ptr(), ncn, b,
+                                    fanout, *cold, stream)
+        elif base == _WR:
+            rc = lib.xg_sample_wr(None, None, frontier.data_ptr(),
+                                  u.data_ptr(), out.data_ptr(), ncn, b,
+                                  fanout, int(form == "khop1"), *cold,
+                                  stream)
+        elif base == _ALIAS:
+            dedup = form == "alias_dedup"
+            rc = lib.xg_sample_alias(None, None, None, None,
+                                     frontier.data_ptr(), u.data_ptr(),
+                                     coin.data_ptr(), out.data_ptr(), ncn, b,
+                                     fanout, width, int(dedup), *cold,
+                                     stream)
+        else:
+            rc = lib.xg_sample_prefix(None, None, None, None,
+                                      frontier.data_ptr(), u.data_ptr(),
+                                      out.data_ptr(), ncn, b, fanout, *cold,
+                                      stream)
+        _build.check(rc, what)
+        _build.LAUNCHES.add(what)
+    return out

@@ -28,9 +28,14 @@ positions and the misses read in place from pinned host memory by K11
 (``parallel/ggms.py``), and the train half runs on them at once, on the
 same stream.  ``make_presample_step`` (:641) counts each rank's valid
 inputs at their owner for the cache's ranking and for the calibration of
-the capacities.  JAX's ``put_replicated``
-and ``put_sharded`` place a whole value on every chip of one process's
-mesh; here each rank builds its own part where it runs
+the capacities; ``make_presample_static_exact_step`` (:741) counts, for
+``presample_static``, every node within L hops of each rank's seeds once
+a batch, exactly, on either topology.  On a partitioned topology with a
+host cold tier (``LocalTopo.tier``) every step samples through it: the
+topology carries its cold side, so the steps take no tier arguments
+(JAX's ``num_cache_node``, ``host_sampler`` and ``cold_cap``).  JAX's
+``put_replicated`` and ``put_sharded`` place a whole value on every chip
+of one process's mesh; here each rank builds its own part where it runs
 (``exchange.interleaved_part``, ``dist_topology.partition_part``).
 """
 
@@ -44,7 +49,7 @@ import torch
 from .. import constants as C
 import torch.distributed as dist
 
-from ..ops.presample import accumulate_freq
+from ..ops.presample import accumulate_freq, closure_expand, closure_parts
 from ..ops.tiered import tiered_direct
 from ..sampler import _layer_fanouts, _sample_minibatch
 from ..train import Adam, loss_fn
@@ -314,3 +319,60 @@ def make_presample_step(config, mesh: Mesh, capacities, seg_cap: int,
 
     return step
 
+
+def make_presample_static_exact_step(config, mesh: Mesh, num_node: int,
+                                     seed_cap: int,
+                                     use_dist_graph: bool = False):
+    """The exact all-neighbour presample over the cards (the reference's
+    ``DoGPUSampleAllNeighbour``): ``step(freq_part, topo, seeds, num_seed,
+    generator) -> (freq_part, sizes)`` adds to this rank's interleaved
+    share of the counts, in place, 1 for every node within
+    ``len(config.fanout)`` hops of each rank's first ``num_seed`` seeds (of
+    at most ``seed_cap``), once a rank's batch; ``sizes`` is zeros (the
+    closure runs after the calibration) and the generator is not read.
+
+    Partitioned (``use_dist_graph``, no cold tier): the ranks' seeds are
+    gathered, each rank marks the seeds it owns in a lane a rank, and a
+    layer is K12b's partitioned form over the rank's local rows (their
+    edges marked at their global destinations, owner-major) and one reduce
+    by owner, which returns each rank its rows' marks from every rank.
+    Replicated: the rank closes its own batch over the whole CSR with the
+    single store's K12b, and one reduce by owner sums the lanes' marks into
+    the shares.  JAX's ``psum_scatter``; gloo, with no reduce-scatter,
+    reduces the whole buffer and keeps this rank's row."""
+    num_layer = len(config.fanout)
+
+    def step(freq_part, topo, seeds, num_seed, generator=None):
+        del generator  # the closure draws nothing
+        p, dev = mesh.size, freq_part.device
+        rows = freq_part.shape[0]
+        seeds = seeds.reshape(-1)[:seed_cap]
+        live = torch.arange(seeds.shape[0], device=dev) < \
+            torch.as_tensor(num_seed, device=dev)
+        sg = torch.where(live, seeds, EMPTY)
+        if use_dist_graph:
+            every = mesh.all_gather(sg)  # (P lanes, S)
+            mine = (every != EMPTY) & (torch.remainder(every, p)
+                                       == mesh.rank)
+            at = torch.where(mine, torch.div(every, p, rounding_mode="floor"),
+                             rows).long()
+            recv = torch.zeros((p, rows + 1), dtype=torch.uint8, device=dev)
+            recv.scatter_(1, at, 1)
+            recv = recv[:, :rows].contiguous()
+            level = torch.zeros((p, rows), dtype=torch.uint8, device=dev)
+            for layer in range(num_layer):
+                out = closure_parts(topo.indptr, topo.indices, level, recv,
+                                    layer + 1, num_node)
+                recv = mesh.reduce_scatter(out)
+            closure_parts(topo.indptr, topo.indices, level, recv,
+                          num_layer + 1, num_node, counts=freq_part)
+        else:
+            mask = torch.zeros(rows * p, dtype=torch.int32, device=dev)
+            closure_expand(topo.indptr, topo.indices, sg, num_layer,
+                           mask[:num_node])
+            # node r * P + o is owner o's row r
+            freq_part += mesh.reduce_scatter(mask.view(rows, p).t())
+        return freq_part, torch.zeros(num_layer + 1, dtype=torch.int32,
+                                      device=dev)
+
+    return step

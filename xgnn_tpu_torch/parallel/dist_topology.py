@@ -19,13 +19,31 @@ its coarse CDF).  The random walk is unrolled as one exchange a step (the
 first a fanout-W draw over the seeds), and its visits are counted and
 ranked by K9's top-K (``ops/random_walk.walk_topk``).
 
-Random streams: JAX keys each request's uniforms by (key, node, slot).
-The owner here draws its whole ``(P * seg, ...)`` buffer from the rank's
-generator, so duplicate requests draw independently, as JAX's slot term
-makes them.  Every sampler takes its uniforms in owner order (``u=``,
-``coin=``; for the walk ``u=(steps, restart)``) for the tests.  The host
-cold tier (``dist_graph_percentage < 1``) is not part of this port: the
-engine refuses it.
+The host cold tier (``dist_graph_percentage < 1``, a :class:`LocalTopo`
+with a ``tier``): the partitioned CSR is the hot node-id prefix ``[0,
+num_cache_node)`` only, and the whole graph's CSR lies in pinned host
+memory, mapped for the rank's card (``store/topology.py``'s
+``MappedHostCSR``; each rank maps its own).  A layer sends only the hot
+ids (K13-plan's ``hot_limit``: a cold id's pick is EMPTY, as an EMPTY
+request's), and the requesting rank draws its cold ids itself, in place
+from the host CSR, with the samplers' cold form (``ops/sampling.
+sample_cold``: one launch a layer, EMPTY on every other row); the select
+that masks the response's EMPTY picks takes the cold rows' picks there,
+so merging them costs no pass of its own.  JAX serves the cold ids
+through a host callback over their compacted list
+(``ggms.cold_sample_callback``), with a ``cold_cap`` and its overflow;
+here there is no compaction, no ``cold_cap`` and no cold overflow.  A
+walker on a cold node steps from the host CSR on its own rank (K8a's
+``uniform_wr`` cold form).
+
+Random streams: JAX keys each request's uniforms by (key, node, slot),
+and a cold row's by a hash of (key, node, position).  The owner here
+draws its whole ``(P * seg, ...)`` buffer from the rank's generator, so
+duplicate requests draw independently, as JAX's slot term makes them,
+and the requesting rank draws its cold rows' from its own.  For the tests
+every sampler takes its uniforms instead, in request order (``u=``,
+``coin=``; for the walk ``u=(steps, restart)``): the hot rows' are sent
+to their owners with the requests, the cold rows' used where they are.
 """
 
 from __future__ import annotations
@@ -41,6 +59,7 @@ from ..config import SampleType, UNIFORM_KHOP
 from ..ops import random_walk, sampling, unique
 from ..ops.gather import gather_rows
 from ..sampler import _device_scalar
+from ..store.topology import Tier
 from ..types import Block, SampledBatch
 from .exchange import local_rows_of, plan_exchange
 from .mesh import Mesh
@@ -54,7 +73,9 @@ class LocalTopo:
     """One rank's part of the topology: ``(rows + 1,)`` int32 local
     offsets, the ``(E_p,)`` int32 global ids of its rows' neighbours and
     the weighted tables edge-aligned with them; ``num_node`` is the whole
-    graph's node count and ``max_deg`` its largest degree."""
+    graph's node count and ``max_deg`` its largest degree.  ``tier``: the
+    host cold tier, when the parts hold the hot prefix only (its
+    ``num_cache_node``)."""
 
     indptr: torch.Tensor
     indices: torch.Tensor
@@ -65,6 +86,7 @@ class LocalTopo:
     prefix: Optional[torch.Tensor] = None
     coarse: Optional[torch.Tensor] = None
     max_deg: Optional[int] = None
+    tier: Optional[Tier] = None
 
 
 def partition_part(indptr: torch.Tensor, indices: torch.Tensor,
@@ -76,23 +98,28 @@ def partition_part(indptr: torch.Tensor, indices: torch.Tensor,
     """Part ``part`` of the interleave-partitioned CSR prefix ``[0,
     num_cache_node)`` on the tensors' device: its rows ``part, part + P,
     ...``, rebased offsets (int32; a part of 2^31 edges or more raises),
-    and the edge-aligned tables.  At P = 1 over the whole graph the part is
-    the graph's own tensors (alias entries are global ids: no part needs a
-    translation)."""
+    and the edge-aligned tables.  At P = 1 the part is the prefix of the
+    graph's own tensors (alias entries are global ids: no part needs a
+    translation).  ``indices`` and the tables may lie on the host (a memory
+    map of 2^31 edges or more among them) whatever ``indptr``'s device: the
+    part is cut where they lie and moved to ``indptr``'s."""
     num_node = indptr.shape[0] - 1
     ncn = num_node if num_cache_node is None else num_cache_node
     max_deg = int((indptr[1:] - indptr[:-1]).max()) if num_node else 0
     rows = max(-(-ncn // num_parts), 1)
     coarse = None
-    if num_parts == 1 and ncn == num_node:
-        if int(indptr[-1]) >= 2**31:
-            raise ValueError(f"partition 0 would own {int(indptr[-1])} "
-                             "edges (>= 2^31)")
-        local = indptr.to(torch.int32)
-        tables = (prob, alias, prefix)
-        idx = indices
+    dev = indptr.device
+    if num_parts == 1:
+        edges = int(indptr[ncn])
+        if edges >= 2**31:
+            raise ValueError(f"partition 0 would own {edges} edges (>= 2^31)")
+        local = indptr[:ncn + 1].to(torch.int32)
+        if ncn == 0:
+            local = torch.zeros(2, dtype=torch.int32, device=dev)
+        tables = tuple(None if t is None else t[:edges].to(dev)
+                       for t in (prob, alias, prefix))
+        idx = indices[:edges].to(dev)
     else:
-        dev = indptr.device
         own = torch.arange(part, ncn, num_parts, device=dev)
         starts = indptr[own].long()
         degs = indptr[own + 1].long() - starts
@@ -108,8 +135,9 @@ def partition_part(indptr: torch.Tensor, indices: torch.Tensor,
                                        output_size=edges)
                + torch.arange(edges, device=dev))
         local = li.to(torch.int32)
-        idx = indices[eid]
-        tables = tuple(None if t is None else t[eid]
+        eid = eid.to(indices.device)
+        idx = indices[eid].to(dev)
+        tables = tuple(None if t is None else t[eid].to(dev)
                        for t in (prob, alias, prefix))
     if tables[2] is not None:
         coarse = sampling.build_coarse_cdf(local, tables[2], rows)
@@ -188,21 +216,57 @@ def owner_sample(topo: LocalTopo, req: torch.Tensor, fanout: int,
     raise NotImplementedError(st)
 
 
+# the samplers' cold form (ops/sampling.sample_cold) of each sample type
+_COLD_FORMS = {UNIFORM_WR: "uniform_wr", SampleType.KHOP0: "khop",
+               SampleType.KHOP2: "khop", SampleType.KHOP3: "khop",
+               SampleType.KHOP1: "khop1", SampleType.WEIGHTED_KHOP: "alias",
+               SampleType.WEIGHTED_KHOP_HASH_DEDUP: "alias_dedup",
+               SampleType.WEIGHTED_KHOP_PREFIX: "prefix"}
+
+
+def _to_owners(vals: torch.Tensor, plan, mesh: Mesh, seg: int):
+    """Request-order ``vals`` (a row a request) in each owner's received
+    order: placed at the requests' slots of the send buffer and sent with
+    them (EMPTY and overflowed requests' rows dropped, their slots 0)."""
+    p = mesh.size
+    buf = torch.zeros((p * seg + 1,) + tuple(vals.shape[1:]),
+                      dtype=vals.dtype, device=vals.device)
+    at = torch.where(plan.pick != EMPTY, plan.pick, p * seg).long()
+    buf[at] = vals
+    return mesh.all_to_all(buf[:p * seg])
+
+
 def sample_layer_partitioned(topo: LocalTopo, frontier: torch.Tensor,
                              fanout: int, mesh: Mesh, seg_cap: int,
                              sample_type=SampleType.KHOP3, generator=None,
                              u=None, coin=None):
     """One sampling layer over the partitioned topology: ``(neigh, overflow)``,
     ``neigh`` ``(n, K)`` global ids in request order.  A segment never needs
-    more slots than the frontier has entries: ``seg = min(seg_cap, n)``."""
+    more slots than the frontier has entries: ``seg = min(seg_cap, n)``.
+    With a tier (``topo.tier``) only the hot ids are sent; the cold ones
+    are drawn here from the host CSR (the samplers' cold form) and take
+    their place in the one select that masks the EMPTY picks.  ``u``,
+    ``coin``: every row's uniforms in request order, as the sample type's
+    sampler takes them (module docstring); drawn from ``generator`` where
+    not given."""
     p = mesh.size
     seg = max(min(seg_cap, frontier.shape[0]), 1)
-    plan = plan_exchange(frontier, p, seg)
+    tier = topo.tier
+    plan = plan_exchange(frontier, p, seg,
+                         None if tier is None else tier.num_cache_node)
+    owner_u, owner_coin = (None if t is None else _to_owners(t, plan, mesh,
+                                                              seg)
+                           for t in (u, coin))
     req = mesh.all_to_all(plan.send.reshape(-1))
-    drawn = owner_sample(topo, req, fanout, sample_type, generator, u, coin)
+    drawn = owner_sample(topo, req, fanout, sample_type, generator, owner_u,
+                         owner_coin)
     resp = mesh.all_to_all(drawn)
     picked = gather_rows(resp, plan.pick)
-    return torch.where((plan.pick != EMPTY)[:, None], picked, EMPTY), \
+    rest = EMPTY
+    if tier is not None:
+        rest = sampling.sample_cold(_COLD_FORMS[sample_type], tier, frontier,
+                                    fanout, generator, u=u, coin=coin)
+    return torch.where((plan.pick != EMPTY)[:, None], picked, rest), \
         plan.overflow
 
 
@@ -216,9 +280,10 @@ def walk_visits_partitioned(topo: LocalTopo, frontier: torch.Tensor,
     exchange over the seeds; each later step restarts a walker at its seed
     where ``u_restart < restart_prob`` (float32), then takes a fanout-1
     exchange over the ``B * W`` walkers; a walker with no step returns to
-    its seed.  ``u = (steps, u_restart)``: ``steps[0]`` the owner's ``(P *
-    seg, W)`` uniforms, ``steps[s]`` its ``(P * seg * W, 1)``,
-    ``u_restart`` ``(L, B, W)``."""
+    its seed, and a walker on a cold node (``topo.tier``) steps from the
+    host CSR on this rank.  ``u = (steps, u_restart)``, in request order:
+    ``steps[0]`` ``(B, W)``, ``steps[s]`` ``(B * W, 1)``, ``u_restart``
+    ``(L, B, W)``."""
     b = frontier.shape[0]
     w, l = num_random_walk, random_walk_length
     steps, u_restart = (None, None) if u is None else u
@@ -267,11 +332,16 @@ def sample_minibatch_partitioned(topo: LocalTopo, seeds: torch.Tensor,
                                  sample_type, fanouts: Sequence[int],
                                  capacities: Sequence[int],
                                  rw_params: tuple = (4, 3, 0.5),
-                                 generator=None) -> SampledBatch:
-    """Multi-layer sampling over the partitioned topology: each layer's
-    draw through the owner exchange, the dedup and remap (K3) on the rank.
-    Each layer's segment is ``seg_cap`` (sized to the last frontier) scaled
-    to its own frontier's capacity, at least 128."""
+                                 generator=None,
+                                 u: Optional[Sequence] = None
+                                 ) -> SampledBatch:
+    """Multi-layer sampling over the partitioned topology (with its cold
+    tier where ``topo.tier`` is set): each layer's draw through the owner
+    exchange, the dedup and remap (K3) on the rank.  Each layer's segment
+    is ``seg_cap`` (sized to the last frontier) scaled to its own
+    frontier's capacity, at least 128.  ``u``: each layer's request-order
+    uniforms, ``(u, coin)`` (coin None but for the alias forms), or the
+    walk's ``(steps, u_restart)`` (:func:`walk_visits_partitioned`)."""
     dev = seeds.device
     frontier = seeds
     num_frontier = num_seed = _device_scalar(num_seed, dev)
@@ -286,11 +356,13 @@ def sample_minibatch_partitioned(topo: LocalTopo, seeds: torch.Tensor,
             nbr, weights, of = sample_random_walk_partitioned(
                 topo, frontier, fanout, mesh, layer_seg,
                 num_random_walk=num_rw, random_walk_length=rw_len,
-                restart_prob=restart, generator=generator)
+                restart_prob=restart, generator=generator,
+                u=None if u is None else u[layer])
         else:
+            uc = (None, None) if u is None else u[layer]
             nbr, of = sample_layer_partitioned(topo, frontier, fanout, mesh,
                                                layer_seg, sample_type,
-                                               generator)
+                                               generator, *uc)
         out_cap = capacities[layer + 1]
         uids, num_unique, local = unique.unique_seeded_split(
             frontier, nbr.reshape(-1), num_frontier, out_cap,

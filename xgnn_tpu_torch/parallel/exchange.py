@@ -94,12 +94,16 @@ class Plan(NamedTuple):
 
 
 def plan_exchange_plain(ids: torch.Tensor, num_parts: int, seg_cap: int,
-                        ranks: bool = False) -> Plan:
+                        ranks: bool = False,
+                        hot_limit: Optional[int] = None) -> Plan:
     """JAX's ``plan_exchange`` in torch ops: ``P`` prefix counts over the
     request vector, then a linearised scatter.  ``ranks``: also return each
     request's owner and rank, as JAX's ``plan_exchange`` does (the
-    exchange itself needs only ``send`` and ``pick``)."""
+    exchange itself needs only ``send`` and ``pick``).  ``hot_limit``: an
+    id at or past it counts as EMPTY (JAX's hot mask before the plan)."""
     valid = ids != EMPTY
+    if hot_limit is not None:
+        valid = valid & (ids < hot_limit)
     owner = torch.where(valid, torch.remainder(ids, num_parts), num_parts)
     rank = torch.zeros_like(ids)
     for k in range(num_parts):
@@ -119,9 +123,13 @@ def plan_exchange_plain(ids: torch.Tensor, num_parts: int, seg_cap: int,
                 rank if ranks else None)
 
 
-def plan_exchange(ids: torch.Tensor, num_parts: int, seg_cap: int) -> Plan:
+def plan_exchange(ids: torch.Tensor, num_parts: int, seg_cap: int,
+                  hot_limit: Optional[int] = None) -> Plan:
     """K13-plan: ``(n,)`` int32 requested ids grouped by owner (``id %
-    num_parts``) into a ``(num_parts, seg_cap)`` send buffer."""
+    num_parts``) into a ``(num_parts, seg_cap)`` send buffer.  ``hot_limit``
+    (a tiered topology's hot prefix size): an id at or past it is not sent
+    and its pick is EMPTY, as an EMPTY request's, so no mask pass runs
+    before the plan."""
     if ids.dim() != 1 or ids.dtype != torch.int32:
         raise ValueError(f"plan_exchange: ids must be 1-D int32, got "
                          f"{ids.dtype} {tuple(ids.shape)}")
@@ -131,7 +139,8 @@ def plan_exchange(ids: torch.Tensor, num_parts: int, seg_cap: int) -> Plan:
     if seg_cap < 1 or num_parts * seg_cap >= 2**31:
         raise ValueError(f"plan_exchange: seg_cap {seg_cap} out of range")
     if ids.device.type == "cpu":
-        return plan_exchange_plain(ids, num_parts, seg_cap)
+        return plan_exchange_plain(ids, num_parts, seg_cap,
+                                   hot_limit=hot_limit)
     if ids.device.type != "cuda":
         raise ValueError(f"plan_exchange: no kernel for {ids.device}")
     ids = ids.contiguous()
@@ -144,7 +153,9 @@ def plan_exchange(ids: torch.Tensor, num_parts: int, seg_cap: int) -> Plan:
     scratch = torch.empty((num_parts * tiles + num_parts,), **i32)
     lib = _build.load("exchange")
     rc = lib.xg_plan_exchange(
-        ids.data_ptr(), n, num_parts, seg_cap, send.data_ptr(),
+        ids.data_ptr(), n, num_parts,
+        EMPTY if hot_limit is None else int(hot_limit), seg_cap,
+        send.data_ptr(),
         pick.data_ptr(), flag.data_ptr(), scratch.data_ptr(),
         _build.stream_handle(dev))
     _build.check(rc, _NAME)

@@ -6,9 +6,11 @@ port runs XGNN's arch6 as the reference does and as PyTorch does, one
 process a card, each rank holding its share of the stores.  A
 :class:`Mesh` is a rank's view of the group: its rank, the world's size,
 its device and the collectives the collocated step uses (``all_to_all``
-with equal splits, a summed ``all_reduce``).  NCCL runs on the card and
-gloo on the CPU; the device decides, and nothing drops to the CPU or to
-gloo when CUDA or NCCL is missing: it raises.
+with equal splits, a summed ``all_reduce``; the exact presample's
+``all_gather`` and ``reduce_scatter``, the latter an ``all_reduce`` of the
+whole and a slice on gloo, which has no reduce-scatter).  NCCL runs on
+the card and gloo on the CPU; the device decides, and nothing drops to
+the CPU or to gloo when CUDA or NCCL is missing: it raises.
 
 Rendezvous goes through a file store in a fresh temporary directory,
 never a fixed TCP port.  :func:`make_mesh` makes a world of one in the
@@ -79,6 +81,31 @@ class Mesh:
         """In place over every rank."""
         dist.all_reduce(t, op=op)
         return t
+
+    def all_gather(self, t: torch.Tensor) -> torch.Tensor:
+        """Every rank's ``t``, stacked in rank order: ``(size,) +
+        t.shape``."""
+        out = torch.empty((self.size,) + tuple(t.shape), dtype=t.dtype,
+                          device=t.device)
+        if self.backend == "nccl":
+            dist.all_gather_into_tensor(out, t.contiguous())
+        else:
+            dist.all_gather(list(out.unbind(0)), t.contiguous())
+        return out
+
+    def reduce_scatter(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` (``(size, ...)``, row ``p`` for rank ``p``) summed over the
+        ranks: this rank's row of the sum.  NCCL reduce-scatters; gloo has
+        no reduce-scatter, so it sums a copy of the whole of ``t`` and
+        takes the row."""
+        if self.backend == "nccl":
+            out = torch.empty(tuple(t.shape[1:]), dtype=t.dtype,
+                              device=t.device)
+            dist.reduce_scatter_tensor(out, t.contiguous())
+            return out
+        whole = t.contiguous().clone()
+        dist.all_reduce(whole)
+        return whole[self.rank]
 
     def close(self):
         if self._store_dir is not None and dist.is_initialized():

@@ -15,8 +15,10 @@ ids of each layer, because a TPU program cannot read host memory
 (UVA, ``dist_graph.h:141-151``), and so does the port: K2, K8a, K8b and K9
 read a cold row's indptr pair, its picks and the weighted tables from
 :class:`MappedHostCSR`, in the same launch as the hot rows
-(``ops/sampling.py``, ``ops/random_walk.py``).  There is no compaction, no
-``cold_cap`` and no cold overflow.
+(``ops/sampling.py``, ``ops/random_walk.py``), or, on the partitioned
+topology, in the requesting rank's own launch (the samplers' cold form,
+``parallel/dist_topology.py``).  There is no compaction, no ``cold_cap``
+and no cold overflow.
 """
 
 from __future__ import annotations
@@ -140,7 +142,8 @@ class MappedHostCSR:
 
 class Tier(NamedTuple):
     """A tiered topology's cold side, as the samplers take it (``tier=``):
-    the hot prefix ``[0, num_cache_node)`` is the device graph's; the rows
+    the hot prefix ``[0, num_cache_node)`` is the device graph's (or, on
+    the partitioned topology, spread over the ranks' parts); the rows
     ``[num_cache_node, csr.num_node)`` are read from ``csr``."""
 
     num_cache_node: int
