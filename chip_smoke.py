@@ -333,6 +333,26 @@ Phases, each fatal on failure:
    ``graphsage_multichip_ggms_static_tiered`` (the wide-khop approximation
    under the cold tier, its hit rate beside the exact ranking's).  The
    phase's wall time and the ``{"dist_cold": ...}`` JSON line.
+18. The multi-card ``device_loop`` at P = 1: ``graphsage_multichip``,
+   ``graphsage_multichip_tiered`` (0.85) and ``pinsage_multichip`` with
+   ``device_loop=True``, the rank's fused step (the NCCL collectives
+   inside) captured and replayed once a step: the capturing epoch's
+   wrapper calls (two eager steps' worth) and a replayed epoch's (none),
+   the per-step losses and accuracies of epochs 0 and 1 bit-equal to
+   phases 15 and 17's host loops on the same seeds, the capture time, the
+   host ms to queue a replay, the card's ms alone, a profiled epoch of
+   replays whose hand kernels by name equal a profiled host-loop epoch's
+   on the same engine (within the records a session loses), and its
+   device-to-device copies beside the host loop's.  The phase's wall time
+   and the ``{"multichip_device_loop": ...}`` JSON line.
+19. The disaggregated engine (arch5) with 1 sampler and 1 trainer sharing
+   the card (bench.py's XGNN_BENCH_ARCH5=1): ``graphsage_arch5`` (every
+   layer deduped, K1 over the trainer's input rows and labels) and
+   ``graphsage_arch5_cached`` (cache 0.2, pre_sample presampled on the
+   sampler: K11's split and reads, K1 for the labels), each a warm-up and
+   a counted epoch with their launches asserted and a profiled epoch
+   beside phase 6's graphsage and phase 8's graphsage_cached.  The phase's
+   wall time and the ``{"arch5": ...}`` JSON line.
 
 Each kernel is timed twice: ``ms`` back to back (the wrapper's host time
 included, where the host is the slower) and ``device_ms`` with the host
@@ -346,7 +366,8 @@ Prints the inference's JSON line, the tooling's (phase 10), the training
 options' (phase 11), the tiered topology's (phase 12), the dataset
 files' (phase 13), the last configurations' (phase 14), the multi-card
 engine's (phase 15), the two-phase GGMS's (phase 16), the cold tier's
-and the exact presample's (phase 17), the kernels' JSON line, then the
+and the exact presample's (phase 17), the multi-card device_loop's (phase
+18), arch5's (phase 19), the kernels' JSON line, then the
 card's line (nvidia-smi's name and power limit), then the result line.
 Exits non-zero with no result line when there is no CUDA device.
 """
@@ -492,6 +513,9 @@ def bound_ms(nbytes: float, flops: float):
 
 
 DEVICE_LOOP_PATHS = ("graphsage", "pinsage", "gcn", "gat1")
+# records that a profiled multi-card epoch may lose, by kernel name (phase
+# 18): the first step's, at the session's start
+LOST_RECORDS = 3
 LOSS_RTOL = 1e-5  # device_loop against the host loop, step by step
 LEAD_IN_KERNELS = 16  # torch.cuda._sleep's spin_kernel, before a profile
 
@@ -521,6 +545,35 @@ def kernel_name(event_name: str) -> str:
     return m.group(1) if m else n
 
 
+def replays_queued(torch, dev, fused, gen_seeds):
+    """A ``device_loop`` epoch's replays again (``gen_seeds``, a
+    (sampling, dropout) pair a step), queued while the card sleeps: the
+    card's ms for the epoch alone (its busy time: nothing idles between
+    queued replays) and the host's ms a step to queue them."""
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    cycles = 20_000_000
+    while True:
+        fused.stream.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(fused.stream):
+            fused.step.zero_()
+            torch.cuda._sleep(cycles)
+            start.record()
+            t0 = time.perf_counter()
+            for a, b in gen_seeds:
+                fused.sample_gen.manual_seed(a)
+                fused.dropout_gen.manual_seed(b)
+                fused.graph.replay()
+            host_s = time.perf_counter() - t0
+            end.record()
+            behind = start.query()
+        torch.cuda.synchronize()
+        if not behind:
+            return start.elapsed_time(end), host_s * 1e3 / fused.steps
+        if cycles > 2**34:
+            raise RuntimeError("replays_queued: the host never got ahead")
+        cycles *= 4
+
+
 def phase_tooling(torch, tag, dev, ds, cfg, pin_cfg, steps, expected,
                   host_runs, profiled_epoch):
     """Phase 10: the device_loop paths against the host loop's epochs of
@@ -546,34 +599,10 @@ def phase_tooling(torch, tag, dev, ds, cfg, pin_cfg, steps, expected,
                "gat1": dataclasses.replace(cfg, model="gat", num_head=1)}
 
     def replays_alone(fused, epoch):
-        """The epoch's replays again, queued while the card sleeps: the
-        card's ms for the epoch alone (its busy time: nothing idles
-        between queued replays) and the host's ms a step to queue them."""
-        seeds = [(seed_of(cfg.seed, _SAMPLE, epoch, i),
-                  seed_of(cfg.seed, _DROPOUT, epoch, i))
-                 for i in range(fused.steps)]
-        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        cycles = 20_000_000
-        while True:
-            fused.stream.wait_stream(torch.cuda.current_stream(dev))
-            with torch.cuda.stream(fused.stream):
-                fused.step.zero_()
-                torch.cuda._sleep(cycles)
-                start.record()
-                t0 = time.perf_counter()
-                for a, b in seeds:
-                    fused.sample_gen.manual_seed(a)
-                    fused.dropout_gen.manual_seed(b)
-                    fused.graph.replay()
-                host_s = time.perf_counter() - t0
-                end.record()
-                behind = start.query()
-            torch.cuda.synchronize()
-            if not behind:
-                return start.elapsed_time(end), host_s * 1e3 / fused.steps
-            if cycles > 2**34:
-                raise RuntimeError("replays_alone: the host never got ahead")
-            cycles *= 4
+        return replays_queued(torch, dev, fused, [
+            (seed_of(cfg.seed, _SAMPLE, epoch, i),
+             seed_of(cfg.seed, _DROPOUT, epoch, i))
+            for i in range(fused.steps)])
 
     for path in DEVICE_LOOP_PATHS:
         name = f"{path}_device_loop"
@@ -2420,9 +2449,11 @@ def main() -> int:
             print(f"{tag}   K11 overlaps other kernels for {beside / 1e3:.1f} "
                   f"of its {total / 1e3:.1f} ms ({beside / max(total, 1e-9):.3f}"
                   "): extract beside training", flush=True)
+        # device-to-device copies: at P = 1 NCCL's all_to_all is one
+        dtod = sum(1 for _, _, name in spans if "dtod" in name.lower())
         return {"busy_ms_per_step": busy_us / 1e3 / steps,
                 "busy_share": busy_us / wall_us, "wall_ms": wall_us / 1e3,
-                "device_events": len(spans),
+                "device_events": len(spans), "dtod_per_step": dtod / steps,
                 "hand_kernel_launches": dict(sorted(hand.items())),
                 "sampler_ms": sampler_ms, "group_ms": group_ms}
 
@@ -4826,7 +4857,7 @@ def main() -> int:
 
     torch.cuda.empty_cache()
     t15 = time.perf_counter()
-    multi_rows = {}
+    multi_rows, multi_hist = {}, {}
     mcfg = dataclasses.replace(cfg, arch="arch6", num_worker=1,
                                use_dist_graph=True, part_cache=True)
     expected.update({
@@ -4872,6 +4903,9 @@ def main() -> int:
                 raise AssertionError(f"{path} epoch {epoch}: a step loss is "
                                      "not finite")
         counts_by_path[path] = counts
+        # the host loop's epochs, for phase 18's device_loop
+        multi_hist[path] = {"hist": [eng.history[0], eng.history[1]],
+                            "time": r["time"]}
         return {"epoch_s": r["time"], "steps": r["steps"], "loss": r["loss"],
                 "train_acc": r["train_acc"], "launches": counts}
 
@@ -5682,6 +5716,250 @@ def main() -> int:
           f"the exact presample_static at P = 1) wall time "
           f"{cold17['wall_s']:.3f} s", flush=True)
     print(json.dumps({"dist_cold": cold17}), flush=True)
+
+    # ---- 18. the multi-card device_loop at P = 1 ----------------------------
+    # MultiChipEngine(device_loop=True): the rank's fused step (sampling
+    # through the owner exchange, K1's serve and pick, the training step
+    # and the gradients' all_reduce) captured once in a CUDA graph, its
+    # NCCL collectives inside, and replayed once a step; against phases 15
+    # and 17's host loops on the same configurations, step for step
+    t18 = time.perf_counter()
+    dl18 = {}
+    pin_mc = dataclasses.replace(pin_mcfg, dist_graph_percentage=1.0)
+    for path, mc in (("graphsage_multichip", mcfg),
+                     ("graphsage_multichip_tiered", tcfg),
+                     ("pinsage_multichip", pin_mc)):
+        name = f"{path}_device_loop"
+        host = multi_hist[path]
+        per_step = {k: n // steps for k, n in expected[path].items()}
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        eng = MultiChipEngine(ds, dataclasses.replace(
+            mc, device_loop=True)).init()
+        init_s = time.perf_counter() - t0
+        try:
+            results = []
+            for epoch in (0, 1):
+                _build.LAUNCHES.reset()
+                results.append(eng.train_epoch(epoch))
+                torch.cuda.synchronize()
+                counts = _build.LAUNCHES.snapshot()
+                print(f"{tag} {name} epoch {epoch} ("
+                      f"{'capture, then replays' if epoch == 0 else 'counted'}"
+                      f"): {results[-1]['time']:.6f} s, loss "
+                      f"{results[-1]['loss']:.4f}, wrapper calls {counts}",
+                      flush=True)
+                # the capture's warm-up step and the captured step call the
+                # wrappers; a replay calls none
+                want = ({k: 2 * n for k, n in per_step.items()}
+                        if epoch == 0 else {})
+                if counts != want:
+                    raise AssertionError(f"{name} epoch {epoch}: wrapper "
+                                         f"calls {counts} != {want}")
+            fused = eng._fused
+            if fused is None or fused.graph is None:
+                raise AssertionError(f"{name}: no captured step")
+            capture_s = eng.profiler._init_items["device_loop_capture_time"]
+            for epoch in (0, 1):
+                h, d = host["hist"][epoch], eng.history[epoch]
+                for key in ("loss", "acc"):
+                    if not np.all(np.isfinite(d[key])):
+                        raise AssertionError(f"{name} epoch {epoch}: {key} "
+                                             "not finite")
+                    if not np.array_equal(d[key], h[key]):
+                        raise AssertionError(
+                            f"{name} epoch {epoch}: {key} differs from the "
+                            f"host loop's: {list(d[key])} against "
+                            f"{list(h[key])}")
+            card_ms, host_ms = replays_queued(torch, dev, fused, [
+                eng._generator_seeds(1, i) for i in range(fused.steps)])
+            # the hand kernels of a profiled epoch of replays against those
+            # of a profiled host-loop epoch on the same engine (by name from
+            # the profiler's records).  A multi-card session lost 1 to 3
+            # records of its first step's kernels in every one of three
+            # pairs (seen on an H100, torch 2.11), so the counts must agree
+            # by name
+            # within LOST_RECORDS, and a pair that does not is measured
+            # again, twice at most
+            def agree(a, b):
+                return bool(a) and a.keys() == b.keys() and all(
+                    abs(a[k] - b[k]) <= LOST_RECORDS for k in a)
+
+            for attempt in range(3):
+                eng.config.device_loop = False
+                eager = profiled_epoch(f"{name} as the host loop", eng,
+                                       10 + attempt) or {}
+                eng.config.device_loop = True
+                prof = profiled_epoch(name, eng, 2 + attempt) or {}
+                if agree(eager.get("hand_kernel_launches"),
+                         prof.get("hand_kernel_launches") or {}):
+                    break
+                print(f"{tag} {name}: the replays launched "
+                      f"{prof.get('hand_kernel_launches')} hand kernels by "
+                      "the profiler's records, the eager steps "
+                      f"{eager.get('hand_kernel_launches')} (attempt "
+                      f"{attempt + 1} of 3)", flush=True)
+            else:
+                raise AssertionError(f"{name}: the replays' hand-kernel "
+                                     "launches differ from the eager steps' "
+                                     "in three pairs of profiled epochs")
+            nccl = "NCCL collectives, *nccl*"
+            row = {
+                "init_s": init_s, "capture_s": capture_s,
+                "device_loop_epoch_s": results[1]["time"],
+                "host_loop_epoch_s": host["time"],
+                "losses_bit_equal_epochs": [0, 1],
+                "host_ms_per_replay": host_ms,
+                "card_alone_ms_per_step": card_ms / steps,
+                "busy_ms_per_step": prof.get("busy_ms_per_step"),
+                "busy_share": prof.get("busy_share"),
+                "host_loop_busy_ms_per_step": eager.get("busy_ms_per_step"),
+                "host_loop_busy_share": eager.get("busy_share"),
+                "nccl_ms_per_step": prof.get("group_ms", {}).get(nccl),
+                "host_loop_nccl_ms_per_step": eager.get(
+                    "group_ms", {}).get(nccl),
+                "dtod_per_step": prof.get("dtod_per_step"),
+                "host_loop_dtod_per_step": eager.get("dtod_per_step"),
+                "wrapper_calls_per_step": per_step,
+                "hand_kernel_launches": prof.get("hand_kernel_launches"),
+                "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
+            }
+            # the collectives are in the graph: at P = 1 NCCL runs its
+            # all_to_all as device-to-device copies and its all_reduce as
+            # a kernel or a copy, so the replays must show them where the
+            # eager steps do
+            if ((row["host_loop_dtod_per_step"] or 0) > 0
+                    and not row["dtod_per_step"]
+                    and not row["nccl_ms_per_step"]):
+                raise AssertionError(f"{name}: no NCCL kernel and no "
+                                     "device-to-device copy in the replays, "
+                                     f"{row['host_loop_dtod_per_step']} "
+                                     "copies a step in the eager steps")
+            dl18[name] = row
+            print(f"{tag} {name}: capture {capture_s:.3f} s; counted epoch "
+                  f"{results[1]['time']:.6f} s against the host loop's "
+                  f"{host['time']:.6f} s (phase 15/17, the same seeds); "
+                  "per-step losses and accuracies of epochs 0 and 1 equal "
+                  "the host loop's bit for bit; host "
+                  f"{host_ms:.4f} ms a step to queue a replay; card alone "
+                  f"{card_ms / steps:.3f} ms a step; profiled busy "
+                  f"{row['busy_ms_per_step']} ms a step, share "
+                  f"{row['busy_share']} (host loop "
+                  f"{row['host_loop_busy_ms_per_step']}, "
+                  f"{row['host_loop_busy_share']}); NCCL kernels "
+                  f"{row['nccl_ms_per_step']} ms a step and "
+                  f"{row['dtod_per_step']} device-to-device copies a step "
+                  f"(host loop {row['host_loop_nccl_ms_per_step']}, "
+                  f"{row['host_loop_dtod_per_step']}); hand kernels by the "
+                  f"profiler's records {row['hand_kernel_launches']}; peak "
+                  f"{row['peak_gib']:.3f} GiB", flush=True)
+        finally:
+            eng.close()
+        del eng, fused
+    dl18["graphsage_single_store_busy_ms_per_step"] = (
+        host_runs["graphsage"].get("profiled") or {}).get("busy_ms_per_step")
+    dl18["graphsage_multichip_host_loop_busy_ms_per_step"] = multi_rows[
+        "graphsage_multichip"].get("busy_ms_per_step")
+    dl18["wall_s"] = time.perf_counter() - t18
+    print(f"{tag} phase 18 (the multi-card device_loop at P = 1) wall time "
+          f"{dl18['wall_s']:.3f} s", flush=True)
+    print(json.dumps({"multichip_device_loop": dl18}), flush=True)
+
+    # ---- 19. the disaggregated engine (arch5), role-degenerate -------------
+    # DisaggregatedEngine with 1 sampler and 1 trainer sharing the card
+    # (bench.py's XGNN_BENCH_ARCH5=1): the sampler's batch (every layer
+    # deduped) handed to the trainer on the Prefetcher's side stream, the
+    # trainer's store (the whole table through K1, or the cache 0.2 ranked
+    # by pre_sample with K11's reads of the misses) and its labels (K1)
+    from xgnn_tpu_torch.engine.disagg_engine import DisaggregatedEngine
+
+    t19 = time.perf_counter()
+    a19 = {}
+    acfg = dataclasses.replace(cfg, arch="arch5", num_sample_worker=1,
+                               num_train_worker=1)
+    expected.update({
+        "graphsage_arch5": {"sample_khop": 3 * steps,
+                            "unique_seeded": 3 * steps,
+                            "gather_rows": 2 * steps,
+                            "fanout_fwd": 3 * steps,
+                            "fanout_bwd": 2 * steps},
+        "graphsage_arch5_cached": expected["graphsage_cached"],
+    })
+    for path, change, ref in (
+            ("graphsage_arch5", {}, "graphsage"),
+            ("graphsage_arch5_cached", dict(cache_percentage=CACHE_PCT,
+                                            cache_policy="pre_sample"),
+             "graphsage_cached")):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        _build.LAUNCHES.reset()
+        t0 = time.perf_counter()
+        aeng = DisaggregatedEngine(ds, dataclasses.replace(acfg, **change))
+        aeng.init()
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        counts_by_path[f"{path}_init"] = _build.LAUNCHES.snapshot()
+        try:
+            if aeng.sample_devices[0] != aeng.train_devices[0]:
+                raise AssertionError(f"{path}: the roles do not share the "
+                                     "card")
+            r = None
+            for epoch in (0, 1):
+                _build.LAUNCHES.reset()
+                r = aeng.train_epoch(epoch)
+                torch.cuda.synchronize()
+                counts = _build.LAUNCHES.snapshot()
+                print(f"{tag} {path} epoch {epoch} "
+                      f"({'warm-up' if epoch == 0 else 'counted'}, "
+                      f"pipelined): {r['time']:.3f} s, {r['steps']} steps, "
+                      f"loss {r['loss']:.4f}, acc {r['train_acc']:.4f}, hit "
+                      f"rate {r['hit_rate']:.6f}, launches {counts}",
+                      flush=True)
+                if r["steps"] != steps or counts != expected[path]:
+                    raise AssertionError(f"{path}: {r['steps']} steps, "
+                                         f"launch counts {counts} != "
+                                         f"{expected[path]}")
+                if not np.all(np.isfinite(aeng.history[epoch]["loss"])):
+                    raise AssertionError(f"{path} epoch {epoch}: a step "
+                                         "loss is not finite")
+            counts_by_path[path] = counts
+            prof = profiled_epoch(path, aeng, 2) or {}
+            ref_prof = host_runs[ref].get("profiled") or {}
+            acc = aeng.evaluate("valid", 3)
+            row = {
+                "init_s": init_s, "init_launches": counts_by_path[
+                    f"{path}_init"],
+                "epoch_s": r["time"], "steps": r["steps"],
+                "loss": r["loss"], "train_acc": r["train_acc"],
+                "hit_rate": r["hit_rate"], "launches": counts,
+                "busy_ms_per_step": prof.get("busy_ms_per_step"),
+                "busy_share": prof.get("busy_share"),
+                "group_ms": prof.get("group_ms"),
+                "valid_acc_3_batches": acc,
+                "single_store_path": ref,
+                "single_store_epoch_s": host_runs[ref]["time"],
+                "single_store_busy_ms_per_step": ref_prof.get(
+                    "busy_ms_per_step"),
+                "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
+            }
+            a19[path] = row
+            print(f"{tag} {path}: init {init_s:.3f} s (launches "
+                  f"{row['init_launches']}); counted epoch {r['time']:.3f} s "
+                  f"against {ref}'s {host_runs[ref]['time']:.3f} s; profiled "
+                  f"busy {row['busy_ms_per_step']} ms a step (share "
+                  f"{row['busy_share']}) against {ref}'s "
+                  f"{row['single_store_busy_ms_per_step']}; launches "
+                  f"{counts}; hit rate {r['hit_rate']:.6f}; valid acc "
+                  f"{acc:.4f} over 3 batches; peak {row['peak_gib']:.3f} "
+                  "GiB", flush=True)
+        finally:
+            aeng.close()
+        del aeng
+    a19["wall_s"] = time.perf_counter() - t19
+    print(f"{tag} phase 19 (the disaggregated engine, role-degenerate) wall "
+          f"time {a19['wall_s']:.3f} s", flush=True)
+    print(json.dumps({"arch5": a19}), flush=True)
 
     for k in kernels:
         k["launches"] = counts_by_path[k["path"]].get(k["name"], 0)

@@ -575,7 +575,8 @@ def test_cli_arch6_two_ranks_prints_results():
 
 
 @pytest.mark.parametrize("flags", [
-    ["--arch", "arch5"], ["--num-sample-worker", "1"],
+    ["--arch", "arch6", "--auto-placement"],
+    ["--num-worker", "2", "--auto-placement", "--hbm-budget-gb", "1"],
     ["--num-dcn-groups", "2", "--num-worker", "2"]])
 def test_cli_refuses_unported_multicard_paths(flags):
     from xgnn_tpu_torch.examples import train
@@ -588,12 +589,17 @@ def test_cli_refuses_unported_multicard_paths(flags):
     ["--num-worker", "2", "--cache-percentage", "0.3", "--cache-policy",
      "presample_static"],
     ["--num-worker", "2", "--use-dist-graph", "--dist-graph-percentage",
-     "0.85"]], ids=["presample_static", "cold_tier"])
+     "0.85"],
+    ["--arch", "arch5"],
+    ["--num-sample-worker", "1", "--num-train-worker", "2"]],
+    ids=["presample_static", "cold_tier", "arch5", "num_sample_worker"])
 def test_cli_trains_once_refused_multicard_paths(flags):
     """presample_static with a partial cache and the host cold tier under
     the partitioned topology, once refused, train over two gloo ranks at
     toy size and print the test_result: lines
-    (tests/test_torch_port_dist_cold.py holds them to JAX)."""
+    (tests/test_torch_port_dist_cold.py holds them to JAX); so does the
+    disaggregated engine (arch5), its roles on the CPU
+    (tests/test_torch_disagg.py holds its step to JAX)."""
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run(
         [sys.executable, "-m", "xgnn_tpu_torch.examples.train", "--cpu",
@@ -603,7 +609,11 @@ def test_cli_trains_once_refused_multicard_paths(flags):
         cwd=REPO, env=env, capture_output=True, text=True, timeout=SPAWN_S)
     assert out.returncode == 0, out.stderr[-3000:]
     lines = out.stdout.splitlines()
-    assert "config:arch=collocated" in lines
+    arch5 = "--arch" in flags or "--num-sample-worker" in flags
+    assert (f"config:arch={'disaggregated' if arch5 else 'collocated'}"
+            in lines)
+    if "--num-train-worker" in flags:
+        assert "config:num_train_worker=2" in lines
     results = dict(l.split("=", 1) for l in lines
                    if l.startswith("test_result:"))
     for key in ("test_result:epoch_time:train_total",
@@ -613,15 +623,21 @@ def test_cli_trains_once_refused_multicard_paths(flags):
 
 @pytest.mark.parametrize("kwargs", [
     dict(cache_percentage=0.3, cache_policy="presample_static"),
-    dict(dist_graph_percentage=0.5)], ids=["presample_static", "cold_tier"])
+    dict(dist_graph_percentage=0.5), dict(device_loop=True),
+    dict(arch="arch5")],
+    ids=["presample_static", "cold_tier", "device_loop", "arch5"])
 def test_engine_runs_once_refused_configs(graph, kwargs, capsys):
-    """The two RunConfigs, once refused, run at P = 1: run() trains and
-    prints the test_result: lines."""
+    """The RunConfigs, once refused, run at P = 1: run() trains and
+    prints the test_result: lines (device_loop through its fused epoch,
+    arch5 through the disaggregated engine, one sampler and one trainer
+    on the CPU)."""
     from xgnn_tpu_torch import RunConfig
+    from xgnn_tpu_torch.engine.disagg_engine import DisaggregatedEngine
     from xgnn_tpu_torch.engine.multi_engine import MultiChipEngine
 
     cfg = RunConfig(**_engine_config(1, num_epoch=2, **kwargs))
-    eng = MultiChipEngine(graph, cfg, device="cpu")
+    cls = DisaggregatedEngine if "arch" in kwargs else MultiChipEngine
+    eng = cls(graph, cfg, device="cpu")
     try:
         out = eng.run()
     finally:
@@ -630,12 +646,14 @@ def test_engine_runs_once_refused_configs(graph, kwargs, capsys):
     assert all(np.isfinite(r["loss"]) for r in out["epochs"])
     printed = capsys.readouterr().out
     assert "test_result:final_train_acc=" in printed
-    assert (eng.tier is not None) == ("dist_graph_percentage" in kwargs)
+    assert ((getattr(eng, "tier", None) is not None)
+            == ("dist_graph_percentage" in kwargs))
+    assert (getattr(eng, "_fused", None) is not None) == ("device_loop"
+                                                          in kwargs)
 
 
 @pytest.mark.parametrize("kwargs", [
-    dict(num_dcn_groups=2), dict(device_loop=True),
-    dict(auto_placement=True), dict(arch="arch5")])
+    dict(num_dcn_groups=2), dict(auto_placement=True)])
 def test_engine_refuses_unported_configs(graph, kwargs):
     from xgnn_tpu_torch import RunConfig
     from xgnn_tpu_torch.engine.multi_engine import MultiChipEngine

@@ -740,10 +740,11 @@ def test_cli_runs_the_tiered_topology(flags, capsys):
 # more than one card runs the collocated engine now, over the whole CSR
 # (tests/test_torch_port_multichip.py), a partial cache over the cards
 # (tests/test_torch_port_ggms.py), its host cold tier and a partial cache
-# ranked by presample_static (tests/test_torch_port_dist_cold.py); the
-# disaggregated engine and DCN groups are not ported
+# ranked by presample_static (tests/test_torch_port_dist_cold.py), and the
+# disaggregated engine (tests/test_torch_disagg.py); the collocated
+# engine's placement solve and DCN groups are not ported
 @pytest.mark.parametrize("flags", [
-    ["--num-sample-worker", "1"], ["--num-dcn-groups", "2"]])
+    ["--arch", "arch6", "--auto-placement"], ["--num-dcn-groups", "2"]])
 def test_cli_multi_card_flags_still_raise(flags):
     from xgnn_tpu_torch.examples import train
 

@@ -390,10 +390,11 @@ def test_the_clis_train_and_evaluate_a_checkpoint(tmp_path, capsys,
     # collocated engine (tests/test_torch_port_multichip.py), its partial
     # cache (tests/test_torch_port_ggms.py), presample_static and the host
     # cold tier over several cards (test_cli_flags_once_refused_train);
-    # GAT under bfloat16 runs now (tests/test_torch_gat_bf16.py); the
+    # GAT under bfloat16 runs now (tests/test_torch_gat_bf16.py), and so
+    # does the disaggregated engine (tests/test_torch_disagg.py); the
     # flags of the paths still to be ported raise
     ["--model", "gat", "--remat", "--feat-dtype", "bfloat16",
-     "--num-train-worker", "2"],
+     "--arch", "arch6", "--auto-placement"],
     ["--model", "gat", "--agg-impl", "tiled", "--compute-dtype",
      "bfloat16", "--num-dcn-groups", "2"]])
 def test_cli_flags_of_unported_paths_name_roadmap_items(flags):

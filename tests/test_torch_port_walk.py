@@ -406,9 +406,10 @@ def test_unported_messages_name_roadmap_items_that_exist():
         assert RunConfig(model="gat", **kwargs).model == "gat"
     # more than one card runs the collocated engine now, its partial cache
     # (presample_static among its rankings) and its host cold tier
-    # (test_multicard_flags_once_refused_train below)
-    cases = [["--num-train-worker", "2"],
-             ["--num-sample-worker", "1", "--model", "gat"],
+    # (test_multicard_flags_once_refused_train below), and the
+    # disaggregated engine (tests/test_torch_disagg.py)
+    cases = [["--arch", "arch6", "--auto-placement"],
+             ["--num-worker", "2", "--auto-placement", "--model", "gat"],
              ["--num-dcn-groups", "2", "--feat-dtype", "bfloat16"]]
     for argv in cases:
         with pytest.raises(NotImplementedError) as err:

@@ -30,6 +30,8 @@ multi-card fields that ``MultiChipEngine`` reads; with a
 ``cache_percentage`` in (0, 1) it runs XGNN's two-phase GGMS, whose cache
 ``part_cache`` partitions over the cards (else each holds all of it), and
 with none it changes nothing, as in the JAX engine's fused shape.
+``num_sample_worker``, ``num_train_worker`` and ``balance_switcher`` are
+the disaggregated engine's (arch5, ``DisaggregatedEngine``).
 """
 
 from __future__ import annotations
@@ -62,7 +64,7 @@ class RunArch(Enum):
     one card (the single-store ``Engine``), every card sampling, reading
     and training its own shard over the shared stores (XGNN's arch6,
     ``MultiChipEngine``), or sampler cards feeding trainer cards (arch5,
-    not ported)."""
+    ``DisaggregatedEngine``)."""
 
     SINGLE = "single"
     COLLOCATED = "collocated"
@@ -128,6 +130,12 @@ class RunConfig:
     # even split ceil(cap / P); an overflow replays the step at grown
     # capacities, so this is a speed knob
     exchange_headroom: float = 1.25
+    # the disaggregated engine (arch5): sampler and trainer roles
+    num_sample_worker: int = 1
+    num_train_worker: int = 1
+    # re-role the devices between samplers and trainers at epoch ends
+    # from the measured sample share of the epoch (JAX's balance_switcher)
+    balance_switcher: bool = False
     pipeline: bool = True  # overlap sample(n+1) with train(n)
     prefetch_depth: int = 2
     device_loop: bool = False

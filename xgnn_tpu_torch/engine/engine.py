@@ -331,6 +331,15 @@ class Engine:
         return train_step(self.model, self.opt, batch.blocks, x, labels,
                           batch.num_output, gen, batch.overflow)
 
+    def _fused_step(self, seeds, num_valid, sample_gen, dropout_gen):
+        """``device_loop``'s step (``fused.py``): sample, extract, train;
+        its stats column (loss, accuracy, overflow, input nodes)."""
+        batch = self.sampler.sample(seeds, num_valid, sample_gen)
+        x, labels, _ = self._extract(batch)
+        m = self._train(batch, x, labels, dropout_gen)
+        return torch.stack([m["loss"], m["acc"], batch.overflow.float(),
+                            batch.num_input.float()])
+
     def _produce(self, item, sync: bool = False):
         """Sample + extract for one step (in the prefetch thread when
         pipelining).  Returns host times of the two stages: on a CUDA

@@ -1,29 +1,39 @@
 """The ``device_loop`` epoch: one training step captured as a CUDA graph,
 replayed once a step.
 
-The port of the JAX package's fused epoch (``xgnn_tpu/engine/engine.py``,
-``_make_fused_epoch`` and ``_train_epoch_fused``), which runs a whole epoch
-as one ``lax.scan`` program.  Here the step (sample, label gather, forward,
-backward, Adam with the skip on overflow) is captured once over static
-buffers, and each step of an epoch is one ``replay()``: the host enqueues
-no kernel of the step.
+The port of the JAX package's fused epochs (``xgnn_tpu/engine/engine.py``,
+``_make_fused_epoch`` and ``_train_epoch_fused``; the multi-card engine's
+``_make_mc_fused_epoch`` and ``_train_epoch_fused``,
+``xgnn_tpu/engine/multi_engine.py:95-122, 765-837``), which run a whole
+epoch as one ``lax.scan`` program.  Here the engine's step
+(``engine._fused_step``: for the single store sample, label gather,
+forward, backward, Adam with the skip on overflow; for the collocated
+multi-card engine its rank's fused step, the NCCL collectives of the
+owner exchange and of the gradients' reduction among them) is captured
+once over static buffers, and each step of an epoch is one ``replay()``:
+the host enqueues no kernel of the step.
 
 The buffers: the epoch's seeds ``(steps, batch_size)`` int32 and valid
 counts ``(steps,)``, uploaded once an epoch; the step index, an int64 on
 the card that the step reads its row with and advances; the epoch's stats
-``(4, steps)`` (loss, accuracy, overflow flag, input nodes), which the step
-writes at its row and the host pulls once an epoch.  The sampling and the
-dropout generators are registered with the graph and re-seeded before each
-replay with the seeds the host loop gives the same step, so a replay draws
-the host loop's uniforms and masks.  An overflowed step is skipped on the
-card, as in the host loop; the engine then grows the sampler and drops the
-graph, and the next epoch captures again.
+``(rows, steps)`` (loss, accuracy, overflow flag, input nodes, and the
+multi-card engine's sanity flags when ``sanity_check`` is on), which the
+step writes at its row and the host pulls once an epoch.  The sampling and
+the dropout generators are registered with the graph and re-seeded before
+each replay with the seeds the host loop gives the same step, so a replay
+draws the host loop's uniforms and masks.  An overflowed step is skipped on
+the card, as in the host loop; the engine then grows its capacities and
+drops the graph, and the next epoch captures again.
 
 Before the capture, one eager step on the capturing stream loads every
-kernel and makes K3's state for that stream (``ops/unique.state``); the
+kernel, makes K3's state for that stream (``ops/unique.state``) and, on the
+multi-card engine, runs each collective once on the communicator; the
 step's params, moments and count are put back after it.  A failed capture
-raises.  The step runs the host loop's own pieces (``Engine._extract``
-and ``Engine._train``).  The wrappers' launch counters count in Python:
+raises.  The step runs the host loop's own pieces (``Engine._extract`` and
+``Engine._train``; the multi-card engine's ``step_fn``).  NCCL's watchdog
+thread queries the events of earlier collectives, so the multi-card engine
+captures in ``thread_local`` error mode, which lets another thread's calls
+go on during the capture.  The wrappers' launch counters count in Python:
 the warm-up step and the captured one each add an eager step's counts, and
 a replay adds nothing (what a replay ran on the card is read from the
 profiler's records).  On the CPU the same step runs uncaptured, once a
@@ -43,9 +53,12 @@ from .. import constants as C
 
 
 class FusedEpoch:
-    """The captured step of ``engine`` for epochs of ``steps`` steps."""
+    """The captured step of ``engine`` for epochs of ``steps`` steps, its
+    stats ``rows`` deep (``engine._fused_step`` returns a column of
+    them)."""
 
-    def __init__(self, engine, steps: int):
+    def __init__(self, engine, steps: int, rows: int = 4,
+                 capture_error_mode: str = "global"):
         self.engine = engine
         self.steps = steps
         dev = engine.device
@@ -54,7 +67,9 @@ class FusedEpoch:
                                 dtype=torch.int32, device=dev)
         self.num_valid = torch.zeros(steps, dtype=torch.int32, device=dev)
         self.step = torch.zeros(1, dtype=torch.int64, device=dev)
-        self.stats = torch.zeros((4, steps), dtype=torch.float32, device=dev)
+        self.stats = torch.zeros((rows, steps), dtype=torch.float32,
+                                 device=dev)
+        self.capture_error_mode = capture_error_mode
         self.sample_gen = torch.Generator(device=dev)
         self.dropout_gen = torch.Generator(device=dev)
         self.graph = None
@@ -69,16 +84,12 @@ class FusedEpoch:
                 + [eng.opt.count])
 
     def _step(self):
-        """Sample, gather the labels, train: the step at ``self.step``."""
-        eng = self.engine
+        """The engine's step at ``self.step``, its stats written there."""
         i = self.step
         seeds = self.seeds.index_select(0, i).reshape(-1)
         num_valid = self.num_valid.index_select(0, i).reshape(())
-        batch = eng.sampler.sample(seeds, num_valid, self.sample_gen)
-        x, labels, _ = eng._extract(batch)
-        m = eng._train(batch, x, labels, self.dropout_gen)
-        row = torch.stack([m["loss"], m["acc"], batch.overflow.float(),
-                           batch.num_input.float()])
+        row = self.engine._fused_step(seeds, num_valid, self.sample_gen,
+                                      self.dropout_gen)
         self.stats.index_copy_(1, i, row[:, None])
         self.step.add_(1)
 
@@ -101,7 +112,8 @@ class FusedEpoch:
         graph = torch.cuda.CUDAGraph()
         graph.register_generator_state(self.sample_gen)
         graph.register_generator_state(self.dropout_gen)
-        with torch.cuda.graph(graph, stream=self.stream):
+        with torch.cuda.graph(graph, stream=self.stream,
+                              capture_error_mode=self.capture_error_mode):
             self._step()
         torch.cuda.synchronize(dev)
         self.graph = graph
@@ -112,7 +124,7 @@ class FusedEpoch:
         """One epoch: ``seeds`` ``(steps, batch_size)`` and ``num_valid``
         ``(steps,)`` uploaded once, then each step with its generators
         seeded from ``gen_seeds[step]`` (a (sampling, dropout) pair).
-        Returns the ``(4, steps)`` stats, pulled once."""
+        Returns the ``(rows, steps)`` stats, pulled once."""
         dev = self.engine.device
         ctx = contextlib.nullcontext()
         if self.stream is not None:

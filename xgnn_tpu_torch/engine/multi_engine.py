@@ -48,9 +48,29 @@ is over every rank and step of an epoch, pulled once an epoch with the
 other metrics.  Unlike JAX's two-phase step it has no miss bucket, so no
 step is skipped for its misses.
 
-Not ported here, each refused naming ROADMAP's **Multi-GPU**: DCN groups,
-the multi-card ``device_loop``, ``auto_placement`` and the disaggregated
-engine (arch5).  Unlike JAX's, the cold tier has no ``cold_cap``: nothing
+``sanity_check`` (or ``XGNN_SANITY_CHECK``) adds each step's batch
+violation flags, max-reduced over the ranks on the device, to the epoch's
+one pull; a set flag raises JAX's ``sanity check failed: [...]`` on every
+rank.  The node-access log (``profiler.enable_node_access_log()`` on every
+rank, or ``XGNN_LOG_NODE_ACCESS``) gathers each step's input nodes of every
+rank to rank 0, which logs them rank by rank, as JAX logs its lanes, and
+writes the ``node_access*.txt`` files at the end of ``run``.
+
+``device_loop`` (JAX's gate: the fused store and no node-access log, on
+every topology, the host cold tier's mapped reads included) runs an epoch
+as the rank's fused step captured once in a CUDA graph and replayed once a
+step (``fused.py``), its NCCL collectives inside the graph; on the CPU the
+same step runs from the same buffers, once a step.  The replays draw the
+host loop's uniforms and masks, so the losses are the host loop's bit for
+bit.  An ineligible configuration warns once and takes the host loop.  An
+overflowed step is skipped on every rank on the device; after the epoch
+the ranks grow their capacities, drop the graph and replay those steps
+through the host loop, and the next epoch captures again.
+
+Not ported here, each refused naming ROADMAP's **Multi-GPU**: DCN groups
+and ``auto_placement``.  The disaggregated engine (arch5) is
+``disagg_engine.DisaggregatedEngine``; as JAX's, this engine does not read
+``arch``.  Unlike JAX's, the cold tier has no ``cold_cap``: nothing
 overflows for its rows, and the capacities' growth leaves it as it is.
 """
 
@@ -58,6 +78,7 @@ from __future__ import annotations
 
 import contextlib
 import io
+import logging
 import time
 import warnings
 from typing import Optional
@@ -69,10 +90,11 @@ import torch.distributed as dist
 from .. import constants as C
 from .. import profiler as P
 from ..checkpoint import CheckpointManager
-from ..config import WEIGHTED, CachePolicy, RunArch, RunConfig
+from ..config import WEIGHTED, CachePolicy, RunConfig
 from ..dataset import host_array
 from ..device import feature_dtype, generator, seed_of, to_tensor
 from ..models import build_model
+from ..ops import sanity
 from ..ops.tiered import MappedHostTable
 from ..parallel.collocated import (
     make_collocated_train_step,
@@ -107,6 +129,7 @@ from .engine import (
     _align_up,
     _nanmean,
 )
+from .fused import FusedEpoch
 from .shuffler import Shuffler
 
 EMPTY = C.EMPTY_KEY
@@ -117,12 +140,8 @@ _PRESAMPLE = 0x9A3  # the JAX engine's presample key: seed ^ it
 def refuse_unported(config: RunConfig):
     """Raise for the multi-card configurations not ported yet."""
     why = None
-    if config.arch == RunArch.DISAGGREGATED:
-        why = "the disaggregated engine (arch5)"
-    elif config.num_dcn_groups != 1:
+    if config.num_dcn_groups != 1:
         why = "DCN groups (num_dcn_groups > 1)"
-    elif config.device_loop:
-        why = "the multi-card device_loop"
     elif config.auto_placement:
         why = "the multi-card placement solve (auto_placement)"
     if why is not None:
@@ -184,6 +203,9 @@ class MultiChipEngine:
         self.history: dict = {}
         self.model = None
         self.opt: Optional[Adam] = None
+        self._fused: Optional[FusedEpoch] = None
+        self._fused_warned = False
+        self._emit_access = False
 
     # ------------------------------------------------------------------ init
     def init(self):
@@ -422,9 +444,12 @@ class MultiChipEngine:
                                                  self.mesh)
             self._fn_eval = make_eval_step(self.model, self.mesh)
             return
+        # the node-access log's frontier, as the flag stood at the build
+        # (train_epoch builds again where it changed)
+        self._emit_access = self.profiler._log_node_access
         self.step_fn = make_collocated_train_step(
             self.model, self.opt, cfg, self.mesh, self.capacities,
-            self.seg_cap, cfg.use_dist_graph)
+            self.seg_cap, cfg.use_dist_graph, self._emit_access)
         self._fn_eval = make_fused_eval_step(
             self.model, cfg, self.mesh, self.capacities, self.seg_cap,
             cfg.use_dist_graph)
@@ -447,35 +472,127 @@ class MultiChipEngine:
         seeds, n = next(it, (None, 0))
         if seeds is None:
             seeds = np.full(self.config.batch_size, EMPTY, C.ID_DTYPE)
+        return self._on_device(seeds), n
+
+    def _on_device(self, seeds: np.ndarray) -> torch.Tensor:
         host = torch.from_numpy(seeds)
         if self.device.type == "cuda":
             host = host.pin_memory()
-        return host.to(self.device, non_blocking=True), n
+        return host.to(self.device, non_blocking=True)
 
     def _generators(self, epoch: int, step: int):
+        return tuple(generator(self.device, s)
+                     for s in self._generator_seeds(epoch, step))
+
+    def _generator_seeds(self, epoch: int, step: int) -> tuple:
+        """The (sampling, dropout) seeds of a training step on this rank."""
         cfg, r = self.config, self.rank
-        return (generator(self.device, seed_of(cfg.seed, _SAMPLE, epoch,
-                                               step, r)),
-                generator(self.device, seed_of(cfg.seed, _DROPOUT, epoch,
-                                               step, r)))
+        return (seed_of(cfg.seed, _SAMPLE, epoch, step, r),
+                seed_of(cfg.seed, _DROPOUT, epoch, step, r))
 
     def _sample_split(self, fn_a, seeds, n, gen) -> dict:
         return fn_a(self.topo, self.posmap, self.cache_part, self.lab_part,
                     self.host, seeds, n, gen)
 
-    def _run_one_step(self, seeds, n, epoch: int, step: int) -> dict:
+    def _log_access(self, input_nodes: torch.Tensor, num_input):
+        """Every rank's input nodes gathered to rank 0, which logs them in
+        rank order (JAX logs its lanes so); every rank takes part."""
+        every = self.mesh.all_gather(input_nodes)
+        nums = self.mesh.all_gather(
+            torch.as_tensor(num_input, device=self.device)
+            .to(torch.int32).reshape(1))
+        if self.rank == 0:
+            every, nums = every.cpu().numpy(), nums.cpu().numpy()
+            for w in range(self.num_parts):
+                self.profiler.log_node_access(every[w, :int(nums[w, 0])])
+
+    def _run_one_step(self, seeds, n, epoch: int, step: int,
+                      log_access: bool = False) -> dict:
+        """One training step; with ``log_access`` its input nodes go to
+        the node-access log (not on a replay, as in JAX)."""
         gen, dgen = self._generators(epoch, step)
         if self.two_phase:
-            return self._fn_b(self._sample_split(self._fn_a, seeds, n, gen),
-                              dgen)
-        return self.step_fn(self.topo, self.feat_part, self.lab_part, seeds,
-                            n, gen, dgen)
+            outs = self._sample_split(self._fn_a, seeds, n, gen)
+            if log_access:
+                self._log_access(outs["input_nodes"], outs["num_input"])
+            return self._fn_b(outs, dgen)
+        m = self.step_fn(self.topo, self.feat_part, self.lab_part, seeds,
+                         n, gen, dgen)
+        ids = m.pop("input_nodes", None)
+        if log_access and ids is not None:
+            self._log_access(ids, m["num_input"])
+        return m
 
-    def train_epoch(self, epoch: int) -> dict:
+    def _stat_keys(self) -> tuple:
+        keys = ("loss", "acc", "overflow", "num_input")
+        if self.two_phase:
+            keys += ("num_hit", "num_miss")
+        if self.config.sanity_check:
+            keys += ("sanity",)
+        return keys
+
+    # ------------------------------------------------------ device_loop
+    def _fused_ok(self) -> bool:
+        """``device_loop``'s gate, JAX's (``multi_engine.py:850-857``): the
+        fused store, and no node-access log (it pulls every step)."""
+        return not self.two_phase and not self.profiler._log_node_access
+
+    def _fused_step(self, seeds, num_valid, sample_gen, dropout_gen):
+        """``device_loop``'s step (``fused.py``): the rank's fused step;
+        its stats column in ``_stat_keys`` order."""
+        m = self.step_fn(self.topo, self.feat_part, self.lab_part, seeds,
+                         num_valid, sample_gen, dropout_gen)
+        return torch.stack([m[k].float().reshape(())
+                            for k in self._stat_keys()])
+
+    def _train_epoch_fused(self, epoch: int) -> dict:
+        """The ``device_loop`` epoch: the captured step replayed once a
+        step (captured at the first such epoch, and again after an
+        overflow grew the capacities), the host loop's seeds and
+        generators step for step."""
         cfg, prof = self.config, self.profiler
         seed = cfg.seed + 1
         num_steps = self._num_steps(self.ds.train_set, seed)
         it = self._shuffler(self.ds.train_set, seed).epoch_batches(epoch)
+        seeds = np.full((num_steps, cfg.batch_size), EMPTY, C.ID_DTYPE)
+        num_valid = np.zeros(num_steps, np.int32)
+        for s in range(num_steps):
+            b_seeds, num_valid[s] = next(it, (None, 0))
+            if b_seeds is not None:
+                seeds[s] = b_seeds
+        if self._fused is None or self._fused.steps != num_steps:
+            mode = "thread_local" if self.mesh.backend == "nccl" else \
+                "global"
+            self._fused = FusedEpoch(self, num_steps, len(self._stat_keys()),
+                                     capture_error_mode=mode)
+            prof.log_init("device_loop_capture_time", self._fused.capture_s)
+        t_epoch = time.perf_counter()
+        # ONE device-to-host pull for the epoch's metrics
+        stats = self._fused.run(seeds, num_valid, [
+            self._generator_seeds(epoch, s) for s in range(num_steps)])
+        records = [(seeds[s], int(num_valid[s]), s)
+                   for s in range(num_steps)]
+        return self._finish_epoch(epoch, stats.astype(np.float64), records,
+                                  t_epoch)
+
+    # ------------------------------------------------------------ epochs
+    def train_epoch(self, epoch: int) -> dict:
+        cfg, prof = self.config, self.profiler
+        if not self.two_phase and self._emit_access != prof._log_node_access:
+            self._build_step_fns()  # the log was turned on or off
+        if cfg.device_loop:
+            if self._fused_ok():
+                return self._train_epoch_fused(epoch)
+            if not self._fused_warned:
+                self._fused_warned = True
+                logging.getLogger(__name__).warning(
+                    "device_loop requested but ineligible (needs all-HBM "
+                    "features, no per-step host instrumentation); using the "
+                    "host-driven loop")
+        seed = cfg.seed + 1
+        num_steps = self._num_steps(self.ds.train_set, seed)
+        it = self._shuffler(self.ds.train_set, seed).epoch_batches(epoch)
+        log_access = prof._log_node_access
         metrics, records = [], []
         t_epoch = t_prev = time.perf_counter()
         for step in range(num_steps):
@@ -483,7 +600,8 @@ class MultiChipEngine:
             records.append((seeds, n, step))
             if cfg.dump_trace:
                 prof.trace_begin(epoch, step, "train")
-            metrics.append(self._run_one_step(seeds, n, epoch, step))
+            metrics.append(self._run_one_step(seeds, n, epoch, step,
+                                              log_access))
             if cfg.dump_trace:
                 metrics[-1]["loss"].item()
                 prof.trace_end(epoch, step, "train")
@@ -493,33 +611,49 @@ class MultiChipEngine:
             # program's
             prof.log_step(epoch, step, P.L1_TRAIN_TIME, now - t_prev)
             t_prev = now
-        keys = ("loss", "acc", "overflow", "num_input")
-        if self.two_phase:
-            keys += ("num_hit", "num_miss")
         # float64: the counts of an epoch and its ranks sum exactly
         stats = torch.stack([torch.stack([m[k].double() for m in metrics])
-                             for k in keys])
+                             for k in self._stat_keys()])
         if self.two_phase:
             # the hits and misses of every rank and step
             total = stats[4:6].sum(1)
             self.mesh.all_reduce(total)
             stats = torch.cat([stats, total[:, None].expand(2, num_steps)])
         # ONE device-to-host pull for the epoch's metrics
-        stats = stats.cpu().numpy()
-        loss_v, acc_v, over_v, nin_v = stats[:4]
+        return self._finish_epoch(epoch, stats.cpu().numpy(), records,
+                                  t_epoch)
+
+    def _finish_epoch(self, epoch: int, stats: np.ndarray, records: list,
+                      t_epoch: float) -> dict:
+        """The epoch's metrics from its pulled stats (``_stat_keys``' rows,
+        then the two-phase store's summed hits and misses): the history,
+        the sanity check, the overflowed steps' replay and the dynamic
+        cache's refresh.  ``records`` are each step's ``(seeds, n, step)``,
+        the seeds on the device or a host array."""
+        cfg, prof = self.config, self.profiler
+        keys = self._stat_keys()
+        row = {k: stats[i] for i, k in enumerate(keys)}
+        num_steps = len(records)
+        loss_v, acc_v, over_v, nin_v = (row[k] for k in keys[:4])
         self.history[epoch] = {"loss": loss_v, "acc": acc_v,
                                "overflow": over_v, "num_input": nin_v}
         for step, v in enumerate(nin_v):
             prof.log_step(epoch, step, P.L1_NUM_NODE, float(v))
         hit_rate = 1.0
         if self.two_phase:
-            hit_v, miss_v, (hits, misses) = stats[4], stats[5], stats[6:, 0]
+            hit_v, miss_v = row["num_hit"], row["num_miss"]
+            hits, misses = stats[len(keys):, 0]
             self.history[epoch].update(hit=hit_v, miss=miss_v)
             hit_rate = float(hits / max(hits + misses, 1.0))
             prof.log_step(epoch, 0, P.L2_CACHE_HIT_RATE, hit_rate)
             for step, m in enumerate(miss_v):
                 prof.log_step(epoch, step, P.L1_MISS_BYTES,
                               float(m) * self.row_bytes)
+        if cfg.sanity_check:
+            flags = int(row["sanity"].max())
+            if flags:
+                raise RuntimeError(
+                    f"sanity check failed: {sanity.explain(flags)}")
         extra_losses, extra_accs = [], []
         n_over = int(over_v.sum())
         if n_over:
@@ -558,6 +692,7 @@ class MultiChipEngine:
             for c in self.capacities[1:]]
         self.seg_cap *= 2
         self._build_step_fns()
+        self._fused = None  # the capacities changed: capture again
 
     def _replay_overflowed(self, epoch: int, todo: list, losses_out: list,
                            accs_out: list):
@@ -571,6 +706,8 @@ class MultiChipEngine:
                   f"capacities {self.capacities}")
             still = []
             for seeds, n, step in todo:
+                if isinstance(seeds, np.ndarray):  # a device_loop epoch's
+                    seeds = self._on_device(seeds)
                 m = self._run_one_step(seeds, n, epoch, step)
                 if bool(m["overflow"]):
                     still.append((seeds, n, step))
@@ -661,8 +798,8 @@ class MultiChipEngine:
         """``init``, then ``num_epoch`` epochs (resumed from
         ``checkpoint_dir``'s newest checkpoint where there is one), the
         valid accuracy every ``report_acc`` epochs and a checkpoint every
-        ``checkpoint_every`` (rank 0 writes it); rank 0 prints the
-        ``test_result:`` lines."""
+        ``checkpoint_every`` (rank 0 writes it); rank 0 writes the trace
+        and the node-access files and prints the ``test_result:`` lines."""
         cfg = self.config
         self.init()
         ckpt = CheckpointManager(cfg.checkpoint_dir) if cfg.checkpoint_dir \
@@ -688,6 +825,17 @@ class MultiChipEngine:
         if cfg.dump_trace and self.rank == 0:
             self.profiler.dump_trace("xgnn_trace.json")
             print("trace dumped to xgnn_trace.json")
+        if self.profiler._log_node_access and self.rank == 0:
+            # rank 0 logged every rank's input nodes
+            prof, deg = self.profiler, self.ds.degrees
+            prof.dump_node_access("node_access.txt", in_degrees=deg,
+                                  out_degrees=deg)
+            prof.dump_node_access_frequency("node_access_frequency.txt",
+                                            self.ds.num_node)
+            prof.dump_node_access_similarity("node_access_similarity.txt")
+            opt = prof.optimal_cache_hit_rate(
+                max(cfg.cache_percentage, 0.0), self.ds.num_node)
+            print(f"test_result:optimal_cache_hit_rate={opt:.6f}")
         extra = {"final_train_acc": results[-1]["train_acc"] if results
                  else 0.0,
                  "cache_hit_rate": results[-1]["hit_rate"] if results

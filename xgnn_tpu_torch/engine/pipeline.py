@@ -5,8 +5,10 @@ sample + extract for upcoming batches into a bounded queue while the main
 thread trains.  On a CUDA device the producer issues its work on a side
 stream.  The consumer's stream waits on an event recorded after each
 ``produce``, and every tensor handed across is ``record_stream``-ed on the
-consumer's stream, so the caching allocator does not reuse its memory while
-the consumer may still read it.
+consumer's current stream of its own device, so the caching allocator does
+not reuse its memory while the consumer may still read it.  Work that the
+producer queues on another card runs on that card's current stream, which
+is the consumer's too (the disaggregated engine's trainers).
 """
 
 from __future__ import annotations
@@ -110,7 +112,7 @@ class Prefetcher:
                 consumer.wait_event(event)
                 for t in _tensors(out):
                     if t.device.type == "cuda":
-                        t.record_stream(consumer)
+                        t.record_stream(torch.cuda.current_stream(t.device))
             yield out
 
     def close(self):

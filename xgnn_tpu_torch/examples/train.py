@@ -20,8 +20,15 @@ cold rows read from pinned host memory), the features all on the cards
 or, with ``--cache-percentage`` in (0, 1), XGNN's two-phase store (a cache
 partitioned over the cards with ``--part-cache``, else replicated on each;
 the misses read from pinned host memory; any ``--cache-policy``,
-``presample_static`` among them); rank 0's lines are printed.  Flags
-that select a multi-card path the port does not have yet raise
+``presample_static`` among them); rank 0's lines are printed.
+``--device-loop`` runs the collocated engine's epochs as a captured step
+too.  ``--arch arch5`` (or ``--num-sample-worker N`` with N > 0, as JAX's
+command line decides) trains the disaggregated engine
+(``DisaggregatedEngine``): N sampler roles (at least 1) feeding
+``--num-train-worker`` trainer roles, on every card, sharing them
+round-robin where the roles outnumber the cards (``--cpu``: each role on
+the CPU).  Flags that select a multi-card path the port does not have yet
+(DCN groups, the collocated engine's ``--auto-placement``) raise
 ``NotImplementedError`` naming its ROADMAP item.
 
     python -m xgnn_tpu_torch.examples.train --cpu --synthetic \\
@@ -40,6 +47,9 @@ that select a multi-card path the port does not have yet raise
         --synthetic-nodes 20000 --num-worker 2 --part-cache \\
         --use-dist-graph --dist-graph-percentage 0.85 --num-epoch 2 \\
         --batch-size 500 --fanout 8 4
+    python -m xgnn_tpu_torch.examples.train --cpu --synthetic \\
+        --synthetic-nodes 20000 --arch arch5 --num-sample-worker 2 \\
+        --num-train-worker 2 --num-epoch 2 --batch-size 500 --fanout 8 4
 """
 
 from __future__ import annotations
@@ -147,11 +157,11 @@ def check_ported(args):
     from xgnn_tpu_torch.config import RunArch
 
     why = None
-    if (arch_of(args) == RunArch.DISAGGREGATED or args.num_sample_worker > 0
-            or args.num_train_worker != 1):
-        why = "the disaggregated engine (arch5)"
-    elif args.num_dcn_groups != 1:
+    if args.num_dcn_groups != 1:
         why = "DCN groups (--num-dcn-groups > 1)"
+    elif arch_of(args) == RunArch.COLLOCATED and args.auto_placement:
+        why = ("the multi-card placement solve (--auto-placement with "
+               "--num-worker > 1 or --arch arch6)")
     if why is not None:
         raise NotImplementedError(
             f"not ported to xgnn_tpu_torch yet: {why}: {MULTI_GPU}")
@@ -204,6 +214,8 @@ def config_of(args):
         fanout=tuple(args.fanout), num_layer=len(args.fanout),
         batch_size=args.batch_size, num_epoch=args.num_epoch,
         num_worker=args.num_worker, num_dcn_groups=args.num_dcn_groups,
+        num_sample_worker=max(args.num_sample_worker, 1),
+        num_train_worker=args.num_train_worker,
         part_cache=args.part_cache,
         num_hidden=args.num_hidden, num_head=args.num_head, lr=args.lr,
         dropout=args.dropout, cache_policy=args.cache_policy,
@@ -259,6 +271,16 @@ def main(argv: Optional[Sequence[str]] = None):
     if args.validate_configs:
         return None
     device = "cpu" if args.cpu else None
+    if config.arch == RunArch.DISAGGREGATED:
+        from xgnn_tpu_torch.engine.disagg_engine import DisaggregatedEngine
+
+        engine = DisaggregatedEngine(load(args, config), config,
+                                     device=device)
+        try:
+            _train(engine, args.report_acc)
+        finally:
+            engine.close()
+        return engine
     if config.arch != RunArch.COLLOCATED:
         engine = Engine(load(args, config), config, device=device)
         _train(engine, args.report_acc)

@@ -19,23 +19,30 @@ any rank is skipped by every rank on the device, as the single store's
 step is, and every rank learns it from the same reduction, so the ranks
 stay in step for the engine's replay.
 
-The two-phase GGMS form (a partial cache over the cards, the misses in
-host memory; ``make_sample_split_step``, line 332, ``make_combine_train_step``,
-:431, ``make_eval_step``, :511) keeps JAX's names, but no host gather
-lies between its two halves: the sample-and-split half builds the input
-rows whole, the cache's hits through the owner exchange over cache
-positions and the misses read in place from pinned host memory by K11
+The two-phase GGMS form (a partial cache over the cards, the misses in host
+memory; ``make_sample_split_step``, line 332, ``make_combine_train_step``,
+:431, ``make_eval_step``, :511) keeps JAX's names, but no host gather lies
+between its two halves: the sample-and-split half builds the input rows
+whole, the cache's hits through the owner exchange over cache positions and
+the misses read in place from pinned host memory by K11
 (``parallel/ggms.py``), and the train half runs on them at once, on the
-same stream.  ``make_presample_step`` (:641) counts each rank's valid
+same stream.  With ``sanity_check`` each step adds JAX's ``"sanity"``
+metric (``collocated.py:283-291, 399-402, 495-497``): ``ops/sanity``'s
+violation flags of the rank's batch, max-reduced over the ranks in one more
+``all_reduce``, so every rank reads the same flags and raises alike.  The
+fused step's ``emit_input_nodes`` (JAX's node-access mode, :187, 292-296)
+returns the rank's input frontier with its metrics; the sample-and-split
+half always carries it, as JAX's packed batch does.  Nothing of either
+waits on the host.  ``make_presample_step`` (:641) counts each rank's valid
 inputs at their owner for the cache's ranking and for the calibration of
 the capacities; ``make_presample_static_exact_step`` (:741) counts, for
-``presample_static``, every node within L hops of each rank's seeds once
-a batch, exactly, on either topology.  On a partitioned topology with a
-host cold tier (``LocalTopo.tier``) every step samples through it: the
-topology carries its cold side, so the steps take no tier arguments
-(JAX's ``num_cache_node``, ``host_sampler`` and ``cold_cap``).  JAX's
-``put_replicated`` and ``put_sharded`` place a whole value on every chip
-of one process's mesh; here each rank builds its own part where it runs
+``presample_static``, every node within L hops of each rank's seeds once a
+batch, exactly, on either topology.  On a partitioned topology with a host
+cold tier (``LocalTopo.tier``) every step samples through it: the topology
+carries its cold side, so the steps take no tier arguments (JAX's
+``num_cache_node``, ``host_sampler`` and ``cold_cap``).  JAX's
+``put_replicated`` and ``put_sharded`` place a whole value on every chip of
+one process's mesh; here each rank builds its own part where it runs
 (``exchange.interleaved_part``, ``dist_topology.partition_part``).
 """
 
@@ -49,6 +56,7 @@ import torch
 from .. import constants as C
 import torch.distributed as dist
 
+from ..ops import sanity
 from ..ops.presample import accumulate_freq, closure_expand, closure_parts
 from ..ops.tiered import tiered_direct
 from ..sampler import _layer_fanouts, _sample_minibatch
@@ -131,15 +139,20 @@ def lane_loss_and_grads(model, params: Sequence[torch.Tensor], blocks, x,
     return loss.detach(), acc.detach(), grads
 
 
-def reduce_weighted(mesh: Mesh, grads, loss, acc, num_output, overflow):
-    """``(grads, loss, acc, skip)``: ``sum_r(v_r * w_r) / max(sum_r(w_r),
-    1)`` of each, ``w_r`` the ranks' seed counts, and whether any rank
-    overflowed, all in one ``all_reduce``."""
+def weighted_flat(grads, loss, acc, num_output, overflow) -> torch.Tensor:
+    """One lane's share of the seed-weighted reduction, flattened: its
+    gradients, loss and accuracy times its seed count ``w``, then ``w`` and
+    its overflow flag."""
     w = num_output.to(torch.float32).reshape(())
-    flat = torch.cat([g.reshape(-1) * w for g in grads]
+    return torch.cat([g.reshape(-1) * w for g in grads]
                      + [torch.stack([loss * w, acc * w, w,
                                      overflow.to(torch.float32)])])
-    mesh.all_reduce(flat)
+
+
+def unflatten_weighted(flat: torch.Tensor, grads):
+    """``(grads, loss, acc, skip)`` from the lanes' summed
+    :func:`weighted_flat`: each sum over ``max(sum(w), 1)``, and whether
+    any lane overflowed."""
     n = flat.shape[0] - 4
     wsum = torch.clamp(flat[n + 2], min=1.0)
     out, at = [], 0
@@ -147,6 +160,15 @@ def reduce_weighted(mesh: Mesh, grads, loss, acc, num_output, overflow):
         out.append((flat[at:at + g.numel()] / wsum).reshape(g.shape))
         at += g.numel()
     return out, flat[n] / wsum, flat[n + 1] / wsum, flat[n + 3] > 0
+
+
+def reduce_weighted(mesh: Mesh, grads, loss, acc, num_output, overflow):
+    """``(grads, loss, acc, skip)``: ``sum_r(v_r * w_r) / max(sum_r(w_r),
+    1)`` of each, ``w_r`` the ranks' seed counts, and whether any rank
+    overflowed, all in one ``all_reduce``."""
+    flat = weighted_flat(grads, loss, acc, num_output, overflow)
+    mesh.all_reduce(flat)
+    return unflatten_weighted(flat, grads)
 
 
 def _train_on(model, opt: Adam, mesh: Mesh, blocks, x, labels, num_output,
@@ -165,6 +187,14 @@ def _train_on(model, opt: Adam, mesh: Mesh, blocks, x, labels, num_output,
             "acc": torch.where(skip, nan, acc), "overflow": skip}
 
 
+def reduced_flags(mesh: Mesh, flags: torch.Tensor) -> torch.Tensor:
+    """A rank's sanity flags max-reduced over the ranks (every rank runs
+    it, so the collectives meet), a device int32 scalar."""
+    flags = flags.to(torch.int32).reshape(1).clone()
+    mesh.all_reduce(flags, dist.ReduceOp.MAX)
+    return flags.reshape(())
+
+
 def _count_correct(mesh: Mesh, logits, labels, num_output, overflow):
     """``(correct, total, overflow)`` summed over the ranks; a step that
     overflowed anywhere counts 0 of both."""
@@ -181,12 +211,15 @@ def _count_correct(mesh: Mesh, logits, labels, num_output, overflow):
 
 def make_collocated_train_step(model, opt: Adam, config, mesh: Mesh,
                                capacities, seg_cap: int,
-                               use_dist_graph: bool = False):
+                               use_dist_graph: bool = False,
+                               emit_input_nodes: bool = False):
     """The fused step: ``step(topo, feat_part, label_part, seeds, num_seed,
     generator, drop_generator) -> {"loss", "acc", "overflow",
     "num_input"}``, device scalars, all but the rank's input count equal on
-    every rank (the loss and accuracy NaN where the step was skipped).
-    Nothing waits on the host."""
+    every rank (the loss and accuracy NaN where the step was skipped), with
+    ``"sanity"`` (the ranks' max-reduced flags) under
+    ``config.sanity_check`` and the rank's ``"input_nodes"`` under
+    ``emit_input_nodes``.  Nothing waits on the host."""
 
     def step(topo, feat_part, label_part, seeds, num_seed, generator=None,
              drop_generator=None):
@@ -198,6 +231,10 @@ def make_collocated_train_step(model, opt: Adam, config, mesh: Mesh,
         out = _train_on(model, opt, mesh, blocks, x, labels,
                         batch.num_output, overflow, drop_generator)
         out["num_input"] = batch.num_input
+        if config.sanity_check:
+            out["sanity"] = reduced_flags(mesh, sanity.check_batch(batch))
+        if emit_input_nodes:
+            out["input_nodes"] = batch.input_nodes
         return out
 
     return step
@@ -233,9 +270,10 @@ def make_sample_split_step(config, mesh: Mesh, capacities, seg_cap: int,
     with the batch's ``blocks``, its input rows ``x`` in input-node order
     (the cache's hits, then the misses read in place from the mapped host
     table ``host``: no host gather follows), its ``labels``, ``num_output``,
-    ``num_input``, ``num_hit`` and ``num_miss`` (device int32) and the
-    step's ``overflow`` on this rank (the sampler's, the cache positions'
-    exchange and the labels')."""
+    ``num_input``, ``num_hit`` and ``num_miss`` (device int32), its
+    ``input_nodes``, the step's ``overflow`` on this rank (the sampler's,
+    the cache positions' exchange and the labels') and, under
+    ``config.sanity_check``, the rank's ``sanity`` flags."""
 
     def step(topo, posmap, cache_part, label_part, host, seeds, num_seed,
              generator=None):
@@ -247,17 +285,22 @@ def make_sample_split_step(config, mesh: Mesh, capacities, seg_cap: int,
         x = tiered_direct(hit_rows, miss_ids, miss_pos, counts, host)
         labels, l_of = partitioned_gather(label_part, batch.output_nodes,
                                           mesh, seg_cap)
-        return {"blocks": batch.blocks, "x": x, "labels": labels[:, 0],
-                "num_output": batch.num_output, "num_input": batch.num_input,
-                "num_hit": counts[0], "num_miss": counts[1],
-                "overflow": batch.overflow | c_of | l_of}
+        out = {"blocks": batch.blocks, "x": x, "labels": labels[:, 0],
+               "num_output": batch.num_output, "num_input": batch.num_input,
+               "input_nodes": batch.input_nodes,
+               "num_hit": counts[0], "num_miss": counts[1],
+               "overflow": batch.overflow | c_of | l_of}
+        if config.sanity_check:
+            out["sanity"] = sanity.check_batch(batch)
+        return out
 
     return step
 
 
 def make_combine_train_step(model, opt: Adam, config, mesh: Mesh):
     """The training half: ``step(outs, drop_generator) -> {"loss", "acc",
-    "overflow", "num_input", "num_hit", "num_miss"}`` on what
+    "overflow", "num_input", "num_hit", "num_miss"}`` (and the max-reduced
+    ``"sanity"`` under ``config.sanity_check``) on what
     :func:`make_sample_split_step` built, as the fused step trains (the
     input rows are whole already: JAX's ``combine_miss`` has nothing left
     to do)."""
@@ -268,6 +311,8 @@ def make_combine_train_step(model, opt: Adam, config, mesh: Mesh):
                         drop_generator)
         out.update({k: outs[k] for k in ("num_input", "num_hit",
                                          "num_miss")})
+        if config.sanity_check:
+            out["sanity"] = reduced_flags(mesh, outs["sanity"])
         return out
 
     return step

@@ -288,8 +288,9 @@ def walk_visits_partitioned(topo: LocalTopo, frontier: torch.Tensor,
     w, l = num_random_walk, random_walk_length
     steps, u_restart = (None, None) if u is None else u
     seed2d = frontier[:, None].expand(b, w)
-    p_restart = torch.tensor(restart_prob, dtype=torch.float32,
-                             device=frontier.device)
+    # filled on the device: a copy from host memory cannot be captured
+    p_restart = torch.full((), restart_prob, dtype=torch.float32,
+                           device=frontier.device)
     overflow = torch.zeros((), dtype=torch.bool, device=frontier.device)
     visits = []
     cur = seed2d

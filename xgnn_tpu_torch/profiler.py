@@ -68,6 +68,16 @@ class Profiler:
         self._init_items[item] = value
 
     # --- node-access analytics (reference Profiler::LogNodeAccess) --------
+    def enable_node_access_log(self):
+        """Turn on node-access analytics.  The multi-card engine reads the
+        flag at each epoch's start, so it may be turned on after ``init``,
+        on every rank alike (each step gathers the ranks' input nodes)."""
+        self._log_node_access = True
+
+    def node_access_frequency(self) -> list:
+        """``(node, accesses)`` pairs, hottest first."""
+        return self._node_access.most_common()
+
     def log_node_access(self, node_ids):
         """Count per-node accesses and per-step similarity with the
         previous step's accessed set (reference LogNodeAccess; similarity
