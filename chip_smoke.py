@@ -353,6 +353,17 @@ Phases, each fatal on failure:
    a counted epoch with their launches asserted and a profiled epoch
    beside phase 6's graphsage and phase 8's graphsage_cached.  The phase's
    wall time and the ``{"arch5": ...}`` JSON line.
+20. The multi-card placement solve at P = 1:
+   ``graphsage_multichip_auto_placement``, ``MultiChipEngine`` with
+   ``auto_placement`` for a group of one card, at the largest of phase 12's
+   budgets at which the solver picks a partial cache and a cold tier, so
+   that XGNN's two-phase GGMS and the host cold tier are its choice: the
+   solved fields and the plan, a warm-up and a counted epoch with their
+   launches asserted (K13-plan, K11's split and reads, K1, the cold form),
+   a profiled epoch, the hit rate, beside phase 17's
+   graphsage_multichip_tiered.  DCN groups need two cards or more (NCCL
+   refuses two ranks on one card), so no DCN path runs here.  The phase's
+   wall time and the ``{"auto_placement_multichip": ...}`` JSON line.
 
 Each kernel is timed twice: ``ms`` back to back (the wrapper's host time
 included, where the host is the slower) and ``device_ms`` with the host
@@ -367,7 +378,8 @@ options' (phase 11), the tiered topology's (phase 12), the dataset
 files' (phase 13), the last configurations' (phase 14), the multi-card
 engine's (phase 15), the two-phase GGMS's (phase 16), the cold tier's
 and the exact presample's (phase 17), the multi-card device_loop's (phase
-18), arch5's (phase 19), the kernels' JSON line, then the
+18), arch5's (phase 19), the multi-card placement solve's (phase 20),
+the kernels' JSON line, then the
 card's line (nvidia-smi's name and power limit), then the result line.
 Exits non-zero with no result line when there is no CUDA device.
 """
@@ -5960,6 +5972,92 @@ def main() -> int:
     print(f"{tag} phase 19 (the disaggregated engine, role-degenerate) wall "
           f"time {a19['wall_s']:.3f} s", flush=True)
     print(json.dumps({"arch5": a19}), flush=True)
+
+    # ---- 20. the multi-card placement solve at P = 1 -----------------------
+    # MultiChipEngine with auto_placement for a group of one card: phase
+    # 12's budgets, the largest at which the solver picks a partial cache
+    # and a cold tier, so the two-phase GGMS and the host cold tier are its
+    # choice; beside phase 17's graphsage_multichip_tiered
+    t20 = time.perf_counter()
+    a20 = {}
+    path = "graphsage_multichip_auto_placement"
+    for budget in (8.0, 4.0, 2.0, 1.5, 1.0, 0.75, 0.5):
+        pcfg = dataclasses.replace(mcfg, auto_placement=True,
+                                   hbm_budget_gb=budget)
+        solved, _ = resolve_auto_placement(pcfg, ds, group_size=1)
+        if (solved.use_dist_graph and solved.dist_graph_percentage < 1.0
+                and 0.0 < solved.cache_percentage < 1.0):
+            break
+    else:
+        raise AssertionError(f"{path}: no budget gave a partial cache and a "
+                             "cold tier")
+    # the two-phase store's kernels over the partitioned topology and one
+    # cold launch a layer (as graphsage_multichip_ggms_static_tiered's)
+    expected[path] = dict(counts_by_path["graphsage_multichip_ggms"],
+                          sample_khop_cold=3 * steps)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    peng20 = MultiChipEngine(ds, pcfg).init()
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    try:
+        pc, plan = peng20.config, peng20.placement_plan
+        if plan is None or peng20.tier is None or not peng20.two_phase:
+            raise AssertionError(f"{path}: the solved store is not the "
+                                 "two-phase GGMS over a cold tier")
+        solved_fields = {"use_dist_graph": pc.use_dist_graph,
+                         "dist_graph_percentage": pc.dist_graph_percentage,
+                         "cache_percentage": pc.cache_percentage}
+        if solved_fields != {k: getattr(solved, k) for k in solved_fields}:
+            raise AssertionError(f"{path}: the engine solved "
+                                 f"{solved_fields}, the solver alone "
+                                 f"{solved}")
+        print(f"{tag} {path} at hbm_budget_gb={budget}: solved "
+              f"{solved_fields} (policy {pc.cache_policy.value}); plan "
+              f"{plan}; init {init_s:.3f} s (hot prefix "
+              f"{peng20.tier.num_cache_node} of {n_all} nodes, "
+              f"{peng20.num_cache} rows cached); capacities "
+              f"{peng20.capacities}", flush=True)
+        row = multi_epochs(path, peng20)
+        prof20 = profiled_epoch(path, peng20, 2) or {}
+        groups20 = prof20.get("group_ms", {})
+        rates = [float(h["hit"].sum() / (h["hit"].sum() + h["miss"].sum()))
+                 for h in (peng20.history[0], peng20.history[1])]
+        ref = cold17["graphsage_multichip_tiered"]
+        row.update(
+            hbm_budget_gb=budget, init_s=init_s, **solved_fields,
+            cache_policy=pc.cache_policy.value,
+            num_cache_node=peng20.tier.num_cache_node,
+            num_cache=peng20.num_cache,
+            expected_topo_hit=plan.expected_topo_hit,
+            expected_feat_hit=plan.expected_feat_hit,
+            plan_topology_bytes=plan.topology_bytes,
+            plan_cache_bytes=plan.cache_bytes, hit_rate_epochs=rates,
+            busy_ms_per_step=prof20.get("busy_ms_per_step"),
+            busy_share=prof20.get("busy_share"),
+            k11_split_ms_per_step=groups20.get("K11's split, *split_*"),
+            k11_reads_ms_per_step=groups20.get(
+                "K11's reads in place, *direct_kernel*"),
+            tiered_path="graphsage_multichip_tiered",
+            tiered_epoch_s=ref["epoch_s"],
+            tiered_busy_ms_per_step=ref.get("busy_ms_per_step"),
+            peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30)
+        a20[path] = row
+        print(f"{tag} {path}: counted epoch {row['epoch_s']:.3f} s against "
+              f"graphsage_multichip_tiered's {ref['epoch_s']:.3f} s; busy "
+              f"{row['busy_ms_per_step']} ms a step against "
+              f"{ref.get('busy_ms_per_step')}; hit rate {rates[0]:.6f} "
+              f"(epoch 0), {rates[1]:.6f} (epoch 1) against the plan's "
+              f"{plan.expected_feat_hit:.4f}; peak {row['peak_gib']:.3f} "
+              "GiB", flush=True)
+    finally:
+        peng20.close()
+    del peng20
+    a20["wall_s"] = time.perf_counter() - t20
+    print(f"{tag} phase 20 (the multi-card placement solve at P = 1) wall "
+          f"time {a20['wall_s']:.3f} s", flush=True)
+    print(json.dumps({"auto_placement_multichip": a20}), flush=True)
 
     for k in kernels:
         k["launches"] = counts_by_path[k["path"]].get(k["name"], 0)

@@ -575,31 +575,27 @@ def test_cli_arch6_two_ranks_prints_results():
 
 
 @pytest.mark.parametrize("flags", [
-    ["--arch", "arch6", "--auto-placement"],
-    ["--num-worker", "2", "--auto-placement", "--hbm-budget-gb", "1"],
-    ["--num-dcn-groups", "2", "--num-worker", "2"]])
-def test_cli_refuses_unported_multicard_paths(flags):
-    from xgnn_tpu_torch.examples import train
-
-    with pytest.raises(NotImplementedError, match="'Multi-GPU'"):
-        train.main(["--cpu", "--synthetic"] + flags)
-
-
-@pytest.mark.parametrize("flags", [
     ["--num-worker", "2", "--cache-percentage", "0.3", "--cache-policy",
      "presample_static"],
     ["--num-worker", "2", "--use-dist-graph", "--dist-graph-percentage",
      "0.85"],
     ["--arch", "arch5"],
-    ["--num-sample-worker", "1", "--num-train-worker", "2"]],
-    ids=["presample_static", "cold_tier", "arch5", "num_sample_worker"])
+    ["--num-sample-worker", "1", "--num-train-worker", "2"],
+    # on the CPU the placement solve needs the budget it plans for
+    ["--arch", "arch6", "--auto-placement", "--hbm-budget-gb", "0.0005"],
+    ["--num-worker", "2", "--auto-placement", "--hbm-budget-gb", "1"],
+    ["--num-dcn-groups", "2", "--num-worker", "2"]],
+    ids=["presample_static", "cold_tier", "arch5", "num_sample_worker",
+         "auto_placement_arch6", "auto_placement_p2", "dcn_groups"])
 def test_cli_trains_once_refused_multicard_paths(flags):
     """presample_static with a partial cache and the host cold tier under
     the partitioned topology, once refused, train over two gloo ranks at
     toy size and print the test_result: lines
     (tests/test_torch_port_dist_cold.py holds them to JAX); so does the
     disaggregated engine (arch5), its roles on the CPU
-    (tests/test_torch_disagg.py holds its step to JAX)."""
+    (tests/test_torch_disagg.py holds its step to JAX), and so do the
+    collocated engine's placement solve and DCN groups, once refused
+    (tests/test_torch_port_dcn.py holds them to JAX)."""
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run(
         [sys.executable, "-m", "xgnn_tpu_torch.examples.train", "--cpu",
@@ -609,7 +605,7 @@ def test_cli_trains_once_refused_multicard_paths(flags):
         cwd=REPO, env=env, capture_output=True, text=True, timeout=SPAWN_S)
     assert out.returncode == 0, out.stderr[-3000:]
     lines = out.stdout.splitlines()
-    arch5 = "--arch" in flags or "--num-sample-worker" in flags
+    arch5 = "arch5" in flags or "--num-sample-worker" in flags
     assert (f"config:arch={'disaggregated' if arch5 else 'collocated'}"
             in lines)
     if "--num-train-worker" in flags:
@@ -624,43 +620,59 @@ def test_cli_trains_once_refused_multicard_paths(flags):
 @pytest.mark.parametrize("kwargs", [
     dict(cache_percentage=0.3, cache_policy="presample_static"),
     dict(dist_graph_percentage=0.5), dict(device_loop=True),
-    dict(arch="arch5")],
-    ids=["presample_static", "cold_tier", "device_loop", "arch5"])
+    dict(arch="arch5"), dict(auto_placement=True),
+    dict(num_worker=2, num_dcn_groups=2)],
+    ids=["presample_static", "cold_tier", "device_loop", "arch5",
+         "auto_placement", "dcn_groups"])
 def test_engine_runs_once_refused_configs(graph, kwargs, capsys):
-    """The RunConfigs, once refused, run at P = 1: run() trains and
-    prints the test_result: lines (device_loop through its fused epoch,
-    arch5 through the disaggregated engine, one sampler and one trainer
-    on the CPU)."""
+    """The RunConfigs, once refused, run: run() trains and prints the
+    test_result: lines (device_loop through its fused epoch, arch5 through
+    the disaggregated engine, one sampler and one trainer on the CPU, the
+    placement solve through its solved store at P = 1, and two DCN groups
+    of one rank over two gloo ranks)."""
     from xgnn_tpu_torch import RunConfig
     from xgnn_tpu_torch.engine.disagg_engine import DisaggregatedEngine
     from xgnn_tpu_torch.engine.multi_engine import MultiChipEngine
 
-    cfg = RunConfig(**_engine_config(1, num_epoch=2, **kwargs))
-    cls = DisaggregatedEngine if "arch" in kwargs else MultiChipEngine
-    eng = cls(graph, cfg, device="cpu")
-    try:
-        out = eng.run()
-    finally:
-        eng.close()
-    assert len(out["epochs"]) == 2
-    assert all(np.isfinite(r["loss"]) for r in out["epochs"])
-    printed = capsys.readouterr().out
-    assert "test_result:final_train_acc=" in printed
-    assert ((getattr(eng, "tier", None) is not None)
-            == ("dist_graph_percentage" in kwargs))
-    assert (getattr(eng, "_fused", None) is not None) == ("device_loop"
-                                                          in kwargs)
-
-
-@pytest.mark.parametrize("kwargs", [
-    dict(num_dcn_groups=2), dict(auto_placement=True)])
-def test_engine_refuses_unported_configs(graph, kwargs):
-    from xgnn_tpu_torch import RunConfig
-    from xgnn_tpu_torch.engine.multi_engine import MultiChipEngine
-
-    cfg = RunConfig(**_engine_config(1, **kwargs))
-    with pytest.raises(NotImplementedError, match="'Multi-GPU'"):
-        MultiChipEngine(graph, cfg, device="cpu")
+    kw = {k: v for k, v in kwargs.items() if k != "num_worker"}
+    p = kwargs.get("num_worker", 1)
+    if "auto_placement" in kw:
+        # JAX's test_auto_placement_multi_chip's budget: 0.35 of the
+        # graph's bytes, a partial cache
+        kw["hbm_budget_gb"] = 0.35 * (graph.num_node * graph.feat_dim
+                                      + graph.num_edge) * 4 / (1 << 30)
+    if p > 1:
+        outs = pmesh.spawn(ranks.run_printed, p, _ds_arrays(graph),
+                           _engine_config(p, num_epoch=2, **kw),
+                           device="cpu", timeout=SPAWN_S)
+        got = outs[0]
+        assert all(o["epochs"] == got["epochs"] for o in outs)
+    else:
+        cfg = RunConfig(**_engine_config(1, num_epoch=2, **kw))
+        cls = DisaggregatedEngine if "arch" in kwargs else MultiChipEngine
+        eng = cls(graph, cfg, device="cpu")
+        try:
+            out = eng.run()
+        finally:
+            eng.close()
+        got = {"epochs": [r["loss"] for r in out["epochs"]],
+               "printed": capsys.readouterr().out,
+               "tier": getattr(eng, "tier", None) is not None,
+               "fused": getattr(eng, "_fused", None) is not None,
+               "config": eng.config,
+               "plan": getattr(eng, "placement_plan", None) is not None}
+    assert len(got["epochs"]) == 2
+    assert all(np.isfinite(loss) for loss in got["epochs"])
+    assert "test_result:final_train_acc=" in got["printed"]
+    solved = got["config"]
+    assert got["tier"] == (solved.use_dist_graph
+                           and solved.dist_graph_percentage < 1.0)
+    if "auto_placement" not in kwargs:
+        assert got["tier"] == ("dist_graph_percentage" in kwargs)
+    else:
+        assert 0.0 < solved.cache_percentage < 1.0
+    assert got["fused"] == ("device_loop" in kwargs)
+    assert got["plan"] == ("auto_placement" in kwargs)
 
 
 def test_engine_refuses_a_mesh_of_another_size(graph):

@@ -740,26 +740,21 @@ def test_cli_runs_the_tiered_topology(flags, capsys):
 # more than one card runs the collocated engine now, over the whole CSR
 # (tests/test_torch_port_multichip.py), a partial cache over the cards
 # (tests/test_torch_port_ggms.py), its host cold tier and a partial cache
-# ranked by presample_static (tests/test_torch_port_dist_cold.py), and the
-# disaggregated engine (tests/test_torch_disagg.py); the collocated
-# engine's placement solve and DCN groups are not ported
-@pytest.mark.parametrize("flags", [
-    ["--arch", "arch6", "--auto-placement"], ["--num-dcn-groups", "2"]])
-def test_cli_multi_card_flags_still_raise(flags):
-    from xgnn_tpu_torch.examples import train
-
-    with pytest.raises(NotImplementedError, match="Multi-GPU"):
-        train.main(_TOY + ["--use-dist-graph"] + flags)
-
-
+# ranked by presample_static (tests/test_torch_port_dist_cold.py), its
+# placement solve and DCN groups (tests/test_torch_port_dcn.py), and the
+# disaggregated engine (tests/test_torch_disagg.py)
 @pytest.mark.parametrize("flags", [
     ["--num-worker", "2", "--dist-graph-percentage", "0.85"],
     ["--part-cache", "--num-worker", "2", "--cache-percentage", "0.5",
-     "--cache-policy", "presample_static"]],
-    ids=["cold_tier", "presample_static"])
+     "--cache-policy", "presample_static"],
+    # on the CPU the placement solve needs the budget it plans for
+    ["--arch", "arch6", "--auto-placement", "--hbm-budget-gb", "0.0005"],
+    ["--num-dcn-groups", "2", "--num-worker", "2"]],
+    ids=["cold_tier", "presample_static", "auto_placement", "dcn_groups"])
 def test_cli_multi_card_flags_once_refused_train(flags):
-    """The host cold tier over two ranks and presample_static over a
-    partial cache, once refused, train over two gloo ranks and print the
+    """The host cold tier over two ranks, presample_static over a partial
+    cache, the collocated engine's placement solve and two DCN groups,
+    once refused, train (over two gloo ranks where N > 1) and print the
     test_result: lines."""
     import os
     import subprocess

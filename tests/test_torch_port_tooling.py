@@ -391,12 +391,15 @@ def test_the_clis_train_and_evaluate_a_checkpoint(tmp_path, capsys,
     # cache (tests/test_torch_port_ggms.py), presample_static and the host
     # cold tier over several cards (test_cli_flags_once_refused_train);
     # GAT under bfloat16 runs now (tests/test_torch_gat_bf16.py), and so
-    # does the disaggregated engine (tests/test_torch_disagg.py); the
-    # flags of the paths still to be ported raise
+    # do the disaggregated engine (tests/test_torch_disagg.py) and the
+    # collocated engine's placement solve and DCN groups
+    # (tests/test_torch_port_dcn.py); GAT with more heads than K5 keeps
+    # still raises
     ["--model", "gat", "--remat", "--feat-dtype", "bfloat16",
-     "--arch", "arch6", "--auto-placement"],
+     "--arch", "arch6", "--auto-placement", "--num-head", "16"],
     ["--model", "gat", "--agg-impl", "tiled", "--compute-dtype",
-     "bfloat16", "--num-dcn-groups", "2"]])
+     "bfloat16", "--num-dcn-groups", "2", "--num-worker", "2",
+     "--num-head", "12"]])
 def test_cli_flags_of_unported_paths_name_roadmap_items(flags):
     from xgnn_tpu_torch.examples import train
 

@@ -386,8 +386,9 @@ def test_pinsage_device_loop_builds_and_trains(learn_ds):
 def test_unported_messages_name_roadmap_items_that_exist():
     """Each message names its ROADMAP item by a title that ROADMAP.md
     holds, so a renumbering cannot make it stale.  Every ``RunConfig`` of
-    one card has its path now (GAT under bfloat16 among them): the
-    command line's multi-card flags of paths not ported yet still raise."""
+    one card has its path now (GAT under bfloat16 among them), and so has
+    every multi-card one: the command line's GAT with more heads than K5
+    keeps still raises."""
     import re
     from pathlib import Path
 
@@ -405,12 +406,16 @@ def test_unported_messages_name_roadmap_items_that_exist():
                    dict(remat=True, feat_dtype="bfloat16")):
         assert RunConfig(model="gat", **kwargs).model == "gat"
     # more than one card runs the collocated engine now, its partial cache
-    # (presample_static among its rankings) and its host cold tier
-    # (test_multicard_flags_once_refused_train below), and the
-    # disaggregated engine (tests/test_torch_disagg.py)
-    cases = [["--arch", "arch6", "--auto-placement"],
-             ["--num-worker", "2", "--auto-placement", "--model", "gat"],
-             ["--num-dcn-groups", "2", "--feat-dtype", "bfloat16"]]
+    # (presample_static among its rankings), its host cold tier
+    # (test_multicard_flags_once_refused_train below), its placement solve
+    # and DCN groups (tests/test_torch_port_dcn.py), and the disaggregated
+    # engine (tests/test_torch_disagg.py); GAT with more heads than K5
+    # keeps raises, on one card or several
+    cases = [["--model", "gat", "--num-head", "16"],
+             ["--num-worker", "2", "--auto-placement", "--model", "gat",
+              "--num-head", "9"],
+             ["--num-dcn-groups", "2", "--num-worker", "4", "--feat-dtype",
+              "bfloat16", "--model", "gat", "--num-head", "32"]]
     for argv in cases:
         with pytest.raises(NotImplementedError) as err:
             train.main(["--cpu", "--synthetic"] + argv)

@@ -56,23 +56,24 @@ def collocated_step(mesh, step, label, feat_part, csr):
     """One collocated step from flax weights at dropout 0: this rank's
     batch (in local-id form, with its input rows), the reduced gradients,
     and the parameters after the update, by the pieces and by the fused
-    step (which must agree)."""
+    step (which must agree).  ``mesh`` may be a DCN group's: the stores
+    are its parts, the seeds the world rank's."""
     from xgnn_tpu_torch.convert import params_from_flax
     from xgnn_tpu_torch.models import build_model
     from xgnn_tpu_torch.train import Adam
 
-    r, p = mesh.rank, mesh.size
+    r, p, w = mesh.rank, mesh.size, mesh.world.rank
     cfg = RunConfig(**step["config"])
     topo = dist_topology.partition_part(_t(csr["indptr"]).long(),
                                         _t(csr["indices"]), p, r)
     labels = exchange.interleaved_part(_t(label), p, r).reshape(-1, 1)
-    seeds, n = _t(step["seeds"][r]), int(step["num_seed"][r])
+    seeds, n = _t(step["seeds"][w]), int(step["num_seed"][w])
     results = []
     for fused in (False, True):
         model = build_model(cfg, feat_part.shape[1], step["num_class"])
         model.load_state_dict(params_from_flax(step["params"]))
         opt = Adam(list(model.parameters()), cfg.lr)
-        gen = torch.Generator().manual_seed(7 + r)
+        gen = torch.Generator().manual_seed(7 + w)
         if fused:
             fn = collocated.make_collocated_train_step(
                 model, opt, cfg, mesh, step["caps"], step["seg_cap"], True)
@@ -113,6 +114,33 @@ def engine_run(mesh, ds_arrays, config, epochs, evaluate=True):
     params = {k: v for k, v in eng.model.state_dict().items()}
     return {"epochs": rs, "acc": acc, "caps0": caps0,
             "caps": list(eng.capacities), "params": params}
+
+
+def run_printed(mesh, ds_arrays, config):
+    """MultiChipEngine.run() on this rank: its epochs' losses, what it
+    printed, whether it has a cold tier and a captured epoch, its solved
+    config and whether it holds a placement plan."""
+    import contextlib
+    import io
+
+    from xgnn_tpu_torch.dataset import Dataset
+    from xgnn_tpu_torch.engine.multi_engine import MultiChipEngine
+
+    eng = MultiChipEngine(Dataset(**ds_arrays), RunConfig(**config),
+                          mesh=mesh)
+    printed = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(printed):
+            out = eng.run()
+    finally:
+        # the mesh is the caller's: unmap the host arrays alone
+        for held in (eng.host, None if eng.tier is None else eng.tier.csr):
+            if held is not None:
+                held.close()
+    return {"epochs": [r["loss"] for r in out["epochs"]],
+            "printed": printed.getvalue(), "tier": eng.tier is not None,
+            "fused": eng._fused is not None, "config": eng.config,
+            "plan": eng.placement_plan is not None}
 
 
 def raise_on_rank1(mesh):

@@ -34,13 +34,13 @@ khop0 of ``static_presample_config`` through the tiered step instead);
 ``dynamic_cache`` counts the next epoch's
 first ``calibration_batches`` batches again at each refresh (gated by
 ``barriered_epoch``) and rebuilds the cache.  ``train_epoch`` shuffles
-with ``Shuffler(num_worker=P, worker_id=rank, seed=seed + 1)`` and every
-rank takes ``max(num_local_step)`` steps (an exhausted rank trains on an
-empty shard, weighing nothing), so the collectives meet.  A step that
-overflowed anywhere was skipped on every rank; after the epoch the ranks,
-which all read the same reduced flags, grow every capacity twofold and
-replay those steps with their own seeds and generators, so no batch is
-lost.  ``evaluate`` counts each valid (or test) node once, summed over
+with ``Shuffler(num_worker=num_worker, worker_id=rank, seed=seed + 1)``
+and every rank takes ``max(num_local_step)`` steps (an exhausted rank
+trains on an empty shard, weighing nothing), so the collectives meet.  A
+step that overflowed anywhere was skipped on every rank; after the epoch
+the ranks, which all read the same reduced flags, grow every capacity
+twofold and replay those steps with their own seeds and generators, so no
+batch is lost.  ``evaluate`` counts each valid (or test) node once, summed over
 the ranks, an overflowed batch again at transient grown capacities.  ``run`` trains ``num_epoch``
 epochs with the accuracy report and checkpoints (written by rank 0), and
 rank 0 prints the ``test_result:`` lines.  The two-phase store's hit rate
@@ -67,8 +67,24 @@ overflowed step is skipped on every rank on the device; after the epoch
 the ranks grow their capacities, drop the graph and replay those steps
 through the host loop, and the next epoch captures again.
 
-Not ported here, each refused naming ROADMAP's **Multi-GPU**: DCN groups
-and ``auto_placement``.  The disaggregated engine (arch5) is
+DCN groups (``num_dcn_groups > 1``, JAX's hierarchical mesh): the
+``num_worker`` ranks fall into ``num_dcn_groups`` groups of ``G =
+num_worker // num_dcn_groups`` consecutive ranks (``mesh.make_mesh_2d``),
+and every store (the topology's parts, the labels, the features or the
+cache) is interleaved over the group's ``G`` parts, rank ``r`` holding
+part ``r % G``, and repeated in every group.  The batches span every rank
+(``Shuffler(num_worker=num_worker, worker_id=r)``, JAX's group-major
+lanes), the exchanges and the exchange segment stay in the group, and the
+gradients, the metrics, the flags, the overflow skip and replay and the
+node-access log span every rank; the presample's counts are summed over
+the groups.  On GPUs a group is one NVLink island and the copies lie
+across nodes.  ``auto_placement`` solves the store's split for a group of
+``G`` cards (``store/placement.resolve_auto_placement``, JAX's
+``multi_engine.py:131-140``) from ``hbm_budget_gb`` or, where it is unset,
+the rank's card's memory; every rank solves it, rank 0's fields are
+broadcast, and a rank whose plan differs raises (cards of unequal memory:
+give ``hbm_budget_gb``).  The solved configuration is ``config`` and the
+plan ``placement_plan``.  The disaggregated engine (arch5) is
 ``disagg_engine.DisaggregatedEngine``; as JAX's, this engine does not read
 ``arch``.  Unlike JAX's, the cold tier has no ``cold_cap``: nothing
 overflows for its rows, and the capacities' growth leaves it as it is.
@@ -92,7 +108,7 @@ from .. import profiler as P
 from ..checkpoint import CheckpointManager
 from ..config import WEIGHTED, CachePolicy, RunConfig
 from ..dataset import host_array
-from ..device import feature_dtype, generator, seed_of, to_tensor
+from ..device import feature_dtype, generator, resolve, seed_of, to_tensor
 from ..models import build_model
 from ..ops import sanity
 from ..ops.tiered import MappedHostTable
@@ -108,9 +124,10 @@ from ..parallel.collocated import (
 from ..parallel.dist_topology import partition_part
 from ..parallel.exchange import interleaved_part
 from ..parallel.ggms import build_cache
-from ..parallel.mesh import MULTI_GPU, Mesh, make_mesh
+from ..parallel.mesh import Mesh, make_mesh, make_mesh_2d
 from ..sampler import _layer_fanouts, default_capacities
 from ..store.feature_store import HBMFeatureSource
+from ..store.placement import resolve_auto_placement
 from ..store.presample import static_presample_config
 from ..store.ranking import FREQUENCY_POLICIES, build_ranking
 from ..store.topology import (
@@ -137,18 +154,6 @@ _SEED_CALIBRATE = 0x5EED  # the JAX engine's presample shuffle: seed ^ it
 _PRESAMPLE = 0x9A3  # the JAX engine's presample key: seed ^ it
 
 
-def refuse_unported(config: RunConfig):
-    """Raise for the multi-card configurations not ported yet."""
-    why = None
-    if config.num_dcn_groups != 1:
-        why = "DCN groups (num_dcn_groups > 1)"
-    elif config.auto_placement:
-        why = "the multi-card placement solve (auto_placement)"
-    if why is not None:
-        raise NotImplementedError(
-            f"not ported to xgnn_tpu_torch yet: {why}: {MULTI_GPU}")
-
-
 def _in_place(a) -> torch.Tensor:
     """``a`` as a tensor over the same memory, where it lies: a host array
     is not copied (a read-only memory map is only read), its uint32 ids
@@ -173,23 +178,39 @@ def _array(ds, name: str):
 
 class MultiChipEngine:
     """Data-parallel training over ``config.num_worker`` ranks, this
-    process being one of them (``mesh``), or a world of one on ``device``
-    (the card by default)."""
+    process being one of them (``mesh``, the world's), or a world of one
+    on ``device`` (the card by default).  ``self.world`` is the world's
+    mesh and ``self.mesh`` this rank's DCN group's (the world's where there
+    is one group); ``rank`` is the world rank, ``part`` the rank's part of
+    the ``num_parts`` in its group."""
 
     _MAX_GROWTHS = 4
 
     def __init__(self, dataset, config: RunConfig, device=None,
                  mesh: Optional[Mesh] = None):
-        refuse_unported(config)
         size = 1 if mesh is None else mesh.size
         if size != config.num_worker:
             raise ValueError(f"num_worker={config.num_worker}, and the mesh "
                              f"has {size} ranks")
+        groups = config.num_dcn_groups
+        if groups < 1 or config.num_worker % groups:
+            raise ValueError(f"num_worker={config.num_worker} is not a "
+                             f"multiple of num_dcn_groups={groups}")
+        dev = mesh.device if mesh is not None else resolve(device)
+        self.placement_plan = None
+        if config.auto_placement:
+            # the store's split for a group's cards (XGNN's PartitionSolver:
+            # the stores shard over a group, the groups repeat them)
+            config, self.placement_plan = resolve_auto_placement(
+                config, dataset, group_size=config.num_worker // groups,
+                device=dev)
         self.ds = dataset
         self.config = config
-        self.mesh = mesh if mesh is not None else make_mesh(device)
-        self.device = self.mesh.device
-        self.rank, self.num_parts = self.mesh.rank, self.mesh.size
+        self.world = mesh if mesh is not None else make_mesh(dev)
+        self.mesh = make_mesh_2d(groups, self.world)
+        self.device = self.world.device
+        self.rank, self.num_lanes = self.world.rank, self.world.size
+        self.part, self.num_parts = self.mesh.rank, self.mesh.size
         bf16 = config.feat_dtype == "bfloat16" or (
             feature_dtype(dataset.feat) == torch.float16
             and config.compute_dtype == "bfloat16")
@@ -206,11 +227,32 @@ class MultiChipEngine:
         self._fused: Optional[FusedEpoch] = None
         self._fused_warned = False
         self._emit_access = False
+        if config.auto_placement:
+            self._agree_on_placement()
+
+    def _agree_on_placement(self):
+        """Rank 0's solved fields broadcast to every rank, which raises
+        where its own plan differs (its card's memory size does)."""
+        cfg, prof = self.config, self.profiler
+        mine = torch.tensor([float(cfg.use_dist_graph),
+                             cfg.dist_graph_percentage,
+                             cfg.cache_percentage], dtype=torch.float64,
+                            device=self.device)
+        first = mine.clone()
+        dist.broadcast(first, src=0, group=self.world.group)
+        if not torch.equal(first, mine):
+            raise RuntimeError(
+                f"auto_placement: rank {self.rank} solved (use_dist_graph, "
+                f"dist_graph_percentage, cache_percentage) = "
+                f"{mine.tolist()}, rank 0 {first.tolist()}: the cards' "
+                "memory sizes differ; give hbm_budget_gb")
+        prof.log_init("auto_dist_graph_percentage", cfg.dist_graph_percentage)
+        prof.log_init("auto_cache_percentage", cfg.cache_percentage)
 
     # ------------------------------------------------------------------ init
     def init(self):
         cfg, prof, dev = self.config, self.profiler, self.device
-        p, rank = self.num_parts, self.rank
+        p, part = self.num_parts, self.part
         t0 = time.perf_counter()
         weighted = cfg.sample_type in WEIGHTED
         if cfg.use_dist_graph:
@@ -227,7 +269,7 @@ class MultiChipEngine:
                          else Graph.from_dataset(self.ds, dev,
                                                  weighted=weighted))
         label = to_tensor(self.ds.label, dev, torch.int32)
-        self.lab_part = interleaved_part(label, p, rank).reshape(-1, 1)
+        self.lab_part = interleaved_part(label, p, part).reshape(-1, 1)
         prof.log_init("graph_load_time", time.perf_counter() - t0)
         prof.log_mem_usage("graph_load", dev)
         t0 = time.perf_counter()
@@ -247,7 +289,7 @@ class MultiChipEngine:
             self._build_feature_cache(build_ranking(self.ds, cfg, freq))
         else:
             self.feat_part = HBMFeatureSource(
-                interleaved_part(feat, p, rank), dev, self.feat_dtype).feat
+                interleaved_part(feat, p, part), dev, self.feat_dtype).feat
             self.num_cache = self.ds.num_node
         prof.log_init("cache_build_time", time.perf_counter() - t0)
         prof.log_mem_usage("cache_build", dev)
@@ -297,7 +339,7 @@ class MultiChipEngine:
             on = lambda a: to_tensor(a, dev)
         topo = partition_part(
             to_tensor(indptr, dev), on(indices).to(torch.int32),
-            p, self.rank, ncn, *(None if a is None else on(a)
+            p, self.part, ncn, *(None if a is None else on(a)
                                  for a in arrays.values()))
         topo.tier = self.tier
         return topo
@@ -396,24 +438,27 @@ class MultiChipEngine:
         return torch.zeros(rows, dtype=torch.int32, device=self.device)
 
     def _full_counts(self, freq: torch.Tensor) -> np.ndarray:
-        """Every node's count, on every rank: rank ``w``'s share at ``w::P``
-        (JAX's ``full[w::P] = parts[w]``), summed over the ranks."""
+        """Every node's count, on every rank: part ``w``'s share at ``w::P``
+        (JAX's ``full[w::P] = parts[w]``), summed over every rank, so the
+        shares of one part in the DCN groups add up (JAX's sum over the
+        group axis)."""
         p = self.num_parts
         full = torch.zeros(freq.shape[0] * p, dtype=torch.int32,
                            device=self.device)
-        full[self.rank::p] = freq
-        self.mesh.all_reduce(full)
+        full[self.part::p] = freq
+        self.world.all_reduce(full)
         return full[:self.ds.num_node].cpu().numpy()
 
     def _build_feature_cache(self, ranking: np.ndarray):
         """The position map and this rank's cache rows from a
-        hottest-first ranking: position ``p`` on rank ``p % P`` at row
-        ``p // P`` (``part_cache``), or the whole cache on every rank."""
+        hottest-first ranking: position ``p`` on part ``p % P`` of each
+        group at row ``p // P`` (``part_cache``), or the whole cache on
+        every rank."""
         cfg = self.config
         parts = self.num_parts if cfg.part_cache else 1
         self.posmap, self.cache_part, self.num_cache = build_cache(
             self.host, ranking, cfg.cache_percentage, parts,
-            self.rank if cfg.part_cache else 0, self.device, self.feat_dtype)
+            self.part if cfg.part_cache else 0, self.device, self.feat_dtype)
 
     def _dynamic_refresh(self, next_epoch: int):
         """Rank the cache anew by the access counts of the next epoch's
@@ -456,15 +501,17 @@ class MultiChipEngine:
 
     # ----------------------------------------------------------------- steps
     def _shuffler(self, nodes, seed: int, worker: Optional[int] = None):
+        """Lane ``worker``'s (this rank's) shard: the batches span every
+        rank of the world, group-major as JAX's lanes."""
         return Shuffler(nodes, self.config.batch_size,
-                        num_worker=self.num_parts,
+                        num_worker=self.num_lanes,
                         worker_id=self.rank if worker is None else worker,
                         seed=seed)
 
     def _num_steps(self, nodes, seed: int) -> int:
         """Steps every rank takes: the longest shard's."""
         return max(self._shuffler(nodes, seed, w).num_local_step
-                   for w in range(self.num_parts))
+                   for w in range(self.num_lanes))
 
     def _next(self, it):
         """This rank's next shard of seeds on the device, EMPTY when its
@@ -497,13 +544,13 @@ class MultiChipEngine:
     def _log_access(self, input_nodes: torch.Tensor, num_input):
         """Every rank's input nodes gathered to rank 0, which logs them in
         rank order (JAX logs its lanes so); every rank takes part."""
-        every = self.mesh.all_gather(input_nodes)
-        nums = self.mesh.all_gather(
+        every = self.world.all_gather(input_nodes)
+        nums = self.world.all_gather(
             torch.as_tensor(num_input, device=self.device)
             .to(torch.int32).reshape(1))
         if self.rank == 0:
             every, nums = every.cpu().numpy(), nums.cpu().numpy()
-            for w in range(self.num_parts):
+            for w in range(self.num_lanes):
                 self.profiler.log_node_access(every[w, :int(nums[w, 0])])
 
     def _run_one_step(self, seeds, n, epoch: int, step: int,
@@ -617,7 +664,7 @@ class MultiChipEngine:
         if self.two_phase:
             # the hits and misses of every rank and step
             total = stats[4:6].sum(1)
-            self.mesh.all_reduce(total)
+            self.world.all_reduce(total)
             stats = torch.cat([stats, total[:, None].expand(2, num_steps)])
         # ONE device-to-host pull for the epoch's metrics
         return self._finish_epoch(epoch, stats.cpu().numpy(), records,
@@ -752,7 +799,7 @@ class MultiChipEngine:
         bs = self.config.batch_size
         issued = sum(min(max(sh._shard_size - s * bs, 0), bs)
                      for sh in (self._shuffler(nodes, 0, w)
-                                for w in range(self.num_parts))
+                                for w in range(self.num_lanes))
                      for s in range(num_steps))
 
         def eval_one(seeds, n, step, fn):
@@ -853,5 +900,5 @@ class MultiChipEngine:
             self.host.close()
         if self.tier is not None:
             self.tier.csr.close()
-        self.mesh.close()
+        self.world.close()
 

@@ -21,15 +21,18 @@ or, with ``--cache-percentage`` in (0, 1), XGNN's two-phase store (a cache
 partitioned over the cards with ``--part-cache``, else replicated on each;
 the misses read from pinned host memory; any ``--cache-policy``,
 ``presample_static`` among them); rank 0's lines are printed.
-``--device-loop`` runs the collocated engine's epochs as a captured step
-too.  ``--arch arch5`` (or ``--num-sample-worker N`` with N > 0, as JAX's
+``--num-dcn-groups G`` splits the N ranks into G DCN groups of N / G
+(the stores partitioned over a group and repeated in every group, the
+gradients reduced over all N), and ``--auto-placement`` solves the
+collocated engine's split for a group's cards (``--hbm-budget-gb`` on the
+CPU).  ``--device-loop`` runs the collocated engine's epochs as a captured
+step too.  ``--arch arch5`` (or ``--num-sample-worker N`` with N > 0, as JAX's
 command line decides) trains the disaggregated engine
 (``DisaggregatedEngine``): N sampler roles (at least 1) feeding
 ``--num-train-worker`` trainer roles, on every card, sharing them
 round-robin where the roles outnumber the cards (``--cpu``: each role on
-the CPU).  Flags that select a multi-card path the port does not have yet
-(DCN groups, the collocated engine's ``--auto-placement``) raise
-``NotImplementedError`` naming its ROADMAP item.
+the CPU).  GAT with more heads than K5's kernel keeps raises
+``NotImplementedError`` naming its ROADMAP item, before any data is built.
 
     python -m xgnn_tpu_torch.examples.train --cpu --synthetic \\
         --synthetic-nodes 20000 --model graphsage --num-epoch 2 \\
@@ -48,6 +51,13 @@ the CPU).  Flags that select a multi-card path the port does not have yet
         --use-dist-graph --dist-graph-percentage 0.85 --num-epoch 2 \\
         --batch-size 500 --fanout 8 4
     python -m xgnn_tpu_torch.examples.train --cpu --synthetic \\
+        --synthetic-nodes 20000 --num-worker 4 --num-dcn-groups 2 \\
+        --part-cache --use-dist-graph --cache-percentage 0.2 \\
+        --num-epoch 2 --batch-size 500 --fanout 8 4
+    python -m xgnn_tpu_torch.examples.train --synthetic \\
+        --synthetic-nodes 20000 --num-worker 2 --part-cache \\
+        --auto-placement --num-epoch 2 --batch-size 500 --fanout 8 4
+    python -m xgnn_tpu_torch.examples.train --cpu --synthetic \\
         --synthetic-nodes 20000 --arch arch5 --num-sample-worker 2 \\
         --num-train-worker 2 --num-epoch 2 --batch-size 500 --fanout 8 4
 """
@@ -59,7 +69,7 @@ import sys
 from typing import Optional, Sequence
 
 FEAT_DIM, NUM_CLASS = 128, 32  # the JAX command line's synthetic graph
-MULTI_GPU = "ROADMAP queue 1, 'Multi-GPU'"
+WIDE_ROWS = "ROADMAP section 2, K5, 'Wide rows'"
 
 
 def parser() -> argparse.ArgumentParser:
@@ -105,7 +115,9 @@ def parser() -> argparse.ArgumentParser:
     p.add_argument("--num-worker", type=int, default=1)
     p.add_argument("--num-sample-worker", type=int, default=0)
     p.add_argument("--num-train-worker", type=int, default=1)
-    p.add_argument("--num-dcn-groups", type=int, default=1)
+    p.add_argument("--num-dcn-groups", type=int, default=1,
+                   help="DCN groups of the --num-worker ranks: the stores "
+                   "partitioned over a group, repeated across groups")
     p.add_argument("--use-dist-graph", action="store_true", default=False)
     p.add_argument("--dist-graph-percentage", type=float, default=1.0)
     p.add_argument("--part-cache", action="store_true", default=False)
@@ -153,18 +165,15 @@ def arch_of(args):
 
 
 def check_ported(args):
-    """Refuse the flags of paths the port does not have yet."""
-    from xgnn_tpu_torch.config import RunArch
+    """Refuse the flags of paths the port does not have: GAT with more
+    heads than K5 keeps, which its kernel and its plain version refuse
+    alike (here before any data is built)."""
+    from xgnn_tpu_torch.ops.attend import MAX_HEADS
 
-    why = None
-    if args.num_dcn_groups != 1:
-        why = "DCN groups (--num-dcn-groups > 1)"
-    elif arch_of(args) == RunArch.COLLOCATED and args.auto_placement:
-        why = ("the multi-card placement solve (--auto-placement with "
-               "--num-worker > 1 or --arch arch6)")
-    if why is not None:
+    if args.model == "gat" and args.num_head > MAX_HEADS:
         raise NotImplementedError(
-            f"not ported to xgnn_tpu_torch yet: {why}: {MULTI_GPU}")
+            f"not ported to xgnn_tpu_torch yet: GAT with {args.num_head} "
+            f"heads (--num-head > {MAX_HEADS}): {WIDE_ROWS}")
 
 
 def synthetic_dataset(num_node: int, avg_degree: int, signal: float,

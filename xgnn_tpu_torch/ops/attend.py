@@ -272,7 +272,7 @@ def _check(table, neigh, el_dst, proj, mode):
             f"wide; the kernel keeps at most {MAX_HEADS} heads, a table "
             f"{MAX_WIDTH} wide and, in shared mode, {MAX_ROW} floats of an "
             "output row with the heads rounded up to a power of two "
-            "(ROADMAP K5 wide rows)")
+            "(ROADMAP section 2, K5, 'Wide rows')")
     if n >= 2**31 - 1 or d * neigh.shape[1] >= 2**31 - 1:
         raise ValueError("gat_attend: sizes past int32")
 

@@ -110,6 +110,52 @@ def unique_seeded_split_plain(prefix: torch.Tensor, picks: torch.Tensor,
     return uids, num_unique, local[prefix.shape[0]:]
 
 
+def unique_ordered(ids: torch.Tensor, out_cap: int):
+    """Dedup ``ids`` (int32, EMPTY-padded anywhere) keeping the order of
+    first occurrence: JAX's ``unique_ordered`` (``xgnn_tpu/ops/unique.py:46``,
+    K10; the reference's ``OrderedHashTable::FillWithDuplicates``).
+
+    Returns ``(unique_ids, num_unique, local_ids)``: ``unique_ids`` is
+    ``(out_cap,)`` in first-occurrence order, EMPTY-padded; ``num_unique``
+    an int32 scalar that may exceed ``out_cap`` (the caller flags that as
+    overflow); ``local_ids`` ``(N,)`` each input's position in the unique
+    list, EMPTY for EMPTY inputs.  Torch ops on any device, no host sync:
+    one stable sort, the first of each run of equal ids, their rank by
+    original position (a cumulative sum in input order) carried to the
+    run by a ``cummax`` forward fill, and two scatters.  No path of the
+    port calls it (the sampler dedups with K3's seeded form)."""
+    n = ids.shape[0]
+    dev = ids.device
+    sid, spos = torch.sort(ids, stable=True)
+    is_first = torch.ones(n, dtype=torch.bool, device=dev)
+    is_first[1:] = sid[1:] != sid[:-1]
+    is_first &= sid != EMPTY
+    num_unique = is_first.sum(dtype=torch.int32)
+
+    # a run's first element (its smallest position: the sort is stable)
+    # ranked among the firsts by position, in input order
+    first_at = torch.zeros(n, dtype=torch.bool, device=dev)
+    first_at[spos] = is_first
+    rank = torch.cumsum(first_at, 0, dtype=torch.int32) - 1
+    local_first = rank[spos]
+
+    # forward fill: every element takes the local id of its run's first
+    pos = torch.arange(n, device=dev)
+    head = torch.cummax(torch.where(is_first, pos, 0), 0).values
+    local_sorted = torch.where(is_first, local_first, 0)[head]
+
+    local_ids = torch.empty(n, dtype=torch.int32, device=dev)
+    local_ids[spos] = local_sorted
+    local_ids = torch.where(ids == EMPTY, EMPTY, local_ids)
+
+    slot = torch.where(is_first & (local_first < out_cap), local_first,
+                       out_cap)
+    unique_ids = torch.full((out_cap + 1,), EMPTY, dtype=ids.dtype,
+                            device=dev)
+    unique_ids[slot] = torch.where(slot < out_cap, sid, EMPTY)
+    return unique_ids[:out_cap], num_unique, local_ids
+
+
 class _State:
     """K3's table, tile words, rank records, bitmaps and the generation of
     its last call, for one stream (``csrc/unique.cu`` gives the layout)."""

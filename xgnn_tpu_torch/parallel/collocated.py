@@ -44,6 +44,17 @@ carries its cold side, so the steps take no tier arguments (JAX's
 ``put_replicated`` and ``put_sharded`` place a whole value on every chip of
 one process's mesh; here each rank builds its own part where it runs
 (``exchange.interleaved_part``, ``dist_topology.partition_part``).
+
+Over DCN groups (``mesh`` a group's, ``mesh.make_mesh_2d``: JAX's
+``dcn_axis``) the stores are partitioned over the group's ``G`` parts and
+repeated in every group, so each exchange, and the exact presample's
+gather and reduce by owner, stays in the group (``mesh``), while the
+gradients' seed-weighted reduction, the metrics, the overflow flag, the
+sanity flags and the frontier sizes are reduced over every rank
+(``mesh.world``: JAX's ``grad_axes``).  Each rank counts its own batch
+into its part's share of the access counts; the engine sums the groups'
+shares (JAX's host sum over the group axis).  On a flat mesh the two are
+one.
 """
 
 from __future__ import annotations
@@ -164,10 +175,10 @@ def unflatten_weighted(flat: torch.Tensor, grads):
 
 def reduce_weighted(mesh: Mesh, grads, loss, acc, num_output, overflow):
     """``(grads, loss, acc, skip)``: ``sum_r(v_r * w_r) / max(sum_r(w_r),
-    1)`` of each, ``w_r`` the ranks' seed counts, and whether any rank
-    overflowed, all in one ``all_reduce``."""
+    1)`` of each, ``w_r`` the seed counts of every rank of the world, and
+    whether any rank overflowed, all in one ``all_reduce``."""
     flat = weighted_flat(grads, loss, acc, num_output, overflow)
-    mesh.all_reduce(flat)
+    mesh.world.all_reduce(flat)
     return unflatten_weighted(flat, grads)
 
 
@@ -188,10 +199,11 @@ def _train_on(model, opt: Adam, mesh: Mesh, blocks, x, labels, num_output,
 
 
 def reduced_flags(mesh: Mesh, flags: torch.Tensor) -> torch.Tensor:
-    """A rank's sanity flags max-reduced over the ranks (every rank runs
-    it, so the collectives meet), a device int32 scalar."""
+    """A rank's sanity flags max-reduced over every rank of the world
+    (every rank runs it, so the collectives meet), a device int32
+    scalar."""
     flags = flags.to(torch.int32).reshape(1).clone()
-    mesh.all_reduce(flags, dist.ReduceOp.MAX)
+    mesh.world.all_reduce(flags, dist.ReduceOp.MAX)
     return flags.reshape(())
 
 
@@ -204,7 +216,7 @@ def _count_correct(mesh: Mesh, logits, labels, num_output, overflow):
     v = torch.stack([correct.to(torch.float32),
                      num_output.to(torch.float32).reshape(()),
                      overflow.to(torch.float32)])
-    mesh.all_reduce(v)
+    mesh.world.all_reduce(v)
     keep = (v[2] == 0).to(torch.float32)
     return v[0] * keep, v[1] * keep, v[2] > 0
 
@@ -338,8 +350,10 @@ def make_presample_step(config, mesh: Mesh, capacities, seg_cap: int,
     (K13-plan, ``all_to_all_single``) and count it there into the owner's
     interleaved share of the access counts, ``freq_part`` ``(ceil(N / P),)``
     int32, in place (K12); ``sizes`` the batch's frontier sizes (the seeds,
-    then each layer's sources from the last), max-reduced over the ranks.
-    The counting exchange's segment takes every input (``max(seg_cap,
+    then each layer's sources from the last), max-reduced over every rank.
+    Over DCN groups the owners are the group's: each group counts its own
+    batches, and the engine sums the groups' shares.  The counting
+    exchange's segment takes every input (``max(seg_cap,
     capacities[-1])``): an over-cap request would go uncounted, and the
     hottest nodes are the ones the ranking exists to find."""
     count_seg_cap = max(int(seg_cap), int(capacities[-1]))
@@ -359,7 +373,7 @@ def make_presample_step(config, mesh: Mesh, capacities, seg_cap: int,
             [batch.num_output.to(torch.int32).reshape(())]
             + [b.num_src.to(torch.int32).reshape(())
                for b in reversed(batch.blocks)])
-        mesh.all_reduce(sizes, dist.ReduceOp.MAX)
+        mesh.world.all_reduce(sizes, dist.ReduceOp.MAX)
         return freq_part, sizes
 
     return step
@@ -384,7 +398,9 @@ def make_presample_static_exact_step(config, mesh: Mesh, num_node: int,
     Replicated: the rank closes its own batch over the whole CSR with the
     single store's K12b, and one reduce by owner sums the lanes' marks into
     the shares.  JAX's ``psum_scatter``; gloo, with no reduce-scatter,
-    reduces the whole buffer and keeps this rank's row."""
+    reduces the whole buffer and keeps this rank's row.  Over DCN groups
+    the gather and the reduces are the group's, over its own lanes; the
+    engine sums the groups' shares."""
     num_layer = len(config.fanout)
 
     def step(freq_part, topo, seeds, num_seed, generator=None):

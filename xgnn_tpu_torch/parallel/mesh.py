@@ -1,23 +1,35 @@
 """Process groups: one process a card, on ``torch.distributed``.
 
-The port of ``xgnn_tpu/parallel/mesh.py`` (``make_mesh``, lines 26-35).  JAX
-drives every chip of a host from one process over a named mesh; the
-port runs XGNN's arch6 as the reference does and as PyTorch does, one
-process a card, each rank holding its share of the stores.  A
-:class:`Mesh` is a rank's view of the group: its rank, the world's size,
-its device and the collectives the collocated step uses (``all_to_all``
-with equal splits, a summed ``all_reduce``; the exact presample's
-``all_gather`` and ``reduce_scatter``, the latter an ``all_reduce`` of the
-whole and a slice on gloo, which has no reduce-scatter).  NCCL runs on
-the card and gloo on the CPU; the device decides, and nothing drops to
-the CPU or to gloo when CUDA or NCCL is missing: it raises.
+The port of ``xgnn_tpu/parallel/mesh.py`` (``make_mesh``, lines 26-35,
+and ``make_mesh_2d``, :37-55).  JAX drives every chip of a host from one
+process over a named mesh; the port runs XGNN's arch6 as the reference
+does and as PyTorch does, one process a card, each rank holding its share
+of the stores.  A :class:`Mesh` is a rank's view of a process group: its
+rank in it, its size, its device and the collectives the collocated step
+uses (``all_to_all`` with equal splits, a summed ``all_reduce``; the exact
+presample's ``all_gather`` and ``reduce_scatter``, the latter an
+``all_reduce`` of the whole and a slice on gloo, which has no
+reduce-scatter).  NCCL runs on the card and gloo on the CPU; the device
+decides, and nothing drops to the CPU or to gloo when CUDA or NCCL is
+missing: it raises.
+
+DCN groups (:func:`make_mesh_2d`, JAX's hierarchical mesh, the stand-in
+for the reference's topology-aware ``PartitionSolver``): the world's
+ranks fall into ``num_groups`` groups of ``G`` consecutive ranks, world
+rank ``r`` in group ``r // G`` at part ``r % G``, as JAX reshapes its
+devices to ``(num_groups, G)``.  A group's mesh carries the stores'
+collectives (the exchanges, the presample's ``all_gather`` and
+``reduce_scatter``), so they stay inside an NVLink island; its ``world``,
+the mesh of every rank, carries the reductions that span the groups (the
+gradients, the metrics, the flags).  A flat mesh is its own world.
 
 Rendezvous goes through a file store in a fresh temporary directory,
 never a fixed TCP port.  :func:`make_mesh` makes a world of one in the
 caller's process (P = 1 needs no launcher); :func:`spawn` starts ``P``
 ranks, one process each, runs a function in each and joins them under a
-time limit, failing if one raises, dies or hangs.  ``make_mesh_2d`` (the
-DCN groups) is not ported.
+time limit, failing if one raises, dies or hangs (a rank that never
+reaches a collective that the others wait in, a missed ``new_group``
+among them, is a hang).
 """
 
 from __future__ import annotations
@@ -35,8 +47,6 @@ import torch
 import torch.distributed as dist
 
 from ..device import resolve
-
-MULTI_GPU = "ROADMAP queue 1, 'Multi-GPU'"
 
 
 def backend_for(device: torch.device) -> str:
@@ -59,27 +69,37 @@ def backend_for(device: torch.device) -> str:
 
 @dataclasses.dataclass
 class Mesh:
-    """A rank's view of its process group (the default group)."""
+    """A rank's view of a process group: the world (the default group), or
+    one DCN group of it (``make_mesh_2d``)."""
 
     rank: int
     size: int
     device: torch.device
     backend: str
+    # the group's handle; None for the default group, the world
+    group: Optional[Any] = None
+    # a DCN group's mesh: the mesh of every rank (``world``)
+    parent: Optional["Mesh"] = None
     # the store's directory when this mesh made the group (make_mesh,
     # init_mesh): close() then ends the group and removes it
     _store_dir: Optional[str] = None
+
+    @property
+    def world(self) -> "Mesh":
+        """The mesh of every rank: this one, unless it is a DCN group's."""
+        return self if self.parent is None else self.parent
 
     def all_to_all(self, send: torch.Tensor) -> torch.Tensor:
         """``send``'s rows in ``size`` equal segments, segment ``p`` to rank
         ``p``; returns the segments received, segment ``p`` from rank
         ``p``."""
         out = torch.empty_like(send)
-        dist.all_to_all_single(out, send.contiguous())
+        dist.all_to_all_single(out, send.contiguous(), group=self.group)
         return out
 
     def all_reduce(self, t: torch.Tensor, op=dist.ReduceOp.SUM):
-        """In place over every rank."""
-        dist.all_reduce(t, op=op)
+        """In place over every rank of the group."""
+        dist.all_reduce(t, op=op, group=self.group)
         return t
 
     def all_gather(self, t: torch.Tensor) -> torch.Tensor:
@@ -88,9 +108,10 @@ class Mesh:
         out = torch.empty((self.size,) + tuple(t.shape), dtype=t.dtype,
                           device=t.device)
         if self.backend == "nccl":
-            dist.all_gather_into_tensor(out, t.contiguous())
+            dist.all_gather_into_tensor(out, t.contiguous(), group=self.group)
         else:
-            dist.all_gather(list(out.unbind(0)), t.contiguous())
+            dist.all_gather(list(out.unbind(0)), t.contiguous(),
+                            group=self.group)
         return out
 
     def reduce_scatter(self, t: torch.Tensor) -> torch.Tensor:
@@ -101,10 +122,10 @@ class Mesh:
         if self.backend == "nccl":
             out = torch.empty(tuple(t.shape[1:]), dtype=t.dtype,
                               device=t.device)
-            dist.reduce_scatter_tensor(out, t.contiguous())
+            dist.reduce_scatter_tensor(out, t.contiguous(), group=self.group)
             return out
         whole = t.contiguous().clone()
-        dist.all_reduce(whole)
+        dist.all_reduce(whole, group=self.group)
         return whole[self.rank]
 
     def close(self):
@@ -150,10 +171,23 @@ def make_mesh(device=None) -> Mesh:
     return mesh
 
 
-def make_mesh_2d(*args, **kwargs):
-    """JAX's hierarchical (DCN groups x chips) mesh: not ported."""
-    raise NotImplementedError("not ported to xgnn_tpu_torch yet: DCN groups "
-                              f"(num_dcn_groups > 1): {MULTI_GPU}")
+def make_mesh_2d(num_groups: int, mesh: Mesh) -> Mesh:
+    """This rank's DCN group of the world ``mesh`` (JAX's hierarchical
+    mesh, ``xgnn_tpu/parallel/mesh.py:37-55``): ``num_groups`` groups of
+    ``G = mesh.size // num_groups`` consecutive ranks, world rank ``r`` in
+    group ``r // G`` at part ``r % G``.  Its ``world`` is ``mesh``; one
+    group is ``mesh`` itself.  Every rank makes every group, in the same
+    order (``new_group`` waits for all of them)."""
+    if num_groups < 1 or mesh.size % num_groups:
+        raise ValueError(f"{mesh.size} ranks do not fall into {num_groups} "
+                         "DCN groups of equal size")
+    if num_groups == 1:
+        return mesh
+    g = mesh.size // num_groups
+    groups = [dist.new_group(list(range(i * g, (i + 1) * g)))
+              for i in range(num_groups)]
+    return Mesh(mesh.rank % g, g, mesh.device, mesh.backend,
+                group=groups[mesh.rank // g], parent=mesh)
 
 
 def _host(x):
