@@ -5327,6 +5327,7 @@ def main() -> int:
     # one (the single store's K12b, one reduce), and with the cold tier (the
     # wide khop0 through the tiered presample step)
     from xgnn_tpu_torch.ops.presample import (
+        closure_known,
         closure_parts,
         closure_parts_plain,
     )
@@ -5567,6 +5568,87 @@ def main() -> int:
         peng.close()
     del peng
 
+    def closure_rows(path, parts, lanes, label):
+        """K12b's partitioned form over ``len(parts)`` parts (each part's
+        local CSR on the card), a lane each of ``lanes`` (``(seeds, n)``
+        batches), its layers and the count: part 0's calls checked against
+        the plain version (out, levels, known set) and recorded."""
+        p = len(parts)
+        rows = parts[0][0].shape[0] - 1
+        recv = [torch.zeros((p, rows + 1), dtype=torch.uint8, device=dev)
+                for _ in range(p)]
+        for lane, (sd, n_) in enumerate(lanes):
+            ids = sd[:n_].long()
+            for r in range(p):
+                own = ids[ids % p == r]
+                recv[r][lane, own // p] = 1
+        recv = [t[:, :rows].contiguous() for t in recv]
+        level = [torch.zeros((p, rows), dtype=torch.uint8, device=dev)
+                 for _ in range(p)]
+        known = [closure_known(rows, p, dev) for _ in range(p)]
+        ip0, ix0 = parts[0]
+        deg0 = (ip0[1:] - ip0[:-1]).long()
+        layers = len(FANOUT)
+        for tag_l in range(1, layers + 2):
+            last = tag_l == layers + 1
+            lv0, rc0, kn0 = level[0].clone(), recv[0], known[0].clone()
+            cnt = (torch.zeros(rows, dtype=torch.int32, device=dev)
+                   if last else None)
+            outs = [closure_parts(ip_, ix_, level[r], recv[r], tag_l,
+                                  NUM_NODE, r, known[r],
+                                  counts=cnt if r == 0 else (
+                                      torch.zeros(rows, dtype=torch.int32,
+                                                  device=dev)
+                                      if last else None))
+                    for r, (ip_, ix_) in enumerate(parts)]
+            l_ref, k_ref = lv0.clone(), kn0.clone()
+            ref = closure_parts_plain(
+                ip0, ix0, l_ref, rc0, tag_l, NUM_NODE, 0, k_ref,
+                counts=None if cnt is None else torch.zeros_like(cnt))
+            torch.cuda.synchronize()
+            if not (torch.equal(outs[0], ref) and torch.equal(level[0], l_ref)
+                    and torch.equal(known[0], k_ref)):
+                raise AssertionError(f"closure_parts ({label}) layer "
+                                     f"{tag_l}: differs from the plain "
+                                     "version")
+            front = (l_ref == tag_l).any(0)
+            edges = int(deg0[front].sum())
+            nbytes = (rows * p * 3 + known[0].numel() * 8
+                      + (rows * 8 if last else int(front.sum()) * 8
+                         + edges * 4 + rows * p * p))
+
+            def again(lv0=lv0, rc0=rc0, kn0=kn0, tag_l=tag_l, last=last):
+                return closure_parts(
+                    ip0, ix0, lv0.clone(), rc0, tag_l, NUM_NODE, 0,
+                    kn0.clone(),
+                    counts=torch.zeros(rows, dtype=torch.int32, device=dev)
+                    if last else None)
+
+            def again_plain(lv0=lv0, rc0=rc0, kn0=kn0, tag_l=tag_l,
+                            last=last):
+                return closure_parts_plain(
+                    ip0, ix0, lv0.clone(), rc0, tag_l, NUM_NODE, 0,
+                    kn0.clone(),
+                    counts=torch.zeros(rows, dtype=torch.int32, device=dev)
+                    if last else None)
+
+            sent = 0 if last else int(ref.sum())
+            record("closure_parts", "xgnn_tpu_torch/csrc/presample.cu",
+                   "xgnn_tpu/parallel/collocated.py:741-884 "
+                   "(make_presample_static_exact_step's partitioned "
+                   "closure)",
+                   f"{label}, " + ("count" if last else f"layer {tag_l}")
+                   + f": {rows} rows, {int(front.sum())} reached rows' "
+                   f"{edges} edges, {sent} marks sent", 0.0, "exact",
+                   again, again_plain, None,
+                   "none: no PyTorch call closes a graph", nbytes=nbytes,
+                   flops=0, per_step=layers + 1, path=path + "_init",
+                   plain_reps=1)
+            if not last:
+                recv = [(sum(o[w].to(torch.int32) for o in outs) > 0).to(
+                    torch.uint8) for w in range(p)]
+        del level, recv, known, outs, ref, l_ref, k_ref, deg0
+
     # presample_static with a partial cache: the exact closure over the
     # partitioned and the replicated topologies, its counts held to the
     # single store's static_exact_ranking over the engine's presample
@@ -5612,85 +5694,35 @@ def main() -> int:
                         f"({int((got_counts != want_counts).sum())} nodes)")
                 row.update(ranking_s=rank_s, counts_bit_equal=True,
                            nodes_counted=int((got_counts > 0).sum()))
-                print(f"{tag} {path}: ranking {rank_s:.3f} s over "
+                print(f"{tag} {path}: ranking {rank_s:.4f} s over "
                       f"{steps} batches (phase 8's single-store "
-                      f"presample_static ranking {static_s:.3f} s); counts "
+                      f"presample_static ranking {static_s:.3f} s; the "
+                      "partitioned form before its known set: 0.089 s on "
+                      "an NVIDIA H100 80GB HBM3 at 700 W); counts "
                       "bit-equal to static_exact_ranking's over the same "
                       f"batches ({int(got_counts.sum())} in all)",
                       flush=True)
                 if path == "graphsage_multichip_ggms_static":
-                    # K12b's partitioned form at each layer of the first
-                    # batch, against its plain version
+                    # K12b's partitioned form at each layer of a closure,
+                    # against its plain version: at P = 1 on the engine's
+                    # part (the first batch), and over 4 lanes on part 0 of
+                    # a 4-way partition (four batches as lanes: one rank's
+                    # work at P = 4), every part run so that the reduce by
+                    # owner is summed here, the known set carried
                     it = seng._shuffler(ds.train_set,
                                         scfg.seed ^ 0x5EED).epoch_batches(0)
-                    s_seeds, s_n = seng._next(it)
+                    lanes4 = [seng._next(it) for _ in range(4)]
                     topo17 = seng.topo
-                    rows17 = topo17.indptr.shape[0] - 1
-                    level = torch.zeros((1, rows17), dtype=torch.uint8,
-                                        device=dev)
-                    recv = torch.zeros((1, rows17 + 1), dtype=torch.uint8,
-                                       device=dev)
-                    recv[0, s_seeds[:s_n].long()] = 1
-                    recv = recv[:, :rows17].contiguous()
-                    deg17 = (topo17.indptr[1:] - topo17.indptr[:-1]).long()
-                    for tag_l in range(1, len(FANOUT) + 2):
-                        lv0, rc0 = level.clone(), recv.clone()
-                        last = tag_l == len(FANOUT) + 1
-                        cnt = (torch.zeros(rows17, dtype=torch.int32,
-                                           device=dev) if last else None)
-                        out = closure_parts(topo17.indptr, topo17.indices,
-                                            level, recv, tag_l, NUM_NODE,
-                                            counts=cnt)
-                        l_ref = lv0.clone()
-                        ref = closure_parts_plain(
-                            topo17.indptr, topo17.indices, l_ref, rc0,
-                            tag_l, NUM_NODE, counts=None if cnt is None
-                            else torch.zeros_like(cnt))
-                        torch.cuda.synchronize()
-                        if not (torch.equal(out, ref)
-                                and torch.equal(level, l_ref)):
-                            raise AssertionError(
-                                f"closure_parts layer {tag_l}: differs from "
-                                "the plain version")
-                        front = (l_ref[0] == tag_l)
-                        edges = int(deg17[front].sum())
-                        nbytes = (rows17 * 3 + int(front.sum()) * 8
-                                  + edges * 4
-                                  + (rows17 * 4 * 2 if last else rows17))
-
-                        def again(lv0=lv0, rc0=rc0, tag_l=tag_l, last=last):
-                            return closure_parts(
-                                topo17.indptr, topo17.indices, lv0.clone(),
-                                rc0, tag_l, NUM_NODE,
-                                counts=torch.zeros(rows17, dtype=torch.int32,
-                                                   device=dev)
-                                if last else None)
-
-                        def again_plain(lv0=lv0, rc0=rc0, tag_l=tag_l,
-                                        last=last):
-                            return closure_parts_plain(
-                                topo17.indptr, topo17.indices, lv0.clone(),
-                                rc0, tag_l, NUM_NODE,
-                                counts=torch.zeros(rows17, dtype=torch.int32,
-                                                   device=dev)
-                                if last else None)
-
-                        record("closure_parts",
-                               "xgnn_tpu_torch/csrc/presample.cu",
-                               "xgnn_tpu/parallel/collocated.py:741-884 "
-                               "(make_presample_static_exact_step's "
-                               "partitioned closure)",
-                               ("count" if last else f"layer {tag_l}")
-                               + f": {rows17} rows, {int(front.sum())} "
-                               f"reached rows' {edges} edges", 0.0, "exact",
-                               again, again_plain, None,
-                               "none: no PyTorch call closes a graph",
-                               nbytes=nbytes, flops=0,
-                               per_step=len(FANOUT) + 1,
-                               path=path + "_init", plain_reps=1)
-                        if not last:
-                            recv = out[0].contiguous()
-                    del level, recv, out, ref, l_ref, deg17
+                    closure_rows(path, [(topo17.indptr, topo17.indices)],
+                                 lanes4[:1], "P = 1")
+                    ip64 = ds.graph.indptr.long()
+                    parts4 = [dist_topology.partition_part(
+                        ip64, ds.graph.indices, 4, r) for r in range(4)]
+                    del ip64
+                    closure_rows(path, [(t.indptr, t.indices)
+                                        for t in parts4], lanes4,
+                                 "4 lanes, part 0 of 4")
+                    del parts4, lanes4
             row.update(multi_epochs(path, seng))
             hists = [seng.history[e] for e in (0, 1)]
             rates = [float(h["hit"].sum() / (h["hit"].sum()

@@ -3073,7 +3073,7 @@ def test_tiered_extract_over_an_f16_host_table(dev, width, dtype, pct):
 
 
 @pytest.mark.parametrize("num_parts", [1, 2, 3, 4, 8, 32])
-@pytest.mark.parametrize("n", [1, 2047, 2048, 2049, 100_003])
+@pytest.mark.parametrize("n", [0, 1, 2047, 2048, 2049, 100_003])
 @pytest.mark.parametrize("tight", [False, True])
 def test_plan_exchange_kernel_equals_plain(dev, num_parts, n, tight):
     """K13-plan bit-equal to its plain version (send, pick and the
@@ -3090,7 +3090,7 @@ def test_plan_exchange_kernel_equals_plain(dev, num_parts, n, tight):
                         dtype=torch.int32)
     ids[::5] = EMPTY
     ids[n // 3:n // 3 + 700] = EMPTY
-    seg = max(n // (4 * num_parts), 1) if tight else n
+    seg = max(n // (4 * num_parts), 1) if tight else max(n, 1)
     _build.LAUNCHES.reset()
     got = plan_exchange(ids, num_parts, seg)
     assert _build.LAUNCHES.snapshot() == {"plan_exchange": 1}
@@ -3099,6 +3099,150 @@ def test_plan_exchange_kernel_equals_plain(dev, num_parts, n, tight):
         assert torch.equal(getattr(got, name).cpu(), getattr(want, name)), \
             name
     assert bool(got.overflow) == bool(want.overflow)
+
+
+def _plan_equal(got, ids, num_parts, seg, hot_limit=None):
+    from xgnn_tpu_torch.parallel.exchange import plan_exchange_plain
+
+    want = plan_exchange_plain(ids.cpu(), num_parts, seg,
+                               hot_limit=hot_limit)
+    for name in ("send", "pick", "overflow"):
+        assert torch.equal(getattr(got, name).cpu(), getattr(want, name)), \
+            name
+    return want
+
+
+@pytest.mark.parametrize("case", ["all EMPTY", "one owner",
+                                  "all past hot_limit", "2^24 ids"])
+@pytest.mark.parametrize("num_parts", [1, 3, 8, 32])
+def test_plan_exchange_edge_cases(dev, case, num_parts):
+    """K13-plan bit-equal to its plain version where every request is
+    EMPTY, where one owner takes them all (its segment overflows, the
+    others are all EMPTY), where every id is at or past ``hot_limit``, and
+    on 2^24 ids (8,192 tiles, more than the card holds blocks at once, so
+    the look-back waits on tiles whose blocks started earlier)."""
+    from xgnn_tpu_torch.parallel.exchange import plan_exchange
+
+    g = _gen(dev, num_parts)
+    n, hot_limit = 70_001, None
+    if case == "2^24 ids":
+        n = 2**24
+    ids = torch.randint(0, 50 * n, (n,), generator=g, device=dev,
+                        dtype=torch.int32)
+    if case == "all EMPTY":
+        ids.fill_(EMPTY)
+    elif case == "one owner":
+        ids = ids - ids % num_parts + num_parts - 1
+    elif case == "all past hot_limit":
+        hot_limit = int(ids.min())
+    else:
+        ids[::7] = EMPTY
+    seg = -(-n // num_parts) + 3
+    got = plan_exchange(ids, num_parts, seg, hot_limit)
+    want = _plan_equal(got, ids, num_parts, seg, hot_limit)
+    assert bool(want.overflow) == (case == "one owner" and num_parts > 1)
+
+
+def test_plan_exchange_is_one_kernel_and_a_memset(dev):
+    """A call is one kernel, named ``plan_*`` (``chip_smoke.py`` groups the
+    profiler's records by it), and one memset on the profiler's device
+    events (three calls profiled after a fill, whose record the session
+    may lose as its first; taken again where it lost one of ours), in a
+    buffer of the size the kernel takes; the overflow comes back as a
+    bool, and nothing else launches."""
+    from xgnn_tpu_torch.ops import _build
+    from xgnn_tpu_torch.parallel.exchange import plan_exchange, plan_layout
+
+    ids = torch.randint(0, 3_000_000, (1_007_360,), generator=_gen(dev, 4),
+                        device=dev, dtype=torch.int32)
+    ids[950_000:] = EMPTY
+    plan_exchange(ids, 8, 140_000)  # loaded
+    torch.cuda.synchronize()
+    lead = torch.empty(4, device=dev)
+
+    def run():
+        lead.fill_(1.0)  # the session's first record, which it may lose
+        return [plan_exchange(ids, 8, 140_000) for _ in range(3)]
+
+    for _ in range(3):  # a session that lost a record is taken again
+        events, plans = _device_kernels(run)
+        events = [e for e in events if "Fill" not in e]
+        kernels = [e for e in events if "plan_" in e]
+        memsets = [e for e in events if e.startswith("Memset")]
+        if len(kernels) == 3 and len(memsets) == 3:
+            break
+    assert len(kernels) == 3 and len(memsets) == 3, events
+    assert len(events) == 6, events
+    got = plans[-1]
+    assert got.overflow.dtype == torch.bool and got.overflow.dim() == 0
+    _plan_equal(got, ids, 8, 140_000)
+    lib = _build.load("exchange")
+    for n, p, seg in ((0, 1, 1), (1, 3, 5), (2048, 8, 300), (2049, 32, 1),
+                      (1_007_360, 8, 157_400)):
+        assert lib.xg_plan_buffer_words(n, p, seg) == plan_layout(n, p,
+                                                                  seg)[2]
+
+
+def _plan_replayed_under_capture(dev):
+    from xgnn_tpu_torch.parallel.exchange import plan_exchange
+
+    g = _gen(dev, 31)
+    n, p, seg = 300_000, 4, 70_000
+    ids = torch.randint(0, 10**6, (n,), generator=g, device=dev,
+                        dtype=torch.int32)
+    stream = torch.cuda.Stream(dev)
+    stream.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(stream):
+        plan_exchange(ids, p, seg, 900_000)  # loaded before the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        plan = plan_exchange(ids, p, seg, 900_000)
+    for i in range(4):
+        new = torch.randint(0, 10**6, (n,), generator=g, device=dev,
+                            dtype=torch.int32)
+        new[i * 1000:(i + 1) * 50_000] = EMPTY
+        if i == 3:  # one owner takes every request: the replay overflows
+            new = new - new % p
+        ids.copy_(new)
+        graph.replay()
+        torch.cuda.synchronize()
+        want = _plan_equal(plan, ids, p, seg, 900_000)
+        assert bool(want.overflow) == (i == 3)
+
+
+def test_plan_exchange_replayed_under_capture(dev):
+    """K13-plan captured once in a CUDA graph (its memset and kernel),
+    replayed on four sets of ids copied into its input: each replay equals
+    the plain version, the last one's overflow among them, so no state of
+    the call is baked into the graph."""
+    _in_own_process("_plan_replayed_under_capture")
+
+
+def test_plan_exchange_two_streams_at_once(dev):
+    """Two streams with no ordering between them plan at the same time
+    (the Prefetcher's side stream beside the training stream): each plan
+    equals the plain version."""
+    from xgnn_tpu_torch.parallel.exchange import plan_exchange
+
+    g = _gen(dev, 17)
+    streams = [torch.cuda.Stream(dev) for _ in range(2)]
+    cases = [[torch.randint(0, 10**7, (n,), generator=g, device=dev,
+                            dtype=torch.int32) for n in (1_007_360, 133_376,
+                                                         8000)]
+             for _ in streams]
+    torch.cuda.synchronize()
+    plans = [[], []]
+    for i in range(3):
+        for k, stream in enumerate(streams):
+            with torch.cuda.stream(stream):
+                ids = cases[k][i]
+                plans[k].append(plan_exchange(ids, 2 + 2 * k,
+                                              ids.shape[0] // 3))
+    torch.cuda.synchronize()
+    for k in range(2):
+        for ids, plan in zip(cases[k], plans[k]):
+            _plan_equal(plan, ids, 2 + 2 * k, ids.shape[0] // 3)
 
 
 @pytest.mark.parametrize("w,l,fanout", [(4, 3, 5), (4, 3, 12), (3, 5, 2),
@@ -3367,45 +3511,154 @@ def test_plan_exchange_hot_limit_kernel_equals_plain(dev, num_parts,
             name
 
 
-@pytest.mark.parametrize("num_parts", [1, 3, 8])
-def test_closure_parts_kernel_equals_plain(dev, cold_graph, num_parts):
-    """K12b's partitioned form, layer by layer over each part (the update,
-    the owner-major marks of the reached rows' destinations, the levels)
-    and its count, bit-equal to JAX's edge-parallel form in torch ops."""
+def _closure_parts_layers(dev, indptr, indices, num_node, p, seeds, layers):
+    """Every part of ``p`` in turn, ``layers`` layers then the count, the
+    kernel on the card and the plain version on the CPU side by side from
+    the same state: each call's out (or counts), levels and known set
+    bit-equal; the reduce by owner summed here.  ``seeds``: a list of ids a
+    lane (EMPTY and out-of-range ids dropped, as the step drops them).
+    Returns the parts' counts and the marks sent."""
     from xgnn_tpu_torch.ops.presample import (
+        closure_known,
         closure_parts,
         closure_parts_plain,
     )
     from xgnn_tpu_torch.parallel.dist_topology import partition_part
 
+    ip, ix = indptr.cpu().long(), indices.cpu()
+    parts = [partition_part(ip, ix, p, r) for r in range(p)]
+    rows = parts[0].indptr.shape[0] - 1
+    card = [(t.indptr.to(dev), t.indices.to(dev)) for t in parts]
+    recv = [torch.zeros((p, rows), dtype=torch.uint8) for _ in range(p)]
+    for lane, vs in enumerate(seeds):
+        for v in vs:
+            if 0 <= v < num_node:
+                recv[v % p][lane, v // p] = 1
+    level = [torch.zeros((p, rows), dtype=torch.uint8) for _ in range(p)]
+    known = [closure_known(rows, p, "cpu") for _ in range(p)]
+    level_d = [t.to(dev, copy=True) for t in level]
+    known_d = [t.to(dev, copy=True) for t in known]
+    sent = []
+    for tag in range(1, layers + 1):
+        outs = []
+        for r in range(p):
+            out = closure_parts(*card[r], level_d[r], recv[r].to(dev), tag,
+                                num_node, r, known_d[r])
+            ref = closure_parts_plain(parts[r].indptr, parts[r].indices,
+                                      level[r], recv[r], tag, num_node, r,
+                                      known[r])
+            torch.cuda.synchronize()
+            assert torch.equal(out.cpu(), ref), (tag, r)
+            assert torch.equal(level_d[r].cpu(), level[r]), (tag, r)
+            assert torch.equal(known_d[r].cpu(), known[r]), (tag, r)
+            outs.append(ref)
+        sent.append(sum(int(o.sum()) for o in outs))
+        recv = [(sum(o[w].int() for o in outs) > 0).to(torch.uint8)
+                for w in range(p)]
+    counts = []
+    for r in range(p):
+        c = torch.arange(rows, dtype=torch.int32) % 3
+        c_d = c.to(dev, copy=True)
+        closure_parts(*card[r], level_d[r], recv[r].to(dev), layers + 1,
+                      num_node, r, known_d[r], counts=c_d)
+        closure_parts_plain(parts[r].indptr, parts[r].indices, level[r],
+                            recv[r], layers + 1, num_node, r, known[r],
+                            counts=c)
+        torch.cuda.synchronize()
+        assert torch.equal(c_d.cpu(), c) and torch.equal(
+            level_d[r].cpu(), level[r])
+        counts.append(c - torch.arange(rows, dtype=torch.int32) % 3)
+    return counts, sent
+
+
+@pytest.mark.parametrize("num_parts", [1, 3, 8, 32])
+def test_closure_parts_kernel_equals_plain(dev, cold_graph, num_parts):
+    """K12b's partitioned form, layer by layer over each part of P (the
+    update, the owner-major marks of the reached rows' destinations that
+    the part does not know of, the levels, the known set carried over 4
+    layers) and its count, bit-equal to the plain version (JAX's
+    edge-parallel form with the same known set); the counts over the parts
+    are the single store's closure of each lane's seeds; the sizes the
+    wrapper allocates are the kernel's."""
+    from xgnn_tpu_torch.ops import _build
+    from xgnn_tpu_torch.ops.presample import closure_expand_plain
+
     ds = cold_graph[0]
-    ip, ix = torch.from_numpy(ds.indptr.astype(np.int64)), torch.from_numpy(
-        ds.indices)
-    g = torch.Generator().manual_seed(num_parts)
-    for part in range(num_parts):
-        topo = partition_part(ip, ix, num_parts, part)
-        rows = topo.indptr.shape[0] - 1
-        level = torch.zeros((num_parts, rows), dtype=torch.uint8)
-        recv = (torch.rand((num_parts, rows), generator=g) < 0.02).to(
-            torch.uint8)
-        level_d, iptr_d, ind_d = level.to(dev), topo.indptr.to(dev), \
-            topo.indices.to(dev)
+    p = num_parts
+    g = np.random.default_rng(p)
+    seeds = [list(g.integers(0, ds.num_node, 25)) for _ in range(p)]
+    indptr = torch.from_numpy(ds.indptr.astype(np.int32))
+    indices = torch.from_numpy(ds.indices)
+    counts, sent = _closure_parts_layers(dev, indptr, indices, ds.num_node,
+                                         p, seeds, 4)
+    want = torch.zeros(ds.num_node, dtype=torch.int32)
+    for lane in seeds:
+        closure_expand_plain(indptr, indices,
+                             torch.tensor(lane, dtype=torch.int32), 4, want)
+    got = torch.zeros(counts[0].shape[0] * p, dtype=torch.int32)
+    for r in range(p):
+        got[r::p] = counts[r]
+    assert torch.equal(got[:ds.num_node], want)
+    assert sent[0] > 0
+    lib = _build.load("presample")
+    for rows in (1, 31, 32, 33, 1000):
+        assert lib.xg_closure_parts_known_words(rows, p) == -(
+            -rows * p * (1 << (p - 1).bit_length()) // 32)
+
+
+@pytest.mark.parametrize("case", ["star", "chain", "fills at layer 1",
+                                  "odd targets", "claims beside the frontier"])
+@pytest.mark.parametrize("num_parts", [1, 3])
+def test_closure_parts_edge_cases(dev, case, num_parts):
+    """K12b's edge-case graphs (a hub of 12,345 edges in chunks, a chain, a
+    closure that fills at layer 1, EMPTY and out-of-range destinations,
+    tiles whose rows are reached beside the frontier) through the
+    partitioned form, every part, 4 layers and the count, bit-equal to the
+    plain version; the lanes past the first start from other seeds."""
+    indptr, indices, seeds = _closure_graph(dev, case)
+    n = indptr.shape[0] - 1
+    lanes = [seeds] + [[(v * 7 + lane) % n for v in seeds if 0 <= v < n]
+                       for lane in range(1, num_parts)]
+    counts, _ = _closure_parts_layers(dev, indptr, indices, n, num_parts,
+                                      lanes, 4)
+    assert sum(int(c.sum()) for c in counts) > 0
+
+
+def test_closure_parts_ranking_at_p1_is_the_single_store(dev):
+    """At P = 1 the partitioned form over a power-law graph (200,003 nodes,
+    2.5M edges), batch after batch as the exact step runs it (the reduce
+    at P = 1 is the out itself), counts what ``closure_expand_plain``
+    counts over the same batches; one launch counted a call."""
+    from xgnn_tpu_torch import make_device_dataset
+    from xgnn_tpu_torch.ops import _build
+    from xgnn_tpu_torch.ops.presample import (
+        closure_expand_plain,
+        closure_known,
+        closure_parts,
+    )
+
+    ds = make_device_dataset(200_003, 2_500_000, 4, 3, seed=5, device=dev,
+                             dedup=False)
+    indptr, indices = ds.graph.indptr, ds.graph.indices
+    n = ds.num_node
+    got = torch.zeros(n, dtype=torch.int32, device=dev)
+    want = torch.zeros(n, dtype=torch.int32, device=dev)
+    _build.LAUNCHES.reset()
+    for b in range(4):
+        seeds = torch.from_numpy(ds.train_set[b * 500:(b + 1) * 500]).to(dev)
+        recv = torch.zeros((1, n), dtype=torch.uint8, device=dev)
+        recv[0, seeds.long()] = 1
+        level = torch.zeros((1, n), dtype=torch.uint8, device=dev)
+        known = closure_known(n, 1, dev)
         for tag in (1, 2, 3):
-            out = closure_parts(iptr_d, ind_d, level_d, recv.to(dev), tag,
-                                ds.num_node)
-            ref = closure_parts_plain(topo.indptr, topo.indices, level, recv,
-                                      tag, ds.num_node)
-            assert torch.equal(out.cpu(), ref) and torch.equal(
-                level_d.cpu(), level)
-            recv = (torch.rand((num_parts, rows), generator=g) < 0.1).to(
-                torch.uint8)
-        counts = torch.zeros(rows, dtype=torch.int32)
-        counts_d = counts.to(dev)
-        closure_parts(iptr_d, ind_d, level_d, recv.to(dev), 4, ds.num_node,
-                      counts=counts_d)
-        closure_parts_plain(topo.indptr, topo.indices, level, recv, 4,
-                            ds.num_node, counts=counts)
-        assert torch.equal(counts_d.cpu(), counts)
+            recv = closure_parts(indptr, indices, level, recv, tag, n, 0,
+                                 known)[0].contiguous()
+        closure_parts(indptr, indices, level, recv, 4, n, 0, known,
+                      counts=got)
+        closure_expand_plain(indptr, indices, seeds, 3, want)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and int(got.sum()) > 100_000
+    assert _build.LAUNCHES.snapshot() == {"closure_parts": 16}
 
 
 @pytest.mark.parametrize("sample_type", ["khop3", "khop1", "weighted_khop",

@@ -569,6 +569,144 @@ def test_exact_presample_matches_jax(suite, graph):
         assert want.sum() > 0
 
 
+def _jax_closure_layer(mask, indptr, indices, rows, p):
+    """One layer of JAX's partitioned closure on a chip, as
+    ``make_presample_static_exact_step`` writes it: the lanes' masks
+    gathered along each local edge's row and scatter-maxed into the global
+    destinations, owner-major ``(P owners, P lanes, rows)``."""
+    iptr = jnp.asarray(indptr)
+    dst = jnp.asarray(indices)
+    marks = jnp.zeros(dst.shape[0], jnp.int32).at[iptr[1:rows]].add(
+        1, mode="drop")
+    rowid = jnp.cumsum(marks)
+    evalid = jnp.arange(dst.shape[0]) < iptr[rows]
+    hit = jnp.take(jnp.asarray(mask), rowid, axis=1) * evalid.astype(jnp.int8)
+    add = jnp.zeros((mask.shape[0], rows * p), jnp.int8).at[:, dst].max(hit)
+    return np.asarray(add.reshape(mask.shape[0], rows, p).transpose(2, 0, 1))
+
+
+@pytest.mark.parametrize("num_parts", [1, 2, 4])
+def test_closure_parts_plain_is_jax_layer(graph, num_parts):
+    """K12b's partitioned form's plain version, every rank in turn, against
+    JAX's edge-parallel layer on random seeds over 4 layers: each rank's
+    marks equal JAX's wherever the owner's level is 0 (elsewhere it sends
+    no more than JAX: a mark the rank knows of is not sent again), the
+    levels' marks equal JAX's masks after every layer, and the counts
+    JAX's."""
+    from xgnn_tpu_torch.ops.presample import (
+        closure_known,
+        closure_parts_plain,
+    )
+    from xgnn_tpu_torch.parallel import dist_topology
+
+    ds, p, layers = graph, num_parts, 4
+    rng = np.random.default_rng(p)
+    parts = [dist_topology.partition_part(_t(ds.indptr).long(),
+                                          _t(ds.indices), p, r)
+             for r in range(p)]
+    rows = parts[0].indptr.shape[0] - 1
+    seeds = rng.integers(0, ds.num_node, (p, 12))
+    recv = [np.zeros((p, rows), np.uint8) for _ in range(p)]
+    for lane in range(p):
+        for v in seeds[lane]:
+            recv[v % p][lane, v // p] = 1
+    mask = [r.astype(np.int8) for r in recv]  # JAX's, after the seeds
+    recv = [_t(r) for r in recv]
+    level = [torch.zeros((p, rows), dtype=torch.uint8) for _ in range(p)]
+    known = [closure_known(rows, p, "cpu") for _ in range(p)]
+    sent = 0
+    for tag in range(1, layers + 1):
+        outs = [closure_parts_plain(parts[r].indptr, parts[r].indices,
+                                    level[r], recv[r], tag, ds.num_node, r,
+                                    known[r]) for r in range(p)]
+        adds = [_jax_closure_layer(mask[r], parts[r].indptr.numpy(),
+                                   parts[r].indices.numpy(), rows, p)
+                for r in range(p)]
+        for r in range(p):
+            np.testing.assert_array_equal(level[r].numpy() != 0,
+                                          mask[r] != 0)
+            got = outs[r].numpy()
+            assert (got <= adds[r]).all()
+            for o in range(p):
+                open_ = level[o].numpy() == 0
+                np.testing.assert_array_equal(got[o][open_],
+                                              adds[r][o][open_])
+            sent += int(got.sum())
+        recv = [_t((sum(out[o].numpy().astype(np.int32) for out in outs)
+                    > 0).astype(np.uint8)) for o in range(p)]
+        jrecv = [sum(a[o].astype(np.int32) for a in adds) for o in range(p)]
+        mask = [np.maximum(mask[o], (jrecv[o] > 0).astype(np.int8))
+                for o in range(p)]
+    for r in range(p):
+        counts = torch.zeros(rows, dtype=torch.int32)
+        closure_parts_plain(parts[r].indptr, parts[r].indices, level[r],
+                            recv[r], layers + 1, ds.num_node, r, known[r],
+                            counts=counts)
+        np.testing.assert_array_equal(counts.numpy(), mask[r].sum(0))
+    assert sent > 0
+
+
+# (P, edges by global node, the seeds a lane, what each layer's recv adds
+# to part 0's, and the marks part 0 must send at each layer as (owner,
+# lane, row))
+_KNOWN_CASES = {
+    # node 5's mark, sent by row 0 at layer 1, is not sent again by row 1
+    "sent at an earlier layer": (2, {0: [5], 2: [5]}, [[0], []],
+                                 [[], [(0, 1)]], [[(1, 0, 2)], []]),
+    # node 4 is part 0's own and marked: row 0 does not send it
+    "owned and already marked": (2, {0: [4, 3], 4: []}, [[0, 4], []],
+                                 [[], []], [[(1, 0, 1)], []]),
+    # nodes 3 and 7, each reached twice in one layer, marked once; lane 1
+    # reaches 3 too
+    "marked twice in one layer": (2, {0: [3, 7], 2: [3, 7, 3], 6: [3]},
+                                  [[0, 2], [6]], [[], []],
+                                  [[(1, 0, 1), (1, 0, 3), (1, 1, 1)], []]),
+}
+
+
+@pytest.mark.parametrize("case", list(_KNOWN_CASES))
+def test_closure_parts_known_set(case):
+    """The known set's edge cases at part 0 of 2: the marks sent at each
+    layer, and the known set holding every mark sent or owned."""
+    from xgnn_tpu_torch.ops.presample import (
+        closure_known,
+        closure_parts_plain,
+    )
+
+    p, edges, seeds, arrivals, want = _KNOWN_CASES[case]
+    num_node = 8
+    rows = num_node // p
+    adj = [edges.get(r * p, []) for r in range(rows)]
+    indptr = _t(np.concatenate([[0], np.cumsum([len(a) for a in adj])])
+                .astype(np.int32))
+    indices = _t(np.array(sum(adj, []), np.int32))
+    recv = torch.zeros((p, rows), dtype=torch.uint8)
+    for lane, vs in enumerate(seeds):
+        for v in vs:
+            if v % p == 0:
+                recv[lane, v // p] = 1
+    level = torch.zeros((p, rows), dtype=torch.uint8)
+    known = closure_known(rows, p, "cpu")
+    for tag, (arrive, marks) in enumerate(zip(arrivals, want), 1):
+        for lane, r in arrive:
+            recv[lane, r] = 1
+        out = closure_parts_plain(indptr, indices, level, recv, tag,
+                                  num_node, 0, known)
+        got = sorted(tuple(int(x) for x in t) for t in out.nonzero())
+        assert got == sorted(marks), (tag, got)
+        recv = torch.zeros_like(recv)
+    q = 2  # two lanes a node
+    bits = [(int(known[b // 32]) >> (b % 32)) & 1
+            for b in range(num_node * q)]
+    held = {(v, lane) for v in range(num_node) for lane in range(p)
+            if bits[v * q + lane]}
+    for o, lane, r in sum(want, []):
+        assert (r * p + o, lane) in held
+    for lane in range(p):
+        for r in range(rows):
+            assert bool(level[lane, r]) == ((r * p, lane) in held)
+
+
 def test_tier_is_only_a_placement(suite_p2):
     """At P = 2 the minibatch with a cold tier picks, on the same
     request-order uniforms, what the untiered partitioned call picks,

@@ -77,33 +77,73 @@
 // rank's local row r is global node r * P + part and holds that node's
 // edges with their global destinations.  The rank keeps each lane's level
 // over its own rows ((P lanes, rows) bytes: 0 unmarked, t first marked by
-// layer t - 1's reduce, 1 the seeds).  A layer is one launch and one reduce
-// by owner:
+// layer t - 1's reduce, 1 the seeds) and a known set: a bit for each
+// (node, lane) this rank knows is marked, node-major (node v's lanes at
+// bits v * Q .. v * Q + P - 1, Q the least power of two >= P, so a probe
+// reads every lane of a node in one word; 306 KB at P = 1 at products
+// scale).  The caller zeroes both once a batch; calls with tags 1, 2, ...
+// in order carry them.  A layer is one call and one reduce by owner:
 //   update: every (lane, row) unmarked whose reduced mark recv is set is
-//   marked tag (recv: the seeds' marks before the first layer);
-//   expand: every (lane, row) at level tag, reached by the last reduce (so
-//   each row is expanded once a lane, as in the BFS above), marks each of
-//   its edges' destinations v in out, owner-major (P owners, P lanes, rows)
-//   at [v % P, lane, v / P]: the reduce-scatter's input, which returns each
-//   owner its rows' marks from every rank.
-// After the last layer, the count launch updates once more and adds to
-// counts[r] the lanes that reached row r.  A warp takes one lane's 32 rows:
-// a ballot of its frontier rows, then the warp walks each row's edges 32 at
-// a time, in order (coalesced index reads, one byte store an edge; equal
-// stores from two edges are the same).  The plain version is JAX's
-// edge-parallel form (a row id an edge by the cumsum trick, a gather of the
-// mask, a scatter into the destinations).
+//   marked tag (recv: the seeds' marks before the first layer), and its
+//   node's lane bit set in the known set;
+//   expand: every destination v of a (lane, row) at level tag (reached by
+//   the last reduce, so each row expands once a lane) that the known set
+//   does not hold for that lane is added to it and marked in out,
+//   owner-major (P owners, P lanes, rows) at [v % P, lane, v / P]: the
+//   reduce-scatter's input, which returns each owner its rows' marks.  A
+//   mark the rank knows of (its own rows' marks after the update, and what
+//   it sent at an earlier layer or earlier in this one) changes nothing at
+//   the owner, so it is not sent again; a destination that two edges of a
+//   layer reach is marked once.  The owners' levels, and the counts, are
+//   those of JAX's edge-parallel closure, which sends every edge.
+// After the last layer, the count call updates once more and adds to
+// counts[r] the lanes that reached row r.  The plain version is the
+// edge-parallel form with the same known set.
 //
 // Replaces: xgnn_tpu/parallel/collocated.py, make_presample_static_exact_step
 // (lines 741-884), its partitioned closure (the per-layer take, scatter-max
 // and psum_scatter); its replicated form is the single-store kernel above
 // for one lane, then one reduce by owner.
 //
-// What bounds it: bytes, and a random byte store an edge.  Each rank reads
-// the local rows that its lanes reach, once a lane (their indptr pairs and
-// indices), the level bytes, and writes out (P * P * rows bytes, zeroed
-// first) at random.
-
+// What bounds it: bytes, and one known-set probe an edge.  The least a
+// layer reads is the reached rows' indptr pairs and indices once (not once
+// a lane), the level and recv bytes, the known set and out's bytes once;
+// each reached edge asks, for its row's lanes at once, which the rank
+// knows of (one word: a random probe, in L1 or L2).  At P = 1 a products
+// batch's three layers expand 8,000 / 360,240 / 2,079,022 rows (404,075 /
+// 24,558,626 / 98,991,135 edges): about 0.16 ms of bytes, and 124M probes.
+// Design: two launches a layer (update, expand) and one memset of out.
+//   update (a warp a tile of 32 rows): the new marks of each row's lanes;
+//   their known bits (at P = 1 a ballot and one store a word); the hub
+//   plan (a frontier row of more than kHub edges is cut into chunks of
+//   kHub, a work unit each, with the row's lane mask); and a summary of the
+//   known set, a bit for each group of 2^s words with any (node, lane) of
+//   [0, num_node) unknown (s the least that keeps it within kSummaryBits).
+//   The summary is read while the update sets bits: a group it calls known
+//   is known either way, so it never hides a mark the rank must send.
+//   expand (the summary in shared memory; a warp a tile or a hub chunk,
+//   as many blocks as the card holds at once; a tile with no frontier row,
+//   a bit the update wrote, is passed over without reading its levels):
+//   a tile's rows with a lane at level tag give each row its lane mask (at
+//   most 32 lanes: a bit each); their edges are flattened into one run of
+//   coalesced, evict-first index reads, as the single store's tiles are,
+//   each edge probed once for its row's lanes.  A closed tile (every row
+//   expanded by an earlier layer or now, for every lane of the tile's
+//   mask; no hub) whose frontier holds at least half its edges streams its
+//   whole index run in 16-byte reads: the other rows' targets are all in
+//   the known set already.  A probe: the summary bit (shared memory), then
+//   the known word (through L1: a stale word only misses a mark of this
+//   launch, and the repeated mark is the same); for the lanes it lacks, one
+//   atomicOr that returns nothing and a byte of out each.  At P = 1, layer
+//   3 finds almost every target known (2,447,294 of 2,449,029 nodes are
+//   marked within 2 hops), so its probes stay in shared memory and its
+//   tiles stream, as the single store's last layer does.
+// Measured on that card (tools/time_presample.py, a products batch at
+// P = 1, each call's launches by the profiler): 0.045 / 0.326 / 0.283 ms
+// by layer and 0.009 the count, 0.66 a batch (the single store's K12b:
+// 0.52); layer 1 is latency (its fixed passes over every row), the others
+// the expand.
+//
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -417,89 +457,407 @@ closure_count_kernel(int32_t* __restrict__ counts,
   }
 }
 
-// K12b's partitioned form: update, then expand (kExpand) or count.
-template <bool kExpand>
+// K12b's partitioned form.  The known set's geometry and the expand's
+// scratch: out (P * P * rows bytes), the hub count, the summary and a bit
+// a tile of 32 rows with a frontier row (zeroed by one memset), then the
+// hub chunks.
+constexpr int kEThreads = 512;  // the expand's blocks: the summary a block
+constexpr int kEWarps = kEThreads / 32;
+
+struct PartsLayout {
+  int log2_q, shift;
+  int64_t known_words, summary_words, out_bytes, count_off, summary_off,
+      tiles_off, zero_bytes, hubs_off, hub_cap, total;
+};
+
+PartsLayout parts_layout(int64_t rows, int parts, int64_t num_edge) {
+  PartsLayout c;
+  c.log2_q = 0;
+  while ((1 << c.log2_q) < parts) ++c.log2_q;
+  c.known_words = ((rows * parts << c.log2_q) + 31) / 32;
+  c.shift = 0;
+  while (((c.known_words + (1LL << c.shift) - 1) >> c.shift) > kSummaryBits)
+    ++c.shift;
+  c.summary_words =
+      (((c.known_words + (1LL << c.shift) - 1) >> c.shift) + 31) / 32;
+  c.out_bytes = pad16((int64_t)parts * parts * rows);
+  c.count_off = c.out_bytes;
+  c.summary_off = c.count_off + 16;
+  c.tiles_off = c.summary_off + pad16(c.summary_words * 4);
+  c.zero_bytes = c.tiles_off + pad16((rows + 1023) / 1024 * 4);
+  c.hubs_off = c.zero_bytes;
+  c.hub_cap = 2 * num_edge / kHub + 1;
+  c.total = c.hubs_off + c.hub_cap * 16;
+  return c;
+}
+
+// The update (and, kCount, the count; else the hub plan and the summary).
+template <bool kCount>
 __global__ void __launch_bounds__(kThreads)
-closure_parts_kernel(const int32_t* __restrict__ indptr,
-                     const int32_t* __restrict__ indices, int64_t rows,
-                     int64_t num_node, int parts, uint8_t* __restrict__ level,
-                     const uint8_t* __restrict__ recv, uint8_t tag,
-                     uint8_t* __restrict__ out, int32_t* __restrict__ counts) {
+closure_parts_update_kernel(const int32_t* __restrict__ indptr, int64_t rows,
+                            int64_t num_node, int parts, int part,
+                            int log2_q, uint8_t* __restrict__ level,
+                            const uint8_t* __restrict__ recv, uint8_t tag,
+                            uint32_t* known, int64_t known_words,
+                            int32_t* __restrict__ counts, uint32_t* summary,
+                            int shift, uint32_t* __restrict__ front_tiles,
+                            int4* __restrict__ hubs,
+                            int32_t* __restrict__ hub_count) {
   const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int64_t tiles = (rows + 31) / 32;
-  const int64_t units = tiles * parts;  // (lane, tile) pairs
-  const int64_t num_warps = (int64_t)gridDim.x * kWarps;
-  for (int64_t unit = (int64_t)blockIdx.x * kWarps + warp; unit < units;
-       unit += num_warps) {
-    const int64_t l = unit / tiles;
-    const int64_t tile = unit - l * tiles;
-    const int64_t row = tile * 32 + lane;
+  const int64_t stride = (int64_t)gridDim.x * kThreads;
+  const int64_t span = (rows + 31) / 32 * 32;
+  for (int64_t base = (int64_t)blockIdx.x * kThreads + (threadIdx.x & ~31);
+       base < span; base += stride) {
+    const int64_t row = base + lane;
     const bool real = row < rows;
-    uint8_t lv = 0;
-    if (real) {
+    unsigned fresh = 0, front = 0;
+    int reached = 0;
+    for (int l = 0; l < parts; ++l) {
       const int64_t at = l * rows + row;
-      lv = level[at];
-      if (lv == 0 && recv[at] != 0) {
+      uint8_t lv = real ? level[at] : 0;
+      if (real && lv == 0 && recv[at] != 0) {
         lv = tag;
         level[at] = tag;
+        fresh |= 1u << l;
       }
+      front |= (unsigned)(real && lv == tag) << l;
+      reached += lv != 0;
     }
-    if (!kExpand) {
-      if (real && lv != 0) atomicAdd(counts + row, 1);
+    if (parts == 1) {  // node = row: the warp's rows are one word
+      const unsigned bits = __ballot_sync(kFull, fresh != 0);
+      if (lane == 0 && bits) known[base >> 5] |= bits;
+    } else if (fresh) {
+      const int64_t b = (row * parts + part) << log2_q;
+      atomicOr(known + (b >> 5), fresh << (b & 31));
+    }
+    if (kCount) {
+      if (reached) counts[row] += reached;
       continue;
     }
-    unsigned todo = __ballot_sync(kFull, real && lv == tag);
-    while (todo != 0) {
-      const int64_t r = tile * 32 + (__ffs(todo) - 1);
-      todo &= todo - 1;
-      const int32_t lo = __ldg(indptr + r), hi = __ldg(indptr + r + 1);
-      for (int32_t e = lo + lane; e < hi; e += 32) {
-        const int32_t v = index_at(indices + e);
-        if (v >= 0 && (int64_t)v < num_node) {
-          const int32_t o = v % parts;
-          out[((int64_t)o * parts + l) * rows + v / parts] = 1;
-        }
+    const bool any_front = __ballot_sync(kFull, front != 0) != 0;
+    if (lane == 0 && any_front) {
+      const int64_t tile = base >> 5;
+      atomicOr(front_tiles + (tile >> 5), 1u << (tile & 31));
+    }
+    if (front) {
+      const int32_t lo = __ldg(indptr + row), hi = __ldg(indptr + row + 1);
+      if (hi - lo > kHub) {
+        const int n = (hi - lo + kHub - 1) / kHub;
+        const int32_t at = atomicAdd(hub_count, n);
+        for (int k = 0; k < n; ++k)
+          hubs[at + k] = make_int4((int32_t)row, lo + k * kHub,
+                                   min(hi, lo + (k + 1) * kHub), (int)front);
+      }
+    }
+  }
+  if (kCount) return;
+  // the summary: a warp reads 32 consecutive known words; a node's slot
+  // holds Q bits, of which the first P are its lanes
+  const int q = 1 << log2_q;
+  const uint32_t lane_bits = parts == 32 ? kFull : (1u << parts) - 1u;
+  uint32_t lanes_rep = 0;
+  for (int b = 0; b < 32; b += q) lanes_rep |= lane_bits << b;
+  const int64_t wspan = (known_words + 31) / 32 * 32;
+  const int64_t last = ((num_node << log2_q) - 1) >> 5;  // the last word used
+  for (int64_t w0 = (int64_t)blockIdx.x * kThreads + (threadIdx.x & ~31);
+       w0 < wspan; w0 += stride) {
+    const int64_t w = w0 + lane;
+    bool unknown = false;
+    if (w <= last) {
+      uint32_t valid = lanes_rep;
+      if (w == last) {  // the slots of nodes past num_node do not count
+        const int used = (int)((num_node << log2_q) - (last << 5));
+        if (used < 32) valid &= (1u << used) - 1u;
+      }
+      unknown = (~known[w] & valid) != 0;
+    }
+    const unsigned bits = __ballot_sync(kFull, unknown);
+    if (shift >= 5) {  // the warp's words lie in one group
+      if (lane == 0 && bits) {
+        const int64_t g = w0 >> shift;
+        atomicOr(summary + (g >> 5), 1u << (g & 31));
+      }
+    } else {  // 32 >> shift groups of 2^shift words
+      const int per = 1 << shift;
+      const unsigned gmask = per == 32 ? kFull : (1u << per) - 1u;
+      const bool any =
+          lane < (32 >> shift) && ((bits >> (lane << shift)) & gmask) != 0;
+      const unsigned groups = __ballot_sync(kFull, any);
+      if (lane == 0 && groups) {
+        const int64_t g0 = w0 >> shift;
+        atomicOr(summary + (g0 >> 5), groups << (g0 & 31));
       }
     }
   }
 }
 
+// One probe: the lanes of v that the rank does not know of are added to
+// the known set and marked in out.
+__device__ __forceinline__ void visit_parts(
+    int32_t v, unsigned lanes, int64_t num_node, int parts, int log2_q,
+    const uint32_t* summary, int shift, uint32_t* known, int64_t rows,
+    uint8_t* out) {
+  if (v < 0 || (int64_t)v >= num_node) return;
+  const int64_t b = (int64_t)v << log2_q;
+  const int64_t w = b >> 5;
+  const int64_t g = w >> shift;
+  if (!((summary[g >> 5] >> (g & 31)) & 1u)) return;
+  const unsigned sh = (unsigned)b & 31u;
+  const unsigned send = lanes & ~(known[w] >> sh);
+  if (send == 0) return;
+  atomicOr(known + w, send << sh);
+  if (parts == 1) {
+    out[v] = 1;
+    return;
+  }
+  const int64_t r = (uint32_t)v / (uint32_t)parts;
+  const int64_t o = v - r * parts;
+  for (unsigned m = send; m != 0; m &= m - 1)
+    out[(o * parts + (__ffs(m) - 1)) * rows + r] = 1;
+}
+
+__global__ void __launch_bounds__(kEThreads)
+closure_parts_expand_kernel(const int32_t* __restrict__ indptr,
+                            const int32_t* __restrict__ indices,
+                            int64_t rows, int64_t num_node, int parts,
+                            int log2_q, const uint8_t* __restrict__ level,
+                            uint8_t tag, uint32_t* known,
+                            const uint32_t* __restrict__ summary_g,
+                            int64_t summary_words, int shift,
+                            const uint32_t* __restrict__ front_tiles,
+                            const int4* __restrict__ hubs,
+                            const int32_t* __restrict__ hub_count,
+                            bool aligned, uint8_t* __restrict__ out) {
+  extern __shared__ uint32_t summary[];
+  __shared__ int32_t delta[kEWarps][32];
+  __shared__ unsigned lanes_of[kEWarps][32];
+  for (int64_t i = threadIdx.x; i < summary_words; i += kEThreads)
+    summary[i] = summary_g[i];
+  __syncthreads();
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int64_t tiles = (rows + 31) / 32;
+  const int64_t units = tiles + *hub_count;
+  const int64_t num_warps = (int64_t)gridDim.x * kEWarps;
+  for (int64_t u = (int64_t)blockIdx.x * kEWarps + warp; u < units;
+       u += num_warps) {
+    if (u >= tiles) {  // a hub chunk: [first, end) of one long row
+      const int4 h = hubs[u - tiles];
+      for (int32_t base = h.y; base < h.z; base += 32 * kUnroll) {
+        int32_t v[kUnroll];
+#pragma unroll
+        for (int k = 0; k < kUnroll; ++k) {
+          const int32_t p = base + 32 * k + lane;
+          v[k] = p < h.z ? index_at(indices + p) : -1;
+        }
+#pragma unroll
+        for (int k = 0; k < kUnroll; ++k)
+          visit_parts(v[k], (unsigned)h.w, num_node, parts, log2_q, summary,
+                      shift, known, rows, out);
+      }
+      continue;
+    }
+    if (!((__ldg(front_tiles + (u >> 5)) >> (u & 31)) & 1u)) continue;
+    const int64_t row = u * 32 + lane;
+    const bool real = row < rows;
+    unsigned front = 0, done = 0;  // lanes at tag; lanes at 1 .. tag
+    if (real) {
+      for (int l = 0; l < parts; ++l) {
+        const uint8_t lv = level[l * rows + row];
+        front |= (unsigned)(lv == tag) << l;
+        done |= (unsigned)(lv != 0 && lv <= tag) << l;
+      }
+    }
+    if (__ballot_sync(kFull, front != 0) == 0) continue;
+    int32_t lo = 0, hi = 0;
+    if (real) {
+      lo = __ldg(indptr + row);
+      hi = __ldg(indptr + row + 1);
+    }
+    int32_t deg = front ? hi - lo : 0;
+    if (deg > kHub || deg < 0) deg = 0;  // a hub's chunks take it
+    // A closed tile: every row expanded, now or by an earlier layer, for
+    // every lane of the tile's mask, so the targets of the rows not in the
+    // frontier are all in the known set; with no hub, and a frontier that
+    // holds at least half its edges, it streams its whole index run.
+    const unsigned all = __reduce_or_sync(kFull, front);
+    if (aligned && __all_sync(kFull, !real || ((done & all) == all &&
+                                              hi - lo <= kHub))) {
+      const int32_t first = __shfl_sync(kFull, lo, 0);
+      const int32_t end = __reduce_max_sync(kFull, real ? hi : 0);
+      if (2 * (int32_t)__reduce_add_sync(kFull, (unsigned)deg) >=
+          end - first) {
+        for (int32_t base = first & ~3; base < end;
+             base += 128 * kVecUnroll) {
+          int4 x[kVecUnroll];
+#pragma unroll
+          for (int k = 0; k < kVecUnroll; ++k) {
+            const int32_t p = base + 128 * k + 4 * lane;
+            if (p + 4 <= end) {
+              x[k] = __ldcs(reinterpret_cast<const int4*>(indices + p));
+            } else {  // the run's last words: none past its end
+              x[k] = make_int4(p < end ? __ldcs(indices + p) : -1,
+                               p + 1 < end ? __ldcs(indices + p + 1) : -1,
+                               p + 2 < end ? __ldcs(indices + p + 2) : -1,
+                               -1);
+            }
+          }
+#pragma unroll
+          for (int k = 0; k < kVecUnroll; ++k) {
+            const int32_t p = base + 128 * k + 4 * lane;
+            const int32_t w[4] = {x[k].x, x[k].y, x[k].z, x[k].w};
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+              if (p + j >= first && p + j < end)
+                visit_parts(w[j], all, num_node, parts, log2_q, summary,
+                            shift, known, rows, out);
+          }
+        }
+        continue;
+      }
+    }
+    int32_t incl = deg;  // the tile's edges as one run: a scan of degrees
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int32_t t = __shfl_up_sync(kFull, incl, o);
+      if (lane >= o) incl += t;
+    }
+    const int32_t total = __shfl_sync(kFull, incl, 31);
+    const bool has = deg > 0;
+    const unsigned nz = __ballot_sync(kFull, has);
+    // the k-th row with edges: its index position less its run position,
+    // and its lanes
+    if (has) {
+      const int k = __popc(nz & ((1u << lane) - 1));
+      delta[warp][k] = lo - (incl - deg);
+      lanes_of[warp][k] = front;
+    }
+    __syncwarp();
+    for (int32_t base = 0; base < total; base += 32 * kUnroll) {
+      int32_t v[kUnroll];
+      unsigned ln[kUnroll];
+#pragma unroll
+      for (int k = 0; k < kUnroll; ++k) {
+        const int32_t b = base + 32 * k;
+        // run position b + lane's row: the rows ending at or before b,
+        // plus those ending in (b, b + lane]
+        const int below = __popc(__ballot_sync(kFull, has && incl <= b));
+        const int32_t d = incl - b - 1;
+        const unsigned ends = __reduce_or_sync(
+            kFull, has && d >= 0 && d < 31 ? 1u << d : 0u);
+        const int32_t e = b + lane;
+        const int at = below + __popc(ends & ((1u << lane) - 1));
+        v[k] = e < total ? index_at(indices + e + delta[warp][at]) : -1;
+        ln[k] = e < total ? lanes_of[warp][at] : 0u;
+      }
+#pragma unroll
+      for (int k = 0; k < kUnroll; ++k)
+        visit_parts(v[k], ln[k], num_node, parts, log2_q, summary, shift,
+                    known, rows, out);
+    }
+    __syncwarp();
+  }
+}
+
+// The expand's blocks that the card holds at once with smem bytes of
+// summary each (the occupancy asked once a device and size).
+int64_t expand_blocks(int device, size_t smem) {
+  static int cached_device = -1;
+  static size_t cached_smem = 0;
+  static int64_t cached = 0;
+  if (device != cached_device || smem != cached_smem) {
+    int sms = 132, per_sm = 1;
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, closure_parts_expand_kernel, kEThreads, smem);
+    cached = (int64_t)sms * (per_sm > 0 ? per_sm : 1);
+    cached_device = device;
+    cached_smem = smem;
+  }
+  return cached;
+}
+
 }  // namespace
 
+// The words of closure_parts' known set for rows local rows of parts
+// parts, and the scratch bytes of an expand call over num_edge local edges
+// (out, the hub count, the summary, the hub chunks).
+extern "C" long long xg_closure_parts_known_words(long long rows,
+                                                  int parts) {
+  return parts_layout(rows, parts, 0).known_words;
+}
+
+extern "C" long long xg_closure_parts_scratch_bytes(long long rows,
+                                                    int parts,
+                                                    long long num_edge) {
+  return parts_layout(rows, parts, num_edge).total;
+}
+
 // K12b's partitioned form.  indptr: (rows + 1,) int32 local offsets;
-// indices: their int32 global destinations, in [0, num_node); level, recv:
-// (parts, rows) uint8; tag: this layer's mark (1 to 127).  out non-null
-// (expand): (parts, parts, rows) uint8, zeroed here, then every
-// destination of the rows at level tag marked; counts non-null (count,
-// out null): (rows,) int32, added to.  rows * parts >= num_node.  Returns
-// cudaGetLastError() after the launch.
+// indices: (num_edge,) their int32 global destinations; level, recv:
+// (parts, rows) uint8; tag: this layer's mark (1 to 127); part: this
+// rank's part; known: xg_closure_parts_known_words(rows, parts) uint32,
+// updated in place.  scratch non-null (expand): 16-byte aligned,
+// xg_closure_parts_scratch_bytes(rows, parts, num_edge) bytes, its first
+// parts * parts * rows bytes out ((parts, parts, rows) uint8, zeroed here,
+// then marked); counts non-null (count, scratch null): (rows,) int32,
+// added to.  rows * parts >= num_node.  Returns cudaGetLastError() after
+// the last launch.
 extern "C" int xg_closure_parts(const void* indptr, const void* indices,
                                 long long rows, long long num_node,
-                                int parts, void* level, const void* recv,
-                                int tag, void* out, void* counts, int device,
-                                void* stream) {
-  if (rows < 0 || num_node < 0 || parts < 1 || parts > 32 ||
-      rows * parts < num_node || num_node > INT32_MAX || tag < 1 ||
-      tag > 127 || (out == nullptr) == (counts == nullptr))
+                                long long num_edge, int parts, int part,
+                                void* level, const void* recv, int tag,
+                                void* known, void* scratch,
+                                long long scratch_bytes, void* counts,
+                                int device, void* stream) {
+  if (rows < 0 || num_node < 0 || num_edge < 0 || parts < 1 || parts > 32 ||
+      part < 0 || part >= parts || rows * parts < num_node ||
+      num_node > INT32_MAX || tag < 1 || tag > 127 ||
+      (scratch == nullptr) == (counts == nullptr) ||
+      reinterpret_cast<uintptr_t>(scratch) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  const PartsLayout c = parts_layout(rows, parts, num_edge);
+  if (scratch != nullptr && scratch_bytes < c.total)
     return (int)cudaErrorInvalidValue;
   if (rows == 0) return (int)cudaGetLastError();
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  const unsigned grid = grid_for((rows + 31) / 32 * 32 * parts, device);
   const int32_t* ip = static_cast<const int32_t*>(indptr);
-  const int32_t* ix = static_cast<const int32_t*>(indices);
   uint8_t* lv = static_cast<uint8_t*>(level);
   const uint8_t* rc = static_cast<const uint8_t*>(recv);
-  if (out != nullptr) {
-    cudaMemsetAsync(out, 0, (size_t)parts * parts * rows, s);
-    closure_parts_kernel<true><<<grid, kThreads, 0, s>>>(
-        ip, ix, rows, num_node, parts, lv, rc, (uint8_t)tag,
-        static_cast<uint8_t*>(out), nullptr);
-  } else {
-    closure_parts_kernel<false><<<grid, kThreads, 0, s>>>(
-        ip, ix, rows, num_node, parts, lv, rc, (uint8_t)tag, nullptr,
-        static_cast<int32_t*>(counts));
+  uint32_t* kn = static_cast<uint32_t*>(known);
+  const int64_t span = (rows + 31) / 32 * 32;
+  if (counts != nullptr) {
+    closure_parts_update_kernel<true><<<grid_for(span, device), kThreads, 0,
+                                        s>>>(
+        ip, rows, num_node, parts, part, c.log2_q, lv, rc, (uint8_t)tag, kn,
+        c.known_words, static_cast<int32_t*>(counts), nullptr, 0, nullptr,
+        nullptr, nullptr);
+    return (int)cudaGetLastError();
   }
+  uint8_t* base = static_cast<uint8_t*>(scratch);
+  int32_t* hub_count = reinterpret_cast<int32_t*>(base + c.count_off);
+  uint32_t* summary = reinterpret_cast<uint32_t*>(base + c.summary_off);
+  uint32_t* front_tiles = reinterpret_cast<uint32_t*>(base + c.tiles_off);
+  int4* hubs = reinterpret_cast<int4*>(base + c.hubs_off);
+  cudaMemsetAsync(base, 0, (size_t)c.zero_bytes, s);
+  const int64_t wspan = (c.known_words + 31) / 32 * 32;
+  closure_parts_update_kernel<false><<<grid_for(span > wspan ? span : wspan,
+                                                device),
+                                       kThreads, 0, s>>>(
+      ip, rows, num_node, parts, part, c.log2_q, lv, rc, (uint8_t)tag, kn,
+      c.known_words, nullptr, summary, c.shift, front_tiles, hubs,
+      hub_count);
+  // a persistent grid: no more blocks than the card holds at once, or the
+  // last ones would run their shares after the others
+  const size_t smem = (size_t)c.summary_words * 4;  // at most 32 KB
+  const int64_t want = (span + kEThreads - 1) / kEThreads;
+  const int64_t cap = expand_blocks(device, smem);
+  closure_parts_expand_kernel<<<(unsigned)(want < cap ? want : cap),
+                                kEThreads, smem, s>>>(
+      ip, static_cast<const int32_t*>(indices), rows, num_node, parts,
+      c.log2_q, lv, (uint8_t)tag, kn, summary, c.summary_words, c.shift,
+      front_tiles, hubs, hub_count,
+      reinterpret_cast<uintptr_t>(indices) % 16 == 0, base);
   return (int)cudaGetLastError();
 }
 

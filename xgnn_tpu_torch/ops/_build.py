@@ -64,8 +64,9 @@ SIGNATURES = {
         "xg_walk_topk": [_P] * 4 + [_LL, _I, _I, _I, _P],
     },
     "exchange": {
-        # ids, n, parts, hot_limit, seg_cap, then five pointers
-        "xg_plan_exchange": [_P, _LL, _I, _LL, _LL] + [_P] * 5,
+        # ids, n, parts, hot_limit, seg_cap, the buffer, the stream
+        "xg_plan_exchange": [_P, _LL, _I, _LL, _LL, _P, _P],
+        "xg_plan_buffer_words": [_LL, _I, _LL],
     },
     "unique": {
         "xg_unique_seeded": [_P, _LL, _P, _LL, _P, _LL, _LL, _P, _LL,
@@ -92,8 +93,12 @@ SIGNATURES = {
         "xg_closure_expand": [_P, _P, _LL, _LL, _P, _LL, _I, _P, _LL, _P,
                               _I, _P],
         "xg_closure_scratch_bytes": [_LL, _LL],
-        "xg_closure_parts": [_P, _P, _LL, _LL, _I, _P, _P, _I, _P, _P, _I,
-                             _P],
+        # indptr, indices, rows, num_node, num_edge, parts, part, level,
+        # recv, tag, known, scratch, its bytes, counts, the device, stream
+        "xg_closure_parts": [_P, _P, _LL, _LL, _LL, _I, _I, _P, _P, _I, _P,
+                             _P, _LL, _P, _I, _P],
+        "xg_closure_parts_scratch_bytes": [_LL, _I, _LL],
+        "xg_closure_parts_known_words": [_LL, _I],
     },
     "spmm": {
         "xg_spmm_csr": [_P] * 4 + [_LL, _LL, _LL, _I, _LL, _P],
@@ -111,7 +116,9 @@ SIGNATURES = {
 
 
 # entry points that return something other than a cudaError_t
-RESTYPES = {"xg_closure_scratch_bytes": _LL}
+RESTYPES = {"xg_closure_scratch_bytes": _LL,
+            "xg_closure_parts_scratch_bytes": _LL,
+            "xg_closure_parts_known_words": _LL, "xg_plan_buffer_words": _LL}
 
 # K5 over a 2-byte table: attend.cu with its element chosen at build time
 VARIANTS = {

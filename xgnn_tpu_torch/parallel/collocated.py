@@ -68,7 +68,12 @@ from .. import constants as C
 import torch.distributed as dist
 
 from ..ops import sanity
-from ..ops.presample import accumulate_freq, closure_expand, closure_parts
+from ..ops.presample import (
+    accumulate_freq,
+    closure_expand,
+    closure_known,
+    closure_parts,
+)
 from ..ops.tiered import tiered_direct
 from ..sampler import _layer_fanouts, _sample_minibatch
 from ..train import Adam, loss_fn
@@ -393,8 +398,10 @@ def make_presample_static_exact_step(config, mesh: Mesh, num_node: int,
     Partitioned (``use_dist_graph``, no cold tier): the ranks' seeds are
     gathered, each rank marks the seeds it owns in a lane a rank, and a
     layer is K12b's partitioned form over the rank's local rows (their
-    edges marked at their global destinations, owner-major) and one reduce
-    by owner, which returns each rank its rows' marks from every rank.
+    edges marked at their global destinations, owner-major, except the
+    marks the rank knows are held: its known set, zeroed a batch) and one
+    reduce by owner, which returns each rank its rows' marks from every
+    rank.
     Replicated: the rank closes its own batch over the whole CSR with the
     single store's K12b, and one reduce by owner sums the lanes' marks into
     the shares.  JAX's ``psum_scatter``; gloo, with no reduce-scatter,
@@ -421,12 +428,14 @@ def make_presample_static_exact_step(config, mesh: Mesh, num_node: int,
             recv.scatter_(1, at, 1)
             recv = recv[:, :rows].contiguous()
             level = torch.zeros((p, rows), dtype=torch.uint8, device=dev)
+            known = closure_known(rows, p, dev)
             for layer in range(num_layer):
                 out = closure_parts(topo.indptr, topo.indices, level, recv,
-                                    layer + 1, num_node)
+                                    layer + 1, num_node, mesh.rank, known)
                 recv = mesh.reduce_scatter(out)
             closure_parts(topo.indptr, topo.indices, level, recv,
-                          num_layer + 1, num_node, counts=freq_part)
+                          num_layer + 1, num_node, mesh.rank, known,
+                          counts=freq_part)
         else:
             mask = torch.zeros(rows * p, dtype=torch.int32, device=dev)
             closure_expand(topo.indptr, topo.indices, sg, num_layer,

@@ -129,7 +129,9 @@ def plan_exchange(ids: torch.Tensor, num_parts: int, seg_cap: int,
     num_parts``) into a ``(num_parts, seg_cap)`` send buffer.  ``hot_limit``
     (a tiered topology's hot prefix size): an id at or past it is not sent
     and its pick is EMPTY, as an EMPTY request's, so no mask pass runs
-    before the plan."""
+    before the plan.  On the card ``send``, ``pick``, the overflow byte and
+    the kernel's scratch lie in one allocation, and the call is one memset
+    and one kernel."""
     if ids.dim() != 1 or ids.dtype != torch.int32:
         raise ValueError(f"plan_exchange: ids must be 1-D int32, got "
                          f"{ids.dtype} {tuple(ids.shape)}")
@@ -144,23 +146,38 @@ def plan_exchange(ids: torch.Tensor, num_parts: int, seg_cap: int,
     if ids.device.type != "cuda":
         raise ValueError(f"plan_exchange: no kernel for {ids.device}")
     ids = ids.contiguous()
-    n, dev = ids.shape[0], ids.device
-    tiles = max(-(-n // _TILE), 1)
-    i32 = dict(dtype=torch.int32, device=dev)
-    send = torch.empty((num_parts, seg_cap), **i32)
-    pick = torch.empty((n,), **i32)
-    flag = torch.empty((), **i32)
-    scratch = torch.empty((num_parts * tiles + num_parts,), **i32)
-    lib = _build.load("exchange")
-    rc = lib.xg_plan_exchange(
-        ids.data_ptr(), n, num_parts,
-        EMPTY if hot_limit is None else int(hot_limit), seg_cap,
-        send.data_ptr(),
-        pick.data_ptr(), flag.data_ptr(), scratch.data_ptr(),
-        _build.stream_handle(dev))
+    n = ids.shape[0]
+    pick_at, flag_at, words = plan_layout(n, num_parts, seg_cap)
+    buf = torch.empty(words, dtype=torch.int32, device=ids.device)
+    rc = _plan_entry()(ids.data_ptr(), n, num_parts,
+                       EMPTY if hot_limit is None else int(hot_limit),
+                       seg_cap, buf.data_ptr(),
+                       _build.stream_handle(ids.device))
     _build.check(rc, _NAME)
     _build.LAUNCHES.add(_NAME)
-    return Plan(send, pick, flag != 0)
+    return Plan(buf.as_strided((num_parts, seg_cap), (seg_cap, 1)),
+                buf.as_strided((n,), (1,), pick_at),
+                buf.view(torch.bool).as_strided((), (), 4 * flag_at))
+
+
+def plan_layout(n: int, num_parts: int, seg_cap: int):
+    """``(pick, flag, words)``: the int32 offsets of pick and of the overflow
+    byte's 16 bytes in the kernel's buffer, and its size
+    (``xg_plan_buffer_words``): send, pick, the overflow byte, then the
+    scratch (an 8-byte ticket and a 64-bit status word a tile and owner)."""
+    pick = -(-num_parts * seg_cap // 4) * 4
+    flag = pick + -(-n // 4) * 4
+    return pick, flag, flag + 6 + 2 * max(-(-n // _TILE), 1) * num_parts
+
+
+_entry = []
+
+
+def _plan_entry():
+    """The bound C entry point, looked up once."""
+    if not _entry:
+        _entry.append(_build.load("exchange").xg_plan_exchange)
+    return _entry[0]
 
 
 def local_rows_of(req: torch.Tensor, num_parts: int) -> torch.Tensor:
