@@ -809,11 +809,13 @@ def phase_dataset_files(torch, tag, dev, ds, cfg, steps, expected,
 
     t_phase = time.perf_counter()
     row = {}
-    # weighted_khop from the files' tables: K8b-alias at every layer
+    # weighted_khop and weighted_khop_hash_dedup from the files' tables:
+    # K8b-alias at every layer
     expected["graphsage_alias_files"] = {
         "sample_alias": 3 * steps, "unique_seeded": 2 * steps,
         "gather_rows": 2 * steps, "fanout_fwd": 3 * steps,
         "fanout_bwd": 2 * steps}
+    expected["graphsage_alias_dedup_files"] = expected["graphsage_alias_files"]
     g = ds.graph
     name = "products_synth"
     # the files' bytes: the CSR, features, labels and sets, then
@@ -871,6 +873,7 @@ def phase_dataset_files(torch, tag, dev, ds, cfg, steps, expected,
                     counted]:
                 raise AssertionError(f"{path_name}: launch counts {counts} "
                                      f"!= {expected[counted]}")
+            r["launches"] = counts
             kind = "counted" if epoch > first else "warm-up"
             print(f"{tag} {path_name} epoch {epoch} ({kind}, pipelined): "
                   f"{r['time']:.3f} s, loss {r['loss']:.4f}, acc "
@@ -1010,38 +1013,47 @@ def phase_dataset_files(torch, tag, dev, ds, cfg, steps, expected,
               f"cache-by-degree {convert_s['cache-by-degree']:.3f} s on "
               f"{g.num_edge} edges", flush=True)
 
-        torch.cuda.empty_cache()
-        t0 = time.perf_counter()
-        eng = Engine(wds, dataclasses.replace(
-            cfg, sample_type="weighted_khop")).init()
-        torch.cuda.synchronize()
-        init_s = time.perf_counter() - t0
-        r = epochs("graphsage_alias_files", eng, None,
-                   "graphsage_alias_files")
-        prof = profiled_epoch("graphsage_alias_files", eng, 2) or {}
-        alias = {k: v for k, v in (prof.get("sampler_ms") or {}).items()
-                 if "alias" in k}
-        if prof and not alias:
-            raise AssertionError("graphsage_alias_files: the profiled epoch "
-                                 "recorded no K8b-alias launch")
-        by_layer = [v["ms_by_place"] or [v["ms_per_launch"]]
-                    for v in alias.values()]
-        items = eng.profiler._init_items
-        paths["graphsage_alias_files"] = {
-            "init_s": init_s, "graph_load_s": items["graph_load_time"],
-            "cache_build_s": items["cache_build_time"],
-            "epoch_s": r[1]["time"],
-            "busy_ms_per_step": prof.get("busy_ms_per_step"),
-            "k8b_alias_ms": alias}
-        print(f"{tag} graphsage_alias_files (weighted_khop from "
-              f"create-weights' tables): init {init_s:.3f} s (graph load "
-              f"{items['graph_load_time']:.3f} s: the CSR and the three "
-              f"tables to the card, the coarse CDF built there; cache build "
-              f"{items['cache_build_time']:.3f} s); counted epoch "
-              f"{r[1]['time']:.3f} s; profiled busy "
-              f"{prof.get('busy_ms_per_step')} ms a step; K8b-alias device "
-              f"ms a launch by layer {by_layer}", flush=True)
-        del eng
+        for path_name, st in (
+                ("graphsage_alias_files", "weighted_khop"),
+                ("graphsage_alias_dedup_files", "weighted_khop_hash_dedup")):
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            eng = Engine(wds, dataclasses.replace(cfg, sample_type=st)).init()
+            torch.cuda.synchronize()
+            init_s = time.perf_counter() - t0
+            r = epochs(path_name, eng, None, path_name)
+            prof = profiled_epoch(path_name, eng, 2) or {}
+            alias = {k: v for k, v in (prof.get("sampler_ms") or {}).items()
+                     if "alias" in k}
+            if prof and not alias:
+                raise AssertionError(f"{path_name}: the profiled epoch "
+                                     "recorded no K8b-alias launch")
+            # by instance (the hash-dedup form's draws a thread differ by
+            # layer: the names sort in the layers' order), by place in a
+            # step within an instance
+            by_layer = [t for _, v in sorted(alias.items())
+                        for t in v["ms_by_place"] or [v["ms_per_launch"]]]
+            items = eng.profiler._init_items
+            paths[path_name] = {
+                "init_s": init_s, "graph_load_s": items["graph_load_time"],
+                "cache_build_s": items["cache_build_time"],
+                "epoch_s": r[1]["time"], "loss": r[1]["loss"],
+                "busy_ms_per_step": prof.get("busy_ms_per_step"),
+                "launches": r[1]["launches"],
+                "k8b_alias_launches_per_step": (
+                    r[1]["launches"]["sample_alias"] / steps),
+                "k8b_alias_ms_by_layer": by_layer, "k8b_alias_ms": alias}
+            print(f"{tag} {path_name} ({st} from create-weights' tables): "
+                  f"init {init_s:.3f} s (graph load "
+                  f"{items['graph_load_time']:.3f} s: the CSR and the three "
+                  f"tables to the card, the coarse CDF built there; cache "
+                  f"build {items['cache_build_time']:.3f} s); counted epoch "
+                  f"{r[1]['time']:.3f} s, losses finite; "
+                  f"{r[1]['launches']['sample_alias'] // steps} K8b-alias "
+                  f"launches a step; profiled busy "
+                  f"{prof.get('busy_ms_per_step')} ms a step; K8b-alias "
+                  f"device ms a launch by layer {by_layer}", flush=True)
+            del eng
 
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
@@ -2749,11 +2761,13 @@ def main() -> int:
         return (frontier.numel() * 4 + int(ok.sum()) * 8
                 + int(drawn.sum()) * m * 16 + whole * 4 + out.numel() * 4)
 
-    def alias_phase(g, graph_name, caps, batch_seeds):
+    def alias_phase(g, graph_name, caps, batch_seeds, train_paths=None):
         """K8b-alias with and without dedup at the three frontiers of one
         batch walked through K3 by the draws without dedup, exact; then one
         batch through Sampler.sample for each alias form, its launches
-        counted, equal to the plain path's"""
+        counted, equal to the plain path's.  ``train_paths``: the training
+        paths whose launches the kernels' rows report, by dedup (the
+        batch's paths where not given)."""
         paths = {False: f"weighted_khop ({graph_name})",
                  True: f"weighted_khop_hash_dedup ({graph_name})"}
         frontier = batch_seeds
@@ -2785,7 +2799,8 @@ def main() -> int:
                        lambda: fn(*a, u=u, coin=coin),
                        lambda: plain(*a, u=u, coin=coin), None, None,
                        nbytes=alias_traffic(g, frontier, k, m, dedup, got),
-                       flops=0, per_step=3, path=paths[dedup])
+                       flops=0, per_step=3,
+                       path=(train_paths or paths)[dedup])
                 # a draw reads prob and then alias or the index: two tables
                 sector_floor(g.indptr, frontier, m,
                              (frontier.numel() + u.numel() + coin.numel()
@@ -2846,7 +2861,10 @@ def main() -> int:
         raise AssertionError(f"products alias tables: a row's probabilities "
                              f"miss its weights' by {err:.3e}")
     del w
-    alias_phase(wgraph, "products graph", CAPS, seeds)
+    # the products graph's rows count phase 13's training launches
+    alias_phase(wgraph, "products graph", CAPS, seeds,
+                {False: "graphsage_alias_files",
+                 True: "graphsage_alias_dedup_files"})
     del wds, wgraph
     torch.cuda.empty_cache()
 
@@ -4360,6 +4378,8 @@ def main() -> int:
     files_row = phase_dataset_files(torch, tag, dev, ds, cfg, steps,
                                     expected, host_runs, init_items,
                                     profiled_epoch)
+    for path in ("graphsage_alias_files", "graphsage_alias_dedup_files"):
+        counts_by_path[path] = files_row["paths"][path]["launches"]
     print(json.dumps({"dataset_files": files_row}), flush=True)
 
     # ---- 14. the last single-card configurations: GAT under bfloat16, and

@@ -1594,6 +1594,83 @@ def test_alias_kernels_equal_plain(dev, fanout, dedup):
     assert kernel(*args[:4], f[:0], fanout).shape == (0, fanout)
 
 
+# the hash-dedup form's (fanout, rounds): 20 draws a row (the main path's
+# layer 2), 33 (no warp's multiple), 60 (layer 0) and 256 (the most)
+_DEDUP_DRAWS = [(5, 4), (11, 3), (15, 4), (64, 4)]
+
+
+@pytest.mark.parametrize("fanout,rounds", _DEDUP_DRAWS)
+@pytest.mark.parametrize("rows", [845, 30_000, 60_000])
+def test_hash_dedup_kernel_equals_plain(dev, fanout, rounds, rows):
+    """K8b-alias's hash-dedup form, its draws packed densely over a block's
+    rows, bit-equal to its plain version at 20, 33, 60 and 256 draws a
+    row: rows of degree 0, 1, K and K + 1, hubs of 10,000 and 70,000
+    entries, a row of two ids, a row whose weight sits on one neighbour
+    (one distinct value, then EMPTY), EMPTY and out-of-range ids.  845
+    rows fill no whole block; at 20 draws 30,000 and 60,000 rows take 2
+    and 4 draws a thread (the launch's choice on 132 SMs)."""
+    from xgnn_tpu_torch.ops import _build
+    from xgnn_tpu_torch.ops import sampling as s
+
+    g = _weighted_csr(dev, fanout, 70 + fanout)
+    deg = (g.indptr[1:] - g.indptr[:-1]).cpu()
+    assert {fanout, fanout + 1, 10_000, 70_000} <= set(deg.tolist())
+    one = int(torch.nonzero(deg == 300)[0])  # its weight on one neighbour
+    a, b = int(g.indptr[one]), int(g.indptr[one + 1])
+    g.prob_table[a:b] = 0.0
+    g.alias_table[a:b] = 5
+    f = _weighted_frontier(dev, g, fanout + rows, b=rows)
+    f[-4] = one
+    f[0] = int(torch.nonzero(deg == fanout)[0])
+    f[1] = int(torch.nonzero(deg == fanout + 1)[0])
+    args = (g.indptr, g.indices, g.prob_table, g.alias_table, f, fanout)
+    m = rounds * fanout
+    _build.LAUNCHES.reset()
+    for seed in range(2):
+        u = _edge_uniforms(dev, (rows, m), 400 + seed)
+        coin = _edge_uniforms(dev, (rows, m), 500 + seed)
+        out = s.sample_weighted_khop_hash_dedup(*args, u=u, coin=coin,
+                                                rounds=rounds)
+        ref = s.sample_weighted_khop_hash_dedup_plain(*args, u=u, coin=coin,
+                                                      rounds=rounds)
+        assert torch.equal(out, ref), seed
+        assert out[-4, 0] == 5 and bool((out[-4, 1:] == EMPTY).all())
+    assert _build.LAUNCHES.snapshot() == {"sample_alias": 2}
+
+
+@pytest.mark.parametrize("fanout,rounds", _DEDUP_DRAWS)
+def test_hash_dedup_tiered_and_cold_equal_plain(dev, fanout, rounds):
+    """The hash-dedup form on a tiered topology (cold rows read in place
+    from mapped host memory, in the same launch) equal to its plain
+    version and to the untiered kernel over the whole CSR; its cold form
+    equal to the plain cold form; at 20, 33, 60 and 256 draws a row."""
+    from xgnn_tpu_torch.ops import sampling as s
+
+    g, hot, tier, n = _tiered_graph(dev)
+    f = torch.from_numpy(_tiered_frontier(g, tier, n, fanout)).to(dev)
+    m = rounds * fanout
+    gen = _gen(dev, m)
+    u = torch.rand((f.shape[0], m), generator=gen, device=dev)
+    coin = torch.rand((f.shape[0], m), generator=gen, device=dev)
+    kw = dict(u=u, coin=coin, rounds=rounds)
+    got = s.sample_weighted_khop_hash_dedup(
+        hot.indptr, hot.indices, hot.prob_table, hot.alias_table, f, fanout,
+        tier=tier, **kw)
+    ref = s.sample_weighted_khop_hash_dedup_plain(
+        hot.indptr, hot.indices, hot.prob_table, hot.alias_table, f, fanout,
+        tier=tier, **kw)
+    whole = s.sample_weighted_khop_hash_dedup(
+        g.indptr, g.indices, g.prob_table, g.alias_table, f, fanout, **kw)
+    assert torch.equal(got, ref) and torch.equal(got, whole)
+    cold = s.sample_cold("alias_dedup", tier, f, fanout, **kw)
+    want = s.sample_cold_plain("alias_dedup", tier, f.cpu(), fanout,
+                               u=u.cpu(), coin=coin.cpu(), rounds=rounds)
+    assert torch.equal(cold.cpu(), want)
+    is_cold = (f >= tier.num_cache_node) & (f < n)
+    assert torch.equal(cold[is_cold], got[is_cold])
+    tier.csr.close()
+
+
 def test_weighted_kernels_refuse(dev):
     from xgnn_tpu_torch.ops import sampling as s
 
@@ -3331,6 +3408,85 @@ def test_tiered_split_positions_kernel_equals_plain(dev, case):
     assert torch.equal(miss_pos[:nm].cpu(), p_mpos[:nm])
     assert torch.equal(miss_ids[:nm].cpu(), p_mids[:nm])
     host.close()
+
+
+def _positions_ids(dev, n, case):
+    """``(ids, num_input, posmap)`` of n ids over a 50,000-node posmap
+    holding 10,000 rows: "mixed" (hits, misses, EMPTY and out-of-range
+    ids), "no_miss" (every id cached) and "all_miss" (none), and "dead"
+    (mixed, with num_input short of n)."""
+    g = torch.Generator().manual_seed(n + len(case))
+    num_node = 50_000
+    posmap = torch.full((num_node,), EMPTY, dtype=torch.int32)
+    cached = torch.randperm(num_node, generator=g)[:10_000]
+    posmap[cached] = torch.randperm(10_000, generator=g).to(torch.int32)
+    if case == "no_miss":
+        ids = cached[torch.randint(0, 10_000, (n,), generator=g)]
+    elif case == "all_miss":
+        ids = torch.nonzero(posmap == EMPTY).flatten()[
+            torch.randint(0, num_node - 10_000, (n,), generator=g)]
+    else:
+        ids = torch.randint(-3, num_node + 3, (n,), generator=g)
+        ids[::7] = EMPTY
+    num = n - n // 3 if case == "dead" else n
+    return (ids.to(torch.int32).to(dev),
+            torch.tensor(num, dtype=torch.int32, device=dev), posmap.to(dev))
+
+
+@pytest.mark.parametrize("n", [1, 2047, 2048, 2049, 40 * 2048 + 5,
+                               1_007_360])
+@pytest.mark.parametrize("case", ["mixed", "no_miss", "all_miss", "dead"])
+def test_split_positions_one_pass_equals_plain(dev, n, case):
+    """K11's position form in one pass (a ticket and a decoupled look-back
+    over the tiles of 2,048 ids) bit-equal to its plain version at 1 id,
+    a tile less one, a tile, a tile and one, 40 tiles and the main path's
+    layer-2 size; many tiles with no misses and with all misses; and
+    num_input < n."""
+    from xgnn_tpu_torch.ops.tiered import (
+        tiered_split_positions,
+        tiered_split_positions_plain,
+    )
+
+    ids, num, posmap = _positions_ids(dev, n, case)
+    pos, counts, miss_pos, miss_ids = tiered_split_positions(ids, num,
+                                                             posmap)
+    p_pos, p_counts, p_mpos, p_mids = tiered_split_positions_plain(
+        ids.cpu(), num.cpu(), posmap.cpu())
+    nm = int(p_counts[1])
+    assert torch.equal(pos.cpu(), p_pos)
+    assert torch.equal(counts.cpu(), p_counts)
+    assert torch.equal(miss_pos[:nm].cpu(), p_mpos[:nm])
+    assert torch.equal(miss_ids[:nm].cpu(), p_mids[:nm])
+    if case == "no_miss":
+        assert nm == 0 and int(p_counts[0]) == n
+    if case == "all_miss":
+        assert nm == n
+
+
+def test_split_positions_is_one_kernel_and_a_memset(dev):
+    """A call of the position form is one memset and one kernel on the
+    profiler's device events (three calls profiled after a fill, whose
+    record the session may lose as its first)."""
+    from xgnn_tpu_torch.ops.tiered import tiered_split_positions
+
+    ids, num, posmap = _positions_ids(dev, 1_007_360, "mixed")
+    tiered_split_positions(ids, num, posmap)  # loaded
+    torch.cuda.synchronize()
+    lead = torch.empty(4, device=dev)
+
+    def run():
+        lead.fill_(1.0)
+        return [tiered_split_positions(ids, num, posmap) for _ in range(3)]
+
+    for _ in range(3):
+        events, _ = _device_kernels(run)
+        events = [e for e in events if "Fill" not in e]
+        kernels = [e for e in events if "split_positions" in e]
+        memsets = [e for e in events if e.startswith("Memset")]
+        if len(kernels) == 3 and len(memsets) == 3:
+            break
+    assert len(kernels) == 3 and len(memsets) == 3, events
+    assert len(events) == 6, events
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])

@@ -37,13 +37,15 @@
 //      (kUnroll rows a warp at a time, every load before any store) and
 //      zero rows for invalid and dead slots.  A miss row of out is left for
 //      step 2.
-//      The position form (xg_tiered_split_positions) is the same three
-//      launches with the write kernel built with kPositions: it writes each
-//      slot's cache position (posmap[id] on a hit, EMPTY elsewhere) where
-//      the row form copies rows, and writes no rows.  It replaces the
-//      posmap lookup and the miss compaction of cache_split
+//      The position form (xg_tiered_split_positions) writes each slot's
+//      cache position (posmap[id] on a hit, EMPTY elsewhere) where the row
+//      form copies rows, and writes no rows.  It replaces the posmap lookup
+//      and the miss compaction of cache_split
 //      (xgnn_tpu/parallel/ggms.py:134-203), whose hits the owner exchange
-//      then serves over cache positions.
+//      then serves over cache positions.  It is one memset and one pass
+//      (split_positions_kernel: a ticket, a decoupled look-back over the
+//      tiles' miss counts, each posmap word read once), where the row form
+//      keeps its three launches.
 //   2. direct (xg_tiered_direct): out[miss_pos[j]] = host[miss_ids[j]] for
 //      j < counts[1], the count read on the device: a warp reads kUnroll
 //      rows at once from the mapped table over PCIe, on a persistent grid
@@ -265,16 +267,13 @@ __device__ __forceinline__ void copy_rows(const Word* src, unsigned write,
 }
 
 // Word is uint4, uint32_t or uint16_t, width the row's length in Words.
-// With kPositions the kernel writes pos[i] (the hit's cache position, EMPTY
-// elsewhere) in place of out's rows, and cache, width and out are unused.
-template <typename Word, bool kPositions>
+template <typename Word>
 __global__ void __launch_bounds__(kThreads)
 split_write_kernel(const int32_t* __restrict__ ids, int64_t n,
                    const int32_t* __restrict__ num_input,
                    const int32_t* __restrict__ posmap, int64_t num_node,
                    const Word* __restrict__ cache, int64_t width,
-                   Word* __restrict__ out, int32_t* __restrict__ pos,
-                   const int32_t* __restrict__ tiles,
+                   Word* __restrict__ out, const int32_t* __restrict__ tiles,
                    int32_t* __restrict__ miss_pos,
                    int32_t* __restrict__ miss_ids) {
   __shared__ int s_miss[kWarps];
@@ -304,14 +303,158 @@ split_write_kernel(const int32_t* __restrict__ ids, int64_t n,
       miss_ids[r] = id;
     }
     running += total;
-    if (kPositions) {
-      if (i < n) pos[i] = k == kHit ? slot : kEmpty;
-    } else {
-      copy_rows<Word>(k == kHit ? cache + (int64_t)slot * width : nullptr,
-                      write, row0, width, out, lane);
-    }
+    copy_rows<Word>(k == kHit ? cache + (int64_t)slot * width : nullptr,
+                    write, row0, width, out, lane);
     __syncthreads();  // s_miss is rewritten next step
   }
+}
+
+// The position form in one pass (decoupled look-back, as K13-plan's in
+// csrc/exchange.cu).  A block takes the next tile of kPosTile ids from an
+// atomic ticket, so a look-back only waits on a tile whose block already
+// runs.  Each thread loads its kPosIters ids, then their posmap words (each
+// read once; every load in flight before the first ballot), writes pos,
+// and counts each (iteration, warp)'s hits and misses by ballots into
+// shared memory, packed hits << 16 | misses (a tile's counts fit 16
+// bits).  Warp 0 scans the counts, publishes the tile's (hits, misses) in
+// a 64-bit status word (flag AGG, then INC with its inclusive prefix: hits
+// << 31 | misses, flag in the top two bits, the sums never carry) and
+// looks back a lane an earlier tile, 32 tiles a step, to the nearest INC.
+// The tile then writes its misses' positions and ids from the misses
+// before it on, in position order; the last tile writes counts from its
+// inclusive prefix.  The status words and the ticket are zeroed by the
+// call's one memset.  XG_POS_ITERS (a variant for xgnn_tpu_torch/tools/
+// time_tiered.py) sets the ids a thread.  On graphsage_cached's batch
+// (2,449,152 ids, 2,120,830 valid; time_tiered.py --positions, NVIDIA H100
+// 80GB HBM3, 700.00 W, in turns): 0.0276 device ms, a memset of 1.1 us and
+// a kernel of 23.0 us, against the three launches' 0.0341 (count 10.8,
+// scan 2.5, write 15.5 us); tiles of 4,096 and 8,192 ids 0.0284 and 0.0283;
+// on its first 8,000 ids 0.0093 against 0.0193.  The bound (the ids and
+// pos once, a posmap word a valid id, the miss lists) is 0.0123.
+#ifndef XG_POS_ITERS
+#define XG_POS_ITERS 8
+#endif
+constexpr int kPosIters = XG_POS_ITERS;
+constexpr int kPosTile = kThreads * kPosIters;  // ids a tile
+constexpr int kPosSlots = kPosIters * kWarps;  // (iteration, warp) counts
+constexpr int kPosPerLane = kPosSlots / 32;    // the scan's counts a lane
+constexpr unsigned long long kPosAgg = 1ull << 62;
+constexpr unsigned long long kPosInc = 2ull << 62;
+constexpr unsigned long long kPosFlags = 3ull << 62;
+constexpr unsigned long long kPosMisses = (1ull << 31) - 1ull;
+static_assert(kPosSlots % 32 == 0 && kPosTile < 65536,
+              "warp 0 scans the counts; a tile's counts fit 16 bits");
+
+__global__ void __launch_bounds__(kThreads)
+split_positions_kernel(const int32_t* __restrict__ ids, int64_t n,
+                       const int32_t* __restrict__ num_input,
+                       const int32_t* __restrict__ posmap, int64_t num_node,
+                       int32_t* __restrict__ pos, int32_t* __restrict__ counts,
+                       int32_t* __restrict__ miss_pos,
+                       int32_t* __restrict__ miss_ids, int64_t tiles,
+                       unsigned long long* status, unsigned* ticket) {
+  __shared__ int32_t cnt[kPosSlots];
+  __shared__ unsigned s_tile;
+  __shared__ long long s_before;  // the misses of the earlier tiles
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (threadIdx.x == 0) s_tile = atomicAdd(ticket, 1u);
+  __syncthreads();
+  const int64_t t = s_tile;
+  const int64_t live = live_count(num_input, n);
+  const int64_t base = t * kPosTile;
+  int32_t id[kPosIters], slot[kPosIters];
+  bool ok[kPosIters];  // a live slot's valid id: looked up
+#pragma unroll
+  for (int it = 0; it < kPosIters; ++it) {
+    const int64_t i = base + it * kThreads + threadIdx.x;
+    id[it] = i < live ? __ldg(ids + i) : kEmpty;
+  }
+#pragma unroll
+  for (int it = 0; it < kPosIters; ++it) {
+    ok[it] = id[it] >= 0 && (int64_t)id[it] < num_node;
+    slot[it] = ok[it] ? __ldg(posmap + id[it]) : kEmpty;
+  }
+  unsigned miss[kPosIters];
+#pragma unroll
+  for (int it = 0; it < kPosIters; ++it) {
+    const int64_t i = base + it * kThreads + threadIdx.x;
+    const bool hit = ok[it] && slot[it] != kEmpty;
+    if (i < n) pos[i] = hit ? slot[it] : kEmpty;
+    miss[it] = __ballot_sync(kFull, ok[it] && slot[it] == kEmpty);
+    const unsigned hits = __ballot_sync(kFull, hit);
+    if (lane == 0)
+      cnt[it * kWarps + warp] = (__popc(hits) << 16) | __popc(miss[it]);
+  }
+  __syncthreads();
+  if (warp == 0) {
+    int32_t c[kPosPerLane], sum = 0;
+#pragma unroll
+    for (int k = 0; k < kPosPerLane; ++k) {
+      c[k] = cnt[lane * kPosPerLane + k];
+      sum += c[k];
+    }
+    int32_t incl = sum;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int32_t up = __shfl_up_sync(kFull, incl, d);
+      if (lane >= d) incl += up;
+    }
+    int32_t run = incl - sum;
+#pragma unroll
+    for (int k = 0; k < kPosPerLane; ++k) {
+      cnt[lane * kPosPerLane + k] = run;
+      run += c[k];
+    }
+    const int32_t tot = __shfl_sync(kFull, incl, 31);
+    const unsigned long long mine =
+        ((unsigned long long)(tot >> 16) << 31) | (unsigned)(tot & 0xffff);
+    volatile unsigned long long* st = status;
+    if (lane == 0) st[t] = (t == 0 ? kPosInc : kPosAgg) | mine;
+    unsigned long long before = 0;
+    for (int64_t j0 = t - 1; j0 >= 0; j0 -= 32) {
+      const int64_t j = j0 - lane;
+      unsigned long long w = 0;
+      if (j >= 0) {
+        do {
+          w = st[j];
+        } while ((w & kPosFlags) == 0);
+      }
+      // the nearest inclusive prefix in the window ends the sum there
+      const unsigned inc = __ballot_sync(kFull, (w & kPosFlags) == kPosInc);
+      const int stop = inc ? __ffs(inc) - 1 : 31;
+      unsigned long long v = lane <= stop ? (w & ~kPosFlags) : 0ull;
+#pragma unroll
+      for (int d = 16; d >= 1; d >>= 1) v += __shfl_down_sync(kFull, v, d);
+      before += __shfl_sync(kFull, v, 0);
+      if (inc) break;
+    }
+    const unsigned long long incl_all = before + mine;
+    if (lane == 0) {
+      if (t > 0) st[t] = kPosInc | incl_all;
+      s_before = (long long)(before & kPosMisses);
+      if (t == tiles - 1) {
+        counts[0] = (int32_t)(incl_all >> 31);
+        counts[1] = (int32_t)(incl_all & kPosMisses);
+      }
+    }
+  }
+  __syncthreads();
+  const long long before = s_before;
+  const unsigned lower = (1u << lane) - 1u;
+#pragma unroll
+  for (int it = 0; it < kPosIters; ++it) {
+    if ((miss[it] >> lane) & 1u) {
+      const int64_t r = before + (cnt[it * kWarps + warp] & 0xffff) +
+                        __popc(miss[it] & lower);
+      miss_pos[r] = (int32_t)(base + it * kThreads + threadIdx.x);
+      miss_ids[r] = id[it];
+    }
+  }
+}
+
+// the position form's scratch: the ticket's 8 bytes, a status word a tile
+long long positions_scratch_bytes(long long n) {
+  return 8 + 8 * ((n + kPosTile - 1) / kPosTile);
 }
 
 // Step 2: out[pos[j]] = table[ids[j]] for j < *count; a warp moves kUnroll
@@ -362,9 +505,9 @@ void launch_write(const int32_t* id, long long n, const int32_t* num,
                   long long width, void* out, const int32_t* tile,
                   int32_t* mp, int32_t* mi, long long num_tiles,
                   cudaStream_t s) {
-  split_write_kernel<Word, false><<<(unsigned)num_tiles, kThreads, 0, s>>>(
+  split_write_kernel<Word><<<(unsigned)num_tiles, kThreads, 0, s>>>(
       id, n, num, pm, num_node, static_cast<const Word*>(cache), width,
-      static_cast<Word*>(out), nullptr, tile, mp, mi);
+      static_cast<Word*>(out), tile, mp, mi);
 }
 
 // The split's first two launches: the exact counts (zeroed first) and each
@@ -469,33 +612,41 @@ extern "C" int xg_tiered_split(const void* ids, long long n,
 
 // Step 1's position form.  As xg_tiered_split, with a posmap (not null) and
 // no cache: pos, (n,) int32, gets posmap[id] for each hit and EMPTY for a
-// miss, an invalid id and a dead slot; no rows are written.  Returns
-// cudaGetLastError() after the launches.
+// miss, an invalid id and a dead slot; no rows are written.  scratch:
+// xg_tiered_positions_scratch_bytes(n) bytes, 8-byte aligned (the ticket
+// and the tiles' status words), zeroed here by one memset; then one
+// launch.  Returns cudaGetLastError() after the launch.
 extern "C" int xg_tiered_split_positions(const void* ids, long long n,
                                          const void* num_input,
                                          const void* posmap,
                                          long long num_node, void* pos,
-                                         void* counts, void* tiles,
+                                         void* counts, void* scratch,
                                          void* miss_pos, void* miss_ids,
                                          void* stream) {
   if (n <= 0 || n > INT32_MAX || num_node < 0 || num_node > INT32_MAX ||
-      posmap == nullptr || pos == nullptr || counts == nullptr)
+      posmap == nullptr || pos == nullptr || counts == nullptr ||
+      scratch == nullptr || !aligned(scratch, 8))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  const int32_t* id = static_cast<const int32_t*>(ids);
-  const int32_t* num = static_cast<const int32_t*>(num_input);
-  const int32_t* pm = static_cast<const int32_t*>(posmap);
-  int32_t* tile = static_cast<int32_t*>(tiles);
-  const long long num_tiles = (n + kTile - 1) / kTile;
-  cudaError_t e = split_count_scan(id, n, num, pm, num_node,
-                                   static_cast<int32_t*>(counts), tile,
-                                   num_tiles, s);
+  const long long num_tiles = (n + kPosTile - 1) / kPosTile;
+  cudaError_t e = cudaMemsetAsync(
+      scratch, 0, (size_t)positions_scratch_bytes(n), s);
   if (e != cudaSuccess) return (int)e;
-  split_write_kernel<uint32_t, true><<<(unsigned)num_tiles, kThreads, 0, s>>>(
-      id, n, num, pm, num_node, nullptr, 0, nullptr,
-      static_cast<int32_t*>(pos), tile, static_cast<int32_t*>(miss_pos),
-      static_cast<int32_t*>(miss_ids));
+  unsigned char* sc = static_cast<unsigned char*>(scratch);
+  split_positions_kernel<<<(unsigned)num_tiles, kThreads, 0, s>>>(
+      static_cast<const int32_t*>(ids), n,
+      static_cast<const int32_t*>(num_input),
+      static_cast<const int32_t*>(posmap), num_node,
+      static_cast<int32_t*>(pos), static_cast<int32_t*>(counts),
+      static_cast<int32_t*>(miss_pos), static_cast<int32_t*>(miss_ids),
+      num_tiles, reinterpret_cast<unsigned long long*>(sc + 8),
+      reinterpret_cast<unsigned*>(sc));
   return (int)cudaGetLastError();
+}
+
+// The bytes of xg_tiered_split_positions's scratch for n ids
+extern "C" long long xg_tiered_positions_scratch_bytes(long long n) {
+  return positions_scratch_bytes(n);
 }
 
 // Step 2.  table: the device address of the mapped (num_node, width) host

@@ -60,11 +60,13 @@
 // - With dedup (weighted_khop_hash_dedup): `draws` = rounds * K draws a row,
 //   and out[b] holds the first K distinct values in draw order, EMPTY after
 //   them when fewer appear (the bounded-rounds deviation of PARITY.md).  A
-//   row of deg <= K is the whole row in CSR order, EMPTY past deg.  One warp
-//   per row: lane i holds draws i, i + 32, ..., the warp's draws sit in
-//   shared memory, a draw is a first occurrence when no earlier draw equals
-//   it (every lane scans the same word at once: a broadcast), and ballots
-//   give each first occurrence its rank.
+//   row of deg <= K is the whole row in CSR order, EMPTY past deg.  The
+//   draws are packed densely over a block's rows, a thread a draw (see
+//   sample_alias_dedup_kernel), so u, coin and out move coalesced and a
+//   block keeps kPer * 256 draws' reads in flight; a draw is a first
+//   occurrence when no earlier draw of its row equals it (a scan in shared
+//   memory), and its rank counts the earlier first occurrences by ballot
+//   words.
 //
 // Replaces: xgnn_tpu/ops/sampling.py, sample_weighted_khop (lines 217-242)
 // and sample_weighted_khop_hash_dedup (248-304, two lax.sort passes a row),
@@ -72,8 +74,38 @@
 //
 // What bounds it: bytes.  A draw reads u, coin, prob and one of alias or
 // indices (16 bytes); the alias and prob reads are random 4-byte reads, each
-// a 32-byte sector.  The dedup's scan is at most draws * ceil(draws/32)
-// compares a lane, below the card's rate.
+// a 32-byte sector, and the draws of one row share the row's sectors.  The
+// dedup's scan is at most draws - 1 compares a draw, below the card's rate.
+//
+// The hash-dedup form's design.  The first design took a warp a row: at 20
+// draws a row 12 of 32 lanes idled, at 40 and 60 a warp took two passes,
+// each warp waited out frontier -> indptr -> prob -> alias with one row in
+// flight, and shared memory held 256 draws a warp.  Packing the draws
+// densely over a block's rows (2 draws a thread where the frontier still
+// fills a wave of blocks, else 1) keeps a block's prob reads in flight
+// together, then its alias or index reads, and writes out in one coalesced
+// pass, a row of deg <= K among them.  At the main path's three frontiers
+// walked by K2 and K3 (8,000 / 133,376 / 1,007,360 rows, 60 / 40 / 20
+// draws; xgnn_tpu_torch/tools/time_samplers.py --only hash-dedup, NVIDIA
+// H100 80GB HBM3, 700.00 W, medians of turns): 0.0167 / 0.1162 / 0.3578
+// device ms against the warp-a-row kernel's 0.0308 / 0.2861 / 1.2271.  The
+// variants beside it: 1, 2 or 4 draws a thread always (0.0166 / 0.1228 /
+// 0.4025; 0.0178 / 0.1157 / 0.3592; 0.0189 / 0.1242 / 0.3641), lane groups
+// of 16, 32 or a multiple of 64 slots a row (0.0161 / 0.1558 / 0.4824: the
+// idle slots), and, in first builds since removed, a draw's alias and
+// index read beside its prob read (0.0164 / 0.1282 / 0.3823: 1.5x the
+// sectors for one round trip less) and a group of 32 lanes a row with
+// several draws a lane (0.0297 / 0.2904 / 0.7916).
+// Tiered, a cold row's reads are requests to host memory, each distinct
+// sector of a warp instruction one, and the host answers a few hundred
+// million a second: a row that straddles two warps is asked for twice, so
+// the tiered instance takes lane groups (dedup_stride), and a cold row of
+// K < deg <= its slots is read whole into shared memory, a coalesced read
+// a table, before its draws (C0 in the kernel).  At 0.85 (the same
+// frontiers, 1,168 / 18,584 / 143,826 cold rows; --tiered): 0.0763 /
+// 1.3201 / 5.6357 device ms against 0.0909 / 1.5827 / 8.6097; without the
+// staged rows 0.0958 / 1.5378 / 5.4910, packed densely 0.0901 / 1.4252 /
+// 6.7839.
 //
 // The tiered topology (all three forms; tier.cuh): a cold row is read in
 // place from the whole graph's CSR and the tables the form reads, in
@@ -105,10 +137,11 @@
 // is slower than PR 17's, 0.785 against 0.688: a cold hub's coarse row is
 // 128 scattered reads where the search touched about 40.  The cold words'
 // registers bring the tiered instance to 80 registers against 64 (3 blocks
-// an SM); a cap at 64 spilled and was slower.  The alias forms keep PR
-// 17's cold branch: a thread or a warp
-// reads its row's tables in place as a hot row's.  Each kernel is built
-// twice, kTiered false (the untiered launch, no cold branch) and true.
+// an SM); a cap at 64 spilled and was slower.  The alias forms read a cold
+// row's tables in place as a hot row's: weighted_khop a thread a draw, the
+// hash-dedup form a thread a draw in its row's lane group.  Each kernel is
+// built twice, kTiered false (the untiered launch, no cold branch) and
+// true.
 //
 // The cold form, for the partitioned topology's requesting rank: the same
 // tiered kernels with no device CSR (indptr and the device tables null,
@@ -130,13 +163,30 @@ namespace {
 
 constexpr int32_t kEmpty = 0x7fffffff;
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kWarps = 8;  // warps a block in the warp-per-row kernels
+constexpr int kWarps = 8;  // warps a block of K8b-prefix
 constexpr int kMaxFanout = 64;
 constexpr int kLanes = 128;  // width of a coarse CDF row
 constexpr int kChunks = kLanes / 32;
 constexpr int kMaxDraws = 256;
 constexpr int kRunPicks = 512;  // K8b-prefix's picks a warp a run
-constexpr int kDrawChunks = kMaxDraws / 32;
+// the hash-dedup form: threads a block, and the most rows a block takes
+constexpr int kDedupThreads = 256;
+constexpr int kDedupMaxRows = 256;
+// Variants of the hash-dedup form, built by xgnn_tpu_torch/tools/
+// time_samplers.py only: XG_DEDUP_PER fixes the draws a thread (1, 2 or
+// 4; 0 chooses at launch); XG_DEDUP_LAYOUT 1 gives every instance lane
+// groups, 2 packs every instance densely (0: dedup_stride's choice);
+// XG_DEDUP_STAGE 0 reads every cold draw's entries one by one (see
+// sample_alias_dedup_kernel's C0).
+#ifndef XG_DEDUP_PER
+#define XG_DEDUP_PER 0
+#endif
+#ifndef XG_DEDUP_LAYOUT
+#define XG_DEDUP_LAYOUT 0
+#endif
+#ifndef XG_DEDUP_STAGE
+#define XG_DEDUP_STAGE 1
+#endif
 #ifndef XG_PREFIX_DIRECT_MAX
 #define XG_PREFIX_DIRECT_MAX 128
 #endif
@@ -533,9 +583,29 @@ __global__ void sample_alias_kernel(const int32_t* __restrict__ indptr,
                    : kEmpty;
 }
 
-// weighted_khop_hash_dedup: one warp per row
-template <bool kTiered>
-__global__ void __launch_bounds__(kWarps * 32)
+// weighted_khop_hash_dedup: the draws packed densely over a block's rows,
+// a thread a draw (kPer draws a thread: slot d = threadIdx.x + p *
+// kDedupThreads).  Row r of the block holds the slots [r * stride, r *
+// stride + draws) (dedup_stride), so u, coin and out move coalesced for
+// the block's rows.
+//   A: rows < block_rows threads read the rows' frontier ids; a block
+//      whose ids are all outside the graph writes EMPTY and leaves.
+//   B: the same threads read the rows' indptr pairs (a cold row's from
+//      host memory); every slot of a live row loads its u and coin.
+//   C0 (tiered): a short cold row's entries are read whole into shared
+//      memory (see the note at the top of this file).
+//   C: every draw's prob read is issued, then its alias or index read; a
+//      row of deg <= K reads its entries into its first deg slots.
+//   D: a draw is a first occurrence when no earlier slot of its row holds
+//      its value (a scan of at most draws - 1 words of shared memory); a
+//      whole row's entries are all first occurrences.  A ballot a warp
+//      keeps the flags, 32 slots a word.
+//   E: a first occurrence's rank is the count of flags before it in its
+//      row (at most 9 words); the first K go to `picked`, EMPTY elsewhere.
+//   F: the block's rows of out are written from `picked` in one
+//      coalesced pass.
+template <bool kTiered, int kPer>
+__global__ void __launch_bounds__(kDedupThreads)
 sample_alias_dedup_kernel(const int32_t* __restrict__ indptr,
                           const int32_t* __restrict__ indices,
                           const float* __restrict__ prob,
@@ -545,63 +615,227 @@ sample_alias_dedup_kernel(const int32_t* __restrict__ indptr,
                           const float* __restrict__ coin,
                           int32_t* __restrict__ out, int64_t num_node,
                           int64_t num_rows, int fanout, int draws,
-                          Cold cold) {
-  __shared__ int32_t drawn[kWarps][kMaxDraws];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int64_t row = (int64_t)blockIdx.x * kWarps + warp;
-  if (row >= num_rows) return;  // the whole warp
-  int64_t start;
-  int32_t deg;
-  bool is_cold;
-  row_meta<kTiered>(indptr, cold, __ldg(frontier + row), num_node, &start,
-                    &deg, &is_cold);
-  const int32_t* ix = is_cold ? cold.indices : indices;
-  const float* pr = is_cold ? cold.prob : prob;
-  const int32_t* al = is_cold ? cold.alias : alias;
-  int32_t* orow = out + row * fanout;
-  if (deg <= fanout) {  // the whole row (none when deg = 0)
-    for (int k = lane; k < fanout; k += 32)
-      orow[k] = k < deg ? rd<kTiered>(ix + (start + k), is_cold) : kEmpty;
+                          int stride, int block_rows, Cold cold) {
+  constexpr int kSlots = kPer * kDedupThreads;
+  constexpr bool kStage = kTiered && XG_DEDUP_STAGE;
+  constexpr int kStaged = kStage ? kSlots : 1;
+  __shared__ int32_t drawn[kSlots];
+  __shared__ int32_t picked[kSlots];
+  // C0's stage: a short cold row's entries in its slots
+  __shared__ float st_prob[kStaged];
+  __shared__ int32_t st_alias[kStaged], st_index[kStaged];
+  __shared__ unsigned flags[kSlots / 32];
+  __shared__ long long s_start[kDedupMaxRows];
+  __shared__ int32_t s_deg[kDedupMaxRows];
+  __shared__ int32_t s_id[kDedupMaxRows];
+  __shared__ bool s_cold[kDedupMaxRows];
+  const int t = threadIdx.x, lane = t & 31;
+  const int64_t row0 = (int64_t)blockIdx.x * block_rows;
+  const int rows = (int)(num_rows - row0 < block_rows ? num_rows - row0
+                                                       : block_rows);
+  const int outs = rows * fanout;
+  int32_t* orow = out + row0 * fanout;
+  // A
+  const int32_t v = t < rows ? __ldg(frontier + row0 + t) : kEmpty;
+  const bool live = v >= 0 && (int64_t)v < cold.num_total;
+  if (t < rows) s_id[t] = v;
+  for (int o = t; o < outs; o += kDedupThreads) picked[o] = kEmpty;
+  if (!__syncthreads_or(live)) {
+    for (int o = t; o < outs; o += kDedupThreads) orow[o] = kEmpty;
     return;
   }
-  const int chunks = (draws + 31) >> 5;
-  const float* urow = u + row * draws;
-  const float* crow = coin + row * draws;
-  int32_t* s = drawn[warp];
-  int32_t val[kDrawChunks];
-  bool first[kDrawChunks];
-#pragma unroll
-  for (int c = 0; c < kDrawChunks; ++c) {
-    const int i = lane + 32 * c;
-    first[c] = c < chunks && i < draws;
-    val[c] = first[c] ? alias_draw<kTiered>(ix, pr, al, start, deg,
-                                            __ldg(urow + i), __ldg(crow + i),
-                                            is_cold)
-                      : kEmpty;
-    if (first[c]) s[i] = val[c];
+  // B
+  if (t < rows) {
+    int64_t start;
+    int32_t deg;
+    bool c;
+    row_meta<kTiered>(indptr, cold, v, num_node, &start, &deg, &c);
+    s_start[t] = start;
+    s_deg[t] = deg;
+    s_cold[t] = c;
   }
-  __syncwarp();
-  // draw i is a first occurrence when no draw j < i equals it
-  for (int j = 0; j < draws; ++j) {
-    const int32_t w = s[j];
+  int rr[kPer], at[kPer];  // a slot's row and its draw in the row
+  float uu[kPer], cc[kPer];
 #pragma unroll
-    for (int c = 0; c < kDrawChunks; ++c)
-      if (j < lane + 32 * c && w == val[c]) first[c] = false;
+  for (int p = 0; p < kPer; ++p) {
+    const int d = t + p * kDedupThreads;
+    rr[p] = d / stride;
+    at[p] = d - rr[p] * stride;
+    if (rr[p] >= rows || at[p] >= draws) at[p] = -1;  // no draw
+    const int32_t id = at[p] >= 0 ? s_id[rr[p]] : -1;
+    const bool on = id >= 0 && (int64_t)id < cold.num_total;
+    const int64_t g = (row0 + rr[p]) * draws + at[p];
+    uu[p] = on ? __ldg(u + g) : 0.f;
+    cc[p] = on ? __ldg(coin + g) : 0.f;
   }
-  // the first occurrences in draw order: the first K of them are the row
-  const unsigned below = (1u << lane) - 1u;
-  int taken = 0;
+  __syncthreads();
+  // C0 (tiered): a cold row of K < deg <= stride reads its prob, alias and
+  // index entries whole, entry i into the row's slot i (a coalesced read a
+  // table, issued together), and its draws read them from the stage: fewer
+  // requests to host memory and one round trip less than a read a draw
+  if constexpr (kStage) {
 #pragma unroll
-  for (int c = 0; c < kDrawChunks; ++c) {
-    if (c < chunks) {
-      const unsigned mask = __ballot_sync(kFull, first[c]);
-      const int rank = taken + __popc(mask & below);
-      if (first[c] && rank < fanout) orow[rank] = val[c];
-      taken += __popc(mask);
+    for (int p = 0; p < kPer; ++p) {
+      const int d = t + p * kDedupThreads, r = d / stride, i = d - r * stride;
+      if (r < rows && s_cold[r] && s_deg[r] > fanout && s_deg[r] <= stride &&
+          i < s_deg[r]) {
+        const int64_t e = s_start[r] + i;
+        st_prob[d] = __ldcg(cold.prob + e);
+        st_alias[d] = __ldcg(cold.alias + e);
+        st_index[d] = __ldcg(cold.indices + e);
+      }
+    }
+    __syncthreads();
+  }
+  // C
+  int32_t val[kPer];
+  int64_t e[kPer];
+  int staged[kPer];  // a staged draw's slot in the stage, else -1
+  float pr[kPer];
+#pragma unroll
+  for (int p = 0; p < kPer; ++p) {
+    e[p] = -1;
+    staged[p] = -1;
+    pr[p] = 0.f;
+    if (at[p] < 0) continue;
+    const int32_t deg = s_deg[rr[p]];
+    const int64_t start = s_start[rr[p]];
+    const bool c = kTiered && s_cold[rr[p]];
+    if (deg > fanout) {
+      const float x = __fmul_rn(uu[p], __int2float_rn(deg));
+      int32_t sl = __float2int_rz(floorf(x));
+      sl = sl < deg - 1 ? sl : deg - 1;
+      e[p] = start + sl;
+      if (kStage && c && deg <= stride) {
+        staged[p] = rr[p] * stride + sl;
+        pr[p] = st_prob[kStage ? staged[p] : 0];
+      } else {
+        pr[p] = rd<kTiered>((c ? cold.prob : prob) + e[p], c);
+      }
+    } else if (at[p] < deg) {
+      e[p] = start + at[p];
     }
   }
-  for (int k = taken + lane; k < fanout; k += 32) orow[k] = kEmpty;
+#pragma unroll
+  for (int p = 0; p < kPer; ++p) {
+    val[p] = kEmpty;
+    if (e[p] < 0) continue;
+    const bool c = kTiered && s_cold[rr[p]];
+    if (kStage && staged[p] >= 0) {
+      const int q = kStage ? staged[p] : 0;
+      val[p] = cc[p] >= pr[p] ? st_alias[q] : st_index[q];
+    } else if (s_deg[rr[p]] > fanout) {
+      val[p] = cc[p] >= pr[p] ? rd<kTiered>((c ? cold.alias : alias) + e[p], c)
+                              : rd<kTiered>((c ? cold.indices : indices) + e[p],
+                                            c);
+    } else {
+      val[p] = rd<kTiered>((c ? cold.indices : indices) + e[p], c);
+    }
+  }
+#pragma unroll
+  for (int p = 0; p < kPer; ++p) drawn[t + p * kDedupThreads] = val[p];
+  __syncthreads();
+  // D
+  bool first[kPer];
+#pragma unroll
+  for (int p = 0; p < kPer; ++p) {
+    first[p] = e[p] >= 0;
+    if (first[p] && s_deg[rr[p]] > fanout) {
+      const int d = t + p * kDedupThreads;
+      for (int j = d - at[p]; j < d; ++j) {
+        if (drawn[j] == val[p]) {
+          first[p] = false;
+          break;
+        }
+      }
+    }
+    const unsigned b = __ballot_sync(kFull, first[p]);
+    if (lane == 0) flags[(t + p * kDedupThreads) >> 5] = b;
+  }
+  __syncthreads();
+  // E
+#pragma unroll
+  for (int p = 0; p < kPer; ++p) {
+    if (!first[p]) continue;
+    const int d = t + p * kDedupThreads, base = d - at[p];
+    int rank = 0;
+    for (int w = base >> 5; w <= d >> 5; ++w) {
+      unsigned bits = flags[w];
+      if (w == base >> 5) bits &= ~0u << (base & 31);
+      if (w == d >> 5) bits &= (1u << (d & 31)) - 1u;
+      rank += __popc(bits);
+    }
+    if (rank < fanout) picked[rr[p] * fanout + rank] = val[p];
+  }
+  __syncthreads();
+  // F
+  for (int o = t; o < outs; o += kDedupThreads) orow[o] = picked[o];
+}
+
+// The hash-dedup form's slots a row: its draws untiered (packed densely),
+// a lane group of 16, 32 or a multiple of 64 slots tiered, so that no warp
+// instruction reads two rows' host entries (a cold row's reads are
+// requests to host memory, each distinct sector of an instruction one).
+// XG_DEDUP_LAYOUT 1 and 2 (variants) give every instance lane groups or
+// dense packing.
+inline int dedup_stride(int draws, bool tiered) {
+  const int groups =
+      draws <= 16 ? 16 : draws <= 32 ? 32 : (draws + 63) / 64 * 64;
+#if XG_DEDUP_LAYOUT == 1
+  return groups;
+#elif XG_DEDUP_LAYOUT == 2
+  return draws;
+#else
+  return tiered ? groups : draws;
+#endif
+}
+
+template <bool kTiered, int kPer>
+void launch_dedup_per(const int32_t* ip, const int32_t* ix, const float* pr,
+                      const int32_t* al, const int32_t* fr, const float* uf,
+                      const float* cf, int32_t* o, long long num_node,
+                      long long num_rows, int fanout, int draws, int stride,
+                      const Cold& cold, cudaStream_t s) {
+  const int per_block = kPer * kDedupThreads / stride;
+  const int rows = per_block < kDedupMaxRows ? per_block : kDedupMaxRows;
+  const long long blocks = (num_rows + rows - 1) / rows;
+  sample_alias_dedup_kernel<kTiered, kPer>
+      <<<(unsigned)blocks, kDedupThreads, 0, s>>>(
+          ip, ix, pr, al, fr, uf, cf, o, num_node, num_rows, fanout, draws,
+          stride, rows, cold);
+}
+
+// The hash-dedup form's launch: two draws a thread where that still gives
+// the card a full wave of blocks, else one (four, a variant, measured level
+// or slower at the main path's frontiers)
+template <bool kTiered>
+void launch_dedup(const int32_t* ip, const int32_t* ix, const float* pr,
+                  const int32_t* al, const int32_t* fr, const float* uf,
+                  const float* cf, int32_t* o, long long num_node,
+                  long long num_rows, int fanout, int draws,
+                  const Cold& cold, cudaStream_t s) {
+  const int stride = dedup_stride(draws, kTiered);
+  int per = XG_DEDUP_PER;
+  if (per == 0) {
+    int dev = 0, sms = 132;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    const long long wave = (long long)sms * (2048 / kDedupThreads);
+    const int fit = 2 * kDedupThreads / stride;
+    const int rows = fit < kDedupMaxRows ? fit : kDedupMaxRows;
+    per = (num_rows + rows - 1) / rows >= wave ? 2 : 1;
+  }
+  if (per == 2)
+    launch_dedup_per<kTiered, 2>(ip, ix, pr, al, fr, uf, cf, o, num_node,
+                                 num_rows, fanout, draws, stride, cold, s);
+#if XG_DEDUP_PER == 4
+  else if (per == 4)
+    launch_dedup_per<kTiered, 4>(ip, ix, pr, al, fr, uf, cf, o, num_node,
+                                 num_rows, fanout, draws, stride, cold, s);
+#endif
+  else
+    launch_dedup_per<kTiered, 1>(ip, ix, pr, al, fr, uf, cf, o, num_node,
+                                 num_rows, fanout, draws, stride, cold, s);
 }
 
 // K8b-prefix's launch: rows a warp as many as spread the frontier over the
@@ -636,10 +870,8 @@ void launch_alias(const int32_t* ip, const int32_t* ix, const float* pr,
                   long long num_rows, int fanout, int draws, bool dedup,
                   const Cold& cold, cudaStream_t s) {
   if (dedup) {
-    const long long blocks = (num_rows + kWarps - 1) / kWarps;
-    sample_alias_dedup_kernel<kTiered><<<(unsigned)blocks, kWarps * 32, 0, s>>>(
-        ip, ix, pr, al, fr, uf, cf, o, num_node, num_rows, fanout, draws,
-        cold);
+    launch_dedup<kTiered>(ip, ix, pr, al, fr, uf, cf, o, num_node, num_rows,
+                          fanout, draws, cold, s);
   } else {
     const long long picks = num_rows * fanout;
     sample_alias_kernel<kTiered>

@@ -85,6 +85,7 @@ SIGNATURES = {
         "xg_host_unmap": [_P, _I],
         "xg_tiered_split": [_P, _LL, _P, _P, _LL, _P, _LL, _I] + [_P] * 6,
         "xg_tiered_split_positions": [_P, _LL, _P, _P, _LL] + [_P] * 6,
+        "xg_tiered_positions_scratch_bytes": [_LL],
         # host_bytes (4 float32, 2 float16), out_bf16
         "xg_tiered_direct": [_P, _LL, _P, _P, _P, _P, _LL, _I, _I, _P],
     },
@@ -117,6 +118,7 @@ SIGNATURES = {
 
 # entry points that return something other than a cudaError_t
 RESTYPES = {"xg_closure_scratch_bytes": _LL,
+            "xg_tiered_positions_scratch_bytes": _LL,
             "xg_closure_parts_scratch_bytes": _LL,
             "xg_closure_parts_known_words": _LL, "xg_plan_buffer_words": _LL}
 

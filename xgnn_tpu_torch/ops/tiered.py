@@ -351,15 +351,19 @@ def tiered_split_positions(ids: torch.Tensor, num_input,
                          f"{ids.device}")
     dev, n = ids.device, ids.shape[0]
     pos = torch.empty(n, dtype=torch.int32, device=dev)
-    scratch = torch.empty(2 * n + -(-n // _TILE), dtype=torch.int32,
-                          device=dev)
-    miss_pos, miss_ids, tiles = scratch[:n], scratch[n:2 * n], scratch[2 * n:]
     if n == 0:
-        return pos, torch.zeros(2, dtype=torch.int32, device=dev), \
-            miss_pos, miss_ids
+        empty = torch.empty(0, dtype=torch.int32, device=dev)
+        return pos, torch.zeros(2, dtype=torch.int32, device=dev), empty, \
+            empty
+    lib = _build.load("tiered")
+    # the lists, then the one pass's ticket and a status word a tile
+    # (8-byte aligned: 2n words in), which the call zeroes
+    scratch = torch.empty(2 * n + lib.xg_tiered_positions_scratch_bytes(n)
+                          // 4, dtype=torch.int32, device=dev)
+    miss_pos, miss_ids, tiles = scratch[:n], scratch[n:2 * n], scratch[2 * n:]
     counts = torch.empty(2, dtype=torch.int32, device=dev)
     num = _build.int32_scalar(num_input, dev)
-    rc = _build.load("tiered").xg_tiered_split_positions(
+    rc = lib.xg_tiered_split_positions(
         ids.data_ptr(), n, num.data_ptr(), posmap.data_ptr(),
         posmap.shape[0], pos.data_ptr(), counts.data_ptr(),
         tiles.data_ptr(), miss_pos.data_ptr(), miss_ids.data_ptr(),

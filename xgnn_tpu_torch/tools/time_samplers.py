@@ -2,15 +2,20 @@
 """Time the samplers (K2, K8a, K8b's three forms and K9) against their
 parent versions, in turns, untiered or on the tiered topology.
 
-    python3 xgnn_tpu_torch/tools/time_samplers.py --parent DIR [--tiered]
+    python3 xgnn_tpu_torch/tools/time_samplers.py --root DIR [--tiered]
+        [--only TEXT]
 
-``DIR`` is a checkout of the version to compare with, unpacked into a
-gitignored directory, as in ``git archive <commit> | tar -x -C
-build/parent``.  Its ``csrc/sampling.cu``, ``weighted.cu`` and
-``random_walk.cu`` are built with its own flags and bound with the C
-interface that its ``ops/_build.py`` declares; this checkout's three are
-built beside them, all in parallel.  Each build's registers and stack a
-thread are read with ``cuobjdump -res-usage``.
+``DIR`` (``--parent`` is the same flag) is a checkout of the version to
+compare with, unpacked into a gitignored directory, as in ``git archive
+<commit> | tar -x -C build/parent``.  Its ``csrc/sampling.cu``,
+``weighted.cu`` and ``random_walk.cu`` are built with its own flags and
+bound with the C interface that its ``ops/_build.py`` declares; this
+checkout's three are built beside them, and this checkout's
+``weighted.cu`` with each flag set of :data:`VARIANTS` (the hash-dedup
+form's variants, timed on its cases only), all in parallel.  Each build's
+registers and stack a thread are read with ``cuobjdump -res-usage``.
+``--only TEXT`` times only the cases whose label holds TEXT (as
+``--only hash-dedup``).
 
 The inputs are those of ``chip_smoke.py``: the products-scale synthetic
 graph (seed 0), phase 7's edge weights with their prefix, coarse-CDF and
@@ -33,7 +38,8 @@ timed with ``chip_smoke.time_ms`` (``ms`` back to back, ``device_ms`` with
 the host ahead of the card: the card's time alone) and with
 ``chip_smoke.time_flushed_ms`` (``flushed_ms``: a launch alone after L2 is
 flushed, so that no launch finds in L2 what the last one read) in the
-order parent, new, new, parent, twice.  The last line is one JSON object.
+order parent, new (and the variants), then back, twice; the medians of
+the four turns.  The last line is one JSON object.
 """
 
 import argparse
@@ -49,7 +55,16 @@ from pathlib import Path
 
 CHECKOUT = Path(__file__).resolve().parents[2]
 SOURCES = ("sampling", "weighted", "random_walk")
-ORDER = ("parent", "new", "new", "parent") * 2
+# name: nvcc flags that make a variant of this checkout's weighted.cu (the
+# hash-dedup form's; csrc/weighted.cu says what each changes)
+VARIANTS = {
+    "dedup_per1": ["-DXG_DEDUP_PER=1"],  # one draw a thread, always
+    "dedup_per2": ["-DXG_DEDUP_PER=2"],  # two draws a thread, always
+    "dedup_per4": ["-DXG_DEDUP_PER=4"],  # four draws a thread, always
+    "dedup_groups": ["-DXG_DEDUP_LAYOUT=1"],  # lane groups, every instance
+    "dedup_dense": ["-DXG_DEDUP_LAYOUT=2"],  # dense, every instance
+    "dedup_nostage": ["-DXG_DEDUP_STAGE=0"],  # no cold row staged
+}
 
 
 def registers(_build, lib: Path) -> dict:
@@ -76,7 +91,8 @@ def registers(_build, lib: Path) -> dict:
 
 def build(_build, parent: Path) -> dict:
     """``{(who, source): (CDLL, signatures, registers)}`` for who in
-    ("new", "parent"), compiled in parallel."""
+    ("new", "parent") and every source, and for each of :data:`VARIANTS`
+    and weighted.cu, compiled in parallel."""
     out_dir = _build.BUILD_DIR / "time_samplers"
     out_dir.mkdir(parents=True, exist_ok=True)
     spec = importlib.util.spec_from_file_location(
@@ -86,15 +102,19 @@ def build(_build, parent: Path) -> dict:
     roots = {"new": (_build.CSRC, _build.NVCC_FLAGS, _build.SIGNATURES),
              "parent": (parent / "xgnn_tpu_torch" / "csrc",
                         parent_build.NVCC_FLAGS, parent_build.SIGNATURES)}
+    jobs = {(who, name): (csrc / f"{name}.cu", flags)
+            for who, (csrc, flags, _) in roots.items() for name in SOURCES}
+    for who, extra in VARIANTS.items():
+        roots[who] = roots["new"]
+        jobs[(who, "weighted")] = (_build.CSRC / "weighted.cu",
+                                   _build.NVCC_FLAGS + extra)
     procs = {}
-    for who, (csrc, flags, _) in roots.items():
-        for name in SOURCES:
-            lib = out_dir / f"lib{name}_{who}.so"
-            cmd = [_build.nvcc()] + flags + ["-o", str(lib),
-                                             str(csrc / f"{name}.cu")]
-            procs[(who, name)] = (subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                text=True), lib)
+    for (who, name), (src, flags) in jobs.items():
+        lib = out_dir / f"lib{name}_{who}.so"
+        cmd = [_build.nvcc()] + flags + ["-o", str(lib), str(src)]
+        procs[(who, name)] = (subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True), lib)
     # the wrappers that walk the frontiers, and the host-read probe: this
     # checkout's own libraries
     _build.build(["sampling", "unique", "random_walk", "tiered", "host_read"])
@@ -115,10 +135,12 @@ def build(_build, parent: Path) -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--parent", required=True,
+    ap.add_argument("--root", "--parent", dest="root", required=True,
                     help="a checkout of the version to compare with")
     ap.add_argument("--tiered", action="store_true",
                     help="the tiered instances, on phase 12's tier")
+    ap.add_argument("--only", default="",
+                    help="time only the cases whose label holds this text")
     args = ap.parse_args()
     sys.path.insert(0, str(CHECKOUT))
     import chip_smoke as cs
@@ -152,7 +174,7 @@ def main() -> int:
     card = cs.card_line()
     print(f"card: {card}", flush=True)
     dev = torch.device("cuda", 0)
-    libs = build(_build, Path(args.parent).resolve())
+    libs = build(_build, Path(args.root).resolve())
     regs = {f"{who}/{name}": use for (who, name), (_, _, use) in libs.items()}
     print(f"registers: {json.dumps(regs)}", flush=True)
     probe = None
@@ -223,8 +245,10 @@ def main() -> int:
         fr = frontier
 
         def add(label, name, fn, common_of, cold_names):
+            builds = ["parent", "new"] + (list(VARIANTS) if "hash-dedup"
+                                          in label else [])
             outs = {who: torch.empty((b, k), dtype=torch.int32, device=dev)
-                    for who in ("parent", "new")}
+                    for who in builds}
             cases[f"{label} {where}"] = (
                 {who: entry(name, fn, common_of(o), cold_names)
                  for who, o in outs.items()}, outs)
@@ -287,6 +311,8 @@ def main() -> int:
 
     rows = {}
     for label, (calls, outs) in cases.items():
+        if args.only not in label:
+            continue
         for who in calls:
             calls[who](who)
         torch.cuda.synchronize()
@@ -298,9 +324,9 @@ def main() -> int:
                 raise AssertionError(f"time_samplers: {label}: the {who} "
                                      "build's output differs from the "
                                      "parent's")
-        builds = list(calls)
+        builds = sorted(calls, key=lambda who: who != "parent")
         got = {who: [] for who in builds}
-        for who in ORDER:
+        for who in (builds + builds[::-1]) * 2:
             fn = (lambda who=who: calls[who](who))
             got[who].append({"ms": cs.time_ms(torch, fn),
                              "device_ms": cs.time_ms(torch, fn,

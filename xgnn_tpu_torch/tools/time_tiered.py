@@ -2,6 +2,8 @@
 """Time K11 (the tiered extract) step by step, beside its parent version.
 
     python3 xgnn_tpu_torch/tools/time_tiered.py [--parent DIR]
+    python3 xgnn_tpu_torch/tools/time_tiered.py --positions [--root DIR]
+        [--turns N]
 
 The inputs are those of ``chip_smoke.py``'s phase 8: the products-scale
 synthetic dataset (seed 0), GraphSAGE's configuration at cache 0.2 with
@@ -36,8 +38,22 @@ It prints:
 gitignored directory, as in ``git archive <commit> | tar -x -C
 build/parent``.  Its ``csrc/tiered.cu`` (one kernel, ``xg_tiered_extract``)
 is built and bound with the C interface that its ``ops/_build.py``
-declares, and reads its own pinned, mapped copy of the host table.  The
-last line is one JSON object.
+declares, and reads its own pinned, mapped copy of the host table.
+
+``--positions``: K11's position form (``tiered_split_positions``, the
+two-phase GGMS's lookup) alone, on the same batch's input nodes over the
+engine's posmap, as drawn and with 30% of them EMPTY, and on the batch's
+first 133,376 and 8,000 ids; given ``--root DIR``, in turns with DIR's
+wrapper (loaded beside this one by ``tools/parent_ops.py``; it builds into
+DIR's build directory) and with :data:`POS_VARIANTS`, each held bit-equal
+to the plain version first.
+For each build, the medians of ``--turns`` rounds (parent, new, new,
+parent): device ms (``chip_smoke.time_ms`` with the host ahead of the
+card), ms of 10 calls back to back, host microseconds a call (100 queued,
+no synchronise), and the profiler's kernels and memsets a call with their
+device microseconds; beside them the bound (the ids and pos once, a posmap
+word a valid id, the misses' positions and ids) over 3.35 TB/s.  Nothing
+else is run.  The last line is one JSON object.
 """
 
 import argparse
@@ -54,6 +70,11 @@ from pathlib import Path
 CHECKOUT = Path(__file__).resolve().parents[2]
 CHUNK_BYTES = 4 << 20  # a pinned slot of the gather-and-copy pipeline
 SLOTS_PER_THREAD = 3
+# name: nvcc flags that make a variant of this checkout's tiered.cu for
+# --positions (the ids a thread of the position form: tiles of 4,096 and
+# 8,192 ids; csrc/tiered.cu ships 2,048)
+POS_VARIANTS = {"pos_iters16": ["-DXG_POS_ITERS=16"],
+                "pos_iters32": ["-DXG_POS_ITERS=32"]}
 
 
 class ParentK11:
@@ -167,10 +188,156 @@ def gather_and_copy(torch, table, ids, dev_rows, threads):
     return dev_rows
 
 
+def device_events(torch, fn, reps: int = 10) -> dict:
+    """``{name: [calls a call, device us a call]}`` of every kernel and
+    memset ``fn`` puts on the card, from the profiler's device events over
+    ``reps`` calls."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        time.sleep(0.2)  # CUPTI completes the last records
+    out: dict = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            name = e.name.replace("(anonymous namespace)::", "")
+            name = name.split("(")[0].split("<")[0]
+            got = out.setdefault(name, [0.0, 0.0])
+            got[0] += 1 / reps
+            got[1] += (e.time_range.end - e.time_range.start) / reps
+    return out
+
+
+def position_variants(torch, _build) -> dict:
+    """``{name: tiered_split_positions-like callable}`` of
+    :data:`POS_VARIANTS`, compiled in parallel, each call allocating and
+    launching as the wrapper does."""
+    out_dir = _build.BUILD_DIR / "time_tiered"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name, flags in POS_VARIANTS.items():
+        lib = out_dir / f"libtiered_{name}.so"
+        procs[name] = (subprocess.Popen(
+            [_build.nvcc()] + _build.NVCC_FLAGS + flags
+            + ["-o", str(lib), str(_build.CSRC / "tiered.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), lib)
+    calls = {}
+    for name, (proc, lib) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"time_tiered: {name} did not build:\n{log}")
+        cdll = ctypes.CDLL(str(lib))
+        for fn in ("xg_tiered_split_positions",
+                   "xg_tiered_positions_scratch_bytes"):
+            getattr(cdll, fn).argtypes = _build.SIGNATURES["tiered"][fn]
+            getattr(cdll, fn).restype = _build.RESTYPES.get(fn, ctypes.c_int)
+
+        def call(ids, num_input, posmap, lib=cdll):
+            dev, n = ids.device, ids.shape[0]
+            pos = torch.empty(n, dtype=torch.int32, device=dev)
+            scratch = torch.empty(
+                2 * n + lib.xg_tiered_positions_scratch_bytes(n) // 4,
+                dtype=torch.int32, device=dev)
+            counts = torch.empty(2, dtype=torch.int32, device=dev)
+            num = _build.int32_scalar(num_input, dev)
+            _build.check(lib.xg_tiered_split_positions(
+                ids.data_ptr(), n, num.data_ptr(), posmap.data_ptr(),
+                posmap.shape[0], pos.data_ptr(), counts.data_ptr(),
+                scratch[2 * n:].data_ptr(), scratch.data_ptr(),
+                scratch[n:].data_ptr(), _build.stream_handle(dev)),
+                "time_tiered variant")
+            return pos, counts, scratch[:n], scratch[n:2 * n]
+
+        calls[name] = call
+    return calls
+
+
+def positions(torch, cs, _build, drawn, num, sparse, posmap, root, turns):
+    """K11's position form alone, in turns with ``root``'s wrapper where
+    given: the rows of the JSON line."""
+    import statistics
+
+    sys.path.insert(0, str(CHECKOUT / "xgnn_tpu_torch" / "tools"))
+    import parent_ops
+    from time_exchange import host_us
+
+    from xgnn_tpu_torch.ops.tiered import (
+        tiered_split_positions,
+        tiered_split_positions_plain,
+    )
+
+    builds = {"new": tiered_split_positions,
+              **position_variants(torch, _build)}
+    if root is not None:
+        builds["parent"] = parent_ops.load(root,
+                                           "tiered").tiered_split_positions
+    order = sorted(builds, key=lambda k: k != "parent")
+    inputs = {"drawn": (drawn, num), "30% EMPTY": (sparse, num),
+              "first 133376": (drawn[:133376].contiguous(), 133376),
+              "first 8000": (drawn[:8000].contiguous(), 8000)}
+    rows = []
+    for what, (ids, nv) in inputs.items():
+        want = tiered_split_positions_plain(ids, nv, posmap)
+        nm = int(want[1][1])
+        for k, fn in builds.items():
+            got = fn(ids, nv, posmap)
+            torch.cuda.synchronize()
+            if not (torch.equal(got[0], want[0])
+                    and torch.equal(got[1], want[1])
+                    and torch.equal(got[2][:nm], want[2][:nm])
+                    and torch.equal(got[3][:nm], want[3][:nm])):
+                raise AssertionError(f"time_tiered --positions: {k} "
+                                     f"differs from the plain version "
+                                     f"({what})")
+        n = ids.shape[0]
+        live = min(n, int(nv))
+        valid = int(((ids[:live] >= 0) & (ids[:live] < posmap.shape[0]))
+                    .sum())
+        bound = cs.bound_ms(n * 8 + valid * 4 + nm * 8 + 8, 0)[0]
+        res = {k: {"device_ms": [], "ms": [], "host_us": []} for k in order}
+        for _ in range(turns):
+            for k in order + order[::-1]:
+                call = lambda fn=builds[k]: fn(ids, nv, posmap)
+                res[k]["device_ms"].append(cs.time_ms(torch, call,
+                                                      host_ahead=True))
+                res[k]["ms"].append(cs.time_ms(torch, call))
+                res[k]["host_us"].append(host_us(torch, call))
+        row = {"input": what, "ids": n, "valid": valid,
+               "hits": int(want[1][0]), "misses": nm, "bound_ms": bound}
+        for k in order:
+            row[k] = {m: statistics.median(v) for m, v in res[k].items()}
+            row[k]["turns"] = res[k]
+            row[k]["device_events"] = device_events(
+                torch, lambda fn=builds[k]: fn(ids, nv, posmap))
+        rows.append(row)
+        print(f"K11 position form, {what}: {n} ids ({valid} valid, "
+              f"{row['hits']} hits, {nm} misses), bound {bound:.5f} ms; "
+              + "; ".join(
+                  f"{k} {row[k]['device_ms']:.4f} device ms, "
+                  f"{row[k]['ms']:.4f} ms back to back, "
+                  f"{row[k]['host_us']:.1f} host us, a call: "
+                  + ", ".join(f"{name} x{c:g} {us:.2f} us" for name, (c, us)
+                              in row[k]["device_events"].items())
+                  for k in order), flush=True)
+    return rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", default=None,
                     help="a checkout of an earlier version")
+    ap.add_argument("--positions", action="store_true",
+                    help="time K11's position form alone")
+    ap.add_argument("--root", default=None,
+                    help="with --positions: a parent checkout whose "
+                    "wrapper is timed in turns")
+    ap.add_argument("--turns", type=int, default=2)
     args = ap.parse_args()
     sys.path.insert(0, str(CHECKOUT))
     import chip_smoke as cs
@@ -217,6 +384,12 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(11)
     sparse = drawn.clone()
     sparse[torch.rand(sparse.shape, generator=gen, device=dev) < 0.3] = EMPTY
+    if args.positions:
+        report["positions"] = positions(torch, cs, _build, drawn, num,
+                                        sparse, store.posmap, args.root,
+                                        args.turns)
+        print(json.dumps(report))
+        return 0
     cached = (store.posmap != EMPTY).nonzero().flatten()
     cache_ids = torch.empty(store.num_cache, dtype=torch.int32, device=dev)
     cache_ids[store.posmap[cached].long()] = cached.to(torch.int32)
