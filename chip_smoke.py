@@ -309,7 +309,14 @@ Phases, each fatal on failure:
    counted epoch with their launches asserted, then a profiled epoch (busy
    ms a step, K11's split and reads, K13 and NCCL, device ms a step) beside
    phase 8's graphsage_cached (its hit rate, miss bytes a step and K11's
-   device ms).  The phase's wall time and the ``{"ggms": ...}`` JSON line.
+   device ms).  The host table is the host's one shared copy (a host of
+   one rank: a read-only ``/dev/shm`` mapping registered read-only,
+   ``store/host_shared.py``); each path prints its bytes and this
+   process's Rss and Pss of the mapping (``/proc/self/smaps``), and on the
+   first batch K11's whole call runs over an anonymous pinned copy of the
+   table and over the shared one in turns (device ms, the misses' rate),
+   beside the kernel's transparent huge page settings as read.  The
+   phase's wall time and the ``{"ggms": ...}`` JSON line.
 17. The host cold tier under the partitioned topology and the exact
    presample_static over the cards, at P = 1 (MultiChipEngine over NCCL):
    ``graphsage_multichip_tiered`` (``use_dist_graph`` at phase 12's 0.85:
@@ -332,7 +339,9 @@ Phases, each fatal on failure:
    single store's K12b and one reduce) and
    ``graphsage_multichip_ggms_static_tiered`` (the wide-khop approximation
    under the cold tier, its hit rate beside the exact ranking's).  The
-   phase's wall time and the ``{"dist_cold": ...}`` JSON line.
+   cold tier's CSR is the host's shared copy: each path prints its bytes
+   and Rss and Pss.  The phase's wall time and the ``{"dist_cold": ...}``
+   JSON line.
 18. The multi-card ``device_loop`` at P = 1: ``graphsage_multichip``,
    ``graphsage_multichip_tiered`` (0.85) and ``pinsage_multichip`` with
    ``device_loop=True``, the rank's fused step (the NCCL collectives
@@ -351,8 +360,10 @@ Phases, each fatal on failure:
    ``graphsage_arch5_cached`` (cache 0.2, pre_sample presampled on the
    sampler: K11's split and reads, K1 for the labels), each a warm-up and
    a counted epoch with their launches asserted and a profiled epoch
-   beside phase 6's graphsage and phase 8's graphsage_cached.  The phase's
-   wall time and the ``{"arch5": ...}`` JSON line.
+   beside phase 6's graphsage and phase 8's graphsage_cached; the cached
+   path's one host table for every trainer with its bytes, Rss and Pss,
+   K11's device ms a step and the hit rate.  The phase's wall time and the
+   ``{"arch5": ...}`` JSON line.
 20. The multi-card placement solve at P = 1:
    ``graphsage_multichip_auto_placement``, ``MultiChipEngine`` with
    ``auto_placement`` for a group of one card, at the largest of phase 12's
@@ -361,7 +372,8 @@ Phases, each fatal on failure:
    solved fields and the plan, a warm-up and a counted epoch with their
    launches asserted (K13-plan, K11's split and reads, K1, the cold form),
    a profiled epoch, the hit rate, beside phase 17's
-   graphsage_multichip_tiered.  DCN groups need two cards or more (NCCL
+   graphsage_multichip_tiered, and the shared host tier's bytes, Rss and
+   Pss.  DCN groups need two cards or more (NCCL
    refuses two ranks on one card), so no DCN path runs here.  The phase's
    wall time and the ``{"auto_placement_multichip": ...}`` JSON line.
 
@@ -516,6 +528,34 @@ def time_flushed_ms(torch, fn, reps: int = 10) -> float:
             raise RuntimeError("time_flushed_ms: the host never got ahead "
                                "of the card")
         cycles *= 4
+
+
+def host_tier_memory(arrays: dict) -> dict:
+    """A host tier's arrays (``{name: MappedHostTensor}``): each one's
+    bytes, whether it is the host's shared copy, and this process's Rss and
+    Pss of the mapping that holds it (``/proc/self/smaps``), with the
+    sums."""
+    from xgnn_tpu_torch.store.host_shared import mapping_memory
+
+    out = {"arrays": {}, "bytes": 0, "rss": 0, "pss": 0}
+    for name, a in arrays.items():
+        mem = mapping_memory(a.tensor.data_ptr())
+        nbytes = a.tensor.numel() * a.tensor.element_size()
+        out["arrays"][name] = {"bytes": nbytes,
+                               "shared": a.shared is not None,
+                               "rss": mem.get("rss"), "pss": mem.get("pss"),
+                               "mapping": mem.get("path")}
+        out["bytes"] += nbytes
+        out["rss"] += mem.get("rss") or 0
+        out["pss"] += mem.get("pss") or 0
+    return out
+
+
+def host_tier_text(ht: dict) -> str:
+    return (f"{ht['bytes']} bytes in "
+            + ", ".join(f"{n} ({'shared' if a['shared'] else 'anonymous'})"
+                        for n, a in ht["arrays"].items())
+            + f"; this process's Rss {ht['rss']}, Pss {ht['pss']} bytes")
 
 
 def bound_ms(nbytes: float, flops: float):
@@ -5146,9 +5186,11 @@ def main() -> int:
     # replicated on each (SGNN), every row in pinned host memory, the
     # misses read in place by K11; then dynamic_cache over two epochs
     from xgnn_tpu_torch.ops.tiered import (
+        MappedHostTable,
         tiered_split_positions,
         tiered_split_positions_plain,
     )
+    from xgnn_tpu_torch.store import host_shared
 
     torch.cuda.empty_cache()
     t16 = time.perf_counter()
@@ -5206,6 +5248,11 @@ def main() -> int:
               f"and the cache built {items.get('cache_build_time', 0.0):.3f}"
               f" s); {geng.num_cache} rows cached, "
               f"{tuple(geng.cache_part.shape)} on this rank", flush=True)
+        ht16 = host_tier_memory({"feat": geng.host})
+        if geng.host.shared is None:
+            raise AssertionError(f"{path}: the host table is not the "
+                                 "host's shared copy")
+        print(f"{tag} {path} host tier: {host_tier_text(ht16)}", flush=True)
         posmap0 = geng.posmap.clone()
         try:
             if path == "graphsage_multichip_ggms":
@@ -5240,7 +5287,7 @@ def main() -> int:
                       f"{tuple(outs['x'].shape)} bit-equal to the plain "
                       f"versions' rows ({hits} hits, {misses} misses of "
                       f"{int(num_in)} inputs)", flush=True)
-                del outs, ref
+                del outs
                 pos, counts, mpos, mids = tiered_split_positions(
                     ids, num_in, geng.posmap)
                 p_pos, p_counts, p_mpos, p_mids = \
@@ -5273,7 +5320,57 @@ def main() -> int:
                        nbytes=n_ids * 4 + (hits + misses) * 4 + n_ids * 4
                        + misses * 8 + 8, flops=0, per_step=1,
                        path="graphsage_multichip_ggms", plain_reps=3)
-                del pos, p_pos, mpos, p_mpos, mids, p_mids, gbatch, ids
+                del pos, p_pos, mpos, p_mpos, mids, p_mids
+                # K11's whole call (at P = 1 the engine's cache is the
+                # whole cache) over an anonymous pinned copy of the table
+                # and over the host's shared one, in turns
+                anon = MappedHostTable(geng.host.tensor, dev)
+                k11_calls = {
+                    "anonymous": lambda: tiered_extract(
+                        ids, num_in, geng.posmap, geng.cache_part, anon),
+                    "shared": lambda: tiered_extract(
+                        ids, num_in, geng.posmap, geng.cache_part,
+                        geng.host)}
+                for which, call in k11_calls.items():
+                    got_x, got_c = call()
+                    torch.cuda.synchronize()
+                    if not (torch.equal(got_x, ref)
+                            and torch.equal(got_c, ref_counts)):
+                        raise AssertionError(f"K11 over the {which} table "
+                                             "differs from the plain version")
+                del got_x, got_c, ref
+                k11_turns = {k: [] for k in k11_calls}
+                for which in ("anonymous", "shared", "shared", "anonymous",
+                              "anonymous", "shared"):
+                    k11_turns[which].append(time_ms(
+                        torch, k11_calls[which], host_ahead=True))
+                pages = {k: {f: v for f, v in host_shared.mapping_memory(
+                    t.tensor.data_ptr()).items() if f in (
+                        "kernelpagesize", "mmupagesize", "anonhugepages",
+                        "shmempmdmapped", "filepmdmapped")}
+                    for k, t in (("anonymous", anon), ("shared", geng.host))}
+                anon.close()
+                del anon
+                miss_row_bytes = misses * geng.row_bytes
+                thp = host_shared.thp_settings()
+                k11_tables = {
+                    k: {"device_ms": v, "median_ms": sorted(v)[1],
+                        "miss_GBps": miss_row_bytes / sorted(v)[1] / 1e6}
+                    for k, v in k11_turns.items()}
+                print(f"{tag} K11's whole call on graphsage_multichip_ggms's "
+                      f"batch ({int(num_in)} inputs, {misses} misses of "
+                      f"{geng.row_bytes} bytes), in turns (anonymous, "
+                      "shared, shared, anonymous, anonymous, shared): "
+                      + "; ".join(
+                          f"{k} table {v['median_ms']:.4f} device ms "
+                          f"(median of {['%.4f' % t for t in v['device_ms']]}"
+                          f"), misses at {v['miss_GBps']:.2f} GB/s"
+                          for k, v in k11_tables.items())
+                      + f"; transparent huge pages {thp}; the tables' "
+                      f"pages (smaps, bytes) {pages}", flush=True)
+                ggms_k11_tables = {"tables": k11_tables, "thp": thp,
+                                   "pages": pages, "misses": misses}
+                del gbatch, ids
             row = multi_epochs(path, geng)
             hists = [geng.history[e] for e in (0, 1)]
             rates = [float(h["hit"].sum() / (h["hit"].sum()
@@ -5299,6 +5396,7 @@ def main() -> int:
             row.update(
                 init_s=init_s, presample_s=items.get("presample_time"),
                 cache_build_s=items.get("cache_build_time"),
+                host_tier=ht16,
                 hit_rate_epochs=rates, graphsage_cached_hit_rate=cached_hit,
                 miss_bytes_per_step=mean(hists[1]["miss"])
                 * geng.row_bytes,
@@ -5313,6 +5411,8 @@ def main() -> int:
                 plan_exchange_ms_per_step=groups.get("K13-plan, *plan_*"),
                 nccl_ms_per_step=groups.get("NCCL collectives, *nccl*"),
                 peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30)
+            if path == "graphsage_multichip_ggms":
+                row["k11_anonymous_and_shared"] = ggms_k11_tables
             ggms_rows[path] = row
             print(f"{tag} {path}: counted epoch {row['epoch_s']:.3f} s; "
                   f"profiled busy {row['busy_ms_per_step']} ms a step "
@@ -5422,6 +5522,18 @@ def main() -> int:
               "(128-byte)", flush=True)
         return got, cold_rows
 
+    def engine_host_tier(path, eng):
+        """The engine's host tier (the table, the cold tier's CSR), which
+        must be the host's shared copy, printed and returned."""
+        arrays = dict({} if eng.host is None else {"feat": eng.host},
+                      **({} if eng.tier is None else eng.tier.csr.arrays))
+        if any(a.shared is None for a in arrays.values()):
+            raise AssertionError(f"{path}: the host tier is not the host's "
+                                 "shared copy")
+        ht = host_tier_memory(arrays)
+        print(f"{tag} {path} host tier: {host_tier_text(ht)}", flush=True)
+        return ht
+
     def tiered_row(path, eng, init_s, ref_path):
         row = multi_epochs(path, eng)
         prof17 = profiled_epoch(path, eng, 2) or {}
@@ -5506,8 +5618,10 @@ def main() -> int:
                 num_node=NUM_NODE)
             num_f = torch.clamp(num_u, max=caps[layer + 1])
         del got, want, nbr, frontier, u
+        ht17 = engine_host_tier("graphsage_multichip_tiered", teng)
         row = tiered_row("graphsage_multichip_tiered", teng, init_t,
                          "graphsage_multichip")
+        row["host_tier"] = ht17
         sec = [k["cold_sectors"] for k in kernels
                if k["name"] == "sample_khop_cold"]
         row.update(cold_rows_by_layer=cold_by_layer,
@@ -5568,8 +5682,10 @@ def main() -> int:
                 "xgnn_tpu/parallel/dist_topology.py:334-430 (the walk's "
                 "steps) with ggms.py:264-487 (the cold rows' host "
                 "callback)")[1])
+        ht17 = engine_host_tier("pinsage_multichip_tiered", peng)
         row = tiered_row("pinsage_multichip_tiered", peng, init_p,
                          "pinsage_multichip")
+        row["host_tier"] = ht17
         pin_tiered = tier_rows_out["paths"].get("pinsage_tiered") or {}
         row.update(cold_rows_walk_layer0=cold_walk,
                    pinsage_tiered_busy_ms_per_step=pin_tiered.get(
@@ -5695,7 +5811,9 @@ def main() -> int:
         try:
             row = {"init_s": init_s, "presample_s": items.get(
                 "presample_time"), "init_launches": counts_by_path[
-                    path + "_init"], "presample_static_ranking_s": static_s}
+                    path + "_init"], "presample_static_ranking_s": static_s,
+                "cache_build_s": items.get("cache_build_time"),
+                "host_tier": engine_host_tier(path, seng)}
             if seng.tier is None:
                 # the engine's ranking pass again, timed: its counts against
                 # the single store's over the same batches, bit for bit
@@ -5988,6 +6106,17 @@ def main() -> int:
                     raise AssertionError(f"{path} epoch {epoch}: a step "
                                          "loss is not finite")
             counts_by_path[path] = counts
+            ht19 = None
+            if aeng._host_table is not None:
+                # one table for every trainer (one trainer here)
+                if any(src.host.tensor.data_ptr()
+                       != aeng._host_table.tensor.data_ptr()
+                       for src in aeng.feature_sources):
+                    raise AssertionError(f"{path}: a trainer's store reads "
+                                         "another host table")
+                ht19 = host_tier_memory({"feat": aeng._host_table})
+                print(f"{tag} {path} host table: {host_tier_text(ht19)}",
+                      flush=True)
             prof = profiled_epoch(path, aeng, 2) or {}
             ref_prof = host_runs[ref].get("profiled") or {}
             acc = aeng.evaluate("valid", 3)
@@ -6000,7 +6129,11 @@ def main() -> int:
                 "busy_ms_per_step": prof.get("busy_ms_per_step"),
                 "busy_share": prof.get("busy_share"),
                 "group_ms": prof.get("group_ms"),
-                "valid_acc_3_batches": acc,
+                "valid_acc_3_batches": acc, "host_tier": ht19,
+                "k11_ms_per_step": [(prof.get("group_ms") or {}).get(g)
+                                    for g in k11_groups],
+                "cache_build_s": aeng.profiler._init_items.get(
+                    "cache_build_time"),
                 "single_store_path": ref,
                 "single_store_epoch_s": host_runs[ref]["time"],
                 "single_store_busy_ms_per_step": ref_prof.get(
@@ -6014,8 +6147,9 @@ def main() -> int:
                   f"busy {row['busy_ms_per_step']} ms a step (share "
                   f"{row['busy_share']}) against {ref}'s "
                   f"{row['single_store_busy_ms_per_step']}; launches "
-                  f"{counts}; hit rate {r['hit_rate']:.6f}; valid acc "
-                  f"{acc:.4f} over 3 batches; peak {row['peak_gib']:.3f} "
+                  f"{counts}; hit rate {r['hit_rate']:.6f}; K11's split and "
+                  f"reads {row['k11_ms_per_step']} device ms a step; valid "
+                  f"acc {acc:.4f} over 3 batches; peak {row['peak_gib']:.3f} "
                   "GiB", flush=True)
         finally:
             aeng.close()
@@ -6071,6 +6205,7 @@ def main() -> int:
               f"{peng20.tier.num_cache_node} of {n_all} nodes, "
               f"{peng20.num_cache} rows cached); capacities "
               f"{peng20.capacities}", flush=True)
+        ht20 = engine_host_tier(path, peng20)
         row = multi_epochs(path, peng20)
         prof20 = profiled_epoch(path, peng20, 2) or {}
         groups20 = prof20.get("group_ms", {})
@@ -6078,7 +6213,9 @@ def main() -> int:
                  for h in (peng20.history[0], peng20.history[1])]
         ref = cold17["graphsage_multichip_tiered"]
         row.update(
-            hbm_budget_gb=budget, init_s=init_s, **solved_fields,
+            hbm_budget_gb=budget, init_s=init_s, host_tier=ht20,
+            cache_build_s=peng20.profiler._init_items.get(
+                "cache_build_time"), **solved_fields,
             cache_policy=pc.cache_policy.value,
             num_cache_node=peng20.tier.num_cache_node,
             num_cache=peng20.num_cache,
@@ -6101,8 +6238,10 @@ def main() -> int:
               f"{row['busy_ms_per_step']} ms a step against "
               f"{ref.get('busy_ms_per_step')}; hit rate {rates[0]:.6f} "
               f"(epoch 0), {rates[1]:.6f} (epoch 1) against the plan's "
-              f"{plan.expected_feat_hit:.4f}; peak {row['peak_gib']:.3f} "
-              "GiB", flush=True)
+              f"{plan.expected_feat_hit:.4f}; K11's split "
+              f"{row['k11_split_ms_per_step']} and reads "
+              f"{row['k11_reads_ms_per_step']} device ms a step; peak "
+              f"{row['peak_gib']:.3f} GiB", flush=True)
     finally:
         peng20.close()
     del peng20

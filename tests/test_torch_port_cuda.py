@@ -1837,12 +1837,15 @@ def test_tiered_extract_all_miss_form_on_the_card(dev):
 
 def test_tiered_pinning_that_fails_raises(dev):
     """Pinning memory that is pinned already fails in CUDA, and raises; the
-    error is not reported again by the next extract's launch check."""
+    error is not reported again by the next extract's launch check.  The
+    range starts inside the table's registration, at an address that no
+    registration starts at, so CUDA itself refuses it (the same range again
+    is counted, not refused)."""
     from xgnn_tpu_torch.ops import tiered
 
     host = tiered.MappedHostTable(torch.ones((1000, 8)), dev)
     with pytest.raises(RuntimeError, match="pinning"):
-        tiered._map(host.tensor, dev.index)
+        tiered._map(host.tensor[500:], dev.index)
     ids = torch.arange(1000, dtype=torch.int32, device=dev)
     out, counts = tiered.tiered_extract(ids, 1000, None, None, host)
     torch.cuda.synchronize()
@@ -3856,3 +3859,231 @@ def test_tiered_partitioned_layer_on_card_equals_cpu(dev, cold_graph,
         finally:
             m.close()
     assert torch.equal(outs[0][0], outs[1][0]) and not outs[0][1]
+
+
+# ------------------------------------------------ the host's shared tier
+@pytest.fixture
+def world(dev):
+    """A world of one over NCCL on card 0: a host of one rank."""
+    from xgnn_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(dev)
+    yield mesh
+    mesh.close()
+
+
+def _shared_k11_case(dev, num_node=60_000, width=128, seed=31):
+    """A feature table, a posmap and cache over a fifth of its rows, and
+    ids as drawn (EMPTY and out-of-range among them)."""
+    g = torch.Generator().manual_seed(seed)
+    feat = torch.randn((num_node, width), generator=g)
+    num_cache = num_node // 5
+    posmap = torch.full((num_node,), EMPTY, dtype=torch.int32)
+    cached = torch.randperm(num_node, generator=g)[:num_cache]
+    posmap[cached] = torch.arange(num_cache, dtype=torch.int32)
+    cache = feat[cached].contiguous()
+    ids = torch.randint(0, num_node, (40_000,), generator=g,
+                        dtype=torch.int32)
+    ids[::11] = EMPTY
+    ids[5::13] = num_node
+    return feat, posmap.to(dev), cache.to(dev), ids.to(dev)
+
+
+def test_shared_table_is_a_read_only_shm_mapping_that_k11_reads(dev, world):
+    """The host's one table (MappedHostTable with a mesh): a read-only
+    MAP_SHARED mapping of a file under /dev/shm whose name is gone,
+    registered once with cudaHostRegisterPortable | Mapped | ReadOnly; K11's
+    whole call over it bit-equal to its plain version; the registration
+    gone at close."""
+    from xgnn_tpu_torch.ops.tiered import (
+        MappedHostTable,
+        registrations,
+        tiered_extract,
+        tiered_extract_plain,
+    )
+    from xgnn_tpu_torch.store import host_shared
+
+    ok = torch.cuda.get_device_properties(dev)  # the card answers first
+    assert ok.total_memory > 0
+    feat, posmap, cache, ids = _shared_k11_case(dev)
+    host = MappedHostTable(feat, mesh=world)
+    assert host.read_only and host.dev_ptr is not None
+    assert torch.equal(host.tensor, feat)
+    assert registrations(host.tensor) == 1
+    mem = host_shared.mapping_memory(host.tensor.data_ptr())
+    assert host_shared.PREFIX in mem["path"]
+    assert not os.path.exists(host.shared.path)
+    out, counts = tiered_extract(ids, 39_000, posmap, cache, host)
+    ref, ref_counts = tiered_extract_plain(ids.cpu(), 39_000,
+                                           posmap.cpu(), cache.cpu(), feat)
+    torch.cuda.synchronize()
+    assert torch.equal(out.cpu(), ref) and torch.equal(counts.cpu(),
+                                                       ref_counts)
+    assert int(counts[1]) > 0
+    host.close()
+    assert registrations(host.tensor) == 0 and host.dev_ptr is None
+
+
+def test_two_registrations_of_one_mapping_count(dev, world):
+    """A second registration of the shared table's memory is counted, not
+    made again: the table reads on after one release, and the last
+    release unregisters it; a differing range or access at its address is
+    refused, and CUDA refuses a range that starts inside it, an error
+    cleared before the next launch."""
+    from xgnn_tpu_torch.ops import _build
+    from xgnn_tpu_torch.ops import tiered
+
+    feat, posmap, cache, ids = _shared_k11_case(dev, 20_000, 64, 5)
+    host = tiered.MappedHostTable(feat, mesh=world)
+    ptr = tiered._map(host.tensor, dev.index, "second", True)
+    assert ptr == host.dev_ptr and tiered.registrations(host.tensor) == 2
+    with pytest.raises(RuntimeError, match="pinning"):
+        tiered._map(host.tensor[:100], dev.index, "range", True)
+    with pytest.raises(RuntimeError, match="pinning"):
+        tiered._map(host.tensor, dev.index, "access", False)
+    with pytest.raises(RuntimeError, match="pinning"):
+        tiered._map(host.tensor[100:], dev.index, "overlap", True)
+    assert _build.load("tiered").xg_host_unmap(host.tensor.data_ptr(),
+                                               dev.index) == 0
+    assert tiered.registrations(host.tensor) == 1
+    out, _ = tiered.tiered_extract(ids, ids.numel(), posmap, cache, host)
+    ref, _ = tiered.tiered_extract_plain(ids.cpu(), ids.numel(),
+                                         posmap.cpu(), cache.cpu(), feat)
+    torch.cuda.synchronize()
+    assert torch.equal(out.cpu(), ref)
+    host.close()
+    assert tiered.registrations(host.tensor) == 0
+
+
+def test_a_failed_shared_table_releases_its_registration(dev, world,
+                                                         monkeypatch):
+    """The second barrier fails after this rank registered its mapping (as
+    when another rank fails): the table raises, its registration is gone and
+    the file is no longer mapped; a new table of the same size then reads
+    right."""
+    import gc
+
+    from xgnn_tpu_torch.ops import _build
+    from xgnn_tpu_torch.ops import tiered
+    from xgnn_tpu_torch.store import host_shared
+
+    feat, posmap, cache, ids = _shared_k11_case(dev, 20_000, 64, 7)
+    real_agree, real_map = host_shared._agree, tiered._map
+    barriers, pinned = [], []
+
+    def agree(world, error, what):
+        barriers.append(what)
+        if len(barriers) == 2 and error is None:
+            error = RuntimeError("another rank's failure")
+        real_agree(world, error, what)
+
+    def record(tensor, *args):
+        pinned.append(tensor.data_ptr())
+        return real_map(tensor, *args)
+
+    monkeypatch.setattr(host_shared, "_agree", agree)
+    monkeypatch.setattr(tiered, "_map", record)
+    with pytest.raises(RuntimeError, match="another rank's failure"):
+        tiered.MappedHostTable(feat, mesh=world)
+    monkeypatch.undo()
+    gc.collect()
+    assert len(pinned) == 1
+    assert _build.load("tiered").xg_host_map_count(pinned[0]) == 0
+    with open("/proc/self/maps") as f:
+        assert f"{host_shared.PREFIX}{world._token}_h0_" not in f.read()
+    host = tiered.MappedHostTable(feat, mesh=world)
+    out, _ = tiered.tiered_extract(ids, ids.numel(), posmap, cache, host)
+    ref, _ = tiered.tiered_extract_plain(ids.cpu(), ids.numel(),
+                                         posmap.cpu(), cache.cpu(), feat)
+    torch.cuda.synchronize()
+    assert torch.equal(out.cpu(), ref)
+    host.close()
+
+
+def test_cold_forms_over_the_shared_csr_equal_plain(dev, world):
+    """K2 and K9 (and K8a, K8b) over a tiered topology whose host CSR is
+    the host's shared copy (read-only mappings, registered read-only):
+    bit-equal to their plain versions and to the untiered kernels."""
+    from xgnn_tpu_torch.store.topology import MappedHostCSR, Tier
+
+    g, hot, tier, n = _tiered_graph(dev)
+    own = tier.csr
+    shared = MappedHostCSR(
+        own.host("indptr"), own.host("indices"),
+        prob_table=own.host("prob_table"),
+        alias_table=own.host("alias_table"),
+        prob_prefix_table=own.host("prob_prefix_table"), mesh=world)
+    own.close()
+    assert all(a.read_only and a.shared is not None
+               for a in shared.arrays.values())
+    tier = Tier(tier.num_cache_node, shared)
+    for k in (5, 10):
+        frontier = torch.from_numpy(_tiered_frontier(g, tier, n, k)).to(dev)
+        _assert_tiered_equal(dev, g, hot, tier, frontier, k)
+    shared.close()
+
+
+def _shared_tier_device_loop(dev):
+    from xgnn_tpu_torch import RunConfig, make_device_dataset
+    from xgnn_tpu_torch.engine.multi_engine import MultiChipEngine
+
+    ds = make_device_dataset(20_000, 200_000, 32, 8, train_frac=0.2, seed=3,
+                             dedup=False)
+    hist = []
+    for device_loop in (False, True):
+        cfg = RunConfig(model="graphsage", batch_size=500, fanout=(10, 5),
+                        num_layer=2, num_hidden=32, num_worker=1,
+                        arch="arch6", use_dist_graph=True, part_cache=True,
+                        dist_graph_percentage=0.6, dropout=0.5,
+                        device_loop=device_loop)
+        eng = MultiChipEngine(ds, cfg).init()
+        try:
+            assert all(a.shared is not None and a.read_only
+                       for a in eng.tier.csr.arrays.values())
+            for e in range(2):
+                eng.train_epoch(e)
+            if device_loop:
+                assert eng._fused is not None and eng._fused.graph
+            hist.append([eng.history[e]["loss"] for e in range(2)])
+        finally:
+            eng.close()
+    for host, fused in zip(*hist):
+        assert np.all(np.isfinite(host))
+        np.testing.assert_array_equal(fused, host)
+
+
+def test_shared_cold_tier_captured_step_replays_like_the_host_loop(dev):
+    """The multi-card device_loop over the host's shared cold tier (the
+    cold form reading the read-only mapping at addresses fixed at capture):
+    two epochs of replays bit-equal to the host loop's losses."""
+    _in_own_process("_shared_tier_device_loop")
+
+
+def _shared_table_two_phase(dev):
+    from xgnn_tpu_torch import RunConfig, make_device_dataset
+    from xgnn_tpu_torch.engine.multi_engine import MultiChipEngine
+    from xgnn_tpu_torch.ops.tiered import registrations
+
+    ds = make_device_dataset(20_000, 200_000, 32, 8, train_frac=0.2, seed=1,
+                             dedup=False)
+    cfg = RunConfig(model="graphsage", batch_size=500, fanout=(10, 5),
+                    num_layer=2, num_hidden=32, num_worker=1, arch="arch6",
+                    use_dist_graph=True, part_cache=True,
+                    dist_graph_percentage=0.6, cache_percentage=0.2,
+                    cache_policy="pre_sample", dropout=0.0)
+    eng = MultiChipEngine(ds, cfg).init()
+    try:
+        assert eng.host.read_only and eng.host.shared is not None
+        assert registrations(eng.host.tensor) == 1
+        rs = [eng.train_epoch(e) for e in range(2)]
+        assert rs[1]["loss"] < rs[0]["loss"]
+        assert 0.0 < rs[1]["hit_rate"] < 1.0
+    finally:
+        eng.close()
+
+
+def test_two_phase_ggms_on_the_shared_table(dev):
+    """The two-phase GGMS with the cold tier over the host's shared table
+    and CSR in a world of one: two epochs that learn, a hit rate in (0, 1),
+    one registration of the table."""
+    _in_own_process("_shared_table_two_phase")

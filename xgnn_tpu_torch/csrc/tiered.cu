@@ -72,6 +72,8 @@
 #include <stdint.h>
 
 #include <algorithm>
+#include <map>
+#include <mutex>
 
 namespace {
 
@@ -536,30 +538,84 @@ void launch_direct(const void* table, const int32_t* ids, const int32_t* pos,
 
 }  // namespace
 
-// Pin `bytes` of host memory at `host` and map it for `device`; the device
-// address goes to *dev_ptr (dev_ptr: the address of a void*).  Returns the
-// first CUDA error (nothing stays registered after a failure, and the error
-// is cleared, so the next launch's check does not report it again).
+// The registrations of this process, by host address: a count of the
+// MappedHostTensors over each range, so that a second one over the same
+// memory (two trainers' stores of one process, or two tables over one shared
+// mapping) neither registers it again (cudaErrorHostMemoryAlreadyRegistered)
+// nor unregisters it under the first.
+struct Registration {
+  long long bytes;
+  int read_only;
+  int count;
+};
+static std::mutex g_reg_lock;
+static std::map<void*, Registration> g_regs;
+
+// Pin `bytes` of host memory at `host` and map it, for every device of the
+// process (cudaHostRegisterPortable | cudaHostRegisterMapped, and
+// cudaHostRegisterReadOnly where `read_only`: memory mapped without write
+// access, which only that flag registers); `device`'s address of it goes to
+// *dev_ptr (dev_ptr: the address of a void*).  Memory registered already is
+// counted, not registered again; its range and access must be the first
+// registration's.  Returns the first CUDA error, cudaErrorNotSupported where
+// `read_only` is asked of a device that cannot register read-only memory
+// (nothing stays registered after a failure, and the error is cleared, so
+// the next launch's check does not report it again).
 extern "C" int xg_host_map(void* host, long long bytes, int device,
-                           void* dev_ptr) {
+                           int read_only, void* dev_ptr) {
   if (bytes <= 0 || host == nullptr || dev_ptr == nullptr)
     return (int)cudaErrorInvalidValue;
+  std::lock_guard<std::mutex> guard(g_reg_lock);
   cudaError_t e = cudaSetDevice(device);
-  if (e == cudaSuccess)
-    e = cudaHostRegister(host, (size_t)bytes, cudaHostRegisterMapped);
+  if (e == cudaSuccess && read_only) {
+    int ok = 0;
+    e = cudaDeviceGetAttribute(&ok, cudaDevAttrHostRegisterReadOnlySupported,
+                               device);
+    if (e == cudaSuccess && !ok) return (int)cudaErrorNotSupported;
+  }
+  auto it = g_regs.find(host);
+  const bool fresh = it == g_regs.end();
+  if (e == cudaSuccess && !fresh &&
+      (it->second.bytes != bytes || it->second.read_only != read_only))
+    return (int)cudaErrorHostMemoryAlreadyRegistered;
+  if (e == cudaSuccess && fresh) {
+    unsigned flags = cudaHostRegisterPortable | cudaHostRegisterMapped;
+    if (read_only) flags |= cudaHostRegisterReadOnly;
+    e = cudaHostRegister(host, (size_t)bytes, flags);
+  }
   if (e == cudaSuccess) {
     e = cudaHostGetDevicePointer(static_cast<void**>(dev_ptr), host, 0);
-    if (e != cudaSuccess) cudaHostUnregister(host);
+    if (e != cudaSuccess && fresh) cudaHostUnregister(host);
   }
-  if (e != cudaSuccess) cudaGetLastError();
-  return (int)e;
+  if (e != cudaSuccess) {
+    cudaGetLastError();
+    return (int)e;
+  }
+  if (fresh)
+    g_regs[host] = Registration{bytes, read_only, 1};
+  else
+    ++it->second.count;
+  return 0;
 }
 
+// One registration of `host` less; the last unregisters it.
 extern "C" int xg_host_unmap(void* host, int device) {
+  std::lock_guard<std::mutex> guard(g_reg_lock);
+  auto it = g_regs.find(host);
+  if (it == g_regs.end()) return (int)cudaErrorHostMemoryNotRegistered;
+  if (--it->second.count > 0) return 0;
+  g_regs.erase(it);
   cudaError_t e = cudaSetDevice(device);
   if (e == cudaSuccess) e = cudaHostUnregister(host);
   if (e != cudaSuccess) cudaGetLastError();
   return (int)e;
+}
+
+// How many MappedHostTensors hold the registration at `host` (0: none).
+extern "C" int xg_host_map_count(void* host) {
+  std::lock_guard<std::mutex> guard(g_reg_lock);
+  auto it = g_regs.find(host);
+  return it == g_regs.end() ? 0 : it->second.count;
 }
 
 // Step 1.  ids: (n,) int32; num_input: a device int32 scalar; posmap:

@@ -10,7 +10,8 @@ from one process as JAX drives it (``parallel/disaggregated.py`` says why):
   whole table on its device through K1, or, for ``0 < cache_percentage <
   1``, the tiered store: a hot-row cache on the device ranked by
   ``cache_policy`` and the misses read in place from pinned host memory by
-  K11) and its labels (K1), in ``feat_dtype``;
+  K11, one host table for every trainer, registered once for every
+  device) and its labels (K1), in ``feat_dtype``;
 - the trainers' step is ``make_disagg_train_step``: a model replica and an
   Adam a trainer, the seed-weighted reduction in trainer order.
 
@@ -55,6 +56,7 @@ from ..config import CachePolicy, RunConfig
 from ..device import feature_dtype, generator, resolve, seed_of
 from ..models import build_model
 from ..ops import sanity
+from ..ops.tiered import MappedHostTable
 from ..parallel.disaggregated import (
     DisaggregatedSampler,
     batch_to_shard,
@@ -126,6 +128,8 @@ class DisaggregatedEngine:
         self.history: dict = {}
         self.svc: Optional[DisaggregatedSampler] = None
         self.feature_sources, self.label_sources = [], []
+        # the tiered stores' one host table
+        self._host_table: Optional[MappedHostTable] = None
         self.models, self.opts = [], []
         self._ranking = None
 
@@ -171,22 +175,28 @@ class DisaggregatedEngine:
                                  dev)
 
     def _build_stores(self):
-        """Each trainer's feature and label sources on its device."""
+        """Each trainer's feature and label sources on its device; the
+        tiered stores share one pinned, mapped host table, registered once
+        for every device of the process."""
         self._close_stores()
+        if self._tiered:
+            self._host_table = MappedHostTable(self.ds.feat,
+                                               self.train_devices[0])
         for dev in self.train_devices:
             if self._tiered:
                 src = TieredFeatureSource(self.ds.feat, self._ranking,
                                           self.config.cache_percentage, dev,
-                                          self.feat_dtype)
+                                          self.feat_dtype,
+                                          host=self._host_table)
             else:
                 src = HBMFeatureSource(self.ds.feat, dev, self.feat_dtype)
             self.feature_sources.append(src)
             self.label_sources.append(LabelSource(self.ds.label, dev))
 
     def _close_stores(self):
-        for src in self.feature_sources:
-            if isinstance(src, TieredFeatureSource):
-                src.host.close()
+        if self._host_table is not None:
+            self._host_table.close()
+            self._host_table = None
         self.feature_sources, self.label_sources = [], []
 
     def _replicate(self, model, opt: Optional[Adam] = None):

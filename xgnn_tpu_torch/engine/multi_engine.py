@@ -5,17 +5,22 @@ the topology replicated on every rank or partitioned over them
 (``use_dist_graph``: the whole CSR on the cards, or, with
 ``dist_graph_percentage < 1``, its hot node-id prefix, the prefix whose
 edges are that share of all edges, clamped so that each part's offsets fit
-int32, with the whole CSR pinned and mapped from host memory on every
-rank, where the requesting rank draws its cold rows: XGNN's Global GNN
-Memory Store over the cards and host memory), the labels interleaved
-over the ranks' devices, and one step a batch shard a rank
+int32, with the whole CSR pinned and mapped from host memory, one copy a
+host that the host's ranks share, where the requesting rank draws its cold
+rows: XGNN's Global GNN Memory Store over the cards and host memory), the
+labels interleaved over the ranks' devices, and one step a batch shard a
+rank
 (``parallel/collocated.py``).  The features are either all on the cards,
 interleaved (``cache_percentage`` 0 or >= 1: JAX's all-device store, the
 fused step), or XGNN's two-phase GGMS (``0 < cache_percentage < 1``,
 ``parallel/ggms.py``): the hottest rows of ``cache_policy``'s ranking
 cached on the cards, partitioned over the ranks (``part_cache``) or
 replicated on each (SGNN), and every row in pinned host memory, where K11
-reads the misses in place.  Each rank is a process with its own
+reads the misses in place.  The host tier (that table and the cold tier's
+CSR) is one copy a host (``store/host_shared.py``): the host's first rank
+writes it into a file under ``/dev/shm`` that every rank of the host maps
+and registers for its card, as JAX's one process a host holds it once.
+Each rank is a process with its own
 :class:`~xgnn_tpu_torch.parallel.mesh.Mesh`; at P = 1 the engine makes a
 world of one in the caller's process.
 
@@ -284,8 +289,9 @@ class MultiChipEngine:
         if not isinstance(feat, torch.Tensor):
             feat = np.asarray(feat)
         if self.two_phase:
-            # this rank's own pinned, mapped copy of the whole table
-            self.host = MappedHostTable(feat, dev)
+            # the host's one pinned, mapped copy of the whole table, shared
+            # by the host's ranks
+            self.host = MappedHostTable(feat, mesh=self.world)
             self._build_feature_cache(build_ranking(self.ds, cfg, freq))
         else:
             self.feat_part = HBMFeatureSource(
@@ -312,7 +318,8 @@ class MultiChipEngine:
         (``dist_graph_percentage`` of the edges, clamped so that every
         part's offsets fit int32), and, where it is not the whole graph,
         the host cold tier: the whole CSR (and a weighted type's tables)
-        pinned and mapped for this rank's card.  With a tier the part is
+        in the host's one shared copy, pinned and mapped for this rank's
+        card.  With a tier the part is
         cut from the arrays where they lie, so the cold edges never reach
         the card."""
         cfg, dev, p = self.config, self.device, self.num_parts
@@ -329,7 +336,7 @@ class MultiChipEngine:
         indices = _array(self.ds, "indices")
         if ncn < num_node:
             self.tier = Tier(ncn, MappedHostCSR(
-                indptr, host_array(indices), device=dev,
+                indptr, host_array(indices), mesh=self.world,
                 **{n: None if a is None else host_array(a)
                    for n, a in arrays.items()}))
             # the cold edges stay on the host: the part is cut there, from

@@ -81,8 +81,10 @@ SIGNATURES = {
         + [_LL, _P],
     },
     "tiered": {
-        "xg_host_map": [_P, _LL, _I, _P],
+        # host, bytes, device, read_only, the device address's address
+        "xg_host_map": [_P, _LL, _I, _I, _P],
         "xg_host_unmap": [_P, _I],
+        "xg_host_map_count": [_P],
         "xg_tiered_split": [_P, _LL, _P, _P, _LL, _P, _LL, _I] + [_P] * 6,
         "xg_tiered_split_positions": [_P, _LL, _P, _P, _LL] + [_P] * 6,
         "xg_tiered_positions_scratch_bytes": [_LL],

@@ -46,10 +46,12 @@ host's and ``out``'s types as ``tiered_direct`` (float32 rows),
 
 from __future__ import annotations
 
+import copy
 import ctypes
 import warnings
 from typing import Optional, Union
 
+import numpy as np
 import torch
 
 from .. import constants as C
@@ -70,34 +72,62 @@ _DIRECT = {(torch.float32, torch.float32): "tiered_direct",
            (torch.float16, torch.bfloat16): "tiered_direct_f16_bf16"}
 
 
-def _map(tensor: torch.Tensor, index: int, what: str = "MappedHostTable"
-         ) -> int:
-    """Pin ``tensor``'s memory and map it for device ``index``; its device
-    address.  Raises if CUDA refuses."""
+def _map(tensor: torch.Tensor, index: int, what: str = "MappedHostTable",
+         read_only: bool = False) -> int:
+    """Pin ``tensor``'s memory and map it for every device, read-only
+    where asked (memory mapped without write access); its address on
+    device ``index``.  A second call over the same memory counts a
+    registration more (``xg_host_unmap`` releases one).  Raises if CUDA
+    refuses."""
     nbytes = tensor.numel() * tensor.element_size()
     out = ctypes.c_void_p()
     rc = _build.load("tiered").xg_host_map(tensor.data_ptr(), nbytes, index,
+                                           int(read_only),
                                            ctypes.addressof(out))
     if rc != 0:
         raise RuntimeError(f"{what}: pinning and mapping {nbytes} bytes "
-                           f"failed (CUDA error {rc}); the tiered store and "
-                           "topology have no other path")
+                           f"{'read-only ' if read_only else ''}for cuda:"
+                           f"{index} failed (CUDA error {rc}); the tiered "
+                           "store and topology have no other path")
     return out.value
+
+
+def registrations(tensor: torch.Tensor) -> int:
+    """How many :class:`MappedHostTensor` registrations hold the memory at
+    ``tensor``'s address (0: it is not pinned by one)."""
+    return _build.load("tiered").xg_host_map_count(tensor.data_ptr())
 
 
 class MappedHostTensor:
     """A contiguous tensor of ``dtype`` in host memory that a CUDA device
-    reads in place: on a CUDA ``device`` it is pinned and mapped into the
-    device's address space (``cudaHostRegister`` with
-    ``cudaHostRegisterMapped``), and any failure raises.  On the CPU it is
-    the plain tensor.  The data is copied first unless converting it made a
-    copy already (on the CPU too, unless ``share_on_cpu``): memory that the
-    caller holds is never pinned.  :meth:`close` (or garbage collection)
-    unmaps it."""
+    reads in place: on a CUDA ``device`` it is pinned and mapped for every
+    device of the process (``cudaHostRegister`` with
+    ``cudaHostRegisterPortable | cudaHostRegisterMapped``), and any
+    failure raises; :meth:`on` gives its view for another device.  On the
+    CPU it is the plain tensor.
 
-    def __init__(self, data, device: Union[str, torch.device],
+    Without ``mesh`` the data is copied first unless converting it made a
+    copy already (on the CPU too, unless ``share_on_cpu``): memory that the
+    caller holds is never pinned.  With ``mesh`` (a multi-card engine's)
+    the memory is the host's one copy, shared by the host's ranks
+    (``store/host_shared.SharedHostArray``: written by the host's first
+    rank, then mapped read-only by every rank of the host, each registering
+    it with ``cudaHostRegisterReadOnly``); on the mesh's device, and every
+    rank of the mesh's world must make it.  :meth:`close`
+    (or garbage collection) unmaps it."""
+
+    def __init__(self, data, device: Union[str, torch.device, None],
                  dtype: torch.dtype, what: str = "MappedHostTensor",
-                 share_on_cpu: bool = False):
+                 share_on_cpu: bool = False, mesh=None):
+        self.what = what
+        self.shared = None
+        self._ptrs: dict = {}  # the devices' addresses, by device index
+        self._view = False
+        self.read_only = False
+        if mesh is not None:
+            self.device = mesh.device
+            self._init_shared(data, mesh, dtype)
+            return
         device = torch.device(device)
         with warnings.catch_warnings():
             # a read-only array (a dataset file's memory map) is copied
@@ -110,25 +140,72 @@ class MappedHostTensor:
             # no copy was made: never pin memory that the caller holds
             own = own.clone()
         self.tensor = own.contiguous()
-        self.what = what
-        self._check()
+        self._check(tuple(self.tensor.shape))
         self.device = device
-        self.dev_ptr: Optional[int] = None
         if device.type == "cuda" and self.tensor.numel():
             index = device.index if device.index is not None else \
                 torch.cuda.current_device()
             self.device = torch.device("cuda", index)
             torch.cuda.init()
-            self.dev_ptr = _map(self.tensor, index, what)
+            self._ptrs[index] = _map(self.tensor, index, what)
 
-    def _check(self):
+    def _init_shared(self, data, mesh, dtype: torch.dtype):
+        from ..store.host_shared import SharedHostArray
+
+        self._check(tuple(data.shape) if hasattr(data, "shape")
+                    else np.shape(data))
+
+        def register(tensor: torch.Tensor):
+            self.tensor = tensor
+            torch.cuda.init()
+            self._ptrs[self.device.index] = _map(tensor, self.device.index,
+                                                 self.what, True)
+
+        def release():
+            self.close()
+            self.tensor = None
+
+        self.read_only = True
+        self.shared = SharedHostArray(
+            mesh, data, dtype, self.what,
+            register if self.device.type == "cuda" else None, release)
+        self.tensor = self.shared.tensor
+
+    @property
+    def dev_ptr(self) -> Optional[int]:
+        """The table's address on :attr:`device` (None on the CPU and for
+        an empty tensor)."""
+        return self._ptrs.get(self.device.index) \
+            if self.device.type == "cuda" else None
+
+    def on(self, device) -> "MappedHostTensor":
+        """This memory as ``device`` reads it: a view that shares the
+        tensor and the registration (one more device's address of it;
+        :meth:`close` of this object releases it, the view's does
+        nothing).  On the CPU, or for this object's own device, ``self``."""
+        device = torch.device(device)
+        if device == self.device or device.type != "cuda":
+            return self
+        if self.device.type != "cuda":
+            raise ValueError(f"{self.what}: a table mapped for the CPU "
+                             f"serves no {device}")
+        if device.index not in self._ptrs and self.tensor.numel():
+            self._ptrs[device.index] = _map(self.tensor, device.index,
+                                            self.what, self.read_only)
+        view = copy.copy(self)
+        view.device, view._view = device, True
+        return view
+
+    def _check(self, shape: tuple):
         """A subclass's refusal of a shape, before anything is pinned."""
 
     def close(self):
-        if self.dev_ptr is not None:
-            self.dev_ptr = None
+        if self._view:
+            return
+        for index in list(self._ptrs):
+            del self._ptrs[index]
             _build.load("tiered").xg_host_unmap(self.tensor.data_ptr(),
-                                                self.device.index)
+                                                index)
 
     def __del__(self):
         try:
@@ -140,16 +217,17 @@ class MappedHostTensor:
 class MappedHostTable(MappedHostTensor):
     """A 2-D :class:`MappedHostTensor`: the tiered store's host table of
     feature rows, float16 where ``table`` is float16 (an F16 feature file,
-    kept as JAX keeps its host tier), else float32."""
+    kept as JAX keeps its host tier), else float32; with ``mesh`` the
+    host's one copy."""
 
-    def __init__(self, table, device: Union[str, torch.device]):
+    def __init__(self, table, device: Union[str, torch.device, None] = None,
+                 mesh=None):
         super().__init__(table, device, feature_dtype(table),
-                         "MappedHostTable")
+                         "MappedHostTable", mesh=mesh)
 
-    def _check(self):
-        if self.tensor.dim() != 2:
-            raise ValueError(f"MappedHostTable: a 2-D table, got "
-                             f"{tuple(self.tensor.shape)}")
+    def _check(self, shape: tuple):
+        if len(shape) != 2:
+            raise ValueError(f"MappedHostTable: a 2-D table, got {shape}")
 
 
 # ---------------------------------------------------------- plain versions

@@ -16,7 +16,8 @@ The port keeps JAX's shape: **one process drives every role.**
   ``tensor.to(device, non_blocking=True)``, a no-op where the roles share
   a device.  With ``use_dist_graph`` and ``dist_graph_percentage < 1`` each
   sampler samples the tiered topology (``sampler.make_tiered_topology``:
-  the hot prefix on its device, the whole CSR mapped from host memory).
+  the hot prefix on its device, the whole CSR mapped from host memory,
+  one pinned copy that every sampler device reads).
   The port has no ``cold_cap``, so JAX's third tier element has no
   counterpart.
 - ``make_disagg_train_step``: a model replica and an ``Adam`` on each
@@ -73,8 +74,9 @@ def batch_to_shard(batch: SampledBatch, x: torch.Tensor,
             "overflow": batch.overflow}
 
 
-def _topology(dataset, config, device: torch.device):
-    """``(graph, tier, num_node)`` of a sampler on ``device``."""
+def _topology(dataset, config, device: torch.device, csr=None):
+    """``(graph, tier, num_node)`` of a sampler on ``device``; a tier reads
+    ``csr`` where given (another sampler's host CSR)."""
     weighted = config.sample_type in WEIGHTED
     src = getattr(dataset, "graph", None)
     src = dataset if src is None else src
@@ -84,7 +86,8 @@ def _topology(dataset, config, device: torch.device):
             src.indptr, src.indices, config.dist_graph_percentage,
             config.sample_type, prob_table=table("prob_table"),
             alias_table=table("alias_table"),
-            prob_prefix_table=table("prob_prefix_table"), device=device)
+            prob_prefix_table=table("prob_prefix_table"), device=device,
+            csr=csr)
     g = getattr(dataset, "graph", None)
     if g is None or g.indptr.device != device:
         g = Graph.from_dataset(dataset, device, weighted=weighted)
@@ -104,7 +107,11 @@ class DisaggregatedSampler:
         self.samplers = []
         for dev in self.devices:
             if str(dev) not in self.topologies:
-                self.topologies[str(dev)] = _topology(dataset, config, dev)
+                # the samplers' tiers read one host CSR
+                tiers = [t for _, t, _ in self.topologies.values()
+                         if t is not None]
+                self.topologies[str(dev)] = _topology(
+                    dataset, config, dev, tiers[0].csr if tiers else None)
             graph, tier, num_node = self.topologies[str(dev)]
             self.samplers.append(Sampler(graph, config, capacities,
                                          tier=tier, num_node=num_node))
@@ -129,7 +136,8 @@ class DisaggregatedSampler:
         return batch_to(batch, torch.device(train_device))
 
     def close(self):
-        """Unmap the tiered topologies' host CSRs."""
+        """Unmap the tiered topologies' host CSR (the first tier's; the
+        others are its views)."""
         for _, tier, _ in self.topologies.values():
             if tier is not None:
                 tier.csr.close()

@@ -23,7 +23,7 @@ The host cold tier (``dist_graph_percentage < 1``, a :class:`LocalTopo`
 with a ``tier``): the partitioned CSR is the hot node-id prefix ``[0,
 num_cache_node)`` only, and the whole graph's CSR lies in pinned host
 memory, mapped for the rank's card (``store/topology.py``'s
-``MappedHostCSR``; each rank maps its own).  A layer sends only the hot
+``MappedHostCSR``; a host's ranks share one).  A layer sends only the hot
 ids (K13-plan's ``hot_limit``: a cold id's pick is EMPTY, as an EMPTY
 request's), and the requesting rank draws its cold ids itself, in place
 from the host CSR, with the samplers' cold form (``ops/sampling.

@@ -23,8 +23,10 @@ mapped host memory from a kernel, so here nothing waits on the host:
 Replicated, the split and the reads are the single store's K11 over the
 rank's whole cache.  There is no miss bucket (JAX's ``miss_cap`` and its
 overflow): the reads take as many rows as the count on the device says.
-Each rank pins its own copy of the host table
-(:class:`~xgnn_tpu_torch.ops.tiered.MappedHostTable`).
+The host table is one copy a host, which the host's ranks share, each
+registering it for its card
+(:class:`~xgnn_tpu_torch.ops.tiered.MappedHostTable` with the engine's
+mesh, ``store/host_shared.py``).
 """
 
 from __future__ import annotations

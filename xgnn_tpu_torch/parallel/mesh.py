@@ -23,13 +23,22 @@ collectives (the exchanges, the presample's ``all_gather`` and
 the mesh of every rank, carries the reductions that span the groups (the
 gradients, the metrics, the flags).  A flat mesh is its own world.
 
+Hosts: a mesh knows the host of its rank (``host`` of ``num_hosts``) and
+the rank's place among the host's ranks (``local_rank`` of
+``local_size``).  A host's ranks share one copy of the host tier
+(``store/host_shared.py``), as JAX's one process a host holds it once;
+``parallel/multihost.py`` joins ranks on several hosts.
+
 Rendezvous goes through a file store in a fresh temporary directory,
-never a fixed TCP port.  :func:`make_mesh` makes a world of one in the
-caller's process (P = 1 needs no launcher); :func:`spawn` starts ``P``
+never a fixed TCP port (or, for simulated hosts, which share no
+directory, a TCP store on a free port of this host).  :func:`make_mesh`
+makes a world of one in the caller's process (P = 1 needs no launcher);
+:func:`spawn` starts ``P``
 ranks, one process each, runs a function in each and joins them under a
 time limit, failing if one raises, dies or hangs (a rank that never
 reaches a collective that the others wait in, a missed ``new_group``
-among them, is a hang).
+among them, is a hang); ``hosts=H`` makes them ``H`` simulated hosts of
+``P / H`` consecutive ranks each.
 """
 
 from __future__ import annotations
@@ -83,6 +92,22 @@ class Mesh:
     # the store's directory when this mesh made the group (make_mesh,
     # init_mesh): close() then ends the group and removes it
     _store_dir: Optional[str] = None
+    # this rank's host, and its place among the host's ranks (the world's
+    # on a DCN group's mesh)
+    host: int = 0
+    num_hosts: int = 1
+    local_rank: Optional[int] = None
+    local_size: Optional[int] = None
+    # the job's token for the host's shared files, broadcast from world
+    # rank 0 at the first use, and the files made so far
+    _token: Optional[str] = None
+    _shared: int = 0
+
+    def __post_init__(self):
+        if self.local_rank is None:
+            self.local_rank = self.rank
+        if self.local_size is None:
+            self.local_size = self.size
 
     @property
     def world(self) -> "Mesh":
@@ -137,16 +162,33 @@ class Mesh:
 
 
 def init_mesh(size: int, rank: int, init_method: str,
-              device=None) -> Mesh:
+              device=None, host: Optional[int] = None) -> Mesh:
     """Join a group of ``size`` ranks as ``rank`` through ``init_method``
-    (a ``file://`` store), on ``device`` (the card by default)."""
+    (a ``file://`` or ``tcp://`` store), on ``device`` (the card by
+    default), on host ``host`` (None: one host holds every rank).  With a
+    host given, the ranks exchange their hosts, which must be ``0..H-1``;
+    a host's ranks are numbered by world rank."""
     device = resolve(device)
     backend = backend_for(device)
     if device.type == "cuda":
         torch.cuda.set_device(device)
     dist.init_process_group(backend, init_method=init_method,
                             world_size=size, rank=rank)
-    return Mesh(rank, size, device, backend)
+    mesh = Mesh(rank, size, device, backend)
+    if host is None:
+        return mesh
+    try:
+        hosts = mesh.all_gather(torch.tensor(
+            [int(host)], dtype=torch.int64, device=device))[:, 0].tolist()
+        if sorted(set(hosts)) != list(range(len(set(hosts)))):
+            raise ValueError(f"the ranks' hosts {hosts} are not 0..H-1")
+    except BaseException:
+        dist.destroy_process_group()
+        raise
+    mesh.host, mesh.num_hosts = int(host), len(set(hosts))
+    mesh.local_rank = hosts[:rank].count(host)
+    mesh.local_size = hosts.count(host)
+    return mesh
 
 
 def make_mesh(device=None) -> Mesh:
@@ -187,7 +229,9 @@ def make_mesh_2d(num_groups: int, mesh: Mesh) -> Mesh:
     groups = [dist.new_group(list(range(i * g, (i + 1) * g)))
               for i in range(num_groups)]
     return Mesh(mesh.rank % g, g, mesh.device, mesh.backend,
-                group=groups[mesh.rank // g], parent=mesh)
+                group=groups[mesh.rank // g], parent=mesh, host=mesh.host,
+                num_hosts=mesh.num_hosts, local_rank=mesh.local_rank,
+                local_size=mesh.local_size)
 
 
 def _host(x):
@@ -203,12 +247,18 @@ def _host(x):
 
 
 def _rank_main(rank: int, size: int, init_method: str, device: str,
-               threads: int, fn: Callable, args: tuple, results):
+               threads: int, hosts: int, shm: Optional[str], fn: Callable,
+               args: tuple, results):
+    from ..store import host_shared
+    from .multihost import initialize
+
     try:
+        if shm is not None:
+            os.environ[host_shared.SHM_DIR_ENV] = shm
         torch.set_num_threads(threads)
-        dev = (torch.device("cuda", rank) if device == "cuda"
-               else torch.device(device))
-        mesh = init_mesh(size, rank, init_method, dev)
+        mesh = initialize(init_method, size, rank,
+                          host=rank // (size // hosts), card=rank,
+                          device="cpu" if device == "cpu" else None)
         try:
             out = _host(fn(mesh, *args))
         finally:
@@ -219,28 +269,51 @@ def _rank_main(rank: int, size: int, init_method: str, device: str,
         raise SystemExit(1)
 
 
+def _free_port() -> int:
+    """A TCP port that no socket of this host holds just now."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
 def spawn(fn: Callable, size: int, *args: Any, device=None,
-          timeout: Optional[float] = 120.0, threads: int = 1) -> list:
+          timeout: Optional[float] = 120.0, threads: int = 1,
+          hosts: int = 1) -> list:
     """Run ``fn(mesh, *args)`` in ``size`` new processes, rank ``r`` on card
     ``r`` (or each on the CPU with ``device="cpu"``), and return their
     results by rank, tensors as numpy arrays.  ``fn`` and ``args`` must be
-    picklable (a module's function).  Raises when a rank raises or dies,
-    and kills every rank when they are not all done within ``timeout``
-    seconds (None: no limit)."""
+    picklable (a module's function).  The ranks join through
+    ``multihost.initialize``, as ``hosts`` simulated hosts of ``size //
+    hosts`` consecutive ranks (rank ``r`` on host ``r // (size //
+    hosts)``), over a file store, or with ``hosts > 1`` a TCP store on a
+    free port of this host.  The ranks' shared host arrays go to a
+    directory of the job's own (``store.host_shared.job_dir``), removed at
+    the end, so that a rank killed while it writes one leaves nothing.
+    Raises when a rank raises or dies, and kills every rank when they are
+    not all done within ``timeout`` seconds (None: no limit)."""
     dev = resolve(device)
     backend_for(dev)
     if dev.type == "cuda" and size > torch.cuda.device_count():
         raise RuntimeError(f"{size} ranks need {size} cards, this host has "
                            f"{torch.cuda.device_count()}")
+    if hosts < 1 or size % hosts:
+        raise ValueError(f"{size} ranks do not fall into {hosts} hosts of "
+                         "equal size")
     import multiprocessing as mp
+
+    from ..store import host_shared
 
     ctx = mp.get_context("spawn")
     results = ctx.Queue()
     store = tempfile.mkdtemp(prefix="xgnn_mesh_")
-    init_method = f"file://{os.path.join(store, 'store')}"
+    init_method = (f"tcp://localhost:{_free_port()}" if hosts > 1
+                   else f"file://{os.path.join(store, 'store')}")
+    shm = host_shared.job_dir()
     procs = [ctx.Process(target=_rank_main,
-                         args=(r, size, init_method, dev.type, threads, fn,
-                               args, results), daemon=True)
+                         args=(r, size, init_method, dev.type, threads,
+                               hosts, shm, fn, args, results), daemon=True)
              for r in range(size)]
     deadline = time.monotonic() + (float("inf") if timeout is None
                                    else timeout)
@@ -275,6 +348,8 @@ def spawn(fn: Callable, size: int, *args: Any, device=None,
                 p.join()
         results.close()
         shutil.rmtree(store, ignore_errors=True)
+        if shm is not None:
+            shutil.rmtree(shm, ignore_errors=True)
     if error is not None:
         raise RuntimeError(error)
     return [got[r] for r in range(size)]

@@ -62,16 +62,17 @@ def _layer_fanouts(config: RunConfig) -> tuple:
 def make_tiered_topology(indptr, indices, percentage: float,
                          sample_type: SampleType, prob_table=None,
                          alias_table=None, prob_prefix_table=None,
-                         device=None):
+                         device=None, csr: Optional[MappedHostCSR] = None):
     """A single-store tiered topology: the hot node-id prefix, whose edges
     are ``percentage`` of all edges, clamped so that its offsets fit int32
     (``store/topology.py``), as a :class:`Graph` on ``device`` (with its
     weighted tables for a weighted ``sample_type``, and a coarse CDF of the
     hot rows); and the whole CSR with those tables in host memory, pinned
     and mapped for ``device`` (:class:`~xgnn_tpu_torch.store.topology.
-    MappedHostCSR`).  The arrays may be numpy arrays (a dataset directory's
-    read-only memory maps among them, a uint32 ``indptr`` from 2^31 edges
-    on) or tensors on any device.
+    MappedHostCSR`; ``csr``'s, read through its ``on``, where given: one
+    host copy for several devices).  The arrays may be numpy arrays (a
+    dataset directory's read-only memory maps among them, a uint32
+    ``indptr`` from 2^31 edges on) or tensors on any device.
 
     Returns ``(hot_graph, tier, num_node)`` for ``Sampler(hot_graph, cfg,
     tier=tier, num_node=num_node)``: the reference's single-GPU large-graph
@@ -97,7 +98,8 @@ def make_tiered_topology(indptr, indices, percentage: float,
         SimpleNamespace(indptr=host_indptr[:ncn + 1].astype(np.int32),
                         **{k: sl(v) for k, v in host.items()}),
         device, weighted=weighted)
-    csr = MappedHostCSR(host_indptr, device=device, **host)
+    csr = (MappedHostCSR(host_indptr, device=device, **host) if csr is None
+           else csr.on(device))
     return hot, Tier(ncn, csr), len(host_indptr) - 1
 
 

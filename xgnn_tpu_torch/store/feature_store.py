@@ -70,13 +70,17 @@ class TieredFeatureSource:
     PCIe), so a step waits on nothing; the engine pulls them once an epoch.
     The host table is a copy of ``feat_host`` in its float32 or float16
     (pulled from the device if it lies there; the source keeps no device
-    copy).
+    copy), or ``host``'s table where given (a :class:`MappedHostTable` that
+    several stores share, read on this device through its ``on``; its
+    owner closes it).
     """
 
     def __init__(self, feat_host, ranking, cache_percentage: float, device,
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None,
+                 host: Optional[MappedHostTable] = None):
         self.device = torch.device(device)
-        self.host = MappedHostTable(feat_host, self.device)
+        self.host = (MappedHostTable(feat_host, self.device) if host is None
+                     else host.on(self.device))
         self.dtype = dtype or self.host.tensor.dtype
         num_node, self.feat_dim = self.host.tensor.shape
         self.num_cache = int(num_node * cache_percentage)

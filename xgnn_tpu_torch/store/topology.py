@@ -23,6 +23,7 @@ and no cold overflow.
 
 from __future__ import annotations
 
+import copy
 from typing import NamedTuple, Optional, Union
 
 import numpy as np
@@ -82,7 +83,10 @@ class MappedHostCSR:
     ``prob_prefix_table`` float32).  On a CUDA ``device`` each is copied,
     pinned and mapped, and any failure raises; on the CPU they are plain
     tensors, sharing the caller's memory where no conversion copies it (a
-    memory-mapped file of 2^31 edges or more stays on disk)."""
+    memory-mapped file of 2^31 edges or more stays on disk).  With
+    ``mesh`` (a multi-card engine's) each array is the host's one copy,
+    shared by the host's ranks on the CPU and on the card alike
+    (``store/host_shared.py``), on the mesh's device."""
 
     TABLES = {"indices": torch.int32, "prob_table": torch.float32,
               "alias_table": torch.int32,
@@ -90,19 +94,20 @@ class MappedHostCSR:
 
     def __init__(self, indptr, indices, prob_table=None, alias_table=None,
                  prob_prefix_table=None,
-                 device: Union[str, torch.device] = "cpu"):
+                 device: Union[str, torch.device] = "cpu", mesh=None):
         given = dict(indices=indices, prob_table=prob_table,
                      alias_table=alias_table,
                      prob_prefix_table=prob_prefix_table)
         self.arrays = {}
         try:
             self.arrays["indptr"] = MappedHostTensor(
-                indptr, device, torch.int64, "MappedHostCSR indptr", True)
+                indptr, device, torch.int64, "MappedHostCSR indptr", True,
+                mesh)
             for name, dtype in self.TABLES.items():
                 if given[name] is not None:
                     self.arrays[name] = MappedHostTensor(
                         given[name], device, dtype, f"MappedHostCSR {name}",
-                        True)
+                        True, mesh)
         except Exception:
             self.close()
             raise
@@ -134,6 +139,18 @@ class MappedHostCSR:
         CPU, for an empty array, or where it was not given)."""
         arr = self.arrays.get(name)
         return None if arr is None else arr.dev_ptr
+
+    def on(self, device) -> "MappedHostCSR":
+        """These arrays as ``device`` reads them (each array's ``on``): a
+        view that shares the memory and its registration; closing this
+        object releases them, closing the view does nothing."""
+        device = torch.device(device)
+        if device == self.device or device.type != "cuda":
+            return self
+        view = copy.copy(self)
+        view.arrays = {k: a.on(device) for k, a in self.arrays.items()}
+        view.device = device
+        return view
 
     def close(self):
         for arr in self.arrays.values():

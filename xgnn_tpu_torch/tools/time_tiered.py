@@ -4,6 +4,7 @@
     python3 xgnn_tpu_torch/tools/time_tiered.py [--parent DIR]
     python3 xgnn_tpu_torch/tools/time_tiered.py --positions [--root DIR]
         [--turns N]
+    python3 xgnn_tpu_torch/tools/time_tiered.py --shared [--turns N]
 
 The inputs are those of ``chip_smoke.py``'s phase 8: the products-scale
 synthetic dataset (seed 0), GraphSAGE's configuration at cache 0.2 with
@@ -53,7 +54,23 @@ card), ms of 10 calls back to back, host microseconds a call (100 queued,
 no synchronise), and the profiler's kernels and memsets a call with their
 device microseconds; beside them the bound (the ids and pos once, a posmap
 word a valid id, the misses' positions and ids) over 3.35 TB/s.  Nothing
-else is run.  The last line is one JSON object.
+else is run.
+
+``--shared``: K11's whole call (``tiered_extract``), as drawn, on the
+same batch's input nodes as drawn and with 30% of them EMPTY, over three
+tables of the same rows: the store's anonymous pinned copy, made first,
+the host's shared copy (``MappedHostTable`` over a world of one: a file
+under ``/dev/shm`` mapped read-only and registered read-only,
+``store/host_shared.py``), and an anonymous pinned copy of the shared
+one made after it (``anonymous_late``, as ``chip_smoke.py``'s phase 16
+makes its anonymous table).  Each is held bit-equal to the plain version
+first, then timed in ``--turns`` rounds (anonymous, shared,
+anonymous_late, then the reverse): device ms (the host ahead of the
+card) and the misses' rate; beside them the kernel's transparent huge
+page settings as read and each table's mapping (``mapping_memory``: Rss,
+Pss, page sizes and huge pages).  Nothing else is run.
+
+The last line is one JSON object.
 """
 
 import argparse
@@ -328,6 +345,66 @@ def positions(torch, cs, _build, drawn, num, sparse, posmap, root, turns):
     return rows
 
 
+def shared_tables(torch, cs, store, inputs, dev, turns) -> dict:
+    """``--shared``: K11's whole call over the anonymous, the shared and a
+    late anonymous table in turns."""
+    from xgnn_tpu_torch.ops.tiered import (
+        MappedHostTable,
+        tiered_extract,
+        tiered_extract_plain,
+    )
+    from xgnn_tpu_torch.parallel.mesh import make_mesh
+    from xgnn_tpu_torch.store.host_shared import mapping_memory, thp_settings
+
+    out = {"thp": thp_settings(), "inputs": {}}
+    print(f"transparent huge pages: {out['thp']}", flush=True)
+    world = make_mesh(dev)
+    tables = {"anonymous": store.host}
+    try:
+        tables["shared"] = MappedHostTable(store.feat_host, mesh=world)
+        tables["anonymous_late"] = MappedHostTable(
+            tables["shared"].tensor, dev)
+        out["memory"] = {k: mapping_memory(t.tensor.data_ptr())
+                         for k, t in tables.items()}
+        print(f"tables' mappings: {out['memory']}", flush=True)
+        row_bytes = store.feat_dim * store.host.tensor.element_size()
+        for what, (ids, nv) in inputs.items():
+            ref, ref_counts = tiered_extract_plain(
+                ids, nv, store.posmap, store.cache_feat, store.feat_host)
+            calls = {k: (lambda t=t: tiered_extract(
+                ids, nv, store.posmap, store.cache_feat, t))
+                for k, t in tables.items()}
+            for k, call in calls.items():
+                got, cnt = call()
+                torch.cuda.synchronize()
+                if not (torch.equal(got, ref)
+                        and torch.equal(cnt, ref_counts)):
+                    raise AssertionError(f"{what}: K11 over the {k} table "
+                                         "differs from its plain version")
+            misses = int(ref_counts[1])
+            del ref, got
+            order = list(calls) + list(calls)[::-1]
+            ms = {k: [] for k in calls}
+            for _ in range(turns):
+                for k in order:
+                    ms[k].append(cs.time_ms(torch, calls[k],
+                                            host_ahead=True))
+            row = {"misses": misses, "device_ms": ms,
+                   "median_ms": {k: sorted(v)[len(v) // 2]
+                                 for k, v in ms.items()}}
+            row["miss_GBps"] = {k: misses * row_bytes / v / 1e6
+                                for k, v in row["median_ms"].items()}
+            out["inputs"][what] = row
+            print(f"K11's whole call, {what} ({misses} misses of "
+                  f"{row_bytes} bytes): " + json.dumps(row), flush=True)
+    finally:
+        for k in ("shared", "anonymous_late"):
+            if k in tables:
+                tables[k].close()
+        world.close()
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", default=None,
@@ -337,6 +414,9 @@ def main() -> int:
     ap.add_argument("--root", default=None,
                     help="with --positions: a parent checkout whose "
                     "wrapper is timed in turns")
+    ap.add_argument("--shared", action="store_true",
+                    help="time K11's whole call over the anonymous and the "
+                    "host's shared table in turns")
     ap.add_argument("--turns", type=int, default=2)
     args = ap.parse_args()
     sys.path.insert(0, str(CHECKOUT))
@@ -388,6 +468,12 @@ def main() -> int:
         report["positions"] = positions(torch, cs, _build, drawn, num,
                                         sparse, store.posmap, args.root,
                                         args.turns)
+        print(json.dumps(report))
+        return 0
+    if args.shared:
+        report["shared"] = shared_tables(
+            torch, cs, store, {"drawn": (drawn, num),
+                               "30% EMPTY": (sparse, num)}, dev, args.turns)
         print(json.dumps(report))
         return 0
     cached = (store.posmap != EMPTY).nonzero().flatten()
